@@ -1,0 +1,342 @@
+"""The serve slice of the PyTorch port against the JAX package.
+
+Models are trained and saved by the JAX package, loaded by the port on the
+CPU, and scored by both; the port must agree with the JAX package's outputs.
+
+The committed fixture under ``transmogrifai_tpu_torch/fixtures/serve64`` is
+written by this file's ``__main__`` entry (the card has no JAX, so the JAX
+package's outputs travel with the fixture as ``expected.npz``)::
+
+    python tests/test_torch_serve.py            # regenerate both models
+
+Tolerances (stated once, used throughout):
+
+* ``probability_1``: atol 1e-5 — the forest sums run in another order
+  than the JAX package's one-hot matmul, so values differ by f32 rounding;
+* ``prediction``: equal wherever |p - 0.5| > 1e-5 (a row that close to the
+  threshold may flip under that rounding).
+"""
+from __future__ import annotations
+
+import os
+import shutil
+import subprocess
+import sys
+
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+
+import numpy as np
+import pytest
+import jax  # noqa: F401
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if REPO not in sys.path:
+    sys.path.insert(0, REPO)
+
+import transmogrifai_tpu.models.trees  # noqa: E402,F401  (registers families)
+from transmogrifai_tpu.persistence import (  # noqa: E402
+    load_model as jax_load_model,
+)
+import transmogrifai_tpu_torch as port  # noqa: E402
+from transmogrifai_tpu_torch.local.scoring import (  # noqa: E402
+    SCORE_ERROR_KEY,
+)
+from transmogrifai_tpu_torch.persistence import (  # noqa: E402
+    CorruptModelError,
+)
+
+FIXTURE_DIR = os.path.join(REPO, "transmogrifai_tpu_torch", "fixtures",
+                           "serve64")
+
+PROB_ATOL = 1e-5
+PRED_MARGIN = 1e-5
+#: the JAX package against its own saved outputs (same package, same
+#: params; only its compiled programs may differ between processes)
+JAX_SELF_ATOL = 1e-6
+
+#: the serve-bench model shape (bench.py ``_serve_model``) at full width,
+#: with the winner pinned to one tree family
+SERVE_MODELS = {
+    "rf": ("OpRandomForestClassifier",
+           {"maxDepth": 12, "numTrees": 50, "minInstancesPerNode": 10,
+            "minInfoGain": 0.001, "subsamplingRate": 1.0}),
+    "gbt": ("OpGBTClassifier",
+            {"maxDepth": 6, "maxIter": 20, "stepSize": 0.1,
+             "minInstancesPerNode": 10, "minInfoGain": 0.001}),
+}
+
+
+# ---------------------------------------------------------------------------
+# JAX-side helpers: train, save, score
+# ---------------------------------------------------------------------------
+
+def train_jax_model(family: str, hyper: dict, n: int, d: int, seed: int,
+                    realnn: int = 0):
+    """Train ``transmogrify -> sanity_check -> selector`` with the JAX
+    package on ``n`` rows of ``d`` predictors (the first ``realnn`` of them
+    RealNN, the rest Real), labelled as the serve bench labels them (a
+    random linear rule)."""
+    import pandas as pd
+
+    import transmogrifai_tpu as tg
+    from transmogrifai_tpu.features import FeatureBuilder
+    from transmogrifai_tpu.impl.selector.factories import (
+        BinaryClassificationModelSelector)
+    from transmogrifai_tpu.workflow import OpWorkflow
+
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, d).astype(np.float32)
+    w = rng.randn(d).astype(np.float32)
+    y = (X @ w > 0).astype(np.float32)
+    df = pd.DataFrame({f"x{i}": X[:, i] for i in range(d)})
+    df["y"] = y
+    label = FeatureBuilder.RealNN("y").extract_field().as_response()
+    feats = [(FeatureBuilder.RealNN if i < realnn else FeatureBuilder.Real)(
+        f"x{i}").extract_field().as_predictor() for i in range(d)]
+    checked = tg.transmogrify(feats).sanity_check(label)
+    pred = (BinaryClassificationModelSelector.with_cross_validation(
+        seed=seed, models=[(family, [dict(hyper)])])
+        .set_input(label, checked).get_output())
+    return (OpWorkflow().set_input_dataset(df)
+            .set_result_features(pred).train())
+
+
+def score_frame(n: int, d: int, seed: int, nan_rate: float = 0.01):
+    """A scoring frame: ``{name: float32 column}`` with NaN as missing."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, d).astype(np.float32)
+    X[rng.rand(n, d) < nan_rate] = np.nan
+    return {f"x{i}": X[:, i] for i in range(d)}
+
+
+def jax_table(frame):
+    from transmogrifai_tpu.table import Column, FeatureTable
+    from transmogrifai_tpu.types import Real
+    cols = {}
+    for name, v in frame.items():
+        m = ~np.isnan(v)
+        cols[name] = Column(Real, np.where(m, v, 0.0).astype(np.float32), m)
+    return FeatureTable(cols, len(next(iter(frame.values()))))
+
+
+def prediction_parts(table, model):
+    """{key: (n,) float32} of the model's one Prediction column, from either
+    package's scored table (tensors are brought to the host)."""
+    name = model.result_features[0].name
+    col = table[name]
+    vals = col.values
+    if isinstance(vals, torch.Tensor):
+        vals = vals.cpu().numpy()
+    vals = np.asarray(vals)
+    return {k: vals[:, i] for i, k in enumerate(col.metadata["keys"])}
+
+
+def save_jax_model(model, path: str) -> None:
+    from transmogrifai_tpu.persistence import save_model
+    prev = os.environ.get("TG_AOT_SAVE")
+    os.environ["TG_AOT_SAVE"] = "0"     # no jax.export blobs in the dir
+    try:
+        save_model(model, path)
+    finally:
+        if prev is None:
+            os.environ.pop("TG_AOT_SAVE", None)
+        else:
+            os.environ["TG_AOT_SAVE"] = prev
+
+
+def generate_fixture(out_dir: str = FIXTURE_DIR, n: int = 20000, d: int = 64,
+                     n_score: int = 4096, seed: int = 0) -> None:
+    """Train both serve models at full width, save them, and write
+    ``expected.npz`` (the scoring frame and the JAX package's outputs)."""
+    frame = score_frame(n_score, d, seed + 1)
+    X = np.stack([frame[f"x{i}"] for i in range(d)], axis=1)
+    for key, (family, hyper) in SERVE_MODELS.items():
+        model = train_jax_model(family, hyper, n, d, seed)
+        path = os.path.join(out_dir, key)
+        save_jax_model(model, path)
+        parts = prediction_parts(model.score(table=jax_table(frame)), model)
+        np.savez_compressed(
+            os.path.join(path, "expected.npz"), X=X,
+            probability_1=parts["probability_1"],
+            prediction=parts["prediction"])
+
+
+# ---------------------------------------------------------------------------
+# Tests
+# ---------------------------------------------------------------------------
+
+#: tiny models: an RF deep enough to grow slot chains, a shallow heap GBT
+#: whose first two predictors are RealNN (so its vector is RealVectorizer
+#: and RealNNVectorizer output joined by VectorsCombiner)
+TINY_MODELS = {
+    "rf": ("OpRandomForestClassifier",
+           {"maxDepth": 12, "numTrees": 4, "minInstancesPerNode": 5,
+            "minInfoGain": 0.001, "subsamplingRate": 1.0}),
+    "gbt": ("OpGBTClassifier",
+            {"maxDepth": 3, "maxIter": 5, "stepSize": 0.1,
+             "minInstancesPerNode": 5, "minInfoGain": 0.001}),
+}
+TINY_D = 5
+TINY_REALNN = {"rf": 0, "gbt": 2}
+TINY_STAGES = {
+    "rf": ["RealVectorizerModel", "SanityCheckerModel", "SelectedModel"],
+    "gbt": ["RealNNVectorizer", "RealVectorizerModel", "VectorsCombiner",
+            "SanityCheckerModel", "SelectedModel"],
+}
+
+
+@pytest.fixture(scope="module")
+def tiny_models(tmp_path_factory):
+    """{key: (JAX model, saved dir)} trained on 400 rows."""
+    out = {}
+    for key, (family, hyper) in TINY_MODELS.items():
+        model = train_jax_model(family, hyper, n=400, d=TINY_D, seed=3,
+                                realnn=TINY_REALNN[key])
+        path = str(tmp_path_factory.mktemp(f"tiny_{key}"))
+        save_jax_model(model, path)
+        out[key] = (model, path)
+    return out
+
+
+def _assert_parts_agree(got, want, prob_atol=PROB_ATOL):
+    assert list(got) == list(want)
+    for key in want:
+        if key != "prediction":
+            np.testing.assert_allclose(got[key], want[key], rtol=0,
+                                       atol=prob_atol, err_msg=key)
+    far = np.abs(want["probability_1"] - 0.5) > PRED_MARGIN
+    np.testing.assert_array_equal(got["prediction"][far],
+                                  want["prediction"][far])
+
+
+def _rows(frame, n):
+    return [{k: (None if np.isnan(v[i]) else float(v[i]))
+             for k, v in frame.items()} for i in range(n)]
+
+
+@pytest.mark.parametrize("key", ["rf", "gbt"])
+def test_tiny_model_scores_match_jax(tiny_models, key):
+    model, path = tiny_models[key]
+    frame = score_frame(300, TINY_D, seed=4, nan_rate=0.05)
+    want = prediction_parts(model.score(table=jax_table(frame)), model)
+    loaded = port.load_model(path, device="cpu")
+    assert loaded.device == torch.device("cpu")
+    assert sorted(type(s).__name__ for s in loaded.stages) == sorted(
+        TINY_STAGES[key])
+    scored = loaded.score(data=frame)
+    assert scored[loaded.result_features[0].name].values.device.type == "cpu"
+    _assert_parts_agree(prediction_parts(scored, loaded), want)
+
+
+@pytest.mark.parametrize("key", ["rf", "gbt"])
+def test_tiny_score_function_matches_jax(tiny_models, key):
+    model, path = tiny_models[key]
+    loaded = port.load_model(path, device="cpu")
+    name = model.result_features[0].name
+    jax_fn, port_fn = model.score_function(), loaded.score_function()
+    rows = _rows(score_frame(6, TINY_D, seed=5, nan_rate=0.2), 6)
+    for row in rows:
+        want, got = jax_fn(row)[name], port_fn(row)[name]
+        assert sorted(got) == sorted(want)
+        for k in want:
+            if k == "prediction" and abs(want["probability_1"] - 0.5) \
+                    <= PRED_MARGIN:
+                continue
+            assert got[k] == pytest.approx(want[k], abs=PROB_ATOL), k
+    batch = port.micro_batch_score_function(loaded)(rows)
+    assert batch == [port_fn(row) for row in rows]
+
+
+def test_micro_batch_quarantines_only_bad_rows(tiny_models):
+    _, path = tiny_models["gbt"]
+    loaded = port.load_model(path, device="cpu")
+    rows = _rows(score_frame(3, TINY_D, seed=6), 3)
+    rows[1]["x2"] = "not a number"
+    out = port.micro_batch_score_function(loaded)(rows)
+    assert SCORE_ERROR_KEY in out[1] and "x2" in out[1][SCORE_ERROR_KEY]
+    assert all(v is None for k, v in out[1].items() if k != SCORE_ERROR_KEY)
+    fn = loaded.score_function()
+    assert [out[0], out[2]] == [fn(rows[0]), fn(rows[2])]
+
+
+@pytest.mark.parametrize("key", ["rf", "gbt"])
+def test_committed_fixture_matches_expected_in_both_packages(key):
+    path = os.path.join(FIXTURE_DIR, key)
+    exp = np.load(os.path.join(path, "expected.npz"))
+    frame = {f"x{i}": exp["X"][:, i] for i in range(exp["X"].shape[1])}
+    want = {"probability_1": exp["probability_1"],
+            "prediction": exp["prediction"]}
+    jm = jax_load_model(path)
+    jp = prediction_parts(jm.score(table=jax_table(frame)), jm)
+    np.testing.assert_allclose(jp["probability_1"], want["probability_1"],
+                               rtol=0, atol=JAX_SELF_ATOL)
+    pm = port.load_model(path, device="cpu")
+    assert [type(s).__name__ for s in pm.stages] == [
+        "RealVectorizerModel", "SanityCheckerModel", "SelectedModel"]
+    params = pm.stages[-1].fitted.params
+    if key == "rf":          # depth-12 refit: slot chains of 256 slots
+        assert tuple(params["feat_lv"].shape) == (50, 12, 256)
+    else:                    # depth-6 complete heaps
+        assert tuple(params["feat"].shape) == (20, 1, 63)
+    pp = prediction_parts(pm.score(data=frame), pm)
+    _assert_parts_agree({k: pp[k] for k in want}, want)
+
+
+def test_fixture_stays_small():
+    total = sum(os.path.getsize(os.path.join(root, f))
+                for root, _, files in os.walk(FIXTURE_DIR) for f in files)
+    assert total < 6 * 2 ** 20, total
+
+
+def _run(code: str, **env):
+    return subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          env=dict(os.environ, **env), capture_output=True,
+                          text=True, timeout=300)
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    res = _run(
+        "import importlib, pkgutil, sys\n"
+        "import transmogrifai_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib',\n"
+        "                                    'transmogrifai_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_load_without_device_needs_cuda():
+    res = _run("import transmogrifai_tpu_torch as p\n"
+               f"p.load_model({os.path.join(FIXTURE_DIR, 'gbt')!r})\n",
+               CUDA_VISIBLE_DEVICES="")
+    assert res.returncode != 0
+    assert "no CUDA device is available" in res.stderr, res.stderr
+
+
+def test_corrupt_or_unknown_saved_state_raises(tmp_path):
+    src = os.path.join(FIXTURE_DIR, "gbt")
+    bad = shutil.copytree(src, str(tmp_path / "bitflip"))
+    npz = os.path.join(bad, "arrays.npz")
+    blob = bytearray(open(npz, "rb").read())
+    blob[len(blob) // 2] ^= 0xFF
+    open(npz, "wb").write(bytes(blob))
+    with pytest.raises(CorruptModelError, match="sha256 mismatch"):
+        port.load_model(bad, device="cpu")
+    odd = shutil.copytree(src, str(tmp_path / "unknown"))
+    os.remove(os.path.join(odd, "MANIFEST.json"))   # loads unverified
+    plan_path = os.path.join(odd, "plan.json")
+    plan = open(plan_path).read().replace('"RealVectorizerModel"',
+                                          '"OneHotVectorizerModel"')
+    open(plan_path, "w").write(plan)
+    with pytest.raises(ValueError, match="OneHotVectorizerModel.*no "
+                                         "counterpart"):
+        port.load_model(odd, device="cpu")
+
+
+if __name__ == "__main__":
+    generate_fixture()

@@ -1,0 +1,62 @@
+"""Per-column provenance of feature vectors (counterpart of
+``transmogrifai_tpu.vector_metadata``): every slot of an ``OPVector`` column
+records the raw feature that produced it, its type, an optional grouping and
+an optional indicator value.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import List, Optional, Sequence
+
+NULL_INDICATOR = "NullIndicatorValue"
+
+
+@dataclass(frozen=True)
+class VectorColumnMetadata:
+    """Provenance of one vector slot."""
+    parent_feature_name: str
+    parent_feature_type: str
+    grouping: Optional[str] = None
+    indicator_value: Optional[str] = None
+    descriptor_value: Optional[str] = None
+    index: int = 0
+
+    def column_name(self) -> str:
+        parts = [self.parent_feature_name]
+        if self.grouping and self.grouping != self.parent_feature_name:
+            parts.append(self.grouping)
+        if self.indicator_value is not None:
+            parts.append(self.indicator_value)
+        elif self.descriptor_value is not None:
+            parts.append(self.descriptor_value)
+        return "_".join(parts) + f"_{self.index}"
+
+
+@dataclass(frozen=True)
+class VectorMetadata:
+    """Provenance of a whole vector column."""
+    name: str
+    columns: tuple
+
+    @property
+    def size(self) -> int:
+        return len(self.columns)
+
+    def column_names(self) -> List[str]:
+        return [c.column_name() for c in self.columns]
+
+    def select(self, indices: Sequence[int]) -> "VectorMetadata":
+        return VectorMetadata.of(self.name, [self.columns[i] for i in indices])
+
+    @staticmethod
+    def of(name: str, cols: Sequence[VectorColumnMetadata]) -> "VectorMetadata":
+        return VectorMetadata(
+            name, tuple(replace(c, index=i) for i, c in enumerate(cols)))
+
+    @staticmethod
+    def flatten(name: str,
+                metas: Sequence["VectorMetadata"]) -> "VectorMetadata":
+        cols: List[VectorColumnMetadata] = []
+        for m in metas:
+            cols.extend(m.columns)
+        return VectorMetadata.of(name, cols)
