@@ -36,7 +36,7 @@ sys.path.insert(0, HERE)
 import numpy as np
 import torch
 
-#: H100 SXM data-sheet peaks (on-chip-measurement guide)
+#: H100 SXM data-sheet peaks
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
@@ -68,7 +68,7 @@ def time_ms(fn, runs: int = TIMED_RUNS, warmup: int = 3) -> float:
 
 def bound_ms(nbytes: int, ops: int):
     """Least time for the work: bytes over HBM rate vs operations over the
-    fp32 non-tensor peak (the table has no separate int32 rate)."""
+    fp32 non-tensor peak (the data sheet gives no separate int32 rate)."""
     tb, to = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
