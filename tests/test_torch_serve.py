@@ -45,6 +45,7 @@ from transmogrifai_tpu_torch.local.scoring import (  # noqa: E402
 from transmogrifai_tpu_torch.persistence import (  # noqa: E402
     CorruptModelError,
 )
+from transmogrifai_tpu_torch.testing import serve_bench_data  # noqa: E402
 
 FIXTURE_DIR = os.path.join(REPO, "transmogrifai_tpu_torch", "fixtures",
                            "serve64")
@@ -76,7 +77,7 @@ def train_jax_model(family: str, hyper: dict, n: int, d: int, seed: int,
     """Train ``transmogrify -> sanity_check -> selector`` with the JAX
     package on ``n`` rows of ``d`` predictors (the first ``realnn`` of them
     RealNN, the rest Real), labelled as the serve bench labels them (a
-    random linear rule)."""
+    random linear rule, ``testing.serve_bench_data``)."""
     import pandas as pd
 
     import transmogrifai_tpu as tg
@@ -85,12 +86,7 @@ def train_jax_model(family: str, hyper: dict, n: int, d: int, seed: int,
         BinaryClassificationModelSelector)
     from transmogrifai_tpu.workflow import OpWorkflow
 
-    rng = np.random.RandomState(seed)
-    X = rng.randn(n, d).astype(np.float32)
-    w = rng.randn(d).astype(np.float32)
-    y = (X @ w > 0).astype(np.float32)
-    df = pd.DataFrame({f"x{i}": X[:, i] for i in range(d)})
-    df["y"] = y
+    df = pd.DataFrame(serve_bench_data(n, d, seed))
     label = FeatureBuilder.RealNN("y").extract_field().as_response()
     feats = [(FeatureBuilder.RealNN if i < realnn else FeatureBuilder.Real)(
         f"x{i}").extract_field().as_predictor() for i in range(d)]
@@ -306,8 +302,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "             if m.split('.')[0] in ('jax', 'jaxlib',\n"
         "                                    'transmogrifai_tpu'))\n"
         "print(bad)\n"
+        "print(' '.join(sorted(m for m in sys.modules\n"
+        "                      if m.startswith(p.__name__))))\n"
         "sys.exit(1 if bad else 0)\n")
     assert res.returncode == 0, res.stdout + res.stderr
+    walked = set(res.stdout.split())
+    for mod in ("histeng.kernels", "histeng.engine", "utils.padding",
+                "ops.metrics", "ops.stats", "evaluators.binary",
+                "impl.tuning.splitters", "impl.tuning.validators",
+                "impl.selector.factories", "impl.feature.transmogrifier",
+                "dsl", "workflow", "testing"):
+        assert f"transmogrifai_tpu_torch.{mod}" in walked, mod
 
 
 def test_load_without_device_needs_cuda():

@@ -1,13 +1,23 @@
 """Feature DAG nodes (counterpart of ``transmogrifai_tpu.features``): a
 ``Feature`` is a typed node whose origin stage produced it and whose parents
-are that stage's inputs. A loaded model rebuilds them from its saved
-feature graph (``persistence.features_from_json``).
+are that stage's inputs. User code builds raw features with
+``FeatureBuilder`` and derives the rest through stages; a loaded model
+rebuilds them from its saved feature graph
+(``persistence.features_from_json``).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Sequence, Set, Type
+import itertools
+from typing import Any, Callable, Dict, List, Optional, Sequence, Set, Type
 
-from .types import FeatureType
+from .types import FeatureType, Real, RealNN
+
+_uid_counter = itertools.count(1)
+
+
+def make_uid(cls_name: str) -> str:
+    """Stage/feature uid: ``ClassName_000000000001``."""
+    return f"{cls_name}_{next(_uid_counter):012x}"
 
 
 class Feature:
@@ -15,13 +25,13 @@ class Feature:
 
     def __init__(self, name: str, feature_type: Type[FeatureType],
                  is_response: bool, origin_stage: Any,
-                 parents: Sequence["Feature"], uid: str):
+                 parents: Sequence["Feature"], uid: Optional[str] = None):
         self.name = name
         self.feature_type = feature_type
         self.is_response = is_response
         self.origin_stage = origin_stage
         self.parents = tuple(parents)
-        self.uid = uid
+        self.uid = uid or make_uid(feature_type.__name__)
 
     @property
     def type_name(self) -> str:
@@ -66,6 +76,33 @@ class Feature:
         self.traverse(out.append)
         return out
 
+    def raw_features(self) -> List["Feature"]:
+        """All raw ancestors, de-duplicated, in traversal order."""
+        return [f for f in self.all_features() if f.is_raw]
+
+    def copy_with_new_stages(self, stage_map: Dict[str, Any]) -> "Feature":
+        """This feature's ancestry rebuilt with the stages of ``stage_map``
+        (uid -> fitted stage) in place of the originals; a swapped-in
+        stage's output feature is rewired to the copy."""
+        cache: Dict[str, Feature] = {}
+
+        def rec(f: "Feature") -> "Feature":
+            if f.uid in cache:
+                return cache[f.uid]
+            parents = [rec(p) for p in f.parents]
+            replaced = (f.origin_stage is not None
+                        and f.origin_stage.uid in stage_map)
+            stage = stage_map[f.origin_stage.uid] if replaced \
+                else f.origin_stage
+            nf = Feature(f.name, f.feature_type, f.is_response, stage,
+                         parents, uid=f.uid)
+            if replaced:
+                stage._output_feature = nf
+            cache[f.uid] = nf
+            return nf
+
+        return rec(self)
+
     def parent_stages(self) -> Dict[Any, int]:
         """Every ancestor stage mapped to its longest distance from this
         feature."""
@@ -96,3 +133,47 @@ class FieldExtractor:
         if isinstance(record, dict):
             return record.get(self.name)
         return getattr(record, self.name, None)
+
+
+class FeatureBuilder:
+    """Typed factory of raw features::
+
+        age = FeatureBuilder.Real("age").extract_field().as_predictor()
+        label = FeatureBuilder.RealNN("y").extract_field().as_response()
+
+    This slice builds ``Real`` and ``RealNN`` features."""
+
+    def __init__(self, name: str, feature_type: Type[FeatureType]):
+        self.name = name
+        self.feature_type = feature_type
+        self._extract_fn: Optional[Callable[[Any], Any]] = None
+
+    @classmethod
+    def Real(cls, name: str) -> "FeatureBuilder":
+        return cls(name, Real)
+
+    @classmethod
+    def RealNN(cls, name: str) -> "FeatureBuilder":
+        return cls(name, RealNN)
+
+    def extract(self, fn: Callable[[Any], Any]) -> "FeatureBuilder":
+        self._extract_fn = fn
+        return self
+
+    def extract_field(self) -> "FeatureBuilder":
+        """Extract the record field with the feature's name."""
+        return self.extract(FieldExtractor(self.name))
+
+    def _build(self, is_response: bool) -> Feature:
+        from .stages.base import FeatureGeneratorStage
+        stage = FeatureGeneratorStage(
+            extract_fn=self._extract_fn or FieldExtractor(self.name),
+            output_name=self.name, output_type=self.feature_type,
+            is_response=is_response)
+        return stage.get_output()
+
+    def as_predictor(self) -> Feature:
+        return self._build(is_response=False)
+
+    def as_response(self) -> Feature:
+        return self._build(is_response=True)

@@ -1,15 +1,17 @@
-"""Numeric vectorizers, fitted half (counterpart of
+"""Numeric vectorizers (counterpart of
 ``transmogrifai_tpu.impl.feature.vectorizers``): typed columns -> one
 OPVector column with per-slot provenance. They compute on the device the
-table's tensors are on.
+table's tensors are on; the mean fills are fitted on the host in float64,
+as the JAX package fits them.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
+import numpy as np
 import torch
 
-from ...stages.base import Transformer
+from ...stages.base import Estimator, Transformer
 from ...table import Column, FeatureTable
 from ...types import OPVector
 from ...vector_metadata import (
@@ -31,11 +33,45 @@ def _valid(col: Column) -> torch.Tensor:
     return col.mask
 
 
+class RealVectorizer(Estimator):
+    """Seq[Real] -> OPVector: fits one fill per column (the mean of its
+    valid values, or ``fill_value``)."""
+
+    output_type = OPVector
+
+    def __init__(self, fill_with_mean: bool = True, fill_value: float = 0.0,
+                 track_nulls: bool = True, uid: Optional[str] = None):
+        super().__init__("vecReal", uid)
+        self.fill_with_mean = fill_with_mean
+        self.fill_value = fill_value
+        self.track_nulls = track_nulls
+
+    def fit(self, table: FeatureTable) -> Transformer:
+        fills = []
+        for f in self.input_features:
+            col = table[f.name]
+            vals = torch.as_tensor(col.values).cpu().numpy().astype(
+                np.float64).reshape(-1)
+            m = (np.ones(vals.shape[0], bool) if col.mask is None
+                 else torch.as_tensor(col.mask).cpu().numpy())
+            fills.append(float(vals[m].mean())
+                         if self.fill_with_mean and m.any()
+                         else self.fill_value)
+        return self._finalize_model(
+            RealVectorizerModel(fills=fills, track_nulls=self.track_nulls))
+
+
 class RealVectorizerModel(Transformer):
     """Seq[Real] -> OPVector: each missing value takes its column's fill,
     and with ``track_nulls`` a null-indicator slot follows each column."""
 
     output_type = OPVector
+
+    def __init__(self, fills: List[float], track_nulls: bool,
+                 uid: Optional[str] = None):
+        super().__init__("vecReal", uid)
+        self.fills = fills
+        self.track_nulls = track_nulls
 
     def transform_column(self, table: FeatureTable) -> Column:
         cols = [table[f.name] for f in self.input_features]
@@ -63,6 +99,9 @@ class RealNNVectorizer(Transformer):
 
     output_type = OPVector
 
+    def __init__(self, uid: Optional[str] = None):
+        super().__init__("vecRealNN", uid)
+
     def transform_column(self, table: FeatureTable) -> Column:
         blocks = [table[f.name].values.reshape(-1).to(torch.float32)
                   for f in self.input_features]
@@ -77,6 +116,9 @@ class VectorsCombiner(Transformer):
     flattened in the same order."""
 
     output_type = OPVector
+
+    def __init__(self, uid: Optional[str] = None):
+        super().__init__("combined", uid)
 
     def transform_column(self, table: FeatureTable) -> Column:
         blocks, metas = [], []

@@ -1,35 +1,34 @@
-"""ModelSelector, fitted half (counterpart of
-``transmogrifai_tpu.impl.selector.model_selector``): the winning model emits
-a Prediction column on the device. The selection sweep waits for the
-training slice; its summary is carried as decoded from a saved model.
+"""ModelSelector (counterpart of
+``transmogrifai_tpu.impl.selector.model_selector``): the splitter reserves
+a holdout and balances the train rows, the validator sweeps families x
+grids x folds, the winner refits on the full prepared train rows, and the
+fitted ``SelectedModel`` emits a Prediction column on the device.
+
+Left out of this slice: workflow-level CV (``find_best_estimator``), the
+refit fallback to the next-ranked candidate, mesh sharding and sweep
+checkpoints (see ROADMAP.md). A refit that yields non-finite parameters
+raises.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ...models.api import MODEL_REGISTRY
-from ...stages.base import AllowLabelAsInput, Transformer
+from ...models.api import MODEL_REGISTRY, FittedParams, ModelFamily
+from ...stages.base import AllowLabelAsInput, Estimator, Transformer
 from ...table import Column, FeatureTable
-from ...types import Prediction
-
-
-@dataclass
-class ValidationResult:
-    """Per-(family, grid point) validation metrics of the sweep."""
-    family: str
-    grid: List[Dict[str, Any]]
-    metric_name: str
-    fold_metrics: Any        # (F, G)
-    mean_metrics: Any        # (G,)
+from ...types import OPVector, Prediction, RealNN
+from ...utils.padding import bucket_for
+from ..tuning.splitters import DataSplitter, PreparedData, Splitter
+from ..tuning.validators import OpCrossValidation, OpValidator
 
 
 @dataclass
 class ModelSelectorSummary:
-    """What the selection sweep found, as saved with the model."""
+    """What the selection sweep found."""
     validation_type: str
     validation_metric: str
     problem: str
@@ -45,12 +44,165 @@ class ModelSelectorSummary:
     quarantined: List[Dict[str, Any]] = field(default_factory=list)
 
 
+def _params_finite(params: Dict[str, torch.Tensor],
+                   allow_inf: Sequence[str]) -> bool:
+    """Every float leaf finite; keys in ``allow_inf`` (tree thresholds,
+    whose +inf marks a stopped node) are checked for NaN only."""
+    for k, v in params.items():
+        if not torch.is_floating_point(v):
+            continue
+        bad = torch.isnan(v) if k in allow_inf else ~torch.isfinite(v)
+        if bool(bad.any()):
+            return False
+    return True
+
+
+class ModelSelector(AllowLabelAsInput, Estimator):
+    """Estimator[(RealNN label, OPVector features)] -> Prediction."""
+
+    input_types = (RealNN, OPVector)
+    output_type = Prediction
+
+    #: fitted-param keys where +inf is a sentinel, not divergence
+    _INF_OK_PARAMS = ("thresh", "thresh_lv")
+
+    def __init__(self, problem: str, validator: Optional[OpValidator] = None,
+                 splitter: Optional[Splitter] = None,
+                 models: Optional[Sequence[Tuple[Any, Optional[List[Dict]]]]]
+                 = None, evaluator=None, uid: Optional[str] = None):
+        super().__init__("modelSelector", uid)
+        if problem != "binary":
+            raise NotImplementedError(
+                f"model selection for {problem!r} problems is not ported "
+                f"yet; this slice selects binary classifiers")
+        self.problem = problem
+        self.validator = validator or OpCrossValidation()
+        self.splitter = splitter if splitter is not None else DataSplitter()
+        self.evaluator = evaluator
+        self.models = self._resolve_models(models)
+
+    def _resolve_models(self, models):
+        from ...models import trees  # noqa: F401  (registers the families)
+        if models is None:
+            raise NotImplementedError(
+                "the default model list (logistic regression, RF, GBT, "
+                "linear SVC) is not ported yet; pass models=[(family, "
+                "grid)]")
+        resolved: List[Tuple[ModelFamily, List[Dict[str, Any]]]] = []
+        for fam, grid in models:
+            if isinstance(fam, str):
+                if fam not in MODEL_REGISTRY:
+                    raise ValueError(f"model family {fam!r} is not ported "
+                                     f"yet; the port has "
+                                     f"{sorted(MODEL_REGISTRY)}")
+                fam = MODEL_REGISTRY[fam]
+            if self.problem not in fam.supports:
+                raise ValueError(f"{fam.name} does not support problem kind "
+                                 f"'{self.problem}'")
+            if grid is None:
+                raise NotImplementedError(
+                    f"{fam.name}'s default grid (maxDepth up to 12) is not "
+                    f"ported yet; pass a grid")
+            resolved.append((fam, list(grid)))
+        return resolved
+
+    @property
+    def validation_metric(self) -> Tuple[str, bool]:
+        if self.evaluator is not None:
+            return self.evaluator.default_metric, self.evaluator.larger_better
+        return "AuPR", True
+
+    def fit(self, table: FeatureTable) -> Transformer:
+        label_f, vec_f = self.input_features
+        y_all_d = torch.as_tensor(table[label_f.name].values).to(
+            torch.float32).reshape(-1)
+        y_all = y_all_d.cpu().numpy()
+        Xd_all = torch.as_tensor(table[vec_f.name].values).to(torch.float32)
+        dev = Xd_all.device
+        n = len(y_all)
+        if self.splitter is not None and self.splitter.reserve_test_fraction:
+            train_idx, test_idx = self.splitter.split(n)
+        else:
+            train_idx, test_idx = np.arange(n), np.array([], dtype=np.int64)
+        prep = (self.splitter.pre_validation_prepare(y_all[train_idx])
+                if self.splitter is not None
+                else PreparedData(indices=np.arange(len(train_idx))))
+        if prep.label_mapping:
+            raise NotImplementedError("label re-indexing (DataCutter) is not "
+                                      "ported yet")
+        sel = torch.as_tensor(train_idx[prep.indices], device=dev)
+        Xd, yd = Xd_all[sel], y_all_d[sel]
+        num_classes = 2
+        metric_name, larger_better = self.validation_metric
+        best = self.validator.validate(self.models, Xd, yd, self.problem,
+                                       metric_name, larger_better,
+                                       num_classes)
+
+        # refit the winner on the full prepared train rows, bucket-padded
+        # with zero weights as in the JAX package
+        n_fit = yd.shape[0]
+        n_pad = bucket_for(n_fit)
+        Xf = torch.nn.functional.pad(Xd, (0, 0, 0, n_pad - n_fit))
+        yf = torch.nn.functional.pad(yd, (0, n_pad - n_fit))
+        W = torch.zeros((1, n_pad), dtype=torch.float32, device=dev)
+        W[:, :n_fit] = 1.0
+        family = MODEL_REGISTRY[best.family_name]
+        params = family.select_params(
+            family.fit_batch(Xf, yf, W, family.grid_to_arrays([best.hyper]),
+                             num_classes), 0)
+        if not _params_finite(params, self._INF_OK_PARAMS):
+            raise ArithmeticError(f"the refit of {best.family_name} "
+                                  f"{best.hyper} produced non-finite params")
+        fitted = FittedParams(family=best.family_name, params=params,
+                              hyper=dict(best.hyper), num_classes=num_classes)
+        summary = ModelSelectorSummary(
+            validation_type=type(self.validator).__name__,
+            validation_metric=metric_name, problem=self.problem,
+            best_model_type=best.family_name, best_hyper=dict(best.hyper),
+            best_metric_value=best.metric_value, larger_better=larger_better,
+            validation_results=best.results,
+            splitter_summary=dict(getattr(self.splitter, "summary", {})
+                                  or {}),
+            validation_eval_row_cap=self.validator.max_eval_rows,
+            quarantined=list(best.quarantined))
+        model = self._finalize_model(SelectedModel(
+            fitted=fitted, summary=summary, label_mapping=None))
+
+        ev = self._default_evaluator()
+        ev.set_label_col(label_f.name)
+        ev.set_prediction_col(model.get_output().name)
+        summary.train_evaluation = _scalar_metrics(
+            ev.evaluate_all(model.transform(table.take(train_idx))))
+        if len(test_idx):
+            summary.holdout_evaluation = _scalar_metrics(
+                ev.evaluate_all(model.transform(table.take(test_idx))))
+        return model
+
+    def _default_evaluator(self):
+        if self.evaluator is not None:
+            return self.evaluator
+        from ...evaluators import OpBinaryClassificationEvaluator
+        return OpBinaryClassificationEvaluator()
+
+
+def _scalar_metrics(metrics: Dict[str, Any]) -> Dict[str, float]:
+    return {k: v for k, v in metrics.items() if isinstance(v, (int, float))}
+
+
 class SelectedModel(AllowLabelAsInput, Transformer):
     """The fitted winner: inputs are (label, feature vector); emits an
     (n, k) Prediction column with keys prediction / rawPrediction_i /
     probability_i. Exactly n rows: no padding to row buckets."""
 
     output_type = Prediction
+
+    def __init__(self, fitted: FittedParams, summary: ModelSelectorSummary,
+                 label_mapping: Optional[Dict[int, int]] = None,
+                 uid: Optional[str] = None):
+        super().__init__("modelSelector", uid)
+        self.fitted = fitted
+        self.summary = summary
+        self.label_mapping = label_mapping
 
     def _unmap_prediction(self, pred: torch.Tensor) -> torch.Tensor:
         """Map dense class indices back to the original labels that the

@@ -1,12 +1,19 @@
-"""Model-family API, predict contract (counterpart of
-``transmogrifai_tpu.models.api``). Fitting waits for the training slice; a
-family here turns fitted parameters into predictions on a device.
+"""Model-family API (counterpart of ``transmogrifai_tpu.models.api``): a
+family fits a batch of configurations at once and turns fitted parameters
+into predictions on a device.
+
+The fit contract is the JAX package's: ``fit_batch(X, y, weights, grid,
+num_classes)`` takes X (n, d), y (n,), per-configuration row weights
+(B, n) (0 = row excluded) and a grid of (B,) hyperparameter arrays, and
+returns stacked parameters with a leading config axis B. Grids stay host
+numpy arrays: tree families derive static structure (depth, rounds) from
+them.
 """
 from __future__ import annotations
 
 import abc
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Dict, Sequence
 
 import numpy as np
 import torch
@@ -23,17 +30,53 @@ class FittedParams:
 
 
 class ModelFamily(abc.ABC):
-    """A model family's predict contract."""
+    """A model family: its batched fit and its predict contract."""
 
     #: family name, e.g. "OpRandomForestClassifier"
     name: str = ""
     #: problem kinds: subset of {"binary", "multiclass", "regression"}
     supports: frozenset = frozenset()
 
+    def fit_batch(self, X: torch.Tensor, y: torch.Tensor,
+                  weights: torch.Tensor, grid: Dict[str, np.ndarray],
+                  num_classes: int) -> Dict[str, torch.Tensor]:
+        """Fit B configurations at once (see the module notes)."""
+        raise NotImplementedError(f"fitting {self.name} is not ported yet")
+
+    def sweep_fit_batch(self, X: torch.Tensor, y: torch.Tensor,
+                        weights: torch.Tensor, grid: Dict[str, np.ndarray],
+                        num_classes: int) -> Dict[str, torch.Tensor]:
+        """``fit_batch`` for CV-sweep candidates; a family may trade exact
+        fitted state for sweep speed here (the selector refits the winner
+        through ``fit_batch``). Default: ``fit_batch``."""
+        return self.fit_batch(X, y, weights, grid, num_classes)
+
+    def grid_to_arrays(self, grid: Sequence[Dict[str, Any]]
+                       ) -> Dict[str, np.ndarray]:
+        """A list of hyperparameter dicts -> {key: (B,) float32 array}."""
+        keys = sorted({k for g in grid for k in g})
+        return {k: np.asarray([g[k] for g in grid], dtype=np.float32)
+                for k in keys}
+
+    def select_params(self, batched: Dict[str, torch.Tensor],
+                      idx: int) -> Dict[str, torch.Tensor]:
+        """Configuration ``idx`` of stacked params, as contiguous tensors."""
+        return {k: v[idx].contiguous() for k, v in batched.items()}
+
+    def slice_params(self, batched: Dict[str, torch.Tensor], lo: int,
+                     hi: int) -> Dict[str, torch.Tensor]:
+        """Configurations [lo, hi) of stacked params."""
+        return {k: v[lo:hi] for k, v in batched.items()}
+
     @abc.abstractmethod
     def params_from_numpy(self, params: Dict[str, np.ndarray],
                           device) -> Dict[str, torch.Tensor]:
         """Saved numpy parameters -> tensors on ``device``."""
+
+    def predict_batch(self, params: Dict[str, torch.Tensor], X: torch.Tensor,
+                      num_classes: int) -> torch.Tensor:
+        """Scores of stacked params: (B, n) for binary and regression."""
+        raise NotImplementedError(f"{self.name} has no batched predict")
 
     @abc.abstractmethod
     def predict_parts(self, fitted: FittedParams,

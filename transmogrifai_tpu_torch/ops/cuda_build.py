@@ -18,6 +18,8 @@ import threading
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
+import torch
+
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -102,3 +104,51 @@ def load(source: str) -> ctypes.CDLL:
             lib.tg_cuda_error_string.restype = ctypes.c_char_p
             _LIBS[source] = lib
         return lib
+
+
+def expect(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
+           device: torch.device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``: what a kernel entry takes."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def check_int32(*vals: int) -> None:
+    if any(v >= 2 ** 31 for v in vals):
+        raise ValueError(f"sizes {vals} exceed the kernel's int32 range")
+
+
+def ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+class CudaKernel:
+    """One hand-written CUDA kernel bound through ``ctypes``.
+
+    ``launches`` counts the launches of the kernel and nothing else."""
+
+    def __init__(self, name: str, source: str, replaces: str, argtypes):
+        self.name = name
+        self.source = source
+        self.replaces = replaces
+        self.argtypes = argtypes
+        self.launches = 0
+
+    def launch(self, *args) -> None:
+        lib = load(self.source)
+        fn = getattr(lib, self.name)
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        err = fn(*args)
+        if err != 0:
+            msg = lib.tg_cuda_error_string(err).decode()
+            raise RuntimeError(f"{self.name}: CUDA error {err} ({msg})")
+        self.launches += 1

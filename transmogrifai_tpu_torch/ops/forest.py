@@ -26,6 +26,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import cuda_build
+from .cuda_build import check_int32, expect, ptr
 
 _MAX_BINS = 256
 _MAX_SLOTS = 256
@@ -139,65 +140,19 @@ def forest_predict_chain_plain(codes, feat_lv, bin_lv, base_lv, leaf, *,
 # CUDA kernels
 # ---------------------------------------------------------------------------
 
-class CudaKernel:
-    """One hand-written CUDA kernel bound through ``ctypes``.
-
-    ``launches`` counts the launches of the kernel and nothing else."""
-
-    def __init__(self, name: str, source: str, replaces: str, argtypes):
-        self.name = name
-        self.source = source
-        self.replaces = replaces
-        self.argtypes = argtypes
-        self.launches = 0
-
-    def launch(self, *args) -> None:
-        lib = cuda_build.load(self.source)
-        fn = getattr(lib, self.name)
-        fn.argtypes = self.argtypes
-        fn.restype = ctypes.c_int
-        err = fn(*args)
-        if err != 0:
-            msg = lib.tg_cuda_error_string(err).decode()
-            raise RuntimeError(f"{self.name}: CUDA error {err} ({msg})")
-        self.launches += 1
-
-
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 #: ``replaces`` is the file:line of the Pallas kernel function each ports
-FOREST_PREDICT_HEAP = CudaKernel(
+FOREST_PREDICT_HEAP = cuda_build.CudaKernel(
     "forest_predict_heap", "forest_predict.cu",
     "transmogrifai_tpu/ops/forest.py:196",
     [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
-FOREST_PREDICT_CHAIN = CudaKernel(
+FOREST_PREDICT_CHAIN = cuda_build.CudaKernel(
     "forest_predict_chain", "forest_predict.cu",
     "transmogrifai_tpu/ops/forest.py:503",
     [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P])
 
 KERNELS = (FOREST_PREDICT_HEAP, FOREST_PREDICT_CHAIN)
-
-
-def _expect(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
-            device: torch.device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, codes on {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, got "
-                         f"{tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _int32(*vals: int) -> None:
-    if any(v >= 2 ** 31 for v in vals):
-        raise ValueError(f"sizes {vals} exceed the kernel's int32 range")
-
-
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else t.data_ptr()
 
 
 def forest_predict_heap_cuda(codes, feat_heap, bin_heap, leaf, *, depth: int,
@@ -214,18 +169,18 @@ def forest_predict_heap_cuda(codes, feat_heap, bin_heap, leaf, *, depth: int,
     if L != 2 ** depth:
         raise ValueError(f"leaf has {L} leaves, depth {depth} has "
                          f"{2 ** depth}")
-    _expect(codes, "codes", torch.int32, (n, d), dev)
-    _expect(feat_heap, "feat_heap", torch.int32, (T, L - 1), dev)
-    _expect(bin_heap, "bin_heap", torch.int32, (T, L - 1), dev)
-    _expect(leaf, "leaf", torch.float32, (T, L, k), dev)
-    _int32(n * d, n * k, n * T, T * L * k)
+    expect(codes, "codes", torch.int32, (n, d), dev)
+    expect(feat_heap, "feat_heap", torch.int32, (T, L - 1), dev)
+    expect(bin_heap, "bin_heap", torch.int32, (T, L - 1), dev)
+    expect(leaf, "leaf", torch.float32, (T, L, k), dev)
+    check_int32(n * d, n * k, n * T, T * L * k)
     out = torch.empty((n, k), dtype=torch.float32, device=dev)
     ids = (torch.empty((n, T), dtype=torch.int32, device=dev)
            if with_ids else None)
     if n:
         FOREST_PREDICT_HEAP.launch(
-            _ptr(codes), _ptr(feat_heap), _ptr(bin_heap), _ptr(leaf),
-            _ptr(out), _ptr(ids), n, d, T, depth, k, dev.index,
+            ptr(codes), ptr(feat_heap), ptr(bin_heap), ptr(leaf),
+            ptr(out), ptr(ids), n, d, T, depth, k, dev.index,
             torch.cuda.current_stream(dev).cuda_stream)
     return out, ids
 
@@ -244,19 +199,19 @@ def forest_predict_chain_cuda(codes, feat_lv, bin_lv, base_lv, leaf, *,
     W_out, k = leaf.shape[1], leaf.shape[2]
     if W < 1:
         raise ValueError("slot chains need at least one slot")
-    _expect(codes, "codes", torch.int32, (n, d), dev)
+    expect(codes, "codes", torch.int32, (n, d), dev)
     for name, t in (("feat_lv", feat_lv), ("bin_lv", bin_lv),
                     ("base_lv", base_lv)):
-        _expect(t, name, torch.int32, (T, depth, W), dev)
-    _expect(leaf, "leaf", torch.float32, (T, W_out, k), dev)
-    _int32(n * d, n * k, n * T, T * depth * W, T * W_out * k)
+        expect(t, name, torch.int32, (T, depth, W), dev)
+    expect(leaf, "leaf", torch.float32, (T, W_out, k), dev)
+    check_int32(n * d, n * k, n * T, T * depth * W, T * W_out * k)
     out = torch.empty((n, k), dtype=torch.float32, device=dev)
     ids = (torch.empty((n, T), dtype=torch.int32, device=dev)
            if with_ids else None)
     if n:
         FOREST_PREDICT_CHAIN.launch(
-            _ptr(codes), _ptr(feat_lv), _ptr(bin_lv), _ptr(base_lv),
-            _ptr(leaf), _ptr(out), _ptr(ids), n, d, T, depth, W, W_out, k,
+            ptr(codes), ptr(feat_lv), ptr(bin_lv), ptr(base_lv),
+            ptr(leaf), ptr(out), ptr(ids), n, d, T, depth, W, W_out, k,
             dev.index, torch.cuda.current_stream(dev).cuda_stream)
     return out, ids
 

@@ -29,9 +29,8 @@ from .impl.preparators.sanity_checker import (
     CategoricalGroupStats, ColumnStatistics, SanityCheckerModel,
     SanityCheckerSummary,
 )
-from .impl.selector.model_selector import (
-    ModelSelectorSummary, SelectedModel, ValidationResult,
-)
+from .impl.selector.model_selector import ModelSelectorSummary, SelectedModel
+from .impl.tuning.validators import ValidationResult
 from .manifest import CheckpointManifest
 from .models import trees  # noqa: F401  (registers the tree families)
 from .models.api import MODEL_REGISTRY, FittedParams

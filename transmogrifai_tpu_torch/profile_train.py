@@ -1,0 +1,138 @@
+"""Where the training path's time goes, on one NVIDIA GPU.
+
+    python3 -m transmogrifai_tpu_torch.profile_train [--rows 20000] [--reps 3]
+
+Trains the serve bench's pinned GBT workflow (64 ``Real`` predictors,
+``transmogrify -> sanity_check -> BinaryClassificationModelSelector``,
+maxDepth 6, 20 rounds; ``testing.serve_bench_workflow``) on ``--rows``
+seeded rows, once to warm up and then ``--reps`` times, and prints one
+JSON line: the median seconds of the whole ``train()``, of each stage's
+fit, and inside the selector of the CV sweep, the winner's refit and the
+train/holdout evaluations (host clock, each ending in
+``torch.cuda.synchronize()``); then, from ``torch.profiler`` over one
+more train, the device time per kernel name and the device's busy share
+of the train.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from contextlib import contextmanager
+
+import torch
+
+GBT_HYPER = {"maxDepth": 6, "maxIter": 20, "stepSize": 0.1,
+             "minInstancesPerNode": 10, "minInfoGain": 0.001}
+
+
+@contextmanager
+def _timing(phases: dict):
+    """Time each stage fit and the selector's sweep, refit and evaluations
+    by wrapping them for the duration of the block."""
+    from .evaluators.binary import OpBinaryClassificationEvaluator
+    from .impl.feature.vectorizers import RealVectorizer
+    from .impl.preparators.sanity_checker import SanityChecker
+    from .impl.selector.model_selector import ModelSelector, SelectedModel
+    from .impl.tuning.validators import OpValidator
+    from .models.trees import GBTFamilyBase
+
+    targets = [
+        (RealVectorizer, "fit", lambda *a, **k: "fit RealVectorizer"),
+        (SanityChecker, "fit", lambda *a, **k: "fit SanityChecker"),
+        (ModelSelector, "fit", lambda *a, **k: "fit ModelSelector"),
+        (OpValidator, "validate", lambda *a, **k: "selector: CV sweep"),
+        (GBTFamilyBase, "fit_batch", lambda *a, sweep=False, **k:
+         "selector: CV fits" if sweep else "selector: refit"),
+        (SelectedModel, "transform_column",
+         lambda *a, **k: "selector: evaluation predicts"),
+        (OpBinaryClassificationEvaluator, "evaluate_all",
+         lambda *a, **k: "selector: evaluation metrics"),
+    ]
+    saved = [(owner, name, getattr(owner, name))
+             for owner, name, _ in targets]
+
+    def timed(key_fn, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            phases.setdefault(key_fn(*a, **kw), []).append(
+                time.perf_counter() - t0)
+            return out
+        return run
+
+    for (owner, name, key_fn), (_, _, fn) in zip(targets, saved):
+        setattr(owner, name, timed(key_fn, fn))
+    try:
+        yield
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def profile(rows: int, reps: int) -> dict:
+    from .testing import serve_bench_data, serve_bench_workflow
+
+    data = serve_bench_data(rows, 64, seed=0)
+
+    def train():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serve_bench_workflow("OpGBTClassifier", GBT_HYPER, 64, seed=0
+                             ).set_input_dataset(data).train()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    train()                                     # warm-up
+    phases: dict = {}
+    with _timing(phases):
+        for _ in range(reps):
+            train()
+    whole = [train() for _ in range(reps)]
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        wall = train()
+    kernels = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "device_time_total",
+                         getattr(ev, "cuda_time_total", 0.0))
+        if dev_us > 0 and getattr(ev, "device_type", None) == \
+                torch.autograd.DeviceType.CUDA:
+            kernels[ev.key[:80]] = dev_us / 1e3
+    busy_ms = sum(kernels.values())
+    return {
+        "rows": rows, "reps": reps,
+        "train_s": statistics.median(whole),
+        "phases_s": {k: statistics.median(v) for k, v in phases.items()},
+        "profiled_train_s": wall,
+        "device_busy_ms": busy_ms,
+        "device_busy_share": busy_ms / 1e3 / wall,
+        "device_ms_by_kernel": dict(sorted(kernels.items(),
+                                           key=lambda kv: -kv[1])[:15]),
+    }
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--rows", type=int, default=20000)
+    ap.add_argument("--reps", type=int, default=3)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_train: no CUDA device", file=sys.stderr)
+        return 1
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0])
+    print(json.dumps(profile(args.rows, args.reps)))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -41,6 +41,15 @@ class Column:
     def __len__(self) -> int:
         return int(self.values.shape[0])
 
+    def take(self, idx) -> "Column":
+        """Rows ``idx`` (host ints) of the column, on its own device."""
+        def pick(a):
+            if isinstance(a, torch.Tensor):
+                return a[torch.as_tensor(idx, device=a.device)]
+            return np.asarray(a)[idx]
+        return replace(self, values=pick(self.values),
+                       mask=None if self.mask is None else pick(self.mask))
+
     def to_host(self) -> "Column":
         def host(a):
             return a.cpu().numpy() if isinstance(a, torch.Tensor) else a
@@ -90,6 +99,12 @@ class FeatureTable:
         cols = dict(self._columns)
         cols[name] = col
         return FeatureTable(cols, self.num_rows)
+
+    def take(self, idx) -> "FeatureTable":
+        """Rows ``idx`` of every column."""
+        idx = np.asarray(idx, dtype=np.int64)
+        return FeatureTable({n: c.take(idx) for n, c in self._columns.items()},
+                            int(idx.shape[0]))
 
     def to_device(self, device) -> "FeatureTable":
         """Move every numeric host column onto ``device``: the values pack

@@ -1,6 +1,8 @@
-"""Seeded random forests for holding the descent kernels to their plain
-versions (tests and ``chip_smoke.py``). Everything is numpy, so the same
-seed gives the same forest to the JAX package and to the port."""
+"""Seeded inputs for the tests and ``chip_smoke.py``: random forests for
+holding the descent kernels to their plain versions, the one-hot histogram
+by its definition, and the serve bench's training frame and workflow.
+Everything random is numpy, so the same seed gives the same inputs to the
+JAX package and to the port."""
 from __future__ import annotations
 
 from typing import Dict
@@ -45,3 +47,50 @@ def random_chain(rng: np.random.RandomState, n: int, d: int, T: int,
         "feat": feat, "bins": bins, "base": base,
         "leaf": rng.rand(T, min(2 ** depth, W), k).astype(np.float32),
     }
+
+
+def hist_direct(codes: np.ndarray, A: np.ndarray, n_bins: int) -> np.ndarray:
+    """The one-hot histogram by its definition, in float64:
+    out[a, f * n_bins + b] = sum_s A[s, a] * 1[codes[s, f] == b]; codes
+    outside [0, n_bins) add nothing."""
+    S, d = codes.shape
+    out = np.zeros((A.shape[1], d * n_bins), np.float64)
+    A64 = A.astype(np.float64)
+    for f in range(d):
+        ok = (codes[:, f] >= 0) & (codes[:, f] < n_bins)
+        for b in range(n_bins):
+            out[:, f * n_bins + b] = A64[ok & (codes[:, f] == b)].sum(0)
+    return out
+
+
+def serve_bench_data(n: int, d: int, seed: int) -> Dict[str, np.ndarray]:
+    """The serve bench's training frame: ``d`` standard-normal predictors
+    ``x0..`` and a label ``y`` from a random linear rule, all float32 from
+    ``RandomState(seed)`` (the recipe the committed fixtures were trained
+    on)."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, d).astype(np.float32)
+    w = rng.randn(d).astype(np.float32)
+    data = {f"x{i}": X[:, i] for i in range(d)}
+    data["y"] = (X @ w > 0).astype(np.float32)
+    return data
+
+
+def serve_bench_workflow(family: str, hyper: Dict, d: int, seed: int,
+                         realnn: int = 0, device=None):
+    """``transmogrify -> sanity_check -> BinaryClassificationModelSelector``
+    over ``d`` predictors (the first ``realnn`` RealNN, the rest Real), the
+    winner pinned to one family and grid point: an untrained
+    ``OpWorkflow`` without data."""
+    from .dsl import transmogrify
+    from .features import FeatureBuilder
+    from .impl.selector.factories import BinaryClassificationModelSelector
+    from .workflow import OpWorkflow
+    label = FeatureBuilder.RealNN("y").extract_field().as_response()
+    feats = [(FeatureBuilder.RealNN if i < realnn else FeatureBuilder.Real)(
+        f"x{i}").extract_field().as_predictor() for i in range(d)]
+    checked = transmogrify(feats).sanity_check(label)
+    pred = (BinaryClassificationModelSelector.with_cross_validation(
+        seed=seed, models=[(family, [dict(hyper)])])
+        .set_input(label, checked).get_output())
+    return OpWorkflow(device=device).set_result_features(pred)

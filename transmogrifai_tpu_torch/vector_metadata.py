@@ -6,7 +6,7 @@ an optional indicator value.
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 NULL_INDICATOR = "NullIndicatorValue"
 
@@ -31,6 +31,10 @@ class VectorColumnMetadata:
             parts.append(self.descriptor_value)
         return "_".join(parts) + f"_{self.index}"
 
+    def feature_group(self) -> str:
+        """Key that groups the sibling slots of one raw feature."""
+        return f"{self.parent_feature_name}::{self.grouping or ''}"
+
 
 @dataclass(frozen=True)
 class VectorMetadata:
@@ -44,6 +48,12 @@ class VectorMetadata:
 
     def column_names(self) -> List[str]:
         return [c.column_name() for c in self.columns]
+
+    def index_of_group(self) -> Dict[str, List[int]]:
+        groups: Dict[str, List[int]] = {}
+        for c in self.columns:
+            groups.setdefault(c.feature_group(), []).append(c.index)
+        return groups
 
     def select(self, indices: Sequence[int]) -> "VectorMetadata":
         return VectorMetadata.of(self.name, [self.columns[i] for i in indices])
