@@ -201,6 +201,21 @@ def test_plain_version_matches_the_pallas_kernel_in_interpret_mode(exact):
                   want)
 
 
+@pytest.mark.parametrize("B", [1024, 1025])
+def test_hist_matmul_matches_jax_on_both_sides_of_its_width_gate(B):
+    """The JAX package takes its Pallas kernel up to 1024 stat columns and
+    its XLA contraction above; the port has one kernel for every width, and
+    its plain version agrees with the JAX package on both sides."""
+    rng = np.random.RandomState(B)
+    S, d, nb = 64, 3, 8
+    codes = rng.randint(0, nb + 1, (S, d)).astype(np.int32)
+    A = rng.randn(S, B).astype(np.float32)
+    got = phist.hist_matmul(_t(codes), _t(A), nb)
+    assert got.shape == (B, d * nb)
+    _close_to_jax(got, jhk.hist_matmul(jnp.asarray(codes), jnp.asarray(A),
+                                       nb))
+
+
 def test_wrapper_routes_by_device():
     codes = torch.zeros((4, 2), dtype=torch.int32)
     A = torch.ones((4, 3))

@@ -72,12 +72,23 @@ SERVE_MODELS = {
 # JAX-side helpers: train, save, score
 # ---------------------------------------------------------------------------
 
+def bench_frame(n: int, d: int, seed: int):
+    """The serve bench's training frame, as the fixtures were trained on:
+    ``d`` standard-normal float32 predictors and a random linear rule."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, d).astype(np.float32)
+    w = rng.randn(d).astype(np.float32)
+    frame = {f"x{i}": X[:, i] for i in range(d)}
+    frame["y"] = (X @ w > 0).astype(np.float32)
+    return frame
+
+
 def train_jax_model(family: str, hyper: dict, n: int, d: int, seed: int,
                     realnn: int = 0):
     """Train ``transmogrify -> sanity_check -> selector`` with the JAX
     package on ``n`` rows of ``d`` predictors (the first ``realnn`` of them
     RealNN, the rest Real), labelled as the serve bench labels them (a
-    random linear rule, ``testing.serve_bench_data``)."""
+    random linear rule)."""
     import pandas as pd
 
     import transmogrifai_tpu as tg
@@ -86,7 +97,7 @@ def train_jax_model(family: str, hyper: dict, n: int, d: int, seed: int,
         BinaryClassificationModelSelector)
     from transmogrifai_tpu.workflow import OpWorkflow
 
-    df = pd.DataFrame(serve_bench_data(n, d, seed))
+    df = pd.DataFrame(bench_frame(n, d, seed))
     label = FeatureBuilder.RealNN("y").extract_field().as_response()
     feats = [(FeatureBuilder.RealNN if i < realnn else FeatureBuilder.Real)(
         f"x{i}").extract_field().as_predictor() for i in range(d)]
@@ -283,6 +294,17 @@ def test_fixture_stays_small():
     total = sum(os.path.getsize(os.path.join(root, f))
                 for root, _, files in os.walk(FIXTURE_DIR) for f in files)
     assert total < 6 * 2 ** 20, total
+
+
+@pytest.mark.parametrize("n,d,seed", [(20_000, 64, 0), (400, 5, 3)])
+def test_port_rebuilds_the_fixture_training_frame_bit_for_bit(n, d, seed):
+    """The card has no JAX, so the port rebuilds the frame the fixtures
+    were trained on; it must be this file's frame to the bit."""
+    got, want = serve_bench_data(n, d, seed), bench_frame(n, d, seed)
+    assert list(got) == list(want)
+    for name in want:
+        assert got[name].dtype == want[name].dtype
+        np.testing.assert_array_equal(got[name], want[name])
 
 
 def _run(code: str, **env):

@@ -47,7 +47,7 @@ constexpr int kMaxThreads = 128;
 constexpr int kMinThreads = 32;
 constexpr int kSmemDefault = 48 * 1024;  // opt-in beyond this
 constexpr int kSmemMax = 227 * 1024;
-constexpr int kMaxChunks = 64;
+constexpr int kMaxChunks = 8;              // histeng/kernels.py HIST_SHARDS
 constexpr int kCombineThreads = 256;
 constexpr int kUnroll = 8;                 // rows per load batch
 
@@ -130,7 +130,7 @@ const char* tg_cuda_error_string(int err) {
 }
 
 // codes (S, d) int32; A (S, B) f32; part (K, d * nb, B) f32 workspace ->
-// out (B, d * nb) f32. rows = ceil(S / K) rows per chunk, K <= 64.
+// out (B, d * nb) f32. rows = ceil(S / K) rows per chunk, K <= 8.
 int hist_matmul(const void* codes, const void* A, void* part, void* out,
                 int S, int d, int B, int nb, int K, int rows, int exact,
                 int device, void* stream) {

@@ -1,9 +1,8 @@
 """Histogram engine of tree growth (counterpart of
 ``transmogrifai_tpu.histeng``)."""
 from .engine import build_hist, build_node_hist
-from .kernels import (hist_matmul, hist_matmul_plain, hist_pinned,
-                      node_hist_matmul, pinned_row_sum)
+from .kernels import (hist_matmul, hist_matmul_plain, node_hist_matmul,
+                      pinned_row_sum)
 
 __all__ = ["build_hist", "build_node_hist", "hist_matmul",
-           "hist_matmul_plain", "hist_pinned", "node_hist_matmul",
-           "pinned_row_sum"]
+           "hist_matmul_plain", "node_hist_matmul", "pinned_row_sum"]

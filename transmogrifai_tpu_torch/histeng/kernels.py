@@ -4,15 +4,15 @@ growth,
 
     hist[a, f * nb + b] = sum_s A[s, a] * 1[codes[s, f] == b]
 
-``hist_matmul`` dispatches as the JAX package's ``hist_matmul`` does. On a
-CUDA tensor with at most ``_HIST_KERNEL_MAX_B`` stat columns it launches the
-hand-written kernel of ``csrc/hist.cu`` (the TPU runs ``_hist_pallas``
-there); above that width it runs the K-blocked contraction ``hist_pinned``
-(the TPU runs the same XLA contraction there). That width gate mirrors the
-JAX package's dispatch and is not a fallback: the kernel itself is right at
-any width. On a CPU tensor ``hist_matmul`` runs ``hist_matmul_plain``, the
-one-hot formula over the same row chunks as the kernel (the contraction the
-JAX package runs off the TPU); tensors on any other device raise.
+On a CUDA tensor ``hist_matmul`` launches the hand-written kernel of
+``csrc/hist.cu`` at any width (the TPU runs ``_hist_pallas`` there). The
+JAX package sends calls wider than 1024 stat columns to its XLA
+contraction instead, because the Pallas kernel re-expands the one-hot for
+every 128-column block; the CUDA kernel expands no one-hot, so it has no
+such limit. On a CPU tensor ``hist_matmul`` runs
+``hist_matmul_plain``, the one-hot formula over the same row chunks as the
+kernel (the contraction the JAX package runs off the TPU); tensors on any
+other device raise.
 
 Two modes: ``exact`` keeps the stats f32; otherwise they are rounded to
 bfloat16 first, as XLA's bf16 einsum with an f32 result rounds its
@@ -20,15 +20,15 @@ operands. Products and sums are f32 either way: a bf16 operand is widened
 to f32 and multiplied with TF32 off, never through a bf16 matmul, whose
 result PyTorch would round to bf16.
 
-Pinned reduction: ``hist_pinned`` and ``pinned_row_sum`` cut the rows into
+Pinned reduction: ``_hist_pinned`` and ``pinned_row_sum`` cut the rows into
 ``HIST_SHARDS`` blocks, reduce each block, and combine the block partials
 in the fixed pairwise order of ``_tree_combine``, as the JAX package's
 ``_hist_xla_pinned`` does; the CUDA kernel cuts and combines its rows the
 same way.
 
-Node histograms (``node_hist_matmul``) stay a matmul contraction over a
-masked-stat operand on every device, as in the JAX package, whose Pallas
-node-histogram kernel was retired.
+Node histograms (``node_hist_matmul``) stay the pinned matmul contraction
+over a masked-stat operand on every device, as in the JAX package, whose
+Pallas node-histogram kernel was retired.
 """
 from __future__ import annotations
 
@@ -43,14 +43,6 @@ from ..ops.cuda_build import check_int32, expect, ptr
 
 #: K, the pinned row-block count (the JAX package's TG_HIST_SHARDS default)
 HIST_SHARDS = 8
-
-#: stat-column width up to which the JAX package's dispatch takes the
-#: Pallas kernel (``_HIST_PALLAS_MAX_B``); wider calls take the pinned
-#: contraction there and here
-_HIST_KERNEL_MAX_B = 1024
-
-#: row chunks the CUDA kernel combines (csrc/hist.cu kMaxChunks)
-_KERNEL_MAX_CHUNKS = 64
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -110,8 +102,8 @@ def _hist_single(codes: torch.Tensor, A: torch.Tensor, n_bins: int,
         return _operand(A, exact).T @ _one_hot(codes.to(torch.int32), n_bins)
 
 
-def hist_pinned(codes: torch.Tensor, A: torch.Tensor, n_bins: int,
-                exact: bool = False) -> torch.Tensor:
+def _hist_pinned(codes: torch.Tensor, A: torch.Tensor, n_bins: int,
+                 exact: bool = False) -> torch.Tensor:
     """K-blocked one-hot contraction with the pinned combine order
     (``_hist_xla_pinned``): rows sentinel-padded to a multiple of K, one
     batched contraction into per-block f32 partials, ``_tree_combine``."""
@@ -132,7 +124,7 @@ def hist_pinned(codes: torch.Tensor, A: torch.Tensor, n_bins: int,
 
 def pinned_row_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """Fixed-order K-blocked sum over ``dim`` (rows), the companion of
-    ``hist_pinned`` for direct row reductions of tree fits."""
+    ``_hist_pinned`` for direct row reductions of tree fits."""
     K = HIST_SHARDS
     x = torch.movedim(x, dim, 0)
     S = x.shape[0]
@@ -149,7 +141,7 @@ def hist_matmul_plain(codes: torch.Tensor, A: torch.Tensor, n_bins: int,
     tensors and for holding the kernel to: the one-hot formula over the
     kernel's K row chunks, combined in the kernel's pinned order. It is
     the pinned contraction that the JAX package runs off the TPU."""
-    return hist_pinned(codes, A, n_bins, exact)
+    return _hist_pinned(codes, A, n_bins, exact)
 
 
 def hist_matmul_cuda(codes: torch.Tensor, A: torch.Tensor, n_bins: int,
@@ -167,8 +159,6 @@ def hist_matmul_cuda(codes: torch.Tensor, A: torch.Tensor, n_bins: int,
     if n_bins < 1:
         raise ValueError(f"n_bins must be positive, got {n_bins}")
     K = HIST_SHARDS if S >= HIST_SHARDS else 1
-    if K > _KERNEL_MAX_CHUNKS:
-        raise ValueError(f"{K} row chunks > the kernel's {_KERNEL_MAX_CHUNKS}")
     rows = -(-S // K)
     check_int32(S * d, S * B, K * d * n_bins * B)
     out = torch.empty((B, d * n_bins), dtype=torch.float32, device=dev)
@@ -190,11 +180,9 @@ def hist_matmul(codes: torch.Tensor, A: torch.Tensor, n_bins: int,
     (B, d * n_bins) feature-major. ``exact`` keeps the stats f32 (leaf
     values that are served); growth histograms round them to bf16."""
     if codes.is_cuda:
-        if A.shape[1] <= _HIST_KERNEL_MAX_B:
-            return hist_matmul_cuda(codes.to(torch.int32).contiguous(),
-                                    A.to(torch.float32).contiguous(),
-                                    n_bins, exact)
-        return hist_pinned(codes, A, n_bins, exact)
+        return hist_matmul_cuda(codes.to(torch.int32).contiguous(),
+                                A.to(torch.float32).contiguous(), n_bins,
+                                exact)
     if codes.device.type != "cpu":
         raise ValueError(f"no histogram kernel for device {codes.device}")
     return hist_matmul_plain(codes, A, n_bins, exact)
@@ -221,7 +209,7 @@ def _node_hist_plain(codes, node, sws, Wl_eff: int, n_bins: int,
     n_oh = (node[:, None, :] == j).to(sws.dtype)         # (S, Wl_eff, T_pad)
     A = torch.cat([n_oh * sws[ki][:, None, :] for ki in range(k)],
                   dim=1).reshape(S, k * Wl_eff * T_pad)
-    return hist_pinned(codes, A, n_bins, exact)
+    return _hist_pinned(codes, A, n_bins, exact)
 
 
 def node_hist_matmul(codes: torch.Tensor, node: torch.Tensor,
