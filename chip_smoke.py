@@ -10,6 +10,12 @@ Phases, in order; any failure exits nonzero:
     - the forest descents at the serve shapes (65,536 rows, 32 bins; RF
       slot chain T=50 depth 12 W=256, GBT heap T=20 depth 6, k=1): leaf
       ids exactly, sums within rtol 1e-5 / atol 1e-6;
+    - the leaf sums at the refit shapes (19,712 rows x 64 codes, k=3: the
+      RF refit's chain T=50 depth 12 W=256, the DT refit's heap T=1 depth
+      6, and a heap T=50 depth 6): within rtol 1e-5 / atol 1e-6 of the
+      plain version on [0, 1) stats, bit-equal on integer-valued stats and
+      across reruns, and at an odd shape within the same tolerance of the
+      direct float64 formula;
     - ``hist_matmul`` at the GBT refit's leaf-sum shape (19,712 rows, 64
       trees as features, 64 leaves as bins, 128 stat columns, exact), in
       that call's layout (one real tree, 63 sentinel columns; the timed
@@ -18,23 +24,28 @@ Phases, in order; any failure exits nonzero:
       1e-5 / atol 1e-6 of the plain version on [0, 1) stats, bit-equal on
       integer-valued stats and across reruns, and at an odd shape within
       the same tolerance of the direct float64 formula;
-(t) train: rebuild the serve bench's 20,000 x 64 frame and train the
-    pinned GBT workflow on the card (``OpWorkflow().train()``), then hold
-    it against the committed ``serve64/gbt`` fixture that the JAX package
-    trained on the same frame: bin edges bit-equal, the same kept columns,
-    trees identical (counted; the first differing node is reported with
-    the split-gain gap there), fold and holdout AuPR within 5e-3, and
-    probability_1 on the fixture's 4,096-row frame within mean 5e-3 (max
-    1e-4 when every tree is identical). The kernels' launch counts are
-    zeroed just before training and read just after; ``hist_matmul`` must
-    have launched at least once per boosting round, and
-    ``forest_predict_heap`` (CV fold scoring, the evaluations) at least once;
-(c) serve: load the committed RF and GBT fixtures on the card, score their
-    4,096-row frames against the JAX package's outputs (probability_1 atol
-    1e-5; prediction equal wherever |p - 0.5| > 1e-5), answer single-row
-    requests through score_function, score 65,536-row batches and report
-    rows/sec. The launch counts are zeroed just before this phase and read
-    just after it; both forest kernels must have launched;
+(t) train: rebuild the serve bench's 20,000 x 64 frame and train three
+    pinned workflows on the card (``OpWorkflow().train()``): GBT (depth 6,
+    20 rounds), RF (depth 12, 50 trees, slot chains) and DT (depth 6).
+    Each is held against the committed fixture that the JAX package
+    trained on the same frame (``serve64/gbt``, ``rf``, ``dt``): bin edges
+    bit-equal, the same kept columns, identical trees counted (for a
+    chain: feat_lv, bins_lv and base_lv; for GBT the first differing node
+    is reported with the split-gain gap there), fold and holdout AuPR
+    within 5e-3, and probability_1 on the fixture's 4,096-row frame within
+    mean 5e-3 (max 1e-4 when every tree is identical). The kernels' launch
+    counts are zeroed just before each train and read just after it: GBT
+    must launch ``hist_matmul`` at least once per boosting round and
+    ``forest_predict_heap``; RF ``forest_leaf_sums_chain``,
+    ``forest_predict_chain`` and ``hist_matmul``; DT
+    ``forest_leaf_sums_heap``, ``forest_predict_heap`` and ``hist_matmul``;
+(c) serve: load the committed RF, GBT and DT fixtures on the card, score
+    their 4,096-row frames against the JAX package's outputs
+    (probability_1 atol 1e-5; prediction equal wherever |p - 0.5| >
+    1e-5), answer single-row requests through score_function, score
+    65,536-row batches and report rows/sec. The launch counts are zeroed
+    just before this phase and read just after it; both forest predict
+    kernels must have launched;
 (d) print each path's launch counts and the ``kernels`` JSON line, whose
     launches are the sums over (t) and (c);
 (e) print the card's name and power limit.
@@ -71,11 +82,25 @@ TIMED_RUNS = 25
 
 FIXTURES = os.path.join(HERE, "transmogrifai_tpu_torch", "fixtures",
                         "serve64")
-#: the training run behind the committed serve64/gbt fixture
+#: the training runs behind the committed serve64 fixtures
 TRAIN_ROWS = 20000
 TRAIN_SEED = 0
 GBT_HYPER = {"maxDepth": 6, "maxIter": 20, "stepSize": 0.1,
              "minInstancesPerNode": 10, "minInfoGain": 0.001}
+TRAINS = {
+    "gbt": ("OpGBTClassifier", GBT_HYPER),
+    "rf": ("OpRandomForestClassifier",
+           {"maxDepth": 12, "numTrees": 50, "minInstancesPerNode": 10,
+            "minInfoGain": 0.001, "subsamplingRate": 1.0}),
+    "dt": ("OpDecisionTreeClassifier",
+           {"maxDepth": 6, "minInstancesPerNode": 10, "minInfoGain": 0.001}),
+}
+#: the tables that make a tree, per layout
+TREE_KEYS = {"gbt": ("feat", "bins"), "dt": ("feat", "bins"),
+             "rf": ("feat_lv", "bins_lv", "base_lv")}
+#: the leaf sums of the RF and DT refits: 19,712 padded rows, class counts
+#: and the weight, k = 3
+LEAF_K = 3
 #: the GBT refit's leaf sums: bucket_for(18,000) rows, 64 tree columns
 #: (one tree padded to a block of 64), 64 leaves, G and H per tree
 REFIT_ROWS, REFIT_TREES, REFIT_LEAVES = 19712, 64, 64
@@ -220,6 +245,118 @@ def phase_hist(dev, rng):
     return r
 
 
+def _check_leaf_sums(tag, cuda_fn, plain_fn, aug, aug_int):
+    """Kernel against plain: tolerance on ``aug``, bits on ``aug_int`` and
+    on a rerun."""
+    got = cuda_fn(aug)
+    want = plain_fn(aug)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=SUM_RTOL, atol=SUM_ATOL)
+    if not torch.equal(cuda_fn(aug_int), plain_fn(aug_int)):
+        raise AssertionError(f"{tag}: integer-valued stats are not "
+                             f"bit-equal to plain")
+    if not torch.equal(got, cuda_fn(aug)):
+        raise AssertionError(f"{tag}: reruns differ")
+    return float((got - want).abs().max())
+
+
+def _leaf_stats(dev, rng, n, k):
+    """[0, 1) stats and integer-valued stats (n, k) on the card."""
+    return (torch.from_numpy(rng.rand(n, k).astype(np.float32)).to(dev),
+            torch.from_numpy(rng.randint(0, 4, (n, k)).astype(
+                np.float32)).to(dev))
+
+
+def phase_leaf_sums(dev, rng):
+    """The leaf-sum kernels at the RF and DT refit shapes, against their
+    plain versions and, at an odd shape, the direct float64 formula."""
+    from transmogrifai_tpu_torch.ops import forest as F
+    from transmogrifai_tpu_torch.testing import (
+        descend_direct, leaf_sums_direct, random_chain, random_heap,
+    )
+
+    n, d, k = REFIT_ROWS, N_FEATURES, LEAF_K
+    results = {}
+    aug, aug_int = _leaf_stats(dev, rng, n, k)
+    # the RF refit: slot chains, T=50, depth 12, W=256
+    T, depth, W = 50, 12, 256
+    c = {key: torch.from_numpy(v).to(dev) for key, v in random_chain(
+        rng, n, d, T, depth, W, 1, N_BINS).items()}
+    tabs = (c["codes"], c["feat"], c["bins"], c["base"])
+    r = dict(max_abs_err=_check_leaf_sums(
+        "forest_leaf_sums_chain",
+        lambda a: F.forest_leaf_sums_chain_cuda(*tabs, a),
+        lambda a: F.forest_leaf_sums_chain_plain(*tabs, a, n_bins=N_BINS),
+        aug, aug_int))
+    slots = sum(min(2 ** lv, W) for lv in range(depth))
+    W_out = min(2 ** depth, W)
+    r.update(ms=time_ms(lambda: F.forest_leaf_sums_chain_cuda(*tabs, aug)),
+             plain_ms=time_ms(lambda: F.forest_leaf_sums_chain_plain(
+                 *tabs, aug, n_bins=N_BINS)),
+             # codes, the used table slots and the stats read once, the
+             # sums written once; per row and tree one step a level and
+             # one add per stat
+             bound=bound_ms(4 * (n * d + T * slots * 3 + n * k
+                                 + T * W_out * k), n * T * (depth + k)))
+    results["forest_leaf_sums_chain"] = r
+    # the DT refit (T=1) and a T=50 forest of depth-6 heaps
+    for tag, T in (("DT refit", 1), ("T=50", 50)):
+        depth = 6
+        h = {key: torch.from_numpy(v).to(dev) for key, v in random_heap(
+            rng, n, d, T, depth, 1, N_BINS).items()}
+        tabs = (h["codes"], h["feat"], h["bins"])
+        r = dict(max_abs_err=_check_leaf_sums(
+            f"forest_leaf_sums_heap ({tag})",
+            lambda a: F.forest_leaf_sums_heap_cuda(*tabs, a, depth=depth),
+            lambda a: F.forest_leaf_sums_plain(*tabs, a, depth=depth,
+                                               n_bins=N_BINS),
+            aug, aug_int))
+        r.update(
+            ms=time_ms(lambda: F.forest_leaf_sums_heap_cuda(
+                *tabs, aug, depth=depth)),
+            plain_ms=time_ms(lambda: F.forest_leaf_sums_plain(
+                *tabs, aug, depth=depth, n_bins=N_BINS)),
+            bound=bound_ms(4 * (n * d + 2 * T * (2 ** depth - 1) + n * k
+                                + T * 2 ** depth * k), n * T * (depth + k)))
+        print(f"(b) forest_leaf_sums_heap {tag}: max_abs_err "
+              f"{r['max_abs_err']:.3g}, {r['ms']:.4f} ms (plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.5f} ms by "
+              f"{r['bound'][1]})")
+        results.setdefault("forest_leaf_sums_heap", r)   # the DT refit's
+    r = results["forest_leaf_sums_chain"]
+    print(f"(b) forest_leaf_sums_chain RF refit: max_abs_err "
+          f"{r['max_abs_err']:.3g}, {r['ms']:.4f} ms (plain "
+          f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.5f} ms by "
+          f"{r['bound'][1]})")
+    # odd shapes against the definition
+    n, d, nb = 301, 7, 13
+    h = random_heap(rng, n, d, 5, 4, 1, nb)
+    cn = random_chain(rng, n, d, 3, 9, 24, 1, nb)
+    a64 = rng.rand(n, 5).astype(np.float32)
+    aug = torch.from_numpy(a64).to(dev)
+    got = F.forest_leaf_sums_heap_cuda(
+        *(torch.from_numpy(h[key]).to(dev) for key in ("codes", "feat",
+                                                       "bins")),
+        aug, depth=4)
+    want = leaf_sums_direct(descend_direct(h["codes"], h["feat"], h["bins"],
+                                           depth=4), a64, 16)
+    got_c = F.forest_leaf_sums_chain_cuda(
+        *(torch.from_numpy(cn[key]).to(dev) for key in ("codes", "feat",
+                                                        "bins", "base")),
+        aug)
+    want_c = leaf_sums_direct(descend_direct(cn["codes"], cn["feat"],
+                                             cn["bins"], cn["base"]),
+                              a64, 24)
+    torch.cuda.synchronize()
+    for g, w in ((got, want), (got_c, want_c)):
+        np.testing.assert_allclose(g.cpu().numpy(), w, rtol=SUM_RTOL,
+                                   atol=SUM_ATOL)
+    print(f"(b) leaf sums odd shapes (n {n}, d {d}, nb {nb}; heap T 5 depth "
+          f"4, chain T 3 depth 9 W 24, k 5): both match the direct float64 "
+          f"formula")
+    return results
+
+
 def phase_kernels(dev):
     """Each kernel against its plain version at its path's shapes."""
     from transmogrifai_tpu_torch.ops import forest as F
@@ -227,6 +364,7 @@ def phase_kernels(dev):
 
     rng = np.random.RandomState(0)
     results = {"hist_matmul": phase_hist(dev, rng)}
+    results.update(phase_leaf_sums(dev, rng))
 
     # RF: slot chain, T=50, depth 12, W=256, k=1
     T, depth, W, k = 50, 12, 256, 1
@@ -275,7 +413,7 @@ def phase_kernels(dev):
             *args, depth=depth, n_bins=N_BINS)),
         bound=bound_ms(nbytes, N_ROWS * T * (depth + k)))
     for name, r in results.items():
-        if name == "hist_matmul":
+        if name == "hist_matmul" or name.startswith("forest_leaf_sums"):
             continue
         print(f"(b) {name}: max_abs_err {r['max_abs_err']:.3g}, "
               f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound "
@@ -283,19 +421,13 @@ def phase_kernels(dev):
     return results
 
 
-def _gain_gap(model, data, fixture, t: int, j: int) -> float:
-    """Split gain of the port's choice minus the fixture's at heap node
-    ``j`` of boosting round ``t``, both scored on the port's own state
-    there: the refit rows, F after the first ``t`` (identical) trees, and
-    the node's bf16-operand histogram, as the grower builds it."""
-    from transmogrifai_tpu_torch.histeng import hist_matmul_plain
+def _refit_rows(model, data):
+    """The winner's refit rows, rebuilt: (bin codes under the model's
+    edges, labels, 0/1 row weights), padded to the row bucket."""
     from transmogrifai_tpu_torch.impl.tuning.splitters import DataBalancer
     from transmogrifai_tpu_torch.models import trees as TR
-    from transmogrifai_tpu_torch.ops.forest import route_codes
     from transmogrifai_tpu_torch.utils.padding import bucket_for
 
-    sel = model.stages[-1]
-    p = sel.fitted.params
     checked = model.stages[-2].get_output().name
     X = model.score(data=data)[checked].values          # all rows, kept cols
     train_idx, _ = DataBalancer(seed=TRAIN_SEED).split(X.shape[0])
@@ -306,8 +438,49 @@ def _gain_gap(model, data, fixture, t: int, j: int) -> float:
     X = torch.nn.functional.pad(X, (0, 0, 0, n_pad - n))
     y = torch.nn.functional.pad(y, (0, n_pad - n))
     w = (torch.arange(n_pad, device=X.device) < n).float()
-    codes = TR._bin_features(X, p["edges"])
-    F = torch.zeros(n_pad, device=X.device)
+    return TR._bin_features(X, model.stages[-1].fitted.params["edges"]), y, w
+
+
+def _node_gains(codes, A, cfg, mode):
+    """Split gains (d, n_bins - 1) of one node from its rows' stats A
+    (rows outside the node zero), as the grower scores them."""
+    from transmogrifai_tpu_torch.histeng import hist_matmul_plain
+    from transmogrifai_tpu_torch.models import trees as TR
+
+    k, d = A.shape[1], codes.shape[1]
+    hist = hist_matmul_plain(codes, A, TR.N_BINS).reshape(
+        k, d, TR.N_BINS).permute(1, 2, 0)[None]
+    cum = TR._cumsum_bins(hist)
+    total = cum[:, 0, -1, :]
+    SL = cum[:, :, :-1, :]
+    one = {key: torch.tensor([v], dtype=torch.float32, device=codes.device)
+           for key, v in cfg.items()}
+    gain, valid = TR._split_gain(SL, total[:, None, None, :] - SL, total,
+                                 one, mode)
+    return torch.where(valid, gain, torch.full_like(gain, -float("inf")))[0]
+
+
+def _gap(gain, port, fixture, min_gain: float) -> float:
+    """Gain of the port's split minus the fixture's at one node; a node
+    that does not split scores ``min_gain``."""
+    from transmogrifai_tpu_torch.models import trees as TR
+
+    def at_split(f, b):
+        return float(gain[f, b]) if b < TR.N_BINS - 1 else min_gain
+    return at_split(*port) - at_split(*fixture)
+
+
+def _gain_gap(model, data, fixture, t: int, j: int) -> float:
+    """Split gain of the port's choice minus the fixture's at heap node
+    ``j`` of boosting round ``t``, both scored on the port's own state
+    there: the refit rows, F after the first ``t`` (identical) trees, and
+    the node's bf16-operand histogram, as the grower builds it."""
+    from transmogrifai_tpu_torch.models import trees as TR
+    from transmogrifai_tpu_torch.ops.forest import route_codes
+
+    p = model.stages[-1].fitted.params
+    codes, y, w = _refit_rows(model, data)
+    F = torch.zeros(codes.shape[0], device=codes.device)
     feat, bins, leaf = p["feat"][:, 0], p["bins"][:, 0], p["leaf"][:, 0]
     depth = TR._depth_of(leaf.shape[-1])
     for r in range(t):
@@ -321,37 +494,101 @@ def _gain_gap(model, data, fixture, t: int, j: int) -> float:
     q = j - (2 ** level - 1)
     ids = route_codes(codes, feat[t:t + 1], bins[t:t + 1], level,
                       TR.N_BINS)[:, 0]
-    at = (ids == q).float()[:, None]
-    hist = hist_matmul_plain(codes, stats * at, TR.N_BINS).reshape(
-        3, codes.shape[1], TR.N_BINS).permute(1, 2, 0)[None]
-    cum = torch.cumsum(hist, dim=2)
-    total = cum[:, 0, -1, :]
-    SL = cum[:, :, :-1, :]
-    one = lambda v: torch.tensor([v], dtype=torch.float32, device=X.device)
-    gain, valid = TR._split_gain(
-        SL, total[:, None, None, :] - SL, total,
-        {"lam": one(0.0), "min_child_weight": one(0.0),
-         "min_instances": one(GBT_HYPER["minInstancesPerNode"])}, "gh")
-    gain = torch.where(valid, gain, torch.full_like(gain, -float("inf")))[0]
-
-    def at_split(f, b):
-        return (float(gain[f, b]) if b < TR.N_BINS - 1
-                else GBT_HYPER["minInfoGain"])
-    fx = fixture["feat"][t, 0, j], fixture["bins"][t, 0, j]
-    return (at_split(int(feat[t, j]), int(bins[t, j]))
-            - at_split(int(fx[0]), int(fx[1])))
+    gain = _node_gains(codes, stats * (ids == q).float()[:, None],
+                       {"lam": 0.0, "min_child_weight": 0.0,
+                        "min_instances": GBT_HYPER["minInstancesPerNode"]},
+                       "gh")
+    return _gap(gain, (int(feat[t, j]), int(bins[t, j])),
+                (int(fixture["feat"][t, 0, j]), int(fixture["bins"][t, 0, j])),
+                GBT_HYPER["minInfoGain"])
 
 
-def phase_train():
-    """Train the serve bench's GBT workflow on the card and hold the model
-    against the fixture the JAX package trained on the same frame."""
+def _chain_gain_gap(model, data, fixture, t: int, level: int,
+                    j: int) -> float:
+    """Split gain of the port's choice minus the fixture's at slot ``j``
+    of level ``level`` of RF refit tree ``t`` (the levels above are the
+    same in both), scored on tree t's bootstrap rows and feature subset."""
+    from transmogrifai_tpu_torch.models import bootstrap
+    from transmogrifai_tpu_torch.ops.forest import route_codes_chain
+
+    _, hyper = TRAINS["rf"]
+    p = model.stages[-1].fitted.params
+    codes, y, w = _refit_rows(model, data)
+    S, d = codes.shape
+    boots, fmask = bootstrap.draw(
+        np.array([7.0], np.float32),
+        np.array([hyper["subsamplingRate"]], np.float32), hyper["numTrees"],
+        S, d, bootstrap.feature_share(d, "classification"), codes.device,
+        folded=True)                            # one config: the refit
+    sw = (torch.nn.functional.one_hot(y.long(), 2).float()
+          * (w * boots[0, t])[:, None])
+    slot = (route_codes_chain(codes, *(p[k][t:t + 1, :level].contiguous()
+                                       for k in ("feat_lv", "bins_lv",
+                                                 "base_lv")),
+                              N_BINS)[:, 0]
+            if level else torch.zeros(S, dtype=torch.int32,
+                                      device=codes.device))
+    A = (sw * (slot == j).float()[:, None]).to(torch.bfloat16).float()
+    gain = _node_gains(codes, A, {"min_instances":
+                                  hyper["minInstancesPerNode"]}, "counts")
+    gain = torch.where(fmask[0, t][:, None], gain,
+                       torch.full_like(gain, -float("inf")))
+    return _gap(gain, (int(p["feat_lv"][t, level, j]),
+                       int(p["bins_lv"][t, level, j])),
+                (int(fixture["feat_lv"][t, level, j]),
+                 int(fixture["bins_lv"][t, level, j])),
+                hyper["minInfoGain"])
+
+
+def _first_gbt_difference(model, data, got, fx):
+    """Report the first differing GBT node with its split-gain gap."""
+    same = [all(np.array_equal(got[k][t], fx[k][t]) for k in ("feat", "bins"))
+            for t in range(len(fx["feat"]))]
+    t = same.index(False)
+    diff = np.nonzero((got["feat"][t, 0] != fx["feat"][t, 0])
+                      | (got["bins"][t, 0] != fx["bins"][t, 0]))[0]
+    j = int(diff[0])
+    print(f"(t) first differing tree: round {t}, heap node {j} (port "
+          f"split f{got['feat'][t, 0, j]}/b{got['bins'][t, 0, j]}, "
+          f"fixture f{fx['feat'][t, 0, j]}/b{fx['bins'][t, 0, j]}), "
+          f"gain gap {_gain_gap(model, data, fx, t, j):.6g}")
+
+
+def _chain_differences(model, data, got, fx):
+    """Report each differing RF tree's first differing level and slot, and
+    there the split-gain gap when the two split choices differ."""
+    keys = TREE_KEYS["rf"]
+    for t in range(len(fx["feat_lv"])):
+        diff = np.zeros(fx["feat_lv"].shape[1:], bool)
+        for k in keys:
+            diff |= got[k][t] != fx[k][t]
+        if not diff.any():
+            continue
+        level = int(np.nonzero(diff.any(1))[0][0])
+        j = int(np.nonzero(diff[level])[0][0])
+        port = (got["feat_lv"][t, level, j], got["bins_lv"][t, level, j],
+                got["base_lv"][t, level, j])
+        fixt = (fx["feat_lv"][t, level, j], fx["bins_lv"][t, level, j],
+                fx["base_lv"][t, level, j])
+        gap = (f", gain gap {_chain_gain_gap(model, data, fx, t, level, j):.6g}"
+               if port[:2] != fixt[:2] else "")
+        print(f"(t) rf tree {t}: first difference at level {level}, slot "
+              f"{j} (port f{port[0]}/b{port[1]}/base {port[2]}, fixture "
+              f"f{fixt[0]}/b{fixt[1]}/base {fixt[2]}){gap}")
+
+
+def train_against_fixture(key: str):
+    """Train the serve bench's pinned ``key`` workflow on the card and hold
+    the model against the fixture the JAX package trained on the same
+    frame. Returns the train's seconds."""
     import transmogrifai_tpu_torch as tt
     from transmogrifai_tpu_torch.testing import (
         serve_bench_data, serve_bench_workflow,
     )
 
+    family, hyper = TRAINS[key]
     data = serve_bench_data(TRAIN_ROWS, N_FEATURES, TRAIN_SEED)
-    wf = serve_bench_workflow("OpGBTClassifier", GBT_HYPER, N_FEATURES,
+    wf = serve_bench_workflow(family, hyper, N_FEATURES,
                               TRAIN_SEED).set_input_dataset(data)
     if wf.device.type != "cuda":
         raise AssertionError(f"training on {wf.device}")
@@ -360,61 +597,62 @@ def phase_train():
     model = wf.train()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    print(f"(t) train: {TRAIN_ROWS} x {N_FEATURES}, GBT depth 6 x 20 "
-          f"rounds, 3-fold CV + refit + evaluations in {secs:.3f} s")
+    print(f"(t) {key} train: {TRAIN_ROWS} x {N_FEATURES}, {family} {hyper}, "
+          f"3-fold CV + refit + evaluations in {secs:.3f} s")
 
-    path = os.path.join(FIXTURES, "gbt")
+    path = os.path.join(FIXTURES, key)
     ref = tt.load_model(path)
     rs, ps = ref.stages[-1], model.stages[-1]
     fx = {k: v.cpu().numpy() for k, v in rs.fitted.params.items()}
     got = {k: v.cpu().numpy() for k, v in ps.fitted.params.items()}
     if not np.array_equal(got["edges"], fx["edges"]):
-        raise AssertionError("bin edges differ from the fixture's: max "
-                             f"{np.abs(got['edges'] - fx['edges']).max()}")
+        raise AssertionError(f"{key}: bin edges differ from the fixture's: "
+                             f"max {np.abs(got['edges'] - fx['edges']).max()}")
     if model.stages[-2].keep_indices != ref.stages[-2].keep_indices:
-        raise AssertionError("SanityChecker kept other columns than the "
-                             "fixture")
-    same = [np.array_equal(got["feat"][t], fx["feat"][t])
-            and np.array_equal(got["bins"][t], fx["bins"][t])
-            for t in range(len(fx["feat"]))]
-    print(f"(t) edges bit-equal, kept columns equal "
+        raise AssertionError(f"{key}: SanityChecker kept other columns than "
+                             f"the fixture")
+    tables = TREE_KEYS[key]
+    for k in tables:
+        if got[k].shape != fx[k].shape:
+            raise AssertionError(f"{key}: {k} has shape {got[k].shape}, the "
+                                 f"fixture's {fx[k].shape}")
+    n_trees = 1 if key == "dt" else len(fx[tables[0]])
+    pick = (lambda a, t: a) if key == "dt" else (lambda a, t: a[t])
+    same = [all(np.array_equal(pick(got[k], t), pick(fx[k], t))
+                for k in tables) for t in range(n_trees)]
+    print(f"(t) {key}: edges bit-equal, kept columns equal "
           f"({len(model.stages[-2].keep_indices)}), trees identical: "
           f"{sum(same)} of {len(same)}")
-    if not all(same):
-        t = same.index(False)
-        diff = np.nonzero((got["feat"][t, 0] != fx["feat"][t, 0])
-                          | (got["bins"][t, 0] != fx["bins"][t, 0]))[0]
-        j = int(diff[0])
-        print(f"(t) first differing tree: round {t}, heap node {j} (port "
-              f"split f{got['feat'][t, 0, j]}/b{got['bins'][t, 0, j]}, "
-              f"fixture f{fx['feat'][t, 0, j]}/b{fx['bins'][t, 0, j]}), "
-              f"gain gap {_gain_gap(model, data, fx, t, j):.6g}")
+    if key == "gbt" and not all(same):
+        _first_gbt_difference(model, data, got, fx)
+    if key == "rf" and not all(same):
+        _chain_differences(model, data, got, fx)
     folds = np.asarray(ps.summary.validation_results[0].fold_metrics,
                        dtype=np.float64).ravel()
     ref_folds = torch.as_tensor(
         rs.summary.validation_results[0].fold_metrics).cpu().numpy().ravel()
     hold = ps.summary.holdout_evaluation["AuPR"]
     ref_hold = rs.summary.holdout_evaluation["AuPR"]
-    print(f"(t) fold AuPR {folds.tolist()} (fixture {ref_folds.tolist()}), "
-          f"holdout AuPR {hold:.6f} (fixture {ref_hold:.6f}), splitter "
-          f"{ps.summary.splitter_summary} (fixture "
-          f"{rs.summary.splitter_summary})")
+    print(f"(t) {key}: fold AuPR {folds.tolist()} (fixture "
+          f"{ref_folds.tolist()}), holdout AuPR {hold:.6f} (fixture "
+          f"{ref_hold:.6f}), splitter {ps.summary.splitter_summary} "
+          f"(fixture {rs.summary.splitter_summary})")
     if np.abs(folds - ref_folds).max() > AUPR_ATOL or \
             abs(hold - ref_hold) > AUPR_ATOL:
-        raise AssertionError("AuPR off the fixture's by more than "
+        raise AssertionError(f"{key}: AuPR off the fixture's by more than "
                              f"{AUPR_ATOL}")
     exp = np.load(os.path.join(path, "expected.npz"))
     frame = {f"x{i}": exp["X"][:, i] for i in range(exp["X"].shape[1])}
     p1, _ = _p1_and_pred(model, model.score(data=frame))
     if p1.shape != exp["probability_1"].shape or not np.isfinite(p1).all():
-        raise AssertionError(f"bad probability_1 {p1.shape}")
+        raise AssertionError(f"{key}: bad probability_1 {p1.shape}")
     dp = np.abs(p1 - exp["probability_1"])
-    print(f"(t) probability_1 vs the JAX-trained model on "
+    print(f"(t) {key}: probability_1 vs the JAX-trained model on "
           f"{len(p1)} rows: max |d| {dp.max():.3g}, mean |d| {dp.mean():.3g}")
     if dp.mean() > P1_MEAN_ATOL or (all(same)
                                     and dp.max() > P1_MAX_ATOL_SAME_TREES):
-        raise AssertionError("probability_1 off the fixture's beyond the "
-                             "stated limits")
+        raise AssertionError(f"{key}: probability_1 off the fixture's beyond "
+                             f"the stated limits")
     return secs
 
 
@@ -430,7 +668,7 @@ def phase_serve():
     """The port's main path: load, score, answer requests."""
     import transmogrifai_tpu_torch as tt
 
-    for key in ("rf", "gbt"):
+    for key in ("rf", "gbt", "dt"):
         path = os.path.join(FIXTURES, key)
         model = tt.load_model(path)                # default: the card
         if model.device.type != "cuda":
@@ -485,29 +723,42 @@ def main() -> int:
     phase_build()
     kern = phase_kernels(dev)
 
-    def run_path(phase, path_kernels):
+    def run_path(name, phase, path_kernels):
         """Zero every count, drive the path, read the counts; each of
         ``path_kernels`` must have launched."""
         for k in kernels:
             k.launches = 0
         phase()
         torch.cuda.synchronize()
-        counts = {k.name: k.launches for k in path_kernels}
-        idle = [name for name, n in counts.items() if n == 0]
+        counts = {k.name: k.launches for k in kernels}
+        idle = [k.name for k in path_kernels if counts[k.name] == 0]
         if idle:
             raise AssertionError(f"kernel(s) {idle} never launched on the "
-                                 f"{phase.__name__} path")
+                                 f"{name} path")
         return counts
 
-    # training scores its CV folds and evaluations with the heap descent
-    train = run_path(phase_train, HK.KERNELS + (F.FOREST_PREDICT_HEAP,))
-    if train["hist_matmul"] < GBT_HYPER["maxIter"]:
-        raise AssertionError(f"hist_matmul launched {train['hist_matmul']} "
-                             f"times in training, fewer than the boosting "
-                             f"rounds")
-    serve = run_path(phase_serve, F.KERNELS)
-    print(f"launches: training {train}, serving {serve}")
-    launches = {k.name: train.get(k.name, 0) + serve.get(k.name, 0)
+    hist = HK.HIST_MATMUL
+    paths = {
+        "train gbt": run_path("train gbt",
+                              lambda: train_against_fixture("gbt"),
+                              (hist, F.FOREST_PREDICT_HEAP)),
+        "train rf": run_path("train rf", lambda: train_against_fixture("rf"),
+                             (hist, F.FOREST_LEAF_SUMS_CHAIN,
+                              F.FOREST_PREDICT_CHAIN)),
+        "train dt": run_path("train dt", lambda: train_against_fixture("dt"),
+                             (hist, F.FOREST_LEAF_SUMS_HEAP,
+                              F.FOREST_PREDICT_HEAP)),
+    }
+    if paths["train gbt"]["hist_matmul"] < GBT_HYPER["maxIter"]:
+        raise AssertionError(f"hist_matmul launched "
+                             f"{paths['train gbt']['hist_matmul']} times in "
+                             f"GBT training, fewer than the boosting rounds")
+    paths["serve"] = run_path("serve", phase_serve,
+                              (F.FOREST_PREDICT_HEAP, F.FOREST_PREDICT_CHAIN))
+    for name, counts in paths.items():
+        print(f"launches, {name}: "
+              f"{ {k: v for k, v in counts.items() if v} }")
+    launches = {k.name: sum(c[k.name] for c in paths.values())
                 for k in kernels}
     print(json.dumps({"kernels": [{
         "name": k.name, "route": "cuda",

@@ -8,12 +8,14 @@ JAX nor the JAX package, so on a GPU machine without JAX they run alone::
 
 Tolerances: leaf ids and slots exactly; forest sums rtol 1e-5, atol 1e-6
 (both add the trees one at a time in ascending order, so they agree to the
-bit unless the compiler reorders the kernel's additions); histograms rtol
-1e-5, atol 1e-6 against the plain version on [0, 1) stats (the plain
-version sums each row chunk in cuBLAS's order, the kernel row by row) and
-equal on integer-valued stats; the tiny train on the card against the same
-train on the CPU: tree tables and kept columns equal, metrics and
-probabilities within 1e-5.
+bit unless the compiler reorders the kernel's additions); histograms and
+leaf sums rtol 1e-5, atol 1e-6 against the plain version and the direct
+float64 formula on [0, 1) stats (the plain versions sum in another order:
+cuBLAS's per row chunk, or one pass over all rows, where the kernels add
+row chunks and then the chunk partials) and equal on integer-valued
+stats; the tiny trains on the card against the same trains on the CPU:
+tree tables and kept columns equal, metrics and probabilities within
+1e-5.
 """
 from __future__ import annotations
 
@@ -30,8 +32,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 from transmogrifai_tpu_torch.histeng import kernels as HK  # noqa: E402
 from transmogrifai_tpu_torch.ops import forest as F  # noqa: E402
 from transmogrifai_tpu_torch.testing import (  # noqa: E402
-    hist_direct, random_chain, random_heap, serve_bench_data,
-    serve_bench_workflow,
+    descend_direct, hist_direct, leaf_sums_direct, random_chain,
+    random_heap, serve_bench_data, serve_bench_workflow,
 )
 
 pytestmark = pytest.mark.cuda
@@ -201,20 +203,163 @@ def test_hist_kernel_empty_and_bad_inputs(cuda):
         HK.hist_matmul_cuda(codes, A, 4000)      # bins beyond shared memory
 
 
-def test_tiny_train_on_the_card_matches_the_cpu(cuda):
-    family, hyper = "OpGBTClassifier", {
-        "maxDepth": 3, "maxIter": 5, "stepSize": 0.1,
-        "minInstancesPerNode": 5, "minInfoGain": 0.001}
+def _leaf_case(dev, seed, n, d, T, k, depth, W=None, nb=32):
+    """A random heap (W None) or chain forest on the card, [0, 1) stats and
+    integer-valued stats, and the direct float64 sums of both."""
+    rng = np.random.RandomState(seed)
+    if W is None:
+        f = random_heap(rng, n, d, T, depth, 1, nb)
+        f["feat"][:, :1] = np.where(rng.rand(T, 1) < 0.2, d + 3,
+                                    f["feat"][:, :1])  # past d: code 0
+        ids = descend_direct(f["codes"], f["feat"], f["bins"], depth=depth)
+        L = 2 ** depth
+    else:
+        f = random_chain(rng, n, d, T, depth, W, 1, nb)
+        ids = descend_direct(f["codes"], f["feat"], f["bins"], f["base"])
+        L = min(2 ** depth, W)
+    aug = rng.rand(n, k).astype(np.float32)
+    aug_i = rng.randint(0, 4, (n, k)).astype(np.float32)
+    f = {key: v for key, v in f.items() if key != "leaf"}
+    return (_on(dev, f), torch.from_numpy(aug).to(dev),
+            torch.from_numpy(aug_i).to(dev), leaf_sums_direct(ids, aug, L),
+            leaf_sums_direct(ids, aug_i, L))
+
+
+def _check_leaf_sums(kernel, cuda_fn, plain_fn, aug, aug_i, want, want_i):
+    before = kernel.launches
+    got = cuda_fn(aug)
+    assert kernel.launches == before + 1
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, plain_fn(aug), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got.cpu().numpy(), want, rtol=RTOL, atol=ATOL)
+    got_i = cuda_fn(aug_i)
+    assert torch.equal(got_i, plain_fn(aug_i))
+    np.testing.assert_array_equal(got_i.cpu().numpy(), want_i)
+    assert torch.equal(got, cuda_fn(aug))
+
+
+@pytest.mark.parametrize("depth", [0, 1, 3, 6, 8])
+@pytest.mark.parametrize("T,k", [(1, 3), (50, 3), (37, 1)])
+def test_leaf_sums_heap_kernel_matches_plain(cuda, depth, T, k):
+    f, aug, aug_i, want, want_i = _leaf_case(cuda, depth * 100 + T, 1001, 13,
+                                             T, k, depth)
+    args = (f["codes"], f["feat"], f["bins"])
+    _check_leaf_sums(
+        F.FOREST_LEAF_SUMS_HEAP,
+        lambda a: F.forest_leaf_sums_heap_cuda(*args, a, depth=depth),
+        lambda a: F.forest_leaf_sums_plain(*args, a, depth=depth, n_bins=32),
+        aug, aug_i, want, want_i)
+    before = F.FOREST_LEAF_SUMS_HEAP.launches
+    F.forest_leaf_sums(*args, aug, depth=depth, n_bins=32)
+    assert F.FOREST_LEAF_SUMS_HEAP.launches == before + 1
+
+
+@pytest.mark.parametrize("W,depth", [(1, 5), (4, 12), (64, 12), (256, 12),
+                                     (200, 9)])
+def test_leaf_sums_chain_kernel_matches_plain(cuda, W, depth):
+    f, aug, aug_i, want, want_i = _leaf_case(cuda, W + depth, 777, 9, 20, 3,
+                                             depth, W=W)
+    args = (f["codes"], f["feat"], f["bins"], f["base"])
+    _check_leaf_sums(
+        F.FOREST_LEAF_SUMS_CHAIN,
+        lambda a: F.forest_leaf_sums_chain_cuda(*args, a),
+        lambda a: F.forest_leaf_sums_chain_plain(*args, a, n_bins=32),
+        aug, aug_i, want, want_i)
+    before = F.FOREST_LEAF_SUMS_CHAIN.launches
+    F.forest_leaf_sums_chain(*args, aug, n_bins=32)
+    assert F.FOREST_LEAF_SUMS_CHAIN.launches == before + 1
+
+
+def test_leaf_sums_do_not_depend_on_tree_grouping(cuda):
+    """One call over 50 trees gives the bits of 50 one-tree calls: rows
+    are chunked by their count alone."""
+    rng = np.random.RandomState(12)
+    c = _on(cuda, random_chain(rng, 19712, 64, 50, 12, 256, 1, 32))
+    aug = torch.from_numpy(rng.rand(19712, 3).astype(np.float32)).to(cuda)
+    tabs = (c["feat"], c["bins"], c["base"])
+    whole = F.forest_leaf_sums_chain_cuda(c["codes"], *tabs, aug)
+    for t in (0, 17, 49):
+        one = F.forest_leaf_sums_chain_cuda(
+            c["codes"], *(x[t:t + 1].contiguous() for x in tabs), aug)
+        assert torch.equal(one[0], whole[t])
+    h = _on(cuda, random_heap(rng, 5000, 16, 40, 6, 1, 32))
+    aug = aug[:5000].contiguous()
+    whole = F.forest_leaf_sums_heap_cuda(h["codes"], h["feat"], h["bins"],
+                                         aug, depth=6)
+    part = F.forest_leaf_sums_heap_cuda(h["codes"], h["feat"][3:21].
+                                        contiguous(), h["bins"][3:21].
+                                        contiguous(), aug, depth=6)
+    assert torch.equal(part, whole[3:21])
+
+
+def test_leaf_sums_empty_and_bad_inputs(cuda):
+    rng = np.random.RandomState(13)
+    h = _on(cuda, random_heap(rng, 0, 4, 3, 2, 1, 32))
+    aug = torch.zeros((0, 2), device=cuda)
+    out = F.forest_leaf_sums_heap_cuda(h["codes"], h["feat"], h["bins"], aug,
+                                       depth=2)
+    assert torch.equal(out, torch.zeros((3, 4, 2), device=cuda))
+    h = _on(cuda, random_heap(rng, 10, 4, 3, 2, 1, 32))
+    aug = torch.ones((10, 2), device=cuda)
+    with pytest.raises(TypeError):
+        F.forest_leaf_sums_heap_cuda(h["codes"], h["feat"], h["bins"],
+                                     aug.double(), depth=2)
+    with pytest.raises(ValueError):
+        F.forest_leaf_sums_heap_cuda(h["codes"], h["feat"], h["bins"],
+                                     aug[:5], depth=2)
+    with pytest.raises(ValueError):
+        F.forest_leaf_sums_heap_cuda(h["codes"], h["feat"], h["bins"],
+                                     aug.cpu(), depth=2)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        # one tree's partial (4 leaves x 60,000 stats) exceeds shared memory
+        F.forest_leaf_sums_heap_cuda(h["codes"], h["feat"], h["bins"],
+                                     torch.ones((10, 60000), device=cuda),
+                                     depth=2)
+
+
+TINY_TRAINS = {
+    "OpGBTClassifier": {"maxDepth": 3, "maxIter": 5, "stepSize": 0.1,
+                        "minInstancesPerNode": 5, "minInfoGain": 0.001},
+    "OpRandomForestClassifier": {"maxDepth": 12, "numTrees": 4,
+                                 "minInstancesPerNode": 5,
+                                 "minInfoGain": 0.001,
+                                 "subsamplingRate": 1.0},
+    "OpDecisionTreeClassifier": {"maxDepth": 6, "minInstancesPerNode": 5,
+                                 "minInfoGain": 0.001},
+}
+#: kernels each tiny train must launch, and table keys compared
+TINY_KERNELS = {
+    "OpGBTClassifier": ((HK.HIST_MATMUL, 5),),
+    "OpRandomForestClassifier": ((HK.HIST_MATMUL, 1),
+                                 (F.FOREST_LEAF_SUMS_CHAIN, 1),
+                                 (F.FOREST_PREDICT_CHAIN, 1)),
+    "OpDecisionTreeClassifier": ((HK.HIST_MATMUL, 1),
+                                 (F.FOREST_LEAF_SUMS_HEAP, 1),
+                                 (F.FOREST_PREDICT_HEAP, 1)),
+}
+TINY_TABLES = {
+    "OpGBTClassifier": ("edges", "feat", "bins"),
+    "OpRandomForestClassifier": ("edges", "feat_lv", "bins_lv", "base_lv"),
+    "OpDecisionTreeClassifier": ("edges", "feat", "bins"),
+}
+
+
+@pytest.mark.parametrize("family", sorted(TINY_TRAINS))
+def test_tiny_train_on_the_card_matches_the_cpu(cuda, family):
+    hyper = TINY_TRAINS[family]
     data = serve_bench_data(400, 5, seed=3)
     cpu = serve_bench_workflow(family, hyper, 5, seed=3, realnn=2,
                                device="cpu").set_input_dataset(data).train()
-    before = HK.HIST_MATMUL.launches
+    before = [kern.launches for kern, _ in TINY_KERNELS[family]]
     gpu = serve_bench_workflow(family, hyper, 5, seed=3, realnn=2,
                                device=cuda).set_input_dataset(data).train()
-    assert HK.HIST_MATMUL.launches >= before + hyper["maxIter"]
+    for (kern, least), b in zip(TINY_KERNELS[family], before):
+        assert kern.launches >= b + least, kern.name
     cp, gp = cpu.stages[-1].fitted.params, gpu.stages[-1].fitted.params
-    for k in ("edges", "feat", "bins"):
+    for k in TINY_TABLES[family]:
         assert torch.equal(gp[k].cpu(), cp[k]), k
+    torch.testing.assert_close(gp["leaf"].cpu(), cp["leaf"], rtol=0,
+                               atol=1e-6)
     assert gpu.stages[-2].keep_indices == cpu.stages[-2].keep_indices
     np.testing.assert_allclose(
         gpu.stages[-1].summary.validation_results[0].fold_metrics,

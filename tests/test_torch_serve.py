@@ -7,7 +7,8 @@ The committed fixture under ``transmogrifai_tpu_torch/fixtures/serve64`` is
 written by this file's ``__main__`` entry (the card has no JAX, so the JAX
 package's outputs travel with the fixture as ``expected.npz``)::
 
-    python tests/test_torch_serve.py            # regenerate both models
+    python tests/test_torch_serve.py            # regenerate every model
+    python tests/test_torch_serve.py dt         # regenerate only ``dt``
 
 Tolerances (stated once, used throughout):
 
@@ -65,6 +66,8 @@ SERVE_MODELS = {
     "gbt": ("OpGBTClassifier",
             {"maxDepth": 6, "maxIter": 20, "stepSize": 0.1,
              "minInstancesPerNode": 10, "minInfoGain": 0.001}),
+    "dt": ("OpDecisionTreeClassifier",
+           {"maxDepth": 6, "minInstancesPerNode": 10, "minInfoGain": 0.001}),
 }
 
 
@@ -153,12 +156,14 @@ def save_jax_model(model, path: str) -> None:
 
 
 def generate_fixture(out_dir: str = FIXTURE_DIR, n: int = 20000, d: int = 64,
-                     n_score: int = 4096, seed: int = 0) -> None:
-    """Train both serve models at full width, save them, and write
-    ``expected.npz`` (the scoring frame and the JAX package's outputs)."""
+                     n_score: int = 4096, seed: int = 0, keys=None) -> None:
+    """Train the serve models named by ``keys`` (default: all) at full
+    width, save them, and write ``expected.npz`` (the scoring frame and the
+    JAX package's outputs)."""
     frame = score_frame(n_score, d, seed + 1)
     X = np.stack([frame[f"x{i}"] for i in range(d)], axis=1)
-    for key, (family, hyper) in SERVE_MODELS.items():
+    for key in keys or SERVE_MODELS:
+        family, hyper = SERVE_MODELS[key]
         model = train_jax_model(family, hyper, n, d, seed)
         path = os.path.join(out_dir, key)
         save_jax_model(model, path)
@@ -267,7 +272,7 @@ def test_micro_batch_quarantines_only_bad_rows(tiny_models):
     assert [out[0], out[2]] == [fn(rows[0]), fn(rows[2])]
 
 
-@pytest.mark.parametrize("key", ["rf", "gbt"])
+@pytest.mark.parametrize("key", ["rf", "gbt", "dt"])
 def test_committed_fixture_matches_expected_in_both_packages(key):
     path = os.path.join(FIXTURE_DIR, key)
     exp = np.load(os.path.join(path, "expected.npz"))
@@ -284,8 +289,10 @@ def test_committed_fixture_matches_expected_in_both_packages(key):
     params = pm.stages[-1].fitted.params
     if key == "rf":          # depth-12 refit: slot chains of 256 slots
         assert tuple(params["feat_lv"].shape) == (50, 12, 256)
-    else:                    # depth-6 complete heaps
+    elif key == "gbt":       # depth-6 complete heaps
         assert tuple(params["feat"].shape) == (20, 1, 63)
+    else:                    # one depth-6 heap
+        assert tuple(params["feat"].shape) == (63,)
     pp = prediction_parts(pm.score(data=frame), pm)
     _assert_parts_agree({k: pp[k] for k in want}, want)
 
@@ -333,7 +340,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "ops.metrics", "ops.stats", "evaluators.binary",
                 "impl.tuning.splitters", "impl.tuning.validators",
                 "impl.selector.factories", "impl.feature.transmogrifier",
-                "dsl", "workflow", "testing"):
+                "dsl", "workflow", "testing", "rng", "models.bootstrap"):
         assert f"transmogrifai_tpu_torch.{mod}" in walked, mod
 
 
@@ -366,4 +373,4 @@ def test_corrupt_or_unknown_saved_state_raises(tmp_path):
 
 
 if __name__ == "__main__":
-    generate_fixture()
+    generate_fixture(keys=sys.argv[1:] or None)

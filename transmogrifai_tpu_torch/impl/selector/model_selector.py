@@ -100,9 +100,7 @@ class ModelSelector(AllowLabelAsInput, Estimator):
                 raise ValueError(f"{fam.name} does not support problem kind "
                                  f"'{self.problem}'")
             if grid is None:
-                raise NotImplementedError(
-                    f"{fam.name}'s default grid (maxDepth up to 12) is not "
-                    f"ported yet; pass a grid")
+                grid = fam.default_grid(self.problem)
             resolved.append((fam, list(grid)))
         return resolved
 

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import abc
 from dataclasses import dataclass
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -36,6 +36,11 @@ class ModelFamily(abc.ABC):
     name: str = ""
     #: problem kinds: subset of {"binary", "multiclass", "regression"}
     supports: frozenset = frozenset()
+
+    def default_grid(self, problem: str) -> List[Dict[str, Any]]:
+        """The reference's default hyperparameter grid for ``problem``."""
+        raise NotImplementedError(
+            f"{self.name}'s default grid is not ported yet; pass a grid")
 
     def fit_batch(self, X: torch.Tensor, y: torch.Tensor,
                   weights: torch.Tensor, grid: Dict[str, np.ndarray],

@@ -1,6 +1,6 @@
 """Tree model families (counterpart of ``transmogrifai_tpu.models.trees``):
-the gradient-boosted tree classifier fits and scores on a device; the
-random-forest classifier scores (its fit is the next slice).
+the decision-tree, random-forest and gradient-boosted tree classifiers fit
+and score on a device (GBT on complete heaps, maxDepth <= 8).
 
 Features are binned as the JAX package bins them, ``bin(x) = #{edges < x}``
 with ``n_bins = edges.shape[-1] + 1``, and routed by bin code. A fitted
@@ -8,13 +8,18 @@ forest comes in one of two layouts: complete heaps (``feat``/``bins``,
 depth <= 8) or slot chains (``feat_lv``/``bins_lv``/``base_lv``, the
 depth-12 refits).
 
-Growth (``_grow_forest``) follows the JAX package step for step: the
+Growth (``_grow_forest``, and ``_grow_forest_capped`` for slot chains of
+any depth at a bounded width) follows the JAX package step for step: the
 split search of each level is one node histogram (``histeng``), a cumsum
 over bins and an argmax; routing compares each row's code of the chosen
 feature with the chosen bin. GBT trains on the split-search sample; the
 refit's Newton leaves are exact per-tree segment sums through the
 ``hist_matmul`` kernel (``_diag_leaf_hist``), the CV sweep's come off the
-last level's histogram.
+last level's histogram. RF and DT sweeps take their leaves from the
+sample the same way; their refits route every row through the fused
+leaf-sum kernels (``forest_leaf_sums``, ``forest_leaf_sums_chain``). RF
+bootstrap weights and feature subsets are the JAX package's threefry
+draws, bit for bit (``bootstrap.py``).
 
 Arithmetic that must match the JAX package to the bit is written out:
 the quantile edges and the boosting update ``F + eta * pred`` are fused
@@ -35,7 +40,11 @@ import numpy as np
 import torch
 
 from ..histeng import build_hist, build_node_hist, pinned_row_sum
-from ..ops.forest import forest_predict, forest_predict_chain
+from ..ops.forest import (
+    _chain_widths, _check_slots, forest_leaf_sums, forest_leaf_sums_chain,
+    forest_predict, forest_predict_chain,
+)
+from . import bootstrap
 from .api import FittedParams, ModelFamily, register_family
 
 logger = logging.getLogger(__name__)
@@ -48,11 +57,28 @@ _HIST_SAMPLE = 65536
 #: split-search sample cap of a CV-sweep fit
 _SWEEP_HIST_SAMPLE = 8192
 
-#: boosting rounds CV candidates rank with; the winner refits at maxIter
+#: RF trees / boosting rounds CV candidates rank with; the winner refits
+#: at its full numTrees / maxIter
+_SWEEP_RF_TREES = 16
 _SWEEP_GBT_ROUNDS = 12
 
 #: per-level histogram element budget (f32) that bounds a config chunk
 _LEVEL_HIST_ELEMS = 1 << 28
+
+#: (sample rows x trees x level lanes) element budget of an RF/DT config
+#: chunk
+_CFG_CHUNK_ELEMS = 1 << 30
+
+#: the slot-chain grower reconstructs odd slots by sibling subtraction
+#: only for tree batches at least this wide
+_CHAIN_SIBLING_MIN_TB = 128
+
+#: the reference's default maxDepth values
+_DEPTHS = (3, 6, 12)
+
+#: slot-chain leaf budgets: CV-sweep candidates, and served refits
+_SWEEP_SLOTS = 64
+_REFIT_SLOTS = 256
 
 #: trees per ``_diag_leaf_hist`` histogram call
 _DIAG_BLOCK = 64
@@ -141,14 +167,56 @@ def _split_gain(SL, SR, total, cfg, mode: str):
     wL, wR, wP = SL.sum(-1), SR.sum(-1), total.sum(-1)
 
     def gini(S, W):
-        p = S / torch.clamp(W, min=1e-12)[..., None]
-        return 1.0 - (p * p).sum(-1)
+        # 1 - sum_c p_c^2, the squares accumulated class by class with
+        # fused multiply-adds, as XLA on the CPU computes it
+        p = (S / torch.clamp(W, min=1e-12)[..., None]).double()
+        acc = torch.zeros_like(p[..., 0])
+        for c in range(p.shape[-1]):
+            acc = (p[..., c] * p[..., c] + acc).float().double()
+        return 1.0 - acc.float()
 
     impP = gini(total, wP)[:, None, None]
     wPn = torch.clamp(wP, min=1e-12)[:, None, None]
-    gain = impP - (wL / wPn) * gini(SL, wL) - (wR / wPn) * gini(SR, wR)
+    # impP - (wL / wPn) * giniL - (wR / wPn) * giniR, each product fused
+    # into its subtraction
+    t = (impP.double() - (wL / wPn).double() * gini(SL, wL).double()).float()
+    gain = (t.double() - (wR / wPn).double() * gini(SR, wR).double()).float()
     mi = torch.clamp(bc(cfg["min_instances"]), min=1e-6)
     return gain, (wL >= mi) & (wR >= mi)
+
+
+#: XLA on the CPU computes a cumulative sum of more than this many elements
+#: in blocks of this many (a sequential sum within each block, plus the
+#: sequential sum of the earlier blocks' totals)
+_CUMSUM_BLOCK = 16
+
+
+def _seq_cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Prefix sums along ``dim``, added one element at a time in float32."""
+    out = x.clone()
+    for i in range(1, x.shape[dim]):
+        out.select(dim, i).add_(out.select(dim, i - 1))
+    return out
+
+
+def _cumsum_bins(x: torch.Tensor) -> torch.Tensor:
+    """Cumulative sum over axis 2 (the bins) in the JAX package's float32
+    order: sequential up to ``_CUMSUM_BLOCK`` elements, blocked beyond.
+    (``torch.cumsum`` accumulates otherwise: in float64 on the CPU.)"""
+    n = x.shape[2]
+    if n <= _CUMSUM_BLOCK:
+        return _seq_cumsum(x, 2)
+    nb = -(-n // _CUMSUM_BLOCK)
+    pad = torch.zeros(x.shape[:2] + (nb * _CUMSUM_BLOCK - n,) + x.shape[3:],
+                      dtype=x.dtype, device=x.device)
+    blocks = torch.cat([x, pad], dim=2).reshape(
+        x.shape[:2] + (nb, _CUMSUM_BLOCK) + x.shape[3:])
+    inner = _seq_cumsum(blocks, 3)
+    outer = _cumsum_bins(inner.select(3, _CUMSUM_BLOCK - 1))
+    excl = torch.cat([torch.zeros_like(outer[:, :, :1]), outer[:, :, :-1]],
+                     dim=2)
+    out = inner + excl.unsqueeze(3)
+    return out.reshape(x.shape[:2] + (-1,) + x.shape[3:])[:, :, :n]
 
 
 def _grow_forest(codes_s, edges, sw_list, fmasks, cfg, *, depth: int,
@@ -197,7 +265,7 @@ def _grow_forest(codes_s, edges, sw_list, fmasks, cfg, *, depth: int,
                                 hist_r.reshape(h, Tb, d, n_bins, k)],
                                dim=1).reshape(M, d, n_bins, k)
         hist_prev = hist
-        cum = torch.cumsum(hist, dim=2)
+        cum = _cumsum_bins(hist)
         total = cum[:, 0, -1, :]                             # (M, k)
         SL = cum[:, :, :-1, :]
         SR = total[:, None, None, :] - SL
@@ -242,6 +310,136 @@ def _grow_forest(codes_s, edges, sw_list, fmasks, cfg, *, depth: int,
     return feat_heap, thr_heap, bin_heap, node
 
 
+def _grow_forest_capped(codes_s, edges, sw_list, fmasks, cfg, *, depth: int,
+                        n_bins: int, mode: str, n_slots: int):
+    """Grow Tb slot-chain ("leaf budget") trees at once: any depth, at most
+    ``n_slots`` live nodes per level.
+
+    Every level ranks each tree's valid candidate splits by gain and keeps
+    as many as the budget allows (a split adds one net slot); unsplit live
+    slots carry forward as leaves. Level l holds slots [0, n_live) of at
+    most min(2^l, W). A kept split's children go to slots 2 * rank and
+    2 * rank + 1, carried slots after them in slot order. Routing is
+    ``slot' = base[slot] + go``, by integer gathers (the JAX package sums
+    bf16 one-hots, which is exact for slots and bins <= 256).
+
+    With Tb >= ``_CHAIN_SIBLING_MIN_TB`` a level of even width builds
+    histograms for its even slots only: an odd slot is its parent minus
+    its left sibling when it is a right child, or its own previous
+    histogram when it was carried. Inputs as ``_grow_forest``. Returns
+    (feat_lv, thr_lv, bin_lv, base_lv) (Tb, depth, W) and node_s (S, Tb),
+    the final sample slot in [0, min(2^depth, W))."""
+    _check_slots(n_slots)
+    S, d = codes_s.shape
+    Tb = sw_list[0].shape[1]
+    k = len(sw_list)
+    W = n_slots
+    dev = codes_s.device
+    feat_lv = torch.zeros((Tb, depth, W), dtype=torch.int32, device=dev)
+    thr_lv = torch.full((Tb, depth, W), _INF, dtype=torch.float32,
+                        device=dev)
+    bin_lv = torch.full((Tb, depth, W), n_bins, dtype=torch.int32,
+                        device=dev)
+    base_lv = torch.zeros((Tb, depth, W), dtype=torch.int32, device=dev)
+    node = torch.zeros((S, Tb), dtype=torch.int64, device=dev)
+    n_live = torch.ones((Tb,), dtype=torch.int64, device=dev)
+    lanes = torch.arange(Tb, device=dev)
+    widths = _chain_widths(depth, W)
+    sibling = Tb >= _CHAIN_SIBLING_MIN_TB
+    hist5_prev = None                   # (Wl_prev, Tb, d, nb, k)
+    odd_map_prev = None                 # (j_src (Wh, Tb), is_rchild)
+    for level in range(depth):
+        Wl = widths[level]
+        Wn = widths[level + 1] if level + 1 < depth else min(2 ** depth, W)
+        M = Wl * Tb
+        if level == 0 or Wl % 2 or not sibling:
+            hist5 = build_node_hist(codes_s, node, sw_list, n_bins,
+                                    n_nodes=Wl).permute(1, 2, 3, 4, 0)
+        else:
+            Wh = Wl // 2
+            he5 = build_node_hist(codes_s, node, sw_list, n_bins, n_nodes=Wh,
+                                  stride=2).permute(1, 2, 3, 4, 0)
+            j_src, is_rch = odd_map_prev
+            prev = hist5_prev.reshape(hist5_prev.shape[0], Tb,
+                                      d * n_bins * k).permute(1, 0, 2)
+            src = prev.gather(1, j_src.T[:, :, None].expand(
+                Tb, Wh, d * n_bins * k)).permute(1, 0, 2).reshape(
+                Wh, Tb, d, n_bins, k)
+            odd5 = src - torch.where(is_rch[:, :, None, None, None], he5,
+                                     torch.zeros_like(he5))
+            hist5 = torch.stack([he5, odd5], dim=1).reshape(Wl, Tb, d,
+                                                            n_bins, k)
+        hist5_prev = hist5
+        hist = hist5.reshape(M, d, n_bins, k)
+        cum = _cumsum_bins(hist)
+        total = cum[:, 0, -1, :]
+        SL = cum[:, :, :-1, :]
+        SR = total[:, None, None, :] - SL
+        cfg_m = {key: v.repeat(Wl) for key, v in cfg.items()}
+        gain, valid = _split_gain(SL, SR, total, cfg_m, mode)
+        valid = valid & fmasks.repeat(Wl, 1)[:, :, None]
+        gain = torch.where(valid, gain, torch.full_like(gain, -_INF))
+        gflat = gain.reshape(M, d * (n_bins - 1))
+        best = torch.argmax(gflat, dim=1)
+        bf = best // (n_bins - 1)
+        bb = best % (n_bins - 1)
+        bgain = gflat.gather(1, best[:, None])[:, 0]
+        active = float(level) < cfg_m["max_depth"]
+        cand = (active & torch.isfinite(bgain)
+                & (bgain > cfg_m["min_info_gain"]))
+        # live slots are [0, n_live) per tree; dead lanes never split
+        slot_ids = torch.arange(Wl, device=dev)
+        live = slot_ids[:, None] < n_live[None, :]             # (Wl, Tb)
+        cand_2d = cand.reshape(Wl, Tb) & live
+        # leaf budget: at most q = W_next - n_live splits this level, the
+        # q best by gain; a slot's rank counts the slots that dominate it
+        # (higher gain, or equal gain at a lower slot index)
+        key = torch.where(cand_2d, bgain.reshape(Wl, Tb),
+                          torch.full_like(bgain.reshape(Wl, Tb), -_INF))
+        k_i, k_j = key[:, None, :], key[None, :, :]
+        j_lt_i = slot_ids[None, :, None] < slot_ids[:, None, None]
+        rank = ((k_j > k_i) | ((k_j == k_i) & j_lt_i)).sum(1)  # (Wl, Tb)
+        q = torch.clamp(Wn - n_live, min=0)[None, :]
+        kept = cand_2d & (rank < q)
+        n_split = kept.sum(0)
+        carried = live & ~kept
+        c_rank = torch.cumsum(carried.long(), 0) - 1
+        base_2d = torch.where(kept, 2 * rank,
+                              torch.where(carried, 2 * n_split[None, :]
+                                          + c_rank,
+                                          torch.zeros_like(rank)))
+        if sibling and level + 1 < depth and widths[level + 1] % 2 == 0:
+            # odd slot i of the next level sources slot j of this one: j's
+            # right child (base + 1 == i) or j carried onto i (base == i)
+            i_odd = (1 + 2 * torch.arange(widths[level + 1] // 2,
+                                          device=dev))[None, :, None]
+            oh_r = torch.where(kept, base_2d + 1,
+                               torch.full_like(base_2d, -1))[:, None, :] \
+                == i_odd
+            oh_c = torch.where(carried, base_2d,
+                               torch.full_like(base_2d, -1))[:, None, :] \
+                == i_odd
+            odd_map_prev = (((oh_r | oh_c).long()
+                             * slot_ids[:, None, None]).sum(0),
+                            oh_r.any(0))
+        kept_f = kept.reshape(M)
+        bf_eff = torch.where(kept_f, bf, torch.zeros_like(bf))
+        bb_eff = torch.where(kept_f, bb, torch.full_like(bb, n_bins))
+        thr = torch.where(kept_f, edges[bf, bb],
+                          torch.full_like(bgain, _INF))
+        # j-major (M,) -> (Tb, Wl) table rows
+        feat_lv[:, level, :Wl] = bf_eff.reshape(Wl, Tb).T.int()
+        thr_lv[:, level, :Wl] = thr.reshape(Wl, Tb).T
+        bin_lv[:, level, :Wl] = bb_eff.reshape(Wl, Tb).T.int()
+        base_lv[:, level, :Wl] = base_2d.T.int()
+        # route: slot' = base[slot] + (code of the split feature > bin)
+        lane = node * Tb + lanes                               # (S, Tb)
+        go = codes_s.gather(1, bf_eff[lane]) > bb_eff[lane]
+        node = base_2d.reshape(M)[lane] + go.long()
+        n_live = n_live + n_split
+    return feat_lv, thr_lv, bin_lv, base_lv, node
+
+
 def _diag_leaf_hist(node_s: torch.Tensor, A_cols: torch.Tensor,
                     L: int) -> torch.Tensor:
     """out[j, t, l] = sum_s A_cols[s, j, t] * 1[node_s[s, t] == l]:
@@ -269,6 +467,50 @@ def _diag_leaf_hist(node_s: torch.Tensor, A_cols: torch.Tensor,
     out = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
     out = out[:, :Tb]
     return out[0] if squeeze else out
+
+
+def _class_leaf(leaf_stats: torch.Tensor) -> torch.Tensor:
+    """Per-leaf class probabilities from weighted class counts (..., L, k)."""
+    tot = torch.clamp(leaf_stats.sum(-1, keepdim=True), min=1e-12)
+    return leaf_stats / tot
+
+
+def _mean_leaf(leaf_stats: torch.Tensor) -> torch.Tensor:
+    """gh-mode stats with g = -y, h = 1: the Newton leaf -G / H is the
+    weighted mean of y. (..., L, k) -> (..., L)."""
+    return -leaf_stats[..., 0] / torch.clamp(leaf_stats[..., 1], min=1e-12)
+
+
+def _leaf_values(ls: torch.Tensor, task: str):
+    """Served leaf values of (..., L, k) stat sums: class shares, or the
+    mean with a trailing axis of one."""
+    if task == "classification":
+        return _class_leaf(ls)
+    return _mean_leaf(ls)[..., None]
+
+
+def _exact_leaf_stats(codes, feat_heaps, bin_heaps, stats, w, depth: int,
+                      n_bins: int):
+    """Full-data leaf statistics of complete-heap trees through the fused
+    leaf-sum kernel: (T, L, k) stat sums and (T, L) weight sums, f32."""
+    aug = torch.cat([stats * w[:, None], w[:, None]], dim=1)
+    out = forest_leaf_sums(codes, feat_heaps, bin_heaps, aug, depth=depth,
+                           n_bins=n_bins)
+    return out[..., :-1], out[..., -1]
+
+
+def _exact_leaf_stats_chain(codes, feat_lv, bin_lv, base_lv, stats, w,
+                            n_bins: int):
+    """Slot-chain counterpart of ``_exact_leaf_stats``."""
+    aug = torch.cat([stats * w[:, None], w[:, None]], dim=1)
+    out = forest_leaf_sums_chain(codes, feat_lv, bin_lv, base_lv, aug,
+                                 n_bins=n_bins)
+    return out[..., :-1], out[..., -1]
+
+
+def _f32(v, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(v, dtype=np.float32).reshape(-1),
+                           device=device)
 
 
 def _make_stats(y: torch.Tensor, num_classes: int, task: str):
@@ -318,13 +560,10 @@ def _fit_gbt_batch(X, y, weights, max_depth, min_inst, min_gain, max_iter,
             f"GBT task {task!r} is not ported yet; this slice fits binary "
             f"classification")
     dev = X.device
-
-    def f32(v):
-        return torch.as_tensor(np.asarray(v, dtype=np.float32), device=dev)
-
     max_depth, min_inst, min_gain, max_iter, step_size, lam, \
-        min_child_weight = map(f32, (max_depth, min_inst, min_gain, max_iter,
-                                     step_size, lam, min_child_weight))
+        min_child_weight = (_f32(v, dev) for v in (
+            max_depth, min_inst, min_gain, max_iter, step_size, lam,
+            min_child_weight))
     d = X.shape[1]
     samp, edges, _, binned_s, _, _, w_scale = _prep_tree_inputs(
         X, y, n_bins, num_classes, "regression", full_bin=False, sweep=sweep)
@@ -389,6 +628,199 @@ def _fit_gbt_batch(X, y, weights, max_depth, min_inst, min_gain, max_iter,
             "tree_mask": tree_mask, "edges": edges}
 
 
+def _map_chunks(B: int, cb: int, one_chunk):
+    """Run ``one_chunk(idx)`` over configuration chunks of cb (the tail
+    chunk wraps around to the first configurations, as the JAX package's
+    ``lax.map`` over padded chunks does) and join each output along its
+    leading axis, cut back to B."""
+    outs = [one_chunk(np.arange(c * cb, (c + 1) * cb) % B)
+            for c in range(-(-B // cb))]
+    return [torch.cat(parts, dim=0)[:B] for parts in zip(*outs)]
+
+
+def _fit_dt_batch(X, y, weights, max_depth, min_inst, min_gain, *,
+                  depth: int, n_bins: int, num_classes: int, task: str,
+                  sweep: bool = False, n_slots: int = 0):
+    """One tree per configuration; B configurations grow in tree-batched
+    chunks. ``n_slots`` > 0 grows slot chains of that budget. The sweep's
+    leaves come off the split-search sample; the refit's from every row
+    through the leaf-sum kernel, one launch per configuration."""
+    d = X.shape[1]
+    dev = X.device
+    B = weights.shape[0]
+    samp, edges, binned, binned_s, stats, mode, w_scale = \
+        _prep_tree_inputs(X, y, n_bins, num_classes, task,
+                          full_bin=not sweep, sweep=sweep)
+    stats_s = stats[samp]
+    k = stats.shape[1]
+    deep = n_slots > 0
+    L = min(2 ** depth, n_slots) if deep else 2 ** depth
+    lane_w = (min(2 ** (depth - 1), n_slots) * k if deep
+              else 2 ** (depth - 1))
+    cb = int(max(1, min(B, _CFG_CHUNK_ELEMS
+                        // (binned_s.shape[0] * lane_w))))
+    md, mi, mg = (_f32(v, dev) for v in (max_depth, min_inst, min_gain))
+
+    def one_chunk(idx):
+        rows = torch.as_tensor(idx, device=dev)
+        n_c = len(idx)
+        w_bs = weights[rows][:, samp].T * w_scale            # (S, cb)
+        sw_list = [stats_s[:, ki][:, None] * w_bs for ki in range(k)]
+        cfg = {"max_depth": md[rows], "min_instances": mi[rows],
+               "min_info_gain": mg[rows],
+               "lam": torch.full((n_c,), 1e-6, device=dev),
+               "min_child_weight": torch.zeros((n_c,), device=dev)}
+        fmasks = torch.ones((n_c, d), dtype=torch.bool, device=dev)
+        if deep:
+            fs, ths, bhs, abs_, node_s = _grow_forest_capped(
+                binned_s, edges, sw_list, fmasks, cfg, depth=depth,
+                n_bins=n_bins, mode=mode, n_slots=n_slots)
+        else:
+            fs, ths, bhs, node_s = _grow_forest(
+                binned_s, edges, sw_list, fmasks, cfg, depth=depth,
+                n_bins=n_bins, mode=mode)
+            abs_ = torch.zeros((n_c, 0), dtype=torch.int32, device=dev)
+        if sweep:            # sample leaf stats, for validation scoring
+            sums = torch.stack([_diag_leaf_hist(node_s, c.float(), L)
+                                for c in sw_list + [w_bs]], dim=-1)
+            leaf_c = _leaf_values(sums[..., :-1], task)
+        else:
+            leaf_c = torch.zeros(
+                (n_c, L, k if task == "classification" else 1), device=dev)
+        return fs, ths, bhs, abs_, leaf_c
+
+    feat, thr, bheap, bases, leaf = _map_chunks(B, cb, one_chunk)
+    if not sweep:            # exact full-data leaf stats per configuration
+        leaves = []
+        for b in range(B):
+            if deep:
+                ls, _ = _exact_leaf_stats_chain(
+                    binned, feat[b][None], bheap[b][None], bases[b][None],
+                    stats, weights[b], n_bins)
+            else:
+                ls, _ = _exact_leaf_stats(binned, feat[b][None],
+                                          bheap[b][None], stats, weights[b],
+                                          depth, n_bins)
+            leaves.append(_leaf_values(ls[0], task))
+        leaf = torch.stack(leaves)
+    if deep:
+        return {"feat_lv": feat, "thresh_lv": thr, "bins_lv": bheap,
+                "base_lv": bases, "leaf": leaf, "edges": edges}
+    return {"feat": feat, "thresh": thr, "bins": bheap, "leaf": leaf,
+            "edges": edges}
+
+
+def _cdf_folded(B: int, cb: int) -> bool:
+    """Whether the JAX package's RF program folds the bootstrap CDF's
+    gammaln table at compile time (``bootstrap.poisson_cdf``): it does
+    unless all B configurations draw in one chunk of two or more."""
+    return cb == 1 or cb < B
+
+
+def _fit_rf_batch(X, y, weights, max_depth, min_inst, min_gain, num_trees,
+                  subsample, seeds, *, depth: int, n_bins: int,
+                  num_classes: int, task: str, n_trees: int,
+                  sweep: bool = False, n_slots: int = 0):
+    """``n_trees`` bootstrapped trees per configuration, grown as one tree
+    batch per chunk of configurations. A tree's row weight is its
+    configuration's fold weight times its Poisson(subsamplingRate) draw,
+    and it splits on its own feature subset (``bootstrap.draw``, seeded by
+    ``seeds``). Leaves as ``_fit_dt_batch``; the refit launches the
+    leaf-sum kernel once per configuration over all its trees."""
+    d = X.shape[1]
+    dev = X.device
+    B = weights.shape[0]
+    samp, edges, binned, binned_s, stats, mode, w_scale = \
+        _prep_tree_inputs(X, y, n_bins, num_classes, task,
+                          full_bin=not sweep, sweep=sweep)
+    p_feat = bootstrap.feature_share(d, task)
+    S = binned_s.shape[0]
+    k = stats.shape[1]
+    stats_s = stats[samp]
+    deep = n_slots > 0
+    L = min(2 ** depth, n_slots) if deep else 2 ** depth
+    # chunk budgets: the grower's (S, trees x level lanes) transients and
+    # the per-level (trees x nodes, d, n_bins, k) histogram pipeline
+    lane_w = (min(2 ** (depth - 1), n_slots) * k if deep
+              else 2 ** (depth - 1))
+    cb = int(max(1, min(B, _CFG_CHUNK_ELEMS
+                        // (S * n_trees * max(lane_w, 2 * (k + 1))))))
+    nodes_w = min(2 ** depth, n_slots) if deep else 2 ** (depth - 1)
+    cb = int(max(1, min(cb, _LEVEL_HIST_ELEMS
+                        // (n_trees * nodes_w * d * n_bins * k))))
+    md, mi, mg = (_f32(v, dev) for v in (max_depth, min_inst, min_gain))
+    ss_np = np.asarray(subsample, np.float32).reshape(-1)
+    seeds_np = np.asarray(seeds, np.float32).reshape(-1)
+    folded = _cdf_folded(B, cb)
+
+    def one_chunk(idx):
+        rows = torch.as_tensor(idx, device=dev)
+        n_c = len(idx)
+        Tb = n_c * n_trees
+        w_s = weights[rows][:, samp] * w_scale                # (cb, S)
+        boots, fmasks = bootstrap.draw(seeds_np[idx], ss_np[idx], n_trees,
+                                       S, d, p_feat, dev, folded)
+        # tree lanes config-major: lane = c * n_trees + t
+        w_ts = (w_s[:, None, :] * boots).reshape(Tb, S).T     # (S, Tb)
+        sw_list = [stats_s[:, ki][:, None] * w_ts for ki in range(k)]
+        cfg = {"max_depth": md[rows].repeat_interleave(n_trees),
+               "min_instances": mi[rows].repeat_interleave(n_trees),
+               "min_info_gain": mg[rows].repeat_interleave(n_trees),
+               "lam": torch.full((Tb,), 1e-6, device=dev),
+               "min_child_weight": torch.zeros((Tb,), device=dev)}
+        if deep:
+            fs, ths, bhs, abs_, node_s = _grow_forest_capped(
+                binned_s, edges, sw_list, fmasks.reshape(Tb, d), cfg,
+                depth=depth, n_bins=n_bins, mode=mode, n_slots=n_slots)
+        else:
+            fs, ths, bhs, node_s = _grow_forest(
+                binned_s, edges, sw_list, fmasks.reshape(Tb, d), cfg,
+                depth=depth, n_bins=n_bins, mode=mode)
+            abs_ = torch.zeros((Tb, 0), dtype=torch.int32, device=dev)
+        if sweep:
+            # sample leaf stats of the whole chunk in one blocked segment
+            # sum; the columns carry the fold weights, not the bootstrap
+            w_cols = w_s.repeat_interleave(n_trees, dim=0).T  # (S, Tb)
+            stats_aug = torch.cat([stats_s, torch.ones((S, 1), device=dev)],
+                                  dim=1)
+            sums = _diag_leaf_hist(
+                node_s, stats_aug[:, :, None] * w_cols[:, None, :], L)
+            sums = sums.permute(1, 2, 0)                      # (Tb, L, k+1)
+            leaf_c = _leaf_values(sums[..., :-1], task)
+            leaf_c = leaf_c.reshape((n_c, n_trees) + tuple(leaf_c.shape[1:]))
+        else:
+            leaf_c = torch.zeros(
+                (n_c, n_trees, L, k if task == "classification" else 1),
+                device=dev)
+
+        def per_config(a):
+            return a.reshape((n_c, n_trees) + tuple(a.shape[1:]))
+        return (per_config(fs), per_config(ths), per_config(bhs),
+                per_config(abs_), leaf_c)
+
+    feat, thr, bheap, bases, leaf = _map_chunks(B, cb, one_chunk)
+    if not sweep:
+        leaves = []
+        for b in range(B):
+            if deep:
+                ls, _ = _exact_leaf_stats_chain(binned, feat[b], bheap[b],
+                                                bases[b], stats, weights[b],
+                                                n_bins)
+            else:
+                ls, _ = _exact_leaf_stats(binned, feat[b], bheap[b], stats,
+                                          weights[b], depth, n_bins)
+            leaves.append(_leaf_values(ls, task))
+        leaf = torch.stack(leaves)
+    tree_mask = (torch.arange(n_trees, device=dev)[None, :]
+                 < _f32(num_trees, dev)[:, None]).to(torch.float32)
+    if deep:
+        return {"feat_lv": feat, "thresh_lv": thr, "bins_lv": bheap,
+                "base_lv": bases, "leaf": leaf, "tree_mask": tree_mask,
+                "edges": edges}
+    return {"feat": feat, "thresh": thr, "bins": bheap, "leaf": leaf,
+            "tree_mask": tree_mask, "edges": edges}
+
+
 def _sweep_ensemble_cap(vals: np.ndarray, cap: int,
                         param: str) -> Optional[np.ndarray]:
     """Sweep-time ensemble cap: all configs equal -> clamp to ``cap``;
@@ -431,6 +863,148 @@ def _stitch_parts(B: int, parts) -> Dict[str, torch.Tensor]:
             if k != "edges":
                 stitched[k][rows] = v
     return stitched
+
+
+def _pad_axis(x: torch.Tensor, axis: int, after: int,
+              value: float = 0.0) -> torch.Tensor:
+    """Pad ``after`` entries of ``value`` at the end of one axis."""
+    if after <= 0:
+        return x
+    shape = list(x.shape)
+    shape[axis % x.dim()] = after
+    return torch.cat([x, torch.full(shape, value, dtype=x.dtype,
+                                    device=x.device)], dim=axis)
+
+
+def _heap_to_chain(params, d_heap: int, depth: int, W: int, n_bins: int,
+                   leaf_axis: int):
+    """Re-express complete-heap trees in the slot-chain layout, exactly:
+    heap node j of level l is chain slot j with child base 2j; levels past
+    the heap's depth carry every slot (sentinel bin, base = slot). Needs
+    2^d_heap <= W. Other entries (edges, tree_mask) pass through."""
+    if 2 ** d_heap > W:
+        raise ValueError(f"heap depth {d_heap} needs {2 ** d_heap} slots, "
+                         f"chain budget is {W}")
+    feat, bins = params["feat"], params["bins"]
+    thr, leaf = params["thresh"], params["leaf"]
+    lead = tuple(feat.shape[:-1])
+    dev = feat.device
+    f_lv = torch.zeros(lead + (depth, W), dtype=torch.int32, device=dev)
+    b_lv = torch.full(lead + (depth, W), n_bins, dtype=torch.int32,
+                      device=dev)
+    t_lv = torch.full(lead + (depth, W), _INF, dtype=torch.float32,
+                      device=dev)
+    a_lv = torch.zeros(lead + (depth, W), dtype=torch.int32, device=dev)
+    for level in range(depth):
+        if level < d_heap:
+            lo, m = 2 ** level - 1, 2 ** level
+            f_lv[..., level, :m] = feat[..., lo:lo + m]
+            b_lv[..., level, :m] = bins[..., lo:lo + m]
+            t_lv[..., level, :m] = thr[..., lo:lo + m]
+            a_lv[..., level, :m] = 2 * torch.arange(m, dtype=torch.int32,
+                                                    device=dev)
+        else:
+            Wl = min(2 ** level, W)
+            a_lv[..., level, :Wl] = torch.arange(Wl, dtype=torch.int32,
+                                                 device=dev)
+    ax = leaf_axis % leaf.dim()
+    out = {k: v for k, v in params.items()
+           if k not in ("feat", "bins", "thresh", "leaf")}
+    out.update({"feat_lv": f_lv, "bins_lv": b_lv, "thresh_lv": t_lv,
+                "base_lv": a_lv,
+                "leaf": _pad_axis(leaf, ax, min(2 ** depth, W)
+                                  - leaf.shape[ax])})
+    return out
+
+
+def _pad_chain_depth(params, d_small: int, depth: int, n_bins: int,
+                     leaf_axis: int):
+    """Extend chain tables from d_small to depth levels with carries, and
+    pad the leaf axis to the deeper W_out. Exact."""
+    if d_small == depth:
+        return params
+    f_lv = params["feat_lv"]
+    W = f_lv.shape[-1]
+    ext = depth - d_small
+    out = dict(params)
+    out["feat_lv"] = _pad_axis(f_lv, -2, ext, 0)
+    out["bins_lv"] = _pad_axis(params["bins_lv"], -2, ext, n_bins)
+    out["thresh_lv"] = _pad_axis(params["thresh_lv"], -2, ext, _INF)
+    a_lv = _pad_axis(params["base_lv"], -2, ext, 0)
+    for level in range(d_small, depth):
+        Wl = min(2 ** level, W)
+        a_lv[..., level, :Wl] = torch.arange(Wl, dtype=a_lv.dtype,
+                                             device=a_lv.device)
+    out["base_lv"] = a_lv
+    leaf = params["leaf"]
+    ax = leaf_axis % leaf.dim()
+    out["leaf"] = _pad_axis(leaf, ax, min(2 ** depth, W) - leaf.shape[ax])
+    return out
+
+
+def _embed_depth(params, d_small: int, d_max: int, n_bins: int,
+                 leaf_axis: int):
+    """Re-express a depth-``d_small`` heap fit in the depth-``d_max``
+    layout, exactly: the small heap is a prefix of the big one (the rest
+    routes left), so small leaf l becomes big leaf l * 2^(d_max -
+    d_small)."""
+    if d_small == d_max:
+        return params
+    extra = (2 ** d_max - 1) - (2 ** d_small - 1)
+    r = 2 ** (d_max - d_small)
+    out = dict(params)
+    out["feat"] = _pad_axis(params["feat"], -1, extra, 0)
+    out["thresh"] = _pad_axis(params["thresh"], -1, extra, _INF)
+    out["bins"] = _pad_axis(params["bins"], -1, extra, n_bins)
+    leaf = params["leaf"]
+    ax = leaf_axis % leaf.dim()
+    shape = list(leaf.shape)
+    shape[ax] *= r
+    big = leaf.new_zeros(shape)
+    idx = [slice(None)] * leaf.dim()
+    idx[ax] = slice(None, None, r)
+    big[tuple(idx)] = leaf
+    out["leaf"] = big
+    return out
+
+
+def _fit_depth_grouped(grid, weights, fit_group, n_bins: int,
+                       leaf_axis: int, fit_group_deep=None,
+                       n_slots: int = 0):
+    """Fit each maxDepth bucket of the grid with its own depth program and
+    embed the results in the deepest layout, so the batch shares one
+    predict program. ``fit_group(sub_grid, sub_weights, depth) -> params``.
+    Depths past ``_MAX_HEAP_DEPTH`` grow slot chains through
+    ``fit_group_deep(..., n_slots)``; when any bucket is that deep, every
+    heap bucket is re-expressed as chains, with a budget that holds the
+    deepest heap's leaves."""
+    md = np.asarray(grid["maxDepth"], dtype=np.float64).reshape(-1)
+    uniq = sorted({int(v) for v in md})
+    d_max = uniq[-1]
+    any_deep = d_max > _MAX_HEAP_DEPTH
+    if len(uniq) == 1:
+        return (fit_group_deep(grid, weights, d_max, n_slots) if any_deep
+                else fit_group(grid, weights, d_max))
+    if any_deep:
+        d_heap_max = max([u for u in uniq if u <= _MAX_HEAP_DEPTH],
+                         default=0)
+        n_slots = max(n_slots, 2 ** d_heap_max)
+    parts = []
+    for u in uniq:
+        idx = np.nonzero(md == u)[0]
+        sub = {k: np.asarray(v)[idx] for k, v in grid.items()}
+        w = weights[torch.as_tensor(idx, device=weights.device)]
+        if u > _MAX_HEAP_DEPTH:
+            p = _pad_chain_depth(fit_group_deep(sub, w, u, n_slots), u,
+                                 d_max, n_bins, leaf_axis)
+        elif any_deep:
+            p = _heap_to_chain(fit_group(sub, w, u), u, d_max, n_slots,
+                               n_bins, leaf_axis)
+        else:
+            p = _embed_depth(fit_group(sub, w, u), u, d_max, n_bins,
+                             leaf_axis)
+        parts.append((idx, p))
+    return _stitch_parts(md.shape[0], parts)
 
 
 # ---------------------------------------------------------------------------
@@ -544,8 +1118,91 @@ class _TreeFamilyBase(ModelFamily):
                                 num_classes) for b in range(B)])
 
 
+class DecisionTreeFamilyBase(_TreeFamilyBase):
+    """One tree per configuration (grids per the reference's
+    DefaultSelectorParams: maxDepth x minInstancesPerNode {10, 100} x
+    minInfoGain {0.001, 0.01, 0.1})."""
+
+    def default_grid(self, problem):
+        return [{"maxDepth": d, "minInstancesPerNode": mi, "minInfoGain": mg}
+                for d in _DEPTHS for mi in (10, 100)
+                for mg in (0.001, 0.01, 0.1)]
+
+    def fit_batch(self, X, y, weights, grid, num_classes, sweep=False):
+        task = self._task(num_classes)
+
+        def fit_group(g, w, depth, slots=0):
+            return _fit_dt_batch(
+                X, y, w, g["maxDepth"], _g(g, "minInstancesPerNode", 1.0),
+                _g(g, "minInfoGain", 0.0), depth=depth, n_bins=N_BINS,
+                num_classes=max(num_classes, 2), task=task, sweep=sweep,
+                n_slots=slots)
+
+        return _fit_depth_grouped(
+            grid, weights, fit_group, N_BINS, leaf_axis=-2,
+            fit_group_deep=fit_group,
+            n_slots=_SWEEP_SLOTS if sweep else _REFIT_SLOTS)
+
+    def predict_config(self, params, X: torch.Tensor, num_classes: int):
+        edges = _edges_of(params)
+        task = self._task(num_classes)
+        leaf = params["leaf"]                              # (L, k)
+        binary = task == "classification" and num_classes <= 2
+        if binary:
+            leaf = leaf[..., 1:]
+        tree = {k: v[None] for k, v in params.items() if k in _INT_KEYS}
+        out = _forest_values(tree, _bin_features(X, edges),
+                             leaf[None].contiguous(),
+                             n_bins=edges.shape[-1] + 1)
+        if binary:
+            return out[:, 0]
+        return _shape_scores(out, num_classes, task)
+
+    def predict_parts(self, fitted: FittedParams, X: torch.Tensor):
+        out = self.predict_config(fitted.params, X, fitted.num_classes)
+        return _parts_j(out, fitted.num_classes,
+                        self._task(fitted.num_classes))
+
+
 class RandomForestFamilyBase(_TreeFamilyBase):
-    """Random forest: the mean of the unmasked trees' leaf values."""
+    """Random forest: the mean of the unmasked trees' leaf values
+    (numTrees 50, subsamplingRate 1.0 per the reference's
+    DefaultSelectorParams; Poisson bootstrap row weights, per-tree feature
+    subsets)."""
+
+    def default_grid(self, problem):
+        return [{"maxDepth": d, "minInstancesPerNode": mi, "minInfoGain": mg,
+                 "numTrees": 50, "subsamplingRate": 1.0}
+                for d in _DEPTHS for mi in (10, 100)
+                for mg in (0.001, 0.01, 0.1)]
+
+    def fit_batch(self, X, y, weights, grid, num_classes, sweep=False):
+        """Configuration b draws its bootstrap from seed b + 7. The sweep
+        ranks with at most ``_SWEEP_RF_TREES`` trees a forest."""
+        task = self._task(num_classes)
+        tree_vals = np.asarray(_g(grid, "numTrees", 20.0))
+        n_trees = int(tree_vals.max())
+        B = weights.shape[0]
+        grid = dict(grid, _seeds=np.arange(B, dtype=np.float32) + 7.0)
+        if sweep:
+            capped = _sweep_ensemble_cap(tree_vals, _SWEEP_RF_TREES,
+                                         "numTrees")
+            if capped is not None:
+                n_trees = int(capped.max())
+                grid = dict(grid, numTrees=capped.astype(np.float32))
+
+        def fit_group(g, w, depth, slots=0):
+            return _fit_rf_batch(
+                X, y, w, g["maxDepth"], _g(g, "minInstancesPerNode", 1.0),
+                _g(g, "minInfoGain", 0.0), _g(g, "numTrees", 20.0),
+                _g(g, "subsamplingRate", 1.0), g["_seeds"], depth=depth,
+                n_bins=N_BINS, num_classes=max(num_classes, 2), task=task,
+                n_trees=n_trees, sweep=sweep, n_slots=slots)
+
+        return _fit_depth_grouped(
+            grid, weights, fit_group, N_BINS, leaf_axis=-2,
+            fit_group_deep=fit_group,
+            n_slots=_SWEEP_SLOTS if sweep else _REFIT_SLOTS)
 
     def predict_config(self, params, X: torch.Tensor, num_classes: int):
         edges = _edges_of(params)
@@ -599,9 +1256,8 @@ class GBTFamilyBase(_TreeFamilyBase):
         depth = int(md.max())
         if depth > _MAX_HEAP_DEPTH:
             raise NotImplementedError(
-                f"GBT with maxDepth {depth} > {_MAX_HEAP_DEPTH} grows slot "
-                f"chains (_grow_forest_capped), which the RF/DT training "
-                f"slice ports")
+                f"GBT with maxDepth {depth} > {_MAX_HEAP_DEPTH} boosts slot "
+                f"chains, which is not ported yet")
 
         def one_raw(g, w):
             return _fit_gbt_batch(
@@ -669,6 +1325,11 @@ class GBTFamilyBase(_TreeFamilyBase):
                 "rawPrediction": torch.log(torch.clamp(prob, min=1e-12))}
 
 
+class DecisionTreeClassifierFamily(DecisionTreeFamilyBase):
+    name = "OpDecisionTreeClassifier"
+    supports = frozenset({"binary", "multiclass"})
+
+
 class RandomForestClassifierFamily(RandomForestFamilyBase):
     name = "OpRandomForestClassifier"
     supports = frozenset({"binary", "multiclass"})
@@ -679,5 +1340,6 @@ class GBTClassifierFamily(GBTFamilyBase):
     supports = frozenset({"binary"})
 
 
+register_family(DecisionTreeClassifierFamily())
 register_family(RandomForestClassifierFamily())
 register_family(GBTClassifierFamily())

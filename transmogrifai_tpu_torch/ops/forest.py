@@ -1,17 +1,25 @@
-"""Forest descent, predict half (counterpart of
-``transmogrifai_tpu.ops.forest``).
+"""Forest descent (counterpart of ``transmogrifai_tpu.ops.forest``).
 
-Every row is routed down every tree of an ensemble and the leaf values it
-reaches are summed::
+Every row is routed down every tree of an ensemble, and then either the
+leaf values it reaches are summed (predict)::
 
     out[s, :] = sum_t leaf[t, node(s, t), :]
 
-in two tree layouts: complete heaps (``forest_predict``) and slot chains
-(``forest_predict_chain``, any depth at a bounded width W). On a CUDA
+or per-row statistics are summed per (tree, leaf) (the exact leaf
+statistics of a refit)::
+
+    sums[t, l, :] = sum_s aug[s, :] * 1[node(s, t) == l]
+
+in two tree layouts: complete heaps (``forest_predict``,
+``forest_leaf_sums``) and slot chains (``forest_predict_chain``,
+``forest_leaf_sums_chain``, any depth at a bounded width W). On a CUDA
 tensor each runs its hand-written kernel from ``csrc/forest_predict.cu``;
 on a CPU tensor it runs the plain PyTorch version beside it, which walks
 the levels with ``torch.gather`` and sums with no matmul. Tensors on any
-other device raise.
+other device raise. The JAX package cuts the trees into groups for its
+Pallas kernels (at most 128 heap trees of depth <= 7, 32 chain trees per
+call); those are limits of the TPU's memory layout, not of the function,
+and the kernels here take any tree count and any heap depth <= 8.
 
 Routing: go right iff ``codes[s, feat] > bin``; a bin equal to ``n_bins`` is
 the "route left" sentinel. The JAX package routes in bfloat16, which is
@@ -124,6 +132,35 @@ def leaf_values(ids: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def leaf_sums(ids: torch.Tensor, aug: torch.Tensor, L: int) -> torch.Tensor:
+    """sum_s aug[s, :] * 1[ids[s, t] == l] -> (T, L, k) float32; an id
+    outside [0, L) adds nothing. Each (tree, leaf) adds its rows one at a
+    time in ascending row order (``index_add_`` on the CPU)."""
+    T = ids.shape[1]
+    k = aug.shape[1]
+    ids = ids.long()
+    ok = (ids >= 0) & (ids < L)
+    cell = torch.where(ok, ids + L * torch.arange(T, device=ids.device),
+                       torch.full_like(ids, T * L))
+    out = torch.zeros((T * L + 1, k), dtype=torch.float32, device=aug.device)
+    out.index_add_(0, cell.reshape(-1),
+                   aug.to(torch.float32).repeat_interleave(T, dim=0))
+    return out[:T * L].reshape(T, L, k)
+
+
+def forest_leaf_sums_plain(codes, feat_heap, bin_heap, aug, *, depth: int,
+                           n_bins: int) -> torch.Tensor:
+    return leaf_sums(route_codes(codes, feat_heap, bin_heap, depth, n_bins),
+                     aug, 2 ** depth)
+
+
+def forest_leaf_sums_chain_plain(codes, feat_lv, bin_lv, base_lv, aug, *,
+                                 n_bins: int) -> torch.Tensor:
+    _, depth, W = feat_lv.shape
+    return leaf_sums(route_codes_chain(codes, feat_lv, bin_lv, base_lv,
+                                       n_bins), aug, min(2 ** depth, W))
+
+
 def forest_predict_plain(codes, feat_heap, bin_heap, leaf, *, depth: int,
                          n_bins: int) -> torch.Tensor:
     return leaf_values(route_codes(codes, feat_heap, bin_heap, depth,
@@ -152,7 +189,30 @@ FOREST_PREDICT_CHAIN = cuda_build.CudaKernel(
     "transmogrifai_tpu/ops/forest.py:503",
     [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P])
 
-KERNELS = (FOREST_PREDICT_HEAP, FOREST_PREDICT_CHAIN)
+FOREST_LEAF_SUMS_HEAP = cuda_build.CudaKernel(
+    "forest_leaf_sums_heap", "forest_predict.cu",
+    "transmogrifai_tpu/ops/forest.py:141",
+    [_P] * 6 + [_I] * 8 + [_P])
+FOREST_LEAF_SUMS_CHAIN = cuda_build.CudaKernel(
+    "forest_leaf_sums_chain", "forest_predict.cu",
+    "transmogrifai_tpu/ops/forest.py:450",
+    [_P] * 7 + [_I] * 10 + [_P])
+
+KERNELS = (FOREST_PREDICT_HEAP, FOREST_PREDICT_CHAIN, FOREST_LEAF_SUMS_HEAP,
+           FOREST_LEAF_SUMS_CHAIN)
+
+#: the leaf-sum kernels' row tile (threads per block) and most row chunks
+_SUM_ROWS = 128
+_SUM_MAX_CHUNKS = 64
+
+
+def row_chunks(n: int) -> Tuple[int, int]:
+    """(chunk count, rows per chunk) of the leaf-sum kernels. It depends on
+    the row count alone, so a sum never depends on how the trees are
+    tiled."""
+    c = max(1, min(_SUM_MAX_CHUNKS, -(-n // _SUM_ROWS)))
+    rpc = max(1, -(-n // c))
+    return max(1, -(-n // rpc)), rpc
 
 
 def forest_predict_heap_cuda(codes, feat_heap, bin_heap, leaf, *, depth: int,
@@ -216,6 +276,69 @@ def forest_predict_chain_cuda(codes, feat_lv, bin_lv, base_lv, leaf, *,
     return out, ids
 
 
+def forest_leaf_sums_heap_cuda(codes, feat_heap, bin_heap, aug, *,
+                               depth: int) -> torch.Tensor:
+    """Launch ``forest_leaf_sums_heap`` on the current stream: (T, 2^depth,
+    k) float32 sums, rows in ``row_chunks(n)`` chunks added in order."""
+    if not codes.is_cuda:
+        raise ValueError(f"forest_leaf_sums_heap needs CUDA tensors, codes "
+                         f"are on {codes.device}")
+    dev = codes.device
+    n, d = codes.shape
+    T = feat_heap.shape[0]
+    k = aug.shape[1]
+    if not 0 <= depth <= 8:
+        raise ValueError(f"heap depth {depth} is outside [0, 8]")
+    L = 2 ** depth
+    expect(codes, "codes", torch.int32, (n, d), dev)
+    expect(feat_heap, "feat_heap", torch.int32, (T, L - 1), dev)
+    expect(bin_heap, "bin_heap", torch.int32, (T, L - 1), dev)
+    expect(aug, "aug", torch.float32, (n, k), dev)
+    n_chunks, rpc = row_chunks(n)
+    check_int32(n * d, n * k, n_chunks * T * L * k)
+    out = torch.zeros((T, L, k), dtype=torch.float32, device=dev)
+    if n and T and k:
+        part = torch.empty((n_chunks, T, L, k), dtype=torch.float32,
+                           device=dev)
+        FOREST_LEAF_SUMS_HEAP.launch(
+            ptr(codes), ptr(feat_heap), ptr(bin_heap), ptr(aug), ptr(part),
+            ptr(out), n, d, T, depth, k, n_chunks, rpc, dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
+    return out
+
+
+def forest_leaf_sums_chain_cuda(codes, feat_lv, bin_lv, base_lv,
+                                aug) -> torch.Tensor:
+    """Launch ``forest_leaf_sums_chain`` on the current stream: (T, W_out,
+    k) float32 sums with W_out = min(2^depth, W)."""
+    if not codes.is_cuda:
+        raise ValueError(f"forest_leaf_sums_chain needs CUDA tensors, codes "
+                         f"are on {codes.device}")
+    dev = codes.device
+    n, d = codes.shape
+    T, depth, W = feat_lv.shape
+    k = aug.shape[1]
+    if W < 1:
+        raise ValueError("slot chains need at least one slot")
+    W_out = min(2 ** depth, W)
+    expect(codes, "codes", torch.int32, (n, d), dev)
+    for name, t in (("feat_lv", feat_lv), ("bin_lv", bin_lv),
+                    ("base_lv", base_lv)):
+        expect(t, name, torch.int32, (T, depth, W), dev)
+    expect(aug, "aug", torch.float32, (n, k), dev)
+    n_chunks, rpc = row_chunks(n)
+    check_int32(n * d, n * k, T * depth * W, n_chunks * T * W_out * k)
+    out = torch.zeros((T, W_out, k), dtype=torch.float32, device=dev)
+    if n and T and k:
+        part = torch.empty((n_chunks, T, W_out, k), dtype=torch.float32,
+                           device=dev)
+        FOREST_LEAF_SUMS_CHAIN.launch(
+            ptr(codes), ptr(feat_lv), ptr(bin_lv), ptr(base_lv), ptr(aug),
+            ptr(part), ptr(out), n, d, T, depth, W, W_out, k, n_chunks, rpc,
+            dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    return out
+
+
 def _route(codes: torch.Tensor) -> str:
     if codes.is_cuda:
         return "cuda"
@@ -227,6 +350,45 @@ def _route(codes: torch.Tensor) -> str:
 # ---------------------------------------------------------------------------
 # Public entry points
 # ---------------------------------------------------------------------------
+
+def forest_leaf_sums(codes: torch.Tensor, feat_heap: torch.Tensor,
+                     bin_heap: torch.Tensor, aug: torch.Tensor, *,
+                     depth: int, n_bins: int) -> torch.Tensor:
+    """Exact leaf statistics of complete-heap trees in one fused pass.
+
+    codes: (n, d) int32 bin codes; feat_heap/bin_heap: (T, 2^depth - 1)
+    int32 (sentinel bin >= n_bins: route left); aug: (n, k) float32
+    per-row statistics (zero rows add nothing). Returns (T, 2^depth, k)
+    float32: the sums of aug over the rows that land in each (tree,
+    leaf)."""
+    _check_bins(n_bins)
+    if _route(codes) == "cuda":
+        return forest_leaf_sums_heap_cuda(
+            codes.to(torch.int32).contiguous(), feat_heap.contiguous(),
+            bin_heap.contiguous(), aug.to(torch.float32).contiguous(),
+            depth=depth)
+    return forest_leaf_sums_plain(codes, feat_heap, bin_heap, aug,
+                                  depth=depth, n_bins=n_bins)
+
+
+def forest_leaf_sums_chain(codes: torch.Tensor, feat_lv: torch.Tensor,
+                           bin_lv: torch.Tensor, base_lv: torch.Tensor,
+                           aug: torch.Tensor, *, n_bins: int) -> torch.Tensor:
+    """Exact leaf statistics of slot-chain trees in one fused pass.
+
+    feat_lv/bin_lv/base_lv: (T, depth, W) int32 per-level slot tables
+    (level l uses the first min(2^l, W) slots); aug: (n, k) float32.
+    Returns (T, W_out, k) float32 with W_out = min(2^depth, W)."""
+    _check_bins(n_bins)
+    _check_slots(feat_lv.shape[2])
+    if _route(codes) == "cuda":
+        return forest_leaf_sums_chain_cuda(
+            codes.to(torch.int32).contiguous(), feat_lv.contiguous(),
+            bin_lv.contiguous(), base_lv.contiguous(),
+            aug.to(torch.float32).contiguous())
+    return forest_leaf_sums_chain_plain(codes, feat_lv, bin_lv, base_lv, aug,
+                                        n_bins=n_bins)
+
 
 def forest_predict(codes: torch.Tensor, feat_heap: torch.Tensor,
                    bin_heap: torch.Tensor, leaf: torch.Tensor, *,

@@ -1,11 +1,13 @@
 """Where the training path's time goes, on one NVIDIA GPU.
 
-    python3 -m transmogrifai_tpu_torch.profile_train [--rows 20000] [--reps 3]
+    python3 -m transmogrifai_tpu_torch.profile_train [--family gbt|rf|dt]
+        [--rows 20000] [--reps 3]
 
-Trains the serve bench's pinned GBT workflow (64 ``Real`` predictors,
-``transmogrify -> sanity_check -> BinaryClassificationModelSelector``,
-maxDepth 6, 20 rounds; ``testing.serve_bench_workflow``) on ``--rows``
-seeded rows, once to warm up and then ``--reps`` times, and prints one
+Trains one of the serve bench's pinned workflows (64 ``Real`` predictors,
+``transmogrify -> sanity_check -> BinaryClassificationModelSelector``;
+``testing.serve_bench_workflow``): ``gbt`` maxDepth 6, 20 rounds; ``rf``
+maxDepth 12, 50 trees; ``dt`` maxDepth 6. It trains on ``--rows`` seeded
+rows, once to warm up and then ``--reps`` times, and prints one
 JSON line: the median seconds of the whole ``train()``, of each stage's
 fit, and inside the selector of the CV sweep, the winner's refit and the
 train/holdout evaluations (host clock, each ending in
@@ -25,8 +27,17 @@ from contextlib import contextmanager
 
 import torch
 
-GBT_HYPER = {"maxDepth": 6, "maxIter": 20, "stepSize": 0.1,
-             "minInstancesPerNode": 10, "minInfoGain": 0.001}
+#: the serve bench's pinned workflows, the same as the serve64 fixtures'
+FAMILIES = {
+    "gbt": ("OpGBTClassifier",
+            {"maxDepth": 6, "maxIter": 20, "stepSize": 0.1,
+             "minInstancesPerNode": 10, "minInfoGain": 0.001}),
+    "rf": ("OpRandomForestClassifier",
+           {"maxDepth": 12, "numTrees": 50, "minInstancesPerNode": 10,
+            "minInfoGain": 0.001, "subsamplingRate": 1.0}),
+    "dt": ("OpDecisionTreeClassifier",
+           {"maxDepth": 6, "minInstancesPerNode": 10, "minInfoGain": 0.001}),
+}
 
 
 @contextmanager
@@ -38,15 +49,21 @@ def _timing(phases: dict):
     from .impl.preparators.sanity_checker import SanityChecker
     from .impl.selector.model_selector import ModelSelector, SelectedModel
     from .impl.tuning.validators import OpValidator
-    from .models.trees import GBTFamilyBase
+    from .models.trees import (
+        DecisionTreeFamilyBase, GBTFamilyBase, RandomForestFamilyBase,
+    )
 
     targets = [
         (RealVectorizer, "fit", lambda *a, **k: "fit RealVectorizer"),
         (SanityChecker, "fit", lambda *a, **k: "fit SanityChecker"),
         (ModelSelector, "fit", lambda *a, **k: "fit ModelSelector"),
         (OpValidator, "validate", lambda *a, **k: "selector: CV sweep"),
-        (GBTFamilyBase, "fit_batch", lambda *a, sweep=False, **k:
-         "selector: CV fits" if sweep else "selector: refit"),
+    ] + [
+        (cls, "fit_batch", lambda *a, sweep=False, **k:
+         "selector: CV fits" if sweep else "selector: refit")
+        for cls in (GBTFamilyBase, RandomForestFamilyBase,
+                    DecisionTreeFamilyBase)
+    ] + [
         (SelectedModel, "transform_column",
          lambda *a, **k: "selector: evaluation predicts"),
         (OpBinaryClassificationEvaluator, "evaluate_all",
@@ -75,15 +92,16 @@ def _timing(phases: dict):
             setattr(owner, name, fn)
 
 
-def profile(rows: int, reps: int) -> dict:
+def profile(family: str, rows: int, reps: int) -> dict:
     from .testing import serve_bench_data, serve_bench_workflow
 
+    name, hyper = FAMILIES[family]
     data = serve_bench_data(rows, 64, seed=0)
 
     def train():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        serve_bench_workflow("OpGBTClassifier", GBT_HYPER, 64, seed=0
+        serve_bench_workflow(name, hyper, 64, seed=0
                              ).set_input_dataset(data).train()
         torch.cuda.synchronize()
         return time.perf_counter() - t0
@@ -107,7 +125,7 @@ def profile(rows: int, reps: int) -> dict:
             kernels[ev.key[:80]] = dev_us / 1e3
     busy_ms = sum(kernels.values())
     return {
-        "rows": rows, "reps": reps,
+        "family": family, "rows": rows, "reps": reps,
         "train_s": statistics.median(whole),
         "phases_s": {k: statistics.median(v) for k, v in phases.items()},
         "profiled_train_s": wall,
@@ -120,6 +138,7 @@ def profile(rows: int, reps: int) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--family", choices=sorted(FAMILIES), default="gbt")
     ap.add_argument("--rows", type=int, default=20000)
     ap.add_argument("--reps", type=int, default=3)
     args = ap.parse_args()
@@ -130,7 +149,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0])
-    print(json.dumps(profile(args.rows, args.reps)))
+    print(json.dumps(profile(args.family, args.rows, args.reps)))
     return 0
 
 

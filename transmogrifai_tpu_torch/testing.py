@@ -1,11 +1,12 @@
 """Seeded inputs for the tests and ``chip_smoke.py``: random forests for
-holding the descent kernels to their plain versions, the one-hot histogram
-by its definition, and the serve bench's training frame and workflow.
+holding the descent kernels to their plain versions, the descent, the
+leaf sums and the one-hot histogram by their definitions, and the serve
+bench's training frame and workflow.
 Everything random is numpy, so the same seed gives the same inputs to the
 JAX package and to the port."""
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -60,6 +61,50 @@ def hist_direct(codes: np.ndarray, A: np.ndarray, n_bins: int) -> np.ndarray:
         ok = (codes[:, f] >= 0) & (codes[:, f] < n_bins)
         for b in range(n_bins):
             out[:, f * n_bins + b] = A64[ok & (codes[:, f] == b)].sum(0)
+    return out
+
+
+def descend_direct(codes: np.ndarray, feat: np.ndarray, bins: np.ndarray,
+                   base: Optional[np.ndarray] = None,
+                   depth: Optional[int] = None) -> np.ndarray:
+    """(n, T) leaf ids by a row-by-row walk of the definition: heap trees
+    (feat/bins (T, 2^depth - 1), node' = 2 node + go) or, with ``base``,
+    slot chains ((T, depth, W) tables, slot' = base + go; a slot past its
+    level's width min(2^l, W) becomes slot 0); go = codes[s, feat] > bin,
+    a feature outside [0, d) reading code 0."""
+    n, d = codes.shape
+    T = feat.shape[0]
+    out = np.zeros((n, T), np.int64)
+    for s in range(n):
+        for t in range(T):
+            def go(f, b):
+                return int((codes[s, f] if 0 <= f < d else 0) > b)
+            if base is None:
+                node = 0
+                for lv in range(depth):
+                    j = 2 ** lv - 1 + node
+                    node = 2 * node + go(feat[t, j], bins[t, j])
+            else:
+                node = 0
+                W = feat.shape[2]
+                for lv in range(feat.shape[1]):
+                    if 0 <= node < min(2 ** lv, W):
+                        node = int(base[t, lv, node]) + go(
+                            feat[t, lv, node], bins[t, lv, node])
+                    else:
+                        node = 0
+            out[s, t] = node
+    return out
+
+
+def leaf_sums_direct(ids: np.ndarray, aug: np.ndarray, L: int) -> np.ndarray:
+    """sum_s aug[s, :] * 1[ids[s, t] == l] in float64, (T, L, k); ids
+    outside [0, L) add nothing."""
+    T = ids.shape[1]
+    out = np.zeros((T, L, aug.shape[1]), np.float64)
+    for t in range(T):
+        ok = (ids[:, t] >= 0) & (ids[:, t] < L)
+        np.add.at(out[t], ids[ok, t], aug[ok].astype(np.float64))
     return out
 
 
