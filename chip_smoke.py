@@ -82,19 +82,10 @@ TIMED_RUNS = 25
 
 FIXTURES = os.path.join(HERE, "transmogrifai_tpu_torch", "fixtures",
                         "serve64")
-#: the training runs behind the committed serve64 fixtures
+#: the training frame behind the committed serve64 fixtures (their models:
+#: ``testing.SERVE_MODELS``)
 TRAIN_ROWS = 20000
 TRAIN_SEED = 0
-GBT_HYPER = {"maxDepth": 6, "maxIter": 20, "stepSize": 0.1,
-             "minInstancesPerNode": 10, "minInfoGain": 0.001}
-TRAINS = {
-    "gbt": ("OpGBTClassifier", GBT_HYPER),
-    "rf": ("OpRandomForestClassifier",
-           {"maxDepth": 12, "numTrees": 50, "minInstancesPerNode": 10,
-            "minInfoGain": 0.001, "subsamplingRate": 1.0}),
-    "dt": ("OpDecisionTreeClassifier",
-           {"maxDepth": 6, "minInstancesPerNode": 10, "minInfoGain": 0.001}),
-}
 #: the tables that make a tree, per layout
 TREE_KEYS = {"gbt": ("feat", "bins"), "dt": ("feat", "bins"),
              "rf": ("feat_lv", "bins_lv", "base_lv")}
@@ -245,6 +236,33 @@ def phase_hist(dev, rng):
     return r
 
 
+def _codes_read(codes, feat, bins, *, base=None, depth=None) -> int:
+    """The codes a descent must read, counted on this run's data: each
+    (row, feature) pair that some tree's path splits on, once (a node with
+    the sentinel bin reads no code). Heap tables (T, 2^depth - 1), or with
+    ``base`` slot-chain tables (T, depth, W)."""
+    from transmogrifai_tpu_torch.ops import forest as F
+
+    n, d = codes.shape
+    seen = torch.zeros((n, d + 1), dtype=torch.bool, device=codes.device)
+    for lv in range(depth if base is None else feat.shape[1]):
+        if base is None:
+            node = F.route_codes(codes, feat, bins, lv, N_BINS).long() \
+                + (2 ** lv - 1)
+            f, b = F._table_at(feat.long(), node), F._table_at(bins, node)
+        else:
+            slot = F.route_codes_chain(codes, feat[:, :lv], bins[:, :lv],
+                                       base[:, :lv], N_BINS).long()
+            live = slot < min(2 ** lv, feat.shape[2])
+            s = torch.where(live, slot, torch.zeros_like(slot))
+            f = F._table_at(feat[:, lv].long(), s)
+            b = torch.where(live, F._table_at(bins[:, lv], s),
+                            torch.full_like(s, N_BINS).int())
+        seen.scatter_(1, torch.where((b < N_BINS) & (f >= 0) & (f < d), f,
+                                     torch.full_like(f, d)), True)
+    return int(seen[:, :d].sum())
+
+
 def _check_leaf_sums(tag, cuda_fn, plain_fn, aug, aug_int):
     """Kernel against plain: tolerance on ``aug``, bits on ``aug_int`` and
     on a rerun."""
@@ -293,11 +311,13 @@ def phase_leaf_sums(dev, rng):
     r.update(ms=time_ms(lambda: F.forest_leaf_sums_chain_cuda(*tabs, aug)),
              plain_ms=time_ms(lambda: F.forest_leaf_sums_chain_plain(
                  *tabs, aug, n_bins=N_BINS)),
-             # codes, the used table slots and the stats read once, the
-             # sums written once; per row and tree one step a level and
-             # one add per stat
-             bound=bound_ms(4 * (n * d + T * slots * 3 + n * k
-                                 + T * W_out * k), n * T * (depth + k)))
+             # the codes the paths split on, the used table slots and the
+             # stats read once, the sums written once; per row and tree one
+             # step a level and one add per stat
+             bound=bound_ms(4 * (_codes_read(c["codes"], c["feat"],
+                                             c["bins"], base=c["base"])
+                                 + T * slots * 3 + n * k + T * W_out * k),
+                            n * T * (depth + k)))
     results["forest_leaf_sums_chain"] = r
     # the DT refit (T=1) and a T=50 forest of depth-6 heaps
     for tag, T in (("DT refit", 1), ("T=50", 50)):
@@ -316,7 +336,8 @@ def phase_leaf_sums(dev, rng):
                 *tabs, aug, depth=depth)),
             plain_ms=time_ms(lambda: F.forest_leaf_sums_plain(
                 *tabs, aug, depth=depth, n_bins=N_BINS)),
-            bound=bound_ms(4 * (n * d + 2 * T * (2 ** depth - 1) + n * k
+            bound=bound_ms(4 * (_codes_read(*tabs, depth=depth)
+                                + 2 * T * (2 ** depth - 1) + n * k
                                 + T * 2 ** depth * k), n * T * (depth + k)))
         print(f"(b) forest_leaf_sums_heap {tag}: max_abs_err "
               f"{r['max_abs_err']:.3g}, {r['ms']:.4f} ms (plain "
@@ -381,8 +402,9 @@ def phase_kernels(dev):
                              "route_codes_chain")
     torch.testing.assert_close(got, want, rtol=SUM_RTOL, atol=SUM_ATOL)
     slots = sum(min(2 ** lv, W) for lv in range(depth))
-    nbytes = (N_ROWS * N_FEATURES * 4 + T * slots * 3 * 4
-              + c["leaf"].numel() * 4 + N_ROWS * k * 4)
+    nbytes = 4 * (_codes_read(c["codes"], c["feat"], c["bins"],
+                              base=c["base"]) + T * slots * 3
+                  + c["leaf"].numel() + N_ROWS * k)
     results["forest_predict_chain"] = dict(
         max_abs_err=float((got - want).abs().max()),
         ms=time_ms(lambda: F.forest_predict_chain_cuda(*args)),
@@ -404,8 +426,9 @@ def phase_kernels(dev):
         raise AssertionError("forest_predict_heap: leaf ids differ from "
                              "route_codes")
     torch.testing.assert_close(got, want, rtol=SUM_RTOL, atol=SUM_ATOL)
-    nbytes = (N_ROWS * N_FEATURES * 4 + 2 * h["feat"].numel() * 4
-              + h["leaf"].numel() * 4 + N_ROWS * k * 4)
+    nbytes = 4 * (_codes_read(h["codes"], h["feat"], h["bins"],
+                              depth=depth) + 2 * h["feat"].numel()
+                  + h["leaf"].numel() + N_ROWS * k)
     results["forest_predict_heap"] = dict(
         max_abs_err=float((got - want).abs().max()),
         ms=time_ms(lambda: F.forest_predict_heap_cuda(*args, depth=depth)),
@@ -477,7 +500,9 @@ def _gain_gap(model, data, fixture, t: int, j: int) -> float:
     the node's bf16-operand histogram, as the grower builds it."""
     from transmogrifai_tpu_torch.models import trees as TR
     from transmogrifai_tpu_torch.ops.forest import route_codes
+    from transmogrifai_tpu_torch.testing import SERVE_MODELS
 
+    _, hyper = SERVE_MODELS["gbt"]
     p = model.stages[-1].fitted.params
     codes, y, w = _refit_rows(model, data)
     F = torch.zeros(codes.shape[0], device=codes.device)
@@ -496,11 +521,11 @@ def _gain_gap(model, data, fixture, t: int, j: int) -> float:
                       TR.N_BINS)[:, 0]
     gain = _node_gains(codes, stats * (ids == q).float()[:, None],
                        {"lam": 0.0, "min_child_weight": 0.0,
-                        "min_instances": GBT_HYPER["minInstancesPerNode"]},
+                        "min_instances": hyper["minInstancesPerNode"]},
                        "gh")
     return _gap(gain, (int(feat[t, j]), int(bins[t, j])),
                 (int(fixture["feat"][t, 0, j]), int(fixture["bins"][t, 0, j])),
-                GBT_HYPER["minInfoGain"])
+                hyper["minInfoGain"])
 
 
 def _chain_gain_gap(model, data, fixture, t: int, level: int,
@@ -510,8 +535,9 @@ def _chain_gain_gap(model, data, fixture, t: int, level: int,
     same in both), scored on tree t's bootstrap rows and feature subset."""
     from transmogrifai_tpu_torch.models import bootstrap
     from transmogrifai_tpu_torch.ops.forest import route_codes_chain
+    from transmogrifai_tpu_torch.testing import SERVE_MODELS
 
-    _, hyper = TRAINS["rf"]
+    _, hyper = SERVE_MODELS["rf"]
     p = model.stages[-1].fitted.params
     codes, y, w = _refit_rows(model, data)
     S, d = codes.shape
@@ -583,10 +609,10 @@ def train_against_fixture(key: str):
     frame. Returns the train's seconds."""
     import transmogrifai_tpu_torch as tt
     from transmogrifai_tpu_torch.testing import (
-        serve_bench_data, serve_bench_workflow,
+        SERVE_MODELS, serve_bench_data, serve_bench_workflow,
     )
 
-    family, hyper = TRAINS[key]
+    family, hyper = SERVE_MODELS[key]
     data = serve_bench_data(TRAIN_ROWS, N_FEATURES, TRAIN_SEED)
     wf = serve_bench_workflow(family, hyper, N_FEATURES,
                               TRAIN_SEED).set_input_dataset(data)
@@ -715,6 +741,7 @@ def main() -> int:
         return 1
     from transmogrifai_tpu_torch.histeng import kernels as HK
     from transmogrifai_tpu_torch.ops import forest as F
+    from transmogrifai_tpu_torch.testing import SERVE_MODELS
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -749,7 +776,8 @@ def main() -> int:
                              (hist, F.FOREST_LEAF_SUMS_HEAP,
                               F.FOREST_PREDICT_HEAP)),
     }
-    if paths["train gbt"]["hist_matmul"] < GBT_HYPER["maxIter"]:
+    rounds = SERVE_MODELS["gbt"][1]["maxIter"]
+    if paths["train gbt"]["hist_matmul"] < rounds:
         raise AssertionError(f"hist_matmul launched "
                              f"{paths['train gbt']['hist_matmul']} times in "
                              f"GBT training, fewer than the boosting rounds")

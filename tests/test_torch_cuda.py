@@ -317,6 +317,18 @@ def test_leaf_sums_empty_and_bad_inputs(cuda):
                                      depth=2)
 
 
+@pytest.mark.parametrize("M,d,nb,k", [(1, 1, 2, 1), (5, 3, 16, 3),
+                                      (64, 64, 32, 3), (7, 5, 37, 2)])
+def test_cumsum_bins_on_the_card_adds_in_the_cpu_order(cuda, M, d, nb, k):
+    """The grower's bins cumsum takes ``torch.cumsum`` on the card; it must
+    give the bits of the float32 adds spelled out on the CPU (XLA's order)
+    on fractional stats, where another order would round differently."""
+    from transmogrifai_tpu_torch.models import trees as TR
+    rng = np.random.RandomState(M * 100 + nb)
+    x = torch.from_numpy((rng.randn(M, d, nb, k) * 10).astype(np.float32))
+    assert torch.equal(TR._cumsum_bins(x.to(cuda)).cpu(), TR._cumsum_bins(x))
+
+
 TINY_TRAINS = {
     "OpGBTClassifier": {"maxDepth": 3, "maxIter": 5, "stepSize": 0.1,
                         "minInstancesPerNode": 5, "minInfoGain": 0.001},

@@ -141,6 +141,20 @@ def test_gini_gain_is_bit_equal_to_jax():
         np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
 
 
+@pytest.mark.parametrize("nb", [2, 7, 16, 32, 37])
+def test_cumsum_bins_is_bit_equal_to_jax(nb):
+    """The grower's cumulative sum over the bins adds in XLA's CPU order
+    (sequential within blocks of 16, then the block totals); on fractional
+    stats ``torch.cumsum`` on the CPU (a float64 accumulator) rounds
+    otherwise."""
+    x = (np.random.RandomState(nb).randn(9, 4, nb, 3) * 10).astype(
+        np.float32)
+    want = jax.jit(lambda a: jnp.cumsum(a, axis=2))(jnp.asarray(x))
+    got = ptrees._cumsum_bins(_t(x))
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  np.asarray(want).view(np.int32))
+
+
 # ---------------------------------------------------------------------------
 # depth grouping
 # ---------------------------------------------------------------------------
@@ -257,6 +271,22 @@ def test_rf_sweep_caps_trees_and_chunks_stitch(fits_reference, monkeypatch):
     monkeypatch.setattr(ptrees, "_CFG_CHUNK_ELEMS", 1)     # one per chunk
     chunked = ptrees.RandomForestClassifierFamily().fit_batch(
         _t(X), _t(y), _t(W), grid, 2, sweep=True)
+    for k in whole:
+        assert torch.equal(chunked[k], whole[k]), k
+
+
+@pytest.mark.parametrize("sweep", [False, True])
+def test_dt_fit_chunks_stitch(sweep, monkeypatch):
+    """A DT fit grows as a one-tree forest per configuration; chunking its
+    configurations one at a time changes no bit."""
+    X, y, W = _fit_frame()
+    fam, grid = FITS["dt_mixed"]
+    whole = ptrees.DecisionTreeClassifierFamily().fit_batch(
+        _t(X), _t(y), _t(W), grid, 2, sweep=sweep)
+    monkeypatch.setattr(ptrees, "_CFG_CHUNK_ELEMS", 1)
+    chunked = ptrees.DecisionTreeClassifierFamily().fit_batch(
+        _t(X), _t(y), _t(W), grid, 2, sweep=sweep)
+    assert sorted(chunked) == sorted(whole)
     for k in whole:
         assert torch.equal(chunked[k], whole[k]), k
 

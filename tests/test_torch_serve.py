@@ -46,7 +46,9 @@ from transmogrifai_tpu_torch.local.scoring import (  # noqa: E402
 from transmogrifai_tpu_torch.persistence import (  # noqa: E402
     CorruptModelError,
 )
-from transmogrifai_tpu_torch.testing import serve_bench_data  # noqa: E402
+from transmogrifai_tpu_torch.testing import (  # noqa: E402
+    SERVE_MODELS as PORT_SERVE_MODELS, serve_bench_data,
+)
 
 FIXTURE_DIR = os.path.join(REPO, "transmogrifai_tpu_torch", "fixtures",
                            "serve64")
@@ -312,6 +314,12 @@ def test_port_rebuilds_the_fixture_training_frame_bit_for_bit(n, d, seed):
     for name in want:
         assert got[name].dtype == want[name].dtype
         np.testing.assert_array_equal(got[name], want[name])
+
+
+def test_port_pins_the_fixture_models():
+    """``chip_smoke.py`` and ``profile_train`` train the port's table of
+    the serve models and hold the results to these fixtures."""
+    assert PORT_SERVE_MODELS == SERVE_MODELS
 
 
 def _run(code: str, **env):

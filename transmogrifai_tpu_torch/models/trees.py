@@ -192,7 +192,14 @@ _CUMSUM_BLOCK = 16
 
 
 def _seq_cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """Prefix sums along ``dim``, added one element at a time in float32."""
+    """Prefix sums along ``dim``, added one element at a time in float32.
+    On the card ``torch.cumsum`` over a dimension other than the last does
+    exactly that (one thread per line with a float32 accumulator), in one
+    launch; on the CPU it accumulates in float64, so the adds are spelled
+    out there."""
+    if x.is_cuda and x.dtype == torch.float32 and dim < x.dim() - 1 \
+            and x.numel() != x.shape[dim]:
+        return torch.cumsum(x, dim)
     out = x.clone()
     for i in range(1, x.shape[dim]):
         out.select(dim, i).add_(out.select(dim, i - 1))
@@ -201,8 +208,7 @@ def _seq_cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
 
 def _cumsum_bins(x: torch.Tensor) -> torch.Tensor:
     """Cumulative sum over axis 2 (the bins) in the JAX package's float32
-    order: sequential up to ``_CUMSUM_BLOCK`` elements, blocked beyond.
-    (``torch.cumsum`` accumulates otherwise: in float64 on the CPU.)"""
+    order: sequential up to ``_CUMSUM_BLOCK`` elements, blocked beyond."""
     n = x.shape[2]
     if n <= _CUMSUM_BLOCK:
         return _seq_cumsum(x, 2)
@@ -641,73 +647,17 @@ def _map_chunks(B: int, cb: int, one_chunk):
 def _fit_dt_batch(X, y, weights, max_depth, min_inst, min_gain, *,
                   depth: int, n_bins: int, num_classes: int, task: str,
                   sweep: bool = False, n_slots: int = 0):
-    """One tree per configuration; B configurations grow in tree-batched
-    chunks. ``n_slots`` > 0 grows slot chains of that budget. The sweep's
-    leaves come off the split-search sample; the refit's from every row
-    through the leaf-sum kernel, one launch per configuration."""
-    d = X.shape[1]
-    dev = X.device
-    B = weights.shape[0]
-    samp, edges, binned, binned_s, stats, mode, w_scale = \
-        _prep_tree_inputs(X, y, n_bins, num_classes, task,
-                          full_bin=not sweep, sweep=sweep)
-    stats_s = stats[samp]
-    k = stats.shape[1]
-    deep = n_slots > 0
-    L = min(2 ** depth, n_slots) if deep else 2 ** depth
-    lane_w = (min(2 ** (depth - 1), n_slots) * k if deep
-              else 2 ** (depth - 1))
-    cb = int(max(1, min(B, _CFG_CHUNK_ELEMS
-                        // (binned_s.shape[0] * lane_w))))
-    md, mi, mg = (_f32(v, dev) for v in (max_depth, min_inst, min_gain))
-
-    def one_chunk(idx):
-        rows = torch.as_tensor(idx, device=dev)
-        n_c = len(idx)
-        w_bs = weights[rows][:, samp].T * w_scale            # (S, cb)
-        sw_list = [stats_s[:, ki][:, None] * w_bs for ki in range(k)]
-        cfg = {"max_depth": md[rows], "min_instances": mi[rows],
-               "min_info_gain": mg[rows],
-               "lam": torch.full((n_c,), 1e-6, device=dev),
-               "min_child_weight": torch.zeros((n_c,), device=dev)}
-        fmasks = torch.ones((n_c, d), dtype=torch.bool, device=dev)
-        if deep:
-            fs, ths, bhs, abs_, node_s = _grow_forest_capped(
-                binned_s, edges, sw_list, fmasks, cfg, depth=depth,
-                n_bins=n_bins, mode=mode, n_slots=n_slots)
-        else:
-            fs, ths, bhs, node_s = _grow_forest(
-                binned_s, edges, sw_list, fmasks, cfg, depth=depth,
-                n_bins=n_bins, mode=mode)
-            abs_ = torch.zeros((n_c, 0), dtype=torch.int32, device=dev)
-        if sweep:            # sample leaf stats, for validation scoring
-            sums = torch.stack([_diag_leaf_hist(node_s, c.float(), L)
-                                for c in sw_list + [w_bs]], dim=-1)
-            leaf_c = _leaf_values(sums[..., :-1], task)
-        else:
-            leaf_c = torch.zeros(
-                (n_c, L, k if task == "classification" else 1), device=dev)
-        return fs, ths, bhs, abs_, leaf_c
-
-    feat, thr, bheap, bases, leaf = _map_chunks(B, cb, one_chunk)
-    if not sweep:            # exact full-data leaf stats per configuration
-        leaves = []
-        for b in range(B):
-            if deep:
-                ls, _ = _exact_leaf_stats_chain(
-                    binned, feat[b][None], bheap[b][None], bases[b][None],
-                    stats, weights[b], n_bins)
-            else:
-                ls, _ = _exact_leaf_stats(binned, feat[b][None],
-                                          bheap[b][None], stats, weights[b],
-                                          depth, n_bins)
-            leaves.append(_leaf_values(ls[0], task))
-        leaf = torch.stack(leaves)
-    if deep:
-        return {"feat_lv": feat, "thresh_lv": thr, "bins_lv": bheap,
-                "base_lv": bases, "leaf": leaf, "edges": edges}
-    return {"feat": feat, "thresh": thr, "bins": bheap, "leaf": leaf,
-            "edges": edges}
+    """One tree per configuration: ``_fit_rf_batch`` with one tree, no
+    bootstrap and every feature. ``n_slots`` > 0 grows slot chains of that
+    budget. The sweep's leaves come off the split-search sample; the
+    refit's from every row through the leaf-sum kernel, one launch per
+    configuration."""
+    out = _fit_rf_batch(X, y, weights, max_depth, min_inst, min_gain,
+                        np.ones(weights.shape[0], np.float32), None, None,
+                        depth=depth, n_bins=n_bins, num_classes=num_classes,
+                        task=task, n_trees=1, sweep=sweep, n_slots=n_slots)
+    del out["tree_mask"]
+    return {k: v if k == "edges" else v[:, 0] for k, v in out.items()}
 
 
 def _cdf_folded(B: int, cb: int) -> bool:
@@ -725,8 +675,9 @@ def _fit_rf_batch(X, y, weights, max_depth, min_inst, min_gain, num_trees,
     batch per chunk of configurations. A tree's row weight is its
     configuration's fold weight times its Poisson(subsamplingRate) draw,
     and it splits on its own feature subset (``bootstrap.draw``, seeded by
-    ``seeds``). Leaves as ``_fit_dt_batch``; the refit launches the
-    leaf-sum kernel once per configuration over all its trees."""
+    ``seeds``; None grows every tree on every row and feature). The
+    sweep's leaves come off the split-search sample; the refit launches
+    the leaf-sum kernel once per configuration over all its trees."""
     d = X.shape[1]
     dev = X.device
     B = weights.shape[0]
@@ -749,17 +700,26 @@ def _fit_rf_batch(X, y, weights, max_depth, min_inst, min_gain, num_trees,
     cb = int(max(1, min(cb, _LEVEL_HIST_ELEMS
                         // (n_trees * nodes_w * d * n_bins * k))))
     md, mi, mg = (_f32(v, dev) for v in (max_depth, min_inst, min_gain))
-    ss_np = np.asarray(subsample, np.float32).reshape(-1)
-    seeds_np = np.asarray(seeds, np.float32).reshape(-1)
-    folded = _cdf_folded(B, cb)
+    if seeds is None:
+        def draw(idx):
+            return (torch.ones((len(idx), n_trees, S), device=dev),
+                    torch.ones((len(idx), n_trees, d), dtype=torch.bool,
+                               device=dev))
+    else:
+        ss_np = np.asarray(subsample, np.float32).reshape(-1)
+        seeds_np = np.asarray(seeds, np.float32).reshape(-1)
+        folded = _cdf_folded(B, cb)
+
+        def draw(idx):
+            return bootstrap.draw(seeds_np[idx], ss_np[idx], n_trees, S, d,
+                                  p_feat, dev, folded)
 
     def one_chunk(idx):
         rows = torch.as_tensor(idx, device=dev)
         n_c = len(idx)
         Tb = n_c * n_trees
         w_s = weights[rows][:, samp] * w_scale                # (cb, S)
-        boots, fmasks = bootstrap.draw(seeds_np[idx], ss_np[idx], n_trees,
-                                       S, d, p_feat, dev, folded)
+        boots, fmasks = draw(idx)
         # tree lanes config-major: lane = c * n_trees + t
         w_ts = (w_s[:, None, :] * boots).reshape(Tb, S).T     # (S, Tb)
         sw_list = [stats_s[:, ki][:, None] * w_ts for ki in range(k)]

@@ -27,17 +27,7 @@ from contextlib import contextmanager
 
 import torch
 
-#: the serve bench's pinned workflows, the same as the serve64 fixtures'
-FAMILIES = {
-    "gbt": ("OpGBTClassifier",
-            {"maxDepth": 6, "maxIter": 20, "stepSize": 0.1,
-             "minInstancesPerNode": 10, "minInfoGain": 0.001}),
-    "rf": ("OpRandomForestClassifier",
-           {"maxDepth": 12, "numTrees": 50, "minInstancesPerNode": 10,
-            "minInfoGain": 0.001, "subsamplingRate": 1.0}),
-    "dt": ("OpDecisionTreeClassifier",
-           {"maxDepth": 6, "minInstancesPerNode": 10, "minInfoGain": 0.001}),
-}
+from .testing import SERVE_MODELS, serve_bench_data, serve_bench_workflow
 
 
 @contextmanager
@@ -93,9 +83,7 @@ def _timing(phases: dict):
 
 
 def profile(family: str, rows: int, reps: int) -> dict:
-    from .testing import serve_bench_data, serve_bench_workflow
-
-    name, hyper = FAMILIES[family]
+    name, hyper = SERVE_MODELS[family]
     data = serve_bench_data(rows, 64, seed=0)
 
     def train():
@@ -138,7 +126,7 @@ def profile(family: str, rows: int, reps: int) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--family", choices=sorted(FAMILIES), default="gbt")
+    ap.add_argument("--family", choices=sorted(SERVE_MODELS), default="gbt")
     ap.add_argument("--rows", type=int, default=20000)
     ap.add_argument("--reps", type=int, default=3)
     args = ap.parse_args()

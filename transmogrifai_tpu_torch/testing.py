@@ -1,7 +1,7 @@
 """Seeded inputs for the tests and ``chip_smoke.py``: random forests for
 holding the descent kernels to their plain versions, the descent, the
 leaf sums and the one-hot histogram by their definitions, and the serve
-bench's training frame and workflow.
+bench's pinned models, training frame and workflow.
 Everything random is numpy, so the same seed gives the same inputs to the
 JAX package and to the port."""
 from __future__ import annotations
@@ -9,6 +9,19 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import numpy as np
+
+#: the serve bench's pinned winners, as the committed ``serve64`` fixtures
+#: were trained: {fixture key: (family, hyperparameters)}
+SERVE_MODELS = {
+    "rf": ("OpRandomForestClassifier",
+           {"maxDepth": 12, "numTrees": 50, "minInstancesPerNode": 10,
+            "minInfoGain": 0.001, "subsamplingRate": 1.0}),
+    "gbt": ("OpGBTClassifier",
+            {"maxDepth": 6, "maxIter": 20, "stepSize": 0.1,
+             "minInstancesPerNode": 10, "minInfoGain": 0.001}),
+    "dt": ("OpDecisionTreeClassifier",
+           {"maxDepth": 6, "minInstancesPerNode": 10, "minInfoGain": 0.001}),
+}
 
 
 def random_heap(rng: np.random.RandomState, n: int, d: int, T: int,
