@@ -7,6 +7,15 @@ Phases, in order; any failure exits nonzero:
 (a) build every CUDA source of the port (one nvcc each, all at once);
 (b) hold each kernel against its plain PyTorch version on the card, at the
     shapes its path gives it, and report its times:
+    - ``node_hist`` at three growth levels (19,712 rows x 64 codes, 32
+      bins): the RF refit's deepest level (T=50, 256 slots, k=2; the timed
+      case of the ``kernels`` line), the GBT depth-6 refit's level 5 (T=1,
+      16 left children, stride 2, k=3) and the ``gbt12`` refit's deepest
+      level (T=1, 256 slots, k=3): within rtol 1e-5 / atol 1e-6 of the
+      plain version on [0, 1) stats, bit-equal on integer-valued stats and
+      across reruns, and at an odd shape bit-equal to the direct formula
+      (rows added in order); the library route is one f32 matmul over the
+      materialized masked-stat operand;
     - the forest descents at the serve shapes (65,536 rows, 32 bins; RF
       slot chain T=50 depth 12 W=256, GBT heap T=20 depth 6, k=1): leaf
       ids exactly, sums within rtol 1e-5 / atol 1e-6;
@@ -24,23 +33,26 @@ Phases, in order; any failure exits nonzero:
       1e-5 / atol 1e-6 of the plain version on [0, 1) stats, bit-equal on
       integer-valued stats and across reruns, and at an odd shape within
       the same tolerance of the direct float64 formula;
-(t) train: rebuild the serve bench's 20,000 x 64 frame and train three
+(t) train: rebuild the serve bench's 20,000 x 64 frame and train four
     pinned workflows on the card (``OpWorkflow().train()``): GBT (depth 6,
-    20 rounds), RF (depth 12, 50 trees, slot chains) and DT (depth 6).
-    Each is held against the committed fixture that the JAX package
-    trained on the same frame (``serve64/gbt``, ``rf``, ``dt``): bin edges
+    20 rounds, heaps), ``gbt12`` (GBT depth 12, 20 rounds, slot chains),
+    RF (depth 12, 50 trees, slot chains) and DT (depth 6). Each is held
+    against the committed fixture that the JAX package trained on the same
+    frame (``serve64/gbt``, ``gbt12``, ``rf``, ``dt``): bin edges
     bit-equal, the same kept columns, identical trees counted (for a
-    chain: feat_lv, bins_lv and base_lv; for GBT the first differing node
-    is reported with the split-gain gap there), fold and holdout AuPR
-    within 5e-3, and probability_1 on the fixture's 4,096-row frame within
-    mean 5e-3 (max 1e-4 when every tree is identical). The kernels' launch
-    counts are zeroed just before each train and read just after it: GBT
-    must launch ``hist_matmul`` at least once per boosting round and
-    ``forest_predict_heap``; RF ``forest_leaf_sums_chain``,
-    ``forest_predict_chain`` and ``hist_matmul``; DT
-    ``forest_leaf_sums_heap``, ``forest_predict_heap`` and ``hist_matmul``;
-(c) serve: load the committed RF, GBT and DT fixtures on the card, score
-    their 4,096-row frames against the JAX package's outputs
+    chain: feat_lv, bins_lv and base_lv; the first differing node is
+    reported with the split-gain gap there), fold and holdout AuPR within
+    5e-3, and probability_1 on the fixture's 4,096-row frame within mean
+    5e-3 (max 1e-4 when every tree is identical); each train prints its
+    peak device memory. The kernels' launch counts are zeroed just before
+    each train and read just after it: every train must launch
+    ``node_hist`` and ``hist_matmul``, the two GBT trains ``hist_matmul``
+    at least once per boosting round and ``node_hist`` at least rounds x
+    levels times; GBT ``forest_predict_heap``, ``gbt12`` and RF
+    ``forest_predict_chain``, RF ``forest_leaf_sums_chain``; DT
+    ``forest_leaf_sums_heap`` and ``forest_predict_heap``;
+(c) serve: load the committed RF, GBT, DT and gbt12 fixtures on the card,
+    score their 4,096-row frames against the JAX package's outputs
     (probability_1 atol 1e-5; prediction equal wherever |p - 0.5| >
     1e-5), answer single-row requests through score_function, score
     65,536-row batches and report rows/sec. The launch counts are zeroed
@@ -88,7 +100,8 @@ TRAIN_ROWS = 20000
 TRAIN_SEED = 0
 #: the tables that make a tree, per layout
 TREE_KEYS = {"gbt": ("feat", "bins"), "dt": ("feat", "bins"),
-             "rf": ("feat_lv", "bins_lv", "base_lv")}
+             "rf": ("feat_lv", "bins_lv", "base_lv"),
+             "gbt12": ("feat_lv", "bins_lv", "base_lv")}
 #: the leaf sums of the RF and DT refits: 19,712 padded rows, class counts
 #: and the weight, k = 3
 LEAF_K = 3
@@ -378,6 +391,102 @@ def phase_leaf_sums(dev, rng):
     return results
 
 
+def _node_case(dev, rng, S, T, Wl, stride, k, live):
+    """Growth-level inputs on the card: codes (S, 64) in [0, 32] (5% the
+    sentinel), each row's slot per tree among ``live`` slots (stride-scaled;
+    under stride 2 the odd right children add nothing), [0, 1) stats and
+    integer-valued stats."""
+    codes = rng.randint(0, N_BINS, (S, N_FEATURES))
+    codes[rng.rand(S, N_FEATURES) < 0.05] = N_BINS
+    node = rng.randint(0, stride * live, (S, T))
+    return (torch.from_numpy(codes.astype(np.int32)).to(dev),
+            torch.from_numpy(node.astype(np.int64)).to(dev),
+            [torch.from_numpy(rng.rand(S, T).astype(np.float32)).to(dev)
+             for _ in range(k)],
+            [torch.from_numpy(rng.randint(0, 4, (S, T)).astype(
+                np.float32)).to(dev) for _ in range(k)])
+
+
+def phase_node_hist(dev, rng):
+    """``node_hist`` against its plain version (the pinned contraction
+    over the materialized masked-stat operand), the direct formula at an
+    odd shape, and the library's route: one f32 matmul over that operand
+    (cuBLAS, TF32 off), whose operand is built outside the timing."""
+    from transmogrifai_tpu_torch.histeng import kernels as HK
+
+    S = REFIT_ROWS
+    cases = (("RF refit, deepest level", 50, 256, 1, 2, 256),
+             ("GBT depth-6 refit, level 5", 1, 16, 2, 3, 32),
+             ("gbt12 refit, deepest level", 1, 256, 1, 3, 256))
+    out = {}
+    for tag, T, Wl, stride, k, live in cases:
+        codes, node, sw, sw_i = _node_case(dev, rng, S, T, Wl, stride, k,
+                                           live)
+        node32 = node.int()
+        sws = torch.stack(sw)
+
+        def kernel():
+            return HK.node_hist_cuda(codes, node32, sws, Wl, N_BINS, stride)
+
+        def plain(stats=sw):
+            return HK.node_hist_plain(codes, node, stats, Wl, N_BINS,
+                                      stride).reshape(k, Wl, T, N_FEATURES,
+                                                      N_BINS)
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=SUM_RTOL, atol=SUM_ATOL)
+        if not torch.equal(HK.node_hist_cuda(codes, node32,
+                                             torch.stack(sw_i), Wl, N_BINS,
+                                             stride), plain(sw_i)):
+            raise AssertionError(f"node_hist ({tag}): integer-valued stats "
+                                 f"are not bit-equal to plain")
+        if not torch.equal(got, kernel()):
+            raise AssertionError(f"node_hist ({tag}): reruns differ")
+        # the library route: the masked-stat operand, then one matmul
+        slot = torch.arange(Wl, device=dev) * stride
+        A = torch.cat([(node[:, None, :] == slot[None, :, None]).float()
+                       * s.to(torch.bfloat16).float()[:, None, :]
+                       for s in sw], dim=1).reshape(S, k * Wl * T)
+        oh = HK._one_hot(codes, N_BINS)
+        with HK._tf32_off():
+            lib_ms = time_ms(lambda: A.T @ oh, runs=5, warmup=1)
+        del A, oh
+        adds = k * int(((node >= 0) & (node % stride == 0)
+                        & (node < stride * Wl)).sum(1).double()
+                       @ (codes < N_BINS).sum(1).double())
+        out[tag] = dict(
+            max_abs_err=float((got - want).abs().max()),
+            ms=time_ms(kernel), plain_ms=time_ms(plain, runs=5, warmup=1),
+            library_ms=lib_ms,
+            # the codes, slots and stats read once, the cells written once;
+            # one add per stat for every valid (row, tree, code)
+            bound=bound_ms(4 * (S * N_FEATURES + S * T + k * S * T
+                                + k * Wl * T * N_FEATURES * N_BINS), adds))
+        r = out[tag]
+        print(f"(b) node_hist {tag} (S {S}, T {T}, Wl {Wl}, stride {stride}, "
+              f"k {k}): max_abs_err {r['max_abs_err']:.3g}, {r['ms']:.4f} ms "
+              f"(plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} "
+              f"ms, bound {r['bound'][0]:.5f} ms by {r['bound'][1]})")
+    # an odd shape against the definition: same bits (the rows in order)
+    orng = np.random.RandomState(3)
+    S, d, T, Wl, nb = 509, 9, 3, 17, 11
+    codes = torch.from_numpy(orng.randint(0, nb + 1, (S, d)).astype(
+        np.int32)).to(dev)
+    node = torch.from_numpy(orng.randint(-2, 2 * Wl + 2, (S, T))).to(dev)
+    sw = [torch.from_numpy(orng.randn(S, T).astype(np.float32)).to(dev)
+          for _ in range(3)]
+    got = HK.node_hist_matmul(codes, node, sw, Wl, nb, stride=2)
+    want = HK.node_hist_direct(codes.cpu(), node.cpu(),
+                               [x.cpu() for x in sw], Wl, nb, stride=2)
+    torch.cuda.synchronize()
+    if not torch.equal(got.cpu(), want):
+        raise AssertionError("node_hist: odd shape differs from the direct "
+                             "formula")
+    print(f"(b) node_hist odd shape (S {S}, d {d}, T {T}, Wl {Wl}, stride 2, "
+          f"nb {nb}): bit-equal to the direct formula")
+    return out["RF refit, deepest level"]
+
+
 def phase_kernels(dev):
     """Each kernel against its plain version at its path's shapes."""
     from transmogrifai_tpu_torch.ops import forest as F
@@ -385,6 +494,7 @@ def phase_kernels(dev):
 
     rng = np.random.RandomState(0)
     results = {"hist_matmul": phase_hist(dev, rng)}
+    results["node_hist"] = phase_node_hist(dev, rng)
     results.update(phase_leaf_sums(dev, rng))
 
     # RF: slot chain, T=50, depth 12, W=256, k=1
@@ -436,7 +546,8 @@ def phase_kernels(dev):
             *args, depth=depth, n_bins=N_BINS)),
         bound=bound_ms(nbytes, N_ROWS * T * (depth + k)))
     for name, r in results.items():
-        if name == "hist_matmul" or name.startswith("forest_leaf_sums"):
+        if name in ("hist_matmul", "node_hist") or \
+                name.startswith("forest_leaf_sums"):
             continue
         print(f"(b) {name}: max_abs_err {r['max_abs_err']:.3g}, "
               f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound "
@@ -493,38 +604,54 @@ def _gap(gain, port, fixture, min_gain: float) -> float:
     return at_split(*port) - at_split(*fixture)
 
 
-def _gain_gap(model, data, fixture, t: int, j: int) -> float:
-    """Split gain of the port's choice minus the fixture's at heap node
-    ``j`` of boosting round ``t``, both scored on the port's own state
+def _gbt_gain_gap(model, data, fixture, key: str, t: int, level: int,
+                  j: int) -> float:
+    """Split gain of the port's choice minus the fixture's at node ``j`` of
+    level ``level`` (a heap's position within the level, or a chain's
+    slot) of boosting round ``t``, both scored on the port's own state
     there: the refit rows, F after the first ``t`` (identical) trees, and
     the node's bf16-operand histogram, as the grower builds it."""
     from transmogrifai_tpu_torch.models import trees as TR
-    from transmogrifai_tpu_torch.ops.forest import route_codes
+    from transmogrifai_tpu_torch.ops.forest import (
+        route_codes, route_codes_chain,
+    )
     from transmogrifai_tpu_torch.testing import SERVE_MODELS
 
-    _, hyper = SERVE_MODELS["gbt"]
+    _, hyper = SERVE_MODELS[key]
     p = model.stages[-1].fitted.params
     codes, y, w = _refit_rows(model, data)
+    keys = TREE_KEYS[key]
+    chain = "base_lv" in p
+    tabs = [p[k][:, 0] for k in keys]
+    leaf = p["leaf"][:, 0]
+    depth = tabs[0].shape[1] if chain else TR._depth_of(leaf.shape[-1])
+
+    def route(r: int, levels: int) -> torch.Tensor:
+        """Each refit row's node in round r's tree after ``levels``."""
+        if not chain:
+            return route_codes(codes, tabs[0][r:r + 1], tabs[1][r:r + 1],
+                               levels, TR.N_BINS)[:, 0].long()
+        if not levels:
+            return torch.zeros(codes.shape[0], dtype=torch.long,
+                               device=codes.device)
+        return route_codes_chain(codes, *(x[r:r + 1, :levels].contiguous()
+                                          for x in tabs),
+                                 TR.N_BINS)[:, 0].long()
+
     F = torch.zeros(codes.shape[0], device=codes.device)
-    feat, bins, leaf = p["feat"][:, 0], p["bins"][:, 0], p["leaf"][:, 0]
-    depth = TR._depth_of(leaf.shape[-1])
     for r in range(t):
-        ids = route_codes(codes, feat[r:r + 1], bins[r:r + 1], depth,
-                          TR.N_BINS)[:, 0].long()
-        F = (F.double() + float(p["eta"]) * leaf[r][ids].double()).float()
+        F = (F.double() + float(p["eta"]) * leaf[r][route(r, depth)].double()
+             ).float()
     pr = torch.sigmoid(F)
     stats = torch.stack([(pr - y) * w, torch.clamp(pr * (1 - pr), min=1e-6)
                          * w, w], dim=1)
-    level = int(np.log2(j + 1))
-    q = j - (2 ** level - 1)
-    ids = route_codes(codes, feat[t:t + 1], bins[t:t + 1], level,
-                      TR.N_BINS)[:, 0]
-    gain = _node_gains(codes, stats * (ids == q).float()[:, None],
+    gain = _node_gains(codes, stats * (route(t, level) == j).float()[:, None],
                        {"lam": 0.0, "min_child_weight": 0.0,
                         "min_instances": hyper["minInstancesPerNode"]},
                        "gh")
-    return _gap(gain, (int(feat[t, j]), int(bins[t, j])),
-                (int(fixture["feat"][t, 0, j]), int(fixture["bins"][t, 0, j])),
+    at = ((t, 0, level, j) if chain else (t, 0, 2 ** level - 1 + j))
+    return _gap(gain, tuple(int(p[k][at]) for k in keys[:2]),
+                tuple(int(fixture[k][at]) for k in keys[:2]),
                 hyper["minInfoGain"])
 
 
@@ -574,31 +701,40 @@ def _first_gbt_difference(model, data, got, fx):
     diff = np.nonzero((got["feat"][t, 0] != fx["feat"][t, 0])
                       | (got["bins"][t, 0] != fx["bins"][t, 0]))[0]
     j = int(diff[0])
+    level = int(np.log2(j + 1))
+    gap = _gbt_gain_gap(model, data, fx, "gbt", t, level,
+                        j - (2 ** level - 1))
     print(f"(t) first differing tree: round {t}, heap node {j} (port "
           f"split f{got['feat'][t, 0, j]}/b{got['bins'][t, 0, j]}, "
           f"fixture f{fx['feat'][t, 0, j]}/b{fx['bins'][t, 0, j]}), "
-          f"gain gap {_gain_gap(model, data, fx, t, j):.6g}")
+          f"gain gap {gap:.6g}")
 
 
-def _chain_differences(model, data, got, fx):
-    """Report each differing RF tree's first differing level and slot, and
-    there the split-gain gap when the two split choices differ."""
-    keys = TREE_KEYS["rf"]
+def _chain_differences(model, data, got, fx, key="rf"):
+    """Report each differing slot-chain tree's first differing level and
+    slot, and there the split-gain gap when the two split choices differ:
+    for every RF tree, for ``gbt12`` the first differing round (the
+    boosting state of later rounds differs anyway)."""
+    keys = TREE_KEYS[key]
+    first = True
     for t in range(len(fx["feat_lv"])):
-        diff = np.zeros(fx["feat_lv"].shape[1:], bool)
-        for k in keys:
-            diff |= got[k][t] != fx[k][t]
+        tab = {k: (got[k][t], fx[k][t]) if key == "rf"
+               else (got[k][t, 0], fx[k][t, 0]) for k in keys}
+        diff = np.zeros(tab["feat_lv"][1].shape, bool)
+        for g, f in tab.values():
+            diff |= g != f
         if not diff.any():
             continue
         level = int(np.nonzero(diff.any(1))[0][0])
         j = int(np.nonzero(diff[level])[0][0])
-        port = (got["feat_lv"][t, level, j], got["bins_lv"][t, level, j],
-                got["base_lv"][t, level, j])
-        fixt = (fx["feat_lv"][t, level, j], fx["bins_lv"][t, level, j],
-                fx["base_lv"][t, level, j])
-        gap = (f", gain gap {_chain_gain_gap(model, data, fx, t, level, j):.6g}"
-               if port[:2] != fixt[:2] else "")
-        print(f"(t) rf tree {t}: first difference at level {level}, slot "
+        port, fixt = ([tab[k][i][level, j] for k in keys] for i in (0, 1))
+        gap = ""
+        if port[:2] != fixt[:2] and (key == "rf" or first):
+            g = (_chain_gain_gap(model, data, fx, t, level, j) if key == "rf"
+                 else _gbt_gain_gap(model, data, fx, key, t, level, j))
+            gap = f", gain gap {g:.6g}"
+        first = False
+        print(f"(t) {key} tree {t}: first difference at level {level}, slot "
               f"{j} (port f{port[0]}/b{port[1]}/base {port[2]}, fixture "
               f"f{fixt[0]}/b{fixt[1]}/base {fixt[2]}){gap}")
 
@@ -619,12 +755,15 @@ def train_against_fixture(key: str):
     if wf.device.type != "cuda":
         raise AssertionError(f"training on {wf.device}")
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = wf.train()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     print(f"(t) {key} train: {TRAIN_ROWS} x {N_FEATURES}, {family} {hyper}, "
-          f"3-fold CV + refit + evaluations in {secs:.3f} s")
+          f"3-fold CV + refit + evaluations in {secs:.3f} s, peak device "
+          f"memory allocated {torch.cuda.max_memory_allocated() / 2 ** 30:.3f}"
+          f" GiB")
 
     path = os.path.join(FIXTURES, key)
     ref = tt.load_model(path)
@@ -651,8 +790,8 @@ def train_against_fixture(key: str):
           f"{sum(same)} of {len(same)}")
     if key == "gbt" and not all(same):
         _first_gbt_difference(model, data, got, fx)
-    if key == "rf" and not all(same):
-        _chain_differences(model, data, got, fx)
+    if key in ("rf", "gbt12") and not all(same):
+        _chain_differences(model, data, got, fx, key)
     folds = np.asarray(ps.summary.validation_results[0].fold_metrics,
                        dtype=np.float64).ravel()
     ref_folds = torch.as_tensor(
@@ -694,7 +833,7 @@ def phase_serve():
     """The port's main path: load, score, answer requests."""
     import transmogrifai_tpu_torch as tt
 
-    for key in ("rf", "gbt", "dt"):
+    for key in ("rf", "gbt", "dt", "gbt12"):
         path = os.path.join(FIXTURES, key)
         model = tt.load_model(path)                # default: the card
         if model.device.type != "cuda":
@@ -764,23 +903,33 @@ def main() -> int:
                                  f"{name} path")
         return counts
 
-    hist = HK.HIST_MATMUL
+    hist, node = HK.HIST_MATMUL, HK.NODE_HIST
     paths = {
         "train gbt": run_path("train gbt",
                               lambda: train_against_fixture("gbt"),
-                              (hist, F.FOREST_PREDICT_HEAP)),
+                              (hist, node, F.FOREST_PREDICT_HEAP)),
+        "train gbt12": run_path("train gbt12",
+                                lambda: train_against_fixture("gbt12"),
+                                (hist, node, F.FOREST_PREDICT_CHAIN)),
         "train rf": run_path("train rf", lambda: train_against_fixture("rf"),
-                             (hist, F.FOREST_LEAF_SUMS_CHAIN,
+                             (hist, node, F.FOREST_LEAF_SUMS_CHAIN,
                               F.FOREST_PREDICT_CHAIN)),
         "train dt": run_path("train dt", lambda: train_against_fixture("dt"),
-                             (hist, F.FOREST_LEAF_SUMS_HEAP,
+                             (hist, node, F.FOREST_LEAF_SUMS_HEAP,
                               F.FOREST_PREDICT_HEAP)),
     }
-    rounds = SERVE_MODELS["gbt"][1]["maxIter"]
-    if paths["train gbt"]["hist_matmul"] < rounds:
-        raise AssertionError(f"hist_matmul launched "
-                             f"{paths['train gbt']['hist_matmul']} times in "
-                             f"GBT training, fewer than the boosting rounds")
+    for key in ("gbt", "gbt12"):
+        counts = paths[f"train {key}"]
+        rounds = SERVE_MODELS[key][1]["maxIter"]
+        levels = SERVE_MODELS[key][1]["maxDepth"]
+        if counts["hist_matmul"] < rounds:
+            raise AssertionError(f"hist_matmul launched "
+                                 f"{counts['hist_matmul']} times in {key} "
+                                 f"training, fewer than the boosting rounds")
+        if counts["node_hist"] < rounds * levels:
+            raise AssertionError(f"node_hist launched {counts['node_hist']} "
+                                 f"times in {key} training, fewer than its "
+                                 f"refit's rounds x levels")
     paths["serve"] = run_path("serve", phase_serve,
                               (F.FOREST_PREDICT_HEAP, F.FOREST_PREDICT_CHAIN))
     for name, counts in paths.items():

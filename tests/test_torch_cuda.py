@@ -6,7 +6,10 @@ JAX nor the JAX package, so on a GPU machine without JAX they run alone::
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Tolerances: leaf ids and slots exactly; forest sums rtol 1e-5, atol 1e-6
+Tolerances: leaf ids and slots exactly; the node histogram bit-equal to
+its direct formula (both add the rows in order), rtol 1e-5, atol 1e-6
+against its plain version (cuBLAS's order), equal on integer-valued
+stats and across launch shapes; forest sums rtol 1e-5, atol 1e-6
 (both add the trees one at a time in ascending order, so they agree to the
 bit unless the compiler reorders the kernel's additions); histograms and
 leaf sums rtol 1e-5, atol 1e-6 against the plain version and the direct
@@ -330,45 +333,50 @@ def test_cumsum_bins_on_the_card_adds_in_the_cpu_order(cuda, M, d, nb, k):
 
 
 TINY_TRAINS = {
-    "OpGBTClassifier": {"maxDepth": 3, "maxIter": 5, "stepSize": 0.1,
-                        "minInstancesPerNode": 5, "minInfoGain": 0.001},
-    "OpRandomForestClassifier": {"maxDepth": 12, "numTrees": 4,
-                                 "minInstancesPerNode": 5,
-                                 "minInfoGain": 0.001,
-                                 "subsamplingRate": 1.0},
-    "OpDecisionTreeClassifier": {"maxDepth": 6, "minInstancesPerNode": 5,
-                                 "minInfoGain": 0.001},
+    "gbt": ("OpGBTClassifier",
+            {"maxDepth": 3, "maxIter": 5, "stepSize": 0.1,
+             "minInstancesPerNode": 5, "minInfoGain": 0.001}),
+    "gbt12": ("OpGBTClassifier",
+              {"maxDepth": 12, "maxIter": 4, "stepSize": 0.3,
+               "minInstancesPerNode": 5, "minInfoGain": 0.001}),
+    "rf": ("OpRandomForestClassifier",
+           {"maxDepth": 12, "numTrees": 4, "minInstancesPerNode": 5,
+            "minInfoGain": 0.001, "subsamplingRate": 1.0}),
+    "dt": ("OpDecisionTreeClassifier",
+           {"maxDepth": 6, "minInstancesPerNode": 5, "minInfoGain": 0.001}),
 }
-#: kernels each tiny train must launch, and table keys compared
+#: kernels each tiny train must launch, and table keys compared; the deep
+#: GBT grows 12 levels in each of its 4 refit rounds
 TINY_KERNELS = {
-    "OpGBTClassifier": ((HK.HIST_MATMUL, 5),),
-    "OpRandomForestClassifier": ((HK.HIST_MATMUL, 1),
-                                 (F.FOREST_LEAF_SUMS_CHAIN, 1),
-                                 (F.FOREST_PREDICT_CHAIN, 1)),
-    "OpDecisionTreeClassifier": ((HK.HIST_MATMUL, 1),
-                                 (F.FOREST_LEAF_SUMS_HEAP, 1),
-                                 (F.FOREST_PREDICT_HEAP, 1)),
+    "gbt": ((HK.HIST_MATMUL, 5), (HK.NODE_HIST, 5 * 3)),
+    "gbt12": ((HK.HIST_MATMUL, 4), (HK.NODE_HIST, 4 * 12),
+              (F.FOREST_PREDICT_CHAIN, 1)),
+    "rf": ((HK.HIST_MATMUL, 1), (HK.NODE_HIST, 12),
+           (F.FOREST_LEAF_SUMS_CHAIN, 1), (F.FOREST_PREDICT_CHAIN, 1)),
+    "dt": ((HK.HIST_MATMUL, 1), (HK.NODE_HIST, 6),
+           (F.FOREST_LEAF_SUMS_HEAP, 1), (F.FOREST_PREDICT_HEAP, 1)),
 }
 TINY_TABLES = {
-    "OpGBTClassifier": ("edges", "feat", "bins"),
-    "OpRandomForestClassifier": ("edges", "feat_lv", "bins_lv", "base_lv"),
-    "OpDecisionTreeClassifier": ("edges", "feat", "bins"),
+    "gbt": ("edges", "feat", "bins"),
+    "gbt12": ("edges", "feat_lv", "bins_lv", "base_lv"),
+    "rf": ("edges", "feat_lv", "bins_lv", "base_lv"),
+    "dt": ("edges", "feat", "bins"),
 }
 
 
-@pytest.mark.parametrize("family", sorted(TINY_TRAINS))
-def test_tiny_train_on_the_card_matches_the_cpu(cuda, family):
-    hyper = TINY_TRAINS[family]
+@pytest.mark.parametrize("key", sorted(TINY_TRAINS))
+def test_tiny_train_on_the_card_matches_the_cpu(cuda, key):
+    family, hyper = TINY_TRAINS[key]
     data = serve_bench_data(400, 5, seed=3)
     cpu = serve_bench_workflow(family, hyper, 5, seed=3, realnn=2,
                                device="cpu").set_input_dataset(data).train()
-    before = [kern.launches for kern, _ in TINY_KERNELS[family]]
+    before = [kern.launches for kern, _ in TINY_KERNELS[key]]
     gpu = serve_bench_workflow(family, hyper, 5, seed=3, realnn=2,
                                device=cuda).set_input_dataset(data).train()
-    for (kern, least), b in zip(TINY_KERNELS[family], before):
+    for (kern, least), b in zip(TINY_KERNELS[key], before):
         assert kern.launches >= b + least, kern.name
     cp, gp = cpu.stages[-1].fitted.params, gpu.stages[-1].fitted.params
-    for k in TINY_TABLES[family]:
+    for k in TINY_TABLES[key]:
         assert torch.equal(gp[k].cpu(), cp[k]), k
     torch.testing.assert_close(gp["leaf"].cpu(), cp["leaf"], rtol=0,
                                atol=1e-6)
@@ -381,3 +389,99 @@ def test_tiny_train_on_the_card_matches_the_cpu(cuda, family):
     p_cpu, p_gpu = (m.score(data=frame)[m.result_features[0].name]
                     .values[:, -1].cpu() for m in (cpu, gpu))
     torch.testing.assert_close(p_gpu, p_cpu, rtol=0, atol=1e-5)
+
+
+def _node_case(dev, seed, S, d, T, Wl, stride, nb=32, k=3):
+    """Codes with sentinels, node values that add nothing (negative, odd
+    under stride 2, past stride * Wl) among the slots, [0, 1) stats and
+    integer-valued stats, on the card."""
+    rng = np.random.RandomState(seed)
+    codes = rng.randint(0, nb + 1, (S, d)).astype(np.int32)
+    node = rng.randint(-2, stride * Wl + 2, (S, T)).astype(np.int64)
+    sw = [torch.from_numpy(rng.rand(S, T).astype(np.float32)).to(dev)
+          for _ in range(k)]
+    sw_i = [torch.from_numpy(rng.randint(-4, 5, (S, T)).astype(
+        np.float32)).to(dev) for _ in range(k)]
+    return (torch.from_numpy(codes).to(dev), torch.from_numpy(node).to(dev),
+            sw, sw_i)
+
+
+def _node_hist_kernel(codes, node, sw, Wl, nb, stride, **kw):
+    out = HK.node_hist_cuda(codes, node.int().contiguous(), torch.stack(sw),
+                            Wl, nb, stride, **kw)
+    return out.reshape(len(sw) * Wl * node.shape[1], codes.shape[1] * nb)
+
+
+#: odd shapes: S prime, d 9, T 1 and 130, stride 1 and 2, the refit
+#: shape of a deep GBT level (T 1, Wl 256), and slots of many chunks
+NODE_CASES = [(509, 9, 1, 1, 1, 11), (509, 9, 1, 6, 2, 11),
+              (509, 9, 130, 5, 1, 11), (509, 9, 130, 4, 2, 11),
+              (1031, 7, 3, 17, 2, 37), (2003, 64, 1, 256, 1, 32),
+              (5003, 9, 2, 1, 1, 11), (4099, 16, 3, 3, 2, 32)]
+
+
+@pytest.mark.parametrize("S,d,T,Wl,stride,nb", NODE_CASES)
+def test_node_hist_kernel_matches_plain_and_direct(cuda, S, d, T, Wl, stride,
+                                                   nb):
+    codes, node, sw, sw_i = _node_case(cuda, S + T + Wl, S, d, T, Wl,
+                                       stride, nb)
+    before = HK.NODE_HIST.launches
+    got = _node_hist_kernel(codes, node, sw, Wl, nb, stride)
+    assert HK.NODE_HIST.launches == before + 1
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        got, HK.node_hist_plain(codes, node, sw, Wl, nb, stride), rtol=RTOL,
+        atol=ATOL)
+    # the direct formula adds the rows in the kernel's order: same bits
+    direct = HK.node_hist_direct(codes.cpu(), node.cpu(),
+                                 [s.cpu() for s in sw], Wl, nb, stride)
+    assert torch.equal(got.cpu(), direct)
+    # integer-valued stats sum exactly; reruns give the same bits
+    got_i = _node_hist_kernel(codes, node, sw_i, Wl, nb, stride)
+    assert torch.equal(got_i, HK.node_hist_plain(codes, node, sw_i, Wl, nb,
+                                                 stride))
+    assert torch.equal(got, _node_hist_kernel(codes, node, sw, Wl, nb,
+                                              stride))
+
+
+@pytest.mark.parametrize("threads,warps", [(32, 1), (64, 3), (96, 32),
+                                           (1024, 8)])
+def test_node_hist_bits_do_not_depend_on_the_launch(cuda, threads, warps):
+    """Pass B's block size (pairs beyond it run in further groups) and
+    pass A's warp count change no bit."""
+    codes, node, sw, _ = _node_case(cuda, 21, 3001, 40, 7, 64, 2)
+    want = _node_hist_kernel(codes, node, sw, 64, 32, 2)
+    got = _node_hist_kernel(codes, node, sw, 64, 32, 2, threads=threads,
+                            sort_warps=warps)
+    assert torch.equal(got, want)
+
+
+def test_node_hist_on_cuda_never_takes_the_plain_version(cuda, monkeypatch):
+    def refuse(*a, **kw):
+        raise AssertionError("the plain node histogram ran on the card")
+
+    monkeypatch.setattr(HK, "node_hist_plain", refuse)
+    monkeypatch.setattr(HK, "_hist_pinned", refuse)
+    codes, node, sw, _ = _node_case(cuda, 22, 700, 5, 4, 8, 1)
+    before = HK.NODE_HIST.launches
+    got = HK.node_hist_matmul(codes, node, sw, 8, 32)
+    assert HK.NODE_HIST.launches == before + 1
+    assert torch.equal(got, _node_hist_kernel(codes, node, sw, 8, 32, 1))
+
+
+def test_node_hist_empty_and_bad_inputs(cuda):
+    codes, node, sw, _ = _node_case(cuda, 23, 0, 3, 2, 4, 1)
+    assert torch.equal(HK.node_hist_cuda(codes, node.int(), torch.stack(sw),
+                                         4, 32),
+                       torch.zeros((3, 4, 2, 3, 32), device=cuda))
+    codes, node, sw, _ = _node_case(cuda, 23, 50, 3, 2, 4, 1)
+    with pytest.raises(TypeError):
+        HK.node_hist_cuda(codes, node, torch.stack(sw), 4, 32)   # int64 node
+    with pytest.raises(ValueError):
+        HK.node_hist_cuda(codes, node.int(), torch.stack(sw), 4, 32,
+                          stride=3)
+    with pytest.raises(ValueError):
+        HK.node_hist_cuda(codes, node.int().cpu(), torch.stack(sw), 4, 32)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        HK.node_hist_cuda(codes, node.int(), torch.stack(sw), 4, 32,
+                          threads=48)                # not a warp multiple

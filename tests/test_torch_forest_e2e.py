@@ -1,16 +1,19 @@
-"""Tiny end-to-end trains of the RF/DT slice: ``transmogrify ->
+"""Tiny end-to-end trains of the tree slices: ``transmogrify ->
 sanity_check -> BinaryClassificationModelSelector`` with a two-point RF
-(depth 12, slot chains) or DT (depth 6, heaps) grid, trained by the JAX
-package and by the port on the CPU, on the same 400 rows of 5 predictors.
+(depth 12, slot chains), DT (depth 6, heaps) or GBT (depths 12 and 3:
+one slot-chain boosting scan) grid, trained by the JAX package and by the
+port on the CPU, on the same 400 rows of 5 predictors.
 
 Tolerances: edges, kept columns, split tables (feat, bins, base) and the
-winner: equal; thresholds within 1 ulp and leaf values within 1e-6 (see
+winner: equal; thresholds equal and leaf values within 1e-6 (see
 ``test_torch_forest_train.py``); probability_1 within 1e-6; DT fold
 metrics and evaluations within 1e-6, RF ones within 1e-4. An RF score is
 the mean of its trees' leaf shares: the JAX package adds the trees inside
 a one-hot matmul in its own blocked order, the port one tree after the
 other, so scores differ in the last bit, and two rows that close swap
-places in a ~130-row fold; one swap moves AuPR by ~1e-4.
+places in a ~130-row fold; one swap moves AuPR by ~1e-4. GBT metrics and
+probability_1 within 1e-5: the sigmoid's ``exp`` differs between the two
+CPU backends in the last bit (as in ``test_torch_train.py``).
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ from transmogrifai_tpu_torch.testing import serve_bench_data  # noqa: E402
 
 E2E_TOL = 1e-6
 RF_METRIC_TOL = 1e-4
+GBT_TOL = 1e-5
 
 
 TINY = {
@@ -47,7 +51,15 @@ TINY = {
     "OpDecisionTreeClassifier": [
         {"maxDepth": 6, "minInstancesPerNode": 5, "minInfoGain": 0.001},
         {"maxDepth": 6, "minInstancesPerNode": 30, "minInfoGain": 0.01}],
+    "OpGBTClassifier": [
+        {"maxDepth": 12, "maxIter": 4, "stepSize": 0.3,
+         "minInstancesPerNode": 5, "minInfoGain": 0.001},
+        {"maxDepth": 3, "maxIter": 4, "stepSize": 0.3,
+         "minInstancesPerNode": 5, "minInfoGain": 0.001}],
 }
+#: metric and probability tolerance per family (see above)
+TOL = {"OpRandomForestClassifier": RF_METRIC_TOL,
+       "OpDecisionTreeClassifier": E2E_TOL, "OpGBTClassifier": GBT_TOL}
 TINY_N, TINY_D, TINY_SEED = 400, 5, 3
 
 
@@ -99,7 +111,7 @@ def test_tiny_train_matches_jax(tiny_trains, family):
     assert ps.best_model_type == js.best_model_type == family
     assert ps.best_hyper == js.best_hyper
     assert pm.stages[-2].keep_indices == jm.stages[-2].keep_indices
-    tol = RF_METRIC_TOL if family == "OpRandomForestClassifier" else E2E_TOL
+    tol = TOL[family]
     np.testing.assert_allclose(ps.validation_results[0].fold_metrics,
                                js.validation_results[0].fold_metrics,
                                rtol=0, atol=tol)
@@ -116,4 +128,5 @@ def test_tiny_train_matches_jax(tiny_trains, family):
     want = prediction_parts(jm.score(table=jax_table(frame)), jm)
     got = prediction_parts(pm.score(data=frame), pm)
     np.testing.assert_allclose(got["probability_1"], want["probability_1"],
-                               rtol=0, atol=E2E_TOL)
+                               rtol=0, atol=GBT_TOL
+                               if family == "OpGBTClassifier" else E2E_TOL)

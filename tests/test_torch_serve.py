@@ -70,6 +70,9 @@ SERVE_MODELS = {
              "minInstancesPerNode": 10, "minInfoGain": 0.001}),
     "dt": ("OpDecisionTreeClassifier",
            {"maxDepth": 6, "minInstancesPerNode": 10, "minInfoGain": 0.001}),
+    "gbt12": ("OpGBTClassifier",
+              {"maxDepth": 12, "maxIter": 20, "stepSize": 0.1,
+               "minInstancesPerNode": 10, "minInfoGain": 0.001}),
 }
 
 
@@ -274,7 +277,7 @@ def test_micro_batch_quarantines_only_bad_rows(tiny_models):
     assert [out[0], out[2]] == [fn(rows[0]), fn(rows[2])]
 
 
-@pytest.mark.parametrize("key", ["rf", "gbt", "dt"])
+@pytest.mark.parametrize("key", ["rf", "gbt", "dt", "gbt12"])
 def test_committed_fixture_matches_expected_in_both_packages(key):
     path = os.path.join(FIXTURE_DIR, key)
     exp = np.load(os.path.join(path, "expected.npz"))
@@ -293,6 +296,9 @@ def test_committed_fixture_matches_expected_in_both_packages(key):
         assert tuple(params["feat_lv"].shape) == (50, 12, 256)
     elif key == "gbt":       # depth-6 complete heaps
         assert tuple(params["feat"].shape) == (20, 1, 63)
+    elif key == "gbt12":     # depth-12 boosting: slot chains of 256 slots
+        assert tuple(params["feat_lv"].shape) == (20, 1, 12, 256)
+        assert tuple(params["leaf"].shape) == (20, 1, 256)
     else:                    # one depth-6 heap
         assert tuple(params["feat"].shape) == (63,)
     pp = prediction_parts(pm.score(data=frame), pm)

@@ -9,7 +9,8 @@ the CPU (``device="cpu"``).
 Tolerances (stated once, used throughout):
 
 * bin edges, bin codes, samples, fold masks, kept columns, removal
-  reasons, split tables (feat/bins/thresh), tree masks: equal;
+  reasons, split tables (feat/bins/thresh, and the slot chains'
+  feat_lv/bins_lv/base_lv/thresh_lv), tree masks: equal;
 * quantities summed in f32 in another order than XLA's (histograms, leaf
   sums, moments, correlations, metrics): rtol 1e-6 / atol 1e-6 against
   the JAX package where the inputs are identical, leaves within 1e-6;
@@ -58,6 +59,7 @@ from transmogrifai_tpu_torch.impl.tuning.validators import (  # noqa: E402
     OpCrossValidation,
 )
 from transmogrifai_tpu_torch.models import trees as ptrees  # noqa: E402
+from transmogrifai_tpu_torch.models.api import ModelFamily  # noqa: E402
 from transmogrifai_tpu_torch.ops import metrics as pmetrics  # noqa: E402
 from transmogrifai_tpu_torch.table import Column, FeatureTable  # noqa: E402
 from transmogrifai_tpu_torch.testing import (  # noqa: E402
@@ -280,12 +282,106 @@ def test_sweep_ensemble_cap_matches_jax():
         assert (a is None and b is None) or np.array_equal(a, b)
 
 
-def test_deep_gbt_raises_until_the_chain_grower_is_ported():
-    X, y = _padded_frame(300, 2, seed=6)
-    with pytest.raises(NotImplementedError, match="slot"):
-        ptrees.GBTClassifierFamily().fit_batch(
-            _t(X), _t(y), torch.ones((1, 300)),
-            {"maxDepth": np.array([12.0], np.float32)}, 2)
+#: the tables that must be equal in a fitted GBT batch, per layout
+_GBT_TABLES = ("edges", "feat", "bins", "thresh", "feat_lv", "bins_lv",
+               "base_lv", "thresh_lv", "tree_mask", "f0", "eta")
+
+
+def _deep_frame(n_fit, d, seed, n_cfg):
+    """A padded frame and n_cfg fold-like 0/1 weight rows."""
+    n = bucket_for(n_fit)
+    X, y = _padded_frame(n_fit, d, seed=seed, pad_to=n)
+    W = np.zeros((n_cfg, n), np.float32)
+    for b in range(n_cfg):
+        W[b, b:n_fit:b + 1] = 1.0
+    return X, y, W
+
+
+def _gbt_fits(grid, X, y, W, sweep):
+    """(port, JAX) fit_batch of one GBT grid on the same inputs."""
+    want = jtrees.GBTClassifierFamily().fit_batch(
+        jnp.asarray(X), jnp.asarray(y), jnp.asarray(W),
+        {k: jnp.asarray(v) for k, v in grid.items()}, 2, sweep=sweep)
+    got = ptrees.GBTClassifierFamily().fit_batch(_t(X), _t(y), _t(W), grid,
+                                                 2, sweep=sweep)
+    return got, want
+
+
+def _assert_gbt_match(got, want, X):
+    """Chain tables and thresholds equal to the bit, leaves within 1e-6,
+    scores within 1e-6."""
+    assert sorted(got) == sorted(want)
+    for k in _GBT_TABLES:
+        if k in want:
+            np.testing.assert_array_equal(_n(got[k]), np.asarray(want[k]),
+                                          err_msg=k)
+    np.testing.assert_allclose(_n(got["leaf"]), np.asarray(want["leaf"]),
+                               rtol=0, atol=TOL)
+    _close(ptrees.GBTClassifierFamily().predict_batch(got, _t(X[:300]), 2),
+           jtrees.GBTClassifierFamily().predict_batch(
+               want, jnp.asarray(X[:300]), 2))
+
+
+@pytest.mark.parametrize("sweep", [False, True])
+def test_deep_gbt_fit_matches_jax(sweep):
+    """One depth-12 configuration boosts slot chains (W 256 in the refit,
+    64 in the sweep) with exact Newton leaves."""
+    X, y, W = _deep_frame(500, 4, seed=9, n_cfg=1)
+    grid = {"maxDepth": np.array([12.0], np.float32),
+            "maxIter": np.array([3.0], np.float32),
+            "stepSize": np.array([0.3], np.float32),
+            "minInstancesPerNode": np.array([5.0], np.float32),
+            "minInfoGain": np.array([0.001], np.float32)}
+    got, want = _gbt_fits(grid, X, y, W, sweep)
+    assert tuple(got["feat_lv"].shape) == (1, 3, 1, 12,
+                                           64 if sweep else 256)
+    assert "feat" not in got
+    _assert_gbt_match(got, want, X)
+
+
+@pytest.mark.parametrize("sweep", [False, True])
+def test_mixed_depth_gbt_grid_matches_jax_and_stitches(sweep):
+    """A (3, 12) grid boosts both configurations in one slot-chain scan.
+    In the refit, where heaps and chains alike take exact leaves, the
+    shallow one's scores match a heap fit of it alone (as
+    ``tests/test_deep_trees.py::test_mixed_depth_grid_stitches_exactly``
+    holds the JAX package), within the same 2e-4; a sweep's heap takes
+    its leaves off the bf16 histogram instead."""
+    X, y, W = _deep_frame(500, 4, seed=10, n_cfg=2)
+    shallow = {"maxDepth": 3.0, "minInstancesPerNode": 5.0,
+               "minInfoGain": 0.001, "maxIter": 3.0, "stepSize": 0.2}
+    rows = [shallow, dict(shallow, maxDepth=12.0)]
+    grid = {k: np.array([r[k] for r in rows], np.float32) for k in shallow}
+    got, want = _gbt_fits(grid, X, y, W, sweep)
+    assert "base_lv" in got
+    _assert_gbt_match(got, want, X)
+    if sweep:
+        return
+    fam = ptrees.GBTClassifierFamily()
+    alone = fam.fit_batch(_t(X), _t(y), _t(W[:1]),
+                          {k: v[:1] for k, v in grid.items()}, 2,
+                          sweep=sweep)
+    assert "feat" in alone
+    np.testing.assert_allclose(
+        _n(fam.predict_batch(got, _t(X), 2))[0],
+        _n(fam.predict_batch(alone, _t(X), 2))[0], rtol=0, atol=2e-4)
+
+
+@pytest.mark.parametrize("sweep", [False, True])
+def test_default_gbt_grid_fits_like_jax(sweep):
+    """The reference's default grid (maxDepth 3, 6 and 12 x
+    minInstancesPerNode x minInfoGain) at a tiny size: 200 rows of 3
+    predictors, 3 fold weights, its boosting cut to 2 rounds."""
+    jg = jtrees.GBTClassifierFamily().default_grid("binary")
+    fam = ptrees.GBTClassifierFamily()
+    assert fam.default_grid("binary") == jg and len(jg) == 18
+    grid = fam.grid_to_arrays([dict(g, maxIter=2) for g in jg])
+    X, y, W = _deep_frame(200, 3, seed=11, n_cfg=3)
+    W = np.repeat(W, 6, axis=0)                        # 18 weight rows
+    got, want = _gbt_fits(grid, X, y, W, sweep)
+    # the depth-6 heaps fit in the chain budget: 64 sweep slots, 256 refit
+    assert got["feat_lv"].shape[-1] == (64 if sweep else 256)
+    _assert_gbt_match(got, want, X)
 
 
 # ---------------------------------------------------------------------------
@@ -542,9 +638,17 @@ def test_unported_inputs_raise():
         port.transmogrify([vec])
     with pytest.raises(NotImplementedError, match="default model list"):
         port.BinaryClassificationModelSelector.with_cross_validation()
+    class NoGrid(ModelFamily):
+        name = "NoGrid"
+
+        def params_from_numpy(self, params, device):
+            return params
+
+        def predict_parts(self, fitted, X):
+            return {}
+
     with pytest.raises(NotImplementedError, match="default grid"):
-        port.BinaryClassificationModelSelector.with_cross_validation(
-            models=[("OpGBTClassifier", None)])
+        NoGrid().default_grid("binary")
     wf = port.OpWorkflow(device="cpu")
     with pytest.raises(ValueError, match="set_result_features"):
         wf.train()

@@ -26,9 +26,16 @@ in the fixed pairwise order of ``_tree_combine``, as the JAX package's
 ``_hist_xla_pinned`` does; the CUDA kernel cuts and combines its rows the
 same way.
 
-Node histograms (``node_hist_matmul``) stay the pinned matmul contraction
-over a masked-stat operand on every device, as in the JAX package, whose
-Pallas node-histogram kernel was retired.
+Node histograms (``node_hist_matmul``, the per-level split statistics of
+every tree grower): on a CUDA tensor the hand-written kernel of
+``csrc/node_hist.cu`` sorts each tree's rows by slot and sums every
+(slot, feature, bin) cell over its rows in row order, by chunks of
+``NODE_HIST_CHUNK`` rows; no masked-stat operand is built and no tree lane
+is padded. On a CPU tensor the plain version ``node_hist_plain``
+materializes the masked-stat operand (with the JAX package's lane
+padding) and runs the pinned contraction, as the JAX package's
+``_node_hist_xla`` does; ``node_hist_direct`` is the definition summed
+cell by cell in the kernel's order, the oracle at odd shapes.
 """
 from __future__ import annotations
 
@@ -50,7 +57,22 @@ HIST_MATMUL = cuda_build.CudaKernel(
     "hist_matmul", "hist.cu", "transmogrifai_tpu/histeng/kernels.py:235",
     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P])
 
-KERNELS = (HIST_MATMUL,)
+NODE_HIST = cuda_build.CudaKernel(
+    "node_hist", "node_hist.cu", "docs/experiments/node_hist_pallas.py:62",
+    [_P] * 7 + [_I] * 12 + [_P])
+
+KERNELS = (HIST_MATMUL, NODE_HIST)
+
+#: rows per chunk of a node-histogram segment: a cell sums each chunk's
+#: rows in row order, then the chunk partials in chunk order. Part of the
+#: function (it sets the order of the sums), shared by the kernel and
+#: ``node_hist_direct``
+NODE_HIST_CHUNK = 512
+
+#: the node-histogram kernel's most threads per block (pass B) and warps
+#: (pass A); no bit of the result depends on either
+NODE_HIST_THREADS = 256
+NODE_SORT_WARPS = 32
 
 
 def _pad_to(x: int, m: int) -> int:
@@ -198,32 +220,128 @@ def _t_pad128(T: int) -> int:
     return _pad_to(T, 128)
 
 
-def _node_hist_plain(codes, node, sws, Wl_eff: int, n_bins: int,
-                     stride: int, k: int, exact: bool = False):
-    """Materialize the masked-stat operand and run the pinned contraction.
-    node: (S, T_pad) int (pad -1); sws: (k, S, T_pad). Returns
-    (k * Wl_eff * T_pad, d * nb)."""
-    S, T_pad = node.shape
-    j = stride * torch.arange(Wl_eff, dtype=node.dtype,
-                              device=node.device)[None, :, None]
-    n_oh = (node[:, None, :] == j).to(sws.dtype)         # (S, Wl_eff, T_pad)
-    A = torch.cat([n_oh * sws[ki][:, None, :] for ki in range(k)],
-                  dim=1).reshape(S, k * Wl_eff * T_pad)
-    return _hist_pinned(codes, A, n_bins, exact)
+def node_hist_direct(codes: torch.Tensor, node: torch.Tensor,
+                     sw_list: Sequence[torch.Tensor], Wl: int, n_bins: int,
+                     stride: int = 1) -> torch.Tensor:
+    """The node histogram by its definition, cell by cell, in the kernel's
+    order: each (tree, slot) segment's rows, ascending, are cut into chunks
+    of ``NODE_HIST_CHUNK``; within a chunk the rows one after the other add
+    their bf16-rounded stats into the (slot, feature, bin) cells they
+    belong to, in f32, and a cell is then the sum of its chunks' partials
+    in chunk order. So the kernel matches it to the bit; the oracle at odd
+    shapes. Same contract as ``node_hist_matmul``; for small inputs (one
+    step per row)."""
+    S, d = codes.shape
+    T = node.shape[1]
+    k = len(sw_list)
+    dev = codes.device
+    sws = torch.stack([sw.to(torch.float32) for sw in sw_list]).to(
+        torch.bfloat16).to(torch.float32)                     # (k, S, T)
+    n_chunks = max(1, -(-S // NODE_HIST_CHUNK))
+    part = torch.zeros((n_chunks, k, Wl, T, d, n_bins), dtype=torch.float32,
+                       device=dev)
+    seen = torch.zeros((T, Wl), dtype=torch.long, device=dev)
+    node, codes = node.long(), codes.long()
+    ks = torch.arange(k, device=dev)[:, None, None]
+    for s in range(S):
+        nd, c = node[s], codes[s]
+        ts = torch.nonzero((nd >= 0) & (nd % stride == 0)
+                           & (nd < stride * Wl))[:, 0]
+        j = nd[ts] // stride
+        q = seen[ts, j] // NODE_HIST_CHUNK         # the row's chunk
+        seen[ts, j] += 1
+        fs = torch.nonzero((c >= 0) & (c < n_bins))[:, 0]
+        if len(ts) and len(fs):
+            # distinct cells within one row: a plain indexed add
+            part[q[None, :, None], ks, j[None, :, None], ts[None, :, None],
+                 fs[None, None, :], c[fs][None, None, :]] += \
+                sws[:, s, ts][:, :, None]
+    out = part[0]
+    for qc in range(1, n_chunks):     # a segment's missing chunks add +0
+        out = out + part[qc]
+    return out.reshape(k * Wl * T, d * n_bins)
+
+
+def node_hist_cuda(codes: torch.Tensor, node: torch.Tensor,
+                   sws: torch.Tensor, Wl: int, n_bins: int, stride: int = 1,
+                   threads: int = NODE_HIST_THREADS,
+                   sort_warps: int = NODE_SORT_WARPS) -> torch.Tensor:
+    """Launch ``node_hist`` (csrc/node_hist.cu) on the current stream:
+    codes (S, d) int32, node (S, T) int32, sws (k, S, T) f32 -> (k, Wl, T,
+    d, n_bins) f32."""
+    if not codes.is_cuda:
+        raise ValueError(f"node_hist needs CUDA tensors, codes are on "
+                         f"{codes.device}")
+    dev = codes.device
+    S, d = codes.shape
+    T = node.shape[1]
+    k = sws.shape[0]
+    expect(codes, "codes", torch.int32, (S, d), dev)
+    expect(node, "node", torch.int32, (S, T), dev)
+    expect(sws, "sws", torch.float32, (k, S, T), dev)
+    if stride not in (1, 2) or Wl < 1 or n_bins < 1:
+        raise ValueError(f"bad node histogram: Wl {Wl}, n_bins {n_bins}, "
+                         f"stride {stride}")
+    if T > 65535:
+        raise ValueError(f"{T} trees exceed the kernel's grid")
+    # workspace slots for the chunks of segments longer than one chunk:
+    # fewer than 2 * S / chunk of them
+    part_slots = 2 * -(-S // NODE_HIST_CHUNK)
+    check_int32(S * d, k * S * T, 3 * T * (Wl + 1), Wl + part_slots)
+    out = torch.empty((k, Wl, T, d, n_bins), dtype=torch.float32,
+                      device=dev)
+    if S == 0 or T == 0 or d == 0 or k == 0:
+        return out.zero_()
+    meta = torch.empty((T, 3, Wl + 1), dtype=torch.int32, device=dev)
+    rows = torch.empty((T, S), dtype=torch.int32, device=dev)
+    part = torch.empty((T, part_slots, k * d * n_bins), dtype=torch.float32,
+                       device=dev)
+    NODE_HIST.launch(ptr(codes), ptr(node), ptr(sws), ptr(meta), ptr(rows),
+                     ptr(part), ptr(out), S, d, T, k, Wl, n_bins, stride,
+                     NODE_HIST_CHUNK, part_slots, threads, sort_warps,
+                     dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    return out
 
 
 def node_hist_matmul(codes: torch.Tensor, node: torch.Tensor,
                      sw_list: Sequence[torch.Tensor], Wl: int, n_bins: int,
                      stride: int = 1) -> torch.Tensor:
-    """hist[(k, j, t), f * nb + b] = sum_s sw_k[s, t] * 1[node[s, t] ==
-    stride * j] * 1[codes[s, f] == b], as one contraction over the
-    masked-stat operand.
+    """hist[(k, j, t), f * nb + b] = sum_s bf16(sw_k[s, t]) * 1[node[s, t]
+    == stride * j] * 1[codes[s, f] == b], f32.
 
     codes: (S, d) int bin codes; node: (S, T) int current slot per tree
     (values < 0 never match); sw_list: k (S, T) per-tree stats; ``stride``:
     slot-id multiplier (2 = heap left children). Returns (k * Wl * T,
-    d * n_bins) f32, lane (k * Wl + j) * T + t. The tree lanes are padded as
-    the JAX package pads them; padded lanes are zero and are cut off."""
+    d * n_bins) f32, lane (k * Wl + j) * T + t.
+
+    A CUDA tensor goes to the ``node_hist`` kernel. Its inputs are copied
+    once per call: ``node`` from the growers' int64 to int32 (4 * S * T
+    bytes, 3.9 MB at the RF refit's 19,712 rows x 50 trees) and the k
+    stats stacked into one (k, S, T) tensor (4 * k * S * T bytes). A CPU
+    tensor takes the plain version, which pads the tree lanes as the JAX
+    package pads them; padded lanes are zero and are cut off."""
+    if codes.is_cuda:
+        sws = torch.stack([sw.to(torch.float32) for sw in sw_list])
+        out = node_hist_cuda(codes.to(torch.int32).contiguous(),
+                             node.to(torch.int32).contiguous(), sws, Wl,
+                             n_bins, stride)
+        return out.reshape(len(sw_list) * Wl * node.shape[1],
+                           codes.shape[1] * n_bins)
+    if codes.device.type != "cpu":
+        raise ValueError(f"no node histogram kernel for device "
+                         f"{codes.device}")
+    return node_hist_plain(codes, node, sw_list, Wl, n_bins, stride)
+
+
+def node_hist_plain(codes: torch.Tensor, node: torch.Tensor,
+                    sw_list: Sequence[torch.Tensor], Wl: int, n_bins: int,
+                    stride: int = 1) -> torch.Tensor:
+    """The plain PyTorch version of the ``node_hist`` kernel, for CPU
+    tensors and for holding the kernel to: the masked-stat operand over
+    tree lanes padded as the JAX package pads them (padded lanes are zero
+    and are cut off) and the pinned contraction, as the JAX package's
+    ``_node_hist_xla`` computes it. Same contract as
+    ``node_hist_matmul``."""
     S, d = codes.shape
     T = node.shape[1]
     k = len(sw_list)
@@ -238,7 +356,14 @@ def node_hist_matmul(codes: torch.Tensor, node: torch.Tensor,
     sws = torch.stack([torch.nn.functional.pad(sw.to(torch.float32),
                                                (0, pad))
                        for sw in sw_list])
-    out = _node_hist_plain(codes, node_p, sws, Wl_eff, n_bins, stride, k)
+    # the masked-stat operand (S, k * Wl_eff * T_pad), lane (ki * Wl_eff +
+    # j) * T_pad + t, and the pinned contraction over it
+    j = stride * torch.arange(Wl_eff, dtype=node_p.dtype,
+                              device=node_p.device)[None, :, None]
+    n_oh = (node_p[:, None, :] == j).to(sws.dtype)     # (S, Wl_eff, T_pad)
+    A = torch.cat([n_oh * sws[ki][:, None, :] for ki in range(k)],
+                  dim=1).reshape(S, k * Wl_eff * T_pad)
+    out = _hist_pinned(codes, A, n_bins)
     if Wl_eff != Wl or pad:
         out = (out.reshape(k, Wl_eff, T_pad, d * n_bins)[:, :Wl, :T]
                .reshape(k * Wl * T, d * n_bins))

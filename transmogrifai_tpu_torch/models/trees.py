@@ -1,6 +1,7 @@
 """Tree model families (counterpart of ``transmogrifai_tpu.models.trees``):
 the decision-tree, random-forest and gradient-boosted tree classifiers fit
-and score on a device (GBT on complete heaps, maxDepth <= 8).
+and score on a device, at any maxDepth (complete heaps up to depth 8, slot
+chains beyond; GBT fits binary classification).
 
 Features are binned as the JAX package bins them, ``bin(x) = #{edges < x}``
 with ``n_bins = edges.shape[-1] + 1``, and routed by bin code. A fitted
@@ -97,12 +98,17 @@ _INF = float("inf")
 # Binning
 # ---------------------------------------------------------------------------
 
-def _quantile_edges(X: torch.Tensor, n_bins: int) -> torch.Tensor:
+def _quantile_edges(X: torch.Tensor, n_bins: int,
+                    fused_gather: bool = False) -> torch.Tensor:
     """Per-feature quantile bin edges (d, n_bins - 1), as
     ``jnp.quantile(X, linspace(0, 1, n_bins + 1)[1:-1], axis=0)`` gives
     them: quantile i / n_bins in f32 at position q * (n - 1), linear
     interpolation low * (1 - w) + high * w with the low product fused into
-    the add (one rounding). A column holding a NaN gets NaN edges."""
+    the add (one rounding). A column holding a NaN gets NaN edges.
+
+    ``fused_gather``: the edges as XLA evaluates them where it fuses the
+    quantile into the growers' split-threshold gather: the high product is
+    the one fused into the add (see ``_thr_table``)."""
     n = X.shape[0]
     qs = torch.arange(1, n_bins, dtype=torch.float32,
                       device=X.device) / float(n_bins)
@@ -113,8 +119,12 @@ def _quantile_edges(X: torch.Tensor, n_bins: int) -> torch.Tensor:
     srt = torch.sort(X, dim=0).values
     lv = srt[low.clamp(0, n - 1).long()]
     hv = srt[high.clamp(0, n - 1).long()]
-    out = (lv.double() * lw.double()[:, None]
-           + (hv * hw[:, None]).double()).float()
+    if fused_gather:
+        out = ((lv * lw[:, None]).double()
+               + hv.double() * hw.double()[:, None]).float()
+    else:
+        out = (lv.double() * lw.double()[:, None]
+               + (hv * hw[:, None]).double()).float()
     out = torch.where(torch.isnan(X).any(0)[None, :],
                       torch.full_like(out, float("nan")), out)
     return out.T.contiguous()
@@ -553,14 +563,30 @@ def _prep_tree_inputs(X, y, n_bins: int, num_classes: int, task: str,
     return samp, edges, binned, binned_s, stats, mode, w_scale
 
 
+def _thr_table(X, samp, edges, n_bins: int, fused: bool) -> torch.Tensor:
+    """The table the growers read split thresholds from. The JAX package's
+    threshold is ``edges[f, b]``, but where XLA fuses the quantile into
+    that gather it evaluates the interpolation with the high product fused
+    into the add, not the low one, and the threshold can differ from the
+    returned edge by an ulp. Which of the two a program does is XLA's
+    fusion choice for that program; the RF and DT fits pass ``fused`` as
+    the JAX package's programs on the CPU choose it (its boosting programs
+    read the table)."""
+    return _quantile_edges(X[samp], n_bins, fused_gather=True) if fused \
+        else edges
+
+
 def _fit_gbt_batch(X, y, weights, max_depth, min_inst, min_gain, max_iter,
                    step_size, lam, min_child_weight, *, depth: int,
                    n_bins: int, num_classes: int, task: str, n_rounds: int,
-                   sweep: bool = False) -> Dict[str, torch.Tensor]:
+                   sweep: bool = False,
+                   n_slots: int = 0) -> Dict[str, torch.Tensor]:
     """Binary logistic gradient boosting of B configurations: each round
     grows one tree per configuration, all B in one tree-batched
-    ``_grow_forest``. Boosting state (F, gradients, leaves) lives on the
-    split-search sample. Hyperparameters are (B,) host arrays."""
+    ``_grow_forest`` (complete heaps), or with ``n_slots`` > 0 in one
+    ``_grow_forest_capped`` (slot chains of that leaf budget, any depth).
+    Boosting state (F, gradients, leaves) lives on the split-search
+    sample. Hyperparameters are (B,) host arrays."""
     if task != "binary":
         raise NotImplementedError(
             f"GBT task {task!r} is not ported yet; this slice fits binary "
@@ -575,7 +601,8 @@ def _fit_gbt_batch(X, y, weights, max_depth, min_inst, min_gain, max_iter,
         X, y, n_bins, num_classes, "regression", full_bin=False, sweep=sweep)
     B = weights.shape[0]
     S = binned_s.shape[0]
-    L = 2 ** depth
+    deep = n_slots > 0
+    L = min(2 ** depth, n_slots) if deep else 2 ** depth
     y_s = y[samp]
     w_tb = (weights[:, samp] * w_scale).T                   # (S, Tb = B)
     cfg = {"max_depth": max_depth, "min_instances": min_inst,
@@ -590,7 +617,18 @@ def _fit_gbt_batch(X, y, weights, max_depth, min_inst, min_gain, max_iter,
         g_tb = (p - y_s[None, :]).T                          # (S, B)
         h_tb = torch.clamp(p * (1 - p), min=1e-6).T
         sw_list = [g_tb * w_tb, h_tb * w_tb, w_tb]
-        if sweep:
+        abs_ = None                                          # heap trees
+        if deep:
+            # slot chains take exact f32 Newton leaves in sweep and refit
+            # alike: leaves settle at many levels, so the last level's
+            # histogram does not hold them
+            fs, ths, bhs, abs_, node_s = _grow_forest_capped(
+                binned_s, edges, sw_list, fmasks, cfg, depth=depth,
+                n_bins=n_bins, mode="gh", n_slots=n_slots)
+            gh = _diag_leaf_hist(
+                node_s, torch.stack([sw_list[0], sw_list[1]], dim=1), L)
+            leaf = -gh[0] / (gh[1] + lam[:, None] + 1e-12)   # (B, L)
+        elif sweep:
             # CV candidates take Newton leaves off the last level's
             # histogram; a near-empty leaf whose H is within bf16
             # cancellation noise of its parent's gets 0
@@ -621,7 +659,7 @@ def _fit_gbt_batch(X, y, weights, max_depth, min_inst, min_gain, max_iter,
         scale = (step_size * active)[:, None]
         # F + scale * pred with one rounding, as XLA fuses it
         F = (F.double() + scale.double() * pred.double()).float()
-        per_round.append((fs, ths, bhs, leaf))
+        per_round.append((fs, ths, bhs, leaf, abs_))
 
     def to_bc(i):
         # (rounds, B, ...) -> (B, rounds, C = 1, ...)
@@ -629,9 +667,14 @@ def _fit_gbt_batch(X, y, weights, max_depth, min_inst, min_gain, max_iter,
 
     tree_mask = (torch.arange(n_rounds, device=dev)[None, :]
                  < max_iter[:, None]).to(torch.float32)
-    return {"feat": to_bc(0), "thresh": to_bc(1), "bins": to_bc(2),
-            "leaf": to_bc(3), "f0": f0, "eta": step_size,
-            "tree_mask": tree_mask, "edges": edges}
+    out = {"leaf": to_bc(3), "f0": f0, "eta": step_size,
+           "tree_mask": tree_mask, "edges": edges}
+    if deep:
+        out.update(feat_lv=to_bc(0), thresh_lv=to_bc(1), bins_lv=to_bc(2),
+                   base_lv=to_bc(4))
+    else:
+        out.update(feat=to_bc(0), thresh=to_bc(1), bins=to_bc(2))
+    return out
 
 
 def _map_chunks(B: int, cb: int, one_chunk):
@@ -690,8 +733,17 @@ def _fit_rf_batch(X, y, weights, max_depth, min_inst, min_gain, num_trees,
     stats_s = stats[samp]
     deep = n_slots > 0
     L = min(2 ** depth, n_slots) if deep else 2 ** depth
+    # the JAX package's DT programs gather thresholds off the edge table
+    # for one configuration, its RF programs for several chains
+    thr_tab = _thr_table(X, samp, edges, n_bins,
+                         B > 1 if seeds is None else not deep or B == 1)
     # chunk budgets: the grower's (S, trees x level lanes) transients and
-    # the per-level (trees x nodes, d, n_bins, k) histogram pipeline
+    # the per-level (trees x nodes, d, n_bins, k) histogram pipeline, as
+    # the JAX package sets them. They stay because the chunking decides
+    # which numbers come out (it picks the bootstrap CDF table); on the
+    # card no (S, trees x level lanes) operand is materialized any more
+    # (the node-histogram kernel builds none), so they bound the
+    # histogram pipeline and the grower's own transients
     lane_w = (min(2 ** (depth - 1), n_slots) * k if deep
               else 2 ** (depth - 1))
     cb = int(max(1, min(B, _CFG_CHUNK_ELEMS
@@ -730,11 +782,11 @@ def _fit_rf_batch(X, y, weights, max_depth, min_inst, min_gain, num_trees,
                "min_child_weight": torch.zeros((Tb,), device=dev)}
         if deep:
             fs, ths, bhs, abs_, node_s = _grow_forest_capped(
-                binned_s, edges, sw_list, fmasks.reshape(Tb, d), cfg,
+                binned_s, thr_tab, sw_list, fmasks.reshape(Tb, d), cfg,
                 depth=depth, n_bins=n_bins, mode=mode, n_slots=n_slots)
         else:
             fs, ths, bhs, node_s = _grow_forest(
-                binned_s, edges, sw_list, fmasks.reshape(Tb, d), cfg,
+                binned_s, thr_tab, sw_list, fmasks.reshape(Tb, d), cfg,
                 depth=depth, n_bins=n_bins, mode=mode)
             abs_ = torch.zeros((Tb, 0), dtype=torch.int32, device=dev)
         if sweep:
@@ -1190,10 +1242,19 @@ class RandomForestFamilyBase(_TreeFamilyBase):
 class GBTFamilyBase(_TreeFamilyBase):
     """Gradient-boosted trees: ``f0 + eta * sum of leaf values`` per class,
     then a sigmoid (binary) or softmax (multiclass). Fitting ports the
-    binary classifier on complete heaps (maxDepth <= 8)."""
+    binary classifier: complete heaps up to maxDepth 8, slot chains
+    beyond (grids per the reference's DefaultSelectorParams: maxDepth x
+    minInstancesPerNode {10, 100} x minInfoGain {0.001, 0.01, 0.1},
+    maxIter 20, stepSize 0.1)."""
 
     lam_default = 0.0
     mcw_default = 0.0
+
+    def default_grid(self, problem):
+        return [{"maxDepth": d, "minInstancesPerNode": mi, "minInfoGain": mg,
+                 "maxIter": 20, "stepSize": 0.1}
+                for d in _DEPTHS for mi in (10, 100)
+                for mg in (0.001, 0.01, 0.1)]
 
     def _gbt_task(self, num_classes: int) -> str:
         if "regression" in self.supports and len(self.supports) == 1:
@@ -1202,7 +1263,9 @@ class GBTFamilyBase(_TreeFamilyBase):
 
     def fit_batch(self, X, y, weights, grid, num_classes, sweep=False):
         """GBT trains entirely on the split-search sample, so sweep and
-        refit are one program; the sweep caps the boosting rounds."""
+        refit are one program; the sweep caps the boosting rounds. A grid
+        deeper than ``_MAX_HEAP_DEPTH`` boosts slot chains for every
+        configuration in one scan at its deepest depth."""
         task = self._gbt_task(num_classes)
         iter_vals = _g(grid, "maxIter", 20.0)
         n_rounds = int(iter_vals.max())
@@ -1212,43 +1275,60 @@ class GBTFamilyBase(_TreeFamilyBase):
             if capped is not None:
                 n_rounds = int(capped.max())
                 grid = dict(grid, maxIter=capped.astype(np.float32))
-        md = np.asarray(grid["maxDepth"], dtype=np.float64).reshape(-1)
-        depth = int(md.max())
-        if depth > _MAX_HEAP_DEPTH:
-            raise NotImplementedError(
-                f"GBT with maxDepth {depth} > {_MAX_HEAP_DEPTH} boosts slot "
-                f"chains, which is not ported yet")
+        n_slots = _SWEEP_SLOTS if sweep else _REFIT_SLOTS
 
-        def one_raw(g, w):
+        def one_raw(g, w, depth, slots):
             return _fit_gbt_batch(
                 X, y, w, g["maxDepth"], _g(g, "minInstancesPerNode", 0.0),
                 _g(g, "minInfoGain", 0.0), _g(g, "maxIter", 20.0),
                 _g(g, "stepSize", 0.1), _g(g, "lambda", self.lam_default),
                 _g(g, "minChildWeight", self.mcw_default), depth=depth,
                 n_bins=N_BINS, num_classes=max(num_classes, 2), task=task,
-                n_rounds=n_rounds, sweep=sweep)
+                n_rounds=n_rounds, sweep=sweep, n_slots=slots)
 
-        # config chunks under the per-level histogram budget and the
-        # masked-stat operand budget of the JAX package
-        B = weights.shape[0]
-        nodes_w = 2 ** max(depth - 1, 0)
-        cb = max(1, min(B, _LEVEL_HIST_ELEMS
-                        // max(nodes_w * X.shape[1] * N_BINS * 3, 1)))
-        S_est = min(X.shape[0], _SWEEP_HIST_SAMPLE if sweep else _HIST_SAMPLE)
-        lanes_max = max((1 << 29) // max(S_est, 1), 192)
-        cb = max(1, min(cb, lanes_max // (3 * nodes_w)))
-        if cb >= B:
-            return one_raw(grid, weights)
-        parts = []
-        for c in range(-(-B // cb)):
-            # the tail chunk wraps around so every chunk has cb configs
-            idx = np.arange(c * cb, (c + 1) * cb) % B
-            p = one_raw({k: np.asarray(v)[idx] for k, v in grid.items()},
-                        weights[torch.as_tensor(idx, device=X.device)])
-            count = min((c + 1) * cb, B) - c * cb
-            parts.append((idx[:count], {k: (v if k == "edges" else v[:count])
-                                        for k, v in p.items()}))
-        return _stitch_parts(B, parts)
+        def one_call(g, w, depth, slots=0):
+            # config chunks under the JAX package's budgets: the per-level
+            # (configs x nodes, d, n_bins, k) split pipeline, and its bound
+            # on the (S, k x nodes x configs) masked-stat operand. On the
+            # card the node-histogram kernel builds no such operand; the
+            # budgets stay because the chunking decides which numbers come
+            # out, and they now bound the histogram pipeline alone
+            B = w.shape[0]
+            nodes_w = (min(2 ** depth, slots) if slots
+                       else 2 ** max(depth - 1, 0))
+            cb = max(1, min(B, _LEVEL_HIST_ELEMS
+                            // max(nodes_w * X.shape[1] * N_BINS * 3, 1)))
+            S_est = min(X.shape[0],
+                        _SWEEP_HIST_SAMPLE if sweep else _HIST_SAMPLE)
+            lanes_max = max((1 << 29) // max(S_est, 1), 192)
+            cb = max(1, min(cb, lanes_max // (3 * nodes_w)))
+            if cb >= B:
+                return one_raw(g, w, depth, slots)
+            parts = []
+            for c in range(-(-B // cb)):
+                # the tail chunk wraps around so every chunk has cb configs
+                idx = np.arange(c * cb, (c + 1) * cb) % B
+                p = one_raw({k: np.asarray(v)[idx] for k, v in g.items()},
+                            w[torch.as_tensor(idx, device=X.device)], depth,
+                            slots)
+                count = min((c + 1) * cb, B) - c * cb
+                parts.append((idx[:count],
+                               {k: (v if k == "edges" else v[:count])
+                                for k, v in p.items()}))
+            return _stitch_parts(B, parts)
+
+        md = np.asarray(grid["maxDepth"], dtype=np.float64).reshape(-1)
+        d_max = int(md.max())
+        if d_max <= _MAX_HEAP_DEPTH:
+            # one heap scan: shallower configurations stop splitting by
+            # their own max_depth
+            return one_call(grid, weights, d_max)
+        # one slot-chain scan for every configuration at the deepest
+        # depth; the budget must hold a shallow configuration's whole tree
+        shallow = md[md <= _MAX_HEAP_DEPTH]
+        if shallow.size:
+            n_slots = max(n_slots, 2 ** int(shallow.max()))
+        return one_call(grid, weights, d_max, n_slots)
 
     def predict_config(self, params, X: torch.Tensor, num_classes: int):
         edges = _edges_of(params)

@@ -1,19 +1,21 @@
 """Where the training path's time goes, on one NVIDIA GPU.
 
-    python3 -m transmogrifai_tpu_torch.profile_train [--family gbt|rf|dt]
-        [--rows 20000] [--reps 3]
+    python3 -m transmogrifai_tpu_torch.profile_train
+        [--family gbt|gbt12|rf|dt] [--rows 20000] [--reps 3]
 
 Trains one of the serve bench's pinned workflows (64 ``Real`` predictors,
 ``transmogrify -> sanity_check -> BinaryClassificationModelSelector``;
-``testing.serve_bench_workflow``): ``gbt`` maxDepth 6, 20 rounds; ``rf``
-maxDepth 12, 50 trees; ``dt`` maxDepth 6. It trains on ``--rows`` seeded
-rows, once to warm up and then ``--reps`` times, and prints one
-JSON line: the median seconds of the whole ``train()``, of each stage's
-fit, and inside the selector of the CV sweep, the winner's refit and the
-train/holdout evaluations (host clock, each ending in
-``torch.cuda.synchronize()``); then, from ``torch.profiler`` over one
-more train, the device time per kernel name and the device's busy share
-of the train.
+``testing.serve_bench_workflow``): ``gbt`` maxDepth 6, 20 rounds;
+``gbt12`` maxDepth 12, 20 rounds (slot chains); ``rf`` maxDepth 12, 50
+trees; ``dt`` maxDepth 6. It trains on ``--rows`` seeded rows, once to
+warm up and then ``--reps`` times, and prints one JSON line: the median
+seconds of the whole ``train()``, of each stage's fit, and inside the
+selector of the CV sweep, the winner's refit and the train/holdout
+evaluations (host clock, each ending in ``torch.cuda.synchronize()``);
+the peak device memory allocated over those trains
+(``torch.cuda.max_memory_allocated``); then, from ``torch.profiler`` over
+one more train, the device time per kernel name and the device's busy
+share of the train.
 """
 from __future__ import annotations
 
@@ -99,7 +101,9 @@ def profile(family: str, rows: int, reps: int) -> dict:
     with _timing(phases):
         for _ in range(reps):
             train()
+    torch.cuda.reset_peak_memory_stats()
     whole = [train() for _ in range(reps)]
+    peak = torch.cuda.max_memory_allocated()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -116,6 +120,7 @@ def profile(family: str, rows: int, reps: int) -> dict:
         "family": family, "rows": rows, "reps": reps,
         "train_s": statistics.median(whole),
         "phases_s": {k: statistics.median(v) for k, v in phases.items()},
+        "peak_mem_bytes": peak,
         "profiled_train_s": wall,
         "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / 1e3 / wall,

@@ -21,6 +21,9 @@ SERVE_MODELS = {
              "minInstancesPerNode": 10, "minInfoGain": 0.001}),
     "dt": ("OpDecisionTreeClassifier",
            {"maxDepth": 6, "minInstancesPerNode": 10, "minInfoGain": 0.001}),
+    "gbt12": ("OpGBTClassifier",
+              {"maxDepth": 12, "maxIter": 20, "stepSize": 0.1,
+               "minInstancesPerNode": 10, "minInfoGain": 0.001}),
 }
 
 
