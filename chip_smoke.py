@@ -13,9 +13,9 @@ Phases, in order; any failure exits nonzero:
       16 left children, stride 2, k=3) and the ``gbt12`` refit's deepest
       level (T=1, 256 slots, k=3): within rtol 1e-5 / atol 1e-6 of the
       plain version on [0, 1) stats, bit-equal on integer-valued stats and
-      across reruns, and at an odd shape bit-equal to the direct formula
-      (rows added in order); the library route is one f32 matmul over the
-      materialized masked-stat operand;
+      across reruns, and bit-equal to the direct formula (rows added in
+      the kernel's order) there and at an odd shape; the library route is
+      one f32 matmul over the materialized masked-stat operand;
     - the forest descents at the serve shapes (65,536 rows, 32 bins; RF
       slot chain T=50 depth 12 W=256, GBT heap T=20 depth 6, k=1): leaf
       ids exactly, sums within rtol 1e-5 / atol 1e-6;
@@ -25,14 +25,19 @@ Phases, in order; any failure exits nonzero:
       plain version on [0, 1) stats, bit-equal on integer-valued stats and
       across reruns, and at an odd shape within the same tolerance of the
       direct float64 formula;
-    - ``hist_matmul`` at the GBT refit's leaf-sum shape (19,712 rows, 64
-      trees as features, 64 leaves as bins, 128 stat columns, exact), in
-      that call's layout (one real tree, 63 sentinel columns; the timed
-      case of the ``kernels`` line) and with every code valid, and at a
-      bf16 growth shape (64 features, 32 bins, 384 columns): within rtol
-      1e-5 / atol 1e-6 of the plain version on [0, 1) stats, bit-equal on
-      integer-valued stats and across reruns, and at an odd shape within
-      the same tolerance of the direct float64 formula;
+    - ``hist_matmul`` at its three main-path shapes, in the layout of
+      ``_diag_leaf_hist`` (19,712 rows, 64 trees as features, padded trees
+      all sentinel, exact): the GBT refit's leaf sums (one real tree, 64
+      leaves, 128 stat columns; the timed case of the ``kernels`` line),
+      the ``gbt12`` refit's (one real tree, 256 leaves) and the RF sweep's
+      (48 real trees, 64 leaves, 192 stat columns); then at the GBT shape
+      with every code valid and at a bf16 growth shape (64 features, 32
+      bins, 384 columns): within rtol 1e-5 / atol 1e-6 of the plain
+      version on [0, 1) stats, bit-equal on integer-valued stats and
+      across reruns, and at an odd shape within the same tolerance of the
+      direct float64 formula. Both histogram kernels print their time
+      split by pass (``torch.profiler``) beside the library call's time
+      and the bound;
 (t) train: rebuild the serve bench's 20,000 x 64 frame and train four
     pinned workflows on the card (``OpWorkflow().train()``): GBT (depth 6,
     20 rounds, heaps), ``gbt12`` (GBT depth 12, 20 rounds, slot chains),
@@ -162,16 +167,19 @@ def _hist_case(dev, rng, S, d, B, nb, sentinel=0.05):
                 np.float32)).to(dev))
 
 
-def _refit_leaf_case(dev, rng):
-    """The layout of the GBT refit's leaf-sum call: one tree padded to a
-    block of 64 tree columns, so column 0 holds leaf ids and the other 63
-    the sentinel; stat columns 0 (G) and 64 (H) carry values, the padded
-    trees' columns are zero."""
-    codes = np.full((REFIT_ROWS, REFIT_TREES), REFIT_LEAVES, np.int32)
-    codes[:, 0] = rng.randint(0, REFIT_LEAVES, REFIT_ROWS)
-    A = np.zeros((REFIT_ROWS, 2 * REFIT_TREES), np.float32)
-    A[:, 0] = rng.rand(REFIT_ROWS)
-    A[:, REFIT_TREES] = rng.rand(REFIT_ROWS) * 0.25
+def _leaf_layout_case(dev, rng, real=1, J=2, L=REFIT_LEAVES):
+    """The layout of ``_diag_leaf_hist``'s calls: trees padded to a block
+    of 64 tree columns, so the first ``real`` columns hold leaf ids and
+    the rest the sentinel L; J stats per tree (stat column j * 64 + t), the
+    padded trees' columns zero. The GBT refits: 1 real tree, J 2 (G, H),
+    L 64 at depth 6, 256 at depth 12; the RF sweep: 48 trees (3 folds x
+    16), J 3 (two class counts and the weight), L 64."""
+    codes = np.full((REFIT_ROWS, REFIT_TREES), L, np.int32)
+    codes[:, :real] = rng.randint(0, L, (REFIT_ROWS, real))
+    A = np.zeros((REFIT_ROWS, J * REFIT_TREES), np.float32)
+    for j in range(J):
+        A[:, j * REFIT_TREES:j * REFIT_TREES + real] = rng.rand(REFIT_ROWS,
+                                                                real)
     return torch.from_numpy(codes).to(dev), torch.from_numpy(A).to(dev)
 
 
@@ -193,15 +201,29 @@ def _check_hist(tag, codes, A, A_int, nb, exact):
     return float((got - want).abs().max())
 
 
+def passes(fn) -> str:
+    """Device ms per call of each kernel ``fn`` launches, by name
+    (``torch.profiler`` over 10 calls)."""
+    from transmogrifai_tpu_torch.profile_hist import pass_ms
+
+    return ", ".join(f"{k} {v:.4f}" for k, v in pass_ms(fn, 10).items())
+
+
 def _time_hist(codes, A, nb, exact):
     from transmogrifai_tpu_torch.histeng import kernels as HK
     S, d = codes.shape
     B = A.shape[1]
     oh = HK._one_hot(codes, nb)
-    return dict(ms=time_ms(lambda: HK.hist_matmul_cuda(codes, A, nb, exact)),
+    with HK._tf32_off():
+        lib = time_ms(lambda: A.T @ oh)
+    del oh
+
+    def kernel():
+        return HK.hist_matmul_cuda(codes, A, nb, exact)
+    return dict(ms=time_ms(kernel), passes=passes(kernel),
                 plain_ms=time_ms(lambda: HK.hist_matmul_plain(
                     codes, A, nb, exact)),
-                library_ms=time_ms(lambda: A.T @ oh),
+                library_ms=lib,
                 # each input read once, the output written once; one add
                 # per stat column for every valid code of this data
                 bound=bound_ms(4 * (S * d + S * B + B * d * nb),
@@ -214,11 +236,15 @@ def phase_hist(dev, rng):
     from transmogrifai_tpu_torch.histeng import kernels as HK
     from transmogrifai_tpu_torch.testing import hist_direct
 
-    codes, A = _refit_leaf_case(dev, rng)
-    r = dict(max_abs_err=_check_hist("refit", codes, A, A.round(),
-                                     REFIT_LEAVES, True),
-             **_time_hist(codes, A, REFIT_LEAVES, True))
-    cases = [("refit layout", r)]
+    cases = []
+    for tag, real, J, L in (("GBT refit leaves", 1, 2, REFIT_LEAVES),
+                            ("gbt12 refit leaves", 1, 2, 256),
+                            ("RF sweep leaves", 48, 3, REFIT_LEAVES)):
+        codes, A = _leaf_layout_case(dev, rng, real, J, L)
+        cases.append((tag, dict(
+            max_abs_err=_check_hist(tag, codes, A, (A * 8).round(), L, True),
+            **_time_hist(codes, A, L, True))))
+    r = cases[0][1]
     for tag, B, d, nb, exact in (("refit shape, every code valid",
                                   2 * REFIT_TREES, REFIT_TREES, REFIT_LEAVES,
                                   True),
@@ -232,7 +258,7 @@ def phase_hist(dev, rng):
         print(f"(b) hist_matmul {tag}: max_abs_err {c['max_abs_err']:.3g}, "
               f"{c['ms']:.4f} ms (plain {c['plain_ms']:.4f} ms, library "
               f"{c['library_ms']:.4f} ms, bound {c['bound'][0]:.5f} ms by "
-              f"{c['bound'][1]})")
+              f"{c['bound'][1]}); passes: {c['passes']}")
     # an odd shape against the definition, both modes
     S, d, B, nb = 1001, 7, 13, 37
     codes, A, _ = _hist_case(dev, rng, S, d, B, nb, sentinel=0.2)
@@ -422,11 +448,9 @@ def phase_node_hist(dev, rng):
     for tag, T, Wl, stride, k, live in cases:
         codes, node, sw, sw_i = _node_case(dev, rng, S, T, Wl, stride, k,
                                            live)
-        node32 = node.int()
-        sws = torch.stack(sw)
 
         def kernel():
-            return HK.node_hist_cuda(codes, node32, sws, Wl, N_BINS, stride)
+            return HK.node_hist_cuda(codes, node, sw, Wl, N_BINS, stride)
 
         def plain(stats=sw):
             return HK.node_hist_plain(codes, node, stats, Wl, N_BINS,
@@ -435,8 +459,7 @@ def phase_node_hist(dev, rng):
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, rtol=SUM_RTOL, atol=SUM_ATOL)
-        if not torch.equal(HK.node_hist_cuda(codes, node32,
-                                             torch.stack(sw_i), Wl, N_BINS,
+        if not torch.equal(HK.node_hist_cuda(codes, node, sw_i, Wl, N_BINS,
                                              stride), plain(sw_i)):
             raise AssertionError(f"node_hist ({tag}): integer-valued stats "
                                  f"are not bit-equal to plain")
@@ -454,19 +477,27 @@ def phase_node_hist(dev, rng):
         adds = k * int(((node >= 0) & (node % stride == 0)
                         & (node < stride * Wl)).sum(1).double()
                        @ (codes < N_BINS).sum(1).double())
+        # the direct formula adds in the kernel's order: the same bits
+        if not torch.equal(got.reshape(k * Wl * T, -1),
+                           HK.node_hist_direct(codes, node, sw, Wl, N_BINS,
+                                               stride)):
+            raise AssertionError(f"node_hist ({tag}): differs from the "
+                                 f"direct formula")
         out[tag] = dict(
             max_abs_err=float((got - want).abs().max()),
-            ms=time_ms(kernel), plain_ms=time_ms(plain, runs=5, warmup=1),
-            library_ms=lib_ms,
-            # the codes, slots and stats read once, the cells written once;
-            # one add per stat for every valid (row, tree, code)
-            bound=bound_ms(4 * (S * N_FEATURES + S * T + k * S * T
-                                + k * Wl * T * N_FEATURES * N_BINS), adds))
+            ms=time_ms(kernel), passes=passes(kernel),
+            plain_ms=time_ms(plain, runs=5, warmup=1), library_ms=lib_ms,
+            # the codes, the int64 slots and the stats read once, the cells
+            # written once; one add per stat for every valid (row, tree,
+            # code)
+            bound=bound_ms(4 * S * N_FEATURES + 8 * S * T + 4 * k * S * T
+                           + 4 * k * Wl * T * N_FEATURES * N_BINS, adds))
         r = out[tag]
         print(f"(b) node_hist {tag} (S {S}, T {T}, Wl {Wl}, stride {stride}, "
               f"k {k}): max_abs_err {r['max_abs_err']:.3g}, {r['ms']:.4f} ms "
               f"(plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} "
-              f"ms, bound {r['bound'][0]:.5f} ms by {r['bound'][1]})")
+              f"ms, bound {r['bound'][0]:.5f} ms by {r['bound'][1]}); "
+              f"passes: {r['passes']}")
     # an odd shape against the definition: same bits (the rows in order)
     orng = np.random.RandomState(3)
     S, d, T, Wl, nb = 509, 9, 3, 17, 11

@@ -159,7 +159,7 @@ def _hist_inputs(dev, seed, S, d, B, nb, sentinel=0.1):
 @pytest.mark.parametrize("S,d,B,nb", [(1, 1, 1, 1), (7, 3, 5, 2),
                                       (1001, 7, 13, 37), (4099, 64, 130, 32),
                                       (333, 2, 1024, 64), (250, 3, 9, 300),
-                                      (120, 2, 3, 500)])
+                                      (120, 2, 3, 500), (1500, 3, 40, 256)])
 def test_hist_kernel_matches_plain(cuda, exact, S, d, B, nb):
     codes, A, A_int = _hist_inputs(cuda, S * 7 + B, S, d, B, nb)
     before = HK.HIST_MATMUL.launches
@@ -176,6 +176,44 @@ def test_hist_kernel_matches_plain(cuda, exact, S, d, B, nb):
     np.testing.assert_array_equal(got_i.cpu().numpy(), hist_direct(
         codes.cpu().numpy(), A_int.cpu().numpy(), nb))
     assert torch.equal(got, HK.hist_matmul_cuda(codes, A, nb, exact))
+
+
+@pytest.mark.parametrize("nb", [64, 256])
+def test_hist_kernel_on_the_leaf_layout_with_sentinel_columns(cuda, nb):
+    """``_diag_leaf_hist``'s layout: one real tree column of 64, the
+    padded ones all sentinel and their stat columns zero; the sentinel
+    columns come out +0 everywhere."""
+    rng = np.random.RandomState(nb)
+    S, d, B = 5003, 64, 128
+    codes = np.full((S, d), nb, np.int32)
+    codes[:, 0] = rng.randint(0, nb, S)
+    A = np.zeros((S, B), np.float32)
+    A[:, 0], A[:, 64] = rng.rand(S), rng.rand(S)
+    A_int = np.zeros((S, B), np.float32)
+    A_int[:, 0], A_int[:, 64] = rng.randint(-5, 6, S), rng.randint(0, 6, S)
+    codes, A, A_int = (torch.from_numpy(x).to(cuda) for x in (codes, A,
+                                                              A_int))
+    got = HK.hist_matmul_cuda(codes, A, nb, True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, HK.hist_matmul_plain(codes, A, nb, True),
+                               rtol=RTOL, atol=ATOL)
+    rest = got[:, nb:]
+    assert torch.equal(rest, torch.zeros_like(rest))
+    assert not torch.signbit(rest).any()
+    assert torch.equal(HK.hist_matmul_cuda(codes, A_int, nb, True),
+                       HK.hist_matmul_plain(codes, A_int, nb, True))
+
+
+@pytest.mark.parametrize("nb", [37, 256])
+@pytest.mark.parametrize("max_cols", [4, 8, 16])
+def test_hist_bits_do_not_depend_on_the_launch(cuda, nb, max_cols):
+    """The stat tile (the block's width) changes no bit: every sum adds
+    its split's rows, the splits and the chunks in one order."""
+    codes, A, _ = _hist_inputs(cuda, 31, 9001, 5, 70, nb)
+    for exact in (True, False):
+        assert torch.equal(
+            HK.hist_matmul_cuda(codes, A, nb, exact, max_cols=max_cols),
+            HK.hist_matmul_cuda(codes, A, nb, exact))
 
 
 @pytest.mark.parametrize("B", [1024, 1025])
@@ -407,24 +445,27 @@ def _node_case(dev, seed, S, d, T, Wl, stride, nb=32, k=3):
 
 
 def _node_hist_kernel(codes, node, sw, Wl, nb, stride, **kw):
-    out = HK.node_hist_cuda(codes, node.int().contiguous(), torch.stack(sw),
-                            Wl, nb, stride, **kw)
+    out = HK.node_hist_cuda(codes, node, sw, Wl, nb, stride, **kw)
     return out.reshape(len(sw) * Wl * node.shape[1], codes.shape[1] * nb)
 
 
 #: odd shapes: S prime, d 9, T 1 and 130, stride 1 and 2, the refit
-#: shape of a deep GBT level (T 1, Wl 256), and slots of many chunks
+#: shape of a deep GBT level (T 1, Wl 256), slots of many chunks, d not a
+#: multiple of 4 (codes staged 4 bytes a thread), five stats (two launch
+#: groups over one sort); d 64 and 16 stage the codes as bytes, and 300
+#: bins keep them int32
 NODE_CASES = [(509, 9, 1, 1, 1, 11), (509, 9, 1, 6, 2, 11),
               (509, 9, 130, 5, 1, 11), (509, 9, 130, 4, 2, 11),
               (1031, 7, 3, 17, 2, 37), (2003, 64, 1, 256, 1, 32),
-              (5003, 9, 2, 1, 1, 11), (4099, 16, 3, 3, 2, 32)]
+              (5003, 9, 2, 1, 1, 11), (4099, 16, 3, 3, 2, 32),
+              (1500, 13, 4, 9, 1, 32, 5), (700, 16, 2, 5, 2, 300)]
 
 
-@pytest.mark.parametrize("S,d,T,Wl,stride,nb", NODE_CASES)
-def test_node_hist_kernel_matches_plain_and_direct(cuda, S, d, T, Wl, stride,
-                                                   nb):
+@pytest.mark.parametrize("case", NODE_CASES)
+def test_node_hist_kernel_matches_plain_and_direct(cuda, case):
+    S, d, T, Wl, stride, nb, *k = case
     codes, node, sw, sw_i = _node_case(cuda, S + T + Wl, S, d, T, Wl,
-                                       stride, nb)
+                                       stride, nb, *k)
     before = HK.NODE_HIST.launches
     got = _node_hist_kernel(codes, node, sw, Wl, nb, stride)
     assert HK.NODE_HIST.launches == before + 1
@@ -444,16 +485,50 @@ def test_node_hist_kernel_matches_plain_and_direct(cuda, S, d, T, Wl, stride,
                                               stride))
 
 
-@pytest.mark.parametrize("threads,warps", [(32, 1), (64, 3), (96, 32),
-                                           (1024, 8)])
-def test_node_hist_bits_do_not_depend_on_the_launch(cuda, threads, warps):
+@pytest.mark.parametrize("threads,warps,tile,stage", [
+    (32, 1, 1, 1), (64, 3, 100, 7), (96, 32, 4096, 32), (1024, 8, 333, 2)])
+def test_node_hist_bits_do_not_depend_on_the_launch(cuda, threads, warps,
+                                                    tile, stage):
     """Pass B's block size (pairs beyond it run in further groups) and
-    pass A's warp count change no bit."""
+    staged sub-tile, and pass A's tile rows and warp count change no
+    bit."""
     codes, node, sw, _ = _node_case(cuda, 21, 3001, 40, 7, 64, 2)
     want = _node_hist_kernel(codes, node, sw, 64, 32, 2)
     got = _node_hist_kernel(codes, node, sw, 64, 32, 2, threads=threads,
-                            sort_warps=warps)
+                            sort_warps=warps, tile_rows=tile,
+                            stage_rows=stage)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("Wl", [1, 2])
+def test_node_hist_one_slot_holds_every_row(cuda, Wl):
+    """A single tree's first level: every row in slot 0, a segment of many
+    chunks, bit-equal to the direct formula."""
+    codes, _, sw, sw_i = _node_case(cuda, 24, 4000, 16, 1, Wl, 1)
+    node = torch.zeros((4000, 1), dtype=torch.int64, device=cuda)
+    got = _node_hist_kernel(codes, node, sw, Wl, 32, 1)
+    assert torch.equal(got.cpu(), HK.node_hist_direct(
+        codes.cpu(), node.cpu(), [s.cpu() for s in sw], Wl, 32))
+    assert torch.equal(_node_hist_kernel(codes, node, sw_i, Wl, 32, 1),
+                       HK.node_hist_plain(codes, node, sw_i, Wl, 32))
+
+
+def test_node_hist_reads_the_growers_tensors_in_place(cuda, monkeypatch):
+    """An int64 node and f32 stats reach the kernel as they are: the
+    wrapper copies none of them."""
+    codes, node, sw, _ = _node_case(cuda, 25, 900, 8, 3, 16, 2)
+    seen = []
+    launch = HK.NODE_HIST.launch
+
+    def spy(*args):
+        seen.append(args[1])
+        launch(*args)
+
+    monkeypatch.setattr(HK.NODE_HIST, "launch", spy)
+    got = HK.node_hist_matmul(codes, node, sw, 16, 32, stride=2)
+    assert seen == [node.data_ptr()]
+    assert torch.equal(got.cpu(), HK.node_hist_direct(
+        codes.cpu(), node.cpu(), [s.cpu() for s in sw], 16, 32, 2))
 
 
 def test_node_hist_on_cuda_never_takes_the_plain_version(cuda, monkeypatch):
@@ -471,17 +546,17 @@ def test_node_hist_on_cuda_never_takes_the_plain_version(cuda, monkeypatch):
 
 def test_node_hist_empty_and_bad_inputs(cuda):
     codes, node, sw, _ = _node_case(cuda, 23, 0, 3, 2, 4, 1)
-    assert torch.equal(HK.node_hist_cuda(codes, node.int(), torch.stack(sw),
-                                         4, 32),
+    assert torch.equal(HK.node_hist_cuda(codes, node, sw, 4, 32),
                        torch.zeros((3, 4, 2, 3, 32), device=cuda))
     codes, node, sw, _ = _node_case(cuda, 23, 50, 3, 2, 4, 1)
     with pytest.raises(TypeError):
-        HK.node_hist_cuda(codes, node, torch.stack(sw), 4, 32)   # int64 node
+        HK.node_hist_cuda(codes, node.int(), sw, 4, 32)   # int32 node
     with pytest.raises(ValueError):
-        HK.node_hist_cuda(codes, node.int(), torch.stack(sw), 4, 32,
-                          stride=3)
+        HK.node_hist_cuda(codes, node, [s.T for s in sw], 4, 32)
     with pytest.raises(ValueError):
-        HK.node_hist_cuda(codes, node.int().cpu(), torch.stack(sw), 4, 32)
+        HK.node_hist_cuda(codes, node, sw, 4, 32, stride=3)
+    with pytest.raises(ValueError):
+        HK.node_hist_cuda(codes, node.cpu(), sw, 4, 32)
     with pytest.raises(RuntimeError, match="CUDA error"):
-        HK.node_hist_cuda(codes, node.int(), torch.stack(sw), 4, 32,
+        HK.node_hist_cuda(codes, node, sw, 4, 32,
                           threads=48)                # not a warp multiple

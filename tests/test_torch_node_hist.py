@@ -210,6 +210,45 @@ def test_direct_formula_matches_plain_over_many_chunks(integer):
         _close(got, want, ORDER_RTOL)
 
 
+def _row_walk(codes, node, sw, Wl, nb, stride):
+    """The definition one row at a time in numpy f32: each (tree, slot)
+    segment's rows ascending, chunks of ``NODE_HIST_CHUNK`` rows, the
+    chunk partials added in chunk order."""
+    S, d = codes.shape
+    T, k, ch = node.shape[1], len(sw), phk.NODE_HIST_CHUNK
+    sws = [torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+           for x in sw]
+    out = np.zeros((k, Wl, T, d, nb), np.float32)
+    for t in range(T):
+        for j in range(Wl):
+            rows = [s for s in range(S) if node[s, t] == stride * j]
+            for q in range(0, max(len(rows), 1), ch):
+                part = np.zeros((k, d, nb), np.float32)
+                for s in rows[q:q + ch]:
+                    for f in range(d):
+                        if 0 <= codes[s, f] < nb:
+                            for ki in range(k):
+                                part[ki, f, codes[s, f]] += sws[ki][s, t]
+                out[:, j, t] = out[:, j, t] + part
+    return out.reshape(k * Wl * T, d * nb)
+
+
+@pytest.mark.parametrize("S,T,Wl,stride", [(300, 2, 3, 1), (700, 1, 1, 1),
+                                           (431, 3, 4, 2)])
+def test_direct_formula_is_the_row_by_row_walk(S, T, Wl, stride):
+    """The vectorized direct formula (one step per place within a chunk)
+    against a plain walk over the rows: the same bits."""
+    rng = np.random.RandomState(S)
+    d, nb = 4, 5
+    codes = rng.randint(0, nb + 1, (S, d)).astype(np.int32)
+    node = rng.randint(-1, stride * Wl + 1, (S, T)).astype(np.int64)
+    sw = [(rng.randn(S, T) * 3).astype(np.float32) for _ in range(2)]
+    _bits_equal(phk.node_hist_direct(_t(codes), _t(node),
+                                     [_t(x) for x in sw], Wl, nb,
+                                     stride).numpy(),
+                _row_walk(codes, node, sw, Wl, nb, stride))
+
+
 def test_wrapper_routes_by_device():
     codes = torch.zeros((4, 2), dtype=torch.int32)
     node = torch.zeros((4, 3), dtype=torch.int64)
@@ -217,7 +256,7 @@ def test_wrapper_routes_by_device():
     out = phist.node_hist_matmul(codes, node, sw, 2, 3)
     assert out.device.type == "cpu" and out.shape == (1 * 2 * 3, 2 * 3)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
-        phk.node_hist_cuda(codes, node.int(), torch.stack(sw), 2, 3)
+        phk.node_hist_cuda(codes, node, sw, 2, 3)
     with pytest.raises(ValueError, match="no node histogram kernel"):
         phist.node_hist_matmul(codes.to("meta"), node.to("meta"),
                                [s.to("meta") for s in sw], 2, 3)

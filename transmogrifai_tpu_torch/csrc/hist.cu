@@ -9,104 +9,165 @@
 // modes: exact (f32 operands, f32 sums) and not exact (operands rounded to
 // bf16 to nearest even, f32 sums), as in the Pallas kernel.
 //
-// What bounds it: the bytes. Each (stat column, feature) pair reads its
-// rows' codes and stats once and adds into its own bins; at the GBT refit
-// shape (S 19,712, d 64, B 128, nb 64) that is ~17 MB moved for 1.6e8
-// adds, ~5 us of HBM time and ~2.4 us of f32 issue at the card's peaks.
-// The dense product the TPU runs would be ~4,000 times the arithmetic.
+// What bounds it on this card: the bytes, each input read once and the
+// output written once (GBT refit leaves: S 19,712, d 64, B 128, nb 64,
+// ~17 MB, ~5 us at 3.35 TB/s). The first design missed that by ~80x:
+// one thread per (stat column, feature) walked a pinned chunk's ~2,464
+// rows in series, a load latency per batch of rows, even for the columns
+// whose codes are all the sentinel (63 of 64 at a GBT leaf call, where
+// the trees are padded to a block of 64), and at nb = 256 the 48 KB
+// shared-memory default cut its blocks to 32 threads.
 //
-// Design (simple and right first; speed is later work):
+// Design:
 // * The rows are cut into K chunks exactly as the JAX package's pinned
-//   contraction cuts them (chunk k holds rows [k * rows, (k + 1) * rows)).
-// * Pass 1: one thread per (stat column a, feature f) and chunk walks the
-//   chunk's rows in order and adds A[s, a] into its own nb bins in shared
-//   memory (bin b of thread t at b * threads + t, so a warp's bins sit in
-//   distinct banks). Threads with neighbouring a sit in one warp, so the
-//   stat loads coalesce and the code load is a broadcast; a thread loads
-//   the rows in batches of 8 and reads a stat only for a valid code.
-//   Partials go to a (K, d * nb, B) workspace, coalesced along a.
-// * Pass 2: one thread per output element combines its K partials in the
-//   fixed pairwise order of the JAX package's _tree_combine,
-//   ((p0 + p1) + (p2 + p3)) + ..., an odd leftover carried to the next
-//   round.
-// * No float atomics: every sum has one fixed order, so reruns give the
-//   same bits, and integer-valued stats come out exact (while the sums
-//   stay below 2^24).
+//   contraction cuts them (chunk k holds rows [k * rows, (k + 1) * rows)),
+//   and each chunk into kSplits splits of ceil(rows / kSplits) rows.
+// * Pass 0 (hist_flag_kernel) marks, in one bit mask a feature, each chunk
+//   that holds a valid code, reading the codes once, coalesced; integer
+//   atomics only.
+// * Pass 1 (hist_partial_kernel): block (stat tile, feature, chunk) of a
+//   marked pair, kSplits x `at` threads: thread (split, column) walks its
+//   split's rows in order, 16 rows a batch (their codes and stats loaded
+//   together, one wait a batch, then the adds), and adds A[s, a] into its
+//   own nb bins in shared memory ([split][bin][column]: a warp's adds fall
+//   in distinct banks); a zero stat is skipped, which changes no bit. The
+//   splits cut each column's serial walk over a chunk 16-fold, which is
+//   what a single-tree GBT leaf call waits for. Blocks are sized by shared
+//   memory (the stat tile `at` shrinks, never the split count): nb 64 runs
+//   16 columns, nb 256 runs 4, each in 64 KB. The block then adds its
+//   kSplits partials in split order and writes
+//   the chunk partial, coalesced along the stat columns, to a (K, d * nb,
+//   B) workspace. Pairs without a valid code launch nothing but an exit
+//   and write nothing.
+// * Pass 2 (hist_combine_kernel): 32 x 32 tiles of the output; each
+//   element combines its K chunk partials (an unmarked one is +0 and is
+//   not read) in the fixed pairwise order of the JAX package's
+//   _tree_combine, ((p0 + p1) + (p2 + p3)) + ..., an odd leftover carried
+//   to the next round, and the tile is written transposed through shared
+//   memory, coalesced along the output's rows.
+// * No float atomics: every sum has one fixed order (rows in order within
+//   a split, splits in order, chunks in the pinned order), whatever the
+//   stat tile or block size, so reruns give the same bits, and
+//   integer-valued stats come out exact (while the sums stay below 2^24).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (see ops/cuda_build.py). Plain C entry points for
 // ctypes: pointers and the stream come in as void*, each entry returns
 // cudaGetLastError() after its launches.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <cuda_bf16.h>
 
 namespace {
 
-constexpr int kMaxThreads = 128;
-constexpr int kMinThreads = 32;
-constexpr int kSmemDefault = 48 * 1024;  // opt-in beyond this
-constexpr int kSmemMax = 227 * 1024;
+constexpr int kSplits = 16;                // splits per pinned chunk
 constexpr int kMaxChunks = 8;              // histeng/kernels.py HIST_SHARDS
-constexpr int kCombineThreads = 256;
-constexpr int kUnroll = 8;                 // rows per load batch
+constexpr int kMinCols = 1;                // narrowest stat tile
+constexpr int kSmemDefault = 48 * 1024;    // opt-in beyond this
+constexpr int kSmemTarget = 64 * 1024;     // three blocks an SM
+constexpr int kSmemMax = 227 * 1024;
+constexpr int kUnroll = 16;                // rows per load batch
+constexpr int kFlagGroups = 32;            // row groups of pass 0
 
 // A stat as the sums take it: as is (exact) or rounded to bf16.
 __device__ __forceinline__ float stat(float v, int exact) {
   return exact ? v : __bfloat162float(__float2bfloat16_rn(v));
 }
 
-__global__ void hist_partial_kernel(const int* __restrict__ codes,
-                                    const float* __restrict__ A,
-                                    float* __restrict__ part, int S, int d,
-                                    int B, int nb, int rows, int exact) {
-  extern __shared__ float bins[];
-  const int t = threadIdx.x;
-  const int nt = blockDim.x;
-  const long long p = (long long)blockIdx.x * nt + t;
+// Pass 0: bit k of flags[f] is set when chunk k of feature f holds a valid
+// code. Block (feature tile of 32, chunk, row group), 8 warps of rows.
+__global__ void hist_flag_kernel(const int* __restrict__ codes,
+                                 int* __restrict__ flags, int S, int d,
+                                 int nb, int rows) {
+  __shared__ int found[32];                  // the block's features
+  const int fl = threadIdx.x & 31;
+  const int f = blockIdx.x * 32 + fl;
   const int k = blockIdx.y;
-  if (p >= (long long)B * d) return;
-  const int a = (int)(p % B);
-  const int f = (int)(p / B);
-  for (int b = 0; b < nb; ++b) bins[b * nt + t] = 0.f;
-  const long long s0 = (long long)k * rows;
-  const long long s1 = min(s0 + rows, (long long)S);
-  long long s = s0;
-  // rows in batches of kUnroll: the batch's codes load together, then the
-  // stats of its valid codes, then the adds in row order; a thread waits
-  // two load latencies per batch instead of one per row
-  for (; s + kUnroll <= s1; s += kUnroll) {
-    int c[kUnroll];
-    float v[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) c[u] = __ldg(codes + (s + u) * d + f);
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u)
-      v[u] = (unsigned)c[u] < (unsigned)nb ? __ldg(A + (s + u) * B + a) : 0.f;
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u)
-      if ((unsigned)c[u] < (unsigned)nb)
-        bins[c[u] * nt + t] += stat(v[u], exact);
+  const int G = gridDim.z * (blockDim.x >> 5);
+  const int g = blockIdx.z * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (threadIdx.x < 32) found[threadIdx.x] = 0;
+  __syncthreads();
+  if (f < d) {
+    const long long c0 = (long long)k * rows;
+    const long long c1 = min(c0 + rows, (long long)S);
+    int any = 0;
+#pragma unroll 8
+    for (long long s = c0 + g; s < c1; s += G)
+      any |= (unsigned)__ldg(codes + s * d + f) < (unsigned)nb;
+    if (any) found[fl] = 1;                  // the same value: no race
   }
-  for (; s < s1; ++s) {
-    const int c = __ldg(codes + s * d + f);
-    if ((unsigned)c < (unsigned)nb)
-      bins[c * nt + t] += stat(__ldg(A + s * B + a), exact);
-  }
-  const long long width = (long long)d * nb;
-  float* out = part + (long long)k * width * B + (long long)f * nb * B + a;
-  for (int b = 0; b < nb; ++b) out[(long long)b * B] = bins[b * nt + t];
+  __syncthreads();
+  if (threadIdx.x < 32 && f < d && found[fl]) atomicOr(flags + f, 1 << k);
 }
 
-__global__ void hist_combine_kernel(const float* __restrict__ part,
-                                    float* __restrict__ out, int B,
-                                    long long width, int K) {
-  const long long i = (long long)blockIdx.x * kCombineThreads + threadIdx.x;
-  if (i >= width * B) return;
-  const int a = (int)(i % B);
-  const long long j = i / B;
-  float v[kMaxChunks];
-  for (int k = 0; k < K; ++k) v[k] = part[((long long)k * width + j) * B + a];
+// Pass 1: block (stat tile, f, k). smem: bins[kSplits][nb][at].
+__global__ void hist_partial_kernel(const int* __restrict__ codes,
+                                    const float* __restrict__ A,
+                                    const int* __restrict__ flags,
+                                    float* __restrict__ part, int S, int d,
+                                    int B, int nb, int rows, int at,
+                                    int exact) {
+  extern __shared__ float bins[];
+  const int f = blockIdx.y;
+  const int k = blockIdx.z;
+  if (!(flags[f] >> k & 1)) return;
+  const int nt = blockDim.x;
+  const int sp = threadIdx.x / at;
+  const int al = threadIdx.x - sp * at;
+  const int a0 = blockIdx.x * at;
+  const int a = a0 + al;
+  for (int i = threadIdx.x; i < kSplits * nb * at; i += nt) bins[i] = 0.f;
+  __syncthreads();
+  const long long c0 = (long long)k * rows;
+  const long long c1 = min(c0 + rows, (long long)S);
+  const int sub = (rows + kSplits - 1) / kSplits;
+  const long long s0 = min(c0 + (long long)sp * sub, c1);
+  const long long s1 = min(s0 + sub, c1);
+  float* mb = bins + sp * nb * at + al;
+  if (a < B) {
+    long long s = s0;
+    // a batch's codes and stats load together (one wait a batch), then
+    // the adds in row order. A zero stat adds nothing: a bin starts at +0
+    // and never holds -0, so x + (+-0) == x and the add is skipped
+    for (; s + kUnroll <= s1; s += kUnroll) {
+      int c[kUnroll];
+      float v[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        c[u] = __ldg(codes + (s + u) * d + f);
+        v[u] = __ldg(A + (s + u) * B + a);
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        if ((unsigned)c[u] < (unsigned)nb && v[u] != 0.f)
+          mb[c[u] * at] += stat(v[u], exact);
+    }
+    for (; s < s1; ++s) {
+      const int c = __ldg(codes + s * d + f);
+      const float v = __ldg(A + s * B + a);
+      if ((unsigned)c < (unsigned)nb && v != 0.f) mb[c * at] += stat(v, exact);
+    }
+  }
+  __syncthreads();
+  // the splits in order, then the chunk partial, coalesced along a
+  const long long width = (long long)d * nb;
+  float* out = part + ((long long)k * width + (long long)f * nb) * B + a0;
+  for (int i = threadIdx.x; i < nb * at; i += nt) {
+    const int c = i / at;
+    const int aj = i - c * at;
+    float v = bins[i];
+#pragma unroll
+    for (int q = 1; q < kSplits; ++q) v += bins[q * nb * at + i];
+    if (a0 + aj < B) out[(long long)c * B + aj] = v;
+  }
+}
+
+// The pinned pairwise order of K partials: ((p0 + p1) + (p2 + p3)) + ...,
+// an odd leftover carried to the next round (K = 8, every S >= 8, written
+// out so that the partials stay in registers).
+__device__ __forceinline__ float tree_combine(float* v, int K) {
+  if (K == kMaxChunks)
+    return ((v[0] + v[1]) + (v[2] + v[3])) + ((v[4] + v[5]) + (v[6] + v[7]));
   int m = K;
   while (m > 1) {
     const int h = m / 2;
@@ -118,7 +179,38 @@ __global__ void hist_combine_kernel(const float* __restrict__ part,
       m = h;
     }
   }
-  out[(long long)a * width + j] = v[0];
+  return v[0];
+}
+
+// Pass 2: block (32 output columns j, 32 stat columns a), 32 x 8 threads.
+__global__ void hist_combine_kernel(const float* __restrict__ part,
+                                    const int* __restrict__ flags,
+                                    float* __restrict__ out, int d, int B,
+                                    int nb, int K) {
+  __shared__ float tile[32][33];
+  const int width = d * nb;                  // the wrapper keeps it < 2^31
+  const int j0 = blockIdx.x * 32;
+  const int a0 = blockIdx.y * 32;
+  const int tx = threadIdx.x & 31;
+  const int ty = threadIdx.x >> 5;
+  for (int jj = ty; jj < 32; jj += 8) {
+    const int j = j0 + jj;
+    const int a = a0 + tx;
+    float v[kMaxChunks];
+    if (j < width && a < B) {
+      const int m = flags[j / nb];           // the feature's marked chunks
+#pragma unroll
+      for (int k = 0; k < kMaxChunks; ++k)
+        v[k] = m >> k & 1 ? part[((long long)k * width + j) * B + a] : 0.f;
+      tile[jj][tx] = m ? tree_combine(v, K) : 0.f;
+    }
+  }
+  __syncthreads();
+  for (int aa = ty; aa < 32; aa += 8) {
+    const int a = a0 + aa;
+    const int j = j0 + tx;
+    if (a < B && j < width) out[(long long)a * width + j] = tile[tx][aa];
+  }
 }
 
 }  // namespace
@@ -129,19 +221,27 @@ const char* tg_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// codes (S, d) int32; A (S, B) f32; part (K, d * nb, B) f32 workspace ->
-// out (B, d * nb) f32. rows = ceil(S / K) rows per chunk, K <= 8.
-int hist_matmul(const void* codes, const void* A, void* part, void* out,
-                int S, int d, int B, int nb, int K, int rows, int exact,
-                int device, void* stream) {
+// codes (S, d) int32; A (S, B) f32; flags (d) int32 and part (K, d * nb,
+// B) f32 workspaces -> out (B, d * nb) f32. rows = ceil(S / K) rows per
+// chunk, K <= 8. max_cols bounds the stat tile of pass 1 (a power of two,
+// 1..32); it changes no bit of the result.
+int hist_matmul(const void* codes, const void* A, void* flags, void* part,
+                void* out, int S, int d, int B, int nb, int K, int rows,
+                int exact, int max_cols, int device, void* stream_) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (K < 1 || K > kMaxChunks || nb < 1) return (int)cudaErrorInvalidValue;
-  int threads = kMaxThreads;
-  while (threads > kMinThreads &&
-         (size_t)nb * threads * sizeof(float) > (size_t)kSmemDefault)
-    threads /= 2;
-  const size_t smem = (size_t)nb * threads * sizeof(float);
+  if (K < 1 || K > kMaxChunks || nb < 1 || S < 1 || d < 1 || B < 1 ||
+      rows < 1 || max_cols < kMinCols || max_cols > 32 ||
+      (max_cols & (max_cols - 1)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = (cudaStream_t)stream_;
+  // the stat tile: the widest whose bins leave room for three blocks an SM
+  int at = max_cols;
+  auto smem_of = [&](int c) {
+    return (size_t)kSplits * nb * c * sizeof(float);
+  };
+  while (at > kMinCols && smem_of(at) > (size_t)kSmemTarget) at /= 2;
+  const size_t smem = smem_of(at);
   if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
   if (smem > (size_t)kSmemDefault) {
     err = cudaFuncSetAttribute(hist_partial_kernel,
@@ -149,19 +249,21 @@ int hist_matmul(const void* codes, const void* A, void* part, void* out,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const long long pairs = (long long)B * d;
-  dim3 grid((unsigned)((pairs + threads - 1) / threads), (unsigned)K);
-  hist_partial_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      (const int*)codes, (const float*)A, (float*)part, S, d, B, nb, rows,
-      exact);
-  err = cudaGetLastError();
+  err = cudaMemsetAsync(flags, 0, (size_t)d * sizeof(int), stream);
   if (err != cudaSuccess) return (int)err;
+  dim3 grid0((unsigned)((d + 31) / 32), (unsigned)K, kFlagGroups);
+  hist_flag_kernel<<<grid0, 256, 0, stream>>>((const int*)codes, (int*)flags,
+                                              S, d, nb, rows);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  dim3 grid1((unsigned)((B + at - 1) / at), (unsigned)d, (unsigned)K);
+  hist_partial_kernel<<<grid1, kSplits * at, smem, stream>>>(
+      (const int*)codes, (const float*)A, (const int*)flags, (float*)part, S,
+      d, B, nb, rows, at, exact);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const long long width = (long long)d * nb;
-  const long long total = width * B;
-  hist_combine_kernel<<<(unsigned)((total + kCombineThreads - 1) /
-                                   kCombineThreads),
-                        kCombineThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)part, (float*)out, B, width, K);
+  dim3 grid2((unsigned)((width + 31) / 32), (unsigned)((B + 31) / 32));
+  hist_combine_kernel<<<grid2, 256, 0, stream>>>(
+      (const float*)part, (const int*)flags, (float*)out, d, B, nb, K);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,7 @@
 // Node histogram of tree growth on Hopper: each tree's rows, grouped by
 // their current slot, add their stats into (slot, feature, bin) cells.
 //
-//   hist[ki, j, t, f, b] = sum_s bf16(sw[ki, s, t]) * 1[node[s, t] == stride * j]
+//   hist[ki, j, t, f, b] = sum_s bf16(sw[ki][s, t]) * 1[node[s, t] == stride * j]
 //                                                  * 1[codes[s, f] == b]
 //
 // node_hist replaces docs/experiments/node_hist_pallas.py _node_hist_pallas
@@ -16,256 +16,539 @@
 // are rounded to bf16 (round to nearest even) as the growth operand is;
 // sums are f32.
 //
-// What bounds it: the bytes of the output. At an RF refit level (k 2, Wl
-// 256, T 50, d 64, nb 32) it writes 210 MB, ~63 us at 3.35 TB/s, for ~2.5e6
-// row-tree visits; the codes (5 MB at the refit shapes) stay in L2.
+// What bounds it on this card: the bytes of the output at the RF refit's
+// deep levels (k 2, Wl 256, T 50, d 64, nb 32: 210 MB written, ~63 us at
+// 3.35 TB/s); at one tree (GBT, T 1) the work is small (~2 us of bytes)
+// and what bounds the call is latency: how many SMs get work and how many
+// dependent loads each thread waits for.
 //
-// Design (simple and right first):
-// * Pass A (node_sort_kernel): one block per tree makes a stable counting
-//   sort of the row ids by slot: offsets (T, Wl + 1) and rows (T, S), rows
-//   ascending within a slot. Each warp owns a contiguous range of rows and
-//   counts its rows per slot (integer shared-memory atomics); per-(warp,
-//   slot) prefix sums give every warp its cursor per slot; then each warp
-//   walks its range again 32 rows at a time, and a row's place is its
-//   warp's cursor plus the number of lanes before it with the same slot
-//   (__match_any_sync). The order does not depend on the warp count. It
-//   also cuts every segment into chunks of `chunk` rows (a segment of n
-//   rows has max(1, ceil(n / chunk)) chunks) and numbers them per tree.
-// * Pass B (node_hist_kernel): one block per (chunk, tree), one thread per
-//   (stat, feature) pair (pairs beyond the block's threads run in further
-//   groups over the same rows). Each thread owns nb f32 bins in shared
-//   memory (bin b of thread q at b * (threads + 1) + q) and walks its
-//   chunk's rows in order, 8 rows a batch: bins[codes[s, f]] +=
-//   bf16(sw[ki, s, t]). Then the block writes the bins, coalesced (the odd
-//   row stride keeps that read free of bank conflicts): a segment's only
-//   chunk straight into the output (an empty segment writes zeros), the
-//   chunks of a longer segment into a workspace.
-// * Pass C (node_combine_kernel): one block per (slot, tree) of more than
-//   one chunk adds its chunks' partials in chunk order into the output.
+// Design:
+// * Inputs are read in place: the growers' int64 node (S, T) and the k
+//   stat tensors through their own pointers; nothing is copied per call.
+// * Pass A, a stable counting sort of each tree's row ids by slot over
+//   many blocks (the first design gave a tree one block, so one SM sorted
+//   every row at T = 1): (A1) block (tile, tree) counts its tile's rows per
+//   slot (warp-aggregated shared-memory integer atomics) and keeps each
+//   row's slot tree-major, so the strided int64 node is read once; (A2)
+//   one block per tree turns the counts into an exclusive scan over (slot,
+//   tile), so a tile's rows of slot j start where the earlier slots and
+//   the earlier tiles' rows of j end, and scans the slots into row, chunk
+//   and workspace offsets and each chunk's record; (A3) block (tile, tree)
+//   scatters its rows: each warp
+//   owns a contiguous range, a row's place is its warp's cursor for the
+//   slot plus the lanes before it with the same slot (__match_any_sync).
+//   The order (ascending rows within a slot) does not depend on the tile
+//   size or the warp count.
+// * Every segment (slot of a tree) is cut into chunks of `chunk` rows (a
+//   segment of n rows has max(1, ceil(n / chunk)) chunks); chunk = 128
+//   spreads a single tree's early levels (19,712 rows in one slot at level
+//   0) over 154 blocks.
+// * Pass B, block (chunk, tree): the chunk's rows are staged into shared
+//   memory in sub-tiles with cp.async (each row's d codes, 16 bytes a
+//   thread when the row allows it, and its k stats, rounded to bf16 once),
+//   double-buffered, so the adds wait on shared memory only. Where nb <=
+//   255 and d % 16 == 0 a pre-pass packs the codes into bytes once a call,
+//   so the blocks stage a quarter of the bytes: at an RF refit level they
+//   re-read each row's codes once per tree, 252 MB as int32. One thread
+//   per (stat, feature) pair (pairs beyond the block run in further
+//   groups) owns nb f32 bins in shared memory, bin b of thread q at
+//   b * threads + q: the lanes of a warp add into 32 distinct banks
+//   whatever their codes (the first design's row stride of threads + 1
+//   made lanes of different codes collide, ~3.5-way). The bins then go out
+//   through a small 32 x 8 tile a warp (row stride 9), each store writing
+//   whole 32-byte sectors: a segment's first chunk straight into the
+//   output (an empty segment writes zeros), its later chunks into a
+//   workspace. Shared memory stays near 21 KB a block at the RF refit
+//   shape, for ~10 blocks an SM.
+// * Pass C, block (cell tile, segment group, tree): for each segment of
+//   more than one chunk (A2 lists them) adds its later chunks' partials,
+//   in chunk order, to the first chunk's sums in the output.
 // * No float atomics: a cell is the sequential sum of each chunk's rows in
-//   ascending row order, and the chunk partials are added in order, so
-//   reruns give the same bits, nothing depends on the launch
-//   configuration, and integer-valued stats sum exactly (while the sums
-//   stay below 2^24). histeng/kernels.py node_hist_direct sums in the same
-//   order. The chunks spread the early levels, where one slot holds most
-//   rows, over many blocks.
+//   ascending row order, then of the chunk partials in chunk order, so
+//   reruns give the same bits, nothing depends on the launch configuration
+//   (block size, sort tile, sort warps, staging depth), and
+//   integer-valued stats sum exactly (while the sums stay below 2^24).
+//   histeng/kernels.py node_hist_direct sums in the same order.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (see ops/cuda_build.py). Plain C entry points for
 // ctypes: pointers and the stream come in as void*, each entry returns
 // cudaGetLastError() after its launches.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kMinThreads = 32;
-constexpr int kSmemDefault = 48 * 1024;  // opt-in beyond this
+constexpr int kMaxStats = 4;               // stats per pass-B launch
+constexpr int kSmemDefault = 48 * 1024;    // opt-in beyond this
 constexpr int kSmemMax = 227 * 1024;
-constexpr int kUnroll = 8;                 // rows per load batch
+constexpr int kCountThreads = 256;
+constexpr int kScanThreads = 1024;
 constexpr int kCombineThreads = 256;
+constexpr int kTileFloats = 32 * 9;        // a warp's write-out tile
+constexpr unsigned kFull = 0xffffffffu;
+
+struct Stats {
+  const float* p[kMaxStats];
+};
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 // The slot j of a node value, or -1 when the row adds nothing.
-__device__ __forceinline__ int slot_of(int v, int stride, int Wl) {
+__device__ __forceinline__ int slot_of(long long v, int stride, int Wl) {
   if (v < 0 || v % stride) return -1;
   v /= stride;
-  return v < Wl ? v : -1;
+  return v < Wl ? (int)v : -1;
 }
 
-// Pass A: block t sorts tree t's row ids by slot, stably, and numbers the
-// chunks. meta (T, 3, Wl + 1): row offsets, chunk offsets, and the
-// workspace offsets of the chunks of multi-chunk segments, per slot.
-// smem: cnt[warps][Wl] ints, then tot[Wl] ints.
-__global__ void node_sort_kernel(const int* __restrict__ node,
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// The "memory" clobber keeps the compiler from moving shared-memory reads
+// of the staged data above the wait.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Exclusive prefix of v over the block (blockDim.x a multiple of 32);
+// *total gets the block's sum. sh: 32 ints of shared memory.
+__device__ int block_excl_scan(int v, int* sh, int* total) {
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) sh[w] = x;
+  __syncthreads();
+  if (w == 0) {
+    int s = lane < nw ? sh[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kFull, s, o);
+      if (lane >= o) s += y;
+    }
+    if (lane < nw) sh[lane] = s;
+  }
+  __syncthreads();
+  const int pre = (w ? sh[w - 1] : 0) + x - v;
+  *total = sh[nw - 1];
+  __syncthreads();                           // sh may be reused
+  return pre;
+}
+
+// A1: block (tile, t) counts the tile's rows of tree t per slot into
+// counts[(t * Wl + j) * tiles + tile], and keeps each row's slot in
+// slots[t * S + s] (tree-major, so that A3 reads it coalesced). smem:
+// cnt[Wl] ints.
+__global__ void node_count_kernel(const long long* __restrict__ node,
+                                  int* __restrict__ counts,
+                                  int* __restrict__ slots, int S, int T,
+                                  int Wl, int stride, int tile_rows) {
+  extern __shared__ int cnt[];
+  const int tile = blockIdx.x;
+  const int t = blockIdx.y;
+  const int tiles = gridDim.x;
+  const int lane = threadIdx.x & 31;
+  for (int j = threadIdx.x; j < Wl; j += blockDim.x) cnt[j] = 0;
+  __syncthreads();
+  const int s0 = tile * tile_rows;
+  const int s1 = min(s0 + tile_rows, S);
+  // every lane runs every round, so the warp votes together
+  for (int base = s0; base < s1; base += blockDim.x) {
+    const int s = base + threadIdx.x;
+    const int j = s < s1 ? slot_of(node[(long long)s * T + t], stride, Wl)
+                         : -1;
+    if (s < s1) slots[(long long)t * S + s] = j;
+    const unsigned peers = __match_any_sync(kFull, j);
+    if (j >= 0 && lane == __ffs(peers) - 1) atomicAdd(&cnt[j], __popc(peers));
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < Wl; j += blockDim.x)
+    counts[((long long)t * Wl + j) * tiles + tile] = cnt[j];
+}
+
+// A2: block t turns its counts (Wl, tiles) into the exclusive scan over
+// (slot, tile) in place, and writes meta (T, 3, Wl + 1): row offsets,
+// chunk offsets and the workspace offsets of the chunks after the first
+// of multi-chunk segments, per slot; multi (T, Wl + 1): the number of
+// multi-chunk segments, then their slots in order; and recs (T,
+// max_chunks): each chunk's record (slot, first row, rows, place in its
+// segment), rows -1 past the tree's last chunk.
+__global__ void node_scan_kernel(int* __restrict__ counts,
                                  int* __restrict__ meta,
-                                 int* __restrict__ rows, int S, int T, int Wl,
-                                 int stride, int chunk) {
-  extern __shared__ int sm[];
+                                 int* __restrict__ multi,
+                                 int4* __restrict__ recs, int Wl, int tiles,
+                                 int chunk, int max_chunks) {
+  __shared__ int sh[32];
   const int t = blockIdx.x;
+  const int nt = blockDim.x;
+  int* c = counts + (long long)t * Wl * tiles;
+  // (slot, tile) counts: each thread a contiguous run of items
+  const int N = Wl * tiles;
+  const int per = (N + nt - 1) / nt;
+  const int i0 = min((int)threadIdx.x * per, N);
+  const int i1 = min(i0 + per, N);
+  int local = 0;
+  for (int i = i0; i < i1; ++i) local += c[i];
+  int total;
+  int acc = block_excl_scan(local, sh, &total);
+  for (int i = i0; i < i1; ++i) {
+    const int v = c[i];
+    c[i] = acc;
+    acc += v;
+  }
+  __syncthreads();
+  // slots: rows, chunks, workspace chunks, multi-chunk segments
+  int* off = meta + (long long)t * 3 * (Wl + 1);
+  int* coff = off + (Wl + 1);
+  int* loff = coff + (Wl + 1);
+  int* mlist = multi + (long long)t * (Wl + 1);
+  int4* rc = recs + (long long)t * max_chunks;
+  const int perj = (Wl + nt - 1) / nt;
+  const int j0 = min((int)threadIdx.x * perj, Wl);
+  const int j1 = min(j0 + perj, Wl);
+  int lch = 0, lws = 0, lmul = 0;
+  for (int j = j0; j < j1; ++j) {
+    const int n = (j + 1 < Wl ? c[(j + 1) * tiles] : total) - c[j * tiles];
+    const int nch = n > chunk ? (n + chunk - 1) / chunk : 1;
+    lch += nch;
+    if (nch > 1) {
+      lws += nch - 1;
+      lmul += 1;
+    }
+  }
+  int tch, tws, tmul;
+  int ach = block_excl_scan(lch, sh, &tch);
+  int aws = block_excl_scan(lws, sh, &tws);
+  int amul = block_excl_scan(lmul, sh, &tmul);
+  for (int j = j0; j < j1; ++j) {
+    const int start = c[j * tiles];
+    const int n = (j + 1 < Wl ? c[(j + 1) * tiles] : total) - start;
+    const int nch = n > chunk ? (n + chunk - 1) / chunk : 1;
+    off[j] = start;
+    coff[j] = ach;
+    loff[j] = aws;
+    for (int q = 0; q < nch; ++q)
+      rc[ach + q] = make_int4(j, start + q * chunk,
+                              min(chunk, max(0, n - q * chunk)), q);
+    ach += nch;
+    if (nch > 1) {
+      aws += nch - 1;
+      mlist[1 + amul] = j;
+      amul += 1;
+    }
+  }
+  for (int cc = tch + threadIdx.x; cc < max_chunks; cc += nt)
+    rc[cc] = make_int4(0, 0, -1, 0);
+  if (threadIdx.x == 0) {
+    off[Wl] = total;
+    coff[Wl] = tch;
+    loff[Wl] = tws;
+    mlist[0] = tmul;
+  }
+}
+
+// A3: block (tile, t) scatters the tile's row ids of tree t to their
+// sorted places. smem: wcnt[warps][Wl] ints.
+__global__ void node_scatter_kernel(const int* __restrict__ slots,
+                                    const int* __restrict__ counts,
+                                    int* __restrict__ rows, int S, int Wl,
+                                    int tile_rows) {
+  extern __shared__ int wcnt[];
+  const int tile = blockIdx.x;
+  const int t = blockIdx.y;
+  const int tiles = gridDim.x;
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
   const int warps = blockDim.x >> 5;
-  int* cnt = sm;                             // cnt[w * Wl + j]
-  int* tot = sm + warps * Wl;                // tot[j]
-  for (int i = threadIdx.x; i < warps * Wl; i += blockDim.x) cnt[i] = 0;
+  for (int i = threadIdx.x; i < warps * Wl; i += blockDim.x) wcnt[i] = 0;
   __syncthreads();
-  const int per = (S + warps - 1) / warps;
-  const int s0 = min(w * per, S);
-  const int s1 = min(s0 + per, S);
-  for (int s = s0 + lane; s < s1; s += 32) {
-    const int j = slot_of(__ldg(node + (long long)s * T + t), stride, Wl);
-    if (j >= 0) atomicAdd(&cnt[w * Wl + j], 1);
-  }
-  __syncthreads();
-  // per slot: exclusive prefix over the warps, and the slot's total
-  for (int j = threadIdx.x; j < Wl; j += blockDim.x) {
-    int acc = 0;
-    for (int v = 0; v < warps; ++v) {
-      const int c = cnt[v * Wl + j];
-      cnt[v * Wl + j] = acc;
-      acc += c;
-    }
-    tot[j] = acc;
-  }
-  __syncthreads();
-  // exclusive prefixes over the slots (Wl is at most a few hundred)
-  if (threadIdx.x == 0) {
-    int* off = meta + (long long)t * 3 * (Wl + 1);
-    int* coff = off + (Wl + 1);
-    int* loff = coff + (Wl + 1);
-    int acc = 0, cacc = 0, lacc = 0;
-    for (int j = 0; j < Wl; ++j) {
-      const int n = tot[j];
-      const int nch = n > chunk ? (n + chunk - 1) / chunk : 1;
-      tot[j] = acc;
-      off[j] = acc;
-      coff[j] = cacc;
-      loff[j] = lacc;
-      acc += n;
-      cacc += nch;
-      if (nch > 1) lacc += nch;
-    }
-    off[Wl] = acc;
-    coff[Wl] = cacc;
-    loff[Wl] = lacc;
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < warps * Wl; i += blockDim.x)
-    cnt[i] += tot[i % Wl];
-  __syncthreads();
-  // scatter: each warp walks its range in order, 32 rows at a time
-  int* out = rows + (long long)t * S;
-  for (int base = s0; base < s1; base += 32) {
+  const int s0 = tile * tile_rows;
+  const int s1 = min(s0 + tile_rows, S);
+  const int per = (((s1 - s0) + warps - 1) / warps + 31) & ~31;
+  const int w0 = min(s0 + w * per, s1);
+  const int w1 = min(w0 + per, s1);
+  const int* sl = slots + (long long)t * S;
+  for (int base = w0; base < w1; base += 32) {
     const int s = base + lane;
-    const int j = s < s1 ? slot_of(__ldg(node + (long long)s * T + t), stride,
-                                   Wl)
-                         : -1;
-    const unsigned peers = __match_any_sync(0xffffffffu, j);
+    const int j = s < w1 ? sl[s] : -1;
+    const unsigned peers = __match_any_sync(kFull, j);
+    if (j >= 0 && lane == __ffs(peers) - 1)
+      wcnt[w * Wl + j] += __popc(peers);
+  }
+  __syncthreads();
+  // per slot: the tile's start, then the warps in order
+  const int* c = counts + (long long)t * Wl * tiles;
+  for (int j = threadIdx.x; j < Wl; j += blockDim.x) {
+    int acc = c[(long long)j * tiles + tile];
+    for (int v = 0; v < warps; ++v) {
+      const int n = wcnt[v * Wl + j];
+      wcnt[v * Wl + j] = acc;
+      acc += n;
+    }
+  }
+  __syncthreads();
+  int* out = rows + (long long)t * S;
+  for (int base = w0; base < w1; base += 32) {
+    const int s = base + lane;
+    const int j = s < w1 ? sl[s] : -1;
+    const unsigned peers = __match_any_sync(kFull, j);
     const int rank = __popc(peers & ((1u << lane) - 1u));
-    if (j >= 0) out[cnt[w * Wl + j] + rank] = s;
+    if (j >= 0) out[wcnt[w * Wl + j] + rank] = s;
     __syncwarp();
-    if (j >= 0 && lane == __ffs(peers) - 1) cnt[w * Wl + j] += __popc(peers);
+    if (j >= 0 && lane == __ffs(peers) - 1) wcnt[w * Wl + j] += __popc(peers);
     __syncwarp();
   }
 }
 
-// Pass B: block (c, t) sums chunk c of tree t's chunks.
-__global__ void node_hist_kernel(const int* __restrict__ codes,
-                                 const float* __restrict__ sw,
+// Codes as bytes, for pass B to stage a quarter of the bytes: a valid
+// code (in [0, nb), nb <= 255) as is, any other as 255. Four a thread.
+__global__ void node_codes8_kernel(const int4* __restrict__ codes,
+                                   unsigned* __restrict__ out, long long n4,
+                                   int nb) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n4) return;
+  const int4 c = codes[i];
+  auto b = [nb](int v) { return (unsigned)v < (unsigned)nb ? (unsigned)v : 255u; };
+  out[i] = b(c.x) | b(c.y) << 8 | b(c.z) << 16 | b(c.w) << 24;
+}
+
+// Pass B: block (c, t) sums chunk c of tree t's chunks for kg stats, the
+// codes as CodeT (int, or bytes from node_codes8_kernel).
+// smem: a union of the staging buffers (codes[2][R * d] CodeT, stats[2][kg
+// * R] floats) and the write-out's transpose tiles (kTileFloats a warp),
+// then bins[nb][nt].
+template <typename CodeT>
+__global__ void node_hist_kernel(const CodeT* __restrict__ codes, Stats sw,
                                  const int* __restrict__ meta,
+                                 const int4* __restrict__ recs,
                                  const int* __restrict__ rows,
                                  float* __restrict__ out,
                                  float* __restrict__ part, int S, int d,
-                                 int T, int k, int Wl, int nb, int chunk,
-                                 int part_slots) {
-  extern __shared__ float bins[];
+                                 int T, int kg, int Wl, int nb, int chunk,
+                                 int part_slots, int R, int vec, int front) {
+  extern __shared__ __align__(16) int smem[];
+  const int max_chunks = gridDim.x;
   const int c = blockIdx.x;
   const int t = blockIdx.y;
   const int q = threadIdx.x;
   const int nt = blockDim.x;
-  const int st = nt + 1;                     // bins row stride
-  const int* off = meta + (long long)t * 3 * (Wl + 1);
-  const int* coff = off + (Wl + 1);
-  const int* loff = coff + (Wl + 1);
-  if (c >= coff[Wl]) return;
-  // the slot whose chunks hold c: the last j with coff[j] <= c
-  int lo = 0, hi = Wl - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (coff[mid] <= c) lo = mid; else hi = mid - 1;
-  }
-  const int j = lo;
-  const int qc = c - coff[j];                // chunk within the segment
-  const bool whole = coff[j + 1] - coff[j] == 1;
-  const int r0 = off[j] + qc * chunk;
-  const int r1 = min(r0 + chunk, off[j + 1]);
-  const int* seg = rows + (long long)t * S;
-  const int P = k * d;
+  const int lane = q & 31;
+  const int w = q >> 5;
+  const int nw = nt >> 5;
+  // one load says which rows this block sums, or that it has none
+  const int4 rc = recs[(long long)t * max_chunks + c];
+  const int n = rc.z;
+  if (n < 0) return;
+  const int j = rc.x;
+  const int qc = rc.w;                       // chunk within the segment
+  const int* seg = rows + (long long)t * S + rc.y;
+  const int* loff = meta + (long long)t * 3 * (Wl + 1) + 2 * (Wl + 1);
+  const int row_bytes = d * (int)sizeof(CodeT);
+  CodeT* scodes = reinterpret_cast<CodeT*>(smem);             // [2][R * d]
+  float* sstat = reinterpret_cast<float*>(smem + 2 * R * row_bytes / 4);
+  float* tiles32 = reinterpret_cast<float*>(smem);  // [nw][kTileFloats]
+  float* bins = reinterpret_cast<float*>(smem + front);  // [nb][nt]
+  const int P = kg * d;
   const long long width = (long long)d * nb;
-  float* dst = whole ? nullptr
-                     : part + ((long long)t * part_slots + loff[j] + qc) *
-                                  (long long)P * nb;
+  const int tiles = (n + R - 1) / R;
+  // stage sub-tile `it` of the chunk into buffer `buf`: a warp a row's
+  // codes at a time, lanes along the row (16 bytes a lane where the rows
+  // allow it, else 4), the row ids loaded 32 at a time and passed by
+  // shuffles, so no copy waits on a load; the stats a thread a row
+  auto stage = [&](int it, int buf) {
+    const int ra = it * R;
+    const int m = min(R, n - ra);
+    char* sc = reinterpret_cast<char*>(scodes) + buf * R * row_bytes;
+    float* ss = sstat + buf * kg * R;
+    const char* src = reinterpret_cast<const char*>(codes);
+    for (int rb = 0; rb < m; rb += 32) {
+      const int mine = rb + lane < m ? seg[ra + rb + lane] : 0;
+      const int re = min(rb + 32, m);
+      for (int r = rb + w; r < re; r += nw) {
+        const long long s = __shfl_sync(kFull, mine, r - rb);
+        const char* row = src + s * row_bytes;
+        char* dst = sc + r * row_bytes;
+        if (vec) {
+          for (int i = 16 * lane; i < row_bytes; i += 16 * 32)
+            cp_async16(dst + i, row + i);
+        } else {
+          for (int i = 4 * lane; i < row_bytes; i += 4 * 32)
+            cp_async4(dst + i, row + i);
+        }
+      }
+    }
+    for (int r = q; r < m; r += nt) {
+      const long long s = seg[ra + r];
+      for (int ki = 0; ki < kg; ++ki)
+        cp_async4(ss + ki * R + r, sw.p[ki] + s * T + t);
+    }
+    cp_async_commit();
+  };
   for (int g0 = 0; g0 < P; g0 += nt) {
     const int p = g0 + q;
     const int np = min(nt, P - g0);
-    if (g0) __syncthreads();                 // the last group's bins read
-    for (int b = 0; b < nb; ++b) bins[b * st + q] = 0.f;
-    if (p < P) {
-      const int ki = p / d;
-      const int f = p % d;
-      const float* swk = sw + (long long)ki * S * T + t;
-      int r = r0;
-      // a batch's row ids, then their codes and stats, then the adds in
-      // row order: two load latencies per batch instead of per row
-      for (; r + kUnroll <= r1; r += kUnroll) {
-        int s[kUnroll], cd[kUnroll];
-        float v[kUnroll];
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) s[u] = __ldg(seg + r + u);
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          cd[u] = __ldg(codes + (long long)s[u] * d + f);
-          v[u] = __ldg(swk + (long long)s[u] * T);
-        }
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u)
-          if ((unsigned)cd[u] < (unsigned)nb)
-            bins[cd[u] * st + q] += bf16_round(v[u]);
-      }
-      for (; r < r1; ++r) {
-        const int s = __ldg(seg + r);
-        const int cd = __ldg(codes + (long long)s * d + f);
-        if ((unsigned)cd < (unsigned)nb)
-          bins[cd * st + q] += bf16_round(__ldg(swk + (long long)s * T));
-      }
-    }
-    __syncthreads();
-    // coalesced write of the group's pairs: element (pair g0 + i / nb,
-    // bin i % nb); consecutive i are consecutive addresses within a stat
-    for (int i = q; i < np * nb; i += nt) {
-      const int pl = i / nb;
-      const int b = i - pl * nb;
-      const float v = bins[b * st + pl];
-      const int pp = g0 + pl;
-      if (whole) {
-        const int ki = pp / d;
-        const int f = pp - ki * d;
-        out[(((long long)ki * Wl + j) * T + t) * width + (long long)f * nb +
-            b] = v;
+    const int ki = p / d;
+    const int f = p - ki * d;
+    for (int b = 0; b < nb; ++b) bins[b * nt + q] = 0.f;
+    if (tiles) stage(0, 0);
+    for (int it = 0; it < tiles; ++it) {
+      const int buf = it & 1;
+      if (it + 1 < tiles) {
+        stage(it + 1, buf ^ 1);
+        cp_async_wait<1>();
       } else {
-        dst[(long long)pp * nb + b] = v;
+        cp_async_wait<0>();
+      }
+      // round the stats this thread staged (its own copies have landed)
+      const int m = min(R, n - it * R);
+      float* ss = sstat + buf * kg * R;
+      for (int r = q; r < m; r += nt)
+        for (int kk = 0; kk < kg; ++kk)
+          ss[kk * R + r] = bf16_round(ss[kk * R + r]);
+      __syncthreads();
+      if (p < P) {
+        const CodeT* sc = scodes + buf * R * d + f;
+        const float* sv = ss + ki * R;
+        float* bq = bins + q;                // a lane's own bank
+        for (int r = 0; r < m; ++r) {
+          const int cd = sc[r * d];
+          if ((unsigned)cd < (unsigned)nb) bq[cd * nt] += sv[r];
+        }
+      }
+      __syncthreads();                       // the buffer is free again
+    }
+    __syncthreads();                         // every pair's bins summed
+    // write-out, a warp 32 pairs at a time, 8 bins at a time: each lane
+    // copies its pair's 8 bins into the warp's tile (row stride 9: 32
+    // distinct banks), then each store writes 4 pairs x 8 bins, whole
+    // 32-byte sectors
+    float* tile = tiles32 + w * kTileFloats;
+    for (int pb = w * 32; pb < np; pb += nw * 32) {
+      const int pl = pb + lane;
+      long long base = 0;                    // this lane's pair's first bin
+      if (pl < np) {
+        const int pp = g0 + pl;
+        if (qc == 0) {
+          const int kk = pp / d;
+          base = (((long long)kk * Wl + j) * T + t) * width +
+                 (long long)(pp - kk * d) * nb;
+        } else {
+          base = ((long long)t * part_slots + loff[j] + qc - 1) *
+                     (long long)P * nb + (long long)pp * nb;
+        }
+      }
+      float* dst = qc == 0 ? out : part;
+      const int bl = lane & 7;
+      for (int b0 = 0; b0 < nb; b0 += 8) {
+        if (pl < np)
+          for (int bb = 0; bb < 8 && b0 + bb < nb; ++bb)
+            tile[lane * 9 + bb] = bins[(b0 + bb) * nt + pl];
+        __syncwarp();
+#pragma unroll
+        for (int i4 = 0; i4 < 32; i4 += 4) {
+          const int pi = i4 + (lane >> 3);
+          const long long bp = __shfl_sync(kFull, base, pi);
+          if (pb + pi < np && b0 + bl < nb)
+            dst[bp + b0 + bl] = tile[pi * 9 + bl];
+        }
+        __syncwarp();
       }
     }
+    __syncthreads();                         // bins and tiles free again
   }
 }
 
-// Pass C: block (j, t) adds the chunk partials of a multi-chunk segment in
-// chunk order.
+// Pass C: block (cell tile, g, t) adds, for the multi-chunk segments g,
+// g + gridDim.y, ... of tree t, the partials of its later chunks in chunk
+// order to its first chunk's (in the output).
 __global__ void node_combine_kernel(const int* __restrict__ meta,
+                                    const int* __restrict__ multi,
                                     const float* __restrict__ part,
                                     float* __restrict__ out, int d, int T,
-                                    int k, int Wl, int nb, int part_slots) {
-  const int j = blockIdx.x;
-  const int t = blockIdx.y;
+                                    int kg, int Wl, int nb, int part_slots) {
+  const int t = blockIdx.z;
+  const int cells = kg * d * nb;             // the wrapper keeps it < 2^31
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= cells) return;
   const int* off = meta + (long long)t * 3 * (Wl + 1);
   const int* coff = off + (Wl + 1);
   const int* loff = coff + (Wl + 1);
-  const int nch = coff[j + 1] - coff[j];
-  if (nch < 2) return;
-  const long long cells = (long long)k * d * nb;
-  const long long width = (long long)d * nb;
-  const float* src = part + ((long long)t * part_slots + loff[j]) * cells;
-  for (long long i = threadIdx.x; i < cells; i += blockDim.x) {
-    float acc = src[i];
-    for (int qc = 1; qc < nch; ++qc) acc += src[qc * cells + i];
-    const long long ki = i / width;
-    out[((ki * Wl + j) * T + t) * width + (i - ki * width)] = acc;
+  const int* mlist = multi + (long long)t * (Wl + 1);
+  const int width = d * nb;
+  const int ki = i / width;
+  const int fb = i - ki * width;
+  const int nm = mlist[0];
+  for (int m = blockIdx.y; m < nm; m += gridDim.y) {
+    const int j = mlist[1 + m];
+    const int nch = coff[j + 1] - coff[j];
+    const float* src =
+        part + ((long long)t * part_slots + loff[j]) * cells + i;
+    float* dst = out + (((long long)ki * Wl + j) * T + t) * width + fb;
+    float acc = *dst;
+#pragma unroll 16
+    for (int qc = 1; qc < nch; ++qc) acc += src[(long long)(qc - 1) * cells];
+    *dst = acc;
   }
+}
+
+// The workspace of one call: ints and floats (see node_hist).
+struct Layout {
+  int tiles;
+  int max_chunks;                              // per tree
+  long long recs, codes8, counts, meta, multi, slots, rows, ints;  // offsets
+  long long part_slots, floats;
+};
+
+Layout layout(int S, int d, int T, int k, int Wl, int nb, int chunk,
+              int tile_rows) {
+  Layout L;
+  L.tiles = (S + tile_rows - 1) / tile_rows;
+  // at most one chunk per slot plus one per `chunk` rows; the int4 records
+  // first, where the workspace is aligned
+  L.max_chunks = Wl + (S + chunk - 1) / chunk;
+  L.recs = 0;
+  L.codes8 = L.recs + 4LL * T * L.max_chunks;  // the codes as bytes
+  L.counts = L.codes8 + ((long long)S * d + 3) / 4;
+  L.meta = L.counts + (long long)T * Wl * L.tiles;
+  L.multi = L.meta + (long long)T * 3 * (Wl + 1);
+  L.slots = L.multi + (long long)T * (Wl + 1);
+  L.rows = L.slots + (long long)T * S;
+  L.ints = L.rows + (long long)T * S;
+  // the chunks after the first of segments longer than one chunk: a
+  // segment of n > chunk rows has ceil(n / chunk) - 1 < n / chunk of them
+  L.part_slots = ((long long)S + chunk - 1) / chunk;
+  const int kg = k < kMaxStats ? k : kMaxStats;
+  L.floats = (long long)T * L.part_slots * kg * d * nb;
+  return L;
+}
+
+cudaError_t opt_in(const void* fn, size_t smem) {
+  if (smem <= (size_t)kSmemDefault) return cudaSuccess;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
 }
 
 }  // namespace
@@ -276,72 +559,135 @@ const char* tg_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// codes (S, d) int32; node (S, T) int32; sw (k, S, T) f32; workspaces meta
-// (T, 3, Wl + 1) and rows (T, S) int32, part (T, part_slots, k, d, nb) f32
-// with part_slots >= 2 * ceil(S / chunk) -> out (k, Wl, T, d, nb) f32.
-// chunk (rows per chunk) is part of the function: it sets the order of the
-// sums. max_threads bounds pass B's block (a multiple of 32), sort_warps
-// pass A's; neither changes a bit of the result.
-int node_hist(const void* codes, const void* node, const void* sw,
-              void* meta, void* rows, void* part, void* out, int S, int d,
-              int T, int k, int Wl, int nb, int stride, int chunk,
-              int part_slots, int max_threads, int sort_warps, int device,
-              void* stream) {
+// codes (S, d) int32; node (S, T) int64; sw: k pointers (host array) to
+// (S, T) f32 stats; iws (int32) and fws (f32): workspaces of Layout's
+// sizes, T * (Wl * ceil(S / tile_rows) + 4 * (Wl + 1) + 4 * (Wl +
+// ceil(S / chunk)) + 2 S) + ceil(S * d / 4) ints (16-byte aligned) and
+// T * ceil(S / chunk) * min(k, 4) * d * nb floats ->
+// out (k, Wl, T, d, nb) f32. chunk (rows per chunk) is part of the
+// function: it sets the order of the sums. max_threads bounds pass B's
+// block (a multiple of 32), tile_rows and sort_warps set pass A's tiles
+// and scatter warps, stage_rows pass B's sub-tile; none changes a bit of
+// the result.
+int node_hist(const void* codes, const void* node, const void* const* sw,
+              void* iws, void* fws, void* out, int S, int d, int T, int k,
+              int Wl, int nb, int stride, int chunk, int max_threads,
+              int tile_rows, int sort_warps, int stage_rows, int device,
+              void* stream_) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (S < 1 || d < 1 || T < 1 || k < 1 || Wl < 1 || nb < 1 ||
+  if (S < 1 || d < 1 || T < 1 || T > 65535 || k < 1 || Wl < 1 || nb < 1 ||
       (stride != 1 && stride != 2) || chunk < 1 ||
-      part_slots < 2 * ((S + chunk - 1) / chunk) ||
-      max_threads < kMinThreads || max_threads % 32 || max_threads > 1024 ||
-      sort_warps < 1 || sort_warps > 32)
+      max_threads < 32 || max_threads % 32 || max_threads > 1024 ||
+      tile_rows < 1 || sort_warps < 1 || sort_warps > 32 || stage_rows < 1)
     return (int)cudaErrorInvalidValue;
-  // pass A: shrink the warp count until the per-warp counters fit
+  cudaStream_t stream = (cudaStream_t)stream_;
+  const Layout L = layout(S, d, T, k, Wl, nb, chunk, tile_rows);
+  int* iw = (int*)iws;
+  int* counts = iw + L.counts;
+  int* meta = iw + L.meta;
+  int* multi = iw + L.multi;
+  int4* recs = (int4*)(iw + L.recs);
+  int* slots = iw + L.slots;
+  int* rows = iw + L.rows;
+  const long long* nd = (const long long*)node;
+  // pass A
+  const size_t smem_c = (size_t)Wl * sizeof(int);
+  if (smem_c > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
+  if ((err = opt_in((const void*)node_count_kernel, smem_c)) != cudaSuccess)
+    return (int)err;
+  dim3 grid_a((unsigned)L.tiles, (unsigned)T);
+  node_count_kernel<<<grid_a, kCountThreads, smem_c, stream>>>(
+      nd, counts, slots, S, T, Wl, stride, tile_rows);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  node_scan_kernel<<<T, kScanThreads, 0, stream>>>(
+      counts, meta, multi, recs, Wl, L.tiles, chunk, L.max_chunks);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   int warps = sort_warps;
   while (warps > 1 &&
-         (size_t)(warps + 1) * Wl * sizeof(int) > (size_t)kSmemDefault)
+         (size_t)warps * Wl * sizeof(int) > (size_t)kSmemDefault)
     warps /= 2;
-  const size_t smem_a = (size_t)(warps + 1) * Wl * sizeof(int);
-  if (smem_a > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
-  if (smem_a > (size_t)kSmemDefault) {
-    err = cudaFuncSetAttribute(node_sort_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem_a);
-    if (err != cudaSuccess) return (int)err;
+  const size_t smem_s = (size_t)warps * Wl * sizeof(int);
+  if (smem_s > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
+  if ((err = opt_in((const void*)node_scatter_kernel, smem_s)) !=
+      cudaSuccess)
+    return (int)err;
+  node_scatter_kernel<<<grid_a, warps * 32, smem_s, stream>>>(
+      slots, counts, rows, S, Wl, tile_rows);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  // the codes as bytes where they fit and the rows stay 16-byte aligned
+  const bool aligned = ((uintptr_t)codes & 15) == 0;
+  const bool bytes = nb <= 255 && d % 16 == 0 && aligned;
+  const void* pcodes = codes;
+  if (bytes) {
+    const long long n4 = (long long)S * d / 4;
+    node_codes8_kernel<<<(unsigned)((n4 + 255) / 256), 256, 0, stream>>>(
+        (const int4*)codes, (unsigned*)(iw + L.codes8), n4, nb);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    pcodes = iw + L.codes8;
   }
-  node_sort_kernel<<<T, warps * 32, smem_a, (cudaStream_t)stream>>>(
-      (const int*)node, (int*)meta, (int*)rows, S, T, Wl, stride, chunk);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  // pass B: one thread per (stat, feature) pair up to max_threads, fewer
-  // when the bins would not fit the default shared memory
-  const int P = k * d;
-  int threads = ((P + 31) / 32) * 32;
-  if (threads > max_threads) threads = max_threads;
-  while (threads > kMinThreads &&
-         (size_t)nb * (threads + 1) * sizeof(float) > (size_t)kSmemDefault)
-    threads -= 32;
-  const size_t smem_b = (size_t)nb * (threads + 1) * sizeof(float);
-  if (smem_b > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
-  if (smem_b > (size_t)kSmemDefault) {
-    err = cudaFuncSetAttribute(node_hist_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem_b);
-    if (err != cudaSuccess) return (int)err;
+  const int row_bytes = bytes ? d : 4 * d;
+  const bool vec = row_bytes % 16 == 0 && aligned;
+  // passes B and C, kMaxStats stats at a time over the same sort
+  const long long width = (long long)d * nb;
+  for (int k0 = 0; k0 < k; k0 += kMaxStats) {
+    const int kg = k - k0 < kMaxStats ? k - k0 : kMaxStats;
+    Stats st;
+    for (int i = 0; i < kMaxStats; ++i)
+      st.p[i] = i < kg ? (const float*)sw[k0 + i] : nullptr;
+    const int P = kg * d;
+    int threads = ((P + 31) / 32) * 32;
+    if (threads > max_threads) threads = max_threads;
+    int R = stage_rows;
+    // ints before the bins: the staging buffers or the transpose tiles
+    auto front_of = [&](int th, int r) {
+      const int stage_ints = 2 * r * (row_bytes / 4 + kg);
+      const int tile_ints = (th / 32) * kTileFloats;
+      return stage_ints > tile_ints ? stage_ints : tile_ints;
+    };
+    auto smem_of = [&](int th, int r) {
+      return ((size_t)front_of(th, r) + (size_t)nb * th) * sizeof(int);
+    };
+    while (R > 1 && smem_of(threads, R) > (size_t)kSmemDefault) R /= 2;
+    while (threads > 32 && smem_of(threads, R) > (size_t)kSmemDefault)
+      threads -= 32;
+    const size_t smem_b = smem_of(threads, R);
+    if (smem_b > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
+    float* o = (float*)out + (long long)k0 * Wl * T * width;
+    dim3 grid_b((unsigned)L.max_chunks, (unsigned)T);
+    if (bytes) {
+      if ((err = opt_in((const void*)node_hist_kernel<unsigned char>,
+                        smem_b)) != cudaSuccess)
+        return (int)err;
+      node_hist_kernel<unsigned char><<<grid_b, threads, smem_b, stream>>>(
+          (const unsigned char*)pcodes, st, meta, recs, rows, o, (float*)fws,
+          S, d, T, kg, Wl, nb, chunk, (int)L.part_slots, R, vec ? 1 : 0,
+          front_of(threads, R));
+    } else {
+      if ((err = opt_in((const void*)node_hist_kernel<int>, smem_b)) !=
+          cudaSuccess)
+        return (int)err;
+      node_hist_kernel<int><<<grid_b, threads, smem_b, stream>>>(
+          (const int*)pcodes, st, meta, recs, rows, o, (float*)fws, S, d, T,
+          kg, Wl, nb, chunk, (int)L.part_slots, R, vec ? 1 : 0,
+          front_of(threads, R));
+    }
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    // the segments of one tree spread over blocks when trees are few
+    const long long cells = (long long)kg * d * nb;
+    const long long ctiles = (cells + kCombineThreads - 1) / kCombineThreads;
+    long long spread = 1024 / (ctiles * T);
+    const long long most = (S + chunk) / (chunk + 1);  // multi-chunk segments
+    if (spread > most) spread = most;
+    if (spread > Wl) spread = Wl;
+    if (spread < 1) spread = 1;
+    dim3 grid_c((unsigned)ctiles, (unsigned)spread, (unsigned)T);
+    node_combine_kernel<<<grid_c, kCombineThreads, 0, stream>>>(
+        meta, multi, (const float*)fws, o, d, T, kg, Wl, nb,
+        (int)L.part_slots);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
-  // at most one chunk per slot plus one per `chunk` rows
-  const int max_chunks = Wl + (S + chunk - 1) / chunk;
-  dim3 grid_b((unsigned)max_chunks, (unsigned)T);
-  node_hist_kernel<<<grid_b, threads, smem_b, (cudaStream_t)stream>>>(
-      (const int*)codes, (const float*)sw, (const int*)meta,
-      (const int*)rows, (float*)out, (float*)part, S, d, T, k, Wl, nb, chunk,
-      part_slots);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid_c((unsigned)Wl, (unsigned)T);
-  node_combine_kernel<<<grid_c, kCombineThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)meta, (const float*)part, (float*)out, d, T, k, Wl, nb,
-      part_slots);
-  return (int)cudaGetLastError();
+  return 0;
 }
 
 }  // extern "C"

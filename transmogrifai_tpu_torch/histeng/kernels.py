@@ -24,14 +24,17 @@ Pinned reduction: ``_hist_pinned`` and ``pinned_row_sum`` cut the rows into
 ``HIST_SHARDS`` blocks, reduce each block, and combine the block partials
 in the fixed pairwise order of ``_tree_combine``, as the JAX package's
 ``_hist_xla_pinned`` does; the CUDA kernel cuts and combines its rows the
-same way.
+same way (inside a block it sums each block's rows in 16 fixed splits,
+added in split order: an order the contraction never fixed, so the plain
+version holds it to rtol 1e-5, and to the bit on integer-valued stats).
 
 Node histograms (``node_hist_matmul``, the per-level split statistics of
 every tree grower): on a CUDA tensor the hand-written kernel of
 ``csrc/node_hist.cu`` sorts each tree's rows by slot and sums every
 (slot, feature, bin) cell over its rows in row order, by chunks of
-``NODE_HIST_CHUNK`` rows; no masked-stat operand is built and no tree lane
-is padded. On a CPU tensor the plain version ``node_hist_plain``
+``NODE_HIST_CHUNK`` rows added in chunk order; it reads the growers'
+tensors in place, and no masked-stat operand is built and no tree lane is
+padded. On a CPU tensor the plain version ``node_hist_plain``
 materializes the masked-stat operand (with the JAX package's lane
 padding) and runs the pinned contraction, as the JAX package's
 ``_node_hist_xla`` does; ``node_hist_direct`` is the definition summed
@@ -55,24 +58,33 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 HIST_MATMUL = cuda_build.CudaKernel(
     "hist_matmul", "hist.cu", "transmogrifai_tpu/histeng/kernels.py:235",
-    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P])
+    [_P] * 5 + [_I] * 9 + [_P])
 
 NODE_HIST = cuda_build.CudaKernel(
     "node_hist", "node_hist.cu", "docs/experiments/node_hist_pallas.py:62",
-    [_P] * 7 + [_I] * 12 + [_P])
+    [_P] * 6 + [_I] * 13 + [_P])
 
 KERNELS = (HIST_MATMUL, NODE_HIST)
+
+#: the ``hist_matmul`` kernel's widest stat tile (a power of two, 1..32);
+#: no bit of the result depends on it
+HIST_COLS = 32
 
 #: rows per chunk of a node-histogram segment: a cell sums each chunk's
 #: rows in row order, then the chunk partials in chunk order. Part of the
 #: function (it sets the order of the sums), shared by the kernel and
 #: ``node_hist_direct``
-NODE_HIST_CHUNK = 512
+NODE_HIST_CHUNK = 128
 
-#: the node-histogram kernel's most threads per block (pass B) and warps
-#: (pass A); no bit of the result depends on either
+#: the node-histogram kernel's most threads per block (pass B), warps of
+#: its scatter (pass A) and rows per staged sub-tile (pass B); no bit of
+#: the result depends on any of them, nor on the sort's tile rows
 NODE_HIST_THREADS = 256
-NODE_SORT_WARPS = 32
+NODE_SORT_WARPS = 8
+NODE_STAGE_ROWS = 32
+#: most stat tensors a node-histogram launch group takes (node_hist.cu
+#: kMaxStats): more stats share one sort over several groups
+NODE_STAT_GROUP = 4
 
 
 def _pad_to(x: int, m: int) -> int:
@@ -167,9 +179,12 @@ def hist_matmul_plain(codes: torch.Tensor, A: torch.Tensor, n_bins: int,
 
 
 def hist_matmul_cuda(codes: torch.Tensor, A: torch.Tensor, n_bins: int,
-                     exact: bool = False) -> torch.Tensor:
+                     exact: bool = False,
+                     max_cols: int = HIST_COLS) -> torch.Tensor:
     """Launch ``hist_matmul`` (csrc/hist.cu) on the current stream:
-    (B, d * n_bins) f32, rows cut into the pinned K chunks."""
+    (B, d * n_bins) f32, rows cut into the pinned K chunks and each chunk
+    into the kernel's 16 splits. ``max_cols`` caps the kernel's stat tile
+    and changes no bit."""
     if not codes.is_cuda:
         raise ValueError(f"hist_matmul needs CUDA tensors, codes are on "
                          f"{codes.device}")
@@ -186,10 +201,11 @@ def hist_matmul_cuda(codes: torch.Tensor, A: torch.Tensor, n_bins: int,
     out = torch.empty((B, d * n_bins), dtype=torch.float32, device=dev)
     if S == 0 or B == 0 or d == 0:
         return out.zero_()
+    flags = torch.empty(d, dtype=torch.int32, device=dev)
     part = torch.empty((K, d * n_bins, B), dtype=torch.float32, device=dev)
-    HIST_MATMUL.launch(ptr(codes), ptr(A), ptr(part), ptr(out), S, d, B,
-                       n_bins, K, rows, int(exact), dev.index,
-                       torch.cuda.current_stream(dev).cuda_stream)
+    HIST_MATMUL.launch(ptr(codes), ptr(A), ptr(flags), ptr(part), ptr(out),
+                       S, d, B, n_bins, K, rows, int(exact), max_cols,
+                       dev.index, torch.cuda.current_stream(dev).cuda_stream)
     return out
 
 
@@ -223,83 +239,120 @@ def _t_pad128(T: int) -> int:
 def node_hist_direct(codes: torch.Tensor, node: torch.Tensor,
                      sw_list: Sequence[torch.Tensor], Wl: int, n_bins: int,
                      stride: int = 1) -> torch.Tensor:
-    """The node histogram by its definition, cell by cell, in the kernel's
-    order: each (tree, slot) segment's rows, ascending, are cut into chunks
-    of ``NODE_HIST_CHUNK``; within a chunk the rows one after the other add
+    """The node histogram by its definition, in the kernel's order: each
+    (tree, slot) segment's rows, ascending, are cut into chunks of
+    ``NODE_HIST_CHUNK``; within a chunk the rows one after the other add
     their bf16-rounded stats into the (slot, feature, bin) cells they
     belong to, in f32, and a cell is then the sum of its chunks' partials
     in chunk order. So the kernel matches it to the bit; the oracle at odd
-    shapes. Same contract as ``node_hist_matmul``; for small inputs (one
-    step per row)."""
+    shapes and, on the card, at the main path's. Same contract as
+    ``node_hist_matmul``.
+
+    It runs one step per row place within a chunk: step r adds the r-th
+    row of every chunk at once, one indexed add in which no cell is hit
+    twice, so each cell still takes its rows one at a time and in order;
+    then one step per chunk of the longest segment."""
     S, d = codes.shape
     T = node.shape[1]
     k = len(sw_list)
     dev = codes.device
+    ch = NODE_HIST_CHUNK
     sws = torch.stack([sw.to(torch.float32) for sw in sw_list]).to(
         torch.bfloat16).to(torch.float32)                     # (k, S, T)
-    n_chunks = max(1, -(-S // NODE_HIST_CHUNK))
-    part = torch.zeros((n_chunks, k, Wl, T, d, n_bins), dtype=torch.float32,
-                       device=dev)
-    seen = torch.zeros((T, Wl), dtype=torch.long, device=dev)
     node, codes = node.long(), codes.long()
-    ks = torch.arange(k, device=dev)[:, None, None]
-    for s in range(S):
-        nd, c = node[s], codes[s]
-        ts = torch.nonzero((nd >= 0) & (nd % stride == 0)
-                           & (nd < stride * Wl))[:, 0]
-        j = nd[ts] // stride
-        q = seen[ts, j] // NODE_HIST_CHUNK         # the row's chunk
-        seen[ts, j] += 1
-        fs = torch.nonzero((c >= 0) & (c < n_bins))[:, 0]
-        if len(ts) and len(fs):
-            # distinct cells within one row: a plain indexed add
-            part[q[None, :, None], ks, j[None, :, None], ts[None, :, None],
-                 fs[None, None, :], c[fs][None, None, :]] += \
-                sws[:, s, ts][:, :, None]
-    out = part[0]
-    for qc in range(1, n_chunks):     # a segment's missing chunks add +0
-        out = out + part[qc]
-    return out.reshape(k * Wl * T, d * n_bins)
+    ok = (node >= 0) & (node % stride == 0) & (node < stride * Wl)
+    slot = torch.where(ok, node // stride, torch.full_like(node, Wl)).T
+    # each tree's rows by slot, ascending within a slot (Wl: adds nothing)
+    order = torch.sort(slot, dim=1, stable=True).indices      # (T, S)
+    sl = slot.gather(1, order)
+    counts = torch.zeros((T, Wl + 1), dtype=torch.long, device=dev)
+    counts.scatter_add_(1, sl, torch.ones_like(sl))
+    start = torch.cumsum(counts, 1) - counts
+    place = torch.arange(S, device=dev)[None, :] - start.gather(1, sl)
+    n_q = max(1, -(-int(counts[:, :Wl].max()) // ch)) if S else 1
+    part = torch.zeros((T, Wl, n_q, k, d, n_bins), dtype=torch.float32,
+                       device=dev)
+    ks = torch.arange(k, device=dev)[None, :, None]
+    fs = torch.arange(d, device=dev)[None, None, :]
+    for r in range(min(ch, S)):
+        ts, ps = torch.nonzero((sl < Wl) & (place % ch == r), as_tuple=True)
+        if not len(ts):
+            continue
+        s = order[ts, ps]
+        c = codes[s][:, None, :].expand(-1, k, -1)             # (n, k, d)
+        keep = (c >= 0) & (c < n_bins)
+        idx = [x.expand(-1, k, d)[keep] for x in (
+            ts[:, None, None], sl[ts, ps][:, None, None],
+            (place[ts, ps] // ch)[:, None, None])]
+        vals = sws[:, s, ts].T[:, :, None].expand(-1, -1, d)[keep]
+        part.index_put_((*idx, ks.expand(len(s), -1, d)[keep],
+                         fs.expand(len(s), k, -1)[keep], c[keep]), vals,
+                        accumulate=True)
+    out = part[:, :, 0]
+    for q in range(1, n_q):           # a segment's missing chunks add +0
+        out = out + part[:, :, q]
+    return out.permute(2, 1, 0, 3, 4).reshape(k * Wl * T, d * n_bins)
+
+
+def _sort_tile(S: int, T: int, Wl: int) -> int:
+    """Rows per tile of the node histogram's sort: about eight (tile,
+    tree) blocks an SM, while a tree's (slot, tile) counts stay few enough
+    for one block's scan."""
+    tiles = max(1, min(-(-1056 // T), 4096 // Wl))
+    return max(256, -(-S // tiles))
 
 
 def node_hist_cuda(codes: torch.Tensor, node: torch.Tensor,
-                   sws: torch.Tensor, Wl: int, n_bins: int, stride: int = 1,
-                   threads: int = NODE_HIST_THREADS,
-                   sort_warps: int = NODE_SORT_WARPS) -> torch.Tensor:
+                   sw_list: Sequence[torch.Tensor], Wl: int, n_bins: int,
+                   stride: int = 1, threads: int = NODE_HIST_THREADS,
+                   sort_warps: int = NODE_SORT_WARPS,
+                   tile_rows: int | None = None,
+                   stage_rows: int = NODE_STAGE_ROWS) -> torch.Tensor:
     """Launch ``node_hist`` (csrc/node_hist.cu) on the current stream:
-    codes (S, d) int32, node (S, T) int32, sws (k, S, T) f32 -> (k, Wl, T,
-    d, n_bins) f32."""
+    codes (S, d) int32, node (S, T) int64, k (S, T) f32 stats, each read
+    in place -> (k, Wl, T, d, n_bins) f32. ``threads``, ``sort_warps``,
+    ``tile_rows`` and ``stage_rows`` shape the launch and change no
+    bit."""
     if not codes.is_cuda:
         raise ValueError(f"node_hist needs CUDA tensors, codes are on "
                          f"{codes.device}")
     dev = codes.device
     S, d = codes.shape
     T = node.shape[1]
-    k = sws.shape[0]
+    k = len(sw_list)
     expect(codes, "codes", torch.int32, (S, d), dev)
-    expect(node, "node", torch.int32, (S, T), dev)
-    expect(sws, "sws", torch.float32, (k, S, T), dev)
+    expect(node, "node", torch.int64, (S, T), dev)
+    for i, sw in enumerate(sw_list):
+        expect(sw, f"sw_list[{i}]", torch.float32, (S, T), dev)
     if stride not in (1, 2) or Wl < 1 or n_bins < 1:
         raise ValueError(f"bad node histogram: Wl {Wl}, n_bins {n_bins}, "
                          f"stride {stride}")
     if T > 65535:
         raise ValueError(f"{T} trees exceed the kernel's grid")
-    # workspace slots for the chunks of segments longer than one chunk:
-    # fewer than 2 * S / chunk of them
-    part_slots = 2 * -(-S // NODE_HIST_CHUNK)
-    check_int32(S * d, k * S * T, 3 * T * (Wl + 1), Wl + part_slots)
+    tile = tile_rows or _sort_tile(S, T, Wl)
+    tiles = -(-S // tile)
+    n_chunks = -(-S // NODE_HIST_CHUNK)
+    # the int workspace: each chunk's record (T, Wl + n_chunks, 4), the
+    # codes as bytes (S * d), counts (T, Wl, tiles), meta (T, 3, Wl + 1),
+    # the multi-chunk segment lists (T, Wl + 1), each row's slot and the
+    # sorted rows (T, S) each; the f32 one: the chunks after the first of
+    # long segments, fewer than n_chunks a tree (node_hist.cu ``layout``)
+    n_int = (T * (4 * (Wl + n_chunks) + Wl * tiles + 4 * (Wl + 1) + 2 * S)
+             + -(-S * d // 4))
+    n_float = T * n_chunks * min(k, NODE_STAT_GROUP) * d * n_bins
+    check_int32(S * d, S * T, Wl * tiles + Wl + S, d * n_bins * k)
     out = torch.empty((k, Wl, T, d, n_bins), dtype=torch.float32,
                       device=dev)
     if S == 0 or T == 0 or d == 0 or k == 0:
         return out.zero_()
-    meta = torch.empty((T, 3, Wl + 1), dtype=torch.int32, device=dev)
-    rows = torch.empty((T, S), dtype=torch.int32, device=dev)
-    part = torch.empty((T, part_slots, k * d * n_bins), dtype=torch.float32,
-                       device=dev)
-    NODE_HIST.launch(ptr(codes), ptr(node), ptr(sws), ptr(meta), ptr(rows),
-                     ptr(part), ptr(out), S, d, T, k, Wl, n_bins, stride,
-                     NODE_HIST_CHUNK, part_slots, threads, sort_warps,
-                     dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    iws = torch.empty(n_int, dtype=torch.int32, device=dev)
+    fws = torch.empty(n_float, dtype=torch.float32, device=dev)
+    sws = (ctypes.c_void_p * k)(*(sw.data_ptr() for sw in sw_list))
+    NODE_HIST.launch(ptr(codes), ptr(node), ctypes.cast(sws, ctypes.c_void_p),
+                     ptr(iws), ptr(fws), ptr(out), S, d, T, k, Wl, n_bins,
+                     stride, NODE_HIST_CHUNK, threads, tile, sort_warps,
+                     stage_rows, dev.index,
+                     torch.cuda.current_stream(dev).cuda_stream)
     return out
 
 
@@ -314,17 +367,17 @@ def node_hist_matmul(codes: torch.Tensor, node: torch.Tensor,
     slot-id multiplier (2 = heap left children). Returns (k * Wl * T,
     d * n_bins) f32, lane (k * Wl + j) * T + t.
 
-    A CUDA tensor goes to the ``node_hist`` kernel. Its inputs are copied
-    once per call: ``node`` from the growers' int64 to int32 (4 * S * T
-    bytes, 3.9 MB at the RF refit's 19,712 rows x 50 trees) and the k
-    stats stacked into one (k, S, T) tensor (4 * k * S * T bytes). A CPU
-    tensor takes the plain version, which pads the tree lanes as the JAX
-    package pads them; padded lanes are zero and are cut off."""
+    A CUDA tensor goes to the ``node_hist`` kernel, which reads the
+    growers' int64 ``node``, their int32 codes and each f32 stat tensor in
+    place: nothing is copied unless an input comes in another type or
+    layout. A CPU tensor takes the plain version, which pads the tree
+    lanes as the JAX package pads them; padded lanes are zero and are cut
+    off."""
     if codes.is_cuda:
-        sws = torch.stack([sw.to(torch.float32) for sw in sw_list])
         out = node_hist_cuda(codes.to(torch.int32).contiguous(),
-                             node.to(torch.int32).contiguous(), sws, Wl,
-                             n_bins, stride)
+                             node.to(torch.int64).contiguous(),
+                             [sw.to(torch.float32).contiguous()
+                              for sw in sw_list], Wl, n_bins, stride)
         return out.reshape(len(sw_list) * Wl * node.shape[1],
                            codes.shape[1] * n_bins)
     if codes.device.type != "cpu":

@@ -141,14 +141,17 @@ class CudaKernel:
         self.replaces = replaces
         self.argtypes = argtypes
         self.launches = 0
+        self._fn = None                 # the bound entry, after first use
 
     def launch(self, *args) -> None:
-        lib = load(self.source)
-        fn = getattr(lib, self.name)
-        fn.argtypes = self.argtypes
-        fn.restype = ctypes.c_int
+        fn = self._fn
+        if fn is None:
+            fn = getattr(load(self.source), self.name)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
         err = fn(*args)
         if err != 0:
-            msg = lib.tg_cuda_error_string(err).decode()
+            msg = load(self.source).tg_cuda_error_string(err).decode()
             raise RuntimeError(f"{self.name}: CUDA error {err} ({msg})")
         self.launches += 1

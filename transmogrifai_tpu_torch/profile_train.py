@@ -125,7 +125,7 @@ def profile(family: str, rows: int, reps: int) -> dict:
         "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / 1e3 / wall,
         "device_ms_by_kernel": dict(sorted(kernels.items(),
-                                           key=lambda kv: -kv[1])[:15]),
+                                           key=lambda kv: -kv[1])[:40]),
     }
 
 
