@@ -7,11 +7,12 @@ Phases, in order; any failure exits nonzero:
 (a) build every CUDA source of the port (one nvcc each, all at once);
 (b) hold each kernel against its plain PyTorch version on the card, at the
     shapes its path gives it, and report its times:
-    - ``node_hist`` at three growth levels (19,712 rows x 64 codes, 32
+    - ``node_hist`` at four growth levels (19,712 rows x 64 codes, 32
       bins): the RF refit's deepest level (T=50, 256 slots, k=2; the timed
       case of the ``kernels`` line), the GBT depth-6 refit's level 5 (T=1,
-      16 left children, stride 2, k=3) and the ``gbt12`` refit's deepest
-      level (T=1, 256 slots, k=3): within rtol 1e-5 / atol 1e-6 of the
+      16 left children, stride 2, k=3), the ``gbt12`` refit's deepest
+      level (T=1, 256 slots, k=3) and a GBT level 0 (T=1, every row in one
+      slot, k=3): within rtol 1e-5 / atol 1e-6 of the
       plain version on [0, 1) stats, bit-equal on integer-valued stats and
       across reruns, and bit-equal to the direct formula (rows added in
       the kernel's order) there and at an odd shape; the library route is
@@ -85,9 +86,10 @@ sys.path.insert(0, HERE)
 import numpy as np
 import torch
 
-#: H100 SXM data-sheet peaks
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
+# the histogram kernels' main-path shapes, input builders, bounds and
+# timers: one definition, shared with the per-pass profiler
+from transmogrifai_tpu_torch import profile_hist as PH
+from transmogrifai_tpu_torch.profile_hist import bound_ms, time_ms
 
 N_ROWS = 65536
 N_FEATURES = 64
@@ -95,7 +97,6 @@ N_BINS = 32
 SUM_RTOL, SUM_ATOL = 1e-5, 1e-6
 PROB_ATOL = 1e-5
 PRED_MARGIN = 1e-5
-TIMED_RUNS = 25
 
 FIXTURES = os.path.join(HERE, "transmogrifai_tpu_torch", "fixtures",
                         "serve64")
@@ -110,38 +111,13 @@ TREE_KEYS = {"gbt": ("feat", "bins"), "dt": ("feat", "bins"),
 #: the leaf sums of the RF and DT refits: 19,712 padded rows, class counts
 #: and the weight, k = 3
 LEAF_K = 3
-#: the GBT refit's leaf sums: bucket_for(18,000) rows, 64 tree columns
-#: (one tree padded to a block of 64), 64 leaves, G and H per tree
-REFIT_ROWS, REFIT_TREES, REFIT_LEAVES = 19712, 64, 64
+#: the refits' rows: bucket_for(18,000)
+REFIT_ROWS = PH.ROWS
 #: train-vs-fixture limits (sums run in another order than the JAX
 #: package's XLA programs on the CPU, so metrics agree to rounding)
 AUPR_ATOL = 5e-3
 P1_MEAN_ATOL = 5e-3
 P1_MAX_ATOL_SAME_TREES = 1e-4
-
-
-def time_ms(fn, runs: int = TIMED_RUNS, warmup: int = 3) -> float:
-    """Median of ``runs`` CUDA-event timings of ``fn()`` after warm-up."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def bound_ms(nbytes: int, ops: int):
-    """Least time for the work: bytes over HBM rate vs operations over the
-    fp32 non-tensor peak (the data sheet gives no separate int32 rate)."""
-    tb, to = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
-    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 
 def phase_build():
@@ -167,22 +143,6 @@ def _hist_case(dev, rng, S, d, B, nb, sentinel=0.05):
                 np.float32)).to(dev))
 
 
-def _leaf_layout_case(dev, rng, real=1, J=2, L=REFIT_LEAVES):
-    """The layout of ``_diag_leaf_hist``'s calls: trees padded to a block
-    of 64 tree columns, so the first ``real`` columns hold leaf ids and
-    the rest the sentinel L; J stats per tree (stat column j * 64 + t), the
-    padded trees' columns zero. The GBT refits: 1 real tree, J 2 (G, H),
-    L 64 at depth 6, 256 at depth 12; the RF sweep: 48 trees (3 folds x
-    16), J 3 (two class counts and the weight), L 64."""
-    codes = np.full((REFIT_ROWS, REFIT_TREES), L, np.int32)
-    codes[:, :real] = rng.randint(0, L, (REFIT_ROWS, real))
-    A = np.zeros((REFIT_ROWS, J * REFIT_TREES), np.float32)
-    for j in range(J):
-        A[:, j * REFIT_TREES:j * REFIT_TREES + real] = rng.rand(REFIT_ROWS,
-                                                                real)
-    return torch.from_numpy(codes).to(dev), torch.from_numpy(A).to(dev)
-
-
 def _check_hist(tag, codes, A, A_int, nb, exact):
     """Kernel against plain: tolerance on ``A``, bits on ``A_int`` and on
     a rerun."""
@@ -204,15 +164,11 @@ def _check_hist(tag, codes, A, A_int, nb, exact):
 def passes(fn) -> str:
     """Device ms per call of each kernel ``fn`` launches, by name
     (``torch.profiler`` over 10 calls)."""
-    from transmogrifai_tpu_torch.profile_hist import pass_ms
-
-    return ", ".join(f"{k} {v:.4f}" for k, v in pass_ms(fn, 10).items())
+    return ", ".join(f"{k} {v:.4f}" for k, v in PH.pass_ms(fn, 10).items())
 
 
 def _time_hist(codes, A, nb, exact):
     from transmogrifai_tpu_torch.histeng import kernels as HK
-    S, d = codes.shape
-    B = A.shape[1]
     oh = HK._one_hot(codes, nb)
     with HK._tf32_off():
         lib = time_ms(lambda: A.T @ oh)
@@ -223,11 +179,7 @@ def _time_hist(codes, A, nb, exact):
     return dict(ms=time_ms(kernel), passes=passes(kernel),
                 plain_ms=time_ms(lambda: HK.hist_matmul_plain(
                     codes, A, nb, exact)),
-                library_ms=lib,
-                # each input read once, the output written once; one add
-                # per stat column for every valid code of this data
-                bound=bound_ms(4 * (S * d + S * B + B * d * nb),
-                               int((codes < nb).sum()) * B))
+                library_ms=lib, bound=PH.hist_bound(codes, A, nb))
 
 
 def phase_hist(dev, rng):
@@ -237,17 +189,14 @@ def phase_hist(dev, rng):
     from transmogrifai_tpu_torch.testing import hist_direct
 
     cases = []
-    for tag, real, J, L in (("GBT refit leaves", 1, 2, REFIT_LEAVES),
-                            ("gbt12 refit leaves", 1, 2, 256),
-                            ("RF sweep leaves", 48, 3, REFIT_LEAVES)):
-        codes, A = _leaf_layout_case(dev, rng, real, J, L)
+    for tag, real, B, L in PH.HIST_CASES:
+        codes, A = PH.leaf_inputs(dev, rng, real, B, L)
         cases.append((tag, dict(
             max_abs_err=_check_hist(tag, codes, A, (A * 8).round(), L, True),
             **_time_hist(codes, A, L, True))))
     r = cases[0][1]
     for tag, B, d, nb, exact in (("refit shape, every code valid",
-                                  2 * REFIT_TREES, REFIT_TREES, REFIT_LEAVES,
-                                  True),
+                                  2 * PH.CODES, PH.CODES, 64, True),
                                  ("growth, bf16", 384, N_FEATURES, N_BINS,
                                   False)):
         codes, A, A_int = _hist_case(dev, rng, REFIT_ROWS, d, B, nb)
@@ -417,22 +366,6 @@ def phase_leaf_sums(dev, rng):
     return results
 
 
-def _node_case(dev, rng, S, T, Wl, stride, k, live):
-    """Growth-level inputs on the card: codes (S, 64) in [0, 32] (5% the
-    sentinel), each row's slot per tree among ``live`` slots (stride-scaled;
-    under stride 2 the odd right children add nothing), [0, 1) stats and
-    integer-valued stats."""
-    codes = rng.randint(0, N_BINS, (S, N_FEATURES))
-    codes[rng.rand(S, N_FEATURES) < 0.05] = N_BINS
-    node = rng.randint(0, stride * live, (S, T))
-    return (torch.from_numpy(codes.astype(np.int32)).to(dev),
-            torch.from_numpy(node.astype(np.int64)).to(dev),
-            [torch.from_numpy(rng.rand(S, T).astype(np.float32)).to(dev)
-             for _ in range(k)],
-            [torch.from_numpy(rng.randint(0, 4, (S, T)).astype(
-                np.float32)).to(dev) for _ in range(k)])
-
-
 def phase_node_hist(dev, rng):
     """``node_hist`` against its plain version (the pinned contraction
     over the materialized masked-stat operand), the direct formula at an
@@ -440,14 +373,11 @@ def phase_node_hist(dev, rng):
     (cuBLAS, TF32 off), whose operand is built outside the timing."""
     from transmogrifai_tpu_torch.histeng import kernels as HK
 
-    S = REFIT_ROWS
-    cases = (("RF refit, deepest level", 50, 256, 1, 2, 256),
-             ("GBT depth-6 refit, level 5", 1, 16, 2, 3, 32),
-             ("gbt12 refit, deepest level", 1, 256, 1, 3, 256))
+    S = PH.ROWS
     out = {}
-    for tag, T, Wl, stride, k, live in cases:
-        codes, node, sw, sw_i = _node_case(dev, rng, S, T, Wl, stride, k,
-                                           live)
+    for tag, T, Wl, stride, k, live in PH.NODE_CASES:
+        codes, node, sw = PH.node_inputs(dev, rng, T, Wl, stride, k, live)
+        sw_i = [(s * 4).floor() for s in sw]     # integer-valued, 0..3
 
         def kernel():
             return HK.node_hist_cuda(codes, node, sw, Wl, N_BINS, stride)
@@ -474,9 +404,6 @@ def phase_node_hist(dev, rng):
         with HK._tf32_off():
             lib_ms = time_ms(lambda: A.T @ oh, runs=5, warmup=1)
         del A, oh
-        adds = k * int(((node >= 0) & (node % stride == 0)
-                        & (node < stride * Wl)).sum(1).double()
-                       @ (codes < N_BINS).sum(1).double())
         # the direct formula adds in the kernel's order: the same bits
         if not torch.equal(got.reshape(k * Wl * T, -1),
                            HK.node_hist_direct(codes, node, sw, Wl, N_BINS,
@@ -487,11 +414,7 @@ def phase_node_hist(dev, rng):
             max_abs_err=float((got - want).abs().max()),
             ms=time_ms(kernel), passes=passes(kernel),
             plain_ms=time_ms(plain, runs=5, warmup=1), library_ms=lib_ms,
-            # the codes, the int64 slots and the stats read once, the cells
-            # written once; one add per stat for every valid (row, tree,
-            # code)
-            bound=bound_ms(4 * S * N_FEATURES + 8 * S * T + 4 * k * S * T
-                           + 4 * k * Wl * T * N_FEATURES * N_BINS, adds))
+            bound=PH.node_bound(codes, node, sw, Wl, stride))
         r = out[tag]
         print(f"(b) node_hist {tag} (S {S}, T {T}, Wl {Wl}, stride {stride}, "
               f"k {k}): max_abs_err {r['max_abs_err']:.3g}, {r['ms']:.4f} ms "

@@ -22,6 +22,7 @@ tree tables and kept columns equal, metrics and probabilities within
 """
 from __future__ import annotations
 
+import ctypes
 import os
 import sys
 
@@ -210,10 +211,19 @@ def test_hist_bits_do_not_depend_on_the_launch(cuda, nb, max_cols):
     """The stat tile (the block's width) changes no bit: every sum adds
     its split's rows, the splits and the chunks in one order."""
     codes, A, _ = _hist_inputs(cuda, 31, 9001, 5, 70, nb)
+    codes[:, 1] = nb                       # a column without a valid code
     for exact in (True, False):
         assert torch.equal(
             HK.hist_matmul_cuda(codes, A, nb, exact, max_cols=max_cols),
             HK.hist_matmul_cuda(codes, A, nb, exact))
+
+
+def test_hist_kernel_takes_more_features_than_a_grid_row(cuda):
+    """Features share grid.x with the stat tiles: 70,000 features launch,
+    past grid.y's 65,535."""
+    codes, A, A_int = _hist_inputs(cuda, 32, 40, 70000, 3, 2)
+    got = HK.hist_matmul_cuda(codes, A_int, 2, True)
+    assert torch.equal(got, HK.hist_matmul_plain(codes, A_int, 2, True))
 
 
 @pytest.mark.parametrize("B", [1024, 1025])
@@ -452,8 +462,8 @@ def _node_hist_kernel(codes, node, sw, Wl, nb, stride, **kw):
 #: odd shapes: S prime, d 9, T 1 and 130, stride 1 and 2, the refit
 #: shape of a deep GBT level (T 1, Wl 256), slots of many chunks, d not a
 #: multiple of 4 (codes staged 4 bytes a thread), five stats (two launch
-#: groups over one sort); d 64 and 16 stage the codes as bytes, and 300
-#: bins keep them int32
+#: groups over one sort); d 16 over 2 and 3 trees stages the codes as
+#: bytes, while one tree (d 64) and 300 bins keep them int32
 NODE_CASES = [(509, 9, 1, 1, 1, 11), (509, 9, 1, 6, 2, 11),
               (509, 9, 130, 5, 1, 11), (509, 9, 130, 4, 2, 11),
               (1031, 7, 3, 17, 2, 37), (2003, 64, 1, 256, 1, 32),
@@ -542,6 +552,27 @@ def test_node_hist_on_cuda_never_takes_the_plain_version(cuda, monkeypatch):
     got = HK.node_hist_matmul(codes, node, sw, 8, 32)
     assert HK.NODE_HIST.launches == before + 1
     assert torch.equal(got, _node_hist_kernel(codes, node, sw, 8, 32, 1))
+
+
+def test_node_hist_refuses_a_short_workspace(cuda):
+    """The source lays out its workspaces and says their sizes; a launch
+    given less is refused, not run past the end."""
+    codes, node, sw, _ = _node_case(cuda, 26, 300, 8, 2, 4, 1)
+    S, d, T, Wl, tile = 300, 8, 2, 4, 256
+    n_int, n_float = HK.node_hist_workspace(S, d, T, 3, Wl, 32, tile)
+    iws = torch.empty(n_int, dtype=torch.int32, device=cuda)
+    fws = torch.empty(n_float, dtype=torch.float32, device=cuda)
+    out = torch.empty((3, Wl, T, d, 32), device=cuda)
+    sws = (ctypes.c_void_p * 3)(*(s.data_ptr() for s in sw))
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for ni, nf in ((n_int - 1, n_float), (n_int, n_float - 1)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            HK.NODE_HIST.launch(
+                codes.data_ptr(), node.data_ptr(),
+                ctypes.cast(sws, ctypes.c_void_p), iws.data_ptr(),
+                fws.data_ptr(), out.data_ptr(), ni, nf, S, d, T, 3, Wl, 32, 1,
+                HK.NODE_HIST_CHUNK, 256, tile, 8, 32,
+                torch.cuda.current_device(), stream)
 
 
 def test_node_hist_empty_and_bad_inputs(cuda):

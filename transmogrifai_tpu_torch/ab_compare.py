@@ -5,7 +5,8 @@ turns, on one NVIDIA GPU.
         [--families gbt,gbt12,rf,dt] [--reps 5] [--out FILE]
 
 DIR is another checkout of the repo (for example the parent commit,
-``git archive`` unpacked into a git-ignored directory). The two run in the
+``git archive`` unpacked into a git-ignored directory); ``--families ''``
+times the kernels only. The two run in the
 order parent, change, change, parent; each turn runs
 ``profile_hist.py`` (both kernels at their main-path shapes, pass by
 pass) and ``profile_train --family F`` for each family (warm train
@@ -30,6 +31,9 @@ ROOT = os.path.dirname(HERE)
 # its modules (``types.py``, ...) would shadow the standard library's
 if sys.path and os.path.abspath(sys.path[0] or ".") == HERE:
     sys.path.pop(0)
+sys.path.insert(0, ROOT)
+
+from transmogrifai_tpu_torch.profile_hist import kernel_name  # noqa: E402
 
 
 def run(cmd, cwd) -> list:
@@ -44,10 +48,8 @@ def run(cmd, cwd) -> list:
 
 def kernel_ms(by_kernel: dict, prefix: str) -> float:
     """Device ms of the kernels whose bare name starts with ``prefix``."""
-    def bare(key):
-        head = key.replace("(anonymous namespace)::", "").split("(")[0]
-        return head.split("<")[0].split("::")[-1].strip().split(" ")[-1]
-    return sum(v for k, v in by_kernel.items() if bare(k).startswith(prefix))
+    return sum(v for k, v in by_kernel.items()
+               if kernel_name(k).startswith(prefix))
 
 
 def main() -> int:
@@ -66,7 +68,7 @@ def main() -> int:
         for r in run([sys.executable, os.path.join(HERE, "profile_hist.py"),
                       "--root", root], ROOT):
             rows.append(dict(turn=tag, **r))
-        for fam in args.families.split(","):
+        for fam in filter(None, args.families.split(",")):
             for r in run([sys.executable, "-m",
                           "transmogrifai_tpu_torch.profile_train",
                           "--family", fam, "--reps", str(args.reps)], root):

@@ -49,6 +49,15 @@
 //   a split, splits in order, chunks in the pinned order), whatever the
 //   stat tile or block size, so reruns give the same bits, and
 //   integer-valued stats come out exact (while the sums stay below 2^24).
+// * Every grid dimension that grows with a width is flattened into grid.x,
+//   so no feature or stat count meets grid.y's cap of 65,535.
+// * Not taken: staging A and the codes in shared memory with cp.async,
+//   double-buffered, one staged copy of A shared by a tile of features
+//   (experiments/hist_staged.cu, the same order of sums). It was slower on
+//   the card at every shape timed (PERF.md): the shared-memory adds, not
+//   the L2 reads of A, bound this pass, and staging adds two shared-memory
+//   reads to each add, block barriers to each stage and fewer blocks to
+//   each SM.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (see ops/cuda_build.py). Plain C entry points for
@@ -100,21 +109,22 @@ __global__ void hist_flag_kernel(const int* __restrict__ codes,
   if (threadIdx.x < 32 && f < d && found[fl]) atomicOr(flags + f, 1 << k);
 }
 
-// Pass 1: block (stat tile, f, k). smem: bins[kSplits][nb][at].
+// Pass 1: block (stat tile x feature f, k), stat tiles along grid.x
+// first. smem: bins[kSplits][nb][at].
 __global__ void hist_partial_kernel(const int* __restrict__ codes,
                                     const float* __restrict__ A,
                                     const int* __restrict__ flags,
                                     float* __restrict__ part, int S, int d,
                                     int B, int nb, int rows, int at,
-                                    int exact) {
+                                    int stiles, int exact) {
   extern __shared__ float bins[];
-  const int f = blockIdx.y;
-  const int k = blockIdx.z;
+  const int f = blockIdx.x / stiles;
+  const int k = blockIdx.y;
   if (!(flags[f] >> k & 1)) return;
   const int nt = blockDim.x;
   const int sp = threadIdx.x / at;
   const int al = threadIdx.x - sp * at;
-  const int a0 = blockIdx.x * at;
+  const int a0 = (blockIdx.x - f * stiles) * at;
   const int a = a0 + al;
   for (int i = threadIdx.x; i < kSplits * nb * at; i += nt) bins[i] = 0.f;
   __syncthreads();
@@ -182,15 +192,16 @@ __device__ __forceinline__ float tree_combine(float* v, int K) {
   return v[0];
 }
 
-// Pass 2: block (32 output columns j, 32 stat columns a), 32 x 8 threads.
+// Pass 2: block (32 output columns j, 32 stat columns a), the jt tiles
+// along j first in grid.x, 32 x 8 threads.
 __global__ void hist_combine_kernel(const float* __restrict__ part,
                                     const int* __restrict__ flags,
                                     float* __restrict__ out, int d, int B,
-                                    int nb, int K) {
+                                    int nb, int K, int jt) {
   __shared__ float tile[32][33];
   const int width = d * nb;                  // the wrapper keeps it < 2^31
-  const int j0 = blockIdx.x * 32;
-  const int a0 = blockIdx.y * 32;
+  const int j0 = (blockIdx.x % jt) * 32;
+  const int a0 = (blockIdx.x / jt) * 32;
   const int tx = threadIdx.x & 31;
   const int ty = threadIdx.x >> 5;
   for (int jj = ty; jj < 32; jj += 8) {
@@ -255,15 +266,18 @@ int hist_matmul(const void* codes, const void* A, void* flags, void* part,
   hist_flag_kernel<<<grid0, 256, 0, stream>>>((const int*)codes, (int*)flags,
                                               S, d, nb, rows);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  dim3 grid1((unsigned)((B + at - 1) / at), (unsigned)d, (unsigned)K);
+  // every grid dimension that grows with a width is flattened into
+  // grid.x (2^31 - 1 blocks), never grid.y or grid.z (65,535)
+  const int stiles = (B + at - 1) / at;
+  dim3 grid1((unsigned)((long long)stiles * d), (unsigned)K);
   hist_partial_kernel<<<grid1, kSplits * at, smem, stream>>>(
       (const int*)codes, (const float*)A, (const int*)flags, (float*)part, S,
-      d, B, nb, rows, at, exact);
+      d, B, nb, rows, at, stiles, exact);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const long long width = (long long)d * nb;
-  dim3 grid2((unsigned)((width + 31) / 32), (unsigned)((B + 31) / 32));
-  hist_combine_kernel<<<grid2, 256, 0, stream>>>(
-      (const float*)part, (const int*)flags, (float*)out, d, B, nb, K);
+  const long long jt = ((long long)d * nb + 31) / 32;
+  hist_combine_kernel<<<(unsigned)(jt * ((B + 31) / 32)), 256, 0, stream>>>(
+      (const float*)part, (const int*)flags, (float*)out, d, B, nb, K,
+      (int)jt);
   return (int)cudaGetLastError();
 }
 

@@ -46,10 +46,12 @@
 // * Pass B, block (chunk, tree): the chunk's rows are staged into shared
 //   memory in sub-tiles with cp.async (each row's d codes, 16 bytes a
 //   thread when the row allows it, and its k stats, rounded to bf16 once),
-//   double-buffered, so the adds wait on shared memory only. Where nb <=
-//   255 and d % 16 == 0 a pre-pass packs the codes into bytes once a call,
-//   so the blocks stage a quarter of the bytes: at an RF refit level they
-//   re-read each row's codes once per tree, 252 MB as int32. One thread
+//   double-buffered, so the adds wait on shared memory only. Where the
+//   blocks stage each row's codes once per tree (T > 1: 252 MB as int32 at
+//   an RF refit level), nb <= 255 and d % 16 == 0, a pre-pass packs the
+//   codes into bytes once a call, so they stage a quarter of the bytes
+//   (pass B 21% faster at the RF refit's deepest level; at one tree the
+//   pre-pass costs more than it saves, PERF.md). One thread
 //   per (stat, feature) pair (pairs beyond the block run in further
 //   groups) owns nb f32 bins in shared memory, bin b of thread q at
 //   b * threads + q: the lanes of a warp add into 32 distinct banks
@@ -559,21 +561,33 @@ const char* tg_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
+// The workspace sizes node_hist takes for these arguments: *n_int int32
+// and *n_float f32 elements.
+int node_hist_workspace(int S, int d, int T, int k, int Wl, int nb,
+                        int chunk, int tile_rows, long long* n_int,
+                        long long* n_float) {
+  if (S < 1 || d < 1 || T < 1 || k < 1 || Wl < 1 || nb < 1 || chunk < 1 ||
+      tile_rows < 1)
+    return (int)cudaErrorInvalidValue;
+  const Layout L = layout(S, d, T, k, Wl, nb, chunk, tile_rows);
+  *n_int = L.ints;
+  *n_float = L.floats;
+  return 0;
+}
+
 // codes (S, d) int32; node (S, T) int64; sw: k pointers (host array) to
-// (S, T) f32 stats; iws (int32) and fws (f32): workspaces of Layout's
-// sizes, T * (Wl * ceil(S / tile_rows) + 4 * (Wl + 1) + 4 * (Wl +
-// ceil(S / chunk)) + 2 S) + ceil(S * d / 4) ints (16-byte aligned) and
-// T * ceil(S / chunk) * min(k, 4) * d * nb floats ->
-// out (k, Wl, T, d, nb) f32. chunk (rows per chunk) is part of the
+// (S, T) f32 stats; iws (int32, 16-byte aligned) and fws (f32):
+// workspaces of n_int and n_float elements, at least what
+// node_hist_workspace gives -> out (k, Wl, T, d, nb) f32. chunk (rows per chunk) is part of the
 // function: it sets the order of the sums. max_threads bounds pass B's
 // block (a multiple of 32), tile_rows and sort_warps set pass A's tiles
 // and scatter warps, stage_rows pass B's sub-tile; none changes a bit of
 // the result.
 int node_hist(const void* codes, const void* node, const void* const* sw,
-              void* iws, void* fws, void* out, int S, int d, int T, int k,
-              int Wl, int nb, int stride, int chunk, int max_threads,
-              int tile_rows, int sort_warps, int stage_rows, int device,
-              void* stream_) {
+              void* iws, void* fws, void* out, long long n_int,
+              long long n_float, int S, int d, int T, int k, int Wl, int nb,
+              int stride, int chunk, int max_threads, int tile_rows,
+              int sort_warps, int stage_rows, int device, void* stream_) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (S < 1 || d < 1 || T < 1 || T > 65535 || k < 1 || Wl < 1 || nb < 1 ||
@@ -583,6 +597,7 @@ int node_hist(const void* codes, const void* node, const void* const* sw,
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_;
   const Layout L = layout(S, d, T, k, Wl, nb, chunk, tile_rows);
+  if (n_int < L.ints || n_float < L.floats) return (int)cudaErrorInvalidValue;
   int* iw = (int*)iws;
   int* counts = iw + L.counts;
   int* meta = iw + L.meta;
@@ -615,9 +630,10 @@ int node_hist(const void* codes, const void* node, const void* const* sw,
   node_scatter_kernel<<<grid_a, warps * 32, smem_s, stream>>>(
       slots, counts, rows, S, Wl, tile_rows);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  // the codes as bytes where they fit and the rows stay 16-byte aligned
+  // the codes as bytes where pass B stages each row's codes more than
+  // once (once a tree), they fit and the rows stay 16-byte aligned
   const bool aligned = ((uintptr_t)codes & 15) == 0;
-  const bool bytes = nb <= 255 && d % 16 == 0 && aligned;
+  const bool bytes = T > 1 && nb <= 255 && d % 16 == 0 && aligned;
   const void* pcodes = codes;
   if (bytes) {
     const long long n4 = (long long)S * d / 4;

@@ -62,7 +62,7 @@ HIST_MATMUL = cuda_build.CudaKernel(
 
 NODE_HIST = cuda_build.CudaKernel(
     "node_hist", "node_hist.cu", "docs/experiments/node_hist_pallas.py:62",
-    [_P] * 6 + [_I] * 13 + [_P])
+    [_P] * 6 + [ctypes.c_longlong] * 2 + [_I] * 13 + [_P])
 
 KERNELS = (HIST_MATMUL, NODE_HIST)
 
@@ -82,9 +82,6 @@ NODE_HIST_CHUNK = 128
 NODE_HIST_THREADS = 256
 NODE_SORT_WARPS = 8
 NODE_STAGE_ROWS = 32
-#: most stat tensors a node-histogram launch group takes (node_hist.cu
-#: kMaxStats): more stats share one sort over several groups
-NODE_STAT_GROUP = 4
 
 
 def _pad_to(x: int, m: int) -> int:
@@ -302,6 +299,21 @@ def _sort_tile(S: int, T: int, Wl: int) -> int:
     return max(256, -(-S // tiles))
 
 
+def node_hist_workspace(S: int, d: int, T: int, k: int, Wl: int,
+                        n_bins: int, tile_rows: int) -> tuple:
+    """(int32, f32) element counts of the workspaces ``node_hist`` takes
+    for these arguments, as its source lays them out."""
+    n = (ctypes.c_longlong(), ctypes.c_longlong())
+    err = NODE_HIST.entry("node_hist_workspace", [_I] * 8 + [
+        ctypes.POINTER(ctypes.c_longlong)] * 2)(
+        S, d, T, k, Wl, n_bins, NODE_HIST_CHUNK, tile_rows,
+        ctypes.byref(n[0]), ctypes.byref(n[1]))
+    if err:
+        raise ValueError(f"bad node histogram: S {S}, d {d}, T {T}, k {k}, "
+                         f"Wl {Wl}, n_bins {n_bins}, tile rows {tile_rows}")
+    return n[0].value, n[1].value
+
+
 def node_hist_cuda(codes: torch.Tensor, node: torch.Tensor,
                    sw_list: Sequence[torch.Tensor], Wl: int, n_bins: int,
                    stride: int = 1, threads: int = NODE_HIST_THREADS,
@@ -331,27 +343,19 @@ def node_hist_cuda(codes: torch.Tensor, node: torch.Tensor,
         raise ValueError(f"{T} trees exceed the kernel's grid")
     tile = tile_rows or _sort_tile(S, T, Wl)
     tiles = -(-S // tile)
-    n_chunks = -(-S // NODE_HIST_CHUNK)
-    # the int workspace: each chunk's record (T, Wl + n_chunks, 4), the
-    # codes as bytes (S * d), counts (T, Wl, tiles), meta (T, 3, Wl + 1),
-    # the multi-chunk segment lists (T, Wl + 1), each row's slot and the
-    # sorted rows (T, S) each; the f32 one: the chunks after the first of
-    # long segments, fewer than n_chunks a tree (node_hist.cu ``layout``)
-    n_int = (T * (4 * (Wl + n_chunks) + Wl * tiles + 4 * (Wl + 1) + 2 * S)
-             + -(-S * d // 4))
-    n_float = T * n_chunks * min(k, NODE_STAT_GROUP) * d * n_bins
     check_int32(S * d, S * T, Wl * tiles + Wl + S, d * n_bins * k)
     out = torch.empty((k, Wl, T, d, n_bins), dtype=torch.float32,
                       device=dev)
     if S == 0 or T == 0 or d == 0 or k == 0:
         return out.zero_()
+    n_int, n_float = node_hist_workspace(S, d, T, k, Wl, n_bins, tile)
     iws = torch.empty(n_int, dtype=torch.int32, device=dev)
     fws = torch.empty(n_float, dtype=torch.float32, device=dev)
     sws = (ctypes.c_void_p * k)(*(sw.data_ptr() for sw in sw_list))
     NODE_HIST.launch(ptr(codes), ptr(node), ctypes.cast(sws, ctypes.c_void_p),
-                     ptr(iws), ptr(fws), ptr(out), S, d, T, k, Wl, n_bins,
-                     stride, NODE_HIST_CHUNK, threads, tile, sort_warps,
-                     stage_rows, dev.index,
+                     ptr(iws), ptr(fws), ptr(out), n_int, n_float, S, d, T,
+                     k, Wl, n_bins, stride, NODE_HIST_CHUNK, threads, tile,
+                     sort_warps, stage_rows, dev.index,
                      torch.cuda.current_stream(dev).cuda_stream)
     return out
 

@@ -143,13 +143,18 @@ class CudaKernel:
         self.launches = 0
         self._fn = None                 # the bound entry, after first use
 
+    def entry(self, name: str, argtypes):
+        """Another C entry of this kernel's library (a host-side helper,
+        which launches nothing), returning int."""
+        fn = getattr(load(self.source), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        return fn
+
     def launch(self, *args) -> None:
         fn = self._fn
         if fn is None:
-            fn = getattr(load(self.source), self.name)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            self._fn = fn
+            fn = self._fn = self.entry(self.name, self.argtypes)
         err = fn(*args)
         if err != 0:
             msg = load(self.source).tg_cuda_error_string(err).decode()

@@ -44,31 +44,33 @@ if sys.path and os.path.abspath(sys.path[0] or ".") == os.path.dirname(
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-#: H100 SXM data-sheet peaks (as ``chip_smoke.py``)
+#: H100 SXM data-sheet peaks
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
+#: the refit's padded row count, the serve bench's codes and growth bins
 ROWS, CODES, NODE_BINS = 19712, 64, 32
 
-#: (tag, T, Wl, stride, k, live slots)
-NODE_CASES = (("node_hist RF refit, deepest level", 50, 256, 1, 2, 256),
-              ("node_hist GBT depth-6 refit, level 5", 1, 16, 2, 3, 32),
-              ("node_hist gbt12 refit, deepest level", 1, 256, 1, 3, 256),
-              ("node_hist GBT level 0", 1, 1, 1, 3, 1))
-#: (tag, real tree columns, stat columns, leaves)
-HIST_CASES = (("hist_matmul GBT refit leaves", 1, 128, 64),
-              ("hist_matmul gbt12 refit leaves", 1, 128, 256),
-              ("hist_matmul RF sweep leaves", 48, 192, 64))
+#: the main-path shapes, shared with ``chip_smoke.py``:
+#: ``node_hist`` (tag, T, Wl, stride, k, live slots)
+NODE_CASES = (("RF refit, deepest level", 50, 256, 1, 2, 256),
+              ("GBT depth-6 refit, level 5", 1, 16, 2, 3, 32),
+              ("gbt12 refit, deepest level", 1, 256, 1, 3, 256),
+              ("GBT level 0", 1, 1, 1, 3, 1))
+#: ``hist_matmul`` (tag, real tree columns, stat columns, leaves)
+HIST_CASES = (("GBT refit leaves", 1, 128, 64),
+              ("gbt12 refit leaves", 1, 128, 256),
+              ("RF sweep leaves", 48, 192, 64))
 
 
 def bound_ms(nbytes: int, ops: int):
     """Least time for the work: bytes over HBM rate vs operations over the
-    fp32 non-tensor peak."""
+    fp32 non-tensor peak (the data sheet gives no separate int32 rate)."""
     tb, to = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 
-def time_ms(fn, runs: int, warmup: int = 3) -> float:
+def time_ms(fn, runs: int = 25, warmup: int = 3) -> float:
     """Median of ``runs`` CUDA-event timings of ``fn()`` after warm-up."""
     for _ in range(warmup):
         fn()
@@ -141,8 +143,10 @@ def node_bound(codes, node, sw, Wl, stride):
 
 def leaf_inputs(dev, rng, real, B, L):
     """``_diag_leaf_hist``'s layout: 64 tree columns, the first ``real``
-    holding leaf ids and the rest the sentinel L; the stat columns of the
-    real trees carry [0, 1) values, the padded trees' are zero."""
+    holding leaf ids and the rest the sentinel L; B // 64 stats per tree
+    (stat column j * 64 + t: G and H at a GBT refit, two class counts and
+    the weight at the RF sweep), [0, 1) for the real trees, zero for the
+    padded ones."""
     codes = np.full((ROWS, CODES), L, np.int32)
     codes[:, :real] = rng.randint(0, L, (ROWS, real))
     A = np.zeros((ROWS, B), np.float32)
@@ -172,7 +176,7 @@ def profile(runs: int) -> list:
         def call():
             return HK.node_hist_matmul(codes, node, sw, Wl, NODE_BINS, stride)
         b = node_bound(codes, node, sw, Wl, stride)
-        rows.append(dict(case=tag, ms=time_ms(call, runs),
+        rows.append(dict(case="node_hist " + tag, ms=time_ms(call, runs),
                          passes_ms=pass_ms(call, runs), bound_ms=b[0],
                          bound_by=b[1]))
     for tag, real, B, L in HIST_CASES:
@@ -184,7 +188,7 @@ def profile(runs: int) -> list:
         with HK._tf32_off():
             lib = time_ms(lambda: A.T @ oh, runs)
         b = hist_bound(codes, A, L)
-        rows.append(dict(case=tag, ms=time_ms(call, runs),
+        rows.append(dict(case="hist_matmul " + tag, ms=time_ms(call, runs),
                          passes_ms=pass_ms(call, runs), bound_ms=b[0],
                          bound_by=b[1], library_ms=lib))
         del oh
