@@ -17,9 +17,11 @@ Phases, in order; any failure exits nonzero:
       across reruns, and bit-equal to the direct formula (rows added in
       the kernel's order) there and at an odd shape; the library route is
       one f32 matmul over the materialized masked-stat operand;
-    - the forest descents at the serve shapes (65,536 rows, 32 bins; RF
-      slot chain T=50 depth 12 W=256, GBT heap T=20 depth 6, k=1): leaf
-      ids exactly, sums within rtol 1e-5 / atol 1e-6;
+    - the forest descents at the serve shapes (65,536 rows, 32 bins, k=1;
+      RF slot chains T=50 depth 12 W=256, ``gbt12`` slot chains T=20
+      depth 12 W=256, GBT heaps T=20 depth 6): leaf ids exactly, sums
+      bit-equal to the plain version (both add the trees in order) and
+      across reruns;
     - the leaf sums at the refit shapes (19,712 rows x 64 codes, k=3: the
       RF refit's chain T=50 depth 12 W=256, the DT refit's heap T=1 depth
       6, and a heap T=50 depth 6): within rtol 1e-5 / atol 1e-6 of the
@@ -39,6 +41,10 @@ Phases, in order; any failure exits nonzero:
       direct float64 formula. Both histogram kernels print their time
       split by pass (``torch.profiler``) beside the library call's time
       and the bound;
+    - both histogram kernels on stats with one NaN, one +Inf, one -Inf, a
+      +Inf/-Inf pair or a finite value that rounds to +Inf in bf16, on
+      the 16-row input of the roadmap's fault and at main-path shapes: the
+      plain version's NaN cells and every other cell's bits;
 (t) train: rebuild the serve bench's 20,000 x 64 frame and train four
     pinned workflows on the card (``OpWorkflow().train()``): GBT (depth 6,
     20 rounds, heaps), ``gbt12`` (GBT depth 12, 20 rounds, slot chains),
@@ -441,71 +447,162 @@ def phase_node_hist(dev, rng):
     return out["RF refit, deepest level"]
 
 
-def phase_kernels(dev):
-    """Each kernel against its plain version at its path's shapes."""
+def _predict_case(dev, rng, tag, T, depth, W):
+    """A forest descent at a serve shape (W None: heaps) against its plain
+    version: sums bit-equal, leaf ids exact, reruns bit-equal; its time,
+    the plain version's and the bound."""
     from transmogrifai_tpu_torch.ops import forest as F
     from transmogrifai_tpu_torch.testing import random_chain, random_heap
 
+    if W is None:
+        f = {key: torch.from_numpy(v).to(dev) for key, v in random_heap(
+            rng, N_ROWS, N_FEATURES, T, depth, 1, N_BINS).items()}
+        args = (f["codes"], f["feat"], f["bins"], f["leaf"])
+
+        def kernel(with_ids=False):
+            return F.forest_predict_heap_cuda(*args, depth=depth,
+                                              n_bins=N_BINS,
+                                              with_ids=with_ids)
+
+        def plain():
+            return F.forest_predict_plain(*args, depth=depth, n_bins=N_BINS)
+        want_ids = F.route_codes(*args[:3], depth, N_BINS)
+        nbytes = 4 * (_codes_read(*args[:3], depth=depth)
+                      + 2 * f["feat"].numel())
+    else:
+        f = {key: torch.from_numpy(v).to(dev) for key, v in random_chain(
+            rng, N_ROWS, N_FEATURES, T, depth, W, 1, N_BINS).items()}
+        args = (f["codes"], f["feat"], f["bins"], f["base"], f["leaf"])
+
+        def kernel(with_ids=False):
+            return F.forest_predict_chain_cuda(*args, n_bins=N_BINS,
+                                               with_ids=with_ids)
+
+        def plain():
+            return F.forest_predict_chain_plain(*args, n_bins=N_BINS)
+        want_ids = F.route_codes_chain(*args[:4], N_BINS)
+        slots = sum(min(2 ** lv, W) for lv in range(depth))
+        nbytes = 4 * (_codes_read(*args[:3], base=f["base"])
+                      + T * slots * 3)
+    got, ids = kernel(with_ids=True)
+    want = plain()
+    torch.cuda.synchronize()
+    if not torch.equal(ids, want_ids):
+        raise AssertionError(f"forest predict ({tag}): leaf ids differ from "
+                             f"the plain routing")
+    if not torch.equal(got, want):
+        raise AssertionError(f"forest predict ({tag}): sums differ from the "
+                             f"plain version's bits (max "
+                             f"{float((got - want).abs().max())})")
+    if not torch.equal(got, kernel()[0]):
+        raise AssertionError(f"forest predict ({tag}): reruns differ")
+    # the codes the paths split on, the used table slots, the leaves and
+    # the output once; per row and tree one step a level and one add
+    nbytes += 4 * (f["leaf"].numel() + N_ROWS)
+    return dict(max_abs_err=float((got - want).abs().max()),
+                ms=time_ms(lambda: kernel()[0]), plain_ms=time_ms(plain),
+                bound=bound_ms(nbytes, N_ROWS * T * (depth + 1)))
+
+
+#: non-finite stats: one NaN, one +Inf, one -Inf, a +Inf/-Inf pair and a
+#: finite value that rounds to +Inf in bf16
+NONFINITE = {"nan": [float("nan")], "+inf": [float("inf")],
+             "-inf": [-float("inf")],
+             "+inf/-inf": [float("inf"), -float("inf")],
+             "bf16 overflow": [3.4e38]}
+
+
+def _same_or_nan(tag, got, want):
+    got, want = got.cpu(), want.cpu()
+    nan = torch.isnan(want)
+    if not (torch.equal(torch.isnan(got), nan) and torch.equal(
+            got[~nan].view(torch.int32), want[~nan].view(torch.int32))):
+        raise AssertionError(f"{tag}: non-finite stats spread otherwise than "
+                             f"in the plain version")
+
+
+def phase_nonfinite(dev):
+    """Both histogram kernels on stats with non-finite values, against the
+    plain versions: the same NaN cells, the same bits in every other cell
+    (integer-valued stats), on the roadmap's 16-row input (plain on the
+    CPU) and at main-path shapes (``hist_matmul`` the GBT refit's stat
+    width with a column all sentinel, plain on the CPU; ``node_hist`` the RF
+    refit's deepest level, byte codes, and the GBT refit's level 5, plain
+    on the card)."""
+    from transmogrifai_tpu_torch.histeng import kernels as HK
+
+    rng = np.random.RandomState(11)
+    rm = torch.tensor([[0, 1], [1, 0], [2, 2], [0, 3]] * 4, dtype=torch.int32)
+    n = 0
+    for kind, vals in NONFINITE.items():
+        def spoil(x, rows, cols):
+            x = x.clone()
+            for v in vals:
+                x[int(rng.choice(rows)), int(rng.choice(cols))] = v
+            return x
+        for exact in (True, False):
+            A = spoil(torch.ones(16, 2), [2, 3, 6], [0])
+            _same_or_nan(f"hist_matmul ({kind}, roadmap input)",
+                         HK.hist_matmul_cuda(rm.to(dev), A.to(dev), 3, exact),
+                         HK.hist_matmul_plain(rm, A, 3, exact))
+            codes = torch.from_numpy(rng.randint(0, N_BINS + 1, (
+                PH.ROWS, N_FEATURES)).astype(np.int32))
+            codes[:, 5] = N_BINS                   # a column all sentinel
+            A = spoil(torch.from_numpy(rng.randint(-3, 4, (
+                PH.ROWS, 128)).astype(np.float32)), np.arange(PH.ROWS),
+                [0, 64, 127])
+            _same_or_nan(f"hist_matmul ({kind}, {PH.ROWS} x {N_FEATURES})",
+                         HK.hist_matmul_cuda(codes.to(dev), A.to(dev),
+                                             N_BINS, exact),
+                         HK.hist_matmul_plain(codes, A, N_BINS, exact))
+            n += 2
+        sw = [spoil(torch.ones(16, 1), [2, 3, 6], [0]), torch.ones(16, 1)]
+        node = torch.tensor([[0], [1]] * 8, dtype=torch.int64)
+        _same_or_nan(f"node_hist ({kind}, roadmap input)",
+                     HK.node_hist_matmul(rm.to(dev), node.to(dev),
+                                         [s.to(dev) for s in sw], 2, 3),
+                     HK.node_hist_plain(rm, node, sw, 2, 3))
+        for tag, T, Wl, stride, k, live in PH.NODE_CASES[:2]:
+            codes = torch.from_numpy(rng.randint(0, N_BINS + 1, (
+                PH.ROWS, N_FEATURES)).astype(np.int32))
+            node = torch.from_numpy(rng.randint(-1, stride * live + 1, (
+                PH.ROWS, T)))
+            sw = [torch.from_numpy(rng.randint(-3, 4, (PH.ROWS, T)).astype(
+                np.float32)) for _ in range(k)]
+            sw[1] = spoil(sw[1], np.arange(PH.ROWS), np.arange(T))
+            codes, node, sw = codes.to(dev), node.to(dev), [
+                s.to(dev) for s in sw]
+            _same_or_nan(f"node_hist ({kind}, {tag})",
+                         HK.node_hist_matmul(codes, node, sw, Wl, N_BINS,
+                                             stride),
+                         HK.node_hist_plain(codes, node, sw, Wl, N_BINS,
+                                            stride))
+            n += 1
+        n += 1
+    print(f"(b) non-finite stats ({', '.join(NONFINITE)}): hist_matmul and "
+          f"node_hist give the plain versions' NaN cells and every other "
+          f"cell's bits in {n} cases")
+
+
+def phase_kernels(dev):
+    """Each kernel against its plain version at its path's shapes."""
     rng = np.random.RandomState(0)
     results = {"hist_matmul": phase_hist(dev, rng)}
     results["node_hist"] = phase_node_hist(dev, rng)
     results.update(phase_leaf_sums(dev, rng))
 
-    # RF: slot chain, T=50, depth 12, W=256, k=1
-    T, depth, W, k = 50, 12, 256, 1
-    c = {key: torch.from_numpy(v).to(dev) for key, v in random_chain(
-        rng, N_ROWS, N_FEATURES, T, depth, W, k, N_BINS).items()}
-    args = (c["codes"], c["feat"], c["bins"], c["base"], c["leaf"])
-    got, ids = F.forest_predict_chain_cuda(*args, with_ids=True)
-    want_ids = F.route_codes_chain(c["codes"], c["feat"], c["bins"],
-                                   c["base"], N_BINS)
-    want = F.forest_predict_chain_plain(*args, n_bins=N_BINS)
-    torch.cuda.synchronize()
-    if not torch.equal(ids, want_ids):
-        raise AssertionError("forest_predict_chain: leaf slots differ from "
-                             "route_codes_chain")
-    torch.testing.assert_close(got, want, rtol=SUM_RTOL, atol=SUM_ATOL)
-    slots = sum(min(2 ** lv, W) for lv in range(depth))
-    nbytes = 4 * (_codes_read(c["codes"], c["feat"], c["bins"],
-                              base=c["base"]) + T * slots * 3
-                  + c["leaf"].numel() + N_ROWS * k)
-    results["forest_predict_chain"] = dict(
-        max_abs_err=float((got - want).abs().max()),
-        ms=time_ms(lambda: F.forest_predict_chain_cuda(*args)),
-        plain_ms=time_ms(lambda: F.forest_predict_chain_plain(
-            *args, n_bins=N_BINS)),
-        bound=bound_ms(nbytes, N_ROWS * T * (depth + k)))
-
-    # GBT: complete heap, T=20, depth 6, k=1
-    T, depth, k = 20, 6, 1
-    h = {key: torch.from_numpy(v).to(dev) for key, v in random_heap(
-        rng, N_ROWS, N_FEATURES, T, depth, k, N_BINS).items()}
-    args = (h["codes"], h["feat"], h["bins"], h["leaf"])
-    got, ids = F.forest_predict_heap_cuda(*args, depth=depth, with_ids=True)
-    want_ids = F.route_codes(h["codes"], h["feat"], h["bins"], depth,
-                             N_BINS)
-    want = F.forest_predict_plain(*args, depth=depth, n_bins=N_BINS)
-    torch.cuda.synchronize()
-    if not torch.equal(ids, want_ids):
-        raise AssertionError("forest_predict_heap: leaf ids differ from "
-                             "route_codes")
-    torch.testing.assert_close(got, want, rtol=SUM_RTOL, atol=SUM_ATOL)
-    nbytes = 4 * (_codes_read(h["codes"], h["feat"], h["bins"],
-                              depth=depth) + 2 * h["feat"].numel()
-                  + h["leaf"].numel() + N_ROWS * k)
-    results["forest_predict_heap"] = dict(
-        max_abs_err=float((got - want).abs().max()),
-        ms=time_ms(lambda: F.forest_predict_heap_cuda(*args, depth=depth)),
-        plain_ms=time_ms(lambda: F.forest_predict_plain(
-            *args, depth=depth, n_bins=N_BINS)),
-        bound=bound_ms(nbytes, N_ROWS * T * (depth + k)))
-    for name, r in results.items():
-        if name in ("hist_matmul", "node_hist") or \
-                name.startswith("forest_leaf_sums"):
-            continue
-        print(f"(b) {name}: max_abs_err {r['max_abs_err']:.3g}, "
-              f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound "
+    # the serve shapes: RF and gbt12 slot chains, GBT heaps (k=1)
+    for name, tag, T, depth, W in (
+            ("forest_predict_chain", "RF serve", 50, 12, 256),
+            ("forest_predict_chain", "gbt12 serve", 20, 12, 256),
+            ("forest_predict_heap", "GBT serve", 20, 6, None)):
+        r = _predict_case(dev, rng, tag, T, depth, W)
+        print(f"(b) {name} {tag} (T {T}, depth {depth}"
+              f"{'' if W is None else f', W {W}'}): bit-equal to plain, ids "
+              f"exact, {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound "
               f"{r['bound'][0]:.5f} ms by {r['bound'][1]})")
+        results.setdefault(name, r)          # RF's chain, GBT's heap
+    phase_nonfinite(dev)
     return results
 
 

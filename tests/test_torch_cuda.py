@@ -6,12 +6,12 @@ JAX nor the JAX package, so on a GPU machine without JAX they run alone::
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Tolerances: leaf ids and slots exactly; the node histogram bit-equal to
+Tolerances: leaf ids and slots exactly, forest predict sums bit-equal to
+their plain versions (both add the trees one at a time in ascending
+order); the node histogram bit-equal to
 its direct formula (both add the rows in order), rtol 1e-5, atol 1e-6
 against its plain version (cuBLAS's order), equal on integer-valued
-stats and across launch shapes; forest sums rtol 1e-5, atol 1e-6
-(both add the trees one at a time in ascending order, so they agree to the
-bit unless the compiler reorders the kernel's additions); histograms and
+stats and across launch shapes; histograms and
 leaf sums rtol 1e-5, atol 1e-6 against the plain version and the direct
 float64 formula on [0, 1) stats (the plain versions sum in another order:
 cuBLAS's per row chunk, or one pass over all rows, where the kernels add
@@ -64,14 +64,14 @@ def test_heap_kernel_matches_plain(cuda, depth, T, k):
     h = _on(cuda, random_heap(rng, 1001, 13, T, depth, k, 32))
     args = (h["codes"], h["feat"], h["bins"], h["leaf"])
     before = F.FOREST_PREDICT_HEAP.launches
-    got, ids = F.forest_predict_heap_cuda(*args, depth=depth, with_ids=True)
+    got, ids = F.forest_predict_heap_cuda(*args, depth=depth, n_bins=32,
+                                          with_ids=True)
     assert F.FOREST_PREDICT_HEAP.launches == before + 1
     torch.cuda.synchronize()
     assert torch.equal(ids, F.route_codes(h["codes"], h["feat"], h["bins"],
                                           depth, 32))
-    torch.testing.assert_close(
-        got, F.forest_predict_plain(*args, depth=depth, n_bins=32),
-        rtol=RTOL, atol=ATOL)
+    assert torch.equal(got, F.forest_predict_plain(*args, depth=depth,
+                                                   n_bins=32))
     # the public entry routes a CUDA tensor to the kernel
     torch.testing.assert_close(
         F.forest_predict(*args, depth=depth, n_bins=32), got, rtol=0, atol=0)
@@ -84,13 +84,11 @@ def test_chain_kernel_matches_plain(cuda, W, k):
     rng = np.random.RandomState(W * 10 + k)
     c = _on(cuda, random_chain(rng, 777, 9, 33, 12, W, k, 32))
     args = (c["codes"], c["feat"], c["bins"], c["base"], c["leaf"])
-    got, ids = F.forest_predict_chain_cuda(*args, with_ids=True)
+    got, ids = F.forest_predict_chain_cuda(*args, n_bins=32, with_ids=True)
     torch.cuda.synchronize()
     assert torch.equal(ids, F.route_codes_chain(c["codes"], c["feat"],
                                                 c["bins"], c["base"], 32))
-    torch.testing.assert_close(
-        got, F.forest_predict_chain_plain(*args, n_bins=32),
-        rtol=RTOL, atol=ATOL)
+    assert torch.equal(got, F.forest_predict_chain_plain(*args, n_bins=32))
 
 
 def test_deep_chain_opts_into_large_shared_memory(cuda):
@@ -98,10 +96,8 @@ def test_deep_chain_opts_into_large_shared_memory(cuda):
     rng = np.random.RandomState(5)
     c = _on(cuda, random_chain(rng, 300, 7, 3, 40, 256, 2, 32))
     args = (c["codes"], c["feat"], c["bins"], c["base"], c["leaf"])
-    got, _ = F.forest_predict_chain_cuda(*args)
-    torch.testing.assert_close(
-        got, F.forest_predict_chain_plain(*args, n_bins=32),
-        rtol=RTOL, atol=ATOL)
+    got, _ = F.forest_predict_chain_cuda(*args, n_bins=32)
+    assert torch.equal(got, F.forest_predict_chain_plain(*args, n_bins=32))
 
 
 def test_out_of_range_features_read_code_zero(cuda):
@@ -111,39 +107,155 @@ def test_out_of_range_features_read_code_zero(cuda):
     h["feat"][:, 1] = -3
     h = _on(cuda, h)
     args = (h["codes"], h["feat"], h["bins"], h["leaf"])
-    got, ids = F.forest_predict_heap_cuda(*args, depth=3, with_ids=True)
+    got, ids = F.forest_predict_heap_cuda(*args, depth=3, n_bins=32,
+                                          with_ids=True)
     assert torch.equal(ids, F.route_codes(h["codes"], h["feat"], h["bins"],
                                           3, 32))
-    torch.testing.assert_close(
-        got, F.forest_predict_plain(*args, depth=3, n_bins=32),
-        rtol=RTOL, atol=ATOL)
+    assert torch.equal(got, F.forest_predict_plain(*args, depth=3,
+                                                   n_bins=32))
 
 
 def test_empty_batch_and_bad_inputs(cuda):
     rng = np.random.RandomState(7)
     h = _on(cuda, random_heap(rng, 0, 4, 3, 2, 1, 32))
     out, _ = F.forest_predict_heap_cuda(h["codes"], h["feat"], h["bins"],
-                                        h["leaf"], depth=2)
+                                        h["leaf"], depth=2, n_bins=32)
     assert out.shape == (0, 1)
     h = _on(cuda, random_heap(rng, 10, 4, 3, 2, 1, 32))
     with pytest.raises(TypeError):
         F.forest_predict_heap_cuda(h["codes"].long(), h["feat"], h["bins"],
-                                   h["leaf"], depth=2)
+                                   h["leaf"], depth=2, n_bins=32)
     with pytest.raises(ValueError):
         F.forest_predict_heap_cuda(h["codes"][:, ::2], h["feat"], h["bins"],
-                                   h["leaf"], depth=2)
+                                   h["leaf"], depth=2, n_bins=32)
     with pytest.raises(ValueError):
         F.forest_predict_heap_cuda(h["codes"], h["feat"].cpu(), h["bins"],
-                                   h["leaf"], depth=2)
+                                   h["leaf"], depth=2, n_bins=32)
 
 
 def test_reruns_give_the_same_bits(cuda):
     rng = np.random.RandomState(8)
     c = _on(cuda, random_chain(rng, 4096, 16, 50, 12, 256, 1, 32))
     args = (c["codes"], c["feat"], c["bins"], c["base"], c["leaf"])
-    a, _ = F.forest_predict_chain_cuda(*args)
-    b, _ = F.forest_predict_chain_cuda(*args)
+    a, _ = F.forest_predict_chain_cuda(*args, n_bins=32)
+    b, _ = F.forest_predict_chain_cuda(*args, n_bins=32)
     assert torch.equal(a, b)
+
+
+def _check_predict(f, depth, W, nb=32, **kw):
+    """The kernel of a heap (W None) or chain forest against its plain
+    version: sums bit-equal, leaf ids equal, reruns bit-equal."""
+    if W is None:
+        args = (f["codes"], f["feat"], f["bins"], f["leaf"])
+        got, ids = F.forest_predict_heap_cuda(*args, depth=depth, n_bins=nb,
+                                              with_ids=True, **kw)
+        want = F.forest_predict_plain(*args, depth=depth, n_bins=nb)
+        want_ids = F.route_codes(*args[:3], depth, nb)
+        again = F.forest_predict_heap_cuda(*args, depth=depth, n_bins=nb,
+                                           **kw)[0]
+    else:
+        args = (f["codes"], f["feat"], f["bins"], f["base"], f["leaf"])
+        got, ids = F.forest_predict_chain_cuda(*args, n_bins=nb,
+                                               with_ids=True, **kw)
+        want = F.forest_predict_chain_plain(*args, n_bins=nb)
+        want_ids = F.route_codes_chain(*args[:4], nb)
+        again = F.forest_predict_chain_cuda(*args, n_bins=nb, **kw)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(ids, want_ids)
+    assert torch.equal(got, want)
+    assert torch.equal(again, got)
+    return got
+
+
+#: (n, T, depth, W): rows not a multiple of a block's (nor of 32), trees
+#: past one stage of records (RF: T 50 and 57 at depth 12, W 256 take
+#: tiles of trees, double-buffered), trees not a multiple of the four a
+#: thread walks, W 1, 3, 64 and 256, depth 1 to 12; 16 codes, so that
+#: only the one-tree depth-1 forest reads its codes in place
+PREDICT_EDGES = [(1, 1, 1, 1), (33, 5, 3, 3), (1001, 7, 12, 1),
+                 (4097, 57, 12, 256), (5003, 50, 12, 256),
+                 (777, 33, 9, 64), (2049, 20, 12, 256), (999, 3, 2, 3)]
+
+
+@pytest.mark.parametrize("case", PREDICT_EDGES)
+def test_chain_predict_crosses_every_tile_edge(cuda, case):
+    n, T, depth, W = case
+    rng = np.random.RandomState(n + T)
+    f = _on(cuda, random_chain(rng, n, 16, T, depth, W, 2, 32))
+    _check_predict(f, depth, W)
+
+
+@pytest.mark.parametrize("n,T,depth", [(1, 1, 1), (4097, 20, 6),
+                                       (999, 130, 8), (3001, 7, 11),
+                                       (129, 2, 0)])
+def test_heap_predict_crosses_every_tile_edge(cuda, n, T, depth):
+    rng = np.random.RandomState(n + depth)
+    f = _on(cuda, random_heap(rng, n, 64, T, depth, 1, 32))
+    _check_predict(f, depth, None)
+
+
+@pytest.mark.parametrize("rpt,tpt,block_rows", [
+    (1, 1, 0), (2, 1, 0), (1, 2, 0), (2, 2, 0), (1, 4, 0), (2, 4, 96),
+    (1, 2, 32), (2, 2, 64), (1, 1, 2048)])
+def test_predict_bits_do_not_depend_on_the_launch(cuda, rpt, tpt,
+                                                  block_rows):
+    """Rows and trees a thread and rows a block change no bit: each row
+    adds its trees in order in one thread."""
+    rng = np.random.RandomState(40)
+    c = _on(cuda, random_chain(rng, 3001, 64, 51, 12, 256, 1, 32))
+    h = _on(cuda, random_heap(rng, 3001, 64, 21, 6, 1, 32))
+    for f, depth, W in ((c, 12, 256), (h, 6, None)):
+        want = _check_predict(f, depth, W)
+        got = _check_predict(f, depth, W, rows_per_thread=rpt,
+                             trees_per_thread=tpt, block_rows=block_rows)
+        assert torch.equal(got, want)
+
+
+def test_predict_reads_codes_0_and_255_at_256_bins(cuda):
+    """Byte codes: every code and bin boundary of 256 bins, the sentinel
+    bin 256 and features outside [0, d) in chains and heaps."""
+    rng = np.random.RandomState(41)
+    c = random_chain(rng, 3000, 17, 9, 10, 64, 1, 256)
+    c["codes"][:, :5] = np.array([0, 255, 254, 1, 128], np.int32)
+    c["codes"][::7] = 255
+    c["codes"][1::7] = 0
+    c["bins"][:, :, ::5] = 254
+    c["bins"][:, :, 1::5] = 0
+    c["bins"][:, :, 2::5] = 256                  # the sentinel: left
+    c["feat"][:, :, ::3] = np.where(rng.rand(9, 10, 1) < 0.5, 17, -1)
+    _check_predict(_on(cuda, c), 10, 64, nb=256)
+    h = random_heap(rng, 3000, 17, 9, 7, 1, 256)
+    h["codes"][::5] = 255
+    h["bins"][:, ::4] = 254
+    h["bins"][:, 1::4] = 255
+    h["feat"][:, ::6] = 40                       # past d: code 0
+    _check_predict(_on(cuda, h), 7, None, nb=256)
+
+
+def test_chain_predict_keeps_last_level_slots_exact(cuda):
+    """A last-level base past the packed record's 11 bits is read from the
+    int32 table (ids exact, slots past the leaves add nothing); bases past
+    a level before the last read as slot 0 one level down."""
+    rng = np.random.RandomState(42)
+    c = random_chain(rng, 2000, 16, 6, 8, 32, 1, 32)
+    c["base"][:, 7, ::3] = 5000
+    c["base"][:, 7, 1::3] = 40
+    c["base"][:, 3, ::4] = 3000
+    c["base"][:, 5, 1::4] = 33
+    _check_predict(_on(cuda, c), 8, 32)
+
+
+@pytest.mark.parametrize("d,nb,T", [(5000, 32, 5), (64, 300, 5),
+                                    (64, 32, 1)])
+def test_predict_takes_the_wide_path(cuda, d, nb, T):
+    """Features past the record's 12-bit field, codes past a byte, or
+    forests whose rows read few codes (one tree: T x depth <= d / 4) run
+    the int32 path: still bit-equal to the plain version."""
+    rng = np.random.RandomState(d + nb + T)
+    c = random_chain(rng, 700, d, T, 12, 64, 1, nb)
+    h = random_heap(rng, 700, d, T, 6, 1, nb)
+    _check_predict(_on(cuda, c), 12, 64, nb=nb)
+    _check_predict(_on(cuda, h), 6, None, nb=nb)
 
 
 def _hist_inputs(dev, seed, S, d, B, nb, sentinel=0.1):
@@ -252,6 +364,103 @@ def test_hist_kernel_empty_and_bad_inputs(cuda):
         HK.hist_matmul_cuda(codes, A.cpu(), 8)
     with pytest.raises(RuntimeError, match="CUDA error"):
         HK.hist_matmul_cuda(codes, A, 4000)      # bins beyond shared memory
+
+
+#: non-finite stats: one NaN, one +Inf, one -Inf, a +Inf/-Inf pair, and a
+#: finite value that rounds to +Inf in bf16
+NONFINITE = {"nan": [float("nan")], "+inf": [float("inf")],
+             "-inf": [-float("inf")],
+             "+inf/-inf": [float("inf"), -float("inf")],
+             "bf16 overflow": [3.4e38]}
+
+
+def _same_or_nan(got, want):
+    """NaN where the other is NaN, the same bits everywhere else."""
+    got, want = got.cpu(), want.cpu()
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan].view(torch.int32),
+                       want[~nan].view(torch.int32))
+
+
+def _spoil(x, kind, rng, rows, cols):
+    """x with the values of ``kind`` at rows and columns drawn from rng."""
+    x = x.clone()
+    for v in NONFINITE[kind]:
+        x[int(rng.choice(rows)), int(rng.choice(cols))] = v
+    return x
+
+
+def _roadmap_codes():
+    """Rows [[0, 1], [1, 0], [2, 2], [0, 3]] four times, three bins."""
+    return torch.tensor([[0, 1], [1, 0], [2, 2], [0, 3]] * 4,
+                        dtype=torch.int32)
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("kind", sorted(NONFINITE))
+@pytest.mark.parametrize("shape", ["roadmap", "odd", "dead chunk"])
+def test_hist_kernel_spreads_non_finite_stats_as_plain(cuda, shape, kind,
+                                                       exact):
+    """The contraction's 0 * (+-Inf or NaN) = NaN: the kernel gives the
+    plain version's NaN cells and the bits of every other cell, also for
+    a column whose codes are all the sentinel and for a row chunk where no
+    feature holds a valid code."""
+    rng = np.random.RandomState(len(kind) + 7 * len(shape))
+    if shape == "roadmap":
+        codes, nb = _roadmap_codes(), 3
+        A = _spoil(torch.ones(16, 2), kind, rng, [2, 3, 6], [0])
+    else:
+        S, d, B, nb = (4099, 9, 13, 11) if shape == "odd" else (64, 5, 7, 4)
+        codes = torch.from_numpy(rng.randint(0, nb + 1, (S, d)).astype(
+            np.int32))
+        codes[:, 4] = nb                           # a column all sentinel
+        rows = np.arange(S)
+        if shape == "dead chunk":                  # chunk 1 of 8: no codes
+            codes[8:16] = nb
+            rows = np.arange(8, 16)
+        A = _spoil(torch.from_numpy(rng.randint(-4, 5, (S, B)).astype(
+            np.float32)), kind, rng, rows, [0, 3, B - 1])
+    want = HK.hist_matmul_plain(codes, A, nb, exact)
+    got = HK.hist_matmul_cuda(codes.to(cuda), A.to(cuda), nb, exact)
+    _same_or_nan(got, want)
+    _same_or_nan(HK.hist_matmul_cuda(codes.to(cuda), A.to(cuda), nb, exact,
+                                     max_cols=4), want)
+
+
+#: (S, d, T, Wl, stride, nb): the roadmap input, one tree with int32
+#: codes, three trees with byte codes, 300 bins (int32 codes over trees)
+NODE_NONFINITE = [(16, 2, 1, 2, 1, 3), (509, 9, 1, 7, 1, 11),
+                  (4099, 16, 3, 3, 2, 32), (700, 16, 2, 5, 2, 300)]
+
+
+@pytest.mark.parametrize("kind", sorted(NONFINITE))
+@pytest.mark.parametrize("case", NODE_NONFINITE)
+def test_node_hist_spreads_non_finite_stats_as_plain(cuda, case, kind):
+    """A non-finite stat makes its tree's other slots NaN, and in its own
+    slot every bin its row does not hit (the masked-stat contraction's
+    0 * Inf); the kernel matches the plain version and the direct formula
+    there, and every other cell to the bit."""
+    S, d, T, Wl, stride, nb = case
+    rng = np.random.RandomState(S + len(kind))
+    if S == 16:
+        codes = _roadmap_codes()
+        node = torch.tensor([[0], [1]] * 8, dtype=torch.int64)
+        sw = [_spoil(torch.ones(16, 1), kind, rng, [2, 3, 6], [0]),
+              torch.ones(16, 1)]
+    else:
+        codes = torch.from_numpy(rng.randint(0, nb + 1, (S, d)).astype(
+            np.int32))
+        codes[:, 3] = nb                           # a column all sentinel
+        node = torch.from_numpy(rng.randint(-2, stride * Wl + 2, (S, T)))
+        sw = [torch.from_numpy(rng.randint(-4, 5, (S, T)).astype(np.float32))
+              for _ in range(3)]
+        sw[1] = _spoil(sw[1], kind, rng, np.arange(S), np.arange(T))
+    want = HK.node_hist_plain(codes, node, sw, Wl, nb, stride)
+    got = _node_hist_kernel(codes.to(cuda), node.to(cuda),
+                            [s.to(cuda) for s in sw], Wl, nb, stride)
+    _same_or_nan(got, want)
+    _same_or_nan(got, HK.node_hist_direct(codes, node, sw, Wl, nb, stride))
 
 
 def _leaf_case(dev, seed, n, d, T, k, depth, W=None, nb=32):

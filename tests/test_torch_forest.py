@@ -160,7 +160,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     before = tf.FOREST_PREDICT_HEAP.launches
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         tf.forest_predict_heap_cuda(h["codes"], h["feat"], h["bins"],
-                                    h["leaf"], depth=2)
+                                    h["leaf"], depth=2, n_bins=NB)
     assert tf.FOREST_PREDICT_HEAP.launches == before
 
 

@@ -16,36 +16,61 @@
 //   _leaf_sums_chain_pallas (slot-chain trees). Level l holds min(2^l, W)
 //   slots of (feat, bin, base); slot' = base + (codes[s, feat] > bin).
 //
-// All four share the descent below (code_at, chain_width, heap_leaf,
-// chain_leaf) over split tables staged in shared memory (stage_heap,
-// stage_chain).
-//
 // A bin equal to n_bins is the "route left" sentinel: codes are < n_bins.
 // A split feature outside [0, d) reads code 0 and a chain slot outside its
 // level reads as slot 0 with go 0, which is what the JAX package's one-hot
-// gathers give for such tables.
+// gathers give for such tables. A heap is a chain whose level l holds its
+// 2^l nodes with base 2 j, so one descent serves both.
 //
-// What bounds it: each row is independent and its descent is a chain of
-// dependent loads (depth levels per tree), so the kernel is bound by load
-// latency, not by the bytes it must move (codes once, out once) nor by its
-// few integer operations. The design keeps every load of that chain
-// on-chip: one thread per row walks its row down the trees in order, the
-// split tables of a chunk of trees are staged in shared memory by the
-// whole block, and the thread's row of codes stays in L1 across all trees.
-// Leaf values are summed in registers in ascending tree order, so reruns
-// give the same bits, and each output element is written once.
+// Predict. What bounds it: each row's descent is a chain of dependent
+// steps (depth a tree), each a split record and then a code; the bytes
+// the call must move (the codes once, the tables, the leaves, out) take
+// ~5 us at the serve shapes. The first design (one thread a row, 128 rows
+// a block, the row's codes read from L1/L2 at every step, three int
+// tables staged in 48 KB rounds between barriers) ran at 1-6% of that
+// (PERF.md): each step was a scattered 32-byte sector for 4 useful bytes,
+// and the restaging left the descent idle. This design:
+// * A pass packs each slot into one 32-bit record: bits 0-8 the bin + 1
+//   clamped to [0, 256] (go = code >= it for the byte codes below); bits
+//   9-19 the base, signed (2 j for a heap; before the last level clamped
+//   to [-1023, 1023], which only moves slots that no level holds; at the
+//   last level -1024 says "read the int32 base", so every leaf slot stays
+//   exact); bits 20-31 the feature, d for one outside [0, d), which reads
+//   the zero byte after every staged row. Each level ends in a sink record
+//   (feature d, never go, base 0): a step reads min((unsigned)slot, Wl),
+//   so a slot outside its level goes to slot 0 with no branch.
+// * Block: R rows, R from the row count so that the blocks fill the SMs
+//   (four blocks an SM where the records are small). It copies its rows of
+//   codes once, coalesced 16 bytes a load, into shared memory as bytes
+//   (clamped to [0, 255]; n_bins <= 256), row stride an odd number of
+//   words so that 32 rows reading one feature hit 32 banks. The records
+//   go to shared memory with cp.async: all trees at once where they fit
+//   beside the codes (up to 227 KB), else in tiles of trees,
+//   double-buffered, the next tile arriving while this one descends.
+// * A thread walks its row (or two) down four trees (or one, or two) at
+//   once, independent steps in flight, each step one record load and one
+//   code load from shared memory, and adds the row's leaf values in
+//   registers in ascending tree order: the bits of ops/forest.py
+//   leaf_values and of a rerun, whatever the launch shape. Each output
+//   element is written once.
+// * More than 4095 features, more than 256 bins, W > 512, heaps deeper
+//   than 10 or a row stride that leaves no room for a tree take the first
+//   design (the wide path below), which reads everything as int32; so do
+//   forests whose rows read few codes (T x depth <= d / 4: a single
+//   shallow tree, such as a decision tree), for which copying all d codes
+//   of a row costs more than reading those few in place.
 //
-// The leaf sums are a descent followed by a segmented sum, with no float
-// atomics, so that reruns give the same bits and integer-valued sums come
-// out exact. The rows are cut into chunks by their count alone and the
-// trees into tiles that fit in shared memory; one block per (chunk, tile)
-// descends a tile of its rows through its trees, writes the leaf ids to
-// shared memory, and then one thread per (tree, statistic) adds the rows'
-// statistics into its own (tree, leaf) cells in row order. Each block
-// writes its (tile trees, leaves, k) partial once; a second pass adds the
-// chunk partials in chunk order. A sum therefore never depends on the
-// tree tiling. The work is bound by the same load latency as predict plus
-// the serial adds of each (tree, statistic) thread, not by bytes.
+// Leaf sums: a descent followed by a segmented sum, with no float atomics,
+// so that reruns give the same bits and integer-valued sums come out
+// exact. The rows are cut into chunks by their count alone and the trees
+// into tiles that fit in shared memory; one block per (chunk, tile)
+// descends a tile of its rows through its trees (the wide path's helpers:
+// code_at, chain_width, heap_leaf, chain_leaf over tables staged by
+// stage_heap, stage_chain), writes the leaf ids to shared memory, and then
+// one thread per (tree, statistic) adds the rows' statistics into its own
+// (tree, leaf) cells in row order. Each block writes its (tile trees,
+// leaves, k) partial once; a second pass adds the chunk partials in chunk
+// order. A sum therefore never depends on the tree tiling.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (see ops/cuda_build.py). Plain C entry points for
@@ -53,10 +78,13 @@
 // cudaGetLastError() after its launch.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
-constexpr int kRows = 128;                 // rows (threads) per block
+constexpr int kRows = 128;                 // wide path: rows (threads) a block
 constexpr int kCols = 4;                   // output columns summed per pass
 constexpr int kSmemDefault = 48 * 1024;    // opt-in beyond this
 constexpr int kSmemMax = 227 * 1024;
@@ -140,6 +168,244 @@ __device__ __forceinline__ int chain_leaf(const int* crow, const int* tf,
   }
   return slot;
 }
+
+// ---------------------------------------------------------------------------
+// Predict: packed records, codes as bytes in shared memory
+// ---------------------------------------------------------------------------
+
+constexpr int kFeatShift = 20;             // record: feature in bits 20-31
+constexpr int kMaxPackedD = 4095;          // d itself is the zero column
+constexpr int kBaseShift = 9;              // record: signed base, bits 9-19
+constexpr int kBaseMax = 1023;
+constexpr int kEscape = -1024;             // last level: read the int32 base
+constexpr unsigned kNever = 256u;          // bin + 1 no byte code reaches
+constexpr int kMaxPackedW = 512;           // dead slots stay past every level
+constexpr int kMaxPackedHeapDepth = 10;    // 2 j <= kBaseMax at the last level
+constexpr int kPredMaxThreads = 512;
+
+// A tree's records: level l holds its Wl slots and then a sink at index Wl
+// (feature d, never go, base 0), so a slot past its level (or negative)
+// reads the sink by min((unsigned)slot, Wl) and goes to slot 0, as the
+// reference's one-hot gather does.
+int chain_records(int depth, int W, int lc) {
+  int S = 0;
+  for (int l = 0; l < depth; ++l) S += (l < lc ? (1 << l) : W) + 1;
+  return S;
+}
+
+__device__ __forceinline__ unsigned record(int f, int b, int a, int d) {
+  const unsigned fp = f >= 0 && f < d ? (unsigned)f : (unsigned)d;
+  const unsigned bp = (unsigned)(min(max(b, -1), 255) + 1);
+  return bp | ((unsigned)a & 2047u) << kBaseShift | fp << kFeatShift;
+}
+
+// The signed base of a record.
+__device__ __forceinline__ int record_base(unsigned x) {
+  return (int)(x << (32 - kFeatShift)) >> (32 - kFeatShift + kBaseShift);
+}
+
+// Pack every tree's slots into records (see above and the top of the
+// file): rec (T, Sp), a tree's levels one after the other, then zeros. A
+// heap (base null) is the chain of W = 2^(depth - 1) whose level l, slot
+// j is heap node 2^l - 1 + j, with base 2 j.
+__global__ void pack_kernel(const int* __restrict__ feat,
+                            const int* __restrict__ bins,
+                            const int* __restrict__ base,
+                            unsigned* __restrict__ rec, int T, int depth,
+                            int W, int lc, int Sp, int d) {
+  const long long m = (long long)T * Sp;
+  const int H = (1 << depth) - 1;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < m;
+       i += (long long)gridDim.x * blockDim.x) {
+    const long long t = i / Sp;
+    int s = (int)(i - t * Sp);
+    int l = 0;
+    for (; l < depth; ++l) {                 // the level holding record s
+      const int Wl = l < lc ? 1 << l : W;
+      if (s <= Wl) break;
+      s -= Wl + 1;
+    }
+    const int Wl = l < lc ? 1 << l : W;
+    if (l == depth) {
+      rec[i] = 0u;                           // padding
+    } else if (s == Wl) {
+      rec[i] = kNever | (unsigned)d << kFeatShift;   // the sink
+    } else if (base == nullptr) {
+      const long long src = t * H + (1 << l) - 1 + s;
+      rec[i] = record(feat[src], bins[src], 2 * s, d);
+    } else {
+      const long long src = (t * depth + l) * W + s;
+      const int a = base[src];
+      rec[i] = record(feat[src], bins[src],
+                      l + 1 < depth ? min(max(a, -kBaseMax), kBaseMax)
+                                    : (a >= -kBaseMax && a <= kBaseMax
+                                           ? a : kEscape), d);
+    }
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned sa = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(sa),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// The "memory" clobber keeps shared-memory reads below the wait.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ unsigned code_byte(int c) {
+  return (unsigned)min(max(c, 0), 255);
+}
+
+// Block: R = blockDim.x * RPT rows from row0 = blockIdx.x * R; thread q
+// holds rows q, q + blockDim.x, ... and walks them down TPT trees at once
+// (RPT x TPT independent steps in flight). Trees in tiles of tc (one
+// tile, or two buffers). smem: the tiles' records [nbuf][tc * Sp], then
+// the rows' codes [R][stride] bytes. Sums output columns [k0, k0 + kc).
+template <int RPT, int TPT>
+__global__ void __launch_bounds__(kPredMaxThreads)
+predict_kernel(const int* __restrict__ codes, const unsigned* __restrict__ rec,
+               const int* __restrict__ base, const float* __restrict__ leaf,
+               float* __restrict__ out, int* __restrict__ ids, int n, int d,
+               int T, int depth, int W, int lc, int Sp, int W_out, int k,
+               int k0, int kc, int tc, int stride, int vec) {
+  extern __shared__ __align__(16) unsigned pred_smem[];
+  const int nt = blockDim.x;
+  const int q = threadIdx.x;
+  const int R = nt * RPT;
+  const int tile_words = tc * Sp;
+  const int ntiles = (T + tc - 1) / tc;
+  unsigned* tab = pred_smem;
+  unsigned char* sc = reinterpret_cast<unsigned char*>(
+      pred_smem + (size_t)(ntiles > 1 ? 2 : 1) * tile_words);
+  const long long row0 = (long long)blockIdx.x * R;
+  auto stage = [&](int it) {
+    const long long t0 = (long long)it * tc;
+    const int words = (int)min((long long)tc, T - t0) * Sp;
+    unsigned* dst = tab + (it & 1) * tile_words;
+    const unsigned* src = rec + t0 * Sp;
+    for (int i = 4 * q; i < words; i += 4 * nt) cp_async16(dst + i, src + i);
+    cp_async_commit();
+  };
+  if (ntiles > 0) stage(0);
+  // the block's rows of codes, once, as bytes; byte d of a row reads 0
+  const int m = (int)min((long long)R, n - row0);
+  const int* crows = codes + row0 * d;
+  if (vec) {                                 // d % 4 == 0, 16-byte aligned
+    const int dq = d >> 2;
+    const int4* c4 = reinterpret_cast<const int4*>(crows);
+    for (int i = q; i < m * dq; i += nt) {
+      const int r = i / dq;
+      const int4 v = __ldg(c4 + i);
+      *reinterpret_cast<unsigned*>(sc + r * stride + 4 * (i - r * dq)) =
+          code_byte(v.x) | code_byte(v.y) << 8 | code_byte(v.z) << 16 |
+          code_byte(v.w) << 24;
+    }
+  } else {
+    for (int i = q; i < m * d; i += nt) {
+      const int r = i / d;
+      sc[r * stride + (i - r * d)] =
+          (unsigned char)code_byte(__ldg(crows + i));
+    }
+  }
+  for (int r = q; r < R; r += nt) sc[r * stride + d] = 0;
+  const unsigned char* rows[RPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) rows[i] = sc + (q + i * nt) * stride;
+  float acc[RPT][kCols];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
+  for (int it = 0; it < ntiles; ++it) {
+    if (it + 1 < ntiles) {
+      stage(it + 1);                         // the buffer tile it - 1 used
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const unsigned* tb = tab + (it & 1) * tile_words;
+    const int t0 = it * tc;
+    const int ntt = min(tc, T - t0);
+    for (int tt = 0; tt < ntt; tt += TPT) {
+      // TPT trees at once; past the tile's last tree a lane redoes it and
+      // adds nothing
+      const unsigned* tr[TPT];
+#pragma unroll
+      for (int u = 0; u < TPT; ++u) tr[u] = tb + min(tt + u, ntt - 1) * Sp;
+      int slot[RPT][TPT];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int u = 0; u < TPT; ++u) slot[i][u] = 0;
+      int off = 0;
+      for (int l = 0; l + 1 < depth; ++l) {
+        const unsigned Wl = l < lc ? 1u << l : (unsigned)W;
+#pragma unroll
+        for (int i = 0; i < RPT; ++i)
+#pragma unroll
+          for (int u = 0; u < TPT; ++u) {
+            const unsigned x = tr[u][off + min((unsigned)slot[i][u], Wl)];
+            slot[i][u] = record_base(x) +
+                         (rows[i][x >> kFeatShift] >= (x & 511u));
+          }
+        off += Wl + 1;
+      }
+      if (depth > 0) {                       // the last level: exact slots
+        const int l = depth - 1;
+        const unsigned Wl = l < lc ? 1u << l : (unsigned)W;
+#pragma unroll
+        for (int i = 0; i < RPT; ++i)
+#pragma unroll
+          for (int u = 0; u < TPT; ++u) {
+            const unsigned e = min((unsigned)slot[i][u], Wl);
+            const unsigned x = tr[u][off + e];
+            int a = record_base(x);
+            if (a == kEscape)
+              a = __ldg(base + ((long long)(t0 + min(tt + u, ntt - 1)) * depth
+                                + l) * W + e);
+            slot[i][u] = a + (rows[i][x >> kFeatShift] >= (x & 511u));
+          }
+      }
+#pragma unroll
+      for (int u = 0; u < TPT; ++u) {
+        const int t = t0 + tt + u;
+        if (tt + u >= ntt) break;
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) {
+          const long long row = row0 + q + i * nt;
+          const int sl = slot[i][u];
+          if (ids != nullptr && row < n) ids[row * T + t] = sl;
+          if ((unsigned)sl < (unsigned)W_out) {
+            const float* lv = leaf + ((long long)t * W_out + sl) * k + k0;
+#pragma unroll
+            for (int c = 0; c < kCols; ++c)
+              if (c < kc) acc[i][c] += __ldg(lv + c);
+          }
+        }
+      }
+    }
+    __syncthreads();                         // its buffer is free again
+  }
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const long long row = row0 + q + i * nt;
+    if (row < n)
+      for (int c = 0; c < kc; ++c) out[row * k + k0 + c] = acc[i][c];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The wide path: the first design, every table and code as int32
+// ---------------------------------------------------------------------------
 
 __global__ void __launch_bounds__(kRows)
 heap_kernel(const int* __restrict__ codes, const int* __restrict__ feat,
@@ -366,6 +632,146 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               (int)smem);
 }
 
+// ceil(log2 W) and the records of a chain tree (chain_records); a heap
+// (W = 0) is the chain of W = 2^(depth - 1) whose levels are all narrow.
+void chain_shape(int depth, int* W, int* lc, int* S) {
+  if (*W == 0) *W = depth > 0 ? 1 << (depth - 1) : 1;
+  *lc = 0;
+  while ((1 << *lc) < *W) ++*lc;
+  *S = chain_records(depth, *W, *lc);
+}
+
+int round_up(long long x, int m) { return (int)((x + m - 1) / m * m); }
+
+constexpr int kDevices = 64;               // host caches, per device index
+constexpr size_t kSmallForest = 48 * 1024; // records that leave room for 4
+                                           // blocks an SM
+
+int sm_count(int device) {
+  static int sms[kDevices];
+  if (device < 0 || device >= kDevices) return 1;
+  if (sms[device] == 0 &&
+      (cudaDeviceGetAttribute(&sms[device], cudaDevAttrMultiProcessorCount,
+                              device) != cudaSuccess || sms[device] < 1))
+    sms[device] = 1;
+  return sms[device];
+}
+
+// The packed path's launch: rows and trees a thread, threads a block,
+// trees a tile, the staged row's bytes (an odd number of words), shared
+// memory.
+struct Plan {
+  int rpt, tpt, threads, tc, stride;
+  size_t smem;
+};
+
+// Plan the packed path, or return false for the wide path. block_rows 0:
+// as many rows a block as fill the SMs once, or four times where the
+// records are small enough for four blocks an SM.
+bool plan_predict(int n, int d, int T, int depth, int Sp, int rpt, int tpt,
+                  int block_rows, int device, Plan* p) {
+  // a forest whose rows read a few codes each (T x depth <= d / 4, a
+  // single shallow tree) reads them faster in place than it copies all d
+  if (d > kMaxPackedD || 4LL * T * depth <= d || (rpt != 1 && rpt != 2) ||
+      (tpt != 1 && tpt != 2 && tpt != 4))
+    return false;
+  int words = (d + 4) / 4;                   // the codes and the zero byte
+  if (!(words & 1)) ++words;
+  p->rpt = rpt;
+  p->tpt = tpt;
+  p->stride = 4 * words;
+  const size_t tree = (size_t)Sp * 4;
+  int R = block_rows;
+  if (R <= 0) {
+    const long long per =
+        (long long)sm_count(device) * (tree * T <= kSmallForest ? 4 : 1);
+    R = round_up(((long long)n + per - 1) / per, 32 * rpt);
+  }
+  R = std::max(32 * rpt,
+               std::min(round_up(R, 32 * rpt), kPredMaxThreads * rpt));
+  for (; R >= 32 * rpt; R -= 32 * rpt) {
+    const size_t codes = (size_t)R * p->stride;
+    if (codes + tree * T <= (size_t)kSmemMax) {
+      p->tc = std::max(T, 1);
+      p->smem = codes + tree * T;
+    } else {
+      const long long tc = ((long long)kSmemMax - (long long)codes) /
+                           (2 * (long long)tree);
+      if (tc < 1) continue;
+      p->tc = (int)tc;
+      p->smem = codes + 2 * tree * tc;
+    }
+    p->threads = R / rpt;
+    return true;
+  }
+  return false;
+}
+
+// Opt a kernel into smem bytes of dynamic shared memory once per device.
+template <typename Kernel>
+cudaError_t allow_smem_cached(Kernel kernel, size_t smem, int device,
+                              size_t* done) {
+  if (device >= 0 && device < kDevices && smem <= done[device])
+    return cudaSuccess;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err == cudaSuccess && device >= 0 && device < kDevices)
+    done[device] = smem;
+  return err;
+}
+
+// Launch the packed path: records into rec, then the descent, kCols
+// output columns a launch (leaf ids with the first).
+template <int RPT, int TPT>
+cudaError_t launch_predict(const int* codes, const int* feat,
+                           const int* bins, const int* base,
+                           const float* leaf, float* out, int* ids,
+                           unsigned* rec, int n, int d, int T, int depth,
+                           int W, int lc, int S, int W_out, int k,
+                           const Plan& p, int device, cudaStream_t stream) {
+  static size_t done[kDevices];
+  const int Sp = round_up(S, 4);
+  const long long m = (long long)T * Sp;
+  cudaError_t err;
+  if (m > 0) {
+    pack_kernel<<<(unsigned)std::min((m + 255) / 256, 4096LL), 256, 0,
+                  stream>>>(feat, bins, base, rec, T, depth, W, lc, Sp, d);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  err = allow_smem_cached(predict_kernel<RPT, TPT>, p.smem, device, done);
+  if (err != cudaSuccess) return err;
+  const int vec = d % 4 == 0 && ((uintptr_t)codes & 15) == 0;
+  const unsigned blocks =
+      (unsigned)(((long long)n + p.threads * RPT - 1) / (p.threads * RPT));
+  for (int k0 = 0; k0 < k; k0 += kCols) {
+    predict_kernel<RPT, TPT><<<blocks, p.threads, p.smem, stream>>>(
+        codes, rec, base, leaf, out, k0 == 0 ? ids : nullptr, n, d, T, depth,
+        W, lc, Sp, W_out, k, k0, std::min(kCols, k - k0), p.tc, p.stride,
+        vec);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// The packed path at its rows (1 or 2) and trees (1, 2 or 4) a thread.
+cudaError_t predict_packed(const int* codes, const int* feat,
+                           const int* bins, const int* base,
+                           const float* leaf, float* out, int* ids,
+                           unsigned* rec, int n, int d, int T, int depth,
+                           int W, int lc, int S, int W_out, int k,
+                           const Plan& p, int device, cudaStream_t stream) {
+  auto go = [&](auto launch) {
+    return launch(codes, feat, bins, base, leaf, out, ids, rec, n, d, T,
+                  depth, W, lc, S, W_out, k, p, device, stream);
+  };
+  if (p.rpt == 1)
+    return p.tpt == 1   ? go(launch_predict<1, 1>)
+           : p.tpt == 2 ? go(launch_predict<1, 2>)
+                        : go(launch_predict<1, 4>);
+  return p.tpt == 1   ? go(launch_predict<2, 1>)
+         : p.tpt == 2 ? go(launch_predict<2, 2>)
+                      : go(launch_predict<2, 4>);
+}
+
 }  // namespace
 
 extern "C" {
@@ -374,15 +780,40 @@ const char* tg_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// codes (n, d) int32; feat, bins (T, 2^depth - 1) int32;
-// leaf (T, 2^depth, k) f32 -> out (n, k) f32; ids (n, T) int32 or null.
+// The words of the record workspace forest_predict_heap (W 0) or
+// forest_predict_chain takes for T trees of this depth and width.
+int forest_predict_workspace(int T, int depth, int W, long long* words) {
+  if (T < 0 || depth < 0 || W < 0) return (int)cudaErrorInvalidValue;
+  int lc, S;
+  chain_shape(depth, &W, &lc, &S);
+  *words = (long long)T * round_up(S, 4);
+  return 0;
+}
+
+// codes (n, d) int32 in [0, n_bins); feat, bins (T, 2^depth - 1) int32;
+// leaf (T, 2^depth, k) f32; rec: forest_predict_workspace words -> out
+// (n, k) f32; ids (n, T) int32 or null. rpt and tpt (rows and trees a
+// thread walks at once: 1 or 2, and 1, 2 or 4) and block_rows (0: the
+// planner's) shape
+// the launch and change no bit.
 int forest_predict_heap(const void* codes, const void* feat,
                         const void* bins, const void* leaf, void* out,
-                        void* ids, int n, int d, int T, int depth, int k,
+                        void* ids, void* rec, int n, int d, int T, int depth,
+                        int k, int n_bins, int rpt, int tpt, int block_rows,
                         int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n <= 0) return (int)cudaSuccess;
+  int W = 0, lc, S;
+  chain_shape(depth, &W, &lc, &S);
+  Plan p;
+  if (n_bins <= 256 && depth <= kMaxPackedHeapDepth &&
+      plan_predict(n, d, T, depth, round_up(S, 4), rpt, tpt, block_rows,
+                   device, &p))
+    return (int)predict_packed(
+        (const int*)codes, (const int*)feat, (const int*)bins, nullptr,
+        (const float*)leaf, (float*)out, (int*)ids, (unsigned*)rec, n, d, T,
+        depth, W, lc, S, 1 << depth, k, p, device, (cudaStream_t)stream);
   const int H = (1 << depth) - 1;
   int tc;
   size_t smem;
@@ -396,20 +827,32 @@ int forest_predict_heap(const void* codes, const void* feat,
   return (int)cudaGetLastError();
 }
 
-// codes (n, d) int32; feat, bins, base (T, depth, W) int32;
-// leaf (T, W_out, k) f32 -> out (n, k) f32; ids (n, T) int32 or null.
+// codes (n, d) int32 in [0, n_bins); feat, bins, base (T, depth, W) int32;
+// leaf (T, W_out, k) f32; rec: forest_predict_workspace words -> out (n,
+// k) f32; ids (n, T) int32 or null. rpt, tpt and block_rows as for the
+// heap.
 int forest_predict_chain(const void* codes, const void* feat,
                          const void* bins, const void* base,
-                         const void* leaf, void* out, void* ids, int n,
-                         int d, int T, int depth, int W, int W_out, int k,
+                         const void* leaf, void* out, void* ids, void* rec,
+                         int n, int d, int T, int depth, int W, int W_out,
+                         int k, int n_bins, int rpt, int tpt, int block_rows,
                          int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n <= 0) return (int)cudaSuccess;
-  int lc = 0;
-  while ((1 << lc) < W) ++lc;                // ceil(log2 W)
-  int S = 0;                                 // used slots per tree
-  for (int l = 0; l < depth; ++l) S += l < lc ? (1 << l) : W;
+  if (W < 1) return (int)cudaErrorInvalidValue;
+  int lc, S;
+  chain_shape(depth, &W, &lc, &S);
+  Plan p;
+  if (n_bins <= 256 && W <= kMaxPackedW &&
+      plan_predict(n, d, T, depth, round_up(S, 4), rpt, tpt, block_rows,
+                   device, &p))
+    return (int)predict_packed(
+        (const int*)codes, (const int*)feat, (const int*)bins,
+        (const int*)base, (const float*)leaf, (float*)out, (int*)ids,
+        (unsigned*)rec, n, d, T, depth, W, lc, S, W_out, k, p, device,
+        (cudaStream_t)stream);
+  S -= depth;                                // the used slots, no sinks
   int tc;
   size_t smem;
   plan_chunk(T, 3 * sizeof(int) * (size_t)S, &tc, &smem);

@@ -45,6 +45,23 @@
 //   _tree_combine, ((p0 + p1) + (p2 + p3)) + ..., an odd leftover carried
 //   to the next round, and the tile is written transposed through shared
 //   memory, coalesced along the output's rows.
+// * Non-finite stats spread as the reference's contraction spreads them:
+//   there every product A[s, a] * 1[codes[s, f] == b] enters cell (a, f,
+//   b), and 0 * (+-Inf or NaN) is NaN. So cell (a, f, b) is NaN when a row
+//   whose stat A[s, a] (after the bf16 rounding, when not exact) is not
+//   finite has codes[s, f] != b (a sentinel code counts as != b);
+//   otherwise it is the ordinary sum, which may itself be +-Inf, or NaN
+//   from +Inf + -Inf. Finite inputs pay one instruction a row: each thread
+//   of pass 1 keeps the NaN-propagating max of its split's |stats|, and
+//   only a split that holds a non-finite stat walks its rows again, to
+//   find the bins they all hit, and writes NaN into its other bins (the
+//   split, chunk and combine sums carry the NaN on). A feature whose chunk
+//   holds no valid code launches no walk there, so pass 1 also marks, per
+//   stat column, the chunks that hold a non-finite stat, and pass 2 writes
+//   NaN where such a chunk meets an unmarked (feature, chunk) pair; a
+//   chunk with no valid code in any feature is scanned for them by its
+//   feature-0 blocks. The rare paths are out of line (no registers taken
+//   from the common one).
 // * No float atomics: every sum has one fixed order (rows in order within
 //   a split, splits in order, chunks in the pinned order), whatever the
 //   stat tile or block size, so reruns give the same bits, and
@@ -83,6 +100,27 @@ __device__ __forceinline__ float stat(float v, int exact) {
   return exact ? v : __bfloat162float(__float2bfloat16_rn(v));
 }
 
+// The |value| from which a stat is not finite as the sums take it: +Inf
+// as is; rounded to bf16, every value from half an ulp above the largest
+// finite bf16 rounds to Inf. !(|v| < it) also holds for NaN.
+__device__ __forceinline__ float nonfinite_from(int exact) {
+  return __int_as_float(exact ? 0x7f800000 : 0x7f7f8000);
+}
+
+// NaN-propagating max.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// Fold one non-finite row's code into the bin that every such row hits:
+// 0 none yet, b + 1 bin b, -1 none (two bins, or a code outside [0, nb)).
+__device__ __forceinline__ int hit_bin(int hit, int c, int nb) {
+  const int h = (unsigned)c < (unsigned)nb ? c + 1 : -1;
+  return hit == 0 ? h : (hit == h ? hit : -1);
+}
+
 // Pass 0: bit k of flags[f] is set when chunk k of feature f holds a valid
 // code. Block (feature tile of 32, chunk, row group), 8 warps of rows.
 __global__ void hist_flag_kernel(const int* __restrict__ codes,
@@ -109,31 +147,64 @@ __global__ void hist_flag_kernel(const int* __restrict__ codes,
   if (threadIdx.x < 32 && f < d && found[fl]) atomicOr(flags + f, 1 << k);
 }
 
+// Pass 1's rare path, out of line so that it costs the common one no
+// registers: NaN in every bin (mb[b * at]) of column a of feature f but
+// the one that all rows [s0, s1) with a non-finite stat hit.
+__device__ __noinline__ void nan_other_bins(const int* __restrict__ codes,
+                                            const float* __restrict__ A,
+                                            long long s0, long long s1,
+                                            int d, int f, int B, int a,
+                                            int nb, float lim, float* mb,
+                                            int at) {
+  int hit = 0;
+  for (long long s = s0; s < s1; ++s)
+    if (!(fabsf(__ldg(A + s * B + a)) < lim))
+      hit = hit_bin(hit, __ldg(codes + s * d + f), nb);
+  for (int b = 0; b < nb; ++b)
+    if (b + 1 != hit) mb[b * at] = __int_as_float(0x7fffffff);
+}
+
 // Pass 1: block (stat tile x feature f, k), stat tiles along grid.x
-// first. smem: bins[kSplits][nb][at].
+// first. smem: bins[kSplits][nb][at]. nonfin[a]: bit k set when chunk k
+// holds a stat of column a that is not finite as the sums take it.
 __global__ void hist_partial_kernel(const int* __restrict__ codes,
                                     const float* __restrict__ A,
                                     const int* __restrict__ flags,
+                                    int* __restrict__ nonfin,
                                     float* __restrict__ part, int S, int d,
                                     int B, int nb, int rows, int at,
                                     int stiles, int exact) {
   extern __shared__ float bins[];
   const int f = blockIdx.x / stiles;
   const int k = blockIdx.y;
-  if (!(flags[f] >> k & 1)) return;
   const int nt = blockDim.x;
   const int sp = threadIdx.x / at;
   const int al = threadIdx.x - sp * at;
   const int a0 = (blockIdx.x - f * stiles) * at;
   const int a = a0 + al;
-  for (int i = threadIdx.x; i < kSplits * nb * at; i += nt) bins[i] = 0.f;
-  __syncthreads();
   const long long c0 = (long long)k * rows;
   const long long c1 = min(c0 + rows, (long long)S);
   const int sub = (rows + kSplits - 1) / kSplits;
   const long long s0 = min(c0 + (long long)sp * sub, c1);
   const long long s1 = min(s0 + sub, c1);
+  const float lim = nonfinite_from(exact);
+  if (!(flags[f] >> k & 1)) {
+    // no valid code of f in this chunk, nothing to add; where no feature
+    // has one, the feature-0 blocks still mark the chunk's non-finite stats
+    if (f != 0) return;
+    bool any = false;
+    for (int g = threadIdx.x; g < d; g += nt) any |= flags[g] >> k & 1;
+    if (__syncthreads_or(any) || a >= B) return;
+    float top = 0.f;
+    for (long long s = s0; s < s1; ++s)
+      top = max_nan(top, fabsf(__ldg(A + s * B + a)));
+    if (!(top < lim)) atomicOr(nonfin + a, 1 << k);
+    return;
+  }
+  for (int i = threadIdx.x; i < kSplits * nb * at; i += nt) bins[i] = 0.f;
+  __syncthreads();
   float* mb = bins + sp * nb * at + al;
+  float top = 0.f;                           // the split's largest |stat|
   if (a < B) {
     long long s = s0;
     // a batch's codes and stats load together (one wait a batch), then
@@ -148,15 +219,22 @@ __global__ void hist_partial_kernel(const int* __restrict__ codes,
         v[u] = __ldg(A + (s + u) * B + a);
       }
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
+      for (int u = 0; u < kUnroll; ++u) {
+        top = max_nan(top, fabsf(v[u]));
         if ((unsigned)c[u] < (unsigned)nb && v[u] != 0.f)
           mb[c[u] * at] += stat(v[u], exact);
+      }
     }
     for (; s < s1; ++s) {
       const int c = __ldg(codes + s * d + f);
       const float v = __ldg(A + s * B + a);
+      top = max_nan(top, fabsf(v));
       if ((unsigned)c < (unsigned)nb && v != 0.f) mb[c * at] += stat(v, exact);
     }
+  }
+  if (!(top < lim)) {
+    nan_other_bins(codes, A, s0, s1, d, f, B, a, nb, lim, mb, at);
+    atomicOr(nonfin + a, 1 << k);
   }
   __syncthreads();
   // the splits in order, then the chunk partial, coalesced along a
@@ -193,9 +271,11 @@ __device__ __forceinline__ float tree_combine(float* v, int K) {
 }
 
 // Pass 2: block (32 output columns j, 32 stat columns a), the jt tiles
-// along j first in grid.x, 32 x 8 threads.
+// along j first in grid.x, 32 x 8 threads. A cell is NaN where a chunk
+// with a non-finite stat of its column holds no valid code of its feature.
 __global__ void hist_combine_kernel(const float* __restrict__ part,
                                     const int* __restrict__ flags,
+                                    const int* __restrict__ nonfin,
                                     float* __restrict__ out, int d, int B,
                                     int nb, int K, int jt) {
   __shared__ float tile[32][33];
@@ -213,7 +293,8 @@ __global__ void hist_combine_kernel(const float* __restrict__ part,
 #pragma unroll
       for (int k = 0; k < kMaxChunks; ++k)
         v[k] = m >> k & 1 ? part[((long long)k * width + j) * B + a] : 0.f;
-      tile[jj][tx] = m ? tree_combine(v, K) : 0.f;
+      const float r = m ? tree_combine(v, K) : 0.f;
+      tile[jj][tx] = nonfin[a] & ~m ? __int_as_float(0x7fffffff) : r;
     }
   }
   __syncthreads();
@@ -232,10 +313,10 @@ const char* tg_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// codes (S, d) int32; A (S, B) f32; flags (d) int32 and part (K, d * nb,
-// B) f32 workspaces -> out (B, d * nb) f32. rows = ceil(S / K) rows per
-// chunk, K <= 8. max_cols bounds the stat tile of pass 1 (a power of two,
-// 1..32); it changes no bit of the result.
+// codes (S, d) int32; A (S, B) f32; flags (d + B) int32 and part (K,
+// d * nb, B) f32 workspaces -> out (B, d * nb) f32. rows = ceil(S / K)
+// rows per chunk, K <= 8. max_cols bounds the stat tile of pass 1 (a
+// power of two, 1..32); it changes no bit of the result.
 int hist_matmul(const void* codes, const void* A, void* flags, void* part,
                 void* out, int S, int d, int B, int nb, int K, int rows,
                 int exact, int max_cols, int device, void* stream_) {
@@ -260,7 +341,10 @@ int hist_matmul(const void* codes, const void* A, void* flags, void* part,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  err = cudaMemsetAsync(flags, 0, (size_t)d * sizeof(int), stream);
+  // flags: d feature masks, then B masks of the chunks with a non-finite
+  // stat
+  int* nonfin = (int*)flags + d;
+  err = cudaMemsetAsync(flags, 0, (size_t)(d + B) * sizeof(int), stream);
   if (err != cudaSuccess) return (int)err;
   dim3 grid0((unsigned)((d + 31) / 32), (unsigned)K, kFlagGroups);
   hist_flag_kernel<<<grid0, 256, 0, stream>>>((const int*)codes, (int*)flags,
@@ -271,13 +355,13 @@ int hist_matmul(const void* codes, const void* A, void* flags, void* part,
   const int stiles = (B + at - 1) / at;
   dim3 grid1((unsigned)((long long)stiles * d), (unsigned)K);
   hist_partial_kernel<<<grid1, kSplits * at, smem, stream>>>(
-      (const int*)codes, (const float*)A, (const int*)flags, (float*)part, S,
-      d, B, nb, rows, at, stiles, exact);
+      (const int*)codes, (const float*)A, (const int*)flags, nonfin,
+      (float*)part, S, d, B, nb, rows, at, stiles, exact);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const long long jt = ((long long)d * nb + 31) / 32;
   hist_combine_kernel<<<(unsigned)(jt * ((B + 31) / 32)), 256, 0, stream>>>(
-      (const float*)part, (const int*)flags, (float*)out, d, B, nb, K,
-      (int)jt);
+      (const float*)part, (const int*)flags, nonfin, (float*)out, d, B, nb,
+      K, (int)jt);
   return (int)cudaGetLastError();
 }
 

@@ -65,6 +65,23 @@
 // * Pass C, block (cell tile, segment group, tree): for each segment of
 //   more than one chunk (A2 lists them) adds its later chunks' partials,
 //   in chunk order, to the first chunk's sums in the output.
+// * Non-finite stats spread as the reference's contraction spreads them.
+//   Its operand lane (ki, j, t) of row s is bf16(1[node == stride j] *
+//   sw[ki][s, t]), and 0 * (+-Inf or NaN) is NaN, so: (1) a row whose f32
+//   stat is not finite makes every lane of (ki, t) but its own slot's NaN
+//   (a row that adds nothing has no own slot); (2) within a lane, the
+//   one-hot rule of hist.cu: a cell (f, b) is NaN when a row of the slot
+//   whose rounded stat is not finite has codes[s, f] != b. Finite inputs
+//   pay little for it: for (1) each scatter (A3) block reads a slice of the
+//   flat stat arrays once, coalesced, with a NaN-propagating max (only a
+//   slice with a non-finite value is read again, to record its rows'
+//   slots per (ki, t): none yet, one slot, or several; stats past the
+//   first four get a pass of their own), and pass C writes NaN into the
+//   lanes that (1) names; for
+//   (2) the threads that round the staged stats raise a block flag at a
+//   non-finite one, and only then does each pair walk its chunk's rows
+//   again, to find the bin they all hit, and write NaN into its other
+//   bins before the write-out (the chunk sums carry it on).
 // * No float atomics: a cell is the sequential sum of each chunk's rows in
 //   ascending row order, then of the chunk partials in chunk order, so
 //   reruns give the same bits, nothing depends on the launch configuration
@@ -98,6 +115,24 @@ struct Stats {
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+constexpr unsigned kInfBits = 0x7f800000u;   // |v| bits from here: not finite
+
+__device__ __forceinline__ unsigned abs_bits(float v) {
+  return __float_as_uint(v) & 0x7fffffffu;
+}
+
+// Fold one value into "the one value they all have": 0 none yet, h, or -1
+// (several, or one that is no slot or bin: h = -1).
+__device__ __forceinline__ int fold(int have, int h) {
+  return have == 0 ? h : (have == h ? have : -1);
+}
+
+// The same fold into a word of global memory, by any number of threads.
+__device__ __forceinline__ void fold_atomic(int* p, int h) {
+  const int old = atomicCAS(p, 0, h);
+  if (old != 0 && old != h) atomicExch(p, -1);
 }
 
 // The slot j of a node value, or -1 when the row adds nothing.
@@ -160,20 +195,132 @@ __device__ int block_excl_scan(int v, int* sh, int* total) {
   return pre;
 }
 
+// NaN-propagating max.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// A block's slice of the flat (S, T) stat arrays: units [lo, hi) (float4
+// where every array is 16-byte aligned, else float), and for block 0 the
+// floats after the last whole unit, [tail, ST). The host sizes the slices
+// (per units a block, look_plan).
+struct Slice {
+  long long lo, hi, tail, ST;
+  int unit;
+};
+
+__device__ __forceinline__ Slice slice_of(int S, int T, long long b,
+                                          long long per, int unit) {
+  Slice c;
+  c.ST = (long long)S * T;
+  c.unit = unit;
+  const long long nu = unit == 4 ? c.ST >> 2 : c.ST;
+  c.lo = min(b * per, nu);
+  c.hi = min(c.lo + per, nu);
+  c.tail = b == 0 ? nu * unit : c.ST;
+  return c;
+}
+
+// One unit (a float in .x where unit is 1).
+__device__ __forceinline__ float4 unit_at(const float* p, long long i,
+                                          int unit) {
+  if (unit == 1) return make_float4(__ldg(p + i), 0.f, 0.f, 0.f);
+  return __ldg(reinterpret_cast<const float4*>(p) + i);
+}
+
+// The NaN-propagating max of |x| over one unit.
+__device__ __forceinline__ float unit_max(float4 v) {
+  return max_nan(max_nan(fabsf(v.x), fabsf(v.y)),
+                 max_nan(fabsf(v.z), fabsf(v.w)));
+}
+
+// Each thread's first unit of the block's slice of each of the kg arrays
+// (zeros past the slice), loaded when the block starts and looked at when
+// it is done, so that the loads' latency hides behind the block's work.
+struct FirstUnits {
+  float4 v[kMaxStats];
+};
+
+__device__ __forceinline__ FirstUnits first_units(const Stats& sw, int kg,
+                                                  const Slice& c) {
+  FirstUnits f;
+#pragma unroll
+  for (int ki = 0; ki < kMaxStats; ++ki)
+    f.v[ki] = ki < kg && c.lo + threadIdx.x < c.hi
+                  ? unit_at(sw.p[ki], c.lo + threadIdx.x, c.unit)
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+  return f;
+}
+
+// The block looks at the rest of its slice of the kg flat (S, T) stat
+// arrays (first: first_units') and folds, for each value that is not
+// finite, its row's slot j into nonfin[ki * T + t] as j + 1 (-1 for a row
+// that adds nothing). Coalesced reads and a NaN-propagating max; only a
+// block whose slice holds a non-finite value reads it again to find the
+// rows.
+__device__ void look_nonfinite(const Stats& sw, int kg,
+                               const FirstUnits& first, const Slice& c,
+                               const long long* __restrict__ node,
+                               int* __restrict__ nonfin, int T, int Wl,
+                               int stride) {
+  float m = 0.f;
+#pragma unroll
+  for (int ki = 0; ki < kMaxStats; ++ki) {
+    if (ki >= kg) break;
+    m = max_nan(m, unit_max(first.v[ki]));
+    for (long long i = c.lo + threadIdx.x + blockDim.x; i < c.hi;
+         i += blockDim.x)
+      m = max_nan(m, unit_max(unit_at(sw.p[ki], i, c.unit)));
+    for (long long e = c.tail + threadIdx.x; e < c.ST; e += blockDim.x)
+      m = max_nan(m, fabsf(__ldg(sw.p[ki] + e)));
+  }
+  if (!__syncthreads_or(!(m < __int_as_float(0x7f800000)))) return;
+  for (int ki = 0; ki < kg; ++ki) {
+    auto fold_row = [&](long long e) {
+      if (abs_bits(__ldg(sw.p[ki] + e)) >= kInfBits) {
+        const int j = slot_of(node[e], stride, Wl);
+        fold_atomic(nonfin + ki * T + e % T, j >= 0 ? j + 1 : -1);
+      }
+    };
+    for (long long e = c.lo * c.unit + threadIdx.x; e < c.hi * c.unit;
+         e += blockDim.x)
+      fold_row(e);
+    for (long long e = c.tail + threadIdx.x; e < c.ST; e += blockDim.x)
+      fold_row(e);
+  }
+}
+
+// The stats past the first kMaxStats: look_nonfinite over the grid.
+__global__ void node_look_kernel(Stats sw, int kg,
+                                 const long long* __restrict__ node,
+                                 int* __restrict__ nonfin, int S, int T,
+                                 int Wl, int stride, long long per,
+                                 int unit) {
+  const Slice c = slice_of(S, T, blockIdx.x, per, unit);
+  look_nonfinite(sw, kg, first_units(sw, kg, c), c, node, nonfin, T, Wl,
+                 stride);
+}
+
 // A1: block (tile, t) counts the tile's rows of tree t per slot into
 // counts[(t * Wl + j) * tiles + tile], and keeps each row's slot in
-// slots[t * S + s] (tree-major, so that A3 reads it coalesced). smem:
-// cnt[Wl] ints.
+// slots[t * S + s] (tree-major, so that A3 reads it coalesced); the tile-0
+// blocks clear nonfin (k, T). smem: cnt[Wl] ints.
 __global__ void node_count_kernel(const long long* __restrict__ node,
                                   int* __restrict__ counts,
-                                  int* __restrict__ slots, int S, int T,
-                                  int Wl, int stride, int tile_rows) {
+                                  int* __restrict__ slots,
+                                  int* __restrict__ nonfin, int S, int T,
+                                  int k, int Wl, int stride, int tile_rows) {
   extern __shared__ int cnt[];
   const int tile = blockIdx.x;
   const int t = blockIdx.y;
   const int tiles = gridDim.x;
   const int lane = threadIdx.x & 31;
   for (int j = threadIdx.x; j < Wl; j += blockDim.x) cnt[j] = 0;
+  if (tile == 0)                             // pass B folds into it
+    for (int ki = threadIdx.x; ki < k; ki += blockDim.x)
+      nonfin[ki * T + t] = 0;
   __syncthreads();
   const int s0 = tile * tile_rows;
   const int s1 = min(s0 + tile_rows, S);
@@ -273,15 +420,22 @@ __global__ void node_scan_kernel(int* __restrict__ counts,
 }
 
 // A3: block (tile, t) scatters the tile's row ids of tree t to their
-// sorted places. smem: wcnt[warps][Wl] ints.
+// sorted places, and looks at its slice of the first kg stats for
+// non-finite values. smem: wcnt[warps][Wl] ints.
 __global__ void node_scatter_kernel(const int* __restrict__ slots,
                                     const int* __restrict__ counts,
-                                    int* __restrict__ rows, int S, int Wl,
-                                    int tile_rows) {
+                                    int* __restrict__ rows, Stats sw, int kg,
+                                    const long long* __restrict__ node,
+                                    int* __restrict__ nonfin, int S, int T,
+                                    int Wl, int stride, int tile_rows,
+                                    long long look_per, int look_unit) {
   extern __shared__ int wcnt[];
   const int tile = blockIdx.x;
   const int t = blockIdx.y;
   const int tiles = gridDim.x;
+  const Slice look = slice_of(S, T, (long long)t * tiles + tile, look_per,
+                              look_unit);
+  const FirstUnits first = first_units(sw, kg, look);  // looked at last
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
   const int warps = blockDim.x >> 5;
@@ -323,6 +477,7 @@ __global__ void node_scatter_kernel(const int* __restrict__ slots,
     if (j >= 0 && lane == __ffs(peers) - 1) wcnt[w * Wl + j] += __popc(peers);
     __syncwarp();
   }
+  look_nonfinite(sw, kg, first, look, node, nonfin, T, Wl, stride);
 }
 
 // Codes as bytes, for pass B to stage a quarter of the bytes: a valid
@@ -335,6 +490,29 @@ __global__ void node_codes8_kernel(const int4* __restrict__ codes,
   const int4 c = codes[i];
   auto b = [nb](int v) { return (unsigned)v < (unsigned)nb ? (unsigned)v : 255u; };
   out[i] = b(c.x) | b(c.y) << 8 | b(c.z) << 16 | b(c.w) << 24;
+}
+
+// Pass B's rare path, out of line so that it costs the common one no
+// registers: NaN in every bin (bq[b * nt]) of the pair (stat sw_k, feature
+// f) but the one that all the chunk's rows (seg[0, n)) with a non-finite
+// rounded stat hit.
+template <typename CodeT>
+__device__ __noinline__ void nan_other_bins(const CodeT* __restrict__ codes,
+                                            const float* __restrict__ sw_k,
+                                            const int* __restrict__ seg,
+                                            int n, int d, int f, int T, int t,
+                                            int nb, float* bq, int nt) {
+  int hit = 0;
+  for (int r = 0; r < n; ++r) {
+    const long long s = seg[r];
+    if (abs_bits(bf16_round(sw_k[s * T + t])) >= kInfBits) {
+      const int cd = codes[s * d + f];
+      hit = fold(hit, (unsigned)cd < (unsigned)nb ? cd + 1 : -1);
+    }
+  }
+  if (hit != 0)
+    for (int b = 0; b < nb; ++b)
+      if (b + 1 != hit) bq[b * nt] = __int_as_float(0x7fffffff);
 }
 
 // Pass B: block (c, t) sums chunk c of tree t's chunks for kg stats, the
@@ -415,6 +593,7 @@ __global__ void node_hist_kernel(const CodeT* __restrict__ codes, Stats sw,
     const int ki = p / d;
     const int f = p - ki * d;
     for (int b = 0; b < nb; ++b) bins[b * nt + q] = 0.f;
+    bool chunk_bad = false;                  // a staged stat is not finite
     if (tiles) stage(0, 0);
     for (int it = 0; it < tiles; ++it) {
       const int buf = it & 1;
@@ -427,10 +606,14 @@ __global__ void node_hist_kernel(const CodeT* __restrict__ codes, Stats sw,
       // round the stats this thread staged (its own copies have landed)
       const int m = min(R, n - it * R);
       float* ss = sstat + buf * kg * R;
+      bool bad = false;
       for (int r = q; r < m; r += nt)
-        for (int kk = 0; kk < kg; ++kk)
-          ss[kk * R + r] = bf16_round(ss[kk * R + r]);
-      __syncthreads();
+        for (int kk = 0; kk < kg; ++kk) {
+          const float v = bf16_round(ss[kk * R + r]);
+          ss[kk * R + r] = v;
+          bad |= abs_bits(v) >= kInfBits;
+        }
+      chunk_bad |= __syncthreads_or(bad);
       if (p < P) {
         const CodeT* sc = scodes + buf * R * d + f;
         const float* sv = ss + ki * R;
@@ -442,6 +625,8 @@ __global__ void node_hist_kernel(const CodeT* __restrict__ codes, Stats sw,
       }
       __syncthreads();                       // the buffer is free again
     }
+    if (chunk_bad && p < P)
+      nan_other_bins(codes, sw.p[ki], seg, n, d, f, T, t, nb, bins + q, nt);
     __syncthreads();                         // every pair's bins summed
     // write-out, a warp 32 pairs at a time, 8 bins at a time: each lane
     // copies its pair's 8 bins into the warp's tile (row stride 9: 32
@@ -485,9 +670,11 @@ __global__ void node_hist_kernel(const CodeT* __restrict__ codes, Stats sw,
 
 // Pass C: block (cell tile, g, t) adds, for the multi-chunk segments g,
 // g + gridDim.y, ... of tree t, the partials of its later chunks in chunk
-// order to its first chunk's (in the output).
+// order to its first chunk's (in the output); where nonfin (kg, T) names
+// another slot than j (or several), lane j is NaN instead.
 __global__ void node_combine_kernel(const int* __restrict__ meta,
                                     const int* __restrict__ multi,
+                                    const int* __restrict__ nonfin,
                                     const float* __restrict__ part,
                                     float* __restrict__ out, int d, int T,
                                     int kg, int Wl, int nb, int part_slots) {
@@ -503,6 +690,8 @@ __global__ void node_combine_kernel(const int* __restrict__ meta,
   const int ki = i / width;
   const int fb = i - ki * width;
   const int nm = mlist[0];
+  const int sp = nonfin[ki * T + t];         // 0: no lane is NaN
+  const float nan = __int_as_float(0x7fffffff);
   for (int m = blockIdx.y; m < nm; m += gridDim.y) {
     const int j = mlist[1 + m];
     const int nch = coff[j + 1] - coff[j];
@@ -512,15 +701,19 @@ __global__ void node_combine_kernel(const int* __restrict__ meta,
     float acc = *dst;
 #pragma unroll 16
     for (int qc = 1; qc < nch; ++qc) acc += src[(long long)(qc - 1) * cells];
-    *dst = acc;
+    *dst = sp != 0 && sp != j + 1 ? nan : acc;
   }
+  if (sp != 0)
+    for (int j = blockIdx.y; j < Wl; j += gridDim.y)
+      if (sp != j + 1)
+        out[(((long long)ki * Wl + j) * T + t) * width + fb] = nan;
 }
 
 // The workspace of one call: ints and floats (see node_hist).
 struct Layout {
   int tiles;
   int max_chunks;                              // per tree
-  long long recs, codes8, counts, meta, multi, slots, rows, ints;  // offsets
+  long long recs, codes8, counts, meta, multi, slots, rows, nonfin, ints;
   long long part_slots, floats;
 };
 
@@ -538,13 +731,25 @@ Layout layout(int S, int d, int T, int k, int Wl, int nb, int chunk,
   L.multi = L.meta + (long long)T * 3 * (Wl + 1);
   L.slots = L.multi + (long long)T * (Wl + 1);
   L.rows = L.slots + (long long)T * S;
-  L.ints = L.rows + (long long)T * S;
+  L.nonfin = L.rows + (long long)T * S;
+  L.ints = L.nonfin + (long long)k * T;
   // the chunks after the first of segments longer than one chunk: a
   // segment of n > chunk rows has ceil(n / chunk) - 1 < n / chunk of them
   L.part_slots = ((long long)S + chunk - 1) / chunk;
   const int kg = k < kMaxStats ? k : kMaxStats;
   L.floats = (long long)T * L.part_slots * kg * d * nb;
   return L;
+}
+
+// Units a block's slice of the flat stat arrays holds (see Slice), over
+// nblk blocks: float4 where each of the k arrays is 16-byte aligned.
+void look_plan(const void* const* sw, int k, int S, int T, long long nblk,
+               long long* per, int* unit) {
+  *unit = 4;
+  for (int i = 0; i < k; ++i)
+    if ((uintptr_t)sw[i] & 15) *unit = 1;
+  const long long nu = (long long)S * T / *unit;
+  *per = (nu + nblk - 1) / nblk;
 }
 
 cudaError_t opt_in(const void* fn, size_t smem) {
@@ -605,6 +810,7 @@ int node_hist(const void* codes, const void* node, const void* const* sw,
   int4* recs = (int4*)(iw + L.recs);
   int* slots = iw + L.slots;
   int* rows = iw + L.rows;
+  int* nonfin = iw + L.nonfin;
   const long long* nd = (const long long*)node;
   // pass A
   const size_t smem_c = (size_t)Wl * sizeof(int);
@@ -613,7 +819,7 @@ int node_hist(const void* codes, const void* node, const void* const* sw,
     return (int)err;
   dim3 grid_a((unsigned)L.tiles, (unsigned)T);
   node_count_kernel<<<grid_a, kCountThreads, smem_c, stream>>>(
-      nd, counts, slots, S, T, Wl, stride, tile_rows);
+      nd, counts, slots, nonfin, S, T, k, Wl, stride, tile_rows);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   node_scan_kernel<<<T, kScanThreads, 0, stream>>>(
       counts, meta, multi, recs, Wl, L.tiles, chunk, L.max_chunks);
@@ -627,8 +833,19 @@ int node_hist(const void* codes, const void* node, const void* const* sw,
   if ((err = opt_in((const void*)node_scatter_kernel, smem_s)) !=
       cudaSuccess)
     return (int)err;
+  // the stats as kMaxStats-pointer groups
+  auto group = [&](int k0) {
+    Stats st;
+    for (int i = 0; i < kMaxStats; ++i)
+      st.p[i] = k0 + i < k ? (const float*)sw[k0 + i] : nullptr;
+    return st;
+  };
+  long long per;
+  int unit;
+  look_plan(sw, k, S, T, (long long)L.tiles * T, &per, &unit);
   node_scatter_kernel<<<grid_a, warps * 32, smem_s, stream>>>(
-      slots, counts, rows, S, Wl, tile_rows);
+      slots, counts, rows, group(0), k < kMaxStats ? k : kMaxStats, nd,
+      nonfin, S, T, Wl, stride, tile_rows, per, unit);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   // the codes as bytes where pass B stages each row's codes more than
   // once (once a tree), they fit and the rows stay 16-byte aligned
@@ -648,9 +865,16 @@ int node_hist(const void* codes, const void* node, const void* const* sw,
   const long long width = (long long)d * nb;
   for (int k0 = 0; k0 < k; k0 += kMaxStats) {
     const int kg = k - k0 < kMaxStats ? k - k0 : kMaxStats;
-    Stats st;
-    for (int i = 0; i < kMaxStats; ++i)
-      st.p[i] = i < kg ? (const float*)sw[k0 + i] : nullptr;
+    const Stats st = group(k0);
+    if (k0 > 0) {                            // A3 looked at the first group
+      long long nblk = ((long long)S * T + 1023) / 1024;
+      if (nblk > 1024) nblk = 1024;
+      look_plan(sw + k0, kg, S, T, nblk, &per, &unit);
+      node_look_kernel<<<(unsigned)nblk, 256, 0, stream>>>(
+          st, kg, nd, nonfin + (long long)k0 * T, S, T, Wl, stride, per,
+          unit);
+      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    }
     const int P = kg * d;
     int threads = ((P + 31) / 32) * 32;
     if (threads > max_threads) threads = max_threads;
@@ -699,8 +923,8 @@ int node_hist(const void* codes, const void* node, const void* const* sw,
     if (spread < 1) spread = 1;
     dim3 grid_c((unsigned)ctiles, (unsigned)spread, (unsigned)T);
     node_combine_kernel<<<grid_c, kCombineThreads, 0, stream>>>(
-        meta, multi, (const float*)fws, o, d, T, kg, Wl, nb,
-        (int)L.part_slots);
+        meta, multi, nonfin + (long long)k0 * T, (const float*)fws, o, d, T,
+        kg, Wl, nb, (int)L.part_slots);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   return 0;

@@ -198,7 +198,8 @@ def hist_matmul_cuda(codes: torch.Tensor, A: torch.Tensor, n_bins: int,
     out = torch.empty((B, d * n_bins), dtype=torch.float32, device=dev)
     if S == 0 or B == 0 or d == 0:
         return out.zero_()
-    flags = torch.empty(d, dtype=torch.int32, device=dev)
+    # the features' and the stat columns' chunk masks (see csrc/hist.cu)
+    flags = torch.empty(d + B, dtype=torch.int32, device=dev)
     part = torch.empty((K, d * n_bins, B), dtype=torch.float32, device=dev)
     HIST_MATMUL.launch(ptr(codes), ptr(A), ptr(flags), ptr(part), ptr(out),
                        S, d, B, n_bins, K, rows, int(exact), max_cols,
@@ -213,7 +214,10 @@ def hist_matmul(codes: torch.Tensor, A: torch.Tensor, n_bins: int,
     codes: (S, d) int bin codes in [0, n_bins); a code equal to n_bins is
     a sentinel and adds nothing. A: (S, B) per-row statistics. Returns
     (B, d * n_bins) feature-major. ``exact`` keeps the stats f32 (leaf
-    values that are served); growth histograms round them to bf16."""
+    values that are served); growth histograms round them to bf16. A stat
+    that is NaN or +-Inf (after the rounding) makes every cell of its
+    column NaN whose bin its row's code misses, a sentinel included, as
+    the one-hot contraction's 0 * Inf does."""
     if codes.is_cuda:
         return hist_matmul_cuda(codes.to(torch.int32).contiguous(),
                                 A.to(torch.float32).contiguous(), n_bins,
@@ -248,14 +252,15 @@ def node_hist_direct(codes: torch.Tensor, node: torch.Tensor,
     It runs one step per row place within a chunk: step r adds the r-th
     row of every chunk at once, one indexed add in which no cell is hit
     twice, so each cell still takes its rows one at a time and in order;
-    then one step per chunk of the longest segment."""
+    then one step per chunk of the longest segment. Non-finite stats then
+    spread as in the plain version (``_nonfinite_lanes``)."""
     S, d = codes.shape
     T = node.shape[1]
     k = len(sw_list)
     dev = codes.device
     ch = NODE_HIST_CHUNK
-    sws = torch.stack([sw.to(torch.float32) for sw in sw_list]).to(
-        torch.bfloat16).to(torch.float32)                     # (k, S, T)
+    sw32 = torch.stack([sw.to(torch.float32) for sw in sw_list])
+    sws = sw32.to(torch.bfloat16).to(torch.float32)           # (k, S, T)
     node, codes = node.long(), codes.long()
     ok = (node >= 0) & (node % stride == 0) & (node < stride * Wl)
     slot = torch.where(ok, node // stride, torch.full_like(node, Wl)).T
@@ -288,7 +293,50 @@ def node_hist_direct(codes: torch.Tensor, node: torch.Tensor,
     out = part[:, :, 0]
     for q in range(1, n_q):           # a segment's missing chunks add +0
         out = out + part[:, :, q]
-    return out.permute(2, 1, 0, 3, 4).reshape(k * Wl * T, d * n_bins)
+    out = _nonfinite_lanes(out.permute(2, 1, 0, 3, 4), codes, slot.T, sw32,
+                           sws, n_bins)
+    return out.reshape(k * Wl * T, d * n_bins)
+
+
+def _nonfinite_lanes(out: torch.Tensor, codes: torch.Tensor,
+                     slot: torch.Tensor, sw32: torch.Tensor,
+                     sws: torch.Tensor, n_bins: int) -> torch.Tensor:
+    """Where the plain version's contraction turns non-finite stats into
+    NaN: its operand lane (k, j, t) of row s is bf16(1[slot == j] *
+    sw[k, s, t]) and 0 * (+-Inf or NaN) is NaN. So (1) a row whose f32
+    stat is not finite makes every lane of (k, t) but its own slot's NaN;
+    (2) in a lane, cell (f, b) is NaN when a row of the slot whose rounded
+    stat is not finite has codes[s, f] != b (an invalid code included).
+    out (k, Wl, T, d, nb) sums, slot (S, T) in [0, Wl] (Wl: adds
+    nothing), sw32 the f32 and sws the rounded (k, S, T) stats."""
+    k, Wl, T = out.shape[:3]
+    dev = out.device
+    nan = torch.tensor(float("nan"), device=dev)
+    bad = ~torch.isfinite(sw32)
+    if bad.any():
+        ki, s, t = torch.nonzero(bad, as_tuple=True)
+        n_bad = torch.zeros((k, T), device=dev).index_put_(
+            (ki, t), torch.ones_like(ki, dtype=torch.float32),
+            accumulate=True)
+        n_own = torch.zeros((k, Wl + 1, T), device=dev).index_put_(
+            (ki, slot[s, t], t), torch.ones_like(ki, dtype=torch.float32),
+            accumulate=True)[:, :Wl]
+        out = torch.where((n_own < n_bad[:, None])[..., None, None], nan,
+                          out)
+    bad = ~torch.isfinite(sws) & (slot < Wl)[None]
+    if bad.any():
+        ki, s, t = torch.nonzero(bad, as_tuple=True)
+        j = slot[s, t]
+        n_bad = torch.zeros((k, Wl, T), device=dev).index_put_(
+            (ki, j, t), torch.ones_like(ki, dtype=torch.float32),
+            accumulate=True)
+        c = codes[s].long()                                   # (m, d)
+        m, f = torch.nonzero((c >= 0) & (c < n_bins), as_tuple=True)
+        hit = torch.zeros(out.shape, device=dev).index_put_(
+            (ki[m], j[m], t[m], f, c[m, f]),
+            torch.ones_like(m, dtype=torch.float32), accumulate=True)
+        out = torch.where(hit < n_bad[..., None, None], nan, out)
+    return out
 
 
 def _sort_tile(S: int, T: int, Wl: int) -> int:
@@ -369,7 +417,8 @@ def node_hist_matmul(codes: torch.Tensor, node: torch.Tensor,
     codes: (S, d) int bin codes; node: (S, T) int current slot per tree
     (values < 0 never match); sw_list: k (S, T) per-tree stats; ``stride``:
     slot-id multiplier (2 = heap left children). Returns (k * Wl * T,
-    d * n_bins) f32, lane (k * Wl + j) * T + t.
+    d * n_bins) f32, lane (k * Wl + j) * T + t. Non-finite stats spread
+    as the masked-stat contraction spreads them (``_nonfinite_lanes``).
 
     A CUDA tensor goes to the ``node_hist`` kernel, which reads the
     growers' int64 ``node``, their int32 codes and each f32 stat tensor in

@@ -29,6 +29,7 @@ raise here as they do there, although the port compares integers.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -182,12 +183,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #: ``replaces`` is the file:line of the Pallas kernel function each ports
 FOREST_PREDICT_HEAP = cuda_build.CudaKernel(
     "forest_predict_heap", "forest_predict.cu",
-    "transmogrifai_tpu/ops/forest.py:196",
-    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+    "transmogrifai_tpu/ops/forest.py:196", [_P] * 7 + [_I] * 10 + [_P])
 FOREST_PREDICT_CHAIN = cuda_build.CudaKernel(
     "forest_predict_chain", "forest_predict.cu",
-    "transmogrifai_tpu/ops/forest.py:503",
-    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P])
+    "transmogrifai_tpu/ops/forest.py:503", [_P] * 8 + [_I] * 12 + [_P])
 
 FOREST_LEAF_SUMS_HEAP = cuda_build.CudaKernel(
     "forest_leaf_sums_heap", "forest_predict.cu",
@@ -205,6 +204,25 @@ KERNELS = (FOREST_PREDICT_HEAP, FOREST_PREDICT_CHAIN, FOREST_LEAF_SUMS_HEAP,
 _SUM_ROWS = 128
 _SUM_MAX_CHUNKS = 64
 
+#: rows (1 or 2) and trees (1, 2 or 4) each thread of the predict kernels
+#: walks at once, and rows a block (0: the kernel's choice); none changes
+#: a bit
+PREDICT_ROWS_PER_THREAD = 1
+PREDICT_TREES_PER_THREAD = 4
+PREDICT_BLOCK_ROWS = 0
+
+
+@functools.lru_cache(maxsize=None)
+def predict_workspace(T: int, depth: int, W: int = 0) -> int:
+    """int32 words of the split records the predict kernels pack for T
+    trees (W 0: heaps of this depth), as their source lays them out."""
+    words = ctypes.c_longlong()
+    if FOREST_PREDICT_HEAP.entry("forest_predict_workspace", [
+            _I, _I, _I, ctypes.POINTER(ctypes.c_longlong)])(
+                T, depth, W, ctypes.byref(words)):
+        raise ValueError(f"bad forest: T {T}, depth {depth}, W {W}")
+    return words.value
+
 
 def row_chunks(n: int) -> Tuple[int, int]:
     """(chunk count, rows per chunk) of the leaf-sum kernels. It depends on
@@ -216,10 +234,15 @@ def row_chunks(n: int) -> Tuple[int, int]:
 
 
 def forest_predict_heap_cuda(codes, feat_heap, bin_heap, leaf, *, depth: int,
-                             with_ids: bool = False
+                             n_bins: int, with_ids: bool = False,
+                             rows_per_thread: int = PREDICT_ROWS_PER_THREAD,
+                             trees_per_thread: int = PREDICT_TREES_PER_THREAD,
+                             block_rows: int = PREDICT_BLOCK_ROWS
                              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Launch ``forest_predict_heap`` on the current stream. Returns the
-    (n, k) sums and, with ``with_ids``, the (n, T) int32 leaf ids."""
+    (n, k) sums and, with ``with_ids``, the (n, T) int32 leaf ids. Codes
+    lie in [0, n_bins); ``rows_per_thread``, ``trees_per_thread`` and
+    ``block_rows`` shape the launch and change no bit."""
     if not codes.is_cuda:
         raise ValueError(f"forest_predict_heap needs CUDA tensors, codes are "
                          f"on {codes.device}")
@@ -238,18 +261,25 @@ def forest_predict_heap_cuda(codes, feat_heap, bin_heap, leaf, *, depth: int,
     ids = (torch.empty((n, T), dtype=torch.int32, device=dev)
            if with_ids else None)
     if n:
+        rec = torch.empty(predict_workspace(T, depth), dtype=torch.int32,
+                          device=dev)
         FOREST_PREDICT_HEAP.launch(
             ptr(codes), ptr(feat_heap), ptr(bin_heap), ptr(leaf),
-            ptr(out), ptr(ids), n, d, T, depth, k, dev.index,
+            ptr(out), ptr(ids), ptr(rec), n, d, T, depth, k, n_bins,
+            rows_per_thread, trees_per_thread, block_rows, dev.index,
             torch.cuda.current_stream(dev).cuda_stream)
     return out, ids
 
 
 def forest_predict_chain_cuda(codes, feat_lv, bin_lv, base_lv, leaf, *,
-                              with_ids: bool = False
+                              n_bins: int, with_ids: bool = False,
+                              rows_per_thread: int = PREDICT_ROWS_PER_THREAD,
+                              trees_per_thread: int = PREDICT_TREES_PER_THREAD,
+                              block_rows: int = PREDICT_BLOCK_ROWS
                               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Launch ``forest_predict_chain`` on the current stream. Returns the
-    (n, k) sums and, with ``with_ids``, the (n, T) int32 leaf slots."""
+    (n, k) sums and, with ``with_ids``, the (n, T) int32 leaf slots; as
+    ``forest_predict_heap_cuda`` otherwise."""
     if not codes.is_cuda:
         raise ValueError(f"forest_predict_chain needs CUDA tensors, codes "
                          f"are on {codes.device}")
@@ -269,9 +299,12 @@ def forest_predict_chain_cuda(codes, feat_lv, bin_lv, base_lv, leaf, *,
     ids = (torch.empty((n, T), dtype=torch.int32, device=dev)
            if with_ids else None)
     if n:
+        rec = torch.empty(predict_workspace(T, depth, W), dtype=torch.int32,
+                          device=dev)
         FOREST_PREDICT_CHAIN.launch(
             ptr(codes), ptr(feat_lv), ptr(bin_lv), ptr(base_lv),
-            ptr(leaf), ptr(out), ptr(ids), n, d, T, depth, W, W_out, k,
+            ptr(leaf), ptr(out), ptr(ids), ptr(rec), n, d, T, depth, W,
+            W_out, k, n_bins, rows_per_thread, trees_per_thread, block_rows,
             dev.index, torch.cuda.current_stream(dev).cuda_stream)
     return out, ids
 
@@ -401,7 +434,7 @@ def forest_predict(codes: torch.Tensor, feat_heap: torch.Tensor,
     _check_bins(n_bins)
     if _route(codes) == "cuda":
         return forest_predict_heap_cuda(codes, feat_heap, bin_heap, leaf,
-                                        depth=depth)[0]
+                                        depth=depth, n_bins=n_bins)[0]
     return forest_predict_plain(codes, feat_heap, bin_heap, leaf,
                                 depth=depth, n_bins=n_bins)
 
@@ -417,6 +450,6 @@ def forest_predict_chain(codes: torch.Tensor, feat_lv: torch.Tensor,
     _check_slots(feat_lv.shape[2])
     if _route(codes) == "cuda":
         return forest_predict_chain_cuda(codes, feat_lv, bin_lv, base_lv,
-                                         leaf)[0]
+                                         leaf, n_bins=n_bins)[0]
     return forest_predict_chain_plain(codes, feat_lv, bin_lv, base_lv, leaf,
                                       n_bins=n_bins)

@@ -1,10 +1,11 @@
-"""The two histogram kernels at their main-path shapes, pass by pass, on one
-NVIDIA GPU.
+"""The two histogram kernels at their main-path shapes and the two forest
+predict kernels at their serve shapes, pass by pass, on one NVIDIA GPU.
 
     python3 transmogrifai_tpu_torch/profile_hist.py [--root DIR] [--runs 25]
 
-Times ``node_hist_matmul`` and ``hist_matmul`` through their public
-functions (wrapper included, as the growers call them) with CUDA events,
+Times ``node_hist_matmul``, ``hist_matmul``, ``forest_predict_chain`` and
+``forest_predict`` through their public functions (wrapper included, as
+the growers and the scorers call them) with CUDA events,
 median of ``--runs`` calls after warm-up, and splits each call's device
 time by kernel name with ``torch.profiler`` over ``--runs`` more calls.
 ``--root`` imports ``transmogrifai_tpu_torch`` from another checkout (for
@@ -22,7 +23,11 @@ Shapes (19,712 rows, the refit's padded row count):
   columns with the padded ones all sentinel): the GBT refit's leaf call
   (1 real column, 128 stat columns, 64 leaves), the ``gbt12`` refit's
   (1 real column, 128 stat columns, 256 leaves) and the RF sweep's (48
-  real columns, 192 stat columns, 64 leaves).
+  real columns, 192 stat columns, 64 leaves);
+* the forest predicts (65,536 rows x 64 codes, 32 bins, k 1, trees from
+  ``testing.random_chain`` / ``random_heap``): the RF serve (slot chains,
+  T 50, depth 12, W 256), the ``gbt12`` serve (chains, T 20, depth 12, W
+  256) and the GBT serve (heaps, T 20, depth 6).
 
 Prints the card's name and power limit, then one JSON line per case.
 """
@@ -61,6 +66,10 @@ NODE_CASES = (("RF refit, deepest level", 50, 256, 1, 2, 256),
 HIST_CASES = (("GBT refit leaves", 1, 128, 64),
               ("gbt12 refit leaves", 1, 128, 256),
               ("RF sweep leaves", 48, 192, 64))
+#: the forest predicts' serve shapes: (tag, T, depth, W; None for heaps)
+SERVE_ROWS = 65536
+PREDICT_CASES = (("RF serve", 50, 12, 256), ("gbt12 serve", 20, 12, 256),
+                 ("GBT serve", 20, 6, None))
 
 
 def bound_ms(nbytes: int, ops: int):
@@ -192,6 +201,40 @@ def profile(runs: int) -> list:
                          passes_ms=pass_ms(call, runs), bound_ms=b[0],
                          bound_by=b[1], library_ms=lib))
         del oh
+    rows += profile_predict(runs)
+    return rows
+
+
+def profile_predict(runs: int) -> list:
+    """The forest predicts at their serve shapes, through the public
+    functions."""
+    from transmogrifai_tpu_torch.ops import forest as F
+    from transmogrifai_tpu_torch.testing import random_chain, random_heap
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(1)
+    rows = []
+    for tag, T, depth, W in PREDICT_CASES:
+        if W is None:
+            f = {k: torch.from_numpy(v).to(dev) for k, v in random_heap(
+                rng, SERVE_ROWS, CODES, T, depth, 1, NODE_BINS).items()}
+
+            def call():
+                return F.forest_predict(f["codes"], f["feat"], f["bins"],
+                                        f["leaf"], depth=depth,
+                                        n_bins=NODE_BINS)
+            name = "forest_predict_heap "
+        else:
+            f = {k: torch.from_numpy(v).to(dev) for k, v in random_chain(
+                rng, SERVE_ROWS, CODES, T, depth, W, 1, NODE_BINS).items()}
+
+            def call():
+                return F.forest_predict_chain(f["codes"], f["feat"], f["bins"],
+                                              f["base"], f["leaf"],
+                                              n_bins=NODE_BINS)
+            name = "forest_predict_chain "
+        rows.append(dict(case=name + tag, ms=time_ms(call, runs),
+                         passes_ms=pass_ms(call, runs)))
     return rows
 
 
