@@ -19,9 +19,10 @@ Phases, in order; any failure exits nonzero:
       one f32 matmul over the materialized masked-stat operand;
     - the forest descents at the serve shapes (65,536 rows, 32 bins, k=1;
       RF slot chains T=50 depth 12 W=256, ``gbt12`` slot chains T=20
-      depth 12 W=256, GBT heaps T=20 depth 6): leaf ids exactly, sums
-      bit-equal to the plain version (both add the trees in order) and
-      across reruns;
+      depth 12 W=256, GBT heaps T=20 depth 6, and the DT's one heap of
+      depth 6, which takes the heap predict's int32 path): leaf ids
+      exactly, sums bit-equal to the plain version (both add the trees in
+      order) and across reruns;
     - the leaf sums at the refit shapes (19,712 rows x 64 codes, k=3: the
       RF refit's chain T=50 depth 12 W=256, the DT refit's heap T=1 depth
       6, and a heap T=50 depth 6): within rtol 1e-5 / atol 1e-6 of the
@@ -591,11 +592,13 @@ def phase_kernels(dev):
     results["node_hist"] = phase_node_hist(dev, rng)
     results.update(phase_leaf_sums(dev, rng))
 
-    # the serve shapes: RF and gbt12 slot chains, GBT heaps (k=1)
+    # the serve shapes: RF and gbt12 slot chains, GBT heaps, the DT's one
+    # heap (k=1)
     for name, tag, T, depth, W in (
             ("forest_predict_chain", "RF serve", 50, 12, 256),
             ("forest_predict_chain", "gbt12 serve", 20, 12, 256),
-            ("forest_predict_heap", "GBT serve", 20, 6, None)):
+            ("forest_predict_heap", "GBT serve", 20, 6, None),
+            ("forest_predict_heap", "DT serve", 1, 6, None)):
         r = _predict_case(dev, rng, tag, T, depth, W)
         print(f"(b) {name} {tag} (T {T}, depth {depth}"
               f"{'' if W is None else f', W {W}'}): bit-equal to plain, ids "

@@ -194,21 +194,18 @@ def test_heap_predict_crosses_every_tile_edge(cuda, n, T, depth):
     _check_predict(f, depth, None)
 
 
-@pytest.mark.parametrize("rpt,tpt,block_rows", [
-    (1, 1, 0), (2, 1, 0), (1, 2, 0), (2, 2, 0), (1, 4, 0), (2, 4, 96),
-    (1, 2, 32), (2, 2, 64), (1, 1, 2048)])
-def test_predict_bits_do_not_depend_on_the_launch(cuda, rpt, tpt,
-                                                  block_rows):
-    """Rows and trees a thread and rows a block change no bit: each row
-    adds its trees in order in one thread."""
+@pytest.mark.parametrize("n", [1, 3001, 20000, 40000, 65536])
+def test_predict_bits_do_not_depend_on_the_launch(cuda, n):
+    """The rows a block (and so the trees a tile) follow the row count: the
+    first n rows of a 65,536-row batch give the bits the whole batch gives
+    them, since each row adds its trees in order in one thread."""
     rng = np.random.RandomState(40)
-    c = _on(cuda, random_chain(rng, 3001, 64, 51, 12, 256, 1, 32))
-    h = _on(cuda, random_heap(rng, 3001, 64, 21, 6, 1, 32))
+    c = _on(cuda, random_chain(rng, 65536, 64, 51, 12, 256, 1, 32))
+    h = _on(cuda, random_heap(rng, 65536, 64, 21, 6, 1, 32))
     for f, depth, W in ((c, 12, 256), (h, 6, None)):
-        want = _check_predict(f, depth, W)
-        got = _check_predict(f, depth, W, rows_per_thread=rpt,
-                             trees_per_thread=tpt, block_rows=block_rows)
-        assert torch.equal(got, want)
+        whole = _check_predict(f, depth, W)
+        head = dict(f, codes=f["codes"][:n].contiguous())
+        assert torch.equal(_check_predict(head, depth, W), whole[:n])
 
 
 def test_predict_reads_codes_0_and_255_at_256_bins(cuda):

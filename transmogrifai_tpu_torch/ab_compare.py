@@ -1,4 +1,4 @@
-"""Time this checkout's histogram kernels against another checkout's, in
+"""Time this checkout's kernels and trains against another checkout's, in
 turns, on one NVIDIA GPU.
 
     python3 transmogrifai_tpu_torch/ab_compare.py --parent DIR
@@ -8,8 +8,8 @@ DIR is another checkout of the repo (for example the parent commit,
 ``git archive`` unpacked into a git-ignored directory); ``--families ''``
 times the kernels only. The two run in the
 order parent, change, change, parent; each turn runs
-``profile_hist.py`` (both kernels at their main-path shapes, pass by
-pass) and ``profile_train --family F`` for each family (warm train
+``profile_hist.py`` (the histogram, forest predict and leaf-sum
+kernels at their main-path shapes, pass by pass) and ``profile_train --family F`` for each family (warm train
 seconds, peak memory, device ms by kernel, device busy share), each in a
 process of its own. Every JSON line they print is written to ``--out``
 tagged with its turn; the summary printed at the end gives, per turn,

@@ -47,12 +47,12 @@
 //   go to shared memory with cp.async: all trees at once where they fit
 //   beside the codes (up to 227 KB), else in tiles of trees,
 //   double-buffered, the next tile arriving while this one descends.
-// * A thread walks its row (or two) down four trees (or one, or two) at
-//   once, independent steps in flight, each step one record load and one
-//   code load from shared memory, and adds the row's leaf values in
-//   registers in ascending tree order: the bits of ops/forest.py
-//   leaf_values and of a rerun, whatever the launch shape. Each output
-//   element is written once.
+// * A thread walks its row down four trees at once, independent steps in
+//   flight, each step one record load and one code load from shared
+//   memory, and adds the row's leaf values in registers in ascending tree
+//   order: the bits of ops/forest.py leaf_values and of a rerun, whatever
+//   the rows a block. Each output element is written once. (Other launch
+//   shapes, timed and not taken: experiments/forest_variants.cu.)
 // * More than 4095 features, more than 256 bins, W > 512, heaps deeper
 //   than 10 or a row stride that leaves no room for a tree take the first
 //   design (the wide path below), which reads everything as int32; so do
@@ -182,6 +182,7 @@ constexpr unsigned kNever = 256u;          // bin + 1 no byte code reaches
 constexpr int kMaxPackedW = 512;           // dead slots stay past every level
 constexpr int kMaxPackedHeapDepth = 10;    // 2 j <= kBaseMax at the last level
 constexpr int kPredMaxThreads = 512;
+constexpr int kTrees = 4;               // trees a thread walks at once
 
 // A tree's records: level l holds its Wl slots and then a sink at index Wl
 // (feature d, never go, base 0), so a slot past its level (or negative)
@@ -264,12 +265,11 @@ __device__ __forceinline__ unsigned code_byte(int c) {
   return (unsigned)min(max(c, 0), 255);
 }
 
-// Block: R = blockDim.x * RPT rows from row0 = blockIdx.x * R; thread q
-// holds rows q, q + blockDim.x, ... and walks them down TPT trees at once
-// (RPT x TPT independent steps in flight). Trees in tiles of tc (one
-// tile, or two buffers). smem: the tiles' records [nbuf][tc * Sp], then
-// the rows' codes [R][stride] bytes. Sums output columns [k0, k0 + kc).
-template <int RPT, int TPT>
+// Block: R = blockDim.x rows from row0 = blockIdx.x * R; thread q walks
+// row q down kTrees trees at once (kTrees independent steps in flight).
+// Trees in tiles of tc (one tile, or two buffers). smem: the tiles'
+// records [nbuf][tc * Sp], then the rows' codes [R][stride] bytes. Sums
+// output columns [k0, k0 + kc).
 __global__ void __launch_bounds__(kPredMaxThreads)
 predict_kernel(const int* __restrict__ codes, const unsigned* __restrict__ rec,
                const int* __restrict__ base, const float* __restrict__ leaf,
@@ -277,9 +277,8 @@ predict_kernel(const int* __restrict__ codes, const unsigned* __restrict__ rec,
                int T, int depth, int W, int lc, int Sp, int W_out, int k,
                int k0, int kc, int tc, int stride, int vec) {
   extern __shared__ __align__(16) unsigned pred_smem[];
-  const int nt = blockDim.x;
+  const int R = blockDim.x;
   const int q = threadIdx.x;
-  const int R = nt * RPT;
   const int tile_words = tc * Sp;
   const int ntiles = (T + tc - 1) / tc;
   unsigned* tab = pred_smem;
@@ -291,7 +290,7 @@ predict_kernel(const int* __restrict__ codes, const unsigned* __restrict__ rec,
     const int words = (int)min((long long)tc, T - t0) * Sp;
     unsigned* dst = tab + (it & 1) * tile_words;
     const unsigned* src = rec + t0 * Sp;
-    for (int i = 4 * q; i < words; i += 4 * nt) cp_async16(dst + i, src + i);
+    for (int i = 4 * q; i < words; i += 4 * R) cp_async16(dst + i, src + i);
     cp_async_commit();
   };
   if (ntiles > 0) stage(0);
@@ -301,7 +300,7 @@ predict_kernel(const int* __restrict__ codes, const unsigned* __restrict__ rec,
   if (vec) {                                 // d % 4 == 0, 16-byte aligned
     const int dq = d >> 2;
     const int4* c4 = reinterpret_cast<const int4*>(crows);
-    for (int i = q; i < m * dq; i += nt) {
+    for (int i = q; i < m * dq; i += R) {
       const int r = i / dq;
       const int4 v = __ldg(c4 + i);
       *reinterpret_cast<unsigned*>(sc + r * stride + 4 * (i - r * dq)) =
@@ -309,21 +308,17 @@ predict_kernel(const int* __restrict__ codes, const unsigned* __restrict__ rec,
           code_byte(v.w) << 24;
     }
   } else {
-    for (int i = q; i < m * d; i += nt) {
+    for (int i = q; i < m * d; i += R) {
       const int r = i / d;
       sc[r * stride + (i - r * d)] =
           (unsigned char)code_byte(__ldg(crows + i));
     }
   }
-  for (int r = q; r < R; r += nt) sc[r * stride + d] = 0;
-  const unsigned char* rows[RPT];
+  sc[q * stride + d] = 0;
+  const unsigned char* row = sc + q * stride;
+  float acc[kCols];
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) rows[i] = sc + (q + i * nt) * stride;
-  float acc[RPT][kCols];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
+  for (int c = 0; c < kCols; ++c) acc[c] = 0.f;
   for (int it = 0; it < ntiles; ++it) {
     if (it + 1 < ntiles) {
       stage(it + 1);                         // the buffer tile it - 1 used
@@ -335,72 +330,58 @@ predict_kernel(const int* __restrict__ codes, const unsigned* __restrict__ rec,
     const unsigned* tb = tab + (it & 1) * tile_words;
     const int t0 = it * tc;
     const int ntt = min(tc, T - t0);
-    for (int tt = 0; tt < ntt; tt += TPT) {
-      // TPT trees at once; past the tile's last tree a lane redoes it and
-      // adds nothing
-      const unsigned* tr[TPT];
+    for (int tt = 0; tt < ntt; tt += kTrees) {
+      // kTrees trees at once; past the tile's last tree a lane redoes it
+      // and adds nothing
+      const unsigned* tr[kTrees];
+      int slot[kTrees];
 #pragma unroll
-      for (int u = 0; u < TPT; ++u) tr[u] = tb + min(tt + u, ntt - 1) * Sp;
-      int slot[RPT][TPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int u = 0; u < TPT; ++u) slot[i][u] = 0;
+      for (int u = 0; u < kTrees; ++u) {
+        tr[u] = tb + min(tt + u, ntt - 1) * Sp;
+        slot[u] = 0;
+      }
       int off = 0;
       for (int l = 0; l + 1 < depth; ++l) {
         const unsigned Wl = l < lc ? 1u << l : (unsigned)W;
 #pragma unroll
-        for (int i = 0; i < RPT; ++i)
-#pragma unroll
-          for (int u = 0; u < TPT; ++u) {
-            const unsigned x = tr[u][off + min((unsigned)slot[i][u], Wl)];
-            slot[i][u] = record_base(x) +
-                         (rows[i][x >> kFeatShift] >= (x & 511u));
-          }
+        for (int u = 0; u < kTrees; ++u) {
+          const unsigned x = tr[u][off + min((unsigned)slot[u], Wl)];
+          slot[u] = record_base(x) + (row[x >> kFeatShift] >= (x & 511u));
+        }
         off += Wl + 1;
       }
       if (depth > 0) {                       // the last level: exact slots
         const int l = depth - 1;
         const unsigned Wl = l < lc ? 1u << l : (unsigned)W;
 #pragma unroll
-        for (int i = 0; i < RPT; ++i)
-#pragma unroll
-          for (int u = 0; u < TPT; ++u) {
-            const unsigned e = min((unsigned)slot[i][u], Wl);
-            const unsigned x = tr[u][off + e];
-            int a = record_base(x);
-            if (a == kEscape)
-              a = __ldg(base + ((long long)(t0 + min(tt + u, ntt - 1)) * depth
-                                + l) * W + e);
-            slot[i][u] = a + (rows[i][x >> kFeatShift] >= (x & 511u));
-          }
+        for (int u = 0; u < kTrees; ++u) {
+          const unsigned e = min((unsigned)slot[u], Wl);
+          const unsigned x = tr[u][off + e];
+          int a = record_base(x);
+          if (a == kEscape)
+            a = __ldg(base + ((long long)(t0 + min(tt + u, ntt - 1)) * depth
+                              + l) * W + e);
+          slot[u] = a + (row[x >> kFeatShift] >= (x & 511u));
+        }
       }
+      const long long r = row0 + q;
 #pragma unroll
-      for (int u = 0; u < TPT; ++u) {
-        const int t = t0 + tt + u;
+      for (int u = 0; u < kTrees; ++u) {
         if (tt + u >= ntt) break;
+        const int t = t0 + tt + u;
+        if (ids != nullptr && r < n) ids[r * T + t] = slot[u];
+        if ((unsigned)slot[u] < (unsigned)W_out) {
+          const float* lv = leaf + ((long long)t * W_out + slot[u]) * k + k0;
 #pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-          const long long row = row0 + q + i * nt;
-          const int sl = slot[i][u];
-          if (ids != nullptr && row < n) ids[row * T + t] = sl;
-          if ((unsigned)sl < (unsigned)W_out) {
-            const float* lv = leaf + ((long long)t * W_out + sl) * k + k0;
-#pragma unroll
-            for (int c = 0; c < kCols; ++c)
-              if (c < kc) acc[i][c] += __ldg(lv + c);
-          }
+          for (int c = 0; c < kCols; ++c)
+            if (c < kc) acc[c] += __ldg(lv + c);
         }
       }
     }
     __syncthreads();                         // its buffer is free again
   }
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const long long row = row0 + q + i * nt;
-    if (row < n)
-      for (int c = 0; c < kc; ++c) out[row * k + k0 + c] = acc[i][c];
-  }
+  if (row0 + q < n)
+    for (int c = 0; c < kc; ++c) out[(row0 + q) * k + k0 + c] = acc[c];
 }
 
 // ---------------------------------------------------------------------------
@@ -657,39 +638,31 @@ int sm_count(int device) {
   return sms[device];
 }
 
-// The packed path's launch: rows and trees a thread, threads a block,
-// trees a tile, the staged row's bytes (an odd number of words), shared
-// memory.
+// The packed path's launch: threads (rows) a block, trees a tile, the
+// staged row's bytes (an odd number of words), shared memory.
 struct Plan {
-  int rpt, tpt, threads, tc, stride;
+  int threads, tc, stride;
   size_t smem;
 };
 
-// Plan the packed path, or return false for the wide path. block_rows 0:
-// as many rows a block as fill the SMs once, or four times where the
-// records are small enough for four blocks an SM.
-bool plan_predict(int n, int d, int T, int depth, int Sp, int rpt, int tpt,
-                  int block_rows, int device, Plan* p) {
+// Plan the packed path, or return false for the wide path: as many rows a
+// block as fill the SMs once, or four times where the records are small
+// enough for four blocks an SM, fewer where the codes leave no room for a
+// tree's records.
+bool plan_predict(int n, int d, int T, int depth, int Sp, int device,
+                  Plan* p) {
   // a forest whose rows read a few codes each (T x depth <= d / 4, a
   // single shallow tree) reads them faster in place than it copies all d
-  if (d > kMaxPackedD || 4LL * T * depth <= d || (rpt != 1 && rpt != 2) ||
-      (tpt != 1 && tpt != 2 && tpt != 4))
-    return false;
+  if (d > kMaxPackedD || 4LL * T * depth <= d) return false;
   int words = (d + 4) / 4;                   // the codes and the zero byte
   if (!(words & 1)) ++words;
-  p->rpt = rpt;
-  p->tpt = tpt;
   p->stride = 4 * words;
   const size_t tree = (size_t)Sp * 4;
-  int R = block_rows;
-  if (R <= 0) {
-    const long long per =
-        (long long)sm_count(device) * (tree * T <= kSmallForest ? 4 : 1);
-    R = round_up(((long long)n + per - 1) / per, 32 * rpt);
-  }
-  R = std::max(32 * rpt,
-               std::min(round_up(R, 32 * rpt), kPredMaxThreads * rpt));
-  for (; R >= 32 * rpt; R -= 32 * rpt) {
+  const long long per =
+      (long long)sm_count(device) * (tree * T <= kSmallForest ? 4 : 1);
+  int R = std::max(32, std::min(round_up((n + per - 1) / per, 32),
+                                kPredMaxThreads));
+  for (; R >= 32; R -= 32) {
     const size_t codes = (size_t)R * p->stride;
     if (codes + tree * T <= (size_t)kSmemMax) {
       p->tc = std::max(T, 1);
@@ -701,7 +674,7 @@ bool plan_predict(int n, int d, int T, int depth, int Sp, int rpt, int tpt,
       p->tc = (int)tc;
       p->smem = codes + 2 * tree * tc;
     }
-    p->threads = R / rpt;
+    p->threads = R;
     return true;
   }
   return false;
@@ -721,8 +694,7 @@ cudaError_t allow_smem_cached(Kernel kernel, size_t smem, int device,
 
 // Launch the packed path: records into rec, then the descent, kCols
 // output columns a launch (leaf ids with the first).
-template <int RPT, int TPT>
-cudaError_t launch_predict(const int* codes, const int* feat,
+cudaError_t predict_packed(const int* codes, const int* feat,
                            const int* bins, const int* base,
                            const float* leaf, float* out, int* ids,
                            unsigned* rec, int n, int d, int T, int depth,
@@ -737,39 +709,19 @@ cudaError_t launch_predict(const int* codes, const int* feat,
                   stream>>>(feat, bins, base, rec, T, depth, W, lc, Sp, d);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  err = allow_smem_cached(predict_kernel<RPT, TPT>, p.smem, device, done);
+  err = allow_smem_cached(predict_kernel, p.smem, device, done);
   if (err != cudaSuccess) return err;
   const int vec = d % 4 == 0 && ((uintptr_t)codes & 15) == 0;
   const unsigned blocks =
-      (unsigned)(((long long)n + p.threads * RPT - 1) / (p.threads * RPT));
+      (unsigned)(((long long)n + p.threads - 1) / p.threads);
   for (int k0 = 0; k0 < k; k0 += kCols) {
-    predict_kernel<RPT, TPT><<<blocks, p.threads, p.smem, stream>>>(
+    predict_kernel<<<blocks, p.threads, p.smem, stream>>>(
         codes, rec, base, leaf, out, k0 == 0 ? ids : nullptr, n, d, T, depth,
         W, lc, Sp, W_out, k, k0, std::min(kCols, k - k0), p.tc, p.stride,
         vec);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   return cudaSuccess;
-}
-
-// The packed path at its rows (1 or 2) and trees (1, 2 or 4) a thread.
-cudaError_t predict_packed(const int* codes, const int* feat,
-                           const int* bins, const int* base,
-                           const float* leaf, float* out, int* ids,
-                           unsigned* rec, int n, int d, int T, int depth,
-                           int W, int lc, int S, int W_out, int k,
-                           const Plan& p, int device, cudaStream_t stream) {
-  auto go = [&](auto launch) {
-    return launch(codes, feat, bins, base, leaf, out, ids, rec, n, d, T,
-                  depth, W, lc, S, W_out, k, p, device, stream);
-  };
-  if (p.rpt == 1)
-    return p.tpt == 1   ? go(launch_predict<1, 1>)
-           : p.tpt == 2 ? go(launch_predict<1, 2>)
-                        : go(launch_predict<1, 4>);
-  return p.tpt == 1   ? go(launch_predict<2, 1>)
-         : p.tpt == 2 ? go(launch_predict<2, 2>)
-                      : go(launch_predict<2, 4>);
 }
 
 }  // namespace
@@ -792,15 +744,11 @@ int forest_predict_workspace(int T, int depth, int W, long long* words) {
 
 // codes (n, d) int32 in [0, n_bins); feat, bins (T, 2^depth - 1) int32;
 // leaf (T, 2^depth, k) f32; rec: forest_predict_workspace words -> out
-// (n, k) f32; ids (n, T) int32 or null. rpt and tpt (rows and trees a
-// thread walks at once: 1 or 2, and 1, 2 or 4) and block_rows (0: the
-// planner's) shape
-// the launch and change no bit.
+// (n, k) f32; ids (n, T) int32 or null.
 int forest_predict_heap(const void* codes, const void* feat,
                         const void* bins, const void* leaf, void* out,
                         void* ids, void* rec, int n, int d, int T, int depth,
-                        int k, int n_bins, int rpt, int tpt, int block_rows,
-                        int device, void* stream) {
+                        int k, int n_bins, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n <= 0) return (int)cudaSuccess;
@@ -808,8 +756,7 @@ int forest_predict_heap(const void* codes, const void* feat,
   chain_shape(depth, &W, &lc, &S);
   Plan p;
   if (n_bins <= 256 && depth <= kMaxPackedHeapDepth &&
-      plan_predict(n, d, T, depth, round_up(S, 4), rpt, tpt, block_rows,
-                   device, &p))
+      plan_predict(n, d, T, depth, round_up(S, 4), device, &p))
     return (int)predict_packed(
         (const int*)codes, (const int*)feat, (const int*)bins, nullptr,
         (const float*)leaf, (float*)out, (int*)ids, (unsigned*)rec, n, d, T,
@@ -829,14 +776,12 @@ int forest_predict_heap(const void* codes, const void* feat,
 
 // codes (n, d) int32 in [0, n_bins); feat, bins, base (T, depth, W) int32;
 // leaf (T, W_out, k) f32; rec: forest_predict_workspace words -> out (n,
-// k) f32; ids (n, T) int32 or null. rpt, tpt and block_rows as for the
-// heap.
+// k) f32; ids (n, T) int32 or null.
 int forest_predict_chain(const void* codes, const void* feat,
                          const void* bins, const void* base,
                          const void* leaf, void* out, void* ids, void* rec,
                          int n, int d, int T, int depth, int W, int W_out,
-                         int k, int n_bins, int rpt, int tpt, int block_rows,
-                         int device, void* stream) {
+                         int k, int n_bins, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n <= 0) return (int)cudaSuccess;
@@ -845,8 +790,7 @@ int forest_predict_chain(const void* codes, const void* feat,
   chain_shape(depth, &W, &lc, &S);
   Plan p;
   if (n_bins <= 256 && W <= kMaxPackedW &&
-      plan_predict(n, d, T, depth, round_up(S, 4), rpt, tpt, block_rows,
-                   device, &p))
+      plan_predict(n, d, T, depth, round_up(S, 4), device, &p))
     return (int)predict_packed(
         (const int*)codes, (const int*)feat, (const int*)bins,
         (const int*)base, (const float*)leaf, (float*)out, (int*)ids,

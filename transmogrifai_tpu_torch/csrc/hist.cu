@@ -30,7 +30,11 @@
 //   split's rows in order, 16 rows a batch (their codes and stats loaded
 //   together, one wait a batch, then the adds), and adds A[s, a] into its
 //   own nb bins in shared memory ([split][bin][column]: a warp's adds fall
-//   in distinct banks); a zero stat is skipped, which changes no bit. The
+//   in distinct banks). Every row adds, with no branch: a row without a
+//   valid code adds 0 * A[s, a] into bin 0, which is +-0 for a finite
+//   stat and changes no bit (a bin starts at +0 and never holds -0, so x +
+//   (+-0) == x). Skipping those rows and the zero stats instead (the
+//   first design) cost a branch and a reconvergence a row. The
 //   splits cut each column's serial walk over a chunk 16-fold, which is
 //   what a single-tree GBT leaf call waits for. Blocks are sized by shared
 //   memory (the stat tile `at` shrinks, never the split count): nb 64 runs
@@ -51,17 +55,20 @@
 //   whose stat A[s, a] (after the bf16 rounding, when not exact) is not
 //   finite has codes[s, f] != b (a sentinel code counts as != b);
 //   otherwise it is the ordinary sum, which may itself be +-Inf, or NaN
-//   from +Inf + -Inf. Finite inputs pay one instruction a row: each thread
-//   of pass 1 keeps the NaN-propagating max of its split's |stats|, and
-//   only a split that holds a non-finite stat walks its rows again, to
-//   find the bins they all hit, and writes NaN into its other bins (the
-//   split, chunk and combine sums carry the NaN on). A feature whose chunk
-//   holds no valid code launches no walk there, so pass 1 also marks, per
-//   stat column, the chunks that hold a non-finite stat, and pass 2 writes
-//   NaN where such a chunk meets an unmarked (feature, chunk) pair; a
-//   chunk with no valid code in any feature is scanned for them by its
-//   feature-0 blocks. The rare paths are out of line (no registers taken
-//   from the common one).
+//   from +Inf + -Inf. Finite inputs pay nothing a row: a non-finite stat
+//   reaches one of its split's bins (bin 0 as 0 * stat = NaN when its code
+//   is not valid), and the sum over splits that pass 1 already makes for
+//   each bin carries it on (no sum that is not finite becomes finite
+//   again). Only a block that meets a bin that is not finite walks its
+//   rows again, to find the bin that every non-finite row of a column
+//   hits, writes NaN into that column's other bins of the chunk partial
+//   and marks, per stat column, the chunk as holding a non-finite stat (a
+//   bin whose finite stats overflowed finds no such row and keeps its
+//   sum). A feature whose chunk holds no valid code launches no walk
+//   there, so pass 2 writes NaN where a marked chunk meets an unmarked
+//   (feature, chunk) pair; a chunk with no valid code in any feature is
+//   scanned by its feature-0 blocks. The rare paths are out of line (no
+//   registers taken from the common one).
 // * No float atomics: every sum has one fixed order (rows in order within
 //   a split, splits in order, chunks in the pinned order), whatever the
 //   stat tile or block size, so reruns give the same bits, and
@@ -148,20 +155,36 @@ __global__ void hist_flag_kernel(const int* __restrict__ codes,
 }
 
 // Pass 1's rare path, out of line so that it costs the common one no
-// registers: NaN in every bin (mb[b * at]) of column a of feature f but
-// the one that all rows [s0, s1) with a non-finite stat hit.
+// registers. Thread (split sp, column al) of a block whose bins met a
+// value that is not finite finds the bin that all rows [s0, s1) with a
+// non-finite stat in column a hit; the threads of split 0 fold those over
+// the splits, write NaN into every other bin of their column of the
+// chunk partial (out[b * B], b < nb) and mark the chunk in nonfin[a].
+// hits: kSplits * at ints of shared memory.
 __device__ __noinline__ void nan_other_bins(const int* __restrict__ codes,
                                             const float* __restrict__ A,
                                             long long s0, long long s1,
                                             int d, int f, int B, int a,
-                                            int nb, float lim, float* mb,
-                                            int at) {
+                                            int nb, float lim, int sp,
+                                            int al, int at, int* hits,
+                                            float* out, int* nonfin,
+                                            int k) {
   int hit = 0;
-  for (long long s = s0; s < s1; ++s)
-    if (!(fabsf(__ldg(A + s * B + a)) < lim))
-      hit = hit_bin(hit, __ldg(codes + s * d + f), nb);
+  if (a < B)
+    for (long long s = s0; s < s1; ++s)
+      if (!(fabsf(__ldg(A + s * B + a)) < lim))
+        hit = hit_bin(hit, __ldg(codes + s * d + f), nb);
+  hits[sp * at + al] = hit;
+  __syncthreads();
+  if (sp != 0 || a >= B) return;
+  for (int q = 1; q < kSplits; ++q) {
+    const int h = hits[q * at + al];
+    if (h != 0) hit = hit == 0 ? h : (hit == h ? hit : -1);
+  }
+  if (hit == 0) return;                      // finite stats overflowed
   for (int b = 0; b < nb; ++b)
-    if (b + 1 != hit) mb[b * at] = __int_as_float(0x7fffffff);
+    if (b + 1 != hit) out[(long long)b * B] = __int_as_float(0x7fffffff);
+  atomicOr(nonfin + a, 1 << k);
 }
 
 // Pass 1: block (stat tile x feature f, k), stat tiles along grid.x
@@ -187,7 +210,6 @@ __global__ void hist_partial_kernel(const int* __restrict__ codes,
   const int sub = (rows + kSplits - 1) / kSplits;
   const long long s0 = min(c0 + (long long)sp * sub, c1);
   const long long s1 = min(s0 + sub, c1);
-  const float lim = nonfinite_from(exact);
   if (!(flags[f] >> k & 1)) {
     // no valid code of f in this chunk, nothing to add; where no feature
     // has one, the feature-0 blocks still mark the chunk's non-finite stats
@@ -198,18 +220,16 @@ __global__ void hist_partial_kernel(const int* __restrict__ codes,
     float top = 0.f;
     for (long long s = s0; s < s1; ++s)
       top = max_nan(top, fabsf(__ldg(A + s * B + a)));
-    if (!(top < lim)) atomicOr(nonfin + a, 1 << k);
+    if (!(top < nonfinite_from(exact))) atomicOr(nonfin + a, 1 << k);
     return;
   }
   for (int i = threadIdx.x; i < kSplits * nb * at; i += nt) bins[i] = 0.f;
   __syncthreads();
   float* mb = bins + sp * nb * at + al;
-  float top = 0.f;                           // the split's largest |stat|
   if (a < B) {
     long long s = s0;
     // a batch's codes and stats load together (one wait a batch), then
-    // the adds in row order. A zero stat adds nothing: a bin starts at +0
-    // and never holds -0, so x + (+-0) == x and the add is skipped
+    // the adds in row order
     for (; s + kUnroll <= s1; s += kUnroll) {
       int c[kUnroll];
       float v[kUnroll];
@@ -220,34 +240,36 @@ __global__ void hist_partial_kernel(const int* __restrict__ codes,
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
-        top = max_nan(top, fabsf(v[u]));
-        if ((unsigned)c[u] < (unsigned)nb && v[u] != 0.f)
-          mb[c[u] * at] += stat(v[u], exact);
+        const bool ok = (unsigned)c[u] < (unsigned)nb;
+        const float x = stat(v[u], exact);
+        mb[(ok ? c[u] : 0) * at] += ok ? x : 0.f * x;
       }
     }
     for (; s < s1; ++s) {
       const int c = __ldg(codes + s * d + f);
-      const float v = __ldg(A + s * B + a);
-      top = max_nan(top, fabsf(v));
-      if ((unsigned)c < (unsigned)nb && v != 0.f) mb[c * at] += stat(v, exact);
+      const bool ok = (unsigned)c < (unsigned)nb;
+      const float x = stat(__ldg(A + s * B + a), exact);
+      mb[(ok ? c : 0) * at] += ok ? x : 0.f * x;
     }
-  }
-  if (!(top < lim)) {
-    nan_other_bins(codes, A, s0, s1, d, f, B, a, nb, lim, mb, at);
-    atomicOr(nonfin + a, 1 << k);
   }
   __syncthreads();
   // the splits in order, then the chunk partial, coalesced along a
   const long long width = (long long)d * nb;
   float* out = part + ((long long)k * width + (long long)f * nb) * B + a0;
+  bool bad = false;
   for (int i = threadIdx.x; i < nb * at; i += nt) {
     const int c = i / at;
     const int aj = i - c * at;
     float v = bins[i];
 #pragma unroll
     for (int q = 1; q < kSplits; ++q) v += bins[q * nb * at + i];
+    bad |= !(fabsf(v) < __int_as_float(0x7f800000));
     if (a0 + aj < B) out[(long long)c * B + aj] = v;
   }
+  if (__syncthreads_or(bad))
+    nan_other_bins(codes, A, s0, s1, d, f, B, a, nb, nonfinite_from(exact),
+                   sp, al, at, reinterpret_cast<int*>(bins), out + al,
+                   nonfin, k);
 }
 
 // The pinned pairwise order of K partials: ((p0 + p1) + (p2 + p3)) + ...,

@@ -1,10 +1,12 @@
-// One-change variants of the first forest predict design, to split what
-// holds it back (timed by experiments/forest_variants.py; built only by
-// that script). The base variant is that design as it shipped before the
-// packed kernel of csrc/forest_predict.cu: one thread a row, 128 rows a
-// block, the row's codes read as int32 from global memory (L1/L2) at every
-// step, the split tables staged as int32 arrays in rounds of trees that fit
-// in 48 KB, between two block barriers. Each flag changes one thing:
+// Forest predict designs that were timed and not taken (timed by
+// experiments/forest_variants.py; built only by that script).
+//
+// 1. One-change variants of the first design, to split what held it back.
+// The base variant is that design as it shipped before the packed kernel
+// of csrc/forest_predict.cu: one thread a row, 128 rows a block, the row's
+// codes read as int32 from global memory (L1/L2) at every step, the split
+// tables staged as int32 arrays in rounds of trees that fit in 48 KB,
+// between two block barriers. Each flag changes one thing:
 //
 // * smem_codes: the block's rows of codes are copied into shared memory
 //   once, as bytes, coalesced 16 bytes a load (row stride an odd number of
@@ -16,7 +18,12 @@
 //   block of 128 threads holds 128 x rpt rows and each staged table byte
 //   serves that many.
 //
-// k is 1 and no leaf ids are written: the variants are timed at the serve
+// 2. Launch shapes of the packed design (forest_sweep): the shipped
+// kernel's descent with RPT rows (1 or 2) and TPT trees (1, 2 or 4) a
+// thread walked at once, and the rows a block given (0: the shipped
+// planner's choice). It ships at 1 row x 4 trees, planned rows.
+//
+// k is 1 and no leaf ids are written: the designs are timed at the serve
 // shapes only, and each is checked bit for bit against the plain version
 // there. Trees add in ascending order, as in every design.
 //
@@ -25,6 +32,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -251,6 +260,278 @@ cudaError_t by_codes(int smem_codes, int packed, int rpt, const int* codes,
                                    stream);
 }
 
+// ---------------------------------------------------------------------------
+// 2. The packed design's launch shapes (a copy of csrc/forest_predict.cu's
+// packed path, templated on rows and trees a thread)
+// ---------------------------------------------------------------------------
+
+constexpr int kFeatShift = 20;
+constexpr int kBaseShift = 9;
+constexpr int kBaseMax = 1023;
+constexpr int kEscape = -1024;
+constexpr unsigned kNever = 256u;
+constexpr int kMaxThreads = 512;
+constexpr size_t kSmallForest = 48 * 1024;
+
+int round_up(long long x, int m) { return (int)((x + m - 1) / m * m); }
+
+// ceil(log2 W) and the records of a tree: each level's slots and a sink.
+void chain_shape(int depth, int* W, int* lc, int* S) {
+  if (*W == 0) *W = depth > 0 ? 1 << (depth - 1) : 1;
+  *lc = 0;
+  while ((1 << *lc) < *W) ++*lc;
+  *S = 0;
+  for (int l = 0; l < depth; ++l) *S += (l < *lc ? (1 << l) : *W) + 1;
+}
+
+__device__ __forceinline__ unsigned record(int f, int b, int a, int d) {
+  const unsigned fp = f >= 0 && f < d ? (unsigned)f : (unsigned)d;
+  const unsigned bp = (unsigned)(min(max(b, -1), 255) + 1);
+  return bp | ((unsigned)a & 2047u) << kBaseShift | fp << kFeatShift;
+}
+
+__device__ __forceinline__ int record_base(unsigned x) {
+  return (int)(x << (32 - kFeatShift)) >> (32 - kFeatShift + kBaseShift);
+}
+
+__global__ void pack_kernel(const int* __restrict__ feat,
+                            const int* __restrict__ bins,
+                            const int* __restrict__ base,
+                            unsigned* __restrict__ rec, int T, int depth,
+                            int W, int lc, int Sp, int d) {
+  const long long m = (long long)T * Sp;
+  const int H = (1 << depth) - 1;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < m;
+       i += (long long)gridDim.x * blockDim.x) {
+    const long long t = i / Sp;
+    int s = (int)(i - t * Sp);
+    int l = 0;
+    for (; l < depth; ++l) {
+      const int Wl = l < lc ? 1 << l : W;
+      if (s <= Wl) break;
+      s -= Wl + 1;
+    }
+    const int Wl = l < lc ? 1 << l : W;
+    if (l == depth) {
+      rec[i] = 0u;
+    } else if (s == Wl) {
+      rec[i] = kNever | (unsigned)d << kFeatShift;
+    } else if (base == nullptr) {
+      const long long src = t * H + (1 << l) - 1 + s;
+      rec[i] = record(feat[src], bins[src], 2 * s, d);
+    } else {
+      const long long src = (t * depth + l) * W + s;
+      const int a = base[src];
+      rec[i] = record(feat[src], bins[src],
+                      l + 1 < depth ? min(max(a, -kBaseMax), kBaseMax)
+                                    : (a >= -kBaseMax && a <= kBaseMax
+                                           ? a : kEscape), d);
+    }
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned sa = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(sa),
+               "l"(src));
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+template <int RPT, int TPT>
+__global__ void __launch_bounds__(kMaxThreads)
+sweep_kernel(const int* __restrict__ codes, const unsigned* __restrict__ rec,
+             const int* __restrict__ base, const float* __restrict__ leaf,
+             float* __restrict__ out, int n, int d, int T, int depth, int W,
+             int lc, int Sp, int W_out, int tc, int stride, int vec) {
+  extern __shared__ __align__(16) unsigned pred_smem[];
+  const int nt = blockDim.x;
+  const int q = threadIdx.x;
+  const int R = nt * RPT;
+  const int tile_words = tc * Sp;
+  const int ntiles = (T + tc - 1) / tc;
+  unsigned* tab = pred_smem;
+  unsigned char* sc = reinterpret_cast<unsigned char*>(
+      pred_smem + (size_t)(ntiles > 1 ? 2 : 1) * tile_words);
+  const long long row0 = (long long)blockIdx.x * R;
+  auto stage = [&](int it) {
+    const long long t0 = (long long)it * tc;
+    const int words = (int)min((long long)tc, T - t0) * Sp;
+    unsigned* dst = tab + (it & 1) * tile_words;
+    const unsigned* src = rec + t0 * Sp;
+    for (int i = 4 * q; i < words; i += 4 * nt) cp_async16(dst + i, src + i);
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  if (ntiles > 0) stage(0);
+  const int m = (int)min((long long)R, n - row0);
+  const int* crows = codes + row0 * d;
+  if (vec) {
+    const int dq = d >> 2;
+    const int4* c4 = reinterpret_cast<const int4*>(crows);
+    for (int i = q; i < m * dq; i += nt) {
+      const int r = i / dq;
+      const int4 v = __ldg(c4 + i);
+      *reinterpret_cast<unsigned*>(sc + r * stride + 4 * (i - r * dq)) =
+          code_byte(v.x) | code_byte(v.y) << 8 | code_byte(v.z) << 16 |
+          code_byte(v.w) << 24;
+    }
+  } else {
+    for (int i = q; i < m * d; i += nt) {
+      const int r = i / d;
+      sc[r * stride + (i - r * d)] =
+          (unsigned char)code_byte(__ldg(crows + i));
+    }
+  }
+  for (int r = q; r < R; r += nt) sc[r * stride + d] = 0;
+  const unsigned char* rows[RPT];
+  float acc[RPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    rows[i] = sc + (q + i * nt) * stride;
+    acc[i] = 0.f;
+  }
+  for (int it = 0; it < ntiles; ++it) {
+    if (it + 1 < ntiles) {
+      stage(it + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const unsigned* tb = tab + (it & 1) * tile_words;
+    const int t0 = it * tc;
+    const int ntt = min(tc, T - t0);
+    for (int tt = 0; tt < ntt; tt += TPT) {
+      const unsigned* tr[TPT];
+#pragma unroll
+      for (int u = 0; u < TPT; ++u) tr[u] = tb + min(tt + u, ntt - 1) * Sp;
+      int slot[RPT][TPT];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int u = 0; u < TPT; ++u) slot[i][u] = 0;
+      int off = 0;
+      for (int l = 0; l + 1 < depth; ++l) {
+        const unsigned Wl = l < lc ? 1u << l : (unsigned)W;
+#pragma unroll
+        for (int i = 0; i < RPT; ++i)
+#pragma unroll
+          for (int u = 0; u < TPT; ++u) {
+            const unsigned x = tr[u][off + min((unsigned)slot[i][u], Wl)];
+            slot[i][u] = record_base(x) +
+                         (rows[i][x >> kFeatShift] >= (x & 511u));
+          }
+        off += Wl + 1;
+      }
+      if (depth > 0) {
+        const int l = depth - 1;
+        const unsigned Wl = l < lc ? 1u << l : (unsigned)W;
+#pragma unroll
+        for (int i = 0; i < RPT; ++i)
+#pragma unroll
+          for (int u = 0; u < TPT; ++u) {
+            const unsigned e = min((unsigned)slot[i][u], Wl);
+            const unsigned x = tr[u][off + e];
+            int a = record_base(x);
+            if (a == kEscape)
+              a = __ldg(base + ((long long)(t0 + min(tt + u, ntt - 1)) * depth
+                                + l) * W + e);
+            slot[i][u] = a + (rows[i][x >> kFeatShift] >= (x & 511u));
+          }
+      }
+#pragma unroll
+      for (int u = 0; u < TPT; ++u) {
+        if (tt + u >= ntt) break;
+        const int t = t0 + tt + u;
+#pragma unroll
+        for (int i = 0; i < RPT; ++i)
+          if ((unsigned)slot[i][u] < (unsigned)W_out)
+            acc[i] += __ldg(leaf + (long long)t * W_out + slot[i][u]);
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const long long row = row0 + q + i * nt;
+    if (row < n) out[row] = acc[i];
+  }
+}
+
+template <int RPT, int TPT>
+cudaError_t sweep(const int* codes, const int* feat, const int* bins,
+                  const int* base, const float* leaf, float* out,
+                  unsigned* rec, int n, int d, int T, int depth, int W,
+                  int W_out, int block_rows, int device,
+                  cudaStream_t stream) {
+  int lc, S;
+  chain_shape(depth, &W, &lc, &S);
+  const int Sp = round_up(S, 4);
+  int words = (d + 4) / 4;
+  if (!(words & 1)) ++words;
+  const int stride = 4 * words;
+  const size_t tree = (size_t)Sp * 4;
+  int R = block_rows;
+  if (R <= 0) {                              // the shipped planner's rows
+    int sms = 1;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    const long long per = (long long)sms * (tree * T <= kSmallForest ? 4 : 1);
+    R = round_up((n + per - 1) / per, 32 * RPT);
+  }
+  R = std::max(32 * RPT, std::min(round_up(R, 32 * RPT), kMaxThreads * RPT));
+  int tc = 0;
+  size_t smem = 0;
+  for (; R >= 32 * RPT; R -= 32 * RPT) {
+    const size_t cb = (size_t)R * stride;
+    if (cb + tree * T <= (size_t)kSmemMax) {
+      tc = std::max(T, 1);
+      smem = cb + tree * T;
+      break;
+    }
+    const long long fit = ((long long)kSmemMax - (long long)cb) /
+                          (2 * (long long)tree);
+    if (fit >= 1) {
+      tc = (int)fit;
+      smem = cb + 2 * tree * tc;
+      break;
+    }
+  }
+  if (tc < 1) return cudaErrorInvalidValue;
+  const long long m = (long long)T * Sp;
+  pack_kernel<<<(unsigned)std::min((m + 255) / 256, 4096LL), 256, 0,
+                stream>>>(feat, bins, base, rec, T, depth, W, lc, Sp, d);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(sweep_kernel<RPT, TPT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  const int vec = d % 4 == 0 && ((uintptr_t)codes & 15) == 0;
+  sweep_kernel<RPT, TPT><<<(unsigned)((n + R - 1) / R), R / RPT, smem,
+                           stream>>>(codes, rec, base, leaf, out, n, d, T,
+                                     depth, W, lc, Sp, W_out, tc, stride,
+                                     vec);
+  return cudaGetLastError();
+}
+
+template <int RPT>
+cudaError_t sweep_trees(int tpt, const int* codes, const int* feat,
+                        const int* bins, const int* base, const float* leaf,
+                        float* out, unsigned* rec, int n, int d, int T,
+                        int depth, int W, int W_out, int block_rows,
+                        int device, cudaStream_t stream) {
+  auto go = [&](auto fn) {
+    return fn(codes, feat, bins, base, leaf, out, rec, n, d, T, depth, W,
+              W_out, block_rows, device, stream);
+  };
+  return tpt == 1   ? go(sweep<RPT, 1>)
+         : tpt == 2 ? go(sweep<RPT, 2>)
+                    : go(sweep<RPT, 4>);
+}
+
 }  // namespace
 
 extern "C" {
@@ -287,6 +568,37 @@ int forest_variant(int smem_codes, int packed, int rpt, const void* codes,
                           (const float*)leaf, (float*)out, n, d, T, depth, W,
                           W_out, lc, S, (cudaStream_t)stream);
   return (int)err;
+}
+
+// The record words forest_sweep takes for T trees (W 0: heaps).
+int forest_sweep_workspace(int T, int depth, int W, long long* words) {
+  int lc, S;
+  chain_shape(depth, &W, &lc, &S);
+  *words = (long long)T * round_up(S, 4);
+  return 0;
+}
+
+// The packed design at rpt rows (1, 2) and tpt trees (1, 2, 4) a thread
+// and block_rows rows a block (0: planned); tables as forest_variant's,
+// rec forest_sweep_workspace words.
+int forest_sweep(int rpt, int tpt, int block_rows, const void* codes,
+                 const void* feat, const void* bins, const void* base,
+                 const void* leaf, void* out, void* rec, int n, int d, int T,
+                 int depth, int W, int W_out, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n <= 0) return 0;
+  if ((rpt != 1 && rpt != 2) || (tpt != 1 && tpt != 2 && tpt != 4) ||
+      d > 4095)
+    return (int)cudaErrorInvalidValue;
+  if (base == nullptr) W = 0;
+  auto go = [&](auto fn) {
+    return fn(tpt, (const int*)codes, (const int*)feat, (const int*)bins,
+              (const int*)base, (const float*)leaf, (float*)out,
+              (unsigned*)rec, n, d, T, depth, W, W_out, block_rows, device,
+              (cudaStream_t)stream);
+  };
+  return (int)(rpt == 1 ? go(sweep_trees<1>) : go(sweep_trees<2>));
 }
 
 }  // extern "C"

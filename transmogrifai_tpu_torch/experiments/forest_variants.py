@@ -1,5 +1,5 @@
-"""Time one-change variants of the first forest predict design
-(``experiments/forest_variants.cu``) and the shipped packed kernel
+"""Time the forest predict designs that were measured and not taken
+(``experiments/forest_variants.cu``) beside the shipped kernel
 (``csrc/forest_predict.cu``) at the serve shapes, on one NVIDIA GPU.
 
     python3 -m transmogrifai_tpu_torch.experiments.forest_variants
@@ -10,9 +10,10 @@ Shapes (65,536 rows x 64 codes, 32 bins, k 1, trees from
 (slot chains, T 50, depth 12, W 256), the ``gbt12`` serve (chains, T 20,
 depth 12, W 256) and the GBT serve (heaps, T 20, depth 6). Per shape: the
 first design (``base``), each with one change (``+smem codes``,
-``+packed``, ``+2 rows a thread``), all three at once, and the shipped
-kernel at the launch shapes of ``SHIPPED`` (rows and trees a thread,
-rows a block). Every result is checked bit
+``+packed``, ``+2 rows a thread``), all three at once; then the shipped
+kernel (its public wrapper) and its descent at the launch shapes of
+``SHAPES_SWEPT`` (rows and trees a thread, rows a block; ``--only
+shipped`` times these alone). Every result is checked bit
 for bit against the plain version; each time is the median of ``--runs``
 CUDA-event timings of one call after warm-up, beside the device ms of its
 kernels (``torch.profiler``). Prints the card's name and power limit,
@@ -41,6 +42,10 @@ VARIANT = cuda_build.CudaKernel(
     "forest_variant", "../experiments/forest_variants.cu",
     "transmogrifai_tpu/ops/forest.py:503", [_I] * 3 + [_P] * 6 + [_I] * 7
     + [_P])
+SWEEP = cuda_build.CudaKernel(
+    "forest_sweep", "../experiments/forest_variants.cu",
+    "transmogrifai_tpu/ops/forest.py:503", [_I] * 3 + [_P] * 7 + [_I] * 7
+    + [_P])
 
 ROWS, CODES, BINS = 65536, 64, 32
 #: (tag, T, depth, W; W None for heaps)
@@ -50,10 +55,10 @@ SHAPES = (("RF serve", 50, 12, 256), ("gbt12 serve", 20, 12, 256),
 VARIANTS = (("base", 0, 0, 1), ("+smem codes", 1, 0, 1),
             ("+packed", 0, 1, 1), ("+2 rows a thread", 0, 0, 2),
             ("all three", 1, 1, 2))
-#: the shipped kernel's launch shapes: (rows a thread, trees a thread,
-#: rows a block; 0 the kernel's plan)
-SHIPPED = ((1, 1, 0), (2, 1, 0), (1, 2, 0), (2, 2, 0), (1, 4, 0),
-           (1, 2, 128), (1, 2, 256), (1, 4, 256))
+#: the packed design's launch shapes: (rows a thread, trees a thread,
+#: rows a block; 0 the shipped planner's); it ships at (1, 4, 0)
+SHAPES_SWEPT = ((1, 1, 0), (2, 1, 0), (1, 2, 0), (2, 2, 0), (1, 4, 0),
+                (1, 2, 128), (1, 2, 256), (1, 4, 256))
 
 
 def variant(tabs, leaf, depth, W, smem_codes, packed, rpt):
@@ -68,6 +73,26 @@ def variant(tabs, leaf, depth, W, smem_codes, packed, rpt):
                    ptr(tabs[2]), ptr(base), ptr(leaf), ptr(out), n, d, T,
                    depth, W or 0, W_out, dev.index,
                    torch.cuda.current_stream(dev).cuda_stream)
+    return out[:, None]
+
+
+def swept(tabs, leaf, depth, W, rpt, tpt, block_rows):
+    """The packed design at one launch shape; leaf (T, W_out)."""
+    codes = tabs[0]
+    dev = codes.device
+    n, d = codes.shape
+    T, W_out = leaf.shape
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    base = tabs[3] if len(tabs) == 4 else None
+    words = ctypes.c_longlong()
+    SWEEP.entry("forest_sweep_workspace", [
+        _I, _I, _I, ctypes.POINTER(ctypes.c_longlong)])(
+            T, depth, W or 0, ctypes.byref(words))
+    rec = torch.empty(words.value, dtype=torch.int32, device=dev)
+    SWEEP.launch(rpt, tpt, block_rows, ptr(codes), ptr(tabs[1]),
+                 ptr(tabs[2]), ptr(base), ptr(leaf), ptr(out), ptr(rec), n,
+                 d, T, depth, W or 0, W_out, dev.index,
+                 torch.cuda.current_stream(dev).cuda_stream)
     return out[:, None]
 
 
@@ -95,30 +120,32 @@ def main() -> int:
             keys = ("codes", "feat", "bins", "base")
         tabs = [torch.from_numpy(f[k]).to(dev) for k in keys]
         leaf = torch.from_numpy(f["leaf"]).to(dev)
+        leaf1 = leaf[:, :, 0].contiguous()
         if W is None:
             want = F.forest_predict_plain(*tabs, leaf, depth=depth,
                                           n_bins=BINS)
 
-            def shipped(**kw):
+            def shipped():
                 return F.forest_predict_heap_cuda(*tabs, leaf, depth=depth,
-                                                  n_bins=BINS, **kw)[0]
+                                                  n_bins=BINS)[0]
         else:
             want = F.forest_predict_chain_plain(*tabs, leaf, n_bins=BINS)
 
-            def shipped(**kw):
-                return F.forest_predict_chain_cuda(*tabs, leaf, n_bins=BINS,
-                                                   **kw)[0]
+            def shipped():
+                return F.forest_predict_chain_cuda(*tabs, leaf,
+                                                   n_bins=BINS)[0]
         calls = []
         if args.only != "shipped":
             calls += [(name, lambda s=s, p=p, r=r: variant(
-                tabs, leaf[:, :, 0].contiguous(), depth, W, s, p, r))
+                tabs, leaf1, depth, W, s, p, r))
                 for name, s, p, r in VARIANTS]
         if args.only != "variants":
-            calls += [(f"shipped, {r} rows x {u} trees a thread, "
+            calls.append(("shipped", shipped))
+            calls += [(f"packed, {r} rows x {u} trees a thread, "
                        f"{b or 'planned'} rows a block",
-                       lambda r=r, u=u, b=b: shipped(
-                           rows_per_thread=r, trees_per_thread=u,
-                           block_rows=b)) for r, u, b in SHIPPED]
+                       lambda r=r, u=u, b=b: swept(
+                           tabs, leaf1, depth, W, r, u, b))
+                      for r, u, b in SHAPES_SWEPT]
         for name, fn in calls:
             got = fn()
             torch.cuda.synchronize()

@@ -183,10 +183,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #: ``replaces`` is the file:line of the Pallas kernel function each ports
 FOREST_PREDICT_HEAP = cuda_build.CudaKernel(
     "forest_predict_heap", "forest_predict.cu",
-    "transmogrifai_tpu/ops/forest.py:196", [_P] * 7 + [_I] * 10 + [_P])
+    "transmogrifai_tpu/ops/forest.py:196", [_P] * 7 + [_I] * 7 + [_P])
 FOREST_PREDICT_CHAIN = cuda_build.CudaKernel(
     "forest_predict_chain", "forest_predict.cu",
-    "transmogrifai_tpu/ops/forest.py:503", [_P] * 8 + [_I] * 12 + [_P])
+    "transmogrifai_tpu/ops/forest.py:503", [_P] * 8 + [_I] * 9 + [_P])
 
 FOREST_LEAF_SUMS_HEAP = cuda_build.CudaKernel(
     "forest_leaf_sums_heap", "forest_predict.cu",
@@ -203,13 +203,6 @@ KERNELS = (FOREST_PREDICT_HEAP, FOREST_PREDICT_CHAIN, FOREST_LEAF_SUMS_HEAP,
 #: the leaf-sum kernels' row tile (threads per block) and most row chunks
 _SUM_ROWS = 128
 _SUM_MAX_CHUNKS = 64
-
-#: rows (1 or 2) and trees (1, 2 or 4) each thread of the predict kernels
-#: walks at once, and rows a block (0: the kernel's choice); none changes
-#: a bit
-PREDICT_ROWS_PER_THREAD = 1
-PREDICT_TREES_PER_THREAD = 4
-PREDICT_BLOCK_ROWS = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -234,15 +227,11 @@ def row_chunks(n: int) -> Tuple[int, int]:
 
 
 def forest_predict_heap_cuda(codes, feat_heap, bin_heap, leaf, *, depth: int,
-                             n_bins: int, with_ids: bool = False,
-                             rows_per_thread: int = PREDICT_ROWS_PER_THREAD,
-                             trees_per_thread: int = PREDICT_TREES_PER_THREAD,
-                             block_rows: int = PREDICT_BLOCK_ROWS
+                             n_bins: int, with_ids: bool = False
                              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Launch ``forest_predict_heap`` on the current stream. Returns the
     (n, k) sums and, with ``with_ids``, the (n, T) int32 leaf ids. Codes
-    lie in [0, n_bins); ``rows_per_thread``, ``trees_per_thread`` and
-    ``block_rows`` shape the launch and change no bit."""
+    lie in [0, n_bins)."""
     if not codes.is_cuda:
         raise ValueError(f"forest_predict_heap needs CUDA tensors, codes are "
                          f"on {codes.device}")
@@ -266,16 +255,12 @@ def forest_predict_heap_cuda(codes, feat_heap, bin_heap, leaf, *, depth: int,
         FOREST_PREDICT_HEAP.launch(
             ptr(codes), ptr(feat_heap), ptr(bin_heap), ptr(leaf),
             ptr(out), ptr(ids), ptr(rec), n, d, T, depth, k, n_bins,
-            rows_per_thread, trees_per_thread, block_rows, dev.index,
-            torch.cuda.current_stream(dev).cuda_stream)
+            dev.index, torch.cuda.current_stream(dev).cuda_stream)
     return out, ids
 
 
 def forest_predict_chain_cuda(codes, feat_lv, bin_lv, base_lv, leaf, *,
-                              n_bins: int, with_ids: bool = False,
-                              rows_per_thread: int = PREDICT_ROWS_PER_THREAD,
-                              trees_per_thread: int = PREDICT_TREES_PER_THREAD,
-                              block_rows: int = PREDICT_BLOCK_ROWS
+                              n_bins: int, with_ids: bool = False
                               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Launch ``forest_predict_chain`` on the current stream. Returns the
     (n, k) sums and, with ``with_ids``, the (n, T) int32 leaf slots; as
@@ -304,8 +289,8 @@ def forest_predict_chain_cuda(codes, feat_lv, bin_lv, base_lv, leaf, *,
         FOREST_PREDICT_CHAIN.launch(
             ptr(codes), ptr(feat_lv), ptr(bin_lv), ptr(base_lv),
             ptr(leaf), ptr(out), ptr(ids), ptr(rec), n, d, T, depth, W,
-            W_out, k, n_bins, rows_per_thread, trees_per_thread, block_rows,
-            dev.index, torch.cuda.current_stream(dev).cuda_stream)
+            W_out, k, n_bins, dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
     return out, ids
 
 

@@ -1,10 +1,12 @@
-"""The two histogram kernels at their main-path shapes and the two forest
-predict kernels at their serve shapes, pass by pass, on one NVIDIA GPU.
+"""The two histogram kernels at their main-path shapes, the two forest
+predict kernels at their serve shapes and the two leaf-sum kernels at
+their refit shapes, pass by pass, on one NVIDIA GPU.
 
     python3 transmogrifai_tpu_torch/profile_hist.py [--root DIR] [--runs 25]
 
-Times ``node_hist_matmul``, ``hist_matmul``, ``forest_predict_chain`` and
-``forest_predict`` through their public functions (wrapper included, as
+Times ``node_hist_matmul``, ``hist_matmul``, ``forest_predict_chain``,
+``forest_predict``, ``forest_leaf_sums_chain`` and ``forest_leaf_sums``
+through their public functions (wrapper included, as
 the growers and the scorers call them) with CUDA events,
 median of ``--runs`` calls after warm-up, and splits each call's device
 time by kernel name with ``torch.profiler`` over ``--runs`` more calls.
@@ -27,7 +29,10 @@ Shapes (19,712 rows, the refit's padded row count):
 * the forest predicts (65,536 rows x 64 codes, 32 bins, k 1, trees from
   ``testing.random_chain`` / ``random_heap``): the RF serve (slot chains,
   T 50, depth 12, W 256), the ``gbt12`` serve (chains, T 20, depth 12, W
-  256) and the GBT serve (heaps, T 20, depth 6).
+  256), the GBT serve (heaps, T 20, depth 6) and the DT serve (one heap
+  of depth 6);
+* the leaf sums (k 3): the RF refit's (slot chains, T 50, depth 12, W
+  256) and the DT refit's (one heap of depth 6).
 
 Prints the card's name and power limit, then one JSON line per case.
 """
@@ -69,7 +74,10 @@ HIST_CASES = (("GBT refit leaves", 1, 128, 64),
 #: the forest predicts' serve shapes: (tag, T, depth, W; None for heaps)
 SERVE_ROWS = 65536
 PREDICT_CASES = (("RF serve", 50, 12, 256), ("gbt12 serve", 20, 12, 256),
-                 ("GBT serve", 20, 6, None))
+                 ("GBT serve", 20, 6, None), ("DT serve", 1, 6, None))
+#: the leaf sums' refit shapes: (tag, T, depth, W; None for heaps), k
+LEAF_SUM_CASES = (("RF refit", 50, 12, 256), ("DT refit", 1, 6, None))
+LEAF_SUM_K = 3
 
 
 def bound_ms(nbytes: int, ops: int):
@@ -202,6 +210,7 @@ def profile(runs: int) -> list:
                          bound_by=b[1], library_ms=lib))
         del oh
     rows += profile_predict(runs)
+    rows += profile_leaf_sums(runs)
     return rows
 
 
@@ -233,6 +242,40 @@ def profile_predict(runs: int) -> list:
                                               f["base"], f["leaf"],
                                               n_bins=NODE_BINS)
             name = "forest_predict_chain "
+        rows.append(dict(case=name + tag, ms=time_ms(call, runs),
+                         passes_ms=pass_ms(call, runs)))
+    return rows
+
+
+def profile_leaf_sums(runs: int) -> list:
+    """The leaf sums at their refit shapes, through the public
+    functions."""
+    from transmogrifai_tpu_torch.ops import forest as F
+    from transmogrifai_tpu_torch.testing import random_chain, random_heap
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(2)
+    aug = torch.from_numpy(rng.rand(ROWS, LEAF_SUM_K).astype(
+        np.float32)).to(dev)
+    rows = []
+    for tag, T, depth, W in LEAF_SUM_CASES:
+        if W is None:
+            f = {k: torch.from_numpy(v).to(dev) for k, v in random_heap(
+                rng, ROWS, CODES, T, depth, 1, NODE_BINS).items()}
+
+            def call():
+                return F.forest_leaf_sums(f["codes"], f["feat"], f["bins"],
+                                          aug, depth=depth, n_bins=NODE_BINS)
+            name = "forest_leaf_sums_heap "
+        else:
+            f = {k: torch.from_numpy(v).to(dev) for k, v in random_chain(
+                rng, ROWS, CODES, T, depth, W, 1, NODE_BINS).items()}
+
+            def call():
+                return F.forest_leaf_sums_chain(
+                    f["codes"], f["feat"], f["bins"], f["base"], aug,
+                    n_bins=NODE_BINS)
+            name = "forest_leaf_sums_chain "
         rows.append(dict(case=name + tag, ms=time_ms(call, runs),
                          passes_ms=pass_ms(call, runs)))
     return rows
