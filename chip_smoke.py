@@ -27,8 +27,10 @@ Phases, in order; any failure exits nonzero:
       RF refit's chain T=50 depth 12 W=256, the DT refit's heap T=1 depth
       6, and a heap T=50 depth 6): within rtol 1e-5 / atol 1e-6 of the
       plain version on [0, 1) stats, bit-equal on integer-valued stats and
-      across reruns, and at an odd shape within the same tolerance of the
-      direct float64 formula;
+      across reruns, bit-equal to their own order spelled out on the CPU
+      (``testing.leaf_sums_chunked``) at the RF and DT refit shapes and
+      with every row in leaf 0 (timed too), and at an odd shape within
+      the same tolerance of the direct float64 formula;
     - ``hist_matmul`` at its three main-path shapes, in the layout of
       ``_diag_leaf_hist`` (19,712 rows, 64 trees as features, padded trees
       all sentinel, exact): the GBT refit's leaf sums (one real tree, 64
@@ -46,6 +48,12 @@ Phases, in order; any failure exits nonzero:
       +Inf/-Inf pair or a finite value that rounds to +Inf in bf16, on
       the 16-row input of the roadmap's fault and at main-path shapes: the
       plain version's NaN cells and every other cell's bits;
+    - the four forest kernels on values that are not finite: the leaf sums
+      at the RF and DT refit shapes (a NaN, +Inf or -Inf stat, a
+      +Inf/-Inf pair), the predicts at the RF, GBT and DT serve shapes (a
+      NaN leaf that a row reaches or that none reaches, a +Inf leaf, a
+      +Inf/-Inf pair): the plain versions' NaN cells and rows and every
+      other one's bits;
 (t) train: rebuild the serve bench's 20,000 x 64 frame and train four
     pinned workflows on the card (``OpWorkflow().train()``): GBT (depth 6,
     20 rounds, heaps), ``gbt12`` (GBT depth 12, 20 rounds, slot chains),
@@ -273,6 +281,24 @@ def _check_leaf_sums(tag, cuda_fn, plain_fn, aug, aug_int):
     return float((got - want).abs().max())
 
 
+def _check_chunked(tag, cuda_fn, ids, L, *augs):
+    """Kernel against the kernels' order spelled out on the CPU
+    (``testing.leaf_sums_chunked``): the same bits on each of ``augs``."""
+    from transmogrifai_tpu_torch.ops import forest as F
+    from transmogrifai_tpu_torch.testing import leaf_sums_chunked
+
+    ids = ids.cpu()
+    for a in augs:
+        got = cuda_fn(a).cpu()
+        want = leaf_sums_chunked(ids, a, L, *F.row_chunks(ids.shape[0]))
+        nan = torch.isnan(want)
+        if not (torch.equal(torch.isnan(got), nan) and torch.equal(
+                got[~nan].view(torch.int32), want[~nan].view(torch.int32))):
+            raise AssertionError(f"{tag}: not bit-equal to the chunked "
+                                 f"order (max "
+                                 f"{float((got - want).abs().max())})")
+
+
 def _leaf_stats(dev, rng, n, k):
     """[0, 1) stats and integer-valued stats (n, k) on the card."""
     return (torch.from_numpy(rng.rand(n, k).astype(np.float32)).to(dev),
@@ -296,14 +322,18 @@ def phase_leaf_sums(dev, rng):
     c = {key: torch.from_numpy(v).to(dev) for key, v in random_chain(
         rng, n, d, T, depth, W, 1, N_BINS).items()}
     tabs = (c["codes"], c["feat"], c["bins"], c["base"])
+    W_out = min(2 ** depth, W)
+
+    def chain_sums(a, tabs=tabs):
+        return F.forest_leaf_sums_chain_cuda(*tabs, a, n_bins=N_BINS)
     r = dict(max_abs_err=_check_leaf_sums(
-        "forest_leaf_sums_chain",
-        lambda a: F.forest_leaf_sums_chain_cuda(*tabs, a),
+        "forest_leaf_sums_chain", chain_sums,
         lambda a: F.forest_leaf_sums_chain_plain(*tabs, a, n_bins=N_BINS),
         aug, aug_int))
+    _check_chunked("forest_leaf_sums_chain (RF refit)", chain_sums,
+                   F.route_codes_chain(*tabs, N_BINS), W_out, aug, aug_int)
     slots = sum(min(2 ** lv, W) for lv in range(depth))
-    W_out = min(2 ** depth, W)
-    r.update(ms=time_ms(lambda: F.forest_leaf_sums_chain_cuda(*tabs, aug)),
+    r.update(ms=time_ms(lambda: chain_sums(aug)),
              plain_ms=time_ms(lambda: F.forest_leaf_sums_chain_plain(
                  *tabs, aug, n_bins=N_BINS)),
              # the codes the paths split on, the used table slots and the
@@ -320,15 +350,20 @@ def phase_leaf_sums(dev, rng):
         h = {key: torch.from_numpy(v).to(dev) for key, v in random_heap(
             rng, n, d, T, depth, 1, N_BINS).items()}
         tabs = (h["codes"], h["feat"], h["bins"])
+
+        def heap_sums(a, tabs=tabs):
+            return F.forest_leaf_sums_heap_cuda(*tabs, a, depth=depth,
+                                                n_bins=N_BINS)
         r = dict(max_abs_err=_check_leaf_sums(
-            f"forest_leaf_sums_heap ({tag})",
-            lambda a: F.forest_leaf_sums_heap_cuda(*tabs, a, depth=depth),
+            f"forest_leaf_sums_heap ({tag})", heap_sums,
             lambda a: F.forest_leaf_sums_plain(*tabs, a, depth=depth,
                                                n_bins=N_BINS),
             aug, aug_int))
+        _check_chunked(f"forest_leaf_sums_heap ({tag})", heap_sums,
+                       F.route_codes(*tabs, depth, N_BINS), 2 ** depth, aug,
+                       aug_int)
         r.update(
-            ms=time_ms(lambda: F.forest_leaf_sums_heap_cuda(
-                *tabs, aug, depth=depth)),
+            ms=time_ms(lambda: heap_sums(aug)),
             plain_ms=time_ms(lambda: F.forest_leaf_sums_plain(
                 *tabs, aug, depth=depth, n_bins=N_BINS)),
             bound=bound_ms(4 * (_codes_read(*tabs, depth=depth)
@@ -344,6 +379,35 @@ def phase_leaf_sums(dev, rng):
           f"{r['max_abs_err']:.3g}, {r['ms']:.4f} ms (plain "
           f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.5f} ms by "
           f"{r['bound'][1]})")
+    # the skew of a trained refit at its extreme: every split the sentinel,
+    # so every row lands in leaf 0 of every tree
+    for name, T, depth, W in (("forest_leaf_sums_chain", 50, 12, 256),
+                              ("forest_leaf_sums_heap", 1, 6, None)):
+        if W is None:
+            h = random_heap(rng, n, d, T, depth, 1, N_BINS)
+            h["bins"][:] = N_BINS
+            tabs = tuple(torch.from_numpy(h[key]).to(dev)
+                         for key in ("codes", "feat", "bins"))
+
+            def sums(a, tabs=tabs, depth=depth):
+                return F.forest_leaf_sums_heap_cuda(*tabs, a, depth=depth,
+                                                    n_bins=N_BINS)
+        else:
+            c = random_chain(rng, n, d, T, depth, W, 1, N_BINS)
+            c["bins"][:] = N_BINS
+            c["base"][:] = 0
+            tabs = tuple(torch.from_numpy(c[key]).to(dev)
+                         for key in ("codes", "feat", "bins", "base"))
+
+            def sums(a, tabs=tabs):
+                return F.forest_leaf_sums_chain_cuda(*tabs, a, n_bins=N_BINS)
+        ids = torch.zeros((n, T), dtype=torch.int32)
+        _check_chunked(f"{name} (every row in leaf 0)", sums, ids,
+                       2 ** depth if W is None else min(2 ** depth, W), aug,
+                       aug_int)
+        print(f"(b) {name}, every row in leaf 0 (T {T}, depth {depth}): "
+              f"bit-equal to the chunked order, "
+              f"{time_ms(lambda: sums(aug)):.4f} ms")
     # odd shapes against the definition
     n, d, nb = 301, 7, 13
     h = random_heap(rng, n, d, 5, 4, 1, nb)
@@ -353,13 +417,13 @@ def phase_leaf_sums(dev, rng):
     got = F.forest_leaf_sums_heap_cuda(
         *(torch.from_numpy(h[key]).to(dev) for key in ("codes", "feat",
                                                        "bins")),
-        aug, depth=4)
+        aug, depth=4, n_bins=nb)
     want = leaf_sums_direct(descend_direct(h["codes"], h["feat"], h["bins"],
                                            depth=4), a64, 16)
     got_c = F.forest_leaf_sums_chain_cuda(
         *(torch.from_numpy(cn[key]).to(dev) for key in ("codes", "feat",
                                                         "bins", "base")),
-        aug)
+        aug, n_bins=nb)
     want_c = leaf_sums_direct(descend_direct(cn["codes"], cn["feat"],
                                              cn["bins"], cn["base"]),
                               a64, 24)
@@ -585,6 +649,112 @@ def phase_nonfinite(dev):
           f"cell's bits in {n} cases")
 
 
+def phase_forest_nonfinite(dev):
+    """The four forest kernels on values that are not finite, against the
+    plain versions: the same NaN cells or rows, every other one's bits
+    (integer-valued stats and leaves). Leaf sums at the RF and DT refit
+    shapes (one NaN, +Inf or -Inf stat, a +Inf/-Inf pair), also against the
+    chunked order; predicts at the RF serve (chains), GBT serve (heaps) and
+    DT serve (one heap, the int32 path) shapes, with a NaN leaf that a row
+    reaches or that none reaches, a +Inf leaf and a +Inf/-Inf pair."""
+    from transmogrifai_tpu_torch.ops import forest as F
+    from transmogrifai_tpu_torch.testing import random_chain, random_heap
+
+    rng = np.random.RandomState(12)
+    n, d, k = REFIT_ROWS, N_FEATURES, LEAF_K
+    count = 0
+    for name, T, depth, W in (("forest_leaf_sums_chain", 50, 12, 256),
+                              ("forest_leaf_sums_heap", 1, 6, None)):
+        f = (random_heap(rng, n, d, T, depth, 1, N_BINS) if W is None
+             else random_chain(rng, n, d, T, depth, W, 1, N_BINS))
+        f = {key: torch.from_numpy(v).to(dev) for key, v in f.items()}
+        if W is None:
+            tabs = (f["codes"], f["feat"], f["bins"])
+            ids = F.route_codes(*tabs, depth, N_BINS)
+            L = 2 ** depth
+
+            def kernel(a, tabs=tabs, depth=depth):
+                return F.forest_leaf_sums_heap_cuda(*tabs, a, depth=depth,
+                                                    n_bins=N_BINS)
+
+            def plain(a, tabs=tabs, depth=depth):
+                return F.forest_leaf_sums_plain(*tabs, a, depth=depth,
+                                                n_bins=N_BINS)
+        else:
+            tabs = (f["codes"], f["feat"], f["bins"], f["base"])
+            ids = F.route_codes_chain(*tabs, N_BINS)
+            L = min(2 ** depth, W)
+
+            def kernel(a, tabs=tabs):
+                return F.forest_leaf_sums_chain_cuda(*tabs, a, n_bins=N_BINS)
+
+            def plain(a, tabs=tabs):
+                return F.forest_leaf_sums_chain_plain(*tabs, a,
+                                                      n_bins=N_BINS)
+        for kind in ("nan", "+inf", "-inf", "+inf/-inf"):
+            a = torch.from_numpy(rng.randint(-3, 4, (n, k)).astype(
+                np.float32))
+            for v in NONFINITE[kind]:
+                a[int(rng.randint(n)), 1] = v
+            a = a.to(dev)
+            _same_or_nan(f"{name} ({kind})", kernel(a), plain(a))
+            _check_chunked(f"{name} ({kind})", kernel, ids, L, a)
+            count += 1
+    for tag, T, depth, W in (("RF serve", 50, 12, 256),
+                             ("GBT serve", 20, 6, None),
+                             ("DT serve", 1, 6, None)):
+        f = (random_heap(rng, N_ROWS, N_FEATURES, T, depth, 2, N_BINS)
+             if W is None else random_chain(rng, N_ROWS, N_FEATURES, T,
+                                            depth, W, 2, N_BINS))
+        f["leaf"] = rng.randint(-3, 4, f["leaf"].shape).astype(np.float32)
+        if W is None:                # tree 0's right half: no row
+            f["bins"][0, 0] = N_BINS
+        else:                        # tree 0's last slot: no row
+            f["base"][0, depth - 1] %= min(2 ** depth, W) - 2
+        f = {key: torch.from_numpy(v).to(dev) for key, v in f.items()}
+        if W is None:
+            args = (f["codes"], f["feat"], f["bins"])
+            ids = F.route_codes(*args, depth, N_BINS)
+
+            def kernel(leaf, args=args, depth=depth):
+                return F.forest_predict_heap_cuda(*args, leaf, depth=depth,
+                                                  n_bins=N_BINS)[0]
+
+            def plain(leaf, args=args, depth=depth):
+                return F.forest_predict_plain(*args, leaf, depth=depth,
+                                              n_bins=N_BINS)
+        else:
+            args = (f["codes"], f["feat"], f["bins"], f["base"])
+            ids = F.route_codes_chain(*args, N_BINS)
+
+            def kernel(leaf, args=args):
+                return F.forest_predict_chain_cuda(*args, leaf,
+                                                   n_bins=N_BINS)[0]
+
+            def plain(leaf, args=args):
+                return F.forest_predict_chain_plain(*args, leaf,
+                                                    n_bins=N_BINS)
+        L = f["leaf"].shape[1]
+        r = int(torch.nonzero((ids < L).all(1))[0, 0])
+        for kind in ("nan, reached", "nan, reached by no row", "+inf",
+                     "+inf/-inf"):
+            leaf = f["leaf"].clone()
+            if kind == "nan, reached by no row":
+                leaf[0, L - 1, 1] = float("nan")
+            else:
+                leaf[0, int(ids[r, 0]), 1] = (float("nan") if kind.startswith(
+                    "nan") else float("inf"))
+                if kind == "+inf/-inf":
+                    leaf[T - 1, (int(ids[r, T - 1]) + (T == 1)) % L, 1] = \
+                        -float("inf")
+            _same_or_nan(f"forest predict {tag} ({kind})", kernel(leaf),
+                         plain(leaf))
+            count += 1
+    print(f"(b) non-finite values: the four forest kernels give the plain "
+          f"versions' NaN cells and rows and every other one's bits in "
+          f"{count} cases (leaf sums also the chunked order's)")
+
+
 def phase_kernels(dev):
     """Each kernel against its plain version at its path's shapes."""
     rng = np.random.RandomState(0)
@@ -606,6 +776,7 @@ def phase_kernels(dev):
               f"{r['bound'][0]:.5f} ms by {r['bound'][1]})")
         results.setdefault(name, r)          # RF's chain, GBT's heap
     phase_nonfinite(dev)
+    phase_forest_nonfinite(dev)
     return results
 
 

@@ -36,8 +36,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 from transmogrifai_tpu_torch.histeng import kernels as HK  # noqa: E402
 from transmogrifai_tpu_torch.ops import forest as F  # noqa: E402
 from transmogrifai_tpu_torch.testing import (  # noqa: E402
-    descend_direct, hist_direct, leaf_sums_direct, random_chain,
-    random_heap, serve_bench_data, serve_bench_workflow,
+    descend_direct, hist_direct, leaf_sums_chunked, leaf_sums_direct,
+    random_chain, random_heap, serve_bench_data, serve_bench_workflow,
 )
 
 pytestmark = pytest.mark.cuda
@@ -462,7 +462,8 @@ def test_node_hist_spreads_non_finite_stats_as_plain(cuda, case, kind):
 
 def _leaf_case(dev, seed, n, d, T, k, depth, W=None, nb=32):
     """A random heap (W None) or chain forest on the card, [0, 1) stats and
-    integer-valued stats, and the direct float64 sums of both."""
+    integer-valued stats, the direct float64 sums of both, and the (n, T)
+    leaf ids."""
     rng = np.random.RandomState(seed)
     if W is None:
         f = random_heap(rng, n, d, T, depth, 1, nb)
@@ -479,10 +480,19 @@ def _leaf_case(dev, seed, n, d, T, k, depth, W=None, nb=32):
     f = {key: v for key, v in f.items() if key != "leaf"}
     return (_on(dev, f), torch.from_numpy(aug).to(dev),
             torch.from_numpy(aug_i).to(dev), leaf_sums_direct(ids, aug, L),
-            leaf_sums_direct(ids, aug_i, L))
+            leaf_sums_direct(ids, aug_i, L), torch.from_numpy(ids))
 
 
-def _check_leaf_sums(kernel, cuda_fn, plain_fn, aug, aug_i, want, want_i):
+def _chunked(ids, aug, L):
+    """The sums in the kernels' order (``testing.leaf_sums_chunked``)."""
+    return leaf_sums_chunked(ids, aug, L, *F.row_chunks(ids.shape[0]))
+
+
+def _check_leaf_sums(kernel, cuda_fn, plain_fn, aug, aug_i, want, want_i,
+                     ids=None, L=None):
+    """The kernel against its plain version and the direct float64 sums
+    (tolerance on [0, 1) stats, bits on integer-valued ones), against the
+    kernels' order to the bit (with ids), and on a rerun."""
     before = kernel.launches
     got = cuda_fn(aug)
     assert kernel.launches == before + 1
@@ -493,19 +503,23 @@ def _check_leaf_sums(kernel, cuda_fn, plain_fn, aug, aug_i, want, want_i):
     assert torch.equal(got_i, plain_fn(aug_i))
     np.testing.assert_array_equal(got_i.cpu().numpy(), want_i)
     assert torch.equal(got, cuda_fn(aug))
+    if ids is not None:
+        assert torch.equal(got.cpu(), _chunked(ids, aug, L))
+        assert torch.equal(got_i.cpu(), _chunked(ids, aug_i, L))
 
 
 @pytest.mark.parametrize("depth", [0, 1, 3, 6, 8])
 @pytest.mark.parametrize("T,k", [(1, 3), (50, 3), (37, 1)])
 def test_leaf_sums_heap_kernel_matches_plain(cuda, depth, T, k):
-    f, aug, aug_i, want, want_i = _leaf_case(cuda, depth * 100 + T, 1001, 13,
-                                             T, k, depth)
+    f, aug, aug_i, want, want_i, ids = _leaf_case(cuda, depth * 100 + T,
+                                                  1001, 13, T, k, depth)
     args = (f["codes"], f["feat"], f["bins"])
     _check_leaf_sums(
         F.FOREST_LEAF_SUMS_HEAP,
-        lambda a: F.forest_leaf_sums_heap_cuda(*args, a, depth=depth),
+        lambda a: F.forest_leaf_sums_heap_cuda(*args, a, depth=depth,
+                                               n_bins=32),
         lambda a: F.forest_leaf_sums_plain(*args, a, depth=depth, n_bins=32),
-        aug, aug_i, want, want_i)
+        aug, aug_i, want, want_i, ids, 2 ** depth)
     before = F.FOREST_LEAF_SUMS_HEAP.launches
     F.forest_leaf_sums(*args, aug, depth=depth, n_bins=32)
     assert F.FOREST_LEAF_SUMS_HEAP.launches == before + 1
@@ -514,17 +528,99 @@ def test_leaf_sums_heap_kernel_matches_plain(cuda, depth, T, k):
 @pytest.mark.parametrize("W,depth", [(1, 5), (4, 12), (64, 12), (256, 12),
                                      (200, 9)])
 def test_leaf_sums_chain_kernel_matches_plain(cuda, W, depth):
-    f, aug, aug_i, want, want_i = _leaf_case(cuda, W + depth, 777, 9, 20, 3,
-                                             depth, W=W)
+    f, aug, aug_i, want, want_i, ids = _leaf_case(cuda, W + depth, 777, 9, 20,
+                                                  3, depth, W=W)
     args = (f["codes"], f["feat"], f["bins"], f["base"])
     _check_leaf_sums(
         F.FOREST_LEAF_SUMS_CHAIN,
-        lambda a: F.forest_leaf_sums_chain_cuda(*args, a),
+        lambda a: F.forest_leaf_sums_chain_cuda(*args, a, n_bins=32),
         lambda a: F.forest_leaf_sums_chain_plain(*args, a, n_bins=32),
-        aug, aug_i, want, want_i)
+        aug, aug_i, want, want_i, ids, min(2 ** depth, W))
     before = F.FOREST_LEAF_SUMS_CHAIN.launches
     F.forest_leaf_sums_chain(*args, aug, n_bins=32)
     assert F.FOREST_LEAF_SUMS_CHAIN.launches == before + 1
+
+
+def _sums_cuda(f, aug, depth, W, nb):
+    """The leaf-sum kernel of a heap (W None) or chain forest."""
+    if W is None:
+        return F.forest_leaf_sums_heap_cuda(f["codes"], f["feat"], f["bins"],
+                                            aug, depth=depth, n_bins=nb)
+    return F.forest_leaf_sums_chain_cuda(f["codes"], f["feat"], f["bins"],
+                                         f["base"], aug, n_bins=nb)
+
+
+def _sums_plain(f, aug, depth, W, nb):
+    if W is None:
+        return F.forest_leaf_sums_plain(f["codes"], f["feat"], f["bins"],
+                                        aug, depth=depth, n_bins=nb)
+    return F.forest_leaf_sums_chain_plain(f["codes"], f["feat"], f["bins"],
+                                          f["base"], aug, n_bins=nb)
+
+
+def _ids(f, depth, W, nb):
+    if W is None:
+        return F.route_codes(f["codes"], f["feat"], f["bins"], depth, nb)
+    return F.route_codes_chain(f["codes"], f["feat"], f["bins"], f["base"],
+                               nb)
+
+
+def _check_chunked(f, depth, W, nb, k, seed):
+    """The kernel bit-equal to the kernels' order on [0, 1) and on
+    integer-valued stats, and on a rerun."""
+    n = f["codes"].shape[0]
+    L = 2 ** depth if W is None else min(2 ** depth, W)
+    ids = _ids(f, depth, W, nb).cpu()
+    rng = np.random.RandomState(seed)
+    for aug in (rng.rand(n, k), rng.randint(0, 4, (n, k))):
+        aug = torch.from_numpy(aug.astype(np.float32)).to(f["codes"].device)
+        got = _sums_cuda(f, aug, depth, W, nb)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), _chunked(ids, aug, L))
+        assert torch.equal(got, _sums_cuda(f, aug, depth, W, nb))
+
+
+@pytest.mark.parametrize("T,depth,W", [(50, 12, 256), (1, 6, None)])
+def test_leaf_sums_keep_the_chunked_order_at_the_refit_shapes(cuda, T, depth,
+                                                              W):
+    """The RF refit (19,712 rows x 64 codes, chains T 50 depth 12 W 256)
+    and the DT refit (one heap of depth 6), k 3."""
+    rng = np.random.RandomState(T + depth)
+    f = (random_heap(rng, 19712, 64, T, depth, 1, 32) if W is None
+         else random_chain(rng, 19712, 64, T, depth, W, 1, 32))
+    _check_chunked(_on(cuda, f), depth, W, 32, 3, T)
+
+
+#: (n, d, T, depth, W, k, nb): rows not a multiple of a chunk's, trees not
+#: a multiple of a tile's (nor of the four a thread walks), k 1 and 5, 257
+#: bins (the wide path), more rows a chunk than a block takes at once
+ODD_SUMS = [(1001, 13, 7, 6, None, 1, 32), (3001, 9, 23, 12, 64, 5, 32),
+            (777, 13, 5, 5, None, 5, 257), (777, 9, 6, 9, 24, 1, 257),
+            (70001, 16, 9, 12, 256, 3, 32), (513, 16, 131, 4, None, 2, 32)]
+
+
+@pytest.mark.parametrize("case", ODD_SUMS)
+def test_leaf_sums_keep_the_chunked_order_at_odd_shapes(cuda, case):
+    n, d, T, depth, W, k, nb = case
+    rng = np.random.RandomState(n + T)
+    f = (random_heap(rng, n, d, T, depth, 1, nb) if W is None
+         else random_chain(rng, n, d, T, depth, W, 1, nb))
+    _check_chunked(_on(cuda, f), depth, W, nb, k, n)
+
+
+@pytest.mark.parametrize("W", [None, 256])
+def test_leaf_sums_with_every_row_in_one_leaf(cuda, W):
+    """Every split the sentinel (route left): all 19,712 rows in leaf 0 of
+    every tree, the skew of a real refit at its extreme."""
+    rng = np.random.RandomState(14)
+    f = (random_heap(rng, 19712, 64, 3, 6, 1, 32) if W is None
+         else random_chain(rng, 19712, 64, 50, 12, W, 1, 32))
+    f["bins"][:] = 32
+    if W is not None:
+        f["base"][:] = 0
+    f = _on(cuda, f)
+    assert bool((_ids(f, 12 if W else 6, W, 32) == 0).all())
+    _check_chunked(f, 12 if W else 6, W, 32, 3, 15)
 
 
 def test_leaf_sums_do_not_depend_on_tree_grouping(cuda):
@@ -534,18 +630,20 @@ def test_leaf_sums_do_not_depend_on_tree_grouping(cuda):
     c = _on(cuda, random_chain(rng, 19712, 64, 50, 12, 256, 1, 32))
     aug = torch.from_numpy(rng.rand(19712, 3).astype(np.float32)).to(cuda)
     tabs = (c["feat"], c["bins"], c["base"])
-    whole = F.forest_leaf_sums_chain_cuda(c["codes"], *tabs, aug)
+    whole = F.forest_leaf_sums_chain_cuda(c["codes"], *tabs, aug, n_bins=32)
     for t in (0, 17, 49):
         one = F.forest_leaf_sums_chain_cuda(
-            c["codes"], *(x[t:t + 1].contiguous() for x in tabs), aug)
+            c["codes"], *(x[t:t + 1].contiguous() for x in tabs), aug,
+            n_bins=32)
         assert torch.equal(one[0], whole[t])
     h = _on(cuda, random_heap(rng, 5000, 16, 40, 6, 1, 32))
     aug = aug[:5000].contiguous()
     whole = F.forest_leaf_sums_heap_cuda(h["codes"], h["feat"], h["bins"],
-                                         aug, depth=6)
+                                         aug, depth=6, n_bins=32)
     part = F.forest_leaf_sums_heap_cuda(h["codes"], h["feat"][3:21].
                                         contiguous(), h["bins"][3:21].
-                                        contiguous(), aug, depth=6)
+                                        contiguous(), aug, depth=6,
+                                        n_bins=32)
     assert torch.equal(part, whole[3:21])
 
 
@@ -554,24 +652,102 @@ def test_leaf_sums_empty_and_bad_inputs(cuda):
     h = _on(cuda, random_heap(rng, 0, 4, 3, 2, 1, 32))
     aug = torch.zeros((0, 2), device=cuda)
     out = F.forest_leaf_sums_heap_cuda(h["codes"], h["feat"], h["bins"], aug,
-                                       depth=2)
+                                       depth=2, n_bins=32)
     assert torch.equal(out, torch.zeros((3, 4, 2), device=cuda))
     h = _on(cuda, random_heap(rng, 10, 4, 3, 2, 1, 32))
     aug = torch.ones((10, 2), device=cuda)
     with pytest.raises(TypeError):
         F.forest_leaf_sums_heap_cuda(h["codes"], h["feat"], h["bins"],
-                                     aug.double(), depth=2)
+                                     aug.double(), depth=2, n_bins=32)
     with pytest.raises(ValueError):
         F.forest_leaf_sums_heap_cuda(h["codes"], h["feat"], h["bins"],
-                                     aug[:5], depth=2)
+                                     aug[:5], depth=2, n_bins=32)
     with pytest.raises(ValueError):
         F.forest_leaf_sums_heap_cuda(h["codes"], h["feat"], h["bins"],
-                                     aug.cpu(), depth=2)
+                                     aug.cpu(), depth=2, n_bins=32)
     with pytest.raises(RuntimeError, match="CUDA error"):
         # one tree's partial (4 leaves x 60,000 stats) exceeds shared memory
         F.forest_leaf_sums_heap_cuda(h["codes"], h["feat"], h["bins"],
                                      torch.ones((10, 60000), device=cuda),
-                                     depth=2)
+                                     depth=2, n_bins=32)
+
+
+#: forests whose kernels take the byte path and the wide path: (tag, d, T,
+#: depth, W, nb); the heap of depth 2 reads its codes in place (predict)
+NONFINITE_FORESTS = [("heap", 13, 20, 6, None, 32),
+                     ("heap, wide", 13, 1, 2, None, 300),
+                     ("chain", 13, 9, 10, 64, 32),
+                     ("chain, wide", 13, 9, 10, 64, 300)]
+
+
+@pytest.mark.parametrize("kind", sorted(NONFINITE))
+@pytest.mark.parametrize("forest", NONFINITE_FORESTS,
+                         ids=[c[0] for c in NONFINITE_FORESTS])
+def test_leaf_sums_spread_non_finite_stats_as_plain(cuda, forest, kind):
+    """NaN and +-Inf stats, in one leaf or two, and on a row whose chain
+    slot leaves the table: the plain version's NaN cells, every other
+    cell's bits (integer-valued stats), and the kernels' order."""
+    tag, d, T, depth, W, nb = forest
+    rng = np.random.RandomState(len(kind) + d + T)
+    f = (random_heap(rng, 3001, d, T, depth, 1, nb) if W is None
+         else random_chain(rng, 3001, d, T, depth, W, 1, nb))
+    if W is not None:
+        f["base"][0, depth - 1, ::2] = W + 5   # slots past the leaves
+    f = _on(cuda, f)
+    aug = torch.from_numpy(rng.randint(-3, 4, (3001, 3)).astype(np.float32))
+    aug = _spoil(aug, kind, rng, np.arange(3001), [1]).to(cuda)
+    got = _sums_cuda(f, aug, depth, W, nb)
+    want = _sums_plain(f, aug, depth, W, nb)
+    L = want.shape[1]
+    _same_or_nan(got, want)
+    _same_or_nan(got, _chunked(_ids(f, depth, W, nb).cpu(), aug, L))
+
+
+@pytest.mark.parametrize("kind", ["nan, reached", "nan, reached by no row",
+                                  "+inf", "-inf", "+inf/-inf"])
+@pytest.mark.parametrize("forest", NONFINITE_FORESTS,
+                         ids=[c[0] for c in NONFINITE_FORESTS])
+def test_predict_spreads_non_finite_leaves_as_plain(cuda, forest, kind):
+    """A NaN leaf that rows reach or that none reaches, +-Inf leaves: the
+    plain version's NaN rows, every other row's bits (integer-valued
+    leaves), ids exact."""
+    tag, d, T, depth, W, nb = forest
+    rng = np.random.RandomState(len(kind) + d + T)
+    f = (random_heap(rng, 3001, d, T, depth, 2, nb) if W is None
+         else random_chain(rng, 3001, d, T, depth, W, 2, nb))
+    f["leaf"] = rng.randint(-3, 4, f["leaf"].shape).astype(np.float32)
+    t_last = T - 1
+    if W is None:                # the last tree's right half: no row
+        f["bins"][t_last, 0] = nb
+    else:                        # the last tree's last slot: no row
+        f["base"][t_last, depth - 1] %= min(2 ** depth, W) - 2
+    f = _on(cuda, f)
+    ids = _ids(f, depth, W, nb)
+    leaf = f["leaf"]
+    if kind == "nan, reached by no row":
+        leaf[t_last, leaf.shape[1] - 1, 1] = float("nan")
+    else:
+        r = int(torch.nonzero((ids < leaf.shape[1]).all(1))[0, 0])
+        v = {"nan, reached": [float("nan")], "+inf": [float("inf")],
+             "-inf": [-float("inf")],
+             "+inf/-inf": [float("inf"), -float("inf")]}[kind]
+        leaf[0, int(ids[r, 0]), 1] = v[0]
+        if len(v) > 1:           # one tree: another leaf of it
+            leaf[t_last, (int(ids[r, t_last]) + (T == 1)) % leaf.shape[1],
+                 1] = v[1]
+    if W is None:
+        args = (f["codes"], f["feat"], f["bins"], leaf)
+        got, got_ids = F.forest_predict_heap_cuda(*args, depth=depth,
+                                                  n_bins=nb, with_ids=True)
+        want = F.forest_predict_plain(*args, depth=depth, n_bins=nb)
+    else:
+        args = (f["codes"], f["feat"], f["bins"], f["base"], leaf)
+        got, got_ids = F.forest_predict_chain_cuda(*args, n_bins=nb,
+                                                   with_ids=True)
+        want = F.forest_predict_chain_plain(*args, n_bins=nb)
+    assert torch.equal(got_ids, ids)
+    assert bool(torch.isnan(want[:, 1]).any())
+    _same_or_nan(got, want)
 
 
 @pytest.mark.parametrize("M,d,nb,k", [(1, 1, 2, 1), (5, 3, 16, 3),

@@ -100,7 +100,7 @@ def test_leaf_sums_route_by_device():
                                  h["bins"], aug, depth=2, n_bins=8)
     with pytest.raises(ValueError, match="needs CUDA"):
         pforest.forest_leaf_sums_heap_cuda(h["codes"], h["feat"], h["bins"],
-                                           aug, depth=2)
+                                           aug, depth=2, n_bins=8)
 
 
 @pytest.mark.parametrize("n", [1, 127, 128, 300, 19712, 10 ** 6])

@@ -15,7 +15,8 @@ process of its own. Every JSON line they print is written to ``--out``
 tagged with its turn; the summary printed at the end gives, per turn,
 each kernel case's ms and each train's seconds, device busy share and
 device ms of the two histogram kernels (kernel names that start with
-``node_`` or ``hist_``, summed over the kernels ``profile_train`` lists).
+``node_`` or ``hist_``, summed over the kernels ``profile_train`` lists)
+and of the leaf sums (``leaf_sums_ms``).
 """
 from __future__ import annotations
 
@@ -50,6 +51,15 @@ def kernel_ms(by_kernel: dict, prefix: str) -> float:
     """Device ms of the kernels whose bare name starts with ``prefix``."""
     return sum(v for k, v in by_kernel.items()
                if kernel_name(k).startswith(prefix))
+
+
+def leaf_sums_ms(by_kernel: dict) -> float:
+    """Device ms of the leaf-sum kernels: bare names holding ``sums_``, and
+    ``combine_kernel``, the older name of their combine pass (their share of
+    the pack pass, which the predicts share, is not counted)."""
+    return sum(v for k, v in by_kernel.items()
+               if "sums_" in kernel_name(k)
+               or kernel_name(k) == "combine_kernel")
 
 
 def main() -> int:
@@ -90,7 +100,8 @@ def main() -> int:
                   f"{r['train_s']:.4f} s, busy {r['device_busy_ms']:.1f} ms "
                   f"({100 * r['device_busy_share']:.1f}%), node_hist "
                   f"{kernel_ms(k, 'node_'):.2f} ms, hist_matmul "
-                  f"{kernel_ms(k, 'hist_'):.2f} ms, peak "
+                  f"{kernel_ms(k, 'hist_'):.2f} ms, leaf sums "
+                  f"{leaf_sums_ms(k):.4f} ms, peak "
                   f"{r['peak_mem_bytes'] / 2 ** 30:.3f} GiB")
     return 0
 

@@ -119,7 +119,12 @@ def route_codes_chain(codes: torch.Tensor, feat_lv: torch.Tensor,
 def leaf_values(ids: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
     """sum_t leaf[t, ids[s, t], :] -> (n, k) float32; an id outside the
     leaf table adds nothing. Trees are added one at a time in ascending
-    order, as the kernels add them, so both give the same bits."""
+    order, as the kernels add them, so both give the same bits.
+
+    Non-finite leaves spread as in the JAX package's one-hot contraction,
+    where every leaf meets every row: a column with a NaN leaf is NaN in
+    every row, and a row that misses one of the column's +-Inf leaves
+    (0 * Inf) is NaN; a row that reaches them all gets the float sum."""
     T, L, k = leaf.shape
     ids = ids.long()
     ok = (ids >= 0) & (ids < L)
@@ -130,13 +135,19 @@ def leaf_values(ids: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
                       device=leaf.device)
     for t in range(T):
         out += v[:, t]
-    return out
+    if bool(torch.isfinite(leaf).all()):
+        return out
+    inf = torch.isinf(leaf)
+    nan = (torch.isnan(leaf).any(0).any(0)
+           | (torch.isinf(v).sum(1) != inf.sum(0).sum(0)))
+    return torch.where(nan, torch.full_like(out, float("nan")), out)
 
 
 def leaf_sums(ids: torch.Tensor, aug: torch.Tensor, L: int) -> torch.Tensor:
     """sum_s aug[s, :] * 1[ids[s, t] == l] -> (T, L, k) float32; an id
     outside [0, L) adds nothing. Each (tree, leaf) adds its rows one at a
-    time in ascending row order (``index_add_`` on the CPU)."""
+    time in ascending row order (``index_add_`` on the CPU). Non-finite
+    stats spread as ``spread_nonfinite_sums`` says."""
     T = ids.shape[1]
     k = aug.shape[1]
     ids = ids.long()
@@ -146,7 +157,31 @@ def leaf_sums(ids: torch.Tensor, aug: torch.Tensor, L: int) -> torch.Tensor:
     out = torch.zeros((T * L + 1, k), dtype=torch.float32, device=aug.device)
     out.index_add_(0, cell.reshape(-1),
                    aug.to(torch.float32).repeat_interleave(T, dim=0))
-    return out[:T * L].reshape(T, L, k)
+    return spread_nonfinite_sums(out[:T * L].reshape(T, L, k), ids, aug)
+
+
+def spread_nonfinite_sums(sums: torch.Tensor, ids: torch.Tensor,
+                          aug: torch.Tensor) -> torch.Tensor:
+    """Leaf sums (T, L, k) with the cells that non-finite stats reach made
+    NaN, as in the JAX package's one-hot contraction, where every row meets
+    every (tree, leaf) cell: a NaN stat makes its stat column NaN in every
+    cell, and a +-Inf stat every cell of each tree but the leaf its row
+    reaches there (0 * Inf; a row whose id is outside [0, L) reaches none).
+    A cell that every such row of its tree reaches keeps its float sum."""
+    T, L, k = sums.shape
+    aug = aug.to(torch.float32)
+    if bool(torch.isfinite(aug).all()):
+        return sums
+    ids = ids.long()
+    leaf = torch.where((ids >= 0) & (ids < L), ids,
+                       torch.full_like(ids, L))[:, :, None]     # (n, T, 1)
+    inf = torch.isinf(aug)[:, None, :]                          # (n, 1, k)
+    lo = torch.where(inf, leaf, torch.full_like(leaf, L + 1)).amin(0)
+    hi = torch.where(inf, leaf, torch.full_like(leaf, -1)).amax(0)
+    cell = torch.arange(L, device=sums.device)[None, :, None]
+    keep = (hi < 0)[:, None] | ((lo == hi)[:, None] & (hi[:, None] == cell))
+    nan = torch.isnan(aug).any(0)[None, None, :] | ~keep
+    return torch.where(nan, torch.full_like(sums, float("nan")), sums)
 
 
 def forest_leaf_sums_plain(codes, feat_heap, bin_heap, aug, *, depth: int,
@@ -191,11 +226,11 @@ FOREST_PREDICT_CHAIN = cuda_build.CudaKernel(
 FOREST_LEAF_SUMS_HEAP = cuda_build.CudaKernel(
     "forest_leaf_sums_heap", "forest_predict.cu",
     "transmogrifai_tpu/ops/forest.py:141",
-    [_P] * 6 + [_I] * 8 + [_P])
+    [_P] * 6 + [_I] * 9 + [_P])
 FOREST_LEAF_SUMS_CHAIN = cuda_build.CudaKernel(
     "forest_leaf_sums_chain", "forest_predict.cu",
     "transmogrifai_tpu/ops/forest.py:450",
-    [_P] * 7 + [_I] * 10 + [_P])
+    [_P] * 7 + [_I] * 11 + [_P])
 
 KERNELS = (FOREST_PREDICT_HEAP, FOREST_PREDICT_CHAIN, FOREST_LEAF_SUMS_HEAP,
            FOREST_LEAF_SUMS_CHAIN)
@@ -206,14 +241,19 @@ _SUM_MAX_CHUNKS = 64
 
 
 @functools.lru_cache(maxsize=None)
-def predict_workspace(T: int, depth: int, W: int = 0) -> int:
-    """int32 words of the split records the predict kernels pack for T
-    trees (W 0: heaps of this depth), as their source lays them out."""
+def workspace(T: int, depth: int, W: int, W_out: int, k: int,
+              n_chunks: int = 0) -> int:
+    """int32 words of the workspace a forest kernel takes for T trees (W 0:
+    heaps of this depth) with W_out leaves of k values: the packed split
+    records and the non-finite counts of a predict (n_chunks 0) or, with
+    the leaf sums' row chunks, also their flags and chunk partials, as the
+    source lays them out."""
     words = ctypes.c_longlong()
-    if FOREST_PREDICT_HEAP.entry("forest_predict_workspace", [
-            _I, _I, _I, ctypes.POINTER(ctypes.c_longlong)])(
-                T, depth, W, ctypes.byref(words)):
-        raise ValueError(f"bad forest: T {T}, depth {depth}, W {W}")
+    if FOREST_PREDICT_HEAP.entry("forest_workspace", [
+            _I] * 6 + [ctypes.POINTER(ctypes.c_longlong)])(
+                T, depth, W, W_out, k, n_chunks, ctypes.byref(words)):
+        raise ValueError(f"bad forest: T {T}, depth {depth}, W {W}, W_out "
+                         f"{W_out}, k {k}, {n_chunks} chunks")
     return words.value
 
 
@@ -250,7 +290,7 @@ def forest_predict_heap_cuda(codes, feat_heap, bin_heap, leaf, *, depth: int,
     ids = (torch.empty((n, T), dtype=torch.int32, device=dev)
            if with_ids else None)
     if n:
-        rec = torch.empty(predict_workspace(T, depth), dtype=torch.int32,
+        rec = torch.empty(workspace(T, depth, 0, L, k), dtype=torch.int32,
                           device=dev)
         FOREST_PREDICT_HEAP.launch(
             ptr(codes), ptr(feat_heap), ptr(bin_heap), ptr(leaf),
@@ -284,8 +324,8 @@ def forest_predict_chain_cuda(codes, feat_lv, bin_lv, base_lv, leaf, *,
     ids = (torch.empty((n, T), dtype=torch.int32, device=dev)
            if with_ids else None)
     if n:
-        rec = torch.empty(predict_workspace(T, depth, W), dtype=torch.int32,
-                          device=dev)
+        rec = torch.empty(workspace(T, depth, W, W_out, k),
+                          dtype=torch.int32, device=dev)
         FOREST_PREDICT_CHAIN.launch(
             ptr(codes), ptr(feat_lv), ptr(bin_lv), ptr(base_lv),
             ptr(leaf), ptr(out), ptr(ids), ptr(rec), n, d, T, depth, W,
@@ -295,9 +335,10 @@ def forest_predict_chain_cuda(codes, feat_lv, bin_lv, base_lv, leaf, *,
 
 
 def forest_leaf_sums_heap_cuda(codes, feat_heap, bin_heap, aug, *,
-                               depth: int) -> torch.Tensor:
+                               depth: int, n_bins: int) -> torch.Tensor:
     """Launch ``forest_leaf_sums_heap`` on the current stream: (T, 2^depth,
-    k) float32 sums, rows in ``row_chunks(n)`` chunks added in order."""
+    k) float32 sums, rows in ``row_chunks(n)`` chunks added in order (the
+    order of ``testing.leaf_sums_chunked``). Codes lie in [0, n_bins)."""
     if not codes.is_cuda:
         raise ValueError(f"forest_leaf_sums_heap needs CUDA tensors, codes "
                          f"are on {codes.device}")
@@ -314,21 +355,23 @@ def forest_leaf_sums_heap_cuda(codes, feat_heap, bin_heap, aug, *,
     expect(aug, "aug", torch.float32, (n, k), dev)
     n_chunks, rpc = row_chunks(n)
     check_int32(n * d, n * k, n_chunks * T * L * k)
-    out = torch.zeros((T, L, k), dtype=torch.float32, device=dev)
-    if n and T and k:
-        part = torch.empty((n_chunks, T, L, k), dtype=torch.float32,
-                           device=dev)
-        FOREST_LEAF_SUMS_HEAP.launch(
-            ptr(codes), ptr(feat_heap), ptr(bin_heap), ptr(aug), ptr(part),
-            ptr(out), n, d, T, depth, k, n_chunks, rpc, dev.index,
-            torch.cuda.current_stream(dev).cuda_stream)
+    if not (n and T and k):
+        return torch.zeros((T, L, k), dtype=torch.float32, device=dev)
+    out = torch.empty((T, L, k), dtype=torch.float32, device=dev)
+    ws = torch.empty(workspace(T, depth, 0, L, k, n_chunks),
+                     dtype=torch.int32, device=dev)
+    FOREST_LEAF_SUMS_HEAP.launch(
+        ptr(codes), ptr(feat_heap), ptr(bin_heap), ptr(aug), ptr(ws),
+        ptr(out), n, d, T, depth, k, n_bins, n_chunks, rpc, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
     return out
 
 
-def forest_leaf_sums_chain_cuda(codes, feat_lv, bin_lv, base_lv,
-                                aug) -> torch.Tensor:
+def forest_leaf_sums_chain_cuda(codes, feat_lv, bin_lv, base_lv, aug, *,
+                                n_bins: int) -> torch.Tensor:
     """Launch ``forest_leaf_sums_chain`` on the current stream: (T, W_out,
-    k) float32 sums with W_out = min(2^depth, W)."""
+    k) float32 sums with W_out = min(2^depth, W); as
+    ``forest_leaf_sums_heap_cuda`` otherwise."""
     if not codes.is_cuda:
         raise ValueError(f"forest_leaf_sums_chain needs CUDA tensors, codes "
                          f"are on {codes.device}")
@@ -346,14 +389,15 @@ def forest_leaf_sums_chain_cuda(codes, feat_lv, bin_lv, base_lv,
     expect(aug, "aug", torch.float32, (n, k), dev)
     n_chunks, rpc = row_chunks(n)
     check_int32(n * d, n * k, T * depth * W, n_chunks * T * W_out * k)
-    out = torch.zeros((T, W_out, k), dtype=torch.float32, device=dev)
-    if n and T and k:
-        part = torch.empty((n_chunks, T, W_out, k), dtype=torch.float32,
-                           device=dev)
-        FOREST_LEAF_SUMS_CHAIN.launch(
-            ptr(codes), ptr(feat_lv), ptr(bin_lv), ptr(base_lv), ptr(aug),
-            ptr(part), ptr(out), n, d, T, depth, W, W_out, k, n_chunks, rpc,
-            dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    if not (n and T and k):
+        return torch.zeros((T, W_out, k), dtype=torch.float32, device=dev)
+    out = torch.empty((T, W_out, k), dtype=torch.float32, device=dev)
+    ws = torch.empty(workspace(T, depth, W, W_out, k, n_chunks),
+                     dtype=torch.int32, device=dev)
+    FOREST_LEAF_SUMS_CHAIN.launch(
+        ptr(codes), ptr(feat_lv), ptr(bin_lv), ptr(base_lv), ptr(aug),
+        ptr(ws), ptr(out), n, d, T, depth, W, W_out, k, n_bins, n_chunks,
+        rpc, dev.index, torch.cuda.current_stream(dev).cuda_stream)
     return out
 
 
@@ -384,7 +428,7 @@ def forest_leaf_sums(codes: torch.Tensor, feat_heap: torch.Tensor,
         return forest_leaf_sums_heap_cuda(
             codes.to(torch.int32).contiguous(), feat_heap.contiguous(),
             bin_heap.contiguous(), aug.to(torch.float32).contiguous(),
-            depth=depth)
+            depth=depth, n_bins=n_bins)
     return forest_leaf_sums_plain(codes, feat_heap, bin_heap, aug,
                                   depth=depth, n_bins=n_bins)
 
@@ -403,7 +447,7 @@ def forest_leaf_sums_chain(codes: torch.Tensor, feat_lv: torch.Tensor,
         return forest_leaf_sums_chain_cuda(
             codes.to(torch.int32).contiguous(), feat_lv.contiguous(),
             bin_lv.contiguous(), base_lv.contiguous(),
-            aug.to(torch.float32).contiguous())
+            aug.to(torch.float32).contiguous(), n_bins=n_bins)
     return forest_leaf_sums_chain_plain(codes, feat_lv, bin_lv, base_lv, aug,
                                         n_bins=n_bins)
 

@@ -32,7 +32,9 @@ Shapes (19,712 rows, the refit's padded row count):
   256), the GBT serve (heaps, T 20, depth 6) and the DT serve (one heap
   of depth 6);
 * the leaf sums (k 3): the RF refit's (slot chains, T 50, depth 12, W
-  256) and the DT refit's (one heap of depth 6).
+  256), the DT refit's (one heap of depth 6) and the RF refit's with every
+  row in leaf 0 of every tree (the skew of a trained refit at its
+  extreme).
 
 Prints the card's name and power limit, then one JSON line per case.
 """
@@ -75,8 +77,11 @@ HIST_CASES = (("GBT refit leaves", 1, 128, 64),
 SERVE_ROWS = 65536
 PREDICT_CASES = (("RF serve", 50, 12, 256), ("gbt12 serve", 20, 12, 256),
                  ("GBT serve", 20, 6, None), ("DT serve", 1, 6, None))
-#: the leaf sums' refit shapes: (tag, T, depth, W; None for heaps), k
-LEAF_SUM_CASES = (("RF refit", 50, 12, 256), ("DT refit", 1, 6, None))
+#: the leaf sums' refit shapes: (tag, T, depth, W; None for heaps, every
+#: split the sentinel so that every row lands in leaf 0), k
+LEAF_SUM_CASES = (("RF refit", 50, 12, 256, False),
+                  ("DT refit", 1, 6, None, False),
+                  ("RF refit, every row in leaf 0", 50, 12, 256, True))
 LEAF_SUM_K = 3
 
 
@@ -258,19 +263,21 @@ def profile_leaf_sums(runs: int) -> list:
     aug = torch.from_numpy(rng.rand(ROWS, LEAF_SUM_K).astype(
         np.float32)).to(dev)
     rows = []
-    for tag, T, depth, W in LEAF_SUM_CASES:
+    for tag, T, depth, W, one_leaf in LEAF_SUM_CASES:
+        f = (random_heap(rng, ROWS, CODES, T, depth, 1, NODE_BINS)
+             if W is None else random_chain(rng, ROWS, CODES, T, depth, W, 1,
+                                            NODE_BINS))
+        if one_leaf:
+            f["bins"][:] = NODE_BINS
+            if W is not None:
+                f["base"][:] = 0
+        f = {k: torch.from_numpy(v).to(dev) for k, v in f.items()}
         if W is None:
-            f = {k: torch.from_numpy(v).to(dev) for k, v in random_heap(
-                rng, ROWS, CODES, T, depth, 1, NODE_BINS).items()}
-
             def call():
                 return F.forest_leaf_sums(f["codes"], f["feat"], f["bins"],
                                           aug, depth=depth, n_bins=NODE_BINS)
             name = "forest_leaf_sums_heap "
         else:
-            f = {k: torch.from_numpy(v).to(dev) for k, v in random_chain(
-                rng, ROWS, CODES, T, depth, W, 1, NODE_BINS).items()}
-
             def call():
                 return F.forest_leaf_sums_chain(
                     f["codes"], f["feat"], f["bins"], f["base"], aug,

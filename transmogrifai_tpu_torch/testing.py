@@ -114,14 +114,42 @@ def descend_direct(codes: np.ndarray, feat: np.ndarray, bins: np.ndarray,
 
 
 def leaf_sums_direct(ids: np.ndarray, aug: np.ndarray, L: int) -> np.ndarray:
-    """sum_s aug[s, :] * 1[ids[s, t] == l] in float64, (T, L, k); ids
-    outside [0, L) add nothing."""
+    """sum_s aug[s, :] * 1[ids[s, t] == l] in float64, (T, L, k), as the
+    contraction spells it: every row meets every (tree, leaf) cell, so a
+    NaN or +-Inf stat times a 0 of the one-hot makes that cell NaN; ids
+    outside [0, L) meet every cell with 0."""
     T = ids.shape[1]
-    out = np.zeros((T, L, aug.shape[1]), np.float64)
-    for t in range(T):
-        ok = (ids[:, t] >= 0) & (ids[:, t] < L)
-        np.add.at(out[t], ids[ok, t], aug[ok].astype(np.float64))
+    a = aug.astype(np.float64)
+    out = np.empty((T, L, aug.shape[1]), np.float64)
+    with np.errstate(invalid="ignore"):
+        for t in range(T):
+            onehot = (ids[:, t, None] == np.arange(L)).astype(np.float64)
+            out[t] = (onehot[:, :, None] * a[:, None, :]).sum(0)
     return out
+
+
+def leaf_sums_chunked(ids, aug, L: int, n_chunks: int, rows_per_chunk: int):
+    """The leaf sums in the CUDA kernels' order, on the CPU: (T, L, k)
+    float32. Rows [c * rows_per_chunk, +rows_per_chunk) make chunk c; each
+    chunk adds its rows in ascending order from +0.0 (``index_add_``), then
+    the chunk partials are added in chunk order; non-finite stats spread as
+    in ``ops.forest.spread_nonfinite_sums``. ids (n, T) and aug (n, k) are
+    torch tensors (ids outside [0, L) add nothing)."""
+    import torch
+    from .ops.forest import spread_nonfinite_sums
+    ids, aug = ids.cpu().long(), aug.cpu().to(torch.float32)
+    T, k = ids.shape[1], aug.shape[1]
+    ok = (ids >= 0) & (ids < L)
+    cell = torch.where(ok, ids + L * torch.arange(T), torch.full_like(
+        ids, T * L))
+    out = None
+    for c in range(n_chunks):
+        lo, hi = c * rows_per_chunk, (c + 1) * rows_per_chunk
+        part = torch.zeros((T * L + 1, k), dtype=torch.float32)
+        part.index_add_(0, cell[lo:hi].reshape(-1),
+                        aug[lo:hi].repeat_interleave(T, dim=0))
+        out = part if out is None else out + part
+    return spread_nonfinite_sums(out[:T * L].reshape(T, L, k), ids, aug)
 
 
 def serve_bench_data(n: int, d: int, seed: int) -> Dict[str, np.ndarray]:
