@@ -7,36 +7,44 @@ Phases, in order; any failure exits nonzero:
 (a) build every CUDA source of the port (one nvcc each, all at once);
 (b) hold each kernel against its plain PyTorch version on the card, at the
     shapes its path gives it, and report its times:
-    - ``node_hist`` at four growth levels (19,712 rows x 64 codes, 32
+    - ``node_hist`` at six growth levels (19,712 rows x 64 codes, 32
       bins): the RF refit's deepest level (T=50, 256 slots, k=2; the timed
       case of the ``kernels`` line), the GBT depth-6 refit's level 5 (T=1,
       16 left children, stride 2, k=3), the ``gbt12`` refit's deepest
-      level (T=1, 256 slots, k=3) and a GBT level 0 (T=1, every row in one
-      slot, k=3): within rtol 1e-5 / atol 1e-6 of the
-      plain version on [0, 1) stats, bit-equal on integer-valued stats and
-      across reruns, and bit-equal to the direct formula (rows added in
-      the kernel's order) there and at an odd shape; the library route is
-      one f32 matmul over the materialized masked-stat operand;
-    - the forest descents at the serve shapes (65,536 rows, 32 bins, k=1;
-      RF slot chains T=50 depth 12 W=256, ``gbt12`` slot chains T=20
+      level (T=1, 256 slots, k=3), a GBT level 0 (T=1, every row in one
+      slot, k=3), the ``rfmc`` refit's deepest level (six class counts,
+      k=6: two of the kernel's stat groups) and the ``xgbmc`` refit's
+      level 5 (T=6, one tree per class, stride 2, k=3): within rtol 1e-5 /
+      atol 1e-6 of the plain version on [0, 1) stats, bit-equal on
+      integer-valued stats and across reruns, and bit-equal to the direct
+      formula (rows added in the kernel's order) there and at an odd
+      shape; the library route is one f32 matmul over the materialized
+      masked-stat operand;
+    - the forest descents at the serve shapes (65,536 rows, 32 bins; at
+      k=1 RF slot chains T=50 depth 12 W=256, ``gbt12`` slot chains T=20
       depth 12 W=256, GBT heaps T=20 depth 6, and the DT's one heap of
-      depth 6, which takes the heap predict's int32 path): leaf ids
+      depth 6, which takes the heap predict's int32 path; at k=6 the
+      ``rfmc`` chains as RF's, launched four columns and then two, and the
+      ``xgbmc`` heaps, T=600 = 100 rounds x 6 classes, depth 6): leaf ids
       exactly, sums bit-equal to the plain version (both add the trees in
       order) and across reruns;
     - the leaf sums at the refit shapes (19,712 rows x 64 codes, k=3: the
       RF refit's chain T=50 depth 12 W=256, the DT refit's heap T=1 depth
-      6, and a heap T=50 depth 6): within rtol 1e-5 / atol 1e-6 of the
-      plain version on [0, 1) stats, bit-equal on integer-valued stats and
-      across reruns, bit-equal to their own order spelled out on the CPU
-      (``testing.leaf_sums_chunked``) at the RF and DT refit shapes and
-      with every row in leaf 0 (timed too), and at an odd shape within
-      the same tolerance of the direct float64 formula;
-    - ``hist_matmul`` at its three main-path shapes, in the layout of
+      6, and a heap T=50 depth 6; the chain also at k=4 and k=7, the
+      ``rfreg`` and ``rfmc`` refits' stats and weight): within rtol 1e-5 /
+      atol 1e-6 of the plain version on [0, 1) stats, bit-equal on
+      integer-valued stats and across reruns, bit-equal to their own
+      order spelled out on the CPU (``testing.leaf_sums_chunked``) at the
+      RF (k 3, 4 and 7) and DT refit shapes and with every row in leaf 0
+      (timed too), and at an odd shape within the same tolerance of the
+      direct float64 formula;
+    - ``hist_matmul`` at its four main-path shapes, in the layout of
       ``_diag_leaf_hist`` (19,712 rows, 64 trees as features, padded trees
       all sentinel, exact): the GBT refit's leaf sums (one real tree, 64
       leaves, 128 stat columns; the timed case of the ``kernels`` line),
-      the ``gbt12`` refit's (one real tree, 256 leaves) and the RF sweep's
-      (48 real trees, 64 leaves, 192 stat columns); then at the GBT shape
+      the ``gbt12`` refit's (one real tree, 256 leaves), the RF sweep's
+      (48 real trees, 64 leaves, 192 stat columns) and the ``xgbmc``
+      refit's (6 real trees, one per class); then at the GBT shape
       with every code valid and at a bf16 growth shape (64 features, 32
       bins, 384 columns): within rtol 1e-5 / atol 1e-6 of the plain
       version on [0, 1) stats, bit-equal on integer-valued stats and
@@ -54,31 +62,44 @@ Phases, in order; any failure exits nonzero:
       NaN leaf that a row reaches or that none reaches, a +Inf leaf, a
       +Inf/-Inf pair): the plain versions' NaN cells and rows and every
       other one's bits;
-(t) train: rebuild the serve bench's 20,000 x 64 frame and train four
-    pinned workflows on the card (``OpWorkflow().train()``): GBT (depth 6,
-    20 rounds, heaps), ``gbt12`` (GBT depth 12, 20 rounds, slot chains),
-    RF (depth 12, 50 trees, slot chains) and DT (depth 6). Each is held
-    against the committed fixture that the JAX package trained on the same
-    frame (``serve64/gbt``, ``gbt12``, ``rf``, ``dt``): bin edges
-    bit-equal, the same kept columns, identical trees counted (for a
-    chain: feat_lv, bins_lv and base_lv; the first differing node is
-    reported with the split-gain gap there), fold and holdout AuPR within
-    5e-3, and probability_1 on the fixture's 4,096-row frame within mean
-    5e-3 (max 1e-4 when every tree is identical); each train prints its
-    peak device memory. The kernels' launch counts are zeroed just before
-    each train and read just after it: every train must launch
-    ``node_hist`` and ``hist_matmul``, the two GBT trains ``hist_matmul``
-    at least once per boosting round and ``node_hist`` at least rounds x
-    levels times; GBT ``forest_predict_heap``, ``gbt12`` and RF
-    ``forest_predict_chain``, RF ``forest_leaf_sums_chain``; DT
-    ``forest_leaf_sums_heap`` and ``forest_predict_heap``;
-(c) serve: load the committed RF, GBT, DT and gbt12 fixtures on the card,
-    score their 4,096-row frames against the JAX package's outputs
-    (probability_1 atol 1e-5; prediction equal wherever |p - 0.5| >
-    1e-5), answer single-row requests through score_function, score
-    65,536-row batches and report rows/sec. The launch counts are zeroed
-    just before this phase and read just after it; both forest predict
-    kernels must have launched;
+(t) train: rebuild the serve bench's 20,000 x 64 frames and train eight
+    pinned workflows on the card (``OpWorkflow().train()``,
+    ``testing.SERVE_MODELS``): binary GBT (depth 6, 20 rounds, heaps),
+    ``gbt12`` (GBT depth 12, 20 rounds, slot chains), RF (depth 12, 50
+    trees, slot chains) and DT (depth 6); regression ``rfreg`` (RF as
+    RF's) and ``gbtreg`` (GBT as GBT's) through the regression selector;
+    6-class ``rfmc`` (RF as RF's) and ``xgbmc`` (XGBoost depth 6, 100
+    rounds) through the multiclass selector. Each is held against the
+    committed fixture that the JAX package trained on the same frame
+    (``serve64/<key>``): bin edges bit-equal, the same kept columns,
+    identical trees counted (a boosted model's per round and class; for a
+    chain feat_lv, bins_lv and base_lv; the first differing node is
+    reported, for the binary keys with the split-gain gap there). Binary:
+    fold and holdout AuPR within 5e-3, probability_1 on the fixtures'
+    4,096-row scoring frame within mean 5e-3 (max 1e-4 when every tree is
+    identical); regression: fold and holdout RMSE within 1e-4 relative,
+    prediction mean |d| <= 1e-4 std(y) (max <= 1e-5 (1 + |y|) with
+    identical trees); multiclass: fold and holdout F1 within 5e-3, every
+    probability within mean 5e-3 (max 1e-4 with identical trees), no
+    prediction flip where the fixture's two highest probabilities are
+    more than 1e-5 apart. Each train prints its seconds and peak device
+    memory. The kernels' launch counts are zeroed just before each train
+    and read just after it: every train must launch ``node_hist`` and
+    ``hist_matmul``, the four boosted trains ``hist_matmul`` at least
+    once per boosting round and ``node_hist`` at least rounds x levels
+    times; the heap-boosted ones ``forest_predict_heap``, ``gbt12`` and
+    the three RF trains ``forest_predict_chain``, the RF trains
+    ``forest_leaf_sums_chain``; DT ``forest_leaf_sums_heap`` and
+    ``forest_predict_heap``;
+(c) serve: load the eight committed fixtures on the card, score the
+    4,096-row scoring frame (rebuilt from its seed by
+    ``testing.score_frame``) against the JAX package's outputs (binary:
+    probability_1 atol 1e-5, prediction equal wherever |p - 0.5| > 1e-5;
+    regression and multiclass: the limits of (t) with identical trees),
+    answer single-row requests through score_function, score 65,536-row
+    batches and report rows/sec. The launch counts are zeroed just before
+    this phase and read just after it; both forest predict kernels must
+    have launched;
 (d) print each path's launch counts and the ``kernels`` JSON line, whose
     launches are the sums over (t) and (c);
 (e) print the card's name and power limit.
@@ -105,6 +126,7 @@ import torch
 # timers: one definition, shared with the per-pass profiler
 from transmogrifai_tpu_torch import profile_hist as PH
 from transmogrifai_tpu_torch.profile_hist import bound_ms, time_ms
+from transmogrifai_tpu_torch.testing import SERVE_CLASSES as N_CLASSES
 
 N_ROWS = 65536
 N_FEATURES = 64
@@ -120,9 +142,14 @@ FIXTURES = os.path.join(HERE, "transmogrifai_tpu_torch", "fixtures",
 TRAIN_ROWS = 20000
 TRAIN_SEED = 0
 #: the tables that make a tree, per layout
-TREE_KEYS = {"gbt": ("feat", "bins"), "dt": ("feat", "bins"),
-             "rf": ("feat_lv", "bins_lv", "base_lv"),
-             "gbt12": ("feat_lv", "bins_lv", "base_lv")}
+HEAP_KEYS, CHAIN_KEYS = ("feat", "bins"), ("feat_lv", "bins_lv", "base_lv")
+TREE_KEYS = {"gbt": HEAP_KEYS, "dt": HEAP_KEYS, "rf": CHAIN_KEYS,
+             "gbt12": CHAIN_KEYS, "rfreg": CHAIN_KEYS, "gbtreg": HEAP_KEYS,
+             "rfmc": CHAIN_KEYS, "xgbmc": HEAP_KEYS}
+#: boosted fixtures: their tables carry (rounds, classes) in front
+BOOSTED = ("gbt", "gbt12", "gbtreg", "xgbmc")
+#: the fixtures' scoring frame: ``testing.score_frame(4096, 64, 1)``
+SCORE_ROWS, SCORE_SEED = 4096, 1
 #: the leaf sums of the RF and DT refits: 19,712 padded rows, class counts
 #: and the weight, k = 3
 LEAF_K = 3
@@ -133,6 +160,15 @@ REFIT_ROWS = PH.ROWS
 AUPR_ATOL = 5e-3
 P1_MEAN_ATOL = 5e-3
 P1_MAX_ATOL_SAME_TREES = 1e-4
+#: regression trains: fold and holdout RMSE within this relative gap;
+#: prediction mean |d| within this share of the label's std, max |d|
+#: within REG_MAX_RTOL * (1 + |prediction|) when every tree is identical
+RMSE_RTOL = 1e-4
+REG_MEAN_SHARE = 1e-4
+REG_MAX_RTOL = 1e-5
+#: multiclass trains: F1 as the binary trains' AuPR, probabilities as
+#: their probability_1
+F1_ATOL = AUPR_ATOL
 
 
 def phase_build():
@@ -344,6 +380,29 @@ def phase_leaf_sums(dev, rng):
                                  + T * slots * 3 + n * k + T * W_out * k),
                             n * T * (depth + k)))
     results["forest_leaf_sums_chain"] = r
+    # the rfreg and rfmc refits: the same chains, k 4 ([-y, 1, 1] times
+    # the weight, and the weight) and k 7 (six class counts and the weight)
+    for tag, T_, depth_, W_, _, k_ in PH.LEAF_SUM_CASES:
+        if k_ == k or W_ is None:
+            continue
+        a, a_int = _leaf_stats(dev, rng, n, k_)
+        err = _check_leaf_sums(
+            f"forest_leaf_sums_chain ({tag})", chain_sums,
+            lambda x: F.forest_leaf_sums_chain_plain(*tabs, x,
+                                                     n_bins=N_BINS),
+            a, a_int)
+        _check_chunked(f"forest_leaf_sums_chain ({tag})", chain_sums,
+                       F.route_codes_chain(*tabs, N_BINS), W_out, a, a_int)
+        b_ms, b_by = bound_ms(4 * (_codes_read(c["codes"], c["feat"],
+                                               c["bins"], base=c["base"])
+                                   + T * slots * 3 + n * k_
+                                   + T * W_out * k_), n * T * (depth + k_))
+        plain_ms = time_ms(lambda: F.forest_leaf_sums_chain_plain(
+            *tabs, a, n_bins=N_BINS))
+        print(f"(b) forest_leaf_sums_chain {tag} (k {k_}): max_abs_err "
+              f"{err:.3g}, bit-equal to the chunked order, "
+              f"{time_ms(lambda: chain_sums(a)):.4f} ms (plain "
+              f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms by {b_by})")
     # the DT refit (T=1) and a T=50 forest of depth-6 heaps
     for tag, T in (("DT refit", 1), ("T=50", 50)):
         depth = 6
@@ -512,16 +571,16 @@ def phase_node_hist(dev, rng):
     return out["RF refit, deepest level"]
 
 
-def _predict_case(dev, rng, tag, T, depth, W):
-    """A forest descent at a serve shape (W None: heaps) against its plain
-    version: sums bit-equal, leaf ids exact, reruns bit-equal; its time,
-    the plain version's and the bound."""
+def _predict_case(dev, rng, tag, T, depth, W, k=1):
+    """A forest descent at a serve shape (W None: heaps; k leaf columns)
+    against its plain version: sums bit-equal, leaf ids exact, reruns
+    bit-equal; its time, the plain version's and the bound."""
     from transmogrifai_tpu_torch.ops import forest as F
     from transmogrifai_tpu_torch.testing import random_chain, random_heap
 
     if W is None:
         f = {key: torch.from_numpy(v).to(dev) for key, v in random_heap(
-            rng, N_ROWS, N_FEATURES, T, depth, 1, N_BINS).items()}
+            rng, N_ROWS, N_FEATURES, T, depth, k, N_BINS).items()}
         args = (f["codes"], f["feat"], f["bins"], f["leaf"])
 
         def kernel(with_ids=False):
@@ -536,7 +595,7 @@ def _predict_case(dev, rng, tag, T, depth, W):
                       + 2 * f["feat"].numel())
     else:
         f = {key: torch.from_numpy(v).to(dev) for key, v in random_chain(
-            rng, N_ROWS, N_FEATURES, T, depth, W, 1, N_BINS).items()}
+            rng, N_ROWS, N_FEATURES, T, depth, W, k, N_BINS).items()}
         args = (f["codes"], f["feat"], f["bins"], f["base"], f["leaf"])
 
         def kernel(with_ids=False):
@@ -562,11 +621,12 @@ def _predict_case(dev, rng, tag, T, depth, W):
     if not torch.equal(got, kernel()[0]):
         raise AssertionError(f"forest predict ({tag}): reruns differ")
     # the codes the paths split on, the used table slots, the leaves and
-    # the output once; per row and tree one step a level and one add
-    nbytes += 4 * (f["leaf"].numel() + N_ROWS)
+    # the output once; per row and tree one step a level and one add a
+    # column
+    nbytes += 4 * (f["leaf"].numel() + N_ROWS * k)
     return dict(max_abs_err=float((got - want).abs().max()),
                 ms=time_ms(lambda: kernel()[0]), plain_ms=time_ms(plain),
-                bound=bound_ms(nbytes, N_ROWS * T * (depth + 1)))
+                bound=bound_ms(nbytes, N_ROWS * T * (depth + k)))
 
 
 #: non-finite stats: one NaN, one +Inf, one -Inf, a +Inf/-Inf pair and a
@@ -762,18 +822,16 @@ def phase_kernels(dev):
     results["node_hist"] = phase_node_hist(dev, rng)
     results.update(phase_leaf_sums(dev, rng))
 
-    # the serve shapes: RF and gbt12 slot chains, GBT heaps, the DT's one
-    # heap (k=1)
-    for name, tag, T, depth, W in (
-            ("forest_predict_chain", "RF serve", 50, 12, 256),
-            ("forest_predict_chain", "gbt12 serve", 20, 12, 256),
-            ("forest_predict_heap", "GBT serve", 20, 6, None),
-            ("forest_predict_heap", "DT serve", 1, 6, None)):
-        r = _predict_case(dev, rng, tag, T, depth, W)
+    # the serve shapes (``profile_hist.PREDICT_CASES``): RF and gbt12 slot
+    # chains, GBT heaps, the DT's one heap (k 1); the rfmc chains and the
+    # xgbmc heaps (T 600 = rounds x classes) at k 6
+    for tag, T, depth, W, k in PH.PREDICT_CASES:
+        name = "forest_predict_heap" if W is None else "forest_predict_chain"
+        r = _predict_case(dev, rng, tag, T, depth, W, k)
         print(f"(b) {name} {tag} (T {T}, depth {depth}"
-              f"{'' if W is None else f', W {W}'}): bit-equal to plain, ids "
-              f"exact, {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound "
-              f"{r['bound'][0]:.5f} ms by {r['bound'][1]})")
+              f"{'' if W is None else f', W {W}'}, k {k}): bit-equal to "
+              f"plain, ids exact, {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} "
+              f"ms, bound {r['bound'][0]:.5f} ms by {r['bound'][1]})")
         results.setdefault(name, r)          # RF's chain, GBT's heap
     phase_nonfinite(dev)
     phase_forest_nonfinite(dev)
@@ -830,76 +888,98 @@ def _gap(gain, port, fixture, min_gain: float) -> float:
 
 
 def _gbt_gain_gap(model, data, fixture, key: str, t: int, level: int,
-                  j: int) -> float:
+                  j: int, cls: int = 0) -> float:
     """Split gain of the port's choice minus the fixture's at node ``j`` of
     level ``level`` (a heap's position within the level, or a chain's
-    slot) of boosting round ``t``, both scored on the port's own state
-    there: the refit rows, F after the first ``t`` (identical) trees, and
-    the node's bf16-operand histogram, as the grower builds it."""
+    slot) of boosting round ``t``'s tree of class ``cls``, both scored on
+    the port's own state there: the refit rows, F after the first ``t``
+    (identical) rounds, and the node's bf16-operand histogram, as the
+    grower builds it (sigmoid, squared-error or softmax gradients)."""
     from transmogrifai_tpu_torch.models import trees as TR
+    from transmogrifai_tpu_torch.models.api import MODEL_REGISTRY
     from transmogrifai_tpu_torch.ops.forest import (
         route_codes, route_codes_chain,
     )
-    from transmogrifai_tpu_torch.testing import SERVE_MODELS
+    from transmogrifai_tpu_torch.ops.xla_cpu import fma32, xla_softmax
+    from transmogrifai_tpu_torch.testing import SERVE_MODELS, SERVE_TASKS
 
-    _, hyper = SERVE_MODELS[key]
+    family, hyper = SERVE_MODELS[key]
+    task = SERVE_TASKS[key]
+    fam = MODEL_REGISTRY[family]
     p = model.stages[-1].fitted.params
     codes, y, w = _refit_rows(model, data)
     keys = TREE_KEYS[key]
     chain = "base_lv" in p
-    tabs = [p[k][:, 0] for k in keys]
-    leaf = p["leaf"][:, 0]
-    depth = tabs[0].shape[1] if chain else TR._depth_of(leaf.shape[-1])
+    leaf = p["leaf"]                                     # (rounds, C, L)
+    C = leaf.shape[1]
+    depth = p[keys[0]].shape[2] if chain else TR._depth_of(leaf.shape[-1])
 
-    def route(r: int, levels: int) -> torch.Tensor:
-        """Each refit row's node in round r's tree after ``levels``."""
+    def route(r: int, c: int, levels: int) -> torch.Tensor:
+        """Each refit row's node in round r's class-c tree after
+        ``levels``."""
+        tabs = [p[k][r:r + 1, c] for k in keys]
         if not chain:
-            return route_codes(codes, tabs[0][r:r + 1], tabs[1][r:r + 1],
-                               levels, TR.N_BINS)[:, 0].long()
+            return route_codes(codes, tabs[0], tabs[1], levels,
+                               TR.N_BINS)[:, 0].long()
         if not levels:
             return torch.zeros(codes.shape[0], dtype=torch.long,
                                device=codes.device)
-        return route_codes_chain(codes, *(x[r:r + 1, :levels].contiguous()
+        return route_codes_chain(codes, *(x[:, :levels].contiguous()
                                           for x in tabs),
                                  TR.N_BINS)[:, 0].long()
 
-    F = torch.zeros(codes.shape[0], device=codes.device)
+    F = p["f0"].reshape(1, C).expand(codes.shape[0], C).clone()
     for r in range(t):
-        F = (F.double() + float(p["eta"]) * leaf[r][route(r, depth)].double()
-             ).float()
-    pr = torch.sigmoid(F)
-    stats = torch.stack([(pr - y) * w, torch.clamp(pr * (1 - pr), min=1e-6)
-                         * w, w], dim=1)
-    gain = _node_gains(codes, stats * (route(t, level) == j).float()[:, None],
-                       {"lam": 0.0, "min_child_weight": 0.0,
-                        "min_instances": hyper["minInstancesPerNode"]},
-                       "gh")
-    at = ((t, 0, level, j) if chain else (t, 0, 2 ** level - 1 + j))
+        for c in range(C):
+            F[:, c] = fma32(p["eta"], leaf[r, c][route(r, c, depth)],
+                            F[:, c])
+    if task == "binary":
+        pr = torch.sigmoid(F[:, 0])
+        g, h = pr - y, torch.clamp(pr * (1 - pr), min=1e-6)
+    elif task == "regression":
+        g, h = F[:, 0] - y, torch.ones_like(y)
+    else:
+        P = xla_softmax(F.T[None])[0, cls]
+        g, h = P - (y == cls).float(), torch.clamp(P * (1 - P), min=1e-6)
+    stats = torch.stack([g * w, h * w, w], dim=1)
+    gain = _node_gains(
+        codes, stats * (route(t, cls, level) == j).float()[:, None],
+        {"lam": hyper.get("lambda", fam.lam_default),
+         "min_child_weight": hyper.get("minChildWeight", fam.mcw_default),
+         "min_instances": hyper.get("minInstancesPerNode", 0.0)}, "gh")
+    at = ((t, cls, level, j) if chain else (t, cls, 2 ** level - 1 + j))
     return _gap(gain, tuple(int(p[k][at]) for k in keys[:2]),
                 tuple(int(fixture[k][at]) for k in keys[:2]),
-                hyper["minInfoGain"])
+                hyper.get("minInfoGain", 0.0))
 
 
 def _chain_gain_gap(model, data, fixture, t: int, level: int,
-                    j: int) -> float:
+                    j: int, key: str = "rf") -> float:
     """Split gain of the port's choice minus the fixture's at slot ``j``
     of level ``level`` of RF refit tree ``t`` (the levels above are the
-    same in both), scored on tree t's bootstrap rows and feature subset."""
+    same in both), scored on tree t's bootstrap rows and feature subset:
+    class counts (Gini) or, for a regressor, [-y, 1, 1] (Newton)."""
     from transmogrifai_tpu_torch.models import bootstrap
     from transmogrifai_tpu_torch.ops.forest import route_codes_chain
-    from transmogrifai_tpu_torch.testing import SERVE_MODELS
+    from transmogrifai_tpu_torch.testing import SERVE_MODELS, SERVE_TASKS
 
-    _, hyper = SERVE_MODELS["rf"]
+    _, hyper = SERVE_MODELS[key]
+    regression = SERVE_TASKS[key] == "regression"
     p = model.stages[-1].fitted.params
     codes, y, w = _refit_rows(model, data)
     S, d = codes.shape
     boots, fmask = bootstrap.draw(
         np.array([7.0], np.float32),
         np.array([hyper["subsamplingRate"]], np.float32), hyper["numTrees"],
-        S, d, bootstrap.feature_share(d, "classification"), codes.device,
-        folded=True)                            # one config: the refit
-    sw = (torch.nn.functional.one_hot(y.long(), 2).float()
-          * (w * boots[0, t])[:, None])
+        S, d, bootstrap.feature_share(
+            d, "regression" if regression else "classification"),
+        codes.device, folded=True)              # one config: the refit
+    if regression:
+        stats = torch.stack([-y, torch.ones_like(y), torch.ones_like(y)], 1)
+    else:
+        stats = torch.nn.functional.one_hot(
+            y.long(), max(int(p["leaf"].shape[-1]), 2)).float()
+    sw = stats * (w * boots[0, t])[:, None]
     slot = (route_codes_chain(codes, *(p[k][t:t + 1, :level].contiguous()
                                        for k in ("feat_lv", "bins_lv",
                                                  "base_lv")),
@@ -908,7 +988,9 @@ def _chain_gain_gap(model, data, fixture, t: int, level: int,
                                       device=codes.device))
     A = (sw * (slot == j).float()[:, None]).to(torch.bfloat16).float()
     gain = _node_gains(codes, A, {"min_instances":
-                                  hyper["minInstancesPerNode"]}, "counts")
+                                  hyper["minInstancesPerNode"], "lam": 1e-6,
+                                  "min_child_weight": 0.0},
+                       "gh" if regression else "counts")
     gain = torch.where(fmask[0, t][:, None], gain,
                        torch.full_like(gain, -float("inf")))
     return _gap(gain, (int(p["feat_lv"][t, level, j]),
@@ -964,19 +1046,116 @@ def _chain_differences(model, data, got, fx, key="rf"):
               f"f{fixt[0]}/b{fixt[1]}/base {fixt[2]}){gap}")
 
 
+def _tree_tables(params, key):
+    """{table: (trees, ...)} of a fitted model's split tables: a boosted
+    model's (rounds, classes) flattened to one tree axis, the DT's one
+    tree given an axis of one."""
+    out = {}
+    for k in TREE_KEYS[key]:
+        a = params[k]
+        if key in BOOSTED:
+            a = a.reshape((-1,) + a.shape[2:])
+        elif key == "dt":
+            a = a[None]
+        out[k] = a
+    return out
+
+
+def _first_difference(model, data, fixture, key, got, fx, same):
+    """Report the first differing tree of a regression or multiclass
+    train: its (round, class) or tree index, level and node, both splits
+    there and, when they differ, the split-gain gap (``got``/``fx``: the
+    tables of ``_tree_tables``; ``fixture``: the fixture's params)."""
+    t = same.index(False)
+    chain = "base_lv" in got
+    diff = np.zeros(fx[TREE_KEYS[key][0]][t].shape, bool)
+    for k in TREE_KEYS[key]:
+        diff |= got[k][t] != fx[k][t]
+    if chain:
+        level = int(np.nonzero(diff.any(1))[0][0])
+        j = int(np.nonzero(diff[level])[0][0])
+        at, where = (t, level, j), f"level {level}, slot {j}"
+    else:
+        j = int(np.nonzero(diff)[0][0])
+        level = int(np.log2(j + 1))
+        at, where = (t, j), f"level {level}, heap node {j}"
+    tree = (f"round {t // N_CLASSES}, class {t % N_CLASSES}"
+            if key == "xgbmc" else f"round {t}" if key in BOOSTED
+            else f"tree {t}")
+    port, fixt = ([int(tab[k][at]) for k in TREE_KEYS[key]]
+                  for tab in (got, fx))
+    gap = ""
+    if port[:2] != fixt[:2]:
+        if chain:
+            g = _chain_gain_gap(model, data, fixture, t, level, j, key)
+        else:
+            C = N_CLASSES if key == "xgbmc" else 1
+            g = _gbt_gain_gap(model, data, fixture, key, t // C, level,
+                              j - (2 ** level - 1), t % C)
+        gap = f", gain gap {g:.6g}"
+    print(f"(t) {key}: first differing tree: {tree}, {where} (port "
+          f"{port}, fixture {fixt}){gap}")
+
+
+def _parts_of(model, scored):
+    """{key: (n,) float32} of the model's Prediction column."""
+    col = scored[model.result_features[0].name]
+    vals = col.values.cpu().numpy()
+    return {k: vals[:, i] for i, k in enumerate(col.metadata["keys"])}
+
+
+def _check_parts(tag, task, got, exp, same_trees, y_std):
+    """Hold a regression or multiclass model's prediction parts to the
+    fixture's: regression mean |d| <= REG_MEAN_SHARE * std(y), and with
+    identical trees max |d| <= REG_MAX_RTOL * (1 + |y|); multiclass each
+    probability's mean |d| <= P1_MEAN_ATOL, with identical trees max |d|
+    <= P1_MAX_ATOL_SAME_TREES, and no prediction flip where the fixture's
+    two highest probabilities are more than PRED_MARGIN apart."""
+    keys = (["prediction"] if task == "regression" else
+            sorted(k for k in exp.files if k.startswith("probability_")))
+    for k in keys:
+        if got[k].shape != exp[k].shape or not np.isfinite(got[k]).all():
+            raise AssertionError(f"{tag}: bad {k} {got[k].shape}")
+    if task == "regression":
+        w = exp["prediction"]
+        d = np.abs(got["prediction"] - w)
+        rel = float((d / (1 + np.abs(w))).max())
+        if d.mean() > REG_MEAN_SHARE * y_std or (same_trees
+                                                 and rel > REG_MAX_RTOL):
+            raise AssertionError(f"{tag}: prediction off the fixture's "
+                                 f"beyond the stated limits")
+        return (f"prediction max |d| {d.max():.3g}, max |d| / (1 + |y|) "
+                f"{rel:.3g}, mean |d| {d.mean():.3g} (std(y) {y_std:.4g})")
+    d = np.stack([np.abs(got[k] - exp[k]) for k in keys], axis=1)
+    if d.mean(0).max() > P1_MEAN_ATOL or (
+            same_trees and d.max() > P1_MAX_ATOL_SAME_TREES):
+        raise AssertionError(f"{tag}: probabilities off the fixture's beyond "
+                             f"the stated limits")
+    top2 = np.sort(np.stack([exp[k] for k in keys], axis=1), axis=1)[:, -2:]
+    decided = top2[:, 1] - top2[:, 0] > PRED_MARGIN
+    flips = int((got["prediction"] != exp["prediction"])[decided].sum())
+    if flips:
+        raise AssertionError(f"{tag}: {flips} decided predictions differ")
+    return (f"{len(keys)} probabilities: max |d| {d.max():.3g}, mean |d| "
+            f"{d.mean(0).max():.3g} (worst class), 0 prediction flips of "
+            f"{int(decided.sum())} decided rows")
+
+
 def train_against_fixture(key: str):
     """Train the serve bench's pinned ``key`` workflow on the card and hold
     the model against the fixture the JAX package trained on the same
     frame. Returns the train's seconds."""
     import transmogrifai_tpu_torch as tt
     from transmogrifai_tpu_torch.testing import (
-        SERVE_MODELS, serve_bench_data, serve_bench_workflow,
+        SERVE_MODELS, SERVE_TASKS, score_frame, serve_bench_data,
+        serve_bench_workflow,
     )
 
     family, hyper = SERVE_MODELS[key]
-    data = serve_bench_data(TRAIN_ROWS, N_FEATURES, TRAIN_SEED)
-    wf = serve_bench_workflow(family, hyper, N_FEATURES,
-                              TRAIN_SEED).set_input_dataset(data)
+    task = SERVE_TASKS[key]
+    data = serve_bench_data(TRAIN_ROWS, N_FEATURES, TRAIN_SEED, task)
+    wf = serve_bench_workflow(family, hyper, N_FEATURES, TRAIN_SEED,
+                              problem=task).set_input_dataset(data)
     if wf.device.type != "cuda":
         raise AssertionError(f"training on {wf.device}")
     torch.cuda.synchronize()
@@ -985,10 +1164,10 @@ def train_against_fixture(key: str):
     model = wf.train()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    print(f"(t) {key} train: {TRAIN_ROWS} x {N_FEATURES}, {family} {hyper}, "
-          f"3-fold CV + refit + evaluations in {secs:.3f} s, peak device "
-          f"memory allocated {torch.cuda.max_memory_allocated() / 2 ** 30:.3f}"
-          f" GiB")
+    print(f"(t) {key} train: {TRAIN_ROWS} x {N_FEATURES}, {task}, {family} "
+          f"{hyper}, 3-fold CV + refit + evaluations in {secs:.3f} s, peak "
+          f"device memory allocated "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
 
     path = os.path.join(FIXTURES, key)
     ref = tt.load_model(path)
@@ -1001,39 +1180,52 @@ def train_against_fixture(key: str):
     if model.stages[-2].keep_indices != ref.stages[-2].keep_indices:
         raise AssertionError(f"{key}: SanityChecker kept other columns than "
                              f"the fixture")
-    tables = TREE_KEYS[key]
-    for k in tables:
+    for k in TREE_KEYS[key]:
         if got[k].shape != fx[k].shape:
             raise AssertionError(f"{key}: {k} has shape {got[k].shape}, the "
                                  f"fixture's {fx[k].shape}")
-    n_trees = 1 if key == "dt" else len(fx[tables[0]])
-    pick = (lambda a, t: a) if key == "dt" else (lambda a, t: a[t])
-    same = [all(np.array_equal(pick(got[k], t), pick(fx[k], t))
-                for k in tables) for t in range(n_trees)]
+    tg, tf = _tree_tables(got, key), _tree_tables(fx, key)
+    same = [all(np.array_equal(tg[k][t], tf[k][t]) for k in tg)
+            for t in range(len(tf[TREE_KEYS[key][0]]))]
     print(f"(t) {key}: edges bit-equal, kept columns equal "
           f"({len(model.stages[-2].keep_indices)}), trees identical: "
           f"{sum(same)} of {len(same)}")
-    if key == "gbt" and not all(same):
-        _first_gbt_difference(model, data, got, fx)
-    if key in ("rf", "gbt12") and not all(same):
-        _chain_differences(model, data, got, fx, key)
+    if not all(same):
+        if key == "gbt":
+            _first_gbt_difference(model, data, got, fx)
+        elif key in ("rf", "gbt12"):
+            _chain_differences(model, data, got, fx, key)
+        else:
+            _first_difference(model, data, fx, key, tg, tf, same)
+    metric = {"binary": "AuPR", "regression": "RootMeanSquaredError",
+              "multiclass": "F1"}[task]
     folds = np.asarray(ps.summary.validation_results[0].fold_metrics,
                        dtype=np.float64).ravel()
     ref_folds = torch.as_tensor(
         rs.summary.validation_results[0].fold_metrics).cpu().numpy().ravel()
-    hold = ps.summary.holdout_evaluation["AuPR"]
-    ref_hold = rs.summary.holdout_evaluation["AuPR"]
-    print(f"(t) {key}: fold AuPR {folds.tolist()} (fixture "
-          f"{ref_folds.tolist()}), holdout AuPR {hold:.6f} (fixture "
+    hold = ps.summary.holdout_evaluation[metric]
+    ref_hold = rs.summary.holdout_evaluation[metric]
+    print(f"(t) {key}: fold {metric} {folds.tolist()} (fixture "
+          f"{ref_folds.tolist()}), holdout {metric} {hold:.6f} (fixture "
           f"{ref_hold:.6f}), splitter {ps.summary.splitter_summary} "
           f"(fixture {rs.summary.splitter_summary})")
-    if np.abs(folds - ref_folds).max() > AUPR_ATOL or \
-            abs(hold - ref_hold) > AUPR_ATOL:
-        raise AssertionError(f"{key}: AuPR off the fixture's by more than "
-                             f"{AUPR_ATOL}")
+    gaps = np.append(np.abs(folds - ref_folds), abs(hold - ref_hold))
+    if task == "regression":
+        if (gaps / np.abs(np.append(ref_folds, ref_hold))).max() > RMSE_RTOL:
+            raise AssertionError(f"{key}: RMSE off the fixture's by more "
+                                 f"than {RMSE_RTOL} relative")
+    elif gaps.max() > (AUPR_ATOL if task == "binary" else F1_ATOL):
+        raise AssertionError(f"{key}: {metric} off the fixture's by more "
+                             f"than {AUPR_ATOL}")
     exp = np.load(os.path.join(path, "expected.npz"))
-    frame = {f"x{i}": exp["X"][:, i] for i in range(exp["X"].shape[1])}
-    p1, _ = _p1_and_pred(model, model.score(data=frame))
+    frame = score_frame(SCORE_ROWS, N_FEATURES, SCORE_SEED)
+    parts = _parts_of(model, model.score(data=frame))
+    if task != "binary":
+        print(f"(t) {key}: vs the JAX-trained model on {SCORE_ROWS} rows: "
+              + _check_parts(key, task, parts, exp, all(same),
+                             float(np.std(data["y"]))))
+        return secs
+    p1 = parts["probability_1"]
     if p1.shape != exp["probability_1"].shape or not np.isfinite(p1).all():
         raise AssertionError(f"{key}: bad probability_1 {p1.shape}")
     dp = np.abs(p1 - exp["probability_1"])
@@ -1046,57 +1238,70 @@ def train_against_fixture(key: str):
     return secs
 
 
-def _p1_and_pred(model, scored):
-    col = scored[model.result_features[0].name]
-    keys = list(col.metadata["keys"])
-    vals = col.values.cpu().numpy()
-    return (vals[:, keys.index("probability_1")],
-            vals[:, keys.index("prediction")])
-
-
 def phase_serve():
-    """The port's main path: load, score, answer requests."""
+    """The port's main path: load, score, answer requests, for every
+    committed fixture (binary probability_1 within PROB_ATOL; regression
+    and multiclass parts within the limits of (t) with identical trees)."""
     import transmogrifai_tpu_torch as tt
+    from transmogrifai_tpu_torch.testing import (
+        SERVE_MODELS, SERVE_TASKS, score_frame, serve_bench_data,
+    )
 
-    for key in ("rf", "gbt", "dt", "gbt12"):
+    frame = score_frame(SCORE_ROWS, N_FEATURES, SCORE_SEED)
+    reps = N_ROWS // SCORE_ROWS
+    big = {name: np.tile(v, reps) for name, v in frame.items()}
+    for key in SERVE_MODELS:
+        task = SERVE_TASKS[key]
         path = os.path.join(FIXTURES, key)
         model = tt.load_model(path)                # default: the card
         if model.device.type != "cuda":
             raise AssertionError(f"{key} loaded on {model.device}")
         exp = np.load(os.path.join(path, "expected.npz"))
-        X = exp["X"]
-        frame = {f"x{i}": X[:, i] for i in range(X.shape[1])}
-        p1, pred = _p1_and_pred(model, model.score(data=frame))
-        if p1.shape != exp["probability_1"].shape or \
-                not np.isfinite(p1).all():
-            raise AssertionError(f"{key}: bad probability_1 {p1.shape}")
-        err = float(np.abs(p1 - exp["probability_1"]).max())
-        if err > PROB_ATOL:
-            raise AssertionError(f"{key}: probability_1 off by {err}")
-        far = np.abs(exp["probability_1"] - 0.5) > PRED_MARGIN
-        flips = int((pred != exp["prediction"])[far].sum())
-        if flips:
-            raise AssertionError(f"{key}: {flips} predictions differ")
+        parts = _parts_of(model, model.score(data=frame))
+        if task == "binary":
+            p1, pred = parts["probability_1"], parts["prediction"]
+            if p1.shape != exp["probability_1"].shape or \
+                    not np.isfinite(p1).all():
+                raise AssertionError(f"{key}: bad probability_1 {p1.shape}")
+            err = float(np.abs(p1 - exp["probability_1"]).max())
+            if err > PROB_ATOL:
+                raise AssertionError(f"{key}: probability_1 off by {err}")
+            far = np.abs(exp["probability_1"] - 0.5) > PRED_MARGIN
+            flips = int((pred != exp["prediction"])[far].sum())
+            if flips:
+                raise AssertionError(f"{key}: {flips} predictions differ")
+            held = f"probability_1 max err {err:.3g}, 0 prediction flips"
+        else:
+            y_std = float(np.std(serve_bench_data(
+                TRAIN_ROWS, N_FEATURES, TRAIN_SEED, task)["y"]))
+            held = _check_parts(key, task, parts, exp, True, y_std)
         score = model.score_function()
+        keys = (["prediction"] if task == "regression" else
+                sorted(k for k in exp.files if k.startswith("probability_")))
         for i in range(4):
-            out = score({name: (None if np.isnan(v[i]) else float(v[i]))
-                         for name, v in frame.items()})
-            p = next(iter(out.values()))["probability_1"]
-            if abs(p - exp["probability_1"][i]) > PROB_ATOL:
-                raise AssertionError(f"{key}: request {i} scored {p}")
-        reps = N_ROWS // X.shape[0]
-        big = {name: np.tile(v, reps) for name, v in frame.items()}
-        _p1_and_pred(model, model.score(data=big))          # warm-up
+            out = next(iter(score({
+                name: (None if np.isnan(v[i]) else float(v[i]))
+                for name, v in frame.items()}).values()))
+            for k in keys:
+                lim = (REG_MAX_RTOL * (1 + abs(float(exp[k][i])))
+                       if task == "regression" else PROB_ATOL
+                       if task == "binary" else P1_MAX_ATOL_SAME_TREES)
+                if abs(out[k] - exp[k][i]) > lim:
+                    raise AssertionError(f"{key}: request {i} scored "
+                                         f"{k} {out[k]}")
+        _parts_of(model, model.score(data=big))              # warm-up
         times = []
         for _ in range(5):
             t0 = time.perf_counter()
-            p1_big, _ = _p1_and_pred(model, model.score(data=big))
+            got_big = _parts_of(model, model.score(data=big))
             times.append(time.perf_counter() - t0)
-        if not np.allclose(p1_big, np.tile(p1, reps), atol=PROB_ATOL):
-            raise AssertionError(f"{key}: 65,536-row batch disagrees")
-        print(f"(c) {key}: probability_1 max err {err:.3g}, 0 prediction "
-              f"flips, {N_ROWS / statistics.median(times):.1f} rows/sec "
-              f"on {N_ROWS}-row batches")
+        tol = REG_MAX_RTOL if task == "regression" else 0.0
+        for k in keys:
+            if not np.allclose(got_big[k], np.tile(parts[k], reps), rtol=tol,
+                               atol=tol or PROB_ATOL):
+                raise AssertionError(f"{key}: 65,536-row batch disagrees")
+        print(f"(c) {key}: {held}, {N_ROWS / statistics.median(times):.1f} "
+              f"rows/sec on {N_ROWS}-row batches")
 
 
 def main() -> int:
@@ -1143,7 +1348,17 @@ def main() -> int:
                              (hist, node, F.FOREST_LEAF_SUMS_HEAP,
                               F.FOREST_PREDICT_HEAP)),
     }
-    for key in ("gbt", "gbt12"):
+    for key, path_kernels in (
+            ("rfreg", (hist, node, F.FOREST_LEAF_SUMS_CHAIN,
+                       F.FOREST_PREDICT_CHAIN)),
+            ("gbtreg", (hist, node, F.FOREST_PREDICT_HEAP)),
+            ("rfmc", (hist, node, F.FOREST_LEAF_SUMS_CHAIN,
+                      F.FOREST_PREDICT_CHAIN)),
+            ("xgbmc", (hist, node, F.FOREST_PREDICT_HEAP))):
+        paths[f"train {key}"] = run_path(
+            f"train {key}", lambda key=key: train_against_fixture(key),
+            path_kernels)
+    for key in ("gbt", "gbt12", "gbtreg", "xgbmc"):
         counts = paths[f"train {key}"]
         rounds = SERVE_MODELS[key][1]["maxIter"]
         levels = SERVE_MODELS[key][1]["maxDepth"]

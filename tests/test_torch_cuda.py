@@ -16,9 +16,9 @@ leaf sums rtol 1e-5, atol 1e-6 against the plain version and the direct
 float64 formula on [0, 1) stats (the plain versions sum in another order:
 cuBLAS's per row chunk, or one pass over all rows, where the kernels add
 row chunks and then the chunk partials) and equal on integer-valued
-stats; the tiny trains on the card against the same trains on the CPU:
-tree tables and kept columns equal, metrics and probabilities within
-1e-5.
+stats; the tiny trains on the card (binary, regression and 6-class)
+against the same trains on the CPU: tree tables and kept columns equal,
+metrics and probabilities (a regression's prediction) within 1e-5.
 """
 from __future__ import annotations
 
@@ -608,6 +608,39 @@ def test_leaf_sums_keep_the_chunked_order_at_odd_shapes(cuda, case):
     _check_chunked(_on(cuda, f), depth, W, nb, k, n)
 
 
+@pytest.mark.parametrize("k", [4, 7])
+def test_leaf_sums_keep_the_chunked_order_at_the_task_refit_shapes(cuda, k):
+    """The rfreg refit's chains (k 4: [-y, 1, 1] times the weight, and the
+    weight) and the rfmc refit's (k 7: six class counts and the weight),
+    19,712 rows x 64 codes, T 50, depth 12, W 256."""
+    rng = np.random.RandomState(40 + k)
+    f = random_chain(rng, 19712, 64, 50, 12, 256, 1, 32)
+    _check_chunked(_on(cuda, f), 12, 256, 32, k, 50)
+
+
+@pytest.mark.parametrize("n,leaf", [(65536, "random"), (20000, "per class")])
+def test_heap_predict_at_the_multiclass_boosting_shape(cuda, n, leaf):
+    """The xgbmc serve: 600 trees (100 rounds x 6 classes) of depth 6, k 6
+    columns (launched four and then two), random leaves or the scorer's
+    class-routing table (each tree's values in its class's column only):
+    bit-equal to the plain version, ids exact."""
+    rng = np.random.RandomState(n)
+    h = random_heap(rng, n, 64, 600, 6, 6, 32)
+    if leaf == "per class":
+        h["leaf"] *= (np.arange(600)[:, None, None] % 6
+                      == np.arange(6)[None, None, :])
+    h = _on(cuda, h)
+    args = (h["codes"], h["feat"], h["bins"], h["leaf"])
+    before = F.FOREST_PREDICT_HEAP.launches
+    got, ids = F.forest_predict_heap_cuda(*args, depth=6, n_bins=32,
+                                          with_ids=True)
+    assert F.FOREST_PREDICT_HEAP.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(ids, F.route_codes(*args[:3], 6, 32))
+    assert torch.equal(got, F.forest_predict_plain(*args, depth=6,
+                                                   n_bins=32))
+
+
 @pytest.mark.parametrize("W", [None, 256])
 def test_leaf_sums_with_every_row_in_one_leaf(cuda, W):
     """Every split the sentinel (route left): all 19,712 rows in leaf 0 of
@@ -763,6 +796,19 @@ def test_cumsum_bins_on_the_card_adds_in_the_cpu_order(cuda, M, d, nb, k):
 
 
 TINY_TRAINS = {
+    "rfreg": ("OpRandomForestRegressor",
+              {"maxDepth": 12, "numTrees": 4, "minInstancesPerNode": 5,
+               "minInfoGain": 0.001, "subsamplingRate": 1.0}),
+    "gbtreg": ("OpGBTRegressor",
+               {"maxDepth": 3, "maxIter": 5, "stepSize": 0.1,
+                "minInstancesPerNode": 5, "minInfoGain": 0.001}),
+    "rfmc": ("OpRandomForestClassifier",
+             {"maxDepth": 12, "numTrees": 4, "minInstancesPerNode": 5,
+              "minInfoGain": 0.001, "subsamplingRate": 1.0}),
+    "xgbmc": ("OpXGBoostClassifier",
+              {"maxDepth": 3, "maxIter": 5, "stepSize": 0.3,
+               "minChildWeight": 1.0, "lambda": 1.0, "minInfoGain": 0.0,
+               "minInstancesPerNode": 0.0}),
     "gbt": ("OpGBTClassifier",
             {"maxDepth": 3, "maxIter": 5, "stepSize": 0.1,
              "minInstancesPerNode": 5, "minInfoGain": 0.001}),
@@ -785,24 +831,42 @@ TINY_KERNELS = {
            (F.FOREST_LEAF_SUMS_CHAIN, 1), (F.FOREST_PREDICT_CHAIN, 1)),
     "dt": ((HK.HIST_MATMUL, 1), (HK.NODE_HIST, 6),
            (F.FOREST_LEAF_SUMS_HEAP, 1), (F.FOREST_PREDICT_HEAP, 1)),
+    "rfreg": ((HK.HIST_MATMUL, 1), (HK.NODE_HIST, 12),
+              (F.FOREST_LEAF_SUMS_CHAIN, 1), (F.FOREST_PREDICT_CHAIN, 1)),
+    "gbtreg": ((HK.HIST_MATMUL, 5), (HK.NODE_HIST, 5 * 3),
+               (F.FOREST_PREDICT_HEAP, 1)),
+    "rfmc": ((HK.HIST_MATMUL, 1), (HK.NODE_HIST, 12),
+             (F.FOREST_LEAF_SUMS_CHAIN, 1), (F.FOREST_PREDICT_CHAIN, 1)),
+    "xgbmc": ((HK.HIST_MATMUL, 5), (HK.NODE_HIST, 5 * 3),
+              (F.FOREST_PREDICT_HEAP, 1)),
 }
+#: each tiny train's problem kind (its frame's label and selector)
+TINY_TASKS = {"rfreg": "regression", "gbtreg": "regression",
+              "rfmc": "multiclass", "xgbmc": "multiclass"}
 TINY_TABLES = {
     "gbt": ("edges", "feat", "bins"),
     "gbt12": ("edges", "feat_lv", "bins_lv", "base_lv"),
     "rf": ("edges", "feat_lv", "bins_lv", "base_lv"),
     "dt": ("edges", "feat", "bins"),
+    "rfreg": ("edges", "feat_lv", "bins_lv", "base_lv"),
+    "gbtreg": ("edges", "feat", "bins", "f0"),
+    "rfmc": ("edges", "feat_lv", "bins_lv", "base_lv"),
+    "xgbmc": ("edges", "feat", "bins"),
 }
 
 
 @pytest.mark.parametrize("key", sorted(TINY_TRAINS))
 def test_tiny_train_on_the_card_matches_the_cpu(cuda, key):
     family, hyper = TINY_TRAINS[key]
-    data = serve_bench_data(400, 5, seed=3)
+    task = TINY_TASKS.get(key, "binary")
+    data = serve_bench_data(400, 5, seed=3, task=task)
     cpu = serve_bench_workflow(family, hyper, 5, seed=3, realnn=2,
-                               device="cpu").set_input_dataset(data).train()
+                               device="cpu", problem=task
+                               ).set_input_dataset(data).train()
     before = [kern.launches for kern, _ in TINY_KERNELS[key]]
     gpu = serve_bench_workflow(family, hyper, 5, seed=3, realnn=2,
-                               device=cuda).set_input_dataset(data).train()
+                               device=cuda, problem=task
+                               ).set_input_dataset(data).train()
     for (kern, least), b in zip(TINY_KERNELS[key], before):
         assert kern.launches >= b + least, kern.name
     cp, gp = cpu.stages[-1].fitted.params, gpu.stages[-1].fitted.params
@@ -845,12 +909,16 @@ def _node_hist_kernel(codes, node, sw, Wl, nb, stride, **kw):
 #: shape of a deep GBT level (T 1, Wl 256), slots of many chunks, d not a
 #: multiple of 4 (codes staged 4 bytes a thread), five stats (two launch
 #: groups over one sort); d 16 over 2 and 3 trees stages the codes as
-#: bytes, while one tree (d 64) and 300 bins keep them int32
+#: bytes, while one tree (d 64) and 300 bins keep them int32; the rfmc
+#: refit's deepest level (T 50, Wl 256, six class counts: two stat
+#: groups) on fewer rows, and the xgbmc refit's level 5 (T 6, one tree a
+#: class, stride 2)
 NODE_CASES = [(509, 9, 1, 1, 1, 11), (509, 9, 1, 6, 2, 11),
               (509, 9, 130, 5, 1, 11), (509, 9, 130, 4, 2, 11),
               (1031, 7, 3, 17, 2, 37), (2003, 64, 1, 256, 1, 32),
               (5003, 9, 2, 1, 1, 11), (4099, 16, 3, 3, 2, 32),
-              (1500, 13, 4, 9, 1, 32, 5), (700, 16, 2, 5, 2, 300)]
+              (1500, 13, 4, 9, 1, 32, 5), (700, 16, 2, 5, 2, 300),
+              (2003, 64, 50, 256, 1, 32, 6), (4099, 64, 6, 16, 2, 32)]
 
 
 @pytest.mark.parametrize("case", NODE_CASES)

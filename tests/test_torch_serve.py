@@ -47,7 +47,8 @@ from transmogrifai_tpu_torch.persistence import (  # noqa: E402
     CorruptModelError,
 )
 from transmogrifai_tpu_torch.testing import (  # noqa: E402
-    SERVE_MODELS as PORT_SERVE_MODELS, serve_bench_data,
+    SERVE_MODELS as PORT_SERVE_MODELS, SERVE_TASKS as PORT_SERVE_TASKS,
+    serve_bench_data,
 )
 
 FIXTURE_DIR = os.path.join(REPO, "transmogrifai_tpu_torch", "fixtures",
@@ -55,6 +56,8 @@ FIXTURE_DIR = os.path.join(REPO, "transmogrifai_tpu_torch", "fixtures",
 
 PROB_ATOL = 1e-5
 PRED_MARGIN = 1e-5
+#: a regression prediction: a sum of float32 leaf values in another order
+REG_RTOL = 1e-5
 #: the JAX package against its own saved outputs (same package, same
 #: params; only its compiled programs may differ between processes)
 JAX_SELF_ATOL = 1e-6
@@ -73,6 +76,19 @@ SERVE_MODELS = {
     "gbt12": ("OpGBTClassifier",
               {"maxDepth": 12, "maxIter": 20, "stepSize": 0.1,
                "minInstancesPerNode": 10, "minInfoGain": 0.001}),
+    "rfreg": ("OpRandomForestRegressor",
+              {"maxDepth": 12, "numTrees": 50, "minInstancesPerNode": 10,
+               "minInfoGain": 0.001, "subsamplingRate": 1.0}),
+    "gbtreg": ("OpGBTRegressor",
+               {"maxDepth": 6, "maxIter": 20, "stepSize": 0.1,
+                "minInstancesPerNode": 10, "minInfoGain": 0.001}),
+    "rfmc": ("OpRandomForestClassifier",
+             {"maxDepth": 12, "numTrees": 50, "minInstancesPerNode": 10,
+              "minInfoGain": 0.001, "subsamplingRate": 1.0}),
+    "xgbmc": ("OpXGBoostClassifier",
+              {"maxDepth": 6, "maxIter": 100, "stepSize": 0.3,
+               "minChildWeight": 1.0, "lambda": 1.0, "minInfoGain": 0.0,
+               "minInstancesPerNode": 0.0}),
 }
 
 
@@ -80,37 +96,63 @@ SERVE_MODELS = {
 # JAX-side helpers: train, save, score
 # ---------------------------------------------------------------------------
 
-def bench_frame(n: int, d: int, seed: int):
+#: each serve model's problem kind
+SERVE_TASKS = {"rf": "binary", "gbt": "binary", "dt": "binary",
+               "gbt12": "binary", "rfreg": "regression",
+               "gbtreg": "regression", "rfmc": "multiclass",
+               "xgbmc": "multiclass"}
+#: classes of the multiclass frame
+N_CLASSES = 6
+
+
+def bench_frame(n: int, d: int, seed: int, task: str = "binary"):
     """The serve bench's training frame, as the fixtures were trained on:
-    ``d`` standard-normal float32 predictors and a random linear rule."""
+    ``d`` standard-normal float32 predictors and a label from random
+    linear scores: their sign (binary), the score itself (regression) or
+    the argmax of ``N_CLASSES`` of them, weights drawn after the binary
+    ones (multiclass). Scores add the products in feature order in
+    float64, rounded once to float32, so every machine gets the same
+    label bits."""
     rng = np.random.RandomState(seed)
     X = rng.randn(n, d).astype(np.float32)
     w = rng.randn(d).astype(np.float32)
     frame = {f"x{i}": X[:, i] for i in range(d)}
-    frame["y"] = (X @ w > 0).astype(np.float32)
+    if task == "binary":
+        frame["y"] = (X @ w > 0).astype(np.float32)
+        return frame
+    W = (w[:, None] if task == "regression"
+         else rng.randn(d, N_CLASSES).astype(np.float32)).astype(np.float64)
+    score = np.zeros((n, W.shape[1]), np.float64)
+    for i in range(d):
+        score += X[:, i, None].astype(np.float64) * W[i]
+    score = score.astype(np.float32)
+    frame["y"] = (score[:, 0] if task == "regression"
+                  else score.argmax(1).astype(np.float32))
     return frame
 
 
 def train_jax_model(family: str, hyper: dict, n: int, d: int, seed: int,
-                    realnn: int = 0):
-    """Train ``transmogrify -> sanity_check -> selector`` with the JAX
-    package on ``n`` rows of ``d`` predictors (the first ``realnn`` of them
-    RealNN, the rest Real), labelled as the serve bench labels them (a
-    random linear rule)."""
+                    realnn: int = 0, task: str = "binary"):
+    """Train ``transmogrify -> sanity_check -> selector`` (the ``task``'s
+    factory, cross-validated) with the JAX package on ``n`` rows of ``d``
+    predictors (the first ``realnn`` of them RealNN, the rest Real),
+    labelled as the serve bench labels them (``bench_frame``)."""
     import pandas as pd
 
     import transmogrifai_tpu as tg
     from transmogrifai_tpu.features import FeatureBuilder
-    from transmogrifai_tpu.impl.selector.factories import (
-        BinaryClassificationModelSelector)
+    from transmogrifai_tpu.impl.selector import factories
     from transmogrifai_tpu.workflow import OpWorkflow
 
-    df = pd.DataFrame(bench_frame(n, d, seed))
+    selector = {"binary": factories.BinaryClassificationModelSelector,
+                "multiclass": factories.MultiClassificationModelSelector,
+                "regression": factories.RegressionModelSelector}[task]
+    df = pd.DataFrame(bench_frame(n, d, seed, task))
     label = FeatureBuilder.RealNN("y").extract_field().as_response()
     feats = [(FeatureBuilder.RealNN if i < realnn else FeatureBuilder.Real)(
         f"x{i}").extract_field().as_predictor() for i in range(d)]
     checked = tg.transmogrify(feats).sanity_check(label)
-    pred = (BinaryClassificationModelSelector.with_cross_validation(
+    pred = (selector.with_cross_validation(
         seed=seed, models=[(family, [dict(hyper)])])
         .set_input(label, checked).get_output())
     return (OpWorkflow().set_input_dataset(df)
@@ -160,23 +202,32 @@ def save_jax_model(model, path: str) -> None:
             os.environ["TG_AOT_SAVE"] = prev
 
 
+def expected_parts(parts, task: str):
+    """The prediction parts a fixture's ``expected.npz`` keeps: the
+    prediction, and each class probability but the binary one's class 0
+    (the rawPredictions are their logs)."""
+    keep = [k for k in parts if k == "prediction" or (
+        k.startswith("probability_") and (task != "binary"
+                                          or k == "probability_1"))]
+    return {k: parts[k] for k in keep}
+
+
 def generate_fixture(out_dir: str = FIXTURE_DIR, n: int = 20000, d: int = 64,
                      n_score: int = 4096, seed: int = 0, keys=None) -> None:
     """Train the serve models named by ``keys`` (default: all) at full
-    width, save them, and write ``expected.npz`` (the scoring frame and the
-    JAX package's outputs)."""
+    width, save them, and write ``expected.npz``: the JAX package's
+    prediction parts on the scoring frame ``score_frame(n_score, d,
+    seed + 1)``, which the port rebuilds from its seed."""
     frame = score_frame(n_score, d, seed + 1)
-    X = np.stack([frame[f"x{i}"] for i in range(d)], axis=1)
     for key in keys or SERVE_MODELS:
         family, hyper = SERVE_MODELS[key]
-        model = train_jax_model(family, hyper, n, d, seed)
+        task = SERVE_TASKS[key]
+        model = train_jax_model(family, hyper, n, d, seed, task=task)
         path = os.path.join(out_dir, key)
         save_jax_model(model, path)
         parts = prediction_parts(model.score(table=jax_table(frame)), model)
-        np.savez_compressed(
-            os.path.join(path, "expected.npz"), X=X,
-            probability_1=parts["probability_1"],
-            prediction=parts["prediction"])
+        np.savez_compressed(os.path.join(path, "expected.npz"),
+                            **expected_parts(parts, task))
 
 
 # ---------------------------------------------------------------------------
@@ -216,13 +267,30 @@ def tiny_models(tmp_path_factory):
     return out
 
 
+def decided_rows(want):
+    """Rows whose predicted class no rounding can flip: the two highest
+    probabilities more than PRED_MARGIN apart (binary: probability_1 that
+    far from 0.5)."""
+    probs = [want[k] for k in sorted(want) if k.startswith("probability_")]
+    if len(probs) == 1:
+        return np.abs(probs[0] - 0.5) > PRED_MARGIN
+    top2 = np.sort(np.stack(probs, axis=1), axis=1)[:, -2:]
+    return top2[:, 1] - top2[:, 0] > PRED_MARGIN
+
+
 def _assert_parts_agree(got, want, prob_atol=PROB_ATOL):
+    """Probabilities within ``prob_atol``; predicted classes equal on the
+    decided rows; a regression's prediction within REG_RTOL."""
     assert list(got) == list(want)
+    if not any(k.startswith("probability_") for k in want):
+        np.testing.assert_allclose(got["prediction"], want["prediction"],
+                                   rtol=REG_RTOL, atol=REG_RTOL)
+        return
     for key in want:
         if key != "prediction":
             np.testing.assert_allclose(got[key], want[key], rtol=0,
                                        atol=prob_atol, err_msg=key)
-    far = np.abs(want["probability_1"] - 0.5) > PRED_MARGIN
+    far = decided_rows(want)
     np.testing.assert_array_equal(got["prediction"][far],
                                   want["prediction"][far])
 
@@ -277,32 +345,61 @@ def test_micro_batch_quarantines_only_bad_rows(tiny_models):
     assert [out[0], out[2]] == [fn(rows[0]), fn(rows[2])]
 
 
-@pytest.mark.parametrize("key", ["rf", "gbt", "dt", "gbt12"])
+#: the fitted tables of each committed fixture: {key: {param: shape}}
+FIXTURE_SHAPES = {
+    "rf": {"feat_lv": (50, 12, 256)},        # depth-12 refit: slot chains
+    "gbt": {"feat": (20, 1, 63)},            # depth-6 complete heaps
+    "gbt12": {"feat_lv": (20, 1, 12, 256), "leaf": (20, 1, 256)},
+    "dt": {"feat": (63,)},                   # one depth-6 heap
+    "rfreg": {"feat_lv": (50, 12, 256), "leaf": (50, 256, 1)},
+    "gbtreg": {"feat": (20, 1, 63), "f0": (1,)},
+    "rfmc": {"feat_lv": (50, 12, 256), "leaf": (50, 256, N_CLASSES)},
+    "xgbmc": {"feat": (100, N_CLASSES, 63),
+              "leaf": (100, N_CLASSES, 64)},
+}
+
+
+def fixture_frame(n_score: int = 4096, d: int = 64, seed: int = 1):
+    """The scoring frame of the committed fixtures (``generate_fixture``'s
+    ``score_frame(n_score, d, seed + 1)``)."""
+    return score_frame(n_score, d, seed)
+
+
+@pytest.mark.parametrize("key", list(SERVE_MODELS))
 def test_committed_fixture_matches_expected_in_both_packages(key):
     path = os.path.join(FIXTURE_DIR, key)
     exp = np.load(os.path.join(path, "expected.npz"))
-    frame = {f"x{i}": exp["X"][:, i] for i in range(exp["X"].shape[1])}
-    want = {"probability_1": exp["probability_1"],
-            "prediction": exp["prediction"]}
+    assert "X" not in exp.files        # the frame is rebuilt from its seed
+    want = {k: exp[k] for k in exp.files}
+    frame = fixture_frame()
     jm = jax_load_model(path)
     jp = prediction_parts(jm.score(table=jax_table(frame)), jm)
-    np.testing.assert_allclose(jp["probability_1"], want["probability_1"],
-                               rtol=0, atol=JAX_SELF_ATOL)
+    for k in want:
+        np.testing.assert_allclose(jp[k], want[k], rtol=0,
+                                   atol=JAX_SELF_ATOL, err_msg=k)
     pm = port.load_model(path, device="cpu")
     assert [type(s).__name__ for s in pm.stages] == [
         "RealVectorizerModel", "SanityCheckerModel", "SelectedModel"]
     params = pm.stages[-1].fitted.params
-    if key == "rf":          # depth-12 refit: slot chains of 256 slots
-        assert tuple(params["feat_lv"].shape) == (50, 12, 256)
-    elif key == "gbt":       # depth-6 complete heaps
-        assert tuple(params["feat"].shape) == (20, 1, 63)
-    elif key == "gbt12":     # depth-12 boosting: slot chains of 256 slots
-        assert tuple(params["feat_lv"].shape) == (20, 1, 12, 256)
-        assert tuple(params["leaf"].shape) == (20, 1, 256)
-    else:                    # one depth-6 heap
-        assert tuple(params["feat"].shape) == (63,)
+    for name, shape in FIXTURE_SHAPES[key].items():
+        assert tuple(params[name].shape) == shape, name
     pp = prediction_parts(pm.score(data=frame), pm)
     _assert_parts_agree({k: pp[k] for k in want}, want)
+
+
+def test_port_rebuilds_the_fixture_scoring_frame_bit_for_bit():
+    """The card has no JAX, so the port rebuilds the fixtures' scoring
+    frame from its seed (``testing.score_frame``); it must be this file's
+    frame to the bit, NaNs in the same places."""
+    from transmogrifai_tpu_torch.testing import score_frame as port_frame
+    for n, d, seed, nan_rate in ((4096, 64, 1, 0.01), (300, 5, 4, 0.05)):
+        got, want = port_frame(n, d, seed, nan_rate), score_frame(
+            n, d, seed, nan_rate)
+        assert list(got) == list(want)
+        for name in want:
+            assert got[name].dtype == want[name].dtype
+            np.testing.assert_array_equal(got[name].view(np.int32),
+                                          want[name].view(np.int32))
 
 
 def test_fixture_stays_small():
@@ -311,11 +408,14 @@ def test_fixture_stays_small():
     assert total < 6 * 2 ** 20, total
 
 
+@pytest.mark.parametrize("task", ["binary", "regression", "multiclass"])
 @pytest.mark.parametrize("n,d,seed", [(20_000, 64, 0), (400, 5, 3)])
-def test_port_rebuilds_the_fixture_training_frame_bit_for_bit(n, d, seed):
+def test_port_rebuilds_the_fixture_training_frame_bit_for_bit(n, d, seed,
+                                                              task):
     """The card has no JAX, so the port rebuilds the frame the fixtures
     were trained on; it must be this file's frame to the bit."""
-    got, want = serve_bench_data(n, d, seed), bench_frame(n, d, seed)
+    got = serve_bench_data(n, d, seed, task)
+    want = bench_frame(n, d, seed, task)
     assert list(got) == list(want)
     for name in want:
         assert got[name].dtype == want[name].dtype
@@ -326,6 +426,7 @@ def test_port_pins_the_fixture_models():
     """``chip_smoke.py`` and ``profile_train`` train the port's table of
     the serve models and hold the results to these fixtures."""
     assert PORT_SERVE_MODELS == SERVE_MODELS
+    assert PORT_SERVE_TASKS == SERVE_TASKS
 
 
 def _run(code: str, **env):
@@ -354,7 +455,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "ops.metrics", "ops.stats", "evaluators.binary",
                 "impl.tuning.splitters", "impl.tuning.validators",
                 "impl.selector.factories", "impl.feature.transmogrifier",
-                "dsl", "workflow", "testing", "rng", "models.bootstrap"):
+                "dsl", "workflow", "testing", "rng", "models.bootstrap",
+                "evaluators.multi", "evaluators.regression",
+                "evaluators.factory", "models.trees", "persistence",
+                "impl.selector.model_selector", "local.scoring",
+                "ops.xla_cpu"):
         assert f"transmogrifai_tpu_torch.{mod}" in walked, mod
 
 

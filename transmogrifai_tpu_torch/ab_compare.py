@@ -2,12 +2,15 @@
 turns, on one NVIDIA GPU.
 
     python3 transmogrifai_tpu_torch/ab_compare.py --parent DIR
-        [--families gbt,gbt12,rf,dt] [--reps 5] [--out FILE]
+        [--families gbt,gbt12,rf,dt,rfreg,gbtreg,rfmc,xgbmc] [--reps 5]
+        [--out FILE]
 
 DIR is another checkout of the repo (for example the parent commit,
 ``git archive`` unpacked into a git-ignored directory); ``--families ''``
-times the kernels only. The two run in the
-order parent, change, change, parent; each turn runs
+times the kernels only; a family (any key of ``testing.SERVE_MODELS``)
+that DIR's ``testing.py`` does not define is trained in this checkout's
+turns only.
+The two run in the order parent, change, change, parent; each turn runs
 ``profile_hist.py`` (the histogram, forest predict and leaf-sum
 kernels at their main-path shapes, pass by pass) and ``profile_train --family F`` for each family (warm train
 seconds, peak memory, device ms by kernel, device busy share), each in a
@@ -35,6 +38,7 @@ if sys.path and os.path.abspath(sys.path[0] or ".") == HERE:
 sys.path.insert(0, ROOT)
 
 from transmogrifai_tpu_torch.profile_hist import kernel_name  # noqa: E402
+from transmogrifai_tpu_torch.testing import SERVE_MODELS  # noqa: E402
 
 
 def run(cmd, cwd) -> list:
@@ -65,10 +69,15 @@ def leaf_sums_ms(by_kernel: dict) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", required=True)
-    ap.add_argument("--families", default="gbt,gbt12,rf,dt")
+    ap.add_argument("--families",
+                    default="gbt,gbt12,rf,dt,rfreg,gbtreg,rfmc,xgbmc")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
+    families = [f for f in args.families.split(",") if f]
+    unknown = sorted(set(families) - set(SERVE_MODELS))
+    if unknown:
+        ap.error(f"unknown families {unknown}")
     parent = os.path.abspath(args.parent)
     turns = [("parent", parent), ("change", ROOT), ("change", ROOT),
              ("parent", parent)]
@@ -78,7 +87,10 @@ def main() -> int:
         for r in run([sys.executable, os.path.join(HERE, "profile_hist.py"),
                       "--root", root], ROOT):
             rows.append(dict(turn=tag, **r))
-        for fam in filter(None, args.families.split(",")):
+        with open(os.path.join(root, "transmogrifai_tpu_torch",
+                               "testing.py")) as f:
+            defined = f.read()
+        for fam in (f for f in families if f'"{f}":' in defined):
             for r in run([sys.executable, "-m",
                           "transmogrifai_tpu_torch.profile_train",
                           "--family", fam, "--reps", str(args.reps)], root):

@@ -50,6 +50,7 @@ import torch
 
 from ..ops import cuda_build
 from ..ops.cuda_build import check_int32, expect, ptr
+from ..ops.xla_cpu import xla_sum
 
 #: K, the pinned row-block count (the JAX package's TG_HIST_SHARDS default)
 HIST_SHARDS = 8
@@ -155,15 +156,20 @@ def _hist_pinned(codes: torch.Tensor, A: torch.Tensor, n_bins: int,
 
 def pinned_row_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """Fixed-order K-blocked sum over ``dim`` (rows), the companion of
-    ``_hist_pinned`` for direct row reductions of tree fits."""
+    ``_hist_pinned`` for direct row reductions of tree fits (GBT's base
+    score f0): each block in ``ops.xla_cpu.xla_sum``'s order, the
+    partials by
+    ``_tree_combine``, bit for bit the JAX package's ``pinned_row_sum`` on
+    the CPU."""
     K = HIST_SHARDS
     x = torch.movedim(x, dim, 0)
     S = x.shape[0]
     if K <= 1 or S < K:
-        return x.sum(0)
+        return xla_sum(x)
     Sp = _pad_to(S, K)
     xp = torch.cat([x, x.new_zeros((Sp - S,) + tuple(x.shape[1:]))])
-    return _tree_combine(xp.reshape((K, Sp // K) + tuple(x.shape[1:])).sum(1))
+    blocks = xp.reshape((K, Sp // K) + tuple(x.shape[1:]))
+    return _tree_combine(xla_sum(blocks.movedim(1, 0)))
 
 
 def hist_matmul_plain(codes: torch.Tensor, A: torch.Tensor, n_bins: int,

@@ -2,7 +2,9 @@
 ``transmogrifai_tpu.impl.selector.model_selector``): the splitter reserves
 a holdout and balances the train rows, the validator sweeps families x
 grids x folds, the winner refits on the full prepared train rows, and the
-fitted ``SelectedModel`` emits a Prediction column on the device.
+fitted ``SelectedModel`` emits a Prediction column on the device. Binary,
+multiclass (labels re-indexed by a ``DataCutter``, predictions mapped back)
+and regression problems.
 
 Left out of this slice: workflow-level CV (``find_best_estimator``), the
 refit fallback to the next-ranked candidate, mesh sharding and sweep
@@ -24,6 +26,11 @@ from ...types import OPVector, Prediction, RealNN
 from ...utils.padding import bucket_for
 from ..tuning.splitters import DataSplitter, PreparedData, Splitter
 from ..tuning.validators import OpCrossValidation, OpValidator
+
+
+#: each problem kind's default validation metric and its direction
+_PROBLEM_METRICS = {"binary": ("AuPR", True), "multiclass": ("F1", True),
+                    "regression": ("RootMeanSquaredError", False)}
 
 
 @dataclass
@@ -71,10 +78,8 @@ class ModelSelector(AllowLabelAsInput, Estimator):
                  models: Optional[Sequence[Tuple[Any, Optional[List[Dict]]]]]
                  = None, evaluator=None, uid: Optional[str] = None):
         super().__init__("modelSelector", uid)
-        if problem != "binary":
-            raise NotImplementedError(
-                f"model selection for {problem!r} problems is not ported "
-                f"yet; this slice selects binary classifiers")
+        if problem not in _PROBLEM_METRICS:
+            raise ValueError(f"unknown problem kind '{problem}'")
         self.problem = problem
         self.validator = validator or OpCrossValidation()
         self.splitter = splitter if splitter is not None else DataSplitter()
@@ -85,9 +90,9 @@ class ModelSelector(AllowLabelAsInput, Estimator):
         from ...models import trees  # noqa: F401  (registers the families)
         if models is None:
             raise NotImplementedError(
-                "the default model list (logistic regression, RF, GBT, "
-                "linear SVC) is not ported yet; pass models=[(family, "
-                "grid)]")
+                f"the default model list of {self.problem} problems (it "
+                f"holds the linear families) is not ported yet; pass "
+                f"models=[(family, grid)]")
         resolved: List[Tuple[ModelFamily, List[Dict[str, Any]]]] = []
         for fam, grid in models:
             if isinstance(fam, str):
@@ -108,7 +113,7 @@ class ModelSelector(AllowLabelAsInput, Estimator):
     def validation_metric(self) -> Tuple[str, bool]:
         if self.evaluator is not None:
             return self.evaluator.default_metric, self.evaluator.larger_better
-        return "AuPR", True
+        return _PROBLEM_METRICS[self.problem]
 
     def fit(self, table: FeatureTable) -> Transformer:
         label_f, vec_f = self.input_features
@@ -125,12 +130,18 @@ class ModelSelector(AllowLabelAsInput, Estimator):
         prep = (self.splitter.pre_validation_prepare(y_all[train_idx])
                 if self.splitter is not None
                 else PreparedData(indices=np.arange(len(train_idx))))
-        if prep.label_mapping:
-            raise NotImplementedError("label re-indexing (DataCutter) is not "
-                                      "ported yet")
-        sel = torch.as_tensor(train_idx[prep.indices], device=dev)
+        sel_np = train_idx[prep.indices]
+        sel = torch.as_tensor(sel_np, device=dev)
         Xd, yd = Xd_all[sel], y_all_d[sel]
-        num_classes = 2
+        y = y_all[sel_np]
+        if prep.label_mapping:
+            # dense class indices; a label the cutter did not keep is -1
+            y = np.array([prep.label_mapping.get(int(v), -1) for v in y],
+                         dtype=np.float32)
+            yd = torch.as_tensor(y, device=dev)
+        num_classes = (1 if self.problem == "regression"
+                       else 2 if self.problem == "binary"
+                       else int(y.max()) + 1)
         metric_name, larger_better = self.validation_metric
         best = self.validator.validate(self.models, Xd, yd, self.problem,
                                        metric_name, larger_better,
@@ -164,7 +175,8 @@ class ModelSelector(AllowLabelAsInput, Estimator):
             validation_eval_row_cap=self.validator.max_eval_rows,
             quarantined=list(best.quarantined))
         model = self._finalize_model(SelectedModel(
-            fitted=fitted, summary=summary, label_mapping=None))
+            fitted=fitted, summary=summary,
+            label_mapping=prep.label_mapping))
 
         ev = self._default_evaluator()
         ev.set_label_col(label_f.name)
@@ -179,8 +191,13 @@ class ModelSelector(AllowLabelAsInput, Estimator):
     def _default_evaluator(self):
         if self.evaluator is not None:
             return self.evaluator
-        from ...evaluators import OpBinaryClassificationEvaluator
-        return OpBinaryClassificationEvaluator()
+        from ...evaluators import (
+            OpBinaryClassificationEvaluator, OpMultiClassificationEvaluator,
+            OpRegressionEvaluator,
+        )
+        return {"binary": OpBinaryClassificationEvaluator,
+                "multiclass": OpMultiClassificationEvaluator,
+                "regression": OpRegressionEvaluator}[self.problem]()
 
 
 def _scalar_metrics(metrics: Dict[str, Any]) -> Dict[str, float]:

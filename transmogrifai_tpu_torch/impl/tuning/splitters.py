@@ -1,6 +1,7 @@
 """Data splitters (counterpart of ``transmogrifai_tpu.impl.tuning.splitters``):
-test reservation and binary class balancing. Host numpy, seeded as the JAX
-package seeds them, so both packages draw the same rows."""
+test reservation, binary class balancing and multiclass label cutting.
+Host numpy, seeded as the JAX package seeds them, so both packages draw
+the same rows."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
@@ -95,3 +96,35 @@ class DataBalancer(Splitter):
                         "resultSize": int(len(idx))})
         self.summary = summary
         return PreparedData(indices=idx, summary=summary)
+
+
+class DataCutter(Splitter):
+    """Multiclass label cutter: keep at most ``max_label_categories``
+    labels, the most frequent first, and only labels with at least
+    ``min_label_fraction`` of the rows; drop the other rows and re-index
+    the kept labels to 0..K-1 in ascending order (``label_mapping``)."""
+
+    def __init__(self, max_label_categories: int = 100,
+                 min_label_fraction: float = 0.0, **kw):
+        super().__init__(**kw)
+        if min_label_fraction >= 0.5:
+            raise ValueError("min_label_fraction must be < 0.5")
+        self.max_label_categories = max_label_categories
+        self.min_label_fraction = min_label_fraction
+
+    def pre_validation_prepare(self, y: np.ndarray) -> PreparedData:
+        labels, counts = np.unique(y.astype(np.int64), return_counts=True)
+        frac = counts / counts.sum()
+        order = np.argsort(-counts)
+        kept = {int(labels[i]) for i in order[:self.max_label_categories]
+                if frac[i] >= self.min_label_fraction}
+        if not kept:
+            raise ValueError("DataCutter dropped all labels")
+        mask = np.isin(y.astype(np.int64), list(kept))
+        mapping = {lab: i for i, lab in enumerate(sorted(kept))}
+        summary = {"labelsKept": sorted(kept),
+                   "labelsDropped": sorted({int(v) for v in labels} - kept),
+                   "rowsKept": int(mask.sum())}
+        self.summary = summary
+        return PreparedData(indices=np.nonzero(mask)[0], summary=summary,
+                            label_mapping=mapping)

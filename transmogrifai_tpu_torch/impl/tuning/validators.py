@@ -21,7 +21,7 @@ import torch
 from ...models.api import ModelFamily
 from ...ops.metrics import (
     _BINNED_MIN_N, aupr_masked, auroc_masked, binary_threshold_metrics_masked,
-    log_loss_masked,
+    log_loss_masked, multiclass_metrics_masked, regression_metrics_masked,
 )
 from ...utils.padding import bucket_for
 
@@ -80,26 +80,46 @@ def quarantine_non_finite(family: str, grid: List[Dict[str, Any]],
     return mean_metrics, np.where(finite, mean_metrics, worst), records
 
 
-def _metric_fn(problem: str, metric: str, binned: Optional[bool] = None
+def _metric_fn(problem: str, metric: str, binned: Optional[bool] = None,
+               num_classes: int = 2
                ) -> Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
                              torch.Tensor]:
-    """Per-configuration metric over (B, n) scores, labels and validation
-    masks -> (B,) f32. Binary problems only in this slice."""
-    if problem != "binary":
-        raise NotImplementedError(
-            f"validation of {problem!r} problems is not ported yet")
-    if metric in ("AuPR", "AuROC"):
-        base = {"AuPR": aupr_masked, "AuROC": auroc_masked}[metric]
+    """Per-configuration metric over scores, labels and validation masks
+    -> (B,) f32: binary (B, n) probabilities of class 1, multiclass
+    (B, n, C) probabilities (scored by their argmax), regression (B, n)
+    predictions."""
+    if problem == "binary":
+        if metric in ("AuPR", "AuROC"):
+            base = {"AuPR": aupr_masked, "AuROC": auroc_masked}[metric]
 
-        def one(s, y, m):
-            return base(s, y, m, binned=binned)
-    elif metric in ("Precision", "Recall", "F1", "Error"):
-        def one(s, y, m):
-            return binary_threshold_metrics_masked(s, y, m)[metric]
-    elif metric == "LogLoss":
-        one = log_loss_masked
+            def one(s, y, m):
+                return base(s, y, m, binned=binned)
+        elif metric in ("Precision", "Recall", "F1", "Error"):
+            def one(s, y, m):
+                return binary_threshold_metrics_masked(s, y, m)[metric]
+        elif metric == "LogLoss":
+            one = log_loss_masked
+        else:
+            raise ValueError(f"unknown binary validation metric '{metric}'")
+    elif problem == "multiclass":
+        if metric not in ("F1", "Precision", "Recall", "Error"):
+            raise ValueError(f"unknown multiclass validation metric "
+                             f"'{metric}'")
+
+        def one(probs, y, m):
+            return multiclass_metrics_masked(
+                probs.argmax(dim=-1), y.to(torch.int32), m,
+                num_classes)[metric]
+    elif problem == "regression":
+        if metric not in ("RootMeanSquaredError", "MeanSquaredError",
+                          "MeanAbsoluteError", "R2"):
+            raise ValueError(f"unknown regression validation metric "
+                             f"'{metric}'")
+
+        def one(pred, y, m):
+            return regression_metrics_masked(pred, y, m)[metric]
     else:
-        raise ValueError(f"unknown binary validation metric '{metric}'")
+        raise ValueError(f"unknown problem kind '{problem}'")
 
     def batched(scores, Y, VM):
         return torch.stack([one(scores[b], Y[b], VM[b])
@@ -193,7 +213,8 @@ class OpValidator:
         # AuROC/AuPR algorithm pinned by the padded row count, as in the
         # JAX package's fold-sliced scoring
         binned = n_pad >= _BINNED_MIN_N
-        metric = _metric_fn(problem, metric_name, binned=binned)
+        metric = _metric_fn(problem, metric_name, binned=binned,
+                            num_classes=num_classes)
         results: List[ValidationResult] = []
         quarantined: List[Dict[str, Any]] = []
         best: Optional[BestEstimator] = None
@@ -206,7 +227,7 @@ class OpValidator:
             scores = torch.cat([
                 family.predict_batch(
                     family.slice_params(params, f * G, (f + 1) * G),
-                    Xf[f], num_classes) for f in range(F)])  # (F * G, nf_b)
+                    Xf[f], num_classes) for f in range(F)])  # (F*G, nf_b[, C])
             m = metric(scores, yf.repeat_interleave(G, dim=0),
                        fvalid.repeat_interleave(G, dim=0))
             fold_metrics = m.cpu().numpy().reshape(F, G)      # f32

@@ -8,7 +8,8 @@ package computes it inside its XLA program on the CPU, so the float32
 arithmetic of that program is written out here step by step:
 
 * ``log``, ``log1p`` and ``exp`` are XLA's CPU polynomial approximations
-  (Cephes, with multiply-adds fused), not correctly rounded functions;
+  (Cephes, with multiply-adds fused), not correctly rounded functions
+  (``exp`` is ``ops.xla_cpu.xla_exp``);
 * ``gammaln(k + 1)`` is the Lanczos approximation (g = 7, 8 terms) in
   float32. Where XLA folds it at compile time, its ``log`` and ``log1p``
   are correctly rounded and nothing is fused; where it computes it when
@@ -32,6 +33,7 @@ import numpy as np
 import torch
 
 from .. import rng
+from ..ops.xla_cpu import xla_exp
 
 _F = np.float32
 
@@ -57,8 +59,6 @@ _LOG1P_NUM = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
 _LOG1P_DEN = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469310e1,
               2.2176239823732856465394e2, 3.0909872225312059774938e2,
               2.1642788614495947685003e2, 6.0118660497603843919306e1)
-_EXP_P = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
-          4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1)
 
 #: bootstrap counts 0..7 (P[X > 7 | lam <= 1] < 1e-6)
 _MAX_COUNT = 7
@@ -94,21 +94,6 @@ def _log_f32(x: np.ndarray) -> np.ndarray:
     t = _fma(_F(-0.5), x2, t)
     t = (t + y).astype(_F)
     return _fma(_F(0.693359375), e, t)
-
-
-def _exp_f32(x: np.ndarray) -> np.ndarray:
-    """XLA's CPU float32 exp, for x in the normal range of the result."""
-    x = np.asarray(x, _F)
-    n = np.floor(_fma(x, _F(1.44269504088896341), _F(0.5)))
-    a = _fma(n, _F(-0.693359375), x)
-    a = _fma(n, _F(2.12194440e-4), a)
-    z = (a * a).astype(_F)
-    y = _fma(a, _F(_EXP_P[0]), _F(_EXP_P[1]))
-    for c in _EXP_P[2:]:
-        y = _fma(y, a, _F(c))
-    y = _fma(y, z, a)
-    y = (_F(1) + y).astype(_F)
-    return np.ldexp(y, n.astype(np.int32)).astype(_F)
 
 
 def _poly_f32(x, coeffs) -> np.float32:
@@ -168,7 +153,8 @@ def poisson_cdf(rates, folded: bool) -> np.ndarray:
     lam = np.maximum(np.asarray(rates, _F).reshape(-1, 1), _F(1e-12))
     ks = np.arange(_MAX_COUNT + 1, dtype=_F)[None, :]
     a = _fma(ks, _log_f32(lam), -lam)
-    pmf = _exp_f32((a - _LGAMMA[folded][None, :]).astype(_F))
+    pmf = xla_exp(torch.from_numpy((a - _LGAMMA[folded][None, :])
+                                   .astype(_F))).numpy()
     return np.cumsum(pmf, axis=1, dtype=_F)
 
 

@@ -1,7 +1,9 @@
 """Tree model families (counterpart of ``transmogrifai_tpu.models.trees``):
-the decision-tree, random-forest and gradient-boosted tree classifiers fit
-and score on a device, at any maxDepth (complete heaps up to depth 8, slot
-chains beyond; GBT fits binary classification).
+the decision-tree, random-forest, gradient-boosted and XGBoost-style
+classifiers and regressors fit and score on a device, at any maxDepth
+(complete heaps up to depth 8, slot chains beyond). Classifiers take
+binary and multiclass labels (the GBT classifier binary only, as in the
+reference).
 
 Features are binned as the JAX package bins them, ``bin(x) = #{edges < x}``
 with ``n_bins = edges.shape[-1] + 1``, and routed by bin code. A fitted
@@ -45,6 +47,7 @@ from ..ops.forest import (
     _chain_widths, _check_slots, forest_leaf_sums, forest_leaf_sums_chain,
     forest_predict, forest_predict_chain,
 )
+from ..ops.xla_cpu import fma32, xla_softmax
 from . import bootstrap
 from .api import FittedParams, ModelFamily, register_family
 
@@ -260,10 +263,11 @@ def _grow_forest(codes_s, edges, sw_list, fmasks, cfg, *, depth: int,
     node = torch.zeros((S, Tb), dtype=torch.int64, device=dev)
     lanes = torch.arange(Tb, device=dev)
     hist_prev = None
-    # depth 0: one root leaf per tree whose stats are the column sums
-    leaf_stats = torch.stack(
-        [pinned_row_sum(s.to(torch.float32), dim=0) for s in sw_list],
-        dim=-1)[:, None, :]                                  # (Tb, 1, k)
+    if return_leaf_stats and depth == 0:
+        # one root leaf per tree whose stats are the column sums
+        leaf_stats = torch.stack(
+            [pinned_row_sum(s.to(torch.float32), dim=0) for s in sw_list],
+            dim=-1)[:, None, :]                              # (Tb, 1, k)
     for level in range(depth):
         m = 2 ** level
         M = Tb * m
@@ -581,16 +585,14 @@ def _fit_gbt_batch(X, y, weights, max_depth, min_inst, min_gain, max_iter,
                    n_bins: int, num_classes: int, task: str, n_rounds: int,
                    sweep: bool = False,
                    n_slots: int = 0) -> Dict[str, torch.Tensor]:
-    """Binary logistic gradient boosting of B configurations: each round
-    grows one tree per configuration, all B in one tree-batched
-    ``_grow_forest`` (complete heaps), or with ``n_slots`` > 0 in one
-    ``_grow_forest_capped`` (slot chains of that leaf budget, any depth).
-    Boosting state (F, gradients, leaves) lives on the split-search
-    sample. Hyperparameters are (B,) host arrays."""
-    if task != "binary":
-        raise NotImplementedError(
-            f"GBT task {task!r} is not ported yet; this slice fits binary "
-            f"classification")
+    """Gradient boosting of B configurations: binary logistic, regression
+    squared error or multiclass softmax. Each round grows one tree per
+    (configuration, class), all B * C in one tree-batched ``_grow_forest``
+    (complete heaps), or with ``n_slots`` > 0 in one
+    ``_grow_forest_capped`` (slot chains of that leaf budget, any depth);
+    tree lanes are t = b * C + c, as in the JAX package. Boosting state
+    (F, gradients, leaves) lives on the split-search sample.
+    Hyperparameters are (B,) host arrays."""
     dev = X.device
     max_depth, min_inst, min_gain, max_iter, step_size, lam, \
         min_child_weight = (_f32(v, dev) for v in (
@@ -599,23 +601,48 @@ def _fit_gbt_batch(X, y, weights, max_depth, min_inst, min_gain, max_iter,
     d = X.shape[1]
     samp, edges, _, binned_s, _, _, w_scale = _prep_tree_inputs(
         X, y, n_bins, num_classes, "regression", full_bin=False, sweep=sweep)
+    C = num_classes if task == "multiclass" else 1
     B = weights.shape[0]
+    Tb = B * C
     S = binned_s.shape[0]
     deep = n_slots > 0
     L = min(2 ** depth, n_slots) if deep else 2 ** depth
     y_s = y[samp]
-    w_tb = (weights[:, samp] * w_scale).T                   # (S, Tb = B)
-    cfg = {"max_depth": max_depth, "min_instances": min_inst,
-           "min_info_gain": min_gain, "lam": lam,
-           "min_child_weight": min_child_weight}
-    fmasks = torch.ones((B, d), dtype=torch.bool, device=dev)
-    f0 = torch.zeros((B, 1), dtype=torch.float32, device=dev)
-    F = torch.zeros((B, S), dtype=torch.float32, device=dev)
+    w_tb = (weights[:, samp] * w_scale).repeat_interleave(C, dim=0).T
+
+    def rep(v):                                         # (B,) -> (Tb,)
+        return v.repeat_interleave(C)
+    cfg = {"max_depth": rep(max_depth), "min_instances": rep(min_inst),
+           "min_info_gain": rep(min_gain), "lam": rep(lam),
+           "min_child_weight": rep(min_child_weight)}
+    lam_t = cfg["lam"]
+    fmasks = torch.ones((Tb, d), dtype=torch.bool, device=dev)
+    if task == "regression":
+        # the mean label of each configuration's rows, summed in the JAX
+        # package's pinned order
+        f0 = (pinned_row_sum(weights * y[None, :], dim=1)
+              / torch.clamp(pinned_row_sum(weights, dim=1), min=1.0))[:, None]
+    else:
+        f0 = torch.zeros((B, C), dtype=torch.float32, device=dev)
+    F = f0[:, :, None].expand(B, C, S).contiguous()
+    if task == "multiclass":
+        Y1_s = torch.nn.functional.one_hot(
+            y_s.long(), max(C, 2)).to(torch.float32).T[None, :C, :]
     per_round: List[Tuple[torch.Tensor, ...]] = []
     for t in range(n_rounds):
-        p = torch.sigmoid(F)                                 # (B, S)
-        g_tb = (p - y_s[None, :]).T                          # (S, B)
-        h_tb = torch.clamp(p * (1 - p), min=1e-6).T
+        if task == "binary":
+            p = torch.sigmoid(F[:, 0, :])                    # (B, S)
+            g = (p - y_s[None, :])[:, None, :]
+            h = torch.clamp(p * (1 - p), min=1e-6)[:, None, :]
+        elif task == "regression":
+            g = F - y_s[None, None, :]
+            h = torch.ones_like(g)
+        else:
+            P = xla_softmax(F)                              # (B, C, S)
+            g = P - Y1_s
+            h = torch.clamp(P * (1 - P), min=1e-6)
+        g_tb = g.reshape(Tb, S).T                            # (S, Tb)
+        h_tb = h.reshape(Tb, S).T
         sw_list = [g_tb * w_tb, h_tb * w_tb, w_tb]
         abs_ = None                                          # heap trees
         if deep:
@@ -627,7 +654,7 @@ def _fit_gbt_batch(X, y, weights, max_depth, min_inst, min_gain, max_iter,
                 n_bins=n_bins, mode="gh", n_slots=n_slots)
             gh = _diag_leaf_hist(
                 node_s, torch.stack([sw_list[0], sw_list[1]], dim=1), L)
-            leaf = -gh[0] / (gh[1] + lam[:, None] + 1e-12)   # (B, L)
+            leaf = -gh[0] / (gh[1] + lam_t[:, None] + 1e-12)  # (Tb, L)
         elif sweep:
             # CV candidates take Newton leaves off the last level's
             # histogram; a near-empty leaf whose H is within bf16
@@ -635,14 +662,14 @@ def _fit_gbt_batch(X, y, weights, max_depth, min_inst, min_gain, max_iter,
             fs, ths, bhs, node_s, lst = _grow_forest(
                 binned_s, edges, sw_list, fmasks, cfg, depth=depth,
                 n_bins=n_bins, mode="gh", return_leaf_stats=True)
-            h_leaf = lst[..., 1]                             # (B, L)
+            h_leaf = lst[..., 1]                             # (Tb, L)
             if h_leaf.shape[-1] >= 2:
-                h_sib = h_leaf.reshape(B, -1, 2).flip(-1).reshape(
+                h_sib = h_leaf.reshape(Tb, -1, 2).flip(-1).reshape(
                     h_leaf.shape)
                 h_parent = h_leaf + h_sib
             else:
                 h_parent = h_leaf
-            raw = -lst[..., 0] / (h_leaf + lam[:, None] + 1e-12)
+            raw = -lst[..., 0] / (h_leaf + lam_t[:, None] + 1e-12)
             leaf = torch.where(h_leaf < 2 ** -8 * h_parent,
                                torch.zeros_like(raw), raw)
         else:
@@ -653,17 +680,19 @@ def _fit_gbt_batch(X, y, weights, max_depth, min_inst, min_gain, max_iter,
             # histogram-kernel call
             gh = _diag_leaf_hist(
                 node_s, torch.stack([sw_list[0], sw_list[1]], dim=1), L)
-            leaf = -gh[0] / (gh[1] + lam[:, None] + 1e-12)   # (B, L)
-        pred = leaf.gather(1, node_s.T)                      # (B, S)
+            leaf = -gh[0] / (gh[1] + lam_t[:, None] + 1e-12)  # (Tb, L)
+        pred = leaf.gather(1, node_s.T).reshape(B, C, S)
         active = (float(t) < max_iter).to(torch.float32)
-        scale = (step_size * active)[:, None]
+        scale = (step_size * active)[:, None, None]
         # F + scale * pred with one rounding, as XLA fuses it
-        F = (F.double() + scale.double() * pred.double()).float()
+        F = fma32(scale, pred, F)
         per_round.append((fs, ths, bhs, leaf, abs_))
 
     def to_bc(i):
-        # (rounds, B, ...) -> (B, rounds, C = 1, ...)
-        return torch.stack([r[i] for r in per_round], dim=1).unsqueeze(2)
+        # (rounds, Tb = B * C, ...) -> (B, rounds, C, ...)
+        a = torch.stack([r[i] for r in per_round])
+        return a.reshape((n_rounds, B, C) + tuple(a.shape[2:])).transpose(
+            0, 1).contiguous()
 
     tree_mask = (torch.arange(n_rounds, device=dev)[None, :]
                  < max_iter[:, None]).to(torch.float32)
@@ -1241,9 +1270,9 @@ class RandomForestFamilyBase(_TreeFamilyBase):
 
 class GBTFamilyBase(_TreeFamilyBase):
     """Gradient-boosted trees: ``f0 + eta * sum of leaf values`` per class,
-    then a sigmoid (binary) or softmax (multiclass). Fitting ports the
-    binary classifier: complete heaps up to maxDepth 8, slot chains
-    beyond (grids per the reference's DefaultSelectorParams: maxDepth x
+    then a sigmoid (binary), a softmax (multiclass) or nothing
+    (regression). Complete heaps up to maxDepth 8, slot chains beyond
+    (grids per the reference's DefaultSelectorParams: maxDepth x
     minInstancesPerNode {10, 100} x minInfoGain {0.001, 0.01, 0.1},
     maxIter 20, stepSize 0.1)."""
 
@@ -1294,14 +1323,15 @@ class GBTFamilyBase(_TreeFamilyBase):
             # budgets stay because the chunking decides which numbers come
             # out, and they now bound the histogram pipeline alone
             B = w.shape[0]
+            C_g = max(num_classes, 2) if task == "multiclass" else 1
             nodes_w = (min(2 ** depth, slots) if slots
                        else 2 ** max(depth - 1, 0))
-            cb = max(1, min(B, _LEVEL_HIST_ELEMS
-                            // max(nodes_w * X.shape[1] * N_BINS * 3, 1)))
+            per_cfg = C_g * nodes_w * X.shape[1] * N_BINS * 3
+            cb = max(1, min(B, _LEVEL_HIST_ELEMS // max(per_cfg, 1)))
             S_est = min(X.shape[0],
                         _SWEEP_HIST_SAMPLE if sweep else _HIST_SAMPLE)
             lanes_max = max((1 << 29) // max(S_est, 1), 192)
-            cb = max(1, min(cb, lanes_max // (3 * nodes_w)))
+            cb = max(1, min(cb, lanes_max // (3 * nodes_w * C_g)))
             if cb >= B:
                 return one_raw(g, w, depth, slots)
             parts = []
@@ -1370,9 +1400,19 @@ class DecisionTreeClassifierFamily(DecisionTreeFamilyBase):
     supports = frozenset({"binary", "multiclass"})
 
 
+class DecisionTreeRegressorFamily(DecisionTreeFamilyBase):
+    name = "OpDecisionTreeRegressor"
+    supports = frozenset({"regression"})
+
+
 class RandomForestClassifierFamily(RandomForestFamilyBase):
     name = "OpRandomForestClassifier"
     supports = frozenset({"binary", "multiclass"})
+
+
+class RandomForestRegressorFamily(RandomForestFamilyBase):
+    name = "OpRandomForestRegressor"
+    supports = frozenset({"regression"})
 
 
 class GBTClassifierFamily(GBTFamilyBase):
@@ -1380,6 +1420,35 @@ class GBTClassifierFamily(GBTFamilyBase):
     supports = frozenset({"binary"})
 
 
-register_family(DecisionTreeClassifierFamily())
-register_family(RandomForestClassifierFamily())
-register_family(GBTClassifierFamily())
+class GBTRegressorFamily(GBTFamilyBase):
+    name = "OpGBTRegressor"
+    supports = frozenset({"regression"})
+
+
+class XGBoostClassifierFamily(GBTFamilyBase):
+    """The reference's OpXGBoostClassifier: second-order splits with L2
+    ``lambda`` 1 and minChildWeight 1 by default (grid per
+    DefaultSelectorParams: numRound 100 as maxIter, eta {0.1, 0.3} as
+    stepSize, minChildWeight {1, 5, 10})."""
+    name = "OpXGBoostClassifier"
+    supports = frozenset({"binary", "multiclass"})
+    lam_default = 1.0
+    mcw_default = 1.0
+
+    def default_grid(self, problem):
+        return [{"maxDepth": 6, "maxIter": 100, "stepSize": e,
+                 "minChildWeight": m, "lambda": 1.0, "minInfoGain": 0.0,
+                 "minInstancesPerNode": 0.0}
+                for e in (0.1, 0.3) for m in (1.0, 5.0, 10.0)]
+
+
+class XGBoostRegressorFamily(XGBoostClassifierFamily):
+    name = "OpXGBoostRegressor"
+    supports = frozenset({"regression"})
+
+
+for _family in (DecisionTreeClassifierFamily, DecisionTreeRegressorFamily,
+                RandomForestClassifierFamily, RandomForestRegressorFamily,
+                GBTClassifierFamily, GBTRegressorFamily,
+                XGBoostClassifierFamily, XGBoostRegressorFamily):
+    register_family(_family())

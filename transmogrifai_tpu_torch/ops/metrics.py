@@ -2,7 +2,9 @@
 f32 on the scores' device: exact AuROC (Mann-Whitney with average-tie
 ranks) and AuPR (linear interpolation over tie-group boundaries), their
 masked forms, the binned threshold curves used from ``_BINNED_MIN_N`` rows
-on, threshold metrics and log loss."""
+on, threshold metrics and log loss; the multiclass metrics (weighted by
+class support, from a confusion matrix of one-hot counts) and the
+regression metrics."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -171,3 +173,97 @@ def threshold_metrics(scores: torch.Tensor, labels: torch.Tensor,
                      2 * prec * rec / torch.clamp(prec + rec, min=1e-30),
                      torch.zeros_like(prec))
     return thresholds, prec, rec, f1
+
+
+def _weighted_class_metrics(cm: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Error and support-weighted Precision/Recall/F1 of a (C, C)
+    confusion matrix (rows the label, columns the prediction)."""
+    n = torch.clamp(cm.sum(), min=1.0)
+    support = cm.sum(1)
+    pred_cnt = cm.sum(0)
+    tp = torch.diagonal(cm)
+    prec_c = tp / torch.clamp(pred_cnt, min=1.0)
+    rec_c = tp / torch.clamp(support, min=1.0)
+    f1_c = torch.where(prec_c + rec_c > 0,
+                       2 * prec_c * rec_c
+                       / torch.clamp(prec_c + rec_c, min=1e-30),
+                       torch.zeros_like(prec_c))
+    wgt = support / n
+    return {"Error": 1.0 - torch.trace(cm) / n,
+            "Precision": (prec_c * wgt).sum(),
+            "Recall": (rec_c * wgt).sum(),
+            "F1": (f1_c * wgt).sum()}
+
+
+def _one_hot_f32(idx: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """Float32 one-hot rows; an index outside [0, num_classes) is all
+    zero, as ``jax.nn.one_hot`` makes it."""
+    cls = torch.arange(num_classes, device=idx.device)
+    return (idx.long()[:, None] == cls[None, :]).to(torch.float32)
+
+
+def multiclass_confusion(pred_idx: torch.Tensor, label_idx: torch.Tensor,
+                         num_classes: int) -> torch.Tensor:
+    """(C, C) confusion counts, rows the label, columns the prediction."""
+    return (_one_hot_f32(label_idx, num_classes)[:, :, None]
+            * _one_hot_f32(pred_idx, num_classes)[:, None, :]).sum(0)
+
+
+def multiclass_metrics_masked(pred_idx: torch.Tensor, label_idx: torch.Tensor,
+                              mask: torch.Tensor, num_classes: int
+                              ) -> Dict[str, torch.Tensor]:
+    """Error and weighted Precision/Recall/F1 over the masked rows."""
+    w = mask.to(torch.float32)[:, None]
+    cm = ((_one_hot_f32(label_idx, num_classes) * w)[:, :, None]
+          * (_one_hot_f32(pred_idx, num_classes) * w)[:, None, :]).sum(0)
+    return _weighted_class_metrics(cm)
+
+
+def multiclass_metrics(pred_idx: torch.Tensor, label_idx: torch.Tensor,
+                       num_classes: int) -> Dict[str, torch.Tensor]:
+    """Error and weighted Precision/Recall/F1 over every row (the
+    reference's OpMultiClassificationEvaluator defaults)."""
+    return _weighted_class_metrics(
+        multiclass_confusion(pred_idx, label_idx, num_classes))
+
+
+def regression_metrics_masked(pred: torch.Tensor, label: torch.Tensor,
+                              mask: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """RMSE/MSE/MAE/R2 over the masked rows."""
+    w = mask.to(pred.dtype)
+    cnt = torch.clamp(w.sum(), min=1.0)
+    err = (pred - label) * w
+    sse = (err * err).sum()
+    mse = sse / cnt
+    label_mean = (label * w).sum() / cnt
+    dev = (label - label_mean) * w
+    ss_tot = (dev * dev).sum()
+    r2 = torch.where(ss_tot > 0,
+                     1.0 - sse / torch.clamp(ss_tot, min=1e-30),
+                     torch.zeros_like(ss_tot))
+    return {"RootMeanSquaredError": torch.sqrt(mse), "MeanSquaredError": mse,
+            "MeanAbsoluteError": err.abs().sum() / cnt, "R2": r2}
+
+
+def regression_metrics(pred: torch.Tensor, label: torch.Tensor
+                       ) -> Dict[str, torch.Tensor]:
+    """RMSE/MSE/MAE/R2 over every row (the reference's
+    OpRegressionEvaluator)."""
+    err = pred - label
+    sse = (err * err).sum()
+    mse = sse / err.shape[0]
+    dev = label - label.mean()
+    ss_tot = (dev * dev).sum()
+    r2 = torch.where(ss_tot > 0,
+                     1.0 - sse / torch.clamp(ss_tot, min=1e-30),
+                     torch.zeros_like(ss_tot))
+    return {"RootMeanSquaredError": torch.sqrt(mse), "MeanSquaredError": mse,
+            "MeanAbsoluteError": err.abs().mean(), "R2": r2}
+
+
+def multiclass_log_loss(probs: torch.Tensor,
+                        label_idx: torch.Tensor) -> torch.Tensor:
+    """Mean negative log probability of each row's label."""
+    p = torch.clamp(probs, 1e-15, 1.0)
+    picked = p.gather(1, label_idx.long()[:, None])[:, 0]
+    return -torch.log(picked).mean()

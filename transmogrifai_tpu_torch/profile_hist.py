@@ -20,21 +20,25 @@ Shapes (19,712 rows, the refit's padded row count):
 * ``node_hist`` (64 codes, 32 bins): the RF refit's deepest level (T 50,
   256 slots, k 2), the GBT depth-6 refit's level 5 (T 1, 16 left
   children, stride 2, k 3), the ``gbt12`` refit's deepest level (T 1, 256
-  slots, k 3) and a GBT level 0 (T 1, one slot holding every row, k 3);
+  slots, k 3), a GBT level 0 (T 1, one slot holding every row, k 3), the
+  ``rfmc`` refit's deepest level (6 class counts: k 6) and the ``xgbmc``
+  refit's level 5 (T 6: one tree per class, k 3);
 * ``hist_matmul`` (exact, ``_diag_leaf_hist``'s layout of 64 tree
   columns with the padded ones all sentinel): the GBT refit's leaf call
   (1 real column, 128 stat columns, 64 leaves), the ``gbt12`` refit's
-  (1 real column, 128 stat columns, 256 leaves) and the RF sweep's (48
-  real columns, 192 stat columns, 64 leaves);
-* the forest predicts (65,536 rows x 64 codes, 32 bins, k 1, trees from
-  ``testing.random_chain`` / ``random_heap``): the RF serve (slot chains,
-  T 50, depth 12, W 256), the ``gbt12`` serve (chains, T 20, depth 12, W
-  256), the GBT serve (heaps, T 20, depth 6) and the DT serve (one heap
-  of depth 6);
-* the leaf sums (k 3): the RF refit's (slot chains, T 50, depth 12, W
-  256), the DT refit's (one heap of depth 6) and the RF refit's with every
-  row in leaf 0 of every tree (the skew of a trained refit at its
-  extreme).
+  (1 real column, 128 stat columns, 256 leaves), the RF sweep's (48
+  real columns, 192 stat columns, 64 leaves) and the ``xgbmc`` refit's
+  (6 real columns, one per class: 12 of the 128 stat columns);
+* the forest predicts (65,536 rows x 64 codes, 32 bins, trees from
+  ``testing.random_chain`` / ``random_heap``): at k 1 the RF serve (slot
+  chains, T 50, depth 12, W 256), the ``gbt12`` serve (chains, T 20, depth
+  12, W 256), the GBT serve (heaps, T 20, depth 6) and the DT serve (one
+  heap of depth 6); at k 6 the ``rfmc`` serve (chains as RF) and the
+  ``xgbmc`` serve (heaps, T 600 = 100 rounds x 6 classes, depth 6);
+* the leaf sums: the RF refit's (slot chains, T 50, depth 12, W 256, k
+  3), the DT refit's (one heap of depth 6, k 3), the RF refit's with
+  every row in leaf 0 of every tree (the skew of a trained refit at its
+  extreme), the ``rfreg`` refit's (k 4) and the ``rfmc`` refit's (k 7).
 
 Prints the card's name and power limit, then one JSON line per case.
 """
@@ -68,21 +72,30 @@ ROWS, CODES, NODE_BINS = 19712, 64, 32
 NODE_CASES = (("RF refit, deepest level", 50, 256, 1, 2, 256),
               ("GBT depth-6 refit, level 5", 1, 16, 2, 3, 32),
               ("gbt12 refit, deepest level", 1, 256, 1, 3, 256),
-              ("GBT level 0", 1, 1, 1, 3, 1))
+              ("GBT level 0", 1, 1, 1, 3, 1),
+              ("rfmc refit, deepest level", 50, 256, 1, 6, 256),
+              ("xgbmc refit, level 5", 6, 16, 2, 3, 32))
 #: ``hist_matmul`` (tag, real tree columns, stat columns, leaves)
 HIST_CASES = (("GBT refit leaves", 1, 128, 64),
               ("gbt12 refit leaves", 1, 128, 256),
-              ("RF sweep leaves", 48, 192, 64))
-#: the forest predicts' serve shapes: (tag, T, depth, W; None for heaps)
+              ("RF sweep leaves", 48, 192, 64),
+              ("xgbmc refit leaves", 6, 128, 64))
+#: the forest predicts' serve shapes: (tag, T, depth, W; None for heaps,
+#: k leaf columns)
 SERVE_ROWS = 65536
-PREDICT_CASES = (("RF serve", 50, 12, 256), ("gbt12 serve", 20, 12, 256),
-                 ("GBT serve", 20, 6, None), ("DT serve", 1, 6, None))
+PREDICT_CASES = (("RF serve", 50, 12, 256, 1),
+                 ("gbt12 serve", 20, 12, 256, 1),
+                 ("GBT serve", 20, 6, None, 1), ("DT serve", 1, 6, None, 1),
+                 ("rfmc serve", 50, 12, 256, 6),
+                 ("xgbmc serve", 600, 6, None, 6))
 #: the leaf sums' refit shapes: (tag, T, depth, W; None for heaps, every
-#: split the sentinel so that every row lands in leaf 0), k
-LEAF_SUM_CASES = (("RF refit", 50, 12, 256, False),
-                  ("DT refit", 1, 6, None, False),
-                  ("RF refit, every row in leaf 0", 50, 12, 256, True))
-LEAF_SUM_K = 3
+#: split the sentinel so that every row lands in leaf 0, k stats: the
+#: class counts or [-y, 1, 1] times the weight, and the weight)
+LEAF_SUM_CASES = (("RF refit", 50, 12, 256, False, 3),
+                  ("DT refit", 1, 6, None, False, 3),
+                  ("RF refit, every row in leaf 0", 50, 12, 256, True, 3),
+                  ("rfreg refit", 50, 12, 256, False, 4),
+                  ("rfmc refit", 50, 12, 256, False, 7))
 
 
 def bound_ms(nbytes: int, ops: int):
@@ -228,10 +241,10 @@ def profile_predict(runs: int) -> list:
     dev = torch.device("cuda", 0)
     rng = np.random.RandomState(1)
     rows = []
-    for tag, T, depth, W in PREDICT_CASES:
+    for tag, T, depth, W, k in PREDICT_CASES:
         if W is None:
-            f = {k: torch.from_numpy(v).to(dev) for k, v in random_heap(
-                rng, SERVE_ROWS, CODES, T, depth, 1, NODE_BINS).items()}
+            f = {key: torch.from_numpy(v).to(dev) for key, v in random_heap(
+                rng, SERVE_ROWS, CODES, T, depth, k, NODE_BINS).items()}
 
             def call():
                 return F.forest_predict(f["codes"], f["feat"], f["bins"],
@@ -239,8 +252,8 @@ def profile_predict(runs: int) -> list:
                                         n_bins=NODE_BINS)
             name = "forest_predict_heap "
         else:
-            f = {k: torch.from_numpy(v).to(dev) for k, v in random_chain(
-                rng, SERVE_ROWS, CODES, T, depth, W, 1, NODE_BINS).items()}
+            f = {key: torch.from_numpy(v).to(dev) for key, v in random_chain(
+                rng, SERVE_ROWS, CODES, T, depth, W, k, NODE_BINS).items()}
 
             def call():
                 return F.forest_predict_chain(f["codes"], f["feat"], f["bins"],
@@ -260,10 +273,9 @@ def profile_leaf_sums(runs: int) -> list:
 
     dev = torch.device("cuda", 0)
     rng = np.random.RandomState(2)
-    aug = torch.from_numpy(rng.rand(ROWS, LEAF_SUM_K).astype(
-        np.float32)).to(dev)
     rows = []
-    for tag, T, depth, W, one_leaf in LEAF_SUM_CASES:
+    for tag, T, depth, W, one_leaf, k in LEAF_SUM_CASES:
+        aug = torch.from_numpy(rng.rand(ROWS, k).astype(np.float32)).to(dev)
         f = (random_heap(rng, ROWS, CODES, T, depth, 1, NODE_BINS)
              if W is None else random_chain(rng, ROWS, CODES, T, depth, W, 1,
                                             NODE_BINS))
@@ -271,7 +283,7 @@ def profile_leaf_sums(runs: int) -> list:
             f["bins"][:] = NODE_BINS
             if W is not None:
                 f["base"][:] = 0
-        f = {k: torch.from_numpy(v).to(dev) for k, v in f.items()}
+        f = {key: torch.from_numpy(v).to(dev) for key, v in f.items()}
         if W is None:
             def call():
                 return F.forest_leaf_sums(f["codes"], f["feat"], f["bins"],

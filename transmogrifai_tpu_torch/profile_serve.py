@@ -2,8 +2,10 @@
 
     python3 -m transmogrifai_tpu_torch.profile_serve [--rows 65536] [--reps 5]
 
-Loads the committed RF and GBT fixtures on the card and scores a batch of
-``--rows`` rows (the fixture's 4,096-row frame tiled) through
+Loads each committed ``serve64`` fixture (``testing.SERVE_MODELS``) on
+the card and scores a batch of ``--rows`` rows (the fixtures' 4,096-row
+scoring frame, rebuilt from its seed by ``testing.score_frame``, tiled)
+through
 ``OpWorkflowModel.score``. For each model it prints one JSON line with the
 median host-clock seconds of each phase (host table build, host-to-device
 copy, each stage, device-to-host copy of the result; every phase ends in
@@ -23,8 +25,12 @@ import time
 import numpy as np
 import torch
 
+from .testing import SERVE_MODELS, score_frame
+
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "fixtures", "serve64")
+#: the fixtures' scoring frame: ``score_frame(SCORE_ROWS, 64, SCORE_SEED)``
+SCORE_ROWS, SCORE_SEED = 4096, 1
 
 
 def _timed(fn):
@@ -40,9 +46,9 @@ def profile(key: str, rows: int, reps: int) -> dict:
 
     path = os.path.join(FIXTURES, key)
     model = tt.load_model(path)
-    X = np.load(os.path.join(path, "expected.npz"))["X"]
-    X = np.tile(X, (-(-rows // X.shape[0]), 1))[:rows]
-    data = {f"x{i}": X[:, i] for i in range(X.shape[1])}
+    frame = score_frame(SCORE_ROWS, 64, SCORE_SEED)
+    data = {k: np.tile(v, -(-rows // SCORE_ROWS))[:rows]
+            for k, v in frame.items()}
     name = model.result_features[0].name
     phases: dict = {}
 
@@ -103,7 +109,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0])
-    for key in ("rf", "gbt"):
+    for key in SERVE_MODELS:
         print(json.dumps(profile(key, args.rows, args.reps)))
     return 0
 

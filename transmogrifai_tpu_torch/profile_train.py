@@ -1,13 +1,17 @@
 """Where the training path's time goes, on one NVIDIA GPU.
 
     python3 -m transmogrifai_tpu_torch.profile_train
-        [--family gbt|gbt12|rf|dt] [--rows 20000] [--reps 3]
+        [--family gbt|gbt12|rf|dt|rfreg|gbtreg|rfmc|xgbmc] [--rows 20000]
+        [--reps 3]
 
 Trains one of the serve bench's pinned workflows (64 ``Real`` predictors,
-``transmogrify -> sanity_check -> BinaryClassificationModelSelector``;
-``testing.serve_bench_workflow``): ``gbt`` maxDepth 6, 20 rounds;
-``gbt12`` maxDepth 12, 20 rounds (slot chains); ``rf`` maxDepth 12, 50
-trees; ``dt`` maxDepth 6. It trains on ``--rows`` seeded rows, once to
+``transmogrify -> sanity_check -> <problem>ModelSelector``;
+``testing.serve_bench_workflow``, ``testing.SERVE_MODELS``): binary
+``gbt`` maxDepth 6, 20 rounds; ``gbt12`` maxDepth 12, 20 rounds (slot
+chains); ``rf`` maxDepth 12, 50 trees; ``dt`` maxDepth 6; regression
+``rfreg`` (RF as ``rf``) and ``gbtreg`` (GBT as ``gbt``); 6-class
+``rfmc`` (RF as ``rf``) and ``xgbmc`` (XGBoost maxDepth 6, 100 rounds).
+It trains on ``--rows`` seeded rows, once to
 warm up and then ``--reps`` times, and prints one JSON line: the median
 seconds of the whole ``train()``, of each stage's fit, and inside the
 selector of the CV sweep, the winner's refit and the train/holdout
@@ -29,14 +33,19 @@ from contextlib import contextmanager
 
 import torch
 
-from .testing import SERVE_MODELS, serve_bench_data, serve_bench_workflow
+from .testing import (
+    SERVE_MODELS, SERVE_TASKS, serve_bench_data, serve_bench_workflow,
+)
 
 
 @contextmanager
 def _timing(phases: dict):
     """Time each stage fit and the selector's sweep, refit and evaluations
     by wrapping them for the duration of the block."""
-    from .evaluators.binary import OpBinaryClassificationEvaluator
+    from .evaluators import (
+        OpBinaryClassificationEvaluator, OpMultiClassificationEvaluator,
+        OpRegressionEvaluator,
+    )
     from .impl.feature.vectorizers import RealVectorizer
     from .impl.preparators.sanity_checker import SanityChecker
     from .impl.selector.model_selector import ModelSelector, SelectedModel
@@ -58,8 +67,10 @@ def _timing(phases: dict):
     ] + [
         (SelectedModel, "transform_column",
          lambda *a, **k: "selector: evaluation predicts"),
-        (OpBinaryClassificationEvaluator, "evaluate_all",
-         lambda *a, **k: "selector: evaluation metrics"),
+    ] + [
+        (cls, "evaluate_all", lambda *a, **k: "selector: evaluation metrics")
+        for cls in (OpBinaryClassificationEvaluator,
+                    OpMultiClassificationEvaluator, OpRegressionEvaluator)
     ]
     saved = [(owner, name, getattr(owner, name))
              for owner, name, _ in targets]
@@ -86,12 +97,13 @@ def _timing(phases: dict):
 
 def profile(family: str, rows: int, reps: int) -> dict:
     name, hyper = SERVE_MODELS[family]
-    data = serve_bench_data(rows, 64, seed=0)
+    task = SERVE_TASKS[family]
+    data = serve_bench_data(rows, 64, seed=0, task=task)
 
     def train():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        serve_bench_workflow(name, hyper, 64, seed=0
+        serve_bench_workflow(name, hyper, 64, seed=0, problem=task
                              ).set_input_dataset(data).train()
         torch.cuda.synchronize()
         return time.perf_counter() - t0

@@ -11,7 +11,8 @@ from typing import Dict, Optional
 import numpy as np
 
 #: the serve bench's pinned winners, as the committed ``serve64`` fixtures
-#: were trained: {fixture key: (family, hyperparameters)}
+#: were trained: {fixture key: (family, hyperparameters)}; the problem kind
+#: of each key is ``SERVE_TASKS``'s
 SERVE_MODELS = {
     "rf": ("OpRandomForestClassifier",
            {"maxDepth": 12, "numTrees": 50, "minInstancesPerNode": 10,
@@ -24,7 +25,29 @@ SERVE_MODELS = {
     "gbt12": ("OpGBTClassifier",
               {"maxDepth": 12, "maxIter": 20, "stepSize": 0.1,
                "minInstancesPerNode": 10, "minInfoGain": 0.001}),
+    "rfreg": ("OpRandomForestRegressor",
+              {"maxDepth": 12, "numTrees": 50, "minInstancesPerNode": 10,
+               "minInfoGain": 0.001, "subsamplingRate": 1.0}),
+    "gbtreg": ("OpGBTRegressor",
+               {"maxDepth": 6, "maxIter": 20, "stepSize": 0.1,
+                "minInstancesPerNode": 10, "minInfoGain": 0.001}),
+    "rfmc": ("OpRandomForestClassifier",
+             {"maxDepth": 12, "numTrees": 50, "minInstancesPerNode": 10,
+              "minInfoGain": 0.001, "subsamplingRate": 1.0}),
+    "xgbmc": ("OpXGBoostClassifier",
+              {"maxDepth": 6, "maxIter": 100, "stepSize": 0.3,
+               "minChildWeight": 1.0, "lambda": 1.0, "minInfoGain": 0.0,
+               "minInstancesPerNode": 0.0}),
 }
+
+#: each serve model's problem kind (its frame's label and its selector)
+SERVE_TASKS = {"rf": "binary", "gbt": "binary", "dt": "binary",
+               "gbt12": "binary", "rfreg": "regression",
+               "gbtreg": "regression", "rfmc": "multiclass",
+               "xgbmc": "multiclass"}
+
+#: classes of the multiclass serve frame
+SERVE_CLASSES = 6
 
 
 def random_heap(rng: np.random.RandomState, n: int, d: int, T: int,
@@ -152,34 +175,71 @@ def leaf_sums_chunked(ids, aug, L: int, n_chunks: int, rows_per_chunk: int):
     return spread_nonfinite_sums(out[:T * L].reshape(T, L, k), ids, aug)
 
 
-def serve_bench_data(n: int, d: int, seed: int) -> Dict[str, np.ndarray]:
+def _linear(X: np.ndarray, w: np.ndarray) -> np.ndarray:
+    """X @ w with the products added in feature order in float64, rounded
+    once to float32: the same bits on any machine (a BLAS product's order
+    depends on the library and the CPU)."""
+    W = w.reshape(w.shape[0], -1).astype(np.float64)
+    acc = np.zeros((X.shape[0], W.shape[1]), np.float64)
+    for i in range(X.shape[1]):
+        acc += X[:, i, None].astype(np.float64) * W[i]
+    return acc.reshape((X.shape[0],) + w.shape[1:]).astype(np.float32)
+
+
+def serve_bench_data(n: int, d: int, seed: int,
+                     task: str = "binary") -> Dict[str, np.ndarray]:
     """The serve bench's training frame: ``d`` standard-normal predictors
-    ``x0..`` and a label ``y`` from a random linear rule, all float32 from
-    ``RandomState(seed)`` (the recipe the committed fixtures were trained
-    on)."""
+    ``x0..`` and a label ``y``, all float32 from ``RandomState(seed)`` (the
+    recipe the committed fixtures were trained on). ``task`` picks the
+    label: binary ``X @ w > 0``, regression ``X @ w`` (``_linear``),
+    multiclass the argmax of ``SERVE_CLASSES`` linear scores whose
+    weights are drawn after ``w``."""
     rng = np.random.RandomState(seed)
     X = rng.randn(n, d).astype(np.float32)
     w = rng.randn(d).astype(np.float32)
     data = {f"x{i}": X[:, i] for i in range(d)}
-    data["y"] = (X @ w > 0).astype(np.float32)
+    if task == "binary":
+        data["y"] = (X @ w > 0).astype(np.float32)
+    elif task == "regression":
+        data["y"] = _linear(X, w)
+    elif task == "multiclass":
+        W = rng.randn(d, SERVE_CLASSES).astype(np.float32)
+        data["y"] = _linear(X, W).argmax(1).astype(np.float32)
+    else:
+        raise ValueError(f"unknown task {task!r}")
     return data
 
 
+def score_frame(n: int, d: int, seed: int,
+                nan_rate: float = 0.01) -> Dict[str, np.ndarray]:
+    """The serve fixtures' scoring frame: ``{x0..: float32 column}`` of
+    standard normals from ``RandomState(seed)``, a ``nan_rate`` share
+    missing (NaN)."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, d).astype(np.float32)
+    X[rng.rand(n, d) < nan_rate] = np.nan
+    return {f"x{i}": X[:, i] for i in range(d)}
+
+
 def serve_bench_workflow(family: str, hyper: Dict, d: int, seed: int,
-                         realnn: int = 0, device=None):
-    """``transmogrify -> sanity_check -> BinaryClassificationModelSelector``
-    over ``d`` predictors (the first ``realnn`` RealNN, the rest Real), the
-    winner pinned to one family and grid point: an untrained
-    ``OpWorkflow`` without data."""
+                         realnn: int = 0, device=None,
+                         problem: str = "binary"):
+    """``transmogrify -> sanity_check -> <problem>ModelSelector`` with
+    cross-validation over ``d`` predictors (the first ``realnn`` RealNN,
+    the rest Real), the winner pinned to one family and grid point: an
+    untrained ``OpWorkflow`` without data."""
     from .dsl import transmogrify
     from .features import FeatureBuilder
-    from .impl.selector.factories import BinaryClassificationModelSelector
+    from .impl.selector import factories
     from .workflow import OpWorkflow
+    selector = {"binary": factories.BinaryClassificationModelSelector,
+                "multiclass": factories.MultiClassificationModelSelector,
+                "regression": factories.RegressionModelSelector}[problem]
     label = FeatureBuilder.RealNN("y").extract_field().as_response()
     feats = [(FeatureBuilder.RealNN if i < realnn else FeatureBuilder.Real)(
         f"x{i}").extract_field().as_predictor() for i in range(d)]
     checked = transmogrify(feats).sanity_check(label)
-    pred = (BinaryClassificationModelSelector.with_cross_validation(
+    pred = (selector.with_cross_validation(
         seed=seed, models=[(family, [dict(hyper)])])
         .set_input(label, checked).get_output())
     return OpWorkflow(device=device).set_result_features(pred)
