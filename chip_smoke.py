@@ -126,6 +126,11 @@ import torch
 # timers: one definition, shared with the per-pass profiler
 from transmogrifai_tpu_torch import profile_hist as PH
 from transmogrifai_tpu_torch.profile_hist import bound_ms, time_ms
+# the committed serve64 fixtures' frames (their models:
+# ``testing.SERVE_MODELS``)
+from transmogrifai_tpu_torch.testing import (
+    SCORE_ROWS, TRAIN_ROWS, TRAIN_SEED, refit_rows,
+)
 from transmogrifai_tpu_torch.testing import SERVE_CLASSES as N_CLASSES
 
 N_ROWS = 65536
@@ -137,10 +142,6 @@ PRED_MARGIN = 1e-5
 
 FIXTURES = os.path.join(HERE, "transmogrifai_tpu_torch", "fixtures",
                         "serve64")
-#: the training frame behind the committed serve64 fixtures (their models:
-#: ``testing.SERVE_MODELS``)
-TRAIN_ROWS = 20000
-TRAIN_SEED = 0
 #: the tables that make a tree, per layout
 HEAP_KEYS, CHAIN_KEYS = ("feat", "bins"), ("feat_lv", "bins_lv", "base_lv")
 TREE_KEYS = {"gbt": HEAP_KEYS, "dt": HEAP_KEYS, "rf": CHAIN_KEYS,
@@ -148,8 +149,8 @@ TREE_KEYS = {"gbt": HEAP_KEYS, "dt": HEAP_KEYS, "rf": CHAIN_KEYS,
              "rfmc": CHAIN_KEYS, "xgbmc": HEAP_KEYS}
 #: boosted fixtures: their tables carry (rounds, classes) in front
 BOOSTED = ("gbt", "gbt12", "gbtreg", "xgbmc")
-#: the fixtures' scoring frame: ``testing.score_frame(4096, 64, 1)``
-SCORE_ROWS, SCORE_SEED = 4096, 1
+#: differing trees a train reports
+MAX_REPORTED = 10
 #: the leaf sums of the RF and DT refits: 19,712 padded rows, class counts
 #: and the weight, k = 3
 LEAF_K = 3
@@ -838,26 +839,6 @@ def phase_kernels(dev):
     return results
 
 
-def _refit_rows(model, data):
-    """The winner's refit rows, rebuilt: (bin codes under the model's
-    edges, labels, 0/1 row weights), padded to the row bucket."""
-    from transmogrifai_tpu_torch.impl.tuning.splitters import DataBalancer
-    from transmogrifai_tpu_torch.models import trees as TR
-    from transmogrifai_tpu_torch.utils.padding import bucket_for
-
-    checked = model.stages[-2].get_output().name
-    X = model.score(data=data)[checked].values          # all rows, kept cols
-    train_idx, _ = DataBalancer(seed=TRAIN_SEED).split(X.shape[0])
-    X = X[torch.as_tensor(train_idx, device=X.device)]
-    y = torch.as_tensor(data["y"][train_idx], device=X.device)
-    n = X.shape[0]
-    n_pad = bucket_for(n)
-    X = torch.nn.functional.pad(X, (0, 0, 0, n_pad - n))
-    y = torch.nn.functional.pad(y, (0, n_pad - n))
-    w = (torch.arange(n_pad, device=X.device) < n).float()
-    return TR._bin_features(X, model.stages[-1].fitted.params["edges"]), y, w
-
-
 def _node_gains(codes, A, cfg, mode):
     """Split gains (d, n_bins - 1) of one node from its rows' stats A
     (rows outside the node zero), as the grower scores them."""
@@ -893,57 +874,34 @@ def _gbt_gain_gap(model, data, fixture, key: str, t: int, level: int,
     level ``level`` (a heap's position within the level, or a chain's
     slot) of boosting round ``t``'s tree of class ``cls``, both scored on
     the port's own state there: the refit rows, F after the first ``t``
-    (identical) rounds, and the node's bf16-operand histogram, as the
-    grower builds it (sigmoid, squared-error or softmax gradients)."""
+    (identical) rounds (``testing.boosting_stats``), and the node's
+    histogram built directly."""
     from transmogrifai_tpu_torch.models import trees as TR
     from transmogrifai_tpu_torch.models.api import MODEL_REGISTRY
     from transmogrifai_tpu_torch.ops.forest import (
         route_codes, route_codes_chain,
     )
-    from transmogrifai_tpu_torch.ops.xla_cpu import fma32, xla_softmax
-    from transmogrifai_tpu_torch.testing import SERVE_MODELS, SERVE_TASKS
+    from transmogrifai_tpu_torch.testing import SERVE_MODELS, boosting_stats
 
-    family, hyper = SERVE_MODELS[key]
-    task = SERVE_TASKS[key]
+    family, hyper, task = SERVE_MODELS[key]
     fam = MODEL_REGISTRY[family]
     p = model.stages[-1].fitted.params
-    codes, y, w = _refit_rows(model, data)
+    codes, y, w = refit_rows(model, data)
     keys = TREE_KEYS[key]
-    chain = "base_lv" in p
-    leaf = p["leaf"]                                     # (rounds, C, L)
-    C = leaf.shape[1]
-    depth = p[keys[0]].shape[2] if chain else TR._depth_of(leaf.shape[-1])
-
-    def route(r: int, c: int, levels: int) -> torch.Tensor:
-        """Each refit row's node in round r's class-c tree after
-        ``levels``."""
-        tabs = [p[k][r:r + 1, c] for k in keys]
-        if not chain:
-            return route_codes(codes, tabs[0], tabs[1], levels,
-                               TR.N_BINS)[:, 0].long()
-        if not levels:
-            return torch.zeros(codes.shape[0], dtype=torch.long,
-                               device=codes.device)
-        return route_codes_chain(codes, *(x[:, :levels].contiguous()
-                                          for x in tabs),
-                                 TR.N_BINS)[:, 0].long()
-
-    F = p["f0"].reshape(1, C).expand(codes.shape[0], C).clone()
-    for r in range(t):
-        for c in range(C):
-            F[:, c] = fma32(p["eta"], leaf[r, c][route(r, c, depth)],
-                            F[:, c])
-    if task == "binary":
-        pr = torch.sigmoid(F[:, 0])
-        g, h = pr - y, torch.clamp(pr * (1 - pr), min=1e-6)
-    elif task == "regression":
-        g, h = F[:, 0] - y, torch.ones_like(y)
+    chain = keys == CHAIN_KEYS
+    tabs = [p[k][t:t + 1, cls] for k in keys]
+    if not level:
+        node = torch.zeros(codes.shape[0], dtype=torch.int32,
+                           device=codes.device)
+    elif chain:
+        node = route_codes_chain(codes, *(x[:, :level].contiguous()
+                                          for x in tabs), TR.N_BINS)[:, 0]
     else:
-        P = xla_softmax(F.T[None])[0, cls]
-        g, h = P - (y == cls).float(), torch.clamp(P * (1 - P), min=1e-6)
-    stats = torch.stack([g * w, h * w, w], dim=1)
+        node = route_codes(codes, tabs[0], tabs[1], level, TR.N_BINS)[:, 0]
+    stats = torch.stack([s[:, cls] for s in boosting_stats(
+        p, codes, y, w, task, t)], dim=1)
     gain = _node_gains(
-        codes, stats * (route(t, cls, level) == j).float()[:, None],
+        codes, stats * (node == j).float()[:, None],
         {"lam": hyper.get("lambda", fam.lam_default),
          "min_child_weight": hyper.get("minChildWeight", fam.mcw_default),
          "min_instances": hyper.get("minInstancesPerNode", 0.0)}, "gh")
@@ -953,97 +911,63 @@ def _gbt_gain_gap(model, data, fixture, key: str, t: int, level: int,
                 hyper.get("minInfoGain", 0.0))
 
 
-def _chain_gain_gap(model, data, fixture, t: int, level: int,
-                    j: int, key: str = "rf") -> float:
-    """Split gain of the port's choice minus the fixture's at slot ``j``
-    of level ``level`` of RF refit tree ``t`` (the levels above are the
-    same in both), scored on tree t's bootstrap rows and feature subset:
-    class counts (Gini) or, for a regressor, [-y, 1, 1] (Newton)."""
+def _forest_gain_gap(model, data, fixture, key: str, t: int, level: int,
+                     j: int) -> float:
+    """Split gain of the port's choice minus the fixture's at node ``j``
+    (a chain's slot, or the DT heap's position within the level) of level
+    ``level`` of forest tree ``t`` (the levels above are the same in
+    both), scored on the tree's bootstrap rows and feature subset (the
+    DT's: every row and feature): class counts (Gini) or, for a
+    regressor, [-y, 1, 1] (Newton)."""
     from transmogrifai_tpu_torch.models import bootstrap
-    from transmogrifai_tpu_torch.ops.forest import route_codes_chain
-    from transmogrifai_tpu_torch.testing import SERVE_MODELS, SERVE_TASKS
+    from transmogrifai_tpu_torch.ops.forest import (
+        route_codes, route_codes_chain,
+    )
+    from transmogrifai_tpu_torch.testing import SERVE_MODELS
 
-    _, hyper = SERVE_MODELS[key]
-    regression = SERVE_TASKS[key] == "regression"
+    _, hyper, task = SERVE_MODELS[key]
+    regression = task == "regression"
+    keys = TREE_KEYS[key]
     p = model.stages[-1].fitted.params
-    codes, y, w = _refit_rows(model, data)
+    codes, y, w = refit_rows(model, data)
     S, d = codes.shape
-    boots, fmask = bootstrap.draw(
-        np.array([7.0], np.float32),
-        np.array([hyper["subsamplingRate"]], np.float32), hyper["numTrees"],
-        S, d, bootstrap.feature_share(
-            d, "regression" if regression else "classification"),
-        codes.device, folded=True)              # one config: the refit
+    if key == "dt":
+        boot = torch.ones(S, device=codes.device)
+        fmask = torch.ones(d, dtype=torch.bool, device=codes.device)
+        at = (2 ** level - 1 + j,)
+    else:
+        boots, fmasks = bootstrap.draw(
+            np.array([7.0], np.float32),
+            np.array([hyper["subsamplingRate"]], np.float32),
+            hyper["numTrees"], S, d, bootstrap.feature_share(
+                d, "regression" if regression else "classification"),
+            codes.device, folded=True)          # one config: the refit
+        boot, fmask = boots[0, t], fmasks[0, t]
+        at = (t, level, j)
+    if not level:
+        node = torch.zeros(S, dtype=torch.int32, device=codes.device)
+    elif key == "dt":
+        node = route_codes(codes, p["feat"][None], p["bins"][None], level,
+                           N_BINS)[:, 0]
+    else:
+        node = route_codes_chain(codes, *(p[k][t:t + 1, :level].contiguous()
+                                          for k in keys), N_BINS)[:, 0]
     if regression:
         stats = torch.stack([-y, torch.ones_like(y), torch.ones_like(y)], 1)
     else:
         stats = torch.nn.functional.one_hot(
             y.long(), max(int(p["leaf"].shape[-1]), 2)).float()
-    sw = stats * (w * boots[0, t])[:, None]
-    slot = (route_codes_chain(codes, *(p[k][t:t + 1, :level].contiguous()
-                                       for k in ("feat_lv", "bins_lv",
-                                                 "base_lv")),
-                              N_BINS)[:, 0]
-            if level else torch.zeros(S, dtype=torch.int32,
-                                      device=codes.device))
-    A = (sw * (slot == j).float()[:, None]).to(torch.bfloat16).float()
+    sw = stats * (w * boot)[:, None]
+    A = (sw * (node == j).float()[:, None]).to(torch.bfloat16).float()
     gain = _node_gains(codes, A, {"min_instances":
                                   hyper["minInstancesPerNode"], "lam": 1e-6,
                                   "min_child_weight": 0.0},
                        "gh" if regression else "counts")
-    gain = torch.where(fmask[0, t][:, None], gain,
+    gain = torch.where(fmask[:, None], gain,
                        torch.full_like(gain, -float("inf")))
-    return _gap(gain, (int(p["feat_lv"][t, level, j]),
-                       int(p["bins_lv"][t, level, j])),
-                (int(fixture["feat_lv"][t, level, j]),
-                 int(fixture["bins_lv"][t, level, j])),
+    return _gap(gain, tuple(int(p[k][at]) for k in keys[:2]),
+                tuple(int(fixture[k][at]) for k in keys[:2]),
                 hyper["minInfoGain"])
-
-
-def _first_gbt_difference(model, data, got, fx):
-    """Report the first differing GBT node with its split-gain gap."""
-    same = [all(np.array_equal(got[k][t], fx[k][t]) for k in ("feat", "bins"))
-            for t in range(len(fx["feat"]))]
-    t = same.index(False)
-    diff = np.nonzero((got["feat"][t, 0] != fx["feat"][t, 0])
-                      | (got["bins"][t, 0] != fx["bins"][t, 0]))[0]
-    j = int(diff[0])
-    level = int(np.log2(j + 1))
-    gap = _gbt_gain_gap(model, data, fx, "gbt", t, level,
-                        j - (2 ** level - 1))
-    print(f"(t) first differing tree: round {t}, heap node {j} (port "
-          f"split f{got['feat'][t, 0, j]}/b{got['bins'][t, 0, j]}, "
-          f"fixture f{fx['feat'][t, 0, j]}/b{fx['bins'][t, 0, j]}), "
-          f"gain gap {gap:.6g}")
-
-
-def _chain_differences(model, data, got, fx, key="rf"):
-    """Report each differing slot-chain tree's first differing level and
-    slot, and there the split-gain gap when the two split choices differ:
-    for every RF tree, for ``gbt12`` the first differing round (the
-    boosting state of later rounds differs anyway)."""
-    keys = TREE_KEYS[key]
-    first = True
-    for t in range(len(fx["feat_lv"])):
-        tab = {k: (got[k][t], fx[k][t]) if key == "rf"
-               else (got[k][t, 0], fx[k][t, 0]) for k in keys}
-        diff = np.zeros(tab["feat_lv"][1].shape, bool)
-        for g, f in tab.values():
-            diff |= g != f
-        if not diff.any():
-            continue
-        level = int(np.nonzero(diff.any(1))[0][0])
-        j = int(np.nonzero(diff[level])[0][0])
-        port, fixt = ([tab[k][i][level, j] for k in keys] for i in (0, 1))
-        gap = ""
-        if port[:2] != fixt[:2] and (key == "rf" or first):
-            g = (_chain_gain_gap(model, data, fx, t, level, j) if key == "rf"
-                 else _gbt_gain_gap(model, data, fx, key, t, level, j))
-            gap = f", gain gap {g:.6g}"
-        first = False
-        print(f"(t) {key} tree {t}: first difference at level {level}, slot "
-              f"{j} (port f{port[0]}/b{port[1]}/base {port[2]}, fixture "
-              f"f{fixt[0]}/b{fixt[1]}/base {fixt[2]}){gap}")
 
 
 def _tree_tables(params, key):
@@ -1061,40 +985,46 @@ def _tree_tables(params, key):
     return out
 
 
-def _first_difference(model, data, fixture, key, got, fx, same):
-    """Report the first differing tree of a regression or multiclass
-    train: its (round, class) or tree index, level and node, both splits
-    there and, when they differ, the split-gain gap (``got``/``fx``: the
-    tables of ``_tree_tables``; ``fixture``: the fixture's params)."""
-    t = same.index(False)
-    chain = "base_lv" in got
-    diff = np.zeros(fx[TREE_KEYS[key][0]][t].shape, bool)
-    for k in TREE_KEYS[key]:
-        diff |= got[k][t] != fx[k][t]
-    if chain:
-        level = int(np.nonzero(diff.any(1))[0][0])
-        j = int(np.nonzero(diff[level])[0][0])
-        at, where = (t, level, j), f"level {level}, slot {j}"
-    else:
-        j = int(np.nonzero(diff)[0][0])
-        level = int(np.log2(j + 1))
-        at, where = (t, j), f"level {level}, heap node {j}"
-    tree = (f"round {t // N_CLASSES}, class {t % N_CLASSES}"
-            if key == "xgbmc" else f"round {t}" if key in BOOSTED
-            else f"tree {t}")
-    port, fixt = ([int(tab[k][at]) for k in TREE_KEYS[key]]
-                  for tab in (got, fx))
-    gap = ""
-    if port[:2] != fixt[:2]:
-        if chain:
-            g = _chain_gain_gap(model, data, fixture, t, level, j, key)
+def _tree_differences(model, data, fixture, key, got, fx, same):
+    """Report the first difference of each differing tree (the first
+    ``MAX_REPORTED``): its (round, class) or tree index, level and node (a
+    heap's node, a chain's slot), both splits there and, where the split
+    choices differ, the split-gain gap. A forest's trees are independent,
+    so each gets its gap; a boosted model's later rounds start from
+    another state, so only its first differing tree does (``got``/``fx``:
+    the tables of ``_tree_tables``; ``fixture``: the fixture's params)."""
+    keys = TREE_KEYS[key]
+    boosted = key in BOOSTED
+    C = N_CLASSES if key == "xgbmc" else 1
+    differing = [t for t, s in enumerate(same) if not s]
+    for i, t in enumerate(differing[:MAX_REPORTED]):
+        diff = np.zeros(fx[keys[0]][t].shape, bool)
+        for k in keys:
+            diff |= got[k][t] != fx[k][t]
+        if keys == CHAIN_KEYS:
+            level = int(np.nonzero(diff.any(1))[0][0])
+            j = int(np.nonzero(diff[level])[0][0])
+            at, where = (t, level, j), f"level {level}, slot {j}"
         else:
-            C = N_CLASSES if key == "xgbmc" else 1
-            g = _gbt_gain_gap(model, data, fixture, key, t // C, level,
-                              j - (2 ** level - 1), t % C)
-        gap = f", gain gap {g:.6g}"
-    print(f"(t) {key}: first differing tree: {tree}, {where} (port "
-          f"{port}, fixture {fixt}){gap}")
+            node = int(np.nonzero(diff)[0][0])
+            level = int(np.log2(node + 1))
+            j = node - (2 ** level - 1)
+            at, where = (t, node), f"level {level}, heap node {node}"
+        port, fixt = ([int(tab[k][at]) for k in keys] for tab in (got, fx))
+        gap = ""
+        if port[:2] != fixt[:2] and not (boosted and i):
+            g = (_gbt_gain_gap(model, data, fixture, key, t // C, level, j,
+                               t % C) if boosted
+                 else _forest_gain_gap(model, data, fixture, key, t, level,
+                                       j))
+            gap = f", gain gap {g:.6g}"
+        tree = (f"round {t // C}, class {t % C}" if C > 1
+                else f"round {t}" if boosted else f"tree {t}")
+        print(f"(t) {key} {tree}: first difference at {where} (port "
+              f"{port}, fixture {fixt}){gap}")
+    if len(differing) > MAX_REPORTED:
+        print(f"(t) {key}: {len(differing) - MAX_REPORTED} more trees "
+              f"differ")
 
 
 def _parts_of(model, scored):
@@ -1147,12 +1077,10 @@ def train_against_fixture(key: str):
     frame. Returns the train's seconds."""
     import transmogrifai_tpu_torch as tt
     from transmogrifai_tpu_torch.testing import (
-        SERVE_MODELS, SERVE_TASKS, score_frame, serve_bench_data,
-        serve_bench_workflow,
+        SERVE_MODELS, score_frame, serve_bench_data, serve_bench_workflow,
     )
 
-    family, hyper = SERVE_MODELS[key]
-    task = SERVE_TASKS[key]
+    family, hyper, task = SERVE_MODELS[key]
     data = serve_bench_data(TRAIN_ROWS, N_FEATURES, TRAIN_SEED, task)
     wf = serve_bench_workflow(family, hyper, N_FEATURES, TRAIN_SEED,
                               problem=task).set_input_dataset(data)
@@ -1191,12 +1119,7 @@ def train_against_fixture(key: str):
           f"({len(model.stages[-2].keep_indices)}), trees identical: "
           f"{sum(same)} of {len(same)}")
     if not all(same):
-        if key == "gbt":
-            _first_gbt_difference(model, data, got, fx)
-        elif key in ("rf", "gbt12"):
-            _chain_differences(model, data, got, fx, key)
-        else:
-            _first_difference(model, data, fx, key, tg, tf, same)
+        _tree_differences(model, data, fx, key, tg, tf, same)
     metric = {"binary": "AuPR", "regression": "RootMeanSquaredError",
               "multiclass": "F1"}[task]
     folds = np.asarray(ps.summary.validation_results[0].fold_metrics,
@@ -1218,7 +1141,7 @@ def train_against_fixture(key: str):
         raise AssertionError(f"{key}: {metric} off the fixture's by more "
                              f"than {AUPR_ATOL}")
     exp = np.load(os.path.join(path, "expected.npz"))
-    frame = score_frame(SCORE_ROWS, N_FEATURES, SCORE_SEED)
+    frame = score_frame()
     parts = _parts_of(model, model.score(data=frame))
     if task != "binary":
         print(f"(t) {key}: vs the JAX-trained model on {SCORE_ROWS} rows: "
@@ -1244,14 +1167,13 @@ def phase_serve():
     and multiclass parts within the limits of (t) with identical trees)."""
     import transmogrifai_tpu_torch as tt
     from transmogrifai_tpu_torch.testing import (
-        SERVE_MODELS, SERVE_TASKS, score_frame, serve_bench_data,
+        SERVE_MODELS, score_frame, serve_bench_data,
     )
 
-    frame = score_frame(SCORE_ROWS, N_FEATURES, SCORE_SEED)
+    frame = score_frame()
     reps = N_ROWS // SCORE_ROWS
     big = {name: np.tile(v, reps) for name, v in frame.items()}
-    for key in SERVE_MODELS:
-        task = SERVE_TASKS[key]
+    for key, (_, _, task) in SERVE_MODELS.items():
         path = os.path.join(FIXTURES, key)
         model = tt.load_model(path)                # default: the card
         if model.device.type != "cuda":

@@ -47,8 +47,8 @@ from transmogrifai_tpu_torch.persistence import (  # noqa: E402
     CorruptModelError,
 )
 from transmogrifai_tpu_torch.testing import (  # noqa: E402
-    SERVE_MODELS as PORT_SERVE_MODELS, SERVE_TASKS as PORT_SERVE_TASKS,
-    serve_bench_data,
+    SCORE_ROWS, SCORE_SEED, SERVE_MODELS as PORT_SERVE_MODELS, TRAIN_ROWS,
+    TRAIN_SEED, serve_bench_data,
 )
 
 FIXTURE_DIR = os.path.join(REPO, "transmogrifai_tpu_torch", "fixtures",
@@ -63,32 +63,41 @@ REG_RTOL = 1e-5
 JAX_SELF_ATOL = 1e-6
 
 #: the serve-bench model shape (bench.py ``_serve_model``) at full width,
-#: with the winner pinned to one tree family
+#: with the winner pinned to one tree family: {key: (family,
+#: hyperparameters, problem kind)}
 SERVE_MODELS = {
     "rf": ("OpRandomForestClassifier",
            {"maxDepth": 12, "numTrees": 50, "minInstancesPerNode": 10,
-            "minInfoGain": 0.001, "subsamplingRate": 1.0}),
+            "minInfoGain": 0.001, "subsamplingRate": 1.0},
+           "binary"),
     "gbt": ("OpGBTClassifier",
             {"maxDepth": 6, "maxIter": 20, "stepSize": 0.1,
-             "minInstancesPerNode": 10, "minInfoGain": 0.001}),
+             "minInstancesPerNode": 10, "minInfoGain": 0.001},
+            "binary"),
     "dt": ("OpDecisionTreeClassifier",
-           {"maxDepth": 6, "minInstancesPerNode": 10, "minInfoGain": 0.001}),
+           {"maxDepth": 6, "minInstancesPerNode": 10, "minInfoGain": 0.001},
+           "binary"),
     "gbt12": ("OpGBTClassifier",
               {"maxDepth": 12, "maxIter": 20, "stepSize": 0.1,
-               "minInstancesPerNode": 10, "minInfoGain": 0.001}),
+               "minInstancesPerNode": 10, "minInfoGain": 0.001},
+              "binary"),
     "rfreg": ("OpRandomForestRegressor",
               {"maxDepth": 12, "numTrees": 50, "minInstancesPerNode": 10,
-               "minInfoGain": 0.001, "subsamplingRate": 1.0}),
+               "minInfoGain": 0.001, "subsamplingRate": 1.0},
+              "regression"),
     "gbtreg": ("OpGBTRegressor",
                {"maxDepth": 6, "maxIter": 20, "stepSize": 0.1,
-                "minInstancesPerNode": 10, "minInfoGain": 0.001}),
+                "minInstancesPerNode": 10, "minInfoGain": 0.001},
+               "regression"),
     "rfmc": ("OpRandomForestClassifier",
              {"maxDepth": 12, "numTrees": 50, "minInstancesPerNode": 10,
-              "minInfoGain": 0.001, "subsamplingRate": 1.0}),
+              "minInfoGain": 0.001, "subsamplingRate": 1.0},
+             "multiclass"),
     "xgbmc": ("OpXGBoostClassifier",
               {"maxDepth": 6, "maxIter": 100, "stepSize": 0.3,
                "minChildWeight": 1.0, "lambda": 1.0, "minInfoGain": 0.0,
-               "minInstancesPerNode": 0.0}),
+               "minInstancesPerNode": 0.0},
+              "multiclass"),
 }
 
 
@@ -96,11 +105,6 @@ SERVE_MODELS = {
 # JAX-side helpers: train, save, score
 # ---------------------------------------------------------------------------
 
-#: each serve model's problem kind
-SERVE_TASKS = {"rf": "binary", "gbt": "binary", "dt": "binary",
-               "gbt12": "binary", "rfreg": "regression",
-               "gbtreg": "regression", "rfmc": "multiclass",
-               "xgbmc": "multiclass"}
 #: classes of the multiclass frame
 N_CLASSES = 6
 
@@ -212,16 +216,15 @@ def expected_parts(parts, task: str):
     return {k: parts[k] for k in keep}
 
 
-def generate_fixture(out_dir: str = FIXTURE_DIR, n: int = 20000, d: int = 64,
-                     n_score: int = 4096, seed: int = 0, keys=None) -> None:
+def generate_fixture(out_dir: str = FIXTURE_DIR, n: int = TRAIN_ROWS,
+                     d: int = 64, seed: int = TRAIN_SEED, keys=None) -> None:
     """Train the serve models named by ``keys`` (default: all) at full
     width, save them, and write ``expected.npz``: the JAX package's
-    prediction parts on the scoring frame ``score_frame(n_score, d,
-    seed + 1)``, which the port rebuilds from its seed."""
-    frame = score_frame(n_score, d, seed + 1)
+    prediction parts on the scoring frame ``fixture_frame()``, which the
+    port rebuilds from its seed."""
+    frame = fixture_frame()
     for key in keys or SERVE_MODELS:
-        family, hyper = SERVE_MODELS[key]
-        task = SERVE_TASKS[key]
+        family, hyper, task = SERVE_MODELS[key]
         model = train_jax_model(family, hyper, n, d, seed, task=task)
         path = os.path.join(out_dir, key)
         save_jax_model(model, path)
@@ -359,10 +362,11 @@ FIXTURE_SHAPES = {
 }
 
 
-def fixture_frame(n_score: int = 4096, d: int = 64, seed: int = 1):
-    """The scoring frame of the committed fixtures (``generate_fixture``'s
-    ``score_frame(n_score, d, seed + 1)``)."""
-    return score_frame(n_score, d, seed)
+def fixture_frame():
+    """The scoring frame of the committed fixtures: the port's
+    ``testing.score_frame()`` rows and seed, through this file's
+    recipe."""
+    return score_frame(SCORE_ROWS, 64, SCORE_SEED)
 
 
 @pytest.mark.parametrize("key", list(SERVE_MODELS))
@@ -392,14 +396,33 @@ def test_port_rebuilds_the_fixture_scoring_frame_bit_for_bit():
     frame from its seed (``testing.score_frame``); it must be this file's
     frame to the bit, NaNs in the same places."""
     from transmogrifai_tpu_torch.testing import score_frame as port_frame
-    for n, d, seed, nan_rate in ((4096, 64, 1, 0.01), (300, 5, 4, 0.05)):
-        got, want = port_frame(n, d, seed, nan_rate), score_frame(
-            n, d, seed, nan_rate)
+    for got, want in ((port_frame(), fixture_frame()),
+                      (port_frame(300, 5, 4, 0.05),
+                       score_frame(300, 5, 4, 0.05))):
         assert list(got) == list(want)
         for name in want:
             assert got[name].dtype == want[name].dtype
             np.testing.assert_array_equal(got[name].view(np.int32),
                                           want[name].view(np.int32))
+
+
+def test_cpu_replay_of_the_xgbmc_tied_split_takes_the_fixture_bin():
+    """At round 26, class 1, heap node 14 of the xgbmc fixture, feature
+    57's bins 20 and 21 split the node's rows alike (no row there has code
+    21), so only the rounding of the node's sibling-subtracted histogram
+    decides between them. Replayed from the fixture's state, the port's
+    grower on the CPU takes the fixture's bin."""
+    from transmogrifai_tpu_torch.experiments.tie_replay import (
+        XGBMC_TIE, replay,
+    )
+    assert XGBMC_TIE == ("xgbmc", 26, 1, 14, 57, (20, 21))
+    model = port.load_model(os.path.join(FIXTURE_DIR, "xgbmc"), device="cpu")
+    data = serve_bench_data(TRAIN_ROWS, 64, TRAIN_SEED, "multiclass")
+    r = replay(model, data, model.stages[-1].fitted.params, *XGBMC_TIE)
+    assert r["leaves_before"]["differ"] == 0
+    assert r["bins"][21]["rows"] == 0 < r["bins"][20]["rows"]
+    assert r["bins"][21]["cells"]["direct_f64"] == [0.0, 0.0, 0.0]
+    assert r["replayed"] == r["fixture"] == [57, 20]
 
 
 def test_fixture_stays_small():
@@ -426,7 +449,6 @@ def test_port_pins_the_fixture_models():
     """``chip_smoke.py`` and ``profile_train`` train the port's table of
     the serve models and hold the results to these fixtures."""
     assert PORT_SERVE_MODELS == SERVE_MODELS
-    assert PORT_SERVE_TASKS == SERVE_TASKS
 
 
 def _run(code: str, **env):
@@ -459,7 +481,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "evaluators.multi", "evaluators.regression",
                 "evaluators.factory", "models.trees", "persistence",
                 "impl.selector.model_selector", "local.scoring",
-                "ops.xla_cpu"):
+                "ops.xla_cpu", "experiments.tie_replay"):
         assert f"transmogrifai_tpu_torch.{mod}" in walked, mod
 
 

@@ -9,7 +9,7 @@ arithmetic of that program is written out here step by step:
 
 * ``log``, ``log1p`` and ``exp`` are XLA's CPU polynomial approximations
   (Cephes, with multiply-adds fused), not correctly rounded functions
-  (``exp`` is ``ops.xla_cpu.xla_exp``);
+  (``ops.xla_cpu``);
 * ``gammaln(k + 1)`` is the Lanczos approximation (g = 7, 8 terms) in
   float32. Where XLA folds it at compile time, its ``log`` and ``log1p``
   are correctly rounded and nothing is fused; where it computes it when
@@ -22,8 +22,8 @@ arithmetic of that program is written out here step by step:
   says which (``folded``);
 * ``-lam + k * log(lam)`` is one fused multiply-add.
 
-A fused multiply-add is computed in float64 (the product of two float32
-values is exact there) and rounded once to float32.
+All of it is float32 arithmetic on CPU tensors; the CDF is summed on the
+host in order.
 """
 from __future__ import annotations
 
@@ -33,9 +33,7 @@ import numpy as np
 import torch
 
 from .. import rng
-from ..ops.xla_cpu import xla_exp
-
-_F = np.float32
+from ..ops.xla_cpu import fma32, xla_exp, xla_log, xla_log1p
 
 _LANCZOS_G = 7.0
 _LANCZOS_BASE = 0.99999999999980993227684700473478
@@ -49,99 +47,43 @@ _LANCZOS = (676.520368121885098567009190444019,
             1.50563273514931155834e-7)
 _LOG_SQRT_2PI = 0.91893853320467274178032973640562
 
-_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
-          -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
-          2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
-_LOG1P_NUM = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
-               6.5787325942061044846969e0, 2.9911919328553073277375e1,
-               6.0949667980987787057556e1, 5.7112963590585538103336e1,
-               2.0039553499201281259648e1)
-_LOG1P_DEN = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469310e1,
-              2.2176239823732856465394e2, 3.0909872225312059774938e2,
-              2.1642788614495947685003e2, 6.0118660497603843919306e1)
-
 #: bootstrap counts 0..7 (P[X > 7 | lam <= 1] < 1e-6)
 _MAX_COUNT = 7
 
 
-def _fma(a, b, c) -> np.ndarray:
-    f64 = np.float64
-    return (np.asarray(a, f64) * np.asarray(b, f64)
-            + np.asarray(c, f64)).astype(_F)
+def _correctly_rounded(fn, x: torch.Tensor) -> torch.Tensor:
+    """fn (a float64 ``math`` function) of each float32 value, rounded to
+    float32: what XLA folds at compile time."""
+    return torch.tensor([fn(v) for v in x.tolist()], dtype=torch.float64
+                        ).float()
 
 
-def _log_f32(x: np.ndarray) -> np.ndarray:
-    """XLA's CPU float32 log of positive normal x."""
-    x = np.asarray(x, _F)
-    bits = x.view(np.int32)
-    e = ((bits >> 23) - 0x7F).astype(_F) + _F(1)
-    m = ((bits & ~0x7F800000) | _F(0.5).view(np.int32)).view(_F)
-    low = m < _F(0.707106781186547524)
-    t = ((m - _F(1)) + np.where(low, m, _F(0))).astype(_F)
-    e = (e - np.where(low, _F(1), _F(0))).astype(_F)
-    x2 = (t * t).astype(_F)
-    x3 = (x2 * t).astype(_F)
-    p = _LOG_P
-    y = _fma(t, _F(p[0]), _F(p[1]))
-    y1 = _fma(t, _F(p[3]), _F(p[4]))
-    y2 = _fma(t, _F(p[6]), _F(p[7]))
-    y = _fma(y, t, _F(p[2]))
-    y1 = _fma(y1, t, _F(p[5]))
-    y2 = _fma(y2, t, _F(p[8]))
-    y = _fma(y, x3, y1)
-    y = _fma(y, x3, y2)
-    y = _fma(y, x3, (_F(-2.12194440e-4) * e).astype(_F))
-    t = _fma(_F(-0.5), x2, t)
-    t = (t + y).astype(_F)
-    return _fma(_F(0.693359375), e, t)
-
-
-def _poly_f32(x, coeffs) -> np.float32:
-    """Horner's rule from the leading coefficient, one fused multiply-add
-    per step."""
-    p = _F(0)
-    for c in coeffs:
-        p = _fma(p, x, _F(c))
-    return _F(p)
-
-
-def _log1p_f32(x) -> np.float32:
-    """XLA's CPU float32 log1p: a Cephes rational function below
-    sqrt(2) - 1, else log(1 + x)."""
-    x = _F(x)
-    if abs(x) < 0.41421356237309504880:
-        x2 = _F(x * x)
-        r = _F(_poly_f32(x, _LOG1P_NUM) / _poly_f32(x, _LOG1P_DEN))
-        r = _fma(_F(-0.5), x2, _F(_F(x * x2) * r))
-        return _F(x + r)
-    return _F(_log_f32(np.array([_F(x + _F(1))]))[0])
-
-
-def _lgamma_f32(x: float, folded: bool) -> np.float32:
+def _lgamma_f32(x: torch.Tensor, folded: bool) -> torch.Tensor:
     """XLA's float32 log-gamma of x >= 1 (no reflection) on the CPU: the
     Lanczos approximation, its division by 7.5 a multiplication by the
     reciprocal; folded at compile time, or computed at run time."""
-    x = _F(x)
-    z = _F(x - _F(1))
-    acc = _F(_LANCZOS_BASE)
+    def const(v):
+        return torch.full_like(x, float(np.float32(v)))
+    z = x - 1.0
+    acc = const(_LANCZOS_BASE)
     for i, c in enumerate(_LANCZOS):
-        acc = _F(acc + _F(_F(c) / _F(_F(z + _F(i)) + _F(1))))
-    lph = _F(_LANCZOS_G + 0.5)
-    t = _F(lph + z)
-    q = _F(z * _F(_F(1) / lph))
-    log1p_q = _F(math.log1p(float(q))) if folded else _log1p_f32(q)
-    log_t = _F(_F(math.log(_LANCZOS_G + 0.5)) + log1p_q)
-    u = _F(_F(z + _F(0.5)) - _F(t / log_t))
+        acc = acc + const(c) / ((z + float(i)) + 1.0)
+    lph = const(_LANCZOS_G + 0.5)
+    t = lph + z
+    q = z * (const(1.0) / lph)
+    log1p_q = (_correctly_rounded(math.log1p, q) if folded
+               else xla_log1p(q))
+    log_t = float(np.float32(math.log(_LANCZOS_G + 0.5))) + log1p_q
+    u = (z + 0.5) - t / log_t
     if folded:
-        return _F(_F(_F(_LOG_SQRT_2PI) + _F(u * log_t))
-                  + _F(math.log(float(acc))))
-    s = _fma(u, log_t, _F(_LOG_SQRT_2PI))
-    return _F(s + _F(_log_f32(np.array([acc]))[0]))
+        return ((float(np.float32(_LOG_SQRT_2PI)) + u * log_t)
+                + _correctly_rounded(math.log, acc))
+    return fma32(u, log_t, _LOG_SQRT_2PI) + xla_log(acc)
 
 
 #: gammaln(k + 1), k = 0..7, as XLA computes it at run time / folds it
-_LGAMMA = {folded: np.array([_lgamma_f32(k + 1.0, folded)
-                             for k in range(_MAX_COUNT + 1)], _F)
+_LGAMMA = {folded: _lgamma_f32(
+    torch.arange(1, _MAX_COUNT + 2, dtype=torch.float32), folded)
            for folded in (False, True)}
 
 
@@ -150,12 +92,11 @@ def poisson_cdf(rates, folded: bool) -> np.ndarray:
     ``rates``: cumsum(exp(-lam + k log(lam) - gammaln(k + 1))), lam =
     max(rate, 1e-12), summed in order; ``folded`` picks the gammaln
     table."""
-    lam = np.maximum(np.asarray(rates, _F).reshape(-1, 1), _F(1e-12))
-    ks = np.arange(_MAX_COUNT + 1, dtype=_F)[None, :]
-    a = _fma(ks, _log_f32(lam), -lam)
-    pmf = xla_exp(torch.from_numpy((a - _LGAMMA[folded][None, :])
-                                   .astype(_F))).numpy()
-    return np.cumsum(pmf, axis=1, dtype=_F)
+    lam = torch.clamp(torch.as_tensor(np.asarray(rates, np.float32))
+                      .reshape(-1, 1), min=float(np.float32(1e-12)))
+    ks = torch.arange(_MAX_COUNT + 1, dtype=torch.float32)[None, :]
+    pmf = xla_exp(fma32(ks, xla_log(lam), -lam) - _LGAMMA[folded][None, :])
+    return np.cumsum(pmf.numpy(), axis=1, dtype=np.float32)
 
 
 def feature_share(d: int, task: str) -> float:

@@ -7,7 +7,9 @@ multiclass):
   computes it in float64, where the product of two float32 values is
   exact, and rounds once;
 * its ``exp`` is the Cephes polynomial with float32 constants, its input
-  clamped and subnormal results flushed to 0 (``xla_exp``);
+  clamped and subnormal results flushed to 0 (``xla_exp``); its ``log``
+  and ``log1p`` are Cephes approximations too (``xla_log``,
+  ``xla_log1p``), every multiply-add in them fused;
 * it reduces more than 32 elements in windows of 32, each added in order
   (``xla_sum``).
 
@@ -23,6 +25,19 @@ import torch
 _EXP_CLAMP = (-87.8, 88.8)
 _EXP_P = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
           4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1)
+
+#: XLA's CPU float32 log (Cephes): the polynomial of the mantissa
+_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+          -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+          2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
+#: and its log1p below sqrt(2) - 1: a rational function
+_LOG1P_NUM = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+              6.5787325942061044846969e0, 2.9911919328553073277375e1,
+              6.0949667980987787057556e1, 5.7112963590585538103336e1,
+              2.0039553499201281259648e1)
+_LOG1P_DEN = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469310e1,
+              2.2176239823732856465394e2, 3.0909872225312059774938e2,
+              2.1642788614495947685003e2, 6.0118660497603843919306e1)
 
 #: the least normal float32
 _F32_TINY = float(np.finfo(np.float32).tiny)
@@ -61,6 +76,57 @@ def xla_exp(x: torch.Tensor) -> torch.Tensor:
     y = 1.0 + fma32(y, z, a)
     return flush_subnormal((y.double() * torch.pow(2.0, n.double()))
                            .float())
+
+
+def _f32(v: float) -> float:
+    """A python constant rounded to float32 (exact in either precision)."""
+    return float(np.float32(v))
+
+
+def xla_log(x: torch.Tensor) -> torch.Tensor:
+    """log of positive normal float32 x: x = m * 2^e with m in
+    [sqrt(1/2), sqrt(2)), log(m) by the Cephes polynomial in t = m - 1,
+    e * log(2) added in two parts."""
+    bits = x.view(torch.int32)
+    e = ((bits >> 23) - 0x7F).float() + 1.0
+    half = int(np.float32(0.5).view(np.int32))
+    m = ((bits & ~0x7F800000) | half).view(torch.float32)
+    low = m < _f32(0.707106781186547524)
+    t = (m - 1.0) + torch.where(low, m, torch.zeros_like(m))
+    e = e - low.float()
+    x2 = t * t
+    x3 = x2 * t
+    p = _LOG_P
+    y = fma32(t, p[0], p[1])
+    y1 = fma32(t, p[3], p[4])
+    y2 = fma32(t, p[6], p[7])
+    y = fma32(y, t, p[2])
+    y1 = fma32(y1, t, p[5])
+    y2 = fma32(y2, t, p[8])
+    y = fma32(y, x3, y1)
+    y = fma32(y, x3, y2)
+    y = fma32(y, x3, _f32(-2.12194440e-4) * e)
+    t = fma32(-0.5, x2, t)
+    return fma32(0.693359375, e, t + y)
+
+
+def _horner(x: torch.Tensor, coeffs) -> torch.Tensor:
+    """A polynomial from its leading coefficient, one fused multiply-add
+    per step."""
+    p = torch.zeros_like(x)
+    for c in coeffs:
+        p = fma32(p, x, c)
+    return p
+
+
+def xla_log1p(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + x) of float32 x > -1: a Cephes rational function where
+    |x| < sqrt(2) - 1, else ``xla_log(1 + x)``."""
+    x2 = x * x
+    r = _horner(x, _LOG1P_NUM) / _horner(x, _LOG1P_DEN)
+    small = x + fma32(-0.5, x2, (x * x2) * r)
+    return torch.where(x.abs() < 0.41421356237309504880, small,
+                       xla_log(x + 1.0))
 
 
 def _seq_sum(x: torch.Tensor) -> torch.Tensor:

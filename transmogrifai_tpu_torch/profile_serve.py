@@ -25,12 +25,10 @@ import time
 import numpy as np
 import torch
 
-from .testing import SERVE_MODELS, score_frame
+from .testing import SCORE_ROWS, SERVE_MODELS, score_frame
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "fixtures", "serve64")
-#: the fixtures' scoring frame: ``score_frame(SCORE_ROWS, 64, SCORE_SEED)``
-SCORE_ROWS, SCORE_SEED = 4096, 1
 
 
 def _timed(fn):
@@ -46,7 +44,7 @@ def profile(key: str, rows: int, reps: int) -> dict:
 
     path = os.path.join(FIXTURES, key)
     model = tt.load_model(path)
-    frame = score_frame(SCORE_ROWS, 64, SCORE_SEED)
+    frame = score_frame()
     data = {k: np.tile(v, -(-rows // SCORE_ROWS))[:rows]
             for k, v in frame.items()}
     name = model.result_features[0].name

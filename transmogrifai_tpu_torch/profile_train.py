@@ -34,7 +34,7 @@ from contextlib import contextmanager
 import torch
 
 from .testing import (
-    SERVE_MODELS, SERVE_TASKS, serve_bench_data, serve_bench_workflow,
+    SERVE_MODELS, serve_bench_data, serve_bench_workflow,
 )
 
 
@@ -96,8 +96,7 @@ def _timing(phases: dict):
 
 
 def profile(family: str, rows: int, reps: int) -> dict:
-    name, hyper = SERVE_MODELS[family]
-    task = SERVE_TASKS[family]
+    name, hyper, task = SERVE_MODELS[family]
     data = serve_bench_data(rows, 64, seed=0, task=task)
 
     def train():

@@ -11,40 +11,47 @@ from typing import Dict, Optional
 import numpy as np
 
 #: the serve bench's pinned winners, as the committed ``serve64`` fixtures
-#: were trained: {fixture key: (family, hyperparameters)}; the problem kind
-#: of each key is ``SERVE_TASKS``'s
+#: were trained: {fixture key: (family, hyperparameters, problem kind)};
+#: the problem kind picks the frame's label and the selector
 SERVE_MODELS = {
     "rf": ("OpRandomForestClassifier",
            {"maxDepth": 12, "numTrees": 50, "minInstancesPerNode": 10,
-            "minInfoGain": 0.001, "subsamplingRate": 1.0}),
+            "minInfoGain": 0.001, "subsamplingRate": 1.0},
+           "binary"),
     "gbt": ("OpGBTClassifier",
             {"maxDepth": 6, "maxIter": 20, "stepSize": 0.1,
-             "minInstancesPerNode": 10, "minInfoGain": 0.001}),
+             "minInstancesPerNode": 10, "minInfoGain": 0.001},
+            "binary"),
     "dt": ("OpDecisionTreeClassifier",
-           {"maxDepth": 6, "minInstancesPerNode": 10, "minInfoGain": 0.001}),
+           {"maxDepth": 6, "minInstancesPerNode": 10, "minInfoGain": 0.001},
+           "binary"),
     "gbt12": ("OpGBTClassifier",
               {"maxDepth": 12, "maxIter": 20, "stepSize": 0.1,
-               "minInstancesPerNode": 10, "minInfoGain": 0.001}),
+               "minInstancesPerNode": 10, "minInfoGain": 0.001},
+              "binary"),
     "rfreg": ("OpRandomForestRegressor",
               {"maxDepth": 12, "numTrees": 50, "minInstancesPerNode": 10,
-               "minInfoGain": 0.001, "subsamplingRate": 1.0}),
+               "minInfoGain": 0.001, "subsamplingRate": 1.0},
+              "regression"),
     "gbtreg": ("OpGBTRegressor",
                {"maxDepth": 6, "maxIter": 20, "stepSize": 0.1,
-                "minInstancesPerNode": 10, "minInfoGain": 0.001}),
+                "minInstancesPerNode": 10, "minInfoGain": 0.001},
+               "regression"),
     "rfmc": ("OpRandomForestClassifier",
              {"maxDepth": 12, "numTrees": 50, "minInstancesPerNode": 10,
-              "minInfoGain": 0.001, "subsamplingRate": 1.0}),
+              "minInfoGain": 0.001, "subsamplingRate": 1.0},
+             "multiclass"),
     "xgbmc": ("OpXGBoostClassifier",
               {"maxDepth": 6, "maxIter": 100, "stepSize": 0.3,
                "minChildWeight": 1.0, "lambda": 1.0, "minInfoGain": 0.0,
-               "minInstancesPerNode": 0.0}),
+               "minInstancesPerNode": 0.0},
+              "multiclass"),
 }
 
-#: each serve model's problem kind (its frame's label and its selector)
-SERVE_TASKS = {"rf": "binary", "gbt": "binary", "dt": "binary",
-               "gbt12": "binary", "rfreg": "regression",
-               "gbtreg": "regression", "rfmc": "multiclass",
-               "xgbmc": "multiclass"}
+#: the committed fixtures' training frame (``serve_bench_data``) and
+#: scoring frame (``score_frame()``): rows and seed
+TRAIN_ROWS, TRAIN_SEED = 20000, 0
+SCORE_ROWS, SCORE_SEED = 4096, 1
 
 #: classes of the multiclass serve frame
 SERVE_CLASSES = 6
@@ -210,11 +217,11 @@ def serve_bench_data(n: int, d: int, seed: int,
     return data
 
 
-def score_frame(n: int, d: int, seed: int,
+def score_frame(n: int = SCORE_ROWS, d: int = 64, seed: int = SCORE_SEED,
                 nan_rate: float = 0.01) -> Dict[str, np.ndarray]:
-    """The serve fixtures' scoring frame: ``{x0..: float32 column}`` of
-    standard normals from ``RandomState(seed)``, a ``nan_rate`` share
-    missing (NaN)."""
+    """A scoring frame, by default the serve fixtures': ``{x0..: float32
+    column}`` of standard normals from ``RandomState(seed)``, a
+    ``nan_rate`` share missing (NaN)."""
     rng = np.random.RandomState(seed)
     X = rng.randn(n, d).astype(np.float32)
     X[rng.rand(n, d) < nan_rate] = np.nan
@@ -243,3 +250,67 @@ def serve_bench_workflow(family: str, hyper: Dict, d: int, seed: int,
         seed=seed, models=[(family, [dict(hyper)])])
         .set_input(label, checked).get_output())
     return OpWorkflow(device=device).set_result_features(pred)
+
+
+def refit_rows(model, data, seed: int = TRAIN_SEED):
+    """The rows a trained serve-bench workflow's winner refit on, rebuilt
+    from its training frame ``data``: (bin codes under the model's edges,
+    labels, 0/1 row weights), padded to the row bucket as the selector
+    pads them (every splitter of the three problem kinds keeps all of its
+    train rows on the serve-bench frames)."""
+    import torch
+
+    from .impl.tuning.splitters import Splitter
+    from .models import trees as TR
+    from .utils.padding import bucket_for
+
+    checked = model.stages[-2].get_output().name
+    X = model.score(data=data)[checked].values          # all rows, kept cols
+    train_idx, _ = Splitter(seed=seed).split(X.shape[0])
+    X = X[torch.as_tensor(train_idx, device=X.device)]
+    y = torch.as_tensor(data["y"][train_idx], device=X.device)
+    n = X.shape[0]
+    n_pad = bucket_for(n)
+    X = torch.nn.functional.pad(X, (0, 0, 0, n_pad - n))
+    y = torch.nn.functional.pad(y, (0, n_pad - n))
+    w = (torch.arange(n_pad, device=X.device) < n).float()
+    return TR._bin_features(X, model.stages[-1].fitted.params["edges"]), y, w
+
+
+def boosting_stats(params, codes, y, w, task: str, rounds: int):
+    """The per-row stats [g w, h w, w], each (S, C), that a boosted
+    model's grower had at the start of round ``rounds``: F after its first
+    ``rounds`` rounds of trees (heaps or slot chains) and leaves, replayed
+    on the rows ``codes`` (labels ``y``, weights ``w``) as the grower adds
+    them, then the task's gradients (sigmoid, squared error or
+    softmax)."""
+    import torch
+
+    from .models import trees as TR
+    from .ops.forest import route_codes, route_codes_chain
+    from .ops.xla_cpu import fma32, xla_softmax
+
+    leaf = params["leaf"]                                    # (R, C, L)
+    C, S = leaf.shape[1], codes.shape[0]
+    F = params["f0"].reshape(-1, 1).expand(C, S).contiguous()
+    for r in range(rounds):
+        if "base_lv" in params:
+            ids = route_codes_chain(codes, params["feat_lv"][r],
+                                    params["bins_lv"][r],
+                                    params["base_lv"][r], TR.N_BINS)
+        else:
+            ids = route_codes(codes, params["feat"][r], params["bins"][r],
+                              TR._depth_of(leaf.shape[-1]), TR.N_BINS)
+        F = fma32(params["eta"].reshape(-1, 1),
+                  leaf[r].gather(1, ids.long().T), F)
+    if task == "binary":
+        p = torch.sigmoid(F)
+        g, h = p - y, torch.clamp(p * (1 - p), min=1e-6)
+    elif task == "regression":
+        g, h = F - y, torch.ones_like(F)
+    else:
+        P = xla_softmax(F[None])[0]
+        Y1 = torch.nn.functional.one_hot(y.long(), max(C, 2)).float().T[:C]
+        g, h = P - Y1, torch.clamp(P * (1 - P), min=1e-6)
+    w_c = w[:, None].expand(S, C)
+    return [g.T * w_c, h.T * w_c, w_c]
