@@ -62,8 +62,18 @@ Phases, in order; any failure exits nonzero:
       NaN leaf that a row reaches or that none reaches, a +Inf leaf, a
       +Inf/-Inf pair): the plain versions' NaN cells and rows and every
       other one's bits;
+    - ``hist_matmul``, ``node_hist`` and ``forest_predict_chain`` at the
+      default lists' own sweep inputs (18 configurations x 3 folds a tree
+      family; the depth-3 and 6 heaps turned into padded depth-12 chains):
+      each default list is trained once with the three wrappers wrapped,
+      and every launch is held against the plain version on its inputs:
+      histograms within 2 * 8 sqrt(rows) 2^-24 of each cell's sum of
+      |stat| plus atol 1e-6 (the probabilistic bound on two f32 sums in
+      other orders), ``hist_matmul`` bit-equal on small integer stats of
+      the same codes, ``node_hist`` bit-equal to its direct formula, chain
+      predicts bit-equal with leaf ids exact;
 (t) train: rebuild the serve bench's 20,000 x 64 frames and train eight
-    pinned workflows on the card (``OpWorkflow().train()``,
+    pinned tree workflows on the card (``OpWorkflow().train()``,
     ``testing.SERVE_MODELS``): binary GBT (depth 6, 20 rounds, heaps),
     ``gbt12`` (GBT depth 12, 20 rounds, slot chains), RF (depth 12, 50
     trees, slot chains) and DT (depth 6); regression ``rfreg`` (RF as
@@ -90,12 +100,41 @@ Phases, in order; any failure exits nonzero:
     times; the heap-boosted ones ``forest_predict_heap``, ``gbt12`` and
     the three RF trains ``forest_predict_chain``, the RF trains
     ``forest_leaf_sums_chain``; DT ``forest_leaf_sums_heap`` and
-    ``forest_predict_heap``;
-(c) serve: load the eight committed fixtures on the card, score the
+    ``forest_predict_heap``.
+    Then six pinned linear workflows: binary ``lr`` (logistic regression,
+    regParam 0.01, elasticNetParam 0.5: the L1 prox runs) and ``svc``
+    (linear SVC, 0.01); 6-class ``lrmc`` (softmax LR, 0.01) and ``nbmc``
+    (naive Bayes, smoothing 1); regression ``linreg`` (0.01 / 0.5: ISTA
+    runs) and ``glm`` (gaussian, 0.01); and the three default model lists
+    at full default grids (``default_binary``: LR, RF, GBT, SVC;
+    ``default_mc``: LR, RF; ``default_reg``: linear regression, RF, GBT,
+    GLM). Each must choose the fixture's winner (for the default lists
+    the JAX package chose binary ``OpLinearSVC`` 0.01, multiclass
+    ``OpLogisticRegression`` 0.01 / 0.0, regression
+    ``OpLinearRegression`` 0.001 / 0.5) with every family's (folds,
+    configs) fold metrics within the limits of its family: tree families
+    within 1e-5 (AuPR, F1) or 1e-5 relative (RMSE), the linear families'
+    bf16 sweeps AuPR and F1 within 5e-5, RMSE within 1e-4 relative or 3e-6
+    std(y), a log-link GLM configuration finite exactly where the
+    fixture's is; the holdout metric as the fold metrics; the linear
+    winner's f32 refit params within 1e-5 of the fixture's largest param
+    (a softmax's biases centred over the classes), probabilities within
+    2e-5 (naive Bayes 5e-5), an SVC's margin and a regression's
+    prediction within 5e-5 (1 + |value|), no flip of a prediction that no
+    such gap can flip (each limit about 10x its card reading, stated with
+    its cause at the constants). The default lists whose refit is a
+    pinned key's model (``testing.SHARED_REFITS``: binary ``svc``,
+    multiclass ``lrmc``) keep only their selection (``summary.json``);
+    that key's saved model stands for their refit. The linear trains must
+    launch nothing; each default list's sweep must launch ``node_hist``,
+    ``hist_matmul`` and ``forest_predict_chain`` (its depth-3 and 6 trees
+    are re-expressed as slot chains beside the depth-12 ones);
+(c) serve: load the fifteen committed saved models on the card, score the
     4,096-row scoring frame (rebuilt from its seed by
     ``testing.score_frame``) against the JAX package's outputs (binary:
     probability_1 atol 1e-5, prediction equal wherever |p - 0.5| > 1e-5;
-    regression and multiclass: the limits of (t) with identical trees),
+    an SVC's rawPrediction_1 within 1e-5 (1 + |m|); regression and
+    multiclass: the limits of (t) with identical trees),
     answer single-row requests through score_function, score 65,536-row
     batches and report rows/sec. The launch counts are zeroed just before
     this phase and read just after it; both forest predict kernels must
@@ -170,6 +209,42 @@ REG_MAX_RTOL = 1e-5
 #: multiclass trains: F1 as the binary trains' AuPR, probabilities as
 #: their probability_1
 F1_ATOL = AUPR_ATOL
+#: the default lists' tree families: every (fold, configuration) metric
+#: within DEFAULT_TREE_ATOL (AuPR, F1) or DEFAULT_TREE_RTOL relative
+#: (RMSE) of the fixture's (readings on an H100 80GB HBM3 at 700 W in
+#: brackets: AuPR 3.6e-7, F1 6e-8, RMSE 1.6e-7 relative; 18
+#: configurations x 3 folds a family, trees identical to the JAX
+#: package's)
+DEFAULT_TREE_ATOL = 1e-5
+DEFAULT_TREE_RTOL = 1e-5
+#: linear and GLM trains, each limit about 10x its reading on that card
+#: (in brackets) and below the gap that would change a
+#: selection (the binary list's winner leads by 1.95e-4 AuPR, the
+#: regression list's by 1.5e-3 RMSE; LR's sweep was 3.8e-4 off the JAX
+#: package's on the CPU before its bf16 roundings were placed as XLA
+#: places them). bf16 sweep fold AuPR / F1 within LIN_FOLD_ATOL [8.7e-6],
+#: as the CPU tests hold them. RMSE within LIN_RMSE_RTOL relative or
+#: LIN_RMSE_YSTD of std(y), whichever is larger [7.5e-6 absolute, 1e-6
+#: std(y)]: the penalty keeps a ridge or elastic-net fit off the RMSE
+#: minimum, so the residual is correlated with X and a coefficient gap
+#: dw moves the RMSE at first order, by about
+#: regParam * <w, dw> / RMSE; as a fit's RMSE is itself about
+#: proportional to regParam here (the labels are linear in X), rounding
+#: gaps of ~1e-6 relative in w give a gap near 1e-6 std(y) whatever the
+#: RMSE, which is 1e-3 of the 0.0058 RMSE of the regression list's
+#: winner. The f32 refit's params within LIN_COEF_RTOL of the fixture's
+#: largest [7.6e-7]; probabilities within LIN_PROB_ATOL [1.8e-6], naive
+#: Bayes's within NB_PROB_ATOL, as the CPU tests hold them [card 7.9e-6,
+#: CPU 1.8e-5: its logits reach ~300, so a gap of 1e-7 relative in its
+#: log-probabilities moves a probability by up to ~1e-5]; margins and
+#: regression predictions within LIN_REG_RTOL (1 + |value|) [4.8e-6]
+LIN_FOLD_ATOL = 5e-5
+LIN_RMSE_RTOL = 1e-4
+LIN_RMSE_YSTD = 3e-6
+LIN_COEF_RTOL = 1e-5
+LIN_PROB_ATOL = 2e-5
+NB_PROB_ATOL = 5e-5
+LIN_REG_RTOL = 5e-5
 
 
 def phase_build():
@@ -1071,13 +1146,295 @@ def _check_parts(tag, task, got, exp, same_trees, y_std):
             f"{int(decided.sum())} decided rows")
 
 
+#: an f32 sum of n terms, in any order, lies within
+#: SUM_LAMBDA * sqrt(n) * 2^-24 * sum|x| of the exact sum but with
+#: probability 2 exp(-SUM_LAMBDA^2 / 2), 3e-14 (Higham and Mary's
+#: probabilistic bound); two such sums of one set, twice that
+SUM_LAMBDA = 8.0
+
+
+def _within_sum_bound(tag, got, want, scale, n):
+    """A kernel's sums against the plain version's on the same inputs,
+    each cell a sum of at most ``n`` terms: NaN cells equal, every other
+    cell within 2 SUM_LAMBDA sqrt(n) 2^-24 of its sum of |stat| (``scale``:
+    the plain version on the stats' magnitudes) plus SUM_ATOL. Returns
+    the max |d| and its largest share of that bound."""
+    nan = torch.isnan(want)
+    if not torch.equal(torch.isnan(got), nan):
+        raise AssertionError(f"{tag}: NaN cells differ from plain")
+    d = (got - want).abs()[~nan]
+    if not d.numel():
+        return 0.0, 0.0
+    rtol = 2 * SUM_LAMBDA * n ** 0.5 * 2.0 ** -24
+    share = float((d / (rtol * scale[~nan] + SUM_ATOL)).max())
+    if share > 1:
+        raise AssertionError(f"{tag}: max |d| {float(d.max())} from plain, "
+                             f"{share:.3g} of the bound")
+    return float(d.max()), share
+
+
+def phase_sweep_inputs():
+    """(b) ``hist_matmul``, ``node_hist`` and ``forest_predict_chain`` at
+    the inputs of the default lists' sweeps: each list is trained once
+    with the three wrappers wrapped, and every launch's result is held
+    against the plain version on the same inputs. Histograms within the
+    sum bound of ``_within_sum_bound``; ``hist_matmul`` also bit-equal to
+    plain on small integer stats of the same codes, ``node_hist``
+    bit-equal to its direct formula (its own order, spelled out);
+    chain predicts (the sweep's depth-3 and 6 heaps turned into padded
+    depth-12 chains among them) bit-equal with leaf ids exact. These
+    launches are not counted: every count is zeroed before each path."""
+    from transmogrifai_tpu_torch.histeng import kernels as HK
+    from transmogrifai_tpu_torch.ops import forest as F
+    from transmogrifai_tpu_torch.testing import (
+        SERVE_MODELS, serve_bench_data, serve_bench_workflow,
+    )
+
+    hist_cuda, node_cuda = HK.hist_matmul_cuda, HK.node_hist_cuda
+    chain_cuda = F.forest_predict_chain_cuda
+    seen = {}
+
+    def note(name, shape, err=0.0, share=0.0):
+        r = seen.setdefault(name, dict(calls=0, shapes=set(), err=0.0,
+                                       share=0.0))
+        r["calls"] += 1
+        r["shapes"].add(shape)
+        r["err"], r["share"] = max(r["err"], err), max(r["share"], share)
+
+    def hist(codes, A, n_bins, exact=False, *args, **kw):
+        got = hist_cuda(codes, A, n_bins, exact, *args, **kw)
+        op = HK._operand(A, exact)
+        want = HK.hist_matmul_plain(codes, A, n_bins, exact)
+        err, share = _within_sum_bound(
+            "hist_matmul (sweep)", got, want,
+            HK.hist_matmul_plain(codes, op.abs(), n_bins, True),
+            codes.shape[0])
+        # the same codes with small integer stats: every sum exact, so
+        # a row added to a wrong cell, or twice, or not at all shows
+        A_int = (A * 4).round().clamp(-64, 64)
+        if not torch.equal(hist_cuda(codes, A_int, n_bins, exact),
+                           HK.hist_matmul_plain(codes, A_int, n_bins, exact)):
+            raise AssertionError("hist_matmul (sweep): integer-valued stats "
+                                 "are not bit-equal to plain")
+        note("hist_matmul", (tuple(codes.shape), A.shape[1], n_bins, exact),
+             err, share)
+        return got
+
+    def node(codes, node, sw_list, Wl, n_bins, stride=1, *args, **kw):
+        got = node_cuda(codes, node, sw_list, Wl, n_bins, stride, *args,
+                        **kw)
+        flat = got.reshape(-1, got.shape[-2] * got.shape[-1])
+        want = HK.node_hist_plain(codes, node, sw_list, Wl, n_bins, stride)
+        ops = [s.to(torch.bfloat16).float().abs() for s in sw_list]
+        err, share = _within_sum_bound(
+            "node_hist (sweep)", flat, want, HK.node_hist_plain(
+                codes, node, ops, Wl, n_bins, stride), codes.shape[0])
+        if not torch.equal(flat, HK.node_hist_direct(codes, node, sw_list,
+                                                     Wl, n_bins, stride)):
+            raise AssertionError("node_hist (sweep): differs from the "
+                                 "direct formula")
+        note("node_hist", (tuple(codes.shape), node.shape[1], len(sw_list),
+                           Wl, stride), err, share)
+        return got
+
+    def chain(codes, feat_lv, bin_lv, base_lv, leaf, *, n_bins,
+              with_ids=False):
+        out = chain_cuda(codes, feat_lv, bin_lv, base_lv, leaf,
+                         n_bins=n_bins, with_ids=with_ids)
+        want = F.forest_predict_chain_plain(codes, feat_lv, bin_lv, base_lv,
+                                            leaf, n_bins=n_bins)
+        _, ids = chain_cuda(codes, feat_lv, bin_lv, base_lv, leaf,
+                            n_bins=n_bins, with_ids=True)
+        if not torch.equal(out[0], want):
+            raise AssertionError("forest_predict_chain (sweep): sums differ "
+                                 "from the plain version's bits")
+        if not torch.equal(ids, F.route_codes_chain(codes, feat_lv, bin_lv,
+                                                    base_lv, n_bins)):
+            raise AssertionError("forest_predict_chain (sweep): leaf ids "
+                                 "differ from the plain routing")
+        note("forest_predict_chain", (tuple(codes.shape),
+                                      tuple(feat_lv.shape), leaf.shape[2]))
+        return out
+
+    t0 = time.perf_counter()
+    HK.hist_matmul_cuda, HK.node_hist_cuda = hist, node
+    F.forest_predict_chain_cuda = chain
+    try:
+        for key in ("default_binary", "default_mc", "default_reg"):
+            task = SERVE_MODELS[key][2]
+            wf = serve_bench_workflow(
+                None, None, N_FEATURES, TRAIN_SEED, problem=task
+            ).set_input_dataset(serve_bench_data(TRAIN_ROWS, N_FEATURES,
+                                                 TRAIN_SEED, task))
+            if wf.device.type != "cuda":
+                raise AssertionError(f"training on {wf.device}")
+            seen.clear()
+            wf.train()
+            torch.cuda.synchronize()
+            for name in ("hist_matmul", "node_hist", "forest_predict_chain"):
+                r = seen.get(name)
+                if not r:
+                    raise AssertionError(f"{key}: the sweep launched no "
+                                         f"{name}")
+                held = ("bit-equal to plain, ids exact"
+                        if name == "forest_predict_chain" else
+                        f"max |d| {r['err']:.3g} from plain, "
+                        f"{r['share']:.3f} of the sum bound; " + (
+                            "bit-equal to the direct formula"
+                            if name == "node_hist" else "on integer "
+                            "stats of the same codes bit-equal to plain"))
+                print(f"(b) {name} at {key}'s sweep inputs: {r['calls']} "
+                      f"launches, {len(r['shapes'])} shapes: {held}")
+    finally:
+        HK.hist_matmul_cuda, HK.node_hist_cuda = hist_cuda, node_cuda
+        F.forest_predict_chain_cuda = chain_cuda
+    print(f"(b) the default lists' sweep inputs checked in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def _is_tree(family: str) -> bool:
+    from transmogrifai_tpu_torch.models import trees
+    from transmogrifai_tpu_torch.models.api import MODEL_REGISTRY
+    return isinstance(MODEL_REGISTRY[family], trees._TreeFamilyBase)
+
+
+def _fold_limit(family: str, hyper, task: str, ref, y_std: float):
+    """The largest gap allowed between a default list's or a linear
+    train's sweep fold metric and the fixture's ``ref``: tree families
+    DEFAULT_TREE_ATOL (AuPR, F1) or DEFAULT_TREE_RTOL relative (RMSE); the
+    linear families' bf16 sweeps LIN_FOLD_ATOL (AuPR, F1) or
+    LIN_RMSE_RTOL relative, at least LIN_RMSE_YSTD std(y) (RMSE); a
+    log-link GLM configuration only as finite or not (None)."""
+    if _is_tree(family):
+        return (DEFAULT_TREE_RTOL * abs(ref) if task == "regression"
+                else DEFAULT_TREE_ATOL)
+    if family == "OpGeneralizedLinearRegression" and hyper.get(
+            "family", "gaussian") != "gaussian":
+        return None
+    return (max(LIN_RMSE_RTOL * abs(ref), LIN_RMSE_YSTD * y_std)
+            if task == "regression" else LIN_FOLD_ATOL)
+
+
+def _selection(summary) -> dict:
+    """A selector summary in the form of a default-list fixture's
+    summary.json: winner, hyperparameters, and each family's grid and
+    (folds, configs) fold metrics."""
+    return {"winner": summary.best_model_type,
+            "hyper": dict(summary.best_hyper),
+            "families": [{"family": r.family, "grid": list(r.grid),
+                          "fold_metrics": torch.as_tensor(
+                              r.fold_metrics).cpu().numpy().tolist()}
+                         for r in summary.validation_results]}
+
+
+def _check_selection(key, task, got, want, metric, y_std):
+    """The port's winner and every family's (folds, configs) fold metrics
+    (``_selection`` form) against the fixture's; prints each family's
+    largest gap, and its share of the allowed gap."""
+    if (got["winner"], got["hyper"]) != (want["winner"], want["hyper"]):
+        raise AssertionError(
+            f"{key}: winner {got['winner']} {got['hyper']}, the fixture's "
+            f"{want['winner']} {want['hyper']}")
+    if [(g["family"], g["grid"]) for g in got["families"]] != [
+            (w["family"], w["grid"]) for w in want["families"]]:
+        raise AssertionError(f"{key}: other families or grids than the "
+                             f"fixture's")
+    for g, w in zip(got["families"], want["families"]):
+        gf = np.asarray(g["fold_metrics"], np.float64)
+        wf = np.asarray(w["fold_metrics"], np.float64)
+        if gf.shape != wf.shape:
+            raise AssertionError(f"{key}: {g['family']} fold metrics "
+                                 f"{gf.shape}, the fixture's {wf.shape}")
+        worst, share = 0.0, 0.0
+        for (f, c), ref in np.ndenumerate(wf):
+            lim = _fold_limit(g["family"], g["grid"][c], task, ref, y_std)
+            if lim is None:
+                if np.isfinite(gf[f, c]) != np.isfinite(ref):
+                    raise AssertionError(f"{key}: {g['family']} "
+                                         f"{g['grid'][c]} finite where the "
+                                         f"fixture's is not, or the reverse")
+                continue
+            gap = abs(gf[f, c] - ref)
+            worst, share = max(worst, gap), max(share, gap / lim)
+            if gap > lim:
+                raise AssertionError(
+                    f"{key}: {g['family']} {g['grid'][c]} fold {f} metric "
+                    f"{gf[f, c]} off the fixture's {ref} beyond {lim:.3g}")
+        print(f"(t) {key}: {g['family']} {gf.shape} fold {metric} max gap "
+              f"{worst:.3g} ({share:.2f} of its limit)")
+
+
+def _linear_prob_limit(params) -> float:
+    """NB_PROB_ATOL for a naive Bayes model, else LIN_PROB_ATOL."""
+    return NB_PROB_ATOL if "log_prob" in params else LIN_PROB_ATOL
+
+
+def _check_linear(key, task, ps, rs, parts, exp):
+    """A linear or GLM winner's refit params and scores against the
+    fixture's: every float param within LIN_COEF_RTOL of the largest
+    fixture param (a softmax's biases centred over the classes: a common
+    shift is free); probabilities within LIN_PROB_ATOL (naive Bayes
+    NB_PROB_ATOL), margins and
+    regression predictions within LIN_REG_RTOL (1 + |value|), predictions
+    equal where no such gap can flip them."""
+    got = {k: v.cpu().numpy() for k, v in ps.fitted.params.items()}
+    fx = {k: v.cpu().numpy() for k, v in rs.fitted.params.items()}
+    if sorted(got) != sorted(fx):
+        raise AssertionError(f"{key}: params {sorted(got)}, the fixture's "
+                             f"{sorted(fx)}")
+    scale = max(float(np.abs(v).max()) for v in fx.values())
+    gaps = {}
+    for k in fx:
+        a, b = got[k], fx[k]
+        if a.shape != b.shape:
+            raise AssertionError(f"{key}: {k} {a.shape}, the fixture's "
+                                 f"{b.shape}")
+        if k == "b" and a.ndim == 1 and a.shape[0] > 1:
+            a, b = a - a.mean(), b - b.mean()
+        gaps[k] = float(np.abs(a - b).max()) / scale
+    print(f"(t) {key}: refit params vs the fixture's, max |d| / max "
+          f"|param|: { {k: float(f'{v:.3g}') for k, v in gaps.items()} }")
+    if max(gaps.values()) > LIN_COEF_RTOL:
+        raise AssertionError(f"{key}: refit params off the fixture's")
+    if "probability_1" in exp.files or task == "multiclass":
+        keys = sorted(k for k in exp.files if k.startswith("probability_"))
+        lim = _linear_prob_limit(fx)
+        d = np.stack([np.abs(parts[k] - exp[k]) for k in keys], axis=1)
+        top = np.sort(np.stack([exp[k] for k in keys], axis=1), axis=1)
+        if len(keys) == 1:
+            decided = np.abs(exp[keys[0]] - 0.5) > lim
+        else:
+            decided = top[:, -1] - top[:, -2] > 2 * lim
+        held = f"{len(keys)} probabilities: max |d| {d.max():.3g}"
+        if d.max() > lim:
+            raise AssertionError(f"{key}: probabilities off the fixture's")
+    else:
+        k = "rawPrediction_1" if task == "binary" else "prediction"
+        w = exp[k]
+        rel = np.abs(parts[k] - w) / (1 + np.abs(w))
+        decided = np.abs(w) > LIN_REG_RTOL * (1 + np.abs(w))
+        held = f"{k}: max |d| / (1 + |value|) {rel.max():.3g}"
+        if rel.max() > LIN_REG_RTOL:
+            raise AssertionError(f"{key}: {k} off the fixture's")
+    if task != "regression":
+        flips = int((parts["prediction"] != exp["prediction"])[decided].sum())
+        if flips:
+            raise AssertionError(f"{key}: {flips} decided predictions "
+                                 f"differ")
+        held += f", 0 prediction flips of {int(decided.sum())} decided rows"
+    return held
+
+
 def train_against_fixture(key: str):
-    """Train the serve bench's pinned ``key`` workflow on the card and hold
-    the model against the fixture the JAX package trained on the same
-    frame. Returns the train's seconds."""
+    """Train the serve bench's ``key`` workflow on the card and hold the
+    model against the fixture the JAX package trained on the same frame:
+    a tree winner tree by tree; a linear or GLM winner by its refit params
+    and scores; for a default-list key also the winner and every family's
+    fold metrics. Returns the train's seconds."""
     import transmogrifai_tpu_torch as tt
     from transmogrifai_tpu_torch.testing import (
-        SERVE_MODELS, score_frame, serve_bench_data, serve_bench_workflow,
+        SERVE_MODELS, SHARED_REFITS, score_frame, serve_bench_data,
+        serve_bench_workflow,
     )
 
     family, hyper, task = SERVE_MODELS[key]
@@ -1092,22 +1449,62 @@ def train_against_fixture(key: str):
     model = wf.train()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    print(f"(t) {key} train: {TRAIN_ROWS} x {N_FEATURES}, {task}, {family} "
-          f"{hyper}, 3-fold CV + refit + evaluations in {secs:.3f} s, peak "
+    what = (f"{family} {hyper}" if family is not None
+            else "the default model list at full default grids")
+    print(f"(t) {key} train: {TRAIN_ROWS} x {N_FEATURES}, {task}, {what}, "
+          f"3-fold CV + refit + evaluations in {secs:.3f} s, peak "
           f"device memory allocated "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
 
-    path = os.path.join(FIXTURES, key)
+    # a default list whose refit is a pinned key's model keeps only its
+    # summary.json; that key's saved model stands for its refit
+    path = os.path.join(FIXTURES, SHARED_REFITS.get(key, key))
     ref = tt.load_model(path)
     rs, ps = ref.stages[-1], model.stages[-1]
+    if model.stages[-2].keep_indices != ref.stages[-2].keep_indices:
+        raise AssertionError(f"{key}: SanityChecker kept other columns than "
+                             f"the fixture")
+    want = _selection(rs.summary)
+    if family is None:
+        with open(os.path.join(FIXTURES, key, "summary.json")) as fh:
+            want = json.load(fh)
+        if want["winner"] != rs.fitted.family or (
+                key not in SHARED_REFITS
+                and want["hyper"] != rs.summary.best_hyper):
+            raise AssertionError(f"{key}: summary.json disagrees with the "
+                                 f"saved model")
+    if family is None or not _is_tree(family):
+        y_std = float(np.std(data["y"]))
+        metric = ps.summary.validation_metric
+        _check_selection(key, task, _selection(ps.summary), want, metric,
+                         y_std)
+        hold = {k: ps.summary.holdout_evaluation[k] for k in
+                ("AuPR", "F1", "RootMeanSquaredError") if k in
+                ps.summary.holdout_evaluation}
+        ref_hold = {k: rs.summary.holdout_evaluation[k] for k in hold}
+        print(f"(t) {key}: winner {ps.summary.best_model_type} "
+              f"{ps.summary.best_hyper} (the fixture's), {metric} "
+              f"{ps.summary.best_metric_value:.6f} (fixture "
+              f"{want.get('value', rs.summary.best_metric_value):.6f}), "
+              f"holdout {hold} "
+              f"(fixture {ref_hold})")
+        for k, v in hold.items():
+            lim = _fold_limit(ps.summary.best_model_type,
+                              ps.summary.best_hyper, task, ref_hold[k], y_std)
+            if abs(v - ref_hold[k]) > lim:
+                raise AssertionError(f"{key}: holdout {k} {v} off the "
+                                     f"fixture's {ref_hold[k]}")
+        if not _is_tree(ps.summary.best_model_type):
+            exp = np.load(os.path.join(path, "expected.npz"))
+            parts = _parts_of(model, model.score(data=score_frame()))
+            print(f"(t) {key}: vs the JAX-trained model on {SCORE_ROWS} "
+                  f"rows: " + _check_linear(key, task, ps, rs, parts, exp))
+            return secs
     fx = {k: v.cpu().numpy() for k, v in rs.fitted.params.items()}
     got = {k: v.cpu().numpy() for k, v in ps.fitted.params.items()}
     if not np.array_equal(got["edges"], fx["edges"]):
         raise AssertionError(f"{key}: bin edges differ from the fixture's: "
                              f"max {np.abs(got['edges'] - fx['edges']).max()}")
-    if model.stages[-2].keep_indices != ref.stages[-2].keep_indices:
-        raise AssertionError(f"{key}: SanityChecker kept other columns than "
-                             f"the fixture")
     for k in TREE_KEYS[key]:
         if got[k].shape != fx[k].shape:
             raise AssertionError(f"{key}: {k} has shape {got[k].shape}, the "
@@ -1167,20 +1564,35 @@ def phase_serve():
     and multiclass parts within the limits of (t) with identical trees)."""
     import transmogrifai_tpu_torch as tt
     from transmogrifai_tpu_torch.testing import (
-        SERVE_MODELS, score_frame, serve_bench_data,
+        SAVED_KEYS, SERVE_MODELS, score_frame, serve_bench_data,
     )
 
     frame = score_frame()
     reps = N_ROWS // SCORE_ROWS
     big = {name: np.tile(v, reps) for name, v in frame.items()}
-    for key, (_, _, task) in SERVE_MODELS.items():
+    for key in SAVED_KEYS:
+        task = SERVE_MODELS[key][2]
         path = os.path.join(FIXTURES, key)
         model = tt.load_model(path)                # default: the card
         if model.device.type != "cuda":
             raise AssertionError(f"{key} loaded on {model.device}")
         exp = np.load(os.path.join(path, "expected.npz"))
         parts = _parts_of(model, model.score(data=frame))
-        if task == "binary":
+        margin = task == "binary" and "probability_1" not in exp.files
+        if margin:
+            # a linear SVC: its margin, rawPrediction_1
+            m, pred = parts["rawPrediction_1"], parts["prediction"]
+            w = exp["rawPrediction_1"]
+            rel = float((np.abs(m - w) / (1 + np.abs(w))).max())
+            if m.shape != w.shape or rel > REG_MAX_RTOL:
+                raise AssertionError(f"{key}: rawPrediction_1 off by {rel}")
+            far = np.abs(w) > REG_MAX_RTOL * (1 + np.abs(w))
+            flips = int((pred != exp["prediction"])[far].sum())
+            if flips:
+                raise AssertionError(f"{key}: {flips} predictions differ")
+            held = (f"rawPrediction_1 max |d| / (1 + |m|) {rel:.3g}, 0 "
+                    f"prediction flips")
+        elif task == "binary":
             p1, pred = parts["probability_1"], parts["prediction"]
             if p1.shape != exp["probability_1"].shape or \
                     not np.isfinite(p1).all():
@@ -1199,6 +1611,7 @@ def phase_serve():
             held = _check_parts(key, task, parts, exp, True, y_std)
         score = model.score_function()
         keys = (["prediction"] if task == "regression" else
+                ["rawPrediction_1"] if margin else
                 sorted(k for k in exp.files if k.startswith("probability_")))
         for i in range(4):
             out = next(iter(score({
@@ -1206,7 +1619,7 @@ def phase_serve():
                 for name, v in frame.items()}).values()))
             for k in keys:
                 lim = (REG_MAX_RTOL * (1 + abs(float(exp[k][i])))
-                       if task == "regression" else PROB_ATOL
+                       if task == "regression" or margin else PROB_ATOL
                        if task == "binary" else P1_MAX_ATOL_SAME_TREES)
                 if abs(out[k] - exp[k][i]) > lim:
                     raise AssertionError(f"{key}: request {i} scored "
@@ -1217,13 +1630,25 @@ def phase_serve():
             t0 = time.perf_counter()
             got_big = _parts_of(model, model.score(data=big))
             times.append(time.perf_counter() - t0)
-        tol = REG_MAX_RTOL if task == "regression" else 0.0
+        # the 65,536-row batch against the 4,096-row scores, tiled: a
+        # forest adds each row's trees in one order whatever the batch; a
+        # linear model's product is one cuBLAS call, whose kernel (and so
+        # its order of adds) may change with the row count, so it is held
+        # to the limit that holds it against the fixture
+        tol = REG_MAX_RTOL if task == "regression" or margin else 0.0
+        params = model.stages[-1].fitted.params
+        prob_tol = (PROB_ATOL if "edges" in params
+                    else _linear_prob_limit(params))
+        batch_gap = 0.0
         for k in keys:
-            if not np.allclose(got_big[k], np.tile(parts[k], reps), rtol=tol,
-                               atol=tol or PROB_ATOL):
+            tiled = np.tile(parts[k], reps)
+            batch_gap = max(batch_gap, float(np.abs(got_big[k] - tiled).max()))
+            if not np.allclose(got_big[k], tiled, rtol=tol,
+                               atol=tol or prob_tol):
                 raise AssertionError(f"{key}: 65,536-row batch disagrees")
         print(f"(c) {key}: {held}, {N_ROWS / statistics.median(times):.1f} "
-              f"rows/sec on {N_ROWS}-row batches")
+              f"rows/sec on {N_ROWS}-row batches (max |d| {batch_gap:.3g} "
+              f"from the 4,096-row scores)")
 
 
 def main() -> int:
@@ -1235,11 +1660,14 @@ def main() -> int:
     from transmogrifai_tpu_torch.testing import SERVE_MODELS
 
     dev = torch.device("cuda", 0)
+    # the default-list trains sweep the full default grids
+    os.environ["TG_FAST_GRIDS"] = "0"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kernels = HK.KERNELS + F.KERNELS
     phase_build()
     kern = phase_kernels(dev)
+    phase_sweep_inputs()
 
     def run_path(name, phase, path_kernels):
         """Zero every count, drive the path, read the counts; each of
@@ -1277,6 +1705,20 @@ def main() -> int:
             ("rfmc", (hist, node, F.FOREST_LEAF_SUMS_CHAIN,
                       F.FOREST_PREDICT_CHAIN)),
             ("xgbmc", (hist, node, F.FOREST_PREDICT_HEAP))):
+        paths[f"train {key}"] = run_path(
+            f"train {key}", lambda key=key: train_against_fixture(key),
+            path_kernels)
+    # the linear and GLM fits launch no kernel; a default list also sweeps
+    # its tree families, whose growth (node_hist), sample leaves
+    # (hist_matmul) and validation predicts launch three: a grid that
+    # holds depth 12 re-expresses its depth-3 and 6 heaps as slot chains
+    # (trees._fit_depth_grouped), so every sweep predict is a chain one;
+    # the refit is linear on these frames
+    sweep = (hist, node, F.FOREST_PREDICT_CHAIN)
+    for key, path_kernels in (
+            ("lr", ()), ("svc", ()), ("lrmc", ()), ("nbmc", ()),
+            ("linreg", ()), ("glm", ()), ("default_binary", sweep),
+            ("default_mc", sweep), ("default_reg", sweep)):
         paths[f"train {key}"] = run_path(
             f"train {key}", lambda key=key: train_against_fixture(key),
             path_kernels)

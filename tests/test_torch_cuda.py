@@ -18,7 +18,10 @@ cuBLAS's per row chunk, or one pass over all rows, where the kernels add
 row chunks and then the chunk partials) and equal on integer-valued
 stats; the tiny trains on the card (binary, regression and 6-class)
 against the same trains on the CPU: tree tables and kept columns equal,
-metrics and probabilities (a regression's prediction) within 1e-5.
+metrics and probabilities (a regression's prediction) within 1e-5; the
+linear families' fits, sweeps, predicts and tiny trains on the card
+against the CPU within the limits stated at ``LINEAR_CASES``, and bit
+for bit the same with the caller's global TF32 switch on or off.
 """
 from __future__ import annotations
 
@@ -1041,3 +1044,135 @@ def test_node_hist_empty_and_bad_inputs(cuda):
     with pytest.raises(RuntimeError, match="CUDA error"):
         HK.node_hist_cuda(codes, node, sw, 4, 32,
                           threads=48)                # not a warp multiple
+
+
+# ---------------------------------------------------------------------------
+# the linear families and GLM on the card
+# ---------------------------------------------------------------------------
+
+#: (family, problem kind, num_classes) of each linear fit case
+LINEAR_CASES = [("OpLogisticRegression", "binary", 2),
+                ("OpLogisticRegression", "multiclass", 3),
+                ("OpLinearSVC", "binary", 2),
+                ("OpNaiveBayes", "multiclass", 3),
+                ("OpLinearRegression", "regression", 1),
+                ("OpGeneralizedLinearRegression", "regression", 1)]
+#: card against CPU: f32 fits' params within this share of the largest
+#: param (cuBLAS adds in another order than the CPU; the GLM's log-link
+#: configurations within LINEAR_SWEEP_RTOL: their IRLS weights exp(eta)
+#: amplify rounding step by step), bf16 sweep fits' within
+#: LINEAR_SWEEP_RTOL (a product that rounds to bf16 across a boundary on
+#: one device and not the other moves the fit), predictions within
+#: LINEAR_PRED_TOL
+LINEAR_RTOL = 1e-4
+LINEAR_SWEEP_RTOL = 1e-3
+LINEAR_PRED_TOL = 1e-5
+
+
+def _linear_case(family, problem, num_classes, seed=0):
+    """X (512, 6) with a x100 and an offset column, the label of
+    ``problem``, three folds' 0/1 train weights x the family's default
+    grid, as the validator lays them out."""
+    from transmogrifai_tpu_torch.models import glm, linear  # noqa: F401
+    from transmogrifai_tpu_torch.models.api import MODEL_REGISTRY
+    fam = MODEL_REGISTRY[family]
+    rng = np.random.RandomState(seed)
+    X = rng.randn(512, 6).astype(np.float32)
+    if problem == "binary":
+        y = (X @ rng.randn(6) + 0.5 * rng.randn(512) > 0)
+    elif problem == "multiclass":
+        y = np.argmax(X[:, :3] + 0.5 * rng.randn(512, 3), 1)
+    else:
+        y = X @ rng.randn(6) * 0.3 + 0.1 * rng.randn(512)
+        if family == "OpGeneralizedLinearRegression":
+            y = np.exp(y)
+    if family != "OpGeneralizedLinearRegression":
+        X[:, 2] *= 100.0
+        X[:, 3] += 5.0
+    folds = rng.permutation(512) % 3
+    grid = fam.default_grid(problem)
+    W = np.repeat(np.stack([folds != f for f in range(3)]), len(grid), 0)
+    garr = {k: np.tile(v, 3) for k, v in fam.grid_to_arrays(grid).items()}
+    return fam, X, y.astype(np.float32), W.astype(np.float32), garr
+
+
+def _linear_fits(fam, X, y, W, garr, num_classes, dev):
+    """(fit_batch params, sweep_fit_batch params, predict_batch scores) on
+    ``dev``, brought to the CPU."""
+    args = [torch.from_numpy(a).to(dev) for a in (X, y, W)]
+    refit = fam.fit_batch(*args, garr, num_classes)
+    sweep = fam.sweep_fit_batch(*args, garr, num_classes)
+    scores = fam.predict_batch(refit, args[0], num_classes)
+    return ({k: v.cpu() for k, v in refit.items()},
+            {k: v.cpu() for k, v in sweep.items()}, scores.cpu())
+
+
+def _rel_gap(got, want):
+    scale = max(float(v.abs().max()) for v in want.values())
+    return max(float((got[k] - want[k]).abs().max()) for k in want) / scale
+
+
+@pytest.mark.parametrize("family,problem,num_classes", LINEAR_CASES)
+def test_linear_fits_on_the_card_match_the_cpu(cuda, family, problem,
+                                               num_classes):
+    fam, X, y, W, garr = _linear_case(family, problem, num_classes)
+    before = [k.launches for k in HK.KERNELS + F.KERNELS]
+    g_refit, g_sweep, g_scores = _linear_fits(fam, X, y, W, garr,
+                                              num_classes, cuda)
+    assert [k.launches for k in HK.KERNELS + F.KERNELS] == before
+    c_refit, c_sweep, c_scores = _linear_fits(fam, X, y, W, garr,
+                                              num_classes, "cpu")
+    if "b" in c_refit:              # a softmax's common bias shift is free
+        for p in (g_refit, c_refit, g_sweep, c_sweep):
+            p["b"] = p["b"] - p["b"].mean(-1, keepdim=True)
+    assert _rel_gap(g_refit, c_refit) < (
+        LINEAR_SWEEP_RTOL if family == "OpGeneralizedLinearRegression"
+        else LINEAR_RTOL)
+    assert _rel_gap(g_sweep, c_sweep) < LINEAR_SWEEP_RTOL
+    torch.testing.assert_close(g_scores, c_scores, rtol=LINEAR_PRED_TOL,
+                               atol=LINEAR_PRED_TOL)
+
+
+@pytest.mark.parametrize("family,problem,num_classes", LINEAR_CASES)
+def test_linear_fits_ignore_the_global_tf32_switch(cuda, family, problem,
+                                                   num_classes):
+    """The families turn TF32 off around their own products: a caller's
+    global ``allow_tf32 = True`` changes no bit of a fit or a predict."""
+    fam, X, y, W, garr = _linear_case(family, problem, num_classes, seed=1)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        off = _linear_fits(fam, X, y, W, garr, num_classes, cuda)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        on = _linear_fits(fam, X, y, W, garr, num_classes, cuda)
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    for a, b in zip(on[:2], off[:2]):
+        for k in b:
+            assert torch.equal(a[k], b[k]), k
+    assert torch.equal(on[2], off[2])
+
+
+@pytest.mark.parametrize("key", ["lr", "svc", "lrmc", "nbmc", "linreg",
+                                 "glm"])
+def test_tiny_linear_train_on_the_card_matches_the_cpu(cuda, key):
+    from transmogrifai_tpu_torch.testing import SERVE_MODELS
+    family, hyper, task = SERVE_MODELS[key]
+    data = serve_bench_data(400, 5, seed=3, task=task)
+    cpu, gpu = (serve_bench_workflow(family, hyper, 5, seed=3, realnn=2,
+                                     device=dev, problem=task
+                                     ).set_input_dataset(data).train()
+                for dev in ("cpu", cuda))
+    cs, gs = cpu.stages[-1], gpu.stages[-1]
+    assert gs.fitted.family == cs.fitted.family == family
+    params = {k: v.cpu() for k, v in gs.fitted.params.items()}
+    assert _rel_gap(params, cs.fitted.params) < LINEAR_RTOL
+    np.testing.assert_allclose(gs.summary.validation_results[0].fold_metrics,
+                               cs.summary.validation_results[0].fold_metrics,
+                               rtol=LINEAR_SWEEP_RTOL, atol=2e-4)
+    frame = {k: v for k, v in data.items() if k != "y"}
+    p_cpu, p_gpu = (m.score(data=frame)[m.result_features[0].name]
+                    .values[:, -1].cpu() for m in (cpu, gpu))
+    torch.testing.assert_close(p_gpu, p_cpu, rtol=LINEAR_PRED_TOL,
+                               atol=LINEAR_PRED_TOL)

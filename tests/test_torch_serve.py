@@ -15,10 +15,24 @@ Tolerances (stated once, used throughout):
 * ``probability_1``: atol 1e-5 — the forest sums run in another order
   than the JAX package's one-hot matmul, so values differ by f32 rounding;
 * ``prediction``: equal wherever |p - 0.5| > 1e-5 (a row that close to the
-  threshold may flip under that rounding).
+  threshold may flip under that rounding);
+* a linear SVC's ``rawPrediction_1`` (its margin; it has no probability):
+  within 1e-5 relative, the prediction equal wherever the margin is
+  farther than that from 0.
+
+The ``default_*`` fixtures sweep their problem kind's default model list at
+full default grids (``TG_FAST_GRIDS=0``) and also keep ``summary.json``:
+the JAX package's winner, its hyperparameters and metric, and every
+family's (folds, configs) fold-metric matrix. Where a default list's
+refit is a pinned key's model (``testing.SHARED_REFITS``: the binary
+list's SVC is ``svc``, the multiclass list's softmax LR ``lrmc``), the
+fixture keeps only ``summary.json`` and that key's saved model stands for
+its refit. Saved manifests carry no drift baseline
+(``drop_drift_baseline``).
 """
 from __future__ import annotations
 
+import json
 import os
 import shutil
 import subprocess
@@ -35,7 +49,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO not in sys.path:
     sys.path.insert(0, REPO)
 
-import transmogrifai_tpu.models.trees  # noqa: E402,F401  (registers families)
+import transmogrifai_tpu.models.glm  # noqa: E402,F401  (registers families)
+import transmogrifai_tpu.models.linear  # noqa: E402,F401
+import transmogrifai_tpu.models.trees  # noqa: E402,F401
 from transmogrifai_tpu.persistence import (  # noqa: E402
     load_model as jax_load_model,
 )
@@ -47,8 +63,8 @@ from transmogrifai_tpu_torch.persistence import (  # noqa: E402
     CorruptModelError,
 )
 from transmogrifai_tpu_torch.testing import (  # noqa: E402
-    SCORE_ROWS, SCORE_SEED, SERVE_MODELS as PORT_SERVE_MODELS, TRAIN_ROWS,
-    TRAIN_SEED, serve_bench_data,
+    SAVED_KEYS, SCORE_ROWS, SCORE_SEED, SERVE_MODELS as PORT_SERVE_MODELS,
+    SHARED_REFITS, TRAIN_ROWS, TRAIN_SEED, serve_bench_data,
 )
 
 FIXTURE_DIR = os.path.join(REPO, "transmogrifai_tpu_torch", "fixtures",
@@ -56,6 +72,11 @@ FIXTURE_DIR = os.path.join(REPO, "transmogrifai_tpu_torch", "fixtures",
 
 PROB_ATOL = 1e-5
 PRED_MARGIN = 1e-5
+#: a naive Bayes model's probabilities: its logits are 64-term sums of
+#: log-probabilities (~ -5) times features, up to ~300 in magnitude, and
+#: another summation order moves them by a few ulp there (measured on
+#: ``nbmc``: 1.06e-5 on one row of 4,096)
+NB_PROB_ATOL = 5e-5
 #: a regression prediction: a sum of float32 leaf values in another order
 REG_RTOL = 1e-5
 #: the JAX package against its own saved outputs (same package, same
@@ -63,8 +84,8 @@ REG_RTOL = 1e-5
 JAX_SELF_ATOL = 1e-6
 
 #: the serve-bench model shape (bench.py ``_serve_model``) at full width,
-#: with the winner pinned to one tree family: {key: (family,
-#: hyperparameters, problem kind)}
+#: with the winner pinned to one family, or (family None) the default
+#: model list: {key: (family, hyperparameters, problem kind)}
 SERVE_MODELS = {
     "rf": ("OpRandomForestClassifier",
            {"maxDepth": 12, "numTrees": 50, "minInstancesPerNode": 10,
@@ -98,7 +119,23 @@ SERVE_MODELS = {
                "minChildWeight": 1.0, "lambda": 1.0, "minInfoGain": 0.0,
                "minInstancesPerNode": 0.0},
               "multiclass"),
+    "lr": ("OpLogisticRegression",
+           {"regParam": 0.01, "elasticNetParam": 0.5}, "binary"),
+    "svc": ("OpLinearSVC", {"regParam": 0.01}, "binary"),
+    "lrmc": ("OpLogisticRegression", {"regParam": 0.01}, "multiclass"),
+    "nbmc": ("OpNaiveBayes", {"smoothing": 1.0}, "multiclass"),
+    "linreg": ("OpLinearRegression",
+               {"regParam": 0.01, "elasticNetParam": 0.5}, "regression"),
+    "glm": ("OpGeneralizedLinearRegression",
+            {"family": "gaussian", "regParam": 0.01}, "regression"),
+    "default_binary": (None, None, "binary"),
+    "default_mc": (None, None, "multiclass"),
+    "default_reg": (None, None, "regression"),
 }
+
+#: the fixtures trained on a default model list
+DEFAULT_KEYS = [k for k, (family, _, _) in SERVE_MODELS.items()
+                if family is None]
 
 
 # ---------------------------------------------------------------------------
@@ -135,12 +172,14 @@ def bench_frame(n: int, d: int, seed: int, task: str = "binary"):
     return frame
 
 
-def train_jax_model(family: str, hyper: dict, n: int, d: int, seed: int,
+def train_jax_model(family, hyper, n: int, d: int, seed: int,
                     realnn: int = 0, task: str = "binary"):
     """Train ``transmogrify -> sanity_check -> selector`` (the ``task``'s
     factory, cross-validated) with the JAX package on ``n`` rows of ``d``
     predictors (the first ``realnn`` of them RealNN, the rest Real),
-    labelled as the serve bench labels them (``bench_frame``)."""
+    labelled as the serve bench labels them (``bench_frame``); the
+    selector sweeps ``family`` at ``hyper`` or, with ``family`` None, the
+    default model list."""
     import pandas as pd
 
     import transmogrifai_tpu as tg
@@ -156,9 +195,9 @@ def train_jax_model(family: str, hyper: dict, n: int, d: int, seed: int,
     feats = [(FeatureBuilder.RealNN if i < realnn else FeatureBuilder.Real)(
         f"x{i}").extract_field().as_predictor() for i in range(d)]
     checked = tg.transmogrify(feats).sanity_check(label)
-    pred = (selector.with_cross_validation(
-        seed=seed, models=[(family, [dict(hyper)])])
-        .set_input(label, checked).get_output())
+    models = None if family is None else [(family, [dict(hyper)])]
+    pred = (selector.with_cross_validation(seed=seed, models=models)
+            .set_input(label, checked).get_output())
     return (OpWorkflow().set_input_dataset(df)
             .set_result_features(pred).train())
 
@@ -209,28 +248,95 @@ def save_jax_model(model, path: str) -> None:
 def expected_parts(parts, task: str):
     """The prediction parts a fixture's ``expected.npz`` keeps: the
     prediction, and each class probability but the binary one's class 0
-    (the rawPredictions are their logs)."""
+    (the rawPredictions are their logs); a model without probabilities
+    (the linear SVC) keeps its margin ``rawPrediction_1``."""
     keep = [k for k in parts if k == "prediction" or (
         k.startswith("probability_") and (task != "binary"
                                           or k == "probability_1"))]
+    if task == "binary" and "probability_1" not in parts:
+        keep.append("rawPrediction_1")
     return {k: parts[k] for k in keep}
+
+
+def selection_summary(model):
+    """The JAX package's selection, as a default-list fixture keeps it:
+    winner, hyperparameters, metric, and each family's grid and (folds,
+    configs) fold metrics (float32 values, exact in JSON)."""
+    s = model.stages[-1].summary
+    return {"winner": s.best_model_type, "hyper": dict(s.best_hyper),
+            "metric": s.validation_metric,
+            "value": float(s.best_metric_value),
+            "families": [{"family": r.family, "grid": list(r.grid),
+                          "fold_metrics": np.asarray(
+                              r.fold_metrics, np.float32).tolist()}
+                         for r in s.validation_results]}
+
+
+def drop_drift_baseline(path: str) -> None:
+    """Remove the drift baseline from a saved model's manifest: per-feature
+    sketches (~120 KB at 64 features) that only the JAX package's serving
+    registry reads. The JAX package saves no baseline for a model without
+    a train table, so both loaders accept a manifest without one; the
+    checksums cover plan.json and arrays.npz, not the manifest."""
+    manifest = os.path.join(path, "MANIFEST.json")
+    with open(manifest) as fh:
+        entries = json.load(fh)
+    if entries.pop("drift", None) is not None:
+        with open(manifest, "w") as fh:
+            fh.write(json.dumps(entries, indent=1))
+
+
+def same_refit(model, path: str, parts, task: str) -> bool:
+    """Whether the JAX-trained ``model`` is the saved model at ``path``:
+    the same family and fitted params, kept columns, holdout metrics and
+    prediction parts on the scoring frame."""
+    saved = jax_load_model(path)
+    a, b = model.stages[-1], saved.stages[-1]
+    exp = np.load(os.path.join(path, "expected.npz"))
+    got = expected_parts(parts, task)
+    return (a.fitted.family == b.fitted.family
+            and sorted(a.fitted.params) == sorted(b.fitted.params)
+            and all(np.array_equal(np.asarray(a.fitted.params[k]),
+                                   np.asarray(b.fitted.params[k]))
+                    for k in a.fitted.params)
+            and model.stages[-2].keep_indices == saved.stages[-2].keep_indices
+            and json.dumps(a.summary.holdout_evaluation, sort_keys=True)
+            == json.dumps(b.summary.holdout_evaluation, sort_keys=True)
+            and sorted(got) == sorted(exp.files)
+            and all(np.array_equal(got[k], exp[k]) for k in got))
 
 
 def generate_fixture(out_dir: str = FIXTURE_DIR, n: int = TRAIN_ROWS,
                      d: int = 64, seed: int = TRAIN_SEED, keys=None) -> None:
     """Train the serve models named by ``keys`` (default: all) at full
-    width, save them, and write ``expected.npz``: the JAX package's
-    prediction parts on the scoring frame ``fixture_frame()``, which the
-    port rebuilds from its seed."""
+    width, save them without the drift baseline, and write
+    ``expected.npz``: the JAX package's prediction parts on the scoring
+    frame ``fixture_frame()``, which the port rebuilds from its seed. A
+    default list also writes ``summary.json``; one whose refit is a
+    pinned key's model (``testing.SHARED_REFITS``, checked here) keeps
+    nothing else."""
     frame = fixture_frame()
+    os.environ["TG_FAST_GRIDS"] = "0"          # full default grids
     for key in keys or SERVE_MODELS:
         family, hyper, task = SERVE_MODELS[key]
         model = train_jax_model(family, hyper, n, d, seed, task=task)
         path = os.path.join(out_dir, key)
-        save_jax_model(model, path)
         parts = prediction_parts(model.score(table=jax_table(frame)), model)
-        np.savez_compressed(os.path.join(path, "expected.npz"),
-                            **expected_parts(parts, task))
+        shutil.rmtree(path, ignore_errors=True)
+        if key in SHARED_REFITS:
+            shared = os.path.join(out_dir, SHARED_REFITS[key])
+            if not same_refit(model, shared, parts, task):
+                raise AssertionError(f"{key}: the refit is not {shared}'s "
+                                     f"saved model")
+            os.makedirs(path)
+        else:
+            save_jax_model(model, path)
+            drop_drift_baseline(path)
+            np.savez_compressed(os.path.join(path, "expected.npz"),
+                                **expected_parts(parts, task))
+        if family is None:
+            with open(os.path.join(path, "summary.json"), "w") as fh:
+                json.dump(selection_summary(model), fh, indent=1)
 
 
 # ---------------------------------------------------------------------------
@@ -283,8 +389,18 @@ def decided_rows(want):
 
 def _assert_parts_agree(got, want, prob_atol=PROB_ATOL):
     """Probabilities within ``prob_atol``; predicted classes equal on the
-    decided rows; a regression's prediction within REG_RTOL."""
+    decided rows; a regression's prediction and an SVC's margin within
+    REG_RTOL (the SVC's prediction equal where the margin is farther from
+    0)."""
     assert list(got) == list(want)
+    if "rawPrediction_1" in want:
+        m = want["rawPrediction_1"]
+        np.testing.assert_allclose(got["rawPrediction_1"], m, rtol=REG_RTOL,
+                                   atol=REG_RTOL)
+        far = np.abs(m) > REG_RTOL * (1 + np.abs(m))
+        np.testing.assert_array_equal(got["prediction"][far],
+                                      want["prediction"][far])
+        return
     if not any(k.startswith("probability_") for k in want):
         np.testing.assert_allclose(got["prediction"], want["prediction"],
                                    rtol=REG_RTOL, atol=REG_RTOL)
@@ -359,6 +475,23 @@ FIXTURE_SHAPES = {
     "rfmc": {"feat_lv": (50, 12, 256), "leaf": (50, 256, N_CLASSES)},
     "xgbmc": {"feat": (100, N_CLASSES, 63),
               "leaf": (100, N_CLASSES, 64)},
+    "lr": {"coef": (64,), "bias": ()},
+    "svc": {"coef": (64,), "bias": ()},
+    "lrmc": {"W": (64, N_CLASSES), "b": (N_CLASSES,)},
+    "nbmc": {"log_prob": (N_CLASSES, 64), "log_prior": (N_CLASSES,)},
+    "linreg": {"coef": (64,), "bias": ()},
+    "glm": {"coef": (64,), "bias": (), "family": ()},
+    "default_reg": {"coef": (64,), "bias": ()},
+}
+
+#: the winners the JAX package chose from the default lists on the serve
+#: bench's frames (the fixtures' summary.json)
+DEFAULT_WINNERS = {
+    "default_binary": ("OpLinearSVC", {"regParam": 0.01}),
+    "default_mc": ("OpLogisticRegression",
+                   {"regParam": 0.01, "elasticNetParam": 0.0}),
+    "default_reg": ("OpLinearRegression",
+                    {"regParam": 0.001, "elasticNetParam": 0.5}),
 }
 
 
@@ -369,7 +502,7 @@ def fixture_frame():
     return score_frame(SCORE_ROWS, 64, SCORE_SEED)
 
 
-@pytest.mark.parametrize("key", list(SERVE_MODELS))
+@pytest.mark.parametrize("key", SAVED_KEYS)
 def test_committed_fixture_matches_expected_in_both_packages(key):
     path = os.path.join(FIXTURE_DIR, key)
     exp = np.load(os.path.join(path, "expected.npz"))
@@ -388,7 +521,39 @@ def test_committed_fixture_matches_expected_in_both_packages(key):
     for name, shape in FIXTURE_SHAPES[key].items():
         assert tuple(params[name].shape) == shape, name
     pp = prediction_parts(pm.score(data=frame), pm)
-    _assert_parts_agree({k: pp[k] for k in want}, want)
+    _assert_parts_agree({k: pp[k] for k in want}, want, prob_atol=(
+        NB_PROB_ATOL if params.keys() >= {"log_prob"} else PROB_ATOL))
+
+
+@pytest.mark.parametrize("key", DEFAULT_KEYS)
+def test_default_fixture_keeps_the_jax_selection(key, monkeypatch):
+    """A default-list fixture's summary.json is the selection summary of
+    the saved model that stands for its refit (its own, or the pinned
+    key's whose refit it is), with every default family's full grid."""
+    from transmogrifai_tpu.impl.selector.model_selector import (
+        ModelSelector,
+    )
+    path = os.path.join(FIXTURE_DIR, key)
+    with open(os.path.join(path, "summary.json")) as fh:
+        kept = json.load(fh)
+    jm = jax_load_model(os.path.join(FIXTURE_DIR,
+                                     SHARED_REFITS.get(key, key)))
+    if key in SHARED_REFITS:
+        assert sorted(os.listdir(path)) == ["summary.json"]
+        fitted = jm.stages[-1].fitted
+        assert kept["winner"] == fitted.family
+        family, hyper, _ = SERVE_MODELS[SHARED_REFITS[key]]
+        assert family == fitted.family and hyper == fitted.hyper
+    else:
+        assert kept == json.loads(json.dumps(selection_summary(jm)))
+    assert (kept["winner"], kept["hyper"]) == DEFAULT_WINNERS[key]
+    monkeypatch.setenv("TG_FAST_GRIDS", "0")
+    defaults = ModelSelector(SERVE_MODELS[key][2]).models
+    assert [f["family"] for f in kept["families"]] == [
+        fam.name for fam, _ in defaults]
+    for f, (_, grid) in zip(kept["families"], defaults):
+        assert f["grid"] == list(grid)
+        assert np.asarray(f["fold_metrics"]).shape == (3, len(grid))
 
 
 def test_port_rebuilds_the_fixture_scoring_frame_bit_for_bit():
@@ -426,6 +591,8 @@ def test_cpu_replay_of_the_xgbmc_tied_split_takes_the_fixture_bin():
 
 
 def test_fixture_stays_small():
+    """15 saved models, each ~0.2-0.55 MB: the JAX package's plan (146 KB)
+    and manifest (58 KB without the drift baseline) dominate."""
     total = sum(os.path.getsize(os.path.join(root, f))
                 for root, _, files in os.walk(FIXTURE_DIR) for f in files)
     assert total < 6 * 2 ** 20, total
@@ -481,7 +648,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "evaluators.multi", "evaluators.regression",
                 "evaluators.factory", "models.trees", "persistence",
                 "impl.selector.model_selector", "local.scoring",
-                "ops.xla_cpu", "experiments.tie_replay"):
+                "ops.xla_cpu", "experiments.tie_replay", "models.linear",
+                "models.glm"):
         assert f"transmogrifai_tpu_torch.{mod}" in walked, mod
 
 

@@ -53,8 +53,7 @@ def _close(got, want, tol=E2E_TOL):
 # the selectors end to end
 # ---------------------------------------------------------------------------
 
-#: the tree families each new selector sweeps in one train (the linear
-#: families are not ported)
+#: the tree families each new selector sweeps in one train
 SELECTOR_MODELS = {
     "regression": [("OpDecisionTreeRegressor", GRID_TREE),
                    ("OpRandomForestRegressor", GRID_RF),
@@ -147,10 +146,15 @@ def test_unknown_problem_and_default_models_raise():
     )
     with pytest.raises(ValueError, match="unknown problem kind"):
         ModelSelector(problem="ranking", models=[])
-    for make in (port.MultiClassificationModelSelector,
-                 port.RegressionModelSelector):
-        with pytest.raises(NotImplementedError, match="default model list"):
-            make.with_cross_validation()
+    # without models= the selectors take the default lists (the linear
+    # families, GLM and the trees); a family the port lacks raises
+    for make, first in ((port.MultiClassificationModelSelector,
+                         "OpLogisticRegression"),
+                        (port.RegressionModelSelector, "OpLinearRegression")):
+        assert make.with_cross_validation().models[0][0].name == first
+        with pytest.raises(ValueError, match="is not ported yet"):
+            make.with_cross_validation(
+                models=[("OpMultilayerPerceptronClassifier", None)])
     with pytest.raises(ValueError, match="does not support"):
         port.RegressionModelSelector.with_cross_validation(
             models=[("OpGBTClassifier", None)])

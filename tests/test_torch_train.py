@@ -636,8 +636,10 @@ def test_unported_inputs_raise():
     vec = Feature("v", OPVector, False, None, ())
     with pytest.raises(NotImplementedError, match="Real and RealNN"):
         port.transmogrify([vec])
-    with pytest.raises(NotImplementedError, match="default model list"):
-        port.BinaryClassificationModelSelector.with_cross_validation()
+    # the default model list is ported; the MLP family is not
+    with pytest.raises(ValueError, match="is not ported yet"):
+        port.BinaryClassificationModelSelector.with_cross_validation(
+            models=[("OpMultilayerPerceptronClassifier", None)])
     class NoGrid(ModelFamily):
         name = "NoGrid"
 

@@ -20,5 +20,6 @@ class OpRegressionEvaluator(OpEvaluatorBase):
     def evaluate_all(self, table: FeatureTable) -> Dict[str, float]:
         label, parts = self._extract(table)
         pred = parts["prediction"].to(torch.float32)
-        return {k: float(v) for k, v in regression_metrics(
-            pred, label.to(pred.device)).items()}
+        # keys in sorted order, as the JAX package's jitted metrics return
+        return {k: float(v) for k, v in sorted(regression_metrics(
+            pred, label.to(pred.device)).items())}

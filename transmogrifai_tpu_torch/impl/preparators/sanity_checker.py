@@ -315,3 +315,16 @@ class SanityCheckerModel(AllowLabelAsInput, Transformer):
             meta["vector_meta"] = VectorMetadata(
                 self.get_output().name, vm.select(self.keep_indices).columns)
         return Column(OPVector, vals.index_select(1, keep), None, meta)
+
+    def summary_pretty(self) -> str:
+        """The JAX package's text summary of the check."""
+        s = self.summary
+        lines = [f"-- SanityChecker ({self.uid}) --",
+                 f"sample size: {s.sample_size}",
+                 f"columns kept: {len(self.keep_indices)} / "
+                 f"{len(s.stats.names)}"]
+        if s.dropped:
+            lines.append("dropped:")
+            for name in s.dropped:
+                lines.append(f"  {name}: " + "; ".join(s.reasons[name]))
+        return "\n".join(lines)

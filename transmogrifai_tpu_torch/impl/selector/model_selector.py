@@ -6,13 +6,18 @@ fitted ``SelectedModel`` emits a Prediction column on the device. Binary,
 multiclass (labels re-indexed by a ``DataCutter``, predictions mapped back)
 and regression problems.
 
-Left out of this slice: workflow-level CV (``find_best_estimator``), the
-refit fallback to the next-ranked candidate, mesh sharding and sweep
-checkpoints (see ROADMAP.md). A refit that yields non-finite parameters
-raises.
+Without ``models=`` a selector sweeps the reference's default model list
+of its problem kind. A winner whose refit throws or yields non-finite
+parameters yields to the next-ranked candidate (at most
+``_MAX_REFIT_ATTEMPTS`` are tried), as in the JAX package.
+
+Left out of this slice: workflow-level CV (``find_best_estimator``), mesh
+sharding and sweep checkpoints (see ROADMAP.md).
 """
 from __future__ import annotations
 
+import logging
+import os
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -25,8 +30,23 @@ from ...table import Column, FeatureTable
 from ...types import OPVector, Prediction, RealNN
 from ...utils.padding import bucket_for
 from ..tuning.splitters import DataSplitter, PreparedData, Splitter
-from ..tuning.validators import OpCrossValidation, OpValidator
+from ..tuning.validators import (
+    AllCandidatesFailedError, OpCrossValidation, OpValidator,
+)
 
+#: refit-fallback depth: how many ranked candidates may be tried when the
+#: winner's full-data refit diverges before the train aborts
+_MAX_REFIT_ATTEMPTS = 3
+
+#: the reference's default model types per problem kind (NB, DT, XGBoost
+#: and MLP are off by default)
+DEFAULT_MODELS = {
+    "binary": ["OpLogisticRegression", "OpRandomForestClassifier",
+               "OpGBTClassifier", "OpLinearSVC"],
+    "multiclass": ["OpLogisticRegression", "OpRandomForestClassifier"],
+    "regression": ["OpLinearRegression", "OpRandomForestRegressor",
+                   "OpGBTRegressor", "OpGeneralizedLinearRegression"],
+}
 
 #: each problem kind's default validation metric and its direction
 _PROBLEM_METRICS = {"binary": ("AuPR", True), "multiclass": ("F1", True),
@@ -87,12 +107,9 @@ class ModelSelector(AllowLabelAsInput, Estimator):
         self.models = self._resolve_models(models)
 
     def _resolve_models(self, models):
-        from ...models import trees  # noqa: F401  (registers the families)
+        from ...models import glm, linear, trees  # noqa: F401  (registers)
         if models is None:
-            raise NotImplementedError(
-                f"the default model list of {self.problem} problems (it "
-                f"holds the linear families) is not ported yet; pass "
-                f"models=[(family, grid)]")
+            models = [(name, None) for name in DEFAULT_MODELS[self.problem]]
         resolved: List[Tuple[ModelFamily, List[Dict[str, Any]]]] = []
         for fam, grid in models:
             if isinstance(fam, str):
@@ -106,6 +123,14 @@ class ModelSelector(AllowLabelAsInput, Estimator):
                                  f"'{self.problem}'")
             if grid is None:
                 grid = fam.default_grid(self.problem)
+                # test-time knob, as in the JAX package: shrink DEFAULT grids
+                # so CPU suites stay fast; passed grids are never touched
+                if os.environ.get("TG_FAST_GRIDS", "").lower() in ("1",
+                                                                   "true"):
+                    logging.getLogger(__name__).warning(
+                        "TG_FAST_GRIDS is set: default %s grid truncated "
+                        "%d -> 2 configs (test mode)", fam.name, len(grid))
+                    grid = grid[:2]
             resolved.append((fam, list(grid)))
         return resolved
 
@@ -155,25 +180,50 @@ class ModelSelector(AllowLabelAsInput, Estimator):
         yf = torch.nn.functional.pad(yd, (0, n_pad - n_fit))
         W = torch.zeros((1, n_pad), dtype=torch.float32, device=dev)
         W[:, :n_fit] = 1.0
-        family = MODEL_REGISTRY[best.family_name]
-        params = family.select_params(
-            family.fit_batch(Xf, yf, W, family.grid_to_arrays([best.hyper]),
-                             num_classes), 0)
-        if not _params_finite(params, self._INF_OK_PARAMS):
-            raise ArithmeticError(f"the refit of {best.family_name} "
-                                  f"{best.hyper} produced non-finite params")
-        fitted = FittedParams(family=best.family_name, params=params,
-                              hyper=dict(best.hyper), num_classes=num_classes)
+        # the winner refits with a non-finite guard; a refit that fails
+        # numerically (non-finite params, a singular solve) yields to the
+        # next-ranked candidate (with no fault the first candidate is the
+        # sweep winner). Any other error, a kernel's launch or build among
+        # them, is raised: the JAX package catches every exception here,
+        # which on the card would turn a kernel fault into another model
+        fitted, used = None, None
+        refit_quarantine: List[Dict[str, Any]] = []
+        for fam_name, hyper, value in _ranked_candidates(
+                best, larger_better)[:_MAX_REFIT_ATTEMPTS]:
+            family = MODEL_REGISTRY[fam_name]
+            try:
+                params = family.select_params(family.fit_batch(
+                    Xf, yf, W, family.grid_to_arrays([hyper]), num_classes),
+                    0)
+                if not _params_finite(params, self._INF_OK_PARAMS):
+                    raise ArithmeticError(
+                        "refit produced non-finite fitted params")
+            except (ArithmeticError, torch.linalg.LinAlgError) as e:
+                reason = f"refit failed: {type(e).__name__}: {e}"
+                logging.getLogger(__name__).warning(
+                    "%s %s: %s; refitting the next-ranked candidate",
+                    fam_name, dict(hyper), reason)
+                refit_quarantine.append({
+                    "family": fam_name, "hyper": dict(hyper),
+                    "reason": reason})
+                continue
+            fitted = FittedParams(family=fam_name, params=params,
+                                  hyper=dict(hyper), num_classes=num_classes)
+            used = (fam_name, dict(hyper), value)
+            break
+        if fitted is None:
+            raise AllCandidatesFailedError(list(best.quarantined)
+                                           + refit_quarantine)
         summary = ModelSelectorSummary(
             validation_type=type(self.validator).__name__,
             validation_metric=metric_name, problem=self.problem,
-            best_model_type=best.family_name, best_hyper=dict(best.hyper),
-            best_metric_value=best.metric_value, larger_better=larger_better,
+            best_model_type=used[0], best_hyper=used[1],
+            best_metric_value=used[2], larger_better=larger_better,
             validation_results=best.results,
             splitter_summary=dict(getattr(self.splitter, "summary", {})
                                   or {}),
             validation_eval_row_cap=self.validator.max_eval_rows,
-            quarantined=list(best.quarantined))
+            quarantined=list(best.quarantined) + refit_quarantine)
         model = self._finalize_model(SelectedModel(
             fitted=fitted, summary=summary,
             label_mapping=prep.label_mapping))
@@ -202,6 +252,23 @@ class ModelSelector(AllowLabelAsInput, Estimator):
 
 def _scalar_metrics(metrics: Dict[str, Any]) -> Dict[str, float]:
     return {k: v for k, v in metrics.items() if isinstance(v, (int, float))}
+
+
+def _ranked_candidates(best, larger_better: bool
+                       ) -> List[Tuple[str, Dict[str, Any], float]]:
+    """Winner first, then every other finite-metric candidate by mean
+    validation metric: the refit fallback order."""
+    first = (best.family_name, dict(best.hyper), best.metric_value)
+    pool = []
+    for r in best.results or []:
+        for g, hyper in enumerate(r.grid):
+            v = float(r.mean_metrics[g])
+            if not np.isfinite(v) or (r.family == first[0]
+                                      and dict(hyper) == first[1]):
+                continue
+            pool.append((r.family, dict(hyper), v))
+    pool.sort(key=(lambda t: -t[2]) if larger_better else (lambda t: t[2]))
+    return [first] + pool
 
 
 class SelectedModel(AllowLabelAsInput, Transformer):
@@ -244,6 +311,31 @@ class SelectedModel(AllowLabelAsInput, Transformer):
         parts = dict(parts,
                      prediction=self._unmap_prediction(parts["prediction"]))
         return prediction_column(parts)
+
+    def summary_pretty(self) -> str:
+        """The JAX package's text summary of the selection."""
+        s = self.summary
+        lines = [f"-- ModelSelector ({self.uid}) --",
+                 f"Evaluated {len(s.validation_results)} model type(s) with "
+                 f"{s.validation_type} on metric {s.validation_metric}",
+                 f"Best model: {s.best_model_type} "
+                 f"{s.best_hyper} → {s.validation_metric}="
+                 f"{s.best_metric_value:.4f}"]
+        for r in s.validation_results:
+            mean = torch.as_tensor(r.mean_metrics).cpu().numpy()
+            hi, lo = np.max(mean), np.min(mean)
+            b, w = (hi, lo) if s.larger_better else (lo, hi)
+            lines.append(f"  {r.family}: best {b:.4f} "
+                         f"worst {w:.4f} over {len(r.grid)} configs")
+        if s.holdout_evaluation:
+            keys = ("AuPR", "AuROC", "F1", "Error", "RootMeanSquaredError",
+                    "R2")
+            show = {k: round(v, 4) for k, v in s.holdout_evaluation.items()
+                    if k in keys}
+            lines.append(f"Holdout: {show}")
+        if s.splitter_summary:
+            lines.append(f"Splitter: {s.splitter_summary}")
+        return "\n".join(lines)
 
 
 def prediction_column(parts: Dict[str, torch.Tensor]) -> Column:

@@ -1,5 +1,6 @@
 """Validators (counterpart of ``transmogrifai_tpu.impl.tuning.validators``):
-k-fold cross-validation over a family's whole grid at once.
+k-fold cross-validation and a single train/validation split, over a
+family's whole grid at once.
 
 Folds are 0/1 row weights, so the |folds| x |grid| sweep of a family is one
 ``sweep_fit_batch`` call. Each configuration is then scored on its own
@@ -132,13 +133,17 @@ class OpValidator:
 
     ``max_eval_rows``: each configuration is scored on at most this many of
     its fold's validation rows (a deterministic strided subsample; None =
-    every row). CV candidates fit through ``sweep_fit_batch``."""
+    every row). CV candidates fit through ``sweep_fit_batch``, or through
+    ``fit_batch`` (full precision, the refit's schedule) with
+    ``exact_sweep_fits``."""
 
     def __init__(self, seed: int = 42, stratify: bool = False,
-                 max_eval_rows: Optional[int] = 32768):
+                 max_eval_rows: Optional[int] = 32768,
+                 exact_sweep_fits: bool = False):
         self.seed = seed
         self.stratify = stratify
         self.max_eval_rows = max_eval_rows
+        self.exact_sweep_fits = exact_sweep_fits
 
     def make_splits(self, y: np.ndarray) -> np.ndarray:
         """(F, n) boolean validation masks; train mask = ~val."""
@@ -223,7 +228,9 @@ class OpValidator:
             garr = family.grid_to_arrays(grid)
             tiled = {k: np.tile(v, F) for k, v in garr.items()}
             W = train_w.repeat_interleave(G, dim=0)          # (F * G, n_pad)
-            params = family.sweep_fit_batch(X, y, W, tiled, num_classes)
+            fit = (family.fit_batch if self.exact_sweep_fits
+                   else family.sweep_fit_batch)
+            params = fit(X, y, W, tiled, num_classes)
             scores = torch.cat([
                 family.predict_batch(
                     family.slice_params(params, f * G, (f + 1) * G),
@@ -264,3 +271,28 @@ class OpCrossValidation(OpValidator):
 
     def make_splits(self, y: np.ndarray) -> np.ndarray:
         return self._kfold_masks(y, self.num_folds)
+
+
+class OpTrainValidationSplit(OpValidator):
+    """One train/validation split (default train ratio 0.75): a fold axis
+    of 1, rows outside the validation mask train only."""
+
+    def __init__(self, train_ratio: float = 0.75, **kw):
+        super().__init__(**kw)
+        if not 0.0 < train_ratio < 1.0:
+            raise ValueError("train_ratio must be in (0, 1)")
+        self.train_ratio = train_ratio
+
+    def make_splits(self, y: np.ndarray) -> np.ndarray:
+        n = len(y)
+        rng = np.random.RandomState(self.seed)
+        val = np.zeros((1, n), dtype=bool)
+        if self.stratify:
+            for lab in np.unique(y):
+                idx = rng.permutation(np.nonzero(y == lab)[0])
+                n_val = int(round(len(idx) * (1.0 - self.train_ratio)))
+                val[0, idx[:n_val]] = True
+        else:
+            perm = rng.permutation(n)
+            val[0, perm[: int(round(n * (1.0 - self.train_ratio)))]] = True
+        return val

@@ -32,7 +32,7 @@ from .impl.preparators.sanity_checker import (
 from .impl.selector.model_selector import ModelSelectorSummary, SelectedModel
 from .impl.tuning.validators import ValidationResult
 from .manifest import CheckpointManifest
-from .models import trees  # noqa: F401  (registers the tree families)
+from .models import glm, linear, trees  # noqa: F401  (registers families)
 from .models.api import MODEL_REGISTRY, FittedParams
 from .stages.base import FeatureGeneratorStage, OpPipelineStage
 from .types import feature_type_by_name
@@ -133,7 +133,7 @@ def _decode(d: Any, arrays: Dict[str, np.ndarray]) -> Any:
 
 
 def _to_device(v: Any, device: torch.device) -> Any:
-    """Every numpy array inside ``v`` -> a tensor on ``device``; a tree
+    """Every numpy array inside ``v`` -> a tensor on ``device``; a
     model's fitted params go through its family's ``params_from_numpy``."""
     if isinstance(v, np.ndarray):
         return torch.as_tensor(v, device=device)

@@ -2,15 +2,16 @@
 
     python3 -m transmogrifai_tpu_torch.profile_serve [--rows 65536] [--reps 5]
 
-Loads each committed ``serve64`` fixture (``testing.SERVE_MODELS``) on
-the card and scores a batch of ``--rows`` rows (the fixtures' 4,096-row
-scoring frame, rebuilt from its seed by ``testing.score_frame``, tiled)
-through
-``OpWorkflowModel.score``. For each model it prints one JSON line with the
-median host-clock seconds of each phase (host table build, host-to-device
-copy, each stage, device-to-host copy of the result; every phase ends in
+Loads each saved model of the committed ``serve64`` fixtures
+(``testing.SAVED_KEYS``) on the card and scores a batch of ``--rows``
+rows (the fixtures' 4,096-row scoring frame, rebuilt from its seed by
+``testing.score_frame``, tiled) through ``OpWorkflowModel.score``. For
+each model it prints one JSON line with the median host-clock seconds of
+each phase (host table build, host-to-device copy, each stage,
+device-to-host copy of the result; every phase ends in
 ``torch.cuda.synchronize()``), the rows/sec of the whole call, and the
-device time per kernel name from ``torch.profiler`` over ``--reps`` calls.
+device time per kernel name from ``torch.profiler`` over ``--reps``
+calls.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ import time
 import numpy as np
 import torch
 
-from .testing import SCORE_ROWS, SERVE_MODELS, score_frame
+from .testing import SAVED_KEYS, SCORE_ROWS, score_frame
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "fixtures", "serve64")
@@ -107,7 +108,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0])
-    for key in SERVE_MODELS:
+    for key in SAVED_KEYS:
         print(json.dumps(profile(key, args.rows, args.reps)))
     return 0
 

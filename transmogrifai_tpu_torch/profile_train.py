@@ -1,20 +1,25 @@
 """Where the training path's time goes, on one NVIDIA GPU.
 
     python3 -m transmogrifai_tpu_torch.profile_train
-        [--family gbt|gbt12|rf|dt|rfreg|gbtreg|rfmc|xgbmc] [--rows 20000]
-        [--reps 3]
+        [--family gbt|gbt12|rf|dt|rfreg|gbtreg|rfmc|xgbmc|lr|svc|lrmc|nbmc|
+                  linreg|glm|default_binary|default_mc|default_reg]
+        [--rows 20000] [--reps 3]
 
-Trains one of the serve bench's pinned workflows (64 ``Real`` predictors,
+Trains one of the serve bench's workflows (64 ``Real`` predictors,
 ``transmogrify -> sanity_check -> <problem>ModelSelector``;
-``testing.serve_bench_workflow``, ``testing.SERVE_MODELS``): binary
-``gbt`` maxDepth 6, 20 rounds; ``gbt12`` maxDepth 12, 20 rounds (slot
-chains); ``rf`` maxDepth 12, 50 trees; ``dt`` maxDepth 6; regression
-``rfreg`` (RF as ``rf``) and ``gbtreg`` (GBT as ``gbt``); 6-class
-``rfmc`` (RF as ``rf``) and ``xgbmc`` (XGBoost maxDepth 6, 100 rounds).
-It trains on ``--rows`` seeded rows, once to
+``testing.serve_bench_workflow``, ``testing.SERVE_MODELS``): the pinned
+binary ``gbt`` maxDepth 6, 20 rounds; ``gbt12`` maxDepth 12, 20 rounds
+(slot chains); ``rf`` maxDepth 12, 50 trees; ``dt`` maxDepth 6; ``lr``
+(elastic net) and ``svc``; regression ``rfreg`` (RF as ``rf``),
+``gbtreg`` (GBT as ``gbt``), ``linreg`` and ``glm`` (gaussian); 6-class
+``rfmc`` (RF as ``rf``), ``xgbmc`` (XGBoost maxDepth 6, 100 rounds),
+``lrmc`` (softmax) and ``nbmc``; or a problem kind's default model list
+at full default grids (``default_binary``, ``default_mc``,
+``default_reg``). It trains on ``--rows`` seeded rows, once to
 warm up and then ``--reps`` times, and prints one JSON line: the median
 seconds of the whole ``train()``, of each stage's fit, and inside the
-selector of the CV sweep, the winner's refit and the train/holdout
+selector of the CV sweep (in all and per family: its sweep fits and its
+validation predicts), the winner's refit and the train/holdout
 evaluations (host clock, each ending in ``torch.cuda.synchronize()``);
 the peak device memory allocated over those trains
 (``torch.cuda.max_memory_allocated``); then, from ``torch.profiler`` over
@@ -40,8 +45,9 @@ from .testing import (
 
 @contextmanager
 def _timing(phases: dict):
-    """Time each stage fit and the selector's sweep, refit and evaluations
-    by wrapping them for the duration of the block."""
+    """Time each stage fit, the selector's sweep (and each family's sweep
+    fits and validation predicts in it), refit and evaluations by wrapping
+    them for the duration of the block."""
     from .evaluators import (
         OpBinaryClassificationEvaluator, OpMultiClassificationEvaluator,
         OpRegressionEvaluator,
@@ -50,21 +56,16 @@ def _timing(phases: dict):
     from .impl.preparators.sanity_checker import SanityChecker
     from .impl.selector.model_selector import ModelSelector, SelectedModel
     from .impl.tuning.validators import OpValidator
-    from .models.trees import (
-        DecisionTreeFamilyBase, GBTFamilyBase, RandomForestFamilyBase,
-    )
+    from .models import glm, linear, trees  # noqa: F401  (registers)
+    from .models.api import MODEL_REGISTRY
 
+    #: the sweep's own fit calls are not refits
+    in_sweep = []
     targets = [
         (RealVectorizer, "fit", lambda *a, **k: "fit RealVectorizer"),
         (SanityChecker, "fit", lambda *a, **k: "fit SanityChecker"),
         (ModelSelector, "fit", lambda *a, **k: "fit ModelSelector"),
         (OpValidator, "validate", lambda *a, **k: "selector: CV sweep"),
-    ] + [
-        (cls, "fit_batch", lambda *a, sweep=False, **k:
-         "selector: CV fits" if sweep else "selector: refit")
-        for cls in (GBTFamilyBase, RandomForestFamilyBase,
-                    DecisionTreeFamilyBase)
-    ] + [
         (SelectedModel, "transform_column",
          lambda *a, **k: "selector: evaluation predicts"),
     ] + [
@@ -72,27 +73,47 @@ def _timing(phases: dict):
         for cls in (OpBinaryClassificationEvaluator,
                     OpMultiClassificationEvaluator, OpRegressionEvaluator)
     ]
-    saved = [(owner, name, getattr(owner, name))
+    for fam in MODEL_REGISTRY.values():
+        targets += [
+            (fam, "sweep_fit_batch",
+             lambda *a, name=fam.name, **k: f"sweep fits: {name}"),
+            (fam, "predict_batch",
+             lambda *a, name=fam.name, **k: f"sweep predicts: {name}"),
+            (fam, "fit_batch",
+             lambda *a, name=fam.name, **k: None if in_sweep
+             else f"refit: {name}")]
+    saved = [(owner, name, getattr(owner, name), name in vars(owner))
              for owner, name, _ in targets]
 
-    def timed(key_fn, fn):
+    def timed(key_fn, fn, nests):
         def run(*a, **kw):
+            key = key_fn(*a, **kw)
+            if key is None:
+                return fn(*a, **kw)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = fn(*a, **kw)
+            if nests:
+                in_sweep.append(1)
+            try:
+                out = fn(*a, **kw)
+            finally:
+                if nests:
+                    in_sweep.pop()
             torch.cuda.synchronize()
-            phases.setdefault(key_fn(*a, **kw), []).append(
-                time.perf_counter() - t0)
+            phases.setdefault(key, []).append(time.perf_counter() - t0)
             return out
         return run
 
-    for (owner, name, key_fn), (_, _, fn) in zip(targets, saved):
-        setattr(owner, name, timed(key_fn, fn))
+    for (owner, name, key_fn), (_, _, fn, _) in zip(targets, saved):
+        setattr(owner, name, timed(key_fn, fn, name == "sweep_fit_batch"))
     try:
         yield
     finally:
-        for owner, name, fn in saved:
-            setattr(owner, name, fn)
+        for owner, name, fn, own in saved:
+            if own:
+                setattr(owner, name, fn)
+            else:
+                delattr(owner, name)
 
 
 def profile(family: str, rows: int, reps: int) -> dict:

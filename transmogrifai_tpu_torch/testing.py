@@ -10,9 +10,11 @@ from typing import Dict, Optional
 
 import numpy as np
 
-#: the serve bench's pinned winners, as the committed ``serve64`` fixtures
-#: were trained: {fixture key: (family, hyperparameters, problem kind)};
-#: the problem kind picks the frame's label and the selector
+#: the serve bench's models, as the committed ``serve64`` fixtures were
+#: trained: {fixture key: (family, hyperparameters, problem kind)}; the
+#: problem kind picks the frame's label and the selector. A pinned key
+#: sweeps one family at one grid point; a ``default_*`` key (family None)
+#: sweeps its problem kind's default model list at full default grids
 SERVE_MODELS = {
     "rf": ("OpRandomForestClassifier",
            {"maxDepth": 12, "numTrees": 50, "minInstancesPerNode": 10,
@@ -46,7 +48,27 @@ SERVE_MODELS = {
                "minChildWeight": 1.0, "lambda": 1.0, "minInfoGain": 0.0,
                "minInstancesPerNode": 0.0},
               "multiclass"),
+    "lr": ("OpLogisticRegression",
+           {"regParam": 0.01, "elasticNetParam": 0.5}, "binary"),
+    "svc": ("OpLinearSVC", {"regParam": 0.01}, "binary"),
+    "lrmc": ("OpLogisticRegression", {"regParam": 0.01}, "multiclass"),
+    "nbmc": ("OpNaiveBayes", {"smoothing": 1.0}, "multiclass"),
+    "linreg": ("OpLinearRegression",
+               {"regParam": 0.01, "elasticNetParam": 0.5}, "regression"),
+    "glm": ("OpGeneralizedLinearRegression",
+            {"family": "gaussian", "regParam": 0.01}, "regression"),
+    "default_binary": (None, None, "binary"),
+    "default_mc": (None, None, "multiclass"),
+    "default_reg": (None, None, "regression"),
 }
+
+#: default lists whose refit is a pinned key's model (the same family,
+#: hyperparameters, frame and refit program): their fixture keeps only
+#: ``summary.json``, and the pinned key's saved model stands for theirs
+SHARED_REFITS = {"default_binary": "svc", "default_mc": "lrmc"}
+
+#: the keys whose fixture holds a saved model of its own
+SAVED_KEYS = [k for k in SERVE_MODELS if k not in SHARED_REFITS]
 
 #: the committed fixtures' training frame (``serve_bench_data``) and
 #: scoring frame (``score_frame()``): rows and seed
@@ -228,13 +250,14 @@ def score_frame(n: int = SCORE_ROWS, d: int = 64, seed: int = SCORE_SEED,
     return {f"x{i}": X[:, i] for i in range(d)}
 
 
-def serve_bench_workflow(family: str, hyper: Dict, d: int, seed: int,
-                         realnn: int = 0, device=None,
+def serve_bench_workflow(family: Optional[str], hyper: Optional[Dict],
+                         d: int, seed: int, realnn: int = 0, device=None,
                          problem: str = "binary"):
     """``transmogrify -> sanity_check -> <problem>ModelSelector`` with
     cross-validation over ``d`` predictors (the first ``realnn`` RealNN,
-    the rest Real), the winner pinned to one family and grid point: an
-    untrained ``OpWorkflow`` without data."""
+    the rest Real), the winner pinned to one family and grid point, or,
+    with ``family`` None, the selector's default model list: an untrained
+    ``OpWorkflow`` without data."""
     from .dsl import transmogrify
     from .features import FeatureBuilder
     from .impl.selector import factories
@@ -246,9 +269,9 @@ def serve_bench_workflow(family: str, hyper: Dict, d: int, seed: int,
     feats = [(FeatureBuilder.RealNN if i < realnn else FeatureBuilder.Real)(
         f"x{i}").extract_field().as_predictor() for i in range(d)]
     checked = transmogrify(feats).sanity_check(label)
-    pred = (selector.with_cross_validation(
-        seed=seed, models=[(family, [dict(hyper)])])
-        .set_input(label, checked).get_output())
+    models = None if family is None else [(family, [dict(hyper)])]
+    pred = (selector.with_cross_validation(seed=seed, models=models)
+            .set_input(label, checked).get_output())
     return OpWorkflow(device=device).set_result_features(pred)
 
 

@@ -111,6 +111,18 @@ class OpWorkflowModel:
         (NaN or None = missing). Response columns are not needed."""
         return raw_table(self.raw_features, data, require_response=False)
 
+    def summary_pretty(self) -> str:
+        """Each fitted stage's text summary (the SanityChecker's and the
+        ModelSelector's), as the JAX package prints it."""
+        lines: List[str] = ["Workflow summary:"]
+        for stage in self.stages:
+            pretty = getattr(stage, "summary_pretty", None)
+            if callable(pretty):
+                lines.append(pretty())
+            elif getattr(stage, "summary_metadata", None):
+                lines.append(f"-- {type(stage).__name__} ({stage.uid})")
+        return "\n".join(lines)
+
     def score(self, table: Optional[FeatureTable] = None,
               data: Optional[Mapping[str, Any]] = None) -> FeatureTable:
         """Score a table (or ``{name: values}``) on the model's device: the
