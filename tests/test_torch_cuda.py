@@ -948,6 +948,58 @@ def test_node_hist_kernel_matches_plain_and_direct(cuda, case):
                                               stride))
 
 
+#: the Titanic vector's widths (~570 codes: ``transmogrify`` of the
+#: Titanic features) and odd widths on both sides of the points where
+#: pass B's staged rows R halve to fit its shared memory (front 2 R (d/4 +
+#: kg) ints beside nb x threads bins in 48 KB), one tree and many, codes as
+#: bytes (two trees or more) and as int32 (one tree)
+WIDE_NODE_CASES = [(2003, d, T, Wl, stride) for d in (
+    95, 97, 191, 193, 255, 257, 383, 385, 511, 513, 569, 570, 571, 575,
+    767, 769, 1023, 1025) for T, Wl, stride in ((1, 16, 2), (3, 64, 1))]
+
+
+@pytest.mark.parametrize("case", WIDE_NODE_CASES)
+def test_node_hist_at_the_titanic_widths(cuda, case):
+    """Bit-equal to the direct formula (rows in the kernel's order), close
+    to plain, exact on integer-valued stats: at widths where each block
+    stages one row or a few."""
+    S, d, T, Wl, stride = case
+    codes, node, sw, sw_i = _node_case(cuda, S + d + T, S, d, T, Wl, stride)
+    got = _node_hist_kernel(codes, node, sw, Wl, 32, stride)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), HK.node_hist_direct(
+        codes.cpu(), node.cpu(), [s.cpu() for s in sw], Wl, 32, stride))
+    torch.testing.assert_close(
+        got, HK.node_hist_plain(codes, node, sw, Wl, 32, stride), rtol=RTOL,
+        atol=ATOL)
+    assert torch.equal(_node_hist_kernel(codes, node, sw_i, Wl, 32, stride),
+                       HK.node_hist_plain(codes, node, sw_i, Wl, 32, stride))
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("S,d,B,nb", [(13001, 570, 192, 32),
+                                      (4099, 571, 128, 64),
+                                      (2003, 1025, 3, 32)])
+def test_hist_kernel_at_the_titanic_widths(cuda, exact, S, d, B, nb):
+    """The grid flattens the features into grid.x: a ~570-wide call
+    launches more blocks, each as at 64 features."""
+    codes, A, A_int = _hist_inputs(cuda, S + d, S, d, B, nb)
+    got = HK.hist_matmul_cuda(codes, A, nb, exact)
+    torch.testing.assert_close(got, HK.hist_matmul_plain(codes, A, nb, exact),
+                               rtol=RTOL, atol=ATOL)
+    assert torch.equal(HK.hist_matmul_cuda(codes, A_int, nb, exact),
+                       HK.hist_matmul_plain(codes, A_int, nb, exact))
+
+
+def test_chain_predict_at_the_titanic_width(cuda):
+    rng = np.random.RandomState(31)
+    f = _on(cuda, random_chain(rng, 20000, 571, 50, 12, 256, 1, 32))
+    args = (f["codes"], f["feat"], f["bins"], f["base"], f["leaf"])
+    got, ids = F.forest_predict_chain_cuda(*args, n_bins=32, with_ids=True)
+    assert torch.equal(ids, F.route_codes_chain(*args[:4], 32))
+    assert torch.equal(got, F.forest_predict_chain_plain(*args, n_bins=32))
+
+
 @pytest.mark.parametrize("threads,warps,tile,stage", [
     (32, 1, 1, 1), (64, 3, 100, 7), (96, 32, 4096, 32), (1024, 8, 333, 2)])
 def test_node_hist_bits_do_not_depend_on_the_launch(cuda, threads, warps,

@@ -674,9 +674,9 @@ def test_corrupt_or_unknown_saved_state_raises(tmp_path):
     os.remove(os.path.join(odd, "MANIFEST.json"))   # loads unverified
     plan_path = os.path.join(odd, "plan.json")
     plan = open(plan_path).read().replace('"RealVectorizerModel"',
-                                          '"OneHotVectorizerModel"')
+                                          '"DateToUnitCircleTransformer"')
     open(plan_path, "w").write(plan)
-    with pytest.raises(ValueError, match="OneHotVectorizerModel.*no "
+    with pytest.raises(ValueError, match="DateToUnitCircleTransformer.*no "
                                          "counterpart"):
         port.load_model(odd, device="cpu")
 

@@ -65,7 +65,9 @@ from transmogrifai_tpu_torch.table import Column, FeatureTable  # noqa: E402
 from transmogrifai_tpu_torch.testing import (  # noqa: E402
     serve_bench_data, serve_bench_workflow,
 )
-from transmogrifai_tpu_torch.types import OPVector, RealNN  # noqa: E402
+from transmogrifai_tpu_torch.types import (  # noqa: E402
+    FeatureType, OPVector, RealNN,
+)
 from transmogrifai_tpu_torch.utils.padding import bucket_for  # noqa: E402
 from transmogrifai_tpu_torch.vector_metadata import (  # noqa: E402
     VectorColumnMetadata, VectorMetadata,
@@ -633,9 +635,13 @@ def test_workflow_without_device_needs_cuda():
 
 
 def test_unported_inputs_raise():
-    vec = Feature("v", OPVector, False, None, ())
-    with pytest.raises(NotImplementedError, match="Real and RealNN"):
-        port.transmogrify([vec])
+    class Date(FeatureType):        # a type the port does not vectorize
+        is_abstract = False
+        column_kind = "date"
+
+    date = Feature("d", Date, False, None, ())
+    with pytest.raises(NotImplementedError, match="no vectorizer for Date"):
+        port.transmogrify([date])
     # the default model list is ported; the MLP family is not
     with pytest.raises(ValueError, match="is not ported yet"):
         port.BinaryClassificationModelSelector.with_cross_validation(

@@ -1,9 +1,11 @@
 """transmogrifai_tpu_torch: the PyTorch/CUDA port of transmogrifai_tpu.
 
-Training: ``OpWorkflow().set_input_dataset(data).set_result_features(pred)
-.train()`` fits ``transmogrify -> sanity_check -> ModelSelector`` (the
-binary, multiclass and regression factories) with the tree families on an
-NVIDIA GPU (the split and leaf histograms in hand-written CUDA kernels).
+Training: ``OpWorkflow().set_reader(reader)`` (or ``set_input_dataset``
+with columns or records) ``.set_result_features(pred).train()`` fits typed
+raw features (numbers, text, pick lists; ``readers.DataReaders`` reads a
+CSV) through ``transmogrify -> sanity_check -> ModelSelector`` (the
+binary, multiclass and regression factories) on an NVIDIA GPU (the tree
+families' split and leaf histograms in hand-written CUDA kernels).
 Serving: ``load_model`` reads a model that the JAX package saved, and
 ``OpWorkflowModel.score`` / ``score_function`` score it or a trained one,
 with the forest descent in hand-written CUDA kernels (``csrc/``). Entry
@@ -18,10 +20,12 @@ from .impl.selector.factories import (
 )
 from .local.scoring import micro_batch_score_function, score_function
 from .persistence import load_model
+from .readers import DataReaders
 from .table import Column, FeatureTable
 from .workflow import OpWorkflow, OpWorkflowModel
 
 __all__ = ["load_model", "OpWorkflow", "OpWorkflowModel", "FeatureBuilder",
+           "DataReaders",
            "BinaryClassificationModelSelector",
            "MultiClassificationModelSelector", "RegressionModelSelector",
            "Evaluators", "transmogrify",

@@ -10,7 +10,7 @@ from __future__ import annotations
 import itertools
 from typing import Any, Callable, Dict, List, Optional, Sequence, Set, Type
 
-from .types import FeatureType, Real, RealNN
+from .types import FEATURE_TYPES, FeatureType
 
 _uid_counter = itertools.count(1)
 
@@ -18,6 +18,14 @@ _uid_counter = itertools.count(1)
 def make_uid(cls_name: str) -> str:
     """Stage/feature uid: ``ClassName_000000000001``."""
     return f"{cls_name}_{next(_uid_counter):012x}"
+
+
+def reset_uids() -> None:
+    """Restart the uid counter: a DAG built after it gets the uids the JAX
+    package gives the same definitions after its ``reset_uids``, which
+    ``load_model(..., workflow=)`` matches stages by."""
+    global _uid_counter
+    _uid_counter = itertools.count(1)
 
 
 class Feature:
@@ -50,6 +58,11 @@ class Feature:
 
     def __hash__(self):
         return hash(self.uid)
+
+    def transform_with(self, stage: Any, *others: "Feature") -> "Feature":
+        """Apply ``stage`` to this feature (and ``others``); its output."""
+        stage.set_input(self, *others)
+        return stage.get_output()
 
     def traverse(self, visit: Callable[["Feature"], None]) -> None:
         """Post-order DFS over the ancestry, with cycle detection."""
@@ -136,25 +149,21 @@ class FieldExtractor:
 
 
 class FeatureBuilder:
-    """Typed factory of raw features::
+    """Typed factory of raw features, one constructor per type of
+    ``types.FEATURE_TYPES``::
 
         age = FeatureBuilder.Real("age").extract_field().as_predictor()
+        sex = FeatureBuilder.PickList("sex").extract_field().as_predictor()
         label = FeatureBuilder.RealNN("y").extract_field().as_response()
 
-    This slice builds ``Real`` and ``RealNN`` features."""
+    ``extract_field`` (a ``FieldExtractor`` named ``extract_<field>``) lets
+    a reader convert the field's whole column at once; a custom
+    ``extract(fn)`` runs per record."""
 
     def __init__(self, name: str, feature_type: Type[FeatureType]):
         self.name = name
         self.feature_type = feature_type
         self._extract_fn: Optional[Callable[[Any], Any]] = None
-
-    @classmethod
-    def Real(cls, name: str) -> "FeatureBuilder":
-        return cls(name, Real)
-
-    @classmethod
-    def RealNN(cls, name: str) -> "FeatureBuilder":
-        return cls(name, RealNN)
 
     def extract(self, fn: Callable[[Any], Any]) -> "FeatureBuilder":
         self._extract_fn = fn
@@ -177,3 +186,14 @@ class FeatureBuilder:
 
     def as_response(self) -> Feature:
         return self._build(is_response=True)
+
+
+def _typed(feature_type: Type[FeatureType]):
+    def factory(name: str) -> FeatureBuilder:
+        return FeatureBuilder(name, feature_type)
+    factory.__name__ = feature_type.__name__
+    return staticmethod(factory)
+
+
+for _name, _type in FEATURE_TYPES.items():
+    setattr(FeatureBuilder, _name, _typed(_type))

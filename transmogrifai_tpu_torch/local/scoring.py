@@ -1,9 +1,12 @@
 """Serve-time scoring of a fitted model (counterpart of
 ``transmogrifai_tpu.local.scoring``).
 
-Both scorers build a host table from request rows, score it on the model's
-device through the same columnar pass as ``OpWorkflowModel.score``, and
-hand back plain python records: a Prediction as ``{key: float}``.
+Both scorers build a host table from request rows (each raw feature's
+extract function on each row; numbers converted in one sweep, other types
+as the JAX package's ``Column.of_values`` converts python values), score it
+on the model's device through the same columnar pass as
+``OpWorkflowModel.score``, and hand back plain python records: a Prediction
+as ``{key: float}``.
 """
 from __future__ import annotations
 
@@ -12,7 +15,7 @@ from typing import Any, Callable, Dict, List, Sequence
 
 import numpy as np
 
-from ..table import FeatureTable, column_of_scalars
+from ..table import Column, FeatureTable, column_of_scalars
 
 logger = logging.getLogger(__name__)
 
@@ -33,9 +36,13 @@ def _table_fn(model) -> Callable[[Sequence[Dict[str, Any]]], FeatureTable]:
         for f in raw:
             vals = [f.origin_stage.extract(r) for r in rows]
             try:
-                cols[f.name] = column_of_scalars(
-                    f.feature_type, [np.nan if v is None else v
-                                     for v in vals])
+                if f.feature_type.column_kind in ("real", "binary",
+                                                  "integral"):
+                    cols[f.name] = column_of_scalars(
+                        f.feature_type, [np.nan if v is None else v
+                                         for v in vals])
+                else:
+                    cols[f.name] = Column.of_values(f.feature_type, vals)
             except (TypeError, ValueError) as e:
                 raise ScoreSchemaError(
                     f"raw feature '{f.name}' ({f.type_name}): value does not "

@@ -8,7 +8,11 @@ Every array is read as numpy and becomes a tensor on the model's device.
 
 The saved descriptors name their classes by the JAX package's module paths.
 The port never imports those: each saved name maps through ``CLASSES`` to
-the port's own class, and a name without an entry raises.
+the port's own class, and a name without an entry raises. State the JAX
+package could not save (a user's lambda: a custom extract function, a
+lambda transformer's function) loads as ``Unresolved`` and is taken from
+the stage of the same uid in the workflow passed as ``workflow=``, as the
+JAX package's ``load_model`` resolves it.
 """
 from __future__ import annotations
 
@@ -22,8 +26,11 @@ import torch
 
 from .device import resolve_device
 from .features import Feature, FieldExtractor
+from .impl.feature.math import AliasTransformer, BinaryMathOp, ScalarOp
 from .impl.feature.vectorizers import (
-    RealNNVectorizer, RealVectorizerModel, VectorsCombiner,
+    BinaryVectorizer, HashingVectorizer, OneHotVectorizerModel,
+    RealNNVectorizer, RealVectorizerModel, SmartTextVectorizerModel,
+    TextTokenizer, VectorsCombiner,
 )
 from .impl.preparators.sanity_checker import (
     CategoricalGroupStats, ColumnStatistics, SanityCheckerModel,
@@ -34,7 +41,10 @@ from .impl.tuning.validators import ValidationResult
 from .manifest import CheckpointManifest
 from .models import glm, linear, trees  # noqa: F401  (registers families)
 from .models.api import MODEL_REGISTRY, FittedParams
-from .stages.base import FeatureGeneratorStage, OpPipelineStage
+from .stages.base import (
+    BinarySequenceTransformer, BinaryTransformer, FeatureGeneratorStage,
+    OpPipelineStage, SequenceTransformer, UnaryTransformer,
+)
 from .types import feature_type_by_name
 from .vector_metadata import VectorColumnMetadata, VectorMetadata
 
@@ -48,8 +58,22 @@ _SAVED = "transmogrifai_tpu."
 CLASSES: Dict[str, type] = {
     _SAVED + spec: cls for spec, cls in {
         "stages.base:FeatureGeneratorStage": FeatureGeneratorStage,
+        "stages.base:UnaryTransformer": UnaryTransformer,
+        "stages.base:BinaryTransformer": BinaryTransformer,
+        "stages.base:SequenceTransformer": SequenceTransformer,
+        "stages.base:BinarySequenceTransformer": BinarySequenceTransformer,
+        "impl.feature.math:ScalarOp": ScalarOp,
+        "impl.feature.math:BinaryMathOp": BinaryMathOp,
+        "impl.feature.math:AliasTransformer": AliasTransformer,
         "impl.feature.vectorizers:RealVectorizerModel": RealVectorizerModel,
         "impl.feature.vectorizers:RealNNVectorizer": RealNNVectorizer,
+        "impl.feature.vectorizers:BinaryVectorizer": BinaryVectorizer,
+        "impl.feature.vectorizers:OneHotVectorizerModel":
+            OneHotVectorizerModel,
+        "impl.feature.vectorizers:SmartTextVectorizerModel":
+            SmartTextVectorizerModel,
+        "impl.feature.vectorizers:TextTokenizer": TextTokenizer,
+        "impl.feature.vectorizers:HashingVectorizer": HashingVectorizer,
         "impl.feature.vectorizers:VectorsCombiner": VectorsCombiner,
         "impl.preparators.sanity_checker:SanityCheckerModel":
             SanityCheckerModel,
@@ -80,13 +104,37 @@ class CorruptModelError(RuntimeError):
         super().__init__(f"corrupt model artifact {path!r}: {reason}")
 
 
+class Unresolved:
+    """Saved state that must come from the original workflow."""
+
+    def __init__(self, desc: str):
+        self.desc = desc
+
+    def __repr__(self) -> str:
+        return f"Unresolved({self.desc!r})"
+
+
 def _class_of(spec: str) -> type:
     cls = CLASSES.get(spec)
     if cls is None:
-        raise ValueError(
-            f"saved class {spec!r} has no counterpart in the PyTorch port "
-            f"yet; it loads {sorted(s.split(':')[1] for s in CLASSES)}")
+        loads = ", ".join(sorted(s.split(":")[1] for s in CLASSES))
+        raise ValueError(f"saved class {spec!r} has no counterpart in the "
+                         f"PyTorch port yet; it loads {loads}")
     return cls
+
+
+def _has_unresolved(v: Any, depth: int = 0) -> bool:
+    if isinstance(v, Unresolved):
+        return True
+    if depth > 8:
+        return False
+    if isinstance(v, (list, tuple, set)):
+        return any(_has_unresolved(x, depth + 1) for x in v)
+    if isinstance(v, dict):
+        return any(_has_unresolved(x, depth + 1) for x in v.values())
+    if hasattr(v, "__dict__") and not isinstance(v, type):
+        return any(_has_unresolved(x, depth + 1) for x in vars(v).values())
+    return False
 
 
 def _decode(d: Any, arrays: Dict[str, np.ndarray]) -> Any:
@@ -125,7 +173,9 @@ def _decode(d: Any, arrays: Dict[str, np.ndarray]) -> Any:
             # frozen dataclasses refuse setattr
             object.__setattr__(obj, k, _decode(v, arrays))
         return obj
-    for kind in ("__class__", "__fn__", "__stage_ref__", "__unresolved__"):
+    if "__unresolved__" in d:
+        return Unresolved(d["__unresolved__"])
+    for kind in ("__class__", "__fn__", "__stage_ref__"):
         if kind in d:
             raise ValueError(f"saved state {kind}={d[kind]!r} cannot be "
                              f"loaded by the PyTorch port")
@@ -218,9 +268,14 @@ def _read(path: str):
     return plan, arrays
 
 
-def load_model(path: str, device: Optional[Union[str, torch.device]] = None):
+def load_model(path: str, device: Optional[Union[str, torch.device]] = None,
+               workflow=None):
     """Load a model saved by the JAX package's ``save_model`` onto
-    ``device`` (default: the CUDA device; raises when there is none)."""
+    ``device`` (default: the CUDA device; raises when there is none).
+    State the JAX package could not save (user lambdas) is taken from the
+    stage of the same uid in ``workflow`` (the port's ``OpWorkflow`` of the
+    same definitions, built after ``features.reset_uids()`` as the saved
+    one was); without it such a model raises."""
     from .dag import compute_dag
     from .workflow import OpWorkflowModel
 
@@ -230,6 +285,22 @@ def load_model(path: str, device: Optional[Union[str, torch.device]] = None):
     for d in plan["stages"] + plan["rawFeatureGenerators"]:
         if d["uid"] not in stages:
             stages[d["uid"]] = stage_from_json(d, arrays)
+    wf_stages: Dict[str, OpPipelineStage] = {}
+    if workflow is not None:
+        wf_stages.update((s.uid, s) for s in workflow.stages)
+        wf_stages.update((f.origin_stage.uid, f.origin_stage)
+                         for f in workflow.raw_features)
+    for uid, stage in stages.items():
+        missing = [k for k, v in vars(stage).items() if _has_unresolved(v)]
+        if not missing:
+            continue
+        src = wf_stages.get(uid)
+        if src is None:
+            raise ValueError(
+                f"stage {uid} has unserializable state {missing}; pass the "
+                f"original workflow to load_model to resolve it")
+        for k in missing:
+            setattr(stage, k, getattr(src, k))
     for stage in stages.values():
         for k, v in list(vars(stage).items()):
             setattr(stage, k, _to_device(v, device))

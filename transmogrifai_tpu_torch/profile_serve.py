@@ -5,7 +5,10 @@
 Loads each saved model of the committed ``serve64`` fixtures
 (``testing.SAVED_KEYS``) on the card and scores a batch of ``--rows``
 rows (the fixtures' 4,096-row scoring frame, rebuilt from its seed by
-``testing.score_frame``, tiled) through ``OpWorkflowModel.score``. For
+``testing.score_frame``, tiled) through ``OpWorkflowModel.score``; and
+``titanic``, the saved Titanic workflow (``fixtures/titanic/model``, its
+lambdas from ``examples.titanic.build_workflow``) on its 4,096-row
+scoring file (``testing.titanic_csv``, read as columns, tiled). For
 each model it prints one JSON line with the median host-clock seconds of
 each phase (host table build, host-to-device copy, each stage,
 device-to-host copy of the result; every phase ends in
@@ -21,12 +24,13 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from .testing import SAVED_KEYS, SCORE_ROWS, score_frame
+from .testing import SAVED_KEYS, score_frame
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "fixtures", "serve64")
@@ -40,14 +44,29 @@ def _timed(fn):
     return out, time.perf_counter() - t0
 
 
-def profile(key: str, rows: int, reps: int) -> dict:
+def _model_and_frame(key: str, tmp: str):
+    """A saved model on the card and its scoring frame's columns."""
     import transmogrifai_tpu_torch as tt
+    if key != "titanic":
+        return tt.load_model(os.path.join(FIXTURES, key)), score_frame()
+    from .examples.titanic import TITANIC_SCHEMA, build_workflow
+    from .features import reset_uids
+    from .readers import read_csv
+    from .testing import TITANIC_SCORE_ROWS, TITANIC_SCORE_SEED, titanic_csv
+    path = os.path.join(tmp, "titanic.csv")
+    titanic_csv(path, TITANIC_SCORE_ROWS, TITANIC_SCORE_SEED)
+    reset_uids()
+    wf = build_workflow(path)[0]
+    model = tt.load_model(os.path.join(os.path.dirname(FIXTURES), "titanic",
+                                       "model"), workflow=wf)
+    return model, read_csv(path, TITANIC_SCHEMA, header=False).columns
 
-    path = os.path.join(FIXTURES, key)
-    model = tt.load_model(path)
-    frame = score_frame()
-    data = {k: np.tile(v, -(-rows // SCORE_ROWS))[:rows]
-            for k, v in frame.items()}
+
+def profile(key: str, rows: int, reps: int) -> dict:
+    with tempfile.TemporaryDirectory() as tmp:
+        model, frame = _model_and_frame(key, tmp)
+    n = len(next(iter(frame.values())))
+    data = {k: np.tile(v, -(-rows // n))[:rows] for k, v in frame.items()}
     name = model.result_features[0].name
     phases: dict = {}
 
@@ -108,7 +127,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0])
-    for key in SAVED_KEYS:
+    for key in SAVED_KEYS + ["titanic"]:
         print(json.dumps(profile(key, args.rows, args.reps)))
     return 0
 

@@ -2,7 +2,7 @@
 
     python3 -m transmogrifai_tpu_torch.profile_train
         [--family gbt|gbt12|rf|dt|rfreg|gbtreg|rfmc|xgbmc|lr|svc|lrmc|nbmc|
-                  linreg|glm|default_binary|default_mc|default_reg]
+                  linreg|glm|default_binary|default_mc|default_reg|titanic]
         [--rows 20000] [--reps 3]
 
 Trains one of the serve bench's workflows (64 ``Real`` predictors,
@@ -15,7 +15,12 @@ binary ``gbt`` maxDepth 6, 20 rounds; ``gbt12`` maxDepth 12, 20 rounds
 ``rfmc`` (RF as ``rf``), ``xgbmc`` (XGBoost maxDepth 6, 100 rounds),
 ``lrmc`` (softmax) and ``nbmc``; or a problem kind's default model list
 at full default grids (``default_binary``, ``default_mc``,
-``default_reg``). It trains on ``--rows`` seeded rows, once to
+``default_reg``); or ``titanic``, the mixed-type path
+(``examples.titanic.build_workflow``: the CSV reader, PickList, Text,
+Integral and Real features, ``transmogrify`` to ~570 columns, the binary
+default list) on the file ``testing.titanic_csv`` writes, whose host
+phases (reading, each vectorizer's fit and transform) are timed too. It
+trains on ``--rows`` seeded rows, once to
 warm up and then ``--reps`` times, and prints one JSON line: the median
 seconds of the whole ``train()``, of each stage's fit, and inside the
 selector of the CV sweep (in all and per family: its sweep fits and its
@@ -30,9 +35,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from contextlib import contextmanager
 
@@ -52,8 +59,10 @@ def _timing(phases: dict):
         OpBinaryClassificationEvaluator, OpMultiClassificationEvaluator,
         OpRegressionEvaluator,
     )
-    from .impl.feature.vectorizers import RealVectorizer
+    from .impl.feature import vectorizers as V
     from .impl.preparators.sanity_checker import SanityChecker
+    from .readers.readers import Reader
+    from .stages.base import _LambdaTransformer
     from .impl.selector.model_selector import ModelSelector, SelectedModel
     from .impl.tuning.validators import OpValidator
     from .models import glm, linear, trees  # noqa: F401  (registers)
@@ -62,7 +71,19 @@ def _timing(phases: dict):
     #: the sweep's own fit calls are not refits
     in_sweep = []
     targets = [
-        (RealVectorizer, "fit", lambda *a, **k: "fit RealVectorizer"),
+        (Reader, "generate_table", lambda *a, **k: "host: read raw table"),
+        (_LambdaTransformer, "transform_column",
+         lambda *a, **k: "host: lambda transformers"),
+    ] + [
+        (cls, "fit", lambda *a, name=cls.__name__, **k: f"fit {name}")
+        for cls in (V.RealVectorizer, V.IntegralVectorizer,
+                    V.OneHotVectorizer, V.SmartTextVectorizer)
+    ] + [
+        (cls, "transform_column",
+         lambda *a, name=cls.__name__, **k: f"transform {name}")
+        for cls in (V.RealVectorizerModel, V.OneHotVectorizerModel,
+                    V.SmartTextVectorizerModel, V.VectorsCombiner)
+    ] + [
         (SanityChecker, "fit", lambda *a, **k: "fit SanityChecker"),
         (ModelSelector, "fit", lambda *a, **k: "fit ModelSelector"),
         (OpValidator, "validate", lambda *a, **k: "selector: CV sweep"),
@@ -116,15 +137,32 @@ def _timing(phases: dict):
                 delattr(owner, name)
 
 
-def profile(family: str, rows: int, reps: int) -> dict:
+def _workflow_fn(family: str, rows: int, tmp: str):
+    """An untrained workflow of ``family`` over ``rows`` rows, anew per
+    call."""
+    if family == "titanic":
+        from .examples.titanic import build_workflow
+        from .testing import titanic_csv
+        path = os.path.join(tmp, "titanic.csv")
+        titanic_csv(path, rows)
+        return lambda: build_workflow(path)[0]
     name, hyper, task = SERVE_MODELS[family]
     data = serve_bench_data(rows, 64, seed=0, task=task)
+    return lambda: serve_bench_workflow(
+        name, hyper, 64, seed=0, problem=task).set_input_dataset(data)
 
+
+def profile(family: str, rows: int, reps: int) -> dict:
+    with tempfile.TemporaryDirectory() as tmp:
+        return _profile(_workflow_fn(family, rows, tmp), family, rows, reps)
+
+
+def _profile(workflow, family: str, rows: int, reps: int) -> dict:
     def train():
+        wf = workflow()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        serve_bench_workflow(name, hyper, 64, seed=0, problem=task
-                             ).set_input_dataset(data).train()
+        wf.train()
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
@@ -163,7 +201,8 @@ def profile(family: str, rows: int, reps: int) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--family", choices=sorted(SERVE_MODELS), default="gbt")
+    ap.add_argument("--family", choices=sorted(SERVE_MODELS) + ["titanic"],
+                    default="gbt")
     ap.add_argument("--rows", type=int, default=20000)
     ap.add_argument("--reps", type=int, default=3)
     args = ap.parse_args()

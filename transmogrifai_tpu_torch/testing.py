@@ -1,12 +1,15 @@
 """Seeded inputs for the tests and ``chip_smoke.py``: random forests for
 holding the descent kernels to their plain versions, the descent, the
 leaf sums and the one-hot histogram by their definitions, and the serve
-bench's pinned models, training frame and workflow.
+bench's pinned models, training frame and workflow; the Titanic-shaped
+CSV; and the comparators that hold a fitted SanityChecker and a selector
+summary to a fixture's.
 Everything random is numpy, so the same seed gives the same inputs to the
 JAX package and to the port."""
 from __future__ import annotations
 
-from typing import Dict, Optional
+import re
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -337,3 +340,233 @@ def boosting_stats(params, codes, y, w, task: str, rounds: int):
         g, h = P - Y1, torch.clamp(P * (1 - P), min=1e-6)
     w_c = w[:, None].expand(S, C)
     return [g.T * w_c, h.T * w_c, w_c]
+
+
+#: the Titanic fixture's training CSV (``titanic_csv``) and scoring rows:
+#: rows and seed of each
+TITANIC_ROWS, TITANIC_SEED = 20000, 0
+TITANIC_SCORE_ROWS, TITANIC_SCORE_SEED = 4096, 1
+
+_SURNAME_HEADS = ["Abb", "Ander", "Bar", "Beck", "Bir", "Brown", "Carl",
+                  "Cor", "Dal", "Dav", "Ed", "Fal", "Ford", "Gold", "Gus",
+                  "Hag", "Hans", "Hart", "Ib", "Jan", "John", "Kel", "Kir",
+                  "Lar", "Lind", "Mac", "Mor", "Nel", "Nils", "Ol", "Pal",
+                  "Pet", "Ras", "Rich", "Sand", "Sved", "Thom", "Van", "Wil",
+                  "Zim"]
+_SURNAME_TAILS = ["", "a", "ard", "berg", "by", "ell", "er", "es", "ett",
+                  "ford", "gren", "ing", "ins", "kin", "land", "ley", "man",
+                  "ner", "off", "on", "s", "sen", "ski", "son", "ston",
+                  "ter", "ton", "us", "vik", "well"]
+_MALE_NAMES = ["Albert", "Alfred", "Anders", "Arthur", "Charles", "Edward",
+               "Ernst", "Frank", "Frederick", "George", "Harry", "Henry",
+               "Hugh", "Jacob", "James", "Johan", "John", "Joseph", "Karl",
+               "Leo", "Patrick", "Peter", "Richard", "Robert", "Samuel",
+               "Thomas", "Walter", "William"]
+_FEMALE_NAMES = ["Ada", "Agnes", "Alice", "Anna", "Annie", "Bertha",
+                 "Catherine", "Edith", "Elizabeth", "Ellen", "Emily", "Emma",
+                 "Florence", "Hanna", "Helen", "Ida", "Jane", "Kate", "Lily",
+                 "Margaret", "Maria", "Marion", "Mary", "Nora", "Rose",
+                 "Sarah", "Selma", "Susan"]
+_TICKET_PREFIXES = ["", "", "", "", "PC ", "A/5 ", "STON/O2. ", "C.A. ",
+                    "SOTON/O.Q. ", "W./C. ", "CA. ", "S.O.C. "]
+
+
+def _skewed(rng: np.random.RandomState, n: int, k: int,
+            shift: float) -> np.ndarray:
+    """``n`` draws of 0..k-1 with P(i) proportional to 1 / (i + shift)."""
+    p = 1.0 / (np.arange(k) + shift)
+    return rng.choice(k, n, p=p / p.sum())
+
+
+def _fmt(x: float) -> str:
+    """A decimal as a CSV field: at most 4 places, no trailing zeros."""
+    return f"{x:.4f}".rstrip("0").rstrip(".")
+
+
+def titanic_frame(n: int, seed: int):
+    """``n`` synthetic passengers in the Titanic schema
+    (``examples.titanic.TITANIC_SCHEMA``), as rows of CSV fields ("" is
+    blank), from ``RandomState(seed)``. At 20,000 rows: ``Name`` from
+    surname, title and given-name pools (thousands of values, some with a
+    quoted nickname), ``Ticket`` a few thousand values with a skewed group
+    size (numeric and prefixed), ``Cabin`` ~75% blank, ``Embarked``
+    S/C/Q and a few blanks, ``Age`` ~20% blank, ``Fare`` lognormal by
+    class, ``SibSp``/``Parch`` small ints, ``Survived`` from sex, class,
+    age and noise."""
+    rng = np.random.RandomState(seed)
+    female = rng.rand(n) < 0.35
+    pclass = rng.choice([1, 2, 3], n, p=[0.24, 0.21, 0.55])
+    title = np.where(
+        female, np.where(rng.rand(n) < 0.45, "Mrs.", "Miss."),
+        np.array(["Mr.", "Master.", "Dr.", "Rev."])[
+            rng.choice(4, n, p=[0.88, 0.07, 0.03, 0.02])])
+    surname = rng.randint(len(_SURNAME_HEADS), size=n) * len(
+        _SURNAME_TAILS) + rng.randint(len(_SURNAME_TAILS), size=n)
+    given_m = rng.randint(len(_MALE_NAMES), size=n)
+    given_f = rng.randint(len(_FEMALE_NAMES), size=n)
+    middle = rng.randint(26, size=n)
+    has_middle = rng.rand(n) < 0.4
+    nick = rng.rand(n) < 0.05
+    age = np.where(title == "Master.", rng.uniform(0.42, 12, n),
+                   np.clip(rng.normal(30.0, 13.5, n), 0.42, 80.0))
+    age = np.where(age < 1, np.round(age, 2),
+                   np.where(rng.rand(n) < 0.1, np.floor(age) + 0.5,
+                            np.round(age)))
+    age_blank = rng.rand(n) < 0.2
+    sibsp = rng.choice([0, 1, 2, 3, 4, 5, 8], n,
+                       p=[0.68, 0.23, 0.03, 0.02, 0.02, 0.01, 0.01])
+    parch = rng.choice([0, 1, 2, 3, 4, 5, 6], n,
+                       p=[0.76, 0.13, 0.09, 0.005, 0.005, 0.005, 0.005])
+    n_tickets = max(n // 6, 20)
+    t_prefix = rng.randint(len(_TICKET_PREFIXES), size=n_tickets)
+    t_number = rng.randint(1000, 400000, size=n_tickets)
+    ticket = _skewed(rng, n, n_tickets, 30.0)
+    fare = np.choose(pclass - 1, [rng.lognormal(4.0, 0.6, n),
+                                  rng.lognormal(2.9, 0.4, n),
+                                  rng.lognormal(2.1, 0.35, n)])
+    fare = np.where(rng.rand(n) < 0.01, 0.0, np.round(fare, 4))
+    cabin_blank = rng.rand(n) < np.choose(pclass - 1, [0.2, 0.85, 0.97])
+    deck = np.choose(pclass - 1, [rng.randint(0, 5, n),
+                                  rng.randint(3, 6, n), rng.randint(4, 7, n)])
+    cabin_no = 1 + _skewed(rng, n, 150, 4.0)
+    cabin_multi = rng.rand(n) < 0.05
+    embarked = np.array(["S", "C", "Q"])[rng.choice(3, n,
+                                                    p=[0.72, 0.19, 0.09])]
+    embarked_blank = rng.rand(n) < 0.002
+    age_filled = np.where(age_blank, 30.0, age)
+    logit = (-1.8 + 2.6 * female - 0.8 * (pclass - 2)
+             - 0.025 * (age_filled - 30.0) + 0.8 * (title == "Master.")
+             - 0.4 * (sibsp > 2) + 0.2 * np.log1p(fare)
+             + 0.3 * (embarked == "C"))
+    survived = rng.rand(n) < 1.0 / (1.0 + np.exp(-logit))
+    rows = []
+    for i in range(n):
+        first = (_FEMALE_NAMES[given_f[i]] if female[i]
+                 else _MALE_NAMES[given_m[i]])
+        s = surname[i]
+        name = (f"{_SURNAME_HEADS[s // len(_SURNAME_TAILS)]}"
+                f"{_SURNAME_TAILS[s % len(_SURNAME_TAILS)]}, {title[i]} "
+                f"{first}")
+        if has_middle[i]:
+            name += f" {chr(65 + middle[i])}."
+        if nick[i]:
+            pool = _FEMALE_NAMES if female[i] else _MALE_NAMES
+            name += f' ("{pool[(given_f[i] + given_m[i]) % len(pool)]}")'
+        t = ticket[i]
+        letter = "ABCDEFG"[deck[i]]
+        cabin = f"{letter}{cabin_no[i]}"
+        if cabin_multi[i]:
+            cabin += f" {letter}{cabin_no[i] + 2}"
+        rows.append([
+            str(i + 1), str(int(survived[i])), str(pclass[i]), name,
+            "female" if female[i] else "male",
+            "" if age_blank[i] else _fmt(age[i]), str(sibsp[i]),
+            str(parch[i]), f"{_TICKET_PREFIXES[t_prefix[t]]}{t_number[t]}",
+            _fmt(fare[i]), "" if cabin_blank[i] else cabin,
+            "" if embarked_blank[i] else embarked[i]])
+    return rows
+
+
+def titanic_csv(path: str, n: int = TITANIC_ROWS,
+                seed: int = TITANIC_SEED) -> str:
+    """Write ``titanic_frame(n, seed)`` to ``path`` as a headerless CSV
+    (the csv module's minimal quoting, ``\\n`` line ends); returns the
+    sha256 of its bytes."""
+    import csv
+    import hashlib
+    with open(path, "w", newline="") as fh:
+        csv.writer(fh, lineterminator="\n").writerows(titanic_frame(n, seed))
+    with open(path, "rb") as fh:
+        return hashlib.sha256(fh.read()).hexdigest()
+
+
+_NUMBER = re.compile(r"-?\d+(?:\.\d+)?(?:e[-+]?\d+)?")
+
+
+def sanity_summary(stage) -> dict:
+    """What a fixture keeps of a fitted SanityChecker (either package's):
+    kept slots, dropped names and the removal reasons."""
+    s = stage.summary
+    return {"keep_indices": list(stage.keep_indices),
+            "dropped": list(s.dropped),
+            "reasons": {k: list(v) for k, v in s.reasons.items()}}
+
+
+def assert_same_sanity(got: dict, want: dict) -> None:
+    """Two ``sanity_summary`` dicts: the same kept slots, dropped names and
+    reasons, a number quoted in a reason within 1e-12 absolute or 1e-4
+    relative (float32 moments summed in another order: a constant
+    column's variance is 0 in one and 2.7e-15 where XLA fuses its mean
+    into the subtraction). Raises AssertionError."""
+    if (got["keep_indices"] != want["keep_indices"]
+            or got["dropped"] != want["dropped"]
+            or sorted(got["reasons"]) != sorted(want["reasons"])):
+        raise AssertionError("the SanityChecker keeps or drops other "
+                             "columns than expected")
+    for name, why in want["reasons"].items():
+        mine = got["reasons"][name]
+        if [_NUMBER.sub("#", w) for w in mine] != [
+                _NUMBER.sub("#", w) for w in why]:
+            raise AssertionError(f"{name} dropped for {mine}, expected "
+                                 f"{why}")
+        for g, w in zip(mine, why):
+            for a, b in zip(_NUMBER.findall(g), _NUMBER.findall(w)):
+                if abs(float(a) - float(b)) > max(1e-12,
+                                                  1e-4 * abs(float(b))):
+                    raise AssertionError(f"{name}: {g!r}, expected {w!r}")
+
+
+def selection_summary(summary) -> dict:
+    """Winner, hyperparameters, metric and each family's grid and (folds,
+    configs) fold metrics of either package's selector summary (float32
+    values, exact in JSON)."""
+    def values(m):
+        return np.asarray(m.detach().cpu() if hasattr(m, "detach") else m,
+                          np.float32).tolist()
+    return {"winner": summary.best_model_type,
+            "hyper": dict(summary.best_hyper),
+            "metric": summary.validation_metric,
+            "value": float(summary.best_metric_value),
+            "families": [{"family": r.family, "grid": list(r.grid),
+                          "fold_metrics": values(r.fold_metrics)}
+                         for r in summary.validation_results]}
+
+
+def selection_gaps(got: dict, want: dict,
+                   limit: Callable[[str, dict, float], Optional[float]]
+                   ) -> Dict[str, Tuple[float, float]]:
+    """Two ``selection_summary`` dicts: the same winner, hyperparameters,
+    families and grids, and every (fold, configuration) metric within
+    ``limit(family, hyper, want's value)`` of ``want``'s (a limit of None:
+    finite exactly where ``want``'s is). Returns {family: (largest gap,
+    largest gap / limit)}; raises AssertionError."""
+    if (got["winner"], got["hyper"]) != (want["winner"], want["hyper"]):
+        raise AssertionError(f"winner {got['winner']} {got['hyper']}, "
+                             f"expected {want['winner']} {want['hyper']}")
+    if [(g["family"], g["grid"]) for g in got["families"]] != [
+            (w["family"], w["grid"]) for w in want["families"]]:
+        raise AssertionError("other families or grids than expected")
+    out = {}
+    for g, w in zip(got["families"], want["families"]):
+        gf = np.asarray(g["fold_metrics"], np.float64)
+        wf = np.asarray(w["fold_metrics"], np.float64)
+        if gf.shape != wf.shape:
+            raise AssertionError(f"{g['family']} fold metrics {gf.shape}, "
+                                 f"expected {wf.shape}")
+        worst, share = 0.0, 0.0
+        for (f, c), ref in np.ndenumerate(wf):
+            lim = limit(g["family"], g["grid"][c], ref)
+            if lim is None:
+                if np.isfinite(gf[f, c]) != np.isfinite(ref):
+                    raise AssertionError(f"{g['family']} {g['grid'][c]} "
+                                         f"finite where expected not, or "
+                                         f"the reverse")
+                continue
+            gap = abs(gf[f, c] - ref)
+            worst, share = max(worst, gap), max(share, gap / lim)
+            if gap > lim:
+                raise AssertionError(
+                    f"{g['family']} {g['grid'][c]} fold {f} metric "
+                    f"{gf[f, c]} off the expected {ref} beyond {lim:.3g}")
+        out[g["family"]] = (worst, share)
+    return out

@@ -1,5 +1,8 @@
 """Typed feature values: the subset of ``transmogrifai_tpu.types`` that the
-serve slice loads (``Real``, ``RealNN``, ``OPVector``, ``Prediction``).
+port trains and serves: the numerics (``Real``, ``RealNN``, ``Currency``,
+``Percent``, ``Integral``, ``Binary``), the text types (``Text`` and its
+free-text and categorical kinds), ``MultiPickList``, ``TextList``,
+``OPVector`` and ``Prediction``.
 
 Each class carries ``column_kind``, which decides how a column of the type
 is stored in a ``FeatureTable``. The value classes exist for row-level
@@ -14,15 +17,20 @@ from typing import Any, ClassVar, Dict, Type
 
 import numpy as np
 
-__all__ = ["FeatureType", "OPNumeric", "Real", "RealNN", "OPVector", "OPMap",
-           "Prediction", "FEATURE_TYPES", "feature_type_by_name"]
+__all__ = ["FeatureType", "OPNumeric", "Real", "RealNN", "Currency",
+           "Percent", "Integral", "Binary", "Text", "TextArea", "Base64",
+           "URL", "Email", "PickList", "ComboBox", "ID", "Country", "State",
+           "City", "PostalCode", "Street", "Phone", "MultiPickList",
+           "TextList", "OPVector", "OPMap", "Prediction", "FEATURE_TYPES",
+           "feature_type_by_name"]
 
 
 class FeatureType:
     """Base value container: an optional value that may be empty."""
 
     is_nullable: ClassVar[bool] = True
-    #: columnar storage kind: 'real', 'vector' or 'prediction' in this slice
+    #: columnar storage kind: 'real', 'integral', 'binary', 'text',
+    #: 'multipicklist', 'text_list', 'vector' or 'prediction'
     column_kind: ClassVar[str] = "text"
     is_abstract: ClassVar[bool] = True
 
@@ -77,6 +85,115 @@ class RealNN(NonNullable, Real):
     is_abstract = False
 
 
+class Currency(Real):
+    is_abstract = False
+
+
+class Percent(Real):
+    is_abstract = False
+
+
+class Integral(OPNumeric):
+    """Optional whole number (a host int64 column)."""
+    is_abstract = False
+    column_kind = "integral"
+
+    @classmethod
+    def _convert(cls, value):
+        if value is None:
+            return None
+        if isinstance(value, (bool, numbers.Integral)):
+            return int(value)
+        if isinstance(value, float):
+            if math.isnan(value):
+                return None
+            if value.is_integer():
+                return int(value)
+        raise TypeError(f"cannot make {cls.__name__} from {value!r}")
+
+
+class Binary(OPNumeric):
+    """Optional boolean; a column of them is float32 0/1 with a mask."""
+    is_abstract = False
+    column_kind = "binary"
+
+    @classmethod
+    def _convert(cls, value):
+        if value is None:
+            return None
+        if isinstance(value, bool):
+            return value
+        if isinstance(value, numbers.Number):
+            v = float(value)
+            return None if math.isnan(v) else v != 0.0
+        raise TypeError(f"cannot make {cls.__name__} from {value!r}")
+
+
+class Text(FeatureType):
+    """Optional string (a host object column)."""
+    is_abstract = False
+    column_kind = "text"
+
+    @classmethod
+    def _convert(cls, value):
+        if value is None:
+            return None
+        if isinstance(value, str):
+            return value
+        raise TypeError(
+            f"cannot make {cls.__name__} from {type(value).__name__}")
+
+
+def _text_kind(name: str) -> type:
+    return type(name, (Text,), {"is_abstract": False, "__doc__":
+                                f"Optional string: {name}."})
+
+
+#: free text: ``transmogrify`` sends these through SmartTextVectorizer
+TextArea = _text_kind("TextArea")
+Base64 = _text_kind("Base64")
+URL = _text_kind("URL")
+Email = _text_kind("Email")
+#: categorical text: ``transmogrify`` pivots these (OneHotVectorizer)
+PickList = _text_kind("PickList")
+ComboBox = _text_kind("ComboBox")
+ID = _text_kind("ID")
+Country = _text_kind("Country")
+State = _text_kind("State")
+City = _text_kind("City")
+PostalCode = _text_kind("PostalCode")
+Street = _text_kind("Street")
+Phone = _text_kind("Phone")
+
+
+class MultiPickList(FeatureType):
+    """A set of strings; the empty set is missing."""
+    is_abstract = False
+    column_kind = "multipicklist"
+
+    @classmethod
+    def _convert(cls, value):
+        return set() if value is None else set(value)
+
+    @property
+    def is_empty(self) -> bool:
+        return not self.value
+
+
+class TextList(FeatureType):
+    """A list of strings (tokens); the empty list is missing."""
+    is_abstract = False
+    column_kind = "text_list"
+
+    @classmethod
+    def _convert(cls, value):
+        return [] if value is None else list(value)
+
+    @property
+    def is_empty(self) -> bool:
+        return not self.value
+
+
 class OPVector(NonNullable, FeatureType):
     """Dense float vector; a column of them is one (n, d) array."""
     is_abstract = False
@@ -123,9 +240,13 @@ class Prediction(NonNullable, OPMap):
         return False
 
 
-#: name -> concrete feature type of this slice
+#: name -> concrete feature type of the port
 FEATURE_TYPES: Dict[str, Type[FeatureType]] = {
-    t.__name__: t for t in (Real, RealNN, OPVector, Prediction)}
+    t.__name__: t for t in (
+        Real, RealNN, Currency, Percent, Integral, Binary, Text, TextArea,
+        Base64, URL, Email, PickList, ComboBox, ID, Country, State, City,
+        PostalCode, Street, Phone, MultiPickList, TextList, OPVector,
+        Prediction)}
 
 
 def feature_type_by_name(name: str) -> Type[FeatureType]:

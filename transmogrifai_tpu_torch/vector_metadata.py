@@ -1,7 +1,11 @@
 """Per-column provenance of feature vectors (counterpart of
 ``transmogrifai_tpu.vector_metadata``): every slot of an ``OPVector`` column
 records the raw feature that produced it, its type, an optional grouping and
-an optional indicator value.
+an optional indicator value (a pivot's category, ``OTHER_INDICATOR`` for
+the pivot's other values, ``NULL_INDICATOR`` for its missing ones).
+The SanityChecker groups slots by ``feature_group`` and computes
+contingency statistics for the groups whose every slot has an indicator
+value; saved models carry these records as they are.
 """
 from __future__ import annotations
 
@@ -9,6 +13,7 @@ from dataclasses import dataclass, replace
 from typing import Dict, List, Optional, Sequence
 
 NULL_INDICATOR = "NullIndicatorValue"
+OTHER_INDICATOR = "OTHER"
 
 
 @dataclass(frozen=True)
@@ -20,6 +25,14 @@ class VectorColumnMetadata:
     indicator_value: Optional[str] = None
     descriptor_value: Optional[str] = None
     index: int = 0
+
+    @property
+    def is_null_indicator(self) -> bool:
+        return self.indicator_value == NULL_INDICATOR
+
+    @property
+    def is_other_indicator(self) -> bool:
+        return self.indicator_value == OTHER_INDICATOR
 
     def column_name(self) -> str:
         parts = [self.parent_feature_name]

@@ -3,44 +3,33 @@ trains a feature DAG on a device and returns an ``OpWorkflowModel``, the
 fitted workflow that scores on that device (a model also comes from
 ``persistence.load_model``).
 
-Training is the in-core path: the raw table is built from a mapping of
-column name to numpy array, moved to the device, and every estimator fits
-layer by layer. The JAX package's raw-feature filter, stage checkpoints and
-resume, workflow-level CV, mesh sharding and streaming are not ported.
+Training is the in-core path: the raw table is built by a reader
+(``readers``: a CSV file, or a mapping of columns or list of records given
+to ``set_input_dataset``), by the JAX package's rules for each feature type,
+moved to the device, and every estimator fits layer by layer. The JAX
+package's raw-feature filter, stage checkpoints and resume, workflow-level
+CV, mesh sharding and streaming are not ported.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
-import numpy as np
 import torch
 
 from .dag import apply_transformations_dag, compute_dag, fit_and_transform_dag
 from .device import resolve_device
 from .features import Feature
-from .table import Column, FeatureTable, column_of_scalars
+from .readers.readers import Frame, FrameReader, Reader, frame_to_table
+from .table import FeatureTable
 
 
-def raw_table(raw_features, data: Mapping[str, Any],
-              require_response: bool) -> FeatureTable:
-    """A host table of ``raw_features`` from ``{name: values}`` (NaN or None
-    = missing); response columns only when ``require_response``."""
-    cols: Dict[str, Column] = {}
-    for f in raw_features:
-        if f.is_response and not require_response:
-            continue
-        if f.name not in data:
-            raise ValueError(
-                f"input is missing raw feature '{f.name}'; it has "
-                f"{sorted(data)}")
-        v = data[f.name]
-        if not isinstance(v, np.ndarray):
-            v = [np.nan if x is None else x for x in v]
-        cols[f.name] = column_of_scalars(f.feature_type, v)
-    n = {len(c) for c in cols.values()}
-    if len(n) > 1:
-        raise ValueError(f"raw columns differ in length: {sorted(n)}")
-    return FeatureTable(cols, n.pop() if n else 0)
+def raw_table(raw_features, data, require_response: bool) -> FeatureTable:
+    """A host table of ``raw_features`` from a mapping of columns (numpy
+    arrays or python sequences, NaN or None missing) or a list of records,
+    by the readers' rules; response columns only when
+    ``require_response``."""
+    return frame_to_table(Frame.of(data), raw_features,
+                          require_response=require_response)
 
 
 class OpWorkflow:
@@ -52,13 +41,24 @@ class OpWorkflow:
         self.device = resolve_device(device)
         self.result_features: Tuple[Feature, ...] = ()
         self.raw_features: Tuple[Feature, ...] = ()
-        self._data: Optional[Mapping[str, Any]] = None
+        self.reader: Optional[Reader] = None
         self._layers = None
 
-    def set_input_dataset(self, data: Mapping[str, Any]) -> "OpWorkflow":
-        """The training data: ``{raw feature name: column values}``."""
-        self._data = data
+    def set_reader(self, reader: Reader) -> "OpWorkflow":
+        """The training data's reader (``readers.DataReaders``)."""
+        self.reader = reader
         return self
+
+    def set_input_dataset(self, data, key_field: Optional[str] = None
+                          ) -> "OpWorkflow":
+        """The training data in memory: a mapping of field name to column
+        values, or a list of records."""
+        self.reader = FrameReader(data, key_field=key_field)
+        return self
+
+    @property
+    def stages(self) -> List[Any]:
+        return [s for layer in (self._layers or []) for s, _ in layer]
 
     def set_result_features(self, *features: Feature) -> "OpWorkflow":
         """The features to produce; the stage DAG is their lineage."""
@@ -77,12 +77,14 @@ class OpWorkflow:
         """Fit the DAG on the device; returns the fitted model."""
         if not self.result_features:
             raise ValueError("call set_result_features before train")
-        if self._data is None:
-            raise ValueError("no data: call set_input_dataset first")
-        table = raw_table(self.raw_features, self._data,
-                          require_response=True).to_device(self.device)
+        if self.reader is None:
+            raise ValueError("no data: call set_reader or "
+                             "set_input_dataset first")
+        table = self.reader.generate_table(self.raw_features).to_device(
+            self.device)
         _, fitted = fit_and_transform_dag(table, self._layers)
         model = OpWorkflowModel(self.device)
+        model.reader = self.reader
         model.result_features = tuple(
             f.copy_with_new_stages(fitted) for f in self.result_features)
         model.raw_features = self.raw_features
@@ -100,15 +102,23 @@ class OpWorkflowModel:
         self.raw_features: Tuple[Feature, ...] = ()
         self.blacklisted_features: Tuple[Feature, ...] = ()
         self.parameters: Dict[str, Any] = {}
+        self.reader: Optional[Reader] = None
         self._layers = None
 
     @property
     def stages(self) -> List[Any]:
         return [s for layer in (self._layers or []) for s, _ in layer]
 
-    def raw_table(self, data: Mapping[str, Any]) -> FeatureTable:
-        """A host table of the raw predictors from ``{name: values}``
-        (NaN or None = missing). Response columns are not needed."""
+    def get_stage(self, uid: str) -> Any:
+        for s in self.stages:
+            if s.uid == uid:
+                return s
+        raise KeyError(uid)
+
+    def raw_table(self, data) -> FeatureTable:
+        """A host table of the raw predictors from a mapping of columns or
+        a list of records (``raw_table``). Response columns are not
+        needed."""
         return raw_table(self.raw_features, data, require_response=False)
 
     def summary_pretty(self) -> str:
@@ -123,14 +133,22 @@ class OpWorkflowModel:
                 lines.append(f"-- {type(stage).__name__} ({stage.uid})")
         return "\n".join(lines)
 
-    def score(self, table: Optional[FeatureTable] = None,
-              data: Optional[Mapping[str, Any]] = None) -> FeatureTable:
-        """Score a table (or ``{name: values}``) on the model's device: the
-        raw, intermediate and result columns, as tensors on that device."""
-        if (table is None) == (data is None):
-            raise ValueError("pass exactly one of table= or data=")
-        if table is None:
+    def score(self, table: Optional[FeatureTable] = None, data=None,
+              reader: Optional[Reader] = None) -> FeatureTable:
+        """Score a raw table, in-memory data (``raw_table``) or a reader's
+        data on the model's device (with none of them: the reader the model
+        was trained with): the raw, intermediate and result columns, as
+        tensors on that device; a reader's key is the table's ``key``."""
+        if sum(x is not None for x in (table, data, reader)) > 1:
+            raise ValueError("pass at most one of table=, data= or reader=")
+        if data is not None:
             table = self.raw_table(data)
+        elif table is None:
+            reader = reader or self.reader
+            if reader is None:
+                raise ValueError("no data: pass table=, data= or reader=")
+            table = reader.generate_table(self.raw_features,
+                                          require_response=False)
         return apply_transformations_dag(table.to_device(self.device),
                                          self._layers)
 
