@@ -152,7 +152,27 @@ Phases, in order; any failure exits nonzero:
     launch nothing; each default list's sweep must launch ``node_hist``,
     ``hist_matmul`` and ``forest_predict_chain`` (its depth-3 and 6 trees
     are re-expressed as slot chains beside the depth-12 ones);
-(c) serve: load the fifteen committed saved models on the card, score the
+(m) the MLP keys ``mlp`` (binary) and ``mlpmc`` (6 classes):
+    ``OpMultilayerPerceptronClassifier`` at hidden layers 50 and 50, step
+    size 0.05, against their fixtures: the fixture's winner and config,
+    fold and holdout metrics within ``MLP_FOLD_ATOL``, the refit's masks
+    equal and weights within ``MLP_COEF_RTOL`` of each table's largest,
+    probabilities within ``MLP_PROB_ATOL`` (causes at the constants);
+    they launch none of the six kernels;
+(s) save and load: every train above (the Titanic one included) is
+    saved with ``save_model`` and loaded back on the card (the Titanic
+    one with ``workflow=``); the reload scores the scoring frame bit for
+    bit as the model in memory, and its plan.json holds the fixture's
+    stages, class names and state keys (less ``JAX_ONLY_STATE``); each
+    key's save and load seconds are printed, and a ``save_load_s`` JSON
+    line gathers them. Then in a child process the saved ``gbt`` model
+    is overwritten by the ``lr`` one, killed at the second ``os.replace``
+    and again at the directory exchange: the directory still loads as the
+    ``gbt`` model, with ``*.tmp`` debris only beside it;
+(i) the isotonic calibrator fitted on the card to the ``mlp`` fixture's
+    probability_1 (labels ``testing.calibration_labels``): boundaries,
+    values and the calibrated column bit-equal to ``calibration.npz``;
+(c) serve: load the seventeen committed saved models on the card, score the
     4,096-row scoring frame (rebuilt from its seed by
     ``testing.score_frame``) against the JAX package's outputs (binary:
     probability_1 atol 1e-5, prediction equal wherever |p - 0.5| > 1e-5;
@@ -191,6 +211,7 @@ import torch
 # timers: one definition, shared with the per-pass profiler
 from transmogrifai_tpu_torch import profile_hist as PH
 from transmogrifai_tpu_torch.profile_hist import bound_ms, time_ms
+from transmogrifai_tpu_torch.models.api import to_numpy
 # the committed serve64 fixtures' frames (their models:
 # ``testing.SERVE_MODELS``)
 from transmogrifai_tpu_torch.testing import (
@@ -284,6 +305,30 @@ LIN_REG_RTOL = 5e-5
 #: 3.2e-5].
 TITANIC_LIN_COEF_RTOL = 2e-4
 TITANIC_LIN_PROB_ATOL = 2e-4
+#: the MLP trains (``mlp``, ``mlpmc``; float32 matmuls with TF32 off).
+#: Adam divides each step by sqrt(v): on the binary frame, which the MLP
+#: separates almost perfectly, most weights' gradients are at rounding
+#: level, so another order of the matmuls' adds moves them by a sizeable
+#: share of the step size. The port against the fixtures on the CPU:
+#: weights 5.7e-4 of their table's largest |weight| (6-class 1.8e-6),
+#: probabilities 6.9e-5 (6-class 5.8e-6), fold metrics 6e-8, no
+#: prediction flip [on an H100 80GB HBM3 at 700 W: 5.86e-4 (1.94e-6),
+#: 7.16e-5 (6.68e-6), 0]. Limits ~10x the larger reading: weights
+#: MLP_COEF_RTOL of each table's largest, probabilities MLP_PROB_ATOL, no
+#: flip where the fixture's two highest probabilities are farther apart
+#: than that; fold and holdout metrics at the linear sweeps'
+#: LIN_FOLD_ATOL (a probability gap of 7e-5 can reorder near-tied rows in
+#: AuPR)
+MLP_COEF_RTOL = 6e-3
+MLP_PROB_ATOL = 7e-4
+MLP_FOLD_ATOL = LIN_FOLD_ATOL
+#: state keys the JAX package saves and the port's stages do not carry
+#: (a JAX mesh placement of the SanityChecker's statistics pass)
+JAX_ONLY_STATE = {"SanityCheckerModel": {"_stats_input_sharding"}}
+#: where (s) saves the trained models; set by ``_run``
+SAVE_DIR = None
+#: (s) seconds per saved key: {key: (save s, load s)}
+SAVE_LOAD_S = {}
 
 def phase_build():
     from transmogrifai_tpu_torch.ops import cuda_build
@@ -1427,6 +1472,8 @@ def _fold_limit(family: str, hyper, task: str, ref, y_std: float):
     if _is_tree(family):
         return (DEFAULT_TREE_RTOL * abs(ref) if task == "regression"
                 else DEFAULT_TREE_ATOL)
+    if family == "OpMultilayerPerceptronClassifier":
+        return MLP_FOLD_ATOL
     if family == "OpGeneralizedLinearRegression" and hyper.get(
             "family", "gaussian") != "gaussian":
         return None
@@ -1466,8 +1513,8 @@ def _check_linear(key, task, ps, rs, parts, exp,
     NB_PROB_ATOL), margins and
     regression predictions within LIN_REG_RTOL (1 + |value|), predictions
     equal where no such gap can flip them."""
-    got = {k: v.cpu().numpy() for k, v in ps.fitted.params.items()}
-    fx = {k: v.cpu().numpy() for k, v in rs.fitted.params.items()}
+    got = to_numpy(ps.fitted.params)
+    fx = to_numpy(rs.fitted.params)
     if sorted(got) != sorted(fx):
         raise AssertionError(f"{key}: params {sorted(got)}, the fixture's "
                              f"{sorted(fx)}")
@@ -1514,6 +1561,86 @@ def _check_linear(key, task, ps, rs, parts, exp,
     return held
 
 
+def _plan_layout(path: str):
+    """[(module, class, uid, state keys)] of a saved model's stages."""
+    with open(os.path.join(path, "plan.json")) as fh:
+        plan = json.load(fh)
+    return [(d["module"], d["className"], d["uid"], set(d["state"]))
+            for d in plan["stages"] + plan["rawFeatureGenerators"]]
+
+
+def save_and_reload(key: str, model, fixture: str, data, workflow=None):
+    """(s) Save a trained model with ``save_model``, load it back on the
+    card (``workflow=`` resolves a Titanic model's lambdas): the reload
+    must score ``data`` bit for bit as the model in memory, and its
+    plan.json must hold the fixture's stages, class names and state keys
+    (less ``JAX_ONLY_STATE``). Prints and keeps the save and load
+    seconds."""
+    import transmogrifai_tpu_torch as tt
+    path = os.path.join(SAVE_DIR, key)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tt.save_model(model, path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = tt.load_model(path, workflow=workflow)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if again.device.type != "cuda":
+        raise AssertionError(f"{key}: reloaded on {again.device}")
+    got, want = _parts_of(again, again.score(data=data)), _parts_of(
+        model, model.score(data=data))
+    if sorted(got) != sorted(want) or not all(
+            np.array_equal(got[k].view(np.int32), want[k].view(np.int32))
+            for k in want):
+        raise AssertionError(f"{key}: the reloaded model scores other bits")
+    mine, theirs = _plan_layout(path), _plan_layout(fixture)
+    if [m[:2] for m in mine] != [t[:2] for t in theirs] or any(
+            m[3] != t[3] - JAX_ONLY_STATE.get(t[1], set())
+            for m, t in zip(mine, theirs)):
+        raise AssertionError(f"{key}: plan.json's stages or state keys "
+                             f"differ from the fixture's")
+    SAVE_LOAD_S[key] = (save_s, load_s)
+    size = sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+    print(f"(s) {key}: saved ({size} bytes) in {save_s:.4f} s, loaded in "
+          f"{load_s:.4f} s; the reload scores bit-equal, plan.json's "
+          f"{len(mine)} stages, classes and state keys the fixture's")
+
+
+def _check_mlp(key, task, ps, rs, parts, exp) -> str:
+    """An MLP winner's refit weights and scores against the fixture's:
+    masks equal, each weight table within MLP_COEF_RTOL of its largest
+    |weight|, probabilities within MLP_PROB_ATOL, no prediction flip where
+    the fixture's two highest probabilities are farther apart."""
+    got, fx = to_numpy(ps.fitted.params), to_numpy(rs.fitted.params)
+    if got["num_classes"] != fx["num_classes"] or not all(
+            np.array_equal(a, b) for a, b in zip(got["masks"],
+                                                 fx["masks"])):
+        raise AssertionError(f"{key}: classes or neuron masks differ")
+    rel = max(float(np.abs(a - b).max() / np.abs(b).max())
+              for a, b in zip(got["params"], fx["params"]))
+    if rel > MLP_COEF_RTOL:
+        raise AssertionError(f"{key}: refit weights off by {rel:.3g} of "
+                             f"their largest")
+    probs = sorted(k for k in exp.files if k.startswith("probability_"))
+    err = max(float(np.abs(parts[k] - exp[k]).max()) for k in probs)
+    P = np.stack([exp[k] for k in probs], 1)
+    if P.shape[1] == 1:
+        margin = np.abs(P[:, 0] - 0.5)
+    else:
+        top = np.sort(P, 1)
+        margin = top[:, -1] - top[:, -2]
+    flips = int((parts["prediction"] != exp["prediction"])[
+        margin > MLP_PROB_ATOL].sum())
+    if err > MLP_PROB_ATOL or flips:
+        raise AssertionError(f"{key}: probabilities off by {err:.3g}, "
+                             f"{flips} flips")
+    return (f"refit weights max |d| / table max {rel:.3g} (limit "
+            f"{MLP_COEF_RTOL}), probabilities max |d| {err:.3g} (limit "
+            f"{MLP_PROB_ATOL}), 0 prediction flips")
+
+
 def train_against_fixture(key: str):
     """Train the serve bench's ``key`` workflow on the card and hold the
     model against the fixture the JAX package trained on the same frame:
@@ -1548,6 +1675,7 @@ def train_against_fixture(key: str):
     # a default list whose refit is a pinned key's model keeps only its
     # summary.json; that key's saved model stands for its refit
     path = os.path.join(FIXTURES, SHARED_REFITS.get(key, key))
+    save_and_reload(key, model, path, score_frame())
     ref = tt.load_model(path)
     rs, ps = ref.stages[-1], model.stages[-1]
     if model.stages[-2].keep_indices != ref.stages[-2].keep_indices:
@@ -1586,11 +1714,14 @@ def train_against_fixture(key: str):
         if not _is_tree(ps.summary.best_model_type):
             exp = np.load(os.path.join(path, "expected.npz"))
             parts = _parts_of(model, model.score(data=score_frame()))
+            check = (_check_mlp if ps.summary.best_model_type
+                     == "OpMultilayerPerceptronClassifier"
+                     else _check_linear)
             print(f"(t) {key}: vs the JAX-trained model on {SCORE_ROWS} "
-                  f"rows: " + _check_linear(key, task, ps, rs, parts, exp))
+                  f"rows: " + check(key, task, ps, rs, parts, exp))
             return secs
-    fx = {k: v.cpu().numpy() for k, v in rs.fitted.params.items()}
-    got = {k: v.cpu().numpy() for k, v in ps.fitted.params.items()}
+    fx = to_numpy(rs.fitted.params)
+    got = to_numpy(ps.fitted.params)
     if not np.array_equal(got["edges"], fx["edges"]):
         raise AssertionError(f"{key}: bin edges differ from the fixture's: "
                              f"max {np.abs(got['edges'] - fx['edges']).max()}")
@@ -1812,6 +1943,12 @@ class Titanic:
         if sc.keep_indices != ref.stages[-2].keep_indices:
             raise AssertionError("titanic: the saved model keeps other "
                                  "columns")
+        from transmogrifai_tpu_torch.readers import read_csv
+        score_rows = read_csv(self.score_csv, self.reader().schema,
+                              header=False).records()
+        save_and_reload("titanic", model, os.path.join(TITANIC_DIR,
+                                                       "model"),
+                        score_rows, workflow=wf)
         parts = _parts_of(model, model.score(reader=self.reader()))
         print("(t) titanic: vs the JAX-trained model on the scoring file: "
               + _check_linear("titanic", "binary", ps, ref.stages[-1], parts,
@@ -1974,6 +2111,123 @@ def phase_serve():
               f"from the 4,096-row scores)")
 
 
+KILLED_SAVE = """
+import os, sys
+sys.path.insert(0, {here!r})
+import transmogrifai_tpu_torch as tt
+from transmogrifai_tpu_torch import persistence
+second = tt.load_model({second!r}, device="cpu")
+real_replace, real_exchange, calls = os.replace, persistence._exchange, [0]
+def dying(*a):
+    calls[0] += 1
+    if calls[0] == 2:
+        raise SystemExit("killed at the second os.replace")
+    return real_replace(*a)
+def dying_exchange(*a):
+    raise SystemExit("killed at the directory exchange")
+os.replace = dying
+try:
+    tt.save_model(second, {target!r})
+except SystemExit as e:
+    print(e)
+os.replace = real_replace
+persistence._exchange = dying_exchange
+try:
+    tt.save_model(second, {target!r})
+except SystemExit as e:
+    print(e)
+"""
+
+
+def phase_killed_save():
+    """(s) A save killed mid-way in a child process: the ``gbt`` model's
+    save is overwritten by the ``lr`` model's, killed first at the second
+    ``os.replace`` (a staged file's rename) and then at the directory
+    exchange; the directory still loads as the ``gbt`` model and scores
+    its bits, and beside it lies only ``*.tmp`` debris, which
+    ``manifest.clean_tmp_debris`` removes."""
+    import transmogrifai_tpu_torch as tt
+    from transmogrifai_tpu_torch.manifest import clean_tmp_debris
+    from transmogrifai_tpu_torch.testing import score_frame
+    root = os.path.join(SAVE_DIR, "killed")
+    target = os.path.join(root, "model")
+    shutil.copytree(os.path.join(SAVE_DIR, "gbt"), target)
+    code = KILLED_SAVE.format(here=HERE, second=os.path.join(SAVE_DIR, "lr"),
+                              target=target)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600)
+    said = res.stdout.split("\n")
+    if res.returncode != 0 or not any("second os.replace" in x
+                                      for x in said) or not any(
+            "exchange" in x for x in said):
+        raise AssertionError(f"the killed saves did not run: {res.stdout} "
+                             f"{res.stderr[-2000:]}")
+    frame = score_frame()
+    got = _parts_of(tt.load_model(target), tt.load_model(target).score(
+        data=frame))
+    first = tt.load_model(os.path.join(SAVE_DIR, "gbt"))
+    want = _parts_of(first, first.score(data=frame))
+    if not all(np.array_equal(got[k], want[k]) for k in want):
+        raise AssertionError("the killed saves changed the previous model")
+    debris = sorted(f for f in os.listdir(root) if f != "model")
+    if not debris or not all(f.endswith(".tmp") for f in debris) or [
+            f for f in os.listdir(target) if f.endswith(".tmp")]:
+        raise AssertionError(f"unexpected files after the killed saves: "
+                             f"{debris}")
+    clean_tmp_debris(root)
+    if os.listdir(root) != ["model"]:
+        raise AssertionError("clean_tmp_debris left debris")
+    print(f"(s) saves killed at the second os.replace and at the directory "
+          f"exchange in a child process: the previous gbt model loads and "
+          f"scores its bits; {len(debris)} *.tmp debris entr(y/ies) beside "
+          f"it, removed by clean_tmp_debris")
+
+
+def phase_calibrator(dev):
+    """(i) ``IsotonicRegressionCalibrator`` fitted on the card to the
+    ``mlp`` fixture's probability_1 on the scoring frame against
+    ``testing.calibration_labels``: boundaries, values and the calibrated
+    column bit-equal to the JAX package's (``calibration.npz``)."""
+    from transmogrifai_tpu_torch.features import FeatureBuilder, reset_uids
+    from transmogrifai_tpu_torch.impl.regression import (
+        IsotonicRegressionCalibrator,
+    )
+    from transmogrifai_tpu_torch.table import Column, FeatureTable
+    from transmogrifai_tpu_torch.testing import (
+        CALIBRATED_KEY, calibration_labels,
+    )
+    from transmogrifai_tpu_torch.types import RealNN
+    path = os.path.join(FIXTURES, CALIBRATED_KEY)
+    p1 = np.load(os.path.join(path, "expected.npz"))["probability_1"]
+    cal = np.load(os.path.join(path, "calibration.npz"))
+    reset_uids()
+    label = FeatureBuilder.RealNN("label").extract_field().as_response()
+    score = FeatureBuilder.RealNN("score").extract_field().as_predictor()
+    est = IsotonicRegressionCalibrator()
+    out = est.set_input(label, score).get_output()
+    table = FeatureTable({
+        "label": Column(RealNN, calibration_labels(p1), None),
+        "score": Column(RealNN, p1, None)}, len(p1)).to_device(dev)
+    t0 = time.perf_counter()
+    model = est.fit(table)
+    col = model.transform(table)[out.name].values
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if col.device.type != "cuda":
+        raise AssertionError(f"calibrated on {col.device}")
+    for name, a, b in (("boundaries", model.boundaries, cal["boundaries"]),
+                       ("values", model.values, cal["values"]),
+                       ("calibrated column", col.cpu().numpy(),
+                        cal["calibrated"])):
+        if a.dtype != b.dtype or not np.array_equal(
+                np.asarray(a).view(np.int32), b.view(np.int32)):
+            raise AssertionError(f"calibrator: {name} differ from the JAX "
+                                 f"package's")
+    print(f"(i) isotonic calibrator on the card, {len(p1)} mlp scores: "
+          f"{len(cal['boundaries'])} boundaries and values and the "
+          f"calibrated column bit-equal to the JAX package's ({secs:.4f} s)")
+
+
 def _forest_kernels(model):
     """The forest predict kernel a fitted model's scoring launches."""
     from transmogrifai_tpu_torch.ops import forest as F
@@ -1996,6 +2250,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     kernels = HK.KERNELS + F.KERNELS
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    global SAVE_DIR
+    SAVE_DIR = os.path.join(tmp, "saved")
+    os.makedirs(SAVE_DIR)
     try:
         return _run(dev, kernels, tmp)
     finally:
@@ -2068,10 +2325,13 @@ def _run(dev, kernels, tmp) -> int:
     for key, path_kernels in (
             ("lr", ()), ("svc", ()), ("lrmc", ()), ("nbmc", ()),
             ("linreg", ()), ("glm", ()), ("default_binary", sweep),
-            ("default_mc", sweep), ("default_reg", sweep)):
+            ("default_mc", sweep), ("default_reg", sweep), ("mlp", ()),
+            ("mlpmc", ())):
         paths[f"train {key}"] = run_path(
             f"train {key}", lambda key=key: train_against_fixture(key),
             path_kernels)
+    phase_killed_save()
+    phase_calibrator(dev)
     for key in ("gbt", "gbt12", "gbtreg", "xgbmc"):
         counts = paths[f"train {key}"]
         rounds = SERVE_MODELS[key][1]["maxIter"]
@@ -2098,6 +2358,8 @@ def _run(dev, kernels, tmp) -> int:
                           "bound_by": r["bound"][1],
                           "launches_per_train":
                               paths["train titanic"][name]}))
+    print(json.dumps({"save_load_s": {
+        k: {"save": v[0], "load": v[1]} for k, v in SAVE_LOAD_S.items()}}))
     launches = {k.name: sum(c[k.name] for c in paths.values())
                 for k in kernels}
     print(json.dumps({"kernels": [{

@@ -1228,3 +1228,81 @@ def test_tiny_linear_train_on_the_card_matches_the_cpu(cuda, key):
                     .values[:, -1].cpu() for m in (cpu, gpu))
     torch.testing.assert_close(p_gpu, p_cpu, rtol=LINEAR_PRED_TOL,
                                atol=LINEAR_PRED_TOL)
+
+
+# ---------------------------------------------------------------------------
+# saving on the card; the MLP family on the card
+# ---------------------------------------------------------------------------
+
+#: the MLP on the card against the CPU: weights within MLP_RTOL of each
+#: table's largest |weight| and probabilities within MLP_PROB_TOL. cuBLAS
+#: adds the float32 products in another order, and Adam's division by
+#: sqrt(v) lets rounding-level gradients move weights by a share of the
+#: step (the port against the JAX package on the CPU, the same cause:
+#: 5.7e-4 and 6.9e-5 on the serve bench's binary frame,
+#: ``chip_smoke.MLP_COEF_RTOL``)
+MLP_RTOL = 6e-3
+MLP_PROB_TOL = 7e-4
+
+
+@pytest.mark.parametrize("key,family,hyper,task", [
+    ("gbt", "OpGBTClassifier", {"maxDepth": 3, "maxIter": 5}, "binary"),
+    ("rf", "OpRandomForestClassifier", {"maxDepth": 12, "numTrees": 4},
+     "binary"),
+    ("lr", "OpLogisticRegression", {"regParam": 0.01}, "binary"),
+    ("xgbmc", "OpXGBoostClassifier", {"maxDepth": 3, "maxIter": 5},
+     "multiclass"),
+    ("mlp", "OpMultilayerPerceptronClassifier",
+     {"hiddenLayer1": 8, "hiddenLayer2": 8, "stepSize": 0.05}, "binary"),
+])
+def test_a_card_train_saves_and_reloads_bit_for_bit(cuda, tmp_path, key,
+                                                     family, hyper, task):
+    import transmogrifai_tpu_torch as tt
+    data = serve_bench_data(400, 5, seed=3, task=task)
+    model = serve_bench_workflow(family, hyper, 5, seed=3, device=cuda,
+                                 problem=task).set_input_dataset(data).train()
+    tt.save_model(model, str(tmp_path / key))
+    again = tt.load_model(str(tmp_path / key))
+    assert again.device.type == "cuda"
+    frame = {k: v for k, v in data.items() if k != "y"}
+    a, b = (m.score(data=frame)[m.result_features[0].name].values
+            for m in (model, again))
+    assert a.device.type == "cuda" and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("classes,grid", [
+    (2, [{"hiddenLayer1": h, "hiddenLayer2": h, "stepSize": 0.05}
+         for h in (10, 50, 100)]),
+    (3, [{"hiddenLayer1": 16, "hiddenLayer2": 8, "stepSize": 0.05}]),
+])
+def test_mlp_fit_on_the_card_matches_the_cpu(cuda, classes, grid):
+    from transmogrifai_tpu_torch.models import mlp
+    from transmogrifai_tpu_torch.models.api import MODEL_REGISTRY
+    fam = MODEL_REGISTRY["OpMultilayerPerceptronClassifier"]
+    rng = np.random.RandomState(classes)
+    centers = rng.randn(classes, 4) * 3
+    y = rng.randint(0, classes, 300)
+    X = (centers[y] + rng.randn(300, 4)).astype(np.float32)
+    W = np.ones((len(grid), 300), np.float32)
+    W[:, ::7] = 0.0
+    before = [k.launches for k in HK.KERNELS + F.KERNELS]
+    fits = {}
+    for dev in ("cpu", cuda):
+        args = [torch.from_numpy(a).to(dev) for a in (
+            X, y.astype(np.float32), W)]
+        p = fam.fit_batch(*args, fam.grid_to_arrays(grid), classes)
+        fits[str(dev)] = (p, fam.predict_batch(p, args[0], classes).cpu())
+    assert [k.launches for k in HK.KERNELS + F.KERNELS] == before
+    (cp, cs), (gp, gs) = fits["cpu"], fits[str(cuda)]
+    # the initial weights are the same bits on either device
+    init = mlp._init(torch.tensor([42], device=cuda, dtype=torch.int32),
+                     4, 16, 3)
+    for a, b in zip(init, mlp._init(torch.tensor([42], dtype=torch.int32),
+                                    4, 16, 3)):
+        assert torch.equal(a.cpu(), b)
+    for a, b in zip(gp["masks"], cp["masks"]):
+        assert torch.equal(a.cpu(), b)
+    for a, b in zip(gp["params"], cp["params"]):
+        assert float((a.cpu() - b).abs().max()) <= MLP_RTOL * float(
+            b.abs().max())
+    torch.testing.assert_close(gs, cs, rtol=0, atol=MLP_PROB_TOL)

@@ -290,6 +290,115 @@ class _field:
         return r.get(self.field)
 
 
+#: inputs on which the port's reader once gave another table than pandas
+#: through the JAX reader: {case: (CSV text, schema or None for a header)}
+READER_FAULTS = {
+    "bom_with_header": ("﻿age,name\n22,Bob\n38,Ann\n", None),
+    "bom_with_schema": ("﻿22,Bob\n38,Ann\n", ["age", "name"]),
+    "lines_of_blanks": ("age,name\n22,Bob\n  \n38,Ann\n \t \n", None),
+    "duplicate_names": ("age,age,name,age.1,age\n22,1,Bob,5,7\n"
+                        "38,2,Ann,6,8\n", None),
+    "implicit_index": ("age,name\n22,Bob,\n38,Ann,\n", None),
+    "implicit_index_schema": ("22,Bob,\n38,Ann\n", ["age", "name"]),
+    "unicode_digits": ("age,name,x\n٢٢,Bob,1.5\n38,Ann,"
+                       "٢.5\n", None),
+    "int64_overflow": ("big,neg,huge,mixed,name\n"
+                       "18446744073709551615,-9223372036854775809,"
+                       "18446744073709551616,18446744073709551615,Bob\n"
+                       "38,38,-38,-1,Ann\n", None),
+    "uint64_with_a_blank": ("big,name\n18446744073709551615,Bob\n,Ann\n",
+                            None),
+}
+
+
+def _read_both(text, schema, tmp_path):
+    path = tmp_path / "fault.csv"
+    path.write_bytes(text.encode("utf-8"))
+    if schema is None:
+        return str(path), pd.read_csv(str(path)), read_csv(str(path))
+    return (str(path), pd.read_csv(str(path), header=None, names=schema),
+            read_csv(str(path), schema=schema, header=False))
+
+
+@pytest.mark.parametrize("case", sorted(READER_FAULTS))
+def test_reader_faults_give_the_jax_readers_table(case, tmp_path):
+    """Each input of a repaired reader fault: the frame is pandas' (names,
+    dtypes, cells, records) and the table of every column read as each
+    numeric and text type, and as a custom ``str`` extract function, is
+    the JAX reader's."""
+    text, schema = READER_FAULTS[case]
+    path, df, fr = _read_both(text, schema, tmp_path)
+    assert list(fr.columns) == list(df.columns)
+    for c in df.columns:
+        want = df[c].to_numpy(dtype=object if str(df[c].dtype) == "str"
+                              else None)
+        assert fr[c].dtype == want.dtype, (c, fr[c].dtype, want.dtype)
+        assert [_same_cell(x, y) for x, y in zip(fr[c].tolist(),
+                                                 want.tolist())] \
+            == [True] * len(want), (c, fr[c].tolist(), want.tolist())
+    assert [[_same_cell(r[k], w[k]) for k in w] for r, w in zip(
+        fr.records(), df.to_dict("records"))] == [
+            [True] * len(df.columns)] * len(df)
+    jfeats, pfeats = [], []
+    for c in df.columns:
+        for t in ("Real", "Integral", "Text", "PickList"):
+            jb, pb = (getattr(B, t)(f"{c}_{t}") for B in (JFB, PFB))
+            jb._extract_fn = _field(c, "jax")
+            pb._extract_fn = _field(c, "port")
+            jfeats.append(jb.as_predictor())
+            pfeats.append(pb.as_predictor())
+        for B, feats in ((JFB, jfeats), (PFB, pfeats)):
+            feats.append(B.PickList(f"{c}_str").extract(
+                lambda r, c=c: None if r.get(c) is None else str(r.get(c))
+            ).as_predictor())
+    jt = JDR.Simple.csv(path, schema=schema, header=schema is None
+                        ).generate_table(jfeats)
+    pt = PDR.Simple.csv(path, schema=schema, header=schema is None
+                        ).generate_table(pfeats)
+    assert pt.num_rows == jt.num_rows == len(df)
+    for name in jt.column_names:
+        _assert_same_column(jt[name], pt[name])
+
+
+@pytest.mark.parametrize("text,schema,line", [
+    ("age,name\n22,Bob\n38,Ann,\n", None, 3),
+    ("age,name\n22,Bob,\n38,Ann,x,y\n", None, 3),
+    ("1,2\n3,4,5\n", ["a", "b"], 2),
+])
+def test_a_row_wider_than_the_first_raises_as_in_pandas(text, schema, line,
+                                                        tmp_path):
+    path = tmp_path / "wide.csv"
+    path.write_text(text)
+    kw = {} if schema is None else {"header": None, "names": schema}
+    with pytest.raises(ValueError, match=f"Expected .* in line {line}"):
+        pd.read_csv(str(path), **kw)
+    with pytest.raises(ValueError, match=f"expected .* in line {line}"):
+        read_csv(str(path), schema=schema, header=schema is None)
+
+
+def test_an_all_none_column_stays_none_as_in_a_dataframe():
+    """A column of only None keeps them (object), as a DataFrame does, so
+    a custom extract function sees None; a record without the field is
+    NaN there, as ``pd.DataFrame(records)`` makes it."""
+    data = {"c": [None] * 3, "x": [1.0, 2.0, 3.0]}
+    jf = JFB.PickList("c_str").extract(
+        lambda r: None if r.get("c") is None else str(r.get("c"))
+    ).as_predictor()
+    pf = PFB.PickList("c_str").extract(
+        lambda r: None if r.get("c") is None else str(r.get("c"))
+    ).as_predictor()
+    jt = JDR.Simple.dataframe(pd.DataFrame(data)).generate_table([jf])
+    pt = PDR.Simple.dataframe(data).generate_table([pf])
+    _assert_same_column(jt["c_str"], pt["c_str"])
+    assert not pt["c_str"].valid_mask().any()
+    for recs in ([{"c": None}, {"c": None}], [{"c": None}, {"x": 1}],
+                 [{"c": None, "x": 1.0}, {"x": None}]):
+        want = pd.DataFrame(recs).to_dict("records")
+        got = Frame.of(recs).records()
+        assert [[_same_cell(r[k], w[k]) or r[k] is w[k] is None for k in w]
+                for r, w in zip(got, want)] == [[True] * len(want[0])] * 2
+
+
 def test_column_mapping_and_records_match_a_dataframe():
     data = {"i": [1, 2, 3], "f": [1.0, None, 2.5], "s": ["a", None, "b"],
             "b": [True, False, True], "o": [True, None, False],

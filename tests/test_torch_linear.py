@@ -321,13 +321,14 @@ def test_predict_batch_and_parts_match_jax(family, num_classes):
 
 
 def test_grids_and_registry_match_jax():
-    """Every family of the JAX package's registry but the MLP is in the
-    port's, with the same default grids and problem kinds."""
+    """Every family of the JAX package's registry is in the port's (the
+    MLP included), with the same default grids and problem kinds."""
     import transmogrifai_tpu.models.glm  # noqa: F401
+    import transmogrifai_tpu.models.mlp  # noqa: F401
     import transmogrifai_tpu.models.trees  # noqa: F401
+    import transmogrifai_tpu_torch.models.mlp  # noqa: F401
     import transmogrifai_tpu_torch.models.trees  # noqa: F401
-    assert sorted(PORT_REGISTRY) == sorted(
-        set(JAX_REGISTRY) - {"OpMultilayerPerceptronClassifier"})
+    assert sorted(PORT_REGISTRY) == sorted(JAX_REGISTRY)
     for name in ("OpLogisticRegression", "OpLinearSVC", "OpNaiveBayes",
                  "OpLinearRegression", "OpGeneralizedLinearRegression"):
         jf, pf = JAX_REGISTRY[name], PORT_REGISTRY[name]

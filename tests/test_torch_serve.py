@@ -51,6 +51,7 @@ if REPO not in sys.path:
 
 import transmogrifai_tpu.models.glm  # noqa: E402,F401  (registers families)
 import transmogrifai_tpu.models.linear  # noqa: E402,F401
+import transmogrifai_tpu.models.mlp  # noqa: E402,F401
 import transmogrifai_tpu.models.trees  # noqa: E402,F401
 from transmogrifai_tpu.persistence import (  # noqa: E402
     load_model as jax_load_model,
@@ -63,8 +64,9 @@ from transmogrifai_tpu_torch.persistence import (  # noqa: E402
     CorruptModelError,
 )
 from transmogrifai_tpu_torch.testing import (  # noqa: E402
-    SAVED_KEYS, SCORE_ROWS, SCORE_SEED, SERVE_MODELS as PORT_SERVE_MODELS,
-    SHARED_REFITS, TRAIN_ROWS, TRAIN_SEED, serve_bench_data,
+    CALIBRATED_KEY, SAVED_KEYS, SCORE_ROWS, SCORE_SEED,
+    SERVE_MODELS as PORT_SERVE_MODELS, SHARED_REFITS, TRAIN_ROWS, TRAIN_SEED,
+    calibration_labels, serve_bench_data,
 )
 
 FIXTURE_DIR = os.path.join(REPO, "transmogrifai_tpu_torch", "fixtures",
@@ -131,7 +133,17 @@ SERVE_MODELS = {
     "default_binary": (None, None, "binary"),
     "default_mc": (None, None, "multiclass"),
     "default_reg": (None, None, "regression"),
+    "mlp": ("OpMultilayerPerceptronClassifier",
+            {"hiddenLayer1": 50, "hiddenLayer2": 50, "stepSize": 0.05},
+            "binary"),
+    "mlpmc": ("OpMultilayerPerceptronClassifier",
+              {"hiddenLayer1": 50, "hiddenLayer2": 50, "stepSize": 0.05},
+              "multiclass"),
 }
+
+#: pinned families whose fixture also keeps ``summary.json`` (their
+#: trains on the card are held to its fold metrics)
+SUMMARY_FAMILIES = ("OpMultilayerPerceptronClassifier",)
 
 #: the fixtures trained on a default model list
 DEFAULT_KEYS = [k for k, (family, _, _) in SERVE_MODELS.items()
@@ -334,9 +346,30 @@ def generate_fixture(out_dir: str = FIXTURE_DIR, n: int = TRAIN_ROWS,
             drop_drift_baseline(path)
             np.savez_compressed(os.path.join(path, "expected.npz"),
                                 **expected_parts(parts, task))
-        if family is None:
+        if family is None or family in SUMMARY_FAMILIES:
             with open(os.path.join(path, "summary.json"), "w") as fh:
                 json.dump(selection_summary(model), fh, indent=1)
+        if key == CALIBRATED_KEY:
+            write_calibration(path, parts["probability_1"])
+
+
+def write_calibration(path: str, scores) -> None:
+    """``calibration.npz``: the JAX package's isotonic fit to ``scores``
+    (the saved model's probability_1 on the scoring frame) against
+    ``testing.calibration_labels``, its boundaries and values (``pav_fit``)
+    and the calibrated column, so the card can hold the port's fit and
+    interpolation to them bit for bit."""
+    import jax.numpy as jnp
+
+    from transmogrifai_tpu.impl.regression.isotonic import (
+        IsotonicCalibratorModel, pav_fit,
+    )
+    scores = np.asarray(scores, np.float32)
+    b, v = pav_fit(scores, calibration_labels(scores))
+    calibrated = np.asarray(IsotonicCalibratorModel(b, v)._interp(
+        jnp.asarray(scores)))
+    np.savez_compressed(os.path.join(path, "calibration.npz"),
+                        boundaries=b, values=v, calibrated=calibrated)
 
 
 # ---------------------------------------------------------------------------
@@ -482,6 +515,10 @@ FIXTURE_SHAPES = {
     "linreg": {"coef": (64,), "bias": ()},
     "glm": {"coef": (64,), "bias": (), "family": ()},
     "default_reg": {"coef": (64,), "bias": ()},
+    "mlp": {"params": [(64, 50), (50,), (50, 50), (50,), (50, 2), (2,)],
+            "masks": [(50,), (50,)]},
+    "mlpmc": {"params": [(64, 50), (50,), (50, 50), (50,), (50, 6), (6,)],
+              "masks": [(50,), (50,)]},
 }
 
 #: the winners the JAX package chose from the default lists on the serve
@@ -519,7 +556,9 @@ def test_committed_fixture_matches_expected_in_both_packages(key):
         "RealVectorizerModel", "SanityCheckerModel", "SelectedModel"]
     params = pm.stages[-1].fitted.params
     for name, shape in FIXTURE_SHAPES[key].items():
-        assert tuple(params[name].shape) == shape, name
+        got = params[name]
+        assert (tuple(got.shape) if isinstance(got, torch.Tensor)
+                else [tuple(t.shape) for t in got]) == shape, name
     pp = prediction_parts(pm.score(data=frame), pm)
     _assert_parts_agree({k: pp[k] for k in want}, want, prob_atol=(
         NB_PROB_ATOL if params.keys() >= {"log_prob"} else PROB_ATOL))
@@ -591,7 +630,7 @@ def test_cpu_replay_of_the_xgbmc_tied_split_takes_the_fixture_bin():
 
 
 def test_fixture_stays_small():
-    """15 saved models, each ~0.2-0.55 MB: the JAX package's plan (146 KB)
+    """17 saved models, each ~0.2-0.55 MB: the JAX package's plan (146 KB)
     and manifest (58 KB without the drift baseline) dominate."""
     total = sum(os.path.getsize(os.path.join(root, f))
                 for root, _, files in os.walk(FIXTURE_DIR) for f in files)
@@ -649,7 +688,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "evaluators.factory", "models.trees", "persistence",
                 "impl.selector.model_selector", "local.scoring",
                 "ops.xla_cpu", "experiments.tie_replay", "models.linear",
-                "models.glm"):
+                "models.glm", "models.mlp", "impl.regression.isotonic",
+                "manifest", "utils.version", "readers.readers"):
         assert f"transmogrifai_tpu_torch.{mod}" in walked, mod
 
 

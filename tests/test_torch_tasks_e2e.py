@@ -147,17 +147,22 @@ def test_unknown_problem_and_default_models_raise():
     with pytest.raises(ValueError, match="unknown problem kind"):
         ModelSelector(problem="ranking", models=[])
     # without models= the selectors take the default lists (the linear
-    # families, GLM and the trees); a family the port lacks raises
+    # families, GLM and the trees); every family of the JAX registry is
+    # ported, the MLP last, and a family name the registry lacks raises
     for make, first in ((port.MultiClassificationModelSelector,
                          "OpLogisticRegression"),
                         (port.RegressionModelSelector, "OpLinearRegression")):
         assert make.with_cross_validation().models[0][0].name == first
-        with pytest.raises(ValueError, match="is not ported yet"):
-            make.with_cross_validation(
-                models=[("OpMultilayerPerceptronClassifier", None)])
-    with pytest.raises(ValueError, match="does not support"):
-        port.RegressionModelSelector.with_cross_validation(
-            models=[("OpGBTClassifier", None)])
+        with pytest.raises(KeyError, match="OpNoSuchFamily"):
+            make.with_cross_validation(models=[("OpNoSuchFamily", None)])
+    mlp = port.MultiClassificationModelSelector.with_cross_validation(
+        models=[("OpMultilayerPerceptronClassifier", None)]).models
+    assert [f.name for f, _ in mlp] == ["OpMultilayerPerceptronClassifier"]
+    assert mlp[0][1] == mlp[0][0].default_grid("multiclass")[:len(mlp[0][1])]
+    for fam in ("OpGBTClassifier", "OpMultilayerPerceptronClassifier"):
+        with pytest.raises(ValueError, match="does not support"):
+            port.RegressionModelSelector.with_cross_validation(
+                models=[(fam, None)])
 
 
 # ---------------------------------------------------------------------------

@@ -642,10 +642,11 @@ def test_unported_inputs_raise():
     date = Feature("d", Date, False, None, ())
     with pytest.raises(NotImplementedError, match="no vectorizer for Date"):
         port.transmogrify([date])
-    # the default model list is ported; the MLP family is not
-    with pytest.raises(ValueError, match="is not ported yet"):
+    # every family of the JAX registry is ported (the MLP last); a family
+    # name the registry lacks raises
+    with pytest.raises(KeyError, match="OpNoSuchFamily"):
         port.BinaryClassificationModelSelector.with_cross_validation(
-            models=[("OpMultilayerPerceptronClassifier", None)])
+            models=[("OpNoSuchFamily", None)])
     class NoGrid(ModelFamily):
         name = "NoGrid"
 

@@ -6,8 +6,10 @@ raw features (numbers, text, pick lists; ``readers.DataReaders`` reads a
 CSV) through ``transmogrify -> sanity_check -> ModelSelector`` (the
 binary, multiclass and regression factories) on an NVIDIA GPU (the tree
 families' split and leaf histograms in hand-written CUDA kernels).
-Serving: ``load_model`` reads a model that the JAX package saved, and
-``OpWorkflowModel.score`` / ``score_function`` score it or a trained one,
+Saving: ``save_model`` (``OpWorkflowModel.save``) writes a trained model in
+the JAX package's format, and ``load_model`` reads a model that either
+package saved. Serving: ``OpWorkflowModel.score`` / ``score_function``
+score a loaded or a trained one,
 with the forest descent in hand-written CUDA kernels (``csrc/``). Entry
 points run on CUDA unless given ``device="cpu"``.
 """
@@ -19,12 +21,12 @@ from .impl.selector.factories import (
     RegressionModelSelector,
 )
 from .local.scoring import micro_batch_score_function, score_function
-from .persistence import load_model
+from .persistence import load_model, save_model
 from .readers import DataReaders
 from .table import Column, FeatureTable
 from .workflow import OpWorkflow, OpWorkflowModel
 
-__all__ = ["load_model", "OpWorkflow", "OpWorkflowModel", "FeatureBuilder",
+__all__ = ["load_model", "save_model", "OpWorkflow", "OpWorkflowModel", "FeatureBuilder",
            "DataReaders",
            "BinaryClassificationModelSelector",
            "MultiClassificationModelSelector", "RegressionModelSelector",

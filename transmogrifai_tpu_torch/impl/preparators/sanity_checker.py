@@ -11,7 +11,7 @@ summary holders have the fields of the JAX package's summary classes
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import asdict, dataclass, field
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -62,6 +62,36 @@ class SanityCheckerSummary:
     sample_size: int = 0
     feature_correlations: Optional[Any] = None
     schema_version: int = 3
+
+    #: widest feature-correlation matrix ``to_json`` inlines
+    _JSON_CORR_MAX_D = 512
+
+    def to_json(self) -> Dict[str, Any]:
+        """The JAX package's summary JSON (the fitted model's
+        ``summary_metadata``)."""
+        return {
+            "schemaVersion": self.schema_version,
+            "stats": asdict(self.stats),
+            "categorical": asdict(self.categorical),
+            "correlationsWithLabel": self.correlations_with_label,
+            "correlationType": self.correlation_type,
+            "dropped": list(self.dropped),
+            "reasons": dict(self.reasons),
+            "sampleSize": self.sample_size,
+            "featureCorrelations": self._corr_json(),
+        }
+
+    def _corr_json(self) -> Optional[List[List[Optional[float]]]]:
+        fc = self.feature_correlations
+        if fc is None:
+            return None
+        if isinstance(fc, torch.Tensor):
+            fc = fc.cpu().numpy()
+        fc = np.asarray(fc, dtype=np.float64)
+        if fc.shape[0] > self._JSON_CORR_MAX_D:
+            return None
+        return [[None if np.isnan(v) else round(float(v), 6) for v in r]
+                for r in fc]
 
 
 def _is_text_shared_hash(c: VectorColumnMetadata) -> bool:
@@ -287,8 +317,9 @@ class SanityChecker(AllowLabelAsInput, Estimator):
             reasons={names[i]: why for i, why in reasons.items()},
             sample_size=n_sample,
             feature_correlations=host.get("feature_corr"))
-        return self._finalize_model(
-            SanityCheckerModel(keep_indices=keep, summary=summary))
+        model = SanityCheckerModel(keep_indices=keep, summary=summary)
+        model.summary_metadata = summary.to_json()
+        return self._finalize_model(model)
 
 
 class SanityCheckerModel(AllowLabelAsInput, Transformer):

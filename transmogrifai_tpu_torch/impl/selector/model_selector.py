@@ -70,17 +70,40 @@ class ModelSelectorSummary:
     validation_eval_row_cap: Optional[int] = None
     quarantined: List[Dict[str, Any]] = field(default_factory=list)
 
+    def to_json(self) -> Dict[str, Any]:
+        """The JAX package's summary JSON (the fitted model's
+        ``summary_metadata``)."""
+        return {
+            "validationType": self.validation_type,
+            "validationMetric": self.validation_metric,
+            "problem": self.problem,
+            "bestModelType": self.best_model_type,
+            "bestHyperparameters": self.best_hyper,
+            "bestMetricValue": self.best_metric_value,
+            "largerBetter": self.larger_better,
+            "validationResults": [r.to_json()
+                                  for r in self.validation_results],
+            "trainEvaluation": self.train_evaluation,
+            "holdoutEvaluation": self.holdout_evaluation,
+            "splitterSummary": self.splitter_summary,
+            "validationEvalRowCap": self.validation_eval_row_cap,
+            "quarantinedCandidates": [dict(r) for r in self.quarantined],
+        }
 
-def _params_finite(params: Dict[str, torch.Tensor],
+
+def _params_finite(params: Dict[str, Any],
                    allow_inf: Sequence[str]) -> bool:
-    """Every float leaf finite; keys in ``allow_inf`` (tree thresholds,
-    whose +inf marks a stopped node) are checked for NaN only."""
+    """Every float tensor leaf finite (tuples of tensors, as the MLP's,
+    included); keys in ``allow_inf`` (tree thresholds, whose +inf marks a
+    stopped node) are checked for NaN only."""
     for k, v in params.items():
-        if not torch.is_floating_point(v):
-            continue
-        bad = torch.isnan(v) if k in allow_inf else ~torch.isfinite(v)
-        if bool(bad.any()):
-            return False
+        for t in (v if isinstance(v, tuple) else (v,)):
+            if not (isinstance(t, torch.Tensor)
+                    and torch.is_floating_point(t)):
+                continue
+            bad = torch.isnan(t) if k in allow_inf else ~torch.isfinite(t)
+            if bool(bad.any()):
+                return False
     return True
 
 
@@ -107,16 +130,12 @@ class ModelSelector(AllowLabelAsInput, Estimator):
         self.models = self._resolve_models(models)
 
     def _resolve_models(self, models):
-        from ...models import glm, linear, trees  # noqa: F401  (registers)
+        from ...models import glm, linear, mlp, trees  # noqa: F401
         if models is None:
             models = [(name, None) for name in DEFAULT_MODELS[self.problem]]
         resolved: List[Tuple[ModelFamily, List[Dict[str, Any]]]] = []
         for fam, grid in models:
             if isinstance(fam, str):
-                if fam not in MODEL_REGISTRY:
-                    raise ValueError(f"model family {fam!r} is not ported "
-                                     f"yet; the port has "
-                                     f"{sorted(MODEL_REGISTRY)}")
                 fam = MODEL_REGISTRY[fam]
             if self.problem not in fam.supports:
                 raise ValueError(f"{fam.name} does not support problem kind "
@@ -236,6 +255,7 @@ class ModelSelector(AllowLabelAsInput, Estimator):
         if len(test_idx):
             summary.holdout_evaluation = _scalar_metrics(
                 ev.evaluate_all(model.transform(table.take(test_idx))))
+        model.summary_metadata = summary.to_json()
         return model
 
     def _default_evaluator(self):

@@ -36,6 +36,14 @@ class ValidationResult:
     fold_metrics: Any        # (F, G)
     mean_metrics: Any        # (G,)
 
+    def to_json(self) -> Dict[str, Any]:
+        def host(m):
+            return (m.cpu().numpy() if isinstance(m, torch.Tensor)
+                    else np.asarray(m)).tolist()
+        return {"modelType": self.family, "metricName": self.metric_name,
+                "grid": self.grid, "foldMetrics": host(self.fold_metrics),
+                "meanMetrics": host(self.mean_metrics)}
+
 
 @dataclass
 class BestEstimator:

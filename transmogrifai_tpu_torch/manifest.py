@@ -1,19 +1,31 @@
-"""The integrity manifest of a saved model directory, read side
+"""Atomic file writes and the integrity manifest of a saved model directory
 (counterpart of ``transmogrifai_tpu.manifest``).
 
-``MANIFEST.json`` records the format version and each file's size and
-sha256; a file whose size or checksum differs from its record is corrupt
-and is never decoded.
+``atomic_write_bytes`` writes to a staging file of its own
+(``<path>.<pid>.<seq>.tmp``), flushes and fsyncs it, then renames it into
+place: a kill at any point leaves the old file or the new one, and
+``*.tmp`` debris at worst. ``MANIFEST.json`` records the format version
+and each file's size and sha256; a file whose size or checksum differs
+from its record is corrupt and is never decoded. The JAX package's
+manifest also carries stage, sweep and stream completion records and the
+advisory serving, drift, costs and program entries; the port writes
+none of them yet, and neither loader needs them to load a model.
 """
 from __future__ import annotations
 
 import hashlib
+import itertools
 import json
 import os
-from typing import Any, Dict, Optional, Tuple
+import shutil
+from typing import Any, Dict, List, Optional, Tuple
 
 MANIFEST_FILE = "MANIFEST.json"
 MANIFEST_VERSION = 1
+
+
+def sha256_bytes(data: bytes) -> str:
+    return hashlib.sha256(data).hexdigest()
 
 
 def sha256_file(path: str, chunk: int = 1 << 20) -> str:
@@ -25,6 +37,51 @@ def sha256_file(path: str, chunk: int = 1 << 20) -> str:
                 break
             h.update(b)
     return h.hexdigest()
+
+
+#: per-process staging-name counter: two writers of one destination never
+#: share a staging file
+_TMP_SEQ = itertools.count(1)
+
+
+def atomic_write_bytes(path: str, data: bytes) -> str:
+    """Write ``data`` to ``path`` through a staging file, fsync and
+    ``os.replace``; returns the sha256 of ``data``. A failed write removes
+    its staging file."""
+    tmp = f"{path}.{os.getpid()}.{next(_TMP_SEQ)}.tmp"
+    try:
+        with open(tmp, "wb") as fh:
+            fh.write(data)
+            fh.flush()
+            os.fsync(fh.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.remove(tmp)
+        except OSError:
+            pass
+        raise
+    return sha256_bytes(data)
+
+
+def clean_tmp_debris(dirpath: str) -> List[str]:
+    """Remove the ``*.tmp`` files and directories (a model save's staged
+    directory) a killed writer left in ``dirpath``; returns their names."""
+    removed: List[str] = []
+    if not os.path.isdir(dirpath):
+        return removed
+    for fname in sorted(os.listdir(dirpath)):
+        if fname.endswith(".tmp"):
+            full = os.path.join(dirpath, fname)
+            try:
+                if os.path.isdir(full):
+                    shutil.rmtree(full)
+                else:
+                    os.remove(full)
+                removed.append(fname)
+            except OSError:
+                pass
+    return removed
 
 
 class CheckpointManifest:
@@ -60,6 +117,19 @@ class CheckpointManifest:
                        f"expected {format_version}")
         m.files = dict(doc.get("files", {}))
         return m, None
+
+    def record_file(self, fname: str, sha256: str, size: int) -> None:
+        self.files[fname] = {"sha256": sha256, "size": size}
+
+    def save(self) -> None:
+        """Write ``MANIFEST.json`` atomically, with the empty completion
+        sections the JAX package's manifest always has."""
+        os.makedirs(self.dirpath, exist_ok=True)
+        doc = {"manifestVersion": MANIFEST_VERSION,
+               "formatVersion": self.format_version,
+               "files": self.files, "stages": {}, "sweeps": {}}
+        atomic_write_bytes(self.path,
+                           json.dumps(doc, indent=1).encode("utf-8"))
 
     def verify_file(self, fname: str) -> Optional[str]:
         """None when ``fname`` exists and matches its record, else why

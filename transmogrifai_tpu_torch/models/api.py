@@ -78,6 +78,12 @@ class ModelFamily(abc.ABC):
                           device) -> Dict[str, torch.Tensor]:
         """Saved numpy parameters -> tensors on ``device``."""
 
+    def params_to_numpy(self, params: Dict[str, Any]) -> Dict[str, Any]:
+        """The inverse of ``params_from_numpy``: the dict the JAX family
+        saves, every tensor a numpy array of its dtype (host arrays and
+        python scalars pass through, tuples stay tuples)."""
+        return to_numpy(params)
+
     def predict_batch(self, params: Dict[str, torch.Tensor], X: torch.Tensor,
                       num_classes: int) -> torch.Tensor:
         """Scores of stacked params: (B, n) for binary and regression."""
@@ -94,6 +100,17 @@ class ModelFamily(abc.ABC):
         """``predict_parts`` brought to the host as numpy arrays."""
         return {k: v.cpu().numpy()
                 for k, v in self.predict_parts(fitted, X).items()}
+
+
+def to_numpy(v: Any) -> Any:
+    """Every tensor inside dicts, lists and tuples -> a numpy array."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    if isinstance(v, dict):
+        return {k: to_numpy(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return type(v)(to_numpy(x) for x in v)
+    return v
 
 
 MODEL_REGISTRY: Dict[str, ModelFamily] = {}

@@ -1056,8 +1056,8 @@ def params_from_numpy(params: Dict[str, np.ndarray],
                       device) -> Dict[str, torch.Tensor]:
     """A saved tree ``FittedParams.params`` dict -> contiguous tensors on
     ``device``: int32 split tables, float32 leaves, mask, edges and boosting
-    constants. Keys the predict path does not read (thresholds) are left
-    out."""
+    constants. Keys the predict path does not read (thresholds) stay host
+    numpy arrays, so a loaded model saves again whole."""
     chain = "base_lv" in params
     need = (("feat_lv", "bins_lv", "base_lv") if chain
             else ("feat", "bins")) + ("leaf", "edges")
@@ -1071,9 +1071,11 @@ def params_from_numpy(params: Dict[str, np.ndarray],
         elif k in _FLOAT_KEYS:
             dtype = torch.float32
         else:
+            out[k] = np.asarray(v)
             continue
-        out[k] = torch.as_tensor(np.ascontiguousarray(v), dtype=dtype,
-                                 device=device)
+        # (np.ascontiguousarray would turn the 0-d ``eta`` into shape (1,))
+        out[k] = torch.as_tensor(np.asarray(v), dtype=dtype,
+                                 device=device).contiguous()
     return out
 
 

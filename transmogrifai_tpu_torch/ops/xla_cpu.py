@@ -11,7 +11,10 @@ multiclass):
   and ``log1p`` are Cephes approximations too (``xla_log``,
   ``xla_log1p``), every multiply-add in them fused;
 * it reduces more than 32 elements in windows of 32, each added in order
-  (``xla_sum``).
+  (``xla_sum``);
+* its ``erf_inv`` (``jax.random.normal``'s) is Giles' float32
+  approximation: w = -log1p(-x^2), a polynomial in w - 2.5 or
+  sqrt(w) - 3 by the branch w < 5, times x (``xla_erf_inv``).
 
 Only float32 and float64 elementwise operations are used, so a CUDA
 tensor gets the same bits as a CPU one.
@@ -127,6 +130,33 @@ def xla_log1p(x: torch.Tensor) -> torch.Tensor:
     small = x + fma32(-0.5, x2, (x * x2) * r)
     return torch.where(x.abs() < 0.41421356237309504880, small,
                        xla_log(x + 1.0))
+
+
+#: Giles' float32 erf_inv coefficients, leading first: w < 5, else
+_ERF_INV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                -4.39150654e-06, 0.00021858087, -0.00125372503,
+                -0.00417768164, 0.246640727, 1.50140941)
+_ERF_INV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+                -0.00367342844, 0.00573950773, -0.0076224613,
+                0.00943887047, 1.00167406, 2.83297682)
+
+
+def xla_erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """erf^-1 of float32 x in (-1, 1): w = -log1p(-x * x) (``xla_log1p``),
+    the branch's coefficients selected per element, a Horner polynomial of
+    fused multiply-adds in w - 2.5 (w < 5) or sqrt(w) - 3, times x; +-inf
+    at +-1. The square root is taken in float64 and rounded once, which is
+    IEEE's float32 square root on any device (PyTorch's vectorized float32
+    CPU square root can be an ulp low)."""
+    w = -xla_log1p(-(x * x))
+    lt = w < 5.0
+    z = torch.where(lt, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
+    p = None
+    for a, b in zip(_ERF_INV_LT5, _ERF_INV_GE5):
+        c = torch.where(lt, torch.tensor(_f32(a), device=x.device),
+                        torch.tensor(_f32(b), device=x.device))
+        p = c if p is None else fma32(p, z, c)
+    return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
 
 
 def _seq_sum(x: torch.Tensor) -> torch.Tensor:

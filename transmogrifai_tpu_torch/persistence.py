@@ -1,24 +1,46 @@
-"""Load a model that the JAX package saved (counterpart of the load half of
-``transmogrifai_tpu.persistence``).
+"""Save and load a fitted workflow in the JAX package's format
+(counterpart of ``transmogrifai_tpu.persistence``).
 
 A saved model is a directory: ``plan.json`` (the feature graph and every
 stage's state as JSON descriptors), ``arrays.npz`` (the arrays those
 descriptors name) and ``MANIFEST.json`` (each file's size and sha256).
-Every array is read as numpy and becomes a tensor on the model's device.
+Every array is read as numpy and becomes a tensor on the model's device;
+``save_model`` brings every tensor back to numpy. A model saved by either
+package loads in the other.
 
 The saved descriptors name their classes by the JAX package's module paths.
 The port never imports those: each saved name maps through ``CLASSES`` to
-the port's own class, and a name without an entry raises. State the JAX
-package could not save (a user's lambda: a custom extract function, a
-lambda transformer's function) loads as ``Unresolved`` and is taken from
-the stage of the same uid in the workflow passed as ``workflow=``, as the
-JAX package's ``load_model`` resolves it.
+the port's own class, and a name without an entry raises at load; a port
+class without an entry raises at save. Each stage is saved with the state
+keys the JAX package's stage of that class carries (``_JAX_STATE`` fills
+those the port's stages do not hold), less the port's placement
+(``_WIRING_ATTRS``). State that cannot be saved (a user's lambda: a custom
+extract function, a lambda transformer's function) is written as
+``__unresolved__`` and loads as ``Unresolved``; it is then taken from the
+stage of the same uid in the workflow passed as ``workflow=``, as the JAX
+package's ``load_model`` resolves it.
+
+A save stages the whole directory beside the target (``<path>.<pid>.
+<seq>.tmp``) and swaps it in with one atomic exchange of the two
+directories (``renameat2(RENAME_EXCHANGE)``), so a save killed at any
+point leaves the previous model loadable, plus ``*.tmp`` debris
+(``manifest.clean_tmp_debris``). Where the file system cannot exchange,
+the target moves aside and the staged directory takes its place: a kill
+between those two renames leaves the previous model in the moved-aside
+``*.old.tmp`` directory.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import errno
+import io
+import itertools
 import json
 import os
+import shutil
+import types as _pytypes
+import warnings
 from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
@@ -38,9 +60,10 @@ from .impl.preparators.sanity_checker import (
 )
 from .impl.selector.model_selector import ModelSelectorSummary, SelectedModel
 from .impl.tuning.validators import ValidationResult
-from .manifest import CheckpointManifest
-from .models import glm, linear, trees  # noqa: F401  (registers families)
-from .models.api import MODEL_REGISTRY, FittedParams
+from .impl.regression.isotonic import IsotonicCalibratorModel
+from .manifest import CheckpointManifest, atomic_write_bytes
+from .models import glm, linear, mlp, trees  # noqa: F401  (registers)
+from .models.api import MODEL_REGISTRY, FittedParams, ModelFamily
 from .stages.base import (
     BinarySequenceTransformer, BinaryTransformer, FeatureGeneratorStage,
     OpPipelineStage, SequenceTransformer, UnaryTransformer,
@@ -78,6 +101,8 @@ CLASSES: Dict[str, type] = {
         "impl.preparators.sanity_checker:SanityCheckerModel":
             SanityCheckerModel,
         "impl.selector.model_selector:SelectedModel": SelectedModel,
+        "impl.regression.isotonic:IsotonicCalibratorModel":
+            IsotonicCalibratorModel,
         "features:FieldExtractor": FieldExtractor,
         "models.api:FittedParams": FittedParams,
         "impl.selector.model_selector:ModelSelectorSummary":
@@ -92,6 +117,21 @@ CLASSES: Dict[str, type] = {
         "vector_metadata:VectorMetadata": VectorMetadata,
         "vector_metadata:VectorColumnMetadata": VectorColumnMetadata,
     }.items()}
+
+#: the port's class -> the saved "module:Class" name
+SAVED_NAMES: Dict[type, str] = {cls: spec for spec, cls in CLASSES.items()}
+
+#: stage attributes rebuilt by the loading context, never saved: the
+#: feature wiring and the port's placement (constants cached per device)
+_WIRING_ATTRS = ("input_features", "_output_feature", "_device_constants")
+
+#: state keys the JAX package's stages carry and the port's do not, with
+#: the values the JAX package saves for them (None: every stage class)
+_JAX_STATE: Dict[Optional[str], Dict[str, Any]] = {
+    None: {"_params": {}},
+    "FeatureGeneratorStage": {"aggregator": None, "aggregate_window": None},
+    "VectorsCombiner": {"transform_fn": None, "columnar_fn": None},
+}
 
 
 class CorruptModelError(RuntimeError):
@@ -161,11 +201,7 @@ def _decode(d: Any, arrays: Dict[str, np.ndarray]) -> Any:
     if "__feature_type__" in d:
         return feature_type_by_name(d["__feature_type__"])
     if "__family__" in d:
-        name = d["__family__"]
-        if name not in MODEL_REGISTRY:
-            raise ValueError(f"model family {name!r} is not ported yet; the "
-                             f"port has {sorted(MODEL_REGISTRY)}")
-        return MODEL_REGISTRY[name]
+        return MODEL_REGISTRY[d["__family__"]]
     if "__obj__" in d:
         cls = _class_of(d["__obj__"])
         obj = cls.__new__(cls)
@@ -188,11 +224,8 @@ def _to_device(v: Any, device: torch.device) -> Any:
     if isinstance(v, np.ndarray):
         return torch.as_tensor(v, device=device)
     if isinstance(v, FittedParams):
-        family = MODEL_REGISTRY.get(v.family)
-        if family is None:
-            raise ValueError(f"model family {v.family!r} is not ported yet; "
-                             f"the port has {sorted(MODEL_REGISTRY)}")
-        v.params = family.params_from_numpy(v.params, device)
+        v.params = MODEL_REGISTRY[v.family].params_from_numpy(v.params,
+                                                              device)
         return v
     if isinstance(v, list):
         return [_to_device(x, device) for x in v]
@@ -313,3 +346,222 @@ def load_model(path: str, device: Optional[Union[str, torch.device]] = None,
     model.parameters = _decode(plan.get("parameters", {}), arrays) or {}
     model._layers = compute_dag(model.result_features)
     return model
+
+
+# ---------------------------------------------------------------------------
+# Save
+# ---------------------------------------------------------------------------
+
+class _Arrays:
+    """The npz store being written: arrays named a0, a1, ... in the order
+    the plan meets them."""
+
+    def __init__(self):
+        self.store: Dict[str, np.ndarray] = {}
+
+    def add(self, arr: np.ndarray) -> str:
+        key = f"a{len(self.store)}"
+        self.store[key] = np.asarray(arr)
+        return key
+
+
+def _saved_name(cls: type) -> str:
+    spec = SAVED_NAMES.get(cls)
+    if spec is None:
+        raise ValueError(f"{cls.__module__}.{cls.__qualname__} has no "
+                         f"counterpart in the JAX package's format "
+                         f"(persistence.CLASSES); it cannot be saved")
+    return spec
+
+
+def _encode(v: Any, arrays: _Arrays) -> Any:
+    """A value -> its JSON descriptor, as the JAX package's ``_encode``
+    writes it; tensors and arrays go to the npz store, functions are
+    ``__unresolved__``."""
+    if v is None or isinstance(v, (bool, int, str)):
+        return v
+    if isinstance(v, float):
+        return v if np.isfinite(v) else {"__float__": repr(v)}
+    if isinstance(v, (np.floating, np.integer, np.bool_)):
+        return _encode(v.item(), arrays)
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu().numpy()
+    if isinstance(v, np.ndarray):
+        return {"__array__": arrays.add(v)}
+    if isinstance(v, tuple):
+        return {"__tuple__": [_encode(x, arrays) for x in v]}
+    if isinstance(v, list):
+        return [_encode(x, arrays) for x in v]
+    if isinstance(v, (set, frozenset)):
+        return {"__set__": [_encode(x, arrays)
+                            for x in sorted(v, key=repr)]}
+    if isinstance(v, dict):
+        if all(isinstance(k, str) for k in v):
+            return {"__dict__": {k: _encode(x, arrays)
+                                 for k, x in v.items()}}
+        return {"__kvdict__": [[_encode(k, arrays), _encode(x, arrays)]
+                               for k, x in v.items()]}
+    if isinstance(v, type):
+        from .types import FeatureType
+        if issubclass(v, FeatureType):
+            return {"__feature_type__": v.__name__}
+        raise ValueError(f"cannot save the class {v.__qualname__}")
+    if isinstance(v, ModelFamily):
+        return {"__family__": v.name}
+    if isinstance(v, FittedParams):
+        v = dataclasses.replace(
+            v, params=MODEL_REGISTRY[v.family].params_to_numpy(v.params))
+    if dataclasses.is_dataclass(v):
+        return {"__obj__": _saved_name(type(v)),
+                "state": {f.name: _encode(getattr(v, f.name), arrays)
+                          for f in dataclasses.fields(v)}}
+    if isinstance(v, (_pytypes.FunctionType, _pytypes.MethodType,
+                      _pytypes.BuiltinFunctionType)):
+        return {"__unresolved__": repr(v)}
+    if isinstance(v, OpPipelineStage):
+        return {"__stage_ref__": v.uid}
+    if hasattr(v, "__dict__"):
+        return {"__obj__": _saved_name(type(v)),
+                "state": {k: _encode(x, arrays) for k, x in vars(v).items()}}
+    raise ValueError(f"cannot save a {type(v).__name__}: {v!r}")
+
+
+def stage_to_json(stage: OpPipelineStage, arrays: _Arrays) -> Dict[str, Any]:
+    """A fitted stage's descriptor: the JAX package's class name, module,
+    uid and state keys."""
+    module, cls_name = _saved_name(type(stage)).split(":")
+    state = {k: v for k, v in vars(stage).items() if k not in _WIRING_ATTRS}
+    state.setdefault("output_type", stage.output_type)
+    for name in (None, cls_name):
+        for k, v in _JAX_STATE.get(name, {}).items():
+            state.setdefault(k, v)
+    return {"className": cls_name, "module": module, "uid": stage.uid,
+            "state": {k: _encode(v, arrays) for k, v in state.items()}}
+
+
+def features_to_json(result_features, extra_features=()
+                     ) -> List[Dict[str, Any]]:
+    """The feature graph in dependency order: every ancestor of the result
+    features, then of ``extra_features`` (raw features outside them)."""
+    seen: Dict[str, Feature] = {}
+    for f in tuple(result_features) + tuple(extra_features):
+        for a in f.all_features():
+            seen.setdefault(a.uid, a)
+    return [{"uid": f.uid, "name": f.name, "typeName": f.type_name,
+             "isResponse": f.is_response,
+             "originStageUid": f.origin_stage.uid if f.origin_stage
+             else None,
+             "parents": [p.uid for p in f.parents]}
+            for f in seen.values()]
+
+
+def _stage_ref_uids(v: Any) -> set:
+    """Every ``__stage_ref__`` uid inside an encoded plan fragment."""
+    out: set = set()
+    if isinstance(v, dict):
+        if isinstance(v.get("__stage_ref__"), str):
+            out.add(v["__stage_ref__"])
+        for x in v.values():
+            out |= _stage_ref_uids(x)
+    elif isinstance(v, list):
+        for x in v:
+            out |= _stage_ref_uids(x)
+    return out
+
+
+def _plan_and_arrays(model) -> Dict[str, bytes]:
+    """{file name: bytes} of a fitted model's plan.json and arrays.npz."""
+    from .utils.version import version_info
+    arrays = _Arrays()
+    stage_descs = [stage_to_json(s, arrays) for s in model.stages]
+    extra = tuple({f.uid: f for f in tuple(model.raw_features) + tuple(
+        model.blacklisted_features)}.values())
+    raw_descs = [stage_to_json(f.origin_stage, arrays) for f in extra]
+    plan = {
+        "formatVersion": FORMAT_VERSION,
+        "versionInfo": version_info(),
+        "features": features_to_json(model.result_features, extra),
+        "resultFeatures": [f.uid for f in model.result_features],
+        "rawFeatures": [f.uid for f in model.raw_features],
+        "blacklistedFeatures": [f.uid for f in model.blacklisted_features],
+        "stages": stage_descs,
+        "rawFeatureGenerators": raw_descs,
+        "parameters": _encode(model.parameters, arrays),
+        "rffResults": _encode(getattr(model, "rff_results", None), arrays),
+    }
+    saved = ({s.uid for s in model.stages}
+             | {f.origin_stage.uid for f in extra})
+    dangling = sorted(_stage_ref_uids([stage_descs, raw_descs,
+                                       plan["parameters"]]) - saved)
+    if dangling:
+        warnings.warn(
+            f"save_model: stage attribute(s) reference uid(s) {dangling} "
+            f"that are not among the stages being saved; they will load "
+            f"as permanent placeholders. Include those stages in the "
+            f"workflow or drop the references before saving.", stacklevel=3)
+    buf = io.BytesIO()
+    np.savez_compressed(buf, **arrays.store)
+    return {PLAN_FILE: json.dumps(plan, indent=2).encode("utf-8"),
+            ARRAYS_FILE: buf.getvalue()}
+
+
+_STAGE_SEQ = itertools.count(1)
+
+
+def _exchange(a: str, b: str) -> bool:
+    """Swap two directories in one atomic step (``renameat2`` with
+    ``RENAME_EXCHANGE``); False where the system or file system cannot."""
+    fn = getattr(ctypes.CDLL(None, use_errno=True), "renameat2", None)
+    if fn is None:
+        return False
+    at_fdcwd, rename_exchange = -100, 2
+    if fn(at_fdcwd, os.fsencode(a), at_fdcwd, os.fsencode(b),
+          rename_exchange) == 0:
+        return True
+    err = ctypes.get_errno()
+    if err in (errno.EINVAL, errno.ENOSYS, errno.EOPNOTSUPP):
+        return False
+    raise OSError(err, os.strerror(err), a)
+
+
+def _fsync_dir(path: str) -> None:
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def save_model(model, path: str) -> None:
+    """Write the fitted workflow model to the directory ``path`` in the
+    JAX package's format: plan.json + arrays.npz + MANIFEST.json with each
+    file's sha256. The directory is staged beside ``path`` and swapped in
+    whole (module docstring); other files already in ``path`` are carried
+    over."""
+    path = os.path.abspath(path)
+    files = _plan_and_arrays(model)
+    stage = f"{path}.{os.getpid()}.{next(_STAGE_SEQ)}.tmp"
+    os.makedirs(stage)
+    manifest = CheckpointManifest(stage, FORMAT_VERSION)
+    for name, data in files.items():
+        manifest.record_file(name, atomic_write_bytes(
+            os.path.join(stage, name), data), len(data))
+    manifest.save()
+    if os.path.isdir(path):
+        keep = set(files) | {os.path.basename(manifest.path)}
+        for name in os.listdir(path):
+            src = os.path.join(path, name)
+            if (name not in keep and not name.endswith(".tmp")
+                    and os.path.isfile(src)):
+                shutil.copy2(src, os.path.join(stage, name))
+    _fsync_dir(stage)
+    if not os.path.exists(path):
+        os.replace(stage, path)
+    elif _exchange(stage, path):
+        shutil.rmtree(stage, ignore_errors=True)
+    else:
+        old = f"{stage[:-len('.tmp')]}.old.tmp"
+        os.replace(path, old)
+        os.replace(stage, path)
+        shutil.rmtree(old, ignore_errors=True)
+    _fsync_dir(os.path.dirname(path))

@@ -2,7 +2,8 @@
 
     python3 -m transmogrifai_tpu_torch.profile_train
         [--family gbt|gbt12|rf|dt|rfreg|gbtreg|rfmc|xgbmc|lr|svc|lrmc|nbmc|
-                  linreg|glm|default_binary|default_mc|default_reg|titanic]
+                  linreg|glm|default_binary|default_mc|default_reg|mlp|
+                  mlpmc|titanic]
         [--rows 20000] [--reps 3]
 
 Trains one of the serve bench's workflows (64 ``Real`` predictors,
@@ -13,7 +14,8 @@ binary ``gbt`` maxDepth 6, 20 rounds; ``gbt12`` maxDepth 12, 20 rounds
 (elastic net) and ``svc``; regression ``rfreg`` (RF as ``rf``),
 ``gbtreg`` (GBT as ``gbt``), ``linreg`` and ``glm`` (gaussian); 6-class
 ``rfmc`` (RF as ``rf``), ``xgbmc`` (XGBoost maxDepth 6, 100 rounds),
-``lrmc`` (softmax) and ``nbmc``; or a problem kind's default model list
+``lrmc`` (softmax) and ``nbmc``; the MLP (two hidden layers of 50)
+binary ``mlp`` and 6-class ``mlpmc``; or a problem kind's default model list
 at full default grids (``default_binary``, ``default_mc``,
 ``default_reg``); or ``titanic``, the mixed-type path
 (``examples.titanic.build_workflow``: the CSV reader, PickList, Text,
@@ -65,7 +67,7 @@ def _timing(phases: dict):
     from .stages.base import _LambdaTransformer
     from .impl.selector.model_selector import ModelSelector, SelectedModel
     from .impl.tuning.validators import OpValidator
-    from .models import glm, linear, trees  # noqa: F401  (registers)
+    from .models import glm, linear, mlp, trees  # noqa: F401  (registers)
     from .models.api import MODEL_REGISTRY
 
     #: the sweep's own fit calls are not refits

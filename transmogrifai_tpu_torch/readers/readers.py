@@ -16,7 +16,17 @@ with the csv module and numpy, so it repeats pandas' choices:
 - a numeric feature parses its column as numbers, anything else missing
   (``pd.to_numeric(errors="coerce")``); a text feature keeps non-empty
   strings only, so a column of numbers is all missing;
-- quoted fields keep their commas and doubled quotes.
+- quoted fields keep their commas and doubled quotes;
+- numbers are ASCII: a field of other Unicode digits is a string;
+- an integer column outside int64 is uint64 when every field lies in
+  [0, 2^64) and none is missing, raw strings when a field lies in
+  [2^63, 2^64) but the column cannot be uint64, and python ints (missing
+  NaN) when it reaches past both ranges otherwise;
+- a UTF-8 byte-order mark is dropped, lines of blanks are skipped,
+  duplicate header names become ``age``, ``age.1``, ..., and when the
+  first data row has more fields than the header, its leading fields make
+  pandas' implicit index: every name moves to the fields after them, and
+  a later row with more fields than the first raises, as pandas does.
 
 A ``Frame`` is the port's stand-in for the DataFrame: name -> numpy
 column, in pandas' dtypes (a string column is an object array whose
@@ -44,9 +54,13 @@ NA_VALUES = frozenset({
 _TRUE, _FALSE = ("True", "TRUE", "true"), ("False", "FALSE", "false")
 
 
+_I64 = (-2 ** 63, 2 ** 63)
+_U64 = (0, 2 ** 64)
+
+
 def _parse_int(s: str) -> Optional[int]:
     t = s.strip()
-    if not t or "_" in t:
+    if not t or "_" in t or not t.isascii():
         return None
     try:
         return int(t, 10)
@@ -55,12 +69,24 @@ def _parse_int(s: str) -> Optional[int]:
 
 
 def _parse_float(s: str) -> Optional[float]:
-    if "_" in s:
+    if "_" in s or not s.isascii():
         return None
     try:
         return float(s)
     except ValueError:
         return None
+
+
+def _csv_float(s: str) -> Optional[float]:
+    """A CSV field as pandas' parser reads a float: a positive integer of
+    2^64 or more, written without a point or exponent, is none (it takes
+    that for an overflowing integer)."""
+    i = _parse_int(s)
+    return None if i is not None and i >= _U64[1] else _parse_float(s)
+
+
+def _within(v: int, bounds) -> bool:
+    return bounds[0] <= v < bounds[1]
 
 
 def infer_column(fields: Sequence[str]) -> np.ndarray:
@@ -71,17 +97,25 @@ def infer_column(fields: Sequence[str]) -> np.ndarray:
     if not present:
         return np.full(len(fields), np.nan)
     ints = [_parse_int(f) for f in present]
-    if all(v is not None for v in ints) and all(
-            -2 ** 63 <= v < 2 ** 63 for v in ints):
-        if not any(na):
-            return np.array(ints, dtype=np.int64)
+    out = np.empty(len(fields), dtype=object)
+    if all(v is not None for v in ints):
+        if all(_within(v, _I64) for v in ints):
+            if not any(na):
+                return np.array(ints, dtype=np.int64)
+            it = iter(ints)
+            return np.array([np.nan if m else float(next(it)) for m in na])
+        if any(_within(v, _U64) and not _within(v, _I64) for v in ints):
+            if not any(na) and all(_within(v, _U64) for v in ints):
+                return np.array(ints, dtype=np.uint64)
+            out[:] = list(fields)
+            return out
         it = iter(ints)
-        return np.array([np.nan if m else float(next(it)) for m in na])
-    floats = [_parse_float(f) for f in present]
+        out[:] = [np.nan if m else next(it) for m in na]
+        return out
+    floats = [_csv_float(f) for f in present]
     if all(v is not None for v in floats):
         it = iter(floats)
         return np.array([np.nan if m else next(it) for m in na])
-    out = np.empty(len(fields), dtype=object)
     if all(f in _TRUE or f in _FALSE for f in present):
         for i, (f, m) in enumerate(zip(fields, na)):
             out[i] = np.nan if m else f in _TRUE
@@ -94,10 +128,14 @@ def infer_column(fields: Sequence[str]) -> np.ndarray:
 def _column_of_python(values: Sequence[Any]) -> np.ndarray:
     """A column of python values -> the numpy column a DataFrame makes of
     it: bool, int64, float64 (None is NaN), or object (None is NaN when the
-    other cells are strings)."""
+    other cells are strings; a column of only None keeps them)."""
     present = [v for v in values
                if v is not None and not (isinstance(v, float)
                                          and math.isnan(v))]
+    if not present and all(v is None for v in values):
+        out = np.empty(len(values), dtype=object)
+        out[:] = None
+        return out
     if present and len(present) == len(values) and all(
             isinstance(v, (bool, np.bool_)) for v in present):
         return np.array(values, dtype=bool)
@@ -154,26 +192,61 @@ class Frame:
         names: Dict[str, None] = {}
         for r in rows:
             names.update(dict.fromkeys(r))
-        return Frame({k: _column_of_python([r.get(k) for r in rows])
+        # a record without a field is NaN there, not None
+        return Frame({k: _column_of_python([r.get(k, math.nan)
+                                            for r in rows])
                       for k in names})
+
+
+def _dedup_names(names: Sequence[str]) -> List[str]:
+    """pandas' renaming of duplicate header names: the second ``age``
+    becomes ``age.1`` (or the next free ``age.<k>`` when the header holds
+    that name too)."""
+    header = set(names)
+    counts: Dict[str, int] = {}
+    out = []
+    for col in names:
+        base, cur = col, counts.get(col, 0)
+        while cur > 0:
+            counts[base] = cur + 1
+            col = f"{base}.{cur}"
+            cur = cur + 1 if col in header else counts.get(col, 0)
+        out.append(col)
+        counts[col] = cur + 1
+    return out
 
 
 def read_csv(path: str, schema: Optional[Sequence[str]] = None,
              header: bool = True) -> Frame:
     """A CSV file as a frame. With ``header`` the first line names the
-    columns; otherwise ``schema`` does. Blank lines are skipped."""
-    with open(path, newline="") as fh:
-        rows = [r for r in csv.reader(fh) if r]
+    columns; otherwise ``schema`` does. See the module docstring for the
+    blank lines, byte-order mark, duplicate names and index fields."""
+    with open(path, newline="", encoding="utf-8-sig") as fh:
+        reader = csv.reader(fh)
+        rows, lines = [], []
+        for r in reader:
+            if r and not (len(r) == 1 and not r[0].strip(" \t")):
+                rows.append(r)
+                lines.append(reader.line_num)
     if header:
-        names, rows = (rows[0], rows[1:]) if rows else ([], [])
+        names = _dedup_names(rows[0]) if rows else []
+        rows, lines = rows[1:], lines[1:]
     else:
         if schema is None:
             raise ValueError("a CSV without a header needs a schema")
         names = list(schema)
+        if len(set(names)) != len(names):
+            raise ValueError("Duplicate names are not allowed.")
     width = len(names)
+    first = len(rows[0]) if rows else width
+    skip = max(first - width, 0)         # pandas' implicit index fields
     fields = [[] for _ in names]
-    for r in rows:
-        r = r[:width] + [""] * (width - len(r))
+    for r, line in zip(rows, lines):
+        if len(r) > width + skip:
+            raise ValueError(f"Error tokenizing data: expected "
+                             f"{width + skip} fields in line {line}, saw "
+                             f"{len(r)}")
+        r = r[skip:] + [""] * (width + skip - len(r))
         for j, f in enumerate(r):
             fields[j].append(f)
     return Frame({n: infer_column(f) for n, f in zip(names, fields)})

@@ -11,7 +11,10 @@ The JAX package runs with ``jax_threefry_partitionable`` on, under which
 * ``random_bits(key, shape)`` hashes the counts ``(hi, lo)`` of each flat
   index i (its 64 bits cut in two) and returns ``bits1 ^ bits2``;
 * ``uniform`` keeps the top 23 bits as the mantissa of a float in [1, 2)
-  and subtracts 1; ``bernoulli`` is ``uniform < p`` in float32.
+  and subtracts 1; ``bernoulli`` is ``uniform < p`` in float32;
+* ``normal`` is ``sqrt(2) * erf_inv(u)`` of a uniform u stretched onto
+  [nextafter(-1, 0), 1), with XLA's CPU ``erf_inv`` written out
+  (``ops/xla_cpu.xla_erf_inv``).
 
 uint32 arithmetic is done in int64 tensors masked to 32 bits (PyTorch's
 uint32 lacks these operations on the CPU and the card). Keys are int64
@@ -23,6 +26,7 @@ from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 
 _M32 = 0xFFFFFFFF
@@ -101,3 +105,23 @@ def bernoulli(key: torch.Tensor, p: float,
     """``jax.random.bernoulli`` with a float32 probability: uniform < p."""
     p32 = torch.tensor(p, dtype=torch.float32, device=key.device)
     return uniform(key, shape) < p32
+
+
+#: the least uniform ``normal`` draws: the float32 after -1 toward 0
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+
+
+def normal(key: torch.Tensor, shape: Sequence[int],
+           scale: float = 1.0) -> torch.Tensor:
+    """``jax.random.normal`` in float32: (..., 2) -> (..., *shape). The
+    uniform is ``max(lo, u * (1 - lo) + lo)`` with 1 - lo rounded to
+    float32 (it is 2.0, so the product is exact). ``scale`` is a constant
+    factor the caller multiplies in: XLA folds it into the sqrt(2), so the
+    draw is ``erf_inv(u) * float32(sqrt(2) * scale)``."""
+    from .ops.xla_cpu import xla_erf_inv
+    lo = torch.tensor(_NORMAL_LO, dtype=torch.float32, device=key.device)
+    span = torch.tensor(1.0, dtype=torch.float32, device=key.device) - lo
+    u = torch.maximum(lo, uniform(key, shape) * span + lo)
+    factor = np.float32(np.float32(np.sqrt(2)) * np.float32(scale))
+    return xla_erf_inv(u) * torch.tensor(float(factor), dtype=torch.float32,
+                                         device=key.device)

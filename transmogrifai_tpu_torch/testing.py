@@ -63,6 +63,12 @@ SERVE_MODELS = {
     "default_binary": (None, None, "binary"),
     "default_mc": (None, None, "multiclass"),
     "default_reg": (None, None, "regression"),
+    "mlp": ("OpMultilayerPerceptronClassifier",
+            {"hiddenLayer1": 50, "hiddenLayer2": 50, "stepSize": 0.05},
+            "binary"),
+    "mlpmc": ("OpMultilayerPerceptronClassifier",
+              {"hiddenLayer1": 50, "hiddenLayer2": 50, "stepSize": 0.05},
+              "multiclass"),
 }
 
 #: default lists whose refit is a pinned key's model (the same family,
@@ -80,6 +86,20 @@ SCORE_ROWS, SCORE_SEED = 4096, 1
 
 #: classes of the multiclass serve frame
 SERVE_CLASSES = 6
+
+#: the fixture key whose scores the isotonic calibrator is fitted to
+#: (``calibration.npz`` beside its model)
+CALIBRATED_KEY = "mlp"
+
+
+def calibration_labels(scores: np.ndarray,
+                       seed: int = SCORE_SEED) -> np.ndarray:
+    """Binary labels for calibrating ``scores`` in [0, 1]: 1 with
+    probability score^2 (float32), from ``RandomState(seed)``, so the
+    scores are miscalibrated and the isotonic fit has work to do."""
+    s = np.asarray(scores, np.float32)
+    return (np.random.RandomState(seed).rand(len(s)) < s * s).astype(
+        np.float32)
 
 
 def random_heap(rng: np.random.RandomState, n: int, d: int, T: int,

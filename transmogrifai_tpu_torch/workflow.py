@@ -9,11 +9,19 @@ to ``set_input_dataset``), by the JAX package's rules for each feature type,
 moved to the device, and every estimator fits layer by layer. The JAX
 package's raw-feature filter, stage checkpoints and resume, workflow-level
 CV, mesh sharding and streaming are not ported.
+
+A fitted model saves and loads in the JAX package's format
+(``OpWorkflowModel.save`` / ``load``, ``persistence``). ``summary()`` gives
+each stage's summary; the JAX package's ``faults``, ``resume``,
+``observability`` and ``streaming`` sections wait for the robustness,
+observability and streaming modules.
 """
 from __future__ import annotations
 
+import json
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .dag import apply_transformations_dag, compute_dag, fit_and_transform_dag
@@ -121,6 +129,28 @@ class OpWorkflowModel:
         needed."""
         return raw_table(self.raw_features, data, require_response=False)
 
+    def save(self, path: str) -> None:
+        """Save to the directory ``path`` in the JAX package's format
+        (``persistence.save_model``)."""
+        from .persistence import save_model
+        save_model(self, path)
+
+    @staticmethod
+    def load(path: str, device=None, workflow: Optional["OpWorkflow"] = None
+             ) -> "OpWorkflowModel":
+        """A saved model on ``device`` (``persistence.load_model``)."""
+        from .persistence import load_model
+        return load_model(path, device=device, workflow=workflow)
+
+    def summary(self) -> Dict[str, Any]:
+        """{stage uid: its summary metadata} of every fitted stage that
+        has one, as the JAX package's per-stage sections."""
+        return {s.uid: s.summary_metadata for s in self.stages
+                if getattr(s, "summary_metadata", None)}
+
+    def summary_json(self) -> str:
+        return json.dumps(self.summary(), indent=2, default=_json_default)
+
     def summary_pretty(self) -> str:
         """Each fitted stage's text summary (the SanityChecker's and the
         ModelSelector's), as the JAX package prints it."""
@@ -156,3 +186,16 @@ class OpWorkflowModel:
         """Row-at-a-time scorer: ``fn(row) -> {result name: value}``."""
         from .local.scoring import score_function
         return score_function(self)
+
+
+def _json_default(o):
+    """JSON of the values a summary may hold beyond JSON's own."""
+    if isinstance(o, (np.floating, np.integer)):
+        return o.item()
+    if isinstance(o, np.ndarray):
+        return o.tolist()
+    if hasattr(o, "to_json"):
+        return o.to_json()
+    if hasattr(o, "__dict__"):
+        return {k: v for k, v in vars(o).items() if not k.startswith("_")}
+    return str(o)
