@@ -28,6 +28,44 @@ Phases, in order; any failure exits nonzero:
     the scoring file's probability_1 within 1e-5, keys equal, 64 requests
     through ``score_function`` of it and of the card-trained model against
     their ``score``, rows/sec on the file tiled to 65,536 rows;
+(titanic_wcv) the same workflow on the same files with the raw feature
+    filter reading the scoring file (default thresholds) and
+    workflow-level CV (``testing.titanic_wcv_workflow``: the
+    SanityChecker refit inside each of the 3 folds on its training rows,
+    each fold's matrix padded to the widest). Before the counted paths it
+    trains once with the three sweep kernels wrapped, as the Titanic phase
+    does (every launch of the per-fold sweeps held to plain, ``node_hist``
+    to its direct formula at each shape's first launch), and times each
+    one's heaviest launch against plain and the library
+    (``titanic_wcv_kernel`` JSON lines). After "serve titanic" the
+    counted train, against ``fixtures/titanic_wcv`` (what the JAX package
+    made of the same two files). Limits: the filter's exclusions, every
+    feature's counts, fill rates and reasons, the blacklist, each fold's
+    and the refit's SanityChecker choices (the kept columns, drops and
+    reasons; numbers in a reason within 1e-12 or 1e-4 relative) and the
+    winner and its config exact; JS divergences within ``WCV_JS_RTOL``
+    (1e-9 relative: float64 on the host from the same bins); null-label
+    correlations float32 on the card, as the JAX package's on its device,
+    within ``WCV_CORR_ATOL`` (1e-6 absolute, ~5x the largest reading);
+    fold metrics as the Titanic phase's for the trees (1e-5), the linear
+    sweeps ``testing.WCV_LIN_FOLD_ATOL`` (2e-4, about twice the JAX
+    package's own order noise at these folds' shapes); the LR refit's
+    params and probability_1 on the scoring file ``TITANIC_LIN_*``
+    (2e-4); the Brier score there within (2 + d) d for d =
+    ``TITANIC_LIN_PROB_ATOL`` (each squared error moves by at most that);
+    ``model_insights().to_json()``: equal keys and strings, each number
+    within its source's limit (``testing.insight_limits``: the filter's
+    as above, the SanityChecker's label correlations ``WCV_CORR_ATOL``
+    and its other statistics 1e-4 relative, the winner's contributions
+    ``TITANIC_LIN_COEF_RTOL`` of the largest, mean fold metrics
+    ``WCV_LIN_FOLD_ATOL``, the refit's evaluations ``WCV_EVAL_ATOL`` and
+    confusion counts ``WCV_COUNT_ATOL``); a save of the train reloads
+    bit-equal with the fixture's plan layout, its blacklist and the
+    filter's results. It prints the train's seconds with the filter's,
+    the fold preparation's and the sweeps' apart, the exclusions, each
+    fold's drop counts, the largest correlation gaps and the path's
+    launches; it must launch ``hist_matmul``, ``node_hist`` and
+    ``forest_predict_chain``;
 (b) hold each kernel against its plain PyTorch version on the card, at the
     shapes its path gives it, and report its times:
     - ``node_hist`` at six growth levels (19,712 rows x 64 codes, 32
@@ -215,7 +253,7 @@ from transmogrifai_tpu_torch.models.api import to_numpy
 # the committed serve64 fixtures' frames (their models:
 # ``testing.SERVE_MODELS``)
 from transmogrifai_tpu_torch.testing import (
-    SCORE_ROWS, TRAIN_ROWS, TRAIN_SEED, refit_rows,
+    SCORE_ROWS, TRAIN_ROWS, TRAIN_SEED, WCV_LIN_FOLD_ATOL, refit_rows,
 )
 from transmogrifai_tpu_torch.testing import SERVE_CLASSES as N_CLASSES
 
@@ -1462,11 +1500,12 @@ def _is_tree(family: str) -> bool:
     return isinstance(MODEL_REGISTRY[family], trees._TreeFamilyBase)
 
 
-def _fold_limit(family: str, hyper, task: str, ref, y_std: float):
+def _fold_limit(family: str, hyper, task: str, ref, y_std: float,
+                lin_atol: float = LIN_FOLD_ATOL):
     """The largest gap allowed between a default list's or a linear
     train's sweep fold metric and the fixture's ``ref``: tree families
     DEFAULT_TREE_ATOL (AuPR, F1) or DEFAULT_TREE_RTOL relative (RMSE); the
-    linear families' bf16 sweeps LIN_FOLD_ATOL (AuPR, F1) or
+    linear families' bf16 sweeps ``lin_atol`` (AuPR, F1) or
     LIN_RMSE_RTOL relative, at least LIN_RMSE_YSTD std(y) (RMSE); a
     log-link GLM configuration only as finite or not (None)."""
     if _is_tree(family):
@@ -1478,10 +1517,11 @@ def _fold_limit(family: str, hyper, task: str, ref, y_std: float):
             "family", "gaussian") != "gaussian":
         return None
     return (max(LIN_RMSE_RTOL * abs(ref), LIN_RMSE_YSTD * y_std)
-            if task == "regression" else LIN_FOLD_ATOL)
+            if task == "regression" else lin_atol)
 
 
-def _check_selection(key, task, got, want, metric, y_std):
+def _check_selection(key, task, got, want, metric, y_std,
+                     lin_atol: float = LIN_FOLD_ATOL):
     """The port's winner and every family's (folds, configs) fold metrics
     (``testing.selection_summary`` form) against the fixture's, each
     within ``_fold_limit``; prints each family's largest gap, and its
@@ -1489,7 +1529,7 @@ def _check_selection(key, task, got, want, metric, y_std):
     from transmogrifai_tpu_torch.testing import selection_gaps
     try:
         gaps = selection_gaps(got, want, lambda family, hyper, ref: (
-            _fold_limit(family, hyper, task, ref, y_std)))
+            _fold_limit(family, hyper, task, ref, y_std, lin_atol)))
     except AssertionError as e:
         raise AssertionError(f"{key}: {e}") from None
     for g in got["families"]:
@@ -1778,6 +1818,54 @@ def train_against_fixture(key: str):
     return secs
 
 
+def time_heaviest(heaviest, tag: str) -> dict:
+    """Time each of ``hist_matmul``, ``node_hist`` and
+    ``forest_predict_chain`` at its heaviest launch of a train
+    (``heaviest``: {name: (work, shape, args)}) against its plain version
+    and the library call; print and return {name: times, shape, passes,
+    bound}."""
+    from transmogrifai_tpu_torch.histeng import kernels as HK
+    from transmogrifai_tpu_torch.ops import forest as F
+
+    out = {}
+    _, shape, a = heaviest["hist_matmul"]
+    out["hist_matmul"] = dict(
+        _time_hist(*a), shape=shape,
+        bound=PH.hist_bound(a[0], HK._operand(a[1], a[3]), a[2]))
+    _, shape, a = heaviest["node_hist"]
+    codes, node, sw, Wl, nb, stride = a
+
+    def node_kernel():
+        return HK.node_hist_cuda(*a)
+    out["node_hist"] = dict(
+        shape=shape, ms=time_ms(node_kernel), passes=passes(node_kernel),
+        plain_ms=time_ms(lambda: HK.node_hist_plain(*a), runs=5),
+        library_ms=_node_library_ms(*a),
+        bound=PH.node_bound(codes, node, sw, Wl, stride))
+    _, shape, a = heaviest["forest_predict_chain"]
+    codes, feat, bins, base, leaf, nb = a
+    T, depth, W = feat.shape
+    slots = sum(min(2 ** lv, W) for lv in range(depth))
+    k = leaf.shape[2]
+    nbytes = 4 * (_codes_read(codes, feat, bins, base=base)
+                  + T * slots * 3 + leaf.numel() + codes.shape[0] * k)
+    out["forest_predict_chain"] = dict(
+        shape=shape, ms=time_ms(lambda: F.forest_predict_chain_cuda(
+            codes, feat, bins, base, leaf, n_bins=nb)), passes=None,
+        plain_ms=time_ms(lambda: F.forest_predict_chain_plain(
+            codes, feat, bins, base, leaf, n_bins=nb), runs=5),
+        library_ms=None,
+        bound=bound_ms(nbytes, codes.shape[0] * T * (depth + k)))
+    for name, r in out.items():
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
+        print(f"(b) {name} at the {tag}'s heaviest launch {r['shape']}: "
+              f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, library "
+              f"{lib}), bound {r['bound'][0]:.5f} ms ({r['bound'][1]}); "
+              f"passes: {r['passes'] or 'not taken'}")
+    return out
+
+
 TITANIC_DIR = os.path.join(HERE, "transmogrifai_tpu_torch", "fixtures",
                            "titanic")
 #: the Titanic phase: rows of the scoring file answered one at a time
@@ -1844,44 +1932,7 @@ class Titanic:
         checks.report("titanic")
         print(f"(b) the titanic train's kernel inputs checked in "
               f"{time.perf_counter() - t0:.1f} s")
-        out = {}
-        _, shape, a = checks.heaviest["hist_matmul"]
-        out["hist_matmul"] = dict(
-            _time_hist(*a), shape=shape,
-            bound=PH.hist_bound(a[0], HK._operand(a[1], a[3]), a[2]))
-        _, shape, a = checks.heaviest["node_hist"]
-        codes, node, sw, Wl, nb, stride = a
-
-        def node_kernel():
-            return HK.node_hist_cuda(*a)
-        out["node_hist"] = dict(
-            shape=shape, ms=time_ms(node_kernel), passes=passes(node_kernel),
-            plain_ms=time_ms(lambda: HK.node_hist_plain(*a), runs=5),
-            library_ms=_node_library_ms(*a),
-            bound=PH.node_bound(codes, node, sw, Wl, stride))
-        _, shape, a = checks.heaviest["forest_predict_chain"]
-        codes, feat, bins, base, leaf, nb = a
-        T, depth, W = feat.shape
-        slots = sum(min(2 ** lv, W) for lv in range(depth))
-        k = leaf.shape[2]
-        nbytes = 4 * (_codes_read(codes, feat, bins, base=base)
-                      + T * slots * 3 + leaf.numel() + codes.shape[0] * k)
-        out["forest_predict_chain"] = dict(
-            shape=shape, ms=time_ms(lambda: F.forest_predict_chain_cuda(
-                codes, feat, bins, base, leaf, n_bins=nb)), passes=None,
-            plain_ms=time_ms(lambda: F.forest_predict_chain_plain(
-                codes, feat, bins, base, leaf, n_bins=nb), runs=5),
-            library_ms=None,
-            bound=bound_ms(nbytes, codes.shape[0] * T * (depth + k)))
-        for name, r in out.items():
-            lib = ("none" if r["library_ms"] is None
-                   else f"{r['library_ms']:.4f} ms")
-            print(f"(b) {name} at the titanic train's heaviest launch "
-                  f"{r['shape']}: {r['ms']:.4f} ms (plain "
-                  f"{r['plain_ms']:.4f} ms, library {lib}), bound "
-                  f"{r['bound'][0]:.5f} ms ({r['bound'][1]}); passes: "
-                  f"{r['passes'] or 'not taken'}")
-        return out
+        return time_heaviest(checks.heaviest, "titanic train")
 
     def train(self):
         """The counted train, held to the fixture: the vector's metadata and
@@ -2016,6 +2067,256 @@ class Titanic:
               f"{PROB_ATOL}; {N_ROWS / statistics.median(times):.1f} "
               f"rows/sec on {N_ROWS}-row batches (max |d| {gap:.3g} from "
               f"the {len(exp)}-row scores)")
+
+
+TITANIC_WCV_DIR = os.path.join(HERE, "transmogrifai_tpu_torch", "fixtures",
+                               "titanic_wcv")
+#: the raw feature filter's JS divergences: float64 on the host from the
+#: same bins and formulas as the JAX package's, numpy's order
+WCV_JS_RTOL = 1e-9
+#: its null-label correlations and the SanityChecker's label correlations
+#: in the model insights: float32 Pearson sums over 20,000 rows, on the
+#: card and in the JAX package in other orders. Readings off the fixture
+#: (H100): the null-label ones 4.47e-8, the label ones 2.09e-7; the limit
+#: is ~5x the largest (the smallest |label correlation| is 2.7e-5, so a
+#: sign flip or a zero still fails)
+WCV_CORR_ATOL = 1e-6
+#: the model insights' refit evaluations (train and holdout metrics of a
+#: refit whose probability_1 sits within TITANIC_LIN_PROB_ATOL of the
+#: fixture's): rates and areas within WCV_EVAL_ATOL, confusion counts
+#: within WCV_COUNT_ATOL rows (a row within that gap of 0.5 may flip)
+WCV_EVAL_ATOL = 1e-3
+WCV_COUNT_ATOL = 2.0
+
+
+class TitanicWCV:
+    """The Titanic workflow with the raw feature filter reading the
+    scoring file and workflow-level CV (``testing.titanic_wcv_workflow``:
+    the filter's default thresholds, the SanityChecker refit inside each
+    of the 3 folds, the binary default list at full default grids), trained
+    on the Titanic phase's 20,000-row file, against
+    ``fixtures/titanic_wcv`` (what the JAX package made of the same two
+    files)."""
+
+    def __init__(self, titanic: "Titanic"):
+        with open(os.path.join(TITANIC_WCV_DIR, "fixture.json")) as fh:
+            self.fx = json.load(fh)
+        with open(os.path.join(TITANIC_WCV_DIR, "insights.json")) as fh:
+            self.insights = json.load(fh)
+        self.exp = np.load(os.path.join(TITANIC_WCV_DIR, "expected.npz"))
+        self.titanic = titanic
+        for key in ("train_csv", "score_csv"):
+            if self.fx[key] != titanic.fx[key]:
+                raise AssertionError(f"titanic_wcv: {key} is not the "
+                                     f"titanic fixture's")
+
+    def workflow(self):
+        from transmogrifai_tpu_torch.features import reset_uids
+        from transmogrifai_tpu_torch.testing import titanic_wcv_workflow
+        reset_uids()
+        wf, survived, pred = titanic_wcv_workflow(self.titanic.train_csv,
+                                                  self.titanic.score_csv)
+        if wf.device.type != "cuda":
+            raise AssertionError(f"training on {wf.device}")
+        return wf, survived, pred
+
+    def check_inputs(self):
+        """(b) the three sweep kernels at this train's own inputs (the
+        per-fold sweeps' shapes), every launch against plain; then each
+        one's heaviest launch timed. Outside the counted path."""
+        t0 = time.perf_counter()
+        wf, _, _ = self.workflow()
+        with _KernelChecks(keep_heaviest=True,
+                           direct_per_shape=True) as checks:
+            wf.train()
+            torch.cuda.synchronize()
+        checks.report("titanic_wcv")
+        print(f"(b) the titanic_wcv train's kernel inputs checked in "
+              f"{time.perf_counter() - t0:.1f} s")
+        return time_heaviest(checks.heaviest, "titanic_wcv train")
+
+    def train(self):
+        """The counted train, held to the fixture: the filter's results
+        and blacklist, each fold's SanityChecker, the final one, the
+        selection, the refit's params and its scores and Brier score on
+        the scoring file, the model insights, and a save and reload."""
+        import transmogrifai_tpu_torch as tt
+        from transmogrifai_tpu_torch.testing import (
+            assert_same_sanity, insight_limits, insights_by_feature,
+            json_gaps, sanity_summary, selection_summary,
+        )
+
+        wf, survived, pred = self.workflow()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = wf.train()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        ph = wf.phase_seconds
+        print(f"(t) titanic_wcv train: {self.fx['train_csv']['rows']} rows, "
+              f"the filter against {self.fx['score_csv']['rows']} scoring "
+              f"rows, default binary list at full default grids, workflow "
+              f"CV over 3 folds + refit + evaluations in {secs:.3f} s: "
+              f"filter {ph['filter']:.3f} s, label-free stages "
+              f"{ph['before']:.3f} s, fold preparation {ph['fold_prep']:.3f}"
+              f" s, per-fold sweeps {ph['sweep']:.3f} s, the rest "
+              f"(SanityChecker and refit) {ph['rest']:.3f} s; peak device "
+              f"memory allocated "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+
+        # every check runs and its failure is kept; the phase fails after
+        # the last one if any did
+        faults = []
+
+        def check(fn):
+            try:
+                fn()
+            except AssertionError as e:
+                print(f"(t) titanic_wcv: FAILED: {e}")
+                faults.append(str(e))
+
+        rff = model.rff_results.to_json()
+
+        def filter_results():
+            corr = max((abs(g["null_label_correlation"]
+                            - w["null_label_correlation"])
+                        for g, w in zip(rff["metrics"],
+                                        self.fx["rff"]["metrics"])
+                        if g["null_label_correlation"] is not None
+                        and w["null_label_correlation"] is not None),
+                       default=0.0)
+            try:
+                json_gaps(rff, self.fx["rff"], lambda p: {
+                    "js_divergence": (WCV_JS_RTOL, 0.0),
+                    "null_label_correlation": (0.0, WCV_CORR_ATOL)}.get(
+                        p[-1] if p else "", (0.0, 0.0)))
+            except AssertionError as e:
+                raise AssertionError(f"titanic_wcv: filter results: {e}") \
+                    from None
+            blacklist = [f.name for f in model.blacklisted_features]
+            if blacklist != self.fx["blacklist"]:
+                raise AssertionError(f"titanic_wcv: blacklist {blacklist}, "
+                                     f"the fixture's {self.fx['blacklist']}")
+            print(f"(t) titanic_wcv: filter excludes "
+                  f"{rff['excludedFeatures']} (map keys "
+                  f"{rff['excludedMapKeys']}), the fixture's; "
+                  f"{len(rff['metrics'])} features' counts, rates and "
+                  f"reasons equal, null-label correlations within "
+                  f"{corr:.3g}")
+        check(filter_results)
+
+        sel = next(s for s in wf.stages
+                   if type(s).__name__ == "ModelSelector")
+        sc = next(s for s in model.stages
+                  if type(s).__name__ == "SanityCheckerModel")
+
+        def sanity():
+            if len(sel.fold_models) != len(self.fx["folds"]):
+                raise AssertionError("titanic_wcv: fold count differs")
+            for f, ((got,), want) in enumerate(zip(sel.fold_models,
+                                                   self.fx["folds"])):
+                try:
+                    assert_same_sanity(sanity_summary(got), want)
+                except AssertionError as e:
+                    raise AssertionError(f"titanic_wcv fold {f}: {e}") \
+                        from None
+            try:
+                assert_same_sanity(sanity_summary(sc), self.fx["sanity"])
+            except AssertionError as e:
+                raise AssertionError(f"titanic_wcv: {e}") from None
+            drops = [len(m.summary.dropped) for (m,) in sel.fold_models]
+            widths = [len(m.summary.stats.names) for (m,) in sel.fold_models]
+            print(f"(t) titanic_wcv: each fold's SanityChecker drops {drops} "
+                  f"of {widths} columns, the refit's "
+                  f"{len(sc.summary.dropped)}: the fixture's columns and "
+                  f"reasons")
+        check(sanity)
+
+        ps = model.stages[-1]
+        winner = ps.summary.best_model_type
+        check(lambda: _check_selection(
+            "titanic_wcv", "binary", selection_summary(ps.summary),
+            self.fx["selection"], ps.summary.validation_metric, 1.0,
+            WCV_LIN_FOLD_ATOL))
+        if _is_tree(winner):
+            raise AssertionError("titanic_wcv: the winner is not a linear "
+                                 "family: " + "; ".join(faults))
+        print(f"(t) titanic_wcv: winner {winner} {ps.summary.best_hyper}")
+        ref = tt.load_model(os.path.join(TITANIC_WCV_DIR, "model"),
+                            workflow=wf)
+        reader = self.titanic.reader()
+        scored = model.score(table=reader.generate_table(model.raw_features))
+        if list(scored.key) != self.exp["key"].tolist():
+            raise AssertionError("titanic_wcv: scored keys differ")
+        parts = _parts_of(model, scored)
+        check(lambda: print(
+            "(t) titanic_wcv: vs the JAX-trained model on the scoring "
+            "file: " + _check_linear(
+                "titanic_wcv", "binary", ps, ref.stages[-1], parts,
+                self.exp, TITANIC_LIN_COEF_RTOL, TITANIC_LIN_PROB_ATOL)))
+
+        def brier_score():
+            brier = (tt.Evaluators.BinaryClassification.brier_score()
+                     .set_label_col(survived).set_prediction_col(pred)
+                     .evaluate_all(scored))
+            d = TITANIC_LIN_PROB_ATOL
+            gap = abs(brier["BrierScore"] - self.fx["brier"]["BrierScore"])
+            if gap > (2 + d) * d or sum(brier["numberOfDataPoints"]) != sum(
+                    self.fx["brier"]["numberOfDataPoints"]):
+                raise AssertionError(f"titanic_wcv: Brier score "
+                                     f"{brier['BrierScore']}, the fixture's "
+                                     f"{self.fx['brier']['BrierScore']}")
+            print(f"(t) titanic_wcv: Brier score {brier['BrierScore']:.6f} "
+                  f"on the scoring file, {gap:.3g} from the fixture's "
+                  f"(limit {(2 + d) * d:.3g} for probabilities within {d})")
+        check(brier_score)
+
+        def insights():
+            got = insights_by_feature(model.model_insights().to_json())
+            want = insights_by_feature(self.insights)
+            corr = max((abs(a["correlation"] - b["correlation"])
+                        for name, f in want["features"].items()
+                        if name in got["features"]
+                        for a, b in zip(got["features"][name]["derived"],
+                                        f["derived"])
+                        if a["correlation"] is not None
+                        and b["correlation"] is not None), default=0.0)
+            try:
+                gaps = json_gaps(got, want, insight_limits(
+                    winner, self.insights, TITANIC_LIN_COEF_RTOL,
+                    WCV_EVAL_ATOL, WCV_COUNT_ATOL, WCV_LIN_FOLD_ATOL,
+                    WCV_CORR_ATOL))
+            except AssertionError as e:
+                raise AssertionError(f"titanic_wcv insights (label "
+                                     f"correlations within {corr:.3g}): "
+                                     f"{e}") from None
+            shares = {k: float(f"{v:.3g}") for k, v in sorted(gaps.items())}
+            print(f"(t) titanic_wcv: model insights' keys and strings "
+                  f"equal, the SanityChecker's label correlations within "
+                  f"{corr:.3g}, each section's largest gap / its limit: "
+                  f"{shares}")
+        check(insights)
+
+        def reload():
+            from transmogrifai_tpu_torch.readers import read_csv
+            score_rows = read_csv(self.titanic.score_csv, reader.schema,
+                                  header=False).records()
+            save_and_reload("titanic_wcv", model,
+                            os.path.join(TITANIC_WCV_DIR, "model"),
+                            score_rows, workflow=wf)
+            again = tt.load_model(os.path.join(SAVE_DIR, "titanic_wcv"),
+                                  workflow=wf)
+            if ([f.uid for f in again.blacklisted_features]
+                    != [f.uid for f in model.blacklisted_features]
+                    or again.rff_results.to_json() != rff):
+                raise AssertionError("titanic_wcv: the reload lost the "
+                                     "blacklist or the filter's results")
+        check(reload)
+        if faults:
+            raise AssertionError(f"titanic_wcv: {len(faults)} check(s) "
+                                 f"failed: " + "; ".join(faults))
+        return secs
 
 
 def phase_serve():
@@ -2269,6 +2570,8 @@ def _run(dev, kernels, tmp) -> int:
     kern = phase_kernels(dev)
     phase_sweep_inputs()
     titanic_kern = titanic.check_inputs()
+    wcv = TitanicWCV(titanic)
+    wcv_kern = wcv.check_inputs()
 
     def run_path(name, phase, path_kernels):
         """Zero every count, drive the path, read the counts; each of
@@ -2292,6 +2595,10 @@ def _run(dev, kernels, tmp) -> int:
                                        sweep)}
     paths["serve titanic"] = run_path("serve titanic", titanic.serve,
                                       _forest_kernels(titanic.model))
+    paths["train titanic_wcv"] = run_path("train titanic_wcv", wcv.train,
+                                          sweep)
+    print(f"launches, train titanic_wcv: "
+          f"{ {k: v for k, v in paths['train titanic_wcv'].items() if v} }")
     paths.update({
         "train gbt": run_path("train gbt",
                               lambda: train_against_fixture("gbt"),
@@ -2358,6 +2665,15 @@ def _run(dev, kernels, tmp) -> int:
                           "bound_by": r["bound"][1],
                           "launches_per_train":
                               paths["train titanic"][name]}))
+    for name, r in wcv_kern.items():
+        print(json.dumps({"titanic_wcv_kernel": name,
+                          "shape": str(r["shape"]), "ms": r["ms"],
+                          "plain_ms": r["plain_ms"],
+                          "library_ms": r["library_ms"],
+                          "passes": r["passes"], "bound_ms": r["bound"][0],
+                          "bound_by": r["bound"][1],
+                          "launches_per_train":
+                              paths["train titanic_wcv"][name]}))
     print(json.dumps({"save_load_s": {
         k: {"save": v[0], "load": v[1]} for k, v in SAVE_LOAD_S.items()}}))
     launches = {k.name: sum(c[k.name] for c in paths.values())

@@ -1306,3 +1306,85 @@ def test_mlp_fit_on_the_card_matches_the_cpu(cuda, classes, grid):
         assert float((a.cpu() - b).abs().max()) <= MLP_RTOL * float(
             b.abs().max())
     torch.testing.assert_close(gs, cs, rtol=0, atol=MLP_PROB_TOL)
+
+
+def _filter_frame(n=20000, seed=3):
+    """A table of null patterns (one column nearly the label's) and a
+    label, and three numeric columns on a device with their shifts."""
+    rng = np.random.RandomState(seed)
+    y = (rng.rand(n) < 0.4).astype(np.float32)
+    V = (rng.randn(n, 3) * [1.0, 30.0, 1e4]).astype(np.float32)
+    M = rng.rand(n, 3) > [0.0, 0.2, 0.7]
+    M[:, 2] |= y > 0.5
+    return y, V, M, np.array([0.0, 12.5, -3e3])
+
+
+@pytest.mark.parametrize("correlation_type", ["pearson", "spearman"])
+def test_filter_null_label_correlations_on_the_card_match_the_cpu(
+        cuda, correlation_type):
+    """The raw feature filter's null-label pass on the card against the
+    same call on the CPU: float32 sums in another order, within the
+    probabilistic bound 2 * 8 sqrt(n) 2^-24 (1.35e-4 at 20,000 rows)."""
+    from transmogrifai_tpu_torch.features import FeatureBuilder
+    from transmogrifai_tpu_torch.filters import RawFeatureFilter
+    from transmogrifai_tpu_torch.table import Column, FeatureTable
+    from transmogrifai_tpu_torch.types import Real, RealNN
+    y, V, M, _ = _filter_frame()
+    feats = [FeatureBuilder.RealNN("y").extract_field().as_response()] + [
+        FeatureBuilder.Real(f"x{j}").extract_field().as_predictor()
+        for j in range(3)]
+    table = FeatureTable(dict(
+        y=Column(RealNN, y, None),
+        **{f"x{j}": Column(Real, V[:, j], M[:, j]) for j in range(3)}),
+        len(y))
+    dists = {f.name: [] for f in feats[1:]}
+    out = {}
+    for dev in ("cpu", cuda):
+        rff = RawFeatureFilter(correlation_type=correlation_type, device=dev)
+        out[str(dev)] = rff._null_label_correlations(table, feats,
+                                                     table["y"], dists)
+    got, want = out[str(cuda)], out["cpu"]
+    assert sorted(got) == sorted(want) == ["x0", "x1", "x2"]
+    bound = 2 * 8 * np.sqrt(len(y)) * 2.0 ** -24
+    # x0 is never null: its indicator is constant, a 0/0 correlation, NaN
+    # on the CPU; the card's ranks of it may keep float32 noise instead
+    assert np.isnan(want["x0"])
+    assert np.isnan(got["x0"]) or abs(got["x0"]) <= bound, got["x0"]
+    for k in ("x1", "x2"):
+        assert abs(got[k] - want[k]) <= bound, (k, got[k], want[k])
+    assert abs(want["x2"]) > 0.5
+
+
+def test_filter_with_no_device_runs_on_the_card(cuda, monkeypatch):
+    """A filter given no device (``resolve_device``) runs its null-label
+    pass on the card, and ``filter_raw`` gives the CPU's results within
+    the bound above."""
+    from transmogrifai_tpu_torch.features import FeatureBuilder
+    from transmogrifai_tpu_torch.filters import RawFeatureFilter
+    from transmogrifai_tpu_torch.ops import stats
+    from transmogrifai_tpu_torch.table import Column, FeatureTable
+    from transmogrifai_tpu_torch.types import Real, RealNN
+    y, V, M, _ = _filter_frame()
+    feats = [FeatureBuilder.RealNN("y").extract_field().as_response()] + [
+        FeatureBuilder.Real(f"x{j}").extract_field().as_predictor()
+        for j in range(3)]
+    table = FeatureTable(dict(
+        y=Column(RealNN, y, None),
+        **{f"x{j}": Column(Real, V[:, j], M[:, j]) for j in range(3)}),
+        len(y))
+    seen = []
+    pearson = stats.pearson_correlation
+
+    def on(X, yd):
+        seen.append((X.device.type, yd.device.type))
+        return pearson(X, yd)
+    monkeypatch.setattr(stats, "pearson_correlation", on)
+    _, _, got = RawFeatureFilter().filter_raw(table, feats)
+    _, _, want = RawFeatureFilter(device="cpu").filter_raw(table, feats)
+    assert seen == [("cuda", "cuda"), ("cpu", "cpu")]
+    bound = 2 * 8 * np.sqrt(len(y)) * 2.0 ** -24
+    for g, w in zip(got.metrics, want.metrics):
+        assert (g.name, g.exclusion_reasons) == (w.name, w.exclusion_reasons)
+        gc, wc = g.null_label_correlation, w.null_label_correlation
+        assert (np.isnan(wc) and (np.isnan(gc) or abs(gc) <= bound)) or \
+            abs(gc - wc) <= bound, (g.name, gc, wc)

@@ -689,7 +689,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "impl.selector.model_selector", "local.scoring",
                 "ops.xla_cpu", "experiments.tie_replay", "models.linear",
                 "models.glm", "models.mlp", "impl.regression.isotonic",
-                "manifest", "utils.version", "readers.readers"):
+                "manifest", "utils.version", "readers.readers",
+                "filters.raw_feature_filter", "filters.distribution",
+                "utils.streaming_histogram",
+                "impl.selector.random_param_builder",
+                "insights.model_insights"):
         assert f"transmogrifai_tpu_torch.{mod}" in walked, mod
 
 

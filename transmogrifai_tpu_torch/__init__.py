@@ -5,7 +5,9 @@ with columns or records) ``.set_result_features(pred).train()`` fits typed
 raw features (numbers, text, pick lists; ``readers.DataReaders`` reads a
 CSV) through ``transmogrify -> sanity_check -> ModelSelector`` (the
 binary, multiclass and regression factories) on an NVIDIA GPU (the tree
-families' split and leaf histograms in hand-written CUDA kernels).
+families' split and leaf histograms in hand-written CUDA kernels), with
+the raw feature filter (``filters.RawFeatureFilter``) and workflow-level
+cross-validation on request; ``model.model_insights()`` reports it.
 Saving: ``save_model`` (``OpWorkflowModel.save``) writes a trained model in
 the JAX package's format, and ``load_model`` reads a model that either
 package saved. Serving: ``OpWorkflowModel.score`` / ``score_function``

@@ -3,6 +3,7 @@ caller names another device, and they never fall back to the CPU on their
 own."""
 from __future__ import annotations
 
+import time
 from typing import Optional, Union
 
 import torch
@@ -19,3 +20,11 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "no CUDA device is available; pass device='cpu' to run on the "
             "CPU")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def synced_clock(device: torch.device) -> float:
+    """The host clock once ``device`` has finished its queued work (a
+    CUDA device is synchronized first): phase timings end here."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()

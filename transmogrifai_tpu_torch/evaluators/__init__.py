@@ -1,8 +1,9 @@
 """Evaluators (counterpart of ``transmogrifai_tpu.evaluators``)."""
-from .binary import OpBinaryClassificationEvaluator
+from .binary import OpBinScoreEvaluator, OpBinaryClassificationEvaluator
 from .factory import Evaluators
 from .multi import OpMultiClassificationEvaluator
 from .regression import OpRegressionEvaluator
 
-__all__ = ["Evaluators", "OpBinaryClassificationEvaluator",
+__all__ = ["Evaluators", "OpBinScoreEvaluator",
+           "OpBinaryClassificationEvaluator",
            "OpMultiClassificationEvaluator", "OpRegressionEvaluator"]

@@ -64,3 +64,7 @@ class OpEvaluatorBase(abc.ABC):
     @abc.abstractmethod
     def evaluate_all(self, table: FeatureTable) -> Dict[str, object]:
         """Every metric of this evaluator."""
+
+    def evaluate(self, table: FeatureTable) -> float:
+        """The default metric alone."""
+        return float(self.evaluate_all(table)[self.default_metric])

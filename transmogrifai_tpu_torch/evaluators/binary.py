@@ -1,9 +1,12 @@
-"""Binary classification evaluator (counterpart of
-``transmogrifai_tpu.evaluators.binary``)."""
+"""Binary classification evaluators (counterpart of
+``transmogrifai_tpu.evaluators.binary``): the thresholded and ranking
+metrics on the scores' device, and the calibration bins with the Brier
+score in float64 on the host."""
 from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
 
 from ..ops.metrics import (
@@ -69,4 +72,42 @@ class OpBinaryClassificationEvaluator(OpEvaluatorBase):
             "precisionByThreshold": p_curve.tolist(),
             "recallByThreshold": r_curve.tolist(),
             "f1ByThreshold": f1_curve.tolist(),
+        }
+
+
+class OpBinScoreEvaluator(OpEvaluatorBase):
+    """Calibration bins and the Brier score: scores cut into ``num_bins``
+    equal bins of [0, 1] (a score of exactly 1 in the last), each bin's
+    count, average score and conversion rate, in float64 on the host as in
+    the JAX package."""
+
+    default_metric = "BrierScore"
+    larger_better = False
+
+    def __init__(self, num_bins: int = 100, **kw):
+        super().__init__(**kw)
+        self.num_bins = num_bins
+
+    def evaluate_all(self, table: FeatureTable) -> Dict[str, object]:
+        label, parts = self._extract(table)
+        prob = parts.get("probability")
+        scores = (prob[:, 1] if prob is not None and prob.shape[1] > 1
+                  else parts["prediction"])
+        scores = scores.cpu().numpy().astype(np.float64)
+        label = label.cpu().numpy().astype(np.float64)
+        bins = np.clip((scores * self.num_bins).astype(int), 0,
+                       self.num_bins - 1)
+        counts = np.bincount(bins, minlength=self.num_bins).astype(
+            np.float64)
+        score_sum = np.bincount(bins, weights=scores,
+                                minlength=self.num_bins)
+        label_sum = np.bincount(bins, weights=label, minlength=self.num_bins)
+        nz = np.maximum(counts, 1.0)
+        return {
+            "BrierScore": float(((scores - label) ** 2).mean()),
+            "binCenters": ((np.arange(self.num_bins) + 0.5)
+                           / self.num_bins).tolist(),
+            "numberOfDataPoints": counts.tolist(),
+            "averageScore": (score_sum / nz).tolist(),
+            "averageConversionRate": (label_sum / nz).tolist(),
         }

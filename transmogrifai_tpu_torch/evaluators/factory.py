@@ -1,10 +1,10 @@
 """Evaluator factory (counterpart of
 ``transmogrifai_tpu.evaluators.factory``): each evaluator set to the
-metric that model selection optimizes. The binary Brier score
-(``OpBinScoreEvaluator``) is not ported."""
+metric that model selection optimizes, and the binary Brier score
+(``OpBinScoreEvaluator``)."""
 from __future__ import annotations
 
-from .binary import OpBinaryClassificationEvaluator
+from .binary import OpBinScoreEvaluator, OpBinaryClassificationEvaluator
 from .multi import OpMultiClassificationEvaluator
 from .regression import OpRegressionEvaluator
 
@@ -41,6 +41,10 @@ class Evaluators:
         @staticmethod
         def error() -> OpBinaryClassificationEvaluator:
             return _with(OpBinaryClassificationEvaluator(), "Error", False)
+
+        @staticmethod
+        def brier_score() -> OpBinScoreEvaluator:
+            return OpBinScoreEvaluator()
 
     class MultiClassification:
         @staticmethod

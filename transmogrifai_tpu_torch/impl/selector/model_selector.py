@@ -11,8 +11,10 @@ of its problem kind. A winner whose refit throws or yields non-finite
 parameters yields to the next-ranked candidate (at most
 ``_MAX_REFIT_ATTEMPTS`` are tried), as in the JAX package.
 
-Left out of this slice: workflow-level CV (``find_best_estimator``), mesh
-sharding and sweep checkpoints (see ROADMAP.md).
+Workflow-level CV (``find_best_estimator``) validates with fold copies of
+the label-dependent stages that feed the selector and records the winner,
+which the next ``fit`` refits without a sweep of its own. Mesh sharding
+and sweep checkpoints are not ported (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ...device import synced_clock
 from ...models.api import MODEL_REGISTRY, FittedParams, ModelFamily
 from ...stages.base import AllowLabelAsInput, Estimator, Transformer
 from ...table import Column, FeatureTable
@@ -31,7 +34,8 @@ from ...types import OPVector, Prediction, RealNN
 from ...utils.padding import bucket_for
 from ..tuning.splitters import DataSplitter, PreparedData, Splitter
 from ..tuning.validators import (
-    AllCandidatesFailedError, OpCrossValidation, OpValidator,
+    AllCandidatesFailedError, BestEstimator, OpCrossValidation, OpValidator,
+    quarantine_non_finite,
 )
 
 #: refit-fallback depth: how many ranked candidates may be tried when the
@@ -159,13 +163,10 @@ class ModelSelector(AllowLabelAsInput, Estimator):
             return self.evaluator.default_metric, self.evaluator.larger_better
         return _PROBLEM_METRICS[self.problem]
 
-    def fit(self, table: FeatureTable) -> Transformer:
-        label_f, vec_f = self.input_features
-        y_all_d = torch.as_tensor(table[label_f.name].values).to(
-            torch.float32).reshape(-1)
-        y_all = y_all_d.cpu().numpy()
-        Xd_all = torch.as_tensor(table[vec_f.name].values).to(torch.float32)
-        dev = Xd_all.device
+    def _prepared_rows(self, y_all: np.ndarray):
+        """(train rows, holdout rows, prepared train rows, label mapping):
+        the splitter's holdout, then its balancing or cutting of the
+        rest."""
         n = len(y_all)
         if self.splitter is not None and self.splitter.reserve_test_fraction:
             train_idx, test_idx = self.splitter.split(n)
@@ -174,7 +175,111 @@ class ModelSelector(AllowLabelAsInput, Estimator):
         prep = (self.splitter.pre_validation_prepare(y_all[train_idx])
                 if self.splitter is not None
                 else PreparedData(indices=np.arange(len(train_idx))))
-        sel_np = train_idx[prep.indices]
+        return train_idx, test_idx, train_idx[prep.indices], prep
+
+    def _num_classes(self, y: np.ndarray) -> int:
+        return (1 if self.problem == "regression"
+                else 2 if self.problem == "binary" else int(y.max()) + 1)
+
+    def find_best_estimator(self, table: FeatureTable,
+                            during_layers: Sequence[Sequence[Tuple[Any, int]]]
+                            ) -> BestEstimator:
+        """Leakage-free validation: for each fold, fit fresh copies of the
+        label-dependent stages (``during_layers``) on the fold's training
+        rows only, transform the selection rows with them, and validate
+        every candidate on that fold's matrix; each candidate's metric is
+        its mean over the folds. The winner is recorded for the next
+        ``fit``, which skips its sweep and refits it.
+
+        The selection rows are those ``fit`` validates on (the same holdout
+        reserved, the splitter's preparation and label mapping). Each fold's
+        matrix is padded with zero columns to the widest fold's, as in the
+        JAX package, so every fold's sweep sees one width. ``fold_models``
+        keeps each fold's fitted copies; ``phase_seconds`` records the fold
+        preparation's and the sweep's seconds."""
+        label_f, vec_f = self.input_features
+        dev = table.device or torch.device("cpu")
+        t0 = synced_clock(dev)
+        y_all = np.asarray(torch.as_tensor(table[label_f.name].values)
+                           .cpu().numpy(), np.float32).reshape(-1)
+        _, _, sel_rows, prep = self._prepared_rows(y_all)
+        sub = table.take(sel_rows)
+        y = y_all[sel_rows]
+        if prep.label_mapping:
+            y = np.array([prep.label_mapping.get(int(v), -1) for v in y],
+                         dtype=np.float32)
+        num_classes = self._num_classes(y)
+        metric_name, larger_better = self.validation_metric
+        val_masks = self.validator.make_splits(y)            # (F, n)
+        F = val_masks.shape[0]
+        fold_tbls = [sub] * F
+        #: each fold's fitted copies of the label-dependent estimators
+        self.fold_models: List[List[Transformer]] = [[] for _ in range(F)]
+        for layer in during_layers:
+            for stage, _ in layer:
+                for f in range(F):
+                    model = stage
+                    if isinstance(stage, Estimator):
+                        model = stage.fit(fold_tbls[f].take(
+                            np.nonzero(~val_masks[f])[0]))
+                        self.fold_models[f].append(model)
+                    fold_tbls[f] = model.transform(fold_tbls[f])
+        fold_X = []
+        for f in range(F):
+            if vec_f.name not in fold_tbls[f]:
+                raise ValueError(f"in-CV DAG did not produce feature "
+                                 f"'{vec_f.name}'")
+            fold_X.append(torch.as_tensor(fold_tbls[f][vec_f.name].values)
+                          .to(torch.float32))
+        del fold_tbls
+        d_max = max(x.shape[1] for x in fold_X)
+        fold_X = [torch.nn.functional.pad(x, (0, d_max - x.shape[1]))
+                  for x in fold_X]
+        yd = torch.as_tensor(y, device=dev)
+        t1 = synced_clock(dev)
+        fold_results = [self.validator.validate(
+            self.models, fold_X[f], yd, self.problem, metric_name,
+            larger_better, num_classes, val_masks=val_masks[f][None, :])
+            for f in range(F)]
+
+        # each candidate's mean over the folds; a candidate non-finite in
+        # any fold is quarantined
+        best: Optional[BestEstimator] = None
+        merged, quarantined = [], []
+        for i, (family, grid) in enumerate(self.models):
+            folds = np.stack([fr.results[i].fold_metrics[0]
+                              for fr in fold_results])        # (F, G)
+            r = fold_results[0].results[i]
+            mean, masked, records = quarantine_non_finite(
+                family.name, list(grid), folds, metric_name, larger_better)
+            quarantined.extend(records)
+            r.fold_metrics, r.mean_metrics = folds, mean
+            merged.append(r)
+            if not np.isfinite(mean).any():
+                continue
+            g_best = int(np.argmax(masked) if larger_better
+                         else np.argmin(masked))
+            value = float(mean[g_best])
+            if best is None or ((value > best.metric_value) if larger_better
+                                else (value < best.metric_value)):
+                best = BestEstimator(family.name, dict(grid[g_best]), value)
+        if best is None:
+            raise AllCandidatesFailedError(quarantined)
+        best.results = merged
+        best.quarantined = quarantined
+        self._preset_best = best
+        self.phase_seconds = {"fold_prep": t1 - t0,
+                              "sweep": synced_clock(dev) - t1}
+        return best
+
+    def fit(self, table: FeatureTable) -> Transformer:
+        label_f, vec_f = self.input_features
+        y_all_d = torch.as_tensor(table[label_f.name].values).to(
+            torch.float32).reshape(-1)
+        y_all = y_all_d.cpu().numpy()
+        Xd_all = torch.as_tensor(table[vec_f.name].values).to(torch.float32)
+        dev = Xd_all.device
+        train_idx, test_idx, sel_np, prep = self._prepared_rows(y_all)
         sel = torch.as_tensor(sel_np, device=dev)
         Xd, yd = Xd_all[sel], y_all_d[sel]
         y = y_all[sel_np]
@@ -183,13 +288,17 @@ class ModelSelector(AllowLabelAsInput, Estimator):
             y = np.array([prep.label_mapping.get(int(v), -1) for v in y],
                          dtype=np.float32)
             yd = torch.as_tensor(y, device=dev)
-        num_classes = (1 if self.problem == "regression"
-                       else 2 if self.problem == "binary"
-                       else int(y.max()) + 1)
+        num_classes = self._num_classes(y)
         metric_name, larger_better = self.validation_metric
-        best = self.validator.validate(self.models, Xd, yd, self.problem,
-                                       metric_name, larger_better,
-                                       num_classes)
+        best = getattr(self, "_preset_best", None)
+        if best is not None:
+            # workflow-level CV chose the winner: no sweep here, and the
+            # record is consumed so that a later fit validates anew
+            self._preset_best = None
+        else:
+            best = self.validator.validate(self.models, Xd, yd, self.problem,
+                                           metric_name, larger_better,
+                                           num_classes)
 
         # refit the winner on the full prepared train rows, bucket-padded
         # with zero weights as in the JAX package

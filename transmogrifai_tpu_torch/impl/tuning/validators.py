@@ -7,9 +7,13 @@ Folds are 0/1 row weights, so the |folds| x |grid| sweep of a family is one
 fold's validation rows (at most ``max_eval_rows`` of them, a strided
 subsample) and the validation metric is computed per configuration.
 
-This is the single-device path. The JAX package's mesh sharding, fused
-program cache, sweep checkpoints, AOT program store, memory-pressure grid
-splitting and chaos sites are not ported (see ROADMAP.md).
+``validate(..., val_masks=...)`` takes explicit (F, n) validation masks:
+workflow-level CV validates one externally prepared fold at a time.
+
+This is the single-device path. The JAX package's sweep checkpoints and
+memory-pressure grid splitting (ROADMAP Queue 1 item 9), mesh sharding
+(item 10), fused program cache, AOT program store and chaos sites are not
+ported.
 """
 from __future__ import annotations
 

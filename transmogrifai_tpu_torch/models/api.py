@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import abc
 from dataclasses import dataclass
-from typing import Any, Dict, List, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -62,6 +62,35 @@ class ModelFamily(abc.ABC):
         keys = sorted({k for g in grid for k in g})
         return {k: np.asarray([g[k] for g in grid], dtype=np.float32)
                 for k in keys}
+
+    def feature_importances(self, fitted: "FittedParams"
+                            ) -> Optional[np.ndarray]:
+        """Per-input-dimension contributions for the model insights, on
+        the host: |coefficients| of a linear family, the share of real
+        splits on each feature of a tree family; None otherwise."""
+        p = fitted.params
+        if not isinstance(p, dict):
+            return None
+        if "coef" in p:
+            return np.abs(to_numpy(p["coef"])).reshape(-1)
+        if "W" in p:
+            return np.abs(to_numpy(p["W"])).mean(axis=-1).reshape(-1)
+        if "feat" in p or "feat_lv" in p:
+            # sentinel-binned entries are stopped or padded nodes, not
+            # splits, and must not count toward feature 0
+            fk, bk = ("feat", "bins") if "feat" in p else ("feat_lv",
+                                                           "bins_lv")
+            feats = to_numpy(p[fk]).reshape(-1).astype(np.int64)
+            if bk in p and "edges" in p:
+                nb = to_numpy(p["edges"]).shape[-1] + 1
+                feats = feats[to_numpy(p[bk]).reshape(-1) < nb]
+            feats = feats[feats >= 0]
+            d = int(np.asarray(to_numpy(p["num_features"])) if
+                    "num_features" in p else
+                    (feats.max() + 1 if feats.size else 1))
+            counts = np.bincount(feats, minlength=d).astype(np.float64)
+            return counts / max(counts.sum(), 1.0)
+        return None
 
     def select_params(self, batched: Dict[str, torch.Tensor],
                       idx: int) -> Dict[str, torch.Tensor]:

@@ -48,6 +48,7 @@ import torch
 
 from .device import resolve_device
 from .features import Feature, FieldExtractor
+from .filters.raw_feature_filter import FeatureMetrics, RawFeatureFilterResults
 from .impl.feature.math import AliasTransformer, BinaryMathOp, ScalarOp
 from .impl.feature.vectorizers import (
     BinaryVectorizer, HashingVectorizer, OneHotVectorizerModel,
@@ -116,6 +117,9 @@ CLASSES: Dict[str, type] = {
             CategoricalGroupStats,
         "vector_metadata:VectorMetadata": VectorMetadata,
         "vector_metadata:VectorColumnMetadata": VectorColumnMetadata,
+        "filters.raw_feature_filter:RawFeatureFilterResults":
+            RawFeatureFilterResults,
+        "filters.raw_feature_filter:FeatureMetrics": FeatureMetrics,
     }.items()}
 
 #: the port's class -> the saved "module:Class" name
@@ -344,6 +348,7 @@ def load_model(path: str, device: Optional[Union[str, torch.device]] = None,
     model.blacklisted_features = tuple(
         feats[u] for u in plan.get("blacklistedFeatures", []))
     model.parameters = _decode(plan.get("parameters", {}), arrays) or {}
+    model.rff_results = _decode(plan.get("rffResults"), arrays)
     model._layers = compute_dag(model.result_features)
     return model
 

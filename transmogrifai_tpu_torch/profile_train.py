@@ -3,7 +3,7 @@
     python3 -m transmogrifai_tpu_torch.profile_train
         [--family gbt|gbt12|rf|dt|rfreg|gbtreg|rfmc|xgbmc|lr|svc|lrmc|nbmc|
                   linreg|glm|default_binary|default_mc|default_reg|mlp|
-                  mlpmc|titanic]
+                  mlpmc|titanic|titanic_wcv]
         [--rows 20000] [--reps 3]
 
 Trains one of the serve bench's workflows (64 ``Real`` predictors,
@@ -21,13 +21,19 @@ at full default grids (``default_binary``, ``default_mc``,
 (``examples.titanic.build_workflow``: the CSV reader, PickList, Text,
 Integral and Real features, ``transmogrify`` to ~570 columns, the binary
 default list) on the file ``testing.titanic_csv`` writes, whose host
-phases (reading, each vectorizer's fit and transform) are timed too. It
+phases (reading, each vectorizer's fit and transform) are timed too; or
+``titanic_wcv``, that workflow with the raw feature filter reading the
+4,096-row scoring file and workflow-level CV
+(``testing.titanic_wcv_workflow``), whose workflow phases (the filter,
+the label-independent stages, the folds' preparation, the per-fold
+sweeps, the rest with the refit) are timed too. It
 trains on ``--rows`` seeded rows, once to
 warm up and then ``--reps`` times, and prints one JSON line: the median
-seconds of the whole ``train()``, of each stage's fit, and inside the
-selector of the CV sweep (in all and per family: its sweep fits and its
-validation predicts), the winner's refit and the train/holdout
-evaluations (host clock, each ending in ``torch.cuda.synchronize()``);
+over the trains of the seconds of the whole ``train()``, and of each
+stage's fit, and inside the selector of the CV sweep (in all and per
+family: its sweep fits and its validation predicts), the winner's refit
+and the train/holdout evaluations, each summed over a train (host
+clock, each ending in ``torch.cuda.synchronize()``);
 the peak device memory allocated over those trains
 (``torch.cuda.max_memory_allocated``); then, from ``torch.profiler`` over
 one more train, the device time per kernel name and the device's busy
@@ -61,6 +67,7 @@ def _timing(phases: dict):
         OpBinaryClassificationEvaluator, OpMultiClassificationEvaluator,
         OpRegressionEvaluator,
     )
+    from .filters import RawFeatureFilter
     from .impl.feature import vectorizers as V
     from .impl.preparators.sanity_checker import SanityChecker
     from .readers.readers import Reader
@@ -87,6 +94,8 @@ def _timing(phases: dict):
                     V.SmartTextVectorizerModel, V.VectorsCombiner)
     ] + [
         (SanityChecker, "fit", lambda *a, **k: "fit SanityChecker"),
+        (RawFeatureFilter, "filter_raw",
+         lambda *a, **k: "host: raw feature filter"),
         (ModelSelector, "fit", lambda *a, **k: "fit ModelSelector"),
         (OpValidator, "validate", lambda *a, **k: "selector: CV sweep"),
         (SelectedModel, "transform_column",
@@ -142,12 +151,19 @@ def _timing(phases: dict):
 def _workflow_fn(family: str, rows: int, tmp: str):
     """An untrained workflow of ``family`` over ``rows`` rows, anew per
     call."""
-    if family == "titanic":
+    if family in ("titanic", "titanic_wcv"):
         from .examples.titanic import build_workflow
-        from .testing import titanic_csv
+        from .testing import (
+            TITANIC_SCORE_ROWS, TITANIC_SCORE_SEED, titanic_csv,
+            titanic_wcv_workflow,
+        )
         path = os.path.join(tmp, "titanic.csv")
         titanic_csv(path, rows)
-        return lambda: build_workflow(path)[0]
+        if family == "titanic":
+            return lambda: build_workflow(path)[0]
+        score = os.path.join(tmp, "titanic_score.csv")
+        titanic_csv(score, TITANIC_SCORE_ROWS, TITANIC_SCORE_SEED)
+        return lambda: titanic_wcv_workflow(path, score)[0]
     name, hyper, task = SERVE_MODELS[family]
     data = serve_bench_data(rows, 64, seed=0, task=task)
     return lambda: serve_bench_workflow(
@@ -160,22 +176,33 @@ def profile(family: str, rows: int, reps: int) -> dict:
 
 
 def _profile(workflow, family: str, rows: int, reps: int) -> dict:
+    #: the workflow's own phases of each train ({} without workflow CV
+    #: or a filter)
+    workflow_phases: list = []
+
     def train():
         wf = workflow()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         wf.train()
         torch.cuda.synchronize()
+        workflow_phases.append(dict(wf.phase_seconds))
         return time.perf_counter() - t0
 
     train()                                     # warm-up
     phases: dict = {}
+    per_train = []
     with _timing(phases):
         for _ in range(reps):
+            phases.clear()
             train()
+            per_train.append({k: sum(v) for k, v in phases.items()})
+    timed_phases = {k for p in per_train for k in p}
+    workflow_phases.clear()
     torch.cuda.reset_peak_memory_stats()
     whole = [train() for _ in range(reps)]
     peak = torch.cuda.max_memory_allocated()
+    wf_phases = list(workflow_phases)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -191,7 +218,11 @@ def _profile(workflow, family: str, rows: int, reps: int) -> dict:
     return {
         "family": family, "rows": rows, "reps": reps,
         "train_s": statistics.median(whole),
-        "phases_s": {k: statistics.median(v) for k, v in phases.items()},
+        "phases_s": {k: statistics.median(p.get(k, 0.0) for p in per_train)
+                     for k in sorted(timed_phases)},
+        "workflow_phases_s": {
+            k: statistics.median(p[k] for p in wf_phases)
+            for k in wf_phases[0]},
         "peak_mem_bytes": peak,
         "profiled_train_s": wall,
         "device_busy_ms": busy_ms,
@@ -203,7 +234,8 @@ def _profile(workflow, family: str, rows: int, reps: int) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--family", choices=sorted(SERVE_MODELS) + ["titanic"],
+    ap.add_argument("--family", choices=sorted(SERVE_MODELS)
+                    + ["titanic", "titanic_wcv"],
                     default="gbt")
     ap.add_argument("--rows", type=int, default=20000)
     ap.add_argument("--reps", type=int, default=3)

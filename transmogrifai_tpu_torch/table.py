@@ -189,6 +189,13 @@ class FeatureTable:
         cols[name] = col
         return FeatureTable(cols, self.num_rows, self.key, self.device)
 
+    def drop(self, names) -> "FeatureTable":
+        """The table without the columns ``names``."""
+        gone = set(names)
+        return FeatureTable({n: c for n, c in self._columns.items()
+                             if n not in gone}, self.num_rows, self.key,
+                            self.device)
+
     def take(self, idx) -> "FeatureTable":
         """Rows ``idx`` of every column."""
         idx = np.asarray(idx, dtype=np.int64)

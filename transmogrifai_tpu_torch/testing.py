@@ -9,7 +9,7 @@ JAX package and to the port."""
 from __future__ import annotations
 
 import re
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -498,6 +498,185 @@ def titanic_csv(path: str, n: int = TITANIC_ROWS,
         csv.writer(fh, lineterminator="\n").writerows(titanic_frame(n, seed))
     with open(path, "rb") as fh:
         return hashlib.sha256(fh.read()).hexdigest()
+
+
+def titanic_wcv_workflow(train_csv: str, score_csv: str, device=None,
+                         models=None):
+    """(workflow, survived, prediction): ``examples.titanic``'s workflow
+    on ``train_csv`` with a ``RawFeatureFilter`` (default thresholds)
+    reading ``score_csv`` and workflow-level CV; ``models`` pins the
+    selector's model list (None: the default list)."""
+    from .examples.titanic import TITANIC_SCHEMA, build_workflow
+    from .filters import RawFeatureFilter
+    from .readers import DataReaders
+    wf, survived, pred = build_workflow(train_csv, seed=42, models=models,
+                                        device=device)
+    score_reader = DataReaders.Simple.csv(
+        score_csv, schema=TITANIC_SCHEMA, header=False,
+        key_field="PassengerId")
+    wf = (wf.with_raw_feature_filter(RawFeatureFilter(
+        score_reader=score_reader, device=device)).with_workflow_cv())
+    return wf, survived, pred
+
+
+def json_gaps(got: Any, want: Any,
+              limit: Callable[[Tuple[str, ...]], Optional[Tuple[float,
+                                                                 float]]],
+              path: Tuple[str, ...] = ()) -> Dict[str, float]:
+    """Two JSON values: the same keys, strings, booleans, Nones and list
+    lengths, and every number within ``limit(path)`` = (rtol, atol) of
+    ``want``'s (``limit`` None: the path is not compared; a third entry
+    lets a number of at most that size stand against None, a NaN that
+    the other side's float32 rounding turned into noise); a string may
+    differ only in the numbers it quotes, each held to the limit. Returns
+    {top key: the largest gap / its limit (0 where exact)}; raises
+    AssertionError with the count of differing values and the first
+    eight."""
+    out: Dict[str, float] = {}
+    bad: list = []
+
+    def note(p, ratio):
+        key = p[0] if p else ""
+        out[key] = max(out.get(key, 0.0), ratio)
+
+    def rec(g, w, p):
+        try:
+            compare(g, w, p)
+        except AssertionError as e:
+            bad.append(str(e))
+
+    def compare(g, w, p):
+        lim = limit(p)
+        if lim is None:
+            return
+        where = "/".join(p) or "<root>"
+        if isinstance(w, dict):
+            if not isinstance(g, dict) or sorted(g) != sorted(w):
+                mine = sorted(g) if isinstance(g, dict) else g
+                raise AssertionError(f"{where}: keys {mine!r} != "
+                                     f"{sorted(w)!r}")
+            for k in w:
+                rec(g[k], w[k], p + (str(k),))
+        elif isinstance(w, list):
+            if not isinstance(g, list) or len(g) != len(w):
+                raise AssertionError(f"{where}: {g!r} != {w!r}")
+            for i, (a, b) in enumerate(zip(g, w)):
+                rec(a, b, p + (str(i),))
+        elif len(lim) > 2 and (g is None) != (w is None) and all(
+                v is None or (isinstance(v, float) and abs(v) <= lim[2])
+                for v in (g, w)):
+            note(p, 0.0)        # NaN against a rounding-noise value
+        elif isinstance(w, str) and isinstance(g, str) and g != w:
+            # a message quoting numbers: the same words, each number
+            # within the limit
+            if _NUMBER.sub("#", g) != _NUMBER.sub("#", w):
+                raise AssertionError(f"{where}: {g!r} != {w!r}")
+            for a, b in zip(_NUMBER.findall(g), _NUMBER.findall(w)):
+                compare(float(a), float(b), p)
+        elif isinstance(w, bool) or w is None or isinstance(w, str):
+            if g != w or type(g) is not type(w):
+                raise AssertionError(f"{where}: {g!r} != {w!r}")
+        elif isinstance(w, (int, float)):
+            if isinstance(g, bool) or not isinstance(g, (int, float)):
+                raise AssertionError(f"{where}: {g!r} != {w!r}")
+            rtol, atol = lim[:2]
+            bound = atol + rtol * abs(w)
+            gap = abs(float(g) - float(w))
+            if not gap <= bound:
+                raise AssertionError(f"{where}: {g!r} vs {w!r} (gap {gap:.3g}"
+                                     f" > limit {bound:.3g})")
+            note(p, gap / bound if bound else 0.0)
+        else:
+            raise AssertionError(f"{where}: cannot compare {w!r}")
+
+    rec(got, want, path)
+    if bad:
+        raise AssertionError(f"{len(bad)} value(s) differ: "
+                             + "; ".join(bad[:8]))
+    return out
+
+
+def insights_by_feature(js: Dict[str, Any]) -> Dict[str, Any]:
+    """``ModelInsights.to_json()`` with its feature list keyed by feature
+    name (the list is sorted by contribution, whose near-ties may order
+    two runs differently)."""
+    return dict(js, features={f["feature_name"]: f for f in js["features"]})
+
+
+#: the Titanic workflow-CV path's linear sweep fold metrics. Each fold's
+#: sweep sees 18,000 rows x 529 columns, where the bf16 temporaries
+#: amplify float32 summation order: the JAX package's own LR fold AuPR
+#: moves by up to 6.0e-5 when only its input's columns are reordered, and
+#: the port lies 1.02e-4 from it on the same fold matrices (CPU). The limit
+#: sits above twice that spread and below the gaps of a sweep at the
+#: refit's settings (8.3e-4) or with its CG schedule a step off (3.5e-4,
+#: 7.2e-3); it does not see the bf16 rounding itself (1.7e-4 without it)
+#: (``tests/test_torch_titanic_wcv_e2e.py``)
+WCV_LIN_FOLD_ATOL = 2e-4
+
+#: the linear families, whose fold metrics come from bf16 sweeps and
+#: whose contributions are |coefficients|
+LINEAR_FAMILIES = ("OpLogisticRegression", "OpLinearSVC")
+
+
+def insight_limits(winner: str, want: Dict[str, Any],
+                   coef_rtol: float = 2e-4, eval_atol: float = 1e-3,
+                   count_atol: float = 2.0, fold_atol: float = 5e-5,
+                   corr_atol: float = 1e-6):
+    """The limit function (``json_gaps``) of two ``ModelInsights.to_json()``
+    reports, each number held to the limit of its source: float32 Pearson
+    correlations (the filter's null-label ones, the SanityChecker's label
+    ones) ``corr_atol`` (a constant column's may be None in one and at
+    most that in the other: a 0/0); the filter's JS divergences 1e-9
+    relative, its other numbers exact; the SanityChecker's other
+    statistics 1e-4 relative or 1e-12 absolute (as
+    ``assert_same_sanity``), its redundancy pairs 2e-6 (rounded to six
+    places); a linear winner's contributions (|coefficients|)
+    ``coef_rtol`` of the largest, a tree winner's (split shares) exact;
+    mean fold metrics and the winner's metric ``fold_atol`` (the linear
+    sweeps' limit, the largest); the refit's train and holdout evaluation
+    ``eval_atol`` and its confusion counts ``count_atol`` (rows whose
+    probability sits within the refit's limit of 0.5 may flip); the
+    version string exact, the git commit and save time not compared;
+    everything else exact."""
+    biggest = max([abs(d["contribution"]) for f in want["features"]
+                   for d in f["derived"] if d["contribution"] is not None],
+                  default=0.0)
+    contribution = ((0.0, coef_rtol * biggest)
+                    if winner in LINEAR_FAMILIES else (0.0, 1e-12))
+    exact = (0.0, 0.0)
+
+    def limit(path):
+        top = path[0] if path else ""
+        leaf = path[-1] if path else ""
+        if top == "versionInfo":
+            return exact if len(path) < 2 or path[1] == "version" else None
+        if top == "rawFeatureFilterResults":
+            return {"js_divergence": (1e-9, 0.0),
+                    "null_label_correlation": (0.0, corr_atol)}.get(leaf,
+                                                                    exact)
+        if top == "features":
+            if leaf == "contribution":
+                return contribution
+            # a constant column's label correlation is 0/0: NaN (None) in
+            # one package, float32 rounding noise in the other
+            return (0.0, corr_atol, corr_atol) if leaf == "correlation" \
+                else (1e-4, 1e-12)
+        if top == "crossFeatureRedundancy":
+            return (0.0, 2e-6)
+        if top == "categoricalPointwiseMutualInfo":
+            return (1e-4, 1e-12)
+        if top == "modelValidationResults" and "meanMetrics" in path:
+            return (0.0, fold_atol)
+        if top == "selectedModel":
+            if leaf == "bestMetricValue":
+                return (0.0, fold_atol)
+            if len(path) > 1 and path[1] in ("trainEvaluation",
+                                             "holdoutEvaluation"):
+                return (0.0, count_atol if leaf in ("TP", "TN", "FP", "FN")
+                        else eval_atol)
+        return exact
+    return limit
 
 
 _NUMBER = re.compile(r"-?\d+(?:\.\d+)?(?:e[-+]?\d+)?")

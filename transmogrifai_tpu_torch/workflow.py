@@ -6,9 +6,13 @@ fitted workflow that scores on that device (a model also comes from
 Training is the in-core path: the raw table is built by a reader
 (``readers``: a CSV file, or a mapping of columns or list of records given
 to ``set_input_dataset``), by the JAX package's rules for each feature type,
-moved to the device, and every estimator fits layer by layer. The JAX
-package's raw-feature filter, stage checkpoints and resume, workflow-level
-CV, mesh sharding and streaming are not ported.
+screened by the raw feature filter when one is attached
+(``with_raw_feature_filter``: the excluded raw features leave the DAG),
+moved to the device, and every estimator fits layer by layer, or, with
+``with_workflow_cv``, the label-dependent stages refit inside every fold of
+the selector's cross-validation. The JAX package's stage checkpoints,
+sweep checkpoints and resume, mesh sharding and streaming are not ported
+(see ROADMAP.md).
 
 A fitted model saves and loads in the JAX package's format
 (``OpWorkflowModel.save`` / ``load``, ``persistence``). ``summary()`` gives
@@ -18,16 +22,18 @@ observability and streaming modules.
 """
 from __future__ import annotations
 
+import copy
 import json
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .dag import apply_transformations_dag, compute_dag, fit_and_transform_dag
-from .device import resolve_device
+from .device import resolve_device, synced_clock
 from .features import Feature
 from .readers.readers import Frame, FrameReader, Reader, frame_to_table
+from .stages.base import AllowLabelAsInput, Estimator
 from .table import FeatureTable
 
 
@@ -51,6 +57,25 @@ class OpWorkflow:
         self.raw_features: Tuple[Feature, ...] = ()
         self.reader: Optional[Reader] = None
         self._layers = None
+        self._raw_feature_filter = None
+        self._workflow_cv = False
+        #: {phase: seconds} of the last train: "filter", "fit" or, under
+        #: workflow CV, "before", "fold_prep", "sweep" and "rest"
+        self.phase_seconds: Dict[str, float] = {}
+
+    def with_raw_feature_filter(self, rff) -> "OpWorkflow":
+        """Screen the raw features with ``rff`` (a
+        ``filters.RawFeatureFilter``) before fitting; the features it
+        excludes leave the DAG (``_apply_blacklist``)."""
+        self._raw_feature_filter = rff
+        return self
+
+    def with_workflow_cv(self) -> "OpWorkflow":
+        """Workflow-level cross-validation: the label-dependent stages
+        that feed the selector (the SanityChecker) refit inside every fold
+        on that fold's training rows, instead of once before the sweep."""
+        self._workflow_cv = True
+        return self
 
     def set_reader(self, reader: Reader) -> "OpWorkflow":
         """The training data's reader (``readers.DataReaders``)."""
@@ -88,16 +113,143 @@ class OpWorkflow:
         if self.reader is None:
             raise ValueError("no data: call set_reader or "
                              "set_input_dataset first")
-        table = self.reader.generate_table(self.raw_features).to_device(
-            self.device)
-        _, fitted = fit_and_transform_dag(table, self._layers)
+        self.phase_seconds = {}
+        table = self.reader.generate_table(self.raw_features)
+        layers, result_features = self._layers, self.result_features
+        blacklisted: Tuple[Feature, ...] = ()
+        rff_results = None
+        if self._raw_feature_filter is not None:
+            t0 = synced_clock(self.device)
+            rff = self._raw_feature_filter
+            rff.device = self.device
+            table, blacklist, rff_results = rff.filter_raw(table,
+                                                           self.raw_features)
+            if blacklist:
+                result_features, layers = self._apply_blacklist(blacklist)
+                blacklisted = tuple(blacklist)
+            self.phase_seconds["filter"] = synced_clock(self.device) - t0
+        table = table.to_device(self.device)
+        if self._workflow_cv:
+            table, fitted = self._fit_with_workflow_cv(table, layers)
+        else:
+            t0 = synced_clock(self.device)
+            table, fitted = fit_and_transform_dag(table, layers)
+            self.phase_seconds["fit"] = synced_clock(self.device) - t0
         model = OpWorkflowModel(self.device)
         model.reader = self.reader
         model.result_features = tuple(
-            f.copy_with_new_stages(fitted) for f in self.result_features)
+            f.copy_with_new_stages(fitted) for f in result_features)
         model.raw_features = self.raw_features
+        model.blacklisted_features = blacklisted
+        model.rff_results = rff_results
+        model.train_table = table
         model._layers = compute_dag(model.result_features)
         return model
+
+    def _fit_with_workflow_cv(self, table: FeatureTable, layers):
+        """Fit the label-independent stages once; run the selector's
+        ``find_best_estimator`` with fold copies of the label-dependent
+        stages that feed it; then fit the rest (those stages on all rows,
+        and the selector, which refits the winner it recorded)."""
+        from .impl.selector.model_selector import ModelSelector
+
+        all_stages = [s for layer in layers for s, _ in layer]
+        selectors = [s for s in all_stages if isinstance(s, ModelSelector)]
+        if len(selectors) != 1:
+            raise ValueError(
+                f"workflow-level CV requires exactly one ModelSelector, "
+                f"found {len(selectors)} (reference FitStagesUtil.cutDAG:313)")
+        sel = selectors[0]
+        _, vec_f = sel.input_features
+
+        # a feature is label-dependent when its stage is an estimator that
+        # reads the label (AllowLabelAsInput) or the selector, or when any
+        # parent is; those stages and everything after them fit last
+        tainted: Dict[str, bool] = {}
+        ordered: List[Feature] = []
+        for rf in self.result_features:
+            for feat in rf.all_features():      # parents first
+                if feat.uid in tainted:
+                    continue
+                ordered.append(feat)
+                st = feat.origin_stage
+                own = ((isinstance(st, Estimator)
+                        and isinstance(st, AllowLabelAsInput))
+                       or st is sel)
+                tainted[feat.uid] = own or any(tainted.get(p.uid, False)
+                                               for p in feat.parents)
+        tainted_stages = {f.origin_stage.uid for f in ordered
+                          if tainted[f.uid] and not f.is_raw}
+
+        t0 = synced_clock(self.device)
+        before = [[(s, d) for s, d in layer if s.uid not in tainted_stages]
+                  for layer in layers]
+        table1, fitted_before = fit_and_transform_dag(table, before)
+        self.phase_seconds["before"] = synced_clock(self.device) - t0
+        # the stages refit in every fold: label-dependent ones on the
+        # selector's input ancestry, the selector excluded
+        vec_anc = {f.origin_stage.uid for f in vec_f.all_features()
+                   if not f.is_raw}
+        during = [[(s, d) for s, d in layer
+                   if s.uid in tainted_stages and s.uid in vec_anc
+                   and s is not sel] for layer in layers]
+        rest = [[(s, d) for s, d in layer if s.uid in tainted_stages]
+                for layer in layers]
+        try:
+            sel.find_best_estimator(table1, [l for l in during if l])
+            self.phase_seconds.update(sel.phase_seconds)
+            t0 = synced_clock(self.device)
+            table2, fitted_rest = fit_and_transform_dag(
+                table1, [l for l in rest if l])
+            self.phase_seconds["rest"] = synced_clock(self.device) - t0
+        except Exception:
+            # no recorded winner outlives a failed run
+            sel._preset_best = None
+            raise
+        return table2, {**fitted_before, **fitted_rest}
+
+    def _apply_blacklist(self, blacklist: Sequence[Feature]):
+        """The result features and layers without the excluded raw
+        features: a stage that loses every input goes, a stage that loses
+        some is copied with the rest (its output keeps its name and uid)."""
+        gone = {f.uid for f in blacklist}
+        cache: Dict[str, Optional[Feature]] = {}
+
+        def rebuild(f: Feature) -> Optional[Feature]:
+            if f.uid in cache:
+                return cache[f.uid]
+            if f.is_raw:
+                cache[f.uid] = None if f.uid in gone else f
+                return cache[f.uid]
+            kept = [np_ for np_ in (rebuild(p) for p in f.parents)
+                    if np_ is not None]
+            if not kept:
+                cache[f.uid] = None
+                return None
+            stage = f.origin_stage
+            if len(kept) != len(f.parents):
+                stage = copy.copy(stage)
+                stage.input_features = tuple(kept)
+                stage._output_feature = None
+                out = stage.get_output()
+                out.name, out.uid = f.name, f.uid
+                stage._output_feature = out
+            else:
+                stage.input_features = tuple(kept)
+                out = Feature(f.name, f.feature_type, f.is_response, stage,
+                              kept, uid=f.uid)
+                stage._output_feature = out
+            cache[f.uid] = out
+            return out
+
+        new_results = []
+        for f in self.result_features:
+            nf = rebuild(f)
+            if nf is None:
+                raise ValueError(f"result feature '{f.name}' lost all inputs "
+                                 f"to the raw feature filter")
+            new_results.append(nf)
+        return tuple(new_results), compute_dag(new_results)
 
 
 class OpWorkflowModel:
@@ -109,6 +261,10 @@ class OpWorkflowModel:
         self.result_features: Tuple[Feature, ...] = ()
         self.raw_features: Tuple[Feature, ...] = ()
         self.blacklisted_features: Tuple[Feature, ...] = ()
+        #: the raw feature filter's ``RawFeatureFilterResults``, if any
+        self.rff_results = None
+        #: the transformed training table (a trained model only)
+        self.train_table: Optional[FeatureTable] = None
         self.parameters: Dict[str, Any] = {}
         self.reader: Optional[Reader] = None
         self._layers = None
@@ -162,6 +318,12 @@ class OpWorkflowModel:
             elif getattr(stage, "summary_metadata", None):
                 lines.append(f"-- {type(stage).__name__} ({stage.uid})")
         return "\n".join(lines)
+
+    def model_insights(self, feature=None):
+        """The model's report (``insights.ModelInsights``); ``feature`` is
+        accepted as in the JAX package and not used."""
+        from .insights import ModelInsights
+        return ModelInsights.extract(self)
 
     def score(self, table: Optional[FeatureTable] = None, data=None,
               reader: Optional[Reader] = None) -> FeatureTable:
