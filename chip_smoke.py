@@ -66,6 +66,33 @@ Phases, in order; any failure exits nonzero:
     fold's drop counts, the largest correlation gaps and the path's
     launches; it must launch ``hist_matmul``, ``node_hist`` and
     ``forest_predict_chain``;
+(leads) the lead-conversion paths (``testing.leads_records``: 20,000
+    training and 4,096 scoring records with dates, a date list, a
+    geolocation and nine maps, rebuilt from their seeds, sha256 equal to
+    the fixtures'; the DAGs built with the date clock at
+    ``testing.LEADS_CLOCK_MS``): "train leads" (``transmogrify`` to 626
+    columns, SanityChecker, the binary default list at full default grids)
+    and "train leads_stage" (the indexed ``Stage`` label, the multiclass
+    selector pinned to the RF of ``rfmc``, ``PredictionDeIndexer``), each
+    against ``fixtures/leads`` or ``fixtures/leads_stage``: vector
+    metadata equal, 256 sampled rows bit-equal, the SanityChecker's
+    choices and the date pivot's reference instant the fixture's, the
+    winner and its grid point equal, tree fold metrics within 1e-5, the
+    SVC's within ``LEADS_SVC_FOLD_ATOL`` of the fixture's and both linear
+    families' within ``LEADS_LIN_F64_ATOL`` of the same sweep evaluated
+    on the card in float64 (the causes at the constants; every linear
+    configuration's gap to the fixture printed); the LR refit's params
+    and probability_1 ``TITANIC_LIN_*``; the RF's class probabilities
+    within ``LEADS_STAGE_PROB_ATOL``, every decided prediction and
+    deindexed stage equal, every scored stage the JAX package's label of
+    its prediction, and the fitted deindexer on every class index and an
+    unseen one the JAX package's labels; path (a)'s model insights (maps
+    by key); a save and reload. Before the counted paths each leads train
+    runs once with every launch of the four kernels it runs held to plain;
+    their heaviest launches give the ``leads_kernel`` and
+    ``leads_stage_kernel`` lines. "train leads" must launch
+    ``hist_matmul``, ``node_hist`` and ``forest_predict_chain``, "train
+    leads_stage" those and ``forest_leaf_sums_chain``;
 (b) hold each kernel against its plain PyTorch version on the card, at the
     shapes its path gives it, and report its times:
     - ``node_hist`` at six growth levels (19,712 rows x 64 codes, 32
@@ -1304,6 +1331,46 @@ def _within_sum_bound(tag, got, want, scale, n):
 DIRECT_BLOCK_BYTES = 4 << 30
 
 
+#: lanes (stat x slot x tree columns of the masked-stat operand) of one
+#: plain node histogram in a launch's check: its pinned contraction holds
+#: 8 partials of (lanes, codes x bins) floats, ~100 GB for a whole
+#: leads_stage deep level (150 trees x 256 slots x 4 stats at 589 codes)
+PLAIN_NODE_LANES = 16384
+#: the direct formula's partials (T, slots, chunks, k, codes, bins) a
+#: launch's check may sum over, in all: wider launches (the leads_stage
+#: deep levels, whose single-leaf trees put every row in one slot) are
+#: held to plain only
+DIRECT_MAX_BYTES = 64 << 30
+
+
+def _node_within_bound(tag, flat, codes, node, sw_list, Wl, n_bins,
+                       stride):
+    """A ``node_hist`` launch's result ``flat`` ((k * Wl * T, d * bins))
+    against ``node_hist_plain`` within ``_within_sum_bound``, over blocks
+    of trees: each (stat, slot, tree) lane's cells are sums of their own,
+    so the blocks are the whole check. Returns the max |d| and its
+    largest share of the bound."""
+    from transmogrifai_tpu_torch.histeng import kernels as HK
+    T, k = node.shape[1], len(sw_list)
+    tb = max(1, PLAIN_NODE_LANES // (k * Wl))
+    got = flat.reshape(k, Wl, T, -1)
+    ops = [s.to(torch.bfloat16).float().abs() for s in sw_list]
+    err = share = 0.0
+    for t in range(0, T, tb):
+        cut = slice(t, t + tb)
+        part = node[:, cut].contiguous()
+        want = HK.node_hist_plain(codes, part, [s[:, cut].contiguous()
+                                                for s in sw_list],
+                                  Wl, n_bins, stride)
+        scale = HK.node_hist_plain(codes, part, [s[:, cut].contiguous()
+                                                 for s in ops],
+                                   Wl, n_bins, stride)
+        e, sh = _within_sum_bound(tag, got[:, :, cut].reshape(want.shape),
+                                  want, scale, codes.shape[0])
+        err, share = max(err, e), max(share, sh)
+    return err, share
+
+
 def _node_direct(codes, node, sw_list, Wl, n_bins, stride):
     """``node_hist_direct`` over blocks of features: its partials hold
     (T, Wl, chunks of the longest segment, k, d, bins) floats, too many at
@@ -1317,6 +1384,8 @@ def _node_direct(codes, node, sw_list, Wl, n_bins, stride):
     counts.scatter_add_(1, slot.T, torch.ones_like(slot.T))
     n_q = max(1, -(-int(counts[:, :Wl].max()) // HK.NODE_HIST_CHUNK))
     per_feature = 4 * T * Wl * n_q * len(sw_list) * n_bins
+    if per_feature * d > DIRECT_MAX_BYTES:
+        return None
     step = max(1, DIRECT_BLOCK_BYTES // per_feature)
     return torch.cat([HK.node_hist_direct(codes[:, f:f + step].contiguous(),
                                           node, sw_list, Wl, n_bins, stride)
@@ -1324,12 +1393,14 @@ def _node_direct(codes, node, sw_list, Wl, n_bins, stride):
 
 
 class _KernelChecks:
-    """``hist_matmul``, ``node_hist`` and ``forest_predict_chain`` wrapped
-    for the duration of a ``with`` block: every launch is held against the
-    plain version on its own inputs (histograms within the sum bound of
+    """``hist_matmul``, ``node_hist``, ``forest_predict_chain`` and
+    ``forest_leaf_sums_chain`` wrapped for the duration of a ``with``
+    block: every launch is held against the plain version on its own
+    inputs (histograms and leaf sums within the sum bound of
     ``_within_sum_bound``, ``hist_matmul`` also bit-equal to plain on small
     integer stats of the same codes, ``node_hist`` bit-equal to its direct
-    formula, chain predicts bit-equal with leaf ids exact). ``seen`` counts
+    formula, chain predicts bit-equal with leaf ids exact, leaf sums
+    bit-equal to their own order spelled out on the CPU). ``seen`` counts
     the calls, shapes, largest gap and bound share per kernel; with
     ``keep_heaviest`` the inputs of each kernel's heaviest launch are kept
     for timing (``heaviest``). With ``direct_per_shape`` only the first
@@ -1345,6 +1416,8 @@ class _KernelChecks:
         self.keep = keep_heaviest
         self.direct_per_shape = direct_per_shape
         self.direct_shapes: set = set()
+        #: shapes whose direct formula is beyond DIRECT_MAX_BYTES
+        self.too_wide: set = set()
 
     def _note(self, name, shape, err=0.0, share=0.0, work=0, args=None):
         r = self.seen.setdefault(name, dict(calls=0, shapes=set(), err=0.0,
@@ -1361,7 +1434,8 @@ class _KernelChecks:
 
         hist_cuda, node_cuda = HK.hist_matmul_cuda, HK.node_hist_cuda
         chain_cuda = F.forest_predict_chain_cuda
-        self._saved = (hist_cuda, node_cuda, chain_cuda)
+        sums_cuda = F.forest_leaf_sums_chain_cuda
+        self._saved = (hist_cuda, node_cuda, chain_cuda, sums_cuda)
         note = self._note
 
         def hist(codes, A, n_bins, exact=False, *args, **kw):
@@ -1391,20 +1465,21 @@ class _KernelChecks:
             got = node_cuda(codes, node, sw_list, Wl, n_bins, stride, *args,
                             **kw)
             flat = got.reshape(-1, got.shape[-2] * got.shape[-1])
-            want = HK.node_hist_plain(codes, node, sw_list, Wl, n_bins,
-                                      stride)
-            ops = [s.to(torch.bfloat16).float().abs() for s in sw_list]
-            err, share = _within_sum_bound(
-                "node_hist (sweep)", flat, want, HK.node_hist_plain(
-                    codes, node, ops, Wl, n_bins, stride), codes.shape[0])
+            err, share = _node_within_bound(
+                "node_hist (sweep)", flat, codes, node, sw_list, Wl, n_bins,
+                stride)
             shape = (tuple(codes.shape), node.shape[1], len(sw_list), Wl,
                      stride)
             if not (self.direct_per_shape and shape in self.direct_shapes):
                 self.direct_shapes.add(shape)
-                if not torch.equal(flat, _node_direct(
-                        codes, node, sw_list, Wl, n_bins, stride)):
+                direct = _node_direct(codes, node, sw_list, Wl, n_bins,
+                                      stride)
+                if direct is None:
+                    self.too_wide.add(shape)
+                elif not torch.equal(flat, direct):
                     raise AssertionError("node_hist (sweep): differs from "
                                          "the direct formula")
+                del direct
             note("node_hist", shape, err, share,
                  codes.numel() * node.shape[1] * len(sw_list),
                  lambda: (codes.clone(), node.clone(),
@@ -1434,30 +1509,70 @@ class _KernelChecks:
                           base_lv.clone(), leaf.clone(), n_bins))
             return out
 
+        def sums(codes, feat_lv, bin_lv, base_lv, aug, *, n_bins):
+            from transmogrifai_tpu_torch.testing import leaf_sums_chunked
+            got = sums_cuda(codes, feat_lv, bin_lv, base_lv, aug,
+                            n_bins=n_bins)
+            want = F.forest_leaf_sums_chain_plain(codes, feat_lv, bin_lv,
+                                                  base_lv, aug, n_bins=n_bins)
+            err, share = _within_sum_bound(
+                "forest_leaf_sums_chain (refit)", got, want,
+                F.forest_leaf_sums_chain_plain(codes, feat_lv, bin_lv,
+                                               base_lv, aug.abs(),
+                                               n_bins=n_bins),
+                codes.shape[0])
+            ids = F.route_codes_chain(codes, feat_lv, bin_lv, base_lv,
+                                      n_bins).cpu()
+            order = leaf_sums_chunked(ids, aug.cpu(), got.shape[1],
+                                      *F.row_chunks(ids.shape[0]))
+            nan = torch.isnan(order)
+            if not (torch.equal(torch.isnan(got.cpu()), nan) and torch.equal(
+                    got.cpu()[~nan].view(torch.int32),
+                    order[~nan].view(torch.int32))):
+                raise AssertionError("forest_leaf_sums_chain (refit): not "
+                                     "bit-equal to the chunked order")
+            T, depth, W = feat_lv.shape
+            note("forest_leaf_sums_chain", (tuple(codes.shape),
+                                            (T, depth, W), aug.shape[1]),
+                 err, share, codes.shape[0] * T * depth,
+                 lambda: (codes.clone(), feat_lv.clone(), bin_lv.clone(),
+                          base_lv.clone(), aug.clone(), n_bins))
+            return got
+
         HK.hist_matmul_cuda, HK.node_hist_cuda = hist, node
         F.forest_predict_chain_cuda = chain
+        F.forest_leaf_sums_chain_cuda = sums
         return self
 
     def __exit__(self, *exc):
         from transmogrifai_tpu_torch.histeng import kernels as HK
         from transmogrifai_tpu_torch.ops import forest as F
         HK.hist_matmul_cuda, HK.node_hist_cuda, \
-            F.forest_predict_chain_cuda = self._saved
+            F.forest_predict_chain_cuda, \
+            F.forest_leaf_sums_chain_cuda = self._saved
         return False
 
-    def report(self, tag: str) -> None:
-        """Print what was held; every kernel must have launched."""
-        for name in ("hist_matmul", "node_hist", "forest_predict_chain"):
+    def report(self, tag: str, names=("hist_matmul", "node_hist",
+                                      "forest_predict_chain")) -> None:
+        """Print what was held; every kernel of ``names`` must have
+        launched."""
+        for name in names:
             r = self.seen.get(name)
             if not r:
                 raise AssertionError(f"{tag}: the train launched no {name}")
             held = ("bit-equal to plain, ids exact"
                     if name == "forest_predict_chain" else
                     f"max |d| {r['err']:.3g} from plain, "
+                    f"{r['share']:.3f} of the sum bound; bit-equal to the "
+                    f"chunked order"
+                    if name == "forest_leaf_sums_chain" else
+                    f"max |d| {r['err']:.3g} from plain, "
                     f"{r['share']:.3f} of the sum bound; " + (
                         "bit-equal to the direct formula"
                         + (" (each shape's first launch)"
                            if self.direct_per_shape else "")
+                        + (f" but at {len(self.too_wide)} shapes beyond "
+                           f"DIRECT_MAX_BYTES" if self.too_wide else "")
                         if name == "node_hist" else "on integer "
                         "stats of the same codes bit-equal to plain"))
             wide = max(shape[0][1] for shape in r["shapes"])
@@ -1819,8 +1934,9 @@ def train_against_fixture(key: str):
 
 
 def time_heaviest(heaviest, tag: str) -> dict:
-    """Time each of ``hist_matmul``, ``node_hist`` and
-    ``forest_predict_chain`` at its heaviest launch of a train
+    """Time each of ``hist_matmul``, ``node_hist``,
+    ``forest_predict_chain`` and (where the train launched it)
+    ``forest_leaf_sums_chain`` at its heaviest launch of a train
     (``heaviest``: {name: (work, shape, args)}) against its plain version
     and the library call; print and return {name: times, shape, passes,
     bound}."""
@@ -1856,6 +1972,25 @@ def time_heaviest(heaviest, tag: str) -> dict:
             codes, feat, bins, base, leaf, n_bins=nb), runs=5),
         library_ms=None,
         bound=bound_ms(nbytes, codes.shape[0] * T * (depth + k)))
+    if "forest_leaf_sums_chain" in heaviest:
+        _, shape, a = heaviest["forest_leaf_sums_chain"]
+        codes, feat, bins, base, aug, nb = a
+        T, depth, W = feat.shape
+        slots = sum(min(2 ** lv, W) for lv in range(depth))
+        n, k = aug.shape
+        # as the refit shape's bound in (b): the codes the paths split on,
+        # the used table slots and the stats read once, the sums written
+        # once; per row and tree one step a level and one add per stat
+        out["forest_leaf_sums_chain"] = dict(
+            shape=shape, ms=time_ms(lambda: F.forest_leaf_sums_chain_cuda(
+                codes, feat, bins, base, aug, n_bins=nb)), passes=None,
+            plain_ms=time_ms(lambda: F.forest_leaf_sums_chain_plain(
+                codes, feat, bins, base, aug, n_bins=nb), runs=5),
+            library_ms=None,
+            bound=bound_ms(4 * (_codes_read(codes, feat, bins, base=base)
+                                + T * slots * 3 + n * k
+                                + T * min(2 ** depth, W) * k),
+                           n * T * (depth + k)))
     for name, r in out.items():
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
@@ -2319,6 +2454,401 @@ class TitanicWCV:
         return secs
 
 
+LEADS_ROOT = os.path.join(HERE, "transmogrifai_tpu_torch", "fixtures")
+#: path (b)'s RF on the scoring records: every class probability within
+#: PROB_ATOL of the JAX-trained forest's (the same trees give the same
+#: sums up to their order of addition), the prediction and the predicted
+#: stage equal wherever the fixture's two highest probabilities are more
+#: than PRED_MARGIN apart
+LEADS_STAGE_PROB_ATOL = PROB_ATOL
+
+
+#: the linear families of path (a)'s default list
+LEADS_LINEAR = ("OpLogisticRegression", "OpLinearSVC")
+#: path (a)'s linear sweep fold metrics against the same sweep evaluated
+#: on the card in float64 (``testing.sweep_again``: the same bf16
+#: roundings, float64 sums), per family. Measured by
+#: ``experiments/leads_linear.py`` on an NVIDIA H100 80GB HBM3 at 700 W:
+#: the card's float32 sweep lies 2.12e-4 (LR) and 1.38e-5 (SVC) from the
+#: float64 one, and 1.2e-4 and 8.5e-6 under three reorderings of the
+#: vector's columns; the sweep without its bf16 rounding, the control,
+#: 5.55e-4 and 4.24e-5. Each limit sits between the two
+LEADS_LIN_F64_ATOL = {"OpLogisticRegression": 3.4e-4, "OpLinearSVC": 2.4e-5}
+#: path (a)'s SVC sweep fold metrics against the fixture's. The fixture's
+#: sweep carries the error of the JAX package's float32 sums on the CPU:
+#: the float64 evaluation lies 1.33e-3 AuPR from it (the port's own
+#: float32 sweep on the CPU 1.55e-3 from the float64 one), the card
+#: 1.32e-3 (``experiments/leads_linear.py``, the same card). The LR's
+#: folds are not held to the fixture's: in 7 of its 18 cells the JAX
+#: package's bf16 Newton sweep diverged under those sums (a fold's base
+#: rate or its constant-score value, where the float64 evaluation and the
+#: card give 0.62-0.67); they are held to the float64 evaluation, and the
+#: LR to the fixture by the winner, its refit and its scores
+LEADS_SVC_FOLD_ATOL = 2e-3
+
+
+class Leads:
+    """The lead-conversion paths (``testing.leads_records``: one record a
+    sales lead, with dates, a date list, a geolocation and nine maps):
+    (a) ``leads``: ``transmogrify`` of the fourteen predictors to ~620
+    columns -> SanityChecker -> the binary default list at full default
+    grids with 3-fold CV; (b) ``leads_stage``: the same predictors with the
+    indexed ``Stage`` label -> the multiclass selector pinned to the RF of
+    ``rfmc`` -> the prediction's class back to the stage's string
+    (``PredictionDeIndexer``). Both are built with the date clock at the
+    fixtures' instant (``testing.LEADS_CLOCK_MS``), trained on the
+    20,000 training records and served on the 4,096 scoring records,
+    against ``fixtures/leads`` and ``fixtures/leads_stage`` (what the JAX
+    package made of the same records on the CPU)."""
+
+    def __init__(self):
+        from transmogrifai_tpu_torch.testing import (
+            LEADS_PATHS, LEADS_ROWS, LEADS_SCORE_ROWS, LEADS_SCORE_SEED,
+            LEADS_SEED, leads_records, records_sha256,
+        )
+        t0 = time.perf_counter()
+        self.train_recs = leads_records(LEADS_ROWS, LEADS_SEED)
+        self.score_recs = leads_records(LEADS_SCORE_ROWS, LEADS_SCORE_SEED)
+        gen_s = time.perf_counter() - t0
+        self.fx, self.exp, self.sample = {}, {}, {}
+        for name in LEADS_PATHS:
+            d = os.path.join(LEADS_ROOT, name)
+            with open(os.path.join(d, "fixture.json")) as fh:
+                self.fx[name] = json.load(fh)
+            self.exp[name] = np.load(os.path.join(d, "expected.npz"))
+            self.sample[name] = np.load(os.path.join(d,
+                                                     "vector_sample.npz"))
+            for key, recs in (("train_records", self.train_recs),
+                              ("score_records", self.score_recs)):
+                sha = records_sha256(recs)
+                if sha != self.fx[name][key]["sha256"]:
+                    raise AssertionError(f"{name}: {key} sha256 {sha}, the "
+                                         f"fixture's "
+                                         f"{self.fx[name][key]['sha256']}")
+        with open(os.path.join(LEADS_ROOT, "leads", "insights.json")) as fh:
+            self.insights = json.load(fh)
+        print(f"(t) leads: {LEADS_ROWS} training and {LEADS_SCORE_ROWS} "
+              f"scoring records rebuilt in {gen_s:.2f} s, sha256 equal to "
+              f"both fixtures'")
+
+    def workflow(self, name):
+        """(workflow, label, prediction, results) of path ``name``, uids as
+        the fixture's, the date clock at the fixture's instant."""
+        from transmogrifai_tpu_torch.testing import (
+            LEADS_CLOCK_MS, LEADS_PATHS, leads_workflow,
+        )
+        label, models = LEADS_PATHS[name]
+        wf, y, pred, results = leads_workflow(self.train_recs, label, models,
+                                              clock_ms=LEADS_CLOCK_MS)
+        if wf.device.type != "cuda":
+            raise AssertionError(f"training on {wf.device}")
+        return wf, y, pred, results
+
+    def check_inputs(self):
+        """(b) each path's kernels at its own inputs, every launch against
+        plain (path (a): the three sweep kernels; path (b): those at k 4
+        and the refit's ``forest_leaf_sums_chain``); then each one's
+        heaviest launch timed. Outside the counted paths. Returns {path:
+        time_heaviest's result}."""
+        out = {}
+        for name, kernels in (
+                ("leads", ("hist_matmul", "node_hist",
+                           "forest_predict_chain")),
+                ("leads_stage", ("hist_matmul", "node_hist",
+                                 "forest_predict_chain",
+                                 "forest_leaf_sums_chain"))):
+            t0 = time.perf_counter()
+            wf, _, _, _ = self.workflow(name)
+            with _KernelChecks(keep_heaviest=True,
+                               direct_per_shape=True) as checks:
+                wf.train()
+                torch.cuda.synchronize()
+            checks.report(name, kernels)
+            print(f"(b) the {name} train's kernel inputs checked in "
+                  f"{time.perf_counter() - t0:.1f} s")
+            out[name] = time_heaviest(checks.heaviest, f"{name} train")
+        return out
+
+    def train(self, name):
+        """The counted train of path ``name``, held to its fixture: the
+        vector's metadata and sampled rows, the SanityChecker's choices,
+        the date pivot's reference instant, the selection, the scores on
+        the scoring records (path (a): the LR refit's params and
+        probabilities; path (b): the RF's probabilities and the
+        deindexed stages), path (a)'s model insights, and a save and
+        reload. Every check runs; the phase fails after the last if any
+        did."""
+        import transmogrifai_tpu_torch as tt
+        from transmogrifai_tpu_torch.testing import (
+            assert_same_sanity, insight_limits, insights_by_feature,
+            json_gaps, sanity_summary, selection_summary,
+        )
+        fx, exp, sample = self.fx[name], self.exp[name], self.sample[name]
+        task = "binary" if fx["label"] == "Converted" else "multiclass"
+        wf, _, pred, results = self.workflow(name)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = wf.train()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        print(f"(t) {name} train: {fx['train_records']['rows']} records, "
+              f"label {fx['label']}, " + (
+                  "binary default list at full default grids"
+                  if task == "binary" else "the RF of rfmc")
+              + f", 3-fold CV + refit + evaluations in {secs:.3f} s "
+              f"(records read and vectorized on the host included; the "
+              f"JAX package's CPU train {fx['train_seconds_jax_cpu']:.1f}"
+              f" s); peak device memory allocated "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+        faults = []
+
+        def check(fn):
+            try:
+                fn()
+            except AssertionError as e:
+                print(f"(t) {name}: FAILED: {e}")
+                faults.append(str(e))
+
+        sc = next(s for s in model.stages
+                  if type(s).__name__ == "SanityCheckerModel")
+        ps = next(s for s in model.stages
+                  if type(s).__name__ == "SelectedModel")
+
+        def vector_and_checks():
+            vec = model.train_table[sc.input_features[1].name]
+            vm = vec.metadata["vector_meta"]
+            meta = {"name": vm.name, "columns": [
+                dataclasses.asdict(c) for c in vm.columns]}
+            if meta != fx["vector"]:
+                raise AssertionError(f"{name}: the vector's metadata "
+                                     f"differs from the fixture's")
+            if not isinstance(vec.values, torch.Tensor) or \
+                    vec.values.device.type != "cuda":
+                raise AssertionError(f"{name}: the vector is not on the "
+                                     f"card")
+            X = vec.values[torch.as_tensor(sample["rows"],
+                                           device=vec.values.device)]
+            if not np.array_equal(X.cpu().numpy(), sample["X"]):
+                raise AssertionError(f"{name}: sampled vector rows differ "
+                                     f"from the fixture's bits")
+            assert_same_sanity(sanity_summary(sc), fx["sanity"])
+            ref_ms = next(s for s in model.stages if type(s).__name__
+                          == "DateListVectorizer").reference_date_ms
+            if ref_ms != fx["reference_date_ms"]:
+                raise AssertionError(f"{name}: reference_date_ms {ref_ms}, "
+                                     f"the fixture's "
+                                     f"{fx['reference_date_ms']}")
+            print(f"(t) {name}: vector {vm.size} columns, metadata equal, "
+                  f"{len(sample['rows'])} sampled rows bit-equal; "
+                  f"SanityChecker keeps {len(sc.keep_indices)}, drops "
+                  f"{len(sc.summary.dropped)} for the fixture's reasons; "
+                  f"date pivot reference {ref_ms} (the fixture's)")
+        check(vector_and_checks)
+        winner = ps.summary.best_model_type
+        got_sel = selection_summary(ps.summary)
+        f64 = {}
+        if task == "binary":
+            from transmogrifai_tpu_torch.testing import (
+                selection_rows, sweep_again,
+            )
+            t1 = time.perf_counter()
+            X, y = selection_rows(pred.origin_stage, model.train_table)
+            f64 = sweep_again(pred.origin_stage, X.double(), y.double(),
+                              LEADS_LINEAR)
+            del X, y
+            print(f"(t) {name}: the linear sweeps evaluated again in "
+                  f"float64 on the card in {time.perf_counter() - t1:.2f} s")
+
+        def fold_limit(family, hyper, ref):
+            if family == "OpLogisticRegression":
+                return None                   # finite where the fixture's is
+            if family == "OpLinearSVC":
+                return LEADS_SVC_FOLD_ATOL
+            return _fold_limit(family, hyper, task, ref, 1.0)
+
+        def selection():
+            from transmogrifai_tpu_torch.testing import selection_gaps
+            try:
+                gaps = selection_gaps(got_sel, fx["selection"], fold_limit)
+            except AssertionError as e:
+                raise AssertionError(f"{name}: {e}") from None
+            print(f"(t) {name}: fold {ps.summary.validation_metric} gaps "
+                  f"to the fixture (largest, share of its limit): "
+                  f"{ {f: (float(f'{g:.3g}'), round(r, 3))
+                       for f, (g, r) in gaps.items()} }")
+        check(selection)
+
+        def linear():
+            by = {g["family"]: np.asarray(g["fold_metrics"], np.float64)
+                  for g in got_sel["families"]}
+            want = {g["family"]: np.asarray(g["fold_metrics"], np.float64)
+                    for g in fx["selection"]["families"]}
+            worst = {}
+            for family in LEADS_LINEAR:
+                d = float(np.abs(by[family] - f64[family]).max())
+                worst[family] = float(f"{d:.3g}")
+                if d > LEADS_LIN_F64_ATOL[family]:
+                    raise AssertionError(
+                        f"{name}: {family} fold metrics {d:.3g} from the "
+                        f"float64 evaluation, beyond "
+                        f"{LEADS_LIN_F64_ATOL[family]}")
+            print(f"(t) {name}: linear fold metrics from the float64 "
+                  f"evaluation (max |d|): {worst} (limits "
+                  f"{LEADS_LIN_F64_ATOL}); from the fixture, per "
+                  f"configuration (max over folds): " + "; ".join(
+                      f"{family} " + str(np.round(np.abs(
+                          by[family] - want[family]).max(axis=0), 6)
+                          .tolist()) for family in LEADS_LINEAR))
+        if task == "binary":
+            check(linear)
+        print(f"(t) {name}: winner {winner} {ps.summary.best_hyper}")
+        ref = tt.load_model(os.path.join(LEADS_ROOT, name, "model"),
+                            workflow=wf)
+        scored = model.score(data=self.score_recs)
+        parts = _parts_of(model, scored)
+        ref_sel = next(s for s in ref.stages
+                       if type(s).__name__ == "SelectedModel")
+        if task == "binary":
+            if _is_tree(winner):
+                raise AssertionError(f"{name}: the winner is not the "
+                                     f"fixture's linear family: "
+                                     + "; ".join(faults))
+            check(lambda: print(
+                f"(t) {name}: vs the JAX-trained model on the scoring "
+                f"records: " + _check_linear(
+                    name, "binary", ps, ref_sel, parts, exp,
+                    TITANIC_LIN_COEF_RTOL, TITANIC_LIN_PROB_ATOL)))
+        else:
+            def stages():
+                keys = sorted(k for k in exp.files
+                              if k.startswith("probability_"))
+                d = max(float(np.abs(parts[k] - exp[k]).max())
+                        for k in keys)
+                top = np.sort(np.stack([exp[k] for k in keys], axis=1),
+                              axis=1)
+                decided = top[:, -1] - top[:, -2] > PRED_MARGIN
+                got = np.asarray(scored[results[1].name].values,
+                                 dtype=object).astype(str)
+                flips = int((got != exp["stage"])[decided].sum()) + int(
+                    (parts["prediction"] != exp["prediction"])[
+                        decided].sum())
+                if d > LEADS_STAGE_PROB_ATOL or flips:
+                    raise AssertionError(
+                        f"{name}: probabilities within {d:.3g} (limit "
+                        f"{LEADS_STAGE_PROB_ATOL}), {flips} decided "
+                        f"predictions or stages differ")
+                counts = {s: int((got == s).sum()) for s in sorted(set(got))}
+                print(f"(t) {name}: vs the JAX-trained model on the scoring "
+                      f"records: {len(keys)} probabilities max |d| {d:.3g}, "
+                      f"0 flips of prediction or deindexed stage in "
+                      f"{int(decided.sum())} decided rows; stages {counts}")
+                # the forest predicts one stage for every scoring record
+                # (both packages' forests): most of its trees stop within
+                # a few splits, so its class probabilities stay near the
+                # classes' shares. The deindexer is held on its own too
+                leaf = ps.fitted.params["leaf"]
+                leaves = (leaf.abs().sum(-1) > 0).sum(1)
+                probs = np.stack([parts[k] for k in keys], axis=1)
+                print(f"(t) {name}: the forest: "
+                      f"{int((leaves == 1).sum())} of {leaf.shape[0]} trees "
+                      f"a single leaf, median "
+                      f"{float(leaves.float().median()):.0f} leaves; "
+                      f"probability_0 over the scoring records in "
+                      f"[{probs[:, 0].min():.3f}, {probs[:, 0].max():.3f}], "
+                      f"the classes' mean probabilities "
+                      f"{np.round(probs.mean(axis=0), 3).tolist()}")
+            check(stages)
+
+            def deindexer():
+                # the JAX package's labels, as its saved deindexer holds
+                # them; every scored stage the label of its prediction,
+                # and the fitted deindexer on the card fed every class
+                # index, float noise and indices out of range
+                from transmogrifai_tpu_torch.table import Column, FeatureTable
+                from transmogrifai_tpu_torch.types import RealNN
+                with open(os.path.join(LEADS_ROOT, name, "model",
+                                       "plan.json")) as fh:
+                    state = next(
+                        st["state"] for st in json.load(fh)["stages"]
+                        if st["className"] == "PredictionDeIndexerModel")
+                labels, unseen = state["labels"], state["unseen_name"]
+                got = np.asarray(scored[results[1].name].values,
+                                 dtype=object).astype(str)
+                mapped = np.asarray(labels, dtype=object)[
+                    parts["prediction"].astype(np.int64)].astype(str)
+                if not np.array_equal(got, mapped):
+                    raise AssertionError(f"{name}: a scored stage is not "
+                                         f"the JAX package's label of its "
+                                         f"prediction")
+                dix = next(s for s in model.stages if type(s).__name__
+                           == "PredictionDeIndexerModel")
+                probe = np.array(list(range(len(labels)))
+                                 + [len(labels), 1.9999999, -0.6], np.float32)
+                want = labels + [unseen, labels[2], unseen]
+                col = dix.input_features[1].name
+                out = dix.transform(FeatureTable(
+                    {col: Column(RealNN, probe, None)}, len(probe))
+                    .to_device(model.device))[dix.get_output().name]
+                if list(out.values) != want:
+                    raise AssertionError(f"{name}: the deindexer on the "
+                                         f"card gives {list(out.values)}, "
+                                         f"the JAX package's labels "
+                                         f"{want}")
+                print(f"(t) {name}: every scored stage the JAX package's "
+                      f"label of its prediction; the deindexer on the card "
+                      f"maps {probe.tolist()} to {want}")
+            check(deindexer)
+        if task == "binary":
+            def insights():
+                import copy
+                got = insights_by_feature(model.model_insights().to_json())
+                # the LR's mean fold metrics against the float64
+                # evaluation's, as its folds are held
+                ref = copy.deepcopy(self.insights)
+                results = ref["modelValidationResults"]
+                for r in results:
+                    if r["modelType"] == "OpLogisticRegression":
+                        r["meanMetrics"] = f64["OpLogisticRegression"].mean(
+                            axis=0).tolist()
+                want = insights_by_feature(ref)
+                base = insight_limits(
+                    winner, ref, TITANIC_LIN_COEF_RTOL,
+                    WCV_EVAL_ATOL, WCV_COUNT_ATOL, LIN_FOLD_ATOL,
+                    WCV_CORR_ATOL)
+                lin = dict(LEADS_LIN_F64_ATOL,
+                           OpLinearSVC=LEADS_SVC_FOLD_ATOL)
+
+                def limit(path):
+                    # a linear configuration's mean fold metric: its
+                    # folds' limit
+                    if (len(path) == 4 and path[0] ==
+                            "modelValidationResults"
+                            and path[2] == "meanMetrics"):
+                        family = results[int(path[1])]["modelType"]
+                        if family in lin:
+                            return (0.0, lin[family])
+                    return base(path)
+                try:
+                    gaps = json_gaps(got, want, limit)
+                except AssertionError as e:
+                    raise AssertionError(f"{name} insights: {e}") from None
+                shares = {k: float(f"{v:.3g}")
+                          for k, v in sorted(gaps.items())}
+                print(f"(t) {name}: model insights of "
+                      f"{len(got['features'])} features (maps by key) keys "
+                      f"and strings equal, each section's largest gap / its "
+                      f"limit: {shares}")
+            check(insights)
+        check(lambda: save_and_reload(
+            name, model, os.path.join(LEADS_ROOT, name, "model"),
+            self.score_recs, workflow=wf))
+        if faults:
+            raise AssertionError(f"{name}: {len(faults)} check(s) failed: "
+                                 + "; ".join(faults))
+        return secs
+
+
 def phase_serve():
     """The port's main path: load, score, answer requests, for every
     committed fixture (binary probability_1 within PROB_ATOL; regression
@@ -2572,6 +3102,8 @@ def _run(dev, kernels, tmp) -> int:
     titanic_kern = titanic.check_inputs()
     wcv = TitanicWCV(titanic)
     wcv_kern = wcv.check_inputs()
+    leads = Leads()
+    leads_kern = leads.check_inputs()
 
     def run_path(name, phase, path_kernels):
         """Zero every count, drive the path, read the counts; each of
@@ -2599,6 +3131,16 @@ def _run(dev, kernels, tmp) -> int:
                                           sweep)
     print(f"launches, train titanic_wcv: "
           f"{ {k: v for k, v in paths['train titanic_wcv'].items() if v} }")
+    # path (a) sweeps its tree families and refits the LR; path (b) grows
+    # the RF at k = 4 classes and sums its refit's leaves
+    paths["train leads"] = run_path("train leads",
+                                    lambda: leads.train("leads"), sweep)
+    paths["train leads_stage"] = run_path(
+        "train leads_stage", lambda: leads.train("leads_stage"),
+        (hist, node, F.FOREST_LEAF_SUMS_CHAIN, F.FOREST_PREDICT_CHAIN))
+    for name in ("train leads", "train leads_stage"):
+        print(f"launches, {name}: "
+              f"{ {k: v for k, v in paths[name].items() if v} }")
     paths.update({
         "train gbt": run_path("train gbt",
                               lambda: train_against_fixture("gbt"),
@@ -2674,6 +3216,17 @@ def _run(dev, kernels, tmp) -> int:
                           "bound_by": r["bound"][1],
                           "launches_per_train":
                               paths["train titanic_wcv"][name]}))
+    for path, kern_of in leads_kern.items():
+        for name, r in kern_of.items():
+            print(json.dumps({f"{path}_kernel": name,
+                              "shape": str(r["shape"]), "ms": r["ms"],
+                              "plain_ms": r["plain_ms"],
+                              "library_ms": r["library_ms"],
+                              "passes": r["passes"],
+                              "bound_ms": r["bound"][0],
+                              "bound_by": r["bound"][1],
+                              "launches_per_train":
+                                  paths[f"train {path}"][name]}))
     print(json.dumps({"save_load_s": {
         k: {"save": v[0], "load": v[1]} for k, v in SAVE_LOAD_S.items()}}))
     launches = {k.name: sum(c[k.name] for c in paths.values())

@@ -1388,3 +1388,39 @@ def test_filter_with_no_device_runs_on_the_card(cuda, monkeypatch):
         gc, wc = g.null_label_correlation, w.null_label_correlation
         assert (np.isnan(wc) and (np.isnan(gc) or abs(gc) <= bound)) or \
             abs(gc - wc) <= bound, (g.name, gc, wc)
+
+
+def test_leads_vector_on_the_card_equals_the_cpu(cuda):
+    """The lead-conversion vector (dates, a date list, a geolocation and
+    nine maps through ``transmogrify``) fitted and built with the table on
+    the card equals the one built on the CPU, bit for bit, with the same
+    metadata; every block of it lands on the table's device."""
+    import dataclasses
+    from transmogrifai_tpu_torch.dag import (
+        compute_dag, fit_and_transform_dag,
+    )
+    from transmogrifai_tpu_torch.testing import (
+        LEADS_CLOCK_MS, leads_records, leads_workflow,
+    )
+    recs = leads_records(2000, 8)
+    out = []
+    for dev in ("cpu", cuda):
+        wf, _, _, _ = leads_workflow(recs, device=dev,
+                                     clock_ms=LEADS_CLOCK_MS)
+        vec_stage = next(s for s in wf.stages
+                         if type(s).__name__ == "VectorsCombiner")
+        table = wf.reader.generate_table(wf.raw_features).to_device(dev)
+        t, _ = fit_and_transform_dag(table, compute_dag(
+            [vec_stage.get_output()]))
+        blocks = [t[f.name] for f in vec_stage.input_features]
+        assert all(b.values.device.type == torch.device(dev).type
+                   for b in blocks), [f.name for f in
+                                      vec_stage.input_features]
+        col = t[vec_stage.get_output().name]
+        out.append((col.values.cpu().numpy(), [
+            dataclasses.asdict(c)
+            for c in col.metadata["vector_meta"].columns]))
+    (a, ma), (b, mb) = out
+    assert a.shape[1] > 600
+    np.testing.assert_array_equal(a, b)
+    assert ma == mb

@@ -63,7 +63,16 @@ PORTED = {"Real": "real", "RealNN": "real", "Currency": "real",
           "State": "text", "City": "text", "PostalCode": "text",
           "Street": "text", "Phone": "text", "MultiPickList": "multipicklist",
           "TextList": "text_list", "OPVector": "vector",
-          "Prediction": "prediction"}
+          "Prediction": "prediction", "Date": "date", "DateTime": "date",
+          "DateList": "date_list", "DateTimeList": "date_list",
+          "Geolocation": "geolocation",
+          **{name: "map" for name in (
+              "TextMap", "EmailMap", "Base64Map", "PhoneMap", "IDMap",
+              "URLMap", "TextAreaMap", "PickListMap", "ComboBoxMap",
+              "CountryMap", "StateMap", "CityMap", "PostalCodeMap",
+              "StreetMap", "GeolocationMap", "BinaryMap", "IntegralMap",
+              "RealMap", "CurrencyMap", "PercentMap", "DateMap",
+              "DateTimeMap", "MultiPickListMap")}}
 
 TRAP_CSV = (
     "id,n,nb,x,s,sb,num,quoted,flag,cat\n"
@@ -116,7 +125,8 @@ def test_ported_types_keep_their_kinds_and_resolve_by_name():
         assert pt.column_kind == JT.FEATURE_TYPES[name].column_kind == kind
         if name not in ("OPVector", "Prediction"):   # never empty
             assert pt.is_nullable == JT.FEATURE_TYPES[name].is_nullable
-    for name in ("Date", "Geolocation", "TextMap", "RealMap"):
+    assert sorted(PT.FEATURE_TYPES) == sorted(JT.FEATURE_TYPES)
+    for name in ("NoSuchType", "OPMap", "OPList"):
         with pytest.raises(ValueError, match=name):
             PT.feature_type_by_name(name)
 

@@ -53,7 +53,7 @@ from transmogrifai_tpu_torch.features import reset_uids as port_reset  # noqa: E
 from transmogrifai_tpu_torch.filters import distribution as pdist  # noqa: E402
 from transmogrifai_tpu_torch.filters import RawFeatureFilter as PRFF  # noqa: E402
 from transmogrifai_tpu_torch.table import Column, FeatureTable  # noqa: E402
-from transmogrifai_tpu_torch.types import FEATURE_TYPES, OPMap  # noqa: E402
+from transmogrifai_tpu_torch.types import FEATURE_TYPES  # noqa: E402
 
 JS_RTOL = 1e-9
 CORR_ATOL = 1e-6
@@ -255,14 +255,6 @@ def _jax_features():
             JFB.Text("t").extract_field().as_predictor())
 
 
-def _port_map_feature(name):
-    """A raw map feature (the port has no typed map features yet)."""
-    from transmogrifai_tpu_torch.features import FieldExtractor
-    from transmogrifai_tpu_torch.stages.base import FeatureGeneratorStage
-    return FeatureGeneratorStage(FieldExtractor(name), name, OPMap,
-                                 False).get_output()
-
-
 def _port_features():
     FB = port.FeatureBuilder
     return (FB.RealNN("y").extract_field().as_response(),
@@ -270,7 +262,7 @@ def _port_features():
             FB.Real("empty").extract_field().as_predictor(),
             FB.Real("shifted").extract_field().as_predictor(),
             FB.Real("leaky").extract_field().as_predictor(),
-            _port_map_feature("m"),
+            FB.RealMap("m").extract_field().as_predictor(),
             FB.Text("t").extract_field().as_predictor())
 
 
@@ -304,12 +296,11 @@ def _score_df(n=400, seed=1):
 
 def _port_table(jtable, names):
     """A JAX host table's columns as the port's host table (the same
-    values and masks; a map column as ``OPMap``)."""
+    values and masks)."""
     cols = {}
     for name in names:
         jc = jtable[name]
-        ftype = (OPMap if jc.kind == "map"
-                 else FEATURE_TYPES[jc.feature_type.__name__])
+        ftype = FEATURE_TYPES[jc.feature_type.__name__]
         vals = np.asarray(jc.values)
         if ftype.column_kind == "real":
             vals = vals.astype(np.float32)
@@ -398,7 +389,7 @@ def test_protected_features_survive():
 def test_map_feature_without_keys_uses_whole_column_fill():
     n = 50
     jfeat = JFB.RealMap("m").extract_field().as_predictor()
-    pfeat = _port_map_feature("m")
+    pfeat = port.FeatureBuilder.RealMap("m").extract_field().as_predictor()
     jtab = dataframe_to_table(pd.DataFrame({"m": [None] * n}), [jfeat])
     ptab = _port_table(jtab, ["m"])
     _, jbl, jres = JRFF(score_table=jtab).filter_raw(jtab, [jfeat])

@@ -693,7 +693,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "filters.raw_feature_filter", "filters.distribution",
                 "utils.streaming_histogram",
                 "impl.selector.random_param_builder",
-                "insights.model_insights"):
+                "insights.model_insights", "impl.feature.dates",
+                "impl.feature.geo", "impl.feature.maps",
+                "impl.feature.text",
+                "impl.preparators.prediction_deindexer"):
         assert f"transmogrifai_tpu_torch.{mod}" in walked, mod
 
 
@@ -718,9 +721,9 @@ def test_corrupt_or_unknown_saved_state_raises(tmp_path):
     os.remove(os.path.join(odd, "MANIFEST.json"))   # loads unverified
     plan_path = os.path.join(odd, "plan.json")
     plan = open(plan_path).read().replace('"RealVectorizerModel"',
-                                          '"DateToUnitCircleTransformer"')
+                                          '"OpScalarStandardScaler"')
     open(plan_path, "w").write(plan)
-    with pytest.raises(ValueError, match="DateToUnitCircleTransformer.*no "
+    with pytest.raises(ValueError, match="OpScalarStandardScaler.*no "
                                          "counterpart"):
         port.load_model(odd, device="cpu")
 

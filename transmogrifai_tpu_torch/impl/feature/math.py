@@ -5,13 +5,13 @@ device and rounded once to float32, as the JAX package computes them in
 numpy; a missing input or a result that is not finite is missing."""
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 
 from ...stages.base import BinaryTransformer, UnaryTransformer
 from ...table import Column, FeatureTable
-from ...types import Real
+from ...types import OPMap, Real
 
 _OPS = {"+": torch.add, "-": torch.sub, "*": torch.mul, "/": torch.div}
 _PY_OPS = {"+": lambda a, b: a + b, "-": lambda a, b: a - b,
@@ -108,3 +108,31 @@ class AliasTransformer(UnaryTransformer):
 
     def transform_row(self, row: Dict[str, Any]) -> Any:
         return row.get(self.input_features[0].name)
+
+
+class FilterMap(UnaryTransformer):
+    """OPMap -> the same map type, holding only the keys in
+    ``white_list_keys`` (when given) and outside ``black_list_keys``; a
+    map left empty is missing."""
+
+    def __init__(self, white_list_keys: Sequence[str] = (),
+                 black_list_keys: Sequence[str] = (), uid=None):
+        white = set(white_list_keys)
+        black = set(black_list_keys)
+
+        def fn(v):
+            if v is None:
+                return None
+            out = {k: x for k, x in v.items()
+                   if (not white or str(k) in white) and str(k) not in black}
+            return out or None
+
+        super().__init__("filterMap", transform_fn=fn, output_type=OPMap,
+                         uid=uid)
+        self.white_list_keys = tuple(white_list_keys)
+        self.black_list_keys = tuple(black_list_keys)
+
+    def set_input(self, *features):
+        out = super().set_input(*features)
+        self.output_type = features[0].feature_type
+        return out

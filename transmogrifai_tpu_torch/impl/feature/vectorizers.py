@@ -92,6 +92,22 @@ def _emit(stage: Transformer, mat: torch.Tensor,
     return Column(OPVector, mat, None, {"vector_meta": vm})
 
 
+def _emit_host(stage: Transformer, table: FeatureTable, mat: np.ndarray,
+               meta: List[VectorColumnMetadata]) -> Column:
+    """``_emit`` of a block built on the host, copied to the table's
+    device once."""
+    return _emit(stage, table.on_device(
+        np.ascontiguousarray(mat, dtype=np.float32)), meta)
+
+
+def _map_rows(col: Column) -> List[Optional[Dict[str, Any]]]:
+    """Each row's python value (a map, a list), None where the row is
+    missing."""
+    vals, valid = col.host_values(), col.valid_mask()
+    return [vals[i] if valid[i] and vals[i] is not None else None
+            for i in range(len(col))]
+
+
 def _fill_blocks(stage: Transformer, table: FeatureTable,
                  fills: Sequence[float], track_nulls: bool) -> Column:
     """Each input's values with its missing slots filled, and with

@@ -1,0 +1,3 @@
+from .prediction_deindexer import PredictionDeIndexer, PredictionDeIndexerModel
+
+__all__ = ["PredictionDeIndexer", "PredictionDeIndexerModel"]

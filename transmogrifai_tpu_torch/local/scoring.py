@@ -2,11 +2,11 @@
 ``transmogrifai_tpu.local.scoring``).
 
 Both scorers build a host table from request rows (each raw feature's
-extract function on each row; numbers converted in one sweep, other types
-as the JAX package's ``Column.of_values`` converts python values), score it
-on the model's device through the same columnar pass as
-``OpWorkflowModel.score``, and hand back plain python records: a Prediction
-as ``{key: float}``.
+extract function on each row, the label's too; numbers converted in one
+sweep, other types as the JAX package's ``Column.of_values`` converts
+python values), score it on the model's device through the same columnar
+pass as ``OpWorkflowModel.score``, and hand back plain python records: a
+Prediction as ``{key: float}``.
 """
 from __future__ import annotations
 
@@ -29,7 +29,11 @@ class ScoreSchemaError(ValueError):
 
 
 def _table_fn(model) -> Callable[[Sequence[Dict[str, Any]]], FeatureTable]:
-    raw = [f for f in model.raw_features if not f.is_response]
+    # every raw feature, the label too, as the JAX package's row scorer
+    # extracts them: a request without the label gives a missing value,
+    # which a fitted stage of the label (an indexer) reads as the JAX
+    # package's does; the model's predictors never read it
+    raw = list(model.raw_features)
 
     def build(rows: Sequence[Dict[str, Any]]) -> FeatureTable:
         cols = {}
@@ -37,7 +41,7 @@ def _table_fn(model) -> Callable[[Sequence[Dict[str, Any]]], FeatureTable]:
             vals = [f.origin_stage.extract(r) for r in rows]
             try:
                 if f.feature_type.column_kind in ("real", "binary",
-                                                  "integral"):
+                                                  "integral", "date"):
                     cols[f.name] = column_of_scalars(
                         f.feature_type, [np.nan if v is None else v
                                          for v in vals])

@@ -24,6 +24,12 @@ The arithmetic follows the JAX package's XLA programs on the CPU:
   scalar schedules (Adam's bias corrections, the SVC step, ISTA's step)
   are float32 tensors.
 
+The binary logistic regression and the SVC compute in X's dtype: float32
+on every path; a float64 X evaluates the same sweep (its bf16 roundings
+and float32 exp kept, every other value and sum float64), the reference a
+float32 sweep is held to where the order of its float32 sums decides its
+result.
+
 Grid values reach the solvers as (B,) float32 tensors on X's device.
 """
 from __future__ import annotations
@@ -51,9 +57,10 @@ def _grid_tensor(grid: Dict[str, Any], key: str, X: torch.Tensor,
 
 
 def _rounder(sweep: bool):
-    """x -> x rounded to bfloat16 (kept as f32) when ``sweep``, else x."""
+    """x -> x rounded to bfloat16 (kept in x's dtype) when ``sweep``, else
+    x."""
     if sweep:
-        return lambda x: x.to(torch.bfloat16).to(_F32)
+        return lambda x: x.to(torch.bfloat16).to(x.dtype)
     return lambda x: x
 
 
@@ -126,7 +133,7 @@ class _BatchStd:
         # absolute floor for columns constant at ~0
         dead = var_raw < torch.clamp(1e-6 * ex2, min=1e-10)
         self.mean = mean
-        self.scale = torch.where(dead, torch.tensor(1e30, dtype=_F32,
+        self.scale = torch.where(dead, torch.tensor(1e30, dtype=X.dtype,
                                                     device=X.device),
                                  torch.sqrt(self.var))        # (B, d)
         #: the gradients' divisor, scale * cnt (XLA folds x / scale / cnt)
@@ -169,6 +176,7 @@ def _fit_logreg_batch(X, y, W, reg, elastic_net, newton_iters=10, cg_iters=8,
     reg/elastic_net: (B,). Returns (coef (B, d), bias (B,)) in original
     scale. ``sweep``: bf16 (n, B) temporaries (see the module notes)."""
     with _tf32_off():
+        W = W.to(X.dtype)
         nB, d = W.shape[0], X.shape[1]
         r = _rounder(sweep)
         std = _BatchStd(X, W)
@@ -179,10 +187,10 @@ def _fit_logreg_batch(X, y, W, reg, elastic_net, newton_iters=10, cg_iters=8,
         Wt_c = r(std.Wt)
         yv_c = r(y[:, None])
         xs_dot, xs_t_dot = std.typed_ops(r, Xg_c)
-        floor = r(torch.tensor(1e-6, dtype=_F32, device=X.device))
+        floor = r(torch.tensor(1e-6, dtype=X.dtype, device=X.device))
         Xg2_c = Xg_c * Xg_c          # XLA keeps this bf16 product unrounded
-        A = torch.zeros((nB, d), dtype=_F32, device=X.device)
-        b = torch.zeros((nB,), dtype=_F32, device=X.device)
+        A = torch.zeros((nB, d), dtype=X.dtype, device=X.device)
+        b = torch.zeros((nB,), dtype=X.dtype, device=X.device)
         for _ in range(newton_iters):
             Z = r(xs_dot(A) + r(b)[None, :])
             P = _sigmoid(Z, r)
@@ -315,6 +323,7 @@ def _fit_svc_batch(X, y, W, reg, iters=100, sweep=False):
     descent, two shared products a step. ``sweep``: bf16 (n, B) margin and
     gradient temporaries."""
     with _tf32_off():
+        W = W.to(X.dtype)
         nB, d = W.shape[0], X.shape[1]
         r = _rounder(sweep)
         std = _BatchStd(X, W)
@@ -332,9 +341,9 @@ def _fit_svc_batch(X, y, W, reg, iters=100, sweep=False):
 
         # Lipschitz ~ 2 mean row-norm^2 (+ reg); standardized rows: ~ d
         lr = 1.0 / ((2.0 * d / 4.0 + reg) + 1.0)               # (B,)
-        A = Ap = torch.zeros((nB, d), dtype=_F32, device=X.device)
-        b = bp = torch.zeros((nB,), dtype=_F32, device=X.device)
-        t = torch.tensor(1.0, dtype=_F32, device=X.device)
+        A = Ap = torch.zeros((nB, d), dtype=X.dtype, device=X.device)
+        b = bp = torch.zeros((nB,), dtype=X.dtype, device=X.device)
+        t = torch.tensor(1.0, dtype=X.dtype, device=X.device)
         for _ in range(iters):
             mom = (t - 1.0) / (t + 2.0)
             mA = A + mom * (A - Ap)

@@ -49,12 +49,16 @@ import torch
 from .device import resolve_device
 from .features import Feature, FieldExtractor
 from .filters.raw_feature_filter import FeatureMetrics, RawFeatureFilterResults
-from .impl.feature.math import AliasTransformer, BinaryMathOp, ScalarOp
+from .impl.feature import dates, geo, maps, text
+from .impl.feature.math import (
+    AliasTransformer, BinaryMathOp, FilterMap, ScalarOp,
+)
 from .impl.feature.vectorizers import (
     BinaryVectorizer, HashingVectorizer, OneHotVectorizerModel,
     RealNNVectorizer, RealVectorizerModel, SmartTextVectorizerModel,
     TextTokenizer, VectorsCombiner,
 )
+from .impl.preparators.prediction_deindexer import PredictionDeIndexerModel
 from .impl.preparators.sanity_checker import (
     CategoricalGroupStats, ColumnStatistics, SanityCheckerModel,
     SanityCheckerSummary,
@@ -89,6 +93,7 @@ CLASSES: Dict[str, type] = {
         "impl.feature.math:ScalarOp": ScalarOp,
         "impl.feature.math:BinaryMathOp": BinaryMathOp,
         "impl.feature.math:AliasTransformer": AliasTransformer,
+        "impl.feature.math:FilterMap": FilterMap,
         "impl.feature.vectorizers:RealVectorizerModel": RealVectorizerModel,
         "impl.feature.vectorizers:RealNNVectorizer": RealNNVectorizer,
         "impl.feature.vectorizers:BinaryVectorizer": BinaryVectorizer,
@@ -99,6 +104,22 @@ CLASSES: Dict[str, type] = {
         "impl.feature.vectorizers:TextTokenizer": TextTokenizer,
         "impl.feature.vectorizers:HashingVectorizer": HashingVectorizer,
         "impl.feature.vectorizers:VectorsCombiner": VectorsCombiner,
+        **{f"impl.feature.dates:{c.__name__}": c for c in (
+            dates.TimePeriodTransformer, dates.TimePeriodListTransformer,
+            dates.TimePeriodMapTransformer,
+            dates.DateToUnitCircleTransformer,
+            dates.DateMapToUnitCircleVectorizer, dates.DateListVectorizer)},
+        **{f"impl.feature.geo:{c.__name__}": c for c in (
+            geo.GeolocationVectorizerModel,
+            geo.GeolocationMapVectorizerModel)},
+        **{f"impl.feature.maps:{c.__name__}": c for c in (
+            maps.MapVectorizerModel, maps.TextMapPivotVectorizerModel,
+            maps.SmartTextMapVectorizerModel, maps.TextMapNullModel)},
+        **{f"impl.feature.text:{c.__name__}": c for c in (
+            text.OpStringIndexerModel, text.OpIndexToString,
+            text.OpIndexToStringNoFilter)},
+        "impl.preparators.prediction_deindexer:PredictionDeIndexerModel":
+            PredictionDeIndexerModel,
         "impl.preparators.sanity_checker:SanityCheckerModel":
             SanityCheckerModel,
         "impl.selector.model_selector:SelectedModel": SelectedModel,

@@ -3,7 +3,7 @@
     python3 -m transmogrifai_tpu_torch.profile_train
         [--family gbt|gbt12|rf|dt|rfreg|gbtreg|rfmc|xgbmc|lr|svc|lrmc|nbmc|
                   linreg|glm|default_binary|default_mc|default_reg|mlp|
-                  mlpmc|titanic|titanic_wcv]
+                  mlpmc|titanic|titanic_wcv|leads|leads_stage]
         [--rows 20000] [--reps 3]
 
 Trains one of the serve bench's workflows (64 ``Real`` predictors,
@@ -26,7 +26,12 @@ phases (reading, each vectorizer's fit and transform) are timed too; or
 4,096-row scoring file and workflow-level CV
 (``testing.titanic_wcv_workflow``), whose workflow phases (the filter,
 the label-independent stages, the folds' preparation, the per-fold
-sweeps, the rest with the refit) are timed too. It
+sweeps, the rest with the refit) are timed too; or ``leads`` and
+``leads_stage``, the lead-conversion paths (``testing.leads_workflow``:
+dates, geolocations and maps through ``transmogrify`` to ~620 columns,
+then the binary default list, or the indexed stage label with the RF of
+``rfmc`` and the prediction deindexer) on ``testing.leads_records``,
+built with the date clock at the fixtures' instant. It
 trains on ``--rows`` seeded rows, once to
 warm up and then ``--reps`` times, and prints one JSON line: the median
 over the trains of the seconds of the whole ``train()``, and of each
@@ -54,7 +59,8 @@ from contextlib import contextmanager
 import torch
 
 from .testing import (
-    SERVE_MODELS, serve_bench_data, serve_bench_workflow,
+    LEADS_CLOCK_MS, LEADS_PATHS, LEADS_SEED, SERVE_MODELS, leads_records,
+    leads_workflow, serve_bench_data, serve_bench_workflow,
 )
 
 
@@ -68,7 +74,9 @@ def _timing(phases: dict):
         OpRegressionEvaluator,
     )
     from .filters import RawFeatureFilter
+    from .impl.feature import dates as DT, geo as G, maps as M, text as TX
     from .impl.feature import vectorizers as V
+    from .impl.preparators import prediction_deindexer as PD
     from .impl.preparators.sanity_checker import SanityChecker
     from .readers.readers import Reader
     from .stages.base import _LambdaTransformer
@@ -86,12 +94,23 @@ def _timing(phases: dict):
     ] + [
         (cls, "fit", lambda *a, name=cls.__name__, **k: f"fit {name}")
         for cls in (V.RealVectorizer, V.IntegralVectorizer,
-                    V.OneHotVectorizer, V.SmartTextVectorizer)
+                    V.OneHotVectorizer, V.SmartTextVectorizer,
+                    G.GeolocationVectorizer, G.GeolocationMapVectorizer,
+                    M.MapVectorizer, M.TextMapPivotVectorizer,
+                    M.SmartTextMapVectorizer, TX.OpStringIndexer,
+                    PD.PredictionDeIndexer)
     ] + [
         (cls, "transform_column",
          lambda *a, name=cls.__name__, **k: f"transform {name}")
         for cls in (V.RealVectorizerModel, V.OneHotVectorizerModel,
-                    V.SmartTextVectorizerModel, V.VectorsCombiner)
+                    V.SmartTextVectorizerModel, V.VectorsCombiner,
+                    DT.DateToUnitCircleTransformer, DT.DateListVectorizer,
+                    DT.DateMapToUnitCircleVectorizer,
+                    G.GeolocationVectorizerModel,
+                    G.GeolocationMapVectorizerModel, M.MapVectorizerModel,
+                    M.TextMapPivotVectorizerModel,
+                    M.SmartTextMapVectorizerModel, TX.OpStringIndexerModel,
+                    PD.PredictionDeIndexerModel)
     ] + [
         (SanityChecker, "fit", lambda *a, **k: "fit SanityChecker"),
         (RawFeatureFilter, "filter_raw",
@@ -164,6 +183,11 @@ def _workflow_fn(family: str, rows: int, tmp: str):
         score = os.path.join(tmp, "titanic_score.csv")
         titanic_csv(score, TITANIC_SCORE_ROWS, TITANIC_SCORE_SEED)
         return lambda: titanic_wcv_workflow(path, score)[0]
+    if family in LEADS_PATHS:
+        recs = leads_records(rows, LEADS_SEED)
+        label, models = LEADS_PATHS[family]
+        return lambda: leads_workflow(recs, label, models,
+                                      clock_ms=LEADS_CLOCK_MS)[0]
     name, hyper, task = SERVE_MODELS[family]
     data = serve_bench_data(rows, 64, seed=0, task=task)
     return lambda: serve_bench_workflow(
@@ -235,7 +259,7 @@ def _profile(workflow, family: str, rows: int, reps: int) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--family", choices=sorted(SERVE_MODELS)
-                    + ["titanic", "titanic_wcv"],
+                    + ["titanic", "titanic_wcv"] + sorted(LEADS_PATHS),
                     default="gbt")
     ap.add_argument("--rows", type=int, default=20000)
     ap.add_argument("--reps", type=int, default=3)

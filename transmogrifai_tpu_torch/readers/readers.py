@@ -128,7 +128,8 @@ def infer_column(fields: Sequence[str]) -> np.ndarray:
 def _column_of_python(values: Sequence[Any]) -> np.ndarray:
     """A column of python values -> the numpy column a DataFrame makes of
     it: bool, int64, float64 (None is NaN), or object (None is NaN when the
-    other cells are strings; a column of only None keeps them)."""
+    other cells are strings; a column of only None, or of lists or dicts,
+    keeps them)."""
     present = [v for v in values
                if v is not None and not (isinstance(v, float)
                                          and math.isnan(v))]
@@ -271,7 +272,7 @@ def series_to_column(feature_type, arr: np.ndarray) -> Column:
     """One frame column -> the host column of ``feature_type`` (the JAX
     package's ``series_to_column``)."""
     kind = feature_type.column_kind
-    if kind in ("real", "binary", "integral"):
+    if kind in ("real", "binary", "integral", "date"):
         num = _to_numeric(arr)
         mask = ~np.isnan(num)
         filled = np.where(mask, num, 0.0)
@@ -304,16 +305,18 @@ def frame_to_table(frame: Frame, raw_features: Sequence[Feature],
                    require_response: bool = True) -> FeatureTable:
     """A host table of ``raw_features`` from a frame (the JAX package's
     ``dataframe_to_table``): a field extractor converts its column whole,
-    a custom extract function runs on each record. Response features are
-    left out unless ``require_response``. The key is ``key_field``'s
-    column as strings (missing stays NaN) or ``key_fn`` of each record."""
+    a custom extract function runs on each record. Unless
+    ``require_response``, a response feature is read only when it is a
+    field the frame holds. The key is ``key_field``'s column as strings
+    (missing stays NaN) or ``key_fn`` of each record."""
     cols: Dict[str, Column] = {}
     slow: List[Feature] = []
     missing: List[str] = []
     for f in raw_features:
-        if f.is_response and not require_response:
-            continue
         field = _field_name_of(f.origin_stage.extract_fn)
+        if f.is_response and not require_response and (
+                field is None or field not in frame):
+            continue
         if field is None:
             slow.append(f)
         elif field in frame:

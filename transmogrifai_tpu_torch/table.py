@@ -30,11 +30,12 @@ class Column:
     """One feature column.
 
     values: float32 (n,) for 'real' and 'binary' (0/1; invalid slots hold
-    0.0), int64 (n,) host array for 'integral' (invalid slots hold 0),
-    float32 (n, d) for 'vector', float32 (n, k) for 'prediction' (key order
-    in ``metadata['keys']``), a numpy object array (n,) for 'text',
-    'multipicklist' and 'text_list'; a numpy array on the host or a tensor
-    on a device.
+    0.0), int64 (n,) host array for 'integral' and 'date' (epoch ms;
+    invalid slots hold 0), float32 (n, d) for 'vector', float32 (n, k) for
+    'prediction' (key order in ``metadata['keys']``), a numpy object array
+    (n,) of the python values for 'text', 'multipicklist', 'text_list',
+    'date_list', 'geolocation' and 'map'; a numpy array on the host or a
+    tensor on a device.
     mask: bool (n,) validity, None when every row is valid.
     """
     feature_type: Type[FeatureType]
@@ -66,7 +67,7 @@ class Column:
         package's ``Column.of_values``)."""
         kind = feature_type.column_kind
         n = len(raw)
-        if kind in ("real", "binary", "integral"):
+        if kind in ("real", "binary", "integral", "date"):
             missing = [_is_missing_scalar(v) for v in raw]
             mask = np.array([not m for m in missing], dtype=bool)
             if kind == "real":
@@ -127,12 +128,12 @@ def _is_missing(v: Any) -> bool:
 
 
 def column_of_scalars(feature_type: Type[FeatureType], raw) -> Column:
-    """A 'real', 'binary' or 'integral' host column from a numeric
+    """A 'real', 'binary', 'integral' or 'date' host column from a numeric
     sequence: NaN is missing and its slot holds 0 (the JAX package's
-    ``column_of_scalars``: binary tests != 0, integral truncates toward
-    zero). Raises TypeError on values that are not numbers."""
+    ``column_of_scalars``: binary tests != 0, integral and date truncate
+    toward zero). Raises TypeError on values that are not numbers."""
     kind = feature_type.column_kind
-    if kind not in ("real", "binary", "integral"):
+    if kind not in ("real", "binary", "integral", "date"):
         raise TypeError(f"{feature_type.__name__} is not a numeric scalar "
                         f"type")
     try:

@@ -9,7 +9,8 @@ JAX package and to the port."""
 from __future__ import annotations
 
 import re
-from typing import Any, Callable, Dict, Optional, Tuple
+from contextlib import contextmanager
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -769,3 +770,335 @@ def selection_gaps(got: dict, want: dict,
                     f"{gf[f, c]} off the expected {ref} beyond {lim:.3g}")
         out[g["family"]] = (worst, share)
     return out
+
+
+def selection_rows(selector, table):
+    """(X, y): the rows the model selector ``selector`` (the estimator of
+    a trained workflow) swept, rebuilt from the trained model's
+    ``train_table`` on its device: the splitter's rows and label
+    mapping, as the selector's fit takes them."""
+    import torch
+    label_f, vec_f = selector.input_features
+    y_all = torch.as_tensor(table[label_f.name].values).to(
+        torch.float32).reshape(-1)
+    X_all = torch.as_tensor(table[vec_f.name].values).to(torch.float32)
+    _, _, rows, prep = selector._prepared_rows(y_all.cpu().numpy())
+    idx = torch.as_tensor(rows, device=X_all.device)
+    X, y = X_all[idx], y_all[idx]
+    if prep.label_mapping:
+        # dense class indices, as the selector's fit maps them
+        y = torch.as_tensor(np.array(
+            [prep.label_mapping.get(int(v), -1) for v in y.cpu().numpy()],
+            np.float32), device=X.device)
+    return X, y
+
+
+def sweep_again(selector, X, y, families) -> Dict[str, np.ndarray]:
+    """{family name: (folds, configurations) fold metrics}: the sweep of
+    ``families`` by ``selector`` (its validator, folds, grids and metric)
+    on ``X`` and ``y`` (``selection_rows``, in any dtype, device or
+    column order). On the rows as trained it repeats the train's sweep;
+    in float64 it evaluates the same sweep with float64 sums
+    (``models.linear``)."""
+    metric, larger_better = selector.validation_metric
+    out = {}
+    for family, grid in selector.models:
+        if family.name in families:
+            best = selector.validator.validate(
+                [(family, grid)], X, y, selector.problem, metric,
+                larger_better, selector._num_classes(y.cpu().numpy()))
+            out[family.name] = np.asarray(best.results[0].fold_metrics,
+                                          np.float64)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The lead-conversion table: dates, geolocations and maps
+# ---------------------------------------------------------------------------
+
+#: the leads fixtures' training and scoring records: rows and seed of each
+LEADS_ROWS, LEADS_SEED = 20000, 0
+LEADS_SCORE_ROWS, LEADS_SCORE_SEED = 4096, 1
+#: the instant the leads fixtures were trained at (2026-01-01 00:00 UTC,
+#: epoch ms): the date-list pivot's "days since" counts back from the
+#: clock reading its vectorizer takes when it is built, so a train that
+#: is to match the fixtures builds its DAG with the clock at this instant
+#: (``fixed_clock``)
+LEADS_CLOCK_MS = 1767225600000
+_DAY_MS = 86_400_000
+
+#: the leads table's predictors: (field, feature type), in the order the
+#: workflows build them
+LEADS_PREDICTORS = (
+    ("CreatedDate", "Date"), ("LastActivity", "DateTime"),
+    ("Activities", "DateList"), ("Location", "Geolocation"),
+    ("Scores", "RealMap"), ("Visits", "IntegralMap"),
+    ("Flags", "BinaryMap"), ("Attributes", "PickListMap"),
+    ("Products", "MultiPickListMap"), ("Notes", "TextMap"),
+    ("Milestones", "DateMap"), ("Offices", "GeolocationMap"),
+    ("AnnualRevenue", "Currency"), ("Employees", "Integral"))
+LEADS_STAGES = ("Open", "Working", "Nurturing", "Qualified")
+#: the leads fixtures: directory -> (label, the selector's pinned models;
+#: None sweeps the default list at full default grids). Path (a) trains
+#: ``Converted``, path (b) the indexed ``Stage`` with the RF of
+#: ``SERVE_MODELS["rfmc"]``
+LEADS_PATHS = {
+    "leads": ("Converted", None),
+    "leads_stage": ("Stage", [(SERVE_MODELS["rfmc"][0],
+                               [dict(SERVE_MODELS["rfmc"][1])])]),
+}
+
+_INDUSTRIES = ["Technology", "Finance", "Healthcare", "Retail",
+               "Manufacturing", "Education", "Energy", "Media",
+               "Transportation", "Hospitality", "Government", "Nonprofit"]
+_SOURCES = ["Web", "Referral", "Partner", "Trade Show", "Email Campaign",
+            "Cold Call", "Advertisement", "Social"]
+_RATINGS = ["Hot", "Warm", "Cold"]
+_PRODUCTS = [f"product_{c}" for c in "abcdefghij"]
+_CHANNELS = ["email", "phone", "chat", "webinar", "meeting", "social"]
+_METROS = [(37.7749, -122.4194), (40.7128, -74.006), (51.5074, -0.1278),
+           (48.8566, 2.3522), (35.6762, 139.6503), (-33.8688, 151.2093),
+           (19.4326, -99.1332), (52.52, 13.405)]
+_NOTE_WORDS = (
+    "asked about pricing budget approved next quarter wants demo follow up "
+    "call back decision maker out of office renewal contract legal review "
+    "competitor evaluating integration api security questionnaire trial "
+    "extended champion left team expanding headcount interested in "
+    "enterprise tier discount requested procurement timeline unclear sent "
+    "proposal case study onboarding migration from legacy system pilot "
+    "success stakeholders aligned no response voicemail meeting booked "
+    "references needed").split()
+
+
+def _geo(rng: np.random.RandomState, metro: int) -> List[float]:
+    lat, lon = _METROS[metro]
+    return [round(float(lat + 0.5 * rng.randn()), 4),
+            round(float(lon + 0.5 * rng.randn()), 4),
+            float(rng.randint(1, 10))]
+
+
+def leads_records(n: int, seed: int) -> List[Dict[str, Any]]:
+    """``n`` sales leads (one record a lead, like a CRM's Lead object) from
+    ``RandomState(seed)``, in python values (None missing): ``LeadId``;
+    ``CreatedDate`` (Date, two years of epoch ms before
+    ``LEADS_CLOCK_MS``, 5% None); ``LastActivity`` (DateTime, half of them
+    in business hours, 10% None); ``Activities`` (DateList of 0-30 event
+    times, 15% empty); ``Location`` ([lat, lon, accuracy] near one of
+    eight metros, 8% None); the maps ``Scores`` (RealMap, keys s0-s5 each
+    present 70%), ``Visits`` (IntegralMap: web, email, phone), ``Flags``
+    (BinaryMap: opted_in, bounced, vip), ``Attributes`` (PickListMap:
+    industry of 12, source of 8, rating of 3), ``Products``
+    (MultiPickListMap: interest, a sorted subset of 10), ``Notes``
+    (TextMap: summary, free text of thousands of values; channel, 6
+    values), ``Milestones`` (DateMap: first_call, demo, quote) and
+    ``Offices`` (GeolocationMap: hq, branch); ``AnnualRevenue`` (Currency)
+    and ``Employees`` (Integral), each ~10% None; the label ``Converted``
+    (0/1) and ``Stage`` (4 skewed values: 45%, 30%, 15%, 10%), both from
+    the same logit of business-hour activity, recency, scores, web visits,
+    flags, rating, interests, channel, milestones and revenue."""
+    rng = np.random.RandomState(seed)
+    span = 730 * _DAY_MS
+    created = LEADS_CLOCK_MS - span + rng.randint(0, span - 120 * _DAY_MS,
+                                                  n, dtype=np.int64)
+    created_null = rng.rand(n) < 0.05
+    business = rng.rand(n) < 0.5
+    hour = np.where(business, rng.randint(9, 18, n), rng.randint(0, 24, n))
+    la_day = created // _DAY_MS + rng.randint(0, 90, n)
+    last_activity = (la_day * _DAY_MS + hour * 3_600_000
+                     + rng.randint(0, 3_600_000, n))
+    la_null = rng.rand(n) < 0.10
+    n_events = np.where(rng.rand(n) < 0.15, 0, rng.randint(1, 31, n))
+    metro = rng.randint(len(_METROS), size=n)
+    loc_null = rng.rand(n) < 0.08
+    scores = np.round(rng.randn(n, 6), 4)
+    score_on = rng.rand(n, 6) < 0.7
+    visits = np.stack([rng.poisson(3.0, n), rng.poisson(2.0, n),
+                       rng.poisson(1.0, n)], axis=1)
+    visit_on = rng.rand(n, 3) < 0.8
+    flags = rng.rand(n, 3) < np.array([0.6, 0.1, 0.05])
+    flag_on = rng.rand(n, 3) < 0.9
+    industry = _skewed(rng, n, len(_INDUSTRIES), 2.0)
+    source = _skewed(rng, n, len(_SOURCES), 2.0)
+    rating = rng.choice(3, n, p=[0.2, 0.5, 0.3])
+    attr_on = rng.rand(n, 3) < 0.9
+    interest = rng.rand(n, len(_PRODUCTS)) < 0.2
+    channel = _skewed(rng, n, len(_CHANNELS), 1.5)
+    notes_on = rng.rand(n, 2) < np.array([0.85, 0.9])
+    miles_on = rng.rand(n, 3) < np.array([0.7, 0.4, 0.2])
+    miles_after = rng.randint(1, 60 * _DAY_MS, (n, 3), dtype=np.int64)
+    office_on = rng.rand(n, 2) < np.array([0.6, 0.3])
+    revenue = np.round(rng.lognormal(15.0, 1.2, n), 2)
+    revenue_null = rng.rand(n) < 0.1
+    employees = np.floor(rng.lognormal(4.0, 1.3, n)).astype(np.int64) + 1
+    employees_null = rng.rand(n) < 0.08
+    records: List[Dict[str, Any]] = []
+    logits = np.empty(n)
+    for i in range(n):
+        events = sorted(int(created[i] + rng.randint(
+            0, LEADS_CLOCK_MS - created[i], dtype=np.int64))
+            for _ in range(n_events[i]))
+        recency = ((LEADS_CLOCK_MS - events[-1]) / _DAY_MS if events
+                   else 365.0)
+        words = rng.randint(len(_NOTE_WORDS), size=rng.randint(3, 9))
+        summary = " ".join(_NOTE_WORDS[w] for w in words)
+        if rng.rand() < 0.3:
+            summary += f" #{rng.randint(1000)}"
+        interests = [p for p, on in zip(_PRODUCTS, interest[i]) if on]
+        ms = {k: int(created[i] + miles_after[i, j])
+              for j, k in enumerate(("first_call", "demo", "quote"))
+              if miles_on[i, j]}
+        offices = {k: _geo(rng, (metro[i] + j) % len(_METROS))
+                   for j, k in enumerate(("hq", "branch")) if office_on[i, j]}
+        logits[i] = (
+            -1.6 + 0.9 * (business[i] and not la_null[i])
+            - 0.004 * recency
+            + (0.6 * scores[i, 0] if score_on[i, 0] else 0.0)
+            - (0.4 * scores[i, 1] if score_on[i, 1] else 0.0)
+            + (0.15 * visits[i, 0] if visit_on[i, 0] else 0.0)
+            + 0.8 * (flags[i, 2] and flag_on[i, 2])
+            - 1.0 * (flags[i, 1] and flag_on[i, 1])
+            + ((1.0, 0.0, -0.8)[rating[i]] if attr_on[i, 2] else 0.0)
+            + 0.25 * len(interests)
+            + (0.3 if notes_on[i, 1] and channel[i] == 4 else 0.0)
+            + 0.7 * ("demo" in ms) + 1.2 * ("quote" in ms)
+            + (0.2 * (np.log(revenue[i]) - 15.0) if not revenue_null[i]
+               else 0.0))
+        records.append({
+            "LeadId": f"00Q{seed:03d}{i:08d}",
+            "CreatedDate": None if created_null[i] else int(created[i]),
+            "LastActivity": None if la_null[i] else int(last_activity[i]),
+            "Activities": events,
+            "Location": None if loc_null[i] else _geo(rng, metro[i]),
+            "Scores": {f"s{j}": float(scores[i, j]) for j in range(6)
+                       if score_on[i, j]},
+            "Visits": {k: int(visits[i, j]) for j, k in enumerate(
+                ("web", "email", "phone")) if visit_on[i, j]},
+            "Flags": {k: bool(flags[i, j]) for j, k in enumerate(
+                ("opted_in", "bounced", "vip")) if flag_on[i, j]},
+            "Attributes": {k: v for k, v, on in zip(
+                ("industry", "source", "rating"),
+                (_INDUSTRIES[industry[i]], _SOURCES[source[i]],
+                 _RATINGS[rating[i]]), attr_on[i]) if on},
+            "Products": {"interest": interests} if interests else {},
+            "Notes": {k: v for k, v, on in zip(
+                ("summary", "channel"), (summary, _CHANNELS[channel[i]]),
+                notes_on[i]) if on},
+            "Milestones": ms,
+            "Offices": offices,
+            "AnnualRevenue": None if revenue_null[i] else float(revenue[i]),
+            "Employees": None if employees_null[i] else int(employees[i]),
+        })
+    p = 1.0 / (1.0 + np.exp(-logits))
+    converted = rng.rand(n) < p
+    stage_score = logits + rng.logistic(size=n)
+    cuts = np.quantile(stage_score, [0.45, 0.75, 0.9])
+    stage = np.searchsorted(cuts, stage_score)
+    for i, r in enumerate(records):
+        r["Converted"] = float(converted[i])
+        r["Stage"] = LEADS_STAGES[stage[i]]
+    return records
+
+
+def records_sha256(records: Sequence[Dict[str, Any]]) -> str:
+    """sha256 of the records' canonical JSON (sorted keys, no spaces)."""
+    import hashlib
+    import json
+    return hashlib.sha256(json.dumps(
+        records, sort_keys=True, separators=(",", ":")).encode()).hexdigest()
+
+
+@contextmanager
+def fixed_clock(module, ms: int):
+    """Within the block the clock ``module._time.time()`` reads ``ms`` /
+    1000 (both packages' ``impl.feature.dates`` read the clock there when
+    a date-list vectorizer is built); restored after."""
+    saved = module._time.time
+    module._time.time = lambda: ms / 1000.0
+    try:
+        yield
+    finally:
+        module._time.time = saved
+
+
+def leads_dag(ns, label: str = "Converted", models=None, seed: int = 42):
+    """(result features, label feature, prediction): the leads workflow's
+    DAG built from the names in ``ns`` (either package's
+    ``FeatureBuilder``, ``transmogrify``, ``SanityChecker``, the binary and
+    multiclass selector factories, ``UnaryTransformer``, ``RealNN`` and
+    ``PredictionDeIndexer``), in one order, so after each package's
+    ``reset_uids`` every stage has the same uid. ``label`` "Converted":
+    ``transmogrify`` of the fourteen predictors -> ``sanity_check`` ->
+    the binary selector with cross-validation (results: prediction,
+    checked vector). "Stage": the stage's string indexed as the label ->
+    the multiclass selector -> the prediction's class turned back into the
+    stage's string by ``PredictionDeIndexer`` (results: prediction, the
+    predicted stage, checked vector). ``models`` pins the selector's list
+    (None: the default list)."""
+    FB = ns.FeatureBuilder
+    feats = [getattr(FB, t)(name).extract_field().as_predictor()
+             for name, t in LEADS_PREDICTORS]
+    if label == "Converted":
+        y = FB.RealNN("Converted").extract_field().as_response()
+        selector = ns.BinaryClassificationModelSelector
+    else:
+        y = FB.PickList(label).extract_field().as_response().indexed()
+        selector = ns.MultiClassificationModelSelector
+    checked = ns.transmogrify(feats).sanity_check(y)
+    pred = (selector.with_cross_validation(seed=seed, models=models)
+            .set_input(y, checked).get_output())
+    if label == "Converted":
+        return (pred, checked), y, pred
+    # the prediction's class: a column pass hands the transform a row of
+    # the Prediction's values (the prediction first), a row scorer the
+    # Prediction's {key: value}
+    index = ns.UnaryTransformer(
+        "predictedIndex", transform_fn=lambda p: (
+            p["prediction"] if isinstance(p, dict) else p[0]),
+        output_type=ns.RealNN).set_input(pred).get_output()
+    stage = ns.PredictionDeIndexer().set_input(y, index).get_output()
+    return (pred, stage, checked), y, pred
+
+
+def port_leads_namespace():
+    """``leads_dag``'s names from the port."""
+    from types import SimpleNamespace
+    from .features import FeatureBuilder
+    from .impl.feature.transmogrifier import transmogrify
+    from .impl.preparators.prediction_deindexer import PredictionDeIndexer
+    from .impl.selector import factories
+    from .stages.base import UnaryTransformer
+    from .types import RealNN
+    return SimpleNamespace(
+        FeatureBuilder=FeatureBuilder, transmogrify=transmogrify,
+        BinaryClassificationModelSelector=(
+            factories.BinaryClassificationModelSelector),
+        MultiClassificationModelSelector=(
+            factories.MultiClassificationModelSelector),
+        UnaryTransformer=UnaryTransformer, RealNN=RealNN,
+        PredictionDeIndexer=PredictionDeIndexer)
+
+
+def leads_workflow(records, label: str = "Converted", models=None,
+                   seed: int = 42, device=None,
+                   clock_ms: Optional[int] = None):
+    """(workflow, label feature, prediction, result features): the port's
+    leads workflow (``leads_dag``) on ``records`` keyed by ``LeadId``, on
+    ``device``. With ``clock_ms`` the uids restart
+    (``features.reset_uids``) and the DAG is built with the date clock at
+    that instant: at ``LEADS_CLOCK_MS`` it is the workflow the fixtures
+    were trained from."""
+    from .features import reset_uids
+    from .impl.feature import dates
+    from .workflow import OpWorkflow
+    if clock_ms is None:
+        results, y, pred = leads_dag(port_leads_namespace(), label, models,
+                                     seed)
+    else:
+        reset_uids()
+        with fixed_clock(dates, clock_ms):
+            results, y, pred = leads_dag(port_leads_namespace(), label,
+                                         models, seed)
+    wf = (OpWorkflow(device=device).set_input_dataset(records,
+                                                      key_field="LeadId")
+          .set_result_features(*results))
+    return wf, y, pred, results
