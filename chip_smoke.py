@@ -93,6 +93,31 @@ Phases, in order; any failure exits nonzero:
     ``leads_stage_kernel`` lines. "train leads" must launch
     ``hist_matmul``, ``node_hist`` and ``forest_predict_chain``, "train
     leads_stage" those and ``forest_leaf_sums_chain``;
+(w) the NLP stages' device arithmetic (``phase_nlp_device``): the ordered
+    scatter twice at word2vec's shapes, both runs the same bits and those
+    of numpy's in-order ``np.add.at``; 40 SGNS steps, two LDA sweeps and
+    the written-out digamma and sigmoid bit-equal to the CPU;
+(tickets) the support-ticket path (``testing.tickets_records``: 20,000
+    training and 2,000 scoring records rebuilt from their seeds, sha256
+    equal to the fixture's; ``testing.tickets_dag``): stemmed tokens, stop
+    words, IDF-weighed counts, bigram counts, word2vec and LDA fitted on
+    the card, the language, entity, MIME, phone, email and URL parsers
+    and the text similarities through ``transmogrify``, SanityChecker,
+    the binary default list at full default grids. Before the counted
+    paths one train with every launch of the three sweep kernels held to
+    plain (``tickets_kernel`` lines). "train tickets" against
+    ``fixtures/tickets``: every vector block's sha256 the fixture's
+    (word2vec and LDA included), the vector's metadata and 256 sampled
+    rows, the SanityChecker's choices, the winner and its grid point,
+    fold metrics as the default lists' (trees 1e-5, the SVC
+    ``LIN_FOLD_ATOL``) but the LR's ``TICKETS_LR_FOLD_ATOL`` (its float32
+    order noise; the cause at the constant), both linear sweeps' gaps to a
+    float64 evaluation printed, the refit's scores (a linear winner's
+    params and probability_1 ``TITANIC_LIN_*``, a tree winner's
+    probability_1 ``PROB_ATOL``), a save and reload; it must launch ``hist_matmul``,
+    ``node_hist`` and ``forest_predict_chain``. "serve tickets": the
+    reload scores the 2,000 scoring tickets bit-equal to the trained
+    model and answers 64 ``score_function`` requests;
 (b) hold each kernel against its plain PyTorch version on the card, at the
     shapes its path gives it, and report its times:
     - ``node_hist`` at six growth levels (19,712 rows x 64 codes, 32
@@ -2849,6 +2874,402 @@ class Leads:
         return secs
 
 
+TICKETS_DIR = os.path.join(HERE, "transmogrifai_tpu_torch", "fixtures",
+                           "tickets")
+#: the word2vec and LDA blocks: bit-equal to the fixture's (the card runs
+#: the XLA CPU arithmetic the port writes out: ``xla_digamma``,
+#: ``xla_exp``, ``xla_sigmoid``, fused multiply-adds in XLA's order,
+#: ``xla_sum`` and the ordered scatter); on a difference the largest gap
+#: is printed and the phase fails
+TICKETS_DEVICE_BLOCKS = ("word2vec", "lda")
+#: the LR sweep's fold metrics against the fixture's: the sweep's float32
+#: order noise at 18,000 rows x 574 columns. Measured by
+#: ``experiments/leads_linear.py --path tickets`` on an NVIDIA H100 80GB
+#: HBM3 at 700 W: the card lies 2.53e-4 AuPR from the fixture, the same
+#: sweep under three column orders 1.0e-4-2.89e-4, on the CPU 1.55e-4,
+#: without its bf16 rounding 3.09e-4; the float64 evaluation lies 4.12e-4
+#: from the card and 1.88e-4 from the fixture (the JAX package's sweep did
+#: not diverge here, unlike leads'). Twice the largest order-only reading.
+#: The SVC is held at ``LIN_FOLD_ATOL`` (readings 0.5-2.3e-5)
+TICKETS_LR_FOLD_ATOL = 6e-4
+
+
+def _block_sha(vals) -> str:
+    import hashlib
+    a = vals.detach().cpu().numpy() if isinstance(vals, torch.Tensor) \
+        else np.asarray(vals)
+    return hashlib.sha256(np.ascontiguousarray(
+        a, dtype=np.float32).tobytes()).hexdigest()
+
+
+def phase_nlp_device(dev):
+    """(w) The NLP stages' device arithmetic on the card against the same
+    code on the CPU: the ordered scatter (``xla_scatter_add``) twice at
+    word2vec's shapes (4,096 center rows of 32 floats into a 4,096-word
+    table, Zipf-skewed, and 16,384 negatives) -- the two runs the same
+    bits and those bits numpy's ``np.add.at`` (one update after another
+    in their order); 40 SGNS steps (``sgns_steps``) and two LDA EM sweeps
+    (``lda_e_step``) on seeded inputs, bit-equal to the CPU; and
+    ``xla_digamma`` / ``xla_sigmoid`` on grids, bit-equal to the CPU."""
+    from transmogrifai_tpu_torch import rng as R
+    from transmogrifai_tpu_torch.impl.feature.text import (
+        lda_e_step, sgns_steps,
+    )
+    from transmogrifai_tpu_torch.ops.xla_cpu import (
+        xla_digamma, xla_scatter_add, xla_sigmoid, xla_sum,
+    )
+    r = np.random.RandomState(0)
+    out = {}
+    for tag, n, skew in (("centers", 4096, 1.3), ("negatives", 16384, 0)):
+        W = r.randn(4096, 32).astype(np.float32)
+        idx = (r.zipf(skew, n) % 4096 if skew else
+               r.randint(0, 4096, n)).astype(np.int64)
+        u = (r.randn(n, 32) * 1e-3).astype(np.float32)
+        want = W.copy()
+        np.add.at(want, idx, u)
+        runs = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = xla_scatter_add(torch.as_tensor(W, device=dev),
+                                  torch.as_tensor(idx, device=dev),
+                                  torch.as_tensor(u, device=dev))
+            torch.cuda.synchronize()
+            runs.append((got.cpu().numpy(), time.perf_counter() - t0))
+        if not np.array_equal(runs[0][0].view(np.int32),
+                              runs[1][0].view(np.int32)):
+            raise AssertionError(f"(w) scatter {tag}: two runs differ")
+        if not np.array_equal(runs[0][0].view(np.int32), want.view(np.int32)):
+            raise AssertionError(f"(w) scatter {tag}: not the sequential "
+                                 f"in-order add")
+        dup = int(np.bincount(idx).max())
+        out[tag] = runs[1][1]
+        print(f"(w) ordered scatter, {tag}: {n} updates of 32 floats, "
+              f"{dup} to one row at most: two runs bit-equal and equal to "
+              f"np.add.at; {runs[1][1] * 1e3:.3f} ms")
+    x = np.concatenate([r.uniform(0, 0.5, 50000), r.uniform(0.5, 60, 50000),
+                        r.uniform(-20, 0, 10000)]).astype(np.float32)
+    for name, fn in (("xla_digamma", xla_digamma),
+                     ("xla_sigmoid", xla_sigmoid)):
+        a = fn(torch.as_tensor(x, device=dev)).cpu().numpy()
+        b = fn(torch.as_tensor(x)).numpy()
+        same = (a.view(np.int32) == b.view(np.int32)) | (np.isnan(a)
+                                                         & np.isnan(b))
+        if not same.all():
+            raise AssertionError(f"(w) {name}: {int((~same).sum())} of "
+                                 f"{len(x)} values differ from the CPU")
+    v, K, n_pairs = 2000, 32, 200000
+    cen = r.randint(0, v, n_pairs).astype(np.int64)
+    ctx = r.randint(0, v, n_pairs).astype(np.int64)
+    W0 = (r.randn(v, K).astype(np.float32) * 0.1)
+    res = []
+    for d in (dev, torch.device("cpu")):
+        W = torch.as_tensor(W0, device=d).clone()
+        C = torch.zeros_like(W)
+        key = R.prng_key(torch.tensor(42, device=d))
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sgns_steps(W, C, torch.as_tensor(cen, device=d),
+                   torch.as_tensor(ctx, device=d), key, 40, 4096, 4,
+                   0.5 / 4096)
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        res.append((W.cpu().numpy(), time.perf_counter() - t0))
+    if not np.array_equal(res[0][0].view(np.int32), res[1][0].view(np.int32)):
+        raise AssertionError(f"(w) SGNS steps: the card's vectors differ "
+                             f"from the CPU's by up to "
+                             f"{np.abs(res[0][0] - res[1][0]).max():.3g}")
+    print(f"(w) 40 SGNS steps (4,096 pairs, 4 negatives, 2,000 x 32 "
+          f"vectors): card bit-equal to the CPU; card {res[0][1]:.3f} s, "
+          f"CPU {res[1][1]:.3f} s")
+    X0 = r.poisson(0.3, (3000, 256)).astype(np.float32)
+    t0_ = r.dirichlet(np.ones(256), size=10).astype(np.float32)
+    res = []
+    for d in (dev, torch.device("cpu")):
+        X = torch.as_tensor(X0, device=d)
+        topics = torch.as_tensor(t0_, device=d)
+        t0 = time.perf_counter()
+        for _ in range(2):
+            g, phi = lda_e_step(X, topics, 0.1)
+            new = xla_sum(phi * X[:, None, :]) + 0.01
+            topics = new / xla_sum(new.movedim(1, 0))[:, None]
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        res.append((topics.cpu().numpy(), g.cpu().numpy(),
+                    time.perf_counter() - t0))
+    for i, what in ((0, "topics"), (1, "gammas")):
+        if not np.array_equal(res[0][i].view(np.int32),
+                              res[1][i].view(np.int32)):
+            raise AssertionError(
+                f"(w) LDA {what}: the card's differ from the CPU's by up "
+                f"to {np.abs(res[0][i] - res[1][i]).max():.3g}")
+    print(f"(w) 2 LDA EM sweeps (3,000 documents x 256 words, 10 topics): "
+          f"card bit-equal to the CPU; card {res[0][2]:.3f} s, CPU "
+          f"{res[1][2]:.3f} s")
+    return out
+
+
+class Tickets:
+    """The support-ticket path (``testing.tickets_records``: subject,
+    body in several languages, email, URL, phone and country, a base64
+    attachment; ``testing.tickets_dag``): the NLP stages (stemmed tokens,
+    stop words, a 256-word count vector weighed by IDF, 128 bigram counts,
+    word2vec and LDA fitted on the card) and the parsers through
+    ``transmogrify``, the SanityChecker and the binary default list at
+    full default grids with 3-fold CV, trained on 20,000 records and
+    served from its reload on 2,000, against ``fixtures/tickets`` (what
+    the JAX package made of the same records on the CPU)."""
+
+    def __init__(self):
+        from transmogrifai_tpu_torch.testing import (
+            TICKETS_ROWS, TICKETS_SCORE_ROWS, TICKETS_SCORE_SEED,
+            TICKETS_SEED, records_sha256, tickets_records,
+        )
+        t0 = time.perf_counter()
+        self.train_recs = tickets_records(TICKETS_ROWS, TICKETS_SEED)
+        self.score_recs = tickets_records(TICKETS_SCORE_ROWS,
+                                          TICKETS_SCORE_SEED)
+        gen_s = time.perf_counter() - t0
+        with open(os.path.join(TICKETS_DIR, "fixture.json")) as fh:
+            self.fx = json.load(fh)
+        self.exp = np.load(os.path.join(TICKETS_DIR, "expected.npz"))
+        self.sample = np.load(os.path.join(TICKETS_DIR, "vector_sample.npz"))
+        self.blocks = np.load(os.path.join(TICKETS_DIR, "device_blocks.npz"))
+        for key, recs in (("train_records", self.train_recs),
+                          ("score_records", self.score_recs)):
+            sha = records_sha256(recs)
+            if sha != self.fx[key]["sha256"]:
+                raise AssertionError(f"tickets: {key} sha256 {sha}, the "
+                                     f"fixture's {self.fx[key]['sha256']}")
+        self.model = self.wf = None
+        print(f"(t) tickets: {TICKETS_ROWS} training and "
+              f"{TICKETS_SCORE_ROWS} scoring records rebuilt in "
+              f"{gen_s:.2f} s, sha256 equal to the fixture's")
+
+    def workflow(self):
+        from transmogrifai_tpu_torch.testing import tickets_workflow
+        wf, y, pred, results = tickets_workflow(self.train_recs)
+        if wf.device.type != "cuda":
+            raise AssertionError(f"training on {wf.device}")
+        return wf, y, pred, results
+
+    def check_inputs(self):
+        """(b) one train with every launch of the three sweep kernels held
+        to plain; then each one's heaviest launch timed."""
+        t0 = time.perf_counter()
+        wf, _, _, _ = self.workflow()
+        with _KernelChecks(keep_heaviest=True,
+                           direct_per_shape=True) as checks:
+            wf.train()
+            torch.cuda.synchronize()
+        checks.report("tickets", ("hist_matmul", "node_hist",
+                                  "forest_predict_chain"))
+        print(f"(b) the tickets train's kernel inputs checked in "
+              f"{time.perf_counter() - t0:.1f} s")
+        return {"tickets": time_heaviest(checks.heaviest, "tickets train")}
+
+    def train(self):
+        """The counted train, held to the fixture: every vector block
+        (word2vec and LDA included) bit-equal by sha256, the vector's
+        metadata and sampled rows, the SanityChecker's choices, the
+        selection, the refit's scores on the scoring records, and a save
+        and reload. Every check runs; the phase fails after the last if
+        any did."""
+        from transmogrifai_tpu_torch.testing import (
+            assert_same_sanity, sanity_summary, selection_gaps,
+            selection_summary,
+        )
+        fx, exp, sample = self.fx, self.exp, self.sample
+        wf, _, pred, results = self.workflow()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = wf.train()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        print(f"(t) tickets train: {fx['train_records']['rows']} records, "
+              f"binary default list at full default grids, 3-fold CV + "
+              f"refit + evaluations in {secs:.3f} s (records read, parsed "
+              f"and vectorized on the host, word2vec and LDA on the card "
+              f"included; the JAX package's CPU train "
+              f"{fx['train_seconds_jax_cpu']:.1f} s); peak device memory "
+              f"allocated {torch.cuda.max_memory_allocated() / 2 ** 30:.3f}"
+              f" GiB")
+        self.model, self.wf = model, wf
+        faults = []
+
+        def check(fn):
+            try:
+                fn()
+            except AssertionError as e:
+                print(f"(t) tickets: FAILED: {e}")
+                faults.append(str(e))
+
+        sc = next(s for s in model.stages
+                  if type(s).__name__ == "SanityCheckerModel")
+        ps = next(s for s in model.stages
+                  if type(s).__name__ == "SelectedModel")
+        table = model.train_table
+
+        def blocks():
+            names = [n for n in table.column_names
+                     if table[n].metadata.get("vector_meta") is not None]
+            if sorted(names) != sorted(fx["blocks"]):
+                raise AssertionError("tickets: other vector blocks than the "
+                                     "fixture's")
+            differ = [n for n in names
+                      if _block_sha(table[n].values) != fx["blocks"][n]]
+            on_card = all(isinstance(table[n].values, torch.Tensor)
+                          and table[n].values.device.type == "cuda"
+                          for n in names)
+            gaps = {}
+            for op in TICKETS_DEVICE_BLOCKS:
+                n = next(n for n in names if f"_{op}_" in n)
+                gaps[op] = float(np.abs(table[n].values.cpu().numpy()
+                                        - self.blocks[op]).max())
+            if differ or not on_card:
+                raise AssertionError(
+                    f"tickets: blocks {differ} differ from the fixture's "
+                    f"bits (word2vec and LDA largest gaps {gaps}); all on "
+                    f"the card: {on_card}")
+            print(f"(t) tickets: {len(names)} vector blocks on the card, "
+                  f"each bit-equal to the fixture's (sha256), word2vec and "
+                  f"LDA gaps {gaps}")
+        check(blocks)
+
+        def vector_and_checks():
+            vec = table[sc.input_features[1].name]
+            vm = vec.metadata["vector_meta"]
+            meta = {"name": vm.name, "columns": [
+                dataclasses.asdict(c) for c in vm.columns]}
+            if meta != fx["vector"]:
+                raise AssertionError("tickets: the vector's metadata "
+                                     "differs from the fixture's")
+            X = vec.values[torch.as_tensor(sample["rows"],
+                                           device=vec.values.device)]
+            if not np.array_equal(X.cpu().numpy(), sample["X"]):
+                raise AssertionError("tickets: sampled vector rows differ "
+                                     "from the fixture's bits")
+            assert_same_sanity(sanity_summary(sc), fx["sanity"])
+            print(f"(t) tickets: vector {vm.size} columns, metadata equal, "
+                  f"{len(sample['rows'])} sampled rows bit-equal; "
+                  f"SanityChecker keeps {len(sc.keep_indices)}, drops "
+                  f"{len(sc.summary.dropped)} for the fixture's reasons")
+        check(vector_and_checks)
+        winner = ps.summary.best_model_type
+        got_sel = selection_summary(ps.summary)
+
+        def selection():
+            gaps = selection_gaps(got_sel, fx["selection"], lambda f, h, r: (
+                TICKETS_LR_FOLD_ATOL if f == "OpLogisticRegression"
+                else _fold_limit(f, h, "binary", r, 1.0)))
+            shares = {f: (float(f"{g:.3g}"), round(float(r), 3))
+                      for f, (g, r) in gaps.items()}
+            print(f"(t) tickets: fold {ps.summary.validation_metric} gaps "
+                  f"to the fixture (largest, share of its limit): {shares}")
+        check(selection)
+
+        def linear_f64():
+            # the linear sweeps evaluated again on the card in float64
+            # sums (``testing.sweep_again``), against the card's float32
+            # folds and the fixture's (the JAX package's CPU float32 sums)
+            from transmogrifai_tpu_torch.testing import (
+                selection_rows, sweep_again,
+            )
+            X, y = selection_rows(pred.origin_stage, table)
+            f64 = sweep_again(pred.origin_stage, X.double(), y.double(),
+                              LEADS_LINEAR)
+            del X, y
+            by = {g["family"]: np.asarray(g["fold_metrics"], np.float64)
+                  for g in got_sel["families"]}
+            want = {g["family"]: np.asarray(g["fold_metrics"], np.float64)
+                    for g in fx["selection"]["families"]}
+            print("(t) tickets: linear fold metrics, max |d| (card float32 "
+                  "vs float64; fixture vs float64): " + "; ".join(
+                      f"{f} {np.abs(by[f] - f64[f]).max():.3g}, "
+                      f"{np.abs(want[f] - f64[f]).max():.3g}"
+                      for f in LEADS_LINEAR))
+        check(linear_f64)
+        print(f"(t) tickets: winner {winner} {ps.summary.best_hyper}")
+        scored = model.score(data=self.score_recs)
+        parts = _parts_of(model, scored)
+
+        def scores():
+            import transmogrifai_tpu_torch as tt
+            ref = tt.load_model(os.path.join(TICKETS_DIR, "model"),
+                                workflow=wf)
+            ref_sel = next(s for s in ref.stages
+                           if type(s).__name__ == "SelectedModel")
+            if not _is_tree(winner):
+                print("(t) tickets: vs the JAX-trained model on the scoring "
+                      "records: " + _check_linear(
+                          "tickets", "binary", ps, ref_sel, parts, exp,
+                          TITANIC_LIN_COEF_RTOL, TITANIC_LIN_PROB_ATOL))
+                return
+            d = float(np.abs(parts["probability_1"]
+                             - exp["probability_1"]).max())
+            decided = np.abs(exp["probability_1"] - 0.5) > PRED_MARGIN
+            flips = int((parts["prediction"] != exp["prediction"])[
+                decided].sum())
+            if d > PROB_ATOL or flips:
+                raise AssertionError(f"tickets: probability_1 within "
+                                     f"{d:.3g} (limit {PROB_ATOL}), {flips} "
+                                     f"decided predictions differ")
+            print(f"(t) tickets: vs the JAX-trained model on the scoring "
+                  f"records: probability_1 max |d| {d:.3g}, 0 flips in "
+                  f"{int(decided.sum())} decided rows")
+        check(scores)
+        check(lambda: save_and_reload(
+            "tickets", model, os.path.join(TICKETS_DIR, "model"),
+            self.score_recs, workflow=wf))
+        if faults:
+            raise AssertionError(f"tickets: {len(faults)} check(s) failed: "
+                                 + "; ".join(faults))
+        return secs
+
+    def serve(self):
+        """The saved ticket model reloaded on the card scores the 2,000
+        scoring records (parsed, vectorized, word2vec means and LDA
+        mixtures on the card) as the trained model does, and answers 64
+        single-ticket requests through ``score_function`` as its batch
+        score."""
+        import transmogrifai_tpu_torch as tt
+        path = os.path.join(SAVE_DIR, "tickets")
+        m = tt.load_model(path, workflow=self.wf)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scored = m.score(data=self.score_recs)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = _parts_of(m, scored)
+        want = _parts_of(self.model, self.model.score(data=self.score_recs))
+        if not all(np.array_equal(got[k].view(np.int32),
+                                  want[k].view(np.int32)) for k in want):
+            raise AssertionError("serve tickets: the reload scores other "
+                                 "bits")
+        fn = m.score_function()
+        t0 = time.perf_counter()
+        worst = 0.0
+        for i in range(64):
+            rec = self.score_recs[i]
+            out = fn({k: v for k, v in rec.items() if k != "escalated"})
+            p = next(v for k, v in out.items()
+                     if isinstance(v, dict) and "probability_1" in v)
+            worst = max(worst, abs(p["probability_1"]
+                                   - float(got["probability_1"][i])))
+        req_s = (time.perf_counter() - t0) / 64
+        if worst > PROB_ATOL:
+            raise AssertionError(f"serve tickets: score_function's "
+                                 f"probability_1 {worst:.3g} from the batch "
+                                 f"score's")
+        print(f"(s) serve tickets: the reload scores {len(self.score_recs)} "
+              f"tickets in {secs:.3f} s ({len(self.score_recs) / secs:.0f} "
+              f"tickets/s, bit-equal to the trained model); 64 requests "
+              f"through score_function {req_s * 1e3:.2f} ms each, "
+              f"probability_1 within {worst:.3g} of the batch score")
+
+
 def phase_serve():
     """The port's main path: load, score, answer requests, for every
     committed fixture (binary probability_1 within PROB_ATOL; regression
@@ -3104,6 +3525,9 @@ def _run(dev, kernels, tmp) -> int:
     wcv_kern = wcv.check_inputs()
     leads = Leads()
     leads_kern = leads.check_inputs()
+    tickets = Tickets()
+    phase_nlp_device(dev)
+    leads_kern.update(tickets.check_inputs())
 
     def run_path(name, phase, path_kernels):
         """Zero every count, drive the path, read the counts; each of
@@ -3141,6 +3565,11 @@ def _run(dev, kernels, tmp) -> int:
     for name in ("train leads", "train leads_stage"):
         print(f"launches, {name}: "
               f"{ {k: v for k, v in paths[name].items() if v} }")
+    # the ticket sweep's trees launch the three sweep kernels; word2vec
+    # and LDA run as tensor code on the card
+    paths["train tickets"] = run_path("train tickets", tickets.train, sweep)
+    paths["serve tickets"] = run_path("serve tickets", tickets.serve,
+                                      _forest_kernels(tickets.model))
     paths.update({
         "train gbt": run_path("train gbt",
                               lambda: train_against_fixture("gbt"),

@@ -1424,3 +1424,120 @@ def test_leads_vector_on_the_card_equals_the_cpu(cuda):
     assert a.shape[1] > 600
     np.testing.assert_array_equal(a, b)
     assert ma == mb
+
+
+# ---------------------------------------------------------------------------
+# The NLP stages' device arithmetic: word2vec and LDA on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("skew", [0.0, 1.3])
+def test_ordered_scatter_on_the_card_is_the_in_order_add(cuda, skew):
+    """``xla_scatter_add`` on the card: two runs the same bits, and those
+    bits numpy's ``np.add.at`` (one update after another in order)."""
+    from transmogrifai_tpu_torch.ops.xla_cpu import xla_scatter_add
+    r = np.random.RandomState(1)
+    W = r.randn(4096, 32).astype(np.float32)
+    idx = ((r.zipf(skew, 8192) if skew else r.randint(0, 4096, 8192))
+           % 4096).astype(np.int64)
+    u = (r.randn(8192, 32) * 1e-3).astype(np.float32)
+    want = W.copy()
+    np.add.at(want, idx, u)
+    runs = [xla_scatter_add(torch.as_tensor(W, device=cuda),
+                            torch.as_tensor(idx, device=cuda),
+                            torch.as_tensor(u, device=cuda)).cpu().numpy()
+            for _ in range(2)]
+    np.testing.assert_array_equal(runs[0].view(np.int32),
+                                  runs[1].view(np.int32))
+    np.testing.assert_array_equal(runs[0].view(np.int32),
+                                  want.view(np.int32))
+
+
+def test_xla_functions_on_the_card_equal_the_cpu(cuda):
+    from transmogrifai_tpu_torch.ops.xla_cpu import (
+        _glibc_sincos, xla_digamma, xla_sigmoid,
+    )
+    r = np.random.RandomState(2)
+    x = np.concatenate([r.uniform(0, 0.5, 20000), r.uniform(0.5, 60, 20000),
+                        r.uniform(-20, 0, 5000)]).astype(np.float32)
+    for fn in (xla_digamma, xla_sigmoid, lambda t: _glibc_sincos(t, True),
+               lambda t: _glibc_sincos(t, False)):
+        a = fn(torch.as_tensor(x, device=cuda)).cpu().numpy()
+        b = fn(torch.as_tensor(x)).numpy()
+        same = (a.view(np.int32) == b.view(np.int32)) | (
+            np.isnan(a) & np.isnan(b))
+        assert same.all()
+
+
+def _stage_on(dev, cls, kw, type_name, rows):
+    from transmogrifai_tpu_torch import types as T
+    from transmogrifai_tpu_torch.features import FeatureBuilder, reset_uids
+    from transmogrifai_tpu_torch.impl.feature import text
+    from transmogrifai_tpu_torch.table import Column, FeatureTable
+    reset_uids()
+    ft = T.FEATURE_TYPES[type_name]
+    f = FeatureBuilder("f", ft).extract_field().as_predictor()
+    t = FeatureTable({"f": Column.of_values(ft, rows)}, len(rows))
+    if dev != "cpu":
+        t = t.to_device(dev)
+    st = getattr(text, cls)(**kw).set_input(f).fit(t)
+    return st, st.transform_column(t)
+
+
+def test_word2vec_on_the_card_equals_the_cpu(cuda):
+    """Vectors fitted on the card and the means built there bit-equal to
+    the CPU's, and on the card."""
+    rng = np.random.RandomState(3)
+    words = [f"w{i}" for i in range(200)]
+    docs = [list(rng.choice(words, rng.randint(0, 30))) for _ in range(400)]
+    got = _stage_on(cuda, "OpWord2Vec", dict(vector_size=32, steps=30),
+                    "TextList", docs)
+    want = _stage_on("cpu", "OpWord2Vec", dict(vector_size=32, steps=30),
+                     "TextList", docs)
+    assert got[0].vectors.device.type == "cuda"
+    assert got[1].values.device.type == "cuda"
+    np.testing.assert_array_equal(got[0].vectors.cpu().numpy(),
+                                  want[0].vectors.cpu().numpy())
+    np.testing.assert_array_equal(got[1].values.cpu().numpy(),
+                                  want[1].values.cpu().numpy())
+
+
+def test_lda_on_the_card_equals_the_cpu(cuda):
+    X = np.random.RandomState(4).poisson(0.3, (1500, 128)).astype(np.float32)
+    rows = [list(r) for r in X]
+    got = _stage_on(cuda, "OpLDA", dict(k=10, max_iter=3), "OPVector", rows)
+    want = _stage_on("cpu", "OpLDA", dict(k=10, max_iter=3), "OPVector",
+                     rows)
+    assert got[0].topics.device.type == "cuda"
+    assert got[1].values.device.type == "cuda"
+    np.testing.assert_array_equal(got[0].topics.cpu().numpy(),
+                                  want[0].topics.cpu().numpy())
+    np.testing.assert_array_equal(got[1].values.cpu().numpy(),
+                                  want[1].values.cpu().numpy())
+
+
+def test_tickets_vector_on_the_card_equals_the_cpu(cuda):
+    """The ticket workflow's vector (the NLP stages, word2vec and LDA on
+    the card, the parsers on the host) equals the CPU's bit for bit."""
+    import dataclasses
+    from transmogrifai_tpu_torch.dag import (
+        compute_dag, fit_and_transform_dag,
+    )
+    from transmogrifai_tpu_torch.testing import (
+        tickets_records, tickets_workflow,
+    )
+    recs = tickets_records(500, 8)
+    out = []
+    for dev in ("cpu", cuda):
+        wf, _, _, results = tickets_workflow(recs, device=dev)
+        checked = results[1]
+        vec = checked.origin_stage.input_features[1]
+        table = wf.reader.generate_table(wf.raw_features).to_device(dev)
+        t, _ = fit_and_transform_dag(table, compute_dag([vec]))
+        col = t[vec.name]
+        assert col.values.device.type == torch.device(dev).type
+        out.append((col.values.cpu().numpy(), [
+            dataclasses.asdict(c)
+            for c in col.metadata["vector_meta"].columns]))
+    (a, ma), (b, mb) = out
+    np.testing.assert_array_equal(a, b)
+    assert ma == mb

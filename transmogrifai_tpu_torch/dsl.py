@@ -1,15 +1,14 @@
-"""Feature DSL (counterpart of the parts of ``transmogrifai_tpu.dsl`` that
-the port's paths use): numeric ``+ - * /`` between features and with
-scalars, ``alias``, ``pivot``, ``smart_vectorize``, ``tokenize``, ``tf``,
-``vectorize``/``transmogrify`` and ``sanity_check``; ``indexed`` and
-``deindexed`` of labels; ``to_unit_circle``, ``time_period``,
-``since_last`` and ``to_date_list`` of dates; ``filter_keys``,
-``vectorize_map``, ``smart_vectorize_map`` and ``pivot_map`` of maps;
-attached to ``Feature`` on import (the package ``__init__`` imports this
-module)."""
+"""Feature DSL (counterpart of ``transmogrifai_tpu.dsl``): numeric
+``+ - * /`` between features and with scalars, and the methods named in
+``DSL_METHODS``, attached to ``Feature`` on import (the package
+``__init__`` imports this module). ``DSL_METHODS`` is the JAX package's
+list less the methods whose stages are not ported yet: ``bucketize``,
+``auto_bucketize``, ``auto_bucketize_map``, ``fill_missing_with_mean``,
+``zscore``, ``scale``, ``descale``, ``percentile_calibrate`` and
+``to_isotonic_calibrated``."""
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Any, Callable, Optional, Sequence
 
 from .features import Feature
 from .impl.feature.dates import (
@@ -21,8 +20,12 @@ from .impl.feature.dates import (
 from .impl.feature.maps import (
     MapVectorizer, SmartTextMapVectorizer, TextMapPivotVectorizer,
 )
+from .impl.feature import text as _text
 from .impl.feature.math import (
-    AliasTransformer, BinaryMathOp, FilterMap, ScalarOp,
+    AbsoluteValue, AliasTransformer, BinaryMathOp, Ceil,
+    DropIndicesByTransformer, Exp, FilterMap, Floor, JaccardSimilarity, Log, NGramSimilarity, Power,
+    RoundTransformer, ScalarOp, Sqrt, SubstringTransformer,
+    TextLenTransformer, ToOccurTransformer,
 )
 from .impl.feature.text import OpIndexToString, OpStringIndexer
 from .impl.feature.transmogrifier import transmogrify
@@ -31,7 +34,7 @@ from .impl.feature.vectorizers import (
     VectorsCombiner,
 )
 from .stages.base import UnaryTransformer
-from .types import DateList, DateMap
+from .types import Binary, DateList, DateMap
 
 
 def _num_binop(op: str):
@@ -165,6 +168,173 @@ def pivot_map(self: Feature, top_k: int = 20,
             .set_input(self).get_output())
 
 
+def abs_(self: Feature) -> Feature:
+    return AbsoluteValue().set_input(self).get_output()
+
+
+def log(self: Feature, base: float = 2.718281828459045) -> Feature:
+    return Log(base).set_input(self).get_output()
+
+
+def exp(self: Feature) -> Feature:
+    return Exp().set_input(self).get_output()
+
+
+def sqrt(self: Feature) -> Feature:
+    return Sqrt().set_input(self).get_output()
+
+
+def power(self: Feature, p: float) -> Feature:
+    return Power(p).set_input(self).get_output()
+
+
+def round_(self: Feature) -> Feature:
+    return RoundTransformer().set_input(self).get_output()
+
+
+def ceil(self: Feature) -> Feature:
+    return Ceil().set_input(self).get_output()
+
+
+def floor(self: Feature) -> Feature:
+    return Floor().set_input(self).get_output()
+
+
+def to_occur(self: Feature) -> Feature:
+    return ToOccurTransformer().set_input(self).get_output()
+
+
+def occurs(self: Feature,
+           matches: Optional[Callable[[Any], bool]] = None) -> Feature:
+    return ToOccurTransformer(matches).set_input(self).get_output()
+
+
+def text_len(self: Feature) -> Feature:
+    return TextLenTransformer().set_input(self).get_output()
+
+
+def contains(self: Feature, other: Feature) -> Feature:
+    """Binary: ``other``, lower-cased, occurs in this text."""
+    return SubstringTransformer().set_input(self, other).get_output()
+
+
+def jaccard_similarity(self: Feature, other: Feature) -> Feature:
+    return JaccardSimilarity().set_input(self, other).get_output()
+
+
+def ngram_similarity(self: Feature, other: Feature, n: int = 3) -> Feature:
+    return NGramSimilarity(n).set_input(self, other).get_output()
+
+
+def _unary(stage) -> Callable[[Feature], Feature]:
+    """A DSL method applying a fresh ``stage()`` to the feature."""
+    def method(self: Feature) -> Feature:
+        return stage().set_input(self).get_output()
+    return method
+
+
+def is_valid_phone(self: Feature, region: str = "US") -> Feature:
+    return (_text.IsValidPhoneDefaultCountry(default_region=region)
+            .set_input(self).get_output())
+
+
+def parse_phone(self: Feature, region: str = "US") -> Feature:
+    return (_text.PhoneNumberParser(default_region=region)
+            .set_input(self).get_output())
+
+
+def is_valid_phone_map(self: Feature, region: str = "US") -> Feature:
+    return (_text.IsValidPhoneMap(default_region=region)
+            .set_input(self).get_output())
+
+
+def tokenize_regex(self: Feature, pattern: str = r"\w+",
+                   to_lowercase: bool = True,
+                   min_token_length: int = 1) -> Feature:
+    return (_text.RegexTokenizer(pattern, to_lowercase, min_token_length)
+            .set_input(self).get_output())
+
+
+def map_values(self: Feature, fn: Callable[[Any], Any],
+               output_type=None) -> Feature:
+    """``fn`` of each present value (missing stays missing)."""
+    return UnaryTransformer(
+        "map", transform_fn=lambda v: None if v is None else fn(v),
+        output_type=output_type or self.feature_type
+    ).set_input(self).get_output()
+
+
+def exists(self: Feature, predicate: Callable[[Any], bool]) -> Feature:
+    """Binary: the value is present and ``predicate`` holds."""
+    return UnaryTransformer(
+        "exists", transform_fn=lambda v: v is not None and bool(predicate(v)),
+        output_type=Binary).set_input(self).get_output()
+
+
+def filter_values(self: Feature, predicate: Callable[[Any], bool],
+                  keep: bool = True) -> Feature:
+    """The value where ``predicate`` is ``keep``, else missing."""
+    return UnaryTransformer(
+        "filter", transform_fn=lambda v: v if (
+            v is not None and bool(predicate(v)) == keep) else None,
+        output_type=self.feature_type).set_input(self).get_output()
+
+
+def replace_with(self: Feature, old_val: Any, new_val: Any) -> Feature:
+    return UnaryTransformer(
+        "replaced", transform_fn=lambda v: new_val if v == old_val else v,
+        output_type=self.feature_type).set_input(self).get_output()
+
+
+def tfidf(self: Feature, num_hashes: int = 512,
+          min_doc_freq: int = 0) -> Feature:
+    """IDF weights of the hashed term counts of a TextList."""
+    tf_f = tf(self, num_hashes=num_hashes)
+    return _text.OpIDF(min_doc_freq=min_doc_freq).set_input(tf_f).get_output()
+
+
+def idf(self: Feature, min_doc_freq: int = 0) -> Feature:
+    """IDF weighting of a term-count vector."""
+    return _text.OpIDF(min_doc_freq=min_doc_freq).set_input(self).get_output()
+
+
+def word2vec(self: Feature, vector_size: int = 32, **kw) -> Feature:
+    return (_text.OpWord2Vec(vector_size=vector_size, **kw)
+            .set_input(self).get_output())
+
+
+def count_vec(self: Feature, vocab_size: int = 512, min_df: int = 1,
+              binary: bool = False) -> Feature:
+    return (_text.OpCountVectorizer(vocab_size, min_df, binary)
+            .set_input(self).get_output())
+
+
+def ngram(self: Feature, n: int = 2) -> Feature:
+    return _text.OpNGram(n).set_input(self).get_output()
+
+
+def remove_stop_words(self: Feature,
+                      stop_words: Optional[Sequence[str]] = None,
+                      case_sensitive: bool = False) -> Feature:
+    return (_text.OpStopWordsRemover(stop_words, case_sensitive)
+            .set_input(self).get_output())
+
+
+def lda(self: Feature, k: int = 10, **kw) -> Feature:
+    """Topic mixture of a term-count vector."""
+    return _text.OpLDA(k=k, **kw).set_input(self).get_output()
+
+
+def combine(self: Feature, *others: Feature) -> Feature:
+    """The vectors concatenated."""
+    return VectorsCombiner().set_input(self, *others).get_output()
+
+
+def drop_indices_by(self: Feature,
+                    predicate: Callable[[Any], bool]) -> Feature:
+    return DropIndicesByTransformer(predicate).set_input(self).get_output()
+
+
 Feature.__add__ = _num_binop("+")
 Feature.__sub__ = _num_binop("-")
 Feature.__mul__ = _num_binop("*")
@@ -172,19 +342,51 @@ Feature.__truediv__ = _num_binop("/")
 Feature.__radd__ = _num_rbinop("+")
 Feature.__rmul__ = _num_rbinop("*")
 Feature.__rsub__ = _num_rbinop("-")
-for _name, _fn in (("alias", alias), ("pivot", pivot),
-                   ("smart_vectorize", smart_vectorize),
-                   ("tokenize", tokenize), ("tf", tf),
-                   ("vectorize", vectorize), ("transmogrify", vectorize),
-                   ("sanity_check", sanity_check), ("indexed", indexed),
-                   ("deindexed", deindexed),
-                   ("to_unit_circle", to_unit_circle),
-                   ("time_period", time_period), ("since_last", since_last),
-                   ("to_date_list", to_date_list),
-                   ("filter_keys", filter_keys),
-                   ("vectorize_map", vectorize_map),
-                   ("smart_vectorize_map", smart_vectorize_map),
-                   ("pivot_map", pivot_map)):
-    setattr(Feature, _name, _fn)
 
-__all__ = ["transmogrify", "sanity_check"]
+#: the DSL methods, in the JAX package's order
+_METHODS = (
+    ("alias", alias), ("abs", abs_), ("log", log), ("exp", exp),
+    ("sqrt", sqrt), ("power", power), ("round", round_), ("ceil", ceil),
+    ("floor", floor), ("to_occur", to_occur),
+    ("tokenize", tokenize), ("pivot", pivot),
+    ("smart_vectorize", smart_vectorize), ("text_len", text_len),
+    ("contains", contains), ("jaccard_similarity", jaccard_similarity),
+    ("ngram_similarity", ngram_similarity),
+    ("to_unit_circle", to_unit_circle), ("time_period", time_period),
+    ("since_last", since_last), ("filter_keys", filter_keys),
+    ("vectorize", vectorize), ("sanity_check", sanity_check),
+    ("is_valid_email", _unary(_text.ValidEmailTransformer)),
+    ("to_email_domain", _unary(_text.EmailToPickList)),
+    ("to_url_domain", _unary(_text.UrlToDomain)),
+    ("is_valid_url", _unary(_text.IsValidUrl)),
+    ("is_valid_phone", is_valid_phone),
+    ("detect_languages", _unary(_text.LangDetector)),
+    ("detect_mime_types", _unary(_text.MimeTypeDetector)),
+    ("recognize_entities", _unary(_text.NameEntityRecognizer)),
+    ("map_values", map_values), ("exists", exists),
+    ("filter_values", filter_values), ("replace_with", replace_with),
+    ("occurs", occurs),
+    ("to_multi_pick_list", _unary(_text.TextToMultiPickList)),
+    ("indexed", indexed), ("deindexed", deindexed),
+    ("tokenize_regex", tokenize_regex),
+    ("to_email_prefix", _unary(_text.EmailToPrefix)),
+    ("to_url_protocol", _unary(_text.UrlToProtocol)),
+    ("parse_phone", parse_phone),
+    ("tf", tf), ("tfidf", tfidf), ("idf", idf), ("word2vec", word2vec),
+    ("count_vec", count_vec), ("ngram", ngram),
+    ("remove_stop_words", remove_stop_words), ("lda", lda),
+    ("to_date_list", to_date_list),
+    ("vectorize_map", vectorize_map),
+    ("smart_vectorize_map", smart_vectorize_map),
+    ("pivot_map", pivot_map),
+    ("is_valid_phone_map", is_valid_phone_map),
+    ("combine", combine), ("drop_indices_by", drop_indices_by),
+)
+for _name, _fn in _METHODS:
+    setattr(Feature, _name, _fn)
+Feature.transmogrify = vectorize
+
+#: every DSL method attached to ``Feature``
+DSL_METHODS = tuple(name for name, _ in _METHODS)
+
+__all__ = ["transmogrify", "sanity_check", "DSL_METHODS"]

@@ -1,13 +1,17 @@
-"""Path (a)'s linear sweeps against the fixture's fold metrics, beside
-controls that change only the arithmetic, on one NVIDIA GPU.
+"""A default-list train's linear sweeps against its fixture's fold
+metrics, beside controls that change only the arithmetic, on one NVIDIA
+GPU.
 
     python3 -m transmogrifai_tpu_torch.experiments.leads_linear
-        [--rows 20000] [--device cuda|cpu] [--orders 3]
+        [--path leads|tickets] [--rows 20000] [--device cuda|cpu]
+        [--orders 3]
 
 Trains the leads workflow (``testing.leads_workflow``, label
 ``Converted``, the date clock at ``LEADS_CLOCK_MS``) on
-``leads_records(rows, LEADS_SEED)`` and takes its selector's rows again
-(``testing.selection_rows``). Then it sweeps each linear family of the
+``leads_records(rows, LEADS_SEED)``, or with ``--path tickets`` the
+support-ticket workflow (``testing.tickets_workflow``) on
+``tickets_records(rows, TICKETS_SEED)``, and takes its selector's rows
+again (``testing.selection_rows``). Then it sweeps each linear family of the
 default list on them (``testing.sweep_again``), in these runs:
 
 * ``shipped``: the sweep as the train runs it, on ``--device``;
@@ -24,7 +28,7 @@ Prints the card's name and power limit, then one JSON line per (family,
 run): its (folds, configurations) fold metrics, its largest |d| from the
 ``f64`` run, and, when ``rows`` is the fixture's, the largest |d| per
 configuration from the fixture's fold metrics
-(``fixtures/leads/fixture.json``). Each fold's base rate, and the metric
+(``fixtures/<path>/fixture.json``). Each fold's base rate, and the metric
 of a constant score (every row tied) and of NaN scores, are printed
 first: the values a collapsed or a diverged fit takes.
 """
@@ -42,12 +46,13 @@ import torch
 from ..impl.tuning import validators as VA
 from ..models import linear as L
 from ..testing import (
-    LEADS_CLOCK_MS, LEADS_ROWS, LEADS_SEED, leads_records, leads_workflow,
-    selection_rows, sweep_again,
+    LEADS_CLOCK_MS, LEADS_ROWS, LEADS_SEED, TICKETS_ROWS, TICKETS_SEED,
+    leads_records, leads_workflow, selection_rows, sweep_again,
+    tickets_records, tickets_workflow,
 )
 
-FIXTURE = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "fixtures", "leads", "fixture.json")
+FIXTURES = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "fixtures")
 LINEAR = ("OpLogisticRegression", "OpLinearSVC")
 
 
@@ -95,6 +100,8 @@ def fold_floors(selector, y) -> list:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--path", choices=("leads", "tickets"),
+                    default="leads")
     ap.add_argument("--rows", type=int, default=LEADS_ROWS)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--orders", type=int, default=3)
@@ -105,16 +112,21 @@ def main(argv=None) -> int:
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True,
             text=True).stdout.strip())
-    wf, _, pred, _ = leads_workflow(leads_records(a.rows, LEADS_SEED),
-                                    device=a.device, clock_ms=LEADS_CLOCK_MS)
+    if a.path == "leads":
+        wf, _, pred, _ = leads_workflow(leads_records(a.rows, LEADS_SEED),
+                                        device=a.device,
+                                        clock_ms=LEADS_CLOCK_MS)
+    else:
+        wf, _, pred, _ = tickets_workflow(
+            tickets_records(a.rows, TICKETS_SEED), device=a.device)
     model = wf.train()
     selector = pred.origin_stage
     X, y = selection_rows(selector, model.train_table)
     print(f"selection rows: X {tuple(X.shape)} on {X.device}")
     print(json.dumps({"fold_floors": fold_floors(selector, y)}))
     want = None
-    if a.rows == LEADS_ROWS:
-        with open(FIXTURE) as fh:
+    if a.rows == (LEADS_ROWS if a.path == "leads" else TICKETS_ROWS):
+        with open(os.path.join(FIXTURES, a.path, "fixture.json")) as fh:
             want = {f["family"]: np.asarray(f["fold_metrics"], np.float64)
                     for f in json.load(fh)["selection"]["families"]}
     for family, rs in runs(selector, X, y, a.orders).items():

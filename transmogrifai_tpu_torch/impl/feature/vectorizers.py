@@ -14,6 +14,7 @@ construction and is not ported).
 """
 from __future__ import annotations
 
+import functools
 import re
 import zlib
 from collections import Counter
@@ -342,6 +343,311 @@ def tokenize_text(s: Optional[str], min_token_length: int = 1) -> List[str]:
             if len(t) >= min_token_length]
 
 
+def porter_stem(w: str) -> str:
+    """Compact Porter-style English stemmer (the high-coverage rules of
+    steps 1-2: plurals, -ed/-ing, common suffixes — the analog of the
+    reference's Lucene per-language analyzers with stemming,
+    LuceneTextAnalyzer.scala:203; full Porter fidelity is not the goal,
+    stable feature collisions for inflected forms are)."""
+    if len(w) <= 3:
+        return w
+    if w.endswith("sses"):
+        w = w[:-2]
+    elif w.endswith("ies"):
+        w = w[:-2]
+    elif w.endswith("s") and not w.endswith("ss") and len(w) > 3:
+        w = w[:-1]
+    for suf, rep in (("ational", "ate"), ("ization", "ize"),
+                     ("fulness", "ful"), ("ousness", "ous"),
+                     ("iveness", "ive"), ("tional", "tion"),
+                     ("biliti", "ble"), ("entli", "ent"),
+                     ("ation", "ate"), ("alism", "al"), ("aliti", "al"),
+                     ("ness", ""), ("ment", "")):
+        if w.endswith(suf) and len(w) - len(suf) >= 3:
+            return w[: len(w) - len(suf)] + rep
+    if w.endswith("ing") and len(w) > 5:
+        w = w[:-3]
+        if len(w) >= 3 and w[-1] == w[-2] and w[-1] not in "lsz":
+            w = w[:-1]  # running -> run
+        return w
+    if w.endswith("ed") and len(w) > 4:
+        w = w[:-2]
+        if len(w) >= 3 and w[-1] == w[-2] and w[-1] not in "lsz":
+            w = w[:-1]
+        return w
+    if w.endswith("ly") and len(w) > 4:
+        return w[:-2]
+    return w
+
+
+def _strip_suffixes(w: str, suffixes, min_stem: int = 3) -> str:
+    """Longest-match suffix strip with a minimum stem length — the shared
+    skeleton of the light per-language stemmers below."""
+    for suf, rep in suffixes:
+        if w.endswith(suf) and len(w) - len(suf) >= min_stem:
+            return w[: len(w) - len(suf)] + rep
+    return w
+
+
+#: light Snowball-style suffix strippers (reference: Lucene ships full
+#: per-language Snowball analyzers, LuceneTextAnalyzer.scala:203; as with
+#: porter_stem the goal is stable feature collisions for inflected forms,
+#: not linguistic fidelity). Ordered longest-first so the longest suffix
+#: wins.
+_FR_SUFFIXES = [
+    ("issements", ""), ("issement", ""), ("atrices", "ateur"),
+    ("ateurs", "ateur"), ("ations", "ation"), ("logies", "logie"),
+    ("ements", ""), ("amment", ""), ("emment", ""), ("ances", "ance"),
+    ("ables", "able"), ("istes", "iste"), ("euses", "eux"),
+    ("ments", "ment"), ("ation", "ation"), ("ance", "ance"),
+    ("able", "able"), ("iste", "iste"), ("euse", "eux"), ("ités", "ité"),
+    ("ement", ""), ("ives", "if"), ("ive", "if"), ("eaux", "eau"),
+    ("aux", "al"), ("ité", "ité"), ("er", ""), ("es", ""), ("s", ""),
+    ("e", ""),
+]
+_DE_SUFFIXES = [
+    ("ungen", "ung"), ("heiten", "heit"), ("keiten", "keit"),
+    ("lichen", "lich"), ("ischen", "isch"), ("erinnen", "er"),
+    ("ern", ""), ("ung", "ung"), ("heit", "heit"),
+    ("keit", "keit"), ("lich", "lich"), ("isch", "isch"), ("en", ""),
+    ("er", ""), ("es", ""), ("em", ""), ("e", ""), ("s", ""), ("n", ""),
+]
+_ES_SUFFIXES = [
+    ("amientos", ""), ("imientos", ""), ("aciones", "ación"),
+    ("amiento", ""), ("imiento", ""), ("adoras", "ador"),
+    ("adores", "ador"), ("ancias", "ancia"), ("idades", "idad"),
+    ("encias", "encia"), ("amente", ""), ("mente", ""), ("ación", "ación"),
+    ("adora", "ador"), ("ancia", "ancia"), ("encia", "encia"),
+    ("idad", "idad"), ("istas", "ista"), ("ista", "ista"),
+    ("ables", "able"), ("ibles", "ible"), ("able", "able"),
+    ("ible", "ible"), ("osos", "oso"), ("osas", "oso"), ("osa", "oso"),
+    ("oso", "oso"), ("es", ""), ("as", "a"), ("os", "o"), ("s", ""),
+]
+
+
+_IT_SUFFIXES = [
+    ("azioni", "azione"), ("amenti", ""), ("imenti", ""),
+    ("amento", ""), ("imento", ""), ("azione", "azione"),
+    ("atrici", "atore"), ("atrice", "atore"), ("atori", "atore"),
+    ("atore", "atore"), ("abili", "abile"), ("ibili", "ibile"),
+    ("abile", "abile"), ("ibile", "ibile"), ("mente", ""),
+    ("ista", "ista"), ("isti", "ista"), ("iste", "ista"),
+    ("anza", "anza"), ("anze", "anza"), ("ità", "ità"),
+    ("osi", "oso"), ("ose", "oso"), ("osa", "oso"), ("oso", "oso"),
+    ("are", ""), ("ere", ""), ("ire", ""), ("ato", ""), ("ata", ""),
+    ("ati", ""), ("ate", ""), ("i", ""), ("e", ""), ("a", ""), ("o", ""),
+]
+_PT_SUFFIXES = [
+    ("amentos", ""), ("imentos", ""), ("adoras", "ador"),
+    ("adores", "ador"), ("amento", ""), ("imento", ""),
+    ("ações", "ação"), ("idades", "idade"), ("amente", ""),
+    ("mente", ""), ("adora", "ador"), ("ação", "ação"),
+    ("antes", "ante"), ("ância", "ância"), ("idade", "idade"),
+    ("ismos", "ismo"), ("istas", "ista"), ("ismo", "ismo"),
+    ("ista", "ista"), ("osos", "oso"), ("osas", "oso"), ("osa", "oso"),
+    ("oso", "oso"), ("ivas", "ivo"), ("ivos", "ivo"), ("iva", "ivo"),
+    ("ivo", "ivo"), ("ões", "ão"), ("ar", ""), ("er", ""), ("ir", ""),
+    ("es", ""), ("as", "a"), ("os", "o"), ("s", ""),
+]
+_NL_SUFFIXES = [
+    ("heden", "heid"), ("elijke", "elijk"), ("elijk", "elijk"),
+    ("ingen", "ing"), ("aren", "aar"), ("eren", ""), ("ende", ""),
+    ("tjes", ""), ("ing", "ing"), ("aar", "aar"), ("end", ""),
+    ("ster", ""), ("je", ""), ("en", ""), ("er", ""), ("es", ""),
+    ("s", ""), ("e", ""),
+]
+#: Russian: strip reflexive particle first, then the longest
+#: verb/adjective/noun ending (RSLP-style ordering, Cyrillic)
+_RU_REFLEXIVE = ("ся", "сь")
+_RU_SUFFIXES = [
+    ("ировать", ""), ("ованный", ""), ("ейший", ""),
+    ("ениями", "ение"), ("ениях", "ение"),
+    ("ениям", "ение"), ("ением", "ение"), ("ости", "ость"),
+    ("остью", "ость"), ("ение", "ение"), ("ения", "ение"),
+    ("ении", "ение"), ("ством", "ство"), ("ство", "ство"),
+    ("ывать", ""), ("ивать", ""), ("овать", ""), ("аться", ""),
+    ("иться", ""), ("ешься", ""), ("ется", ""), ("ители", "итель"),
+    ("итель", "итель"), ("ами", ""), ("ями", ""), ("ого", ""),
+    ("его", ""), ("ому", ""), ("ему", ""), ("ыми", ""), ("ими", ""),
+    ("ая", ""), ("яя", ""), ("ой", ""), ("ый", ""), ("ий", ""),
+    ("ем", ""), ("им", ""), ("ом", ""), ("ах", ""), ("ях", ""),
+    ("ует", ""), ("ешь", ""), ("ете", ""), ("ает", ""), ("яет", ""),
+    ("ить", ""), ("ать", ""),
+    ("ять", ""), ("еть", ""), ("ал", ""), ("ил", ""), ("ыл", ""),
+    ("ла", ""), ("ло", ""), ("ли", ""), ("ов", ""), ("ев", ""),
+    ("ей", ""), ("ам", ""), ("ям", ""), ("ы", ""), ("и", ""),
+    ("а", ""), ("я", ""), ("о", ""), ("е", ""), ("у", ""), ("ю", ""),
+    ("ь", ""),
+]
+
+
+def french_stem(w: str) -> str:
+    return _strip_suffixes(w, _FR_SUFFIXES) if len(w) > 4 else w
+
+
+def german_stem(w: str) -> str:
+    return _strip_suffixes(w, _DE_SUFFIXES, min_stem=4) if len(w) > 4 else w
+
+
+def spanish_stem(w: str) -> str:
+    return _strip_suffixes(w, _ES_SUFFIXES) if len(w) > 4 else w
+
+
+def italian_stem(w: str) -> str:
+    return _strip_suffixes(w, _IT_SUFFIXES) if len(w) > 4 else w
+
+
+def portuguese_stem(w: str) -> str:
+    return _strip_suffixes(w, _PT_SUFFIXES) if len(w) > 4 else w
+
+
+def dutch_stem(w: str) -> str:
+    return _strip_suffixes(w, _NL_SUFFIXES, min_stem=4) if len(w) > 4 else w
+
+
+def russian_stem(w: str) -> str:
+    if len(w) <= 4:
+        return w
+    for r in _RU_REFLEXIVE:
+        if w.endswith(r) and len(w) - len(r) >= 3:
+            w = w[: len(w) - len(r)]
+            break
+    return _strip_suffixes(w, _RU_SUFFIXES)
+
+
+#: Scandinavian: sv/no/da share the -en/-et/-er/-ene noun machinery
+_SV_SUFFIXES = [
+    ("heterna", "het"), ("heten", "het"), ("heter", "het"),
+    ("arna", ""), ("erna", ""), ("orna", ""), ("ande", ""), ("ende", ""),
+    ("aste", ""), ("arne", ""), ("aren", ""), ("ades", ""), ("are", ""),
+    ("ade", ""), ("at", ""), ("ad", ""), ("en", ""), ("ar", ""),
+    ("er", ""), ("or", ""), ("et", ""), ("a", ""), ("e", ""), ("s", ""),
+]
+_NO_DA_SUFFIXES = [
+    ("hetene", "het"), ("heten", "het"), ("heter", "het"),
+    ("erne", ""), ("ende", ""), ("ene", ""), ("ane", ""), ("else", ""),
+    ("ere", ""), ("est", ""), ("et", ""), ("en", ""), ("er", ""),
+    ("ar", ""), ("te", ""), ("e", ""), ("s", ""),
+]
+#: Finnish: strip possessives then the most common case endings (a real
+#: Snowball Finnish is far deeper; goal is stable collisions)
+_FI_SUFFIXES = [
+    ("issaan", ""), ("issään", ""), ("llaan", ""), ("llään", ""),
+    ("ssaan", ""), ("ssään", ""), ("iensa", ""), ("iensä", ""),
+    ("isiin", ""), ("ista", ""), ("istä", ""), ("ille", ""),
+    ("illa", ""), ("illä", ""), ("issa", ""), ("issä", ""),
+    ("lla", ""), ("llä", ""), ("ssa", ""), ("ssä", ""), ("sta", ""),
+    ("stä", ""), ("lle", ""), ("lta", ""), ("ltä", ""), ("ksi", ""),
+    ("tta", ""), ("ttä", ""), ("ien", ""), ("in", ""), ("it", ""),
+    ("et", ""), ("at", ""), ("ät", ""), ("na", ""), ("nä", ""),
+    ("a", ""), ("ä", ""), ("n", ""), ("t", ""),
+]
+#: Hungarian: case endings + plural
+_HU_SUFFIXES = [
+    ("jainak", ""), ("einek", ""), ("oknak", ""), ("eknek", ""),
+    ("ságok", "ság"), ("ségek", "ség"), ("ság", "ság"), ("ség", "ség"),
+    ("okat", ""), ("eket", ""), ("akat", ""), ("ban", ""), ("ben", ""),
+    ("nak", ""), ("nek", ""), ("val", ""), ("vel", ""), ("ból", ""),
+    ("ből", ""), ("hoz", ""), ("hez", ""), ("ról", ""), ("ről", ""),
+    ("ok", ""), ("ek", ""), ("ak", ""), ("ot", ""), ("et", ""),
+    ("at", ""), ("on", ""), ("en", ""), ("án", ""), ("én", ""),
+    ("t", ""), ("k", ""),
+]
+#: Turkish: agglutinative chain simplified to the outermost layers
+_TR_SUFFIXES = [
+    ("larından", ""), ("lerinden", ""), ("larında", ""), ("lerinde", ""),
+    ("larini", ""), ("lerini", ""), ("larına", ""), ("lerine", ""),
+    ("ların", ""), ("lerin", ""), ("ları", ""), ("leri", ""),
+    ("lardan", ""), ("lerden", ""), ("larda", ""), ("lerde", ""),
+    ("lara", ""), ("lere", ""), ("lar", ""), ("ler", ""),
+    ("ında", ""), ("inde", ""), ("undan", ""), ("ünden", ""),
+    ("dan", ""), ("den", ""), ("tan", ""), ("ten", ""),
+    ("da", ""), ("de", ""), ("ta", ""), ("te", ""),
+    ("ın", ""), ("in", ""), ("un", ""), ("ün", ""),
+    ("ı", ""), ("i", ""), ("u", ""), ("ü", ""), ("a", ""), ("e", ""),
+]
+#: Polish: declension + common verb endings
+_PL_SUFFIXES = [
+    ("owaniach", ""), ("owania", ""), ("owanie", ""), ("ościach", "ość"),
+    ("ościami", "ość"), ("ości", "ość"), ("ość", "ość"),
+    ("owych", "owy"), ("owymi", "owy"), ("owej", "owy"), ("owego", "owy"),
+    ("owy", "owy"), ("owa", "owy"), ("owe", "owy"),
+    ("ach", ""), ("ami", ""), ("iem", ""), ("em", ""), ("om", ""),
+    ("ów", ""), ("ej", ""), ("ego", ""), ("emu", ""), ("ymi", ""),
+    ("ych", ""), ("ą", ""), ("ę", ""), ("y", ""), ("i", ""), ("e", ""),
+    ("a", ""), ("o", ""), ("u", ""),
+]
+#: Romanian: articles + plural/case
+_RO_SUFFIXES = [
+    ("iilor", ""), ("ilor", ""), ("ului", ""), ("elor", ""),
+    ("ările", "are"), ("area", "are"), ("erea", "ere"), ("irea", "ire"),
+    ("ări", "are"), ("uri", ""), ("ele", ""), ("ea", ""), ("ul", ""),
+    ("ii", ""), ("le", ""), ("lui", ""), ("ă", ""), ("a", ""),
+    ("e", ""), ("i", ""), ("u", ""),
+]
+#: Czech: declension
+_CS_SUFFIXES = [
+    ("ováním", "ování"), ("ování", "ování"), ("ostech", "ost"),
+    ("ostem", "ost"), ("ostí", "ost"), ("osti", "ost"), ("ost", "ost"),
+    ("ého", ""), ("ému", ""), ("ými", ""), ("ých", ""), ("ami", ""),
+    ("emi", ""), ("ech", ""), ("ích", ""), ("ům", ""), ("em", ""),
+    ("ou", ""), ("y", ""), ("i", ""), ("e", ""), ("é", ""),
+    ("á", ""), ("í", ""), ("ý", ""), ("a", ""), ("o", ""), ("u", ""),
+]
+
+
+def swedish_stem(w: str) -> str:
+    return _strip_suffixes(w, _SV_SUFFIXES) if len(w) > 4 else w
+
+
+def norwegian_stem(w: str) -> str:
+    return _strip_suffixes(w, _NO_DA_SUFFIXES) if len(w) > 4 else w
+
+
+def danish_stem(w: str) -> str:
+    return _strip_suffixes(w, _NO_DA_SUFFIXES) if len(w) > 4 else w
+
+
+def finnish_stem(w: str) -> str:
+    return _strip_suffixes(w, _FI_SUFFIXES) if len(w) > 5 else w
+
+
+def hungarian_stem(w: str) -> str:
+    return _strip_suffixes(w, _HU_SUFFIXES) if len(w) > 4 else w
+
+
+def turkish_stem(w: str) -> str:
+    if len(w) <= 4:
+        return w
+    # peel at most two agglutinated layers
+    w1 = _strip_suffixes(w, _TR_SUFFIXES)
+    return _strip_suffixes(w1, _TR_SUFFIXES) if len(w1) > 5 else w1
+
+
+def polish_stem(w: str) -> str:
+    return _strip_suffixes(w, _PL_SUFFIXES) if len(w) > 3 else w
+
+
+def romanian_stem(w: str) -> str:
+    return _strip_suffixes(w, _RO_SUFFIXES) if len(w) > 4 else w
+
+
+def czech_stem(w: str) -> str:
+    return _strip_suffixes(w, _CS_SUFFIXES) if len(w) > 4 else w
+
+
+#: language → stemmer for TextTokenizer(stemming=True, language=...)
+#: (reference: Lucene ships ~30 per-language Snowball analyzers,
+#: LuceneTextAnalyzer.scala:203 — 17 light analogs here)
+STEMMERS = {"en": porter_stem, "fr": french_stem, "de": german_stem,
+            "es": spanish_stem, "it": italian_stem, "pt": portuguese_stem,
+            "nl": dutch_stem, "ru": russian_stem,
+            "sv": swedish_stem, "no": norwegian_stem, "da": danish_stem,
+            "fi": finnish_stem, "hu": hungarian_stem, "tr": turkish_stem,
+            "pl": polish_stem, "ro": romanian_stem, "cs": czech_stem}
+
+
+
 def _hash_token(tok: str, num_hashes: int) -> int:
     """A token's bin: crc32 of its UTF-8 bytes modulo ``num_hashes``."""
     return zlib.crc32(tok.encode("utf-8")) % num_hashes
@@ -368,16 +674,35 @@ def tokenize_hash_texts(docs: Sequence[Optional[str]], num_hashes: int,
 
 
 class TextTokenizer(UnaryTransformer):
-    """Text -> TextList: ``tokenize_text`` of each value."""
+    """Text -> TextList: ``tokenize_text`` of each value; with
+    ``stemming`` each token goes through ``STEMMERS[language]`` (a
+    language without a stemmer keeps its tokens)."""
 
     def __init__(self, min_token_length: int = D.MinTokenLength,
+                 stemming: bool = False, language: str = "en",
                  uid: Optional[str] = None):
         super().__init__("tokenize", transform_fn=self._tokens,
                          output_type=TextList, input_type=Text, uid=uid)
         self.min_token_length = min_token_length
+        self.stemming = stemming
+        self.language = language
 
     def _tokens(self, v):
-        return tokenize_text(v, self.min_token_length)
+        toks = tokenize_text(v, self.min_token_length)
+        # a model saved before stemming was an option has neither key
+        if not getattr(self, "stemming", False):
+            return toks
+        stem = _stemmer(self.language)
+        return toks if stem is None else [stem(t) for t in toks]
+
+
+@functools.lru_cache(maxsize=None)
+def _stemmer(language: str):
+    """``STEMMERS[language]`` remembering its last 65,536 words (a corpus
+    repeats its words), or None."""
+    stem = STEMMERS.get(language)
+    return None if stem is None else functools.lru_cache(maxsize=1 << 16)(
+        stem)
 
 
 class HashingVectorizer(Transformer):

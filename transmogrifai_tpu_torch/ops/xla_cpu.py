@@ -186,3 +186,140 @@ def xla_softmax(F: torch.Tensor) -> torch.Tensor:
     sum over axis 1 in ``xla_sum``'s order, subnormal results flushed."""
     e = xla_exp(F - F.max(dim=1, keepdim=True).values)
     return flush_subnormal(e / xla_sum(e.movedim(1, 0)).unsqueeze(1))
+
+
+def _const_div(c: float, x: torch.Tensor) -> torch.Tensor:
+    """float32 ``c / x`` rounded once (PyTorch's ``c / x`` of a python
+    number multiplies by the reciprocal)."""
+    return torch.full_like(x, _f32(c)) / x
+
+
+def xla_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid``: XLA's CPU ``logistic`` is 1 / (1 + exp(-x))
+    with ``xla_exp``, a subnormal result flushed to 0."""
+    return flush_subnormal(_const_div(1.0, xla_exp(-x) + 1.0))
+
+
+#: glibc's float32 sin/cos (``__sincosf_table``): 2/pi, pi/2, the cosine
+#: coefficients c0-c4 and the sine coefficients s1-s3 of its polynomials
+_SC_HPI_INV = float.fromhex("0x1.45F306DC9C883p-1")
+_SC_HPI = float.fromhex("0x1.921FB54442D18p0")
+_SC_C = tuple(float.fromhex(h) for h in (
+    "0x1p0", "-0x1.ffffffd0c621cp-2", "0x1.55553e1068f19p-5",
+    "-0x1.6c087e89a359dp-10", "0x1.99343027bf8c3p-16"))
+_SC_S = tuple(float.fromhex(h) for h in (
+    "-0x1.555545995a603p-3", "0x1.1107605230bc4p-7",
+    "-0x1.994eb3774cf24p-13"))
+
+
+def _abstop12(x: torch.Tensor) -> torch.Tensor:
+    """The exponent and top three mantissa bits of |float32 x|."""
+    return (x.view(torch.int32) >> 20) & 0x7FF
+
+
+def _sincos_poly(x: torch.Tensor, x2: torch.Tensor,
+                 sign: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
+    """glibc's ``sinf_poly`` in float64: the sine polynomial where ``odd``
+    is false, the cosine one where true; ``sign`` (+-1) is the second
+    table's sign flip of the cosine coefficients."""
+    s1, s2, s3 = _SC_S
+    c0, c1, c2, c3, c4 = (sign * c for c in _SC_C)
+    x3 = x * x2
+    sin = (x + x3 * s1) + (x3 * x2) * (s2 + x2 * s3)
+    x4 = x2 * x2
+    cos = ((c0 + x2 * c1) + x4 * c2) + (x4 * x2) * (c3 + x2 * c4)
+    return torch.where(odd, cos, sin)
+
+
+def _glibc_sincos(y: torch.Tensor, cosine: bool) -> torch.Tensor:
+    """glibc's ``sinf`` / ``cosf`` of float32 |y| < 120 (what XLA's CPU
+    ``sine`` and ``cosine`` call): below pi/4 (by the top 12 bits) the
+    polynomial of y, else y less n * pi/2 (n = round(y * 2/pi)) and the
+    quadrant's polynomial and sign; below 2^-12 sin y = y, cos y = 1.
+    Computed in float64 and rounded once, as glibc computes it."""
+    x = y.double()
+    small = _abstop12(y) < _abstop12(torch.tensor(0.785398185253143310546875))
+    n = torch.where(small, torch.zeros_like(x), torch.round(x * _SC_HPI_INV))
+    r = x - n * _SC_HPI
+    q = n.to(torch.int64) & 3
+    sgn = torch.where((q == 1) | (q == 2), -1.0, 1.0).double()
+    flip = torch.where((q & 2) != 0, -1.0, 1.0).double()
+    r = torch.where(small, r, r * sgn)
+    odd = ((q & 1) == 1) ^ cosine
+    out = _sincos_poly(r, r * r, flip, odd).float()
+    tiny = _abstop12(y) < _abstop12(torch.tensor(2.0 ** -12))
+    return torch.where(tiny, torch.ones_like(y) if cosine else y, out)
+
+
+#: XLA's digamma (Lanczos, g = 7): the coefficients, each rounded to float32
+_LANCZOS = (676.520368121885098567009190444019,
+            -1259.13921672240287047156078755283,
+            771.3234287776530788486528258894,
+            -176.61502916214059906584551354,
+            12.507343278686904814458936853,
+            -0.13857109526572011689554707,
+            9.984369578019570859563e-6, 1.50563273514931155834e-7)
+
+
+def xla_digamma(x: torch.Tensor) -> torch.Tensor:
+    """``jax.scipy.special.digamma`` of float32 x as XLA's CPU computes it:
+    z = x - 1 (z = -x below 1/2, then reflected), the Lanczos sums
+    num = -sum c_i / (z + i)^2 and den = 1 + sum c_i / (z + i) (i = 1..8,
+    the first term added to 1), log(z + 7.5) as log(7.5) +
+    log1p(z * (1 / 7.5)), y = log_t + num / den - 7 / (z + 7.5); below
+    1/2, y - pi cos(pi r) / sin(pi r) with r = x + |floor(x + 1/2)|
+    (glibc's float32 sin and cos); NaN at 0 and the negative integers."""
+    refl = x < 0.5
+    z = torch.where(refl, -x, x - 1.0)
+    num = torch.zeros_like(x)
+    den = None
+    for i, c in enumerate(_LANCZOS):
+        zi = z + float(i + 1)
+        num = num - _const_div(c, zi * zi)
+        term = _const_div(c, zi)
+        den = term + 1.0 if den is None else den + term
+    log_t = xla_log1p(z * _f32(1.0 / 7.5)) + _f32(np.log(7.5))
+    y = (log_t + num / den) - _const_div(7.0, z + 7.5)
+    a = (x + torch.abs(torch.floor(x + 0.5))) * _f32(np.pi)
+    cot = (_glibc_sincos(a, True) * _f32(np.pi)) / _glibc_sincos(a, False)
+    out = torch.where(refl, y - cot, y)
+    pole = (x <= 0) & (x == torch.floor(x))
+    return torch.where(pole, torch.full_like(x, float("nan")), out)
+
+
+def xla_scatter_add(dst: torch.Tensor, idx: torch.Tensor,
+                    upd: torch.Tensor) -> torch.Tensor:
+    """``dst.at[idx].add(upd)`` as XLA's CPU scatter adds it, in place:
+    ``dst[idx[i]] += upd[i]`` one update after another in their order,
+    each add rounded. On the CPU that is numpy's ``np.add.at``; on the
+    card ``scatter_add_rounds``. Both give these bits."""
+    if dst.device.type == "cpu":
+        np.add.at(dst.numpy(), idx.numpy(), upd.numpy())
+        return dst
+    return scatter_add_rounds(dst, idx, upd)
+
+
+def scatter_add_rounds(dst: torch.Tensor, idx: torch.Tensor,
+                       upd: torch.Tensor) -> torch.Tensor:
+    """``xla_scatter_add`` without float atomics, in place: the updates
+    are ranked by their occurrence within their row (a stable sort), and
+    round r adds every r-th occurrence at once, its rows distinct; one
+    host read gives the rounds' sizes. The same tensor operations on any
+    device."""
+    m = idx.shape[0]
+    if m == 0:
+        return dst
+    sidx, perm = torch.sort(idx, stable=True)
+    pos = torch.arange(m, device=idx.device)
+    start = torch.ones(m, dtype=torch.bool, device=idx.device)
+    start[1:] = sidx[1:] != sidx[:-1]
+    rank = pos - torch.cummax(torch.where(start, pos, 0), 0).values
+    rank_sorted, order = torch.sort(rank, stable=True)
+    perm = perm[order]
+    rows, vals = idx[perm], upd[perm]
+    off = 0
+    for count in torch.bincount(rank_sorted).tolist():
+        r = rows[off:off + count]
+        dst.index_put_((r,), dst[r] + vals[off:off + count])
+        off += count
+    return dst

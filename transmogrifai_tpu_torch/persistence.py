@@ -50,9 +50,7 @@ from .device import resolve_device
 from .features import Feature, FieldExtractor
 from .filters.raw_feature_filter import FeatureMetrics, RawFeatureFilterResults
 from .impl.feature import dates, geo, maps, text
-from .impl.feature.math import (
-    AliasTransformer, BinaryMathOp, FilterMap, ScalarOp,
-)
+from .impl.feature import math as _math
 from .impl.feature.vectorizers import (
     BinaryVectorizer, HashingVectorizer, OneHotVectorizerModel,
     RealNNVectorizer, RealVectorizerModel, SmartTextVectorizerModel,
@@ -90,10 +88,15 @@ CLASSES: Dict[str, type] = {
         "stages.base:BinaryTransformer": BinaryTransformer,
         "stages.base:SequenceTransformer": SequenceTransformer,
         "stages.base:BinarySequenceTransformer": BinarySequenceTransformer,
-        "impl.feature.math:ScalarOp": ScalarOp,
-        "impl.feature.math:BinaryMathOp": BinaryMathOp,
-        "impl.feature.math:AliasTransformer": AliasTransformer,
-        "impl.feature.math:FilterMap": FilterMap,
+        **{f"impl.feature.math:{c.__name__}": c for c in (
+            _math.ScalarOp, _math.BinaryMathOp, _math.AliasTransformer,
+            _math.FilterMap, _math._NumericUnary,
+            _math.SubstringTransformer, _math.ToOccurTransformer,
+            _math.TextLenTransformer, _math.TextListNullTransformer,
+            _math.DropIndicesByTransformer, _math.JaccardSimilarity,
+            _math.NGramSimilarity, _math.OPCollectionTransformer,
+            _math.OPListTransformer, _math.OPSetTransformer,
+            _math.OPMapTransformer)},
         "impl.feature.vectorizers:RealVectorizerModel": RealVectorizerModel,
         "impl.feature.vectorizers:RealNNVectorizer": RealNNVectorizer,
         "impl.feature.vectorizers:BinaryVectorizer": BinaryVectorizer,
@@ -117,7 +120,16 @@ CLASSES: Dict[str, type] = {
             maps.SmartTextMapVectorizerModel, maps.TextMapNullModel)},
         **{f"impl.feature.text:{c.__name__}": c for c in (
             text.OpStringIndexerModel, text.OpIndexToString,
-            text.OpIndexToStringNoFilter)},
+            text.OpIndexToStringNoFilter, text.OpCountVectorizerModel,
+            text.OpNGram, text.OpStopWordsRemover, text.OpWord2VecModel,
+            text.OpLDAModel, text.LangDetector, text.NameEntityRecognizer,
+            text.MimeTypeDetector, text.PhoneNumberParser,
+            text.IsValidPhoneDefaultCountry, text.ParsePhoneNumber,
+            text.IsValidPhoneNumber, text.ValidEmailTransformer,
+            text.EmailToPickList, text.UrlToDomain, text.IsValidUrl,
+            text.EmailToPrefix, text.UrlToProtocol,
+            text.TextToMultiPickList, text.RegexTokenizer,
+            text.IsValidPhoneMap, text.OpIDFModel)},
         "impl.preparators.prediction_deindexer:PredictionDeIndexerModel":
             PredictionDeIndexerModel,
         "impl.preparators.sanity_checker:SanityCheckerModel":
@@ -143,6 +155,14 @@ CLASSES: Dict[str, type] = {
         "filters.raw_feature_filter:FeatureMetrics": FeatureMetrics,
     }.items()}
 
+#: saved "module:function" -> the port's function: stage state that is a
+#: module-level function of the JAX package (saved as ``__fn__``)
+FUNCTIONS: Dict[str, Any] = {
+    _SAVED + "impl.feature.math:jaccard_similarity":
+        _math.jaccard_similarity,
+}
+_FUNCTION_NAMES = {id(fn): spec for spec, fn in FUNCTIONS.items()}
+
 #: the port's class -> the saved "module:Class" name
 SAVED_NAMES: Dict[type, str] = {cls: spec for spec, cls in CLASSES.items()}
 
@@ -156,6 +176,9 @@ _JAX_STATE: Dict[Optional[str], Dict[str, Any]] = {
     None: {"_params": {}},
     "FeatureGeneratorStage": {"aggregator": None, "aggregate_window": None},
     "VectorsCombiner": {"transform_fn": None, "columnar_fn": None},
+    "BinaryVectorizer": {"transform_fn": None, "columnar_fn": None},
+    "RealNNVectorizer": {"transform_fn": None, "columnar_fn": None},
+    "HashingVectorizer": {"transform_fn": None, "columnar_fn": None},
 }
 
 
@@ -236,6 +259,8 @@ def _decode(d: Any, arrays: Dict[str, np.ndarray]) -> Any:
         return obj
     if "__unresolved__" in d:
         return Unresolved(d["__unresolved__"])
+    if d.get("__fn__") in FUNCTIONS:
+        return FUNCTIONS[d["__fn__"]]
     for kind in ("__class__", "__fn__", "__stage_ref__"):
         if kind in d:
             raise ValueError(f"saved state {kind}={d[kind]!r} cannot be "
@@ -441,8 +466,10 @@ def _encode(v: Any, arrays: _Arrays) -> Any:
         return {"__obj__": _saved_name(type(v)),
                 "state": {f.name: _encode(getattr(v, f.name), arrays)
                           for f in dataclasses.fields(v)}}
+    if id(v) in _FUNCTION_NAMES:
+        return {"__fn__": _FUNCTION_NAMES[id(v)]}
     if isinstance(v, (_pytypes.FunctionType, _pytypes.MethodType,
-                      _pytypes.BuiltinFunctionType)):
+                      _pytypes.BuiltinFunctionType, np.ufunc)):
         return {"__unresolved__": repr(v)}
     if isinstance(v, OpPipelineStage):
         return {"__stage_ref__": v.uid}

@@ -3,7 +3,7 @@
     python3 -m transmogrifai_tpu_torch.profile_train
         [--family gbt|gbt12|rf|dt|rfreg|gbtreg|rfmc|xgbmc|lr|svc|lrmc|nbmc|
                   linreg|glm|default_binary|default_mc|default_reg|mlp|
-                  mlpmc|titanic|titanic_wcv|leads|leads_stage]
+                  mlpmc|titanic|titanic_wcv|leads|leads_stage|tickets]
         [--rows 20000] [--reps 3]
 
 Trains one of the serve bench's workflows (64 ``Real`` predictors,
@@ -31,7 +31,11 @@ sweeps, the rest with the refit) are timed too; or ``leads`` and
 dates, geolocations and maps through ``transmogrify`` to ~620 columns,
 then the binary default list, or the indexed stage label with the RF of
 ``rfmc`` and the prediction deindexer) on ``testing.leads_records``,
-built with the date clock at the fixtures' instant. It
+built with the date clock at the fixtures' instant; or ``tickets``, the
+support-ticket path (``testing.tickets_workflow``: the NLP stages with
+word2vec and LDA fitted on the card, the language, entity, MIME, phone,
+email and URL parsers, then the binary default list) on
+``testing.tickets_records``, each NLP stage's fit and transform timed. It
 trains on ``--rows`` seeded rows, once to
 warm up and then ``--reps`` times, and prints one JSON line: the median
 over the trains of the seconds of the whole ``train()``, and of each
@@ -42,7 +46,9 @@ clock, each ending in ``torch.cuda.synchronize()``);
 the peak device memory allocated over those trains
 (``torch.cuda.max_memory_allocated``); then, from ``torch.profiler`` over
 one more train, the device time per kernel name and the device's busy
-share of the train.
+share of the train. ``--trace 0`` skips that train: the tickets train
+launches ~10^6 small kernels (word2vec's steps, LDA's sweeps), more than
+the profiler processes within a call's time.
 """
 from __future__ import annotations
 
@@ -59,8 +65,9 @@ from contextlib import contextmanager
 import torch
 
 from .testing import (
-    LEADS_CLOCK_MS, LEADS_PATHS, LEADS_SEED, SERVE_MODELS, leads_records,
-    leads_workflow, serve_bench_data, serve_bench_workflow,
+    LEADS_CLOCK_MS, LEADS_PATHS, LEADS_SEED, SERVE_MODELS, TICKETS_SEED,
+    leads_records, leads_workflow, serve_bench_data, serve_bench_workflow,
+    tickets_records, tickets_workflow,
 )
 
 
@@ -98,7 +105,8 @@ def _timing(phases: dict):
                     G.GeolocationVectorizer, G.GeolocationMapVectorizer,
                     M.MapVectorizer, M.TextMapPivotVectorizer,
                     M.SmartTextMapVectorizer, TX.OpStringIndexer,
-                    PD.PredictionDeIndexer)
+                    PD.PredictionDeIndexer, TX.OpCountVectorizer,
+                    TX.OpWord2Vec, TX.OpLDA, TX.OpIDF)
     ] + [
         (cls, "transform_column",
          lambda *a, name=cls.__name__, **k: f"transform {name}")
@@ -110,7 +118,11 @@ def _timing(phases: dict):
                     G.GeolocationMapVectorizerModel, M.MapVectorizerModel,
                     M.TextMapPivotVectorizerModel,
                     M.SmartTextMapVectorizerModel, TX.OpStringIndexerModel,
-                    PD.PredictionDeIndexerModel)
+                    PD.PredictionDeIndexerModel, TX.OpCountVectorizerModel,
+                    TX.OpWord2VecModel, TX.OpLDAModel, TX.OpIDFModel,
+                    V.TextTokenizer, TX.OpStopWordsRemover, TX.OpNGram,
+                    TX.LangDetector, TX.NameEntityRecognizer,
+                    TX.MimeTypeDetector)
     ] + [
         (SanityChecker, "fit", lambda *a, **k: "fit SanityChecker"),
         (RawFeatureFilter, "filter_raw",
@@ -183,6 +195,9 @@ def _workflow_fn(family: str, rows: int, tmp: str):
         score = os.path.join(tmp, "titanic_score.csv")
         titanic_csv(score, TITANIC_SCORE_ROWS, TITANIC_SCORE_SEED)
         return lambda: titanic_wcv_workflow(path, score)[0]
+    if family == "tickets":
+        recs = tickets_records(rows, TICKETS_SEED)
+        return lambda: tickets_workflow(recs)[0]
     if family in LEADS_PATHS:
         recs = leads_records(rows, LEADS_SEED)
         label, models = LEADS_PATHS[family]
@@ -194,12 +209,14 @@ def _workflow_fn(family: str, rows: int, tmp: str):
         name, hyper, 64, seed=0, problem=task).set_input_dataset(data)
 
 
-def profile(family: str, rows: int, reps: int) -> dict:
+def profile(family: str, rows: int, reps: int, trace: bool = True) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
-        return _profile(_workflow_fn(family, rows, tmp), family, rows, reps)
+        return _profile(_workflow_fn(family, rows, tmp), family, rows, reps,
+                        trace)
 
 
-def _profile(workflow, family: str, rows: int, reps: int) -> dict:
+def _profile(workflow, family: str, rows: int, reps: int,
+             trace: bool = True) -> dict:
     #: the workflow's own phases of each train ({} without workflow CV
     #: or a filter)
     workflow_phases: list = []
@@ -227,6 +244,18 @@ def _profile(workflow, family: str, rows: int, reps: int) -> dict:
     whole = [train() for _ in range(reps)]
     peak = torch.cuda.max_memory_allocated()
     wf_phases = list(workflow_phases)
+    out = {
+        "family": family, "rows": rows, "reps": reps,
+        "train_s": statistics.median(whole),
+        "phases_s": {k: statistics.median(p.get(k, 0.0) for p in per_train)
+                     for k in sorted(timed_phases)},
+        "workflow_phases_s": {
+            k: statistics.median(p[k] for p in wf_phases)
+            for k in wf_phases[0]},
+        "peak_mem_bytes": peak,
+    }
+    if not trace:
+        return out
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -240,14 +269,7 @@ def _profile(workflow, family: str, rows: int, reps: int) -> dict:
             kernels[ev.key[:80]] = dev_us / 1e3
     busy_ms = sum(kernels.values())
     return {
-        "family": family, "rows": rows, "reps": reps,
-        "train_s": statistics.median(whole),
-        "phases_s": {k: statistics.median(p.get(k, 0.0) for p in per_train)
-                     for k in sorted(timed_phases)},
-        "workflow_phases_s": {
-            k: statistics.median(p[k] for p in wf_phases)
-            for k in wf_phases[0]},
-        "peak_mem_bytes": peak,
+        **out,
         "profiled_train_s": wall,
         "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / 1e3 / wall,
@@ -259,10 +281,12 @@ def _profile(workflow, family: str, rows: int, reps: int) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--family", choices=sorted(SERVE_MODELS)
-                    + ["titanic", "titanic_wcv"] + sorted(LEADS_PATHS),
+                    + ["titanic", "titanic_wcv", "tickets"]
+                    + sorted(LEADS_PATHS),
                     default="gbt")
     ap.add_argument("--rows", type=int, default=20000)
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--trace", type=int, choices=(0, 1), default=1)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device", file=sys.stderr)
@@ -271,7 +295,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0])
-    print(json.dumps(profile(args.family, args.rows, args.reps)))
+    print(json.dumps(profile(args.family, args.rows, args.reps,
+                             bool(args.trace))))
     return 0
 
 

@@ -125,3 +125,21 @@ def normal(key: torch.Tensor, shape: Sequence[int],
     factor = np.float32(np.float32(np.sqrt(2)) * np.float32(scale))
     return xla_erf_inv(u) * torch.tensor(float(factor), dtype=torch.float32,
                                          device=key.device)
+
+
+def randint(key: torch.Tensor, shape: Sequence[int], minval: int,
+            maxval: int) -> torch.Tensor:
+    """``jax.random.randint`` of int32 values in [minval, maxval): (2,) key
+    -> int64 tensor of ``shape``. The key splits in two; with uint32 span
+    s = maxval - minval (1 when empty) and m = (2^16 mod s)^2 mod s in
+    wrapping uint32 arithmetic (0 once s > 2^16), the value is
+    minval + ((hi mod s) * m + (lo mod s)) mod s of the two keys' random
+    bits, the product and sum wrapping at 2^32 too."""
+    k1, k2 = split(key, 2)
+    hi = random_bits(k1, shape)
+    lo = random_bits(k2, shape)
+    span = (maxval - minval) & _M32 if maxval > minval else 1
+    mult = (2 ** 16) % span
+    mult = ((mult * mult) & _M32) % span
+    off = ((((hi % span) * mult) & _M32) + (lo % span)) & _M32
+    return minval + off % span

@@ -1102,3 +1102,332 @@ def leads_workflow(records, label: str = "Converted", models=None,
                                                       key_field="LeadId")
           .set_result_features(*results))
     return wf, y, pred, results
+
+
+# ---------------------------------------------------------------------------
+# Multilingual support tickets (the NLP stages' workflow)
+# ---------------------------------------------------------------------------
+
+TICKETS_ROWS, TICKETS_SEED = 20000, 0
+TICKETS_SCORE_ROWS, TICKETS_SCORE_SEED = 2000, 1
+
+#: issue topics: (content words, escalation weight)
+_TICKET_TOPICS = {
+    "billing": ("invoice refund charged twice payment card billing "
+                "subscription overcharged receipt renewal price plan "
+                "discount credit cancelled", 0.2),
+    "login": ("password reset locked account login sign authentication "
+              "code email verification session expired username access "
+              "denied", -0.3),
+    "outage": ("outage down error server unavailable crash timeout "
+               "dashboard failing production broken latency incident "
+               "degraded api", 1.4),
+    "shipping": ("delivery package tracking shipped late courier address "
+                 "warehouse damaged parcel returned carrier order box "
+                 "missing", -0.1),
+    "feature": ("feature request would like export integration support "
+                "option improve roadmap suggestion dark mode report "
+                "custom field", -1.0),
+    "security": ("security breach phishing suspicious hacked fraud "
+                 "unauthorized compromised leaked vulnerability exploit "
+                 "malware alert attack", 1.8),
+}
+_TICKET_FILLER = (
+    "the my is and to it a we have this for please can you on not with "
+    "our was but since yesterday today again still help need urgent "
+    "issue problem customer team thanks hello hi regards when after "
+    "every time now already tried several ways same result").split()
+#: bodies in other languages: (function words, content words, weight)
+_TICKET_LANGS = {
+    "fr": ("le la les de et est pas pour dans une un que qui avec sur "
+           "nous vous mais", "facture compte problème commande livraison "
+           "erreur paiement mot passe", 0.4),
+    "de": ("der die das und ist nicht mit für auf ein eine ich sie wir "
+           "aber auch", "rechnung konto problem bestellung lieferung "
+           "fehler zahlung passwort", 0.3),
+    "es": ("el la los de y es no para en una un que con por pero muy "
+           "nosotros", "factura cuenta problema pedido entrega error pago "
+           "contraseña", 0.2),
+    "it": ("il la di e è non per in una un che con del della ma sono "
+           "anche", "fattura conto problema ordine consegna errore "
+           "pagamento", 0.1),
+    "pt": ("o a de e é não para em uma um que com do da mas são mais "
+           "pelo", "fatura conta problema pedido entrega erro pagamento "
+           "senha", 0.1),
+    "nl": ("de het een en is niet voor met op van dat wij maar ook zijn "
+           "naar", "factuur account probleem bestelling levering fout "
+           "betaling", 0.2),
+}
+#: bodies in script-unique languages: (text pieces, weight)
+_TICKET_SCRIPTS = {
+    "ja": ("パスワード を リセット できません アカウント が ロック されました "
+           "エラー が 出ます", 0.5),
+    "ru": ("не могу войти в аккаунт ошибка оплаты заказ не доставлен "
+           "пожалуйста помогите", 0.5),
+    "ar": ("لا أستطيع الدخول إلى الحساب خطأ في الدفع الطلب لم يصل "
+           "الرجاء المساعدة", 0.5),
+}
+_TICKET_PEOPLE = ["John Carter", "Maria Lopez", "Mr Smith", "Dr Patel",
+                  "Anna Schmidt", "james wilson", "Ms Okafor"]
+_TICKET_PLACES = ["in London", "near Paris", "at Berlin", "in Chicago",
+                  "in Tokyo", "at Toronto"]
+_TICKET_ORGS = ["Acme Corp", "Globex Inc", "Initech LLC", "Umbrella Ltd",
+                "Stark Industries Company"]
+_FREE_MAIL = ["gmail.com", "yahoo.com", "hotmail.com", "outlook.com"]
+_CORP_MAIL = ["acme.com", "globex.io", "initech.co.uk", "example.org",
+              "contoso.de"]
+_BAD_EMAILS = ["john@@acme.com", "no-at-sign.com", "maria@", "@globex.io",
+               "first last@example.org"]
+_URL_HOSTS = ["www.acme.com", "support.globex.io", "status.initech.co.uk",
+              "docs.example.org", "shop.contoso.de"]
+_BAD_URLS = ["www.acme.com/help", "htp:/broken", "acme dot com",
+             "mailto:help@acme.com"]
+#: (country text, phone builder) of the phone column
+_PHONE_COUNTRIES = ["US", "United States", "UK", "United Kingdom",
+                    "Germany", "DE", "France", "India", "Canada", "Narnia",
+                    None]
+
+
+def _ticket_phone(rng: np.random.RandomState, country) -> str:
+    def d(k, lo=0):
+        return "".join(str(rng.randint(lo if i == 0 else 0, 10))
+                       for i in range(k))
+    kind = rng.rand()
+    if kind < 0.1:
+        return ["12345", "555-CALL-NOW", "0000", "+999 12"][rng.randint(4)]
+    if country in ("UK", "United Kingdom"):
+        return f"020 7946 {d(4)}" if kind < 0.6 else f"07{d(3)} {d(6)}"
+    if country in ("Germany", "DE"):
+        return f"030 {d(7, 1)}" if kind < 0.6 else f"+49 15{d(9)}"
+    if country == "France":
+        return f"01 {d(2)} {d(2)} {d(2)} {d(2)}"
+    if country == "India":
+        return f"+91 9{d(4)} {d(5)}"
+    return f"({d(3, 2)}) {d(3, 2)}-{d(4)}"
+
+
+def _ticket_attachment(rng: np.random.RandomState):
+    """(kind, base64 text): a small generated file or None."""
+    import base64
+    import gzip
+    import io
+    import zipfile
+    kind = ["pdf", "png", "docx", "gzip", "text", None][
+        rng.choice(6, p=[0.2, 0.15, 0.1, 0.1, 0.15, 0.3])]
+    payload = bytes(rng.randint(0, 256, rng.randint(32, 160)).tolist())
+    if kind is None:
+        return None, None
+    if kind == "pdf":
+        raw = b"%PDF-1.4\n%\xe2\xe3\xcf\xd3\n1 0 obj\n" + payload
+    elif kind == "png":
+        raw = b"\x89PNG\r\n\x1a\n\x00\x00\x00\rIHDR" + payload
+    elif kind == "docx":
+        buf = io.BytesIO()
+        with zipfile.ZipFile(buf, "w", zipfile.ZIP_STORED) as z:
+            for name, body in (("[Content_Types].xml", b"<Types/>"),
+                               ("word/document.xml", b"<w:document>"
+                                + payload.hex().encode() + b"</w:document>")):
+                z.writestr(zipfile.ZipInfo(name, (2024, 1, 1, 0, 0, 0)),
+                           body)
+        raw = buf.getvalue()
+    elif kind == "gzip":
+        raw = gzip.compress(b"log line " + payload.hex().encode(), mtime=0)
+    else:
+        raw = ("Attached log: error code " + payload.hex()).encode()
+    return kind, base64.b64encode(raw).decode("ascii")
+
+
+def tickets_records(n: int, seed: int) -> List[Dict[str, Any]]:
+    """``n`` customer-support tickets from ``RandomState(seed)``, python
+    values (None missing): ``TicketId``; ``subject`` (Text, 3-10 words);
+    ``body`` (Text, 40-120 words: 80% English from one of six issue topics
+    with filler and stop words, 16% in French, German, Spanish, Italian,
+    Portuguese or Dutch, 4% Japanese, Russian or Arabic; a third name a
+    person, a place or an organisation); ``email`` (Email: free or
+    corporate domains, 8% malformed, 5% None); ``url`` (URL: http, https
+    or ftp links, 10% malformed, 20% None); ``phone`` (Phone) and
+    ``country`` (Text: a region code, a country name, an unknown name or
+    None), valid and invalid numbers; ``attachment`` (Base64: a small PDF,
+    PNG, zip holding a Word part, gzip or plain-text file, or None); the
+    label ``escalated`` (0/1, ~34% ones) from a logit of the body's
+    topic, its language, the attachment's type, the phone's validity, the
+    email's domain and the subject's length (that logit's own AuPR ~0.89,
+    a constant score's ~0.67)."""
+    from .impl.feature.text import IsValidPhoneNumber
+    valid_phone = IsValidPhoneNumber().transform_fn
+    rng = np.random.RandomState(seed)
+    topics = list(_TICKET_TOPICS)
+    langs = list(_TICKET_LANGS)
+    scripts = list(_TICKET_SCRIPTS)
+    mime_w = {"pdf": 0.5, "png": 0.0, "docx": 0.7, "gzip": 0.9,
+              "text": -0.3, None: -0.2}
+    records: List[Dict[str, Any]] = []
+    logits = np.empty(n)
+    for i in range(n):
+        topic = topics[rng.randint(len(topics))]
+        words, t_w = _TICKET_TOPICS[topic]
+        words = words.split()
+        u = rng.rand()
+        n_words = rng.randint(40, 121)
+        lang_w = 0.0
+        if u < 0.8:
+            pool = rng.rand(n_words) < 0.35
+            toks = [words[rng.randint(len(words))] if p else
+                    _TICKET_FILLER[rng.randint(len(_TICKET_FILLER))]
+                    for p in pool]
+        elif u < 0.96:
+            lang = langs[rng.randint(len(langs))]
+            fw, cw, lang_w = _TICKET_LANGS[lang]
+            fw, cw = fw.split(), cw.split()
+            toks = [cw[rng.randint(len(cw))] if rng.rand() < 0.3 else
+                    fw[rng.randint(len(fw))] for _ in range(n_words)]
+        else:
+            lang = scripts[rng.randint(len(scripts))]
+            pieces, lang_w = _TICKET_SCRIPTS[lang]
+            pieces = pieces.split()
+            toks = [pieces[rng.randint(len(pieces))]
+                    for _ in range(n_words // 3)]
+        if rng.rand() < 0.33:
+            ent = [_TICKET_PEOPLE, _TICKET_PLACES, _TICKET_ORGS][
+                rng.randint(3)]
+            toks.insert(rng.randint(1, len(toks)), ent[rng.randint(len(ent))])
+        body = " ".join(toks)
+        if rng.rand() < 0.5:
+            body = body[0].upper() + body[1:] + "."
+        n_subj = rng.randint(3, 11)
+        subject = " ".join(
+            words[rng.randint(len(words))] if rng.rand() < 0.6 else
+            _TICKET_FILLER[rng.randint(len(_TICKET_FILLER))]
+            for _ in range(n_subj))
+        e = rng.rand()
+        corp = rng.rand() < 0.4
+        domain = (_CORP_MAIL if corp else _FREE_MAIL)[rng.randint(5 if corp
+                                                                  else 4)]
+        if e < 0.05:
+            email = None
+        elif e < 0.13:
+            email = _BAD_EMAILS[rng.randint(len(_BAD_EMAILS))]
+        else:
+            email = f"user{rng.randint(100000)}.{topic}@{domain}"
+        v = rng.rand()
+        if v < 0.2:
+            url = None
+        elif v < 0.3:
+            url = _BAD_URLS[rng.randint(len(_BAD_URLS))]
+        else:
+            proto = ["https", "http", "ftp"][rng.choice(3, p=[0.7, 0.25,
+                                                             0.05])]
+            url = (f"{proto}://{_URL_HOSTS[rng.randint(len(_URL_HOSTS))]}"
+                   f"/ticket/{rng.randint(10 ** 6)}")
+        country = _PHONE_COUNTRIES[rng.randint(len(_PHONE_COUNTRIES))]
+        phone = None if rng.rand() < 0.07 else _ticket_phone(rng, country)
+        kind, attachment = _ticket_attachment(rng)
+        ok_phone = phone is not None and valid_phone(phone, country)
+        logits[i] = -3.5 + 2.5 * (
+            t_w + lang_w + mime_w[kind]
+            - (0.7 if phone is not None and not ok_phone else 0.0)
+            + (0.8 if email is not None and corp and "@" in email else 0.0)
+            + 0.12 * (n_subj - 6))
+        records.append({
+            "TicketId": f"T{seed:03d}{i:08d}", "subject": subject,
+            "body": body, "email": email, "url": url, "phone": phone,
+            "country": country, "attachment": attachment,
+        })
+    p = 1.0 / (1.0 + np.exp(-logits))
+    escalated = rng.rand(n) < p
+    for r, y in zip(records, escalated):
+        r["escalated"] = float(y)
+    return records
+
+
+#: the tickets table's raw predictors: (field, feature type)
+TICKETS_PREDICTORS = (
+    ("subject", "Text"), ("body", "Text"), ("email", "Email"),
+    ("url", "URL"), ("phone", "Phone"), ("country", "Text"),
+    ("attachment", "Base64"))
+
+
+def tickets_dag(ns, models=None, seed: int = 42, word2vec_steps: int = 400,
+                lda_iters: int = 30):
+    """(result features, label feature, prediction): the tickets workflow
+    built from the names in ``ns`` (either package's ``FeatureBuilder``,
+    ``transmogrify``, ``TextTokenizer``, ``ParsePhoneNumber``,
+    ``IsValidPhoneNumber`` and binary selector factory; every other stage
+    through the DSL), in one order, so after each package's
+    ``reset_uids`` every stage has the same uid. The body is tokenized
+    with English stemming and its stop words removed; those tokens give a
+    256-word count vector weighed by IDF, a 128-bigram count vector and
+    32-wide word2vec means; the count vector gives 10 LDA topics. The
+    body's languages and entities, the attachment's MIME type, the phone
+    parsed and validated alone and with its country, the email's validity,
+    domain and local part's length, the URL's validity, domain and
+    protocol, the subject's length and its token Jaccard and character
+    n-gram similarity to the body go through ``transmogrify``; all of it
+    is combined, checked by the SanityChecker and fed to the binary
+    selector with cross-validation (``models`` pins its list; None sweeps
+    the default list). ``word2vec_steps`` and ``lda_iters`` are the two
+    learners' SGD steps and EM sweeps (their defaults; small CPU trains
+    take fewer). Results: prediction, checked vector."""
+    FB = ns.FeatureBuilder
+    raw = {name: getattr(FB, t)(name).extract_field().as_predictor()
+           for name, t in TICKETS_PREDICTORS}
+    y = FB.RealNN("escalated").extract_field().as_response()
+    body, subject = raw["body"], raw["subject"]
+    tokens = (ns.TextTokenizer(stemming=True, language="en")
+              .set_input(body).get_output().remove_stop_words())
+    counts = tokens.count_vec(256)
+    blocks = [counts.idf(), tokens.ngram(2).count_vec(128),
+              tokens.word2vec(32, steps=word2vec_steps),
+              counts.lda(k=10, max_iter=lda_iters)]
+    phone, country, email, url = (raw["phone"], raw["country"],
+                                  raw["email"], raw["url"])
+    rest = [
+        body.detect_languages(), body.recognize_entities(),
+        raw["attachment"].detect_mime_types(), phone.parse_phone(),
+        phone.is_valid_phone(),
+        ns.ParsePhoneNumber().set_input(phone, country).get_output(),
+        ns.IsValidPhoneNumber().set_input(phone, country).get_output(),
+        email.is_valid_email(), email.to_email_domain(),
+        email.to_email_prefix().text_len(), url.is_valid_url(),
+        url.to_url_domain(), url.to_url_protocol(), subject.text_len(),
+        subject.tokenize().jaccard_similarity(body.tokenize()),
+        subject.ngram_similarity(body)]
+    checked = (ns.transmogrify(rest).combine(*blocks).sanity_check(y))
+    pred = (ns.BinaryClassificationModelSelector.with_cross_validation(
+        seed=seed, models=models).set_input(y, checked).get_output())
+    return (pred, checked), y, pred
+
+
+def port_tickets_namespace():
+    """``tickets_dag``'s names from the port."""
+    from types import SimpleNamespace
+    from .features import FeatureBuilder
+    from .impl.feature.text import IsValidPhoneNumber, ParsePhoneNumber
+    from .impl.feature.transmogrifier import transmogrify
+    from .impl.feature.vectorizers import TextTokenizer
+    from .impl.selector import factories
+    return SimpleNamespace(
+        FeatureBuilder=FeatureBuilder, transmogrify=transmogrify,
+        TextTokenizer=TextTokenizer, ParsePhoneNumber=ParsePhoneNumber,
+        IsValidPhoneNumber=IsValidPhoneNumber,
+        BinaryClassificationModelSelector=(
+            factories.BinaryClassificationModelSelector))
+
+
+def tickets_workflow(records, models=None, seed: int = 42, device=None,
+                     reset: bool = True, **dag_kw):
+    """(workflow, label feature, prediction, result features): the port's
+    tickets workflow (``tickets_dag``) on ``records`` keyed by
+    ``TicketId``, on ``device``; with ``reset`` the uids restart
+    (``features.reset_uids``), as the fixture's workflow was built;
+    ``dag_kw`` goes to ``tickets_dag``."""
+    from .features import reset_uids
+    from .workflow import OpWorkflow
+    if reset:
+        reset_uids()
+    results, y, pred = tickets_dag(port_tickets_namespace(), models, seed,
+                                   **dag_kw)
+    wf = (OpWorkflow(device=device).set_input_dataset(records,
+                                                      key_field="TicketId")
+          .set_result_features(*results))
+    return wf, y, pred, results
