@@ -118,6 +118,30 @@ Phases, in order; any failure exits nonzero:
     ``node_hist`` and ``forest_predict_chain``. "serve tickets": the
     reload scores the 2,000 scoring tickets bit-equal to the trained
     model and answers 64 ``score_function`` requests;
+(events) the customer-event path (``testing.events_files``: ~240,000
+    events of 20,000 users and a users file, and a scoring cohort of
+    4,096 users, written from their seeds, sha256 equal to the
+    fixture's; ``testing.events_dag``): the events aggregated per user at
+    a cutoff (``AggregateDataReader``) and joined to the users
+    (``JoinedDataReader``), the mean fills, z-score, fixed and
+    label-driven bucketizers (a map's per key) and the percentile
+    calibrator, ``transmogrify``, SanityChecker and the binary selector
+    over the serve bench's GBT and RF with 3-fold CV. Before the counted
+    paths one train and LOCO of its winner with every launch of the
+    sweep and predict kernels held to plain (``events_kernel`` lines).
+    "train events" through ``OpWorkflowRunner``: train (the model
+    saved), score (.avro), evaluate, features (.csv) and an ``OpApp``
+    score, against ``fixtures/events``: the raw table's digest (keys,
+    order, values, nulls), every block's sha256, the vector's metadata
+    and 256 sampled rows, the fitted host stages, the SanityChecker's
+    choices, the winner, fold metrics within 1e-5, the refit's
+    probabilities as the other tree paths' (``_check_parts``) and the
+    sampled users' written records; it must launch ``hist_matmul``,
+    ``node_hist`` and both forest predicts. "serve events": the JAX-saved
+    model on the card scores the cohort within ``PROB_ATOL``, its LOCO
+    within ``EVENTS_LOCO_ATOL`` of the fixture's diffs with equal maps, 64
+    users through LOCO's row dual; the trained model's LOCO and Corr
+    timed;
 (b) hold each kernel against its plain PyTorch version on the card, at the
     shapes its path gives it, and report its times:
     - ``node_hist`` at six growth levels (19,712 rows x 64 codes, 32
@@ -281,8 +305,10 @@ or without the package beside it, the script fails before printing it.
 """
 from __future__ import annotations
 
+import ast
 import dataclasses
 import json
+import math
 import os
 import shutil
 import statistics
@@ -1418,13 +1444,14 @@ def _node_direct(codes, node, sw_list, Wl, n_bins, stride):
 
 
 class _KernelChecks:
-    """``hist_matmul``, ``node_hist``, ``forest_predict_chain`` and
-    ``forest_leaf_sums_chain`` wrapped for the duration of a ``with``
-    block: every launch is held against the plain version on its own
-    inputs (histograms and leaf sums within the sum bound of
-    ``_within_sum_bound``, ``hist_matmul`` also bit-equal to plain on small
-    integer stats of the same codes, ``node_hist`` bit-equal to its direct
-    formula, chain predicts bit-equal with leaf ids exact, leaf sums
+    """``hist_matmul``, ``node_hist``, ``forest_predict_chain``,
+    ``forest_predict_heap`` and ``forest_leaf_sums_chain`` wrapped for the
+    duration of a ``with`` block: every launch is held against the plain
+    version on its own inputs (histograms and leaf sums within the sum
+    bound of ``_within_sum_bound``, ``hist_matmul`` also bit-equal to plain
+    on small integer stats of the same codes, ``node_hist`` bit-equal to
+    its direct formula, chain and heap predicts bit-equal with leaf ids
+    exact, leaf sums
     bit-equal to their own order spelled out on the CPU). ``seen`` counts
     the calls, shapes, largest gap and bound share per kernel; with
     ``keep_heaviest`` the inputs of each kernel's heaviest launch are kept
@@ -1460,7 +1487,9 @@ class _KernelChecks:
         hist_cuda, node_cuda = HK.hist_matmul_cuda, HK.node_hist_cuda
         chain_cuda = F.forest_predict_chain_cuda
         sums_cuda = F.forest_leaf_sums_chain_cuda
-        self._saved = (hist_cuda, node_cuda, chain_cuda, sums_cuda)
+        heap_cuda = F.forest_predict_heap_cuda
+        self._saved = (hist_cuda, node_cuda, chain_cuda, sums_cuda,
+                       heap_cuda)
         note = self._note
 
         def hist(codes, A, n_bins, exact=False, *args, **kw):
@@ -1564,9 +1593,33 @@ class _KernelChecks:
                           base_lv.clone(), aug.clone(), n_bins))
             return got
 
+        def heap(codes, feat_heap, bin_heap, leaf, *, depth, n_bins,
+                 with_ids=False):
+            out = heap_cuda(codes, feat_heap, bin_heap, leaf, depth=depth,
+                            n_bins=n_bins, with_ids=with_ids)
+            want = F.forest_predict_plain(codes, feat_heap, bin_heap, leaf,
+                                          depth=depth, n_bins=n_bins)
+            _, ids = heap_cuda(codes, feat_heap, bin_heap, leaf, depth=depth,
+                               n_bins=n_bins, with_ids=True)
+            if not torch.equal(out[0], want):
+                raise AssertionError("forest_predict_heap (sweep): sums "
+                                     "differ from the plain version's bits")
+            if not torch.equal(ids.long(), F.route_codes(
+                    codes, feat_heap, bin_heap, depth, n_bins).long()):
+                raise AssertionError("forest_predict_heap (sweep): leaf ids "
+                                     "differ from the plain routing")
+            note("forest_predict_heap", (tuple(codes.shape),
+                                         tuple(feat_heap.shape), depth,
+                                         leaf.shape[2]), 0.0, 0.0,
+                 codes.shape[0] * feat_heap.shape[0] * depth,
+                 lambda: (codes.clone(), feat_heap.clone(), bin_heap.clone(),
+                          leaf.clone(), depth, n_bins))
+            return out
+
         HK.hist_matmul_cuda, HK.node_hist_cuda = hist, node
         F.forest_predict_chain_cuda = chain
         F.forest_leaf_sums_chain_cuda = sums
+        F.forest_predict_heap_cuda = heap
         return self
 
     def __exit__(self, *exc):
@@ -1574,7 +1627,8 @@ class _KernelChecks:
         from transmogrifai_tpu_torch.ops import forest as F
         HK.hist_matmul_cuda, HK.node_hist_cuda, \
             F.forest_predict_chain_cuda, \
-            F.forest_leaf_sums_chain_cuda = self._saved
+            F.forest_leaf_sums_chain_cuda, \
+            F.forest_predict_heap_cuda = self._saved
         return False
 
     def report(self, tag: str, names=("hist_matmul", "node_hist",
@@ -1586,7 +1640,8 @@ class _KernelChecks:
             if not r:
                 raise AssertionError(f"{tag}: the train launched no {name}")
             held = ("bit-equal to plain, ids exact"
-                    if name == "forest_predict_chain" else
+                    if name in ("forest_predict_chain",
+                                "forest_predict_heap") else
                     f"max |d| {r['err']:.3g} from plain, "
                     f"{r['share']:.3f} of the sum bound; bit-equal to the "
                     f"chunked order"
@@ -2016,6 +2071,24 @@ def time_heaviest(heaviest, tag: str) -> dict:
                                 + T * slots * 3 + n * k
                                 + T * min(2 ** depth, W) * k),
                            n * T * (depth + k)))
+    if "forest_predict_heap" in heaviest:
+        _, shape, a = heaviest["forest_predict_heap"]
+        codes, feat, bins, leaf, depth, nb = a
+        T, L, k = leaf.shape
+        # the codes the paths split on, the heaps' splits and leaves read
+        # once, the sums written once; per row and tree one step a level
+        # and one add a column
+        out["forest_predict_heap"] = dict(
+            shape=shape, ms=time_ms(lambda: F.forest_predict_heap_cuda(
+                codes, feat, bins, leaf, depth=depth, n_bins=nb)),
+            passes=None,
+            plain_ms=time_ms(lambda: F.forest_predict_plain(
+                codes, feat, bins, leaf, depth=depth, n_bins=nb), runs=5),
+            library_ms=None,
+            bound=bound_ms(4 * (_codes_read(codes, feat, bins, depth=depth)
+                                + T * (L - 1) * 2 + leaf.numel()
+                                + codes.shape[0] * k),
+                           codes.shape[0] * T * (depth + k)))
     for name, r in out.items():
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
@@ -3270,6 +3343,427 @@ class Tickets:
               f"probability_1 within {worst:.3g} of the batch score")
 
 
+EVENTS_DIR = os.path.join(HERE, "transmogrifai_tpu_torch", "fixtures",
+                          "events")
+#: LOCO diffs of the JAX-saved model on the card against the JAX
+#: package's on the CPU: the trees are the same, the score's terms add in
+#: another order (measured 1.19e-7 on the CPU, one float32 ulp at 1;
+#: ``tests/test_torch_record_insights.py``)
+EVENTS_LOCO_ATOL = 1e-6
+EVENTS_LOCO_TOP_K = 20
+#: the fold metrics of the pinned GBT and RF, as the default lists' tree
+#: families (``DEFAULT_TREE_ATOL``)
+EVENTS_FOLD_ATOL = DEFAULT_TREE_ATOL
+EVENTS_REQUESTS = 64
+
+
+def _nan_eq(a, b) -> bool:
+    if isinstance(a, float) and isinstance(b, float):
+        return a == b or (math.isnan(a) and math.isnan(b))
+    if isinstance(a, dict) and isinstance(b, dict):
+        return a.keys() == b.keys() and all(_nan_eq(a[k], b[k]) for k in a)
+    if isinstance(a, list) and isinstance(b, list):
+        return len(a) == len(b) and all(map(_nan_eq, a, b))
+    return a == b and type(a) is type(b)
+
+
+class Events:
+    """The customer-event path (``testing.events_files``: ~240,000 send,
+    click, visit and purchase events of 20,000 users over 104 days, and a
+    users file; ``testing.events_dag``): the events aggregated per user
+    at a cutoff by ``AggregateDataReader`` and joined to the users by
+    ``JoinedDataReader``, the scalers, bucketizers and the percentile
+    calibrator, ``transmogrify``, the SanityChecker and the binary
+    selector over the serve bench's GBT and RF with 3-fold CV; trained,
+    scored (Avro), evaluated and its raw features written (CSV) through
+    ``OpWorkflowRunner`` and ``OpApp``; LOCO and Corr on the scoring
+    cohort of 4,096 users; against ``fixtures/events`` (what the JAX
+    package made of the same files on the CPU)."""
+
+    def __init__(self, tmp):
+        from transmogrifai_tpu_torch.testing import (
+            EVENTS_SCORE_SEED, EVENTS_SCORE_USERS, EVENTS_SEED,
+            EVENTS_USERS, events_files, files_sha256,
+        )
+        with open(os.path.join(EVENTS_DIR, "fixture.json")) as fh:
+            self.fx = json.load(fh)
+        self.exp = np.load(os.path.join(EVENTS_DIR, "expected.npz"))
+        self.sample = np.load(os.path.join(EVENTS_DIR, "vector_sample.npz"))
+        self.loco = np.load(os.path.join(EVENTS_DIR, "loco.npz"))
+        self.dir = os.path.join(tmp, "events")
+        t0 = time.perf_counter()
+        self.train_files = events_files(os.path.join(self.dir, "train"),
+                                        EVENTS_USERS, EVENTS_SEED)
+        self.score_files = events_files(os.path.join(self.dir, "score"),
+                                        EVENTS_SCORE_USERS,
+                                        EVENTS_SCORE_SEED)
+        gen_s = time.perf_counter() - t0
+        for key, files in (("train_files", self.train_files),
+                           ("score_files", self.score_files)):
+            sha = files_sha256(*files)
+            if sha != self.fx[key]["sha256"]:
+                raise AssertionError(f"events: {key} sha256 {sha}, the "
+                                     f"fixture's {self.fx[key]['sha256']}")
+        with open(self.train_files[0]) as fh:
+            self.n_events = sum(1 for _ in fh) - 1
+        self.model = self.wf = self.pred = None
+        print(f"(t) events: {EVENTS_USERS} users' files ({self.n_events} "
+              f"events) and {EVENTS_SCORE_USERS} scoring users' written in "
+              f"{gen_s:.2f} s, sha256 equal to the fixture's")
+
+    def workflow(self):
+        from transmogrifai_tpu_torch.testing import events_workflow
+        wf, y, pred, results = events_workflow(*self.train_files)
+        if wf.device.type != "cuda":
+            raise AssertionError(f"training on {wf.device}")
+        return wf, y, pred, results
+
+    def score_reader(self):
+        from transmogrifai_tpu_torch.testing import (
+            events_reader, port_events_namespace,
+        )
+        return events_reader(port_events_namespace(), *self.score_files)
+
+    def check_inputs(self):
+        """(b) one train, then LOCO of its winner on the scoring cohort,
+        with every launch of the sweep and predict kernels held to plain;
+        then each one's heaviest launch timed."""
+        from transmogrifai_tpu_torch.insights import RecordInsightsLOCO
+        t0 = time.perf_counter()
+        wf, _, pred, _ = self.workflow()
+        with _KernelChecks(keep_heaviest=True,
+                           direct_per_shape=True) as checks:
+            model = wf.train()
+            sel = model.get_stage(pred.origin_stage.uid)
+            scored = model.score(reader=self.score_reader())
+            RecordInsightsLOCO(sel, top_k=EVENTS_LOCO_TOP_K).set_input(
+                sel.input_features[1]).diffs(scored)
+            torch.cuda.synchronize()
+        checks.report("events", ("hist_matmul", "node_hist",
+                                  "forest_predict_chain",
+                                  "forest_predict_heap"))
+        print(f"(b) the events train's and LOCO's kernel inputs checked in "
+              f"{time.perf_counter() - t0:.1f} s")
+        return {"events": time_heaviest(checks.heaviest, "events train")}
+
+    def train(self):
+        """"train events": the runner's train, score (.avro), evaluate,
+        features (.csv) and an ``OpApp`` score, held to the fixture: the
+        raw table (keys, order, values, nulls) by digest, every vector
+        block by sha256, the vector's metadata and sampled rows, the fitted
+        host stages, the SanityChecker's choices, the selection, the
+        refit's scores and the written records of the sampled users.
+        Every check runs; the phase fails after the last if any did."""
+        import transmogrifai_tpu_torch as tt
+        from transmogrifai_tpu_torch.evaluators.binary import (
+            OpBinaryClassificationEvaluator,
+        )
+        from transmogrifai_tpu_torch.runner import (
+            OpApp, OpParams, OpWorkflowRunner,
+        )
+        from transmogrifai_tpu_torch.testing import (
+            assert_same_sanity, fitted_values, sanity_summary,
+            selection_gaps, selection_summary, table_digest,
+        )
+        from transmogrifai_tpu_torch.utils.avro import read_avro
+        fx, exp, sample = self.fx, self.exp, self.sample
+        wf, y, pred, _ = self.workflow()
+        runner = OpWorkflowRunner(
+            wf, train_reader=wf.reader, score_reader=self.score_reader(),
+            evaluator=OpBinaryClassificationEvaluator(), label_feature=y,
+            prediction_feature=pred)
+        out = os.path.join(self.dir, "out")
+        model_dir = os.path.join(out, "model")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = runner.run("train", OpParams(
+            model_location=model_dir,
+            metrics_location=os.path.join(out, "train.json")))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        model = res.model
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"(t) events train through the runner: {self.n_events} "
+              f"events of {fx['train_files']['users']} users aggregated, "
+              f"joined, vectorized, GBT and RF swept with 3-fold CV, the "
+              f"winner refit, the model saved, in {secs:.3f} s (wall; the "
+              f"train alone {sum(wf.phase_seconds.values()):.3f} s on the "
+              f"card after the host's reading and aggregation; the JAX "
+              f"package's CPU train {fx['train_seconds_jax_cpu']:.1f} s); "
+              f"peak device memory allocated {peak:.3f} GiB")
+        self.model, self.wf, self.pred = model, wf, pred
+        faults = []
+
+        def check(fn):
+            try:
+                fn()
+            except AssertionError as e:
+                print(f"(t) events: FAILED: {e}")
+                faults.append(str(e))
+
+        sc = next(s for s in model.stages
+                  if type(s).__name__ == "SanityCheckerModel")
+        ps = model.get_stage(pred.origin_stage.uid)
+        table = model.train_table
+        names = [f.name for f in wf.raw_features]
+
+        def raw():
+            got = table_digest(table, names)
+            differ = sorted(k for k in got if got[k] != fx["raw_digest"][k])
+            if differ:
+                raise AssertionError(f"events: raw columns {differ} differ "
+                                     f"from the fixture's")
+            print(f"(t) events: the aggregated and joined raw table "
+                  f"({table.num_rows} users x {len(names)} features) "
+                  f"equal to the fixture's: keys and order, values, nulls")
+        check(raw)
+
+        def blocks():
+            vecs = [n for n in table.column_names
+                    if table[n].metadata.get("vector_meta") is not None]
+            if sorted(vecs) != sorted(fx["blocks"]):
+                raise AssertionError("events: other vector blocks than the "
+                                     "fixture's")
+            differ = [n for n in vecs
+                      if _block_sha(table[n].values) != fx["blocks"][n]]
+            if differ:
+                raise AssertionError(f"events: blocks {differ} differ from "
+                                     f"the fixture's bits")
+            vec = table[sc.input_features[1].name]
+            vm = vec.metadata["vector_meta"]
+            meta = {"name": vm.name, "columns": [
+                dataclasses.asdict(c) for c in vm.columns]}
+            if meta != fx["vector"]:
+                raise AssertionError("events: the vector's metadata differs "
+                                     "from the fixture's")
+            X = vec.values[torch.as_tensor(sample["rows"],
+                                           device=vec.values.device)]
+            if not np.array_equal(X.cpu().numpy(), sample["X"]):
+                raise AssertionError("events: sampled vector rows differ")
+            got_fit = json.loads(json.dumps(fitted_values(model)))
+            if got_fit != fx["fitted"]:
+                raise AssertionError(f"events: fitted host stages differ: "
+                                     f"{got_fit} vs {fx['fitted']}")
+            assert_same_sanity(sanity_summary(sc), fx["sanity"])
+            print(f"(t) events: {len(vecs)} vector blocks bit-equal "
+                  f"(sha256), vector {vm.size} columns, metadata and "
+                  f"{len(sample['rows'])} sampled rows equal; the fills, "
+                  f"z-score, tree bucketizers' splits and calibrator's "
+                  f"{len(next(v for v in got_fit.values() if 'boundaries' in v)['boundaries'])} "
+                  f"boundaries equal; SanityChecker keeps "
+                  f"{len(sc.keep_indices)}, drops "
+                  f"{len(sc.summary.dropped)} for the fixture's reasons")
+        check(blocks)
+        winner = ps.summary.best_model_type
+        got_sel = selection_summary(ps.summary)
+
+        def selection():
+            if winner != fx["selection"]["winner"]:
+                raise AssertionError(f"events: winner {winner}, the "
+                                     f"fixture's "
+                                     f"{fx['selection']['winner']}")
+            gaps = selection_gaps(got_sel, fx["selection"],
+                                  lambda f, h, r: EVENTS_FOLD_ATOL)
+            print(f"(t) events: winner {winner}; fold "
+                  f"{ps.summary.validation_metric} gaps to the fixture "
+                  f"(largest, share of its limit): "
+                  f"{ {f: (float(f'{g:.3g}'), round(float(r), 3)) for f, (g, r) in gaps.items()} }")
+        check(selection)
+        ref = tt.load_model(os.path.join(EVENTS_DIR, "model"), workflow=wf)
+        self.ref = ref
+        same = None
+        if _is_tree(winner):
+            rp = ref.get_stage(pred.origin_stage.uid).fitted.params
+            same = all(np.array_equal(ps.fitted.params[k].cpu().numpy(),
+                                      rp[k].cpu().numpy())
+                       for k in rp if isinstance(rp[k], torch.Tensor))
+        avro = os.path.join(out, "score.avro")
+        t0 = time.perf_counter()
+        sres = runner.run("score", OpParams(model_location=model_dir,
+                                            write_location=avro))
+        torch.cuda.synchronize()
+        score_s = time.perf_counter() - t0
+        scored = sres.scores
+        self.scored = scored
+        parts = _parts_of(model, scored)
+
+        def scores():
+            if [str(k) for k in scored.key] != exp["key"].tolist():
+                raise AssertionError("events: scoring keys or their order "
+                                     "differ from the fixture's")
+            print(f"(t) events: the reloaded model scores "
+                  f"{len(scored.key)} users through the runner in "
+                  f"{score_s:.3f} s (aggregation included); refit trees "
+                  f"identical to the JAX-trained model's: {same}; "
+                  + _check_parts("events", "binary", parts, exp,
+                                 bool(same), 1.0))
+        check(scores)
+
+        def written():
+            recs = list(read_avro(avro))
+            rows = self.loco["rows"]
+            bad = []
+            # the fixture keeps the records the JAX package wrote (its
+            # ``to_dict``); a column of mixed kinds (a dict, a list, text
+            # and a NaN) is an Avro string, each cell its value's text
+            for i, want in zip(rows, fx["avro_sample"]):
+                got = recs[int(i)]
+                for k, v in want.items():
+                    if isinstance(got[k], str) and not isinstance(v, str) \
+                            and k != pred.name:
+                        v = str(v)
+                    if k == pred.name:
+                        g, w = ast.literal_eval(got[k]), v
+                        if g.keys() != w.keys() or max(
+                                abs(g[q] - w[q]) for q in w) > (
+                                P1_MAX_ATOL_SAME_TREES if same
+                                else P1_MEAN_ATOL):
+                            bad.append((int(i), k))
+                    elif not _nan_eq(got[k], v):
+                        bad.append((int(i), k))
+            if len(recs) != len(exp["key"]) or bad:
+                raise AssertionError(f"events: written records differ from "
+                                     f"the fixture's at {bad[:5]} "
+                                     f"({len(bad)} cells)")
+            print(f"(t) events: {len(recs)} Avro records written; the "
+                  f"{len(rows)} sampled users' key and raw features equal "
+                  f"to the fixture's records, predictions within the "
+                  f"tree limits")
+        check(written)
+
+        def evaluate():
+            eres = runner.run("evaluate", OpParams(
+                model_location=model_dir,
+                metrics_location=os.path.join(out, "eval.json")))
+            ev = eres.metrics["evaluation"]
+            if not all(np.isfinite(v) for v in ev.values()):
+                raise AssertionError(f"events: evaluation {ev}")
+            t0 = time.perf_counter()
+            runner.run("features", OpParams(
+                write_location=os.path.join(out, "features.csv")))
+            feat_s = time.perf_counter() - t0
+            with open(os.path.join(out, "features.csv")) as fh:
+                lines = sum(1 for _ in fh)
+            app = os.path.join(out, "app.avro")
+            OpApp(runner).main(["--run-type", "score", "--model-location",
+                                model_dir, "--write-location", app])
+            a, b = list(read_avro(app)), list(read_avro(avro))
+            if not all(map(_nan_eq, a, b)) or lines != \
+                    fx["train_files"]["users"] + 1:
+                raise AssertionError("events: OpApp's score differs from the "
+                                     "runner's, or the features file's "
+                                     "lines")
+            print(f"(t) events: evaluate on the scoring users: AuROC "
+                  f"{ev['AuROC']:.4f}, AuPR {ev['AuPR']:.4f}; features run "
+                  f"wrote {lines - 1} users' raw features (.csv) in "
+                  f"{feat_s:.3f} s; OpApp --run-type score wrote the "
+                  f"runner's records")
+        check(evaluate)
+        if faults:
+            raise AssertionError(f"events: {len(faults)} check(s) failed: "
+                                 + "; ".join(faults))
+        return secs
+
+    def serve(self):
+        """"serve events": LOCO (top 20 of ~24 groups) of the JAX-saved
+        model on the card on the 4,096 scoring users, held to the
+        fixture's diffs and maps on its sampled users, and of the trained
+        model (timed, its peak memory); Corr; 64 users through LOCO's row
+        dual against the columnar maps; the JAX-saved model's scores."""
+        from transmogrifai_tpu_torch.insights import (
+            RecordInsightsCorr, RecordInsightsLOCO,
+        )
+        from transmogrifai_tpu_torch.testing import loco_map_gaps
+        fx, pred = self.fx, self.pred
+        ref = self.ref
+        reader = self.score_reader()
+        t0 = time.perf_counter()
+        rscored = ref.score(reader=reader)
+        torch.cuda.synchronize()
+        score_s = time.perf_counter() - t0
+        got = _parts_of(ref, rscored)
+        d = float(np.abs(got["probability_1"]
+                         - self.exp["probability_1"]).max())
+        if d > PROB_ATOL:
+            raise AssertionError(f"serve events: the JAX-saved model's "
+                                 f"probability_1 {d:.3g} from the JAX "
+                                 f"package's (limit {PROB_ATOL})")
+        rsel = ref.get_stage(pred.origin_stage.uid)
+        loco = RecordInsightsLOCO(rsel, top_k=EVENTS_LOCO_TOP_K).set_input(
+            rsel.input_features[1])
+        names, diffs = loco.diffs(rscored)
+        rows = self.loco["rows"]
+        want = self.loco["diffs"]
+        if names != fx["loco"]["groups"]:
+            raise AssertionError("serve events: LOCO groups differ")
+        gap = float(np.abs(diffs[:, rows] - want).max())
+        maps = loco.transform_column(rscored).values
+        from transmogrifai_tpu_torch.insights.record_insights import (
+            _topk_maps_column,
+        )
+        wmaps = _topk_maps_column(names, want.T, EVENTS_LOCO_TOP_K).values
+        bad = [int(i) for j, i in enumerate(rows) if loco_map_gaps(
+            want[:, j], diffs[:, i], names, wmaps[j], maps[int(i)],
+            EVENTS_LOCO_TOP_K, EVENTS_LOCO_ATOL)]
+        if gap > EVENTS_LOCO_ATOL or bad:
+            raise AssertionError(f"serve events: LOCO diffs {gap:.3g} from "
+                                 f"the fixture's (limit "
+                                 f"{EVENTS_LOCO_ATOL}); maps differ at "
+                                 f"{bad[:5]}")
+        worst = 0
+        t0 = time.perf_counter()
+        for i in range(EVENTS_REQUESTS):
+            row = rscored.row(i)
+            one = loco.transform_row(row)
+            gaps = loco_map_gaps(diffs[:, i], diffs[:, i], names, maps[i],
+                                 one, EVENTS_LOCO_TOP_K, EVENTS_LOCO_ATOL)
+            worst = max(worst, len(gaps))
+        row_s = (time.perf_counter() - t0) / EVENTS_REQUESTS
+        if worst:
+            raise AssertionError("serve events: LOCO's row dual disagrees "
+                                 "with its columnar maps")
+        print(f"(s) serve events: the JAX-saved model scores "
+              f"{len(rscored.key)} users on the card in {score_s:.3f} s "
+              f"(aggregation included), probability_1 within {d:.3g} of the "
+              f"JAX package's; its LOCO ({len(names)} groups, top "
+              f"{EVENTS_LOCO_TOP_K}) on the card: diffs within {gap:.3g} of "
+              f"the fixture's on {len(rows)} sampled users, maps equal on "
+              f"the entries above {EVENTS_LOCO_ATOL}; {EVENTS_REQUESTS} "
+              f"users through transform_row {row_s * 1e3:.2f} ms each, maps "
+              f"equal to the columnar ones")
+        sel = self.model.get_stage(pred.origin_stage.uid)
+        scored = self.scored
+        mine = RecordInsightsLOCO(sel, top_k=EVENTS_LOCO_TOP_K).set_input(
+            sel.input_features[1])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        cols = mine.transform_column(scored)
+        torch.cuda.synchronize()
+        loco_s = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        _, mdiffs = mine.diffs(scored)
+        t0 = time.perf_counter()
+        corr = RecordInsightsCorr(sel, top_k=EVENTS_LOCO_TOP_K).set_input(
+            sel.input_features[1]).transform_column(scored)
+        torch.cuda.synchronize()
+        corr_s = time.perf_counter() - t0
+        if len(cols.values) != len(scored.key) or len(corr.values) != len(
+                scored.key) or not all(np.isfinite(list(m.values())).all()
+                                       for m in corr.values[:256]):
+            raise AssertionError("serve events: LOCO or Corr columns bad")
+        print(f"(s) serve events: the trained model's LOCO on the card "
+              f"{loco_s:.3f} s for {len(scored.key)} users x {len(names)} "
+              f"groups ({len(scored.key) * (len(names) + 1)} rows scored), "
+              f"peak variant block {mine._peak_variant_bytes / 2 ** 20:.1f} "
+              f"MiB, peak device memory above the table "
+              f"{peak:.3f} GiB; its diffs within "
+              f"{float(np.abs(mdiffs[:, rows] - want).max()):.3g} of the "
+              f"fixture's; Corr {corr_s:.3f} s")
+
+
 def phase_serve():
     """The port's main path: load, score, answer requests, for every
     committed fixture (binary probability_1 within PROB_ATOL; regression
@@ -3480,10 +3974,13 @@ def phase_calibrator(dev):
           f"calibrated column bit-equal to the JAX package's ({secs:.4f} s)")
 
 
-def _forest_kernels(model):
-    """The forest predict kernel a fitted model's scoring launches."""
+def _forest_kernels(model, pred=None):
+    """The forest predict kernel a fitted model's scoring launches (its
+    last stage's, or ``pred``'s selector's)."""
     from transmogrifai_tpu_torch.ops import forest as F
-    params = model.stages[-1].fitted.params
+    stage = (model.stages[-1] if pred is None
+             else model.get_stage(pred.origin_stage.uid))
+    params = stage.fitted.params
     return ((F.FOREST_PREDICT_CHAIN,) if "feat_lv" in params else
             (F.FOREST_PREDICT_HEAP,) if "feat" in params else ())
 
@@ -3528,6 +4025,8 @@ def _run(dev, kernels, tmp) -> int:
     tickets = Tickets()
     phase_nlp_device(dev)
     leads_kern.update(tickets.check_inputs())
+    events = Events(tmp)
+    leads_kern.update(events.check_inputs())
 
     def run_path(name, phase, path_kernels):
         """Zero every count, drive the path, read the counts; each of
@@ -3570,6 +4069,15 @@ def _run(dev, kernels, tmp) -> int:
     paths["train tickets"] = run_path("train tickets", tickets.train, sweep)
     paths["serve tickets"] = run_path("serve tickets", tickets.serve,
                                       _forest_kernels(tickets.model))
+    # the events sweep grows the RF (node_hist) and the GBT (hist_matmul)
+    # and scores their folds with the chain and heap predicts; LOCO scores
+    # the winner's variants with its predict kernel
+    paths["train events"] = run_path(
+        "train events", events.train,
+        (hist, node, F.FOREST_PREDICT_CHAIN, F.FOREST_PREDICT_HEAP))
+    paths["serve events"] = run_path(
+        "serve events", events.serve,
+        _forest_kernels(events.model, events.pred))
     paths.update({
         "train gbt": run_path("train gbt",
                               lambda: train_against_fixture("gbt"),

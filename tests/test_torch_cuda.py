@@ -1541,3 +1541,34 @@ def test_tickets_vector_on_the_card_equals_the_cpu(cuda):
     (a, ma), (b, mb) = out
     np.testing.assert_array_equal(a, b)
     assert ma == mb
+
+
+@pytest.mark.parametrize("family,hyper", [
+    ("OpRandomForestClassifier", {"maxDepth": 6, "numTrees": 10}),
+    ("OpGBTClassifier", {"maxDepth": 4, "maxIter": 5, "stepSize": 0.1})])
+def test_loco_on_the_card_equals_the_cpu(cuda, family, hyper):
+    """LOCO of a small serve-bench workflow trained on the card (variants
+    built there and scored by the forest predict kernels) against the
+    same workflow trained and explained on the CPU: the diffs within 1e-6
+    (the trees are equal and summed in the same order), and the maps agree
+    on the entries that clear it."""
+    from transmogrifai_tpu_torch.insights import RecordInsightsLOCO
+    from transmogrifai_tpu_torch.testing import loco_map_gaps
+    data = serve_bench_data(600, 8, seed=0)
+    out = []
+    for dev in ("cpu", cuda):
+        model = serve_bench_workflow(family, hyper, 8, seed=0, device=dev
+                                     ).set_input_dataset(data).train()
+        sel = next(s for s in model.stages
+                   if type(s).__name__ == "SelectedModel")
+        loco = RecordInsightsLOCO(sel, top_k=5).set_input(
+            sel.input_features[1])
+        table = model.score(data=data)
+        names, diffs = loco.diffs(table)
+        out.append((names, diffs, loco.transform_column(table).values))
+    (names, want, cm), (gnames, got, gm) = out
+    assert gnames == names
+    assert np.abs(got - want).max() <= 1e-6
+    for i in range(0, 600, 7):
+        assert not loco_map_gaps(want[:, i], got[:, i], names, cm[i], gm[i],
+                                 5, 1e-6)

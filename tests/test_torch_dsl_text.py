@@ -1,7 +1,8 @@
 """The port's feature DSL against the JAX package's on the CPU.
 
-``DSL_METHODS`` is the JAX package's list less the nine methods whose
-stages are not ported yet; every method of the port's list is built by
+``DSL_METHODS`` is the JAX package's list (the scalers', bucketizers' and
+calibrators' nine are held on their own in
+``test_torch_scalers_bucketizers.py``); every method of the port's list is built by
 ``tests/test_dsl_surface.py``'s builder on that file's table in both
 packages (the port's table from python lists, no pandas), trained and
 scored, and the outputs compared. Tolerance: none (values, masks and
@@ -40,11 +41,9 @@ from transmogrifai_tpu_torch.workflow import (  # noqa: E402
     OpWorkflow as PWorkflow,
 )
 
-#: the JAX package's DSL methods whose stages (scalers, bucketizers,
-#: calibrators) the port does not have yet
-NOT_PORTED = ("bucketize", "auto_bucketize", "auto_bucketize_map",
-              "fill_missing_with_mean", "zscore", "scale", "descale",
-              "percentile_calibrate", "to_isotonic_calibrated")
+#: the JAX package's DSL methods the port does not have: none since the
+#: scalers, bucketizers and calibrators were ported
+NOT_PORTED = ()
 
 
 def host(a):

@@ -7,7 +7,11 @@ CSV) through ``transmogrify -> sanity_check -> ModelSelector`` (the
 binary, multiclass and regression factories) on an NVIDIA GPU (the tree
 families' split and leaf histograms in hand-written CUDA kernels), with
 the raw feature filter (``filters.RawFeatureFilter``) and workflow-level
-cross-validation on request; ``model.model_insights()`` reports it.
+cross-validation on request; ``model.model_insights()`` reports it and
+``insights.RecordInsightsLOCO`` explains each scored row on the card.
+Event records aggregate per key (``readers.aggregates``,
+``aggregators``); ``runner.OpWorkflowRunner`` and ``runner.OpApp`` run a
+workflow's train, score, evaluate and features runs as an application.
 Saving: ``save_model`` (``OpWorkflowModel.save``) writes a trained model in
 the JAX package's format, and ``load_model`` reads a model that either
 package saved. Serving: ``OpWorkflowModel.score`` / ``score_function``

@@ -2,15 +2,16 @@
 ``+ - * /`` between features and with scalars, and the methods named in
 ``DSL_METHODS``, attached to ``Feature`` on import (the package
 ``__init__`` imports this module). ``DSL_METHODS`` is the JAX package's
-list less the methods whose stages are not ported yet: ``bucketize``,
-``auto_bucketize``, ``auto_bucketize_map``, ``fill_missing_with_mean``,
-``zscore``, ``scale``, ``descale``, ``percentile_calibrate`` and
-``to_isotonic_calibrated``."""
+list, in its order."""
 from __future__ import annotations
 
 from typing import Any, Callable, Optional, Sequence
 
 from .features import Feature
+from .impl.feature.bucketizers import (
+    DecisionTreeNumericBucketizer, DecisionTreeNumericMapBucketizer,
+    NumericBucketizer, PercentileCalibrator,
+)
 from .impl.feature.dates import (
     DEFAULT_CIRCULAR_PERIODS, DateListVectorizer,
     DateMapToUnitCircleVectorizer, DateToUnitCircleTransformer,
@@ -27,7 +28,12 @@ from .impl.feature.math import (
     RoundTransformer, ScalarOp, Sqrt, SubstringTransformer,
     TextLenTransformer, ToOccurTransformer,
 )
+from .impl.feature.scalers import (
+    DescalerTransformer, FillMissingWithMean, OpScalarStandardScaler,
+    ScalerTransformer,
+)
 from .impl.feature.text import OpIndexToString, OpStringIndexer
+from .impl.regression.isotonic import IsotonicRegressionCalibrator
 from .impl.feature.transmogrifier import transmogrify
 from .impl.feature.vectorizers import (
     HashingVectorizer, OneHotVectorizer, SmartTextVectorizer, TextTokenizer,
@@ -335,6 +341,58 @@ def drop_indices_by(self: Feature,
     return DropIndicesByTransformer(predicate).set_input(self).get_output()
 
 
+def bucketize(self: Feature, splits: Sequence[float],
+              bucket_labels: Optional[Sequence[str]] = None,
+              track_nulls: bool = True, track_invalid: bool = False
+              ) -> Feature:
+    return NumericBucketizer(
+        splits, bucket_labels=bucket_labels, track_nulls=track_nulls,
+        track_invalid=track_invalid).set_input(self).get_output()
+
+
+def auto_bucketize(self: Feature, label: Feature, max_depth: int = 2,
+                   min_info_gain: float = 0.01) -> Feature:
+    return DecisionTreeNumericBucketizer(
+        max_depth=max_depth, min_info_gain=min_info_gain
+    ).set_input(label, self).get_output()
+
+
+def auto_bucketize_map(self: Feature, label: Feature, max_depth: int = 2,
+                       min_info_gain: float = 0.01) -> Feature:
+    return DecisionTreeNumericMapBucketizer(
+        max_depth=max_depth, min_info_gain=min_info_gain
+    ).set_input(label, self).get_output()
+
+
+def fill_missing_with_mean(self: Feature, default: float = 0.0) -> Feature:
+    return FillMissingWithMean(default).set_input(self).get_output()
+
+
+def zscore(self: Feature) -> Feature:
+    return OpScalarStandardScaler().set_input(self).get_output()
+
+
+def scale(self: Feature, scaling_type: str = "linear", slope: float = 1.0,
+          intercept: float = 0.0) -> Feature:
+    return ScalerTransformer(scaling_type, slope, intercept
+                             ).set_input(self).get_output()
+
+
+def descale(self: Feature, scaled: Feature) -> Feature:
+    return DescalerTransformer().set_input(self, scaled).get_output()
+
+
+def percentile_calibrate(self: Feature, buckets: int = 100) -> Feature:
+    return PercentileCalibrator(buckets).set_input(self).get_output()
+
+
+def to_isotonic_calibrated(self: Feature, label: Feature,
+                           isotonic: bool = True) -> Feature:
+    """Calibrate a score against the label."""
+    return (IsotonicRegressionCalibrator(isotonic=isotonic)
+            .set_input(label, self).get_output())
+
+
 Feature.__add__ = _num_binop("+")
 Feature.__sub__ = _num_binop("-")
 Feature.__mul__ = _num_binop("*")
@@ -347,7 +405,11 @@ Feature.__rsub__ = _num_rbinop("-")
 _METHODS = (
     ("alias", alias), ("abs", abs_), ("log", log), ("exp", exp),
     ("sqrt", sqrt), ("power", power), ("round", round_), ("ceil", ceil),
-    ("floor", floor), ("to_occur", to_occur),
+    ("floor", floor), ("bucketize", bucketize),
+    ("auto_bucketize", auto_bucketize),
+    ("fill_missing_with_mean", fill_missing_with_mean),
+    ("zscore", zscore), ("scale", scale), ("descale", descale),
+    ("to_occur", to_occur), ("percentile_calibrate", percentile_calibrate),
     ("tokenize", tokenize), ("pivot", pivot),
     ("smart_vectorize", smart_vectorize), ("text_len", text_len),
     ("contains", contains), ("jaccard_similarity", jaccard_similarity),
@@ -379,8 +441,10 @@ _METHODS = (
     ("vectorize_map", vectorize_map),
     ("smart_vectorize_map", smart_vectorize_map),
     ("pivot_map", pivot_map),
+    ("auto_bucketize_map", auto_bucketize_map),
     ("is_valid_phone_map", is_valid_phone_map),
     ("combine", combine), ("drop_indices_by", drop_indices_by),
+    ("to_isotonic_calibrated", to_isotonic_calibrated),
 )
 for _name, _fn in _METHODS:
     setattr(Feature, _name, _fn)

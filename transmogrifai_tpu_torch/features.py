@@ -8,7 +8,9 @@ rebuilds them from its saved feature graph
 from __future__ import annotations
 
 import itertools
-from typing import Any, Callable, Dict, List, Optional, Sequence, Set, Type
+from typing import (
+    Any, Callable, Dict, List, Optional, Sequence, Set, Tuple, Type,
+)
 
 from .types import FEATURE_TYPES, FeatureType
 
@@ -133,6 +135,29 @@ class Feature:
                 out[st] = max(out.get(st, 0), d)
         return out
 
+    def pretty_parent_stages(self) -> str:
+        """One line ``[distance] StageClass -> uid`` per ancestor stage,
+        farthest first."""
+        return "\n".join(
+            f"[{d}] {type(stage).__name__} -> {stage.uid}"
+            for stage, d in sorted(self.parent_stages().items(),
+                                   key=lambda kv: -kv[1]))
+
+    def history(self) -> Dict[str, Any]:
+        """The raw features this one derives from and its ancestor
+        stages' uids."""
+        return {"originFeatures": [f.name for f in self.raw_features()],
+                "stages": [s.uid for s in self.parent_stages()]}
+
+    def as_raw(self, extract_fn: Optional[Callable[[Any], Any]] = None
+               ) -> "Feature":
+        """A raw feature of this one's name, type and side, extracted by
+        ``extract_fn`` (default: the record field of its name)."""
+        builder = FeatureBuilder(self.name, self.feature_type).extract(
+            extract_fn or FieldExtractor(self.name))
+        return builder.as_response() if self.is_response \
+            else builder.as_predictor()
+
 
 class FieldExtractor:
     """Extract function of a raw feature: the record field with the
@@ -158,12 +183,16 @@ class FeatureBuilder:
 
     ``extract_field`` (a ``FieldExtractor`` named ``extract_<field>``) lets
     a reader convert the field's whole column at once; a custom
-    ``extract(fn)`` runs per record."""
+    ``extract(fn)`` runs per record. ``aggregate`` and ``window`` set how
+    an aggregating reader (``readers.aggregates``) folds a key's events
+    into the feature's value."""
 
     def __init__(self, name: str, feature_type: Type[FeatureType]):
         self.name = name
         self.feature_type = feature_type
         self._extract_fn: Optional[Callable[[Any], Any]] = None
+        self._aggregator: Optional[Any] = None
+        self._aggregate_window: Optional[int] = None
 
     def extract(self, fn: Callable[[Any], Any]) -> "FeatureBuilder":
         self._extract_fn = fn
@@ -173,12 +202,24 @@ class FeatureBuilder:
         """Extract the record field with the feature's name."""
         return self.extract(FieldExtractor(self.name))
 
+    def aggregate(self, aggregator: Any) -> "FeatureBuilder":
+        """The monoid (``aggregators``) that folds a key's events; default
+        ``aggregators.default_aggregator`` of the feature type."""
+        self._aggregator = aggregator
+        return self
+
+    def window(self, millis: int) -> "FeatureBuilder":
+        """Aggregate only the events within ``millis`` of the cutoff."""
+        self._aggregate_window = millis
+        return self
+
     def _build(self, is_response: bool) -> Feature:
         from .stages.base import FeatureGeneratorStage
         stage = FeatureGeneratorStage(
             extract_fn=self._extract_fn or FieldExtractor(self.name),
             output_name=self.name, output_type=self.feature_type,
-            is_response=is_response)
+            is_response=is_response, aggregator=self._aggregator,
+            aggregate_window=self._aggregate_window)
         return stage.get_output()
 
     def as_predictor(self) -> Feature:
@@ -186,6 +227,42 @@ class FeatureBuilder:
 
     def as_response(self) -> Feature:
         return self._build(is_response=True)
+
+    @staticmethod
+    def from_dataframe(data, response: str,
+                       response_type: Optional[Type[FeatureType]] = None
+                       ) -> Tuple[Feature, List[Feature]]:
+        """(response, predictors) of a frame's schema (a
+        ``readers.Frame`` or what ``Frame.of`` takes), typed as the JAX
+        package types a DataFrame's columns: bool -> Binary, integer ->
+        Integral, float -> Real, datetime64 -> DateTime, anything else
+        Text; the response is ``response_type`` (default RealNN)."""
+        from .readers.readers import Frame
+        from .types import Binary, DateTime, Integral, Real, RealNN, Text
+        frame = Frame.of(data)
+        if response not in frame:
+            raise ValueError(f"response feature '{response}' is not "
+                             f"present in the dataframe")
+        by_kind = {"b": Binary, "i": Integral, "u": Integral, "f": Real,
+                   "M": DateTime}
+        resp, feats = None, []
+        for col, arr in frame.columns.items():
+            if col == response:
+                resp = FeatureBuilder(col, response_type or RealNN
+                                      ).extract_field().as_response()
+                continue
+            ft = by_kind.get(arr.dtype.kind, Text)
+            feats.append(FeatureBuilder(col, ft).extract_field()
+                         .as_predictor())
+        return resp, feats
+
+    @staticmethod
+    def from_row(row: Dict[str, Any], response: str,
+                 response_type: Optional[Type[FeatureType]] = None
+                 ) -> Tuple[Feature, List[Feature]]:
+        """``from_dataframe`` of a frame of the one record ``row``."""
+        return FeatureBuilder.from_dataframe([row], response,
+                                             response_type=response_type)
 
 
 def _typed(feature_type: Type[FeatureType]):

@@ -18,7 +18,9 @@ those the port's stages do not hold), less the port's placement
 extract function, a lambda transformer's function) is written as
 ``__unresolved__`` and loads as ``Unresolved``; it is then taken from the
 stage of the same uid in the workflow passed as ``workflow=``, as the JAX
-package's ``load_model`` resolves it.
+package's ``load_model`` resolves it. A stage held by another stage
+(``RecordInsightsLOCO.model_stage``) is saved as a ``__stage_ref__`` to
+its uid and re-linked at load to the loaded stage of that uid.
 
 A save stages the whole directory beside the target (``<path>.<pid>.
 <seq>.tmp``) and swaps it in with one atomic exchange of the two
@@ -46,10 +48,11 @@ from typing import Any, Dict, List, Optional, Union
 import numpy as np
 import torch
 
+from . import aggregators as _agg
 from .device import resolve_device
 from .features import Feature, FieldExtractor
 from .filters.raw_feature_filter import FeatureMetrics, RawFeatureFilterResults
-from .impl.feature import dates, geo, maps, text
+from .impl.feature import bucketizers, dates, geo, maps, scalers, text
 from .impl.feature import math as _math
 from .impl.feature.vectorizers import (
     BinaryVectorizer, HashingVectorizer, OneHotVectorizerModel,
@@ -64,6 +67,7 @@ from .impl.preparators.sanity_checker import (
 from .impl.selector.model_selector import ModelSelectorSummary, SelectedModel
 from .impl.tuning.validators import ValidationResult
 from .impl.regression.isotonic import IsotonicCalibratorModel
+from .insights.record_insights import RecordInsightsCorr, RecordInsightsLOCO
 from .manifest import CheckpointManifest, atomic_write_bytes
 from .models import glm, linear, mlp, trees  # noqa: F401  (registers)
 from .models.api import MODEL_REGISTRY, FittedParams, ModelFamily
@@ -130,6 +134,22 @@ CLASSES: Dict[str, type] = {
             text.EmailToPrefix, text.UrlToProtocol,
             text.TextToMultiPickList, text.RegexTokenizer,
             text.IsValidPhoneMap, text.OpIDFModel)},
+        **{f"impl.feature.scalers:{c.__name__}": c for c in (
+            scalers.ScalerTransformer, scalers.DescalerTransformer,
+            scalers.OpScalarStandardScalerModel,
+            scalers.FillMissingWithMeanModel)},
+        **{f"impl.feature.bucketizers:{c.__name__}": c for c in (
+            bucketizers.NumericBucketizer,
+            bucketizers.DecisionTreeNumericBucketizerModel,
+            bucketizers.DecisionTreeNumericMapBucketizerModel,
+            bucketizers.PercentileCalibratorModel)},
+        **{f"aggregators:{c.__name__}": c for c in (
+            _agg.Sum, _agg.MaxAgg, _agg.MinAgg, _agg.MeanAgg,
+            _agg.LogicalOr, _agg.ConcatText, _agg.ModeAgg, _agg.ConcatList,
+            _agg.UnionSet, _agg.UnionMap, _agg.LastValue, _agg.FirstValue,
+            _agg.GeoMidpoint, _agg.CutOffTime)},
+        "insights.record_insights:RecordInsightsLOCO": RecordInsightsLOCO,
+        "insights.record_insights:RecordInsightsCorr": RecordInsightsCorr,
         "impl.preparators.prediction_deindexer:PredictionDeIndexerModel":
             PredictionDeIndexerModel,
         "impl.preparators.sanity_checker:SanityCheckerModel":
@@ -174,7 +194,6 @@ _WIRING_ATTRS = ("input_features", "_output_feature", "_device_constants")
 #: the values the JAX package saves for them (None: every stage class)
 _JAX_STATE: Dict[Optional[str], Dict[str, Any]] = {
     None: {"_params": {}},
-    "FeatureGeneratorStage": {"aggregator": None, "aggregate_window": None},
     "VectorsCombiner": {"transform_fn": None, "columnar_fn": None},
     "BinaryVectorizer": {"transform_fn": None, "columnar_fn": None},
     "RealNNVectorizer": {"transform_fn": None, "columnar_fn": None},
@@ -202,6 +221,17 @@ class Unresolved:
         return f"Unresolved({self.desc!r})"
 
 
+class _StageRef:
+    """A saved reference to the stage of uid ``uid``; ``load_model``
+    re-links it to the loaded stage of that uid."""
+
+    def __init__(self, uid: str):
+        self.uid = uid
+
+    def __repr__(self) -> str:
+        return f"_StageRef({self.uid!r})"
+
+
 def _class_of(spec: str) -> type:
     cls = CLASSES.get(spec)
     if cls is None:
@@ -212,7 +242,7 @@ def _class_of(spec: str) -> type:
 
 
 def _has_unresolved(v: Any, depth: int = 0) -> bool:
-    if isinstance(v, Unresolved):
+    if isinstance(v, (Unresolved, _StageRef)):
         return True
     if depth > 8:
         return False
@@ -261,11 +291,38 @@ def _decode(d: Any, arrays: Dict[str, np.ndarray]) -> Any:
         return Unresolved(d["__unresolved__"])
     if d.get("__fn__") in FUNCTIONS:
         return FUNCTIONS[d["__fn__"]]
-    for kind in ("__class__", "__fn__", "__stage_ref__"):
+    if isinstance(d.get("__stage_ref__"), str):
+        return _StageRef(d["__stage_ref__"])
+    for kind in ("__class__", "__fn__"):
         if kind in d:
             raise ValueError(f"saved state {kind}={d[kind]!r} cannot be "
                              f"loaded by the PyTorch port")
     raise ValueError(f"cannot decode {d!r}")
+
+
+def _relink_stage_refs(v: Any, stages: Dict[str, OpPipelineStage],
+                       depth: int = 0) -> Any:
+    """``v`` with every ``_StageRef`` inside it (lists, tuples, dicts,
+    objects) replaced by the loaded stage of its uid; a uid outside the
+    plan stays a ``_StageRef`` and counts as unresolved."""
+    if isinstance(v, _StageRef):
+        return stages.get(v.uid, v)
+    if depth > 8:
+        return v
+    if isinstance(v, list):
+        return [_relink_stage_refs(x, stages, depth + 1) for x in v]
+    if isinstance(v, tuple):
+        return tuple(_relink_stage_refs(x, stages, depth + 1) for x in v)
+    if isinstance(v, dict):
+        return {k: _relink_stage_refs(x, stages, depth + 1)
+                for k, x in v.items()}
+    if (hasattr(v, "__dict__") and not isinstance(v, type)
+            and not isinstance(v, OpPipelineStage)):
+        for k, x in list(vars(v).items()):
+            nx = _relink_stage_refs(x, stages, depth + 1)
+            if nx is not x:
+                object.__setattr__(v, k, nx)
+    return v
 
 
 def _to_device(v: Any, device: torch.device) -> Any:
@@ -368,6 +425,11 @@ def load_model(path: str, device: Optional[Union[str, torch.device]] = None,
     for d in plan["stages"] + plan["rawFeatureGenerators"]:
         if d["uid"] not in stages:
             stages[d["uid"]] = stage_from_json(d, arrays)
+    for stage in stages.values():
+        for k, v in list(vars(stage).items()):
+            nv = _relink_stage_refs(v, stages)
+            if nv is not v:
+                setattr(stage, k, nv)
     wf_stages: Dict[str, OpPipelineStage] = {}
     if workflow is not None:
         wf_stages.update((s.uid, s) for s in workflow.stages)

@@ -1,6 +1,6 @@
 """Readers: records to FeatureTable (counterpart of
 ``transmogrifai_tpu.readers``)."""
 from .readers import (  # noqa: F401
-    CSVReader, DataReaders, Frame, FrameReader, Reader, frame_to_table,
-    read_csv, series_to_column,
+    AvroReader, CSVAutoReader, CSVReader, DataReaders, Frame, FrameReader,
+    Reader, StreamingDataReader, frame_to_table, read_csv, series_to_column,
 )

@@ -1,6 +1,7 @@
 """Data readers (counterpart of ``transmogrifai_tpu.readers.readers``): a
-CSV file, a mapping of columns or a list of records -> a ``FeatureTable``
-of a workflow's raw features, without pandas.
+CSV file, an Avro file, a mapping of columns, a list of records or a
+stream of batches -> a ``FeatureTable`` of a workflow's raw features,
+without pandas (the aggregating readers are in ``aggregates``).
 
 The JAX package reads through pandas (``read_csv``, a ``DataFrame``) and
 converts each column with ``series_to_column``; custom extract functions
@@ -38,7 +39,8 @@ import abc
 import csv
 import math
 from typing import (
-    Any, Callable, Dict, List, Mapping, Optional, Sequence, Union,
+    Any, Callable, Dict, Iterable, Iterator, List, Mapping, Optional,
+    Sequence, Union,
 )
 
 import numpy as np
@@ -89,6 +91,19 @@ def _within(v: int, bounds) -> bool:
     return bounds[0] <= v < bounds[1]
 
 
+def _all_or_none(parse: Callable[[str], Any], fields: Sequence[str]
+                 ) -> Optional[List[Any]]:
+    """``parse`` of every field, or None at the first that does not
+    parse."""
+    out = []
+    for f in fields:
+        v = parse(f)
+        if v is None:
+            return None
+        out.append(v)
+    return out
+
+
 def infer_column(fields: Sequence[str]) -> np.ndarray:
     """A CSV column of raw fields -> its numpy column, typed as pandas'
     ``read_csv`` types it (module docstring)."""
@@ -96,9 +111,9 @@ def infer_column(fields: Sequence[str]) -> np.ndarray:
     present = [f for f, m in zip(fields, na) if not m]
     if not present:
         return np.full(len(fields), np.nan)
-    ints = [_parse_int(f) for f in present]
+    ints = _all_or_none(_parse_int, present)
     out = np.empty(len(fields), dtype=object)
-    if all(v is not None for v in ints):
+    if ints is not None:
         if all(_within(v, _I64) for v in ints):
             if not any(na):
                 return np.array(ints, dtype=np.int64)
@@ -112,8 +127,8 @@ def infer_column(fields: Sequence[str]) -> np.ndarray:
         it = iter(ints)
         out[:] = [np.nan if m else next(it) for m in na]
         return out
-    floats = [_csv_float(f) for f in present]
-    if all(v is not None for v in floats):
+    floats = _all_or_none(_csv_float, present)
+    if floats is not None:
         it = iter(floats)
         return np.array([np.nan if m else next(it) for m in na])
     if all(f in _TRUE or f in _FALSE for f in present):
@@ -217,18 +232,34 @@ def _dedup_names(names: Sequence[str]) -> List[str]:
     return out
 
 
+def _whitespace_rows(fh):
+    """(fields, line number) of each line split at runs of whitespace
+    (pandas' ``sep=r"\\s+"``); blank lines are skipped."""
+    for num, line in enumerate(fh, 1):
+        fields = line.split()
+        if fields:
+            yield fields, num
+
+
 def read_csv(path: str, schema: Optional[Sequence[str]] = None,
-             header: bool = True) -> Frame:
+             header: bool = True, whitespace: bool = False) -> Frame:
     """A CSV file as a frame. With ``header`` the first line names the
-    columns; otherwise ``schema`` does. See the module docstring for the
-    blank lines, byte-order mark, duplicate names and index fields."""
+    columns; otherwise ``schema`` does. With ``whitespace`` fields are
+    separated by runs of blanks and tabs instead of commas (no quoting).
+    See the module docstring for the blank lines, byte-order mark,
+    duplicate names and index fields."""
     with open(path, newline="", encoding="utf-8-sig") as fh:
-        reader = csv.reader(fh)
         rows, lines = [], []
-        for r in reader:
-            if r and not (len(r) == 1 and not r[0].strip(" \t")):
+        if whitespace:
+            for r, num in _whitespace_rows(fh):
                 rows.append(r)
-                lines.append(reader.line_num)
+                lines.append(num)
+        else:
+            reader = csv.reader(fh)
+            for r in reader:
+                if r and not (len(r) == 1 and not r[0].strip(" \t")):
+                    rows.append(r)
+                    lines.append(reader.line_num)
     if header:
         names = _dedup_names(rows[0]) if rows else []
         rows, lines = rows[1:], lines[1:]
@@ -374,22 +405,90 @@ class FrameReader(Reader):
 
 
 class CSVReader(Reader):
-    """A CSV file, with a header line or an explicit schema."""
+    """A CSV file, with a header line or an explicit schema; with
+    ``whitespace`` its fields are separated by blanks (``read_csv``)."""
 
     def __init__(self, path: str, schema: Optional[Sequence[str]] = None,
-                 header: bool = True, **kw):
+                 header: bool = True, whitespace: bool = False, **kw):
         super().__init__(**kw)
         self.path = path
         self.schema = list(schema) if schema else None
         self.header = header
+        self.whitespace = whitespace
 
     def read(self) -> Frame:
-        return read_csv(self.path, self.schema, self.header)
+        return read_csv(self.path, self.schema, self.header,
+                        whitespace=self.whitespace)
+
+
+class CSVAutoReader(CSVReader):
+    """A CSV file whose header names the columns and whose fields type
+    them (``infer_column``)."""
+
+
+def flatten_record(rec: Mapping[str, Any], prefix: str = ""
+                   ) -> Dict[str, Any]:
+    """A decoded Avro record with its nested records flattened to dotted
+    names (``a.b``), as the JAX package's ``AvroReader`` flattens them: a
+    dict value is a nested record when it is not empty, every value in it
+    is a dict, string, number, bool, None or list, and one is a dict; any
+    other dict (an Avro map) stays one value."""
+    out: Dict[str, Any] = {}
+    for k, v in rec.items():
+        key = f"{prefix}{k}"
+        if isinstance(v, dict) and v and all(
+                isinstance(x, (dict, str, int, float, bool, type(None),
+                               list)) for x in v.values()) \
+                and any(isinstance(x, dict) for x in v.values()):
+            out.update(flatten_record(v, f"{key}."))
+        else:
+            out[key] = v
+    return out
+
+
+class AvroReader(Reader):
+    """An Avro container file (``utils.avro``), nested records flattened
+    (``flatten_record``); the frame types the fields as a DataFrame of
+    the records does."""
+
+    def __init__(self, path: str, **kw):
+        super().__init__(**kw)
+        self.path = path
+
+    def read(self) -> Frame:
+        from ..utils.avro import read_avro
+        return Frame.of([flatten_record(r) for r in read_avro(self.path)])
+
+
+class StreamingDataReader(Reader):
+    """Micro-batches of scoring input: an iterable of frames, mappings of
+    columns or lists of records, one host table each
+    (``stream_tables``)."""
+
+    def __init__(self, batches: Iterable[Any], **kw):
+        super().__init__(**kw)
+        self.batches = batches
+
+    def read(self) -> Frame:
+        raise ValueError("streaming readers produce batches; use "
+                         "stream_tables")
+
+    def generate_table(self, raw_features: Sequence[Feature],
+                       require_response: bool = True) -> FeatureTable:
+        raise ValueError("streaming readers produce batches; use "
+                         "stream_tables")
+
+    def stream_tables(self, raw_features: Sequence[Feature]
+                      ) -> Iterator[FeatureTable]:
+        for batch in self.batches:
+            yield frame_to_table(Frame.of(batch), raw_features,
+                                 key_field=self.key_field,
+                                 key_fn=self.key_fn)
 
 
 class DataReaders:
-    """Factory namespace, as the JAX package's ``DataReaders``; Parquet,
-    Avro, aggregating and streaming readers are not ported."""
+    """Factory namespace, as the JAX package's ``DataReaders`` (Parquet
+    waits: the card has no pyarrow)."""
 
     class Simple:
         @staticmethod
@@ -400,11 +499,75 @@ class DataReaders:
                              key_field=key_field)
 
         @staticmethod
+        def csv_auto(path: str, key_field: Optional[str] = None
+                     ) -> CSVAutoReader:
+            return CSVAutoReader(path, key_field=key_field)
+
+        @staticmethod
         def dataframe(data, key_field: Optional[str] = None) -> FrameReader:
             """A mapping of columns or a list of records."""
             return FrameReader(data, key_field=key_field)
 
+        @staticmethod
+        def avro(path: str, key_field: Optional[str] = None) -> AvroReader:
+            return AvroReader(path, key_field=key_field)
+
+    class Aggregate:
+        """One row a key from its events (``aggregates``)."""
+
+        @staticmethod
+        def csv(path: str, aggregate_params, key_field: str,
+                schema: Optional[Sequence[str]] = None, header: bool = True):
+            from .aggregates import AggregateDataReader
+            return AggregateDataReader(
+                CSVReader(path, schema=schema, header=header),
+                aggregate_params, key_field=key_field)
+
+        @staticmethod
+        def avro(path: str, aggregate_params, key_field: str):
+            from .aggregates import AggregateDataReader
+            return AggregateDataReader(AvroReader(path), aggregate_params,
+                                       key_field=key_field)
+
+        @staticmethod
+        def dataframe(data, aggregate_params, key_field: str):
+            from .aggregates import AggregateDataReader
+            return AggregateDataReader(FrameReader(data), aggregate_params,
+                                       key_field=key_field)
+
+    class Conditional:
+        """One row a key around the time its target condition fires."""
+
+        @staticmethod
+        def csv(path: str, conditional_params, key_field: str,
+                schema: Optional[Sequence[str]] = None, header: bool = True):
+            from .aggregates import ConditionalDataReader
+            return ConditionalDataReader(
+                CSVReader(path, schema=schema, header=header),
+                conditional_params, key_field=key_field)
+
+        @staticmethod
+        def avro(path: str, conditional_params, key_field: str):
+            from .aggregates import ConditionalDataReader
+            return ConditionalDataReader(AvroReader(path),
+                                         conditional_params,
+                                         key_field=key_field)
+
+        @staticmethod
+        def dataframe(data, conditional_params, key_field: str):
+            from .aggregates import ConditionalDataReader
+            return ConditionalDataReader(FrameReader(data),
+                                         conditional_params,
+                                         key_field=key_field)
+
+    class Streaming:
+        @staticmethod
+        def batches(batches: Iterable[Any],
+                    key_field: Optional[str] = None) -> StreamingDataReader:
+            return StreamingDataReader(batches, key_field=key_field)
+
 
 __all__ = ["NA_VALUES", "Frame", "read_csv", "infer_column",
            "series_to_column", "frame_to_table", "Reader", "FrameReader",
-           "CSVReader", "DataReaders"]
+           "CSVReader", "CSVAutoReader", "AvroReader", "StreamingDataReader",
+           "flatten_record", "DataReaders"]

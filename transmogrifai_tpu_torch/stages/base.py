@@ -88,6 +88,16 @@ class OpPipelineStage(abc.ABC):
                 self.output_is_response(), self, self.input_features)
         return self._output_feature
 
+    def set_params(self, **kv) -> "OpPipelineStage":
+        """Set existing attributes by name (a workflow's stage
+        parameters); an unknown name raises."""
+        for k, v in kv.items():
+            if not hasattr(self, k):
+                raise ValueError(f"{type(self).__name__} has no param "
+                                 f"'{k}'")
+            setattr(self, k, v)
+        return self
+
     def __repr__(self) -> str:
         return f"{type(self).__name__}(uid={self.uid!r})"
 
@@ -156,15 +166,21 @@ class Estimator(OpPipelineStage):
 
 class FeatureGeneratorStage(OpPipelineStage):
     """Origin stage of a raw feature: holds its record-level extract
-    function."""
+    function and, for the aggregating readers, its monoid ``aggregator``
+    (None: the type's default) and ``aggregate_window`` in ms (None: every
+    event on its side of the cutoff)."""
 
     def __init__(self, extract_fn: Callable[[Any], Any], output_name: str,
                  output_type: Type[FeatureType], is_response: bool,
+                 aggregator: Optional[Any] = None,
+                 aggregate_window: Optional[int] = None,
                  uid: Optional[str] = None):
         super().__init__(f"generate_{output_name}", uid)
         self.extract_fn = extract_fn
         self.output_type = output_type
         self.is_response = is_response
+        self.aggregator = aggregator
+        self.aggregate_window = aggregate_window
         self._raw_name = output_name
 
     def output_name(self) -> str:

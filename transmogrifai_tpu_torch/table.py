@@ -13,7 +13,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
 from typing import (
-    Any, Dict, List, Mapping, Optional, Sequence, Tuple, Type,
+    Any, Dict, Iterator, List, Mapping, Optional, Sequence, Tuple, Type,
 )
 
 import numpy as np
@@ -159,6 +159,9 @@ class FeatureTable:
     optional row key (a host array, e.g. a reader's ``key_field``) and the
     device its numeric columns live on (None until ``to_device``)."""
 
+    #: the key column's name in a written score table
+    KEY = "key"
+
     def __init__(self, columns: Dict[str, Column], num_rows: int,
                  key: Optional[np.ndarray] = None,
                  device: Optional[torch.device] = None):
@@ -189,6 +192,38 @@ class FeatureTable:
         cols = dict(self._columns)
         cols[name] = col
         return FeatureTable(cols, self.num_rows, self.key, self.device)
+
+    def select(self, names: Sequence[str]) -> "FeatureTable":
+        """The table of the columns ``names``."""
+        return FeatureTable({n: self._columns[n] for n in names},
+                            self.num_rows, self.key, self.device)
+
+    def row(self, i: int) -> Dict[str, Any]:
+        """Row ``i`` as python values, None where a column is missing."""
+        out: Dict[str, Any] = {}
+        for name, col in self._columns.items():
+            if not col.valid_mask()[i]:
+                out[name] = None
+                continue
+            v = col.host_values()[i]
+            out[name] = v.tolist() if isinstance(v, np.ndarray) else (
+                v.item() if isinstance(v, np.generic) else v)
+        return out
+
+    def iter_rows(self) -> Iterator[Dict[str, Any]]:
+        for i in range(self.num_rows):
+            yield self.row(i)
+
+    @staticmethod
+    def from_columns(data: Mapping[str, Tuple[Type[FeatureType],
+                                              Sequence[Any]]],
+                     key: Optional[Sequence[str]] = None) -> "FeatureTable":
+        """A host table of {name: (feature type, python values)}."""
+        cols = {name: Column.of_values(ft, vals)
+                for name, (ft, vals) in data.items()}
+        n = len(next(iter(cols.values()))) if cols else 0
+        return FeatureTable(cols, n, None if key is None
+                            else np.asarray(key, dtype=object))
 
     def drop(self, names) -> "FeatureTable":
         """The table without the columns ``names``."""

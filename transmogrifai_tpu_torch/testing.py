@@ -1431,3 +1431,376 @@ def tickets_workflow(records, models=None, seed: int = 42, device=None,
                                                       key_field="TicketId")
           .set_result_features(*results))
     return wf, y, pred, results
+
+
+# ---------------------------------------------------------------------------
+# Customer events (the aggregating readers' workflow)
+# ---------------------------------------------------------------------------
+
+EVENTS_USERS, EVENTS_SEED = 20000, 0
+EVENTS_SCORE_USERS, EVENTS_SCORE_SEED = 4096, 1
+#: the cutoff between a user's history and the label's window:
+#: 2025-06-01 00:00:00 UTC
+EVENTS_CUTOFF_MS = 1748736000000
+EVENTS_DAYS_BEFORE, EVENTS_DAYS_AFTER = 90, 14
+EVENT_KINDS = ("send", "click", "visit", "purchase")
+_EVENT_KIND_P = np.array([0.35, 0.25, 0.3, 0.1])
+_EVENT_PAGES = [f"/p/{w}" for w in (
+    "home pricing docs blog careers about contact login signup support "
+    "features integrations security status partners press events webinar "
+    "download trial demo faq terms privacy api changelog community "
+    "customers compare enterprise").split()]
+_EVENT_CATEGORIES = ["books", "music", "garden", "toys", "sports",
+                     "beauty", "grocery", "electronics"]
+_EVENT_REGIONS = ["us-east", "us-west", "us-central", "ca", "mx", "br",
+                  "uk", "de", "fr", "in", "jp", "au"]
+_EVENT_PLANS = ["free", "basic", "pro", "enterprise"]
+_EVENT_CHANNELS = ["organic", "paid_search", "social", "referral", "email"]
+EVENTS_COLUMNS = ("userId", "ts", "kind", "url", "category", "price")
+USERS_COLUMNS = ("userId", "age", "income", "tenureDays", "region", "plan",
+                 "signupChannel")
+
+
+def event_ms(ts: str) -> int:
+    """``yyyy-MM-dd::HH:mm:ss`` (UTC) -> epoch ms (the proleptic
+    Gregorian day count of ``calendar.timegm``, spelled out: it runs once
+    an event and a feature)."""
+    y, m, d = int(ts[0:4]), int(ts[5:7]), int(ts[8:10])
+    y -= m <= 2
+    era = y // 400
+    yoe = y - era * 400
+    doy = (153 * (m + (-3 if m > 2 else 9)) + 2) // 5 + d - 1
+    days = era * 146097 + yoe * 365 + yoe // 4 - yoe // 100 + doy - 719468
+    return 1000 * (days * 86400 + int(ts[12:14]) * 3600
+                   + int(ts[15:17]) * 60 + int(ts[18:20]))
+
+
+def _event_ts(ms: int) -> str:
+    import time
+    return time.strftime("%Y-%m-%d::%H:%M:%S", time.gmtime(ms // 1000))
+
+
+def _zipf(rng: np.random.RandomState, n: int, k: int, a: float = 1.1
+          ) -> np.ndarray:
+    p = 1.0 / np.arange(1, k + 1) ** a
+    return rng.choice(k, size=n, p=p / p.sum())
+
+
+def events_files(out_dir: str, n_users: int = EVENTS_USERS,
+                 seed: int = EVENTS_SEED) -> Tuple[str, str]:
+    """Write ``events.csv`` and ``users.csv`` (headed) for ``n_users``
+    users of a marketing cohort into ``out_dir``; (events path, users
+    path). Each user has ~12 events (send, click, visit, purchase) from
+    90 days before ``EVENTS_CUTOFF_MS`` to 14 days after it, at least one
+    of them within the 7 days after it; a latent propensity, higher from
+    1,500 days of tenure on, drives the purchases, their prices and the
+    user's income and plan. Timestamps are
+    ``yyyy-MM-dd::HH:mm:ss``; a visit has a page ``url``, a purchase a
+    ``category`` and a ``price``, the other cells are empty. The users
+    file holds ``age`` (15% empty), ``income`` (log-normal, 20% empty),
+    ``tenureDays``, a skewed ``region`` of 12, a ``plan`` of 4 and a
+    ``signupChannel`` of 5. numpy and the csv module only."""
+    import csv
+    import os
+    rng = np.random.RandomState(seed)
+    day = _DAY_MS
+    tenure = rng.randint(0, 3000, size=n_users)
+    z = 1.2 * (tenure >= 1500) - 0.6 + 0.8 * rng.randn(n_users)
+    counts = 1 + rng.poisson(11, size=n_users)
+    user = np.repeat(np.arange(n_users), counts)
+    span = (EVENTS_DAYS_BEFORE + EVENTS_DAYS_AFTER) * day
+    t = EVENTS_CUTOFF_MS - EVENTS_DAYS_BEFORE * day + (
+        rng.rand(user.size) * span).astype(np.int64)
+    # one event a user within the label's window (cutoff, cutoff + 7 days]
+    t_next = EVENTS_CUTOFF_MS + 1000 + (
+        rng.rand(n_users) * (7 * day - 1000)).astype(np.int64)
+    user = np.concatenate([user, np.arange(n_users)])
+    t = (np.concatenate([t, t_next]) // 1000) * 1000
+    p = np.tile(_EVENT_KIND_P, (n_users, 1))
+    p[:, 3] *= np.exp(0.9 * z)
+    p /= p.sum(axis=1, keepdims=True)
+    cum = np.cumsum(p, axis=1)[user]
+    kind = (rng.rand(user.size)[:, None] > cum).sum(axis=1).clip(0, 3)
+    page = _zipf(rng, user.size, len(_EVENT_PAGES))
+    cat = _zipf(rng, user.size, len(_EVENT_CATEGORIES), 0.8)
+    price = np.round(np.exp(3.0 + 0.5 * z[user]
+                            + 0.5 * rng.randn(user.size)), 2)
+    order = np.lexsort((user, t))
+    os.makedirs(out_dir, exist_ok=True)
+    events_path = os.path.join(out_dir, "events.csv")
+    with open(events_path, "w", newline="") as fh:
+        w = csv.writer(fh, lineterminator="\n")
+        w.writerow(EVENTS_COLUMNS)
+        for i in order:
+            k = int(kind[i])
+            w.writerow([f"u{user[i]:06d}", _event_ts(int(t[i])),
+                        EVENT_KINDS[k],
+                        _EVENT_PAGES[page[i]] if k == 2 else "",
+                        _EVENT_CATEGORIES[cat[i]] if k == 3 else "",
+                        f"{price[i]:.2f}" if k == 3 else ""])
+    age = rng.randint(18, 81, size=n_users)
+    age_gap = rng.rand(n_users) < 0.15
+    income = np.round(np.exp(10.8 + 0.3 * z + 0.5 * rng.randn(n_users)), 2)
+    income_gap = rng.rand(n_users) < 0.2
+    region = _zipf(rng, n_users, len(_EVENT_REGIONS))
+    plan = np.clip((z + rng.randn(n_users) + 1.5).astype(int), 0, 3)
+    channel = rng.randint(0, len(_EVENT_CHANNELS), size=n_users)
+    users_path = os.path.join(out_dir, "users.csv")
+    with open(users_path, "w", newline="") as fh:
+        w = csv.writer(fh, lineterminator="\n")
+        w.writerow(USERS_COLUMNS)
+        for i in range(n_users):
+            w.writerow([f"u{i:06d}", "" if age_gap[i] else str(age[i]),
+                        "" if income_gap[i] else f"{income[i]:.2f}",
+                        str(tenure[i]), _EVENT_REGIONS[region[i]],
+                        _EVENT_PLANS[plan[i]],
+                        _EVENT_CHANNELS[channel[i]]])
+    return events_path, users_path
+
+
+def files_sha256(*paths: str) -> str:
+    """sha256 of the files' bytes, one after another."""
+    import hashlib
+    h = hashlib.sha256()
+    for p in paths:
+        with open(p, "rb") as fh:
+            h.update(fh.read())
+    return h.hexdigest()
+
+
+#: the events workflow's features that come from the events (the rest
+#: come from the users file)
+EVENT_FEATURES = ("numSends30d", "numClicks7d", "numVisits7d",
+                  "numPurchases", "spendByCategory", "topCategory",
+                  "visitedUrls", "meanPrice", "lastEvent", "purchasedNext7d")
+USER_FEATURES = ("age", "income", "tenureDays", "region", "plan",
+                 "signupChannel")
+#: the events workflow's models: the serve bench's GBT and RF
+EVENTS_MODELS = [(SERVE_MODELS[k][0], [dict(SERVE_MODELS[k][1])])
+                 for k in ("gbt", "rf")]
+
+
+def events_dag(ns, models=None, seed: int = 42):
+    """(result features, label feature, prediction): the events
+    workflow's DAG from the names in ``ns`` (either package's
+    ``FeatureBuilder``, ``aggregators`` module, ``transmogrify`` and
+    binary selector factory), in one order, so after each package's
+    ``reset_uids`` every stage has the same uid. Event features aggregate
+    (windows trailing the cutoff); the label ``purchasedNext7d`` is the
+    largest purchase indicator in the 7 days after it. Age is
+    mean-filled and z-scored and bucketized at fixed splits, income
+    mean-filled and log-scaled, tenure and the spend map bucketized on
+    the label, the week's visits percentile-calibrated; then
+    ``transmogrify`` of the rest, ``combine`` with the buckets, the
+    SanityChecker and the selector with 3-fold cross-validation over
+    ``models`` (default ``EVENTS_MODELS``)."""
+    FB, agg, day = ns.FeatureBuilder, ns.aggregators, _DAY_MS
+
+    def kind_is(kind):
+        return lambda r: 1.0 if r.get("kind") == kind else 0.0
+
+    def purchase(fn):
+        return lambda r: fn(r) if r.get("kind") == "purchase" else None
+
+    sends = (FB.Real("numSends30d").extract(kind_is("send"))
+             .aggregate(agg.Sum()).window(30 * day).as_predictor())
+    clicks = (FB.Real("numClicks7d").extract(kind_is("click"))
+              .aggregate(agg.Sum()).window(7 * day).as_predictor())
+    visits = (FB.Real("numVisits7d").extract(kind_is("visit"))
+              .aggregate(agg.Sum()).window(7 * day).as_predictor())
+    purchases = (FB.Real("numPurchases").extract(kind_is("purchase"))
+                 .aggregate(agg.Sum()).as_predictor())
+    spend = (FB.RealMap("spendByCategory")
+             .extract(purchase(lambda r: {r["category"]: float(r["price"])}))
+             .aggregate(agg.UnionMap(agg.Sum())).window(90 * day)
+             .as_predictor())
+    top = (FB.PickList("topCategory")
+           .extract(purchase(lambda r: r["category"]))
+           .aggregate(agg.ModeAgg()).as_predictor())
+    urls = (FB.MultiPickList("visitedUrls")
+            .extract(lambda r: [r["url"]] if r.get("kind") == "visit"
+                     else None).window(30 * day).as_predictor())
+    mean_price = (FB.Real("meanPrice")
+                  .extract(purchase(lambda r: float(r["price"])))
+                  .aggregate(agg.MeanAgg()).as_predictor())
+    last = (FB.Date("lastEvent").extract(lambda r: event_ms(r["ts"]))
+            .aggregate(agg.MaxAgg()).as_predictor())
+    label = (FB.RealNN("purchasedNext7d").extract(kind_is("purchase"))
+             .aggregate(agg.MaxAgg()).window(7 * day).as_response())
+    age = FB.Real("age").extract_field().as_predictor()
+    income = FB.Real("income").extract_field().as_predictor()
+    tenure = FB.Real("tenureDays").extract_field().as_predictor()
+    picks = [FB.PickList(c).extract_field().as_predictor()
+             for c in ("region", "plan", "signupChannel")]
+    age_z = age.fill_missing_with_mean().zscore()
+    age_b = age.bucketize([18, 25, 35, 50, 65])
+    income_log = income.fill_missing_with_mean().scale("log")
+    tenure_b = tenure.auto_bucketize(label)
+    spend_b = spend.auto_bucketize_map(label)
+    visits_cal = visits.percentile_calibrate()
+    vec = ns.transmogrify([sends, clicks, visits, purchases, spend, top,
+                           urls, mean_price, last, *picks, age_z,
+                           income_log, visits_cal])
+    checked = vec.combine(age_b, tenure_b, spend_b).sanity_check(label)
+    pred = (ns.BinaryClassificationModelSelector.with_cross_validation(
+        seed=seed, models=EVENTS_MODELS if models is None else models)
+        .set_input(label, checked).get_output())
+    return (pred, checked), label, pred
+
+
+def events_reader(ns, events_path: str, users_path: str):
+    """The events workflow's reader from the names in ``ns`` (either
+    package's ``readers.aggregates``, ``CSVReader`` and ``aggregators``):
+    the events aggregated by ``userId`` at ``EVENTS_CUTOFF_MS`` (left)
+    joined to the users file (right), keeping every aggregated user."""
+    cutoff = ns.aggregators.CutOffTime.unix_epoch(EVENTS_CUTOFF_MS)
+    left = ns.aggregates.AggregateDataReader(
+        ns.CSVReader(events_path), ns.aggregates.AggregateParams(
+            cutoff=cutoff, timestamp_fn=lambda r: event_ms(r["ts"])),
+        key_field="userId")
+    right = ns.CSVReader(users_path, key_field="userId")
+    sides = {**{n: "left" for n in EVENT_FEATURES},
+             **{n: "right" for n in USER_FEATURES}}
+    return ns.aggregates.JoinedDataReader(left, right, join_type="left",
+                                          feature_sides=sides)
+
+
+def port_events_namespace():
+    """``events_dag``'s and ``events_reader``'s names from the port."""
+    from types import SimpleNamespace
+    from . import aggregators
+    from .dsl import transmogrify
+    from .features import FeatureBuilder
+    from .impl.selector import factories
+    from .readers import aggregates
+    from .readers.readers import CSVReader
+    return SimpleNamespace(
+        FeatureBuilder=FeatureBuilder, aggregators=aggregators,
+        aggregates=aggregates, CSVReader=CSVReader,
+        transmogrify=transmogrify,
+        BinaryClassificationModelSelector=(
+            factories.BinaryClassificationModelSelector))
+
+
+def events_workflow(events_path: str, users_path: str, models=None,
+                    seed: int = 42, device=None, reset: bool = True):
+    """(workflow, label feature, prediction, result features): the port's
+    events workflow (``events_dag``) reading ``events_reader`` on
+    ``device``; with ``reset`` the uids restart, as the fixture's
+    workflow was built."""
+    from .features import reset_uids
+    from .workflow import OpWorkflow
+    if reset:
+        reset_uids()
+    ns = port_events_namespace()
+    results, y, pred = events_dag(ns, models, seed)
+    wf = (OpWorkflow(device=device)
+          .set_reader(events_reader(ns, events_path, users_path))
+          .set_result_features(*results))
+    return wf, y, pred, results
+
+
+def column_digest(col) -> str:
+    """sha256 of a host or device column of either package: a numeric
+    column's values (missing slots 0) and validity, any other column's
+    cells as canonical JSON (None missing, sets sorted)."""
+    import hashlib
+    import json
+
+    def host(a):
+        a = a.detach().cpu().numpy() if hasattr(a, "detach") else a
+        return np.asarray(a)
+    vals = host(col.values)
+    valid = (np.ones(len(vals), bool) if col.mask is None
+             else host(col.mask).astype(bool))
+    h = hashlib.sha256()
+    if vals.dtype != object:
+        vals = np.where(valid.reshape((-1,) + (1,) * (vals.ndim - 1)),
+                        vals, 0).astype(vals.dtype)
+        h.update(str(vals.dtype).encode())
+        h.update(np.ascontiguousarray(vals).tobytes())
+        h.update(valid.tobytes())
+        return h.hexdigest()
+
+    def canon(v):
+        if isinstance(v, (set, frozenset)):
+            return sorted(canon(x) for x in v)
+        if isinstance(v, (list, tuple)):
+            return [canon(x) for x in v]
+        if isinstance(v, dict):
+            return {str(k): canon(x) for k, x in v.items()}
+        if isinstance(v, np.generic):
+            return v.item()
+        return v
+    h.update(json.dumps([canon(v) if ok else None
+                         for v, ok in zip(vals.tolist(), valid)],
+                        sort_keys=True).encode())
+    return h.hexdigest()
+
+
+def table_digest(table, names: Sequence[str]) -> Dict[str, str]:
+    """{column: ``column_digest``} of ``names``, and the key's sha256
+    under ``"__key__"`` (None without a key)."""
+    import hashlib
+    import json
+    out = {n: column_digest(table[n]) for n in names}
+    out["__key__"] = None if table.key is None else hashlib.sha256(
+        json.dumps([str(k) for k in table.key]).encode()).hexdigest()
+    return out
+
+
+#: the fitted host stages a fixture keeps, with the attributes it keeps
+FITTED_ATTRS = {
+    "FillMissingWithMeanModel": ("mean",),
+    "OpScalarStandardScalerModel": ("mean", "std"),
+    "DecisionTreeNumericBucketizerModel": ("splits",),
+    "DecisionTreeNumericMapBucketizerModel": ("keys", "splits"),
+    "PercentileCalibratorModel": ("boundaries", "buckets"),
+}
+
+
+def fitted_values(model) -> Dict[str, Dict[str, Any]]:
+    """{stage uid: {attribute: value}} of a fitted model's (either
+    package's) mean fills, z-scores, supervised bucketizers and
+    percentile calibrators (``FITTED_ATTRS``); python floats, exact in
+    JSON."""
+    out: Dict[str, Dict[str, Any]] = {}
+    for s in model.stages:
+        attrs = FITTED_ATTRS.get(type(s).__name__)
+        if attrs:
+            out[s.uid] = {a: getattr(s, a) for a in attrs}
+    return out
+
+
+def events_loco_sample(n: int, rows: int = 256, seed: int = 0) -> np.ndarray:
+    """The sorted scoring rows whose LOCO diffs and written records a
+    fixture keeps."""
+    return np.sort(np.random.RandomState(seed).choice(n, rows,
+                                                      replace=False))
+
+
+def loco_map_gaps(want_diffs, got_diffs, names, want_map, got_map,
+                  top_k: int, atol: float) -> List[str]:
+    """Where two LOCO maps of one row disagree beyond ``atol`` (empty when
+    they agree). ``*_diffs`` are the row's (g,) score differences,
+    ``*_map`` its top-k {group: rounded diff}. An entry whose |diff|
+    clears ``atol`` and the k-th largest |diff| by ``2 * atol`` must be in
+    both maps within ``atol`` (plus the maps' rounding to 6 decimals); an
+    entry at or below ``atol`` may be in either map or neither (the
+    summation order decides whether it is exactly 0)."""
+    out: List[str] = []
+    for diffs, mine, other, side in ((want_diffs, want_map, got_map, "got"),
+                                     (got_diffs, got_map, want_map, "want")):
+        a = np.abs(np.asarray(diffs, dtype=np.float64))
+        kth = np.sort(a)[::-1][min(top_k, a.size) - 1] if a.size else 0.0
+        for v, name in enumerate(names):
+            if a[v] <= atol or a[v] <= kth + 2 * atol and a.size > top_k:
+                continue
+            if name not in mine:
+                out.append(f"{name}: |diff| {a[v]:.3g} missing from its "
+                           f"own map")
+            elif name not in other:
+                out.append(f"{name}: {mine[name]} missing in {side}")
+            elif abs(mine[name] - other[name]) > atol + 1e-6:
+                out.append(f"{name}: {mine[name]} vs {other[name]}")
+    return out

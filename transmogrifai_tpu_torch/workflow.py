@@ -57,6 +57,7 @@ class OpWorkflow:
         self.raw_features: Tuple[Feature, ...] = ()
         self.reader: Optional[Reader] = None
         self._layers = None
+        self.parameters: Dict[str, Any] = {}
         self._raw_feature_filter = None
         self._workflow_cv = False
         #: {phase: seconds} of the last train: "filter", "fit" or, under
@@ -80,6 +81,13 @@ class OpWorkflow:
     def set_reader(self, reader: Reader) -> "OpWorkflow":
         """The training data's reader (``readers.DataReaders``)."""
         self.reader = reader
+        return self
+
+    def set_parameters(self, params: Dict[str, Any]) -> "OpWorkflow":
+        """Workflow parameters; ``params["stageParams"]`` maps a stage's
+        uid or class name to attributes set on it before a train
+        (``OpPipelineStage.set_params``). The model keeps them."""
+        self.parameters = dict(params)
         return self
 
     def set_input_dataset(self, data, key_field: Optional[str] = None
@@ -114,6 +122,11 @@ class OpWorkflow:
             raise ValueError("no data: call set_reader or "
                              "set_input_dataset first")
         self.phase_seconds = {}
+        per_stage = self.parameters.get("stageParams", {})
+        for stage in self.stages:
+            for key in (stage.uid, type(stage).__name__):
+                if key in per_stage:
+                    stage.set_params(**per_stage[key])
         table = self.reader.generate_table(self.raw_features)
         layers, result_features = self._layers, self.result_features
         blacklisted: Tuple[Feature, ...] = ()
@@ -137,6 +150,7 @@ class OpWorkflow:
             self.phase_seconds["fit"] = synced_clock(self.device) - t0
         model = OpWorkflowModel(self.device)
         model.reader = self.reader
+        model.parameters = self.parameters
         model.result_features = tuple(
             f.copy_with_new_stages(fitted) for f in result_features)
         model.raw_features = self.raw_features
