@@ -142,6 +142,31 @@ Phases, in order; any failure exits nonzero:
     within ``EVENTS_LOCO_ATOL`` of the fixture's diffs with equal maps, 64
     users through LOCO's row dual; the trained model's LOCO and Corr
     timed;
+(stream) the out-of-core streamed train (``OpWorkflow.train(stream=)``,
+    ``streaming``). "train stream": ``SyntheticChunkSource(1,000,000, 64,
+    chunk_rows=65,536, seed=0)`` (16 chunks) through ``transmogrify``,
+    ``SanityChecker(seed=1)`` and ``StreamingGBT(2 trees, depth 3, 32
+    bins, learning rate 1)`` with 4 workers, prefetch 4 and the chunk
+    cache sized to hold every transformed chunk: each chunk uploaded from
+    pinned memory on the feed's own CUDA stream and transformed on the
+    card, the folds float64 on the host; against ``fixtures/stream`` (the
+    JAX package's train of the same seeds): the fills, the trees and f0
+    and probability_1 at 4,096 rows of chunk 0 bit-equal, the
+    SanityChecker's choices equal (numbers in a reason within 1e-12); the
+    wall seconds, rows/s, ``summary()["streaming"]`` and the peak device
+    memory printed; at most prefetch + 1 chunks and (prefetch + 1) x
+    ``maxChunkBytes`` resident (the bench's bound of a quarter of the raw
+    values applies only when the values are at least 40 chunks' bytes,
+    and here they are not), cache hits. "resume stream": the pressure
+    stream (``testing.pressure_table``, 200,000 x 8 in chunks of 25,000,
+    1 tree of depth 3, 16 bins) killed at half of its folds
+    (``stream.fold``) under a checkpoint directory and resumed to the
+    uninterrupted trees with no feed left open; a train under
+    ``oom.stream`` (chunks halved to 12,500) killed while the halved grid
+    folds and resumed to that train's trees, the restored record carrying
+    the halved ``chunkRows``; then the serial (1 worker, prefetch 1, no
+    cache), parallel (4 workers, prefetch 4, no cache) and cached arms
+    scoring byte-equal. Neither path launches a kernel of the port;
 (b) hold each kernel against its plain PyTorch version on the card, at the
     shapes its path gives it, and report its times:
     - ``node_hist`` at six growth levels (19,712 rows x 64 codes, 32
@@ -207,8 +232,9 @@ Phases, in order; any failure exits nonzero:
       histograms within 2 * 8 sqrt(rows) 2^-24 of each cell's sum of
       |stat| plus atol 1e-6 (the probabilistic bound on two f32 sums in
       other orders), ``hist_matmul`` bit-equal on small integer stats of
-      the same codes, ``node_hist`` bit-equal to its direct formula, chain
-      predicts bit-equal with leaf ids exact;
+      the same codes, ``node_hist`` bit-equal to its direct formula at
+      each shape's first launch, chain predicts bit-equal with leaf ids
+      exact;
 (t) train: rebuild the serve bench's 20,000 x 64 frames and train eight
     pinned tree workflows on the card (``OpWorkflow().train()``,
     ``testing.SERVE_MODELS``): binary GBT (depth 6, 20 rounds, heaps),
@@ -1666,8 +1692,9 @@ def phase_sweep_inputs():
     the inputs of the default lists' sweeps: each list is trained once
     with the three wrappers wrapped (``_KernelChecks``), and every
     launch's result is held against the plain version on the same
-    inputs; the chain predicts include the sweep's depth-3 and 6 heaps
-    turned into padded depth-12 chains."""
+    inputs, each ``node_hist`` shape's first launch also against its
+    direct formula; the chain predicts include the sweep's depth-3 and 6
+    heaps turned into padded depth-12 chains."""
     from transmogrifai_tpu_torch.testing import (
         SERVE_MODELS, serve_bench_data, serve_bench_workflow,
     )
@@ -1681,7 +1708,7 @@ def phase_sweep_inputs():
                                              TRAIN_SEED, task))
         if wf.device.type != "cuda":
             raise AssertionError(f"training on {wf.device}")
-        with _KernelChecks() as checks:
+        with _KernelChecks(direct_per_shape=True) as checks:
             wf.train()
             torch.cuda.synchronize()
         checks.report(key)
@@ -3764,6 +3791,276 @@ class Events:
               f"fixture's; Corr {corr_s:.3f} s")
 
 
+STREAM_DIR = os.path.join(HERE, "transmogrifai_tpu_torch", "fixtures",
+                          "stream")
+#: the streamed train's arms (``bench.py`` BENCH_MODE=stream): (name,
+#: TG_STREAM_WORKERS, TG_STREAM_PREFETCH, cache bytes; None = sized to hold
+#: every transformed chunk of the stream)
+STREAM_ARMS = (("serial", 1, 1, 0), ("parallel", 4, 4, 0),
+               ("parallel_cache", 4, 4, None))
+
+
+class _StreamEnv:
+    """The feed's variables set for a ``with`` block, restored after."""
+
+    KEYS = ("TG_STREAM_WORKERS", "TG_STREAM_PREFETCH",
+            "TG_STREAM_CACHE_BYTES")
+
+    def __init__(self, workers, prefetch, cache_bytes):
+        self.values = dict(zip(self.KEYS, (str(workers), str(prefetch),
+                                           str(cache_bytes))))
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.KEYS}
+        os.environ.update(self.values)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        return False
+
+
+class _PassClock:
+    """``StreamRun.fold`` timed per pass id for a ``with`` block (host
+    clock; the folds run on the host)."""
+
+    def __enter__(self):
+        from transmogrifai_tpu_torch.streaming import trainer
+        self.seconds: dict = {}
+        self._fold = fold = trainer.StreamRun.fold
+
+        def timed(run, pass_id, *args):
+            t0 = time.perf_counter()
+            try:
+                return fold(run, pass_id, *args)
+            finally:
+                self.seconds[pass_id] = (self.seconds.get(pass_id, 0.0)
+                                         + time.perf_counter() - t0)
+
+        trainer.StreamRun.fold = timed
+        return self
+
+    def __exit__(self, *exc):
+        from transmogrifai_tpu_torch.streaming import trainer
+        trainer.StreamRun.fold = self._fold
+        return False
+
+    def by_kind(self) -> dict:
+        """Seconds summed by pass kind: prep passes by id, the trees'
+        level and leaf passes together."""
+        out: dict = {}
+        for pid, sec in self.seconds.items():
+            kind = ("leaves" if pid.endswith(".leaf") else "levels"
+                    if ".l" in pid else pid)
+            out[kind] = round(out.get(kind, 0.0) + sec, 3)
+        return out
+
+
+class Stream:
+    """The out-of-core streamed train on the card (``OpWorkflow.train(
+    stream=...)``): the repo's stream workload and the pressure stream,
+    against ``fixtures/stream`` (what the JAX package made of the same
+    seeds on the CPU)."""
+
+    def __init__(self, dev):
+        from transmogrifai_tpu_torch import testing as T
+        self.T = T
+        self.ns = T.port_stream_namespace()
+        self.dev = dev
+        self.fixture = T.read_stream_fixture(STREAM_DIR)
+
+    def _workflow(self, d, gbt=None, ckpt=None):
+        self.ns.reset_uids()
+        wf = self.ns.OpWorkflow(device=self.dev).set_result_features(
+            self.T.stream_dag(self.ns, d, gbt))
+        if wf.device.type != "cuda":
+            raise AssertionError(f"training on {wf.device}")
+        return wf.with_checkpoint_dir(ckpt) if ckpt else wf
+
+    def train(self):
+        """"train stream": 1,000,000 x 64 in 16 chunks of 65,536, 4
+        workers, prefetch 4, the cache sized to hold every transformed
+        chunk; held to the fixture bit for bit; residency bounds."""
+        T = self.T
+        cfg = self.fixture[0]["config"]
+        n, d = cfg["rows"], cfg["features"]
+        src = self.ns.streaming.SyntheticChunkSource(
+            n, d, chunk_rows=cfg["chunkRows"], seed=cfg["seed"],
+            problem="binary")
+        prefetch = 4
+        with _StreamEnv(4, prefetch, max(1 << 28, 6 * n * d * 4)), \
+                _PassClock() as clock:
+            wf = self._workflow(d)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            model = wf.train(stream=src)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - base
+        got = T.stream_result(model, src, cfg["sample"])
+        diffs = T.stream_differences(got, self.fixture)
+        if diffs:
+            raise AssertionError(f"stream: differs from the fixture: "
+                                 f"{diffs[:MAX_REPORTED]}")
+        st = model.summary()["streaming"]
+        passes = st["rows"] / n
+        print(f"(stream) train: {n} x {d} in {src.num_chunks} chunks of "
+              f"{src.chunk_rows} rows, {passes:.0f} passes, in {wall:.3f} s "
+              f"wall ({n / wall:.1f} rows/s, {st['rows'] / wall:.1f} "
+              f"chunk rows/s); fills, the SanityChecker's choices, the "
+              f"trees, f0 and probability_1 at {cfg['sample']} rows of "
+              f"chunk 0 bit-equal to the fixture")
+        print(f"(stream) summary()['streaming']: {json.dumps(st)}")
+        print(f"(stream) seconds by pass (a pass's feed and folds): "
+              f"{json.dumps(clock.by_kind())}; the consumer waited on the "
+              f"feed {st['waitSeconds']} s of them")
+        shape_bound = (prefetch + 1) * st["maxChunkBytes"]
+        print(f"(stream) peak device memory allocated {peak} bytes "
+              f"({peak / 2 ** 20:.1f} MiB) beside (prefetch + 1) x "
+              f"maxChunkBytes = {shape_bound} bytes and the raw dataset's "
+              f"{n * d * 4} bytes of values")
+        if st["peakDeviceBytes"] > shape_bound:
+            raise AssertionError("stream: peakDeviceBytes above (prefetch "
+                                 "+ 1) x maxChunkBytes")
+        if st["peakResidentChunks"] > prefetch + 1:
+            raise AssertionError("stream: more than prefetch + 1 chunks "
+                                 "resident")
+        # the bench's bound on the dataset's share, where it applies: the
+        # dataset at least 40 chunks' bytes (here one transformed chunk is
+        # more than a fortieth of the raw values, so it does not)
+        if n * d * 4 >= 40 * st["maxChunkBytes"] and \
+                st["peakDeviceBytes"] > n * d * 4 / 4:
+            raise AssertionError("stream: peakDeviceBytes above a quarter "
+                                 "of the raw dataset")
+        print(f"(stream) peakDeviceBytes {st['peakDeviceBytes']} = "
+              f"{st['peakDeviceBytes'] / (n * d * 4):.3f} of the raw "
+              f"values, {st['peakResidentChunks']} chunks resident at most "
+              f"(bound {prefetch + 1})")
+        if st["cacheHits"] <= 0:
+            raise AssertionError("stream: the cache was never hit")
+        self.summary = st
+
+    def resume(self):
+        """"resume stream": the pressure stream (200,000 x 8 in chunks of
+        25,000) killed at about half of its folds under a checkpoint
+        directory and resumed to the uninterrupted trees, no feed left
+        open; then a train downshifted by ``oom.stream`` and killed while
+        its halved grid folds, resumed to the downshifted reference."""
+        import tempfile as _tempfile
+        from transmogrifai_tpu_torch.robustness import faults
+        from transmogrifai_tpu_torch.streaming import (
+            TableChunkSource, live_feeds,
+        )
+        T = self.T
+        gbt = T.PRESSURE_GBT
+        table = T.pressure_table(self.ns)
+        rows = T.PRESSURE_CHUNK_ROWS
+
+        def trees(m):
+            return T.streamed_gbt_arrays(T.stage_of(m, "StreamingGBTModel"))
+
+        def same(a, b):
+            return not T.array_differences(a, b)
+
+        def kill(wf, src, specs):
+            try:
+                with faults.injected(specs):
+                    wf.train(stream=src)
+            except faults.SimulatedPreemption:
+                pass
+            else:
+                raise AssertionError(f"stream: {specs} killed nothing")
+            if live_feeds():
+                raise AssertionError("stream: a feed outlived the kill")
+
+        t0 = time.perf_counter()
+        src = TableChunkSource(table, chunk_rows=rows)
+        ref = trees(self._workflow(T.PRESSURE_FEATURES, gbt).train(
+            stream=src))
+        folds = (3 + gbt["num_trees"] * (gbt["max_depth"] + 1)) * \
+            src.num_chunks
+        with _tempfile.TemporaryDirectory() as ck:
+            kill(self._workflow(T.PRESSURE_FEATURES, gbt, ck), src,
+                 {"stream.fold": {"mode": "preempt", "nth": folds // 2}})
+            resumed = self._workflow(T.PRESSURE_FEATURES, gbt, ck).train(
+                resume=True, stream=src)
+        if not same(trees(resumed), ref):
+            raise AssertionError("stream: the resumed trees differ")
+        res = resumed.summary()["resume"]
+        print(f"(stream) resume: killed at fold {folds // 2} of {folds}, "
+              f"resumed on the card to the unkilled trees; restored "
+              f"{res['restoredStages']}, refit {res['refitStages']}, "
+              f"{len(resumed.summary()['faults']['restored'])} restored "
+              f"records")
+        oom = {"oom.stream": {"mode": "oom", "nth": 2}}
+        with faults.injected(oom):
+            down = self._workflow(T.PRESSURE_FEATURES, gbt).train(
+                stream=TableChunkSource(table, chunk_rows=rows))
+        downs = down.summary()["faults"]["oomDownshifts"]
+        if not downs or downs[0]["detail"]["chunkRows"] != rows // 2:
+            raise AssertionError(f"stream: no downshift to {rows // 2} "
+                                 f"rows: {downs}")
+        with _tempfile.TemporaryDirectory() as ck:
+            kill(self._workflow(T.PRESSURE_FEATURES, gbt, ck),
+                 TableChunkSource(table, chunk_rows=rows),
+                 {**oom, "stream.fold": {"mode": "preempt", "nth": 5}})
+            with open(os.path.join(ck, "MANIFEST.json")) as fh:
+                recs = json.load(fh).get("streams", {}).values()
+            if not any(r.get("chunkRows") == rows // 2 for r in recs):
+                raise AssertionError("stream: no record of the halved grid")
+            again = self._workflow(T.PRESSURE_FEATURES, gbt, ck).train(
+                resume=True, stream=TableChunkSource(table,
+                                                     chunk_rows=rows))
+        if not same(trees(again), trees(down)):
+            raise AssertionError("stream: the resumed downshifted trees "
+                                 "differ")
+        restored = again.summary()["faults"]["restored"]
+        if not any(r["detail"].get("chunkRows") == rows // 2
+                   for r in restored):
+            raise AssertionError("stream: the restored record lacks the "
+                                 "halved chunkRows")
+        print(f"(stream) downshift: oom.stream halved the chunks "
+              f"{rows} -> {downs[0]['detail']['chunkRows']} "
+              f"({len(downs)} downshift(s) recorded); killed on the halved "
+              f"grid and resumed to the downshifted trees, the restored "
+              f"record carrying chunkRows {rows // 2}; "
+              f"{time.perf_counter() - t0:.1f} s")
+
+    def arms(self):
+        """The serial, parallel and cached arms on the pressure stream:
+        their scores byte-equal."""
+        from transmogrifai_tpu_torch.streaming import TableChunkSource
+        T = self.T
+        table = T.pressure_table(self.ns)
+        n, d = T.PRESSURE_ROWS, T.PRESSURE_FEATURES
+        probe = table.take(np.arange(T.PRESSURE_CHUNK_ROWS))
+        scored = {}
+        for name, workers, prefetch, cache in STREAM_ARMS:
+            cache = max(1 << 28, 6 * n * d * 4) if cache is None else cache
+            with _StreamEnv(workers, prefetch, cache):
+                wf = self._workflow(d, T.PRESSURE_GBT)
+                t0 = time.perf_counter()
+                model = wf.train(stream=TableChunkSource(
+                    table, chunk_rows=T.PRESSURE_CHUNK_ROWS))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            st = model.summary()["streaming"]
+            col = model.score(table=probe)[model.result_features[0].name]
+            scored[name] = col.values.cpu().numpy().tobytes()
+            print(f"(stream) arm {name}: {wall:.3f} s ({n / wall:.1f} "
+                  f"rows/s), uploadBytes {st['uploadBytes']}, overlap "
+                  f"{st['overlapFraction']}, cache hits {st['cacheHits']}, "
+                  f"peak {st['peakResidentChunks']} chunks")
+        if len(set(scored.values())) != 1:
+            raise AssertionError("stream: the arms score differently")
+        print(f"(stream) the {len(scored)} arms score byte-equal")
+
+
 def phase_serve():
     """The port's main path: load, score, answer requests, for every
     committed fixture (binary probability_1 within PROB_ATOL; regression
@@ -3985,6 +4282,21 @@ def _forest_kernels(model, pred=None):
             (F.FOREST_PREDICT_HEAP,) if "feat" in params else ())
 
 
+def _stream_paths(stream: "Stream", run_path) -> dict:
+    """The (stream) phase's two paths; the folds run on the host and the
+    card holds the chunks and runs the fill and the column select, so
+    neither launches a kernel of the port."""
+    out = {"train stream": run_path("train stream", stream.train, ()),
+           "resume stream": run_path(
+               "resume stream", lambda: (stream.resume(), stream.arms()),
+               ())}
+    for name, counts in out.items():
+        if any(counts.values()):
+            raise AssertionError(f"the {name} path launched {counts}")
+        print(f"launches, {name}: none of the {len(counts)} kernels")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4078,6 +4390,7 @@ def _run(dev, kernels, tmp) -> int:
     paths["serve events"] = run_path(
         "serve events", events.serve,
         _forest_kernels(events.model, events.pred))
+    paths.update(_stream_paths(Stream(dev), run_path))
     paths.update({
         "train gbt": run_path("train gbt",
                               lambda: train_against_fixture("gbt"),

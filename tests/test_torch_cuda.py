@@ -1572,3 +1572,110 @@ def test_loco_on_the_card_equals_the_cpu(cuda, family, hyper):
     for i in range(0, 600, 7):
         assert not loco_map_gaps(want[:, i], got[:, i], names, cm[i], gm[i],
                                  5, 1e-6)
+
+
+class _OverwrittenSource:
+    """A random-access chunk source whose host buffers the test overwrites
+    once the chunk is delivered (built on the fly: a ``ChunkSource``)."""
+
+    @staticmethod
+    def make(n_chunks, rows, d, seed):
+        from transmogrifai_tpu_torch.streaming.source import (
+            Chunk, ChunkSource)
+        from transmogrifai_tpu_torch.table import Column, FeatureTable
+        from transmogrifai_tpu_torch.types import Real, RealNN
+
+        class Source(ChunkSource):
+            random_access = True
+
+            def __init__(self):
+                self.chunk_rows = rows
+                self.buffers = {}
+
+            def fingerprint(self):
+                return "overwritten"
+
+            @property
+            def num_chunks(self):
+                return n_chunks
+
+            def _arrays(self, i):
+                rng = np.random.RandomState(seed + i)
+                return (rng.randn(rows, d).astype(np.float32),
+                        rng.rand(rows, d) > 0.1,
+                        rng.rand(rows).astype(np.float32))
+
+            def read_chunk(self, i):
+                X, M, y = (a.copy() for a in self._arrays(i))
+                self.buffers[i] = (X, M, y)
+                cols = {f"x{j}": Column(Real, X[:, j], M[:, j])
+                        for j in range(d)}
+                cols["y"] = Column(RealNN, y, None)
+                return Chunk(i, f"c{i}", FeatureTable(cols, rows))
+
+            def chunks(self, start=0):
+                for i in range(start, n_chunks):
+                    yield self.read_chunk(i)
+
+        return Source()
+
+
+class _Double:
+    """A transform run on the committer's stream: a new column x0 * 2."""
+
+    def transform(self, table):
+        from transmogrifai_tpu_torch.table import Column
+        from transmogrifai_tpu_torch.types import Real
+        col = table["x0"]
+        return table.with_column("z", Column(Real, col.values * 2.0, None))
+
+
+def _bits_sum(t):
+    """An exact digest of a tensor's bits on its own device."""
+    if t.dtype == torch.bool:
+        t = t.to(torch.uint8)
+    return t.contiguous().view(torch.uint8).to(torch.int64).mul(
+        torch.arange(1, t.numel() * t.element_size() + 1, device=t.device)
+        % 251 + 1).sum()
+
+
+def test_feed_upload_survives_overwritten_buffers_and_a_slow_consumer(cuda):
+    """Many small chunks through the pinned, side-stream upload with a
+    transform on the card. The source's host buffers are overwritten as
+    soon as a chunk is delivered, and the consumer's stream is kept busy
+    before it reads each chunk, so the chunk's blocks would be handed out
+    again by the allocator if a tensor lacked ``record_stream``, and a
+    staging buffer reused before its copy completed would corrupt a later
+    chunk: every delivered chunk must be byte-equal to its source."""
+    from transmogrifai_tpu_torch.streaming import DeviceFeed
+    n_chunks, rows, d = 96, 257, 3
+    src = _OverwrittenSource.make(n_chunks, rows, d, seed=5)
+    digests = []
+    with DeviceFeed(src, transforms=[_Double()], prefetch=3, workers=2,
+                    device=cuda) as feed:
+        for chunk in feed:
+            for name in chunk.table.column_names:
+                assert chunk.table[name].values.is_cuda
+            X, M, y = src.buffers.pop(chunk.index)
+            for a in (X, M, y):
+                a[...] = 0          # the source's memory is reused
+            torch.cuda._sleep(2_000_000)   # the consumer's stream is busy
+            t = chunk.table
+            digests.append([_bits_sum(t[f"x{j}"].values)
+                            for j in range(d)]
+                           + [_bits_sum(t[f"x{j}"].mask) for j in range(d)]
+                           + [_bits_sum(t["y"].values),
+                              _bits_sum(t["z"].values)])
+            del chunk, t
+    torch.cuda.synchronize()
+    assert feed.stats.chunks == n_chunks
+    assert feed.stats.peak_resident_chunks <= 4
+    for i, got in enumerate(digests):
+        X, M, y = src._arrays(i)
+        want = [torch.from_numpy(np.ascontiguousarray(X[:, j]))
+                for j in range(d)]
+        want += [torch.from_numpy(np.ascontiguousarray(M[:, j]))
+                 for j in range(d)]
+        want += [torch.from_numpy(y),
+                 torch.from_numpy(np.ascontiguousarray(X[:, 0]) * 2.0)]
+        assert [int(g) for g in got] == [int(_bits_sum(w)) for w in want], i

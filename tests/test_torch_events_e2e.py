@@ -332,9 +332,10 @@ def test_committed_model_scores_as_saved(fixture_files):
 
 def test_new_modules_load_without_jax_or_pandas(tmp_path):
     """The aggregating readers, Avro, the runner, record insights, the
-    testkit, the specs and the examples in a process of their own: the
-    events of 50 users aggregate, join and write to Avro and CSV with no
-    jax, pandas or JAX package module loaded."""
+    testkit, the specs, the examples and the streaming, robustness and
+    fidelity modules in a process of their own: the events of 50 users
+    aggregate, join and write to Avro and CSV with no jax, pandas or JAX
+    package module loaded."""
     import subprocess
     code = (
         "import sys\n"
@@ -344,6 +345,9 @@ def test_new_modules_load_without_jax_or_pandas(tmp_path):
         "import transmogrifai_tpu_torch.examples.iris, "
         "transmogrifai_tpu_torch.examples.boston, "
         "transmogrifai_tpu_torch.examples.dataprep\n"
+        "import transmogrifai_tpu_torch.streaming, "
+        "transmogrifai_tpu_torch.robustness, "
+        "transmogrifai_tpu_torch.utils.fidelity\n"
         "from transmogrifai_tpu_torch.testing import events_files, "
         "events_workflow\n"
         f"e, u = events_files({str(tmp_path)!r}, 50, 2)\n"

@@ -157,6 +157,45 @@ class RealVectorizer(Estimator):
         return self._finalize_model(
             RealVectorizerModel(fills=fills, track_nulls=self.track_nulls))
 
+    # -- streaming fit (OpWorkflow.train(stream=...)) ------------------------
+    def fit_streaming_prep(self, run):
+        """The one-pass spec ``(pass_id, fold, extract, finish)`` the
+        streaming trainer fuses with its layer's other one-pass fits; None
+        when constant fills need no pass."""
+        if not self.fill_with_mean:
+            return None
+        from ...streaming.folds import ColStatsFold
+        k = len(self.input_features)
+        fold = ColStatsFold(k)
+
+        def extract(table):
+            cols = [table[f.name] for f in self.input_features]
+            X = np.stack([c.host_values().astype(np.float64).reshape(-1)
+                          for c in cols], axis=1)
+            mask = np.stack([c.valid_mask() for c in cols], axis=1)
+            return X, mask
+
+        def finish(state) -> Transformer:
+            res = fold.finalize(state)
+            fills = [float(res.mean[i]) if res.count[i] > 0
+                     else self.fill_value for i in range(k)]
+            return self._finalize_model(RealVectorizerModel(
+                fills=fills, track_nulls=self.track_nulls))
+
+        return "fills", fold, extract, finish
+
+    def fit_streaming(self, run) -> Transformer:
+        """Mean fills as one column-stats fold over the chunks: the count
+        and sum of each column in float64, the JAX package's fills bit for
+        bit."""
+        spec = self.fit_streaming_prep(run)
+        if spec is None:
+            return self._finalize_model(RealVectorizerModel(
+                fills=[self.fill_value] * len(self.input_features),
+                track_nulls=self.track_nulls))
+        pass_id, fold, extract, finish = spec
+        return finish(run.fold(pass_id, fold, extract))
+
 
 class RealVectorizerModel(Transformer):
     """Seq[Real] or Seq[Integral] -> OPVector: each missing value takes its

@@ -7,7 +7,8 @@ on request) and, for indicator groups, contingency counts on the table's
 device; the column decisions run on the host from those arrays, with the
 JAX package's thresholds, reasons and feature-group propagation. The
 summary holders have the fields of the JAX package's summary classes
-(``sanity_checker_metadata.py`` there).
+(``sanity_checker_metadata.py`` there), with its dict view and its
+reader (``SanityCheckerSummary.from_json``).
 """
 from __future__ import annotations
 
@@ -65,6 +66,82 @@ class SanityCheckerSummary:
 
     #: widest feature-correlation matrix ``to_json`` inlines
     _JSON_CORR_MAX_D = 512
+
+    #: the dict view: the JAX package's summary keys (and the flat stat
+    #: names of schema 1) read as ``summary[key]``
+    _ALIASES = {
+        "names": lambda s: s.stats.names,
+        "count": lambda s: s.stats.count,
+        "mean": lambda s: s.stats.mean,
+        "variance": lambda s: s.stats.variance,
+        "min": lambda s: s.stats.min,
+        "max": lambda s: s.stats.max,
+        "correlationsWithLabel": lambda s: s.correlations_with_label,
+        "correlationType": lambda s: s.correlation_type,
+        "cramersV": lambda s: s.categorical.cramers_v,
+        "mutualInfo": lambda s: s.categorical.mutual_info,
+        "pointwiseMutualInfo": lambda s: s.categorical.pointwise_mutual_info,
+        "featureCorrelations": lambda s: s._corr_json(),
+        "dropped": lambda s: s.dropped,
+        "reasons": lambda s: s.reasons,
+        "sampleSize": lambda s: s.sample_size,
+        "schemaVersion": lambda s: s.schema_version,
+    }
+
+    def __getitem__(self, key: str) -> Any:
+        try:
+            return self._ALIASES[key](self)
+        except KeyError:
+            raise KeyError(key) from None
+
+    def get(self, key: str, default: Any = None) -> Any:
+        try:
+            return self[key]
+        except KeyError:
+            return default
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._ALIASES
+
+    def keys(self):
+        return self._ALIASES.keys()
+
+    @classmethod
+    def from_json(cls, d: Dict[str, Any]) -> "SanityCheckerSummary":
+        """A summary from its JSON, as either package writes it: schema 1's
+        flat dict and schema 2 are read as schema 3 (the categorical
+        stats' mutual information and the feature-correlation matrix
+        default empty); another version raises."""
+        version = d.get("schemaVersion", 1)
+        if version == 1:
+            return cls(
+                stats=ColumnStatistics(
+                    names=list(d.get("names", [])),
+                    count=list(d.get("count", [])),
+                    mean=list(d.get("mean", [])),
+                    variance=list(d.get("variance", [])),
+                    min=list(d.get("min", [])),
+                    max=list(d.get("max", []))),
+                categorical=CategoricalGroupStats(
+                    cramers_v=dict(d.get("cramersV", {}))),
+                correlations_with_label=list(
+                    d.get("correlationsWithLabel", [])),
+                correlation_type=d.get("correlationType", "pearson"),
+                dropped=list(d.get("dropped", [])),
+                reasons=dict(d.get("reasons", {})),
+                sample_size=int(d.get("sampleSize", 0)))
+        if version in (2, 3):
+            return cls(
+                stats=ColumnStatistics(**d["stats"]),
+                categorical=CategoricalGroupStats(**d["categorical"]),
+                correlations_with_label=list(d["correlationsWithLabel"]),
+                correlation_type=d["correlationType"],
+                dropped=list(d["dropped"]),
+                reasons=dict(d["reasons"]),
+                sample_size=int(d["sampleSize"]),
+                feature_correlations=d.get("featureCorrelations"))
+        raise ValueError(
+            f"unknown SanityChecker summary schemaVersion {version}")
 
     def to_json(self) -> Dict[str, Any]:
         """The JAX package's summary JSON (the fitted model's
@@ -221,6 +298,80 @@ class SanityChecker(AllowLabelAsInput, Estimator):
         host = {k: v.cpu().numpy() for k, v in dev.items()}
         return self._decide(host, d=d, vm=vm, groups=groups,
                             n_sample=int(len(ys)))
+
+    # -- streaming fit (OpWorkflow.train(stream=...)) ------------------------
+    def fit_streaming_prep(self, run):
+        """The one-pass spec ``(pass_id, fold, extract, finish)``: column
+        moments, label correlations (Pearson; with ``correlations="full"``
+        the feature matrix too) and the indicator groups' contingency
+        counts as float64 folds over every row, then the in-core fit's
+        decisions. Spearman raises: exact ranks need the whole dataset."""
+        from ...streaming.folds import (
+            ColStatsFold, CompositeFold, ContingencyFold, CorrelationFold,
+        )
+        if self.correlation_type_spearman:
+            raise ValueError(
+                "SanityChecker(correlation_type_spearman=True) cannot fit "
+                "on a stream: exact ranks need the full dataset. Use "
+                "Pearson, or train in-core.")
+        label_f, vec_f = self.input_features
+        col = run.probe_table()[vec_f.name]
+        vm: Optional[VectorMetadata] = col.metadata.get("vector_meta")
+        d = col.width
+        groups: List[Any] = []
+        all_idx = np.zeros(0, np.int64)
+        if vm is not None:
+            groups = [(g, idxs) for g, idxs in vm.index_of_group().items()
+                      if all(vm.columns[i].indicator_value is not None
+                             for i in idxs)]
+            if groups:
+                all_idx = np.concatenate(
+                    [np.asarray(idxs) for _, idxs in groups])
+        folds: Dict[str, Any] = {
+            "stats": ColStatsFold(d),
+            "corr": CorrelationFold(d, full=self.correlations == "full"),
+        }
+        if groups:
+            folds["cont"] = ContingencyFold(len(all_idx))
+        composite = CompositeFold(folds)
+
+        def extract(table: FeatureTable):
+            X = np.asarray(table[vec_f.name].host_values(), dtype=np.float32)
+            y = np.asarray(table[label_f.name].host_values(),
+                           dtype=np.float32).reshape(-1)
+            parts = {"stats": (X,), "corr": (X, y)}
+            if groups:
+                parts["cont"] = (X[:, all_idx], y)
+            return (parts,)
+
+        def finish(state) -> Transformer:
+            grps = groups
+            res = composite.finalize(state)
+            stats = res["stats"]
+            host: Dict[str, np.ndarray] = {
+                "count": stats.count, "mean": stats.mean,
+                "variance": stats.variance, "min": stats.min,
+                "max": stats.max, "corr": res["corr"]}
+            if folds["corr"].full:
+                host["feature_corr"] = folds["corr"].finalize_matrix(
+                    state["corr"])
+            if grps:
+                if res["cont"] is None:
+                    # labels were not binary-like: the in-core branch
+                    grps = []
+                else:
+                    host["counts"] = res["cont"].astype(np.float64)
+            return self._decide(host, d=d, vm=vm, groups=grps,
+                                n_sample=int(state["corr"]["n"]))
+
+        return "sanity", composite, extract, finish
+
+    def fit_streaming(self, run) -> Transformer:
+        """One pass of float64 folds over the chunks, then the in-core
+        fit's decisions (``_decide``). Unlike the in-core fit it samples
+        no rows: every row folds."""
+        pass_id, fold, extract, finish = self.fit_streaming_prep(run)
+        return finish(run.fold(pass_id, fold, extract))
 
     def _decide(self, host: Dict[str, np.ndarray], *, d: int,
                 vm: Optional[VectorMetadata], groups: List[Any],

@@ -28,6 +28,7 @@ from ...ops.metrics import (
     _BINNED_MIN_N, aupr_masked, auroc_masked, binary_threshold_metrics_masked,
     log_loss_masked, multiclass_metrics_masked, regression_metrics_masked,
 )
+from ...utils.fidelity import ROUND4_MAX_EVAL_ROWS, round4_defaults
 from ...utils.padding import bucket_for
 
 
@@ -145,13 +146,20 @@ class OpValidator:
 
     ``max_eval_rows``: each configuration is scored on at most this many of
     its fold's validation rows (a deterministic strided subsample; None =
-    every row). CV candidates fit through ``sweep_fit_batch``, or through
+    every row); left unset it is 32768, or 65536 under
+    ``TG_SWEEP_FIDELITY=round4`` (``utils.fidelity``). CV candidates fit through ``sweep_fit_batch``, or through
     ``fit_batch`` (full precision, the refit's schedule) with
     ``exact_sweep_fits``."""
 
+    #: "the caller did not choose": the constructor reads the switch
+    _EVAL_ROWS_DEFAULT = -1
+
     def __init__(self, seed: int = 42, stratify: bool = False,
-                 max_eval_rows: Optional[int] = 32768,
+                 max_eval_rows: Optional[int] = _EVAL_ROWS_DEFAULT,
                  exact_sweep_fits: bool = False):
+        if max_eval_rows == self._EVAL_ROWS_DEFAULT:
+            max_eval_rows = (ROUND4_MAX_EVAL_ROWS if round4_defaults()
+                             else 32768)
         self.seed = seed
         self.stratify = stratify
         self.max_eval_rows = max_eval_rows

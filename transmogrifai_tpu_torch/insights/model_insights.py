@@ -5,7 +5,7 @@ each derived column's statistics and drop decision (the SanityChecker's)
 and its contribution to the winner, attributed to its raw feature; the
 selection and its sweep; the redundant column pairs; the splitter's
 decisions; the raw feature filter's blacklist and results; the version.
-Record-level insights (LOCO) are not ported (ROADMAP.md).
+Record-level insights are ``insights.record_insights`` (LOCO, Corr).
 """
 from __future__ import annotations
 

@@ -48,6 +48,7 @@ from ..ops.forest import (
     forest_predict, forest_predict_chain,
 )
 from ..ops.xla_cpu import fma32, xla_softmax
+from ..utils.fidelity import ROUND4_SWEEP_HIST_SAMPLE, round4_defaults
 from . import bootstrap
 from .api import FittedParams, ModelFamily, register_family
 
@@ -58,7 +59,7 @@ N_BINS = 32  # Spark maxBins default
 #: split-search sample cap of a refit (evenly strided rows)
 _HIST_SAMPLE = 65536
 
-#: split-search sample cap of a CV-sweep fit
+#: split-search sample cap of a CV-sweep fit (``_sweep_hist_sample``)
 _SWEEP_HIST_SAMPLE = 8192
 
 #: RF trees / boosting rounds CV candidates rank with; the winner refits
@@ -68,6 +69,13 @@ _SWEEP_GBT_ROUNDS = 12
 
 #: per-level histogram element budget (f32) that bounds a config chunk
 _LEVEL_HIST_ELEMS = 1 << 28
+
+
+def _sweep_hist_sample() -> int:
+    """The CV sweep's split-search sample rows; ``TG_SWEEP_FIDELITY=round4``
+    restores 16384 (``utils.fidelity``)."""
+    return (ROUND4_SWEEP_HIST_SAMPLE if round4_defaults()
+            else _SWEEP_HIST_SAMPLE)
 
 #: (sample rows x trees x level lanes) element budget of an RF/DT config
 #: chunk
@@ -551,7 +559,7 @@ def _prep_tree_inputs(X, y, n_bins: int, num_classes: int, task: str,
     n / S weight rescale (f32). ``sweep`` takes the CV-sweep sample."""
     n = X.shape[0]
     samp = torch.as_tensor(
-        _sample_rows(n, _SWEEP_HIST_SAMPLE if sweep else _HIST_SAMPLE),
+        _sample_rows(n, _sweep_hist_sample() if sweep else _HIST_SAMPLE),
         device=X.device)
     Xs = X[samp]
     edges = _quantile_edges(Xs, n_bins)
@@ -866,7 +874,10 @@ def _sweep_ensemble_cap(vals: np.ndarray, cap: int,
                         param: str) -> Optional[np.ndarray]:
     """Sweep-time ensemble cap: all configs equal -> clamp to ``cap``;
     distinct values -> scale proportionally (max -> cap, floor 1) so the
-    grid's relative budgets survive. None when no value exceeds the cap."""
+    grid's relative budgets survive. None when no value exceeds the cap,
+    or under ``TG_SWEEP_FIDELITY=round4`` (no caps)."""
+    if round4_defaults():
+        return None
     vals = np.asarray(vals, dtype=np.float64)
     vmax = float(vals.max())
     if vmax <= cap:
@@ -1331,7 +1342,7 @@ class GBTFamilyBase(_TreeFamilyBase):
             per_cfg = C_g * nodes_w * X.shape[1] * N_BINS * 3
             cb = max(1, min(B, _LEVEL_HIST_ELEMS // max(per_cfg, 1)))
             S_est = min(X.shape[0],
-                        _SWEEP_HIST_SAMPLE if sweep else _HIST_SAMPLE)
+                        _sweep_hist_sample() if sweep else _HIST_SAMPLE)
             lanes_max = max((1 << 29) // max(S_est, 1), 192)
             cb = max(1, min(cb, lanes_max // (3 * nodes_w * C_g)))
             if cb >= B:

@@ -30,6 +30,14 @@ point leaves the previous model loadable, plus ``*.tmp`` debris
 the target moves aside and the staged directory takes its place: a kill
 between those two renames leaves the previous model in the moved-aside
 ``*.old.tmp`` directory.
+
+Stage checkpoints (``OpWorkflow.with_checkpoint_dir``): each fitted stage
+of a train is written as ``<uid>.json`` and ``<uid>.npz`` and committed
+through the directory's manifest (``save_stage_checkpoint``), in the JAX
+package's format, so a checkpoint directory either package wrote resumes
+in the other. ``load_stage_checkpoints`` loads only the stages whose
+completion record exists and whose files match their sha256; any other is
+reported (``checkpoint_skipped``) and refits.
 """
 from __future__ import annotations
 
@@ -68,13 +76,17 @@ from .impl.selector.model_selector import ModelSelectorSummary, SelectedModel
 from .impl.tuning.validators import ValidationResult
 from .impl.regression.isotonic import IsotonicCalibratorModel
 from .insights.record_insights import RecordInsightsCorr, RecordInsightsLOCO
-from .manifest import CheckpointManifest, atomic_write_bytes
+from .manifest import (
+    MANIFEST_FILE, SENTINEL_FILE, CheckpointManifest, atomic_write_bytes,
+    clean_tmp_debris,
+)
 from .models import glm, linear, mlp, trees  # noqa: F401  (registers)
 from .models.api import MODEL_REGISTRY, FittedParams, ModelFamily
 from .stages.base import (
     BinarySequenceTransformer, BinaryTransformer, FeatureGeneratorStage,
     OpPipelineStage, SequenceTransformer, UnaryTransformer,
 )
+from .streaming.model import StreamingGBTModel
 from .types import feature_type_by_name
 from .vector_metadata import VectorColumnMetadata, VectorMetadata
 
@@ -173,6 +185,7 @@ CLASSES: Dict[str, type] = {
         "filters.raw_feature_filter:RawFeatureFilterResults":
             RawFeatureFilterResults,
         "filters.raw_feature_filter:FeatureMetrics": FeatureMetrics,
+        "streaming.model:StreamingGBTModel": StreamingGBTModel,
     }.items()}
 
 #: saved "module:function" -> the port's function: stage state that is a
@@ -347,6 +360,16 @@ def _to_device(v: Any, device: torch.device) -> Any:
     return v
 
 
+def _stage_to_device(stage: OpPipelineStage, device: torch.device) -> None:
+    """A loaded stage's arrays as tensors on ``device``; a stage whose
+    state stays on the host (``_host_state``: the streamed GBT's trees)
+    keeps its numpy arrays."""
+    if getattr(stage, "_host_state", False):
+        return
+    for k, v in list(vars(stage).items()):
+        setattr(stage, k, _to_device(v, device))
+
+
 def stage_from_json(d: Dict[str, Any],
                     arrays: Dict[str, np.ndarray]) -> OpPipelineStage:
     cls = _class_of(f"{d.get('module')}:{d['className']}")
@@ -447,8 +470,7 @@ def load_model(path: str, device: Optional[Union[str, torch.device]] = None,
         for k in missing:
             setattr(stage, k, getattr(src, k))
     for stage in stages.values():
-        for k, v in list(vars(stage).items()):
-            setattr(stage, k, _to_device(v, device))
+        _stage_to_device(stage, device)
     feats = features_from_json(plan["features"], stages)
     model = OpWorkflowModel(device)
     model.result_features = tuple(feats[u] for u in plan["resultFeatures"])
@@ -680,3 +702,154 @@ def save_model(model, path: str) -> None:
         os.replace(stage, path)
         shutil.rmtree(old, ignore_errors=True)
     _fsync_dir(os.path.dirname(path))
+
+
+# ---------------------------------------------------------------------------
+# Stage checkpoints
+# ---------------------------------------------------------------------------
+
+def _npz_bytes(store: Dict[str, np.ndarray]) -> bytes:
+    buf = io.BytesIO()
+    np.savez_compressed(buf, **store)
+    return buf.getvalue()
+
+
+def open_checkpoint_manifest(ckpt_dir: str) -> CheckpointManifest:
+    """The directory's manifest, or a fresh one when it is absent or
+    unreadable (nothing in such a directory is trusted; the load reports
+    it, and the new manifest commits from scratch)."""
+    manifest, _err = CheckpointManifest.load(ckpt_dir, FORMAT_VERSION)
+    return manifest
+
+
+def save_stage_checkpoint(stage: OpPipelineStage, ckpt_dir: str,
+                          manifest: Optional[CheckpointManifest] = None
+                          ) -> None:
+    """Write one fitted stage as ``<uid>.npz`` and ``<uid>.json``, each
+    atomically, then commit it through the directory's manifest. The stage
+    becomes loadable only when the manifest, written last, records it: a
+    kill at any step leaves files the loader reports as debris and refits.
+    The site ``preempt.checkpoint_write`` fires between the payload files
+    and the commit."""
+    from .manifest import sentinel_phase
+    from .robustness import faults
+    os.makedirs(ckpt_dir, exist_ok=True)
+    sentinel_phase("checkpoint_write")
+    if manifest is None:
+        manifest = open_checkpoint_manifest(ckpt_dir)
+    arrays = _Arrays()
+    desc = stage_to_json(stage, arrays)
+    npz_name, json_name = f"{stage.uid}.npz", f"{stage.uid}.json"
+    npz_bytes = _npz_bytes(arrays.store)
+    npz_sha = atomic_write_bytes(os.path.join(ckpt_dir, npz_name), npz_bytes)
+    faults.inject("preempt.checkpoint_write", key=stage.uid)
+    json_bytes = json.dumps(desc).encode("utf-8")
+    json_sha = atomic_write_bytes(os.path.join(ckpt_dir, json_name),
+                                  json_bytes)
+    manifest.record_file(npz_name, npz_sha, len(npz_bytes))
+    manifest.record_file(json_name, json_sha, len(json_bytes))
+    manifest.complete_stage(stage.uid, [json_name, npz_name])
+    manifest.save()
+
+
+def _report_skipped(uid: str, ckpt_dir: str, file: str, reason: str) -> None:
+    import logging
+    from .robustness.policy import FaultLog, FaultReport
+    logging.getLogger(__name__).warning(
+        "skipping stage checkpoint %s in %s (%s: %s); the stage will refit",
+        uid, ckpt_dir, file, reason)
+    FaultLog.record(FaultReport(
+        site="persistence.checkpoint", kind="checkpoint_skipped",
+        detail={"uid": uid, "dir": ckpt_dir, "file": file,
+                "reason": reason, "error": reason}))
+
+
+def _load_stage_files(ckpt_dir: str, uid: str, json_name: str,
+                      device: torch.device) -> OpPipelineStage:
+    with open(os.path.join(ckpt_dir, json_name)) as fh:
+        desc = json.load(fh)
+    with np.load(os.path.join(ckpt_dir, f"{uid}.npz"),
+                 allow_pickle=False) as npz:
+        arrays = dict(npz)
+    stage = stage_from_json(desc, arrays)
+    _stage_to_device(stage, device)
+    return stage
+
+
+def load_stage_checkpoints(ckpt_dir: str,
+                           manifest: Optional[CheckpointManifest] = None,
+                           device: Optional[Union[str, torch.device]] = None
+                           ) -> Dict[str, OpPipelineStage]:
+    """Every verified stage checkpoint of ``ckpt_dir``, by uid, with its
+    arrays on ``device`` (default: the CUDA device).
+
+    With a manifest, only stages with a completion record load, and each
+    of their files must match its recorded size and sha256; a stage that
+    fails is reported as ``checkpoint_skipped`` (the file and the reason)
+    and refits, as are payload files no record names. A directory without
+    a manifest (the earliest checkpoints) is read file by file, and what
+    does not decode is reported the same way."""
+    import logging
+    device = resolve_device(device)
+    out: Dict[str, OpPipelineStage] = {}
+    if not os.path.isdir(ckpt_dir):
+        return out
+    removed = clean_tmp_debris(ckpt_dir)
+    if removed:
+        logging.getLogger(__name__).info(
+            "removed %d partial-write tmp file(s) from %s", len(removed),
+            ckpt_dir)
+    if manifest is None:
+        manifest, merr = CheckpointManifest.load(ckpt_dir, FORMAT_VERSION)
+        if merr not in (None, "missing"):
+            _report_skipped("*", ckpt_dir, manifest.path,
+                            f"manifest unusable ({merr}); no checkpoint in "
+                            f"the directory can be verified")
+            return out
+        if merr == "missing" and any(
+                f.endswith(".json")
+                and f not in (MANIFEST_FILE, SENTINEL_FILE)
+                for f in os.listdir(ckpt_dir)):
+            return _load_legacy_checkpoints(ckpt_dir, device)
+    for fname in manifest.unrecorded_files():
+        uid = fname.rsplit(".", 1)[0]
+        _report_skipped(uid, ckpt_dir, os.path.join(ckpt_dir, fname),
+                        "file has no manifest completion record "
+                        "(interrupted write)")
+    for uid, rec in sorted(manifest.stages.items()):
+        bad = [(f, manifest.verify_file(f)) for f in rec.get("files", [])]
+        bad = [(f, r) for f, r in bad if r is not None]
+        if bad:
+            f0, r0 = bad[0]
+            _report_skipped(uid, ckpt_dir, os.path.join(ckpt_dir, f0), r0)
+            continue
+        try:
+            out[uid] = _load_stage_files(ckpt_dir, uid, f"{uid}.json",
+                                         device)
+        except Exception as e:
+            # verified but undecodable (a format fault, a class that
+            # moved): refit rather than fail the resume
+            _report_skipped(uid, ckpt_dir,
+                            os.path.join(ckpt_dir, f"{uid}.json"),
+                            f"verified but undecodable: "
+                            f"{type(e).__name__}: {e}")
+    return out
+
+
+def _load_legacy_checkpoints(ckpt_dir: str, device: torch.device
+                             ) -> Dict[str, OpPipelineStage]:
+    """A directory without a manifest: decode each stage's files or report
+    it and let it refit."""
+    out: Dict[str, OpPipelineStage] = {}
+    for fname in sorted(os.listdir(ckpt_dir)):
+        if (not fname.endswith(".json") or fname.startswith("sweep_")
+                or fname in (MANIFEST_FILE, SENTINEL_FILE)):
+            continue
+        uid = fname[:-5]
+        try:
+            out[uid] = _load_stage_files(ckpt_dir, uid, fname, device)
+        except Exception as e:
+            _report_skipped(uid, ckpt_dir, os.path.join(ckpt_dir, fname),
+                            f"{type(e).__name__}: {e} (unverified legacy "
+                            f"checkpoint — no manifest)")
+    return out

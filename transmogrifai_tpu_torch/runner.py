@@ -11,8 +11,9 @@ model loads onto that device.
 
 Scores and raw features are written by the output path's extension:
 ``.avro`` through ``utils.avro`` (the records the JAX package writes),
-``.csv`` with the text pandas' ``to_csv(index=False)`` writes; Parquet
-waits (the card has no pyarrow), so any other extension raises. The JAX
+``.csv`` with the text pandas' ``to_csv(index=False)`` writes; any other
+extension raises (Parquet: the port is to write the format itself, as
+``utils.avro`` writes Avro; ROADMAP Queue 1 item 11). The JAX
 package's ``features`` run always writes Parquet; the port's writes by
 extension. ``log_stage_metrics`` (the JAX package's profiler and its
 ``appMetrics``) waits for the profiler's port and raises.
@@ -139,7 +140,8 @@ def write_scores(frame: Frame, path: str) -> None:
     if not path.endswith((".avro", ".csv")):
         raise ValueError(
             f"cannot write {path!r}: the port writes .avro and .csv; "
-            f"Parquet waits for pyarrow on the card (ROADMAP)")
+            f"Parquet is not written yet: the port is to write the format "
+            f"itself (ROADMAP Queue 1 item 11)")
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     if path.endswith(".avro"):
         from .utils.avro import write_avro

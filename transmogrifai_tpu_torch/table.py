@@ -50,6 +50,11 @@ class Column:
     def __len__(self) -> int:
         return int(self.values.shape[0])
 
+    @property
+    def width(self) -> int:
+        """Slots a row: a vector's or a prediction's width, else 1."""
+        return int(self.values.shape[1]) if len(self.values.shape) > 1 else 1
+
     def valid_mask(self) -> np.ndarray:
         """bool (n,) validity on the host."""
         if self.mask is None:

@@ -692,12 +692,13 @@ def sanity_summary(stage) -> dict:
             "reasons": {k: list(v) for k, v in s.reasons.items()}}
 
 
-def assert_same_sanity(got: dict, want: dict) -> None:
+def assert_same_sanity(got: dict, want: dict, rel: float = 1e-4) -> None:
     """Two ``sanity_summary`` dicts: the same kept slots, dropped names and
-    reasons, a number quoted in a reason within 1e-12 absolute or 1e-4
+    reasons, a number quoted in a reason within 1e-12 absolute or ``rel``
     relative (float32 moments summed in another order: a constant
     column's variance is 0 in one and 2.7e-15 where XLA fuses its mean
-    into the subtraction). Raises AssertionError."""
+    into the subtraction; the streamed folds add in the JAX package's
+    order, so the stream path passes 0). Raises AssertionError."""
     if (got["keep_indices"] != want["keep_indices"]
             or got["dropped"] != want["dropped"]
             or sorted(got["reasons"]) != sorted(want["reasons"])):
@@ -712,7 +713,7 @@ def assert_same_sanity(got: dict, want: dict) -> None:
         for g, w in zip(mine, why):
             for a, b in zip(_NUMBER.findall(g), _NUMBER.findall(w)):
                 if abs(float(a) - float(b)) > max(1e-12,
-                                                  1e-4 * abs(float(b))):
+                                                  rel * abs(float(b))):
                     raise AssertionError(f"{name}: {g!r}, expected {w!r}")
 
 
@@ -1803,4 +1804,193 @@ def loco_map_gaps(want_diffs, got_diffs, names, want_map, got_map,
                 out.append(f"{name}: {mine[name]} missing in {side}")
             elif abs(mine[name] - other[name]) > atol + 1e-6:
                 out.append(f"{name}: {mine[name]} vs {other[name]}")
+    return out
+
+
+# -- the stream workload (``bench.py`` BENCH_MODE=stream) ------------------
+
+#: the synthetic stream: 1,000,000 rows of 64 Real predictors and a binary
+#: RealNN label in 16 chunks of 65,536 rows (``SyntheticChunkSource``)
+STREAM_ROWS = 1_000_000
+STREAM_FEATURES = 64
+STREAM_CHUNK_ROWS = 65_536
+STREAM_SEED = 0
+#: rows of chunk 0 whose probability_1 a stream fixture keeps
+STREAM_SAMPLE = 4096
+#: the streamed GBT of the workload
+STREAM_GBT = dict(problem="binary", num_trees=2, max_depth=3, n_bins=32,
+                  learning_rate=1.0)
+#: the pressure stream: a 200,000 x 8 table from RandomState(0), read in
+#: chunks of 25,000 (``bench.py``'s pressure mode)
+PRESSURE_ROWS = 200_000
+PRESSURE_FEATURES = 8
+PRESSURE_CHUNK_ROWS = 25_000
+PRESSURE_GBT = dict(problem="binary", num_trees=1, max_depth=3, n_bins=16,
+                    learning_rate=1.0)
+
+
+def port_stream_namespace():
+    """``stream_dag``'s and ``pressure_table``'s names from the port."""
+    from types import SimpleNamespace
+    from . import streaming, types
+    from .dsl import transmogrify
+    from .features import FeatureBuilder, reset_uids
+    from .impl.preparators.sanity_checker import SanityChecker
+    from .table import Column, FeatureTable
+    from .workflow import OpWorkflow
+    return SimpleNamespace(
+        FeatureBuilder=FeatureBuilder, transmogrify=transmogrify,
+        SanityChecker=SanityChecker, streaming=streaming,
+        OpWorkflow=OpWorkflow, Column=Column, FeatureTable=FeatureTable,
+        Real=types.Real, RealNN=types.RealNN, reset_uids=reset_uids)
+
+
+def stream_dag(ns, d: int, gbt: Optional[Dict[str, Any]] = None):
+    """The streamed workflow's prediction from the names in ``ns`` (either
+    package's): ``d`` Real predictors ``x0..`` and the RealNN label ``y``,
+    ``transmogrify``, ``SanityChecker(seed=1)``, ``StreamingGBT(**gbt)``
+    (default ``STREAM_GBT``); after each package's ``reset_uids`` every
+    stage has the same uid."""
+    FB = ns.FeatureBuilder
+    label = FB.RealNN("y").extract_field().as_response()
+    feats = [FB.Real(f"x{i}").extract_field().as_predictor()
+             for i in range(d)]
+    checked = label.transform_with(ns.SanityChecker(seed=1),
+                                   ns.transmogrify(feats))
+    return (ns.streaming.StreamingGBT(**(gbt or STREAM_GBT))
+            .set_input(label, checked).get_output())
+
+
+def pressure_table(ns, n: int = PRESSURE_ROWS, d: int = PRESSURE_FEATURES,
+                   seed: int = 0):
+    """The pressure stream's host table (either package's), drawn as
+    ``bench.py`` draws it."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, d).astype(np.float32)
+    y = (X @ rng.randn(d).astype(np.float32) > 0).astype(np.float32)
+    cols = {f"x{i}": ns.Column(ns.Real, X[:, i], None) for i in range(d)}
+    cols["y"] = ns.Column(ns.RealNN, y, None)
+    return ns.FeatureTable(cols, n)
+
+
+def stage_of(model, cls_name: str):
+    """The fitted stage of class ``cls_name`` of a workflow model."""
+    return [s for s in model.stages if type(s).__name__ == cls_name][0]
+
+
+def streamed_gbt_arrays(gbt) -> Dict[str, np.ndarray]:
+    """A fitted ``StreamingGBTModel``'s (either package's) trees and f0 as
+    named arrays."""
+    out = {"f0": np.float64(gbt.f0)}
+    for t, tree in enumerate(gbt.trees):
+        for lv, (f, thr) in enumerate(zip(tree["feat_lv"], tree["thr_lv"])):
+            out[f"t{t}.feat{lv}"] = np.asarray(f)
+            out[f"t{t}.thr{lv}"] = np.asarray(thr)
+        out[f"t{t}.leaf"] = np.asarray(tree["leaf"])
+    return out
+
+
+def streamed_prob1(model, table, rows: np.ndarray) -> np.ndarray:
+    """probability_1 of a streamed model (either package's) scoring
+    ``table``, at ``rows``, as float32 on the host."""
+    pred = model.result_features[0]
+    col = model.score(table=table)[pred.name]
+    vals = col.values
+    vals = vals.cpu().numpy() if hasattr(vals, "cpu") else np.asarray(vals)
+    return vals[:, list(col.metadata["keys"]).index("probability_1")][rows]
+
+
+def stream_sample_rows(chunk_rows: int = STREAM_CHUNK_ROWS,
+                       sample: int = STREAM_SAMPLE) -> np.ndarray:
+    return np.sort(np.random.RandomState(STREAM_SEED).choice(
+        chunk_rows, size=min(sample, chunk_rows), replace=False))
+
+
+def stream_result(model, source, sample: int = STREAM_SAMPLE
+                  ) -> Tuple[Dict[str, Any], Dict[str, np.ndarray]]:
+    """(JSON part, arrays) of a streamed train of ``stream_dag`` (either
+    package's model): the mean fills, the SanityChecker's choices and
+    summary, the trees and f0, and probability_1 on chunk 0 at
+    ``stream_sample_rows``."""
+    rv = stage_of(model, "RealVectorizerModel")
+    sc = stage_of(model, "SanityCheckerModel")
+    gbt = stage_of(model, "StreamingGBTModel")
+    rows = stream_sample_rows(source.chunk_rows, sample)
+    arrays = streamed_gbt_arrays(gbt)
+    arrays["fills"] = np.asarray(rv.fills, dtype=np.float64)
+    arrays["rows"] = rows
+    arrays["prob1"] = streamed_prob1(model, source.read_chunk(0).table,
+                                     rows)
+    js = {"sanity": sanity_summary(sc),
+          "sanitySummary": sc.summary.to_json(),
+          "trees": len(gbt.trees)}
+    return js, arrays
+
+
+def write_stream_fixture(ns, out_dir: str, rows: int = STREAM_ROWS,
+                         features: int = STREAM_FEATURES,
+                         chunk_rows: int = STREAM_CHUNK_ROWS,
+                         sample: int = STREAM_SAMPLE, **train_kw) -> None:
+    """Train ``stream_dag`` on ``SyntheticChunkSource(rows, features,
+    chunk_rows, seed=STREAM_SEED)`` with the package of ``ns`` and write
+    ``stream_result`` to ``out_dir`` (``fixture.json``, ``fixture.npz``).
+    ``train_kw`` go to that package's ``OpWorkflow``."""
+    import json
+    import os
+    source = ns.streaming.SyntheticChunkSource(
+        rows, features, chunk_rows=chunk_rows, seed=STREAM_SEED,
+        problem="binary")
+    ns.reset_uids()
+    model = (ns.OpWorkflow(**train_kw)
+             .set_result_features(stream_dag(ns, features))
+             .train(stream=source))
+    js, arrays = stream_result(model, source, sample)
+    js["config"] = {"rows": rows, "features": features,
+                    "chunkRows": chunk_rows, "seed": STREAM_SEED,
+                    "sample": sample, "gbt": STREAM_GBT}
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "fixture.json"), "w") as fh:
+        json.dump(js, fh, indent=1, sort_keys=True)
+    np.savez_compressed(os.path.join(out_dir, "fixture.npz"), **arrays)
+
+
+def read_stream_fixture(path: str
+                        ) -> Tuple[Dict[str, Any], Dict[str, np.ndarray]]:
+    import json
+    import os
+    with open(os.path.join(path, "fixture.json")) as fh:
+        js = json.load(fh)
+    with np.load(os.path.join(path, "fixture.npz")) as z:
+        arrays = {k: z[k] for k in z.files}
+    return js, arrays
+
+
+def array_differences(got: Dict[str, np.ndarray],
+                      want: Dict[str, np.ndarray]) -> List[str]:
+    """The names of the arrays that differ in their bits (or are in one
+    dict only)."""
+    out = []
+    if sorted(got) != sorted(want):
+        out.append(f"arrays {sorted(set(got) ^ set(want))} differ")
+    for k in sorted(set(got) & set(want)):
+        a, b = np.asarray(got[k]), np.asarray(want[k])
+        if a.shape != b.shape or a.dtype != b.dtype or not np.array_equal(
+                a.reshape(-1).view(np.uint8), b.reshape(-1).view(np.uint8)):
+            out.append(f"{k} differs")
+    return out
+
+
+def stream_differences(got: Tuple[Dict[str, Any], Dict[str, np.ndarray]],
+                       want: Tuple[Dict[str, Any], Dict[str, np.ndarray]]
+                       ) -> List[str]:
+    """What differs between two ``stream_result``s: the fills, trees, f0
+    and sampled probability_1 are compared bit for bit (NaN thresholds of
+    stopped nodes equal), the SanityChecker's choices with
+    ``assert_same_sanity`` (a number in a reason within 1e-12)."""
+    (gj, ga), (wj, wa) = got, want
+    out = array_differences(ga, wa)
+    try:
+        assert_same_sanity(gj["sanity"], wj["sanity"], rel=0.0)
+    except AssertionError as e:
+        out.append(f"sanity: {e}")
     return out

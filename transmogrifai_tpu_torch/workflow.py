@@ -3,22 +3,34 @@ trains a feature DAG on a device and returns an ``OpWorkflowModel``, the
 fitted workflow that scores on that device (a model also comes from
 ``persistence.load_model``).
 
-Training is the in-core path: the raw table is built by a reader
-(``readers``: a CSV file, or a mapping of columns or list of records given
-to ``set_input_dataset``), by the JAX package's rules for each feature type,
+The in-core path: the raw table is built by a reader (``readers``: a CSV
+file, or a mapping of columns or list of records given to
+``set_input_dataset``), by the JAX package's rules for each feature type,
 screened by the raw feature filter when one is attached
 (``with_raw_feature_filter``: the excluded raw features leave the DAG),
 moved to the device, and every estimator fits layer by layer, or, with
 ``with_workflow_cv``, the label-dependent stages refit inside every fold of
-the selector's cross-validation. The JAX package's stage checkpoints,
-sweep checkpoints and resume, mesh sharding and streaming are not ported
-(see ROADMAP.md).
+the selector's cross-validation.
+
+The out-of-core path, ``train(stream=source)`` with a
+``streaming.ChunkSource``: the raw table is never materialized; every
+estimator fits as chunked float64 folds over a feed that uploads each
+chunk to the card and transforms it there (``streaming``). With
+``with_checkpoint_dir`` each fitted stage is checkpointed (the JAX
+package's format) and each pass's fold state per chunk, so
+``train(resume=True, stream=source)`` after a kill at any ``stream.*``
+site gives the uninterrupted train's model bit for bit, also from a
+directory the JAX package wrote. The raw feature filter, workflow CV and a
+mesh are refused there, as in the JAX package. The in-core path's stage
+and sweep checkpoints and its resume, and mesh training, are not ported
+(ROADMAP Queue 1 items 9 and 10); they raise.
 
 A fitted model saves and loads in the JAX package's format
 (``OpWorkflowModel.save`` / ``load``, ``persistence``). ``summary()`` gives
-each stage's summary; the JAX package's ``faults``, ``resume``,
-``observability`` and ``streaming`` sections wait for the robustness,
-observability and streaming modules.
+each stage's summary and, for a model this process trained, the JAX
+package's ``faults`` and ``resume`` sections (and ``streaming``, with the
+feed's and the cache's accounting, for a streamed train); the
+``observability`` section waits for the observability module.
 """
 from __future__ import annotations
 
@@ -35,6 +47,29 @@ from .features import Feature
 from .readers.readers import Frame, FrameReader, Reader, frame_to_table
 from .stages.base import AllowLabelAsInput, Estimator
 from .table import FeatureTable
+
+
+def _open_run_sentinel(ckpt_dir: Optional[str], resume: bool):
+    """This run's sentinel in the checkpoint directory (None without one).
+    On ``resume=True`` a sentinel left by another process records that
+    process's ``unclean_exit`` (``oomKillSuspected`` when its last phase
+    was device work) before this run takes over."""
+    if ckpt_dir is None:
+        return None
+    from .manifest import RunSentinel
+    from .robustness.policy import FaultLog, FaultReport
+    sentinel = RunSentinel(ckpt_dir)
+    if resume:
+        stale = sentinel.read_stale()
+        if stale is not None:
+            FaultLog.record(FaultReport(
+                site="manifest.sentinel", kind="unclean_exit",
+                detail={"pid": stale.get("pid"),
+                        "phase": stale.get("phase"), "dir": ckpt_dir,
+                        "oomKillSuspected":
+                            RunSentinel.suspects_oom_kill(stale)}))
+    sentinel.start("dag_fit")
+    return sentinel
 
 
 def raw_table(raw_features, data, require_response: bool) -> FeatureTable:
@@ -60,6 +95,9 @@ class OpWorkflow:
         self.parameters: Dict[str, Any] = {}
         self._raw_feature_filter = None
         self._workflow_cv = False
+        self._checkpoint_dir: Optional[str] = None
+        self._fault_policy = None
+        self._mesh = None
         #: {phase: seconds} of the last train: "filter", "fit" or, under
         #: workflow CV, "before", "fold_prep", "sweep" and "rest"
         self.phase_seconds: Dict[str, float] = {}
@@ -76,6 +114,32 @@ class OpWorkflow:
         that feed the selector (the SanityChecker) refit inside every fold
         on that fold's training rows, instead of once before the sweep."""
         self._workflow_cv = True
+        return self
+
+    def with_checkpoint_dir(self, path: str) -> "OpWorkflow":
+        """Crash-resumable streamed training: each fitted estimator is
+        checkpointed to ``path`` as it completes (atomic writes committed
+        through a manifest with each file's sha256), and each pass's fold
+        state after every chunk; ``train(resume=True, stream=...)``
+        restores the verified stages and fold states and fits the rest.
+        A corrupt or torn file is reported in ``summary()["faults"]`` and
+        refit, never used. The in-core train's checkpoints wait for the
+        sweep checkpoints (ROADMAP Queue 1 item 9)."""
+        self._checkpoint_dir = path
+        return self
+
+    def with_fault_policy(self, policy=None) -> "OpWorkflow":
+        """Retry each streamed stage fit on transient errors under
+        ``policy`` (a ``robustness.RetryPolicy``; the default one when
+        None); retries show in ``summary()["faults"]``."""
+        from .robustness.policy import RetryPolicy
+        self._fault_policy = policy or RetryPolicy()
+        return self
+
+    def with_mesh(self, mesh) -> "OpWorkflow":
+        """Train over a device mesh: not ported (ROADMAP Queue 1 item 10);
+        a train with one raises."""
+        self._mesh = mesh
         return self
 
     def set_reader(self, reader: Reader) -> "OpWorkflow":
@@ -114,19 +178,54 @@ class OpWorkflow:
         self._layers = compute_dag(self.result_features)
         return self
 
-    def train(self) -> "OpWorkflowModel":
-        """Fit the DAG on the device; returns the fitted model."""
-        if not self.result_features:
-            raise ValueError("call set_result_features before train")
-        if self.reader is None:
-            raise ValueError("no data: call set_reader or "
-                             "set_input_dataset first")
-        self.phase_seconds = {}
+    def _set_stage_params(self) -> None:
         per_stage = self.parameters.get("stageParams", {})
         for stage in self.stages:
             for key in (stage.uid, type(stage).__name__):
                 if key in per_stage:
                     stage.set_params(**per_stage[key])
+
+    def train(self, resume: bool = False, stream=None) -> "OpWorkflowModel":
+        """Fit the DAG on the device; returns the fitted model. The fit
+        runs under an activated ``FaultLog``: what is recovered anywhere
+        below (restored or skipped checkpoints, downshifts, retries) is in
+        ``summary()["faults"]``.
+
+        ``stream=<streaming.ChunkSource>``: the out-of-core train (module
+        docstring); ``summary()["streaming"]`` carries the feed's
+        accounting. ``resume=True`` needs ``with_checkpoint_dir``; it
+        restores the verified stages and fold states and fits the rest,
+        and ``summary()["resume"]`` says which. The in-core train takes no
+        checkpoint directory and no resume yet (ROADMAP Queue 1 item 9)."""
+        from .robustness.policy import FaultLog
+        fault_log = FaultLog()
+        with fault_log.activate():
+            if stream is not None:
+                model = self._train_streaming(stream, resume=resume)
+            else:
+                if resume or self._checkpoint_dir is not None:
+                    raise NotImplementedError(
+                        "the in-core train's stage and sweep checkpoints "
+                        "and train(resume=True) are not ported yet (ROADMAP "
+                        "Queue 1 item 9); checkpoints and resume work with "
+                        "train(stream=...)")
+                model = self._train_in_core()
+        model._fault_log = fault_log
+        model._resume_requested = resume
+        return model
+
+    def _train_in_core(self) -> "OpWorkflowModel":
+        if not self.result_features:
+            raise ValueError("call set_result_features before train")
+        if self.reader is None:
+            raise ValueError("no data: call set_reader or "
+                             "set_input_dataset first")
+        if self._mesh is not None:
+            raise NotImplementedError(
+                "training over a mesh is not ported yet (ROADMAP Queue 1 "
+                "item 10)")
+        self.phase_seconds = {}
+        self._set_stage_params()
         table = self.reader.generate_table(self.raw_features)
         layers, result_features = self._layers, self.result_features
         blacklisted: Tuple[Feature, ...] = ()
@@ -157,6 +256,88 @@ class OpWorkflow:
         model.blacklisted_features = blacklisted
         model.rff_results = rff_results
         model.train_table = table
+        model._fitted_stage_uids = sorted(fitted)
+        model._layers = compute_dag(model.result_features)
+        return model
+
+    def _train_streaming(self, source, resume: bool = False
+                         ) -> "OpWorkflowModel":
+        """The streamed train (``streaming.fit_dag_streaming``), with the
+        JAX package's refusals of the in-core-only modes."""
+        if not self.result_features:
+            raise ValueError("call set_result_features before train")
+        if self._raw_feature_filter is not None:
+            raise ValueError(
+                "RawFeatureFilter is not supported with train(stream=...): "
+                "its fill-rate/histogram stats are available as streaming "
+                "folds (streaming.folds.HistogramFold) but score-vs-train "
+                "comparison needs a second stream — train in-core or drop "
+                "the filter")
+        if self._workflow_cv:
+            raise ValueError(
+                "with_workflow_cv() is not supported with train(stream=...):"
+                " per-fold DAG refits need fold-sliced tables")
+        if self._mesh is not None:
+            raise ValueError(
+                "with_mesh() is not supported with train(stream=...) yet: "
+                "chunk folds are host monoids")
+        from .manifest import active_sentinel
+        from .streaming.cache import ChunkCache
+        from .streaming.checkpoint import StreamCheckpoint
+        from .streaming.trainer import fit_dag_streaming
+        self.phase_seconds = {}
+        layers = self._layers
+        source.bind(self.raw_features)
+        self._set_stage_params()
+        ckpt_dir = self._checkpoint_dir
+        if resume and ckpt_dir is None:
+            raise ValueError(
+                "train(resume=True) requires with_checkpoint_dir(...): "
+                "there is no checkpoint state to resume from")
+        checkpoint = preloaded = stream_ckpt = None
+        if ckpt_dir is not None:
+            from .persistence import (load_stage_checkpoints,
+                                      open_checkpoint_manifest,
+                                      save_stage_checkpoint)
+            preloaded = load_stage_checkpoints(ckpt_dir, device=self.device)
+            manifest = open_checkpoint_manifest(ckpt_dir)
+            checkpoint = lambda model: save_stage_checkpoint(  # noqa: E731
+                model, ckpt_dir, manifest)
+            stream_ckpt = StreamCheckpoint(ckpt_dir, manifest,
+                                           source.fingerprint())
+        # one cache for the whole train, shared by every stage and pass
+        stream_cache = ChunkCache.from_env()
+        sentinel = _open_run_sentinel(ckpt_dir, resume)
+        t0 = synced_clock(self.device)
+        with active_sentinel(sentinel):
+            fitted, transformers, stats = fit_dag_streaming(
+                source, layers, checkpoint=checkpoint,
+                stream_checkpoint=stream_ckpt, preloaded=preloaded,
+                retry_policy=self._fault_policy, cache=stream_cache,
+                device=self.device)
+        self.phase_seconds["fit"] = synced_clock(self.device) - t0
+        if sentinel is not None:
+            sentinel.clear()
+        model = OpWorkflowModel(self.device)
+        model.reader = self.reader
+        model.parameters = self.parameters
+        model.result_features = tuple(
+            f.copy_with_new_stages(fitted) for f in self.result_features)
+        model.raw_features = self.raw_features
+        model.rff_results = None
+        # a small transformed head of the stream stands in for the train
+        # table: the fitted schema, never the dataset
+        probe = next(iter(source.chunks(0))).table
+        if probe.num_rows > 256:
+            probe = probe.take(np.arange(256))
+        probe = probe.to_device(self.device)
+        for m in transformers:
+            probe = m.transform(probe)
+        model.train_table = probe
+        model._stream_stats = stats
+        model._stream_cache_stats = (stream_cache.stats
+                                     if stream_cache is not None else None)
+        model._fitted_stage_uids = sorted(fitted)
         model._layers = compute_dag(model.result_features)
         return model
 
@@ -314,9 +495,36 @@ class OpWorkflowModel:
 
     def summary(self) -> Dict[str, Any]:
         """{stage uid: its summary metadata} of every fitted stage that
-        has one, as the JAX package's per-stage sections."""
-        return {s.uid: s.summary_metadata for s in self.stages
-                if getattr(s, "summary_metadata", None)}
+        has one, as the JAX package's per-stage sections; for a model this
+        process trained also ``faults`` (the train's fault log),
+        ``resume`` (what was restored and what refit) and, for a streamed
+        train, ``streaming`` (the feed's accounting and the cache's)."""
+        out: Dict[str, Any] = {s.uid: s.summary_metadata for s in self.stages
+                               if getattr(s, "summary_metadata", None)}
+        log = getattr(self, "_fault_log", None)
+        if log is None:
+            return out
+        out["faults"] = log.to_json()
+        restored = sorted(
+            r.detail.get("uid") for r in log.reports
+            if r.kind == "restored" and r.site == "dag.stage_fit")
+        out["resume"] = {
+            "requested": bool(getattr(self, "_resume_requested", False)),
+            "restoredStages": restored,
+            "refitStages": [uid for uid in getattr(self, "_fitted_stage_uids",
+                                                   [])
+                            if uid not in set(restored)],
+            "restoredSweepCandidates": [
+                dict(r.detail) for r in log.reports
+                if r.kind == "restored" and r.site == "sweep.candidate"],
+        }
+        stats = getattr(self, "_stream_stats", None)
+        if stats is not None:
+            out["streaming"] = stats.to_json()
+            cache_stats = getattr(self, "_stream_cache_stats", None)
+            if cache_stats is not None:
+                out["streaming"]["cache"] = cache_stats.to_json()
+        return out
 
     def summary_json(self) -> str:
         return json.dumps(self.summary(), indent=2, default=_json_default)
