@@ -322,8 +322,46 @@ Phases, in order; any failure exits nonzero:
     batches and report rows/sec. The launch counts are zeroed just before
     this phase and read just after it; both forest predict kernels must
     have launched;
+(serving) the serving runtime on the card (``Serving``): a cold and a warm
+    start of a copy of ``serve64/gbt`` each in a fresh process
+    (``registry.load`` then the first request; the warm one's first
+    request must record no compile-ledger build, and both must score it
+    alike); copies of ``serve64/gbt`` (depth-6 heaps), ``rf`` (depth-12
+    slot chains) and ``xgbmc`` (600 heap trees, 6 classes) loaded through
+    ``ModelRegistry.load`` (warm) on the card: warm reports ok with the
+    fixtures' fingerprints, no build on the first request, the committed
+    files byte-unchanged. Every ``forest_predict_heap`` and
+    ``forest_predict_chain`` launch from the loads to the drift refit is
+    held bit-equal to plain (``_KernelChecks`` without the second launch
+    that reads leaf ids; the open loop's launches after it ran, on copies
+    taken on the launching stream), and the launches held must equal the
+    launches counted. The 4,096 rows of ``testing.score_frame()`` as
+    requests at pipeline depth 1 and 2 (``max_batch`` 256, ``max_wait_ms``
+    2; a staged 37-row flush and a 1-row flush first): records bit-equal
+    across depths and to ``micro_batch_score_function``, the fixture's
+    parts within (c)'s limits. Chaos on ``gbt``: ``serve.dispatch`` until
+    the breaker opens and its half-open probe closes it, ``oom.serve``
+    halving a 256-row flush down to a singleton, ``serve.complete`` at
+    depth 2: every record the clean run's. The open loop on ``gbt`` at
+    0.7x and 2x the runtime's calibrated capacity (``bench.py``'s serve
+    line): no lost or failed request, every refusal a typed shed
+    (``open_loop`` lines: rows/s, p50/p95/p99, the shed rate,
+    ``tg_serve_stage_seconds`` by stage, peak allocated memory). (t)'s GBT
+    saved by the port (``serving`` and ``drift`` sections, the fixture's
+    fingerprint) and served with its workflow's ``drift_refit_hook``:
+    2,048 in-distribution requests leave the verdict ok, 2,048 with x0..x7
+    shifted by 3 training sd degrade it (``DRIFT_CONFIG``), the hook
+    refits on the card and the registry hot-swaps while requests flow;
+    none is refused, fails or is shed. Both predicts must launch. Past the
+    counted path: ``serving_kernel`` lines time each model's 256-row flush
+    against plain and the bound; the stages alone on one thread
+    (``serving_stage_ms``) and once under
+    ``torch.cuda.set_sync_debug_mode("warn")`` (``serving_syncs``: each
+    synchronizing call by the port's file and line); ``lr`` and ``svc`` at
+    flush sizes 1, 37 and 256 (``linear_flush`` lines: the gap, held to
+    (c)'s limits);
 (d) print each path's launch counts and the ``kernels`` JSON line, whose
-    launches are the sums over (t) and (c);
+    launches are the sums over the paths;
 (e) print the card's name and power limit.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -341,6 +379,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -471,6 +510,8 @@ JAX_ONLY_STATE = {"SanityCheckerModel": {"_stats_input_sharding"}}
 SAVE_DIR = None
 #: (s) seconds per saved key: {key: (save s, load s)}
 SAVE_LOAD_S = {}
+#: {key: model} of the (t) trains the (serving) phase reuses
+TRAINED = {}
 
 def phase_build():
     from transmogrifai_tpu_torch.ops import cuda_build
@@ -1485,11 +1526,25 @@ class _KernelChecks:
     ``node_hist`` launch of each shape is also held to the direct formula
     (at ~530 codes the formula's indexed adds take seconds a launch; every
     launch is still held to plain). These launches are not counted: every
-    count is zeroed before each path."""
+    count is zeroed before each path. ``only`` names the kernels to wrap
+    (all five by default); ``held`` counts the launches held per kernel,
+    over threads. While ``defer`` is set a predict launch's sums and codes
+    are copied on the launching stream and held to plain at ``settle()``,
+    so a timed run carries no plain work."""
 
     def __init__(self, keep_heaviest: bool = False,
-                 direct_per_shape: bool = False):
+                 direct_per_shape: bool = False, check_ids: bool = True,
+                 only=None):
         self.seen: dict = {}
+        #: False: the predicts' sums are held to plain without the second
+        #: launch that reads the leaf ids, so the counts stay those of the
+        #: main path (the serving phase)
+        self.check_ids = check_ids
+        self.only = only
+        self.held: dict = {}
+        self.defer = False
+        self.pending: list = []
+        self._lock = threading.Lock()
         self.heaviest: dict = {}
         self.keep = keep_heaviest
         self.direct_per_shape = direct_per_shape
@@ -1498,13 +1553,34 @@ class _KernelChecks:
         self.too_wide: set = set()
 
     def _note(self, name, shape, err=0.0, share=0.0, work=0, args=None):
-        r = self.seen.setdefault(name, dict(calls=0, shapes=set(), err=0.0,
-                                            share=0.0))
-        r["calls"] += 1
-        r["shapes"].add(shape)
-        r["err"], r["share"] = max(r["err"], err), max(r["share"], share)
-        if self.keep and work > self.heaviest.get(name, (0,))[0]:
-            self.heaviest[name] = (work, shape, args())
+        with self._lock:
+            self.held[name] = self.held.get(name, 0) + 1
+            r = self.seen.setdefault(name, dict(calls=0, shapes=set(),
+                                                err=0.0, share=0.0))
+            r["calls"] += 1
+            r["shapes"].add(shape)
+            r["err"], r["share"] = max(r["err"], err), max(r["share"], share)
+            if self.keep and work > self.heaviest.get(name, (0,))[0]:
+                self.heaviest[name] = (work, shape, args())
+
+    def _hold(self, check, out, codes):
+        """Run ``check(sums, codes)`` now, or at ``settle()`` on copies
+        taken on the launching stream while ``defer`` is set."""
+        if not self.defer:
+            check(out, codes)
+            return
+        out, codes = out.clone(), codes.clone()
+        with self._lock:
+            self.pending.append((check, out, codes))
+
+    def settle(self) -> int:
+        """Hold every deferred launch to plain; returns how many."""
+        torch.cuda.synchronize()
+        with self._lock:
+            pending, self.pending = self.pending, []
+        for check, out, codes in pending:
+            check(out, codes)
+        return len(pending)
 
     def __enter__(self):
         from transmogrifai_tpu_torch.histeng import kernels as HK
@@ -1570,17 +1646,23 @@ class _KernelChecks:
                   with_ids=False):
             out = chain_cuda(codes, feat_lv, bin_lv, base_lv, leaf,
                              n_bins=n_bins, with_ids=with_ids)
-            want = F.forest_predict_chain_plain(codes, feat_lv, bin_lv,
-                                                base_lv, leaf, n_bins=n_bins)
-            _, ids = chain_cuda(codes, feat_lv, bin_lv, base_lv, leaf,
-                                n_bins=n_bins, with_ids=True)
-            if not torch.equal(out[0], want):
-                raise AssertionError("forest_predict_chain (sweep): sums "
-                                     "differ from the plain version's bits")
-            if not torch.equal(ids, F.route_codes_chain(
-                    codes, feat_lv, bin_lv, base_lv, n_bins)):
-                raise AssertionError("forest_predict_chain (sweep): leaf "
-                                     "ids differ from the plain routing")
+
+            def check(sums, codes):
+                want = F.forest_predict_chain_plain(
+                    codes, feat_lv, bin_lv, base_lv, leaf, n_bins=n_bins)
+                if not torch.equal(sums, want):
+                    raise AssertionError("forest_predict_chain (sweep): "
+                                         "sums differ from the plain "
+                                         "version's bits")
+                if self.check_ids and not torch.equal(chain_cuda(
+                        codes, feat_lv, bin_lv, base_lv, leaf,
+                        n_bins=n_bins, with_ids=True)[1],
+                        F.route_codes_chain(codes, feat_lv, bin_lv,
+                                            base_lv, n_bins)):
+                    raise AssertionError("forest_predict_chain (sweep): "
+                                         "leaf ids differ from the plain "
+                                         "routing")
+            self._hold(check, out[0], codes)
             note("forest_predict_chain", (tuple(codes.shape),
                                           tuple(feat_lv.shape),
                                           leaf.shape[2]), 0.0, 0.0,
@@ -1623,17 +1705,23 @@ class _KernelChecks:
                  with_ids=False):
             out = heap_cuda(codes, feat_heap, bin_heap, leaf, depth=depth,
                             n_bins=n_bins, with_ids=with_ids)
-            want = F.forest_predict_plain(codes, feat_heap, bin_heap, leaf,
-                                          depth=depth, n_bins=n_bins)
-            _, ids = heap_cuda(codes, feat_heap, bin_heap, leaf, depth=depth,
-                               n_bins=n_bins, with_ids=True)
-            if not torch.equal(out[0], want):
-                raise AssertionError("forest_predict_heap (sweep): sums "
-                                     "differ from the plain version's bits")
-            if not torch.equal(ids.long(), F.route_codes(
-                    codes, feat_heap, bin_heap, depth, n_bins).long()):
-                raise AssertionError("forest_predict_heap (sweep): leaf ids "
-                                     "differ from the plain routing")
+
+            def check(sums, codes):
+                want = F.forest_predict_plain(codes, feat_heap, bin_heap,
+                                              leaf, depth=depth,
+                                              n_bins=n_bins)
+                if not torch.equal(sums, want):
+                    raise AssertionError("forest_predict_heap (sweep): sums "
+                                         "differ from the plain version's "
+                                         "bits")
+                if self.check_ids and not torch.equal(heap_cuda(
+                        codes, feat_heap, bin_heap, leaf, depth=depth,
+                        n_bins=n_bins, with_ids=True)[1].long(),
+                        F.route_codes(codes, feat_heap, bin_heap, depth,
+                                      n_bins).long()):
+                    raise AssertionError("forest_predict_heap (sweep): leaf "
+                                         "ids differ from the plain routing")
+            self._hold(check, out[0], codes)
             note("forest_predict_heap", (tuple(codes.shape),
                                          tuple(feat_heap.shape), depth,
                                          leaf.shape[2]), 0.0, 0.0,
@@ -1642,10 +1730,13 @@ class _KernelChecks:
                           leaf.clone(), depth, n_bins))
             return out
 
-        HK.hist_matmul_cuda, HK.node_hist_cuda = hist, node
-        F.forest_predict_chain_cuda = chain
-        F.forest_leaf_sums_chain_cuda = sums
-        F.forest_predict_heap_cuda = heap
+        for mod, name, fn in (
+                (HK, "hist_matmul", hist), (HK, "node_hist", node),
+                (F, "forest_predict_chain", chain),
+                (F, "forest_leaf_sums_chain", sums),
+                (F, "forest_predict_heap", heap)):
+            if self.only is None or name in self.only:
+                setattr(mod, f"{name}_cuda", fn)
         return self
 
     def __exit__(self, *exc):
@@ -1938,6 +2029,8 @@ def train_against_fixture(key: str):
     # summary.json; that key's saved model stands for its refit
     path = os.path.join(FIXTURES, SHARED_REFITS.get(key, key))
     save_and_reload(key, model, path, score_frame())
+    if key == DRIFT_KEY:
+        TRAINED[key] = model            # the (serving) phase's drift model
     ref = tt.load_model(path)
     rs, ps = ref.stages[-1], model.stages[-1]
     if model.stages[-2].keep_indices != ref.stages[-2].keep_indices:
@@ -2040,6 +2133,43 @@ def train_against_fixture(key: str):
     return secs
 
 
+def _predict_times(name: str, a) -> dict:
+    """``forest_predict_chain`` or ``forest_predict_heap`` at the launch
+    arguments ``a`` (as ``_KernelChecks`` keeps them): the kernel's and
+    the plain version's wall ms and the bound. The bound counts the codes
+    the paths split on, the tables' used slots and the leaves read once
+    and the sums written once; per row and tree one step a level and one
+    add a column."""
+    from transmogrifai_tpu_torch.ops import forest as F
+    if name == "forest_predict_chain":
+        codes, feat, bins, base, leaf, nb = a
+        T, depth, W = feat.shape
+        slots = sum(min(2 ** lv, W) for lv in range(depth))
+        k = leaf.shape[2]
+        nbytes = 4 * (_codes_read(codes, feat, bins, base=base)
+                      + T * slots * 3 + leaf.numel() + codes.shape[0] * k)
+        return dict(
+            ms=time_ms(lambda: F.forest_predict_chain_cuda(
+                codes, feat, bins, base, leaf, n_bins=nb)), passes=None,
+            plain_ms=time_ms(lambda: F.forest_predict_chain_plain(
+                codes, feat, bins, base, leaf, n_bins=nb), runs=5),
+            library_ms=None,
+            bound=bound_ms(nbytes, codes.shape[0] * T * (depth + k)))
+    codes, feat, bins, leaf, depth, nb = a
+    T, L, k = leaf.shape
+    return dict(
+        ms=time_ms(lambda: F.forest_predict_heap_cuda(
+            codes, feat, bins, leaf, depth=depth, n_bins=nb)),
+        passes=None,
+        plain_ms=time_ms(lambda: F.forest_predict_plain(
+            codes, feat, bins, leaf, depth=depth, n_bins=nb), runs=5),
+        library_ms=None,
+        bound=bound_ms(4 * (_codes_read(codes, feat, bins, depth=depth)
+                            + T * (L - 1) * 2 + leaf.numel()
+                            + codes.shape[0] * k),
+                       codes.shape[0] * T * (depth + k)))
+
+
 def time_heaviest(heaviest, tag: str) -> dict:
     """Time each of ``hist_matmul``, ``node_hist``,
     ``forest_predict_chain`` and (where the train launched it)
@@ -2066,19 +2196,8 @@ def time_heaviest(heaviest, tag: str) -> dict:
         library_ms=_node_library_ms(*a),
         bound=PH.node_bound(codes, node, sw, Wl, stride))
     _, shape, a = heaviest["forest_predict_chain"]
-    codes, feat, bins, base, leaf, nb = a
-    T, depth, W = feat.shape
-    slots = sum(min(2 ** lv, W) for lv in range(depth))
-    k = leaf.shape[2]
-    nbytes = 4 * (_codes_read(codes, feat, bins, base=base)
-                  + T * slots * 3 + leaf.numel() + codes.shape[0] * k)
     out["forest_predict_chain"] = dict(
-        shape=shape, ms=time_ms(lambda: F.forest_predict_chain_cuda(
-            codes, feat, bins, base, leaf, n_bins=nb)), passes=None,
-        plain_ms=time_ms(lambda: F.forest_predict_chain_plain(
-            codes, feat, bins, base, leaf, n_bins=nb), runs=5),
-        library_ms=None,
-        bound=bound_ms(nbytes, codes.shape[0] * T * (depth + k)))
+        _predict_times("forest_predict_chain", a), shape=shape)
     if "forest_leaf_sums_chain" in heaviest:
         _, shape, a = heaviest["forest_leaf_sums_chain"]
         codes, feat, bins, base, aug, nb = a
@@ -2100,22 +2219,8 @@ def time_heaviest(heaviest, tag: str) -> dict:
                            n * T * (depth + k)))
     if "forest_predict_heap" in heaviest:
         _, shape, a = heaviest["forest_predict_heap"]
-        codes, feat, bins, leaf, depth, nb = a
-        T, L, k = leaf.shape
-        # the codes the paths split on, the heaps' splits and leaves read
-        # once, the sums written once; per row and tree one step a level
-        # and one add a column
         out["forest_predict_heap"] = dict(
-            shape=shape, ms=time_ms(lambda: F.forest_predict_heap_cuda(
-                codes, feat, bins, leaf, depth=depth, n_bins=nb)),
-            passes=None,
-            plain_ms=time_ms(lambda: F.forest_predict_plain(
-                codes, feat, bins, leaf, depth=depth, n_bins=nb), runs=5),
-            library_ms=None,
-            bound=bound_ms(4 * (_codes_read(codes, feat, bins, depth=depth)
-                                + T * (L - 1) * 2 + leaf.numel()
-                                + codes.shape[0] * k),
-                           codes.shape[0] * T * (depth + k)))
+            _predict_times("forest_predict_heap", a), shape=shape)
     for name, r in out.items():
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
@@ -4297,6 +4402,622 @@ def _stream_paths(stream: "Stream", run_path) -> dict:
     return out
 
 
+SERVING_DIR = os.path.join(HERE, "transmogrifai_tpu_torch", "fixtures",
+                           "serve64")
+#: the (serving) phase's models: depth-6 heaps, depth-12 slot chains, and
+#: 600 heap trees of a 6-class model
+SERVING_KEYS = ("gbt", "rf", "xgbmc")
+#: the kernels the (serving) path launches, each launch held to plain
+SERVING_PREDICTS = ("forest_predict_heap", "forest_predict_chain")
+SERVE_MAX_BATCH = 256
+SERVE_WAIT_MS = 2.0
+#: an odd flush size held to plain beside the 1-row and full flushes
+SERVE_ODD_FLUSH = 37
+#: open-loop seconds at each offered rate, as ``bench.py``'s serve line
+SERVE_OPEN_LOOP_S = 3.0
+SERVE_CALIBRATE_S = 1.5
+#: the drift path: (t)'s GBT saved and served, 2,048 requests from the
+#: scoring frame's distribution, then 2,048 with x0..x7 shifted
+DRIFT_KEY = "gbt"
+DRIFT_REQUESTS = 2048
+DRIFT_SHIFT_SD = 3.0
+DRIFT_SHIFTED = 8
+#: the monitor folds cumulatively, so after 2,048 in-distribution rows
+#: the 2,048 rows shifted by 3 training sd reach a JS divergence of ~0.24
+#: on the shifted features (a CPU reading of the same float64 host
+#: arithmetic), under the default degradation line of 0.25: the phase
+#: draws that line at 0.2 and runs a verdict every 256 rows
+DRIFT_CONFIG = dict(every_rows=256, min_rows=256, refit=0.2)
+#: linear models checked at flush sizes 1, 37 and 256 (batch invariance
+#: of one cuBLAS product per flush is not a given)
+SERVE_LINEAR_KEYS = ("lr", "svc")
+
+#: one cold or warm start of the saved ``gbt`` copy in a fresh process:
+#: registry load, then the first real request; the compile ledger's
+#: builds at each step
+START_CHILD = """
+import json, sys, time
+sys.path.insert(0, {here!r})
+import numpy as np
+import torch
+from transmogrifai_tpu_torch.observability import ledger
+from transmogrifai_tpu_torch.serving import ModelRegistry, ServeConfig
+from transmogrifai_tpu_torch.testing import score_frame
+arm, path = sys.argv[1], sys.argv[2]
+frame = score_frame(1)
+row = {{k: (None if np.isnan(v[0]) else float(v[0]))
+        for k, v in frame.items()}}
+t0 = time.perf_counter()
+torch.zeros(1, device="cuda")
+torch.cuda.synchronize()
+init_s = time.perf_counter() - t0
+led = ledger.ledger()
+with ModelRegistry(ServeConfig(max_batch=256, max_wait_ms=2.0)) as reg:
+    t0 = time.perf_counter()
+    rt = reg.load("m", path, warm=(arm == "warm"))
+    load_s = time.perf_counter() - t0
+    mark = led.mark()
+    t0 = time.perf_counter()
+    rec = reg.score("m", row, timeout=120)
+    first_s = time.perf_counter() - t0
+    first = [r.to_json() for r in led.since(mark)]
+    warm = rt.warm_info
+print(json.dumps({{"arm": arm, "cudaInitS": init_s, "loadS": load_s,
+                  "firstRequestS": first_s, "loadBuilds": mark,
+                  "firstRequestBuilds": first, "warm": warm,
+                  "record": rec}}))
+"""
+
+
+def _record_parts(model, recs):
+    """{key: (n,) float32} of the Prediction of serving records."""
+    name = model.result_features[0].name
+    keys = list(recs[0][name])
+    return {k: np.asarray([r[name][k] for r in recs], np.float32)
+            for k in keys}
+
+
+def _dir_digest(path):
+    """{file: sha256} of a directory."""
+    import hashlib
+    return {f: hashlib.sha256(open(os.path.join(path, f), "rb").read())
+            .hexdigest() for f in sorted(os.listdir(path))}
+
+
+class Serving:
+    """(serving) The serving runtime on the card (``serving``): the
+    committed JAX-saved ``serve64`` models ``gbt``, ``rf`` and ``xgbmc``
+    at full width loaded through ``ModelRegistry.load`` (warm) from copies
+    of the fixtures, served under continuous batching at pipeline depths 1
+    and 2, under chaos, under open-loop load, and a (t) model through a
+    drift refit and hot swap."""
+
+    def __init__(self, tmp: str):
+        self.tmp = os.path.join(tmp, "serving")
+        os.makedirs(self.tmp)
+        self.digests = {k: _dir_digest(os.path.join(SERVING_DIR, k))
+                        for k in SERVING_KEYS}
+        self.copies = {}
+        for key in SERVING_KEYS:
+            self.copies[key] = os.path.join(self.tmp, key)
+            shutil.copytree(os.path.join(SERVING_DIR, key), self.copies[key])
+        from transmogrifai_tpu_torch.testing import request_rows, score_frame
+        self.rows = request_rows(score_frame())
+        #: {key: (kernel, shape, launch arguments, launches)}: each model's
+        #: heaviest launch at the depths, timed after the counted path
+        self.heaviest = {}
+
+    @staticmethod
+    def _cfg(depth, **kw):
+        from transmogrifai_tpu_torch.serving import ServeConfig
+        base = dict(max_batch=SERVE_MAX_BATCH, max_queue=8192,
+                    max_wait_ms=SERVE_WAIT_MS, pipeline_depth=depth)
+        base.update(kw)
+        return ServeConfig(**base)
+
+    def starts(self):
+        """A cold and a warm start of the ``gbt`` copy, each in a fresh
+        process: the warm one's first request must record no ledger build
+        and the warm report a fingerprint match."""
+        out = {}
+        for arm in ("cold", "warm"):
+            res = subprocess.run(
+                [sys.executable, "-c", START_CHILD.format(here=HERE), arm,
+                 self.copies["gbt"]], capture_output=True, text=True,
+                timeout=300)
+            if res.returncode != 0:
+                raise AssertionError(f"the {arm} start failed:\n"
+                                     f"{res.stdout}\n{res.stderr}")
+            out[arm] = json.loads(res.stdout.strip().splitlines()[-1])
+        warm, cold = out["warm"], out["cold"]
+        if warm["firstRequestBuilds"] or not (
+                warm["warm"]["ok"] and warm["warm"]["fingerprintMatch"]):
+            raise AssertionError(f"warm start: {warm}")
+        if warm["record"] != cold["record"]:
+            raise AssertionError("the cold and warm starts score the first "
+                                 "request differently")
+        for arm in ("cold", "warm"):
+            r = out[arm]
+            print(f"(serving) {arm} start of gbt in a fresh process: CUDA "
+                  f"context {r['cudaInitS']:.4f} s, registry.load "
+                  f"{r['loadS']:.4f} s ({r['loadBuilds']} ledger builds), "
+                  f"first request {r['firstRequestS']:.4f} s "
+                  f"({len(r['firstRequestBuilds'])} builds), load to first "
+                  f"request {r['loadS'] + r['firstRequestS']:.4f} s")
+
+    def run(self):
+        """The counted path: warm loads, the depths, chaos, the open loop
+        and the drift refit, every predict launch held to plain (the open
+        loop's after it ran)."""
+        torch.cuda.synchronize()
+        t_phase = time.perf_counter()
+        self.checks = _KernelChecks(keep_heaviest=True, check_ids=False,
+                                    only=SERVING_PREDICTS)
+        with self.checks:
+            self.models = self.loads()
+            clean = {key: self.depths(key, self.models[key])
+                     for key in SERVING_KEYS}
+            self.chaos(self.models["gbt"], clean["gbt"])
+            self.checks.defer = True
+            try:
+                self.open_loop(self.models["gbt"])
+            finally:
+                self.checks.defer = False
+            self.deferred = self.checks.settle()
+            self.drift()
+        torch.cuda.synchronize()
+        print(f"(serving) phase wall {time.perf_counter() - t_phase:.3f} s")
+
+    def loads(self):
+        """``registry.load(warm=True)`` of each fixture copy on the card:
+        warm ok with the fixture's fingerprint, no ledger build on the
+        first request, the committed files byte-unchanged."""
+        from transmogrifai_tpu_torch.observability import ledger
+        from transmogrifai_tpu_torch.serving import ModelRegistry
+        led = ledger.ledger()
+        with ModelRegistry(self._cfg(2)) as reg:
+            models = {}
+            for key in SERVING_KEYS:
+                rt = reg.load(key, self.copies[key])      # default: the card
+                info = rt.warm_info
+                if rt.model.device.type != "cuda" or not (
+                        info["ok"] and info["fingerprintMatch"]):
+                    raise AssertionError(f"{key}: warm load {info} on "
+                                         f"{rt.model.device}")
+                mark = led.mark()
+                rt.score(self.rows[0], timeout=120)
+                if led.since(mark):
+                    raise AssertionError(f"{key}: the first request after "
+                                         f"the warm load built "
+                                         f"{[r.to_json() for r in led.since(mark)]}")
+                models[key] = rt.model
+            print(f"(serving) registry.load(warm=True) of {list(models)}: "
+                  f"fingerprints match the fixtures', first requests build "
+                  f"nothing; health ready={reg.health()['ready']}")
+        for key in SERVING_KEYS:
+            if _dir_digest(os.path.join(SERVING_DIR, key)) != \
+                    self.digests[key]:
+                raise AssertionError(f"fixtures/serve64/{key} changed")
+        return models
+
+    def after(self, counts):
+        """Past the counted path: every predict launch it counted was held
+        (``held`` equals the counts); then the kernels timed at each
+        model's 256-row flush, the stages timed alone and under the sync
+        debug mode, and the linear flush sizes."""
+        for k in SERVING_PREDICTS:
+            if self.checks.held.get(k, 0) != counts[k]:
+                raise AssertionError(
+                    f"serving: {counts[k]} {k} launches counted, "
+                    f"{self.checks.held.get(k, 0)} held to plain")
+        print(f"(serving) every predict launch of the path held bit-equal "
+              f"to plain: {counts['forest_predict_heap']} "
+              f"forest_predict_heap, {counts['forest_predict_chain']} "
+              f"forest_predict_chain ({self.deferred} of the open loop's "
+              f"held after it ran)")
+        for key, (name, shape, a, calls) in self.heaviest.items():
+            times = _predict_times(name, a)
+            print(json.dumps({"serving_kernel": name, "model": key,
+                              "shape": str(shape), "ms": times["ms"],
+                              "plain_ms": times["plain_ms"],
+                              "bound_ms": times["bound"][0],
+                              "bound_by": times["bound"][1],
+                              "launches_at_depths": calls,
+                              "launches_on_path": counts[name]}))
+        self.sync_debug(self.models)
+        self.linear_flushes()
+
+    def depths(self, key, model):
+        """The scoring frame's 4,096 rows as requests at depth 1, then 2:
+        a staged 37-row flush, a 1-row flush, then the rest; every forest
+        predict launch held bit-equal to plain. Records bit-equal across
+        the depths and to ``micro_batch_score_function`` on the same rows,
+        and the fixture's expected parts within (c)'s limits."""
+        from transmogrifai_tpu_torch.local.scoring import (
+            micro_batch_score_function)
+        from transmogrifai_tpu_torch.serving import ServingRuntime
+        from transmogrifai_tpu_torch.testing import (
+            SERVE_MODELS, serve_bench_data)
+        rows = self.rows
+        by_depth, walls = {}, {}
+        want = micro_batch_score_function(model)(rows)
+        checks = self.checks
+        checks.seen, checks.heaviest = {}, {}
+        for depth in (1, 2):
+            rt = ServingRuntime(model, f"{key}-d{depth}",
+                                self._cfg(depth), auto_start=False)
+            try:
+                futs = [rt.submit(r) for r in rows[:SERVE_ODD_FLUSH]]
+                t0 = time.perf_counter()
+                rt.start()
+                for f in futs:
+                    f.result(timeout=120)
+                futs.append(rt.submit(rows[SERVE_ODD_FLUSH]))
+                futs[-1].result(timeout=120)
+                futs += [rt.submit(r)
+                         for r in rows[SERVE_ODD_FLUSH + 1:]]
+                by_depth[depth] = [f.result(timeout=120) for f in futs]
+                walls[depth] = time.perf_counter() - t0
+                summ = rt.summary()
+            finally:
+                rt.close()
+            if summ["degradedRows"] or summ["quarantinedRows"] or \
+                    summ["rowsScored"] != len(rows):
+                raise AssertionError(f"{key} depth {depth}: {summ}")
+        if by_depth[1] != by_depth[2]:
+            raise AssertionError(f"{key}: depth 2's records differ from "
+                                 f"depth 1's")
+        if by_depth[1] != want:
+            raise AssertionError(f"{key}: served records differ from "
+                                 f"micro_batch_score_function's")
+        name = next(n for n in checks.seen)
+        sizes = sorted({shape[0][0] for shape in checks.seen[name]["shapes"]})
+        for n in (1, SERVE_ODD_FLUSH, SERVE_MAX_BATCH):
+            if n not in sizes:
+                raise AssertionError(f"{key}: no {n}-row flush reached "
+                                     f"{name} (flushes {sizes})")
+        task = SERVE_MODELS[key][2]
+        exp = np.load(os.path.join(SERVING_DIR, key, "expected.npz"))
+        parts = _record_parts(model, want)
+        if task == "binary":
+            err = float(np.abs(parts["probability_1"]
+                               - exp["probability_1"]).max())
+            if err > PROB_ATOL:
+                raise AssertionError(f"{key}: probability_1 off by {err}")
+            held = f"probability_1 max err {err:.3g}"
+        else:
+            y_std = float(np.std(serve_bench_data(
+                TRAIN_ROWS, N_FEATURES, TRAIN_SEED, task)["y"]))
+            held = _check_parts(key, task, parts, exp, True, y_std)
+        _, shape, a = checks.heaviest[name]
+        self.heaviest[key] = (name, shape, a, checks.seen[name]["calls"])
+        print(f"(serving) {key}: {len(rows)} requests at depth 1 in "
+              f"{walls[1]:.3f} s, depth 2 in {walls[2]:.3f} s, records "
+              f"bit-equal across depths and to micro_batch_score_function; "
+              f"{held}; {checks.seen[name]['calls']} {name} launches at "
+              f"flush sizes {sizes[:4]}..{sizes[-1]}, each bit-equal to "
+              f"plain")
+        return by_depth[1]
+
+    def chaos(self, model, clean):
+        """``serve.dispatch`` until the breaker opens (degraded flushes
+        eager, the half-open probe closes it), ``oom.serve`` halving a
+        256-row flush down to singletons, ``serve.complete`` at depth 2:
+        every record the clean run's, none failed."""
+        from transmogrifai_tpu_torch.robustness import faults
+        from transmogrifai_tpu_torch.serving import (
+            CircuitBreaker, ServingRuntime)
+        rows = self.rows
+        clk = [0.0]
+        br = CircuitBreaker(name="chaos", failure_threshold=3,
+                            reset_after=10.0, clock=lambda: clk[0])
+        with faults.injected({"serve.dispatch": {
+                "mode": "raise", "nth": 1, "count": 3, "transient": True}}):
+            with ServingRuntime(model, "chaos-breaker", self._cfg(2),
+                                breaker=br) as rt:
+                got = [rt.score(rows[i], timeout=120) for i in range(4)]
+                if br.state != "open":
+                    raise AssertionError(f"breaker {br.state} after 3 "
+                                         f"dispatch faults")
+                clk[0] = 20.0
+                got.append(rt.score(rows[4], timeout=120))
+                if br.state != "closed":
+                    raise AssertionError(f"the probe left the breaker "
+                                         f"{br.state}")
+                summ = rt.summary()
+        if got != clean[:5] or summ["degradedRows"] != 4 or \
+                summ["breaker"]["opens"] != 1 or \
+                summ["breaker"]["probes"] != 1:
+            raise AssertionError(f"serve.dispatch chaos: {summ}")
+        n = SERVE_MAX_BATCH
+        halvings = int(math.log2(n))
+        with faults.injected({"oom.serve": {"mode": "oom", "nth": 1,
+                                            "count": halvings}}):
+            rt = ServingRuntime(model, "chaos-oom", self._cfg(2),
+                                auto_start=False)
+            try:
+                futs = [rt.submit(r) for r in rows[:n]]
+                rt.start()
+                got = [f.result(timeout=120) for f in futs]
+                summ = rt.summary()
+            finally:
+                rt.close()
+        if got != clean[:n] or summ["faults"]["oomDownshifts"] != halvings \
+                or summ["degradedRows"] or summ["breaker"]["opens"]:
+            raise AssertionError(f"oom.serve chaos: {summ['faults']}")
+        with faults.injected({"serve.complete": {
+                "mode": "raise", "nth": 1, "count": 1, "transient": True}}):
+            with ServingRuntime(model, "chaos-complete", self._cfg(2)) as rt:
+                first = rt.score(rows[0], timeout=120)
+                streak = rt.breaker.snapshot()["consecutiveFailures"]
+                second = rt.score(rows[1], timeout=120)
+                summ = rt.summary()
+        sites = {r.site for r in rt.fault_log.of_kind("breaker_degraded")}
+        if [first, second] != clean[:2] or streak != 1 or \
+                sites != {"serve.complete"} or summ["degradedRows"] != 1:
+            raise AssertionError(f"serve.complete chaos: {summ}")
+        print(f"(serving) chaos on gbt: serve.dispatch x3 opened the "
+              f"breaker (4 rows degraded eager, the probe closed it); "
+              f"oom.serve halved a {n}-row flush {halvings} times down to "
+              f"a singleton (0 degraded); serve.complete counted against "
+              f"its flush; every record the clean run's, none failed")
+
+    def open_loop(self, model):
+        """Open loop on ``gbt`` at depth 2, calibrated as ``bench.py``'s
+        serve line: 0.7x and 2x the runtime's capacity for 3 s each."""
+        from transmogrifai_tpu_torch.local.scoring import (
+            micro_batch_score_function)
+        from transmogrifai_tpu_torch.serving import (
+            ServingRuntime, run_open_loop)
+        rows = self.rows
+        mb = micro_batch_score_function(model)
+        batch = rows[:SERVE_MAX_BATCH]
+        mb(batch)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            mb(batch)
+        raw = 3 * len(batch) / (time.perf_counter() - t0)
+        cfg = self._cfg(2, max_queue=1024)
+        with ServingRuntime(model, "calibrate", cfg) as rt:
+            cal = run_open_loop(rt, rows, SERVE_CALIBRATE_S, raw)
+        capacity = max(cal["rowsPerSec"], 1.0)
+        shed_2x = 0
+        for tag, mult in (("0.7x", 0.7), ("2x", 2.0)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with ServingRuntime(model, f"open-{tag}", cfg) as rt:
+                rep = run_open_loop(rt, rows, SERVE_OPEN_LOOP_S,
+                                    mult * capacity)
+                stages = {k.split("stage=")[1]: v for k, v in
+                          rt.metrics.snapshot()["tg_serve_stage_seconds"]
+                          .items()}
+            peak = torch.cuda.max_memory_allocated()
+            if rep["lost"] or rep["failed"] or rep["submitErrors"] or \
+                    not rep["accountingOk"]:
+                raise AssertionError(f"open loop {tag}: {rep}")
+            shed = rep["shedOverload"] + rep["shedDeadline"]
+            line = {"open_loop": tag, "offeredRps": rep["offeredRps"],
+                    "rowsPerSec": rep["rowsPerSec"],
+                    "p50Ms": rep["p50Ms"], "p95Ms": rep["p95Ms"],
+                    "p99Ms": rep["p99Ms"], "offered": rep["offered"],
+                    "completed": rep["completed"],
+                    "shedOverload": rep["shedOverload"],
+                    "shedDeadline": rep["shedDeadline"],
+                    "shedRate": shed / max(1, rep["offered"]),
+                    "lost": rep["lost"], "failed": rep["failed"],
+                    "stageSeconds": {s: {"count": v["count"],
+                                         "sum": v["sum"], "p50": v["p50"],
+                                         "p99": v["p99"]}
+                                     for s, v in sorted(stages.items())},
+                    "peakAllocatedBytes": peak,
+                    "runtimeCapacity": capacity, "rawCapacity": raw}
+            print(json.dumps(line))
+            shed_2x = shed
+        if not shed_2x:
+            print("(serving) note: the 2x open loop shed nothing")
+
+    def sync_debug(self, models):
+        """The stages alone, on this thread, past the counted path: each
+        model's 256-row flush through ``ServeStages`` (gather, dispatch,
+        flatten; median ms of 20 flushes, a ``serving_stage_ms`` line),
+        then the same flushes once
+        under ``torch.cuda.set_sync_debug_mode("warn")``: every
+        synchronizing call, by the innermost frame of the port that made
+        it (a ``serving_syncs`` line)."""
+        import collections
+        import traceback
+        import warnings
+        from transmogrifai_tpu_torch.local.scoring import ServeStages
+        rows = self.rows[:SERVE_MAX_BATCH]
+        for key, model in models.items():
+            st = ServeStages(model)
+            st.flatten(st.dispatch(st.gather(rows)), len(rows))
+            ms = {"gather": [], "dispatch": [], "flatten": []}
+            for _ in range(20):
+                t1 = time.perf_counter()
+                table = st.gather(rows)
+                t2 = time.perf_counter()
+                fl = st.dispatch(table)
+                t3 = time.perf_counter()
+                st.flatten(fl, len(rows))
+                t4 = time.perf_counter()
+                for k, v in (("gather", t2 - t1), ("dispatch", t3 - t2),
+                             ("flatten", t4 - t3)):
+                    ms[k].append(v * 1e3)
+            print(json.dumps({"serving_stage_ms": key, "rows": len(rows),
+                              **{k: statistics.median(v)
+                                 for k, v in ms.items()}}))
+        seen = collections.Counter()
+        pkg = os.path.join(HERE, "transmogrifai_tpu_torch")
+
+        def record(message, category, filename, lineno, *a, **kw):
+            if "synchroniz" not in str(message):
+                return
+            frames = [f for f in traceback.extract_stack()
+                      if f.filename.startswith(pkg)]
+            f = frames[-1] if frames else None
+            seen[(os.path.relpath(f.filename, HERE), f.lineno, f.line)
+                 if f else (os.path.relpath(filename, HERE), lineno,
+                            "")] += 1
+
+        prev = torch.cuda.get_sync_debug_mode()
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = record
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                for model in models.values():
+                    st = ServeStages(model)
+                    st.flatten(st.dispatch(st.gather(rows)), len(rows))
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+        print(json.dumps({"serving_syncs": [
+            {"file": f, "line": ln, "code": code, "count": c}
+            for (f, ln, code), c in sorted(seen.items())]}))
+
+    def linear_flushes(self):
+        """``lr`` and ``svc`` at flush sizes 1, 37 and 256: a linear
+        model's product is one cuBLAS call a flush, whose kernel may
+        change with the row count; the gap is printed, and held to the
+        (c) limits."""
+        import transmogrifai_tpu_torch as tt
+        from transmogrifai_tpu_torch.local.scoring import (
+            micro_batch_score_function)
+        rows = self.rows[:SERVE_MAX_BATCH]
+        for key in SERVE_LINEAR_KEYS:
+            model = tt.load_model(os.path.join(SERVING_DIR, key))
+            mb = micro_batch_score_function(model)
+            full = _record_parts(model, mb(rows))
+            odd = _record_parts(model, mb(rows[:SERVE_ODD_FLUSH]))
+            one = _record_parts(model, [mb([r])[0]
+                                        for r in rows[:SERVE_ODD_FLUSH]])
+            part = ("probability_1" if "probability_1" in full
+                    else "rawPrediction_1")
+            ref = full[part][:SERVE_ODD_FLUSH]
+            gaps = {n: float(np.abs(got[part] - ref).max())
+                    for n, got in (("1", one), ("37", odd))}
+            same = {n: bool(np.array_equal(got[part].view(np.int32),
+                                           ref.view(np.int32)))
+                    for n, got in (("1", one), ("37", odd))}
+            lim = PROB_ATOL if part == "probability_1" else REG_MAX_RTOL
+            if max(gaps.values()) > lim:
+                raise AssertionError(f"{key}: flush sizes move {part} by "
+                                     f"{gaps}")
+            print(json.dumps({"linear_flush": key, "part": part,
+                              "max_abs_gap_vs_256": gaps,
+                              "bit_equal_vs_256": same}))
+
+    def drift(self):
+        """(t)'s GBT saved with the port (its manifest must hold
+        ``serving`` and ``drift``), loaded through a registry with its
+        workflow's ``drift_refit_hook``: 2,048 in-distribution requests
+        leave the verdict ``ok``, 2,048 with x0..x7 shifted by 3 training
+        sd drive it to ``degraded``; the hook refits on the card and the
+        registry hot-swaps while requests keep flowing; none fails."""
+        import transmogrifai_tpu_torch as tt
+        from transmogrifai_tpu_torch.manifest import CheckpointManifest
+        from transmogrifai_tpu_torch.persistence import FORMAT_VERSION
+        from transmogrifai_tpu_torch.serving import ModelRegistry
+        from transmogrifai_tpu_torch.serving.drift import (
+            DriftConfig, live_refits)
+        from transmogrifai_tpu_torch.testing import (
+            SERVE_MODELS, serve_bench_data, serve_bench_workflow)
+        family, hyper, task = SERVE_MODELS[DRIFT_KEY]
+        model = TRAINED[DRIFT_KEY]
+        path = os.path.join(self.tmp, "drift_gbt")
+        tt.save_model(model, path)
+        man, err = CheckpointManifest.load(path, FORMAT_VERSION)
+        fixture, _ = CheckpointManifest.load(
+            os.path.join(SERVING_DIR, DRIFT_KEY), FORMAT_VERSION)
+        if err or not man.serving or not man.drift or \
+                man.serving["planFingerprint"] != \
+                fixture.serving["planFingerprint"]:
+            raise AssertionError("the port's save lacks its serving or "
+                                 "drift section")
+        data = serve_bench_data(TRAIN_ROWS, N_FEATURES, TRAIN_SEED, task)
+        wf = serve_bench_workflow(family, hyper, N_FEATURES, TRAIN_SEED,
+                                  problem=task).set_input_dataset(data)
+        sd = {f"x{i}": float(np.std(data[f"x{i}"]))
+              for i in range(DRIFT_SHIFTED)}
+        base = self.rows[:DRIFT_REQUESTS]
+        shifted = [{k: (v + DRIFT_SHIFT_SD * sd[k]
+                        if k in sd and v is not None else v)
+                    for k, v in r.items()}
+                   for r in self.rows[DRIFT_REQUESTS:2 * DRIFT_REQUESTS]]
+        refits = os.path.join(self.tmp, "refits")
+        futs = []
+
+        def submit(reg, row):
+            # a refusal (the swap's close racing the request) raises here
+            # and fails the phase
+            return reg.submit("drift", row)
+
+        def folded(mon, rows):
+            # a flush's futures resolve before the completer folds its
+            # rows into the monitor: wait for the fold
+            deadline = time.monotonic() + 60
+            while mon.snapshot()["rows"] < rows:
+                if time.monotonic() > deadline:
+                    raise AssertionError("the drift monitor fell behind")
+                time.sleep(0.005)
+            return mon.snapshot()
+
+        t0 = time.perf_counter()
+        with ModelRegistry(self._cfg(2),
+                           refit_hook=wf.drift_refit_hook(refits)) as reg:
+            old = reg.load("drift", path)
+            old.drift_monitor.config = DriftConfig(**DRIFT_CONFIG)
+            futs += [submit(reg, r) for r in base]
+            for f in futs:
+                f.result(timeout=120)
+            before = folded(old.drift_monitor, len(base))
+            if before["verdict"] != "ok":
+                raise AssertionError(f"in-distribution traffic: {before}")
+            futs += [submit(reg, r) for r in shifted]
+            for f in futs:
+                f.result(timeout=120)
+            degraded_at = folded(old.drift_monitor, len(base) + len(shifted))
+            if degraded_at["verdict"] != "degraded":
+                raise AssertionError(f"shifted traffic: {degraded_at}")
+            # requests keep flowing while the hook refits and swaps, one
+            # at a time
+            i = 0
+            deadline = time.monotonic() + 300
+            while (live_refits() or not reg.health()["refits"]) and \
+                    time.monotonic() < deadline:
+                futs.append(submit(reg, base[i % len(base)]))
+                futs[-1].result(timeout=120)
+                i += 1
+                # leave the refit's train the interpreter between requests
+                time.sleep(0.005)
+            if live_refits():
+                raise AssertionError("the drift refit did not finish")
+            recs = [f.result(timeout=120) for f in futs]
+            health = reg.health()
+            new = reg.runtime("drift")
+        wall = time.perf_counter() - t0
+        refit = health["refits"]
+        if not refit or not refit[0]["ok"] or new is old or \
+                new.model.device.type != "cuda":
+            raise AssertionError(f"no hot swap: {refit}")
+        bad = [r for r in recs if r is None or "__score_error__" in r]
+        shed = old.summary()["shed"]
+        if bad or any(shed.values()) or len(recs) != len(futs):
+            raise AssertionError(f"requests failed across the swap: "
+                                 f"{len(bad)} bad, shed {shed}")
+        worst = max(degraded_at["features"].items(),
+                    key=lambda kv: kv[1]["jsDivergence"])
+        print(f"(serving) drift: {DRIFT_REQUESTS} in-distribution requests "
+              f"left the verdict ok (max JS "
+              f"{max(m['jsDivergence'] for m in before['features'].values()):.4f}); "
+              f"{DRIFT_REQUESTS} with x0..x{DRIFT_SHIFTED - 1} shifted by "
+              f"{DRIFT_SHIFT_SD} sd degraded it ({worst[0]} JS "
+              f"{worst[1]['jsDivergence']:.4f}); the hook refit on the card "
+              f"and hot-swapped to {refit[0]['path']!r} while {i} more "
+              f"requests flowed; {len(recs)} requests, none refused, failed "
+              f"or shed ({wall:.3f} s)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4445,6 +5166,11 @@ def _run(dev, kernels, tmp) -> int:
                                  f"refit's rounds x levels")
     paths["serve"] = run_path("serve", phase_serve,
                               (F.FOREST_PREDICT_HEAP, F.FOREST_PREDICT_CHAIN))
+    serving = Serving(tmp)
+    paths["serving"] = run_path(
+        "serving", lambda: (serving.starts(), serving.run()),
+        (F.FOREST_PREDICT_HEAP, F.FOREST_PREDICT_CHAIN))
+    serving.after(paths["serving"])
     for name, counts in paths.items():
         print(f"launches, {name}: "
               f"{ {k: v for k, v in counts.items() if v} }")

@@ -1679,3 +1679,96 @@ def test_feed_upload_survives_overwritten_buffers_and_a_slow_consumer(cuda):
         want += [torch.from_numpy(y),
                  torch.from_numpy(np.ascontiguousarray(X[:, 0]) * 2.0)]
         assert [int(g) for g in got] == [int(_bits_sum(w)) for w in want], i
+
+
+# ---------------------------------------------------------------------------
+# The serving runtime on the card (serving/runtime.py): the pipelined
+# dataplane against the serial loop, the pinned staging against
+# ``FeatureTable.to_device``, the predicts at flush shapes, and the linear
+# models' flush-size bits
+# ---------------------------------------------------------------------------
+
+SERVE_FIXTURES = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "transmogrifai_tpu_torch", "fixtures",
+    "serve64")
+#: flush sizes of the serving runtime: a singleton, an odd size, max_batch
+FLUSH_SIZES = (1, 37, 256)
+
+
+def _serve_rows(n, seed=1):
+    from transmogrifai_tpu_torch.testing import request_rows, score_frame
+    return request_rows(score_frame(n, 64, seed))
+
+
+@pytest.mark.parametrize("key", ["gbt", "rf"])
+def test_runtime_at_depth_2_on_the_card_equals_the_serial_loop(cuda, key):
+    """Records at pipeline depth 2 (its own stream, pinned staging, one
+    event a flush) bit-equal to depth 1's and to the micro-batch scorer's;
+    the gathered device table equals ``serve_table_builder``'s moved with
+    ``to_device``."""
+    import transmogrifai_tpu_torch as tt
+    from transmogrifai_tpu_torch.local.scoring import (
+        ServeStages, micro_batch_score_function, serve_table_builder)
+    from transmogrifai_tpu_torch.serving import ServeConfig, ServingRuntime
+    model = tt.load_model(os.path.join(SERVE_FIXTURES, key), device=cuda)
+    rows = _serve_rows(600)
+    st = ServeStages(model)
+    got = st.gather(rows[:256])
+    want = serve_table_builder(model)(rows[:256]).to_device(cuda)
+    for name in want.column_names:
+        a, b = got[name], want[name]
+        assert torch.equal(a.values, b.values), name
+        assert (a.mask is None) == (b.mask is None)
+        if a.mask is not None:
+            assert torch.equal(a.mask, b.mask), name
+    recs = {}
+    for depth in (1, 2):
+        cfg = ServeConfig(max_batch=256, max_queue=4096, max_wait_ms=2.0,
+                          pipeline_depth=depth)
+        with ServingRuntime(model, f"card{depth}", cfg) as rt:
+            futs = [rt.submit(r) for r in rows]
+            recs[depth] = [f.result(timeout=120) for f in futs]
+    assert recs[2] == recs[1]
+    assert recs[1] == micro_batch_score_function(model)(rows)
+
+
+@pytest.mark.parametrize("n", FLUSH_SIZES)
+def test_predicts_at_flush_sizes_equal_plain(cuda, n):
+    """Both forest predicts at the runtime's flush sizes, at the serve64
+    shapes (GBT heaps T=20 depth 6, xgbmc heaps T=600 k=6, RF chains T=50
+    depth 12 W=256): bit-equal to their plain versions."""
+    rng = np.random.RandomState(n)
+    for T, k in ((20, 1), (600, 6)):
+        h = _on(cuda, random_heap(rng, n, 64, T, 6, k, 32))
+        args = (h["codes"], h["feat"], h["bins"], h["leaf"])
+        got, _ = F.forest_predict_heap_cuda(*args, depth=6, n_bins=32)
+        assert torch.equal(got, F.forest_predict_plain(*args, depth=6,
+                                                       n_bins=32))
+    c = _on(cuda, random_chain(rng, n, 64, 50, 12, 256, 1, 32))
+    args = (c["codes"], c["feat"], c["bins"], c["base"], c["leaf"])
+    got, _ = F.forest_predict_chain_cuda(*args, n_bins=32)
+    assert torch.equal(got, F.forest_predict_chain_plain(*args, n_bins=32))
+
+
+@pytest.mark.parametrize("key,part,limit", [
+    ("lr", "probability_1", 1e-5), ("svc", "rawPrediction_1", 1e-5)])
+def test_linear_flush_sizes_stay_within_the_serve_limit(cuda, key, part,
+                                                        limit):
+    """A linear model's product is one cuBLAS call a flush, whose kernel
+    may change with the row count: a row's score at flush sizes 1 and 37
+    stays within the serve limit of its score in a 256-row flush (a
+    platform order difference, not bit-equality; ROADMAP Queue 3)."""
+    import transmogrifai_tpu_torch as tt
+    from transmogrifai_tpu_torch.local.scoring import (
+        micro_batch_score_function)
+    model = tt.load_model(os.path.join(SERVE_FIXTURES, key), device=cuda)
+    mb = micro_batch_score_function(model)
+    name = model.result_features[0].name
+    rows = _serve_rows(256)
+    full = np.asarray([r[name][part] for r in mb(rows)], np.float32)
+    odd = np.asarray([r[name][part] for r in mb(rows[:37])], np.float32)
+    one = np.asarray([mb([r])[0][name][part] for r in rows[:37]],
+                     np.float32)
+    for got in (odd, one):
+        gap = np.abs(got - full[:37]) / (1 + np.abs(full[:37]))
+        assert gap.max() <= limit, gap.max()

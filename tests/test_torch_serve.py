@@ -696,7 +696,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "insights.model_insights", "impl.feature.dates",
                 "impl.feature.geo", "impl.feature.maps",
                 "impl.feature.text",
-                "impl.preparators.prediction_deindexer"):
+                "impl.preparators.prediction_deindexer",
+                "serving", "serving.runtime", "serving.registry",
+                "serving.breaker", "serving.drift", "serving.warmup",
+                "serving.loadgen", "observability",
+                "observability.metrics", "observability.trace",
+                "observability.blackbox", "observability.timeseries",
+                "observability.slo", "observability.postmortem",
+                "observability.ledger", "observability.devicemem",
+                "observability.export"):
         assert f"transmogrifai_tpu_torch.{mod}" in walked, mod
 
 

@@ -159,6 +159,25 @@ def numeric_distribution(name: str, values: np.ndarray, valid: np.ndarray,
         sketch=sketch)
 
 
+def fold_distribution(fold, state, j: int, name: str,
+                      key: Optional[str] = None) -> FeatureDistribution:
+    """A :class:`FeatureDistribution` view of column ``j`` of a
+    ``streaming.folds.HistogramFold`` state (sketch, fill rate, summary):
+    the serving ``DriftMonitor``'s side of a train-vs-score comparison, as
+    the JAX package's ``fold_distribution``."""
+    sketch = fold.column_histogram(state, j)
+    n = float(state["rows"])
+    filled = n - float(state["nulls"][j])
+    mn = sketch.min if filled else np.inf
+    mx = sketch.max if filled else -np.inf
+    # the sum from bin centroids: SPDT merges keep the mass-weighted mean
+    val_sum = float(sum(p * m for p, m in sketch.bins())) if filled else 0.0
+    return FeatureDistribution(
+        name=name, key=key, count=n, nulls=float(state["nulls"][j]),
+        summary=Summary(mn, mx, val_sum, sketch.total), is_numeric=True,
+        sketch=sketch)
+
+
 def text_distribution(name: str,
                       tokens_per_row: Sequence[Optional[Sequence[str]]],
                       text_bins: int, key: Optional[str] = None

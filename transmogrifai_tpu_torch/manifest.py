@@ -104,8 +104,10 @@ class CheckpointManifest:
     completion records of stage checkpoints (``stages``), sweeps
     (``sweeps``) and streamed fold states (``streams``, keyed by
     ``<stage uid>/<pass id>`` with the source fingerprint and the next
-    chunk to fold). The JAX package's advisory sections (``serving``,
-    ``drift``, ``costs``, ``programs``) are kept as read."""
+    chunk to fold). The JAX package's advisory sections: ``serving`` (the
+    warm-start fingerprint) and ``drift`` (the training baseline) are
+    written by ``persistence.save_model``; ``costs`` and ``programs`` are
+    kept as read."""
 
     #: optional sections written only when not empty, as the JAX package
     #: writes them

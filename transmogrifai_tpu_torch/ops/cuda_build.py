@@ -6,6 +6,11 @@ source and the flags, so an edited source builds anew and an unchanged one
 is reused. Nothing builds at import: the first launch of a kernel builds its
 library, or ``build()`` builds every source at once (one ``nvcc`` process
 each, all started together).
+
+Each ``nvcc`` build and each ``ctypes`` load is a record of the compile
+ledger (``observability/ledger.py``, identity ``cuda:<source>``), under the
+ambient subsystem: what a first request pays, and what a warm serving load
+pays before it instead.
 """
 from __future__ import annotations
 
@@ -18,7 +23,11 @@ import threading
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
+import time
+
 import torch
+
+from ..observability import ledger as _ledger
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -65,6 +74,7 @@ def build(names: Optional[Sequence[str]] = None) -> Dict[str, str]:
     ``nvcc`` each, all running at once. Returns {source: compiler output}
     for the sources it compiled; raises with that output if one fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
     jobs = []
     for name in names or sources():
         out = library_path(name)
@@ -82,6 +92,9 @@ def build(names: Optional[Sequence[str]] = None) -> Dict[str, str]:
         logs[name] = log
         if proc.returncode == 0:
             os.replace(tmp, out)        # atomic: readers see whole files
+            _ledger.record_build(identity=f"cuda:{name}", key=out.name,
+                                 seconds=time.perf_counter() - t0,
+                                 step="nvcc")
         else:
             failed.append(f"{name} (exit {proc.returncode}):\n{log}")
             if tmp.exists():
@@ -99,10 +112,15 @@ def load(source: str) -> ctypes.CDLL:
             path = library_path(source)
             if not path.exists():
                 build([source])
+            t0 = time.perf_counter()
             lib = ctypes.CDLL(str(path))
             lib.tg_cuda_error_string.argtypes = [ctypes.c_int]
             lib.tg_cuda_error_string.restype = ctypes.c_char_p
             _LIBS[source] = lib
+            _ledger.record_build(identity=f"cuda:{source}:load",
+                                 key=path.name,
+                                 seconds=time.perf_counter() - t0,
+                                 step="ctypes")
         return lib
 
 

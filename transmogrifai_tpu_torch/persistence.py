@@ -669,6 +669,27 @@ def _fsync_dir(path: str) -> None:
         os.close(fd)
 
 
+def _advisory_sections(model, manifest: CheckpointManifest) -> None:
+    """The JAX package's advisory manifest sections: ``serving`` (the
+    serve pass's schema fingerprint, which a warm registry load checks;
+    ``serving/warmup.py``) and ``drift`` (per-feature training sketches
+    and fill rates, which a registry load hands to a ``DriftMonitor``;
+    ``serving/drift.py``). A model whose extracts cannot take the
+    synthetic probe ships no fingerprint, and one without a usable
+    training table (a loaded model) no baseline: neither ever fails a
+    save."""
+    try:
+        from .serving.warmup import manifest_serving_entry
+        manifest.serving = manifest_serving_entry(model)
+    except Exception:
+        pass
+    try:
+        from .serving.drift import manifest_drift_entry
+        manifest.drift = manifest_drift_entry(model)
+    except Exception:
+        pass
+
+
 def save_model(model, path: str) -> None:
     """Write the fitted workflow model to the directory ``path`` in the
     JAX package's format: plan.json + arrays.npz + MANIFEST.json with each
@@ -683,6 +704,7 @@ def save_model(model, path: str) -> None:
     for name, data in files.items():
         manifest.record_file(name, atomic_write_bytes(
             os.path.join(stage, name), data), len(data))
+    _advisory_sections(model, manifest)
     manifest.save()
     if os.path.isdir(path):
         keep = set(files) | {os.path.basename(manifest.path)}

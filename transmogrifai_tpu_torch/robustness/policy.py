@@ -19,6 +19,10 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Callable, Deque, Dict, List, Optional
 
+from ..observability import blackbox as _blackbox
+from ..observability import metrics as _obs_metrics
+from ..observability import trace as _obs_trace
+
 from .faults import InjectedFaultError, TransientFaultError
 from .resources import is_resource_exhausted
 
@@ -128,7 +132,12 @@ class FaultLog:
         while len(self.reports) >= self.max_reports:
             self.reports.popleft()
             self.dropped += 1
+            _obs_metrics.inc_counter(
+                "tg_faults_dropped_total",
+                help="fault reports dropped by the TG_FAULTS_MAX ring "
+                "(docs/robustness.md)")
         self.reports.append(report)
+        _emit_fault_observability(report)
 
     @staticmethod
     def current() -> Optional["FaultLog"]:
@@ -143,14 +152,16 @@ class FaultLog:
         log = _CURRENT_LOG.get()
         if log is not None:
             log.add(report)
+        else:
+            _emit_fault_observability(report)
 
     def of_kind(self, kind: str) -> List[FaultReport]:
         return [r for r in self.reports if r.kind == kind]
 
     def to_json(self) -> Dict[str, Any]:
         """The ``summary()["faults"]`` section, in the JAX package's
-        schema (the port records no quarantine, plan, breaker or drift
-        events yet: those lists stay empty)."""
+        schema (the port records no quarantine or plan events yet: those
+        lists stay empty)."""
         return {
             "quarantined": [r.to_json() for r in self.of_kind("quarantine")],
             "retries": [r.to_json() for r in self.of_kind("retry")],
@@ -163,7 +174,8 @@ class FaultLog:
                                 for r in self.of_kind("breaker_degraded")],
             "drift": [r.to_json() for r in self.reports
                       if r.kind.startswith("drift_")],
-            # chunk-budget halvings after resource exhaustion
+            # adaptive degradation after resource exhaustion: serving
+            # flush splits, chunk-budget halvings
             "oomDownshifts": [r.to_json()
                               for r in self.of_kind("oom_downshift")],
             # threads the watchdog caught wedged, or left alive past a
@@ -177,6 +189,19 @@ class FaultLog:
             "fatal": [r.to_json() for r in self.of_kind("fatal")],
             "droppedReports": self.dropped,
         }
+
+
+def _emit_fault_observability(report: FaultReport) -> None:
+    # the choke point: every recovery becomes a flight-recorder event, a
+    # span event on whatever span is open and a counter by kind (the last
+    # two are no-ops when observability is off), as in the JAX package
+    _blackbox.record("fault." + report.kind, site=report.site,
+                     attempts=report.attempts)
+    _obs_trace.add_event("fault." + report.kind, site=report.site,
+                         attempts=report.attempts)
+    _obs_metrics.inc_counter(
+        "tg_faults_total", help="fault recoveries by kind "
+        "(docs/robustness.md)", kind=report.kind)
 
 
 @dataclass

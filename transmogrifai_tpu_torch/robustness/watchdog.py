@@ -248,8 +248,11 @@ def report_thread_stalled(site: str, thread_name: str, waited_s: float,
                           fault_log: Optional[Any] = None,
                           **detail: Any) -> None:
     """Account one stalled or leaked thread: a ``thread_stalled`` report
-    on ``fault_log``, or on the ambient log. Shared by the scanner and the
-    join-timeout checks of ``DeviceFeed.close``."""
+    on ``fault_log``, or on the ambient log, the
+    ``tg_watchdog_stalls_total{site}`` counter and a post-mortem bundle.
+    Shared by the scanner and the join-timeout checks of
+    ``DeviceFeed.close``, ``ServingRuntime.close`` and
+    ``ModelRegistry.close``."""
     from .policy import FaultLog, FaultReport
     report = FaultReport(
         site=site, kind="thread_stalled",
@@ -259,5 +262,17 @@ def report_thread_stalled(site: str, thread_name: str, waited_s: float,
         fault_log.add(report)
     else:
         FaultLog.record(report)
+    from ..observability import metrics as _obs_metrics
+    from ..observability import postmortem as _postmortem
+    _obs_metrics.inc_counter(
+        "tg_watchdog_stalls_total",
+        help="thread stalls detected by the watchdog / join-timeout "
+        "leak checks (docs/robustness.md)", site=site)
     logger.warning("thread '%s' stalled for %.1fs (site %s)",
                    thread_name, waited_s, site)
+    # a wedged thread is the incident the flight recorder exists for:
+    # freeze its context into a bundle (rate-limited)
+    _postmortem.trigger(
+        "thread_stalled", fault_log=fault_log,
+        detail={"site": site, "thread": thread_name,
+                "waitedS": round(waited_s, 3), **detail})

@@ -249,11 +249,17 @@ class FeatureTable:
         host table)."""
         return torch.as_tensor(values, device=self.device or "cpu")
 
-    def to_device(self, device) -> "FeatureTable":
+    def to_device(self, device, host_buffer=None) -> "FeatureTable":
         """Move every numeric host column onto ``device``: the values pack
         into one block per dtype and the masks into one bool block, each
         block is copied once, and the columns become views of the copies.
-        Host kinds stay on the host; the table records ``device``."""
+        Host kinds stay on the host; the table records ``device``.
+
+        ``host_buffer(dtype, numel)``, when given, hands out a pinned 1-D
+        host tensor of at least ``numel`` elements: each block is packed
+        there and copied with ``non_blocking=True`` on the current stream
+        (the serving runtime's staging); the caller keeps the buffers
+        until the copies have completed."""
         device = torch.device(device)
         todo = [(n, c) for n, c in self._columns.items()
                 if c.kind in DEVICE_KINDS and isinstance(c.values, np.ndarray)]
@@ -264,12 +270,20 @@ class FeatureTable:
                 (n, np.ascontiguousarray(c.values).reshape(-1)))
             if c.mask is not None:
                 masked.append((n, np.asarray(c.mask, dtype=bool)))
-        flat = {dt: torch.from_numpy(np.concatenate([v for _, v in parts]))
-                .to(device) for dt, parts in by_dtype.items()}
+        def block(parts: List[np.ndarray]) -> torch.Tensor:
+            if host_buffer is None:
+                return torch.from_numpy(np.concatenate(parts)).to(device)
+            numel = sum(int(p.size) for p in parts)
+            dtype = torch.from_numpy(parts[0][:0]).dtype
+            buf = host_buffer(dtype, numel)[:numel]
+            np.concatenate(parts, out=buf.numpy())
+            return buf.to(device, non_blocking=True)
+
+        flat = {dt: block([v for _, v in parts])
+                for dt, parts in by_dtype.items()}
         mask_at: Dict[str, torch.Tensor] = {}
         if masked:
-            mdev = torch.from_numpy(
-                np.concatenate([m for _, m in masked])).to(device)
+            mdev = block([m for _, m in masked])
             off = 0
             for n, m in masked:
                 mask_at[n] = mdev[off:off + m.shape[0]]

@@ -1994,3 +1994,47 @@ def stream_differences(got: Tuple[Dict[str, Any], Dict[str, np.ndarray]],
     except AssertionError as e:
         out.append(f"sanity: {e}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Serving (``serving``): request rows and the process-wide serving state
+# ---------------------------------------------------------------------------
+
+def request_rows(frame: Dict[str, np.ndarray], n: Optional[int] = None
+                 ) -> List[Dict[str, Any]]:
+    """Serving requests from a ``{name: column}`` frame: one dict a row,
+    python floats, NaN sent as None (missing)."""
+    n = len(next(iter(frame.values()))) if n is None else n
+    return [{k: (None if np.isnan(v[i]) else float(v[i]))
+             for k, v in frame.items()} for i in range(n)]
+
+
+def close_serving_state() -> List[str]:
+    """Close what a serving test left behind and say what it was: running
+    runtimes (closed without draining), drift refit threads (joined), open
+    watchdog hearts and attached sampler sources (closed and detached),
+    armed fault sites (cleared); then the observability state is reset
+    and the port's sampler and watchdog threads joined. The state is
+    process-wide, so a test that leaks it would run underneath every later
+    test. (The JAX package's threads carry the same names; its conftest
+    checks them.)"""
+    from .observability import reset as obs_reset
+    from .observability import timeseries
+    from .robustness import faults, watchdog
+    from .serving import drift, live_runtimes
+    leaks = [f"runtime {rt.name}" for rt in live_runtimes()]
+    for rt in live_runtimes():
+        rt.close(drain=False)
+    for t in drift.live_refits():
+        t.join(timeout=30)
+        if t.is_alive():
+            leaks.append(f"refit {t.name}")
+    for heart in watchdog.live_hearts():
+        leaks.append(f"watchdog heart {heart.name}")
+        heart.close()
+    leaks += [f"sampler source {s.name}" for s in timeseries.attached()]
+    faults.clear()
+    obs_reset()
+    timeseries.idle_join()
+    watchdog.idle_join()
+    return leaks

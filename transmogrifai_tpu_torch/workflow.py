@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import copy
 import json
+import os
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -213,6 +214,34 @@ class OpWorkflow:
         model._fault_log = fault_log
         model._resume_requested = resume
         return model
+
+    def drift_refit_hook(self, save_dir: str,
+                         resume: Optional[bool] = None):
+        """A serving-registry refit hook bound to this workflow
+        (``ModelRegistry(refit_hook=...)`` / ``set_refit_hook``): when a
+        served model's drift verdict degrades, the registry calls the hook
+        on a background thread; it retrains this workflow on whatever its
+        reader or input currently yields, saves the result under
+        ``save_dir`` (``refit_000001``, ``refit_000002``, ... so the model
+        directory in service is never written over), and returns the
+        saved path for the registry's verified load and warm hot swap.
+
+        ``resume`` defaults to whether a checkpoint dir is attached; the
+        in-core train's resume is not ported yet (ROADMAP Queue 1 item 9),
+        so a hook with ``resume=True`` fails its refit with that error
+        (recorded as ``drift_refit_failed``; the old model keeps serving)."""
+        counter = {"n": 0}
+        if resume is None:
+            resume = self._checkpoint_dir is not None
+
+        def hook(name: str, runtime, report) -> str:
+            counter["n"] += 1
+            model = self.train(resume=resume)
+            path = os.path.join(save_dir, f"refit_{counter['n']:06d}")
+            model.save(path)
+            return path
+
+        return hook
 
     def _train_in_core(self) -> "OpWorkflowModel":
         if not self.result_features:
@@ -497,7 +526,8 @@ class OpWorkflowModel:
         """{stage uid: its summary metadata} of every fitted stage that
         has one, as the JAX package's per-stage sections; for a model this
         process trained also ``faults`` (the train's fault log),
-        ``resume`` (what was restored and what refit) and, for a streamed
+        ``resume`` (what was restored and what refit), ``observability``
+        (``observability.summarize()``) and, for a streamed
         train, ``streaming`` (the feed's accounting and the cache's)."""
         out: Dict[str, Any] = {s.uid: s.summary_metadata for s in self.stages
                                if getattr(s, "summary_metadata", None)}
@@ -518,6 +548,12 @@ class OpWorkflowModel:
                 dict(r.detail) for r in log.reports
                 if r.kind == "restored" and r.site == "sweep.candidate"],
         }
+        # the process's telemetry aggregates (per-stage and per-family
+        # span timings, fault counters, scoring latency quantiles, the
+        # compile ledger; ``observability.summarize``), as the JAX package
+        # adds them
+        from .observability import summarize
+        out["observability"] = summarize()
         stats = getattr(self, "_stream_stats", None)
         if stats is not None:
             out["streaming"] = stats.to_json()
