@@ -14,8 +14,9 @@ Phases, in order; any failure exits nonzero:
     SanityChecker, the binary default list at full default grids, 3-fold
     CV) once with ``hist_matmul``, ``node_hist`` and
     ``forest_predict_chain`` wrapped (every launch held to plain as in (b)
-    below; ``node_hist`` to its direct formula at each shape's first
-    launch) and time each kernel's heaviest launch there; then the counted
+    below; ``node_hist``'s direct formula is held at these shapes in the
+    titanic_wcv, leads and tickets check trains, ``DIRECT_HELD_ELSEWHERE``)
+    and time each kernel's heaviest launch there; then the counted
     train against ``fixtures/titanic`` (what the JAX package made of the
     same file): vector metadata equal, 256 sampled rows bit-equal, the
     SanityChecker's kept columns, drops and reasons (numbers in a reason
@@ -360,6 +361,34 @@ Phases, in order; any failure exits nonzero:
     synchronizing call by the port's file and line); ``lr`` and ``svc`` at
     flush sizes 1, 37 and 256 (``linear_flush`` lines: the gap, held to
     (c)'s limits);
+(fleet) the fleet tier on the card (``Fleet``): fresh copies of
+    ``serve64/{gbt,rf,xgbmc}``, the 4,096 rows of ``score_frame()`` as
+    requests, replicas on ``cuda:0`` (``max_batch`` 256, ``max_wait_ms``
+    2, pipeline depth 2), as ``bench.py``'s fleet and wire lines. A
+    ``FrontDoor`` over 1, then 2 in-process replicas serving ``gbt`` and
+    ``rf`` warm: records bit-equal to ``micro_batch_score_function`` on
+    the card, then a saturated open loop of ``FLEET_OPEN_LOOP_S`` each
+    (``fleet_replicas`` lines: rows/s, p50/p99) and the 2-vs-1 factor (a
+    reading, no gate). Two replicas under an open loop at 0.8x the one
+    replica's rows/s with r0 killed halfway: zero lost, zero failed,
+    every completed record the clean one's, a ``replica_lost``
+    post-mortem that validates. ``gbt``, ``rf`` and ``xgbmc`` on two
+    replicas with ``PlaceConfig(max_warm=1)`` under a weighted model mix:
+    page-ins and evictions happen, records bit-equal, zero lost, page-in
+    seconds p50 and max. A ``NetEdge`` on 127.0.0.1 in front of two
+    replicas: 256 rows over HTTP/JSON and 256 over ``TGB1`` bit-equal to
+    in-process, ``run_wire_open_loop`` per framing at 0.35x the one
+    replica's rows/s (32-row requests) beside the in-process loop at the
+    same rate (``fleet_wire`` lines), then ``net.read``/``net.write``
+    drops with reconnects: every drop in ``shedDisconnect``. One
+    ``SubprocessReplica`` (``--device cuda:0``) beside one in-process
+    replica: its records bit-equal to the in-process replica's, then
+    SIGKILLed with requests in flight: failover, zero lost; its
+    spawn-to-ready seconds, its ``torch.cuda.max_memory_allocated`` and
+    its own kernel launches (``fleet_subprocess`` line). Every predict
+    launch in the parent outside the timed loops is held bit-equal to
+    plain; inside them one in ``FLEET_HOLD_EVERY``, on copies taken on
+    the launching stream, held after the loop. Both predicts must launch;
 (d) print each path's launch counts and the ``kernels`` JSON line, whose
     launches are the sums over the paths;
 (e) print the card's name and power limit.
@@ -1446,6 +1475,14 @@ def _within_sum_bound(tag, got, want, scale, n):
 
 
 #: the direct node histogram's partials a feature block may hold, bytes
+#: the Titanic check train holds every ``node_hist`` launch to plain but
+#: none to the direct formula: the same sweep's shapes (8,192 rows, T 288
+#: and 96, 529 to 589 four-byte codes) are held to it at each shape's first
+#: launch in the titanic_wcv, leads and tickets check trains. The formula
+#: took about 60% of that train's check (``python3 -m
+#: transmogrifai_tpu_torch.experiments.smoke_phases direct-cost``, PERF.md
+#: section 6): the room for the (fleet) phase.
+DIRECT_HELD_ELSEWHERE = ("titanic_wcv", "leads", "tickets")
 DIRECT_BLOCK_BYTES = 4 << 30
 
 
@@ -1525,16 +1562,18 @@ class _KernelChecks:
     for timing (``heaviest``). With ``direct_per_shape`` only the first
     ``node_hist`` launch of each shape is also held to the direct formula
     (at ~530 codes the formula's indexed adds take seconds a launch; every
-    launch is still held to plain). These launches are not counted: every
+    launch is still held to plain); with ``direct`` False no launch is
+    (``DIRECT_HELD_ELSEWHERE``). These launches are not counted: every
     count is zeroed before each path. ``only`` names the kernels to wrap
     (all five by default); ``held`` counts the launches held per kernel,
     over threads. While ``defer`` is set a predict launch's sums and codes
     are copied on the launching stream and held to plain at ``settle()``,
-    so a timed run carries no plain work."""
+    so a timed run carries no plain work; then only one predict launch in
+    ``every`` is kept (``skipped`` counts the others per kernel)."""
 
     def __init__(self, keep_heaviest: bool = False,
                  direct_per_shape: bool = False, check_ids: bool = True,
-                 only=None):
+                 only=None, direct: bool = True):
         self.seen: dict = {}
         #: False: the predicts' sums are held to plain without the second
         #: launch that reads the leaf ids, so the counts stay those of the
@@ -1543,11 +1582,15 @@ class _KernelChecks:
         self.only = only
         self.held: dict = {}
         self.defer = False
+        self.every = 1
+        self.skipped: dict = {}
+        self._deferred_seen = 0
         self.pending: list = []
         self._lock = threading.Lock()
         self.heaviest: dict = {}
         self.keep = keep_heaviest
         self.direct_per_shape = direct_per_shape
+        self.direct = direct
         self.direct_shapes: set = set()
         #: shapes whose direct formula is beyond DIRECT_MAX_BYTES
         self.too_wide: set = set()
@@ -1563,15 +1606,22 @@ class _KernelChecks:
             if self.keep and work > self.heaviest.get(name, (0,))[0]:
                 self.heaviest[name] = (work, shape, args())
 
-    def _hold(self, check, out, codes):
+    def _hold(self, check, out, codes, name) -> bool:
         """Run ``check(sums, codes)`` now, or at ``settle()`` on copies
-        taken on the launching stream while ``defer`` is set."""
+        taken on the launching stream while ``defer`` is set (one launch
+        in ``every``). False when the launch was sampled out."""
         if not self.defer:
             check(out, codes)
-            return
+            return True
+        with self._lock:
+            self._deferred_seen += 1
+            if self._deferred_seen % self.every:
+                self.skipped[name] = self.skipped.get(name, 0) + 1
+                return False
         out, codes = out.clone(), codes.clone()
         with self._lock:
             self.pending.append((check, out, codes))
+        return True
 
     def settle(self) -> int:
         """Hold every deferred launch to plain; returns how many."""
@@ -1626,7 +1676,8 @@ class _KernelChecks:
                 stride)
             shape = (tuple(codes.shape), node.shape[1], len(sw_list), Wl,
                      stride)
-            if not (self.direct_per_shape and shape in self.direct_shapes):
+            if self.direct and not (self.direct_per_shape
+                                    and shape in self.direct_shapes):
                 self.direct_shapes.add(shape)
                 direct = _node_direct(codes, node, sw_list, Wl, n_bins,
                                       stride)
@@ -1662,7 +1713,8 @@ class _KernelChecks:
                     raise AssertionError("forest_predict_chain (sweep): "
                                          "leaf ids differ from the plain "
                                          "routing")
-            self._hold(check, out[0], codes)
+            if not self._hold(check, out[0], codes, "forest_predict_chain"):
+                return out
             note("forest_predict_chain", (tuple(codes.shape),
                                           tuple(feat_lv.shape),
                                           leaf.shape[2]), 0.0, 0.0,
@@ -1721,7 +1773,8 @@ class _KernelChecks:
                                       n_bins).long()):
                     raise AssertionError("forest_predict_heap (sweep): leaf "
                                          "ids differ from the plain routing")
-            self._hold(check, out[0], codes)
+            if not self._hold(check, out[0], codes, "forest_predict_heap"):
+                return out
             note("forest_predict_heap", (tuple(codes.shape),
                                          tuple(feat_heap.shape), depth,
                                          leaf.shape[2]), 0.0, 0.0,
@@ -1765,11 +1818,13 @@ class _KernelChecks:
                     if name == "forest_leaf_sums_chain" else
                     f"max |d| {r['err']:.3g} from plain, "
                     f"{r['share']:.3f} of the sum bound; " + (
-                        "bit-equal to the direct formula"
-                        + (" (each shape's first launch)"
-                           if self.direct_per_shape else "")
-                        + (f" but at {len(self.too_wide)} shapes beyond "
-                           f"DIRECT_MAX_BYTES" if self.too_wide else "")
+                        ("bit-equal to the direct formula"
+                         + (" (each shape's first launch)"
+                            if self.direct_per_shape else "")
+                         + (f" but at {len(self.too_wide)} shapes beyond "
+                            f"DIRECT_MAX_BYTES" if self.too_wide else "")
+                         if self.direct else "not held to the direct "
+                         "formula here (DIRECT_HELD_ELSEWHERE)")
                         if name == "node_hist" else "on integer "
                         "stats of the same codes bit-equal to plain"))
             wide = max(shape[0][1] for shape in r["shapes"])
@@ -2290,8 +2345,8 @@ class Titanic:
 
         t0 = time.perf_counter()
         wf = self.workflow()
-        with _KernelChecks(keep_heaviest=True,
-                           direct_per_shape=True) as checks:
+        with _KernelChecks(keep_heaviest=True, direct_per_shape=True,
+                           direct=False) as checks:
             wf.train()
             torch.cuda.synchronize()
         checks.report("titanic")
@@ -5018,6 +5073,449 @@ class Serving:
               f"or shed ({wall:.3f} s)")
 
 
+#: the (fleet) phase (``bench.py``'s fleet and wire lines): the models of
+#: the in-process and subprocess replicas, and of the placement arm
+FLEET_KEYS = ("gbt", "rf")
+FLEET_PLACE_KEYS = ("gbt", "rf", "xgbmc")
+FLEET_OPEN_LOOP_S = 3.0
+#: the rates, of one runtime's calibrated capacity (``bench.py``): the
+#: saturated lines 1.2x a replica, the kill arm 0.8x
+FLEET_SATURATE = 1.2
+FLEET_KILL_FRACTION = 0.8
+#: the wire lines' rate, of the calibrated capacity, and their request
+#: size (``bench.py``: BENCH_SERVE_CLEAN_FRACTION, BENCH_WIRE_BATCH_ROWS)
+FLEET_WIRE_FRACTION = 0.35
+FLEET_WIRE_BATCH = 32
+FLEET_WIRE_CHAOS_S = 1.5
+#: the placement arm: seconds, offered rows/s and the model mix. Three
+#: models in two warm slots page on nearly every request for a cold one
+#: (each page-in a load and a warm pass), so the mix leans on one model
+#: and the rate stays low
+FLEET_PLACE_S = 2.0
+FLEET_PLACE_RPS = 100.0
+FLEET_PLACE_MIX = (("gbt", 8.0), ("rf", 1.0), ("xgbmc", 1.0))
+#: one predict launch in this many is held to plain inside a timed loop
+FLEET_HOLD_EVERY = 16
+#: requests queued in the subprocess replica when it is killed: under a
+#: flush (256), behind the subprocess arm's flush timer
+FLEET_SIGKILL_ROWS = 200
+FLEET_STAGE_WAIT_MS = 500.0
+
+
+class _Capture:
+    """A front door as the load generator sees it, keeping every accepted
+    request's row index, model and future, so the records a timed run
+    completed are held to the clean ones after it."""
+
+    def __init__(self, fd, rows):
+        self.fd = fd
+        self._index = {id(r): i for i, r in enumerate(rows)}
+        self.accepted = []
+        self._lock = threading.Lock()
+
+    def submit(self, row, **kw):
+        fut = self.fd.submit(row, **kw)
+        with self._lock:
+            self.accepted.append((self._index[id(row)], kw.get("model"),
+                                  fut))
+        return fut
+
+    def __getattr__(self, name):
+        return getattr(self.fd, name)
+
+    def held_to(self, baselines, default, same) -> int:
+        """How many completed records were compared; raises on the first
+        that is not ``same`` as its model's clean record."""
+        n = 0
+        for i, model, fut in self.accepted:
+            if not fut.done() or fut.exception() is not None:
+                continue
+            if not same([fut.result()], [baselines[model or default][i]]):
+                raise AssertionError(f"fleet: the record of row {i} "
+                                     f"({model or default}) differs from "
+                                     f"the clean run's")
+            n += 1
+        return n
+
+
+class Fleet:
+    """(fleet) The fleet tier on the card (``serving/{fleet,frontdoor,
+    placement,netedge,netproto,replica_worker}.py``): replicas in this
+    process and in a child process, the front door's routing, failover
+    and paging, and the network edge, on fresh copies of the committed
+    ``serve64`` models at full width."""
+
+    def __init__(self, tmp: str, device: str = "cuda:0"):
+        self.tmp = os.path.join(tmp, "fleet")
+        os.makedirs(self.tmp)
+        self.device = device
+        self.copies = {}
+        for key in FLEET_PLACE_KEYS:
+            self.copies[key] = os.path.join(self.tmp, key)
+            shutil.copytree(os.path.join(SERVING_DIR, key), self.copies[key])
+        from transmogrifai_tpu_torch.testing import request_rows, score_frame
+        self.rows = request_rows(score_frame())
+
+    @staticmethod
+    def _same(got, want) -> bool:
+        """Records compared: bit-equal."""
+        return got == want
+
+    def _cfg(self, **kw):
+        from transmogrifai_tpu_torch.serving import ServeConfig
+        base = dict(max_batch=SERVE_MAX_BATCH, max_queue=1024,
+                    max_wait_ms=SERVE_WAIT_MS, pipeline_depth=2)
+        base.update(kw)
+        return ServeConfig(**base)
+
+    def _fc(self, **kw):
+        from transmogrifai_tpu_torch.serving import FleetConfig
+        base = dict(min_replicas=1, max_replicas=4, probe_interval_ms=0.0,
+                    max_failovers=3, autoscale=False, device=self.device)
+        base.update(kw)
+        return FleetConfig(**base)
+
+    @staticmethod
+    def _through(submit, rows, chunk=SERVE_MAX_BATCH * 2):
+        """Records of ``rows`` through ``submit``, at most ``chunk``
+        outstanding (under every queue's bound)."""
+        out = []
+        for i in range(0, len(rows), chunk):
+            futs = [submit(r) for r in rows[i:i + chunk]]
+            out += [f.result(timeout=120) for f in futs]
+        return out
+
+    def _door(self, keys=FLEET_KEYS, replicas=2, config=None, **kw):
+        from transmogrifai_tpu_torch.serving import FrontDoor
+        return FrontDoor({k: self.copies[k] for k in keys},
+                         replicas=replicas, config=config or self._cfg(),
+                         fleet_config=self._fc(), warm=True, **kw)
+
+    def _timed(self, fn):
+        """``fn()`` with the predict checks deferred and sampled."""
+        checks = getattr(self, "checks", None)
+        if checks is None:
+            return fn()
+        checks.defer, checks.every = True, FLEET_HOLD_EVERY
+        try:
+            return fn()
+        finally:
+            checks.defer, checks.every = False, 1
+
+    @staticmethod
+    def _accounted(tag, rep, disconnects=False):
+        if rep["lost"] or rep["failed"] or rep["submitErrors"] or \
+                not rep["accountingOk"] or (rep["shedDisconnect"]
+                                            and not disconnects):
+            raise AssertionError(f"fleet {tag}: {rep}")
+
+    def run(self, checks=True):
+        """The counted path; ``checks=False`` runs it without holding a
+        launch to plain (a CPU dry run)."""
+        if self.device.startswith("cuda"):
+            torch.cuda.synchronize()
+        t_phase = time.perf_counter()
+        self.checks = (_KernelChecks(check_ids=False, only=SERVING_PREDICTS)
+                       if checks else None)
+        import contextlib
+        with (self.checks or contextlib.nullcontext()):
+            self.baselines()
+            capacity = self.calibrate()
+            self.scaling(capacity)
+            self.kill(capacity)
+            self.placement()
+            self.edge(capacity)
+            self.subprocess()
+        self.deferred = self.checks.settle() if checks else 0
+        print(f"(fleet) phase wall {time.perf_counter() - t_phase:.3f} s")
+
+    def baselines(self):
+        """Each model's records of the 4,096 rows from the micro-batch
+        scorer on the device: what every replica must answer."""
+        import transmogrifai_tpu_torch as tt
+        from transmogrifai_tpu_torch.local.scoring import (
+            micro_batch_score_function)
+        self.clean = {}
+        for key in FLEET_PLACE_KEYS:
+            model = tt.load_model(self.copies[key], device=self.device)
+            self.clean[key] = micro_batch_score_function(model)(self.rows)
+
+    def calibrate(self) -> float:
+        """One runtime's capacity on ``gbt``, as ``bench.py`` and the
+        (serving) phase calibrate it: an open loop offered the micro-batch
+        scorer's one-thread rows/s."""
+        import transmogrifai_tpu_torch as tt
+        from transmogrifai_tpu_torch.local.scoring import (
+            micro_batch_score_function)
+        from transmogrifai_tpu_torch.serving import (
+            ServingRuntime, run_open_loop)
+        model = tt.load_model(self.copies["gbt"], device=self.device)
+        mb = micro_batch_score_function(model)
+        batch = self.rows[:SERVE_MAX_BATCH]
+        mb(batch)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            mb(batch)
+        raw = 3 * len(batch) / (time.perf_counter() - t0)
+        with ServingRuntime(model, "fleet-calibrate", self._cfg()) as rt:
+            cal = self._timed(lambda: run_open_loop(
+                rt, self.rows, SERVE_CALIBRATE_S, raw))
+        capacity = max(cal["rowsPerSec"], 1.0)
+        print(f"(fleet) calibrated capacity of one runtime on gbt: "
+              f"{capacity} rows/s (offered {raw:.1f})")
+        return capacity
+
+    def scaling(self, capacity) -> None:
+        """1 and 2 in-process replicas: records bit-equal, then an open
+        loop each at 1.2x the calibrated capacity a replica."""
+        from transmogrifai_tpu_torch.serving import run_open_loop
+        lines = {}
+        for n in (1, 2):
+            with self._door(replicas=n) as fd:
+                for rid, rep in sorted(fd._replicas.items()):
+                    for key in FLEET_KEYS:
+                        rt = rep.registry.runtime(key)
+                        info = rt.warm_info
+                        if str(rt.model.device) != self.device or not (
+                                info["ok"] and info["fingerprintMatch"]):
+                            raise AssertionError(
+                                f"fleet {rid}/{key}: warm {info} on "
+                                f"{rt.model.device}")
+                for key in FLEET_KEYS:
+                    if not self._same(self._through(
+                            lambda r: fd.submit(r, model=key), self.rows),
+                            self.clean[key]):
+                        raise AssertionError(f"fleet x{n}: {key} records "
+                                             f"differ from the scorer's")
+                dist = fd.replica_distribution()
+                rep = self._timed(lambda: run_open_loop(
+                    fd, self.rows, FLEET_OPEN_LOOP_S,
+                    FLEET_SATURATE * capacity * n))
+            if rep["lost"] or rep["failed"] or not rep["accountingOk"]:
+                raise AssertionError(f"fleet x{n} open loop: {rep}")
+            lines[n] = rep
+            print(json.dumps({
+                "fleet_replicas": n, "rowsPerSec": rep["rowsPerSec"],
+                "offeredRps": rep["offeredRps"], "p50Ms": rep["p50Ms"],
+                "p99Ms": rep["p99Ms"], "completed": rep["completed"],
+                "shedOverload": rep["shedOverload"],
+                "routing": rep["replicas"],
+                "routingOfTheParityRows": dist}))
+        factor = lines[2]["rowsPerSec"] / max(lines[1]["rowsPerSec"], 1e-9)
+        print(f"(fleet) in-process replicas on {self.device}: records of "
+              f"gbt and rf bit-equal to micro_batch_score_function at 1 and "
+              f"2 replicas; saturated rows/s x1 "
+              f"{lines[1]['rowsPerSec']}, x2 {lines[2]['rowsPerSec']}: "
+              f"2-vs-1 factor {factor:.3f} (a reading, no gate)")
+
+    def kill(self, capacity):
+        """Two replicas, r0 killed halfway through an open loop."""
+        from transmogrifai_tpu_torch.observability import postmortem as pm
+        from transmogrifai_tpu_torch.serving import run_open_loop
+        pm_dir = os.path.join(self.tmp, "postmortems")
+        prev = os.environ.get("TG_POSTMORTEM_DIR")
+        os.environ["TG_POSTMORTEM_DIR"] = pm_dir
+        try:
+            with self._door() as fd:
+                cap = _Capture(fd, self.rows)
+                killer = threading.Timer(FLEET_OPEN_LOOP_S / 2.0,
+                                         fd.kill_replica, ("r0",))
+                killer.start()
+                try:
+                    rep = self._timed(lambda: run_open_loop(
+                        cap, self.rows, FLEET_OPEN_LOOP_S,
+                        FLEET_KILL_FRACTION * capacity))
+                finally:
+                    killer.cancel()
+                    killer.join()
+                snap = fd.fleet_snapshot()
+        finally:
+            if prev is None:
+                os.environ.pop("TG_POSTMORTEM_DIR", None)
+            else:
+                os.environ["TG_POSTMORTEM_DIR"] = prev
+        self._accounted("kill", rep)
+        if snap["kills"] != 1:
+            raise AssertionError(f"fleet kill: {snap['kills']} kills")
+        held = cap.held_to(self.clean, "gbt", self._same)
+        docs = [pm.read_bundle(p) for p in pm.list_bundles(pm_dir)]
+        lost = [d for d in docs if d["trigger"]["kind"] == "replica_lost"]
+        bad = [d["trigger"]["kind"] for d in docs if pm.validate_bundle(d)]
+        if not lost or bad:
+            raise AssertionError(f"fleet kill: post-mortems {docs} "
+                                 f"(invalid: {bad})")
+        print(json.dumps({
+            "fleet_kill": 2, "rowsPerSec": rep["rowsPerSec"],
+            "offeredRps": rep["offeredRps"], "p50Ms": rep["p50Ms"],
+            "p99Ms": rep["p99Ms"], "completed": rep["completed"],
+            "recordsHeld": held, "kills": snap["kills"],
+            "failovers": snap["failovers"],
+            "inflightAtKill": lost[0]["trigger"]["detail"]["inflight"],
+            "shedNoReplica": rep["shedNoReplica"],
+            "shedOverload": rep["shedOverload"], "lost": rep["lost"],
+            "failed": rep["failed"], "routing": rep["replicas"]}))
+
+    def placement(self):
+        """Three models on two replicas that keep one warm each, under a
+        weighted mix: page-ins and evictions, records bit-equal."""
+        from transmogrifai_tpu_torch.serving import (
+            PlaceConfig, run_open_loop)
+        with self._door(FLEET_PLACE_KEYS,
+                        placement=PlaceConfig(max_warm=1)) as fd:
+            cap = _Capture(fd, self.rows)
+            rep = self._timed(lambda: run_open_loop(
+                cap, self.rows, FLEET_PLACE_S, FLEET_PLACE_RPS,
+                models=list(FLEET_PLACE_MIX), model_seed=7))
+            snap = fd.placer.snapshot()
+            pageins = sorted(fd.placer._pagein_ms)
+        self._accounted("placement", rep)
+        if not (snap["pageIns"] and snap["evictions"]):
+            raise AssertionError(f"fleet placement: no paging {snap}")
+        held = cap.held_to(self.clean, "gbt", self._same)
+        print(json.dumps({
+            "fleet_placement": dict(FLEET_PLACE_MIX),
+            "rowsPerSec": rep["rowsPerSec"], "completed": rep["completed"],
+            "recordsHeld": held, "pageIns": snap["pageIns"],
+            "evictions": snap["evictions"],
+            "pageInSecondsP50": statistics.median(pageins) / 1e3,
+            "pageInSecondsMax": pageins[-1] / 1e3,
+            "perModel": {m: {"offered": b["offered"],
+                             "completed": b["completed"]}
+                         for m, b in sorted(rep["models"].items())},
+            "lost": rep["lost"], "failed": rep["failed"]}))
+
+    def edge(self, capacity):
+        """A ``NetEdge`` on 127.0.0.1 in front of two replicas: both
+        framings bit-equal to in-process, the wire loops per framing
+        beside the in-process one at the same rate, then drops."""
+        from transmogrifai_tpu_torch.robustness import faults
+        from transmogrifai_tpu_torch.serving import (
+            NetEdge, WireClient, run_open_loop, run_wire_open_loop)
+        rows = self.rows
+        rate = max(10.0, FLEET_WIRE_FRACTION * capacity)
+        with self._door() as fd, NetEdge(fd, host="127.0.0.1", port=0,
+                                         name="fleet") as edge:
+            host, port = edge.address
+            for proto in ("http", "binary"):
+                with WireClient(host, port, protocol=proto,
+                                timeout=120) as cli:
+                    res = cli.request(rows[:SERVE_MAX_BATCH])
+                if res.status != 200 or not self._same(
+                        res.records, self.clean["gbt"][:SERVE_MAX_BATCH]):
+                    raise AssertionError(f"fleet edge {proto}: "
+                                         f"{res.status} {res.error}")
+            inproc = self._timed(lambda: run_open_loop(
+                fd, rows, FLEET_OPEN_LOOP_S, rate))
+            self._accounted("in-process reference", inproc)
+            for proto in ("http", "binary"):
+                wrep = self._timed(lambda: run_wire_open_loop(
+                    host, port, rows, FLEET_OPEN_LOOP_S, rate,
+                    protocols=(proto,), batch_rows=FLEET_WIRE_BATCH))
+                self._accounted(f"wire {proto}", wrep)
+                pp = wrep["protocols"][proto]
+                print(json.dumps({
+                    "fleet_wire": proto, "offeredRps": wrep["offeredRps"],
+                    "rowsPerSec": wrep["rowsPerSec"], "p50Ms": pp["p50Ms"],
+                    "p99Ms": pp["p99Ms"], "requests": pp["requests"],
+                    "batchRows": FLEET_WIRE_BATCH,
+                    "inprocRowsPerSec": inproc["rowsPerSec"],
+                    "inprocP50Ms": inproc["p50Ms"],
+                    "inprocP99Ms": inproc["p99Ms"],
+                    "ratio": wrep["rowsPerSec"] / max(
+                        inproc["rowsPerSec"], 1.0)}))
+            with faults.injected({
+                    "net.read": {"mode": "raise", "nth": 4, "count": 2},
+                    "net.write": {"mode": "raise", "nth": 9, "count": 2}}):
+                crep = self._timed(lambda: run_wire_open_loop(
+                    host, port, rows, FLEET_WIRE_CHAOS_S, rate,
+                    batch_rows=FLEET_WIRE_BATCH, reconnect_every=5))
+        self._accounted("wire chaos", crep, disconnects=True)
+        if not crep["shedDisconnect"]:
+            raise AssertionError(f"fleet wire chaos: no drop {crep}")
+        print(f"(fleet) edge: {SERVE_MAX_BATCH} rows over HTTP/JSON and "
+              f"over TGB1 bit-equal to in-process; wire loops at {rate:.1f} "
+              f"rows/s accounted, no lost or failed; net.read/net.write "
+              f"drops: {crep['shedDisconnect']} rows in shedDisconnect, "
+              f"{crep['completed']} completed, lost {crep['lost']}")
+
+    def subprocess(self):
+        """One subprocess replica beside one in-process replica: bit-equal
+        records, then SIGKILL with requests queued in the child (the
+        in-process replica steps aside while they route, as in a rolling
+        deploy, and the child's flush timer holds them)."""
+        from transmogrifai_tpu_torch.serving.fleet import ACTIVE, DRAINING
+        with self._door(replicas=1, config=self._cfg(
+                max_wait_ms=FLEET_STAGE_WAIT_MS)) as fd:
+            fd.fleet_config.subprocess = True
+            try:
+                child = fd.spawn_replica()
+            finally:
+                fd.fleet_config.subprocess = False
+            if child.kind != "subprocess" or child.device != self.device:
+                raise AssertionError(f"fleet: spawned {child.kind} on "
+                                     f"{getattr(child, 'device', None)}")
+            inproc = fd._replicas["r0"]
+            for key in FLEET_KEYS:
+                rows = self.rows[:SERVE_MAX_BATCH]
+                theirs = self._through(lambda r: child.submit(key, r), rows)
+                ours = self._through(lambda r: inproc.submit(key, r), rows)
+                if not (self._same(theirs, ours) and self._same(
+                        ours, self.clean[key][:len(rows)])):
+                    raise AssertionError(f"fleet subprocess: {key} records "
+                                         f"differ from the in-process "
+                                         f"replica's")
+            health = child.health(timeout=120)
+            rows = self.rows[:FLEET_SIGKILL_ROWS]
+            inproc.state = DRAINING
+            try:
+                futs = [fd.submit(r, model="gbt") for r in rows]
+            finally:
+                inproc.state = ACTIVE
+            fd.kill_replica(child.rid)
+            recs = [f.result(timeout=120) for f in futs]
+            snap = fd.fleet_snapshot()
+            lost = [r for r in fd.fault_log.reports
+                    if r.kind == "replica_lost"]
+        if not self._same(recs, self.clean["gbt"][:len(rows)]) or \
+                snap["kills"] != 1 or not snap["failovers"]:
+            raise AssertionError(f"fleet subprocess SIGKILL: {snap}")
+        dev = health["device"]
+        launches = dev.get("kernelLaunches", {})
+        if self.device.startswith("cuda") and not all(
+                launches.get(k) for k in SERVING_PREDICTS):
+            raise AssertionError(f"the subprocess replica launched "
+                                 f"{launches}")
+        print(json.dumps({
+            "fleet_subprocess": child.device,
+            "spawnToReadySeconds": child.spawn_seconds,
+            "childMaxMemoryAllocated": dev.get("maxMemoryAllocated"),
+            "childMemoryAllocated": dev.get("memoryAllocated"),
+            "childKernelLaunches": launches,
+            "inflightAtSigkill": lost[0].detail["inflight"],
+            "failovers": snap["failovers"],
+            "routing": {r: v["routed"] for r, v in snap["replicas"].items()},
+            "recordsAfterSigkill": len(recs)}))
+
+    def after(self, counts):
+        """Past the counted path: every predict launch was held to plain
+        or sampled out inside a timed loop, and some of each were held."""
+        for k in SERVING_PREDICTS:
+            held = self.checks.held.get(k, 0)
+            skipped = self.checks.skipped.get(k, 0)
+            if held + skipped != counts[k] or not held:
+                raise AssertionError(
+                    f"fleet: {counts[k]} {k} launches counted, {held} "
+                    f"held to plain, {skipped} sampled out")
+        print(f"(fleet) predict launches on the path: "
+              f"{counts['forest_predict_heap']} forest_predict_heap, "
+              f"{counts['forest_predict_chain']} forest_predict_chain; "
+              f"held bit-equal to plain: "
+              f"{self.checks.held.get('forest_predict_heap', 0)} and "
+              f"{self.checks.held.get('forest_predict_chain', 0)} "
+              f"({self.deferred} of them after their timed loop, one in "
+              f"{FLEET_HOLD_EVERY} there)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5171,6 +5669,10 @@ def _run(dev, kernels, tmp) -> int:
         "serving", lambda: (serving.starts(), serving.run()),
         (F.FOREST_PREDICT_HEAP, F.FOREST_PREDICT_CHAIN))
     serving.after(paths["serving"])
+    fleet = Fleet(tmp)
+    paths["fleet"] = run_path("fleet", fleet.run,
+                              (F.FOREST_PREDICT_HEAP, F.FOREST_PREDICT_CHAIN))
+    fleet.after(paths["fleet"])
     for name, counts in paths.items():
         print(f"launches, {name}: "
               f"{ {k: v for k, v in counts.items() if v} }")

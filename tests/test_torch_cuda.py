@@ -1772,3 +1772,46 @@ def test_linear_flush_sizes_stay_within_the_serve_limit(cuda, key, part,
     for got in (odd, one):
         gap = np.abs(got - full[:37]) / (1 + np.abs(full[:37]))
         assert gap.max() <= limit, gap.max()
+
+
+def test_fleet_on_the_card_with_a_subprocess_replica(cuda, tmp_path):
+    """A front door over two in-process replicas on the card, then one
+    ``SubprocessReplica`` on ``cuda:0`` beside them: records bit-equal to
+    the micro-batch scorer's through the door, from the child, and after
+    the child is SIGKILLed with requests in flight; the child served on
+    the card with its own kernel launches."""
+    import shutil
+
+    import transmogrifai_tpu_torch as tt
+    from transmogrifai_tpu_torch.local.scoring import (
+        micro_batch_score_function)
+    from transmogrifai_tpu_torch.serving import (
+        FleetConfig, FrontDoor, ServeConfig)
+    path = str(tmp_path / "gbt")
+    shutil.copytree(os.path.join(SERVE_FIXTURES, "gbt"), path)
+    model = tt.load_model(path, device=cuda)
+    rows = _serve_rows(600)
+    want = micro_batch_score_function(model)(rows)
+    cfg = ServeConfig(max_batch=256, max_queue=4096, max_wait_ms=2.0,
+                      pipeline_depth=2)
+    fc = FleetConfig(probe_interval_ms=0.0, autoscale=False,
+                     max_failovers=3, device="cuda:0")
+    with FrontDoor({"m": path}, replicas=2, config=cfg,
+                   fleet_config=fc) as fd:
+        assert [f.result(timeout=120)
+                for f in [fd.submit(r) for r in rows]] == want
+        fd.fleet_config.subprocess = True
+        try:
+            child = fd.spawn_replica()
+        finally:
+            fd.fleet_config.subprocess = False
+        assert child.kind == "subprocess" and child.device == "cuda:0"
+        assert [f.result(timeout=120)
+                for f in [child.submit("m", r) for r in rows]] == want
+        health = child.health(timeout=120)["device"]
+        assert health["maxMemoryAllocated"] > 0
+        assert health["kernelLaunches"]["forest_predict_heap"] > 0
+        futs = [fd.submit(r) for r in rows]
+        fd.kill_replica(child.rid)
+        assert [f.result(timeout=120) for f in futs] == want
+        assert fd.fleet_snapshot()["kills"] == 1

@@ -704,7 +704,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "observability.blackbox", "observability.timeseries",
                 "observability.slo", "observability.postmortem",
                 "observability.ledger", "observability.devicemem",
-                "observability.export"):
+                "observability.export", "serving.fleet",
+                "serving.frontdoor", "serving.placement", "serving.netproto",
+                "serving.netedge", "serving.replica_worker",
+                "robustness.oracles"):
         assert f"transmogrifai_tpu_torch.{mod}" in walked, mod
 
 

@@ -1,7 +1,7 @@
 """The PyTorch port's pipelined serving dataplane against the serial loop
 and the JAX package (``transmogrifai_tpu_torch/serving/runtime.py``): the
-cases of ``tests/test_serve_pipeline.py`` but the fleet tier's replica kill
-(ROADMAP Queue 1 item 8b), on the port's CPU path.
+cases of ``tests/test_serve_pipeline.py`` but the replica kill with pipelined
+replicas (``test_torch_fleet.py``), on the port's CPU path.
 
 They serve the committed JAX-saved ``serve64/rf`` model (64 predictors, 50
 slot-chain trees). Its forest sums each row's trees in tree order on either

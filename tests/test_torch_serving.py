@@ -46,8 +46,8 @@ from transmogrifai_tpu_torch.robustness.policy import (  # noqa: E402
     FaultLog, FaultReport,
 )
 from transmogrifai_tpu_torch.serving import (  # noqa: E402
-    CircuitBreaker, DeadlineExceededError, ModelRegistry, OverloadError,
-    RuntimeStoppedError, ServeConfig, ServingRuntime,
+    CircuitBreaker, DeadlineExceededError, ModelRegistry, NetEdge,
+    OverloadError, RuntimeStoppedError, ServeConfig, ServingRuntime,
 )
 from transmogrifai_tpu_torch.serving.loadgen import (  # noqa: E402
     run_open_loop, run_wire_open_loop, synthetic_rows,
@@ -473,12 +473,24 @@ def test_fault_log_ring_bounds_reports(monkeypatch):
 
 # -- load generation ---------------------------------------------------------
 
+def _fired(site):
+    return faults.fired_counts().get(site, {}).get("raise", 0)
+
+
 @pytest.mark.chaos
 def test_chaos_soak_all_sites_with_overload(rf):
-    """serve.enqueue / serve.flush / serve.dispatch faults under an open
-    loop far above capacity over a tiny queue for 0.5 s: every offered
-    request accounted for, no untyped failure, the breaker seen in the
-    summary."""
+    """serve.enqueue / serve.flush / serve.dispatch faults under open loops
+    far above capacity over a tiny queue: every offered request accounted
+    for in every run, no untyped failure, the three enqueue faults counted
+    as submit errors, the breaker seen in the summary.
+
+    A loaded host can starve the generator: one submit that stalls for
+    the whole 0.5 s leaves a run with a single offered request. So runs
+    repeat until the enqueue faults fired inside them and one overflowed
+    the queue, and requests go one at a time until the four dispatch
+    faults fired (an open breaker dispatches again after its 50 ms
+    reset): how many runs that takes is the host's business, what each
+    run must account for is not."""
     rows = _rows(64, seed=5)
     with faults.injected({
             "serve.enqueue": {"mode": "raise", "nth": 10, "count": 3,
@@ -491,24 +503,25 @@ def test_chaos_soak_all_sites_with_overload(rf):
                                              max_wait_ms=1.0,
                                              breaker_failures=3,
                                              breaker_reset_ms=50.0)) as rt:
-            # a deadline the CPU path's flushes meet, so the four
-            # dispatch faults fire within the run and its drain
-            report = run_open_loop(rt, rows, seconds=0.5, rps=4000.0,
-                                   deadline_ms=1000.0)
-            # a loaded host can starve the generator to a few flushes:
-            # requests one at a time until the four dispatch faults fired
-            # (an open breaker dispatches again after its 50 ms reset)
+            reports = []
+            while len(reports) < 60 and not (
+                    _fired("serve.enqueue") >= 3
+                    and sum(r["shedOverload"] for r in reports)):
+                # a deadline the CPU path's flushes meet
+                reports.append(run_open_loop(rt, rows, seconds=0.5,
+                                             rps=4000.0, deadline_ms=1000.0))
             for i in range(100000):
-                if faults.fired_counts().get("serve.dispatch", {}).get(
-                        "raise", 0) >= 4:
+                if _fired("serve.dispatch") >= 4:
                     break
                 rt.score(rows[i % len(rows)], timeout=30)
             summary = rt.summary()
             assert rt.running
-    assert report["accountingOk"] and report["lost"] == 0
-    assert report["failed"] == 0 and report["completed"] > 0
-    assert report["shedOverload"] > 0
-    assert report["submitErrors"] == 3
+    for report in reports:
+        assert report["accountingOk"] and report["lost"] == 0
+        assert report["failed"] == 0
+    assert sum(r["completed"] for r in reports) > 0
+    assert sum(r["shedOverload"] for r in reports) > 0
+    assert sum(r["submitErrors"] for r in reports) == 3
     assert summary["degradedRows"] >= 1
     assert summary["breaker"]["opens"] >= 1
 
@@ -523,8 +536,21 @@ def test_open_loop_accounting_adds_up(rf):
                               + rep["lost"])
     assert rep["accountingOk"] and rep["lost"] == 0 and rep["completed"]
     assert rep["slowestRequests"] and rep["p99Ms"] >= rep["p50Ms"]
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        run_wire_open_loop("localhost", 1, [], 0.1, 1.0)
+    # the socket twin through the network edge: the same identity in rows,
+    # with its per-protocol breakdown
+    with ServingRuntime(rf, "olw", _cfg(max_batch=16, max_queue=256)) as rt:
+        with NetEdge(rt, name="olw-edge") as edge:
+            wire = run_wire_open_loop(*edge.address, _rows(32, seed=12),
+                                      seconds=0.5, rps=200.0, batch_rows=4)
+    assert wire["offered"] == (wire["completed"] + wire["shedOverload"]
+                               + wire["shedDeadline"]
+                               + wire["shedNoReplica"]
+                               + wire["shedDisconnect"]
+                               + wire["submitErrors"] + wire["failed"]
+                               + wire["lost"])
+    assert wire["accountingOk"] and wire["lost"] == 0
+    assert wire["failed"] == 0 and wire["completed"]
+    assert set(wire["protocols"]) == {"http", "binary"}
 
 
 def test_loadgen_synthetic_rows_match_schema(rf):

@@ -314,14 +314,35 @@ def test_device_backend_still_takes_tensors():
 # a streamed train through both packages
 # ---------------------------------------------------------------------------
 
+def _committer_leads(release_prev):
+    """A feed's ``_release_prev`` that first waits until the committer has
+    queued the next chunk (or the end). The feed's peak residency depends
+    on which thread runs ahead: a consumer slower than the committer holds
+    chunk k while chunk k+1 is counted in, a faster one has let k go. A
+    loaded host decides that differently run to run, so both packages'
+    trains take the same order here: the committer always leads, and the
+    peak is the largest pair of consecutive chunks."""
+    def release(self):
+        q = self._q
+        with q.not_empty:
+            q.not_empty.wait_for(
+                lambda: q._qsize() > 0 or self._stop.is_set(), timeout=60)
+        release_prev(self)
+    return release
+
+
 @pytest.fixture(scope="module")
 def trained_pair():
     out = {}
-    for key, ns in PKG.items():
-        table, _, _, _ = _table(ns, 3000, 8)
-        kw = {"device": "cpu"} if key == "port" else {}
-        model, src = _train(ns, table, 8, 450, **kw)
-        out[key] = (table, model, src)
+    with pytest.MonkeyPatch.context() as mp:
+        for feed_cls in (jstream.feed.DeviceFeed, pstream.feed.DeviceFeed):
+            mp.setattr(feed_cls, "_release_prev",
+                       _committer_leads(feed_cls._release_prev))
+        for key, ns in PKG.items():
+            table, _, _, _ = _table(ns, 3000, 8)
+            kw = {"device": "cpu"} if key == "port" else {}
+            model, src = _train(ns, table, 8, 450, **kw)
+            out[key] = (table, model, src)
     return out
 
 

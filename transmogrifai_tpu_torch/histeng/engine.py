@@ -12,8 +12,16 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from . import kernels as _kernels
 from .host import build_node_hist_host
 from .kernels import hist_matmul, node_hist_matmul
+
+
+def engine_probe() -> dict:
+    """Invariant probe for the oracles' no-leak check
+    (``robustness/oracles.histeng_violations``): the full-f32 blocks that
+    are open now, 0 between dispatches."""
+    return {"tf32_blocks": _kernels._TF32_BLOCKS}
 
 
 def build_hist(codes: torch.Tensor, A: torch.Tensor, n_bins: int,

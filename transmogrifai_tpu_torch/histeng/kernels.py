@@ -89,14 +89,21 @@ def _pad_to(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
+#: full-f32 blocks open now, process-wide (``engine_probe``)
+_TF32_BLOCKS = 0
+
+
 @contextmanager
 def _tf32_off():
     """Full-f32 matmuls on the card for the duration of the block."""
+    global _TF32_BLOCKS
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
+    _TF32_BLOCKS += 1
     try:
         yield
     finally:
+        _TF32_BLOCKS -= 1
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 

@@ -10,10 +10,14 @@ stands on):
 * ``resources`` — ``classify_exhaustion`` (a CUDA out-of-memory error or
   a host ``MemoryError`` as a typed ``ResourceExhaustedError``) and the
   downshift accounting;
-* ``watchdog`` — heartbeat hang detection for the feed's threads.
+* ``watchdog`` — heartbeat hang detection for the feed's threads;
+* ``oracles`` — the no-leak and invariant checks as library functions
+  (runtimes, fleets, edges, placers, feeds, hearts, refits, fault sites,
+  post-mortem bundles, the flight recorder, the ledger, SLO state and the
+  histogram engine).
 
-The JAX package's guards, oracles and chaos campaign are not ported
-(ROADMAP Queue 1 item 9).
+The JAX package's guards and chaos campaign are not ported (ROADMAP Queue
+1 item 9).
 """
 from . import faults  # noqa: F401
 from .faults import ALL_SITES, SimulatedPreemption, SiteSpec  # noqa: F401

@@ -16,9 +16,13 @@ snapshot, with the accounting identity offered = completed + sheds +
 submit errors + failed + lost (``accountingOk``). Submit-side failures
 (``OverloadError``, injected ``serve.enqueue`` chaos) are counted, never
 raised — a load generator that dies on the first shed cannot measure
-shedding. The same loop drives any target with the runtime's duck-typed
-``submit``/``summary``; the wire driver of the fleet tier waits for
-ROADMAP Queue 1 item 8b.
+shedding. The same loop drives a fleet :class:`~.frontdoor.FrontDoor`
+unchanged (duck-typed ``submit``/``summary``): failover retries happen
+inside the front door and resolve one future once, so a retried request
+cannot count twice. :func:`run_wire_open_loop` is the socket twin against
+a network edge (``netedge.py``), over either wire framing, with the
+disconnect bucket ``shedDisconnect`` and a per-protocol breakdown; its
+``WireClient`` reuses one encode buffer per connection.
 """
 from __future__ import annotations
 
@@ -292,15 +296,204 @@ def run_open_loop(runtime: ServingRuntime, rows: List[Dict[str, Any]],
     return report
 
 
+def _quantiles_ms(lat_s: List[float]) -> Dict[str, float]:
+    if not lat_s:
+        nan = float("nan")
+        return {"p50Ms": nan, "p95Ms": nan, "p99Ms": nan}
+    arr = np.asarray(lat_s) * 1e3
+    return {"p50Ms": round(float(np.percentile(arr, 50)), 3),
+            "p95Ms": round(float(np.percentile(arr, 95)), 3),
+            "p99Ms": round(float(np.percentile(arr, 99)), 3)}
+
+
 def run_wire_open_loop(host: str, port: int, rows: List[Dict[str, Any]],
-                       seconds: float, rps: float, **kw: Any
-                       ) -> Dict[str, Any]:
-    """The real-socket twin of :func:`run_open_loop` in the JAX package,
-    against a network edge. The port's fleet tier (``fleet``,
-    ``placement``, ``frontdoor``, ``netproto``, ``netedge``,
-    ``replica_worker`` and this wire driver) is not ported yet (ROADMAP
-    Queue 1 item 8b)."""
-    raise NotImplementedError(
-        "run_wire_open_loop drives the network edge of the fleet tier, "
-        "which the PyTorch port does not have yet (ROADMAP Queue 1 item "
-        "8b); drive a ServingRuntime in process with run_open_loop")
+                       seconds: float, rps: float,
+                       deadline_ms: Optional[float] = None,
+                       drain_timeout: float = 30.0,
+                       protocols: Any = ("http", "binary"),
+                       connections: int = 4,
+                       reconnect_every: int = 0,
+                       token: Optional[str] = None,
+                       tenant: Optional[str] = None,
+                       model: Optional[str] = None,
+                       request_timeout: float = 10.0,
+                       batch_rows: int = 1) -> Dict[str, Any]:
+    """The real-socket twin of :func:`run_open_loop`: offer ``rps``
+    *rows*/sec for ``seconds`` against a network edge
+    (serving/netedge.py), over ``connections`` keep-alive connections
+    cycling through ``protocols`` (HTTP/JSON and/or binary framing).
+    ``batch_rows`` groups that row stream into multi-row requests (the
+    natural shape for the columnar binary framing; 1 = a request per
+    row) — accounting stays in row units either way, so reports are
+    comparable across batch sizes and with :func:`run_open_loop`.
+
+    Coordinated-omission-free: arrivals follow the fixed schedule and
+    every latency is measured from the request's *scheduled* time, so a
+    stalled connection inflates the tail instead of silently thinning
+    the offered load. ``reconnect_every=N`` closes and reopens each
+    connection every N requests (the keep-alive + reconnect mix, so the
+    accept path stays exercised).
+
+    Socket-mode accounting: a connection dropped mid-request is the
+    typed ``shedDisconnect`` bucket — part of ``accountingOk``, never
+    ``lost``; ``lost`` is reserved for a request whose connection stayed
+    open but never produced a response inside ``request_timeout``. The
+    report matches :func:`run_open_loop` plus a per-protocol latency
+    breakdown under ``"protocols"``."""
+    import queue as _queue
+    import socket as _socket
+    import threading
+
+    from .netproto import WireClient, WireDisconnect
+    if rps <= 0:
+        raise ValueError(f"rps must be > 0, got {rps}")
+    protos = list(protocols) if not isinstance(protocols, str) \
+        else [protocols]
+    n_conn = max(1, int(connections))
+    queues = [_queue.Queue() for _ in range(n_conn)]
+    lock = threading.Lock()
+    counts = {"completed": 0, "quarantined": 0, "shedOverload": 0,
+              "shedDeadline": 0, "shedNoReplica": 0, "shedDisconnect": 0,
+              "submitErrors": 0, "failed": 0, "lost": 0, "processed": 0}
+    lat_all: List[float] = []
+    lat_proto: Dict[str, List[float]] = {p: [] for p in protos}
+    count_proto: Dict[str, Dict[str, int]] = {
+        p: {"requests": 0, "completed": 0} for p in protos}
+
+    #: edge per-row error reason -> accounting bucket (partial batches
+    #: come back 200 with per-row ``{"error": reason}`` entries)
+    _row_bucket = {"deadline": "shedDeadline", "no_replica": "shedNoReplica",
+                   "stopped": "shedNoReplica", "lost": "lost"}
+
+    def _worker(q: "_queue.Queue", proto: str) -> None:
+        cli = WireClient(host, port, protocol=proto, token=token,
+                         tenant=tenant, model=model,
+                         timeout=request_timeout)
+        sent = 0
+        try:
+            while True:
+                item = q.get()
+                if item is None:
+                    return
+                req_rows, scheduled_at = item
+                nrows = len(req_rows)
+                if reconnect_every and sent and \
+                        sent % reconnect_every == 0:
+                    cli.close()
+                sent += 1
+                bucket = "failed"
+                recs: List[Any] = []
+                try:
+                    res = cli.request(req_rows, deadline_ms=deadline_ms)
+                    if res.status == 200:
+                        bucket = "completed"
+                        recs = res.records or []
+                    elif res.status == 429:
+                        bucket = "shedOverload"
+                    elif res.status in (408, 504):
+                        bucket = "shedDeadline"
+                    elif res.status == 503:
+                        bucket = "shedNoReplica"
+                    else:
+                        bucket = "failed"
+                except WireDisconnect:
+                    bucket = "shedDisconnect"
+                except (_socket.timeout, TimeoutError):
+                    bucket = "lost"
+                    cli.close()
+                except Exception:
+                    bucket = "failed"
+                    cli.close()
+                elapsed = time.monotonic() - scheduled_at
+                with lock:
+                    counts["processed"] += nrows
+                    count_proto[proto]["requests"] += 1
+                    if bucket != "completed":
+                        counts[bucket] += nrows
+                        continue
+                    # a 200 accounts row by row: scored rows complete,
+                    # per-row error entries map to their typed bucket
+                    n_ok = 0
+                    for rec in recs:
+                        if isinstance(rec, dict) and set(rec) == {"error"}:
+                            counts[_row_bucket.get(rec["error"],
+                                                   "failed")] += 1
+                            continue
+                        n_ok += 1
+                        counts["completed"] += 1
+                        if isinstance(rec, dict) and SCORE_ERROR_KEY in rec:
+                            counts["quarantined"] += 1
+                    counts["failed"] += max(0, nrows - len(recs))
+                    count_proto[proto]["completed"] += n_ok
+                    if n_ok:
+                        lat_all.append(elapsed)
+                        lat_proto[proto].append(elapsed)
+        finally:
+            cli.close()
+
+    workers = [threading.Thread(
+        target=_worker, args=(queues[c], protos[c % len(protos)]),
+        name=f"tg-loadgen-wire-{c}", daemon=True)
+        for c in range(n_conn)]
+    for w in workers:
+        w.start()
+    k = max(1, int(batch_rows))
+    interval = k / rps  # arrivals are requests of k rows at rps rows/sec
+    start = time.monotonic()
+    t_end = start + seconds
+    next_at = start
+    offered = 0
+    i = 0
+    req = 0
+    while True:
+        now = time.monotonic()
+        if now >= t_end:
+            break
+        while next_at <= now and next_at < t_end:
+            batch = [rows[(i + j) % len(rows)] for j in range(k)]
+            queues[req % n_conn].put((batch, next_at))
+            offered += k
+            i += k
+            req += 1
+            next_at += interval
+        time.sleep(min(0.001, max(0.0, next_at - time.monotonic())))
+    for q in queues:
+        q.put(None)
+    drain_deadline = time.monotonic() + drain_timeout
+    for w in workers:
+        w.join(timeout=max(0.1, drain_deadline - time.monotonic()))
+    with lock:
+        snap = dict(counts)
+        lat = list(lat_all)
+        proto_out = {
+            p: {**count_proto[p], **_quantiles_ms(lat_proto[p])}
+            for p in protos}
+    # requests still queued / in flight after the drain budget never
+    # resolved either way — the one bucket that must stay zero
+    snap["lost"] += max(0, offered - snap.pop("processed"))
+    wall = time.monotonic() - start
+    report = {
+        "seconds": round(wall, 3),
+        "offered": offered,
+        "offeredRps": round(offered / wall, 1) if wall else 0.0,
+        "completed": snap["completed"],
+        "rowsPerSec": (round(snap["completed"] / wall, 1)
+                       if wall else 0.0),
+        "quarantined": snap["quarantined"],
+        "shedOverload": snap["shedOverload"],
+        "shedDeadline": snap["shedDeadline"],
+        "shedNoReplica": snap["shedNoReplica"],
+        "shedDisconnect": snap["shedDisconnect"],
+        "submitErrors": snap["submitErrors"],
+        "failed": snap["failed"],
+        "lost": snap["lost"],
+        "accountingOk": (offered == snap["completed"]
+                         + snap["shedOverload"] + snap["shedDeadline"]
+                         + snap["shedNoReplica"] + snap["shedDisconnect"]
+                         + snap["submitErrors"] + snap["failed"]
+                         + snap["lost"]),
+        **_quantiles_ms(lat),
+        # per-protocol latency breakdown (client-side, schedule->response)
+        "protocols": proto_out,
+    }
+    return report

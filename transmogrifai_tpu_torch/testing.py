@@ -2010,8 +2010,10 @@ def request_rows(frame: Dict[str, np.ndarray], n: Optional[int] = None
 
 
 def close_serving_state() -> List[str]:
-    """Close what a serving test left behind and say what it was: running
-    runtimes (closed without draining), drift refit threads (joined), open
+    """Close what a serving test left behind and say what it was: network
+    edges, fleet front doors and placers (closed first, so an edge's
+    handlers resolve while its target still accepts), running runtimes
+    (closed without draining), drift refit threads (joined), open
     watchdog hearts and attached sampler sources (closed and detached),
     armed fault sites (cleared); then the observability state is reset
     and the port's sampler and watchdog threads joined. The state is
@@ -2020,9 +2022,12 @@ def close_serving_state() -> List[str]:
     checks them.)"""
     from .observability import reset as obs_reset
     from .observability import timeseries
-    from .robustness import faults, watchdog
+    from .robustness import faults, oracles, watchdog
     from .serving import drift, live_runtimes
-    leaks = [f"runtime {rt.name}" for rt in live_runtimes()]
+    leaks = [f"network edge {n}" for n in oracles.close_leaked_net_edges()]
+    leaks += [f"fleet {n}" for n in oracles.close_leaked_fleets()]
+    leaks += [f"placer {n}" for n in oracles.close_leaked_placers()]
+    leaks += [f"runtime {rt.name}" for rt in live_runtimes()]
     for rt in live_runtimes():
         rt.close(drain=False)
     for t in drift.live_refits():
