@@ -15,7 +15,7 @@ Phases, in order; any failure exits nonzero:
     CV) once with ``hist_matmul``, ``node_hist`` and
     ``forest_predict_chain`` wrapped (every launch held to plain as in (b)
     below; ``node_hist``'s direct formula is held at these shapes in the
-    titanic_wcv, leads and tickets check trains, ``DIRECT_HELD_ELSEWHERE``)
+    titanic_wcv and leads check trains, ``DIRECT_HELD_ELSEWHERE``)
     and time each kernel's heaviest launch there; then the counted
     train against ``fixtures/titanic`` (what the JAX package made of the
     same file): vector metadata equal, 256 sampled rows bit-equal, the
@@ -106,7 +106,9 @@ Phases, in order; any failure exits nonzero:
     and the text similarities through ``transmogrify``, SanityChecker,
     the binary default list at full default grids. Before the counted
     paths one train with every launch of the three sweep kernels held to
-    plain (``tickets_kernel`` lines). "train tickets" against
+    plain (``node_hist`` not to its direct formula, whose shapes the leads
+    check train holds: ``DIRECT_HELD_ELSEWHERE``; ``tickets_kernel``
+    lines). "train tickets" against
     ``fixtures/tickets``: every vector block's sha256 the fixture's
     (word2vec and LDA included), the vector's metadata and 256 sampled
     rows, the SanityChecker's choices, the winner and its grid point,
@@ -389,6 +391,31 @@ Phases, in order; any failure exits nonzero:
     launch in the parent outside the timed loops is held bit-equal to
     plain; inside them one in ``FLEET_HOLD_EVERY``, on copies taken on
     the launching stream, held after the loop. Both predicts must launch;
+(resume) the checkpointed in-core train of ``default_binary`` (20,000 x
+    64, full default grids) killed and resumed on the card (``Resume``),
+    every stage uid from ``reset_uids`` as the JAX package's; each arm is
+    held to the unkilled checkpointed run (selection exact; refit params
+    and the 4,096 scores of ``score_frame()`` bit-equal): (a) that run,
+    bit-equal to (t)'s uncheckpointed ``default_binary``; (b) killed at
+    ``preempt.sweep`` after LR's records, resumed: RF, GBT and SVC sweep
+    and ``node_hist``, ``hist_matmul`` and ``forest_predict_chain``
+    launch; (c) killed at ``preempt.refit``: every family and both
+    upstream stages restore, and the resume launches no histogram
+    kernel; (d) killed at ``preempt.stage_fit`` (nth 2) and
+    ``preempt.checkpoint_write`` (nth 1); (e) ``oom.sweep`` on the RF
+    halves its grid and a real ``torch.cuda.OutOfMemoryError`` raised
+    once from its fit halves a half again: the RF's fold metrics
+    bit-equal to the unsplit sweep's; (f) ``fixtures/resume/default_binary``
+    (the JAX package's directory of this train killed at the refit)
+    resumes: every family restored, the JAX package's selection, the
+    refit's params and scores bit-equal to (a)'s; (g) a seeded
+    ``ChaosCampaign`` on the card (coverage singletons for every site but
+    ``WAITING_SITES``, then 4 random schedules): zero violations, 100%
+    coverage, no lost or failed request, the accounting identity (a
+    ``campaign`` line); (h) the runner's train with
+    ``log_stage_metrics``: ``appMetrics.byStage`` names every fitted
+    stage and ``compileCache.builds`` is the ledger's count. One line an
+    arm with its seconds and restored counts, then each path's launches;
 (d) print each path's launch counts and the ``kernels`` JSON line, whose
     launches are the sums over the paths;
 (e) print the card's name and power limit.
@@ -421,6 +448,7 @@ import torch
 # timers: one definition, shared with the per-pass profiler
 from transmogrifai_tpu_torch import profile_hist as PH
 from transmogrifai_tpu_torch.profile_hist import bound_ms, time_ms
+from transmogrifai_tpu_torch.device import synced_clock
 from transmogrifai_tpu_torch.models.api import to_numpy
 # the committed serve64 fixtures' frames (their models:
 # ``testing.SERVE_MODELS``)
@@ -1474,15 +1502,16 @@ def _within_sum_bound(tag, got, want, scale, n):
     return float(d.max()), share
 
 
+#: the Titanic and tickets check trains hold every ``node_hist`` launch
+#: to plain but none to the direct formula: the same sweeps' shapes (8,192
+#: rows, T 288 and 96, 529 to 589 four-byte codes) are held to it at each
+#: shape's first launch in the titanic_wcv and leads check trains. The
+#: formula took about 60% of the Titanic train's check and 37-41 s of the
+#: tickets train's (``python3 -m
+#: transmogrifai_tpu_torch.experiments.smoke_phases direct-cost[:TRAIN]``,
+#: PERF.md section 6): the room for the (fleet) and (resume) phases.
+DIRECT_HELD_ELSEWHERE = ("titanic_wcv", "leads")
 #: the direct node histogram's partials a feature block may hold, bytes
-#: the Titanic check train holds every ``node_hist`` launch to plain but
-#: none to the direct formula: the same sweep's shapes (8,192 rows, T 288
-#: and 96, 529 to 589 four-byte codes) are held to it at each shape's first
-#: launch in the titanic_wcv, leads and tickets check trains. The formula
-#: took about 60% of that train's check (``python3 -m
-#: transmogrifai_tpu_torch.experiments.smoke_phases direct-cost``, PERF.md
-#: section 6): the room for the (fleet) phase.
-DIRECT_HELD_ELSEWHERE = ("titanic_wcv", "leads", "tickets")
 DIRECT_BLOCK_BYTES = 4 << 30
 
 
@@ -2084,8 +2113,9 @@ def train_against_fixture(key: str):
     # summary.json; that key's saved model stands for its refit
     path = os.path.join(FIXTURES, SHARED_REFITS.get(key, key))
     save_and_reload(key, model, path, score_frame())
-    if key == DRIFT_KEY:
-        TRAINED[key] = model            # the (serving) phase's drift model
+    if key in (DRIFT_KEY, "default_binary"):
+        # the (serving) phase's drift model; (resume)'s uncheckpointed run
+        TRAINED[key] = model
     ref = tt.load_model(path)
     rs, ps = ref.stages[-1], model.stages[-1]
     if model.stages[-2].keep_indices != ref.stages[-2].keep_indices:
@@ -3319,8 +3349,8 @@ class Tickets:
         to plain; then each one's heaviest launch timed."""
         t0 = time.perf_counter()
         wf, _, _, _ = self.workflow()
-        with _KernelChecks(keep_heaviest=True,
-                           direct_per_shape=True) as checks:
+        with _KernelChecks(keep_heaviest=True, direct_per_shape=True,
+                           direct=False) as checks:
             wf.train()
             torch.cuda.synchronize()
         checks.report("tickets", ("hist_matmul", "node_hist",
@@ -4442,6 +4472,39 @@ def _forest_kernels(model, pred=None):
             (F.FOREST_PREDICT_HEAP,) if "feat" in params else ())
 
 
+def _resume_paths(resume: "Resume", run_path) -> dict:
+    """The (resume) phase's counted paths: each arm's resume (or train)
+    between zeroed and read counts; the kills run outside them."""
+    from transmogrifai_tpu_torch.histeng import kernels as HK
+    from transmogrifai_tpu_torch.ops import forest as F
+    sweep = (HK.HIST_MATMUL, HK.NODE_HIST, F.FOREST_PREDICT_CHAIN)
+    t0 = time.perf_counter()
+    paths = {"resume (a)": run_path("resume (a)", resume.unkilled, sweep)}
+    resume.kill_sweep()
+    paths["resume (b)"] = run_path("resume (b)", resume.resume_sweep, sweep)
+    resume.kill_refit()
+    paths["resume (c)"] = run_path("resume (c)", resume.resume_refit, ())
+    trees = {k: paths["resume (c)"][k.name] for k in sweep[:2]}
+    if any(trees.values()):
+        raise AssertionError(f"(resume) (c): the replayed sweep launched "
+                             f"histogram kernels {trees}")
+    paths["resume (d)"] = run_path("resume (d)", resume.kills, sweep)
+    paths["resume (e)"] = run_path("resume (e)", resume.split, sweep)
+    paths["resume (f)"] = run_path("resume (f)", resume.jax_dir, ())
+    if any(paths["resume (f)"][k.name] for k in sweep[:2]):
+        raise AssertionError("(resume) (f): the replayed sweep launched "
+                             "histogram kernels")
+    paths["resume (g) campaign"] = run_path(
+        "resume (g) campaign", resume.campaign, (F.FOREST_PREDICT_HEAP,))
+    paths["resume (h)"] = run_path("resume (h)", resume.runner, sweep)
+    for name, counts in paths.items():
+        print(f"(resume) launches, {name}: "
+              f"{ {k: v for k, v in counts.items() if v} }")
+    print(f"(resume) phase: {time.perf_counter() - t0:.3f} s, arms "
+          f"{ {k: round(v, 3) for k, v in resume.seconds.items()} }")
+    return paths
+
+
 def _stream_paths(stream: "Stream", run_path) -> dict:
     """The (stream) phase's two paths; the folds run on the host and the
     card holds the chunks and runs the fill and the column select, so
@@ -5516,6 +5579,295 @@ class Fleet:
               f"{FLEET_HOLD_EVERY} there)")
 
 
+RESUME_FIXTURE = os.path.join(HERE, "transmogrifai_tpu_torch", "fixtures",
+                              "resume", "default_binary")
+#: the kill sites of arm (d), as ``tests/test_preemption.py`` kills them
+RESUME_KILLS = (("preempt.stage_fit", 2), ("preempt.checkpoint_write", 1))
+
+
+class Resume:
+    """(resume): the checkpointed in-core train of the serve bench's
+    default binary list (20,000 x 64, full default grids), killed and
+    resumed on the card; each arm is held to the unkilled checkpointed
+    run: the selection exact, the refit's parameters and the scores of
+    ``testing.score_frame()`` bit-equal."""
+
+    FAMILIES = ("OpLogisticRegression", "OpRandomForestClassifier",
+                "OpGBTClassifier", "OpLinearSVC")
+
+    def __init__(self, tmp: str, dev):
+        from transmogrifai_tpu_torch.testing import (
+            score_frame, serve_bench_data)
+        self.tmp = os.path.join(tmp, "resume")
+        os.makedirs(self.tmp)
+        self.dev = dev
+        self.data = serve_bench_data(TRAIN_ROWS, N_FEATURES, TRAIN_SEED)
+        self.frame = score_frame()
+        self.ref = None
+        #: each arm's wall seconds (kill and resume, or train)
+        self.seconds = {}
+
+    def workflow(self, ckpt=None):
+        """The default list's workflow, built after ``reset_uids`` as the
+        JAX package built the committed directory's."""
+        from transmogrifai_tpu_torch.features import reset_uids
+        from transmogrifai_tpu_torch.testing import serve_bench_workflow
+        reset_uids()
+        wf = serve_bench_workflow(None, None, N_FEATURES, TRAIN_SEED,
+                                  device=self.dev)
+        wf.set_input_dataset(self.data)
+        return wf if ckpt is None else wf.with_checkpoint_dir(ckpt)
+
+    def outcome(self, model) -> dict:
+        sel = model.stages[-1]
+        s = sel.summary
+        scored = model.score(data=self.frame)[model.result_features[0].name]
+        return {"selection": (s.best_model_type, s.best_hyper,
+                              s.best_metric_value),
+                "folds": {r.family: np.asarray(r.fold_metrics)
+                          for r in s.validation_results},
+                "params": to_numpy(sel.fitted.params),
+                "scores": scored.values.cpu().numpy()}
+
+    def _same(self, tag: str, model, folds=True, selection=True) -> dict:
+        got, want = self.outcome(model), self.ref
+        if selection and got["selection"] != want["selection"]:
+            raise AssertionError(f"(resume) {tag}: selection "
+                                 f"{got['selection']}, unkilled "
+                                 f"{want['selection']}")
+        if folds and any(not np.array_equal(got["folds"][f], v)
+                         for f, v in want["folds"].items()):
+            raise AssertionError(f"(resume) {tag}: fold metrics differ")
+        if set(got["params"]) != set(want["params"]) or any(
+                not np.array_equal(got["params"][k], want["params"][k])
+                for k in want["params"]):
+            raise AssertionError(f"(resume) {tag}: refit params differ")
+        if not np.array_equal(got["scores"], want["scores"]):
+            gap = np.abs(got["scores"] - want["scores"]).max()
+            raise AssertionError(f"(resume) {tag}: scores differ (max "
+                                 f"{gap:.3g})")
+        return got
+
+    def _kill(self, ckpt, site, nth, resume=False) -> None:
+        from transmogrifai_tpu_torch.robustness import faults
+        with faults.injected({site: {"mode": "preempt", "nth": nth}}):
+            try:
+                self.workflow(ckpt).train(resume=resume)
+            except faults.SimulatedPreemption:
+                return
+        raise AssertionError(f"(resume) the train was not killed at {site}")
+
+    def _resume(self, tag, ckpt, restored_families):
+        t0 = time.perf_counter()
+        model = self.workflow(ckpt).train(resume=True)
+        secs = synced_clock(self.dev) - t0
+        res = model.summary()["resume"]
+        fams = [r["family"] for r in res["restoredSweepCandidates"]]
+        if fams != list(restored_families):
+            raise AssertionError(f"(resume) {tag}: restored families {fams},"
+                                 f" expected {list(restored_families)}")
+        self._same(tag, model)
+        self.seconds[tag] = secs
+        print(f"(resume) {tag}: resumed in {secs:.3f} s, restored stages "
+              f"{len(res['restoredStages'])}, refit stages "
+              f"{len(res['refitStages'])}, restored sweep families {fams}")
+        return model
+
+    def unkilled(self):
+        """(a): the unkilled checkpointed train, bit-equal to (t)'s
+        uncheckpointed ``default_binary`` train (the per-family host fetch
+        and the commits move no bit)."""
+        t0 = time.perf_counter()
+        model = self.workflow(os.path.join(self.tmp, "a")).train()
+        self.seconds["a"] = synced_clock(self.dev) - t0
+        self.ref = self.outcome(model)
+        self._same("(a) vs the uncheckpointed train",
+                   TRAINED["default_binary"])
+        ck = os.path.join(self.tmp, "a")
+        files = sorted(os.listdir(ck))
+        print(f"(resume) (a) checkpointed train: {self.seconds['a']:.3f} s "
+              f"({len(files)} files committed), winner "
+              f"{self.ref['selection']}: bit-equal to the uncheckpointed "
+              f"train (selection, fold metrics, refit params, "
+              f"{len(self.ref['scores'])} scores)")
+
+    def kill_sweep(self):
+        self._kill(os.path.join(self.tmp, "b"), "preempt.sweep", 2)
+
+    def resume_sweep(self):
+        """(b): killed at ``preempt.sweep`` after LR's records; the resume
+        sweeps RF, GBT and SVC on the card."""
+        self._resume("(b) preempt.sweep", os.path.join(self.tmp, "b"),
+                     self.FAMILIES[:1])
+
+    def kill_refit(self):
+        self._kill(os.path.join(self.tmp, "c"), "preempt.refit", 1)
+
+    def resume_refit(self):
+        """(c): killed at ``preempt.refit``; every family and the
+        upstream stages restore."""
+        m = self._resume("(c) preempt.refit", os.path.join(self.tmp, "c"),
+                         self.FAMILIES)
+        if len(m.summary()["resume"]["restoredStages"]) != 2:
+            raise AssertionError("(resume) (c): the upstream stages did not "
+                                 "restore")
+
+    def kills(self):
+        """(d): killed at ``preempt.stage_fit`` (the second estimator) and
+        inside the first checkpoint write; the torn write is reported and
+        refit."""
+        for site, nth in RESUME_KILLS:
+            ck = os.path.join(self.tmp, site)
+            self._kill(ck, site, nth)
+            m = self._resume(f"(d) {site}", ck, ())
+            skipped = m.summary()["faults"]["checkpointsSkipped"]
+            if site == "preempt.checkpoint_write" and not skipped:
+                raise AssertionError("(resume) (d): the torn checkpoint "
+                                     "write was not reported")
+
+    def split(self):
+        """(e): ``oom.sweep`` on the RF family halves its grid, and a real
+        ``torch.cuda.OutOfMemoryError`` raised once from the RF's fit
+        halves one half again: the RF's (F, G) fold metrics are the
+        unsplit sweep's bit for bit, and the outcome is unchanged."""
+        from transmogrifai_tpu_torch.models.api import MODEL_REGISTRY
+        from transmogrifai_tpu_torch.robustness import faults
+        rf = type(MODEL_REGISTRY["OpRandomForestClassifier"])
+        orig = rf.sweep_fit_batch
+        calls = []
+
+        def once(self, *a, **k):
+            calls.append(a[2].shape[0])
+            if len(calls) == 1:
+                raise torch.cuda.OutOfMemoryError(
+                    "CUDA out of memory (raised once by chip_smoke)")
+            return orig(self, *a, **k)
+        rf.sweep_fit_batch = once
+        t0 = time.perf_counter()
+        try:
+            with faults.injected({"oom.sweep": {
+                    "mode": "oom", "nth": 1,
+                    "key": "OpRandomForestClassifier"}}):
+                model = self.workflow().train()
+        finally:
+            rf.sweep_fit_batch = orig
+        self.seconds["e"] = synced_clock(self.dev) - t0
+        self._same("(e) oom.sweep", model)
+        ds = model.summary()["faults"]["oomDownshifts"]
+        splits = [d["detail"]["splitConfigs"] for d in ds]
+        G = len(MODEL_REGISTRY["OpRandomForestClassifier"].default_grid(
+            "binary"))
+        half = G // 2
+        if splits != [[half, G - half], [half // 2, half - half // 2]] or \
+                "OutOfMemoryError" not in ds[1]["detail"]["error"]:
+            raise AssertionError(f"(resume) (e): downshifts {ds}")
+        print(f"(resume) (e) oom.sweep on the RF: {self.seconds['e']:.3f} s, "
+              f"grid splits {splits} (the second from a real "
+              f"torch.cuda.OutOfMemoryError; RF fits of {calls} fold x "
+              f"config rows), RF fold metrics bit-equal to the unsplit "
+              f"sweep's, winner unchanged, no quarantine")
+
+    def jax_dir(self):
+        """(f): the committed directory the JAX package wrote for this
+        train, killed at ``preempt.refit``, resumes in the port: every
+        family restores from the JAX records, the selection is the JAX
+        package's (``serve64/default_binary/summary.json``), and the
+        refit on the restored stages gives the unkilled run's scores."""
+        ck = os.path.join(self.tmp, "f")
+        shutil.copytree(RESUME_FIXTURE, ck)
+        t0 = time.perf_counter()
+        model = self.workflow(ck).train(resume=True)
+        self.seconds["f"] = synced_clock(self.dev) - t0
+        res = model.summary()["resume"]
+        fams = {r["family"] for r in res["restoredSweepCandidates"]}
+        with open(os.path.join(FIXTURES, "default_binary",
+                               "summary.json")) as fh:
+            want = json.load(fh)
+        s = model.stages[-1].summary
+        got = (s.best_model_type, s.best_hyper, s.best_metric_value)
+        if fams != set(self.FAMILIES) or len(res["restoredStages"]) != 2:
+            raise AssertionError(f"(resume) (f): restored {res}")
+        if got != (want["winner"], want["hyper"], want["value"]) or \
+                got[:2] != self.ref["selection"][:2]:
+            raise AssertionError(f"(resume) (f): selection {got}, the JAX "
+                                 f"package's {want}, unkilled "
+                                 f"{self.ref['selection']}")
+        # the metric is the JAX package's (restored); the refit is the
+        # port's, on the stages the JAX package fitted
+        self._same("(f) the JAX-written directory", model, folds=False,
+                   selection=False)
+        print(f"(resume) (f) JAX-written directory: resumed in "
+              f"{self.seconds['f']:.3f} s, restored stages "
+              f"{res['restoredStages']}, restored families {sorted(fams)}, "
+              f"winner {got} (the JAX package's), scores bit-equal to the "
+              f"unkilled run")
+
+    def campaign(self):
+        """(g): a seeded chaos campaign on the card. Its post-mortems
+        (replica kills, escaped typed errors) go to a directory of their
+        own, and the process's dump counters are reset after it: the
+        dumps are rate-limited per process, and a later phase waits for
+        its own."""
+        from transmogrifai_tpu_torch.observability import postmortem as pm
+        from transmogrifai_tpu_torch.robustness.campaign import (
+            ChaosCampaign, campaign_sites)
+        t0 = time.perf_counter()
+        prev = os.environ.get("TG_POSTMORTEM_DIR")
+        os.environ["TG_POSTMORTEM_DIR"] = os.path.join(self.tmp,
+                                                       "postmortems")
+        eng = ChaosCampaign(seed=7, device=self.dev,
+                            workdir=os.path.join(self.tmp, "campaign"))
+        try:
+            doc = eng.run(count=len(campaign_sites()) + 4).to_json()
+        finally:
+            eng.close()
+            pm.reset()
+            if prev is None:
+                os.environ.pop("TG_POSTMORTEM_DIR", None)
+            else:
+                os.environ["TG_POSTMORTEM_DIR"] = prev
+        secs = time.perf_counter() - t0
+        acct = doc["accounting"]
+        if (doc["violations"] or doc["uncovered"]
+                or doc["coveragePct"] != 100.0 or acct["lost"]
+                or acct["failed"] or acct["submitted"] != acct["completed"]
+                + acct["shed"] + acct["cancelled"]):
+            raise AssertionError("(resume) (g) campaign: " + json.dumps(
+                {k: doc[k] for k in ("violations", "uncovered",
+                                     "accounting")}, default=str)[:4000])
+        by_scenario = {}
+        for r in doc["results"]:
+            by_scenario[r["scenario"]] = by_scenario.get(r["scenario"], 0) + 1
+        print(f"(resume) campaign on {self.dev}: {doc['schedules']} "
+              f"schedules {by_scenario}, coverage {doc['coveragePct']}% of "
+              f"{doc['sites']} sites, 0 violations, accounting {acct}, "
+              f"{secs:.3f} s")
+
+    def runner(self):
+        """(h): the runner's train with ``log_stage_metrics``."""
+        from transmogrifai_tpu_torch.observability import ledger
+        from transmogrifai_tpu_torch.readers.readers import FrameReader
+        from transmogrifai_tpu_torch.runner import OpParams, OpWorkflowRunner
+        from transmogrifai_tpu_torch.stages.base import Estimator
+        wf = self.workflow()
+        res = OpWorkflowRunner(wf, train_reader=FrameReader(self.data)).run(
+            "train", OpParams(log_stage_metrics=True))
+        app = res.metrics["appMetrics"]
+        fitted = {type(s).__name__ for s in wf.stages
+                  if isinstance(s, Estimator)}
+        if not fitted <= set(app["byStage"]):
+            raise AssertionError(f"(resume) (h): byStage {app['byStage']} "
+                                 f"misses a fitted stage of {fitted}")
+        if app["compileCache"]["builds"] != ledger.ledger().total:
+            raise AssertionError("(resume) (h): compileCache.builds is not "
+                                 "the ledger's")
+        self._same("(h) runner", res.model)
+        print(f"(resume) (h) runner train with log_stage_metrics: byStage "
+              f"{ {k: round(v, 4) for k, v in app['byStage'].items()} }, "
+              f"compileCache {app['compileCache']}, device memory peak "
+              f"{(app.get('deviceMemory') or {}).get('peak_bytes_in_use')}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5648,6 +6000,7 @@ def _run(dev, kernels, tmp) -> int:
         paths[f"train {key}"] = run_path(
             f"train {key}", lambda key=key: train_against_fixture(key),
             path_kernels)
+    paths.update(_resume_paths(Resume(tmp, dev), run_path))
     phase_killed_save()
     phase_calibrator(dev)
     for key in ("gbt", "gbt12", "gbtreg", "xgbmc"):

@@ -1815,3 +1815,60 @@ def test_fleet_on_the_card_with_a_subprocess_replica(cuda, tmp_path):
         fd.kill_replica(child.rid)
         assert [f.result(timeout=120) for f in futs] == want
         assert fd.fleet_snapshot()["kills"] == 1
+
+
+def test_killed_tree_sweep_resumes_bit_equal_on_the_card(cuda, tmp_path):
+    """A checkpointed train whose selector sweeps LR, a small RF and a
+    small GBT on the card, killed at ``preempt.sweep`` after LR's
+    records and resumed: the RF and GBT sweep on the card (the histogram
+    kernels launch) and the model is the unkilled run's bit for bit (the
+    selection, every family's fold metrics, the refit's params and the
+    scores)."""
+    from transmogrifai_tpu_torch.features import reset_uids
+    from transmogrifai_tpu_torch.models.api import MODEL_REGISTRY, to_numpy
+    from transmogrifai_tpu_torch.robustness import faults
+    from transmogrifai_tpu_torch.testing import (
+        serve_bench_data, serve_bench_workflow)
+    data = serve_bench_data(3000, 8, seed=0)
+    rf = [{"maxDepth": d, "numTrees": 4, "minInstancesPerNode": 10,
+           "minInfoGain": 0.001, "subsamplingRate": 1.0} for d in (3, 12)]
+    gbt = [{"maxDepth": 3, "maxIter": 5, "minInstancesPerNode": 10,
+            "minInfoGain": 0.001, "stepSize": 0.1}]
+    lr = [{"regParam": 0.01, "elasticNetParam": 0.0}]
+
+    def train(ckpt=None, resume=False):
+        reset_uids()
+        wf = serve_bench_workflow(None, None, 8, seed=0, device=cuda)
+        sel = wf.stages[-1]
+        sel.models = [(MODEL_REGISTRY["OpLogisticRegression"], lr),
+                      (MODEL_REGISTRY["OpRandomForestClassifier"], rf),
+                      (MODEL_REGISTRY["OpGBTClassifier"], gbt)]
+        wf.set_input_dataset(data)
+        if ckpt is not None:
+            wf.with_checkpoint_dir(ckpt)
+        return wf.train(resume=resume)
+
+    def outcome(model):
+        s = model.stages[-1].summary
+        return (s.best_model_type, s.best_hyper, s.best_metric_value,
+                [np.asarray(r.fold_metrics).tobytes()
+                 for r in s.validation_results],
+                {k: v.tobytes() for k, v in to_numpy(
+                    model.stages[-1].fitted.params).items()},
+                model.score(data=data)[model.result_features[0].name]
+                .values.cpu().numpy().tobytes())
+
+    want = outcome(train(str(tmp_path / "clean")))
+    ck = str(tmp_path / "killed")
+    with faults.injected({"preempt.sweep": {"mode": "preempt", "nth": 2}}):
+        with pytest.raises(faults.SimulatedPreemption):
+            train(ck)
+    for k in (HK.HIST_MATMUL, HK.NODE_HIST):
+        k.launches = 0
+    model = train(ck, resume=True)
+    torch.cuda.synchronize()
+    assert HK.NODE_HIST.launches > 0
+    res = model.summary()["resume"]
+    assert [r["family"] for r in res["restoredSweepCandidates"]] == [
+        "OpLogisticRegression"]
+    assert outcome(model) == want

@@ -470,7 +470,8 @@ def test_js_divergence_sketches_match_dense_path():
 def test_workflow_drift_refit_hook(tmp_path):
     """``OpWorkflow.drift_refit_hook`` trains, saves under a fresh
     ``refit_N`` directory and returns a loadable path; with ``resume=True``
-    the in-core train raises naming ROADMAP Queue 1 item 9."""
+    it needs a checkpoint dir (a ValueError without one, as in the JAX
+    package), and with one the refit resumes from it."""
     wf = _workflow()
     hook = wf.drift_refit_hook(str(tmp_path))
     p1 = hook("m", None, {})
@@ -478,5 +479,10 @@ def test_workflow_drift_refit_hook(tmp_path):
     assert p1.endswith("refit_000001") and p2.endswith("refit_000002")
     loaded = port.load_model(p1, device="cpu")
     assert micro_batch_score_function(loaded)(_rows(1))[0] is not None
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="with_checkpoint_dir"):
         wf.drift_refit_hook(str(tmp_path), resume=True)("m", None, {})
+    wf.with_checkpoint_dir(str(tmp_path / "ckpt"))
+    p3 = wf.drift_refit_hook(str(tmp_path / "resumed"))("m", None, {})
+    resumed = port.load_model(p3, device="cpu")
+    assert (micro_batch_score_function(resumed)(_rows(4))
+            == micro_batch_score_function(loaded)(_rows(4)))

@@ -253,8 +253,6 @@ def test_stage_params_reach_the_stage():
 
 def test_runner_refusals():
     jr, pr, jpred, data = _runners()
-    with pytest.raises(ValueError, match="Queue 1 item 9"):
-        pr.run("train", prun.OpParams(log_stage_metrics=True))
     with pytest.raises(ValueError, match="unknown run type"):
         pr.run("fit")
     with pytest.raises(ValueError, match="Parquet"):

@@ -707,7 +707,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "observability.export", "serving.fleet",
                 "serving.frontdoor", "serving.placement", "serving.netproto",
                 "serving.netedge", "serving.replica_worker",
-                "robustness.oracles"):
+                "robustness.oracles", "robustness.guards",
+                "robustness.campaign", "impl.tuning.sweep_checkpoint",
+                "parallel.distributed", "utils.profiler", "cli"):
         assert f"transmogrifai_tpu_torch.{mod}" in walked, mod
 
 

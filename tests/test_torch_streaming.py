@@ -526,10 +526,13 @@ def test_the_in_core_train_takes_no_checkpoints_yet(tmp_path):
     table, _, _, _ = _table(PNS, 200, 3)
     wf.set_input_dataset({n: table[n].host_values()
                           for n in table.column_names})
-    for call in (lambda: wf.train(resume=True),
-                 lambda: wf.with_checkpoint_dir(str(tmp_path)).train()):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            call()
+    # the in-core train checkpoints now: resume needs a directory, as in
+    # the JAX package, and a checkpointed train commits its stages
+    with pytest.raises(ValueError, match="with_checkpoint_dir"):
+        wf.train(resume=True)
+    model = wf.with_checkpoint_dir(str(tmp_path)).train()
+    assert model.summary()["resume"]["refitStages"]
+    assert os.path.isfile(os.path.join(str(tmp_path), "MANIFEST.json"))
     wf._checkpoint_dir = None
     wf.with_mesh(object())
     with pytest.raises(NotImplementedError, match="item 10"):

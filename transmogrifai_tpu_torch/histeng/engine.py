@@ -17,6 +17,13 @@ from .host import build_node_hist_host
 from .kernels import hist_matmul, node_hist_matmul
 
 
+def chaos_gate(family_name: str) -> None:
+    """Fault site ``hist.build``: fires before a tree family's sweep
+    builds its histograms; a raise quarantines the family."""
+    from ..robustness import faults
+    faults.inject("hist.build", key=family_name)
+
+
 def engine_probe() -> dict:
     """Invariant probe for the oracles' no-leak check
     (``robustness/oracles.histeng_violations``): the full-f32 blocks that

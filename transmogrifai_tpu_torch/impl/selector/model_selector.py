@@ -13,8 +13,14 @@ parameters yields to the next-ranked candidate (at most
 
 Workflow-level CV (``find_best_estimator``) validates with fold copies of
 the label-dependent stages that feed the selector and records the winner,
-which the next ``fit`` refits without a sweep of its own. Mesh sharding
-and sweep checkpoints are not ported (see ROADMAP.md).
+which the next ``fit`` refits without a sweep of its own.
+
+``set_sweep_checkpoint`` (wired by ``OpWorkflow.with_checkpoint_dir``)
+makes the sweep resumable (``impl.tuning.sweep_checkpoint``). Sites:
+``preempt.refit`` between the sweep and the refit, and ``selector.refit``
+before each refit attempt (a raise there refits the next-ranked
+candidate, recorded as ``selector.refit``/``quarantine``). Mesh sharding
+is not ported (ROADMAP Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -28,15 +34,17 @@ import torch
 
 from ...device import synced_clock
 from ...models.api import MODEL_REGISTRY, FittedParams, ModelFamily
+from ...robustness import faults
+from ...robustness.guards import (
+    AllCandidatesFailedError, params_finite, quarantine_non_finite,
+)
+from ...robustness.policy import FaultLog, FaultReport
 from ...stages.base import AllowLabelAsInput, Estimator, Transformer
 from ...table import Column, FeatureTable
 from ...types import OPVector, Prediction, RealNN
 from ...utils.padding import bucket_for
 from ..tuning.splitters import DataSplitter, PreparedData, Splitter
-from ..tuning.validators import (
-    AllCandidatesFailedError, BestEstimator, OpCrossValidation, OpValidator,
-    quarantine_non_finite,
-)
+from ..tuning.validators import BestEstimator, OpCrossValidation, OpValidator
 
 #: refit-fallback depth: how many ranked candidates may be tried when the
 #: winner's full-data refit diverges before the train aborts
@@ -95,20 +103,8 @@ class ModelSelectorSummary:
         }
 
 
-def _params_finite(params: Dict[str, Any],
-                   allow_inf: Sequence[str]) -> bool:
-    """Every float tensor leaf finite (tuples of tensors, as the MLP's,
-    included); keys in ``allow_inf`` (tree thresholds, whose +inf marks a
-    stopped node) are checked for NaN only."""
-    for k, v in params.items():
-        for t in (v if isinstance(v, tuple) else (v,)):
-            if not (isinstance(t, torch.Tensor)
-                    and torch.is_floating_point(t)):
-                continue
-            bad = torch.isnan(t) if k in allow_inf else ~torch.isfinite(t)
-            if bool(bad.any()):
-                return False
-    return True
+#: the old name of ``robustness.guards.params_finite``
+_params_finite = params_finite
 
 
 class ModelSelector(AllowLabelAsInput, Estimator):
@@ -132,6 +128,16 @@ class ModelSelector(AllowLabelAsInput, Estimator):
         self.splitter = splitter if splitter is not None else DataSplitter()
         self.evaluator = evaluator
         self.models = self._resolve_models(models)
+
+    def set_sweep_checkpoint(self, ckpt) -> "ModelSelector":
+        """Resumable sweeps (wired by ``OpWorkflow.with_checkpoint_dir``):
+        each family's fold metrics are committed to ``ckpt`` (a
+        ``SweepCheckpoint``) as the family finishes, and a resumed train
+        replays the committed families that match its data, folds and
+        sweep settings. Train-time wiring only; never saved with the
+        model."""
+        self.validator._sweep_ckpt = ckpt
+        return self
 
     def _resolve_models(self, models):
         from ...models import glm, linear, mlp, trees  # noqa: F401
@@ -300,6 +306,10 @@ class ModelSelector(AllowLabelAsInput, Estimator):
                                            metric_name, larger_better,
                                            num_classes)
 
+        # a kill here has the sweep committed (with a checkpoint dir) and
+        # no refit: a resume replays the sweep and goes straight to it
+        faults.inject("preempt.refit")
+
         # refit the winner on the full prepared train rows, bucket-padded
         # with zero weights as in the JAX package
         n_fit = yd.shape[0]
@@ -311,29 +321,35 @@ class ModelSelector(AllowLabelAsInput, Estimator):
         # the winner refits with a non-finite guard; a refit that fails
         # numerically (non-finite params, a singular solve) yields to the
         # next-ranked candidate (with no fault the first candidate is the
-        # sweep winner). Any other error, a kernel's launch or build among
-        # them, is raised: the JAX package catches every exception here,
-        # which on the card would turn a kernel fault into another model
+        # sweep winner), as does a fault injected at ``selector.refit``.
+        # Any other error, a kernel's launch or build among them, is
+        # raised: the JAX package catches every exception here, which on
+        # the card would turn a kernel fault into another model
         fitted, used = None, None
         refit_quarantine: List[Dict[str, Any]] = []
         for fam_name, hyper, value in _ranked_candidates(
                 best, larger_better)[:_MAX_REFIT_ATTEMPTS]:
             family = MODEL_REGISTRY[fam_name]
             try:
+                faults.inject("selector.refit", key=fam_name)
                 params = family.select_params(family.fit_batch(
                     Xf, yf, W, family.grid_to_arrays([hyper]), num_classes),
                     0)
-                if not _params_finite(params, self._INF_OK_PARAMS):
+                if not params_finite(params, self._INF_OK_PARAMS):
                     raise ArithmeticError(
                         "refit produced non-finite fitted params")
-            except (ArithmeticError, torch.linalg.LinAlgError) as e:
+            except (ArithmeticError, torch.linalg.LinAlgError,
+                    faults.InjectedFaultError,
+                    faults.TransientFaultError) as e:
                 reason = f"refit failed: {type(e).__name__}: {e}"
                 logging.getLogger(__name__).warning(
                     "%s %s: %s; refitting the next-ranked candidate",
                     fam_name, dict(hyper), reason)
-                refit_quarantine.append({
-                    "family": fam_name, "hyper": dict(hyper),
-                    "reason": reason})
+                rec = {"family": fam_name, "hyper": dict(hyper),
+                       "reason": reason}
+                refit_quarantine.append(rec)
+                FaultLog.record(FaultReport(site="selector.refit",
+                                            kind="quarantine", detail=rec))
                 continue
             fitted = FittedParams(family=fam_name, params=params,
                                   hyper=dict(hyper), num_classes=num_classes)

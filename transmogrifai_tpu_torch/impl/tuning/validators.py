@@ -10,26 +10,59 @@ subsample) and the validation metric is computed per configuration.
 ``validate(..., val_masks=...)`` takes explicit (F, n) validation masks:
 workflow-level CV validates one externally prepared fold at a time.
 
-This is the single-device path. The JAX package's sweep checkpoints and
-memory-pressure grid splitting (ROADMAP Queue 1 item 9), mesh sharding
-(item 10), fused program cache, AOT program store and chaos sites are not
+Robustness, as in the JAX package: a family whose sweep raises is
+quarantined (a NaN placeholder and its reason) and the other families go
+on; only "every candidate failed" raises ``AllCandidatesFailedError``. A
+family that runs out of memory (``torch.cuda.OutOfMemoryError``, a host
+``MemoryError`` or the ``oom.sweep`` site) sweeps its grid in halves,
+down to single configurations, and the halves' (F, G) metrics are
+concatenated: each configuration's metric does not depend on its
+batch-mates (a family that seeds per configuration seeds from the
+configuration's place in the whole batch, ``models.api.BATCH_INDEX``), so
+the merged matrix is the unsplit one bit for bit. Each family's
+metrics reach the host as the family finishes (``fetch_to_host``); with a
+sweep checkpoint (``ModelSelector.set_sweep_checkpoint``) they are
+committed then, and a resumed sweep replays the committed families
+(``sweep_checkpoint``). Sites: ``preempt.sweep``,
+``validator.family_fit``, ``oom.sweep``, ``hist.build`` (tree families)
+and ``validator.fold_metrics``; span ``sweep.family`` and the flight
+recorder's ``sweep.family`` event.
+
+This is the single-device path: mesh sharding (ROADMAP Queue 1 item 10)
+and the JAX package's fused program cache and AOT program store are not
 ported.
 """
 from __future__ import annotations
 
+import hashlib
+import logging
+import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ...models.api import ModelFamily
+from ...models.api import BATCH_INDEX, ModelFamily
+from ...observability import blackbox as _blackbox
+from ...observability import devicemem as _devicemem
+from ...observability import metrics as _obs_metrics
+from ...observability import trace as _obs_trace
+from ...observability.trace import span as _obs_span
 from ...ops.metrics import (
     _BINNED_MIN_N, aupr_masked, auroc_masked, binary_threshold_metrics_masked,
     log_loss_masked, multiclass_metrics_masked, regression_metrics_masked,
 )
+from ...parallel.distributed import fetch_to_host
+from ...robustness import faults
+from ...robustness.guards import (  # noqa: F401 (the old names resolve)
+    AllCandidatesFailedError, quarantine_non_finite,
+)
+from ...robustness.policy import FaultLog, FaultReport
 from ...utils.fidelity import ROUND4_MAX_EVAL_ROWS, round4_defaults
 from ...utils.padding import bucket_for
+
+logger = logging.getLogger(__name__)
 
 
 @dataclass
@@ -59,39 +92,6 @@ class BestEstimator:
     metric_value: float
     results: List[ValidationResult] = field(default_factory=list)
     quarantined: List[Dict[str, Any]] = field(default_factory=list)
-
-
-class AllCandidatesFailedError(RuntimeError):
-    """Every candidate of the sweep was quarantined."""
-
-    def __init__(self, records: List[Dict[str, Any]]):
-        self.records = list(records)
-        lines = [f"  - {r.get('family')}[{r.get('gridIndex')}] "
-                 f"{r.get('hyper')}: {r.get('reason')}" for r in self.records]
-        super().__init__("all %d sweep candidate(s) were quarantined:\n%s"
-                         % (len(self.records), "\n".join(lines)))
-
-
-def quarantine_non_finite(family: str, grid: List[Dict[str, Any]],
-                          fold_metrics: np.ndarray, metric_name: str,
-                          larger_better: bool
-                          ) -> Tuple[np.ndarray, np.ndarray,
-                                     List[Dict[str, Any]]]:
-    """(mean metrics, means with non-finite entries made the worst value,
-    one record per non-finite config) of an (F, G) metric matrix."""
-    mean_metrics = fold_metrics.mean(axis=0)
-    finite = np.isfinite(mean_metrics)
-    records = [{"family": family, "gridIndex": int(g),
-                "hyper": dict(grid[g]) if g < len(grid) else {},
-                "metricName": metric_name,
-                "foldMetrics": [float(v) for v in fold_metrics[:, g]],
-                "reason": ("non-finite validation metric "
-                           f"({mean_metrics[g]!r})")}
-               for g in np.nonzero(~finite)[0]]
-    if finite.all():
-        return mean_metrics, mean_metrics, records
-    worst = -np.inf if larger_better else np.inf
-    return mean_metrics, np.where(finite, mean_metrics, worst), records
 
 
 def _metric_fn(problem: str, metric: str, binned: Optional[bool] = None,
@@ -222,6 +222,25 @@ class OpValidator:
         if F > 1 and int(vm_np.sum(axis=0).max()) > 1:
             raise ValueError("validation masks must be disjoint (each row in "
                              "at most one fold)")
+        # the sweep checkpoint's run fingerprint, before padding, as the
+        # JAX package takes it (its labels are float32): a record replays
+        # only onto the same data, folds and sweep settings
+        sweep_ckpt = getattr(self, "_sweep_ckpt", None)
+        fingerprint = None
+        if sweep_ckpt is not None:
+            y_host = np.asarray(y.detach().cpu().numpy()[:n], np.float32)
+            fingerprint = {
+                "n": int(n), "F": int(F), "problem": problem,
+                "d": int(X.shape[-1]) if X.dim() > 1 else 1,
+                "metric": metric_name, "numClasses": int(num_classes),
+                "largerBetter": bool(larger_better),
+                "exact": bool(self.exact_sweep_fits),
+                "maxEvalRows": self.max_eval_rows,
+                "yhash": hashlib.sha256(
+                    np.ascontiguousarray(y_host).tobytes()).hexdigest(),
+                "foldHash": hashlib.sha256(
+                    np.ascontiguousarray(vm_np).tobytes()).hexdigest(),
+            }
         # rows padded to the JAX package's bucket: the tree fits sample and
         # bin the padded matrix, so the bucket shapes the fitted trees. Pad
         # rows carry zero weight and are never validated.
@@ -240,14 +259,30 @@ class OpValidator:
         binned = n_pad >= _BINNED_MIN_N
         metric = _metric_fn(problem, metric_name, binned=binned,
                             num_classes=num_classes)
-        results: List[ValidationResult] = []
-        quarantined: List[Dict[str, Any]] = []
-        best: Optional[BestEstimator] = None
-        for family, grid in models:
+
+        def dispatch_once(family, grid, first: int, G_all: int
+                          ) -> torch.Tensor:
+            """One family's sweep over ``grid``, configurations ``first``
+            onward of its ``G_all``: (F, G) metrics on the device."""
+            from ...manifest import sentinel_phase
+            # a kill past here happened inside device work
+            sentinel_phase("device_sweep")
+            if getattr(family, "uses_hist_engine", False):
+                from ...histeng import chaos_gate
+                chaos_gate(family.name)
             G = len(grid)
             garr = family.grid_to_arrays(grid)
             tiled = {k: np.tile(v, F) for k, v in garr.items()}
+            # each configuration's place in the whole family's batch, so a
+            # part of a split grid seeds as in the whole one
+            tiled[BATCH_INDEX] = (
+                np.arange(F)[:, None] * G_all + first
+                + np.arange(G)[None, :]).reshape(-1).astype(np.float32)
             W = train_w.repeat_interleave(G, dim=0)          # (F * G, n_pad)
+            _devicemem.record_dispatch(
+                "sweep", X.numel() * X.element_size()
+                + y.numel() * y.element_size() + W.numel() * 4,
+                bucket=int(n_pad))
             fit = (family.fit_batch if self.exact_sweep_fits
                    else family.sweep_fit_batch)
             params = fit(X, y, W, tiled, num_classes)
@@ -257,13 +292,125 @@ class OpValidator:
                     Xf[f], num_classes) for f in range(F)])  # (F*G, nf_b[, C])
             m = metric(scores, yf.repeat_interleave(G, dim=0),
                        fvalid.repeat_interleave(G, dim=0))
-            fold_metrics = m.cpu().numpy().reshape(F, G)      # f32
+            _devicemem.sample_measured("sweep")
+            return m.reshape(F, G)
+
+        def dispatch(family, grid, first: int = 0,
+                     G_all: Optional[int] = None) -> torch.Tensor:
+            """``dispatch_once``, with the grid split in halves (down to
+            single configurations) while it runs out of memory; the
+            halves' metrics concatenate along the configuration axis.
+            Other errors, and a single configuration that still runs out,
+            are raised to the family's quarantine."""
+            G_all = len(grid) if G_all is None else G_all
+            try:
+                faults.inject("oom.sweep", key=family.name)
+                return dispatch_once(family, grid, first, G_all)
+            except Exception as e:
+                from ...robustness import resources
+                if resources.classify_exhaustion(e) is None or len(grid) < 2:
+                    raise
+                mid = len(grid) // 2
+                resources.record_downshift(
+                    "oom.sweep", family=family.name, configs=len(grid),
+                    splitConfigs=[mid, len(grid) - mid],
+                    error=f"{type(e).__name__}: {e}"[:200])
+                logger.warning(
+                    "sweep of %s ran out of memory at %d configs; splitting "
+                    "the grid into %d + %d", family.name, len(grid), mid,
+                    len(grid) - mid)
+                del e
+                if X.device.type == "cuda":
+                    torch.cuda.empty_cache()
+                return torch.cat(
+                    [dispatch(family, grid[:mid], first, G_all),
+                     dispatch(family, grid[mid:], first + mid, G_all)],
+                    dim=1)
+
+        #: (F, G) host metrics by family index: restored, or fetched as
+        #: each family finishes
+        host_metrics: Dict[int, np.ndarray] = {}
+        fit_failures: Dict[int, str] = {}
+        for fi, (family, grid) in enumerate(models):
+            grid = list(grid)
+            ckey = None
+            if sweep_ckpt is not None:
+                from .sweep_checkpoint import SweepCheckpoint, candidate_key
+                ckey = candidate_key(family.name, grid, fingerprint)
+                rec = sweep_ckpt.get(ckey)
+                if rec is not None:
+                    fm = SweepCheckpoint.decode_metrics(rec)
+                    if fm.shape == (F, len(grid)):
+                        host_metrics[fi] = fm
+                        if rec.get("quarantined"):
+                            fit_failures[fi] = (rec.get("reason")
+                                                or "restored quarantined "
+                                                   "candidate")
+                        FaultLog.record(FaultReport(
+                            site="sweep.candidate", kind="restored",
+                            detail={"family": family.name,
+                                    "configs": len(grid),
+                                    "candidateKey": ckey[:16],
+                                    "quarantined": bool(
+                                        rec.get("quarantined"))}))
+                        logger.info("sweep resume: restored %d %s "
+                                    "candidate(s) from checkpoint",
+                                    len(grid), family.name)
+                        continue
+            with _obs_span("sweep.family", cat="sweep", family=family.name,
+                           configs=len(grid), folds=F,
+                           metric=metric_name) as sweep_span:
+                _blackbox.record("sweep.family", family=family.name,
+                                 configs=len(grid), folds=F)
+                try:
+                    # a kill here keeps the families already committed
+                    faults.inject("preempt.sweep", key=family.name)
+                    faults.inject("validator.family_fit", key=family.name)
+                    m = dispatch(family, grid)
+                    t0 = time.perf_counter()
+                    host_metrics[fi] = fetch_to_host(m)       # f32 (F, G)
+                    _obs_metrics.observe(
+                        "tg_sweep_transfer_seconds",
+                        time.perf_counter() - t0,
+                        help="device->host validation-metric fetch per "
+                             "family")
+                except Exception as e:
+                    reason = f"fit raised {type(e).__name__}: {e}"
+                    logger.warning("quarantining model family %s: %s",
+                                   family.name, reason)
+                    fit_failures[fi] = reason
+                    sweep_span.add_event("sweep.family_quarantined",
+                                         family=family.name, reason=reason)
+            if sweep_ckpt is not None:
+                from .sweep_checkpoint import SweepCheckpoint, params_hash
+                fm_host = host_metrics.get(
+                    fi, np.full((F, len(grid)), np.nan))
+                sweep_ckpt.put(ckey, {
+                    "family": family.name,
+                    "grid": [dict(g) for g in grid],
+                    "paramsHashes": [params_hash(g) for g in grid],
+                    "metricName": metric_name,
+                    **SweepCheckpoint.encode_metrics(fm_host),
+                    "quarantined": fi in fit_failures,
+                    "reason": fit_failures.get(fi),
+                })
+
+        results: List[ValidationResult] = []
+        quarantined: List[Dict[str, Any]] = []
+        best: Optional[BestEstimator] = None
+        for fi, (family, grid) in enumerate(models):
+            grid = list(grid)
+            fold_metrics = host_metrics.get(fi)
+            if fold_metrics is None:         # the family's sweep raised
+                fold_metrics = np.full((F, len(grid)), np.nan)
+            fold_metrics = faults.poison("validator.fold_metrics",
+                                         fold_metrics, key=family.name)
             mean_metrics, masked, records = quarantine_non_finite(
-                family.name, list(grid), fold_metrics, metric_name,
-                larger_better)
+                family.name, grid, fold_metrics, metric_name,
+                larger_better, reason=fit_failures.get(fi))
             quarantined.extend(records)
             results.append(ValidationResult(
-                family=family.name, grid=list(grid), metric_name=metric_name,
+                family=family.name, grid=grid, metric_name=metric_name,
                 fold_metrics=fold_metrics, mean_metrics=mean_metrics))
             if not np.isfinite(mean_metrics).any():
                 continue
@@ -277,6 +424,8 @@ class OpValidator:
             raise AllCandidatesFailedError(quarantined)
         best.results = results
         best.quarantined = quarantined
+        _obs_trace.add_event("sweep.winner", family=best.family_name,
+                             metricValue=float(best.metric_value))
         return best
 
 

@@ -179,6 +179,29 @@ class CheckpointManifest:
         recorded); the ``save`` that follows commits it."""
         self.stages[uid] = {"files": list(fnames)}
 
+    def complete_sweep(self, owner_uid: str, fname: str) -> None:
+        """Record a selector's sweep state (``sweep_<uid>.json``)
+        complete; the ``save`` that follows commits it."""
+        self.sweeps[owner_uid] = {"file": fname}
+
+    def verify_recorded(self) -> List[str]:
+        """Verify every file a completion record names (stages, sweeps,
+        fold states): '<file>: <reason>' for each that fails. The
+        campaign's checkpoint-integrity oracle: empty means everything a
+        resume would trust verifies."""
+        fnames: List[str] = []
+        for rec in self.stages.values():
+            fnames.extend(rec.get("files", ()))
+        for rec in list(self.sweeps.values()) + list(self.streams.values()):
+            if rec.get("file"):
+                fnames.append(rec["file"])
+        problems = []
+        for fname in sorted(set(fnames)):
+            reason = self.verify_file(fname)
+            if reason is not None:
+                problems.append(f"{fname}: {reason}")
+        return problems
+
     def complete_stream(self, key: str, fname: str,
                         meta: Dict[str, Any]) -> None:
         """Record a streamed fold state (``key`` = ``<stage uid>/<pass>``,

@@ -7,7 +7,9 @@ num_classes)`` takes X (n, d), y (n,), per-configuration row weights
 (B, n) (0 = row excluded) and a grid of (B,) hyperparameter arrays, and
 returns stacked parameters with a leading config axis B. Grids stay host
 numpy arrays: tree families derive static structure (depth, rounds) from
-them.
+them. A sweep may add ``BATCH_INDEX``: each configuration's place in the
+whole sweep's batch, which a family that seeds per configuration (RF,
+MLP) seeds from, so a sweep split in parts draws as the whole one.
 """
 from __future__ import annotations
 
@@ -17,6 +19,9 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+#: grid key of each configuration's place in the whole sweep's batch
+BATCH_INDEX = "_batchIndex"
 
 
 @dataclass

@@ -27,7 +27,7 @@ import torch
 
 from .. import rng
 from ..histeng.kernels import _tf32_off
-from .api import FittedParams, ModelFamily, register_family
+from .api import BATCH_INDEX, FittedParams, ModelFamily, register_family
 from .linear import _f32_pow
 
 _F32 = torch.float32
@@ -149,9 +149,11 @@ class MultilayerPerceptronFamily(ModelFamily):
         def col(k):
             return torch.as_tensor(np.asarray(grid[k], np.float32),
                                    device=dev)
-        # the JAX package's float32 seeds arange(B) + seed, cast to int32
-        seeds = (torch.arange(B, dtype=_F32, device=dev)
-                 + float(self.seed)).to(torch.int32)
+        # the JAX package's float32 seeds arange(B) + seed, cast to int32;
+        # a part of a split sweep keeps its configurations' batch places
+        idx = (col(BATCH_INDEX) if BATCH_INDEX in grid
+               else torch.arange(B, dtype=_F32, device=dev))
+        seeds = (idx + float(self.seed)).to(torch.int32)
         params, m1, m2 = _fit_mlp_batch(
             X.to(_F32), y.to(torch.int32), weights.to(_F32),
             col("hiddenLayer1"), col("hiddenLayer2"), col("stepSize"),

@@ -50,7 +50,7 @@ from ..ops.forest import (
 from ..ops.xla_cpu import fma32, xla_softmax
 from ..utils.fidelity import ROUND4_SWEEP_HIST_SAMPLE, round4_defaults
 from . import bootstrap
-from .api import FittedParams, ModelFamily, register_family
+from .api import BATCH_INDEX, FittedParams, ModelFamily, register_family
 
 logger = logging.getLogger(__name__)
 
@@ -1140,6 +1140,9 @@ def _forest_values(params, codes: torch.Tensor, leaf: torch.Tensor,
 
 class _TreeFamilyBase(ModelFamily):
 
+    #: the sweep arms the ``hist.build`` site for these families
+    uses_hist_engine = True
+
     def params_from_numpy(self, params, device):
         return params_from_numpy(params, device)
 
@@ -1231,13 +1234,17 @@ class RandomForestFamilyBase(_TreeFamilyBase):
                 for mg in (0.001, 0.01, 0.1)]
 
     def fit_batch(self, X, y, weights, grid, num_classes, sweep=False):
-        """Configuration b draws its bootstrap from seed b + 7. The sweep
+        """Configuration b draws its bootstrap from seed b + 7 (b its
+        ``BATCH_INDEX`` where the grid has one). The sweep
         ranks with at most ``_SWEEP_RF_TREES`` trees a forest."""
         task = self._task(num_classes)
         tree_vals = np.asarray(_g(grid, "numTrees", 20.0))
         n_trees = int(tree_vals.max())
         B = weights.shape[0]
-        grid = dict(grid, _seeds=np.arange(B, dtype=np.float32) + 7.0)
+        # a part of a split sweep keeps its configurations' batch places
+        place = (np.asarray(grid[BATCH_INDEX], np.float32)
+                 if BATCH_INDEX in grid else np.arange(B, dtype=np.float32))
+        grid = dict(grid, _seeds=place + 7.0)
         if sweep:
             capped = _sweep_ensemble_cap(tree_vals, _SWEEP_RF_TREES,
                                          "numTrees")

@@ -15,12 +15,11 @@ randomness, so a schedule replays the same faults on every run.
 
 ``ALL_SITES`` is the JAX package's registry, name for name, mode for mode
 (its ``module`` field names the JAX package's file), so a schedule means
-the same in both packages. The port fires these of them: ``stream.read``,
-``stream.upload`` and ``oom.stream`` (``streaming.feed``),
-``stream.cache`` (``streaming.cache``), ``stream.fold`` and
-``preempt.stage_fit`` (``streaming.trainer``), and
-``preempt.checkpoint_write`` (``persistence.save_stage_checkpoint``). The
-others wait for the modules that fire them (ROADMAP Queue 1 items 8-10).
+the same in both packages. The port fires every site but three whose
+modules are not ported yet: ``aot.load`` (the AOT program store, ROADMAP
+Queue 1 item 10) and ``plan.segment_execute`` and ``oom.plan`` (the
+transform-plan compiler, item 3); ``campaign.WAITING_SITES`` names them.
+``sites_for_scenario`` lists the sites a campaign scenario exercises.
 
 Modes: ``raise`` (``TransientFaultError``, or ``InjectedFaultError`` with
 ``transient=False``), ``nan`` (``poison``), ``oom`` (a typed
@@ -230,6 +229,12 @@ ALL_SITES: Dict[str, SiteSpec] = {s.name: s for s in (
 )}
 
 
+def sites_for_scenario(scenario: str) -> List[str]:
+    """Registered sites a campaign scenario can exercise (sorted)."""
+    return sorted(n for n, s in ALL_SITES.items()
+                  if scenario in s.scenarios)
+
+
 _LOCK = threading.Lock()
 _SPECS: Dict[str, FaultSpec] = {}
 _CALLS: Dict[str, int] = {}
@@ -285,6 +290,15 @@ def fired_counts() -> Dict[str, Dict[str, int]]:
 def _record_fired(site: str, mode: str) -> None:
     with _LOCK:
         _FIRED[(site, mode)] = _FIRED.get((site, mode), 0) + 1
+    # an applied fault belongs to the incident's timeline: the flight
+    # recorder shows it next to the recovery it provoked
+    from ..observability import blackbox as _blackbox
+    from ..observability import metrics as _obs_metrics
+    _blackbox.record("chaos.injection", site=site, mode=mode)
+    _obs_metrics.inc_counter(
+        "tg_chaos_injections_total",
+        help="chaos faults actually applied, by site and mode",
+        site=site, mode=mode)
 
 
 def active_sites() -> List[str]:

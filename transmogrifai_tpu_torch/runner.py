@@ -15,8 +15,8 @@ Scores and raw features are written by the output path's extension:
 extension raises (Parquet: the port is to write the format itself, as
 ``utils.avro`` writes Avro; ROADMAP Queue 1 item 11). The JAX
 package's ``features`` run always writes Parquet; the port's writes by
-extension. ``log_stage_metrics`` (the JAX package's profiler and its
-``appMetrics``) waits for the profiler's port and raises.
+extension. ``log_stage_metrics`` attaches a ``utils.profiler.StageProfiler``
+to the workflow, and a train writes its ``appMetrics``.
 """
 from __future__ import annotations
 
@@ -205,13 +205,11 @@ class OpWorkflowRunner:
     def run(self, run_type: str, params: Optional[OpParams] = None
             ) -> OpWorkflowRunnerResult:
         params = params or OpParams()
-        if params.log_stage_metrics:
-            raise ValueError(
-                "log_stage_metrics needs the profiler's app metrics, which "
-                "are not ported yet (ROADMAP Queue 1 item 9)")
         if params.stage_params:
             self.workflow.set_parameters(
                 {"stageParams": params.stage_params})
+        if params.log_stage_metrics and self.workflow.profiler is None:
+            self.workflow.with_profiler()
         handler = {
             RunType.TRAIN: self._train,
             RunType.SCORE: self._score,
@@ -248,6 +246,8 @@ class OpWorkflowRunner:
             result.metrics["trainEvaluation"] = self._metrics(
                 ev, model.train_table)
         result.metrics["summary"] = model.summary()
+        if self.workflow.profiler is not None:
+            result.metrics["appMetrics"] = self.workflow.profiler.app_metrics()
 
     def _load_model(self, params: OpParams) -> OpWorkflowModel:
         if params.model_location:

@@ -44,6 +44,7 @@ import numpy as np
 
 import torch
 
+from ..observability import metrics as _obs_metrics
 from ..robustness import faults
 from ..robustness.policy import FaultLog, FaultReport
 from ..table import Column, FeatureTable
@@ -311,9 +312,15 @@ class ChunkCache:
             entry = None
         if entry is None:
             self.stats.misses += 1
+            _obs_metrics.inc_counter(
+                "tg_stream_cache_misses_total", 1.0,
+                help="transformed-chunk cache misses (chunk recomputed)")
             return None
         self.stats.hits += 1
         self.stats.hit_bytes += entry.nbytes
+        _obs_metrics.inc_counter(
+            "tg_stream_cache_hits_total", 1.0,
+            help="transformed-chunk cache hits (read+transform skipped)")
         return entry
 
     def _fallback(self, key: str, reason: str) -> None:

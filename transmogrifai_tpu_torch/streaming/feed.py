@@ -56,8 +56,13 @@ and the feed aborts: the queue is drained and the typed error put in its
 place, so a consumer blocked on an empty or a full queue wakes. ``close``
 records any thread that outlives its join timeout.
 
-The JAX package's flight recorder, metrics and device-memory observatory
-calls are not ported (ROADMAP Queue 1 item 9).
+Telemetry, by the JAX package's names: the flight recorder's
+``stream.upload`` event per chunk, stamped with the owning run's
+correlation id (taken on the constructing thread: context variables do
+not reach the worker threads), the device-memory observatory's
+``stream`` dispatch and sample per uploaded chunk, and the metrics
+``tg_stream_stage_seconds{stage}``, ``tg_stream_chunks_total``,
+``tg_stream_rows_total`` and ``tg_stream_wait_seconds``.
 """
 from __future__ import annotations
 
@@ -74,6 +79,9 @@ import torch
 
 from ..device import resolve_device
 from ..manifest import sentinel_phase as _sentinel_phase
+from ..observability import blackbox as _blackbox
+from ..observability import devicemem as _devicemem
+from ..observability import metrics as _obs_metrics
 from ..robustness import faults
 from ..robustness import watchdog as _watchdog
 from ..robustness.watchdog import WatchdogStallError
@@ -376,6 +384,9 @@ class DeviceFeed:
         self._ready = threading.Condition()
         self._results: dict = {}
         self._halt_seq: Optional[int] = None   # first end or error seq
+        # the run's flight-recorder correlation, taken here on the
+        # constructing thread: the worker threads stamp it explicitly
+        self._corr = _blackbox.current_correlation()
         self._heart = _watchdog.register(
             "tg-stream-feed", kind="stream.producer",
             on_stall=self._on_watchdog_stall)
@@ -490,6 +501,10 @@ class DeviceFeed:
                 self.stats.transform_seconds += dt
             else:
                 self.stats.upload_seconds += dt
+        if _obs_metrics.metrics_enabled():
+            _obs_metrics.observe(
+                "tg_stream_stage_seconds", dt, stage=stage,
+                help="seconds per chunk per input-engine stage")
 
     def _work(self, wid: int) -> None:
         heart = self._worker_hearts[wid]
@@ -599,6 +614,15 @@ class DeviceFeed:
                     self.stats.peak_resident_chunks = max(
                         self.stats.peak_resident_chunks,
                         self._resident_chunks)
+                _blackbox.record("stream.upload", corr=self._corr,
+                                 chunk=chunk.index, bytes=nbytes,
+                                 fromCache=from_cache)
+                if not from_cache:
+                    # the observatory: the upload's shape-derived bytes
+                    # and, on the card, the allocator's measured peak
+                    _devicemem.record_dispatch("stream", nbytes,
+                                               rows=chunk.rows)
+                    _devicemem.sample_measured("stream")
                 self._put((Chunk(chunk.index, chunk.chunk_id, table),
                            (nbytes, ready)))
         except BaseException as e:  # noqa: BLE001 — a kill must forward
@@ -688,6 +712,16 @@ class DeviceFeed:
             h.close()
         if self.stats.wall_seconds == 0.0:
             self.stats.wall_seconds = time.perf_counter() - self._t0
+        if _obs_metrics.metrics_enabled():
+            _obs_metrics.inc_counter(
+                "tg_stream_chunks_total", float(self.stats.chunks),
+                help="chunks consumed through the streaming device feed")
+            _obs_metrics.inc_counter(
+                "tg_stream_rows_total", float(self.stats.rows),
+                help="rows consumed through the streaming device feed")
+            _obs_metrics.observe(
+                "tg_stream_wait_seconds", self.stats.wait_seconds,
+                help="consumer seconds stalled waiting on the chunk feed")
 
     def __enter__(self) -> "DeviceFeed":
         return self

@@ -34,8 +34,11 @@ The pass ids are a persistence contract (checkpoint keys embed them):
 ``"fills"``, ``"sanity"``, ``"edges"``, ``"t{t}.l{lv}"``, ``"t{t}.leaf"``
 and ``"+"``-joined ids of fused passes, as in the JAX package.
 
-The JAX package's spans, flight-recorder events and compile-ledger records
-are not ported (ROADMAP Queue 1 item 9).
+Telemetry, by the JAX package's names: each pass runs under a
+``stream.pass`` span, between the flight recorder's ``stream.pass`` and
+``stream.pass_done`` events, and is one ``stream`` record of the compile
+ledger (an out-of-memory downshift's rerun at a halved chunk budget is
+classified as a bucket change).
 """
 from __future__ import annotations
 
@@ -48,6 +51,9 @@ import numpy as np
 
 import torch
 
+from ..observability import blackbox as _blackbox
+from ..observability import ledger as _obs_ledger
+from ..observability.trace import span as _obs_span
 from ..robustness import faults, resources
 from ..robustness.policy import FaultLog, FaultReport
 from ..stages.base import Estimator, Transformer
@@ -158,12 +164,24 @@ class StreamRun:
         every = self.checkpoint.every if self.checkpoint is not None else 0
         while True:
             folded = start
+            _blackbox.record("stream.pass", uid=self.stage_uid,
+                             passId=pass_id, fromChunk=start,
+                             chunkRows=src.chunk_rows)
+            _obs_ledger.record_build(
+                "stream", identity=f"stream/{key}",
+                key=f"{key}@{src.chunk_rows}", bucket=src.chunk_rows,
+                fromChunk=start, chunks=src.num_chunks)
             try:
-                with DeviceFeed(src, start=start, transforms=self.upstream,
-                                prefetch=self.prefetch, workers=self.workers,
-                                cache=self.cache,
-                                cache_ident=self.cache_ident,
-                                device=self.device) as feed:
+                with _obs_span("stream.pass", cat="train",
+                               uid=self.stage_uid, passId=pass_id,
+                               fromChunk=start,
+                               chunkRows=src.chunk_rows), \
+                        DeviceFeed(src, start=start,
+                                   transforms=self.upstream,
+                                   prefetch=self.prefetch,
+                                   workers=self.workers, cache=self.cache,
+                                   cache_ident=self.cache_ident,
+                                   device=self.device) as feed:
                     try:
                         for chunk in feed:
                             faults.inject("stream.fold", key=pass_id)
@@ -189,6 +207,8 @@ class StreamRun:
                                    PASS_COMPLETE,
                                    fingerprint=src.fingerprint(),
                                    chunk_rows=src.chunk_rows)
+        _blackbox.record("stream.pass_done", uid=self.stage_uid,
+                         passId=pass_id, chunks=folded)
         return state
 
     def _restore(self, key: str, pass_id: str, fold: MonoidFold, src):

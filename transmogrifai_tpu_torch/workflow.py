@@ -21,16 +21,24 @@ package's format) and each pass's fold state per chunk, so
 ``train(resume=True, stream=source)`` after a kill at any ``stream.*``
 site gives the uninterrupted train's model bit for bit, also from a
 directory the JAX package wrote. The raw feature filter, workflow CV and a
-mesh are refused there, as in the JAX package. The in-core path's stage
-and sweep checkpoints and its resume, and mesh training, are not ported
-(ROADMAP Queue 1 items 9 and 10); they raise.
+mesh are refused there, as in the JAX package.
+
+The in-core train checkpoints too: with ``with_checkpoint_dir`` each
+fitted stage is checkpointed as it completes and every selector commits
+each family's sweep metrics (``impl.tuning.sweep_checkpoint``), so
+``train(resume=True)`` after a kill restores the verified stages, replays
+the committed sweep families and fits the rest, to the uninterrupted
+train's model bit for bit, also from a directory the JAX package wrote.
+``with_fault_policy`` retries a stage fit that fails with a transient
+error, and ``with_profiler`` times every stage (``utils.profiler``). Mesh
+training is not ported (ROADMAP Queue 1 item 10); it raises.
 
 A fitted model saves and loads in the JAX package's format
 (``OpWorkflowModel.save`` / ``load``, ``persistence``). ``summary()`` gives
 each stage's summary and, for a model this process trained, the JAX
-package's ``faults`` and ``resume`` sections (and ``streaming``, with the
-feed's and the cache's accounting, for a streamed train); the
-``observability`` section waits for the observability module.
+package's ``faults``, ``resume`` and ``observability`` sections (and
+``streaming``, with the feed's and the cache's accounting, for a streamed
+train).
 """
 from __future__ import annotations
 
@@ -63,12 +71,16 @@ def _open_run_sentinel(ckpt_dir: Optional[str], resume: bool):
     if resume:
         stale = sentinel.read_stale()
         if stale is not None:
+            detail = {"pid": stale.get("pid"), "phase": stale.get("phase"),
+                      "dir": ckpt_dir,
+                      "oomKillSuspected": RunSentinel.suspects_oom_kill(stale)}
             FaultLog.record(FaultReport(
                 site="manifest.sentinel", kind="unclean_exit",
-                detail={"pid": stale.get("pid"),
-                        "phase": stale.get("phase"), "dir": ckpt_dir,
-                        "oomKillSuspected":
-                            RunSentinel.suspects_oom_kill(stale)}))
+                detail=dict(detail)))
+            # the earlier owner died mid-run: dump what this process knows
+            # before the resume trains over the evidence
+            from .observability import postmortem as _postmortem
+            _postmortem.trigger("unclean_exit", detail=detail)
     sentinel.start("dag_fit")
     return sentinel
 
@@ -99,6 +111,7 @@ class OpWorkflow:
         self._checkpoint_dir: Optional[str] = None
         self._fault_policy = None
         self._mesh = None
+        self.profiler = None
         #: {phase: seconds} of the last train: "filter", "fit" or, under
         #: workflow CV, "before", "fold_prep", "sweep" and "rest"
         self.phase_seconds: Dict[str, float] = {}
@@ -118,21 +131,29 @@ class OpWorkflow:
         return self
 
     def with_checkpoint_dir(self, path: str) -> "OpWorkflow":
-        """Crash-resumable streamed training: each fitted estimator is
+        """Crash-resumable training: each fitted estimator is
         checkpointed to ``path`` as it completes (atomic writes committed
-        through a manifest with each file's sha256), and each pass's fold
-        state after every chunk; ``train(resume=True, stream=...)``
-        restores the verified stages and fold states and fits the rest.
-        A corrupt or torn file is reported in ``summary()["faults"]`` and
-        refit, never used. The in-core train's checkpoints wait for the
-        sweep checkpoints (ROADMAP Queue 1 item 9)."""
+        through a manifest with each file's sha256), every selector
+        commits each family's sweep metrics, and a streamed train each
+        pass's fold state after every chunk; ``train(resume=True)``
+        restores the verified stages, sweep families and fold states and
+        fits the rest. A corrupt or torn file is reported in
+        ``summary()["faults"]`` and refit, never used."""
         self._checkpoint_dir = path
         return self
 
+    def with_profiler(self, profiler=None) -> "OpWorkflow":
+        """Time every stage's fit and transform during train
+        (``utils.profiler.StageProfiler``; a new one when None): the
+        runner's ``log_stage_metrics``."""
+        from .utils.profiler import StageProfiler
+        self.profiler = profiler or StageProfiler()
+        return self
+
     def with_fault_policy(self, policy=None) -> "OpWorkflow":
-        """Retry each streamed stage fit on transient errors under
-        ``policy`` (a ``robustness.RetryPolicy``; the default one when
-        None); retries show in ``summary()["faults"]``."""
+        """Retry each stage fit on transient errors under ``policy`` (a
+        ``robustness.RetryPolicy``; the default one when None), in-core
+        and streamed; retries show in ``summary()["faults"]``."""
         from .robustness.policy import RetryPolicy
         self._fault_policy = policy or RetryPolicy()
         return self
@@ -195,23 +216,33 @@ class OpWorkflow:
         ``stream=<streaming.ChunkSource>``: the out-of-core train (module
         docstring); ``summary()["streaming"]`` carries the feed's
         accounting. ``resume=True`` needs ``with_checkpoint_dir``; it
-        restores the verified stages and fold states and fits the rest,
-        and ``summary()["resume"]`` says which. The in-core train takes no
-        checkpoint directory and no resume yet (ROADMAP Queue 1 item 9)."""
+        restores the verified stages, sweep families and fold states and
+        fits the rest, and ``summary()["resume"]`` says which.
+
+        The train runs under a ``workflow.train`` span, with the flight
+        recorder's ``workflow.train`` and ``workflow.train_done`` events
+        stamped with one correlation id for the run."""
+        from .observability import blackbox as _blackbox
+        from .observability.trace import span as _obs_span
         from .robustness.policy import FaultLog
         fault_log = FaultLog()
-        with fault_log.activate():
+        # one correlation id per run: every recorder event inside this
+        # train (stream passes, sweep families, fault recoveries) carries
+        # it, so the recorder's slice for it is this run's timeline
+        corr = (_blackbox.new_correlation_id("run")
+                if _blackbox.blackbox_enabled() else None)
+        with fault_log.activate(), _blackbox.correlated(corr), \
+                _obs_span("workflow.train", cat="train", resume=resume,
+                          stream=stream is not None):
+            _blackbox.record("workflow.train", resume=resume,
+                             stream=stream is not None)
             if stream is not None:
                 model = self._train_streaming(stream, resume=resume)
             else:
-                if resume or self._checkpoint_dir is not None:
-                    raise NotImplementedError(
-                        "the in-core train's stage and sweep checkpoints "
-                        "and train(resume=True) are not ported yet (ROADMAP "
-                        "Queue 1 item 9); checkpoints and resume work with "
-                        "train(stream=...)")
-                model = self._train_in_core()
+                model = self._train_in_core(resume=resume)
+            _blackbox.record("workflow.train_done")
         model._fault_log = fault_log
+        model._correlation = corr
         model._resume_requested = resume
         return model
 
@@ -226,10 +257,9 @@ class OpWorkflow:
         directory in service is never written over), and returns the
         saved path for the registry's verified load and warm hot swap.
 
-        ``resume`` defaults to whether a checkpoint dir is attached; the
-        in-core train's resume is not ported yet (ROADMAP Queue 1 item 9),
-        so a hook with ``resume=True`` fails its refit with that error
-        (recorded as ``drift_refit_failed``; the old model keeps serving)."""
+        ``resume`` defaults to whether a checkpoint dir is attached: with
+        one the refit itself survives a kill (``train(resume=True)``
+        restores the verified stages and replays the sweep)."""
         counter = {"n": 0}
         if resume is None:
             resume = self._checkpoint_dir is not None
@@ -243,7 +273,7 @@ class OpWorkflow:
 
         return hook
 
-    def _train_in_core(self) -> "OpWorkflowModel":
+    def _train_in_core(self, resume: bool = False) -> "OpWorkflowModel":
         if not self.result_features:
             raise ValueError("call set_result_features before train")
         if self.reader is None:
@@ -253,6 +283,11 @@ class OpWorkflow:
             raise NotImplementedError(
                 "training over a mesh is not ported yet (ROADMAP Queue 1 "
                 "item 10)")
+        ckpt_dir = self._checkpoint_dir
+        if resume and ckpt_dir is None:
+            raise ValueError(
+                "train(resume=True) requires with_checkpoint_dir(...): "
+                "there is no checkpoint state to resume from")
         self.phase_seconds = {}
         self._set_stage_params()
         table = self.reader.generate_table(self.raw_features)
@@ -270,12 +305,39 @@ class OpWorkflow:
                 blacklisted = tuple(blacklist)
             self.phase_seconds["filter"] = synced_clock(self.device) - t0
         table = table.to_device(self.device)
-        if self._workflow_cv:
-            table, fitted = self._fit_with_workflow_cv(table, layers)
-        else:
-            t0 = synced_clock(self.device)
-            table, fitted = fit_and_transform_dag(table, layers)
-            self.phase_seconds["fit"] = synced_clock(self.device) - t0
+        checkpoint = preloaded = None
+        if ckpt_dir is not None:
+            from .impl.tuning.sweep_checkpoint import SweepCheckpoint
+            from .persistence import (load_stage_checkpoints,
+                                      open_checkpoint_manifest,
+                                      save_stage_checkpoint)
+            # verified stages only: a failure is reported and refits
+            preloaded = load_stage_checkpoints(ckpt_dir, device=self.device)
+            # one manifest for the stage checkpoints and the sweep state,
+            # so their commits never overwrite each other
+            manifest = open_checkpoint_manifest(ckpt_dir)
+            checkpoint = lambda model: save_stage_checkpoint(  # noqa: E731
+                model, ckpt_dir, manifest)
+            for layer in layers:
+                for s, _ in layer:
+                    if hasattr(s, "set_sweep_checkpoint"):
+                        s.set_sweep_checkpoint(
+                            SweepCheckpoint(ckpt_dir, s.uid, manifest))
+        from .manifest import active_sentinel
+        sentinel = _open_run_sentinel(ckpt_dir, resume)
+        with active_sentinel(sentinel):
+            if self._workflow_cv:
+                table, fitted = self._fit_with_workflow_cv(table, layers)
+            else:
+                t0 = synced_clock(self.device)
+                table, fitted = fit_and_transform_dag(
+                    table, layers, profiler=self.profiler,
+                    checkpoint=checkpoint, preloaded=preloaded,
+                    retry_policy=self._fault_policy)
+                self.phase_seconds["fit"] = synced_clock(self.device) - t0
+        if sentinel is not None:
+            # a clean exit; a kill above leaves it for the next resume
+            sentinel.clear()
         model = OpWorkflowModel(self.device)
         model.reader = self.reader
         model.parameters = self.parameters
@@ -286,6 +348,10 @@ class OpWorkflow:
         model.rff_results = rff_results
         model.train_table = table
         model._fitted_stage_uids = sorted(fitted)
+        if self.profiler is not None:
+            # scoring gets its own profiler: fit and score costs apart
+            from .utils.profiler import StageProfiler
+            model.profiler = StageProfiler()
         model._layers = compute_dag(model.result_features)
         return model
 
@@ -408,7 +474,9 @@ class OpWorkflow:
         t0 = synced_clock(self.device)
         before = [[(s, d) for s, d in layer if s.uid not in tainted_stages]
                   for layer in layers]
-        table1, fitted_before = fit_and_transform_dag(table, before)
+        table1, fitted_before = fit_and_transform_dag(
+            table, before, profiler=self.profiler,
+            retry_policy=self._fault_policy)
         self.phase_seconds["before"] = synced_clock(self.device) - t0
         # the stages refit in every fold: label-dependent ones on the
         # selector's input ancestry, the selector excluded
@@ -424,7 +492,8 @@ class OpWorkflow:
             self.phase_seconds.update(sel.phase_seconds)
             t0 = synced_clock(self.device)
             table2, fitted_rest = fit_and_transform_dag(
-                table1, [l for l in rest if l])
+                table1, [l for l in rest if l], profiler=self.profiler,
+                retry_policy=self._fault_policy)
             self.phase_seconds["rest"] = synced_clock(self.device) - t0
         except Exception:
             # no recorded winner outlives a failed run
@@ -491,6 +560,8 @@ class OpWorkflowModel:
         self.train_table: Optional[FeatureTable] = None
         self.parameters: Dict[str, Any] = {}
         self.reader: Optional[Reader] = None
+        #: a ``StageProfiler`` timing scores (a model trained with one)
+        self.profiler = None
         self._layers = None
 
     @property
@@ -599,8 +670,11 @@ class OpWorkflowModel:
                 raise ValueError("no data: pass table=, data= or reader=")
             table = reader.generate_table(self.raw_features,
                                           require_response=False)
-        return apply_transformations_dag(table.to_device(self.device),
-                                         self._layers)
+        from .observability.trace import span as _obs_span
+        with _obs_span("workflow.score", cat="score", rows=table.num_rows):
+            return apply_transformations_dag(table.to_device(self.device),
+                                             self._layers,
+                                             profiler=self.profiler)
 
     def score_function(self):
         """Row-at-a-time scorer: ``fn(row) -> {result name: value}``."""
