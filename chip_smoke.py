@@ -14,8 +14,8 @@ Phases, in order; any failure exits nonzero:
     SanityChecker, the binary default list at full default grids, 3-fold
     CV) once with ``hist_matmul``, ``node_hist`` and
     ``forest_predict_chain`` wrapped (every launch held to plain as in (b)
-    below; ``node_hist``'s direct formula is held at these shapes in the
-    titanic_wcv and leads check trains, ``DIRECT_HELD_ELSEWHERE``)
+    below; ``node_hist`` to its direct formula only at its heaviest
+    shape, the RF sweep's first level: ``DIRECT_HELD_ELSEWHERE``)
     and time each kernel's heaviest launch there; then the counted
     train against ``fixtures/titanic`` (what the JAX package made of the
     same file): vector metadata equal, 256 sampled rows bit-equal, the
@@ -36,7 +36,8 @@ Phases, in order; any failure exits nonzero:
     each fold's matrix padded to the widest). Before the counted paths it
     trains once with the three sweep kernels wrapped, as the Titanic phase
     does (every launch of the per-fold sweeps held to plain, ``node_hist``
-    to its direct formula at each shape's first launch), and times each
+    to its direct formula only at its heaviest shape, the RF sweep's first
+    level: ``DIRECT_HELD_ELSEWHERE``), and times each
     one's heaviest launch against plain and the library
     (``titanic_wcv_kernel`` JSON lines). After "serve titanic" the
     counted train, against ``fixtures/titanic_wcv`` (what the JAX package
@@ -106,8 +107,8 @@ Phases, in order; any failure exits nonzero:
     and the text similarities through ``transmogrify``, SanityChecker,
     the binary default list at full default grids. Before the counted
     paths one train with every launch of the three sweep kernels held to
-    plain (``node_hist`` not to its direct formula, whose shapes the leads
-    check train holds: ``DIRECT_HELD_ELSEWHERE``; ``tickets_kernel``
+    plain (``node_hist`` to its direct formula only at its heaviest
+    shape: ``DIRECT_HELD_ELSEWHERE``; ``tickets_kernel``
     lines). "train tickets" against
     ``fixtures/tickets``: every vector block's sha256 the fixture's
     (word2vec and LDA included), the vector's metadata and 256 sampled
@@ -133,7 +134,7 @@ Phases, in order; any failure exits nonzero:
     paths one train and LOCO of its winner with every launch of the
     sweep and predict kernels held to plain (``events_kernel`` lines).
     "train events" through ``OpWorkflowRunner``: train (the model
-    saved), score (.avro), evaluate, features (.csv) and an ``OpApp``
+    saved), score (.avro), evaluate, features (Parquet) and an ``OpApp``
     score, against ``fixtures/events``: the raw table's digest (keys,
     order, values, nulls), every block's sha256, the vector's metadata
     and 256 sampled rows, the fitted host stages, the SanityChecker's
@@ -416,6 +417,31 @@ Phases, in order; any failure exits nonzero:
     ``log_stage_metrics``: ``appMetrics.byStage`` names every fitted
     stage and ``compileCache.builds`` is the ledger's count. One line an
     arm with its seconds and restored counts, then each path's launches;
+(parquet) after "serve titanic" (``Parquet``): the three files of
+    ``fixtures/parquet`` read by the port's ``utils.parquet`` as pandas
+    read them (the leads features file's structs, lists and dates whole;
+    the Titanic files' per-column digests), and the raw Titanic table of
+    the committed scoring file bit-equal to the CSV reader's of the
+    rebuilt one; the port writes the 20,000-row training frame to Parquet
+    and the Titanic workflow trains through ``OpWorkflowRunner`` with
+    ``DataReaders.Simple.parquet``: the winner, every family's fold
+    metrics and the LR refit's params bit-equal to the (titanic) CSV
+    train of this call, launching ``node_hist``, ``hist_matmul`` and
+    ``forest_predict_chain``; a score run of the JAX-saved Titanic model
+    over the committed file writes ``.parquet``, read back equal to the
+    returned scores, probability_1 within ``PARQUET_PROB_ATOL`` of the
+    JAX package's score file with keys equal (``parquet_host_s``:
+    the host's read and write seconds);
+(cli) after (fleet) (``Cli``): the command line as a user runs it
+    (``cli.main``) on copies of ``serve64/gbt``: ``serve`` for
+    ``CLI_SECONDS`` at ``CLI_RPS`` with ``--output``, ``serve --listen
+    127.0.0.1:0``, ``slo``, ``fleet --replicas 2 --kill``: each loses and
+    fails nothing and launches ``forest_predict_heap``; ``trace --rows
+    600`` with its four files; ``doctor`` on the kill's post-mortem;
+    ``gen`` on the Titanic training file (a header added) with an answers
+    file, the generated app trained in one subprocess on the card with
+    ``TG_FAST_GRIDS=1`` (``cli_s``: each step's seconds; ``phase_s``:
+    both phases' seconds);
 (d) print each path's launch counts and the ``kernels`` JSON line, whose
     launches are the sums over the paths;
 (e) print the card's name and power limit.
@@ -1502,15 +1528,20 @@ def _within_sum_bound(tag, got, want, scale, n):
     return float(d.max()), share
 
 
-#: the Titanic and tickets check trains hold every ``node_hist`` launch
-#: to plain but none to the direct formula: the same sweeps' shapes (8,192
-#: rows, T 288 and 96, 529 to 589 four-byte codes) are held to it at each
-#: shape's first launch in the titanic_wcv and leads check trains. The
-#: formula took about 60% of the Titanic train's check and 37-41 s of the
-#: tickets train's (``python3 -m
+#: the Titanic, titanic_wcv and tickets check trains hold every
+#: ``node_hist`` launch to plain but not each shape's first launch to the
+#: direct formula: the leads check train does that for its sweep shapes
+#: (8,192 rows x 589 four-byte codes, T 288). Each of the three holds its
+#: heaviest shape to it once (``_KernelChecks.hold_heaviest_direct``; the
+#: RF sweep's first level: 529 codes at T 288 for the Titanic, at T 96
+#: for titanic_wcv, 574 at T 288 for tickets; 0.8 s for titanic_wcv's).
+#: Their lighter shapes are held to plain only. The formula took about 60% of the
+#: Titanic train's check, 37-41 s of the tickets train's and 16 s of
+#: titanic_wcv's (``python3 -m
 #: transmogrifai_tpu_torch.experiments.smoke_phases direct-cost[:TRAIN]``,
-#: PERF.md section 6): the room for the (fleet) and (resume) phases.
-DIRECT_HELD_ELSEWHERE = ("titanic_wcv", "leads")
+#: PERF.md section 6): the room for the (fleet), (resume), (parquet) and
+#: (cli) phases.
+DIRECT_HELD_ELSEWHERE = ("leads",)
 #: the direct node histogram's partials a feature block may hold, bytes
 DIRECT_BLOCK_BYTES = 4 << 30
 
@@ -1830,6 +1861,29 @@ class _KernelChecks:
             F.forest_predict_heap_cuda = self._saved
         return False
 
+    def hold_heaviest_direct(self, tag: str) -> None:
+        """Hold ``node_hist`` at the heaviest launch's shape (kept with
+        ``keep_heaviest``) to the direct formula: the kernel run again on
+        the kept inputs, bit-equal. For a check train whose launches are
+        not held to the formula one by one (``direct`` False)."""
+        from transmogrifai_tpu_torch.histeng import kernels as HK
+        t0 = time.perf_counter()
+        _, shape, (codes, node, sw_list, Wl, n_bins, stride) = \
+            self.heaviest["node_hist"]
+        got = HK.node_hist_cuda(codes, node, sw_list, Wl, n_bins, stride)
+        direct = _node_direct(codes, node, sw_list, Wl, n_bins, stride)
+        if direct is None:
+            raise AssertionError(f"{tag}: node_hist's heaviest shape {shape}"
+                                 f" is beyond DIRECT_MAX_BYTES")
+        if not torch.equal(got.reshape(-1, got.shape[-2] * got.shape[-1]),
+                           direct):
+            raise AssertionError(f"{tag}: node_hist at its heaviest shape "
+                                 f"{shape} differs from the direct formula")
+        self.direct_shapes.add(shape)
+        print(f"(b) {tag}: node_hist at its heaviest shape {shape} "
+              f"bit-equal to the direct formula (held in "
+              f"{time.perf_counter() - t0:.3f} s)")
+
     def report(self, tag: str, names=("hist_matmul", "node_hist",
                                       "forest_predict_chain")) -> None:
         """Print what was held; every kernel of ``names`` must have
@@ -1852,7 +1906,10 @@ class _KernelChecks:
                             if self.direct_per_shape else "")
                          + (f" but at {len(self.too_wide)} shapes beyond "
                             f"DIRECT_MAX_BYTES" if self.too_wide else "")
-                         if self.direct else "not held to the direct "
+                         if self.direct else
+                         "bit-equal to the direct formula at the heaviest "
+                         f"launch's shape {next(iter(self.direct_shapes))}"
+                         if self.direct_shapes else "not held to the direct "
                          "formula here (DIRECT_HELD_ELSEWHERE)")
                         if name == "node_hist" else "on integer "
                         "stats of the same codes bit-equal to plain"))
@@ -2379,6 +2436,7 @@ class Titanic:
                            direct=False) as checks:
             wf.train()
             torch.cuda.synchronize()
+        checks.hold_heaviest_direct("titanic")
         checks.report("titanic")
         print(f"(b) the titanic train's kernel inputs checked in "
               f"{time.perf_counter() - t0:.1f} s")
@@ -2576,10 +2634,11 @@ class TitanicWCV:
         one's heaviest launch timed. Outside the counted path."""
         t0 = time.perf_counter()
         wf, _, _ = self.workflow()
-        with _KernelChecks(keep_heaviest=True,
-                           direct_per_shape=True) as checks:
+        with _KernelChecks(keep_heaviest=True, direct_per_shape=True,
+                           direct=False) as checks:
             wf.train()
             torch.cuda.synchronize()
+        checks.hold_heaviest_direct("titanic_wcv")
         checks.report("titanic_wcv")
         print(f"(b) the titanic_wcv train's kernel inputs checked in "
               f"{time.perf_counter() - t0:.1f} s")
@@ -3353,6 +3412,7 @@ class Tickets:
                            direct=False) as checks:
             wf.train()
             torch.cuda.synchronize()
+        checks.hold_heaviest_direct("tickets")
         checks.report("tickets", ("hist_matmul", "node_hist",
                                   "forest_predict_chain"))
         print(f"(b) the tickets train's kernel inputs checked in "
@@ -3592,7 +3652,7 @@ class Events:
     ``JoinedDataReader``, the scalers, bucketizers and the percentile
     calibrator, ``transmogrify``, the SanityChecker and the binary
     selector over the serve bench's GBT and RF with 3-fold CV; trained,
-    scored (Avro), evaluated and its raw features written (CSV) through
+    scored (Avro), evaluated and its raw features written (Parquet) through
     ``OpWorkflowRunner`` and ``OpApp``; LOCO and Corr on the scoring
     cohort of 4,096 users; against ``fixtures/events`` (what the JAX
     package made of the same files on the CPU)."""
@@ -3665,7 +3725,7 @@ class Events:
 
     def train(self):
         """"train events": the runner's train, score (.avro), evaluate,
-        features (.csv) and an ``OpApp`` score, held to the fixture: the
+        features (Parquet) and an ``OpApp`` score, held to the fixture: the
         raw table (keys, order, values, nulls) by digest, every vector
         block by sha256, the vector's metadata and sampled rows, the fitted
         host stages, the SanityChecker's choices, the selection, the
@@ -3858,10 +3918,11 @@ class Events:
                 raise AssertionError(f"events: evaluation {ev}")
             t0 = time.perf_counter()
             runner.run("features", OpParams(
-                write_location=os.path.join(out, "features.csv")))
+                write_location=os.path.join(out, "features.parquet")))
             feat_s = time.perf_counter() - t0
-            with open(os.path.join(out, "features.csv")) as fh:
-                lines = sum(1 for _ in fh)
+            from transmogrifai_tpu_torch.utils.parquet import read_metadata
+            lines = read_metadata(os.path.join(
+                out, "features.parquet"))["num_rows"] + 1
             app = os.path.join(out, "app.avro")
             OpApp(runner).main(["--run-type", "score", "--model-location",
                                 model_dir, "--write-location", app])
@@ -3873,7 +3934,7 @@ class Events:
                                      "lines")
             print(f"(t) events: evaluate on the scoring users: AuROC "
                   f"{ev['AuROC']:.4f}, AuPR {ev['AuPR']:.4f}; features run "
-                  f"wrote {lines - 1} users' raw features (.csv) in "
+                  f"wrote {lines - 1} users' raw features (Parquet) in "
                   f"{feat_s:.3f} s; OpApp --run-type score wrote the "
                   f"runner's records")
         check(evaluate)
@@ -5868,6 +5929,407 @@ class Resume:
               f"{(app.get('deviceMemory') or {}).get('peak_bytes_in_use')}")
 
 
+PARQUET_DIR = os.path.join(HERE, "transmogrifai_tpu_torch", "fixtures",
+                           "parquet")
+#: the JAX fixture's probability_1 against the port's score of the same
+#: saved model (the (titanic) phase's limit for the saved Titanic model)
+PARQUET_PROB_ATOL = PROB_ATOL
+
+
+class Parquet:
+    """(parquet): the port's Parquet reader and writer on the Titanic and
+    leads paths, against ``fixtures/parquet`` (what the JAX package and
+    pandas made of the same files) and the (titanic) phase's CSV train in
+    this call."""
+
+    def __init__(self, titanic: "Titanic", tmp: str):
+        self.t = titanic
+        self.tmp = tmp
+        with open(os.path.join(PARQUET_DIR, "fixture.json")) as fh:
+            self.fx = json.load(fh)
+        self.host_s = {}
+
+    def read(self):
+        """(1) the committed scoring file's raw Titanic table is the CSV
+        reader's of the rebuilt file, bit for bit; (4) the leads features
+        file reads as pandas read it; both Titanic files' columns as
+        pandas read them (per-column digests)."""
+        from transmogrifai_tpu_torch.readers import DataReaders
+        from transmogrifai_tpu_torch.testing import (
+            column_gaps, columns_digest, load_columns, table_digest,
+        )
+        from transmogrifai_tpu_torch.utils.parquet import read_parquet
+        for name, f in self.fx["files"].items():
+            path = os.path.join(PARQUET_DIR, f"{name}.parquet")
+            t0 = time.perf_counter()
+            cols = read_parquet(path)
+            self.host_s[f"read {name}"] = time.perf_counter() - t0
+            if columns_digest(cols) != f["columns"]:
+                bad = [c for c, d in columns_digest(cols).items()
+                       if f["columns"].get(c) != d]
+                raise AssertionError(f"parquet: {name} reads otherwise "
+                                     f"than pandas did: {bad}")
+        gaps = column_gaps(read_parquet(os.path.join(
+            PARQUET_DIR, "leads_features.parquet")), load_columns(
+            os.path.join(PARQUET_DIR, "leads_features.npz")))
+        if gaps:
+            raise AssertionError(f"parquet: leads features: {gaps}")
+        raw = self.t.workflow().raw_features
+        names = [f.name for f in raw]
+        t0 = time.perf_counter()
+        got = DataReaders.Simple.parquet(
+            os.path.join(PARQUET_DIR, "titanic_score.parquet"),
+            key_field="PassengerId").generate_table(raw)
+        self.host_s["titanic scoring table from Parquet"] = \
+            time.perf_counter() - t0
+        want = self.t.reader().generate_table(raw)
+        if table_digest(got, names) != table_digest(want, names) or [
+                got[n].feature_type for n in names] != [
+                want[n].feature_type for n in names]:
+            raise AssertionError("parquet: the scoring file's raw table "
+                                 "differs from the CSV reader's")
+        print(f"(parquet) the three committed files read as pandas read "
+              f"them (leads {self.fx['leads_rows']} rows: structs, lists, "
+              f"dates; whole values); the Titanic scoring table from "
+              f"Parquet bit-equal to the CSV reader's ({len(names)} raw "
+              f"features, keys)")
+
+    def train(self):
+        """(2) the port writes the 20,000-row training frame to Parquet;
+        the Titanic workflow trains through ``OpWorkflowRunner`` from it:
+        winner, every family's fold metrics and the LR refit's params
+        bit-equal to the (titanic) phase's CSV train."""
+        from transmogrifai_tpu_torch.examples.titanic import TITANIC_SCHEMA
+        from transmogrifai_tpu_torch.readers import DataReaders, read_csv
+        from transmogrifai_tpu_torch.runner import (
+            OpParams, OpWorkflowRunner, write_parquet,
+        )
+        from transmogrifai_tpu_torch.testing import selection_summary
+
+        frame = read_csv(self.t.train_csv, TITANIC_SCHEMA, header=False)
+        path = os.path.join(self.tmp, "titanic_train.parquet")
+        t0 = time.perf_counter()
+        write_parquet(path, frame)
+        self.host_s["write the training frame"] = time.perf_counter() - t0
+        wf = self.t.workflow()
+        runner = OpWorkflowRunner(wf, train_reader=DataReaders.Simple.parquet(
+            path, key_field="PassengerId"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = runner.run("train", OpParams()).model
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        ref = self.t.model
+        got_sel = selection_summary(model.stages[-1].summary)
+        want_sel = selection_summary(ref.stages[-1].summary)
+        if got_sel != want_sel:
+            raise AssertionError("parquet: the Parquet train's selection "
+                                 "differs from the CSV train's")
+        gp = to_numpy(model.stages[-1].fitted.params)
+        rp = to_numpy(ref.stages[-1].fitted.params)
+        if sorted(gp) != sorted(rp) or not all(
+                np.array_equal(gp[k], rp[k]) for k in rp):
+            raise AssertionError("parquet: the refit's params differ from "
+                                 "the CSV train's")
+        print(f"(parquet) titanic train from Parquet ({os.path.getsize(path)}"
+              f" bytes) through OpWorkflowRunner in {secs:.3f} s: winner "
+              f"{got_sel['winner']} {got_sel['hyper']}, every family's fold "
+              f"metrics and the refit's params bit-equal to the CSV train")
+        self.train_s = secs
+
+    def score(self):
+        """(3) a score run of the JAX-saved Titanic model over the
+        committed scoring file writes ``.parquet``; read back it holds the
+        returned scores; probability_1 within PARQUET_PROB_ATOL of the JAX
+        package's score file, keys equal."""
+        from transmogrifai_tpu_torch.readers import DataReaders
+        from transmogrifai_tpu_torch.runner import (
+            OpParams, OpWorkflowRunner, table_to_frame, write_parquet,
+        )
+        from transmogrifai_tpu_torch.testing import column_gaps
+        from transmogrifai_tpu_torch.utils.parquet import read_parquet
+
+        out = os.path.join(self.tmp, "scores.parquet")
+        runner = OpWorkflowRunner(
+            self.t.workflow(), score_reader=DataReaders.Simple.parquet(
+                os.path.join(PARQUET_DIR, "titanic_score.parquet"),
+                key_field="PassengerId"))
+        t0 = time.perf_counter()
+        res = runner.run("score", OpParams(
+            model_location=os.path.join(TITANIC_DIR, "model"),
+            write_location=out))
+        self.host_s["score run with its Parquet write"] = \
+            time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = read_parquet(out)
+        self.host_s["read the scores back"] = time.perf_counter() - t0
+        # the run's file holds the returned scores: it reads as a direct
+        # write of their frame reads
+        frame = table_to_frame(res.scores)
+        again = os.path.join(self.tmp, "scores_again.parquet")
+        write_parquet(again, frame)
+        gaps = column_gaps(back, read_parquet(again))
+        if gaps:
+            raise AssertionError(f"parquet: the written scores differ from "
+                                 f"the returned ones: {gaps}")
+        want = read_parquet(os.path.join(PARQUET_DIR,
+                                         "titanic_scores.parquet"))
+        pred = self.fx["prediction"]
+        if back["key"].tolist() != want["key"].tolist():
+            raise AssertionError("parquet: score keys differ from the JAX "
+                                 "package's")
+        p1 = np.array([d["probability_1"] for d in back[pred]])
+        w1 = np.array([d["probability_1"] for d in want[pred]])
+        err = float(np.abs(p1 - w1).max())
+        if not err <= PARQUET_PROB_ATOL:
+            raise AssertionError(f"parquet: probability_1 off the JAX "
+                                 f"package's by {err}")
+        print(f"(parquet) score run wrote {os.path.getsize(out)} bytes of "
+              f"Parquet ({len(frame.columns)} columns x {frame.num_rows} "
+              f"rows), read back equal to the returned scores; "
+              f"probability_1 max |d| {err:.3g} from the JAX package's "
+              f"score file, keys equal")
+
+    def report(self):
+        print(json.dumps({"parquet_host_s": {
+            k: round(v, 4) for k, v in self.host_s.items()},
+            "parquet_train_s": round(self.train_s, 4)}))
+
+
+#: the (cli) phase's load: seconds and requests/s a run
+CLI_SECONDS = 1.0
+CLI_RPS = 200.0
+#: requests of each served command held to the micro-batch scorer
+CLI_SERVED_SAMPLE = 32
+
+
+class Cli:
+    """(cli): the port's command line on the card, as a user runs it
+    (``cli.main``): ``serve`` (with ``--output``, then ``--listen``),
+    ``slo``, ``fleet --replicas 2 --kill`` on copies of ``serve64/gbt``,
+    ``trace``, ``doctor`` on the kill's post-mortem, and ``gen`` on the
+    Titanic training file, whose app trains in a subprocess."""
+
+    def __init__(self, titanic: "Titanic", tmp: str):
+        self.t = titanic
+        self.tmp = os.path.join(tmp, "cli")
+        os.makedirs(self.tmp)
+        self.secs = {}
+        #: per command, the (row, future) pairs of its first requests
+        self.kept = {}
+
+    def _model(self, name):
+        d = os.path.join(self.tmp, name)
+        shutil.copytree(os.path.join(FIXTURES, "gbt"), d)
+        return d
+
+    def _main(self, tag, argv):
+        from transmogrifai_tpu_torch import cli
+        from transmogrifai_tpu_torch.testing import served_sample
+        t0 = time.perf_counter()
+        try:
+            with served_sample(CLI_SERVED_SAMPLE) as kept:
+                cli.main(argv)
+        except SystemExit as e:
+            raise AssertionError(f"cli {tag}: exited {e.code}") from None
+        finally:
+            self.secs[tag] = time.perf_counter() - t0
+        if kept:
+            self.kept[tag] = kept
+
+    @staticmethod
+    def _lost_nothing(tag, path):
+        with open(path) as fh:
+            load = json.load(fh)["load"]
+        if load["lost"] or load["failed"] or not load["completed"]:
+            raise AssertionError(f"cli {tag}: lost {load['lost']}, failed "
+                                 f"{load['failed']}, completed "
+                                 f"{load['completed']}")
+        return load
+
+    def serve(self):
+        out = os.path.join(self.tmp, "serve")
+        self._main("serve", ["serve", "--model", self._model("serve_gbt"),
+                             "--seconds", str(CLI_SECONDS), "--rps",
+                             str(CLI_RPS), "--output", out])
+        for f in ("trace.json", "spans.jsonl", "metrics.prom",
+                  "serve_summary.json"):
+            if not os.path.getsize(os.path.join(out, f)):
+                raise AssertionError(f"cli serve: {f} empty")
+        self.serve_load = self._lost_nothing(
+            "serve", os.path.join(out, "serve_summary.json"))
+
+    def listen(self):
+        out = os.path.join(self.tmp, "listen")
+        self._main("serve --listen", [
+            "serve", "--model", self._model("listen_gbt"), "--seconds",
+            str(CLI_SECONDS), "--rps", str(CLI_RPS), "--listen",
+            "127.0.0.1:0", "--output", out])
+        self._lost_nothing("serve --listen",
+                           os.path.join(out, "serve_summary.json"))
+
+    def slo(self):
+        out = os.path.join(self.tmp, "slo")
+        self._main("slo", ["slo", "--model", self._model("slo_gbt"),
+                           "--seconds", str(CLI_SECONDS), "--rps",
+                           str(CLI_RPS), "--intervals", "2",
+                           "--availability", "0.9", "--output", out])
+        with open(os.path.join(out, "slo_summary.json")) as fh:
+            load = json.load(fh)["load"]
+        if load["lost"] or load["failed"] or not load["completed"]:
+            raise AssertionError(f"cli slo: {load}")
+
+    def fleet(self):
+        from transmogrifai_tpu_torch.observability import postmortem as pm
+        out = os.path.join(self.tmp, "fleet")
+        self.pm_dir = os.path.join(self.tmp, "postmortems")
+        # the autoscaler keeps two replicas (at this light load it would
+        # retire one, and the kill would leave none to fail over to)
+        env = {"TG_POSTMORTEM_DIR": self.pm_dir, "TG_FLEET_MIN": "2"}
+        prev = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        pm.reset()
+        try:
+            self._main("fleet --kill", [
+                "fleet", "--model", self._model("fleet_gbt"), "--replicas",
+                "2", "--seconds", str(CLI_SECONDS), "--rps", str(CLI_RPS),
+                "--kill", "--output", out])
+        finally:
+            for k, v in prev.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        self._lost_nothing("fleet --kill",
+                           os.path.join(out, "fleet_summary.json"))
+        with open(os.path.join(out, "fleet_summary.json")) as fh:
+            doc = json.load(fh)
+        states, routing = doc["replicaStates"], doc["routing"]
+        no_replica = doc["fleet"]["sheds"]["no_replica"]
+        if states.get("r0") != "dead" or no_replica or not sum(
+                v for r, v in routing.items() if r != "r0"):
+            raise AssertionError(f"cli fleet: the kill did not fail over: "
+                                 f"states {states}, routing {routing}, "
+                                 f"{no_replica} shed for no replica")
+        self.fleet_routing = routing
+
+    def trace(self):
+        out = os.path.join(self.tmp, "trace")
+        self._main("trace", ["trace", "--output", out, "--rows", "600"])
+        for f in ("trace.json", "spans.jsonl", "metrics.prom",
+                  "summary.json"):
+            if not os.path.getsize(os.path.join(out, f)):
+                raise AssertionError(f"cli trace: {f} empty")
+
+    def doctor(self):
+        import contextlib
+        import io
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            self._main("doctor", ["doctor", self.pm_dir])
+        text = buf.getvalue()
+        if "replica_lost" not in text or "doctor verdict: ok" not in text:
+            raise AssertionError(f"cli doctor: {text[-600:]}")
+
+    def gen(self):
+        """``gen`` on the Titanic training file (a header line added) with
+        an answers file; the generated app trains in one subprocess on
+        the card (``TG_FAST_GRIDS=1``)."""
+        from transmogrifai_tpu_torch.examples.titanic import TITANIC_SCHEMA
+        data = os.path.join(self.tmp, "titanic.csv")
+        with open(self.t.train_csv) as src, open(data, "w") as dst:
+            dst.write(",".join(TITANIC_SCHEMA) + "\n")
+            shutil.copyfileobj(src, dst)
+        answers = os.path.join(self.tmp, "answers.txt")
+        with open(answers, "w") as fh:
+            fh.write("problem=binary\nrole.Name=drop\nrole.Ticket=drop\n"
+                     "type.Pclass=PickList\ntype.Cabin=PickList\n")
+        proj = os.path.join(self.tmp, "app")
+        self._main("gen", ["gen", "--input", data, "--response", "Survived",
+                           "--id-field", "PassengerId", "--output", proj,
+                           "--name", "TitanicApp", "--answers", answers])
+        env = dict(os.environ, PYTHONPATH=HERE, TG_FAST_GRIDS="1")
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "app.py", "--run-type", "train",
+                            "--model-location",
+                            os.path.join(self.tmp, "app_model")],
+                           cwd=proj, env=env, capture_output=True,
+                           text=True, timeout=300)
+        self.secs["generated app train (subprocess)"] = \
+            time.perf_counter() - t0
+        if r.returncode or not os.path.isfile(
+                os.path.join(self.tmp, "app_model", "plan.json")):
+            raise AssertionError(f"cli gen: the generated app's train "
+                                 f"failed: {r.stderr[-2000:]}")
+
+    def check_served(self):
+        """The first requests that ``serve``, ``slo`` and ``fleet --kill``
+        submitted: their served records bit-equal to the micro-batch
+        scorer's on the same rows (the (serving) phase's limit). Outside
+        the counted paths."""
+        from transmogrifai_tpu_torch.persistence import load_model
+        from transmogrifai_tpu_torch.testing import served_gaps
+        if sorted(self.kept) != ["fleet --kill", "serve", "slo"]:
+            raise AssertionError(f"cli: served samples of {sorted(self.kept)}")
+        model = load_model(os.path.join(FIXTURES, "gbt"),
+                           device=torch.device("cuda", 0))
+        for tag, kept in self.kept.items():
+            gaps = served_gaps(model, kept)
+            if gaps:
+                raise AssertionError(f"cli {tag}: served records differ from "
+                                     f"the micro-batch scorer's: {gaps[:2]}")
+        self.served = {tag: len(kept) for tag, kept in self.kept.items()}
+
+    def report(self):
+        print(f"(cli) served records bit-equal to the micro-batch scorer's "
+              f"({self.served} requests sampled)")
+        print(f"(cli) serve {self.serve_load['completed']} completed, 0 "
+              f"lost; serve --listen, slo and fleet --kill lost nothing "
+              f"(the kill's routing {self.fleet_routing}); "
+              f"trace wrote its four files; doctor rendered the kill's "
+              f"post-mortem; the generated Titanic app trained")
+        print(json.dumps({"cli_s": {k: round(v, 4)
+                                    for k, v in self.secs.items()}}))
+
+
+def _parquet_paths(titanic: "Titanic", tmp: str, run_path):
+    """The (parquet) phase's counted paths, after the (titanic) phase's
+    CSV train: the committed files read, the Titanic train from Parquet
+    (the sweep kernels, bit-equal to the CSV train), a score run written
+    as Parquet (the saved model's LR: no kernel). (paths, seconds)."""
+    from transmogrifai_tpu_torch.histeng import kernels as HK
+    from transmogrifai_tpu_torch.ops import forest as F
+    sweep = (HK.HIST_MATMUL, HK.NODE_HIST, F.FOREST_PREDICT_CHAIN)
+    t0 = time.perf_counter()
+    parquet = Parquet(titanic, tmp)
+    paths = {"read parquet": run_path("read parquet", parquet.read, ())}
+    paths["train parquet"] = run_path("train parquet", parquet.train, sweep)
+    paths["score parquet"] = run_path("score parquet", parquet.score, ())
+    parquet.report()
+    return paths, time.perf_counter() - t0
+
+
+def _cli_paths(titanic: "Titanic", tmp: str, run_path):
+    """The (cli) phase's counted paths: the command line on copies of
+    serve64/gbt (heap predicts), ``trace``, then ``doctor``, ``gen`` and
+    the served records' check outside the counts. (paths, seconds)."""
+    from transmogrifai_tpu_torch.ops import forest as F
+    t0 = time.perf_counter()
+    cli = Cli(titanic, tmp)
+    heap = (F.FOREST_PREDICT_HEAP,)
+    paths = {"cli serve": run_path("cli serve", cli.serve, heap)}
+    paths["cli serve --listen"] = run_path("cli serve --listen", cli.listen,
+                                           heap)
+    paths["cli slo"] = run_path("cli slo", cli.slo, heap)
+    paths["cli fleet --kill"] = run_path("cli fleet --kill", cli.fleet, heap)
+    paths["cli trace"] = run_path("cli trace", cli.trace, ())
+    cli.check_served()
+    cli.doctor()
+    cli.gen()
+    cli.report()
+    return paths, time.perf_counter() - t0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5933,6 +6395,9 @@ def _run(dev, kernels, tmp) -> int:
                                        sweep)}
     paths["serve titanic"] = run_path("serve titanic", titanic.serve,
                                       _forest_kernels(titanic.model))
+    phase_s = {}
+    pq_paths, phase_s["parquet"] = _parquet_paths(titanic, tmp, run_path)
+    paths.update(pq_paths)
     paths["train titanic_wcv"] = run_path("train titanic_wcv", wcv.train,
                                           sweep)
     print(f"launches, train titanic_wcv: "
@@ -6026,6 +6491,10 @@ def _run(dev, kernels, tmp) -> int:
     paths["fleet"] = run_path("fleet", fleet.run,
                               (F.FOREST_PREDICT_HEAP, F.FOREST_PREDICT_CHAIN))
     fleet.after(paths["fleet"])
+    cli_paths, phase_s["cli"] = _cli_paths(titanic, tmp, run_path)
+    paths.update(cli_paths)
+    print(json.dumps({"phase_s": {k: round(v, 3)
+                                  for k, v in phase_s.items()}}))
     for name, counts in paths.items():
         print(f"launches, {name}: "
               f"{ {k: v for k, v in counts.items() if v} }")

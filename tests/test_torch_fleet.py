@@ -17,8 +17,8 @@ tail differently, so a binary probability moves by an ulp with the flush a
 row lands in: ROADMAP Queue 3). The front door's own behaviours (routing,
 probes, chaos, deploys, admission, autoscale) and the subprocess replicas
 are in ``test_torch_frontdoor.py``. Nothing here depends on the host's speed:
-queue depths are staged behind a 500 ms flush timer and probes are manual
-(``probe_interval_ms=0``).
+queue depths are staged with the batchers held (``testing.held_flushes``)
+and probes are manual (``probe_interval_ms=0``).
 """
 from __future__ import annotations
 
@@ -49,7 +49,7 @@ from transmogrifai_tpu_torch.serving import (  # noqa: E402
 )
 from transmogrifai_tpu_torch.serving.loadgen import synthetic_rows  # noqa: E402
 from transmogrifai_tpu_torch.testing import (  # noqa: E402
-    close_serving_state, request_rows, score_frame,
+    close_serving_state, held_flushes, request_rows, score_frame,
 )
 
 pytestmark = pytest.mark.fleet
@@ -171,10 +171,11 @@ def test_replica_kill_mid_flight_zero_lost(rf, lr, which, tmp_path):
     model = rf if which == "rf" else lr["port"]
     rows = _rows(24) if which == "rf" else synthetic_rows(model, 24, seed=57)
     baseline = micro_batch_score_function(model)(list(rows))
-    with _fleet(model) as fd:
+    with _fleet(model) as fd, held_flushes() as release:
         futs = [fd.submit(r) for r in rows]
         assert fd.replica_distribution() == {"r0": 12, "r1": 12}
         fd.kill_replica("r0")
+        release.set()
         recs = [f.result(timeout=30) for f in futs]
         snap = fd.fleet_snapshot()
         assert snap["kills"] == 1 and snap["failovers"] >= 12

@@ -9,8 +9,8 @@ the refusal of a CUDA replica without a card.
 
 They serve the committed JAX-saved ``serve64/rf`` (64 predictors), whose
 records are bit-equal to the micro-batch scorer at any flush size.
-Nothing here depends on the host's speed: queue depths are staged behind
-a 500 ms flush timer, probes are manual (``probe_interval_ms=0``), faults
+Nothing here depends on the host's speed: queue depths are staged with
+the batchers held (``testing.held_flushes``), probes are manual (``probe_interval_ms=0``), faults
 fire by count, and clocks are injected. The parity with the JAX package's
 front door is in ``test_torch_fleet.py``.
 """
@@ -46,7 +46,7 @@ from transmogrifai_tpu_torch.serving import (  # noqa: E402
 )
 from transmogrifai_tpu_torch.serving.loadgen import run_open_loop  # noqa: E402
 from transmogrifai_tpu_torch.testing import (  # noqa: E402
-    close_serving_state, request_rows, score_frame,
+    close_serving_state, held_flushes, request_rows, score_frame,
 )
 
 pytestmark = pytest.mark.fleet
@@ -106,21 +106,23 @@ def _fleet(model, replicas=2, cfg=None, fc=None, **kw):
 
 def test_routing_prefers_shallow_queues(rf):
     rows = _rows(12)
-    with _fleet(rf) as fd:
+    with _fleet(rf) as fd, held_flushes() as release:
         r0 = fd._replicas["r0"]
         staged = [r0.submit("m", r) for r in rows[:6]]
         routed = [fd.submit(r) for r in rows[6:]]
         dist = fd.replica_distribution()
         assert dist["r1"] == 6 and dist["r0"] == 0, dist
+        release.set()
         for f in staged + routed:
             assert f.result(timeout=30) is not None
 
 
 def test_routing_balances_empty_queues(rf):
     rows = _rows(16)
-    with _fleet(rf) as fd:
+    with _fleet(rf) as fd, held_flushes() as release:
         futs = [fd.submit(r) for r in rows]
         assert fd.replica_distribution() == {"r0": 8, "r1": 8}
+        release.set()
         recs = [f.result(timeout=30) for f in futs]
     assert recs == micro_batch_score_function(rf)(list(rows))
 

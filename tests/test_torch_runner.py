@@ -9,10 +9,10 @@ equal but the prediction, whose probabilities are within ``PROB_ATOL``:
 the LR's dot product adds in another order), the CSV text line for line
 (the features run's byte for byte; a score file's prediction cell, a
 dict's text, within ``PROB_ATOL`` after reading it back), the metrics
-JSON within ``PROB_ATOL``. The port's ``summary`` lacks the JAX package's
-``faults``, ``resume`` and ``observability`` sections (not ported); the
-port writes the ``features`` run by extension where the JAX package
-writes Parquet. Testkit draws are equal.
+JSON within ``PROB_ATOL``, the ``features`` run's Parquet read back
+through pandas equal. The port's ``summary`` lacks the JAX package's
+``faults``, ``resume`` and ``observability`` sections (not ported).
+Testkit draws are equal.
 """
 from __future__ import annotations
 
@@ -21,7 +21,9 @@ import csv
 import json
 import math
 import os
+import shutil
 import sys
+import tempfile
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
@@ -158,7 +160,7 @@ def _metrics_close(got, want):
 
 def test_every_run_type_and_app_match_jax(tmp_path):
     """train (model and metrics), score (.avro and .csv), evaluate,
-    streamingScore, features (.csv) and OpApp in both packages."""
+    streamingScore, features (Parquet) and OpApp in both packages."""
     data = _data()
     df = pd.DataFrame(data)
     batches = [{k: v[:120] for k, v in data.items()},
@@ -186,13 +188,8 @@ def test_every_run_type_and_app_match_jax(tmp_path):
             model_location=str(d / "model"),
             write_location=str(d / "stream.avro")))
         assert st.score_batches == 2
-        feats = runner.run("features", mod.OpParams())
-        if name == "jax":
-            jrun.table_to_dataframe(feats.scores).to_csv(
-                str(d / "raw.csv"), index=False)
-        else:
-            runner.run("features", mod.OpParams(
-                write_location=str(d / "raw.csv")))
+        runner.run("features", mod.OpParams(
+            write_location=str(d / "raw.parquet")))
         app = mod.OpApp(runner).main([
             "--run-type", "score", "--model-location", str(d / "model"),
             "--write-location", str(d / "app.avro")])
@@ -202,8 +199,8 @@ def test_every_run_type_and_app_match_jax(tmp_path):
     for f in ("s.avro", "stream.avro", "app.avro"):
         _same_records(list(read_avro(str(p / f))),
                       list(read_avro(str(j / f))), jpred.name)
-    with open(j / "raw.csv") as a, open(p / "raw.csv") as b:
-        assert b.read() == a.read()
+    pd.testing.assert_frame_equal(pd.read_parquet(p / "raw.parquet"),
+                                  pd.read_parquet(j / "raw.parquet"))
     with open(j / "s.csv", newline="") as a, open(p / "s.csv",
                                                    newline="") as b:
         ja, pa = list(csv.reader(a)), list(csv.reader(b))
@@ -255,8 +252,16 @@ def test_runner_refusals():
     jr, pr, jpred, data = _runners()
     with pytest.raises(ValueError, match="unknown run type"):
         pr.run("fit")
-    with pytest.raises(ValueError, match="Parquet"):
-        pr.run("features", prun.OpParams(write_location="x.parquet"))
+    # a features run writes Parquet whatever the extension, as the JAX
+    # package's does: read back as the JAX package's write reads
+    d = tempfile.mkdtemp()
+    for name, mod, runner in (("jax", jrun, jr), ("port", prun, pr)):
+        runner.run("features", mod.OpParams(
+            write_location=os.path.join(d, f"{name}.csv")))
+    pd.testing.assert_frame_equal(
+        pd.read_parquet(os.path.join(d, "port.csv")),
+        pd.read_parquet(os.path.join(d, "jax.csv")))
+    shutil.rmtree(d)
     with pytest.raises(ValueError, match="streaming_score_reader"):
         pr.run("streamingScore")
     with pytest.raises(SystemExit):

@@ -672,7 +672,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib',\n"
-        "                                    'transmogrifai_tpu'))\n"
+        "                                    'transmogrifai_tpu',\n"
+        "                                    'pandas', 'pyarrow'))\n"
         "print(bad)\n"
         "print(' '.join(sorted(m for m in sys.modules\n"
         "                      if m.startswith(p.__name__))))\n"
@@ -709,7 +710,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "serving.netedge", "serving.replica_worker",
                 "robustness.oracles", "robustness.guards",
                 "robustness.campaign", "impl.tuning.sweep_checkpoint",
-                "parallel.distributed", "utils.profiler", "cli"):
+                "parallel.distributed", "utils.profiler", "cli",
+                "utils.parquet", "runner"):
         assert f"transmogrifai_tpu_torch.{mod}" in walked, mod
 
 

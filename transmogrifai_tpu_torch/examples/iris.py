@@ -7,7 +7,8 @@ the same definitions): four measurements through ``transmogrify`` into
     model = wf.train()                 # on the CUDA device
 
 The default path is the reference's iris file; it is not in this
-repository, so pass a file of the same schema (headerless CSV).
+repository, so pass a file of the same schema (headerless CSV), e.g. the
+seeded synthetic one ``write_iris_file`` writes.
 """
 from __future__ import annotations
 
@@ -39,6 +40,20 @@ def dropna(frame: Frame) -> Frame:
                                                  and v != v)) for v in col],
                              dtype=bool)
     return Frame({n: c[keep] for n, c in frame.columns.items()})
+
+
+def write_iris_file(path: str, n: int = 150, seed: int = 0) -> str:
+    """A seeded synthetic iris file in the reference's schema (headerless
+    CSV, one decimal, the classes in turn, a blank last line); -> path."""
+    rng = np.random.RandomState(seed)
+    with open(path, "w") as fh:
+        for i in range(n):
+            c = i % 3
+            vals = rng.randn(4) * 0.4 + np.array([5.0, 3.4, 1.5, 0.2]) \
+                + c * np.array([0.9, -0.6, 2.5, 1.0])
+            fh.write(",".join(f"{v:.1f}" for v in vals) + f",{_CLASSES[c]}\n")
+        fh.write("\n")
+    return path
 
 
 def iris_features() -> Tuple[Feature, Feature]:

@@ -1,7 +1,7 @@
 """Phases of ``chip_smoke.py`` alone, on one NVIDIA GPU.
 
     python3 -m transmogrifai_tpu_torch.experiments.smoke_phases
-        [fleet] [direct-cost[:TRAIN]] [resume]
+        [fleet] [direct-cost[:TRAIN]] [resume] [parquet-cli]
 
 Run from the root of a checkout (``chip_smoke.py`` beside the package).
 Builds the kernels first, then, in the order given:
@@ -16,7 +16,11 @@ Builds the kernels first, then, in the order given:
   (``B``), in turns A B B A; prints each train's seconds;
 * ``resume``: (t)'s ``default_binary`` train against its fixture, then
   the (resume) phase (``chip_smoke.Resume``, ``_resume_paths``): each arm
-  with the launch counts zeroed before it and read after it.
+  with the launch counts zeroed before it and read after it;
+* ``parquet-cli``: (titanic)'s counted train against its fixture, then
+  the (parquet) and (cli) phases (``chip_smoke.Parquet``, ``Cli``) as the
+  script runs them, each path with the launch counts zeroed before it and
+  read after it.
 
 Prints the card's name and power limit last.
 """
@@ -80,7 +84,10 @@ def _direct_cost(cs, tmp, train: str = "titanic"):
               f"{time.perf_counter() - t0:.3f} s", flush=True)
 
 
-def _resume(cs, tmp):
+def _counted(cs, tmp):
+    """The script's settings for its counted paths, and its ``run_path``:
+    zero every count, drive the path, read the counts, each of the path's
+    kernels launched."""
     import torch
 
     from ..histeng import kernels as HK
@@ -91,7 +98,6 @@ def _resume(cs, tmp):
     torch.backends.cudnn.allow_tf32 = False
     cs.SAVE_DIR = os.path.join(tmp, "saved")
     os.makedirs(cs.SAVE_DIR)
-    cs.train_against_fixture("default_binary")
 
     def run_path(name, phase, path_kernels):
         for k in kernels:
@@ -103,10 +109,31 @@ def _resume(cs, tmp):
         if idle:
             raise AssertionError(f"kernel(s) {idle} never launched on the "
                                  f"{name} path")
+        print(f"launches, {name}: "
+              f"{ {k: v for k, v in counts.items() if v} }")
         return counts
+    return run_path
+
+
+def _resume(cs, tmp):
+    import torch
+    run_path = _counted(cs, tmp)
+    cs.train_against_fixture("default_binary")
     t0 = time.perf_counter()
     cs._resume_paths(cs.Resume(tmp, torch.device("cuda", 0)), run_path)
     print(f"(resume) alone in {time.perf_counter() - t0:.3f} s")
+
+
+def _parquet_cli(cs, tmp):
+    from ..histeng import kernels as HK
+    from ..ops import forest as F
+    run_path = _counted(cs, tmp)
+    titanic = cs.Titanic(tmp)
+    run_path("train titanic", titanic.train,
+             (HK.HIST_MATMUL, HK.NODE_HIST, F.FOREST_PREDICT_CHAIN))
+    _, pq_s = cs._parquet_paths(titanic, tmp, run_path)
+    _, cli_s = cs._cli_paths(titanic, tmp, run_path)
+    print(f"(parquet) alone in {pq_s:.3f} s, (cli) alone in {cli_s:.3f} s")
 
 
 def main(argv=None) -> int:
@@ -117,7 +144,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.getcwd())
     import chip_smoke as cs
     phases = {"fleet": _fleet, "direct-cost": _direct_cost,
-              "resume": _resume}
+              "resume": _resume, "parquet-cli": _parquet_cli}
     names = (argv if argv is not None else sys.argv[1:]) or ["fleet"]
     unknown = [n for n in names if n.split(":")[0] not in phases]
     if unknown:

@@ -1,7 +1,9 @@
 """Data readers (counterpart of ``transmogrifai_tpu.readers.readers``): a
-CSV file, an Avro file, a mapping of columns, a list of records or a
-stream of batches -> a ``FeatureTable`` of a workflow's raw features,
-without pandas (the aggregating readers are in ``aggregates``).
+CSV file, an Avro file, a Parquet file, a mapping of columns, a list of
+records or a stream of batches -> a ``FeatureTable`` of a workflow's raw
+features, without pandas (the aggregating readers are in
+``aggregates``). A Parquet file's columns come typed as
+``pd.read_parquet`` types them (``utils.parquet``).
 
 The JAX package reads through pandas (``read_csv``, a ``DataFrame``) and
 converts each column with ``series_to_column``; custom extract functions
@@ -289,6 +291,8 @@ def _to_numeric(arr: np.ndarray) -> np.ndarray:
     (``pd.to_numeric(errors="coerce")``)."""
     if arr.dtype.kind in "biuf":
         return arr.astype(np.float64)
+    if arr.dtype.kind in "mM":            # pandas: the int64 count, NaT too
+        return arr.view(np.int64).astype(np.float64)
     out = np.full(len(arr), np.nan)
     for i, v in enumerate(arr):
         if isinstance(v, (bool, int, float, np.number, np.bool_)):
@@ -460,6 +464,20 @@ class AvroReader(Reader):
         return Frame.of([flatten_record(r) for r in read_avro(self.path)])
 
 
+class ParquetReader(Reader):
+    """A Parquet file (``utils.parquet``): its columns as
+    ``pd.read_parquet`` gives them, a struct as a dict of every key, a list
+    as a numpy array."""
+
+    def __init__(self, path: str, **kw):
+        super().__init__(**kw)
+        self.path = path
+
+    def read(self) -> Frame:
+        from ..utils.parquet import read_parquet
+        return Frame(read_parquet(self.path))
+
+
 class StreamingDataReader(Reader):
     """Micro-batches of scoring input: an iterable of frames, mappings of
     columns or lists of records, one host table each
@@ -487,8 +505,7 @@ class StreamingDataReader(Reader):
 
 
 class DataReaders:
-    """Factory namespace, as the JAX package's ``DataReaders`` (Parquet
-    waits: the card has no pyarrow)."""
+    """Factory namespace, as the JAX package's ``DataReaders``."""
 
     class Simple:
         @staticmethod
@@ -502,6 +519,11 @@ class DataReaders:
         def csv_auto(path: str, key_field: Optional[str] = None
                      ) -> CSVAutoReader:
             return CSVAutoReader(path, key_field=key_field)
+
+        @staticmethod
+        def parquet(path: str, key_field: Optional[str] = None
+                    ) -> ParquetReader:
+            return ParquetReader(path, key_field=key_field)
 
         @staticmethod
         def dataframe(data, key_field: Optional[str] = None) -> FrameReader:
@@ -569,5 +591,6 @@ class DataReaders:
 
 __all__ = ["NA_VALUES", "Frame", "read_csv", "infer_column",
            "series_to_column", "frame_to_table", "Reader", "FrameReader",
-           "CSVReader", "CSVAutoReader", "AvroReader", "StreamingDataReader",
+           "CSVReader", "CSVAutoReader", "AvroReader", "ParquetReader",
+           "StreamingDataReader",
            "flatten_record", "DataReaders"]

@@ -9,14 +9,15 @@ one run. The runner trains and scores on its workflow's device (the CUDA
 device unless the workflow was built with ``device="cpu"``); a saved
 model loads onto that device.
 
-Scores and raw features are written by the output path's extension:
-``.avro`` through ``utils.avro`` (the records the JAX package writes),
-``.csv`` with the text pandas' ``to_csv(index=False)`` writes; any other
-extension raises (Parquet: the port is to write the format itself, as
-``utils.avro`` writes Avro; ROADMAP Queue 1 item 11). The JAX
-package's ``features`` run always writes Parquet; the port's writes by
-extension. ``log_stage_metrics`` attaches a ``utils.profiler.StageProfiler``
-to the workflow, and a train writes its ``appMetrics``.
+Scores are written by the output path's extension, as the JAX package
+writes them: ``.avro`` through ``utils.avro`` (the records), ``.csv`` with
+the text pandas' ``to_csv(index=False)`` writes, any other extension
+Parquet through ``utils.parquet`` (what ``DataFrame.to_parquet`` writes:
+a prediction a struct, a map a struct over its keys, a list a ``LIST``;
+a streaming score's index the batches' own, as ``pd.concat`` leaves it).
+The ``features`` run always writes Parquet. ``log_stage_metrics``
+attaches a ``utils.profiler.StageProfiler`` to the workflow, and a train
+writes its ``appMetrics``.
 """
 from __future__ import annotations
 
@@ -135,19 +136,27 @@ def write_csv(path: str, frame: Frame) -> None:
             w.writerow([_csv_cell(v) for v in row])
 
 
-def write_scores(frame: Frame, path: str) -> None:
-    """Write a score (or raw feature) frame by the path's extension."""
-    if not path.endswith((".avro", ".csv")):
-        raise ValueError(
-            f"cannot write {path!r}: the port writes .avro and .csv; "
-            f"Parquet is not written yet: the port is to write the format "
-            f"itself (ROADMAP Queue 1 item 11)")
+def write_parquet(path: str, frame: Frame,
+                  index: Optional[np.ndarray] = None) -> None:
+    """The frame as ``DataFrame.to_parquet`` writes it (a RangeIndex, or
+    ``index``)."""
+    from .utils.parquet import write_parquet as _write
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    _write(path, frame.columns, index=index)
+
+
+def write_scores(frame: Frame, path: str,
+                 index: Optional[np.ndarray] = None) -> None:
+    """Write a score frame by the path's extension: ``.avro``, ``.csv``,
+    else Parquet (with ``index`` as its index when given)."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     if path.endswith(".avro"):
         from .utils.avro import write_avro
         write_avro(path, frame.records())
-    else:
+    elif path.endswith(".csv"):
         write_csv(path, frame)
+    else:
+        write_parquet(path, frame, index=index)
 
 
 def _concat(frames: List[Frame]) -> Frame:
@@ -284,7 +293,12 @@ class OpWorkflowRunner:
         result.model = model
         result.score_batches = len(frames)
         if params.write_location and frames:
-            write_scores(_concat(frames), params.write_location)
+            # pd.concat keeps each batch's RangeIndex: one run of 0..n-1
+            # stays a RangeIndex, anything else is stored as a column
+            index = np.concatenate([np.arange(f.num_rows) for f in frames])
+            if np.array_equal(index, np.arange(len(index))):
+                index = None
+            write_scores(_concat(frames), params.write_location, index=index)
 
     def _features(self, result: OpWorkflowRunnerResult,
                   params: OpParams) -> None:
@@ -297,7 +311,7 @@ class OpWorkflowRunner:
         table = reader.generate_table(self.workflow.raw_features)
         result.scores = table
         if params.write_location:
-            write_scores(table_to_frame(table), params.write_location)
+            write_parquet(params.write_location, table_to_frame(table))
 
     def _evaluate(self, result: OpWorkflowRunnerResult,
                   params: OpParams) -> None:

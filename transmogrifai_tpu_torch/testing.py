@@ -2009,6 +2009,204 @@ def request_rows(frame: Dict[str, np.ndarray], n: Optional[int] = None
              for k, v in frame.items()} for i in range(n)]
 
 
+# ---------------------------------------------------------------------------
+# Frames as pandas gives them, kept without pandas (the Parquet fixtures)
+# ---------------------------------------------------------------------------
+
+def _enc_value(v):
+    """A python or numpy value as tagged JSON (the type survives)."""
+    import datetime
+    if isinstance(v, np.ndarray):
+        return {"nd": v.dtype.str if v.dtype != object else "O",
+                "v": [_enc_value(x) for x in v.tolist()]}
+    if isinstance(v, dict):
+        return {"d": [[k, _enc_value(x)] for k, x in v.items()]}
+    if isinstance(v, datetime.date):
+        return {"date": v.isoformat()}
+    if isinstance(v, bytes):
+        return {"b": v.hex()}
+    if v is None or isinstance(v, (bool, int, float, str)):
+        return v
+    raise TypeError(f"cannot keep a {type(v).__name__} value")
+
+
+def _dec_value(v):
+    import datetime
+    if isinstance(v, dict):
+        if "nd" in v:
+            vals = [_dec_value(x) for x in v["v"]]
+            if v["nd"] == "O":
+                out = np.empty(len(vals), dtype=object)
+                out[:] = vals
+                return out
+            return np.array(vals, dtype=np.dtype(v["nd"]))
+        if "d" in v:
+            return {k: _dec_value(x) for k, x in v["d"]}
+        if "date" in v:
+            return datetime.date.fromisoformat(v["date"])
+        return bytes.fromhex(v["b"])
+    return v
+
+
+def save_columns(path: str, columns: Dict[str, np.ndarray]) -> None:
+    """Keep a frame's columns (name -> numpy column, as ``pd.read_parquet``
+    gives them) in an npz: numeric columns as arrays, object columns as
+    tagged JSON; read back by ``load_columns`` without pandas."""
+    import json
+    arrays = {"__names__": np.array(json.dumps(list(columns)))}
+    for i, (name, col) in enumerate(columns.items()):
+        col = np.asarray(col)
+        if col.dtype == object:
+            arrays[f"c{i}"] = np.array(json.dumps(
+                [_enc_value(v) for v in col.tolist()]))
+        else:
+            arrays[f"c{i}"] = col
+    np.savez_compressed(path, **arrays)
+
+
+def load_columns(path: str) -> Dict[str, np.ndarray]:
+    """The columns ``save_columns`` kept."""
+    import json
+    with np.load(path) as z:
+        names = json.loads(str(z["__names__"]))
+        out = {}
+        for i, name in enumerate(names):
+            a = z[f"c{i}"]
+            if a.dtype.kind == "U" and a.ndim == 0:
+                vals = [_dec_value(v) for v in json.loads(str(a))]
+                col = np.empty(len(vals), dtype=object)
+                col[:] = vals
+                out[name] = col
+            else:
+                out[name] = a
+        return out
+
+
+def columns_digest(columns: Dict[str, np.ndarray]) -> Dict[str, str]:
+    """{column: sha256 of its dtype and every cell as tagged JSON} (the
+    type of each cell, nested dicts and arrays by dtype, NaN and None
+    apart): equal digests are equal columns in ``column_gaps``' sense."""
+    import hashlib
+    import json
+    return {name: hashlib.sha256(json.dumps(
+        [str(np.asarray(col).dtype),
+         [_enc_value(v) for v in np.asarray(col).tolist()]]).encode()
+    ).hexdigest() for name, col in columns.items()}
+
+
+def _same_value(a, b) -> bool:
+    if isinstance(b, np.ndarray):
+        return (isinstance(a, np.ndarray) and a.dtype == b.dtype
+                and a.shape == b.shape
+                and all(_same_value(x, y)
+                        for x, y in zip(a.tolist(), b.tolist())))
+    if isinstance(b, dict):
+        return (isinstance(a, dict) and list(a) == list(b)
+                and all(_same_value(a[k], b[k]) for k in b))
+    if isinstance(b, float) and b != b:
+        return isinstance(a, float) and a != a
+    return type(a) is type(b) and a == b
+
+
+def column_gaps(got: Dict[str, np.ndarray], want: Dict[str, np.ndarray],
+                limit: int = 5) -> List[str]:
+    """Where two frames' columns differ: names and order, a column's
+    dtype, or a cell (type, value, NaN where NaN; nested dicts and arrays
+    alike); [] when equal."""
+    if list(got) != list(want):
+        return [f"columns {list(got)} != {list(want)}"]
+    gaps = []
+    for name, w in want.items():
+        g = got[name]
+        if g.dtype != w.dtype or g.shape != w.shape:
+            gaps.append(f"{name}: {g.dtype}{g.shape} != {w.dtype}{w.shape}")
+            continue
+        for i, (x, y) in enumerate(zip(g.tolist(), w.tolist())):
+            if not _same_value(x, y):
+                gaps.append(f"{name}[{i}]: {x!r} != {y!r}")
+                break
+        if len(gaps) >= limit:
+            break
+    return gaps
+
+
+@contextmanager
+def held_flushes():
+    """While the block runs, every serving runtime's batcher waits before
+    it takes a batch, until the yielded ``threading.Event`` is set (or its
+    runtime stops): requests stay queued, so queue depths and a kill with
+    requests in flight do not depend on the host's speed. The event is set
+    when the block exits. Enter it after the fleet has started (a warm-up
+    waits on its own flushes)."""
+    import threading
+    from .serving.runtime import ServingRuntime
+
+    gate = threading.Event()
+    take = ServingRuntime._take_batch
+
+    def held(self):
+        while not gate.is_set() and self._running:
+            gate.wait(0.005)
+        return take(self)
+
+    ServingRuntime._take_batch = held
+    try:
+        yield gate
+    finally:
+        gate.set()
+        ServingRuntime._take_batch = take
+
+
+@contextmanager
+def served_sample(k: int = 32):
+    """While the block runs, the first ``k`` requests that the open-loop
+    load generator (``serving.loadgen.run_open_loop``) submits are kept:
+    the yielded list fills with (row, future) pairs, whatever runtime or
+    front door the generator drives (the command line's ``serve``,
+    ``slo`` and ``fleet``). ``served_gaps`` holds them to the
+    micro-batch scorer."""
+    from .serving import loadgen
+
+    kept: List[Tuple[Dict[str, Any], Any]] = []
+    run = loadgen.run_open_loop
+
+    def keeping(runtime, *args, **kwargs):
+        submit = runtime.submit
+
+        def keep(row, *a, **kw):
+            fut = submit(row, *a, **kw)
+            if len(kept) < k:
+                kept.append((row, fut))
+            return fut
+
+        runtime.submit = keep
+        try:
+            return run(runtime, *args, **kwargs)
+        finally:
+            del runtime.submit
+
+    loadgen.run_open_loop = keeping
+    try:
+        yield kept
+    finally:
+        loadgen.run_open_loop = run
+
+
+def served_gaps(model, kept) -> List[str]:
+    """Where the served records of ``served_sample``'s requests differ
+    from ``micro_batch_score_function(model)`` on the same rows (a shed
+    request is left out); [] when every one is equal, and at least one
+    was served."""
+    from .local.scoring import micro_batch_score_function
+    done = [(row, fut.result(timeout=60)) for row, fut in kept
+            if fut.exception(timeout=60) is None]
+    if not done:
+        return [f"none of {len(kept)} sampled requests was served"]
+    want = micro_batch_score_function(model)([row for row, _ in done])
+    return [f"request {i}: {got!r} != {w!r}"
+            for i, ((_, got), w) in enumerate(zip(done, want)) if got != w]
+
+
 def close_serving_state() -> List[str]:
     """Close what a serving test left behind and say what it was: network
     edges, fleet front doors and placers (closed first, so an edge's
