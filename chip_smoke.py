@@ -90,7 +90,9 @@ Phases, in order; any failure exits nonzero:
     its prediction, and the fitted deindexer on every class index and an
     unseen one the JAX package's labels; path (a)'s model insights (maps
     by key); a save and reload. Before the counted paths each leads train
-    runs once with every launch of the four kernels it runs held to plain;
+    runs once with every launch of the four kernels it runs held to plain
+    (``node_hist`` also to its direct formula at the first launch of each
+    (codes width, T) class);
     their heaviest launches give the ``leads_kernel`` and
     ``leads_stage_kernel`` lines. "train leads" must launch
     ``hist_matmul``, ``node_hist`` and ``forest_predict_chain``, "train
@@ -442,8 +444,37 @@ Phases, in order; any failure exits nonzero:
     file, the generated app trained in one subprocess on the card with
     ``TG_FAST_GRIDS=1`` (``cli_s``: each step's seconds; ``phase_s``:
     both phases' seconds);
+(plan) after (cli) (``PlanPhase``): the transform-plan compiler on the
+    card, which every phase above already runs through (its train
+    layers, batch scores and serving flushes; one CUDA graph per
+    segment and padding bucket: a bucket's first dispatch runs eagerly
+    on the capture stream, its second captures the graph and replays
+    it, later ones replay it). The counted path:
+    ``serve64/{gbt,gbt12,rf,xgbmc,lr}`` through
+    ``micro_batch_score_function`` at 1, 37, 256 and 300 requests and
+    back, and ``score`` of the 4,096 rows of ``score_frame()`` twice,
+    planned against ``enable_planning(False)``: tree records bit-equal,
+    the LR's within ``PLAN_LINEAR_ATOL`` (``plan_model`` lines: each
+    plan's segments, buckets, capture seconds and replays); (titanic)'s
+    model on the scoring file, planned against eager, with
+    ``tg_dispatch_total`` at least ``PLAN_DISPATCH_FACTOR`` times lower
+    planned (``plan_titanic`` line); no ``plan_fallback`` on these; the
+    drills:
+    ``plan.segment_execute`` armed once gives one ``plan_fallback`` and
+    ``oom.plan`` at ``PLAN_OOM_ROWS`` rows one ``oom_downshift``, records
+    bit-equal to the clean run's. Past the counted path: fresh plans of
+    the four tree models with both predicts wrapped, every launch a
+    replay runs held to plain after the replay (sums bit-equal, leaf ids
+    exact), the launches held equal to the replays' and the first
+    dispatches'; a 256-row flush's dispatch ms planned and eager in turns
+    (``plan_flush_dispatch_ms_256``); then, in turns planned and eager,
+    the Titanic train (its records bit-equal across the arms) and the
+    65,536-row score's first and second call from an empty plan cache,
+    each with its peak device memory and the memory it leaves allocated
+    (``plan_titanic_turns``);
 (d) print each path's launch counts and the ``kernels`` JSON line, whose
-    launches are the sums over the paths;
+    launches are the sums over the paths (a replay counts the launches
+    its graph recorded);
 (e) print the card's name and power limit.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -1626,14 +1657,19 @@ class _KernelChecks:
     (``DIRECT_HELD_ELSEWHERE``). These launches are not counted: every
     count is zeroed before each path. ``only`` names the kernels to wrap
     (all five by default); ``held`` counts the launches held per kernel,
-    over threads. While ``defer`` is set a predict launch's sums and codes
+    over threads. A predict launch recorded into a CUDA graph (a planned
+    segment being captured) is held after each replay of the graph, on
+    its static buffers (``cuda_build.after_replay``). With
+    ``direct_per_class`` the direct formula holds one launch of each
+    (codes width, T) class. While ``defer`` is set a predict launch's sums and codes
     are copied on the launching stream and held to plain at ``settle()``,
     so a timed run carries no plain work; then only one predict launch in
     ``every`` is kept (``skipped`` counts the others per kernel)."""
 
     def __init__(self, keep_heaviest: bool = False,
                  direct_per_shape: bool = False, check_ids: bool = True,
-                 only=None, direct: bool = True):
+                 only=None, direct: bool = True,
+                 direct_per_class: bool = False):
         self.seen: dict = {}
         #: False: the predicts' sums are held to plain without the second
         #: launch that reads the leaf ids, so the counts stay those of the
@@ -1650,6 +1686,9 @@ class _KernelChecks:
         self.heaviest: dict = {}
         self.keep = keep_heaviest
         self.direct_per_shape = direct_per_shape
+        #: with ``direct_per_shape``: one launch of each (codes width, T)
+        #: class, not of each whole shape
+        self.direct_per_class = direct_per_class
         self.direct = direct
         self.direct_shapes: set = set()
         #: shapes whose direct formula is beyond DIRECT_MAX_BYTES
@@ -1694,6 +1733,7 @@ class _KernelChecks:
 
     def __enter__(self):
         from transmogrifai_tpu_torch.histeng import kernels as HK
+        from transmogrifai_tpu_torch.ops import cuda_build as CB
         from transmogrifai_tpu_torch.ops import forest as F
 
         hist_cuda, node_cuda = HK.hist_matmul_cuda, HK.node_hist_cuda
@@ -1736,9 +1776,11 @@ class _KernelChecks:
                 stride)
             shape = (tuple(codes.shape), node.shape[1], len(sw_list), Wl,
                      stride)
+            key = ((codes.shape[1], node.shape[1]) if self.direct_per_class
+                   else shape)
             if self.direct and not (self.direct_per_shape
-                                    and shape in self.direct_shapes):
-                self.direct_shapes.add(shape)
+                                    and key in self.direct_shapes):
+                self.direct_shapes.add(key)
                 direct = _node_direct(codes, node, sw_list, Wl, n_bins,
                                       stride)
                 if direct is None:
@@ -1773,14 +1815,22 @@ class _KernelChecks:
                     raise AssertionError("forest_predict_chain (sweep): "
                                          "leaf ids differ from the plain "
                                          "routing")
-            if not self._hold(check, out[0], codes, "forest_predict_chain"):
-                return out
-            note("forest_predict_chain", (tuple(codes.shape),
-                                          tuple(feat_lv.shape),
-                                          leaf.shape[2]), 0.0, 0.0,
-                 codes.shape[0] * feat_lv.shape[0] * feat_lv.shape[1],
-                 lambda: (codes.clone(), feat_lv.clone(), bin_lv.clone(),
-                          base_lv.clone(), leaf.clone(), n_bins))
+            def hold():
+                if not self._hold(check, out[0], codes,
+                                  "forest_predict_chain"):
+                    return
+                note("forest_predict_chain", (tuple(codes.shape),
+                                              tuple(feat_lv.shape),
+                                              leaf.shape[2]), 0.0, 0.0,
+                     codes.shape[0] * feat_lv.shape[0] * feat_lv.shape[1],
+                     lambda: (codes.clone(), feat_lv.clone(),
+                              bin_lv.clone(), base_lv.clone(), leaf.clone(),
+                              n_bins))
+            # a launch recorded into a CUDA graph (a planned segment) is
+            # held after each replay that runs it, on its static buffers;
+            # no rows, no launch (a plan's zero-row probe)
+            if codes.shape[0] and not CB.after_replay(hold):
+                hold()
             return out
 
         def sums(codes, feat_lv, bin_lv, base_lv, aug, *, n_bins):
@@ -1833,14 +1883,19 @@ class _KernelChecks:
                                       n_bins).long()):
                     raise AssertionError("forest_predict_heap (sweep): leaf "
                                          "ids differ from the plain routing")
-            if not self._hold(check, out[0], codes, "forest_predict_heap"):
-                return out
-            note("forest_predict_heap", (tuple(codes.shape),
-                                         tuple(feat_heap.shape), depth,
-                                         leaf.shape[2]), 0.0, 0.0,
-                 codes.shape[0] * feat_heap.shape[0] * depth,
-                 lambda: (codes.clone(), feat_heap.clone(), bin_heap.clone(),
-                          leaf.clone(), depth, n_bins))
+            def hold():
+                if not self._hold(check, out[0], codes,
+                                  "forest_predict_heap"):
+                    return
+                note("forest_predict_heap", (tuple(codes.shape),
+                                             tuple(feat_heap.shape), depth,
+                                             leaf.shape[2]), 0.0, 0.0,
+                     codes.shape[0] * feat_heap.shape[0] * depth,
+                     lambda: (codes.clone(), feat_heap.clone(),
+                              bin_heap.clone(), leaf.clone(), depth,
+                              n_bins))
+            if codes.shape[0] and not CB.after_replay(hold):
+                hold()
             return out
 
         for mod, name, fn in (
@@ -1902,7 +1957,9 @@ class _KernelChecks:
                     f"max |d| {r['err']:.3g} from plain, "
                     f"{r['share']:.3f} of the sum bound; " + (
                         ("bit-equal to the direct formula"
-                         + (" (each shape's first launch)"
+                         + (" (each (codes width, T) class's first launch)"
+                            if self.direct_per_class else
+                            " (each shape's first launch)"
                             if self.direct_per_shape else "")
                          + (f" but at {len(self.too_wide)} shapes beyond "
                             f"DIRECT_MAX_BYTES" if self.too_wide else "")
@@ -2933,8 +2990,8 @@ class Leads:
                                  "forest_leaf_sums_chain"))):
             t0 = time.perf_counter()
             wf, _, _, _ = self.workflow(name)
-            with _KernelChecks(keep_heaviest=True,
-                               direct_per_shape=True) as checks:
+            with _KernelChecks(keep_heaviest=True, direct_per_shape=True,
+                               direct_per_class=True) as checks:
                 wf.train()
                 torch.cuda.synchronize()
             checks.report(name, kernels)
@@ -4808,8 +4865,9 @@ class Serving:
 
     def depths(self, key, model):
         """The scoring frame's 4,096 rows as requests at depth 1, then 2:
-        a staged 37-row flush, a 1-row flush, then the rest; every forest
-        predict launch held bit-equal to plain. Records bit-equal across
+        a staged 37-row flush, a 1-row flush, then the rest (each flush's
+        predict at its padding bucket); every forest predict launch held
+        bit-equal to plain. Records bit-equal across
         the depths and to ``micro_batch_score_function`` on the same rows,
         and the fixture's expected parts within (c)'s limits."""
         from transmogrifai_tpu_torch.local.scoring import (
@@ -4820,29 +4878,41 @@ class Serving:
         rows = self.rows
         by_depth, walls = {}, {}
         want = micro_batch_score_function(model)(rows)
+        from transmogrifai_tpu_torch.local import scoring
+        from transmogrifai_tpu_torch.utils.padding import bucket_for
         checks = self.checks
         checks.seen, checks.heaviest = {}, {}
-        for depth in (1, 2):
-            rt = ServingRuntime(model, f"{key}-d{depth}",
-                                self._cfg(depth), auto_start=False)
-            try:
-                futs = [rt.submit(r) for r in rows[:SERVE_ODD_FLUSH]]
-                t0 = time.perf_counter()
-                rt.start()
-                for f in futs:
-                    f.result(timeout=120)
-                futs.append(rt.submit(rows[SERVE_ODD_FLUSH]))
-                futs[-1].result(timeout=120)
-                futs += [rt.submit(r)
-                         for r in rows[SERVE_ODD_FLUSH + 1:]]
-                by_depth[depth] = [f.result(timeout=120) for f in futs]
-                walls[depth] = time.perf_counter() - t0
-                summ = rt.summary()
-            finally:
-                rt.close()
-            if summ["degradedRows"] or summ["quarantinedRows"] or \
-                    summ["rowsScored"] != len(rows):
-                raise AssertionError(f"{key} depth {depth}: {summ}")
+        # the flushes' row counts as the runtime dispatches them (the
+        # predict runs at each one's padding bucket)
+        flushes = []
+        dispatch = scoring.ServeStages.dispatch
+        scoring.ServeStages.dispatch = (
+            lambda st, table: flushes.append(table.num_rows)
+            or dispatch(st, table))
+        try:
+            for depth in (1, 2):
+                rt = ServingRuntime(model, f"{key}-d{depth}",
+                                    self._cfg(depth), auto_start=False)
+                try:
+                    futs = [rt.submit(r) for r in rows[:SERVE_ODD_FLUSH]]
+                    t0 = time.perf_counter()
+                    rt.start()
+                    for f in futs:
+                        f.result(timeout=120)
+                    futs.append(rt.submit(rows[SERVE_ODD_FLUSH]))
+                    futs[-1].result(timeout=120)
+                    futs += [rt.submit(r)
+                             for r in rows[SERVE_ODD_FLUSH + 1:]]
+                    by_depth[depth] = [f.result(timeout=120) for f in futs]
+                    walls[depth] = time.perf_counter() - t0
+                    summ = rt.summary()
+                finally:
+                    rt.close()
+                if summ["degradedRows"] or summ["quarantinedRows"] or \
+                        summ["rowsScored"] != len(rows):
+                    raise AssertionError(f"{key} depth {depth}: {summ}")
+        finally:
+            scoring.ServeStages.dispatch = dispatch
         if by_depth[1] != by_depth[2]:
             raise AssertionError(f"{key}: depth 2's records differ from "
                                  f"depth 1's")
@@ -4852,9 +4922,11 @@ class Serving:
         name = next(n for n in checks.seen)
         sizes = sorted({shape[0][0] for shape in checks.seen[name]["shapes"]})
         for n in (1, SERVE_ODD_FLUSH, SERVE_MAX_BATCH):
-            if n not in sizes:
-                raise AssertionError(f"{key}: no {n}-row flush reached "
-                                     f"{name} (flushes {sizes})")
+            if n not in flushes or bucket_for(n) not in sizes:
+                raise AssertionError(
+                    f"{key}: no {n}-row flush reached {name} at its bucket "
+                    f"(flushes {sorted(set(flushes))}, launches at {sizes} "
+                    f"rows)")
         task = SERVE_MODELS[key][2]
         exp = np.load(os.path.join(SERVING_DIR, key, "expected.npz"))
         parts = _record_parts(model, want)
@@ -4874,8 +4946,9 @@ class Serving:
               f"{walls[1]:.3f} s, depth 2 in {walls[2]:.3f} s, records "
               f"bit-equal across depths and to micro_batch_score_function; "
               f"{held}; {checks.seen[name]['calls']} {name} launches at "
-              f"flush sizes {sizes[:4]}..{sizes[-1]}, each bit-equal to "
-              f"plain")
+              f"the buckets {sizes} of flushes of "
+              f"{sorted(set(flushes))[:4]}..{max(flushes)} rows, each "
+              f"bit-equal to plain")
         return by_depth[1]
 
     def chaos(self, model, clean):
@@ -6292,6 +6365,331 @@ class Cli:
                                     for k, v in self.secs.items()}}))
 
 
+#: the (plan) phase's saved models: heaps, slot chains, 6-class heaps
+#: and a linear family
+PLAN_KEYS = ("gbt", "gbt12", "rf", "xgbmc", "lr")
+#: request counts planned against eager (buckets 256 and 512; each
+#: bucket's first dispatch runs eagerly, its second captures), then the
+#: 4,096 rows of ``score_frame()`` as one batch score, twice
+PLAN_ROWS = (1, 37, 256, 300, 300, 256, 37, 1)
+#: a linear family's planned records against eager: the serve limit
+#: (``linear_flush``), for a matmul that may run another cuBLAS kernel at
+#: another row count; on the card the eager predict also runs at the
+#: bucket, so the gap reads 0
+PLAN_LINEAR_ATOL = PROB_ATOL
+#: the ``oom.plan`` drill's rows: two halves of 256, one bucket each
+PLAN_OOM_ROWS = 512
+#: eager dispatches at least this many times the planned ones (Titanic),
+#: as ``tests/test_plan.py`` holds the JAX package's
+PLAN_DISPATCH_FACTOR = 5
+
+
+class PlanPhase:
+    """(plan): the transform-plan compiler on the card (``plan.py``: one
+    CUDA graph per segment and bucket)."""
+
+    def __init__(self, titanic: "Titanic"):
+        from transmogrifai_tpu_torch.testing import request_rows, score_frame
+        self.titanic = titanic
+        self.frame = score_frame()
+        self.rows = request_rows(self.frame)
+        self.times = {}
+
+    @staticmethod
+    def _model(key):
+        import transmogrifai_tpu_torch as tt
+        model = tt.load_model(os.path.join(SERVING_DIR, key))
+        if model.device.type != "cuda":
+            raise AssertionError(f"(plan) {key} loaded on {model.device}")
+        return model
+
+    @staticmethod
+    def _eager(fn):
+        from transmogrifai_tpu_torch import plan
+        plan.enable_planning(False)
+        try:
+            return fn()
+        finally:
+            plan.enable_planning(None)
+
+    @staticmethod
+    def _plans(model):
+        """The cached plans over the model's stages."""
+        from transmogrifai_tpu_torch import plan
+        ids = {id(s) for s in model.stages}
+        return [p for p, stages in list(plan._PLAN_CACHE.values())
+                if p is not None and {id(s) for s in stages} <= ids]
+
+    def _same(self, key, linear, got, want, tag):
+        """Records (or parts) planned against eager: bit-equal, a linear
+        family's within PLAN_LINEAR_ATOL. Returns the largest gap."""
+        gap = 0.0
+        for k in want:
+            g, w = np.asarray(got[k]), np.asarray(want[k])
+            if np.array_equal(g.view(np.int32), w.view(np.int32)):
+                continue
+            gap = max(gap, float(np.abs(g - w).max()))
+            if not linear or gap > PLAN_LINEAR_ATOL:
+                raise AssertionError(f"(plan) {key} {tag}: {k} planned "
+                                     f"differs from eager by {gap}")
+        return gap
+
+    def run(self):
+        """The counted path: every model planned against eager, the Titanic
+        score's dispatches, the two drills; no ``plan_fallback`` outside
+        the armed drill."""
+        from transmogrifai_tpu_torch.local.scoring import (
+            micro_batch_score_function)
+        from transmogrifai_tpu_torch.robustness.policy import FaultLog
+        t0 = time.perf_counter()
+        log = FaultLog()
+        with log.activate():
+            for key in PLAN_KEYS:
+                self._model_check(key, micro_batch_score_function)
+            self._titanic()
+        fallbacks = log.of_kind("plan_fallback")
+        if fallbacks:
+            raise AssertionError(f"(plan) {len(fallbacks)} plan_fallback "
+                                 f"record(s) on clean paths: "
+                                 f"{fallbacks[0].detail}")
+        self._drills(micro_batch_score_function)
+        self.times["path_s"] = time.perf_counter() - t0
+
+    def _model_check(self, key, mb_of):
+        model = self._model(key)
+        linear = key == "lr"
+        mb = mb_of(model)
+        gaps = {}
+        for n in PLAN_ROWS:
+            rows = self.rows[:n]
+            got = _record_parts(model, mb(rows))
+            want = _record_parts(model, self._eager(lambda: mb(rows)))
+            gaps[n] = max(gaps.get(n, 0.0),
+                          self._same(key, linear, got, want, f"{n} rows"))
+        torch.cuda.synchronize()
+        want = _parts_of(model, self._eager(
+            lambda: model.score(data=self.frame)))
+        gaps[len(self.rows)] = max(
+            self._same(key, linear,
+                       _parts_of(model, model.score(data=self.frame)), want,
+                       f"4,096-row score {i}") for i in (1, 2))
+        segs = []
+        for p in self._plans(model):
+            for i, seg in enumerate(p.segments):
+                segs.append({
+                    "plan": p.ident_hash, "segment": i,
+                    "stages": [type(s).__name__ for s in seg.stages],
+                    "in": seg.in_names, "out": seg.out_names,
+                    "buckets": sorted(seg.seen_buckets),
+                    "capture_s": [round(c, 4) for _, c in seg.captures],
+                    "replays": seg.replays})
+        print(json.dumps({"plan_model": key, "max_abs_gap_by_rows": gaps,
+                          "segments": segs}))
+
+    def _titanic(self):
+        """The card-trained Titanic model: the scoring file planned against
+        eager (its LR winner within PLAN_LINEAR_ATOL) and the dispatches
+        of each, ``tg_dispatch_total``."""
+        from transmogrifai_tpu_torch.observability import metrics as om
+        from transmogrifai_tpu_torch.readers import read_csv
+        t = self.titanic
+        model = t.model
+        data = read_csv(t.score_csv, t.reader().schema,
+                        header=False).columns
+
+        def dispatches(fn):
+            om.reset()
+            om.enable_metrics(True)
+            try:
+                out = fn()
+                snap = om.registry().snapshot().get("tg_dispatch_total", {})
+            finally:
+                om.enable_metrics(None)
+                om.reset()
+            return out, sum(snap.values())
+        got, planned_n = dispatches(lambda: model.score(data=data))
+        want, eager_n = dispatches(lambda: self._eager(
+            lambda: model.score(data=data)))
+        gap = self._same("titanic", True, _parts_of(model, got),
+                         _parts_of(model, want), "scoring file")
+        if eager_n < PLAN_DISPATCH_FACTOR * planned_n or not planned_n:
+            raise AssertionError(f"(plan) titanic: {eager_n} eager "
+                                 f"dispatches against {planned_n} planned")
+        print(json.dumps({"plan_titanic": {
+            "dispatches": {"planned": planned_n, "eager": eager_n},
+            "max_abs_gap": gap}}))
+
+    def _drills(self, mb_of):
+        """``plan.segment_execute`` armed once: one ``plan_fallback``, the
+        clean records; ``oom.plan`` armed at PLAN_OOM_ROWS rows: one
+        ``oom_downshift``, the clean records bit-equal."""
+        from transmogrifai_tpu_torch.robustness import faults
+        from transmogrifai_tpu_torch.robustness.policy import FaultLog
+        model = self._model("gbt")
+        mb = mb_of(model)
+        rows = self.rows[:PLAN_OOM_ROWS]
+        clean = mb(rows)
+        for site, mode, kind in (("plan.segment_execute", "raise",
+                                  "plan_fallback"),
+                                 ("oom.plan", "oom", "oom_downshift")):
+            log = FaultLog()
+            spec = {"mode": mode, "nth": 1, "count": 1}
+            if mode == "raise":
+                spec["transient"] = True
+            with faults.injected({site: spec}), log.activate():
+                got = mb(rows)
+            kinds = [r.kind for r in log.reports]
+            if kinds != [kind] or got != clean:
+                raise AssertionError(f"(plan) {site}: records "
+                                     f"{'equal' if got == clean else 'differ'}"
+                                     f", fault log {kinds}")
+        print(f"(plan) drills: plan.segment_execute -> one plan_fallback, "
+              f"oom.plan at {PLAN_OOM_ROWS} rows -> one oom_downshift "
+              f"({PLAN_OOM_ROWS // 2} + {PLAN_OOM_ROWS // 2}); records "
+              f"bit-equal to the clean run's")
+
+    def held(self):
+        """Past the counted path: fresh plans of the tree models with both
+        predicts wrapped (``_KernelChecks``), so each launch a replay runs
+        is held to plain after the replay (sums bit-equal, leaf ids
+        exact); each bucket's capture seconds and a 256-row flush's
+        dispatch, planned and eager."""
+        from transmogrifai_tpu_torch import plan
+        from transmogrifai_tpu_torch.local.scoring import (
+            ServeStages, micro_batch_score_function)
+        plan.clear_plan_cache()
+        replays, expect = {}, {}
+        with _KernelChecks(only=SERVING_PREDICTS) as checks:
+            for key in ("gbt", "rf", "xgbmc", "gbt12"):
+                model = self._model(key)
+                mb = micro_batch_score_function(model)
+                for n in (256, 300, 256, 300):
+                    mb(self.rows[:n])
+                torch.cuda.synchronize()
+                for p in self._plans(model):
+                    for seg in p.segments:
+                        for g in seg.graphs.values():
+                            for k, c in g.launches.items():
+                                replays[k.name] = (replays.get(k.name, 0)
+                                                   + c * g.replays)
+                                # and the bucket's eager first dispatch
+                                expect[k.name] = (expect.get(k.name, 0)
+                                                  + c * (g.replays + 1))
+        for name in SERVING_PREDICTS:
+            if not replays.get(name) or checks.held.get(name) != \
+                    expect[name]:
+                raise AssertionError(f"(plan) {name}: {replays.get(name)} "
+                                     f"launches in replays and "
+                                     f"{expect.get(name)} with the first "
+                                     f"dispatches"
+                                     f", {checks.held.get(name, 0)} held")
+        print(f"(plan) replayed launches held to plain (sums bit-equal, "
+              f"leaf ids exact): " + ", ".join(
+                  f"{k} {replays[k]} in replays, {checks.held.get(k, 0)} "
+                  f"held" for k in SERVING_PREDICTS))
+        model = self._model("gbt")
+        st = ServeStages(model)
+        rows = self.rows[:SERVE_MAX_BATCH]
+        flush = {}
+        for arm in ("planned", "eager", "eager", "planned"):
+            def one():
+                table = st.gather(rows)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                inflight = st.dispatch(table)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                st.flatten(inflight, len(rows))
+                return secs
+            run = one if arm == "planned" else (lambda: self._eager(one))
+            run()
+            flush.setdefault(arm, []).append(
+                round(1e3 * statistics.median(run() for _ in range(5)), 4))
+        print(json.dumps({"plan_flush_dispatch_ms_256": flush}))
+
+    def turns(self):
+        """In turns planned and eager, each arm from an empty plan cache:
+        the Titanic train (records on the scoring file bit-equal across
+        the arms), then the 65,536-row score's first call (the plan built,
+        each segment run eagerly at the bucket) and second (captured and
+        replayed). Each with its peak device memory and the bytes it
+        leaves allocated: a train's model and its cached plans, a score's
+        cached plan and graphs."""
+        import gc
+
+        from transmogrifai_tpu_torch import plan
+        from transmogrifai_tpu_torch.readers import read_csv
+        t = self.titanic
+        data = read_csv(t.score_csv, t.reader().schema,
+                        header=False).columns
+        reps = N_ROWS // len(next(iter(data.values())))
+        big = {k: np.tile(v, reps) for k, v in data.items()}
+
+        def measured(fn):
+            plan.clear_plan_cache()
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            out = fn()
+            gc.collect()
+            torch.cuda.synchronize()
+            return out, (torch.cuda.max_memory_allocated() - before,
+                         torch.cuda.memory_allocated() - before)
+
+        def train():
+            wf = t.workflow()
+            t0 = time.perf_counter()
+            model = wf.train()
+            torch.cuda.synchronize()
+            return model, [time.perf_counter() - t0]
+
+        def score():
+            secs = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                _parts_of(t.model, t.model.score(data=big))
+                secs.append(time.perf_counter() - t0)
+            return None, secs
+
+        out = {}
+        for what, fn in (("train", train), ("score_65536", score)):
+            rec = out[what] = {"s": {}, "peak_bytes": {}, "left_bytes": {}}
+            parts = {}
+            for arm in ("planned", "eager", "eager", "planned"):
+                run = fn if arm == "planned" else (lambda: self._eager(fn))
+                (model, secs), (peak, left) = measured(run)
+                if model is not None:
+                    parts[arm] = self._eager(
+                        lambda: _parts_of(model, model.score(data=data)))
+                del model
+                rec["s"].setdefault(arm, []).append(
+                    [round(x, 4) for x in secs])
+                rec["peak_bytes"].setdefault(arm, []).append(peak)
+                rec["left_bytes"].setdefault(arm, []).append(left)
+            if parts:
+                self._same("titanic train", False, parts["planned"],
+                           parts["eager"], "planned against eager train")
+        plan.clear_plan_cache()
+        print(json.dumps({"plan_titanic_turns": out}))
+
+
+def _plan_paths(titanic: "Titanic", run_path):
+    """The (plan) phase: its counted path, then the held replays and the
+    times. (paths, seconds)."""
+    from transmogrifai_tpu_torch import plan
+    from transmogrifai_tpu_torch.ops import forest as F
+    t0 = time.perf_counter()
+    phase = PlanPhase(titanic)
+    plan.clear_plan_cache()
+    paths = {"plan": run_path("plan", phase.run,
+                              (F.FOREST_PREDICT_HEAP,
+                               F.FOREST_PREDICT_CHAIN))}
+    phase.held()
+    phase.turns()
+    return paths, time.perf_counter() - t0
+
+
 def _parquet_paths(titanic: "Titanic", tmp: str, run_path):
     """The (parquet) phase's counted paths, after the (titanic) phase's
     CSV train: the committed files read, the Titanic train from Parquet
@@ -6493,6 +6891,8 @@ def _run(dev, kernels, tmp) -> int:
     fleet.after(paths["fleet"])
     cli_paths, phase_s["cli"] = _cli_paths(titanic, tmp, run_path)
     paths.update(cli_paths)
+    plan_paths, phase_s["plan"] = _plan_paths(titanic, run_path)
+    paths.update(plan_paths)
     print(json.dumps({"phase_s": {k: round(v, 3)
                                   for k, v in phase_s.items()}}))
     for name, counts in paths.items():

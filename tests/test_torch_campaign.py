@@ -59,8 +59,9 @@ def engine():
 # -- the registry -----------------------------------------------------------------
 
 def test_waiting_sites_are_exactly_the_unported_modules_sites():
-    """Items 10 (the AOT store) and 3 (the plan compiler) shrink this."""
-    assert WAITING_SITES == {"aot.load", "plan.segment_execute", "oom.plan"}
+    """Item 10 (the AOT store) shrinks this; the plan compiler's sites
+    (``plan.segment_execute``, ``oom.plan``) are covered."""
+    assert WAITING_SITES == {"aot.load"}
     assert campaign_sites() == sorted(set(ALL_SITES) - WAITING_SITES)
 
 

@@ -1872,3 +1872,76 @@ def test_killed_tree_sweep_resumes_bit_equal_on_the_card(cuda, tmp_path):
     assert [r["family"] for r in res["restoredSweepCandidates"]] == [
         "OpLogisticRegression"]
     assert outcome(model) == want
+
+
+# -- the transform-plan compiler's CUDA graphs ---------------------------------
+
+@pytest.mark.parametrize("key,kernel", [("gbt", "FOREST_PREDICT_HEAP"),
+                                        ("rf", "FOREST_PREDICT_CHAIN")])
+def test_a_replayed_segment_equals_the_eager_predict(cuda, key, kernel):
+    """The planned Prediction segment of ``serve64/gbt`` (heaps) and
+    ``serve64/rf`` (slot chains) at bucket 256: the bucket's first
+    dispatch runs eagerly and captures nothing, its second captures the
+    graph and replays it, its third replays it; all bit-equal to the
+    eager predict. Each replay counts the launches its graph recorded,
+    and the capture none."""
+    import transmogrifai_tpu_torch as tt
+    from transmogrifai_tpu_torch import plan
+    from transmogrifai_tpu_torch.local.scoring import (
+        micro_batch_score_function)
+    plan.clear_plan_cache()
+    model = tt.load_model(os.path.join(SERVE_FIXTURES, key), device=cuda)
+    mb = micro_batch_score_function(model)
+    rows = _serve_rows(256)
+    k = getattr(F, kernel)
+    try:
+        before = k.launches
+        first = mb(rows[:100])
+        eager = k.launches - before
+        (p, _), = plan._PLAN_CACHE.values()
+        seg = p.segments[-1]
+        assert eager >= 1 and not seg.graphs and p._pool is None
+        before = k.launches
+        second = mb(rows[:37])
+        (g,), = [list(seg.graphs.values())]
+        assert g.launches[k] == eager and k.launches - before == eager
+        before = k.launches
+        third = mb(rows[:100])
+        assert k.launches - before == eager
+        assert g.replays == 2 and len(seg.captures) == 1
+        plan.enable_planning(False)
+        assert first == third == mb(rows[:100])
+        assert second == mb(rows[:37])
+    finally:
+        plan.enable_planning(None)
+        plan.clear_plan_cache()
+
+
+def test_one_plan_replays_two_buckets(cuda):
+    """Requests of 256 and 300 rows, three of each: one plan, two graphs
+    per segment (buckets 256 and 512, each captured at its second
+    dispatch) in the plan's one memory pool, each replayed twice; the
+    records bit-equal to the eager path's."""
+    import transmogrifai_tpu_torch as tt
+    from transmogrifai_tpu_torch import plan
+    from transmogrifai_tpu_torch.local.scoring import (
+        micro_batch_score_function)
+    plan.clear_plan_cache()
+    model = tt.load_model(os.path.join(SERVE_FIXTURES, "gbt12"),
+                          device=cuda)
+    mb = micro_batch_score_function(model)
+    rows = _serve_rows(300)
+    try:
+        got = [mb(rows[:n]) for n in (256, 300) * 3]
+        assert plan.cache_stats()["entries"] == 1
+        (p, _), = plan._PLAN_CACHE.values()
+        assert p._pool is not None
+        for seg in p.segments:
+            assert sorted(seg.graphs) == [256, 512]
+            assert all(g.replays == 2 for g in seg.graphs.values())
+        plan.enable_planning(False)
+        assert got[0] == got[2] == got[4] == mb(rows[:256])
+        assert got[1] == got[3] == got[5] == mb(rows[:300])
+    finally:
+        plan.enable_planning(None)
+        plan.clear_plan_cache()

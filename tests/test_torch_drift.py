@@ -260,7 +260,10 @@ def test_a_jax_written_drift_section_drives_the_port(models):
     jmon = JaxMonitor(JaxBaseline.from_json(man.drift),
                       JaxConfig(every_rows=32, min_rows=32))
     rows = _rows(96, shift=6.0)
-    with ModelRegistry(_cfg()) as reg:
+    # a flush waits up to 500 ms to fill: three flushes of max_batch (32)
+    # rows, a verdict after each, whatever the host's speed (a short first
+    # flush would leave the last rows unverdicted)
+    with ModelRegistry(_cfg(max_wait_ms=500.0)) as reg:
         rt = reg.load("m", models["jax_path"], device="cpu")
         rt.drift_monitor.config = DriftConfig(every_rows=32, min_rows=32)
         futs = [reg.submit("m", r) for r in rows]

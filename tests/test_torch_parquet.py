@@ -208,9 +208,10 @@ def test_reads_pyarrow_writes_as_pandas(kinds_frame, variant, tmp_path):
 
 
 def test_reads_every_physical_and_logical_type(tmp_path):
-    """The INT widths, unsigned ints, float32, DATE, TIMESTAMP in ms, us
-    and ns, binary and fixed-length binary, a null column, bools with and
-    without nulls, nested lists and lists of structs."""
+    """The INT widths, unsigned ints, float32, FLOAT16, DATE, TIME in s,
+    ms, us and ns, TIMESTAMP in ms, us and ns, binary and fixed-length
+    binary, a null column, bools with and without nulls, nested lists and
+    lists of structs."""
     import datetime
     t = pa.table({
         "i8": pa.array([1, None, -3], pa.int8()),
@@ -237,11 +238,85 @@ def test_reads_every_physical_and_logical_type(tmp_path):
                                            ("b", pa.string())]))),
         "sl": pa.array([{"x": [1.0, None]}, {"x": None}, None],
                        pa.struct([("x", pa.list_(pa.float64()))])),
+        "f16": pa.array(np.array([1.5, 0.0, -2.25], np.float16)),
+        "nf16": pa.array([1.0, None, 65504.0], pa.float32()).cast(
+            pa.float16()),
+        "t_ms": pa.array([1000, None, 86399999], pa.time32("ms")),
+        "t_s": pa.array([1000, None, 5], pa.time32("s")),
+        "t_us": pa.array([1000, None, 7], pa.time64("us")),
+        "t_ns": pa.array([1000, None, 9000], pa.time64("ns")),
     })
     for kw in ({}, dict(data_page_version="2.0", use_dictionary=False)):
         path = str(tmp_path / "t.parquet")
         pq.write_table(t, path, **kw)
         assert column_gaps(P.read_parquet(path), _pandas_columns(path)) == []
+
+
+def test_float16_and_time_tables_as_the_jax_reader(tmp_path):
+    """A Real feature over a FLOAT16 column and over a TIME column, and a
+    Text feature over the TIME column: the port's raw table equals the JAX
+    ``ParquetReader``'s (a TIME value is no number: the Real is missing
+    there on every row, as in the JAX package)."""
+    t = pa.table({
+        "key": pa.array(["a", "b", "c", "d"]),
+        "h": pa.array([1.5, None, -2.25, 0.0], pa.float32()).cast(
+            pa.float16()),
+        "tm": pa.array([1000, None, 5, 86399999], pa.time32("ms")),
+    })
+    path = str(tmp_path / "ht.parquet")
+    pq.write_table(t, path)
+    assert column_gaps(P.read_parquet(path), _pandas_columns(path)) == []
+
+    def feats(FB, reset):
+        reset()
+        return [FB.Real("h").extract_field().as_predictor(),
+                FB.Real("tm").extract_field().as_predictor()]
+    want = JReaders.Simple.parquet(path, key_field="key").generate_table(
+        feats(JFB, jax_reset))
+    got = PReaders.Simple.parquet(path, key_field="key").generate_table(
+        feats(PFB, port_reset))
+    _same_tables(got, want, ["h", "tm"])
+
+
+def test_reads_a_directory_of_parts_as_pandas(tmp_path):
+    """A directory of two part files (2 rows and 1; a ``_SUCCESS`` marker
+    and a hidden file beside them) and a frame written with
+    ``partition_cols=``: the port's columns equal ``pd.read_parquet``'s of
+    the directory (the files in sorted order, the partition levels as
+    columns after the files' own), and its raw table equals the JAX
+    ``ParquetReader``'s."""
+    parts = tmp_path / "parts"
+    parts.mkdir()
+    pd.DataFrame({"key": ["k1", "k2"], "x": [1.5, None],
+                  "s": ["u", None]}).to_parquet(parts / "part-1.parquet")
+    pd.DataFrame({"key": ["k0"], "x": [2.5], "s": ["v"]}).to_parquet(
+        parts / "part-0.parquet")
+    (parts / "_SUCCESS").write_text("")
+    (parts / ".part-0.parquet.crc").write_text("")
+    hive = str(tmp_path / "hive")
+    pd.DataFrame({"key": [f"h{i}" for i in range(6)],
+                  "x": [0.5, 1.0, None, 2.0, 3.5, -1.0],
+                  "s": ["a", "b", "a", None, "c", "b"],
+                  "g": ["u", "v", "u", "w", "v", "u"],
+                  "n": [1, 2, 1, 3, -2, 1]}).to_parquet(
+        hive, partition_cols=["g", "n"])
+    cases = ((str(parts), (("x", "Real"), ("s", "PickList"))),
+             (hive, (("x", "Real"), ("s", "Text"), ("g", "PickList"),
+                     ("n", "Integral"))))
+    for path, kinds in cases:
+        got_cols = P.read_parquet(path)
+        assert column_gaps(got_cols, _pandas_columns(path)) == [], path
+        assert len(got_cols["key"]) == (3 if path.endswith("parts") else 6)
+
+        def feats(FB, reset):
+            reset()
+            return [getattr(FB, t)(name).extract_field().as_predictor()
+                    for name, t in kinds]
+        want = JReaders.Simple.parquet(path, key_field="key"
+                                       ).generate_table(feats(JFB, jax_reset))
+        got = PReaders.Simple.parquet(path, key_field="key").generate_table(
+            feats(PFB, port_reset))
+        _same_tables(got, want, [n for n, _ in kinds])
 
 
 def test_reads_the_legacy_two_level_list(tmp_path):

@@ -30,6 +30,7 @@ if REPO not in sys.path:
     sys.path.insert(0, REPO)
 
 import transmogrifai_tpu_torch as port  # noqa: E402
+from transmogrifai_tpu_torch import plan  # noqa: E402
 from transmogrifai_tpu_torch.local.scoring import (  # noqa: E402
     micro_batch_score_function,
 )
@@ -278,7 +279,9 @@ def test_evict_then_request_pages_back_bit_equal(saved, rf):
     """max_warm=1 over two saved models on one replica: demand for the
     cold one evicts the other and pages it in, and back, every record
     bit-equal, with no kernel build on the way (the CPU path builds
-    none)."""
+    none); the page-in's warm pass builds the model's serve plan and
+    nothing else (the JAX package loads it from its program store, which
+    the port does not have yet: ROADMAP Queue 1 item 10)."""
     rows = _rows(6)
     baseline = micro_batch_score_function(rf)(rows)
     with FrontDoor({"a": saved["rf"], "b": saved["port_rf"]}, replicas=1,
@@ -291,7 +294,19 @@ def test_evict_then_request_pages_back_bit_equal(saved, rf):
         mark = lg.ledger().mark()
         recs = [fd.submit(r, model="b").result(30) for r in rows]
         assert recs == baseline
-        assert lg.ledger().since(mark) == []
+        # the page-in's builds: the serve plan of b's stages, then each of
+        # its segments at one bucket, and nothing else
+        stages = fd._replicas["r0"].registry.runtime("b").model.stages
+        ident = "plan/" + ",".join(s.uid for s in stages)
+        (served,) = [p for p, held in plan._PLAN_CACHE.values()
+                     if p is not None and len(held) == len(stages)
+                     and all(h is s for h, s in zip(held, stages))]
+        built = lg.ledger().since(mark)
+        assert len(built) == 1 + served.num_segments
+        assert built[0].identity.startswith(ident + "/ki=0/ek=")
+        assert [r.identity for r in built[1:]] == [
+            f"{ident}/seg{i}" for i in range(served.num_segments)]
+        assert len({r.bucket for r in built[1:]}) == 1
         assert pl.residents("r0") == ["b"]
         snap = pl.snapshot()
         assert snap["pageIns"] >= 1 and snap["evictions"] >= 1

@@ -11,9 +11,9 @@ the port's own save. Tolerances: the port against the JAX package's runtime
 on the same saved model and rows, probabilities within ``PROB_ATOL`` (1e-5)
 and decided predictions equal (the two packages' tree sums and sigmoids
 differ in the last bits: ROADMAP Queue 3); everything within the port
-bit-equal, but the binary GBT's records across flush sizes on the CPU
-(``torch.sigmoid``'s vectorized lanes and its scalar tail differ in the last
-bit: pinned by ``test_gbt_records_across_cpu_flush_sizes_within_an_ulp``).
+bit-equal (the binary GBT's records across flush sizes on the CPU too,
+since the predict runs at the rows' bucket:
+``test_gbt_records_across_cpu_flush_sizes_within_an_ulp``).
 No test sleeps: breakers take an injected clock, queues are staged before
 ``start()`` and deadlines set in the past, every wait has its own timeout.
 """
@@ -430,10 +430,10 @@ def test_port_runtime_records_against_the_jax_runtime(tiny, key):
 def test_gbt_records_across_cpu_flush_sizes_within_an_ulp(tiny):
     """The binary GBT's probability is ``torch.sigmoid`` of its margin:
     on the CPU its vectorized lanes and its scalar tail round differently,
-    so a row's record can move by an ulp with the flush it lands in (a
-    platform order difference; on the card the sigmoid is one function of
-    the element and the chip run holds the records bit-equal). Pinned: a
-    row scored alone and inside a 37-row flush within 2 ulps of 0.5."""
+    so a row's record could move by an ulp with the flush it lands in.
+    The predict runs at the rows' padding bucket (256 rows for both
+    flushes here), so it no longer does; the limit stays. Pinned: a row
+    scored alone and inside a 37-row flush within 2 ulps of 0.5."""
     mb = micro_batch_score_function(tiny["port"])
     rows = _rows(37, d=TINY_D, seed=8)
     one = _parts(tiny["port"], [mb([r])[0] for r in rows])

@@ -1,6 +1,8 @@
 """DAG layering, the layer-wise fit and the score-time pass (counterpart of
-``transmogrifai_tpu.dag``). PyTorch runs eagerly, so each pass applies one
-stage after another; there is no plan compiler.
+``transmogrifai_tpu.dag``). Each layer's transformer run of a train, and
+the flattened score pass, go through the transform-plan compiler
+(``plan.py``: one program per device-fusable segment, a CUDA graph on the
+card) when it applies, and otherwise apply one stage after another.
 """
 from __future__ import annotations
 
@@ -106,17 +108,35 @@ def fit_and_transform_dag(table: FeatureTable, layers: List[StageLayer],
                                 f"{type(stage).__name__}")
             models.append(model)
         table = _transform_stages(table, models, cat="train", layer=li,
-                                  profiler=profiler)
+                                  profiler=profiler,
+                                  retry_policy=retry_policy)
     return table, fitted
 
 
 def _transform_stages(table: FeatureTable, models: Sequence[Any], *,
                       cat: str, layer: int = -1,
-                      profiler: Optional[Any] = None) -> FeatureTable:
-    """Apply the transformers in order, each under a ``stage.transform``
-    span and the profiler's timer."""
+                      profiler: Optional[Any] = None,
+                      retry_policy: Optional[Any] = None) -> FeatureTable:
+    """Run a topologically ordered transformer sequence: as a plan
+    (``plan.apply_planned``) when it applies, else stage by stage, each
+    under a ``stage.transform`` span and the profiler's timer.
+
+    The eager path runs whenever per-stage semantics matter: a profiler
+    times each stage, a retry policy isolates each stage's faults, or
+    chaos is active (``plan.planning_applicable``). A planned run that
+    raises falls back to eager for the run, recorded, so the results are
+    the same either way."""
+    from . import plan as _plan
+    if profiler is None and retry_policy is None:
+        # two device-capable stages at least: a lone stage gains nothing
+        # from a plan and would still pay its probe
+        out = _plan.apply_planned(models, table, keep_intermediates=True,
+                                  cat=cat, min_device_stages=2)
+        if out is not None:
+            return out
     prof = profiler or _NULL_PROFILER
     for model in models:
+        _plan.count_eager_dispatch(model)
         with _obs_span("stage.transform", cat=cat,
                        uid=getattr(model, "uid", "?"),
                        stage=type(model).__name__, layer=layer), \
@@ -129,7 +149,9 @@ def apply_transformations_dag(table: FeatureTable,
                               layers: List[StageLayer],
                               profiler: Optional[Any] = None
                               ) -> FeatureTable:
-    """Run every fitted stage, farthest layer first (a topological order)."""
+    """Run every fitted stage, farthest layer first: a topological order,
+    so the whole pass plans as one sequence (larger segments than a
+    train's layer runs)."""
     for layer in layers:
         for stage, _ in layer:
             if not isinstance(stage, Transformer):

@@ -1,7 +1,8 @@
 """Phases of ``chip_smoke.py`` alone, on one NVIDIA GPU.
 
     python3 -m transmogrifai_tpu_torch.experiments.smoke_phases
-        [fleet] [direct-cost[:TRAIN]] [resume] [parquet-cli]
+        [fleet] [direct-cost[:TRAIN]] [direct-class[:TRAIN]] [resume]
+        [parquet-cli] [plan]
 
 Run from the root of a checkout (``chip_smoke.py`` beside the package).
 Builds the kernels first, then, in the order given:
@@ -14,13 +15,20 @@ Builds the kernels first, then, in the order given:
   of the sweep kernels held to plain) with ``node_hist`` also held to its
   direct formula at each shape's first launch (``A``) and without
   (``B``), in turns A B B A; prints each train's seconds;
+* ``direct-class[:TRAIN]``: the same check train (``leads`` by default)
+  with ``node_hist`` held to its direct formula at each shape's first
+  launch (``A``) and at each (codes width, T) class's first launch
+  (``B``), in turns A B B A;
 * ``resume``: (t)'s ``default_binary`` train against its fixture, then
   the (resume) phase (``chip_smoke.Resume``, ``_resume_paths``): each arm
   with the launch counts zeroed before it and read after it;
 * ``parquet-cli``: (titanic)'s counted train against its fixture, then
   the (parquet) and (cli) phases (``chip_smoke.Parquet``, ``Cli``) as the
   script runs them, each path with the launch counts zeroed before it and
-  read after it.
+  read after it;
+* ``plan``: (titanic)'s counted train against its fixture, then the
+  (plan) phase (``chip_smoke.PlanPhase``, ``_plan_paths``) as the script
+  runs it.
 
 Prints the card's name and power limit last.
 """
@@ -84,6 +92,23 @@ def _direct_cost(cs, tmp, train: str = "titanic"):
               f"{time.perf_counter() - t0:.3f} s", flush=True)
 
 
+def _direct_class(cs, tmp, train: str = "leads"):
+    import torch
+    make = _check_workflows(cs, tmp, train)
+    for arm in ("A", "B", "B", "A"):
+        wf = make()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with cs._KernelChecks(keep_heaviest=True, direct_per_shape=True,
+                              direct_per_class=(arm == "B")) as checks:
+            wf.train()
+            torch.cuda.synchronize()
+        print(f"direct-class {train}: arm {arm} (the direct formula at "
+              f"each {'shape' if arm == 'A' else '(codes width, T) class'}"
+              f"'s first launch, {len(checks.direct_shapes)} held) "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+
 def _counted(cs, tmp):
     """The script's settings for its counted paths, and its ``run_path``:
     zero every count, drive the path, read the counts, each of the path's
@@ -136,6 +161,17 @@ def _parquet_cli(cs, tmp):
     print(f"(parquet) alone in {pq_s:.3f} s, (cli) alone in {cli_s:.3f} s")
 
 
+def _plan(cs, tmp):
+    from ..histeng import kernels as HK
+    from ..ops import forest as F
+    run_path = _counted(cs, tmp)
+    titanic = cs.Titanic(tmp)
+    run_path("train titanic", titanic.train,
+             (HK.HIST_MATMUL, HK.NODE_HIST, F.FOREST_PREDICT_CHAIN))
+    _, secs = cs._plan_paths(titanic, run_path)
+    print(f"(plan) alone in {secs:.3f} s")
+
+
 def main(argv=None) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -144,7 +180,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.getcwd())
     import chip_smoke as cs
     phases = {"fleet": _fleet, "direct-cost": _direct_cost,
-              "resume": _resume, "parquet-cli": _parquet_cli}
+              "direct-class": _direct_class, "resume": _resume,
+              "parquet-cli": _parquet_cli, "plan": _plan}
     names = (argv if argv is not None else sys.argv[1:]) or ["fleet"]
     unknown = [n for n in names if n.split(":")[0] not in phases]
     if unknown:

@@ -109,25 +109,44 @@ def _map_rows(col: Column) -> List[Optional[Dict[str, Any]]]:
             for i in range(len(col))]
 
 
+def _fill_matrix(stage: Transformer, vals: List[torch.Tensor],
+                 valid: List[torch.Tensor], fills: Sequence[float],
+                 track_nulls: bool) -> torch.Tensor:
+    """(n, c) float32 of the inputs' (n,) values with their missing slots
+    filled, and with ``track_nulls`` a null-indicator slot after each."""
+    v = torch.stack(vals, dim=1)
+    m = torch.stack(valid, dim=1)
+    fill = stage.device_constant("fills", list(fills), torch.float32,
+                                 v.device)
+    out = torch.where(m, v, fill[None, :])
+    if track_nulls:
+        out = torch.stack([out, (~m).to(torch.float32)],
+                          dim=2).reshape(out.shape[0], 2 * out.shape[1])
+    return out
+
+
 def _fill_blocks(stage: Transformer, table: FeatureTable,
                  fills: Sequence[float], track_nulls: bool) -> Column:
-    """Each input's values with its missing slots filled, and with
-    ``track_nulls`` a null-indicator slot after each."""
+    """``_fill_matrix`` of the table's input columns, with its metadata."""
     cols = [table[f.name] for f in stage.input_features]
-    vals = torch.stack([_f32(table, c) for c in cols], dim=1)   # (n, c)
-    m = torch.stack([_valid(table, c) for c in cols], dim=1)
-    fill = stage.device_constant("fills", list(fills), torch.float32,
-                                 vals.device)
-    out = torch.where(m, vals, fill[None, :])
+    out = _fill_matrix(stage, [_f32(table, c) for c in cols],
+                       [_valid(table, c) for c in cols], fills, track_nulls)
     meta: List[VectorColumnMetadata] = []
     for f in stage.input_features:
         meta.append(_meta(f))
         if track_nulls:
             meta.append(_meta(f, NULL_INDICATOR))
-    if track_nulls:
-        out = torch.stack([out, (~m).to(torch.float32)],
-                          dim=2).reshape(out.shape[0], -1)
     return _emit(stage, out, meta)
+
+
+def _device_fill(stage: Transformer, env, fills: Sequence[float],
+                 track_nulls: bool):
+    """The fill vectorizers' ``device_columnar``: ``env`` maps each input
+    to its staged (float32 values, bool mask) (``plan.py``)."""
+    ins = [env[f.name] for f in stage.input_features]
+    return _fill_matrix(stage, [v.reshape(-1).to(torch.float32)
+                                for v, _ in ins],
+                        [m for _, m in ins], fills, track_nulls), None
 
 
 class RealVectorizer(Estimator):
@@ -210,6 +229,9 @@ class RealVectorizerModel(Transformer):
         self.fills = fills
         self.track_nulls = track_nulls
 
+    def device_columnar(self, env):
+        return _device_fill(self, env, self.fills, self.track_nulls)
+
     def transform_column(self, table: FeatureTable) -> Column:
         return _fill_blocks(self, table, self.fills, self.track_nulls)
 
@@ -258,6 +280,10 @@ class BinaryVectorizer(Transformer):
         self.fill_value = fill_value
         self.track_nulls = track_nulls
 
+    def device_columnar(self, env):
+        return _device_fill(self, env, [float(self.fill_value)] * len(
+            self.input_features), self.track_nulls)
+
     def transform_column(self, table: FeatureTable) -> Column:
         return _fill_blocks(self, table,
                             [float(self.fill_value)] * len(
@@ -271,6 +297,10 @@ class RealNNVectorizer(Transformer):
 
     def __init__(self, uid: Optional[str] = None):
         super().__init__("vecRealNN", uid)
+
+    def device_columnar(self, env):
+        return torch.stack([env[f.name][0].reshape(-1).to(torch.float32)
+                            for f in self.input_features], dim=1), None
 
     def transform_column(self, table: FeatureTable) -> Column:
         blocks = [_f32(table, table[f.name]) for f in self.input_features]
@@ -866,13 +896,20 @@ class VectorsCombiner(Transformer):
     def __init__(self, uid: Optional[str] = None):
         super().__init__("combined", uid)
 
+    @staticmethod
+    def _block(arr: torch.Tensor) -> torch.Tensor:
+        arr = arr.to(torch.float32)
+        return arr[:, None] if arr.dim() == 1 else arr
+
+    def device_columnar(self, env):
+        return torch.cat([self._block(env[f.name][0])
+                          for f in self.input_features], dim=1), None
+
     def transform_column(self, table: FeatureTable) -> Column:
         blocks, metas = [], []
         for f in self.input_features:
             col = table[f.name]
-            arr = _tensor(table, col.values).to(torch.float32)
-            if arr.dim() == 1:
-                arr = arr[:, None]
+            arr = self._block(_tensor(table, col.values))
             blocks.append(arr)
             vm = col.metadata.get("vector_meta")
             if vm is None:

@@ -485,6 +485,20 @@ class SanityCheckerModel(AllowLabelAsInput, Transformer):
         self.keep_indices = list(keep_indices)
         self.summary = summary
 
+    def device_inputs(self) -> List[str]:
+        """The fitted filter reads the vector alone (the label feeds the
+        estimator)."""
+        return [self.input_features[1].name]
+
+    def device_columnar(self, env):
+        """The keep slice of the staged vector (``plan.py``); the keep
+        indices are a device constant, copied once, never inside a CUDA
+        graph's capture."""
+        vals, _ = env[self.input_features[1].name]
+        keep = self.device_constant("keep", self.keep_indices, torch.long,
+                                    vals.device)
+        return vals.index_select(1, keep), None
+
     def transform_column(self, table: FeatureTable) -> Column:
         _, vec_f = self.input_features
         col = table[vec_f.name]

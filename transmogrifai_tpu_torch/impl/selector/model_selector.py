@@ -419,7 +419,7 @@ def _ranked_candidates(best, larger_better: bool
 class SelectedModel(AllowLabelAsInput, Transformer):
     """The fitted winner: inputs are (label, feature vector); emits an
     (n, k) Prediction column with keys prediction / rawPrediction_i /
-    probability_i. Exactly n rows: no padding to row buckets."""
+    probability_i, predicted at the rows' padding bucket."""
 
     output_type = Prediction
 
@@ -448,14 +448,49 @@ class SelectedModel(AllowLabelAsInput, Transformer):
         inside = (idx >= 0) & (idx < size)
         return torch.where(inside, table[idx.clamp(0, size - 1)], pred)
 
-    def transform_column(self, table: FeatureTable) -> Column:
-        _, vec_f = self.input_features
-        X = table[vec_f.name].values.to(torch.float32)
+    #: the predict runs as its own planned segment, never fused into the
+    #: vectorizers' (``plan.py``): its (n, k) output is a program boundary
+    device_fusion_barrier = True
+
+    @property
+    def device_fusable(self) -> bool:
+        """True when the winning family has a ``predict_parts`` of its own:
+        the Prediction emission is then a planned segment."""
+        family = MODEL_REGISTRY[self.fitted.family]
+        return type(family).predict_parts is not ModelFamily.predict_parts
+
+    def device_inputs(self) -> List[str]:
+        """The feature vector alone (the label feeds training)."""
+        return [self.input_features[-1].name]
+
+    def _predict(self, X: torch.Tensor) -> torch.Tensor:
+        """(n, k) Prediction matrix in ``prediction_column``'s key order."""
         family = MODEL_REGISTRY[self.fitted.family]
         parts = family.predict_parts(self.fitted, X)
         parts = dict(parts,
                      prediction=self._unmap_prediction(parts["prediction"]))
         return prediction_column(parts)
+
+    def device_columnar(self, env):
+        """``transform_column`` on the staged float32 vector: for a tree
+        family this launches ``forest_predict_heap`` or
+        ``forest_predict_chain``."""
+        X, _ = env[self.device_inputs()[0]]
+        return self._predict(X).values, None
+
+    def transform_column(self, table: FeatureTable) -> Column:
+        """The predict at the rows' padding bucket (zero rows after the
+        table's), as the JAX package runs it and as a planned segment
+        does: a row's result does not depend on how many rows ride with
+        it (a linear family's matmul, a vectorized sigmoid's tail)."""
+        _, vec_f = self.input_features
+        X = table[vec_f.name].values.to(torch.float32)
+        n = X.shape[0]
+        n_pad = bucket_for(n) if n else 0
+        if n_pad != n:
+            X = torch.cat([X, X.new_zeros((n_pad - n,) + X.shape[1:])])
+        col = self._predict(X)
+        return Column(Prediction, col.values[:n], None, col.metadata)
 
     def summary_pretty(self) -> str:
         """The JAX package's text summary of the selection."""

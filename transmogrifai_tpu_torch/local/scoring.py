@@ -12,9 +12,10 @@ hands back plain python records: a Prediction as ``{key: float}``.
   path (byte-identical by construction).
 * :func:`compiled_score_function` — the schema-guarded columnar pass: a
   descriptive :class:`ScoreSchemaError` *before* any data reaches the
-  card, then the model's stages. (The JAX package fuses the stages into
-  one XLA program per segment here; the port has no plan compiler yet,
-  ROADMAP Queue 1 item 3, and runs them as ``model.score`` does.)
+  card, then the model's stages as a plan (``plan.py``: host waves and
+  one program per device segment, a CUDA graph per bucket on the card),
+  or as ``model.score`` runs them where no plan applies or a planned run
+  fell back.
 * :class:`ServeStages` — the same pass cut into gather / dispatch /
   flatten for the pipelined serving dataplane (``serving/runtime.py``);
   on CUDA it stages through pooled pinned buffers on its own stream.
@@ -155,7 +156,8 @@ class _CompiledScore:
 
     def __init__(self, model):
         self.model = model
-        stages = list(model.stages)
+        stages = self.stages = list(model.stages)
+        self.result_names = [f.name for f in model.result_features]
         # the fitted column set: every column the pass reads that no
         # stage of the model produces must arrive in the input table
         produced = {s.get_output().name for s in stages}
@@ -185,10 +187,20 @@ class _CompiledScore:
             raise ScoreSchemaError(
                 f"input is missing column(s) {missing} required by the "
                 f"fitted model; table has {sorted(table.column_names)}")
-        for nm in self.required:
+        self._check_columns(table, self.required)
+
+    def _check_columns(self, table: FeatureTable, names) -> None:
+        for nm in names:
             col = table[nm]
-            if col.kind not in DEVICE_KINDS or not isinstance(
-                    col.values, np.ndarray):
+            if col.kind not in DEVICE_KINDS:
+                continue
+            if isinstance(col.values, torch.Tensor):
+                want = self.expected.get(nm)
+                got = tuple(col.values.shape[1:])
+                if want is not None and got != want:
+                    raise ScoreSchemaError(
+                        f"column '{nm}': per-row shape {got} does not "
+                        f"match the fitted schema {want}")
                 continue
             try:
                 v = np.asarray(col.values, dtype=np.float32)
@@ -205,8 +217,21 @@ class _CompiledScore:
             self.expected.setdefault(nm, tuple(v.shape[1:]))
 
     def run(self, table: FeatureTable) -> FeatureTable:
-        """The model's stages on a checked table (host or on the device)."""
-        return self.model.score(table=table)
+        """The model's stages on a checked table (host or on the device):
+        planned with only the result columns kept, the plan's device
+        inputs validated before any dispatch; ``model.score`` where no
+        plan applies or the planned run fell back (recorded)."""
+        from .. import plan as _plan
+        table = table.to_device(self.model.device)
+        plan = _plan.get_plan(self.stages, table, keep_intermediates=False,
+                              extra_keep=self.result_names, cat="score")
+        if plan is None:
+            return self.model.score(table=table)
+        self._check_columns(table, plan.device_table_inputs(table))
+        out = _plan.run_planned(plan, table)
+        if out is None:
+            return self.model.score(table=table)
+        return out
 
     def __call__(self, table: FeatureTable) -> FeatureTable:
         self.check(table)
@@ -216,7 +241,10 @@ class _CompiledScore:
 def compiled_score_function(model) -> Callable[[FeatureTable], FeatureTable]:
     """``score(table) -> FeatureTable``: the serve pass with the serve-time
     schema guard, a descriptive :class:`ScoreSchemaError` before any data
-    reaches the card, then the model's stages on its device."""
+    reaches the card, then the model's stages on its device as one plan
+    (``plan.get_plan(..., keep_intermediates=False, extra_keep=result
+    names)``): the result columns and the host stages' columns come back,
+    fused intermediates nobody reads do not."""
     return _CompiledScore(model)
 
 
@@ -289,7 +317,8 @@ class ServeStages:
       for the masks) and copied with ``non_blocking=True`` on the
       runtime's stream: the device table has ``FeatureTable.to_device``'s
       layout and values.
-    * :meth:`dispatch` — run the model's stages on the runtime's stream,
+    * :meth:`dispatch` — run the model's stages (planned: the segments'
+      graphs replay on the runtime's stream) on the runtime's stream,
       enqueue the result columns' copies into pinned host blocks, record
       one event after them, and return without waiting.
     * :meth:`flatten` — wait on that event and produce exactly the

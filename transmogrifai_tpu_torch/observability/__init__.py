@@ -66,6 +66,12 @@ def reset() -> None:
     slo.reset()
 
 
+def _plan_cache_stats() -> Dict[str, int]:
+    """The transform-plan LRU's {"entries", "max"} (``plan.cache_stats``)."""
+    from .. import plan as _plan
+    return _plan.cache_stats()
+
+
 def summarize(tr: Optional[trace.Tracer] = None,
               reg: Optional[metrics.MetricsRegistry] = None
               ) -> Dict[str, Any]:
@@ -143,10 +149,10 @@ def summarize(tr: Optional[trace.Tracer] = None,
         "counters": counters,
         "scoring": scoring,
         "serving": serving,
-        # the port has no persistent program cache and no plan cache yet
-        # (ROADMAP Queue 1 items 3 and 10): the keys stay, at zero
+        # the port has no persistent program cache yet (ROADMAP Queue 1
+        # item 10): its key stays, at zero
         "compileCache": {"hits": 0, "misses": 0},
-        "planCache": {"entries": 0, "max": 0},
+        "planCache": _plan_cache_stats(),
         # cause-classified program builds + predicted/measured device
         # bytes (docs/observability.md "Compile & memory ledger")
         "compileLedger": ledger.ledger().snapshot(),

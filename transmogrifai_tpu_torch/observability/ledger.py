@@ -25,9 +25,8 @@ classifies the *cause*:
     — the sweep's packed grid block);
 ``cache-eviction``
     an unchanged program was rebuilt — its key was evicted from a
-    bounded LRU (``TG_PLAN_CACHE_MAX`` / ``TG_FUSED_CACHE_MAX``; the
-    caches report evictions via :func:`record_eviction`) or the cache
-    was cleared;
+    bounded LRU (``TG_PLAN_CACHE_MAX``; the caches report evictions
+    via :func:`record_eviction`) or the cache was cleared;
 ``aot-miss``
     the AOT program store was active but could not serve this build —
     no entry for the key, a version or device-kind mismatch, a corrupt

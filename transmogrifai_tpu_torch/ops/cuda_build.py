@@ -148,10 +148,47 @@ def ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+_CAPTURE = threading.local()
+
+
+class capturing:
+    """While a CUDA graph is captured on this thread: a launch is
+    recorded into the graph, not run, so ``launches`` does not move; the
+    block's ``counts`` {kernel: launches recorded} are what each replay of
+    the graph runs (``CudaKernel.count_replays``), and ``after`` the
+    callables registered with ``after_replay``, which the graph's owner
+    calls after each replay."""
+
+    def __enter__(self) -> "capturing":
+        self._outer = (getattr(_CAPTURE, "counts", None),
+                       getattr(_CAPTURE, "after", None))
+        _CAPTURE.counts = self.counts = {}
+        _CAPTURE.after = self.after = []
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _CAPTURE.counts, _CAPTURE.after = self._outer
+
+
+def after_replay(fn) -> bool:
+    """Run ``fn()`` after each replay of the graph being captured on this
+    thread (on the replaying stream, once the replay is enqueued): how a
+    wrapper that holds a launch to its plain version reaches launches that
+    replays run. False when no capture is open here."""
+    after = getattr(_CAPTURE, "after", None)
+    if after is None:
+        return False
+    after.append(fn)
+    return True
+
+
 class CudaKernel:
     """One hand-written CUDA kernel bound through ``ctypes``.
 
-    ``launches`` counts the launches of the kernel and nothing else."""
+    ``launches`` counts the launches of the kernel and nothing else: a
+    call through the wrapper, or a replay of a CUDA graph that holds it
+    (``count_replays``; a launch recorded into a graph while it is
+    captured counts at each replay, not at the capture)."""
 
     def __init__(self, name: str, source: str, replaces: str, argtypes):
         self.name = name
@@ -160,6 +197,10 @@ class CudaKernel:
         self.argtypes = argtypes
         self.launches = 0
         self._fn = None                 # the bound entry, after first use
+
+    def count_replays(self, launches: int) -> None:
+        """Account ``launches`` runs of this kernel by graph replays."""
+        self.launches += launches
 
     def entry(self, name: str, argtypes):
         """Another C entry of this kernel's library (a host-side helper,
@@ -177,4 +218,8 @@ class CudaKernel:
         if err != 0:
             msg = load(self.source).tg_cuda_error_string(err).decode()
             raise RuntimeError(f"{self.name}: CUDA error {err} ({msg})")
-        self.launches += 1
+        counts = getattr(_CAPTURE, "counts", None)
+        if counts is not None:
+            counts[self] = counts.get(self, 0) + 1
+        else:
+            self.launches += 1

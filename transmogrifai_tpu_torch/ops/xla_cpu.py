@@ -177,7 +177,7 @@ def xla_sum(x: torch.Tensor) -> torch.Tensor:
         pad = -(-n // W) * W - n
         x = torch.cat([x.new_zeros((pad // 2,) + tuple(x.shape[1:])), x,
                        x.new_zeros((pad - pad // 2,) + tuple(x.shape[1:]))])
-        x = _seq_sum(x.reshape((-1, W) + tuple(x.shape[1:])))
+        x = _seq_sum(x.reshape((x.shape[0] // W, W) + tuple(x.shape[1:])))
     return _seq_sum(x[None])[0]
 
 

@@ -672,9 +672,10 @@ def _fsync_dir(path: str) -> None:
 def _advisory_sections(model, manifest: CheckpointManifest) -> None:
     """The JAX package's advisory manifest sections: ``serving`` (the
     serve pass's schema fingerprint, which a warm registry load checks;
-    ``serving/warmup.py``) and ``drift`` (per-feature training sketches
+    ``serving/warmup.py``), ``drift`` (per-feature training sketches
     and fill rates, which a registry load hands to a ``DriftMonitor``;
-    ``serving/drift.py``). A model whose extracts cannot take the
+    ``serving/drift.py``) and ``costs`` (the planned segments' measured
+    bytes, which placement reads; ``serving/placement.py``). A model whose extracts cannot take the
     synthetic probe ships no fingerprint, and one without a usable
     training table (a loaded model) no baseline: neither ever fails a
     save."""
@@ -686,6 +687,16 @@ def _advisory_sections(model, manifest: CheckpointManifest) -> None:
     try:
         from .serving.drift import manifest_drift_entry
         manifest.drift = manifest_drift_entry(model)
+    except Exception:
+        pass
+    # the process's measured (segment fingerprint x bucket) cost rows
+    # (``observability/devicemem``, filled by planned dispatches): what
+    # placement and admission read at load
+    try:
+        from .observability import devicemem as _devicemem
+        costs = _devicemem.costs_manifest_entry()
+        if costs.get("table"):
+            manifest.costs = costs
     except Exception:
         pass
 

@@ -62,9 +62,8 @@ from .policy import FaultLog, RetryPolicy
 Schedule = Dict[str, Any]
 
 #: registered sites whose modules are not ported yet: the AOT program
-#: store (``aot.load``, ROADMAP Queue 1 item 10) and the transform-plan
-#: compiler (``plan.segment_execute``, ``oom.plan``, item 3)
-WAITING_SITES = frozenset({"aot.load", "plan.segment_execute", "oom.plan"})
+#: store (``aot.load``, ROADMAP Queue 1 item 10)
+WAITING_SITES = frozenset({"aot.load"})
 
 
 def campaign_sites() -> List[str]:

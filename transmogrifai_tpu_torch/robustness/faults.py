@@ -15,10 +15,9 @@ randomness, so a schedule replays the same faults on every run.
 
 ``ALL_SITES`` is the JAX package's registry, name for name, mode for mode
 (its ``module`` field names the JAX package's file), so a schedule means
-the same in both packages. The port fires every site but three whose
-modules are not ported yet: ``aot.load`` (the AOT program store, ROADMAP
-Queue 1 item 10) and ``plan.segment_execute`` and ``oom.plan`` (the
-transform-plan compiler, item 3); ``campaign.WAITING_SITES`` names them.
+the same in both packages. The port fires every site but one whose module
+is not ported yet: ``aot.load`` (the AOT program store, ROADMAP Queue 1
+item 10); ``campaign.WAITING_SITES`` names it.
 ``sites_for_scenario`` lists the sites a campaign scenario exercises.
 
 Modes: ``raise`` (``TransientFaultError``, or ``InjectedFaultError`` with

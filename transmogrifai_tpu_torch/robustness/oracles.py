@@ -5,9 +5,9 @@ the same probe names, messages and :data:`THREAD_PREFIXES` (the port's
 worker threads carry the JAX package's names), over the port's runtimes,
 fleets, network edges, placers, device feeds, watchdog hearts, drift
 refits, fault sites, post-mortem bundles, flight recorder, compile ledger,
-SLO state and histogram engine. The JAX package's ``programstore`` and
-``plan`` cache probes wait for those subsystems (ROADMAP Queue 1 items 10
-and 3): :func:`campaign_violations` calls only the probes that exist.
+SLO state, histogram engine and transform-plan cache. The JAX package's
+``programstore`` probes wait for the program store (ROADMAP Queue 1 item
+10): :func:`campaign_violations` calls only the probes that exist.
 
 The test fixtures and the chaos-campaign engine need the SAME checks —
 "no serving runtime survived", "no feed/watchdog/refit thread is alive",
@@ -252,6 +252,23 @@ def histeng_violations() -> List[str]:
     return out
 
 
+def plan_cache_violations() -> List[str]:
+    """The transform-plan LRU must stay bounded and no forced planner
+    enable/disable override may linger."""
+    from .. import plan as _plan
+    out: List[str] = []
+    if not (isinstance(_plan._PLAN_CACHE_MAX, int)
+            and _plan._PLAN_CACHE_MAX > 0):
+        out.append(f"plan cache bound is {_plan._PLAN_CACHE_MAX!r}, "
+                   f"not a positive int")
+    elif len(_plan._PLAN_CACHE) > _plan._PLAN_CACHE_MAX:
+        out.append(f"plan cache exceeded its LRU bound: "
+                   f"{len(_plan._PLAN_CACHE)} > {_plan._PLAN_CACHE_MAX}")
+    if _plan._enabled_override is not None:
+        out.append("a forced planner enable/disable override is active")
+    return out
+
+
 # -- force-clean helpers (used on exit so one leak cannot cascade) ----------
 
 def close_leaked_serving() -> List[str]:
@@ -365,6 +382,7 @@ def campaign_violations(clean: bool = True,
     threads = leaked_threads()
     if threads:
         out.append(f"worker thread(s) survived: {threads}")
+    out.extend(plan_cache_violations())
     out.extend(histeng_violations())
     out.extend(blackbox_violations())
     out.extend(ledger_violations())

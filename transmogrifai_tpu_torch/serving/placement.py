@@ -16,9 +16,13 @@ The PyTorch port's copy of the JAX package's ``serving/placement.py``:
 the same names, chaos sites, FaultLog kinds, series and snapshot. The
 byte axis reads the ``costs`` rows of a saved model's MANIFEST. The JAX
 package writes them (measured by XLA, not on the card); the port writes
-none of its own yet (ROADMAP Queue 1 item 3), so a port-saved model is
-blind-admitted (``placement_blind_admit``), as the JAX package admits a
-model without costs.
+its own: a planned segment's dispatches record one row per (segment,
+bucket) (the graph pool's growth at a capture on the card, the predicted
+bytes on the CPU; ``plan.py``), and ``save_model`` after a warm pass, or
+a registry load's ``persist_costs``, puts them in the manifest. A model
+saved with none (no planned dispatch in its process) is blind-admitted
+(``placement_blind_admit``), as the JAX package admits a model without
+costs.
 
 Capacity is two-dimensional and both axes are optional:
 

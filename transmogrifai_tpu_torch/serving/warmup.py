@@ -8,27 +8,27 @@ names and JSON shapes:
 
 * **save time** — :func:`manifest_serving_entry` records the serve pass's
   *schema fingerprint* (per external column name / dtype / trailing shape
-  / mask presence, what the JAX package's ``plan.py`` keys its cache on)
-  in the model's ``MANIFEST.json``. It is computed from a synthetic
-  all-missing request batch, schema-identical to any real batch, and
-  equals the JAX package's fingerprint for the same model: the port keeps
-  its own copy of ``plan.schema_fingerprint`` (:func:`schema_fingerprint`)
-  and does not port the plan compiler (ROADMAP Queue 1 item 3).
+  / mask presence, what ``plan.py`` keys its cache on,
+  ``plan.schema_fingerprint``) in the model's ``MANIFEST.json``. It is
+  computed from a synthetic all-missing request batch, schema-identical
+  to any real batch, and equals the JAX package's fingerprint for the
+  same model.
 * **load time** — :func:`warm_runtime` drives the runtime's scorer once
   over the same synthetic batch, so every kernel library is built and
-  loaded before the first real request, and checks the recorded
+  loaded, and the serve plan built and its first bucket's CUDA graphs
+  captured, before the first real request; it checks the recorded
   fingerprint against the loaded model's (a mismatch is reported in the
   health snapshot, never fatal).
 
-The warm report keeps every key of the JAX package's. Until the plan
-compiler and the program store are ported (ROADMAP Queue 1 items 3 and
-10), ``plansWarmed``, ``aotHits``, ``aotMisses`` and ``aotExports`` are 0
-and ``compiles`` counts the ledger's builds.
+The warm report keeps every key of the JAX package's: ``plansWarmed``
+counts the plan cache entries the warm pass added and ``compiles`` the
+ledger's builds. Until the program store is ported (ROADMAP Queue 1 item
+10), ``aotHits``, ``aotMisses`` and ``aotExports`` are 0.
 """
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence
 
 from ..local.scoring import serve_table_builder
 
@@ -47,49 +47,13 @@ def _warm_rows(rows: Optional[int] = None) -> int:
         return DEFAULT_WARM_ROWS
 
 
-def _device_inputs(stage: Any) -> List[str]:
-    if hasattr(stage, "device_inputs"):
-        return list(stage.device_inputs())
-    return [f.name for f in stage.input_features]
-
-
-def _host_inputs(stage: Any) -> List[str]:
-    return [f.name for f in stage.input_features]
-
-
-def _schema_fingerprint(stages: Sequence[Any], table) -> Tuple:
-    """Per-column (name, dtype, trailing shape, mask-is-None) of every
-    external column the stage sequence reads from the host ``table``, in
-    the order the stages read them (the JAX package's
-    ``plan._schema_fingerprint``)."""
-    produced = {s.get_output().name for s in stages}
-    items: List[Tuple] = []
-    seen = set()
-    present = set(table.column_names)
-    for s in stages:
-        for nm in list(_host_inputs(s)) + list(_device_inputs(s)):
-            if nm in produced or nm in seen:
-                continue
-            seen.add(nm)
-            if nm not in present:
-                # response features are train-only; anything else missing
-                # is the serve pass's (descriptive) error to raise
-                continue
-            col = table[nm]
-            v = col.values
-            items.append((nm, str(getattr(v, "dtype", "object")),
-                          tuple(int(x) for x in v.shape[1:]),
-                          col.mask is None))
-    return tuple(items)
-
-
 def schema_fingerprint(stages: Sequence[Any], table) -> List[List[Any]]:
-    """JSON-ready ``[[column, dtype, trailing shape, mask-is-None], ...]``;
-    row count is absent, so a fingerprint recorded at save time matches
-    any request batch of the same schema."""
-    return [[nm, dt, list(shape), bool(maskless)]
-            for nm, dt, shape, maskless in _schema_fingerprint(
-                list(stages), table)]
+    """JSON-ready ``[[column, dtype, trailing shape, mask-is-None], ...]``
+    of the planner's cache key (``plan.schema_fingerprint``); row count is
+    absent, so a fingerprint recorded at save time matches any request
+    batch of the same schema."""
+    from ..plan import schema_fingerprint as _fingerprint
+    return _fingerprint(stages, table)
 
 
 def serve_plan_fingerprint(model, rows: int = 1) -> List[List[Any]]:
@@ -119,9 +83,11 @@ def warm_runtime(runtime, entry: Optional[Dict[str, Any]] = None,
     counterpart until ROADMAP Queue 1 item 10. Never raises — a model
     whose raw extracts cannot take an all-missing probe row serves its
     first request cold (reported)."""
+    from .. import plan as _plan
     from ..observability import ledger as _ledger
     n = _warm_rows(rows if rows is not None
                    else (entry or {}).get("warmRows"))
+    before = _plan.cache_stats()["entries"]
     led = _ledger.ledger()
     mark = led.mark()
     info: Dict[str, Any] = {"rows": n, "plansWarmed": 0, "ok": True,
@@ -132,6 +98,7 @@ def warm_runtime(runtime, entry: Optional[Dict[str, Any]] = None,
     except Exception as e:
         info["ok"] = False
         info["error"] = f"{type(e).__name__}: {e}"[:300]
+    info["plansWarmed"] = max(0, _plan.cache_stats()["entries"] - before)
     info["aotHits"] = 0
     info["aotMisses"] = 0
     info["aotExports"] = 0

@@ -254,6 +254,8 @@ class FeatureTable:
         into one block per dtype and the masks into one bool block, each
         block is copied once, and the columns become views of the copies.
         Host kinds stay on the host; the table records ``device``.
+        ``tg_device_transfer_total`` counts the blocks (O(dtypes), not
+        O(columns)) and ``tg_transfer_bytes_total`` their bytes.
 
         ``host_buffer(dtype, numel)``, when given, hands out a pinned 1-D
         host tensor of at least ``numel`` elements: each block is packed
@@ -282,6 +284,18 @@ class FeatureTable:
         flat = {dt: block([v for _, v in parts])
                 for dt, parts in by_dtype.items()}
         mask_at: Dict[str, torch.Tensor] = {}
+        if by_dtype or masked:
+            from .observability import metrics as _obs_metrics
+            _obs_metrics.inc_counter(
+                "tg_device_transfer_total",
+                float(len(by_dtype) + bool(masked)),
+                help="host-to-device uploads (packed: one a dtype)")
+            _obs_metrics.inc_counter(
+                "tg_transfer_bytes_total", float(
+                    sum(v.nbytes for parts in by_dtype.values()
+                        for _, v in parts)
+                    + sum(m.nbytes for _, m in masked)), direction="h2d",
+                help="bytes moved across the host<->device link")
         if masked:
             mdev = block([m for _, m in masked])
             off = 0

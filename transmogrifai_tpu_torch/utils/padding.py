@@ -1,8 +1,9 @@
 """Row-count bucketing (a copy of ``transmogrifai_tpu.utils.padding``'s
-``row_bucket`` / ``bucket_for``). The port compiles nothing per shape, but
-it pads rows to the same buckets as the JAX package wherever a padded row
-changes a result: the tree fits bin and sample the padded matrix, so the
-bucket is part of the model."""
+``row_bucket`` / ``bucket_for`` / ``padded_bytes``). The port pads rows to
+the same buckets as the JAX package wherever a padded row changes a result
+(the tree fits bin and sample the padded matrix, so the bucket is part of
+the model) and where a program is reused per shape: a planned segment
+runs at its bucket, one CUDA graph a bucket (``plan.py``)."""
 from __future__ import annotations
 
 import math
@@ -30,3 +31,18 @@ def bucket_for(n: int, multiple_of: int = 1) -> int:
     if multiple_of > 1:
         b = int(math.ceil(b / multiple_of) * multiple_of)
     return b
+
+
+def padded_bytes(n_pad: int, trailing=(), itemsize: int = 4,
+                 with_mask: bool = True) -> int:
+    """Device bytes one padded column stages: ``n_pad`` rows of
+    ``trailing``-shaped ``itemsize`` cells, plus the bool validity mask of
+    one byte a row that a planned segment always stages (the JAX
+    package's ``padded_bytes``)."""
+    cells = 1
+    for x in trailing:
+        cells *= int(x)
+    total = int(n_pad) * cells * int(itemsize)
+    if with_mask:
+        total += int(n_pad)
+    return total

@@ -10,7 +10,11 @@ the encodings PLAIN, PLAIN_DICTIONARY / RLE_DICTIONARY and the
 RLE/bit-packed hybrid (levels, dictionary indices, RLE booleans), any
 other raising by name; optional and required columns, groups (structs),
 the 3-level ``LIST`` and the legacy 2-level list; the logical types
-String/UTF8, the INT widths, DATE and TIMESTAMP (ms, us, ns).
+String/UTF8, the INT widths, FLOAT16, DATE, TIME and TIMESTAMP (ms, us,
+ns). A directory reads as pyarrow's dataset reads it: its data files (not
+those whose name starts with ``_`` or ``.``) in the order of their sorted
+paths, the columns of each concatenated, and each hive-style
+``key=value`` directory level a column after the files' own.
 
 ``read_parquet`` gives each column as ``pd.read_parquet`` gives it (pandas
 3 on pyarrow):
@@ -19,6 +23,11 @@ String/UTF8, the INT widths, DATE and TIMESTAMP (ms, us, ns).
   null is an object column of True/False/None; a string column is an
   object column whose nulls are NaN; binary, DATE (``datetime.date``)
   and null-typed columns are object columns with None;
+- FLOAT16 is float16 with NaN; TIME is an object column of
+  ``datetime.time`` with None;
+- a hive partition column is an object column of the directories' value
+  strings, or int32 where every value is an int32 (pandas reads it as a
+  category, and this is its ``to_numpy()``);
 - TIMESTAMP is ``datetime64[unit]`` with NaT (a UTC-adjusted one too:
   numpy has no time zone);
 - a struct is a dict holding every key of the struct (a null field
@@ -47,6 +56,7 @@ from __future__ import annotations
 import datetime
 import json
 import math
+import os
 import struct
 import zlib
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
@@ -73,6 +83,7 @@ PLAIN, PLAIN_DICTIONARY, RLE, RLE_DICTIONARY = 0, 2, 3, 8
 DATA_PAGE, DICTIONARY_PAGE, DATA_PAGE_V2 = 0, 2, 3
 # converted types
 UTF8, MAP, MAP_KEY_VALUE, LIST, ENUM, DECIMAL, DATE = 0, 1, 2, 3, 4, 5, 6
+TIME_MILLIS, TIME_MICROS = 7, 8
 TIMESTAMP_MILLIS, TIMESTAMP_MICROS = 9, 10
 _CONVERTED_INTS = {11: (8, False), 12: (16, False), 13: (32, False),
                    14: (64, False), 15: (8, True), 16: (16, True),
@@ -748,6 +759,38 @@ def _int_kind(leaf: _Node) -> Tuple[int, bool]:
     return (64 if leaf.type == INT64 else 32), True
 
 
+def _time_unit(leaf: _Node) -> Optional[str]:
+    """The unit of a TIME leaf ("ms", "us" or "ns"), None for another."""
+    tm = leaf.logical.get(7)
+    if tm is not None:
+        unit = tm.get(2) or {}
+        return "ms" if 1 in unit else "us" if 2 in unit else "ns"
+    if leaf.converted == TIME_MILLIS:
+        return "ms"
+    if leaf.converted == TIME_MICROS:
+        return "us"
+    return None
+
+
+def _times(values: np.ndarray, unit: str, path: str) -> List[Any]:
+    """TIME values as ``datetime.time`` (pandas' conversion: whole
+    microseconds; a nanosecond remainder raises there and here)."""
+    v = values.astype(np.int64)
+    if unit == "ns":
+        if (v % 1000).any():
+            raise ParquetError(f"{path}: a TIME value has non-zero "
+                               f"nanoseconds")
+        v = v // 1000
+    elif unit == "ms":
+        v = v * 1000
+    out = []
+    for us in v.tolist():
+        sec, micro = divmod(us, 1_000_000)
+        minute, second = divmod(sec, 60)
+        out.append(datetime.time(minute // 60, minute % 60, second, micro))
+    return out
+
+
 _EPOCH = datetime.date(1970, 1, 1)
 
 
@@ -777,6 +820,12 @@ def _convert(leaf: _Node, values: np.ndarray, valid: np.ndarray,
             out[valid] = [_EPOCH + datetime.timedelta(days=int(d))
                           for d in values]
             return out
+        tunit = _time_unit(leaf)
+        if tunit is not None:
+            out = np.empty(n, dtype=object)
+            out[:] = None
+            out[valid] = _times(values, tunit, path)
+            return out
         unit = _timestamp_unit(leaf) if pt == INT64 else None
         if unit is not None:
             out = np.full(n, np.datetime64("NaT"), dtype=f"M8[{unit}]")
@@ -798,6 +847,10 @@ def _convert(leaf: _Node, values: np.ndarray, valid: np.ndarray,
         dt = np.float32 if pt == FLOAT else np.float64
         out = np.full(n, np.nan, dtype=dt)
         out[valid] = values
+        return out
+    if pt == FIXED and 15 in leaf.logical:          # FLOAT16
+        out = np.full(n, np.nan, dtype=np.float16)
+        out[valid] = np.frombuffer(b"".join(values.tolist()), dtype="<f2")
         return out
     if pt in (BYTE_ARRAY, FIXED):
         if 5 in leaf.logical or leaf.converted == DECIMAL:
@@ -985,8 +1038,80 @@ def _footer(data: bytes, path: str) -> Dict[str, Any]:
 
 
 def read_parquet(path: str) -> Dict[str, np.ndarray]:
-    """The columns of a Parquet file, {name: numpy column} in schema order,
-    as ``pd.read_parquet`` gives them (module docstring)."""
+    """The columns of a Parquet file or a directory of them, {name: numpy
+    column} in schema order, as ``pd.read_parquet`` gives them (module
+    docstring)."""
+    if os.path.isdir(path):
+        return _read_dataset(path)
+    return _read_file(path)
+
+
+def _dataset_files(root: str) -> List[Tuple[str, List[Tuple[str, str]]]]:
+    """(file, [(partition key, value string), ...]) of every data file
+    under ``root``, in the order of their sorted paths."""
+    from urllib.parse import unquote
+    found = []
+    for dirpath, dirs, files in os.walk(root):
+        dirs[:] = [d for d in dirs if not d.startswith(("_", "."))]
+        found.extend(os.path.join(dirpath, f) for f in files
+                     if not f.startswith(("_", ".")))
+    out = []
+    for f in sorted(found):
+        parts = os.path.relpath(f, root).split(os.sep)[:-1]
+        out.append((f, [tuple(unquote(x) for x in p.split("=", 1))
+                        for p in parts if "=" in p]))
+    return out
+
+
+def _partition_column(values: List[str]) -> np.ndarray:
+    """A hive partition level's values as pandas gives them: int32 where
+    every value is an int32, else strings."""
+    try:
+        ints = [int(v) for v in values]
+    except ValueError:
+        ints = None
+    if ints is not None and all(-2 ** 31 <= i < 2 ** 31 for i in ints):
+        return np.array(ints, dtype=np.int32)
+    out = np.empty(len(values), dtype=object)
+    out[:] = values
+    return out
+
+
+def _read_dataset(root: str) -> Dict[str, np.ndarray]:
+    files = _dataset_files(root)
+    if not files:
+        raise ParquetError(f"{root}: no Parquet files in the directory")
+    keys = [k for k, _ in files[0][1]]
+    parts: Dict[str, List[np.ndarray]] = {}
+    labels: Dict[str, List[str]] = {k: [] for k in keys}
+    for f, kv in files:
+        if [k for k, _ in kv] != keys:
+            raise ParquetError(f"{f}: partition keys {[k for k, _ in kv]} "
+                               f"differ from {keys}")
+        cols = _read_file(f)
+        if parts and list(cols) != list(parts):
+            raise ParquetError(f"{f}: columns {list(cols)} differ from "
+                               f"{list(parts)}")
+        for name, col in cols.items():
+            parts.setdefault(name, []).append(col)
+        n = len(next(iter(cols.values()))) if cols else \
+            _footer_rows(f)
+        for k, v in kv:
+            if v == "__HIVE_DEFAULT_PARTITION__":
+                raise ParquetError(f"{f}: a null partition value of "
+                                   f"'{k}' is not read")
+            labels[k].extend([v] * n)
+    out = {name: np.concatenate(cols) for name, cols in parts.items()}
+    for k in keys:
+        out[k] = _partition_column(labels[k])
+    return out
+
+
+def _footer_rows(path: str) -> int:
+    return int(read_metadata(path)["num_rows"])
+
+
+def _read_file(path: str) -> Dict[str, np.ndarray]:
     with open(path, "rb") as fh:
         data = fh.read()
     foot = _footer(data, path)

@@ -30,8 +30,11 @@ each family's sweep metrics (``impl.tuning.sweep_checkpoint``), so
 the committed sweep families and fits the rest, to the uninterrupted
 train's model bit for bit, also from a directory the JAX package wrote.
 ``with_fault_policy`` retries a stage fit that fails with a transient
-error, and ``with_profiler`` times every stage (``utils.profiler``). Mesh
-training is not ported (ROADMAP Queue 1 item 10); it raises.
+error, and ``with_profiler`` times every stage (``utils.profiler``): both
+keep each layer's transforms eager, stage by stage, where a train
+otherwise runs them as a plan (``plan.py``); a planned run that fell back
+to eager is in ``summary()["faults"]["planFallbacks"]``. Mesh training is
+not ported (ROADMAP Queue 1 item 10); it raises.
 
 A fitted model saves and loads in the JAX package's format
 (``OpWorkflowModel.save`` / ``load``, ``persistence``). ``summary()`` gives
